@@ -1,0 +1,399 @@
+"""Linear operators on fields.
+
+Counterpart of ``cmblensing_tpu/core/ops.py`` for what pol I and P need.
+Operator protocol (duck-typed):
+
+    op @ f        apply
+    op.solve(f)   apply the inverse (pinv-like, 0 on singular modes)
+    op.H          adjoint
+    op.sqrt()     operator square root
+    op.pinv()     pseudo-inverse operator
+    logdet(op)    log-determinant (per batch)
+    op(theta)     evaluate at parameters (no-op unless ParamDependentOp)
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .basis import Basis
+from .field import Field, batch_broadcast, white_noise_like
+from .proj import ProjLambert
+
+
+def nan2zero(x):
+    return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+
+def safe_divide(num, den):
+    """num/den with 0 where den == 0, with no inf*0 leaking into
+    gradients."""
+    ok = den != 0
+    den_safe = torch.where(ok, den, torch.ones_like(den))
+    q = num / den_safe
+    return torch.where(ok, q, torch.zeros_like(q))
+
+
+def safe_reciprocal(den):
+    ok = den != 0
+    den_safe = torch.where(ok, den, torch.ones_like(den))
+    return torch.where(ok, 1.0 / den_safe, torch.zeros_like(den))
+
+
+def safe_log_abs(x):
+    """log|x| with 0 where x == 0."""
+    ok = x != 0
+    x_safe = torch.where(ok, x, torch.ones_like(x))
+    return torch.where(ok, torch.log(torch.abs(x_safe)), torch.zeros_like(torch.abs(x)))
+
+
+# =========================================================================
+# Identity
+# =========================================================================
+
+class _Identity:
+    """Singleton identity operator."""
+
+    def __matmul__(self, f):
+        return f
+
+    def solve(self, f):
+        return f
+
+    @property
+    def H(self):
+        return self
+
+    def sqrt(self):
+        return self
+
+    def pinv(self):
+        return self
+
+    def __call__(self, theta=None, **kw):
+        return self
+
+    def __repr__(self):
+        return "Id"
+
+
+Identity = _Identity
+Id = _Identity()
+
+
+class OpAlgebra:
+    """Base of the field operators: evaluating one at parameters is a
+    no-op unless it is a ParamDependentOp."""
+
+    def __call__(self, theta=None, **kw):
+        return self
+
+
+# =========================================================================
+# Diag
+# =========================================================================
+
+class Diag(OpAlgebra):
+    """Diagonal operator: multiply in the basis of its diagonal field
+    after converting the operand to that basis."""
+
+    __slots__ = ("diag",)
+
+    def __init__(self, diag: Field):
+        self.diag = diag
+
+    @property
+    def basis(self):
+        return self.diag.basis
+
+    @property
+    def proj(self):
+        return self.diag.proj
+
+    def __matmul__(self, f):
+        if isinstance(f, Field):
+            g = f.to(self.basis)
+            return Field(self.diag.arr * g.arr, self.basis, g.proj)
+        return NotImplemented
+
+    def solve(self, f: Field) -> Field:
+        g = f.to(self.basis)
+        return Field(safe_divide(g.arr, self.diag.arr), self.basis, g.proj)
+
+    @property
+    def H(self):
+        return Diag(self.diag.conj())
+
+    def sqrt(self):
+        return Diag(Field(torch.sqrt(self.diag.arr), self.basis, self.proj))
+
+    def pinv(self):
+        return Diag(Field(safe_reciprocal(self.diag.arr), self.basis, self.proj))
+
+    def __getitem__(self, k):
+        return Diag(self.diag[k])
+
+    def __repr__(self):
+        return f"Diag({self.diag!r})"
+
+
+# =========================================================================
+# Scaled (scalar * op), supporting batched scalars
+# =========================================================================
+
+class Scaled(OpAlgebra):
+    __slots__ = ("scalar", "op")
+
+    def __init__(self, scalar, op):
+        self.scalar = scalar
+        self.op = op
+
+    def __matmul__(self, f):
+        g = self.op @ f
+        return Field(batch_broadcast(self.scalar, g) * g.arr, g.basis, g.proj)
+
+    def solve(self, f):
+        g = self.op.solve(f)
+        return Field(g.arr / batch_broadcast(self.scalar, g), g.basis, g.proj)
+
+    @property
+    def H(self):
+        s = self.scalar
+        return Scaled(torch.conj(s) if isinstance(s, torch.Tensor) else s, self.op.H)
+
+    def sqrt(self):
+        s = self.scalar
+        return Scaled(torch.sqrt(s) if isinstance(s, torch.Tensor) else float(np.sqrt(s)),
+                      self.op.sqrt())
+
+    def pinv(self):
+        return Scaled(1.0 / self.scalar, self.op.pinv())
+
+    def __repr__(self):
+        return f"({self.scalar} * {self.op!r})"
+
+
+# =========================================================================
+# LazyOp
+# =========================================================================
+
+class LazyOp(OpAlgebra):
+    """Lazy binary composition of operators: (+, -, *)."""
+
+    __slots__ = ("kind", "X", "Y")
+
+    def __init__(self, kind, X, Y):
+        self.kind = kind
+        self.X = X
+        self.Y = Y
+
+    def __matmul__(self, f):
+        if self.kind == "+":
+            return (self.X @ f) + (self.Y @ f)
+        if self.kind == "-":
+            return (self.X @ f) - (self.Y @ f)
+        if self.kind == "*":
+            return self.X @ (self.Y @ f)
+        raise ValueError(self.kind)
+
+    def solve(self, f):
+        if self.kind == "*":
+            return self.Y.solve(self.X.solve(f))
+        raise ValueError(f"can't invert lazy '{self.kind}' op")
+
+    @property
+    def H(self):
+        if self.kind == "*":
+            return LazyOp("*", self.Y.H, self.X.H)
+        return LazyOp(self.kind, self.X.H, self.Y.H)
+
+    def pinv(self):
+        if self.kind == "*":
+            return LazyOp("*", self.Y.pinv(), self.X.pinv())
+        raise ValueError(f"can't invert lazy '{self.kind}' op")
+
+    def __repr__(self):
+        return f"({self.X!r} {self.kind} {self.Y!r})"
+
+
+# =========================================================================
+# ParamDependentOp
+# =========================================================================
+
+class ParamDependentOp(OpAlgebra):
+    """An operator depending on parameters theta, with its dependencies
+    held explicitly: ``fn(deps, **theta)`` builds the operator. Calling
+    op(theta) evaluates; using the op directly applies it at the
+    fiducial parameters."""
+
+    __slots__ = ("params", "fn", "deps")
+
+    def __init__(self, params, fn, deps=()):
+        self.params = tuple(params)
+        self.fn = fn
+        self.deps = tuple(deps)
+
+    def __call__(self, theta=None, **kw):
+        theta = dict(theta or {})
+        theta.update(kw)
+        relevant = ({k: v for k, v in theta.items() if k in self.params}
+                    if self.params else dict(theta))
+        if not relevant:
+            return self.fiducial
+        return self.fn(self.deps, **relevant)
+
+    @property
+    def fiducial(self):
+        return self.fn(self.deps)
+
+    def depends_on(self, theta):
+        keys = theta.keys() if hasattr(theta, "keys") else theta
+        return (not self.params) or any(k in self.params for k in keys)
+
+    def __matmul__(self, f):
+        return self.fiducial @ f
+
+    def solve(self, f):
+        return self.fiducial.solve(f)
+
+    @property
+    def H(self):
+        return self.fiducial.H
+
+    def sqrt(self):
+        return self.fiducial.sqrt()
+
+    def pinv(self):
+        return self.fiducial.pinv()
+
+    def __getitem__(self, k):
+        return self.fiducial[k]
+
+
+def evaluate_at(op, theta):
+    """op(theta) for any operator, recursing through Scaled and LazyOp
+    compositions; parameter-independent operators come back as they
+    are."""
+    if isinstance(op, ParamDependentOp):
+        return op(theta)
+    if isinstance(op, Scaled):
+        inner = evaluate_at(op.op, theta)
+        return op if inner is op.op else Scaled(op.scalar, inner)
+    if isinstance(op, LazyOp):
+        X = evaluate_at(op.X, theta)
+        Y = evaluate_at(op.Y, theta)
+        return op if (X is op.X and Y is op.Y) else LazyOp(op.kind, X, Y)
+    return op
+
+
+def depends_on(op, theta):
+    if isinstance(op, ParamDependentOp):
+        return op.depends_on(theta)
+    if isinstance(op, Scaled):
+        return depends_on(op.op, theta)
+    if isinstance(op, LazyOp):
+        return depends_on(op.X, theta) or depends_on(op.Y, theta)
+    return False
+
+
+# =========================================================================
+# BandPass ops
+# =========================================================================
+
+def _bandpass_2d(ell, Wl, proj: ProjLambert):
+    W = np.interp(np.asarray(proj.lmag, dtype=np.float64).ravel(),
+                  np.asarray(ell, dtype=np.float64),
+                  np.asarray(Wl, dtype=np.float64),
+                  left=0.0, right=0.0).reshape(proj.shape_fourier)
+    return W.astype(proj.T)
+
+
+class BandPass:
+    """An ell-space filter (ell, Wl), realized as a real Fourier Diag on
+    a projection by .on(proj, pol)."""
+
+    def __init__(self, ell, Wl):
+        self.ell = np.asarray(ell, dtype=np.float64)
+        self.Wl = np.asarray(Wl, dtype=np.float64)
+
+    def on(self, proj: ProjLambert, pol="I") -> Diag:
+        W = _bandpass_2d(self.ell, self.Wl, proj)
+        b = Basis(pol, "fourier")
+        arr = np.broadcast_to(W[None], (b.ncomp,) + W.shape).copy()
+        return Diag(Field(torch.as_tensor(arr, device=proj.device), b, proj))
+
+
+
+def _cos_ramp_up(n):
+    return (np.cos(np.linspace(np.pi, 0, n)) + 1) / 2
+
+
+def LowPass(ell, dl=50):
+    return BandPass(np.arange(0, ell + 1),
+                    np.concatenate([np.ones(ell - dl + 1), 1 - _cos_ramp_up(dl)]))
+
+
+# =========================================================================
+# logdet / simulate
+# =========================================================================
+
+def logdet(op):
+    """Log-determinant, per batch, with rfft degeneracy weights."""
+    if isinstance(op, _Identity):
+        return 0.0
+    if isinstance(op, ParamDependentOp):
+        return logdet(op.fiducial)
+    if isinstance(op, Scaled):
+        # logdet(s*A) = n_nonzero * log|s| + logdet(A), counting only
+        # the nonzero modes of A (the pseudo-logdet convention)
+        s = op.scalar
+        logs = torch.log(torch.abs(s)) if isinstance(s, torch.Tensor) else float(np.log(abs(s)))
+        return logdet(op.op) + _op_nonzero_dim(op.op) * logs
+    if isinstance(op, Diag):
+        d = op.diag
+        if d.basis.is_fourier:
+            v = safe_log_abs(d.arr) * d.proj.tensor("lam_rfft")
+            return torch.sum(v, dim=(-1, -2, -3))
+        return torch.sum(safe_log_abs(d.arr), dim=(-1, -2, -3))
+    raise TypeError(f"logdet not implemented for {type(op)}")
+
+
+def _op_nonzero_dim(op):
+    """Number of nonzero modes of a Diag, with rfft degeneracy
+    weights."""
+    if isinstance(op, Diag):
+        d = op.diag
+        nz = (d.arr != 0).to(d.proj.torch_T)
+        if d.basis.is_fourier:
+            nz = nz * d.proj.tensor("lam_rfft")
+        return torch.sum(nz, dim=(-1, -2, -3))
+    raise TypeError(f"logdet of Scaled({type(op).__name__}) needs a Diag inside")
+
+
+def logdet_rel(op, theta):
+    """logdet(op(theta)) - logdet(op(fiducial)) if op depends on theta,
+    else 0."""
+    if depends_on(op, theta):
+        fid = op.fiducial if isinstance(op, ParamDependentOp) else evaluate_at(op, {})
+        return logdet(evaluate_at(op, theta)) - logdet(fid)
+    return 0.0
+
+
+def _diag_field_of(op):
+    if isinstance(op, Diag):
+        return op.diag
+    if isinstance(op, ParamDependentOp):
+        return _diag_field_of(op.fiducial)
+    if isinstance(op, Scaled):
+        f = _diag_field_of(op.op)
+        return Field(batch_broadcast(op.scalar, f) * f.arr, f.basis, f.proj)
+    raise TypeError(type(op))
+
+
+def simulate_op(generator, op):
+    """Draw xi with <xi xi'> = op: sqrt(op) @ white noise drawn from
+    `generator`."""
+    xi = white_noise_like(generator, _diag_field_of(op))
+    if isinstance(op, ParamDependentOp):
+        op = op.fiducial
+    return op.sqrt() @ xi

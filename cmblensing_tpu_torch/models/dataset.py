@@ -1,0 +1,289 @@
+"""Problem-definition containers and the simulated-dataset factory.
+
+Counterpart of ``cmblensing_tpu/models/dataset.py`` for pol I and P.
+The data model is
+
+    d = M(theta) B(theta) L(phi) f + n
+    f ~ N(0, Cf(theta)),  phi ~ N(0, Cphi(theta)),  n ~ N(0, Cn(theta))
+
+and the mixed parametrization (f°, phi°) = (L(phi) D f, G phi) is the
+one the phi-gradient is taken in.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.basis import Basis
+from ..core.cov import Cl_to_Cov
+from ..core.field import Field
+from ..core.ops import (Diag, Id, LowPass, BandPass, OpAlgebra, ParamDependentOp,
+                        Scaled, evaluate_at, logdet_rel, safe_divide, safe_reciprocal)
+from ..core.proj import ProjLambert
+from ..utils.cls import camb as camb_cls, noise_cls, beam_cls
+from .distributions import MvNormal
+from .lenseflow import LenseFlow
+
+
+# --- parameter-dependent operators (functions of their deps) --------------
+
+def _cf_recompute(deps, r=None):
+    """Cf(r) = Cfs + (r/r0) Cft."""
+    Cfs, Cft, r0 = deps
+    r = r0 if r is None else r
+    return _op_lincomb(Cfs, r / r0, Cft)
+
+
+def _cphi_recompute(deps, Aphi=None):
+    """Cphi(Aphi) = Aphi * Cphi0."""
+    Cphi0, Aphi0 = deps
+    return _op_scale(Aphi0 if Aphi is None else Aphi, Cphi0)
+
+
+def _G_of(Cphi_at, Nphi):
+    """sqrt(I + 2 Nphi pinv(Cphi))."""
+    cp = Cphi_at.diag
+    arr = 1.0 + 2.0 * Nphi.diag.arr * safe_reciprocal(cp.arr)
+    return Diag(Field(torch.sqrt(arr), cp.basis, cp.proj))
+
+
+def _g_recompute(deps, Aphi=None):
+    """G(Aphi) = pinv(G0) sqrt(I + 2 Nphi pinv(Cphi(Aphi)))."""
+    G0, Cphi, Nphi, Aphi0 = deps
+    Ga = _G_of(Cphi(dict(Aphi=Aphi0 if Aphi is None else Aphi)), Nphi)
+    return Diag(Field(Ga.diag.arr / G0.diag.arr, Ga.diag.basis, Ga.diag.proj))
+
+
+def _d_recompute(deps, r=None):
+    """D(r) = sqrt((Cf(r) + sigma2len I + 2 Cn_hat) pinv(Cf(r)))."""
+    Cf, Cn_hat, r0, sigma2len = deps
+    Cfr = Cf(dict(r=r0 if r is None else r))
+    num = _op_lincomb(Cfr, 2.0, Cn_hat)
+    num = Diag(Field(num.diag.arr + sigma2len, num.diag.basis, num.diag.proj))
+    arr = safe_divide(num.diag.arr, Cfr.diag.arr)
+    return Diag(Field(torch.sqrt(arr), num.diag.basis, num.diag.proj))
+
+
+def _op_scale(s, op):
+    if isinstance(op, Diag):
+        return Diag(Field(s * op.diag.arr, op.diag.basis, op.diag.proj))
+    return Scaled(s, op)
+
+
+def _op_lincomb(a, s, b):
+    """a + s*b for Diags."""
+    if isinstance(a, Diag) and isinstance(b, Diag):
+        gb = b.diag.to(a.diag.basis)
+        return Diag(Field(a.diag.arr + s * gb.arr, a.diag.basis, a.diag.proj))
+    raise TypeError((type(a), type(b)))
+
+
+# =========================================================================
+# DataSet
+# =========================================================================
+
+@dataclass
+class DataSet:
+    """All operators of the data model."""
+    d: Any = None              # data
+    Cf: Any = None             # unlensed field covariance
+    Cn: Any = None             # noise covariance
+    Cn_hat: Any = None         # approx. noise covariance (fourier diag)
+    M: Any = Id                # mask
+    M_hat: Any = Id            # approx. (fourier-diagonal) mask
+    B: Any = Id                # beam / transfer function
+    B_hat: Any = Id            # approx. beam
+    Cphi: Any = None           # phi covariance
+    Cf_tilde: Any = None       # lensed field covariance
+    D: Any = Id                # mixing matrix for the mixed parametrization
+    G: Any = Id                # phi reparametrization
+    Nphi: Any = None           # phi noise estimate
+    L: Any = LenseFlow         # lensing operator factory (LenseFlow, nsteps=7)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    def at(self, theta):
+        """Every parameter-dependent operator evaluated at theta
+        (theta={} is the fiducial)."""
+        theta = theta or {}
+        kw = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            ev = evaluate_at(v, theta) if isinstance(v, OpAlgebra) else v
+            if ev is not v:
+                kw[f.name] = ev
+        return self.replace(**kw) if kw else self
+
+    def logpdf(self, f=None, phi=None, theta=None, d=None):
+        return (self.logpdf_term(f=f, phi=phi, theta=theta, d=d, which="prior")
+                + self.logpdf_term(f=f, phi=phi, theta=theta, d=d, which="data"))
+
+    def logpdf_term(self, f=None, phi=None, theta=None, d=None, which="prior"):
+        """"prior" (the Cf and Cphi Gaussians) or "data" (the M B L(phi) f
+        likelihood); logpdf is their sum."""
+        theta = theta or {}
+        if which == "prior":
+            return (MvNormal(0, evaluate_at(self.Cf, theta)).logpdf(f)
+                    + MvNormal(0, evaluate_at(self.Cphi, theta)).logpdf(phi))
+        if d is None:
+            d = self.d
+        ft = self.L(phi) @ f
+        mu = evaluate_at(self.M, theta) @ (evaluate_at(self.B, theta) @ ft)
+        return MvNormal(mu, evaluate_at(self.Cn, theta)).logpdf(d)
+
+    def simulate(self, generator, theta=None, phi=None, f=None):
+        """Draw f, phi and the noise from `generator` (in that order) and
+        the data they give."""
+        theta = theta or {}
+        if f is None:
+            f = MvNormal(0, evaluate_at(self.Cf, theta)).sample(generator)
+        if phi is None:
+            phi = MvNormal(0, evaluate_at(self.Cphi, theta)).sample(generator)
+        ft = self.L(phi) @ f
+        mu = evaluate_at(self.M, theta) @ (evaluate_at(self.B, theta) @ ft)
+        n = MvNormal(0, evaluate_at(self.Cn, theta)).sample(generator)
+        return dict(f=f, phi=phi, ft=ft, n=n, d=mu + n)
+
+    def gradientf_logpdf(self, f, phi=None, theta=None, d=None):
+        """Analytic gradient of logpdf with respect to f (Gaussian terms)."""
+        theta = theta or {}
+        if d is None:
+            d = self.d
+        Lphi = self.L(phi)
+        M = evaluate_at(self.M, theta)
+        B = evaluate_at(self.B, theta)
+        r = d - M @ (B @ (Lphi @ f))
+        return (Lphi.H @ (B.H @ (M.H @ evaluate_at(self.Cn, theta).solve(r)))
+                - evaluate_at(self.Cf, theta).solve(f))
+
+
+# =========================================================================
+# mixed parametrization
+# =========================================================================
+
+@dataclass
+class Mixed:
+    """Marks the mixed parametrization (f°, phi°) of a DataSet."""
+    ds: DataSet
+
+    def logpdf(self, f_mix=None, phi_mix=None, theta=None, d=None):
+        ds = self.ds
+        theta = theta or {}
+        u = unmix(ds, f_mix=f_mix, phi_mix=phi_mix, theta=theta)
+        lp = ds.logpdf(f=u["f"], phi=u["phi"], theta=theta, d=d)
+        return lp - logdet_rel(ds.D, theta) - logdet_rel(ds.G, theta)
+
+
+def mix(ds: DataSet, f=None, phi=None, theta=None):
+    """(f, phi) -> (f°, phi°): f° = L(phi) D(theta) f, phi° = G(theta) phi."""
+    theta = theta or {}
+    D = evaluate_at(ds.D, theta)
+    G = evaluate_at(ds.G, theta)
+    return dict(f_mix=ds.L(phi) @ (D @ f), phi_mix=G @ phi, theta=theta)
+
+
+def unmix(ds: DataSet, f_mix=None, phi_mix=None, theta=None):
+    """(f°, phi°) -> (f, phi)."""
+    theta = theta or {}
+    D = evaluate_at(ds.D, theta)
+    G = evaluate_at(ds.G, theta)
+    phi = G.solve(phi_mix)
+    f = D.solve(ds.L(phi).solve(f_mix))
+    return dict(f=f, phi=phi, theta=theta)
+
+
+# =========================================================================
+# load_sim
+# =========================================================================
+
+def _mask_cov(pol, proj, bandpass):
+    """Fourier-diagonal operator of a BandPass for pol I or P."""
+    W = bandpass.on(proj, pol="I").diag.arr   # (1, Ny, Nxh)
+    if pol == "I":
+        return Diag(Field(W, Basis("I", "fourier"), proj))
+    if pol == "P":
+        return Diag(Field(torch.cat([W, W], dim=-3), Basis("EB", "fourier"), proj))
+    raise NotImplementedError(f"pol {pol!r} is not ported yet")
+
+
+def load_sim(thetapix, Nside, pol, T=np.float32, muKarcminT=3, beamFWHM=0, seed=0,
+             device="cpu"):
+    """Simulated-dataset factory for pol 'I' or 'P' at the fiducial
+    cosmology (no pixel mask, no batch; 1/f noise knee at l=100, slope
+    3). The simulation draws f, phi and the noise from a torch.Generator
+    on `device` seeded with `seed`. Returns a dict with f, ft, phi, d,
+    ds, ds0 (fiducial-evaluated), Cl, proj."""
+    from .quadratic_estimate import quadratic_estimate
+
+    pol = str(pol)
+    if pol not in ("I", "P"):
+        raise NotImplementedError(f"load_sim for pol {pol!r} is not ported yet")
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    Ny, Nx = (Nside, Nside) if np.isscalar(Nside) else Nside
+    proj = ProjLambert(Ny, Nx, thetapix=thetapix, T=T, device=device)
+    lmax = int(np.ceil(np.sqrt(2) * float(proj.nyquist)) + 1)
+
+    Cl = camb_cls(lmax=lmax)
+    r0 = float(Cl["params"].get("r", 0.2))
+    Cln = noise_cls(muKarcminT=muKarcminT, beamFWHM=0, lknee=100, alphaknee=3, lmax=lmax)
+    ks = {"I": ("TT",), "P": ("EE", "BB")}[pol]
+
+    Cphi0 = Cl_to_Cov("I", proj, Cl["total"]["pp"])
+    Cfs = Cl_to_Cov(pol, proj, *[Cl["unlensed_scalar"][k] for k in ks])
+    Cft = Cl_to_Cov(pol, proj, *[Cl["tensor"][k] for k in ks])
+    Cf_tilde = Cl_to_Cov(pol, proj, *[Cl["total"][k] for k in ks])
+    Cn_hat = Cl_to_Cov(pol, proj, *[Cln[k] for k in ks])
+
+    Cf = ParamDependentOp(("r",), _cf_recompute, (Cfs, Cft, r0))
+    Cphi = ParamDependentOp(("Aphi",), _cphi_recompute, (Cphi0, 1.0))
+    M = _mask_cov(pol, proj, LowPass(3000))
+    Bl = beam_cls(beamFWHM=beamFWHM, lmax=lmax).sqrt()
+    B = _mask_cov(pol, proj, BandPass(Bl.ell, Bl.Cl))
+
+    ds = DataSet(Cn=Cn_hat, Cn_hat=Cn_hat, Cf=Cf, Cf_tilde=Cf_tilde, Cphi=Cphi,
+                 M=M, M_hat=M, B=B, B_hat=B)
+    sim = ds.simulate(generator)
+    ds = ds.replace(d=sim["d"])
+
+    Nphi = _op_scale(0.5, quadratic_estimate(ds)["Nphi"])
+    G0 = _G_of(Cphi(dict(Aphi=1.0)), Nphi)
+    sigma2len = float(np.deg2rad(5 / 60) ** 2)
+    ds = ds.replace(Nphi=Nphi,
+                    G=ParamDependentOp(("Aphi",), _g_recompute, (G0, Cphi, Nphi, 1.0)),
+                    D=ParamDependentOp(("r",), _d_recompute, (Cf, Cn_hat, r0, sigma2len)))
+    return dict(f=sim["f"], ft=sim["ft"], phi=sim["phi"], d=ds.d,
+                ds=ds, ds0=ds.at({}), Cl=Cl, proj=proj)
+
+
+# =========================================================================
+# state carried across from numpy arrays
+# =========================================================================
+
+DIAG_OPS = ("Cf", "Cf_tilde", "Cn", "Cn_hat", "Cphi", "M", "M_hat", "B", "B_hat",
+            "D", "G", "Nphi")
+
+
+def dataset_from_numpy(arrays, proj_kwargs, device="cpu"):
+    """A DataSet from plain numpy arrays, e.g. those of another
+    implementation's dataset evaluated at theta = {}.
+
+    arrays maps "d" and each name in DIAG_OPS to (array, pol, space):
+    the data field, and the diagonal of each Fourier- or map-diagonal
+    operator, with its basis. A missing M, M_hat, B, B_hat, D or G is the
+    identity.
+    proj_kwargs are ProjLambert's (Ny, Nx, thetapix, T)."""
+    proj = ProjLambert(**proj_kwargs, device=device)
+
+    def field(name):
+        arr, pol, space = arrays[name]
+        return Field(torch.as_tensor(np.array(arr), device=device),
+                     Basis(pol, space), proj)
+
+    kw = {name: Diag(field(name)) for name in DIAG_OPS if name in arrays}
+    return DataSet(d=field("d"), **kw)

@@ -1,0 +1,124 @@
+"""Spectral derivatives on the flat torus.
+
+Counterpart of ``cmblensing_tpu/ops/deriv.py``. Two forms of the same
+linear operator:
+
+  fft    — rfft2 -> (i l) multiply -> irfft2 on ``torch.fft``: the
+           plain LenseFlow backend's derivatives (functions below).
+  dense  — real n x n circulant matrices (``_deriv_matrix``):
+               d/dx f = f @ Dx^T ,  d/dy f = Dy @ f
+           the operands of the hand-written flow kernel
+           (ops/lenseflow_kernels.py) and its plain version.
+
+Both zero the Nyquist line of the first derivative (an odd operator:
+the self-aliased Nyquist mode's derivative is identically zero), so the
+two forms are the same operator.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import fft as _fft
+
+
+def _deriv_matrix(n: int, delta: float, dtype_str: str):
+    """Real n x n circulant matrix D applying d/dx along an axis with
+    grid spacing delta (D[:, j] = derivative of e_j), Nyquist zeroed."""
+    lx_full = np.fft.fftfreq(n, d=delta) * 2 * np.pi
+    if n % 2 == 0:
+        lx_full[n // 2] = 0.0
+    F = np.fft.fft(np.eye(n), axis=0)
+    return np.real(np.fft.ifft((1j * lx_full)[:, None] * F, axis=0)).astype(np.dtype(dtype_str))
+
+
+def deriv_mats(proj):
+    """(DxT, Dy) first-derivative circulants on the projection's device:
+    d/dx a = a @ DxT, d/dy a = Dy @ a."""
+    key = "_deriv_mats"
+    m = proj._tensors.get(key)
+    if m is None:
+        d = float(proj.deltax)
+        Dx1 = _deriv_matrix(proj.Nx, d, proj.T.str)
+        Dy1 = _deriv_matrix(proj.Ny, d, proj.T.str)
+        m = (torch.as_tensor(np.ascontiguousarray(Dx1.T), device=proj.device),
+             torch.as_tensor(np.ascontiguousarray(Dy1), device=proj.device))
+        proj._tensors[key] = m
+    return m
+
+
+def _grids(proj):
+    """(i lx) of shape (1, Nx//2+1) and (i ly) of shape (Ny, 1), Nyquist
+    lines zeroed, on the projection's device."""
+    key = "_deriv_grids"
+    g = proj._tensors.get(key)
+    if g is None:
+        lx = np.asarray(proj.lx, dtype=np.float64).copy()
+        ly = np.asarray(proj.ly, dtype=np.float64).copy()
+        if proj.Nx % 2 == 0:
+            lx[-1] = 0.0
+        if proj.Ny % 2 == 0:
+            ly[proj.Ny // 2] = 0.0
+        cdt = proj.complex_T
+        g = (torch.as_tensor((1j * lx).astype(cdt)[None, :], device=proj.device),
+             torch.as_tensor((1j * ly).astype(cdt)[:, None], device=proj.device))
+        proj._tensors[key] = g
+    return g
+
+
+# --- public primitives (operate on (..., ncomp, Ny, Nx) map tensors) -----
+
+def grad_xy(f_map, proj):
+    """(df/dx, df/dy) of each component."""
+    ilx, ily = _grids(proj)
+    F = _fft.rfft2(f_map)
+    out = _fft.irfft2(torch.cat([F * ilx, F * ily], dim=-3), proj.Nx)
+    n = f_map.shape[-3]
+    return out[..., :n, :, :], out[..., n:, :, :]
+
+
+def div_xy(vx, vy, proj):
+    """d/dx vx + d/dy vy."""
+    ilx, ily = _grids(proj)
+    V = _fft.rfft2(torch.cat([vx, vy], dim=-3))
+    n = vx.shape[-3]
+    return _fft.irfft2(V[..., :n, :, :] * ilx + V[..., n:, :, :] * ily, proj.Nx)
+
+
+def gradhess(phi_map, proj):
+    """((gx, gy), (hxx, hxy, hyy)) of a (..., 1, Ny, Nx) map, each
+    (..., Ny, Nx)."""
+    ilx, ily = _grids(proj)
+    PHI = _fft.rfft2(phi_map)
+    gx_f = PHI * ilx
+    gy_f = PHI * ily
+    out = _fft.irfft2(torch.cat([gx_f, gy_f, gx_f * ilx, gx_f * ily, gy_f * ily], dim=-3),
+                      proj.Nx)
+    gx, gy, hxx, hxy, hyy = (out[..., i, :, :] for i in range(5))
+    return (gx, gy), (hxx, hxy, hyy)
+
+
+def div_plus_dij5(ux, uy, sxx, sxy, syy, proj):
+    """d_x ux + d_y uy + d_x d_x sxx + d_x d_y sxy + d_y d_y syy for
+    (..., Ny, Nx) planes: the delta-phi of the LenseFlow backward flow
+    from its five accumulated integrands (sxy holds s_yx + s_xy, which
+    only ever enter through the commuting d_x d_y)."""
+    ilx, ily = _grids(proj)
+    S = _fft.rfft2(torch.stack([ux, uy, sxx, sxy, syy], dim=-3))
+    D = (S[..., 0, :, :] * ilx + S[..., 1, :, :] * ily + S[..., 2, :, :] * ilx * ilx
+         + S[..., 3, :, :] * ilx * ily + S[..., 4, :, :] * ily * ily)
+    return _fft.irfft2(D, proj.Nx)
+
+
+def bwd_stage_derivs(f, pxdf, pydf, proj):
+    """The derivative bundle of one backward-flow velocity:
+    (fx, fy, ddf) = (d_x f, d_y f, d_x pxdf + d_y pydf) for (..., ncomp,
+    Ny, Nx) stacks, as one rfft2/irfft2 pair."""
+    n = f.shape[-3]
+    ilx, ily = _grids(proj)
+    F = _fft.rfft2(torch.cat([f, pxdf, pydf], dim=-3))
+    Ff = F[..., :n, :, :]
+    out = torch.cat([Ff * ilx, Ff * ily,
+                     F[..., n:2 * n, :, :] * ilx + F[..., 2 * n:, :, :] * ily], dim=-3)
+    o = _fft.irfft2(out, proj.Nx)
+    return o[..., :n, :, :], o[..., n:2 * n, :, :], o[..., 2 * n:, :, :]
