@@ -3,9 +3,10 @@ LenseFlow flow as hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of ``cmblensing_tpu`` (JAX), which stays the reference. This
 package imports torch and never jax. It covers the mixed-posterior
-phi-gradient: load_sim for pol I and P, Fourier-diagonal operators,
-LenseFlow with its continuous-adjoint gradients, and the quadratic
-estimator that sets the phi mixing.
+phi-gradient and joint MAP estimation: load_sim for pol I and P,
+Fourier-diagonal operators, LenseFlow with its continuous-adjoint
+gradients, the quadratic estimator that sets the phi mixing, the CG
+Wiener filter and MAP_joint with its grid line search.
 
 Strict float32: TF32 is switched off for matmuls and convolutions, the
 counterpart of the JAX package pinning every f32 matmul to
@@ -23,7 +24,7 @@ from .core.basis import (  # noqa: E402
     Basis, MAP, FOURIER, QU_MAP, QU_FOURIER, EB_MAP, EB_FOURIER,
     lense_basis, deriv_basis, harmonic_basis,
 )
-from .core.field import Field, dot, norm, fgrad, fvalue_and_grad  # noqa: E402
+from .core.field import Field, dot, norm, fgrad, fvalue_and_grad, zeros_like_field  # noqa: E402
 from .core.ops import (  # noqa: E402
     Diag, Identity, Id, LazyOp, ParamDependentOp, Scaled, BandPass, LowPass,
     evaluate_at, logdet, logdet_rel, simulate_op, nan2zero,
@@ -38,3 +39,5 @@ from .models.quadratic_estimate import quadratic_estimate  # noqa: E402
 from .models.dataset import (  # noqa: E402
     DataSet, Mixed, mix, unmix, load_sim, dataset_from_numpy,
 )
+from .ops.solvers import conjugate_gradient  # noqa: E402
+from .inference.maximization import MAP_joint, argmaxf_logpdf  # noqa: E402

@@ -185,6 +185,10 @@ def white_noise_like(generator, f: Field) -> Field:
     return Field(arr, b, f.proj)
 
 
+def zeros_like_field(f: Field) -> Field:
+    return Field(torch.zeros_like(f.arr), f.basis, f.proj)
+
+
 # --- reductions -----------------------------------------------------------
 
 def dot(a: Field, b: Field):

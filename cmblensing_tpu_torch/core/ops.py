@@ -130,6 +130,18 @@ class Diag(OpAlgebra):
     def pinv(self):
         return Diag(Field(safe_reciprocal(self.diag.arr), self.basis, self.proj))
 
+    def __mul__(self, other):
+        """The product of two Diags in one basis."""
+        if isinstance(other, Diag) and other.basis == self.basis:
+            return Diag(Field(self.diag.arr * other.diag.arr, self.basis, self.proj))
+        return NotImplemented
+
+    def __add__(self, other):
+        """The sum of two Diags in one basis."""
+        if isinstance(other, Diag) and other.basis == self.basis:
+            return Diag(Field(self.diag.arr + other.diag.arr, self.basis, self.proj))
+        return NotImplemented
+
     def __getitem__(self, k):
         return Diag(self.diag[k])
 

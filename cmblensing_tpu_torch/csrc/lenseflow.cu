@@ -53,24 +53,13 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "lenseflow_common.cuh"
+
 #define TILE 16
 
 namespace {
 
 enum Kind { FORWARD = 0, ADJOINT = 1, BACKWARD = 2 };
-
-// p(t) = (I + t Hess phi)^-1 grad phi at pixel idx; phi holds the planes
-// (gx, gy, hxx, hxy, hyy) with stride `plane`.
-__device__ __forceinline__ void p_of_t(const float* __restrict__ phi, size_t plane,
-                                       size_t idx, float t, float& px, float& py) {
-    const float gx = phi[idx], gy = phi[plane + idx];
-    const float a = 1.f + t * phi[2 * plane + idx];
-    const float b = t * phi[3 * plane + idx];
-    const float d = 1.f + t * phi[4 * plane + idx];
-    const float idet = 1.f / (a * d - b * b);
-    px = (d * gx - b * gy) * idet;
-    py = (-b * gx + a * gy) * idet;
-}
 
 template <int KIND>
 __global__ void __launch_bounds__(TILE * TILE)
@@ -145,19 +134,8 @@ velocity_kernel(const float* __restrict__ y, float* __restrict__ k,
         }
     }
     if (KIND == BACKWARD) {
-        const float a = 1.f + t * phi[2 * plane + o];
-        const float b = t * phi[3 * plane + o];
-        const float d = 1.f + t * phi[4 * plane + o];
-        const float idet = 1.f / (a * d - b * b);
-        const float m11 = d * idet, m12 = -b * idet, m22 = a * idet;
-        const float ux = m11 * wx + m12 * wy;                         // u = M^-1 w
-        const float uy = m12 * wx + m22 * wy;
-        float* acc = k + (size_t)(2 * ncomp) * plane;                 // delta-phi integrands
-        acc[o] = ux;
-        acc[plane + o] = uy;
-        acc[2 * plane + o] = t * px * ux;
-        acc[3 * plane + o] = t * (py * ux + px * uy);
-        acc[4 * plane + o] = t * py * uy;
+        // u = M^-1 w and the delta-phi integrands
+        dphi_integrands(phi, plane, o, t, wx, wy, k + (size_t)(2 * ncomp) * plane);
     }
 }
 

@@ -14,8 +14,10 @@ phi) system t: 1 -> 0, re-evolving f backward on the fly.
 Two integration backends, chosen with `set_lenseflow_backend` or
 `lenseflow_backend_ctx`:
 
-  'kernel' — ops/lenseflow_kernels.py: the hand-written CUDA flow kernel
-             on a CUDA tensor, its plain dense-matmul version on the CPU.
+  'kernel' — ops/lenseflow_kernels.py: the hand-written CUDA flow
+             kernels on a CUDA tensor, their plain matmul versions on the
+             CPU; dense below the factored-derivative threshold, factored
+             above it (whatever ops/deriv.py::deriv_ops returns).
   'plain'  — RK4 over torch ops with FFT derivatives (ops/deriv.py), the
              backward flow with its delta-phi accumulation hoisted out of
              the time loop.
@@ -161,7 +163,7 @@ def _apply(phi_map, f_map, t0, t1, nsteps, proj, backend, kind="forward"):
     """Forward flow t0 -> t1, or (kind='adjoint') the adjoint flow
     t1 -> t0."""
     if backend == "kernel":
-        mats = _deriv.deriv_mats(proj)
+        mats = _deriv.deriv_ops(proj)
         phi = _lfk.gradhess(phi_map, mats)
         if kind == "forward":
             return _lfk.flow_apply(f_map, phi, mats, t0, t1, nsteps, "forward")
@@ -178,7 +180,7 @@ def _bwd(phi_map, f1, dy, t0, t1, nsteps, proj, backend):
     t0. Returns (dphi, df0)."""
     dy = dy.contiguous()
     if backend == "kernel":
-        mats = _deriv.deriv_mats(proj)
+        mats = _deriv.deriv_ops(proj)
         phi = _lfk.gradhess(phi_map, mats)
         return _lfk.flow_bwd(dy, f1, phi, mats, t0, t1, nsteps)
     g, h = _gradhess_phi(phi_map, proj)

@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
-``csrc/lenseflow.cu`` is compiled at first use with nvcc for sm_90a
-into a shared library with a plain C interface, under ``build/`` at the
-repository root, named by a hash of the source so that an edited source
-is rebuilt. It is loaded with ctypes. Nothing here runs at import time.
+Every ``csrc/*.cu`` is compiled at first use with nvcc for sm_90a, one
+nvcc process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, under
+``build/`` at the repository root. The library is named by a hash of
+every source and header in ``csrc/``, so that an edit to any of them
+rebuilds. It is loaded with ctypes. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -14,10 +16,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "lenseflow.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB = None
 # what the last build printed (ptxas register and shared-memory report);
@@ -33,36 +35,67 @@ def _nvcc():
                        "csrc/ with the CUDA toolkit at first use on a CUDA host")
 
 
+def _tag():
+    h = hashlib.sha1()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def build():
-    """Compile the kernels if this source has not been built yet; return
-    the library's path."""
+    """Compile the kernels if these sources have not been built yet;
+    return the library's path."""
     global BUILD_LOG
-    tag = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:12]
-    so = BUILD_DIR / f"liblenseflow_{tag}.so"
+    so = BUILD_DIR / f"liblenseflow_{_tag()}.so"
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = r.stdout + r.stderr
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"{so.stem}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [work / f"{s.stem}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    BUILD_LOG = "".join(f"[{s.name}]\n{log}" for s, log in zip(srcs, logs))
+    bad = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"nvcc failed on {bad}:\n{BUILD_LOG}")
+    tmp = work / so.name
+    r = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                       capture_output=True, text=True)
+    BUILD_LOG += r.stdout + r.stderr
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{BUILD_LOG}")
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{BUILD_LOG}")
     os.replace(tmp, so)
+    shutil.rmtree(work, ignore_errors=True)
     return so
+
+
+def bind(lib):
+    """Declare the C signatures of the kernel entry points on a loaded
+    library."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sigs = {
+        "lf_velocity": [I, P, P, P, P, P, I, I, I, F, P],
+        "lf_deriv": [P, P, P, P, P, P, I, I, I, P],
+        "lf_rk4_update": [P, P, P, P, ctypes.c_size_t, I, F, F, P],
+        "lf_fderiv": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        "lf_fa_velocity": [I, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        "lf_bv_velocity": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = I
+    return lib
 
 
 def load():
     """The loaded kernel library (built first if needed)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.lf_velocity.argtypes = [I, P, P, P, P, P, I, I, I, F, P]
-        lib.lf_velocity.restype = I
-        lib.lf_deriv.argtypes = [P, P, P, P, P, P, I, I, I, P]
-        lib.lf_deriv.restype = I
-        lib.lf_rk4_update.argtypes = [P, P, P, P, ctypes.c_size_t, I, F, F, P]
-        lib.lf_rk4_update.restype = I
-        _LIB = lib
+        _LIB = bind(ctypes.CDLL(str(build())))
     return _LIB

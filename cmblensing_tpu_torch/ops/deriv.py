@@ -1,18 +1,21 @@
 """Spectral derivatives on the flat torus.
 
-Counterpart of ``cmblensing_tpu/ops/deriv.py``. Two forms of the same
+Counterpart of ``cmblensing_tpu/ops/deriv.py``. Three forms of the same
 linear operator:
 
-  fft    — rfft2 -> (i l) multiply -> irfft2 on ``torch.fft``: the
-           plain LenseFlow backend's derivatives (functions below).
-  dense  — real n x n circulant matrices (``_deriv_matrix``):
-               d/dx f = f @ Dx^T ,  d/dy f = Dy @ f
-           the operands of the hand-written flow kernel
-           (ops/lenseflow_kernels.py) and its plain version.
+  fft      — rfft2 -> (i l) multiply -> irfft2 on ``torch.fft``: the
+             plain LenseFlow backend's derivatives (functions below).
+  dense    — real n x n circulant matrices (``_deriv_matrix``):
+                 d/dx f = f @ Dx^T ,  d/dy f = Dy @ f
+             the operands of the dense flow kernels
+             (ops/lenseflow_kernels.py) and their plain version.
+  factored — the same circulants block-diagonalized at radix B
+             (ops/factored_deriv.py), the operands of the factored flow
+             kernels where a radix pays (``deriv_ops``).
 
-Both zero the Nyquist line of the first derivative (an odd operator:
+All zero the Nyquist line of the first derivative (an odd operator:
 the self-aliased Nyquist mode's derivative is identically zero), so the
-two forms are the same operator.
+forms are the same operator.
 """
 from __future__ import annotations
 
@@ -20,6 +23,28 @@ import numpy as np
 import torch
 
 from . import fft as _fft
+from .factored_deriv import factored_ops
+
+# Block size of the factored derivative. Provisional rule, to be set
+# from H100 measurements: radix B = n / FACTOR_A where n >= 512 and
+# FACTOR_A divides n, else the dense circulant.
+FACTOR_A = 128
+
+
+def radix(n: int) -> int:
+    """Radix B of the factored derivative along an axis of length n; 1
+    means the dense circulant."""
+    return n // FACTOR_A if n >= 512 and n % FACTOR_A == 0 else 1
+
+
+def deriv_ops(proj):
+    """The flow kernels' derivative operands for `proj`: packed
+    FactoredOps where a radix pays along both axes, else the dense
+    (DxT, Dy) of `deriv_mats`."""
+    Bx, By = radix(proj.Nx), radix(proj.Ny)
+    if Bx > 1 and By > 1:
+        return factored_ops(proj, Bx, By)
+    return deriv_mats(proj)
 
 
 def _deriv_matrix(n: int, delta: float, dtype_str: str):

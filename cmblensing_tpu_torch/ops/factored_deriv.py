@@ -1,0 +1,175 @@
+"""Radix-B factored circulant derivatives.
+
+Counterpart of ``cmblensing_tpu/ops/factored_deriv.py`` (the host-side
+construction) and of the in-kernel ``_fact_apply`` /
+``_pack_factored`` of ``cmblensing_tpu/ops/pallas_lenseflow.py``,
+without JAX. A circulant D of size N = B * A commutes with the shift
+by A, so the radix-B DFT along the slow index r (n = r*A + m)
+block-diagonalizes it:
+
+    D = (F_B^H x I_A) diag_k(G_k) (F_B x I_A)
+
+with B dense A x A blocks G_k (G_{B-k} = conj(G_k); G_0 and G_{B/2}
+real). Applying D along an axis is a real butterfly over the B
+channels, 2 real + (B/2 - 1) complex A x A block products, and the
+inverse butterfly: (2B - 2) A x A x N products instead of one N x N x N.
+
+The blocks are built from the same dense circulant as the kernels'
+dense operands (``ops/deriv.py::_deriv_matrix``, Nyquist zeroed), so
+both forms are one operator up to f32 rounding.
+
+Packed layout, per axis: (C, A, A) with C = 2 + 2(B/2 - 1) = B, rows
+[G_0, G_{B/2}, Re G_1..Re G_{B/2-1}, Im G_1..Im G_{B/2-1}]; the x-axis
+blocks are stored transposed, so that d/dx is a right product. The
+butterflies travel as a (2, B, B) tensor [Rf, Ri].
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+# =========================================================================
+# host-side construction (numpy)
+# =========================================================================
+
+def _block_diagonalize(D, B):
+    """Split the circulant (N x N) D into its B diagonal blocks in the
+    radix-B DFT domain along the slow index. Returns complex (B, A, A);
+    raises if D is not shift-by-A invariant."""
+    N = D.shape[0]
+    if N % B:
+        raise ValueError(f"radix {B} does not divide {N}")
+    A = N // B
+    W = np.exp(-2j * np.pi * np.outer(np.arange(B), np.arange(B)) / B)
+    D4 = D.reshape(B, A, B, A)
+    Ghat = np.einsum("rk,rasb,sl->kalb", W, D4, np.conj(W)) / B
+    G = np.einsum("kakb->kab", Ghat)
+    off = Ghat - np.einsum("kab,kl->kalb", G, np.eye(B))
+    if not np.max(np.abs(off)) < 1e-9 * max(np.max(np.abs(G)), 1e-30):
+        raise ValueError("operator is not circulant at stride A")
+    return G
+
+
+def _real_butterfly_mats(B):
+    """(Rf, Ri): real (B x B) forward/inverse transforms mapping the B
+    real r-values to the B real DOF of the Hermitian radix-B spectrum
+    [u_0, Re u_1, Im u_1, ..., Re u_{B/2-1}, Im u_{B/2-1}, u_{B/2}]."""
+    if B % 2:
+        raise ValueError(f"radix {B} must be even")
+    W = np.exp(-2j * np.pi * np.outer(np.arange(B), np.arange(B)) / B)
+    rows = [np.real(W[:, 0])]
+    for k in range(1, B // 2):
+        rows.append(np.real(W[:, k]))
+        rows.append(np.imag(W[:, k]))
+    rows.append(np.real(W[:, B // 2]))
+    Rf = np.stack(rows)
+    return Rf, np.linalg.inv(Rf)
+
+
+class FactoredOp:
+    """One factored circulant as real block arrays (numpy)."""
+
+    __slots__ = ("B", "A", "Rf", "Ri", "Gre", "Gar", "Gai")
+
+    def __init__(self, D, B, dtype):
+        G = _block_diagonalize(np.asarray(D, np.float64), B)
+        self.B, self.A = B, D.shape[0] // B
+        Rf, Ri = _real_butterfly_mats(B)
+        self.Rf, self.Ri = Rf.astype(dtype), Ri.astype(dtype)
+        kcx = range(1, B // 2)
+        self.Gre = np.stack([np.real(G[0]), np.real(G[B // 2])]).astype(dtype)
+        self.Gar = np.stack([np.real(G[k]) for k in kcx]).astype(dtype) if B > 2 else None
+        self.Gai = np.stack([np.imag(G[k]) for k in kcx]).astype(dtype) if B > 2 else None
+
+    def packed(self, transpose):
+        """(C, A, A) blocks [G_0, G_{B/2}, Ar..., Ai...], each transposed
+        when `transpose` (the x-axis layout)."""
+        blocks = list(self.Gre)
+        if self.Gar is not None:
+            blocks += list(self.Gar) + list(self.Gai)
+        return np.stack([b.T if transpose else b for b in blocks])
+
+
+@functools.lru_cache(maxsize=None)
+def factored_op(n, delta, dtype_str, B):
+    """The first-derivative circulant of an axis of length n and grid
+    spacing delta as a radix-B FactoredOp."""
+    from .deriv import _deriv_matrix
+    return FactoredOp(_deriv_matrix(n, delta, dtype_str), B, np.dtype(dtype_str))
+
+
+# =========================================================================
+# packed operands on a device
+# =========================================================================
+
+class FactoredOps(NamedTuple):
+    """The factored first derivatives of a projection, packed:
+    FX (Bx, A, A) x-axis blocks (transposed), FY (By, A, A) y-axis
+    blocks, bfx (2, Bx, Bx) and bfy (2, By, By) butterflies [Rf, Ri]."""
+    FX: torch.Tensor
+    FY: torch.Tensor
+    bfx: torch.Tensor
+    bfy: torch.Tensor
+
+
+def factored_ops(proj, Bx, By):
+    """FactoredOps of `proj` at radix Bx along x and By along y, on the
+    projection's device (cached on the projection)."""
+    key = ("_factored_ops", Bx, By)
+    ops = proj._tensors.get(key)
+    if ops is None:
+        d, dts = float(proj.deltax), proj.T.str
+        opx = factored_op(proj.Nx, d, dts, Bx)
+        opy = factored_op(proj.Ny, d, dts, By)
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=proj.device)
+        ops = FactoredOps(t(opx.packed(True)), t(opy.packed(False)),
+                          t(np.stack([opx.Rf, opx.Ri])), t(np.stack([opy.Rf, opy.Ri])))
+        proj._tensors[key] = ops
+    return ops
+
+
+# =========================================================================
+# plain PyTorch apply
+# =========================================================================
+
+def _blocks(u, G, dot):
+    """The channel-wise block products of `_fact_apply`: u is the list
+    of B butterfly channels, G the packed blocks."""
+    B = len(u)
+    nc = B // 2 - 1
+    y = [None] * B
+    y[0] = dot(G[0], u[0])
+    y[B - 1] = dot(G[1], u[B - 1])
+    for i in range(nc):
+        ur, ui = u[2 * i + 1], u[2 * i + 2]
+        Ar, Ai = G[2 + i], G[2 + nc + i]
+        y[2 * i + 1] = dot(Ar, ur) - dot(Ai, ui)
+        y[2 * i + 2] = dot(Ai, ur) + dot(Ar, ui)
+    return y
+
+
+def _butterfly(planes, R):
+    """[sum_r R[c, r] planes[r] for each c]."""
+    return [sum(R[c, r] * planes[r] for r in range(len(planes))) for c in range(R.shape[0])]
+
+
+def apply_x(x, FX, bf):
+    """d/dx of (..., Ny, Nx) through the packed factored x operator."""
+    B, A = FX.shape[0], FX.shape[-1]
+    xr = x.reshape(x.shape[:-1] + (B, A))
+    u = _butterfly([xr[..., r, :] for r in range(B)], bf[0])
+    y = _blocks(u, FX, lambda M, v: torch.matmul(v, M))
+    return torch.stack(_butterfly(y, bf[1]), dim=-2).reshape(x.shape)
+
+
+def apply_y(x, FY, bf):
+    """d/dy of (..., Ny, Nx) through the packed factored y operator."""
+    B, A = FY.shape[0], FY.shape[-1]
+    xr = x.reshape(x.shape[:-2] + (B, A, x.shape[-1]))
+    u = _butterfly([xr[..., r, :, :] for r in range(B)], bf[0])
+    y = _blocks(u, FY, torch.matmul)
+    return torch.stack(_butterfly(y, bf[1]), dim=-3).reshape(x.shape)

@@ -1,10 +1,22 @@
 """LenseFlow flows on the hand-written Hopper kernels, and their plain
 PyTorch version.
 
-Replaces ``_flow_call`` / ``_flow_kernel`` of
-``cmblensing_tpu/ops/pallas_lenseflow.py`` with dense in-kernel
-derivatives (``_make_ddx_ddy``), the form that runs at 256^2. Three
-flows, as there:
+Two kernel families, chosen by the derivative operands the flow is
+given (``ops/deriv.py::deriv_ops``):
+
+  dense     (DxT, Dy) circulants: csrc/lenseflow.cu, replacing
+            ``_flow_call`` / ``_flow_kernel`` of
+            ``cmblensing_tpu/ops/pallas_lenseflow.py`` with the dense
+            in-kernel derivatives (``_make_ddx_ddy``), the form that runs
+            at 256^2. A batched flow loops over its batch entries.
+  factored  FactoredOps (ops/factored_deriv.py), where a radix pays
+            (512^2 and up): csrc/factored.cu, replacing ``_fa_kernel``
+            (forward/adjoint velocity), ``_bv_kernel`` (backward velocity)
+            and the factored derivative ``_fact_apply``. Batch x
+            component rides on the kernels' grid, so a batched flow is
+            one launch per pass.
+
+Three flows, as there:
 
   forward   df/dt = p(t) . grad f
   adjoint   df/dt = div(p(t) f)
@@ -14,15 +26,15 @@ flows, as there:
 
 A flow is a host loop of 4*nsteps RK4 stages over three leaf operations:
 a velocity evaluation, an RK4 accumulator update and a derivative
-``d_x a + d_y b + c``. Each leaf has a CUDA kernel (csrc/lenseflow.cu,
-built by ops/_build.py) and a plain PyTorch version (dense circulant
-products with torch.matmul, same stage order). The public functions
-take the plain version for a CPU tensor and launch the kernel for a
-CUDA tensor, or raise; the ``*_plain`` functions run the plain version
-on any device, for comparing the two on the card.
+``d_x a + d_y b + c``. Each leaf has a CUDA kernel (csrc/, built by
+ops/_build.py) and a plain PyTorch version (the same circulant products
+with torch.matmul, dense or factored, same stage order). The public
+functions take the plain version for a CPU tensor and launch the kernel
+for a CUDA tensor, or raise; the ``*_plain`` functions run the plain
+version on any device, for comparing the two on the card.
 
-phi enters as a (5, Ny, Nx) tensor of planes (gx, gy, hxx, hxy, hyy);
-mats is (DxT, Dy) from ops/deriv.py::deriv_mats.
+phi enters as a (..., 5, Ny, Nx) tensor of planes (gx, gy, hxx, hxy,
+hyy); mats is what ops/deriv.py::deriv_ops returns.
 """
 from __future__ import annotations
 
@@ -30,13 +42,20 @@ import ctypes
 
 import torch
 
+from .deriv import FACTOR_A
+from .factored_deriv import FactoredOps, apply_x, apply_y
+
 TILE = 16
 KINDS = {"forward": 0, "adjoint": 1, "backward": 2}
+ROLES = {"forward": 0, "adjoint": 1}   # the factored kernel's role argument
 NACC = 5   # delta-phi accumulator planes carried by the backward flow
+CUDA_ERROR_INVALID_VALUE = 1   # what a kernel's C entry returns for arguments it does not take
 
-# kernel launches per kernel, counted where each wrapper launches
+# kernel launches per kernel, counted where each wrapper launches (the
+# factored velocities launch twice per call: an x pass and a y pass)
 LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0,
-            "rk4_update": 0, "deriv": 0}
+            "rk4_update": 0, "deriv": 0, "fderiv": 0, "fa_velocity_forward": 0,
+            "fa_velocity_adjoint": 0, "bv_velocity": 0}
 
 
 def reset_launches():
@@ -49,7 +68,7 @@ def reset_launches():
 # =========================================================================
 
 def _p_of_t(t, phi):
-    gx, gy, hxx, hxy, hyy = phi
+    gx, gy, hxx, hxy, hyy = phi.unbind(-3)
     a = 1.0 + t * hxx
     b = t * hxy
     d = 1.0 + t * hyy
@@ -58,7 +77,7 @@ def _p_of_t(t, phi):
 
 
 def _minv_of_t(t, phi):
-    _, _, hxx, hxy, hyy = phi
+    _, _, hxx, hxy, hyy = phi.unbind(-3)
     a = 1.0 + t * hxx
     b = t * hxy
     d = 1.0 + t * hyy
@@ -66,25 +85,38 @@ def _minv_of_t(t, phi):
     return d * idet, -b * idet, a * idet
 
 
-def velocity_plain(kind, y, k, phi, DxT, Dy, ncomp, t):
-    """k <- the velocity of flow `kind` at state y, time t."""
-    px, py = _p_of_t(t, phi)
+def velocity_plain(kind, y, k, phi, mats, ncomp, t):
+    """k <- the velocity of flow `kind` at state y, time t (dense)."""
+    DxT, Dy = mats
+    _velocity_plain(kind, y, k, phi, ncomp, t, lambda a: a @ DxT, lambda a: Dy @ a)
+
+
+def fvelocity_plain(kind, y, k, phi, ops, ncomp, t):
+    """k <- the velocity of flow `kind` at the batched (nb, nstate, Ny,
+    Nx) state y, time t, phi (nb, 5, Ny, Nx) (factored)."""
+    _velocity_plain(kind, y, k, phi, ncomp, t, lambda a: apply_x(a, ops.FX, ops.bfx),
+                    lambda a: apply_y(a, ops.FY, ops.bfy))
+
+
+def _velocity_plain(kind, y, k, phi, ncomp, t, dx, dy):
+    px, py = (p.unsqueeze(-3) for p in _p_of_t(t, phi))
     if kind == "forward":
-        k.copy_(px * (y @ DxT) + py * (Dy @ y))
+        k.copy_(px * dx(y) + py * dy(y))
     elif kind == "adjoint":
-        k.copy_((px * y) @ DxT + Dy @ (py * y))
+        k.copy_(dx(px * y) + dy(py * y))
     elif kind == "backward":
-        f, df = y[:ncomp], y[ncomp:2 * ncomp]
-        fx, fy = f @ DxT, Dy @ f
-        k[:ncomp] = px * fx + py * fy
-        k[ncomp:2 * ncomp] = (px * df) @ DxT + Dy @ (py * df)
-        wx = torch.sum(df * fx, dim=0)
-        wy = torch.sum(df * fy, dim=0)
+        f, df = y[..., :ncomp, :, :], y[..., ncomp:2 * ncomp, :, :]
+        fx, fy = dx(f), dy(f)
+        k[..., :ncomp, :, :] = px * fx + py * fy
+        k[..., ncomp:2 * ncomp, :, :] = dx(px * df) + dy(py * df)
+        wx = torch.sum(df * fx, dim=-3)
+        wy = torch.sum(df * fy, dim=-3)
         m11, m12, m22 = _minv_of_t(t, phi)
+        px, py = px.squeeze(-3), py.squeeze(-3)
         ux = m11 * wx + m12 * wy
         uy = m12 * wx + m22 * wy
-        k[2 * ncomp:] = torch.stack([ux, uy, t * px * ux, t * (py * ux + px * uy),
-                                     t * py * uy])
+        k[..., 2 * ncomp:, :, :] = torch.stack(
+            [ux, uy, t * px * ux, t * (py * ux + px * uy), t * py * uy], dim=-3)
     else:
         raise ValueError(kind)
 
@@ -102,13 +134,24 @@ def rk4_update_plain(y, k, acc, s, stage, wacc, ws):
         torch.add(acc, k, alpha=wacc, out=y)
 
 
-def deriv_plain(a, b, c, out, DxT, Dy):
-    """out <- d_x a + d_y b + c (a, b or c may be None)."""
+def deriv_plain(a, b, c, out, mats):
+    """out <- d_x a + d_y b + c (a, b or c may be None), dense."""
+    DxT, Dy = mats
+    _deriv_plain(a, b, c, out, lambda x: x @ DxT, lambda x: Dy @ x)
+
+
+def fderiv_plain(a, b, c, out, ops):
+    """out <- d_x a + d_y b + c (a, b or c may be None), factored."""
+    _deriv_plain(a, b, c, out, lambda x: apply_x(x, ops.FX, ops.bfx),
+                 lambda x: apply_y(x, ops.FY, ops.bfy))
+
+
+def _deriv_plain(a, b, c, out, dx, dy):
     v = torch.zeros_like(out)
     if a is not None:
-        v = v + a @ DxT
+        v = v + dx(a)
     if b is not None:
-        v = v + Dy @ b
+        v = v + dy(b)
     if c is not None:
         v = v + c
     out.copy_(v)
@@ -140,12 +183,16 @@ def _stream():
 
 
 def _raise_on(rc, name):
+    if rc == CUDA_ERROR_INVALID_VALUE:
+        raise RuntimeError(f"{name}: the kernel refused its arguments (a shape, or a radix it "
+                           "is not built for; ROADMAP Queue 2, K1)")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
-def velocity_cuda(kind, y, k, phi, DxT, Dy, ncomp, t):
+def velocity_cuda(kind, y, k, phi, mats, ncomp, t):
     from . import _build
+    DxT, Dy = mats
     Ny, Nx = y.shape[-2:]
     _check_cuda("lf_velocity", [y, k, phi, DxT, Dy], Ny, Nx)
     if DxT.shape != (Nx, Nx) or Dy.shape != (Ny, Ny) or phi.shape != (5, Ny, Nx):
@@ -171,8 +218,9 @@ def rk4_update_cuda(y, k, acc, s, stage, wacc, ws):
     LAUNCHES["rk4_update"] += 1
 
 
-def deriv_cuda(a, b, c, out, DxT, Dy):
+def deriv_cuda(a, b, c, out, mats):
     from . import _build
+    DxT, Dy = mats
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
     _check_cuda("lf_deriv", [out, DxT, Dy, *given], Ny, Nx)
@@ -185,24 +233,108 @@ def deriv_cuda(a, b, c, out, DxT, Dy):
     LAUNCHES["deriv"] += 1
 
 
+def _check_factored(name, ops, Ny, Nx):
+    """The radices of `ops`, after checking that they fit this plane
+    shape; which radices csrc/factored.cu is built for, it checks
+    itself."""
+    Bx, By = ops.FX.shape[0], ops.FY.shape[0]
+    if ops.FX.shape[-1] != FACTOR_A or ops.FY.shape[-1] != FACTOR_A:
+        raise ValueError(f"{name}: the kernel takes blocks of {FACTOR_A}, got "
+                         f"{tuple(ops.FX.shape)}, {tuple(ops.FY.shape)}")
+    if Nx != Bx * FACTOR_A or Ny != By * FACTOR_A:
+        raise ValueError(f"{name}: a {Ny}x{Nx} plane does not fit radix ({Bx}, {By})")
+    return Bx, By
+
+
+def _fptrs(ops):
+    return [_ptr(x) for x in (ops.FX, ops.FY, ops.bfx, ops.bfy)]
+
+
+def fderiv_cuda(a, b, c, out, ops):
+    """K1: out <- d_x a + d_y b + c through the factored derivative
+    kernel, one launch per derivative given; out must not alias a or b."""
+    from . import _build
+    Ny, Nx = out.shape[-2:]
+    given = [x for x in (a, b, c) if x is not None]
+    _check_cuda("lf_fderiv", [out, *ops, *given], Ny, Nx)
+    Bx, By = _check_factored("lf_fderiv", ops, Ny, Nx)
+    if a is None and b is None:
+        raise ValueError("lf_fderiv: needs a or b")
+    if any(x.shape != out.shape for x in given):
+        raise ValueError("lf_fderiv: operand shapes differ from the output's")
+    if any(x is not None and x.data_ptr() == out.data_ptr() for x in (a, b)):
+        raise ValueError("lf_fderiv: out must not alias a or b")
+    nplanes = out.numel() // (Ny * Nx)
+    rc = _build.load().lf_fderiv(_ptr(a), _ptr(b), _ptr(c), _ptr(out), *_fptrs(ops), Bx, By,
+                                 nplanes, Ny, Nx, _stream())
+    _raise_on(rc, "lf_fderiv")
+    LAUNCHES["fderiv"] += (a is not None) + (b is not None)
+
+
+def _check_batched_state(name, y, k, phi, nstate):
+    nb, Ny, Nx = y.shape[0], y.shape[-2], y.shape[-1]
+    if y.shape != (nb, nstate, Ny, Nx) or k.shape != y.shape or phi.shape != (nb, 5, Ny, Nx):
+        raise ValueError(f"{name}: state {tuple(y.shape)}, velocity {tuple(k.shape)} and "
+                         f"phi {tuple(phi.shape)} do not fit (nb, {nstate}, Ny, Nx)")
+    return nb
+
+
+def fvelocity_cuda(kind, y, k, phi, ops, ncomp, t):
+    """K3 (forward, adjoint) or K4 (backward): k <- the velocity of flow
+    `kind` at the batched (nb, nstate, Ny, Nx) state y, time t; phi is
+    (nb, 5, Ny, Nx). Two launches (x pass, y pass)."""
+    from . import _build
+    Ny, Nx = y.shape[-2:]
+    lib = _build.load()
+    if kind == "backward":
+        _check_cuda("lf_bv_velocity", [y, k, phi, *ops], Ny, Nx)
+        Bx, By = _check_factored("lf_bv_velocity", ops, Ny, Nx)
+        nb = _check_batched_state("lf_bv_velocity", y, k, phi, 2 * ncomp + NACC)
+        rc = lib.lf_bv_velocity(_ptr(y), _ptr(k), _ptr(phi), *_fptrs(ops), Bx, By, nb, ncomp,
+                                Ny, Nx, float(t), _stream())
+        _raise_on(rc, "lf_bv_velocity")
+        LAUNCHES["bv_velocity"] += 2
+        return
+    _check_cuda("lf_fa_velocity", [y, k, phi, *ops], Ny, Nx)
+    Bx, By = _check_factored("lf_fa_velocity", ops, Ny, Nx)
+    nb = _check_batched_state("lf_fa_velocity", y, k, phi, ncomp)
+    rc = lib.lf_fa_velocity(ROLES[kind], _ptr(y), _ptr(k), _ptr(phi), *_fptrs(ops), Bx, By,
+                            nb, ncomp, Ny, Nx, float(t), _stream())
+    _raise_on(rc, "lf_fa_velocity")
+    LAUNCHES["fa_velocity_" + kind] += 2
+
+
 class _Leaves:
-    def __init__(self, velocity, rk4_update, deriv):
+    """One set of leaf operations; `batched` when its velocity takes a
+    leading batch axis (the factored kernels), else a batched flow loops
+    over its entries."""
+
+    def __init__(self, velocity, rk4_update, deriv, batched):
         self.velocity = velocity
         self.rk4_update = rk4_update
         self.deriv = deriv
+        self.batched = batched
 
 
-PLAIN = _Leaves(velocity_plain, rk4_update_plain, deriv_plain)
-KERNEL = _Leaves(velocity_cuda, rk4_update_cuda, deriv_cuda)
+PLAIN = _Leaves(velocity_plain, rk4_update_plain, deriv_plain, False)
+KERNEL = _Leaves(velocity_cuda, rk4_update_cuda, deriv_cuda, False)
+FPLAIN = _Leaves(fvelocity_plain, rk4_update_plain, fderiv_plain, True)
+FKERNEL = _Leaves(fvelocity_cuda, rk4_update_cuda, fderiv_cuda, True)
 
 
-def _leaves_for(x):
-    """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
+def _leaves_for(x, mats):
+    """The plain version for a CPU tensor, the kernel for a CUDA tensor;
+    factored or dense by the operands."""
+    factored = isinstance(mats, FactoredOps)
     if x.device.type == "cpu":
-        return PLAIN
+        return FPLAIN if factored else PLAIN
     if x.device.type == "cuda":
-        return KERNEL
+        return FKERNEL if factored else KERNEL
     raise ValueError(f"no LenseFlow kernel for device {x.device}")
+
+
+def _plain_for(mats):
+    return FPLAIN if isinstance(mats, FactoredOps) else PLAIN
 
 
 # =========================================================================
@@ -210,29 +342,36 @@ def _leaves_for(x):
 # =========================================================================
 
 def _integrate(leaves, kind, y, phi, mats, ncomp, nsteps, t0, t1):
-    """Classical RK4 of flow `kind` from t0 to t1 over a (nstate, Ny, Nx)
-    state, stages folded into a running accumulator as in `_rk4_steps`."""
-    DxT, Dy = mats
+    """Classical RK4 of flow `kind` from t0 to t1 over a (..., nstate, Ny,
+    Nx) state, stages folded into a running accumulator as in
+    `_rk4_steps`."""
     y = y.contiguous().clone()
     k, acc, s = torch.empty_like(y), torch.empty_like(y), torch.empty_like(y)
     h = (t1 - t0) / nsteps
     for i in range(nsteps):
         t = t0 + i * h
-        leaves.velocity(kind, y, k, phi, DxT, Dy, ncomp, t)
+        leaves.velocity(kind, y, k, phi, mats, ncomp, t)
         leaves.rk4_update(y, k, acc, s, 0, h / 6, h / 2)
-        leaves.velocity(kind, s, k, phi, DxT, Dy, ncomp, t + h / 2)
+        leaves.velocity(kind, s, k, phi, mats, ncomp, t + h / 2)
         leaves.rk4_update(y, k, acc, s, 1, h / 3, h / 2)
-        leaves.velocity(kind, s, k, phi, DxT, Dy, ncomp, t + h / 2)
+        leaves.velocity(kind, s, k, phi, mats, ncomp, t + h / 2)
         leaves.rk4_update(y, k, acc, s, 2, h / 3, h)
-        leaves.velocity(kind, s, k, phi, DxT, Dy, ncomp, t + h)
+        leaves.velocity(kind, s, k, phi, mats, ncomp, t + h)
         leaves.rk4_update(y, k, acc, s, 3, h / 6, 0.0)
     return y
 
 
-def _per_batch(fn, *xs):
-    """Run fn over the flattened leading batch axes of its tensor
-    arguments (already broadcast to one batch shape)."""
+def _over_batch(leaves, fn, *xs):
+    """fn over the leading batch axes of its tensor arguments (already
+    broadcast to one batch shape): in one call on a (nb, ...) flattening
+    for batched leaves, entry by entry for the others."""
     lead = xs[0].shape[:-3]
+    if leaves.batched:
+        flat = [x.reshape((-1,) + tuple(x.shape[-3:])).contiguous() for x in xs]
+        outs = fn(*flat)
+        if isinstance(outs, tuple):
+            return tuple(o.reshape(lead + o.shape[1:]) for o in outs)
+        return outs.reshape(lead + outs.shape[1:])
     if not lead:
         return fn(*xs)
     flat = [x.reshape((-1,) + tuple(x.shape[-3:])) for x in xs]
@@ -243,53 +382,54 @@ def _per_batch(fn, *xs):
 
 
 def _gradhess(leaves, phi_map, mats):
-    """(5, Ny, Nx) planes (gx, gy, hxx, hxy, hyy) of a (1, Ny, Nx) map.
-    The Hessian is two first-derivative products: in float32 that is as
-    accurate as the FFT and more accurate than the dense second-derivative
-    circulant, whose entries of order l_max^2 cancel."""
-    DxT, Dy = mats
+    """(..., 5, Ny, Nx) planes (gx, gy, hxx, hxy, hyy) of a (..., 1, Ny,
+    Nx) map. The Hessian is two first-derivative products: in float32
+    that is as accurate as the FFT and more accurate than the dense
+    second-derivative circulant, whose entries of order l_max^2
+    cancel."""
     p = phi_map.contiguous()
-    out = torch.empty((5,) + tuple(p.shape[-2:]), dtype=p.dtype, device=p.device)
-    gx, gy = out[0:1], out[1:2]
-    leaves.deriv(p, None, None, gx, DxT, Dy)
-    leaves.deriv(None, p, None, gy, DxT, Dy)
-    leaves.deriv(gx, None, None, out[2:3], DxT, Dy)
-    leaves.deriv(None, gx, None, out[3:4], DxT, Dy)
-    leaves.deriv(None, gy, None, out[4:5], DxT, Dy)
-    return out
+    out = torch.empty((5,) + tuple(p.shape), dtype=p.dtype, device=p.device)
+    gx, gy = out[0], out[1]
+    leaves.deriv(p, None, None, gx, mats)
+    leaves.deriv(None, p, None, gy, mats)
+    leaves.deriv(gx, None, None, out[2], mats)
+    leaves.deriv(None, gx, None, out[3], mats)
+    leaves.deriv(None, gy, None, out[4], mats)
+    return torch.movedim(out.squeeze(-3), 0, -3).contiguous()
 
 
 def _flow_apply(leaves, f_map, phi, mats, t0, t1, nsteps, kind):
-    return _per_batch(
-        lambda f, p: _integrate(leaves, kind, f, p, mats, f.shape[0], int(nsteps),
+    return _over_batch(
+        leaves,
+        lambda f, p: _integrate(leaves, kind, f, p, mats, f.shape[-3], int(nsteps),
                                 float(t0), float(t1)),
         f_map, phi)
 
 
 def _flow_bwd(leaves, dy, f1, phi, mats, t0, t1, nsteps):
-    DxT, Dy = mats
 
     def one(dy, f1, p):
-        ncomp = f1.shape[0]
-        zero = torch.zeros((NACC,) + tuple(f1.shape[-2:]), dtype=f1.dtype, device=f1.device)
-        state = torch.cat([f1, dy, zero], dim=0)
+        ncomp = f1.shape[-3]
+        zero = torch.zeros(f1.shape[:-3] + (NACC,) + f1.shape[-2:], dtype=f1.dtype,
+                           device=f1.device)
+        state = torch.cat([f1, dy, zero], dim=-3)
         y = _integrate(leaves, "backward", state, p, mats, ncomp, int(nsteps),
                        float(t1), float(t0))
-        ux, uy, sxx, sxy, syy = (y[2 * ncomp + i:2 * ncomp + i + 1] for i in range(NACC))
+        ux, uy, sxx, sxy, syy = (y[..., 2 * ncomp + i:2 * ncomp + i + 1, :, :].contiguous()
+                                 for i in range(NACC))
         X, Y, dphi = torch.empty_like(ux), torch.empty_like(ux), torch.empty_like(ux)
-        leaves.deriv(sxx, sxy, ux, X, DxT, Dy)     # u_x + d_x s_xx + d_y s_xy
-        leaves.deriv(None, syy, uy, Y, DxT, Dy)    # u_y + d_y s_yy
-        leaves.deriv(X, Y, None, dphi, DxT, Dy)
-        return dphi, y[ncomp:2 * ncomp].clone()
+        leaves.deriv(sxx, sxy, ux, X, mats)     # u_x + d_x s_xx + d_y s_xy
+        leaves.deriv(None, syy, uy, Y, mats)    # u_y + d_y s_yy
+        leaves.deriv(X, Y, None, dphi, mats)
+        return dphi, y[..., ncomp:2 * ncomp, :, :].clone()
 
-    return _per_batch(one, dy, f1, phi)
+    return _over_batch(leaves, one, dy, f1, phi)
 
 
 def gradhess(phi_map, mats):
     """(..., 5, Ny, Nx) planes (gx, gy, hxx, hxy, hyy) of a (..., 1, Ny,
     Nx) map through the derivative kernel (plain version on the CPU)."""
-    leaves = _leaves_for(phi_map)
-    return _per_batch(lambda p: _gradhess(leaves, p, mats), phi_map)
+    return _gradhess(_leaves_for(phi_map, mats), phi_map, mats)
 
 
 def flow_apply(f_map, phi, mats, t0, t1, nsteps, kind="forward"):
@@ -297,22 +437,22 @@ def flow_apply(f_map, phi, mats, t0, t1, nsteps, kind="forward"):
     map f_map from t0 to t1; phi (..., 5, Ny, Nx) from `gradhess`."""
     if kind not in ("forward", "adjoint"):
         raise ValueError(kind)
-    return _flow_apply(_leaves_for(f_map), f_map, phi, mats, t0, t1, nsteps, kind)
+    return _flow_apply(_leaves_for(f_map, mats), f_map, phi, mats, t0, t1, nsteps, kind)
 
 
 def flow_bwd(dy, f1, phi, mats, t0, t1, nsteps):
     """Integrate the transpose-delta system from t1 back to t0, starting
     at (f1, dy, 0); returns (dphi (..., 1, Ny, Nx), df0)."""
-    return _flow_bwd(_leaves_for(f1), dy, f1, phi, mats, t0, t1, nsteps)
+    return _flow_bwd(_leaves_for(f1, mats), dy, f1, phi, mats, t0, t1, nsteps)
 
 
 def gradhess_plain(phi_map, mats):
-    return _per_batch(lambda p: _gradhess(PLAIN, p, mats), phi_map)
+    return _gradhess(_plain_for(mats), phi_map, mats)
 
 
 def flow_apply_plain(f_map, phi, mats, t0, t1, nsteps, kind="forward"):
-    return _flow_apply(PLAIN, f_map, phi, mats, t0, t1, nsteps, kind)
+    return _flow_apply(_plain_for(mats), f_map, phi, mats, t0, t1, nsteps, kind)
 
 
 def flow_bwd_plain(dy, f1, phi, mats, t0, t1, nsteps):
-    return _flow_bwd(PLAIN, dy, f1, phi, mats, t0, t1, nsteps)
+    return _flow_bwd(_plain_for(mats), dy, f1, phi, mats, t0, t1, nsteps)

@@ -142,6 +142,21 @@ def test_dense_circulants_equal_fft_derivatives(Ny, Nx):
                                   jderiv._deriv_matrices(Nx, float(tp.deltax), "<f4")[0])
 
 
+@pytest.mark.parametrize("Ny,Nx", [(16, 16), (16, 15)])
+def test_irfft2_takes_the_hermitian_part_of_self_conjugate_columns(Ny, Nx):
+    """A spectrum whose kx = 0 (and Nyquist) column is Hermitian only up
+    to a perturbation inverts like its Hermitian part, as numpy's
+    irfft2, and a batch of planes inverts like its planes one by one."""
+    from cmblensing_tpu_torch.ops import fft as tfft
+    rng = np.random.default_rng(5)
+    X = (rng.standard_normal((3, Ny, Nx // 2 + 1))
+         + 1j * rng.standard_normal((3, Ny, Nx // 2 + 1))).astype(np.complex64)
+    out = tfft.irfft2(torch.as_tensor(X), Nx).numpy()
+    np.testing.assert_allclose(out, np.fft.irfft2(X, s=(Ny, Nx)), atol=1e-6)
+    for i in range(3):
+        np.testing.assert_array_equal(out[i], tfft.irfft2(torch.as_tensor(X[i]), Nx).numpy())
+
+
 def test_port_imports_no_jax():
     code = ("import sys, cmblensing_tpu_torch\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

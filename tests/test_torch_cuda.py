@@ -9,6 +9,8 @@ Bound: 1e-5 relative max-abs, both sides strict FP32 summing in another
 order; 5e-4 for grad/Hess(phi), whose float32 value carries ~1e-4
 relative error in any form (dense circulants or FFT, measured against
 float64 at 256^2), so two FP32 summation orders differ by as much.
+The factored kernels (csrc/factored.cu) are checked at 1024^2, the size
+whose radix (B = 8) the main path runs, and at 512^2 (B = 4).
 """
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 
 import cmblensing_tpu_torch as ct
 from cmblensing_tpu_torch.ops import deriv as tderiv
+from cmblensing_tpu_torch.ops import factored_deriv as tfd
 from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
 
 TOL = 1e-5
@@ -71,4 +74,104 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         lfk.flow_apply(x, torch.zeros((5, 24, 24), device="cuda"), mats, 0., 1., 1)
     y = torch.zeros((2, 32, 32), device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
-        lfk.deriv_cuda(y, None, None, torch.empty_like(y), y[0], y[0])
+        lfk.deriv_cuda(y, None, None, torch.empty_like(y), (y[0], y[0]))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flow kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [512, 1024])
+def test_factored_kernels_match_plain_on_card(N):
+    """K1 (lf_fderiv, x and y), K3 (lf_fa_velocity, both roles) and K4
+    (lf_bv_velocity) against their plain versions, one launch each, on a
+    batch of two."""
+    _card()
+    tp = ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda")
+    ops = tderiv.deriv_ops(tp)
+    assert isinstance(ops, tfd.FactoredOps) and ops.FX.shape[0] == N // 128
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), ops)
+    planes = torch.stack([planes, 0.5 * planes])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    T = lambda *s: torch.randn(s, generator=g, device="cuda")
+    a, b, c = T(2, 1, N, N), T(2, 1, N, N), T(2, 1, N, N)
+    for args in ((a, None, None), (None, b, None), (a, b, c)):
+        o1, o2 = torch.empty_like(a), torch.empty_like(a)
+        lfk.fderiv_cuda(*args, o1, ops)
+        lfk.fderiv_plain(*args, o2, ops)
+        assert rel(o1, o2) < TOL
+    y = T(2, 2, N, N)
+    for kind in ("forward", "adjoint"):
+        k1, k2 = torch.empty_like(y), torch.empty_like(y)
+        lfk.fvelocity_cuda(kind, y, k1, planes, ops, 2, 0.3)
+        lfk.fvelocity_plain(kind, y, k2, planes, ops, 2, 0.3)
+        assert rel(k1, k2) < TOL
+    yb = torch.cat([T(2, 4, N, N), 1e-3 * T(2, lfk.NACC, N, N)], dim=1)
+    k1, k2 = torch.empty_like(yb), torch.empty_like(yb)
+    lfk.fvelocity_cuda("backward", yb, k1, planes, ops, 2, 0.7)
+    lfk.fvelocity_plain("backward", yb, k2, planes, ops, 2, 0.7)
+    for i in range(yb.shape[1]):
+        assert rel(k1[:, i], k2[:, i]) < TOL
+
+
+@pytest.mark.cuda
+def test_factored_flows_match_plain_on_card():
+    """Whole K3 flows (L, L^-1, L^H) and a K4 backward flow at 1024^2
+    against their plain versions, on a Cphi-drawn phi and Cf-drawn f
+    (a one-mode phi that smooth is not representable to 1e-4 in float32
+    at this size). grad/Hess(phi) to 2e-3, the 1024^2 bound chip_smoke.py
+    states (l_max is 6x the 256^2 headline's)."""
+    _card()
+    N = 1024
+    tp = ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda")
+    ops = tderiv.deriv_ops(tp)
+    rng = np.random.default_rng(2)
+    Cl = ct.camb()
+    white = lambda n, pol: ct.Field(torch.as_tensor(
+        rng.standard_normal((n, N, N)).astype(np.float32), device="cuda"), ct.Basis(pol, "map"), tp)
+    pt = (ct.Cl_to_Cov("I", tp, Cl["total"]["pp"]).sqrt() @ white(1, "I")).to(ct.MAP).arr
+    Cf = ct.Cl_to_Cov("P", tp, Cl["unlensed_scalar"]["EE"], Cl["unlensed_scalar"]["BB"])
+    ft = (Cf.sqrt() @ white(2, "QU")).to(ct.QU_MAP).arr.contiguous()
+    dyt = white(2, "QU").arr
+    planes = lfk.gradhess(pt, ops)
+    assert rel(planes, lfk.gradhess_plain(pt, ops)) < 2e-3
+    for kind, t0, t1 in (("forward", 0., 1.), ("forward", 1., 0.), ("adjoint", 1., 0.)):
+        assert rel(lfk.flow_apply(ft, planes, ops, t0, t1, 2, kind),
+                   lfk.flow_apply_plain(ft, planes, ops, t0, t1, 2, kind)) < TOL
+    for x, y in zip(lfk.flow_bwd(dyt, ft, planes, ops, 0., 1., 2),
+                    lfk.flow_bwd_plain(dyt, ft, planes, ops, 0., 1., 2)):
+        assert rel(x, y) < TOL
+
+
+@pytest.mark.cuda
+def test_factored_wrapper_rejects_what_the_kernel_does_not_take():
+    _card()
+    tp = ct.ProjLambert(256, 256, thetapix=2, T=np.float32, device="cuda")
+    ops = tfd.factored_ops(tp, 2, 2)
+    x = torch.zeros((1, 256, 256), device="cuda")
+    with pytest.raises(RuntimeError, match="radix"):
+        lfk.fderiv_cuda(x, None, None, torch.empty_like(x), ops)
+    ops8 = tderiv.deriv_ops(ct.ProjLambert(1024, 1024, thetapix=2, T=np.float32, device="cuda"))
+    y = torch.zeros((1, 1024, 1024), device="cuda")
+    with pytest.raises(ValueError, match="alias"):
+        lfk.fderiv_cuda(y, None, None, y, ops8)
+
+
+@pytest.mark.cuda
+def test_batched_irfft2_matches_single_planes_on_card():
+    """cuFFT's batched inverse real plans treated the anti-Hermitian part
+    of the self-conjugate columns unlike its single plans (1e-4 relative
+    apart at 1024^2); ops/fft.py::irfft2 hands them only the Hermitian
+    part, so a batch inverts like its planes one by one."""
+    _card()
+    from cmblensing_tpu_torch.ops import fft as tfft
+    g = torch.Generator(device="cuda").manual_seed(1)
+    X = torch.randn((17, 1, 1024, 513), generator=g, device="cuda", dtype=torch.complex64)
+    X[..., 1:, 0] *= torch.linspace(1, 2, 1023, device="cuda")   # break the column's symmetry
+    out = tfft.irfft2(X, 1024)
+    for i in (0, 5, 16):
+        one = tfft.irfft2(X[i], 1024)
+        assert rel(out[i], one) < 1e-6
