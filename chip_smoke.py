@@ -15,7 +15,12 @@ port's two paths through the kernel backend:
               versions, the phi-gradient against the plain backend, and
               MAP_joint as scripts/map_1024.py runs it (grid line search,
               15 fixed CG iterations, 2 warm-up steps then 6 timed),
-              with one step on the plain backend beside it.
+              with one step on the plain backend beside it;
+  phase 8     the same 1024^2 P path on the "uni" backend: the universal
+              role-switched kernel K5 (csrc/uni.cu), each role at batch 1
+              and 17 against its plain version, the uni flows against
+              their plain versions and the K3/K4 flows, the phi-gradient
+              against the kernel backend, and MAP_joint as in phase 7.
 
 Each path's launch counters are set to 0 just before it and read just
 after. Exits non-zero, printing no result line, when there is no CUDA
@@ -23,7 +28,11 @@ card or any phase fails.
 
 The last two lines of stdout are the per-kernel JSON record and
 {"ok": true, "device": {...}}; the card's name and power limit come on a
-line before them.
+line before them. Each kernel's record holds its time, its plain
+version's, the time of one PyTorch call computing the same function
+where there is one (strict FP32 `a @ DxT` for a derivative pass), and
+its bound: the larger of its derivative FLOPs over the card's FP32 peak
+and the bytes it must move over its memory rate.
 """
 import json
 import os
@@ -61,6 +70,14 @@ DENSE_KERNELS = ("velocity_forward", "velocity_adjoint", "velocity_backward", "r
                  "deriv")
 FACTORED_KERNELS = ("fderiv", "fa_velocity_forward", "fa_velocity_adjoint", "bv_velocity",
                     "rk4_update")
+UNI_KERNELS = ("uni_role0", "uni_role1", "uni_role2", "uni_role3", "fderiv", "rk4_update")
+# the un-hoisted delta phi (integrated in the uni flow's state) against
+# the hoisted one and a float64 evaluation: one more summation order over
+# 4 nsteps stages of 6 derivatives
+DPHI_UNHOISTED_TOL = 1e-4
+# H100 SXM data sheet: FP32 outside the tensor cores, HBM3
+FP32_PEAK, HBM_RATE = 67e12, 3.35e12
+FA = 128               # the factored derivative's block size (ops/deriv.py::FACTOR_A)
 
 
 def rel(a, b):
@@ -68,16 +85,56 @@ def rel(a, b):
 
 
 def cuda_ms(fn, reps, torch):
-    """Median milliseconds of fn() over reps runs, by CUDA events."""
-    times = []
+    """Milliseconds per fn() over reps back-to-back runs after one warm-up
+    run, by CUDA events around the whole run."""
+    fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
     for _ in range(reps):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
         fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def bound(flops, planes, N, extra_floats=0):
+    """bound_ms and bound_by of a function doing `flops` FP32 operations
+    and moving `planes` N x N float32 planes plus `extra_floats` floats
+    (each input read once, each output written once)."""
+    t_op = flops / FP32_PEAK
+    t_mem = 4 * (planes * N * N + extra_floats) / HBM_RATE
+    return dict(bound_ms=1e3 * max(t_op, t_mem), bound_by="operations" if t_op >= t_mem else "bytes")
+
+
+def dense_deriv_flops(N):
+    """One dense circulant derivative of an N x N plane: N^3 FMA."""
+    return 2 * N ** 3
+
+
+def fact_deriv_flops(N, B=None):
+    """One radix-B factored derivative of an N x N plane (csrc/fact_tile.cuh):
+    2B - 2 block products of A x A x N FMA, and B FMA per pixel in each
+    butterfly."""
+    B = B or N // FA
+    return 2 * (2 * B - 2) * FA * FA * N + 2 * 2 * B * N * N
+
+
+def fact_op_floats(N):
+    """The factored operands' floats: (B, A, A) blocks and (2, B, B)
+    butterflies per axis."""
+    B = N // FA
+    return 2 * (B * FA * FA + 2 * B * B)
+
+
+def matmul_ms(a, b, torch, reps=20):
+    """The library call for a derivative pass: strict FP32 `a @ b` (no
+    TF32; a @ DxT along x, Dy @ b along y), one cuBLAS call."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_ms(lambda: a @ b, reps, torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def card_line():
@@ -120,10 +177,12 @@ def phase_kernels(torch, proj):
         k1, k2 = torch.empty_like(y), torch.empty_like(y)
         lfk.velocity_cuda(kind, y, k1, phi, mats, 2, t)
         lfk.velocity_plain(kind, y, k2, phi, mats, 2, t)
+        nder, planes = (8, 25) if kind == "backward" else (4, 11)   # y, phi, k, DxT, Dy
         out["velocity_" + kind] = dict(
             max_abs_err=float((k1 - k2).abs().max()), rel=rel(k1, k2),
             ms=cuda_ms(lambda: lfk.velocity_cuda(kind, y, k1, phi, mats, 2, t), 20, torch),
-            plain_ms=cuda_ms(lambda: lfk.velocity_plain(kind, y, k2, phi, mats, 2, t), 20, torch))
+            plain_ms=cuda_ms(lambda: lfk.velocity_plain(kind, y, k2, phi, mats, 2, t), 20, torch),
+            library_ms=None, **bound(nder * dense_deriv_flops(N), planes, N))
     y = torch.randn((nb, N, N), device=f.device)
     k = torch.randn_like(y)
     bufs = [torch.randn_like(y) for _ in range(2)]
@@ -138,14 +197,24 @@ def phase_kernels(torch, proj):
     out["rk4_update"] = dict(
         max_abs_err=float((res[0] - res[1]).abs().max()), rel=rel(res[0], res[1]),
         ms=cuda_ms(lambda: lfk.rk4_update_cuda(yy, k, acc, s, 1, 1 / 21, 1 / 14), 20, torch),
-        plain_ms=cuda_ms(lambda: lfk.rk4_update_plain(yy, k, acc, s, 1, 1 / 21, 1 / 14), 20, torch))
+        plain_ms=cuda_ms(lambda: lfk.rk4_update_plain(yy, k, acc, s, 1, 1 / 21, 1 / 14), 20, torch),
+        # stage 1: acc += w k, s = y + w' k (4 flops; y, k, acc in, acc, s out)
+        library_ms=None, **bound(4 * nb * N * N, 5 * nb, N))
+    # the derivative kernel: d_x a + d_y b + c checked, the d_x a pass timed
+    # beside its one-call library counterpart
     a, b, c = f[0:1].contiguous(), f[1:2].contiguous(), dy[0:1].contiguous()
     o1, o2 = torch.empty_like(a), torch.empty_like(a)
     lfk.deriv_cuda(a, b, c, o1, mats)
     lfk.deriv_plain(a, b, c, o2, mats)
-    out["deriv"] = dict(max_abs_err=float((o1 - o2).abs().max()), rel=rel(o1, o2),
-                        ms=cuda_ms(lambda: lfk.deriv_cuda(a, b, c, o1, mats), 20, torch),
-                        plain_ms=cuda_ms(lambda: lfk.deriv_plain(a, b, c, o2, mats), 20, torch))
+    err3 = (float((o1 - o2).abs().max()), rel(o1, o2))
+    lfk.deriv_cuda(a, None, None, o1, mats)
+    lfk.deriv_plain(a, None, None, o2, mats)
+    out["deriv"] = dict(max_abs_err=max(err3[0], float((o1 - o2).abs().max())),
+                        rel=max(err3[1], rel(o1, o2)),
+                        ms=cuda_ms(lambda: lfk.deriv_cuda(a, None, None, o1, mats), 20, torch),
+                        plain_ms=cuda_ms(lambda: lfk.deriv_plain(a, None, None, o2, mats), 20, torch),
+                        library_ms=matmul_ms(a[0], mats[0], torch),
+                        **bound(dense_deriv_flops(N), 3, N))      # a, out, DxT
 
     # whole flows at the main path's size and nsteps
     errs["flow_forward"] = rel(lfk.flow_apply(f, phi, mats, 0., 1., NSTEPS, "forward"),
@@ -160,7 +229,9 @@ def phase_kernels(torch, proj):
     for name, e in errs.items():
         print(f"phase 2: {name:22s} rel max-abs err kernel vs plain = {e:.3e} (bound {FLOW_TOL:g})")
     for name, d in out.items():
-        print(f"phase 2: kernel {name:18s} rel err {d['rel']:.3e}  {d['ms']:.4f} ms  plain {d['plain_ms']:.4f} ms")
+        print(f"phase 2: kernel {name:18s} rel err {d['rel']:.3e}  {d['ms']:.4f} ms  plain "
+              f"{d['plain_ms']:.4f} ms  library {d['library_ms']}  bound {d['bound_ms']:.4f} ms "
+              f"({d['bound_by']})")
     print(f"phase 2: {'gradhess':22s} rel max-abs err kernel vs plain = {hess_err:.3e} (bound {HESS_TOL:g})")
     bad = {k: v for k, v in errs.items() if not v < FLOW_TOL}
     if not hess_err < HESS_TOL:
@@ -281,6 +352,16 @@ def phase_factored(torch, card):
                        ("fderiv", (a, b, c))):
         check(name, lambda: lfk.fderiv_cuda(*args, o1, ops),
               lambda: lfk.fderiv_plain(*args, o2, ops), lambda: (o1, o2))
+    # bounds: derivative FLOPs; planes in and out plus the factored operands
+    # (one axis' for a single pass); the dense circulants for the library call
+    DxT, Dy = deriv.deriv_mats(proj)
+    half_ops = fact_op_floats(N_MAP) // 2
+    out["fderiv_x"].update(library_ms=matmul_ms(a[0], DxT, torch),
+                           **bound(fact_deriv_flops(N_MAP), 2, N_MAP, half_ops))
+    out["fderiv_y"].update(library_ms=matmul_ms(Dy, b[0], torch),
+                           **bound(fact_deriv_flops(N_MAP), 2, N_MAP, half_ops))
+    out["fderiv"].update(library_ms=None, **bound(2 * fact_deriv_flops(N_MAP), 4, N_MAP,
+                                                  fact_op_floats(N_MAP)))
     t = 0.5
     k1, k2 = torch.empty_like(y), torch.empty_like(y)
     for kind in ("forward", "adjoint"):
@@ -296,6 +377,11 @@ def phase_factored(torch, card):
     # the bundle's planes differ in scale by orders: hold each to the bound
     bv_planes = max(rel(kb1[0, i], kb2[0, i]) for i in range(yb.shape[1]))
     out["bv_velocity"]["rel"] = max(out["bv_velocity"]["rel"], bv_planes)
+    # y, phi, k: 2 + 5 + 2 planes, 4 derivatives (K3); 9 + 5 + 9, 8 (K4)
+    for name, nder, planes in (("fa_velocity_forward", 4, 9), ("fa_velocity_adjoint", 4, 9),
+                               ("bv_velocity", 8, 23)):
+        out[name].update(library_ms=None, **bound(nder * fact_deriv_flops(N_MAP), planes, N_MAP,
+                                                  fact_op_floats(N_MAP)))
 
     # the line search's batch: NTRIAL trials, each with its own phi planes
     # (phi scaled along an alpha grid) and its own state, on the kernels'
@@ -327,13 +413,13 @@ def phase_factored(torch, card):
         out[name]["batched"] = d
 
     # whole flows at the main path's nsteps
-    flows = {}
+    flows, results = {}, {}
     for name, run in (
             ("L", lambda fn: fn(f, phi, ops, 0., 1., NSTEPS, "forward")),
             ("L^-1", lambda fn: fn(f, phi, ops, 1., 0., NSTEPS, "forward")),
             ("L^H", lambda fn: fn(f, phi, ops, 1., 0., NSTEPS, "adjoint"))):
-        kv, pv = run(lfk.flow_apply), run(lfk.flow_apply_plain)
-        flows[name] = (rel(kv, pv), cuda_ms(lambda: run(lfk.flow_apply), 3, torch),
+        results[name], pv = run(lfk.flow_apply), run(lfk.flow_apply_plain)
+        flows[name] = (rel(results[name], pv), cuda_ms(lambda: run(lfk.flow_apply), 3, torch),
                        cuda_ms(lambda: run(lfk.flow_apply_plain), 1, torch))
     (dphi_k, df0_k), (dphi_p, df0_p) = (fn(dy, f, phi, ops, 0., 1., NSTEPS)
                                         for fn in (lfk.flow_bwd, lfk.flow_bwd_plain))
@@ -344,7 +430,8 @@ def phase_factored(torch, card):
     torch.cuda.synchronize()
     for name, d in out.items():
         print(f"phase 5: kernel {name:20s} rel err {d['rel']:.3e} (bound {FLOW_TOL:g})  "
-              f"{d['ms']:.4f} ms  plain {d['plain_ms']:.4f} ms  [{N_MAP}^2; {card}]")
+              f"{d['ms']:.4f} ms  plain {d['plain_ms']:.4f} ms  library {d['library_ms']}  "
+              f"bound {d['bound_ms']:.4f} ms ({d['bound_by']})  [{N_MAP}^2; {card}]")
     for name, d in batched.items():
         print(f"phase 5: kernel {name:20s} batch {NTRIAL} rel err {d['rel']:.3e} (bound "
               f"{FLOW_TOL:g}, each trial)  {d['ms']:.4f} ms  plain {d['plain_ms']:.4f} ms  "
@@ -361,7 +448,8 @@ def phase_factored(torch, card):
         bad["gradhess"] = hess_err
     if bad:
         raise AssertionError(f"factored kernel disagrees with its plain version: {bad}")
-    return out
+    results.update(dphi=dphi_k, df0=df0_k)
+    return out, dict(ops=ops, phi=phi, phi_map=phi_map, f=f, dy=dy, flows=results)
 
 
 def phase_map_gradient(torch, card):
@@ -391,18 +479,21 @@ def phase_map_gradient(torch, card):
           f"{res['kernel'][2]:.3f} ms plain {res['plain'][2]:.3f} ms [{N_MAP}^2 P; {card}]")
     if not (torch.isfinite(res["kernel"][1].arr).all() and gerr < GRAD_TOL_1024):
         raise AssertionError(f"1024^2 kernel gradient disagrees with the plain backend: {gerr}")
-    return sim, res["kernel"][2], res["plain"][2]
+    return (dict(sim=sim, vg=vg, phi_mix=phi_mix, grad=res["kernel"][1]), res["kernel"][2],
+            res["plain"][2])
 
 
-def phase_map(torch, sim, card):
-    """MAP_joint at 1024^2 P as scripts/map_1024.py runs it, on the
-    factored kernels; one plain-backend step beside it."""
+def run_map(torch, sim, phase, label, card):
+    """MAP_joint at 1024^2 P as scripts/map_1024.py runs it, on the current
+    LenseFlow backend: MAP_WARM warm-up steps, then MAP_STEPS timed with
+    the launch counters and timers set to 0 just before and read just
+    after. Checks a finite, never-decreasing logpdf, a first step taken
+    and corr(phi_MAP, phi_true); returns (launches, s/step, history)."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
     from cmblensing_tpu_torch.utils import timing
-    ds = sim["ds"]
     keys = ("logpdf", "alpha", "cg_iters", "cg_res", "gradnorm")
-    run = lambda n: ct.MAP_joint(ds, nsteps=n, linesearch="grid", conjgrad_kwargs=MAP_CG,
+    run = lambda n: ct.MAP_joint(sim["ds"], nsteps=n, linesearch="grid", conjgrad_kwargs=MAP_CG,
                                  history_keys=keys)
     t0 = time.perf_counter()
     run(MAP_WARM)
@@ -416,40 +507,179 @@ def phase_map(torch, sim, card):
     dt = time.perf_counter() - t0
     launches = dict(lfk.LAUNCHES)
     report = timing.timer_report()
-    with ct.lenseflow_backend_ctx("plain"):
-        t1 = time.perf_counter()
-        run(1)
-        torch.cuda.synchronize()
-        plain_step = time.perf_counter() - t1
     hist = res["history"]
     lps = [h["logpdf"] for h in hist]
     alphas = [h["alpha"] for h in hist]
     pt = sim["phi"].to(ct.MAP).arr.reshape(-1).double()
     pm = res["phi"].to(ct.MAP).arr.reshape(-1).double()
     corr = float(pm @ pt / (pm.norm() * pt.norm()))
-    print(f"phase 7: MAP_joint {N_MAP}^2 P: {MAP_WARM} warm-up steps {warm:.2f} s; "
-          f"{MAP_STEPS} steps {dt:.2f} s = {dt / MAP_STEPS:.3f} s/step kernel; "
-          f"plain backend {plain_step:.3f} s/step (1 step) [{card}]")
+    print(f"phase {phase}: MAP_joint {N_MAP}^2 P: {MAP_WARM} warm-up steps {warm:.2f} s; "
+          f"{MAP_STEPS} steps {dt:.2f} s = {dt / MAP_STEPS:.3f} s/step {label} [{card}]")
     for line in report.splitlines():
-        print("phase 7: timers", line)
-    print(f"phase 7: logpdfs {lps!r}")
-    print(f"phase 7: alphas {alphas!r}; CG iters {[h['cg_iters'] for h in hist]}; "
+        print(f"phase {phase}: timers", line)
+    print(f"phase {phase}: logpdfs {lps!r}")
+    print(f"phase {phase}: alphas {alphas!r}; CG iters {[h['cg_iters'] for h in hist]}; "
           f"CG res {[float(h['cg_res']) for h in hist]!r}")
-    print(f"phase 7: gradnorm {[float(h['gradnorm']) for h in hist]!r}")
-    print(f"phase 7: corr(phi_MAP, phi_true) = {corr:.4f} (bound >= {CORR_MIN:g})")
-    print(f"phase 7: launches in the MAP_joint run: {launches}")
+    print(f"phase {phase}: gradnorm {[float(h['gradnorm']) for h in hist]!r}")
+    print(f"phase {phase}: corr(phi_MAP, phi_true) = {corr:.4f} (bound >= {CORR_MIN:g})")
+    print(f"phase {phase}: launches in the MAP_joint run: {launches}; per step "
+          f"{ {k: v / MAP_STEPS for k, v in launches.items() if v} }")
     if not all(np.isfinite(lps)) or any(b < a for a, b in zip(lps, lps[1:])):
         raise AssertionError(f"MAP_joint logpdf not finite and non-decreasing: {lps}")
     if not alphas[0] > 0:
         raise AssertionError(f"first line search accepted no step: {alphas}")
-    if min(launches[k] for k in FACTORED_KERNELS) <= 0:
-        raise AssertionError(f"a factored kernel never launched in MAP_joint: {launches}")
+    if not corr >= CORR_MIN:
+        raise AssertionError(f"corr(phi_MAP, phi_true) = {corr} < {CORR_MIN}")
     dense = {k: launches[k] for k in DENSE_KERNELS if k != "rk4_update" and launches[k]}
     if dense:
         raise AssertionError(f"dense K2 kernels launched at {N_MAP}^2: {dense}")
-    if not corr >= CORR_MIN:
-        raise AssertionError(f"corr(phi_MAP, phi_true) = {corr} < {CORR_MIN}")
-    return launches, dt / MAP_STEPS, plain_step
+    return launches, dt / MAP_STEPS, hist
+
+
+def phase_map(torch, sim, card):
+    """MAP_joint at 1024^2 P on the factored kernels; one plain-backend
+    step beside it."""
+    import cmblensing_tpu_torch as ct
+    launches, s_step, hist = run_map(torch, sim, 7, "kernel", card)
+    with ct.lenseflow_backend_ctx("plain"):
+        t1 = time.perf_counter()
+        ct.MAP_joint(sim["ds"], nsteps=1, linesearch="grid", conjgrad_kwargs=MAP_CG)
+        torch.cuda.synchronize()
+        plain_step = time.perf_counter() - t1
+    print(f"phase 7: plain backend {plain_step:.3f} s/step (1 step) [{card}]")
+    if min(launches[k] for k in FACTORED_KERNELS) <= 0:
+        raise AssertionError(f"a factored kernel never launched in MAP_joint: {launches}")
+    return launches, s_step, plain_step, hist
+
+
+def phase_uni(torch, card, fctx, gctx):
+    """The 1024^2 P path on the "uni" backend: K5, every role at the
+    operands the uni flows give it, at batch 1 and on a NTRIAL-trial state
+    with NTRIAL phi scalings, against its plain version; the uni flows
+    against their plain versions and phase 5's K3/K4 flows; the
+    phi-gradient against the kernel backend; MAP_joint as in phase 7."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    ops, phi, f, dy = (fctx[k] for k in ("ops", "phi", "f", "dy"))
+    t = 0.5
+    nonzero, nder = {0: 4, 1: 1, 2: 2, 3: 2}, {0: 4, 1: 6, 2: 4, 3: 4}
+
+    def operands(phis, state):
+        """px, py and each role's (a, b) as the uni flows pass them: views
+        of a (nb, 4, N, N) state (f, delta f); role 1 takes u = M^-1 w of
+        role 0's w."""
+        px, py = (p.unsqueeze(1).contiguous() for p in lfk._p_of_t(t, phis))
+        w = torch.empty((state.shape[0], 2, 4, N_MAP, N_MAP), device=DEVICE)
+        lfk.uni_velocity_plain(0, state[:, :2], state[:, 2:], px, py, w, ops, t)
+        m11, m12, m22 = lfk._minv_of_t(t, phis)
+        wx, wy = w[:, :, 2].sum(1), w[:, :, 3].sum(1)
+        u = torch.stack([m11 * wx + m12 * wy, m12 * wx + m22 * wy], dim=1)
+        pair = (state[:, :1], state[:, 1:2])
+        return px, py, {0: (state[:, :2], state[:, 2:]), 1: (u[:, :1], u[:, 1:]), 2: pair, 3: pair}
+
+    def check_roles(phis, state, reps):
+        """Each role, kernel against plain; every output plane of every
+        entry of every trial held to the bound on its own, the planes the
+        role leaves at zero exactly zero."""
+        px, py, ab = operands(phis, state)
+        nb, res = state.shape[0], {}
+        for role, (a, b) in ab.items():
+            nper = a.shape[1]
+            o1 = torch.full((nb, nper, 4, N_MAP, N_MAP), float("nan"), device=DEVICE)
+            o2 = torch.empty_like(o1)
+            run_k = lambda: lfk.uni_velocity_cuda(role, a, b, px, py, o1, ops, t)
+            run_p = lambda: lfk.uni_velocity_plain(role, a, b, px, py, o2, ops, t)
+            run_k()
+            run_p()
+            n = nonzero[role]
+            res[role] = dict(
+                nb=nb, max_abs_err=float((o1[:, :, :n] - o2[:, :, :n]).abs().max()),
+                rel=max(rel(o1[i, c, j], o2[i, c, j])
+                        for i in range(nb) for c in range(nper) for j in range(n)),
+                zero=bool((o1[:, :, n:] == 0).all()),
+                ms=cuda_ms(run_k, reps, torch), plain_ms=cuda_ms(run_p, 1, torch),
+                library_ms=None,
+                # a, b, out per entry; px, py per trial; the factored operands
+                **bound(nder[role] * nb * nper * fact_deriv_flops(N_MAP),
+                        nb * (2 * nper + 2 + 4 * nper), N_MAP, fact_op_floats(N_MAP)))
+        return res
+
+    one = check_roles(phi[None], torch.cat([f, dy])[None], 10)
+    scales = torch.linspace(0.1, 2.0, NTRIAL, device=DEVICE).reshape(-1, 1, 1, 1)
+    states = torch.stack([torch.roll(torch.cat([f, dy]), 7 * i, dims=-1) for i in range(NTRIAL)])
+    many = check_roles((scales * phi).contiguous(), states, 3)
+    del states
+
+    # whole uni flows at the main path's nsteps
+    flows = {}
+    for name, (t0, t1, kind) in (("L", (0., 1., "forward")), ("L^-1", (1., 0., "forward")),
+                                 ("L^H", (1., 0., "adjoint"))):
+        run = lambda fn: fn(f, phi, ops, t0, t1, NSTEPS, kind)
+        kv, pv = run(lfk.uni_flow_apply), run(lfk.uni_flow_apply_plain)
+        flows[name] = dict(rel=rel(kv, pv), k3=rel(kv, fctx["flows"][name]),
+                           ms=cuda_ms(lambda: run(lfk.uni_flow_apply), 3, torch),
+                           plain_ms=cuda_ms(lambda: run(lfk.uni_flow_apply_plain), 1, torch))
+    bwd = lambda fn: fn(dy, f, phi, ops, 0., 1., NSTEPS)
+    (dphi_u, df0_u), (dphi_p, df0_p) = bwd(lfk.uni_flow_bwd), bwd(lfk.uni_flow_bwd_plain)
+    bwd_ms = cuda_ms(lambda: bwd(lfk.uni_flow_bwd), 3, torch)
+    bwd_plain_ms = cuda_ms(lambda: bwd(lfk.uni_flow_bwd_plain), 1, torch)
+    proj64 = ct.ProjLambert(N_MAP, N_MAP, thetapix=THETAPIX_MAP, T=np.float64, device=DEVICE)
+    dphi64, _ = lfk.uni_flow_bwd_plain(dy.double(), f.double(), phi.double(),
+                                       deriv.deriv_ops(proj64), 0., 1., NSTEPS)
+    flows["backward df0"] = dict(rel=rel(df0_u, df0_p), k3=rel(df0_u, fctx["flows"]["df0"]),
+                                 ms=bwd_ms, plain_ms=bwd_plain_ms)
+    flows["backward dphi"] = dict(rel=rel(dphi_u, dphi_p), ms=bwd_ms, plain_ms=bwd_plain_ms)
+    dphi_err = dict(hoisted=rel(dphi_u, fctx["flows"]["dphi"]),
+                    float64=rel(dphi_u.double(), dphi64))
+    del dphi64
+
+    # the phi-gradient on "uni" against the kernel backend
+    with ct.lenseflow_backend_ctx("uni"):
+        v, g = gctx["vg"](gctx["phi_mix"])
+        grad_ms = cuda_ms(lambda: gctx["vg"](gctx["phi_mix"]), 3, torch)
+    gerr = rel(g.arr, gctx["grad"].arr)
+
+    torch.cuda.synchronize()
+    for label, res in (("", one), (f" batch {NTRIAL}", many)):
+        for role, d in res.items():
+            print(f"phase 8: K5 role {role}{label} rel err {d['rel']:.3e} (bound {FLOW_TOL:g}, each "
+                  f"plane and trial)  zero planes exact {d['zero']}  {d['ms']:.4f} ms  plain "
+                  f"{d['plain_ms']:.4f} ms  bound {d['bound_ms']:.4f} ms ({d['bound_by']})  "
+                  f"[{N_MAP}^2; {card}]")
+    for name, d in flows.items():
+        k3 = f"; vs K3/K4 flow {d['k3']:.3e}" if "k3" in d else ""
+        print(f"phase 8: uni flow {name:14s} rel err vs plain {d['rel']:.3e}{k3} (bound "
+              f"{FLOW_TOL:g})  uni {d['ms']:.3f} ms  plain {d['plain_ms']:.3f} ms  "
+              f"[{N_MAP}^2 P, nsteps={NSTEPS}; {card}]")
+    print(f"phase 8: un-hoisted dphi vs hoisted {dphi_err['hoisted']:.3e}, vs float64 "
+          f"{dphi_err['float64']:.3e} (bound {DPHI_UNHOISTED_TOL:g})")
+    print(f"phase 8: lnP uni {float(v)!r}; grad rel max-abs err vs kernel backend {gerr:.3e} "
+          f"(bound {GRAD_TOL_1024:g}); gradlnP uni {grad_ms:.3f} ms [{N_MAP}^2 P; {card}]")
+    bad = {f"role {r}{lab}": d["rel"] for lab, res in (("", one), (f"[{NTRIAL}]", many))
+           for r, d in res.items() if not (d["rel"] < FLOW_TOL and d["zero"])}
+    bad.update({k: d["rel"] for k, d in flows.items() if not d["rel"] < FLOW_TOL})
+    bad.update({k + " vs K3/K4": d["k3"] for k, d in flows.items()
+                if "k3" in d and not d["k3"] < FLOW_TOL})
+    bad.update({"dphi vs " + k: e for k, e in dphi_err.items() if not e < DPHI_UNHOISTED_TOL})
+    if not (torch.isfinite(g.arr).all() and gerr < GRAD_TOL_1024):
+        bad["gradient"] = gerr
+    if bad:
+        raise AssertionError(f"uni path disagrees: {bad}")
+
+    with ct.lenseflow_backend_ctx("uni"):
+        launches, s_step, hist = run_map(torch, gctx["sim"], 8, "uni", card)
+    khist = gctx["map_hist"]
+    print(f"phase 8: beside phase 7 (kernel): logpdfs {[h['logpdf'] for h in khist]!r}; alphas "
+          f"{[h['alpha'] for h in khist]!r}")
+    if min(launches[k] for k in UNI_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the uni path never launched in MAP_joint: {launches}")
+    k34 = {k: launches[k] for k in ("fa_velocity_forward", "fa_velocity_adjoint", "bv_velocity")
+           if launches[k]}
+    if k34:
+        raise AssertionError(f"K3/K4 launched on the uni backend: {k34}")
+    for role, d in one.items():
+        d["batched"] = many[role]
+    return {f"uni_role{r}": d for r, d in one.items()}, launches, grad_ms, s_step
 
 
 def main():
@@ -479,28 +709,38 @@ def main():
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
     timing = phase_timing(torch, ds, f_mix, phi_mix, card)
-    fkernels = phase_factored(torch, card)
-    sim, grad_ms, grad_plain_ms = phase_map_gradient(torch, card)
-    map_launches, s_step, plain_s_step = phase_map(torch, sim, card)
+    fkernels, fctx = phase_factored(torch, card)
+    gctx, grad_ms, grad_plain_ms = phase_map_gradient(torch, card)
+    map_launches, s_step, plain_s_step, gctx["map_hist"] = phase_map(torch, gctx["sim"], card)
+    ukernels, uni_launches, uni_grad_ms, uni_s_step = phase_uni(torch, card, fctx, gctx)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "fderiv": "cmblensing_tpu/ops/pallas_lenseflow.py:249",
                 "fa_velocity_forward": "cmblensing_tpu/ops/pallas_lenseflow.py:506",
                 "fa_velocity_adjoint": "cmblensing_tpu/ops/pallas_lenseflow.py:506",
                 "bv_velocity": "cmblensing_tpu/ops/pallas_lenseflow.py:581"}
+    replaces.update({f"uni_role{r}": "cmblensing_tpu/ops/pallas_lenseflow.py:734" for r in range(4)})
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entry = lambda name, d, src, n: {
         "name": name, "route": "cuda", "source": src,
         "replaces": replaces.get(name, "cmblensing_tpu/ops/pallas_lenseflow.py:472"),
-        "launches": n, "max_abs_err": d["max_abs_err"], "ms": d["ms"], "plain_ms": d["plain_ms"],
+        "launches": n, **{k: d[k] for k in keys},
         **({"batched": d["batched"]} if "batched" in d else {})}
+    # K1's record is its d_x pass, the function one library call (a @ DxT) computes
+    fkernels["fderiv_x"]["batched"] = fkernels["fderiv"]["batched"]
     record = {"kernels": [entry(name, d, "cmblensing_tpu_torch/csrc/lenseflow.cu", launches[name])
                           for name, d in kernels.items()]
-              + [entry(name, fkernels[name], "cmblensing_tpu_torch/csrc/factored.cu",
+              + [entry(name, fkernels[key], "cmblensing_tpu_torch/csrc/factored.cu",
                        map_launches[name])
-                 for name in ("fderiv", "fa_velocity_forward", "fa_velocity_adjoint",
-                              "bv_velocity")]}
+                 for name, key in (("fderiv", "fderiv_x"),
+                                   ("fa_velocity_forward", "fa_velocity_forward"),
+                                   ("fa_velocity_adjoint", "fa_velocity_adjoint"),
+                                   ("bv_velocity", "bv_velocity"))]
+              + [entry(name, d, "cmblensing_tpu_torch/csrc/uni.cu", uni_launches[name])
+                 for name, d in ukernels.items()]}
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),
-                   "MAP_joint_1024_s_per_step": (s_step, plain_s_step)})
+                   "MAP_joint_1024_s_per_step": (s_step, plain_s_step),
+                   "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step})
     print("main path ms (kernel, plain):", json.dumps(timing))
     print(card)
     print(json.dumps(record))

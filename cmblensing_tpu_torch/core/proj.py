@@ -4,7 +4,9 @@ PyTorch counterpart of ``cmblensing_tpu/core/proj.py``. A ProjLambert is
 a memoized metadata object: its grids (lx, ly, lmag, sin2phi, cos2phi,
 lam_rfft) are host numpy arrays, pure functions of (Ny, Nx, thetapix,
 T), and ``proj.tensor(name)`` hands out a cached copy of one on the
-projection's ``device``.
+projection's ``device``: the CUDA card unless the caller names another
+(``device="cpu"``); with no card and no ``device`` the constructor
+raises rather than carry on on the CPU.
 
 Arrays are (..., ncomp, Ny, Nx) with the FFT over the last two axes and
 the rfft half-axis along x. Physical conventions (deltax =
@@ -29,15 +31,26 @@ def rfft_degeneracy_fac(n: int) -> np.ndarray:
     return np.concatenate([[1.0], np.full(n // 2, 2.0)])
 
 
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the CUDA card when it is None. The port runs on the
+    card unless asked for another device; without a card it raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card unless given a device, "
+                           "e.g. device='cpu'")
+    return torch.device("cuda")
+
+
 class ProjLambert:
     """Flat-sky projection metadata (one instance per parameter set and
     device)."""
 
     _cache = {}
 
-    def __new__(cls, Ny, Nx, thetapix=1.0, T=np.float32, device="cpu"):
+    def __new__(cls, Ny, Nx, thetapix=1.0, T=np.float32, device=None):
         T = np.dtype(T)
-        device = torch.device(device)
+        device = resolve_device(device)
         key = (int(Ny), int(Nx), float(thetapix), T.str, str(device))
         if key in cls._cache:
             return cls._cache[key]

@@ -23,7 +23,7 @@ from ..core.cov import Cl_to_Cov
 from ..core.field import Field
 from ..core.ops import (Diag, Id, LowPass, BandPass, OpAlgebra, ParamDependentOp,
                         Scaled, evaluate_at, logdet_rel, safe_divide, safe_reciprocal)
-from ..core.proj import ProjLambert
+from ..core.proj import ProjLambert, resolve_device
 from ..utils.cls import camb as camb_cls, noise_cls, beam_cls
 from .distributions import MvNormal
 from .lenseflow import LenseFlow
@@ -212,17 +212,19 @@ def _mask_cov(pol, proj, bandpass):
 
 
 def load_sim(thetapix, Nside, pol, T=np.float32, muKarcminT=3, beamFWHM=0, seed=0,
-             device="cpu"):
+             device=None):
     """Simulated-dataset factory for pol 'I' or 'P' at the fiducial
     cosmology (no pixel mask, no batch; 1/f noise knee at l=100, slope
     3). The simulation draws f, phi and the noise from a torch.Generator
-    on `device` seeded with `seed`. Returns a dict with f, ft, phi, d,
+    on `device` (the CUDA card unless given, e.g. "cpu") seeded with
+    `seed`. Returns a dict with f, ft, phi, d,
     ds, ds0 (fiducial-evaluated), Cl, proj."""
     from .quadratic_estimate import quadratic_estimate
 
     pol = str(pol)
     if pol not in ("I", "P"):
         raise NotImplementedError(f"load_sim for pol {pol!r} is not ported yet")
+    device = resolve_device(device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     Ny, Nx = (Nside, Nside) if np.isscalar(Nside) else Nside
@@ -269,7 +271,7 @@ DIAG_OPS = ("Cf", "Cf_tilde", "Cn", "Cn_hat", "Cphi", "M", "M_hat", "B", "B_hat"
             "D", "G", "Nphi")
 
 
-def dataset_from_numpy(arrays, proj_kwargs, device="cpu"):
+def dataset_from_numpy(arrays, proj_kwargs, device=None):
     """A DataSet from plain numpy arrays, e.g. those of another
     implementation's dataset evaluated at theta = {}.
 
@@ -277,7 +279,9 @@ def dataset_from_numpy(arrays, proj_kwargs, device="cpu"):
     the data field, and the diagonal of each Fourier- or map-diagonal
     operator, with its basis. A missing M, M_hat, B, B_hat, D or G is the
     identity.
-    proj_kwargs are ProjLambert's (Ny, Nx, thetapix, T)."""
+    proj_kwargs are ProjLambert's (Ny, Nx, thetapix, T). The dataset
+    lives on `device`: the CUDA card unless given, e.g. "cpu"."""
+    device = resolve_device(device)
     proj = ProjLambert(**proj_kwargs, device=device)
 
     def field(name):

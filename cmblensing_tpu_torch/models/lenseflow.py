@@ -11,13 +11,19 @@ stage from grad(phi) and Hess(phi). Gradients come from two
 transpose-delta flow, which integrates the coupled (f, delta f, delta
 phi) system t: 1 -> 0, re-evolving f backward on the fly.
 
-Two integration backends, chosen with `set_lenseflow_backend` or
+Three integration backends, chosen with `set_lenseflow_backend` or
 `lenseflow_backend_ctx`:
 
   'kernel' — ops/lenseflow_kernels.py: the hand-written CUDA flow
              kernels on a CUDA tensor, their plain matmul versions on the
              CPU; dense below the factored-derivative threshold, factored
              above it (whatever ops/deriv.py::deriv_ops returns).
+  'uni'    — the same module's per-velocity "uni" granularity: every
+             velocity of every flow is a call of the universal
+             role-switched kernel (K5), the backward flow integrates
+             delta phi in its state; the JAX package's CMBL_FORCE_UNI=1
+             CMBL_NO_FA=1. On the card it takes factored operands only
+             (512^2 and up); on the CPU its plain version takes either.
   'plain'  — RK4 over torch ops with FFT derivatives (ops/deriv.py), the
              backward flow with its delta-phi accumulation hoisted out of
              the time loop.
@@ -34,12 +40,13 @@ from ..ops import deriv as _deriv
 from ..ops import lenseflow_kernels as _lfk
 
 _BACKEND = "kernel"
+BACKENDS = ("kernel", "uni", "plain")
 
 
 def set_lenseflow_backend(backend):
-    """'kernel' or 'plain' (see the module docstring)."""
+    """'kernel', 'uni' or 'plain' (see the module docstring)."""
     global _BACKEND
-    if backend not in ("kernel", "plain"):
+    if backend not in BACKENDS:
         raise ValueError(f"unknown LenseFlow backend {backend!r}")
     _BACKEND = backend
 
@@ -114,6 +121,29 @@ def _rk4(F, y, t0, t1, nsteps):
     return y
 
 
+def _backward_velocity(t, state, g, h, proj):
+    """Velocity of the coupled transpose-delta system with delta phi in
+    the state, not hoisted (reference negδvelocityᴴ,
+    src/lenseflow.jl:176-214): the form the 'uni' backward flow
+    integrates. state is (..., 2 ncomp + 1, Ny, Nx) = [f, delta f, delta
+    phi], and so is the velocity."""
+    ncomp = (state.shape[-3] - 1) // 2
+    f, df = state[..., :ncomp, :, :], state[..., ncomp:2 * ncomp, :, :]
+    px, py = _p_t(t, g, h)
+    m11, m12, m22 = _Minv_t(t, h)
+    pxe, pye = px[..., None, :, :], py[..., None, :, :]
+    ddf = _deriv.div_xy(pxe * df, pye * df, proj)          # div(p delta f)
+    fx, fy = _deriv.grad_xy(f, proj)
+    dfdt = pxe * fx + pye * fy                             # p . grad f
+    wx = torch.sum(df * fx, dim=-3)
+    wy = torch.sum(df * fy, dim=-3)
+    ux = m11 * wx + m12 * wy
+    uy = m12 * wx + m22 * wy
+    # div(u) + sum_ij d_i d_j (t p_j u_i)
+    ddphi = _deriv.div_plus_dij(ux, uy, t * px * ux, t * py * ux, t * px * uy, t * py * uy, proj)
+    return torch.cat([dfdt, ddf, ddphi[..., None, :, :]], dim=-3)
+
+
 def _backward_flow_scan(f1, dy, g, h, proj, t1, t0, nsteps):
     """Transpose-delta backward flow from t1 to t0; returns (df0, dphi).
     The delta-phi accumulation is linear in the time-local integrands u
@@ -162,12 +192,13 @@ def _backward_flow_scan(f1, dy, g, h, proj, t1, t0, nsteps):
 def _apply(phi_map, f_map, t0, t1, nsteps, proj, backend, kind="forward"):
     """Forward flow t0 -> t1, or (kind='adjoint') the adjoint flow
     t1 -> t0."""
-    if backend == "kernel":
+    if backend in ("kernel", "uni"):
         mats = _deriv.deriv_ops(proj)
         phi = _lfk.gradhess(phi_map, mats)
+        flow = _lfk.flow_apply if backend == "kernel" else _lfk.uni_flow_apply
         if kind == "forward":
-            return _lfk.flow_apply(f_map, phi, mats, t0, t1, nsteps, "forward")
-        return _lfk.flow_apply(f_map, phi, mats, t1, t0, nsteps, "adjoint")
+            return flow(f_map, phi, mats, t0, t1, nsteps, "forward")
+        return flow(f_map, phi, mats, t1, t0, nsteps, "adjoint")
     g, h = _gradhess_phi(phi_map, proj)
     if kind == "forward":
         return _rk4(lambda t, y: _velocity(t, y, g, h, proj), f_map, t0, t1, nsteps)
@@ -179,10 +210,11 @@ def _bwd(phi_map, f1, dy, t0, t1, nsteps, proj, backend):
     coupled (f, delta f, delta phi) system from (f(t1), dy, 0) back to
     t0. Returns (dphi, df0)."""
     dy = dy.contiguous()
-    if backend == "kernel":
+    if backend in ("kernel", "uni"):
         mats = _deriv.deriv_ops(proj)
         phi = _lfk.gradhess(phi_map, mats)
-        return _lfk.flow_bwd(dy, f1, phi, mats, t0, t1, nsteps)
+        flow = _lfk.flow_bwd if backend == "kernel" else _lfk.uni_flow_bwd
+        return flow(dy, f1, phi, mats, t0, t1, nsteps)
     g, h = _gradhess_phi(phi_map, proj)
     df0, dphi = _backward_flow_scan(f1, dy, g, h, proj, t1, t0, nsteps)
     return dphi, df0

@@ -77,7 +77,7 @@ def build():
 def bind(lib):
     """Declare the C signatures of the kernel entry points on a loaded
     library."""
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     sigs = {
         "lf_velocity": [I, P, P, P, P, P, I, I, I, F, P],
         "lf_deriv": [P, P, P, P, P, P, I, I, I, P],
@@ -85,6 +85,7 @@ def bind(lib):
         "lf_fderiv": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
         "lf_fa_velocity": [I, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
         "lf_bv_velocity": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        "lf_uni_velocity": [I, P, P, L, L, L, L, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from . import fft as _fft
-from .factored_deriv import factored_ops
+from .factored_deriv import FactoredOps, apply_x, apply_y, factored_ops
 
 # Block size of the factored derivative. Provisional rule, to be set
 # from H100 measurements: radix B = n / FACTOR_A where n >= 512 and
@@ -70,6 +70,15 @@ def deriv_mats(proj):
              torch.as_tensor(np.ascontiguousarray(Dy1), device=proj.device))
         proj._tensors[key] = m
     return m
+
+
+def ddx_ddy(mats):
+    """(d/dx, d/dy) over (..., Ny, Nx) planes through the kernels'
+    operands: dense (DxT, Dy) circulants or FactoredOps."""
+    if isinstance(mats, FactoredOps):
+        return (lambda a: apply_x(a, mats.FX, mats.bfx)), (lambda a: apply_y(a, mats.FY, mats.bfy))
+    DxT, Dy = mats
+    return (lambda a: a @ DxT), (lambda a: Dy @ a)
 
 
 def _grids(proj):
@@ -147,3 +156,40 @@ def bwd_stage_derivs(f, pxdf, pydf, proj):
                      F[..., n:2 * n, :, :] * ilx + F[..., 2 * n:, :, :] * ily], dim=-3)
     o = _fft.irfft2(out, proj.Nx)
     return o[..., :n, :, :], o[..., n:2 * n, :, :], o[..., 2 * n:, :, :]
+
+
+def dij_sum(s, proj, mats=None):
+    """sum_ij d_i d_j s_ij for s stacked (..., 4, Ny, Nx) in the order
+    (xx, yx, xy, yy): s[0] takes d_x d_x, s[1] d_x d_y, s[2] d_y d_x,
+    s[3] d_y d_y. Returns (..., 1, Ny, Nx). With `mats` (dense or
+    factored) the derivatives are their products, else FFTs on `proj`."""
+    if mats is not None:
+        dx, dy = ddx_ddy(mats)
+        s0, s1, s2, s3 = s.unbind(-3)
+        return (dx(dx(s0)) + dx(dy(s1)) + dy(dx(s2)) + dy(dy(s3)))[..., None, :, :]
+    ilx, ily = _grids(proj)
+    S = _fft.rfft2(s)
+    D = (S[..., 0, :, :] * ilx * ilx + S[..., 1, :, :] * ilx * ily
+         + S[..., 2, :, :] * ily * ilx + S[..., 3, :, :] * ily * ily)
+    return _fft.irfft2(D[..., None, :, :], proj.Nx)
+
+
+def div_plus_dij(ux, uy, s0, s1, s2, s3, proj, mats=None):
+    """d_x ux + d_y uy + sum_ij d_i d_j s_ij for (..., Ny, Nx) planes, s
+    in the order of `dij_sum`: the delta-phi velocity of the LenseFlow
+    backward flow. With `mats` (dense or factored; `proj` unused) it is
+    regrouped into 6 derivative products,
+
+        d_x(ux + d_x s0 + d_y s1) + d_y(uy + d_x s2 + d_y s3),
+
+    the plain version of the universal kernel's role 1; else one FFT
+    pair on `proj`."""
+    if mats is not None:
+        dx, dy = ddx_ddy(mats)
+        return dx(ux + dx(s0) + dy(s1)) + dy(uy + dx(s2) + dy(s3))
+    ilx, ily = _grids(proj)
+    S = _fft.rfft2(torch.stack([ux, uy, s0, s1, s2, s3], dim=-3))
+    D = (S[..., 0, :, :] * ilx + S[..., 1, :, :] * ily + S[..., 2, :, :] * ilx * ilx
+         + S[..., 3, :, :] * ilx * ily + S[..., 4, :, :] * ily * ilx
+         + S[..., 5, :, :] * ily * ily)
+    return _fft.irfft2(D, proj.Nx)

@@ -2,7 +2,8 @@
 PyTorch version.
 
 Two kernel families, chosen by the derivative operands the flow is
-given (``ops/deriv.py::deriv_ops``):
+given (``ops/deriv.py::deriv_ops``), and a third granularity that the
+'uni' LenseFlow backend picks (``uni_flow_*``):
 
   dense     (DxT, Dy) circulants: csrc/lenseflow.cu, replacing
             ``_flow_call`` / ``_flow_kernel`` of
@@ -15,6 +16,12 @@ given (``ops/deriv.py::deriv_ops``):
             and the factored derivative ``_fact_apply``. Batch x
             component rides on the kernels' grid, so a batched flow is
             one launch per pass.
+  uni       the per-velocity "uni" granularity of ``_uni_call``: every
+            velocity of every flow as calls of the universal role-switched
+            kernel ``_bwdAB_kernel`` (K5, csrc/uni.cu; factored operands
+            on the card, either form in its plain version), with p(t),
+            M^-1(t) and u = M^-1 w as torch elementwise glue, and the
+            backward flow carrying delta phi in its state, not hoisted.
 
 Three flows, as there:
 
@@ -39,15 +46,18 @@ hyy); mats is what ops/deriv.py::deriv_ops returns.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from . import deriv as _deriv
 from .deriv import FACTOR_A
-from .factored_deriv import FactoredOps, apply_x, apply_y
+from .factored_deriv import FactoredOps
 
 TILE = 16
 KINDS = {"forward": 0, "adjoint": 1, "backward": 2}
 ROLES = {"forward": 0, "adjoint": 1}   # the factored kernel's role argument
+ROLES_UNI = {"forward": 2, "adjoint": 3}   # the universal kernel's roles for the applies
 NACC = 5   # delta-phi accumulator planes carried by the backward flow
 CUDA_ERROR_INVALID_VALUE = 1   # what a kernel's C entry returns for arguments it does not take
 
@@ -55,7 +65,8 @@ CUDA_ERROR_INVALID_VALUE = 1   # what a kernel's C entry returns for arguments i
 # factored velocities launch twice per call: an x pass and a y pass)
 LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0,
             "rk4_update": 0, "deriv": 0, "fderiv": 0, "fa_velocity_forward": 0,
-            "fa_velocity_adjoint": 0, "bv_velocity": 0}
+            "fa_velocity_adjoint": 0, "bv_velocity": 0, "uni_role0": 0, "uni_role1": 0,
+            "uni_role2": 0, "uni_role3": 0}
 
 
 def reset_launches():
@@ -86,19 +97,9 @@ def _minv_of_t(t, phi):
 
 
 def velocity_plain(kind, y, k, phi, mats, ncomp, t):
-    """k <- the velocity of flow `kind` at state y, time t (dense)."""
-    DxT, Dy = mats
-    _velocity_plain(kind, y, k, phi, ncomp, t, lambda a: a @ DxT, lambda a: Dy @ a)
-
-
-def fvelocity_plain(kind, y, k, phi, ops, ncomp, t):
-    """k <- the velocity of flow `kind` at the batched (nb, nstate, Ny,
-    Nx) state y, time t, phi (nb, 5, Ny, Nx) (factored)."""
-    _velocity_plain(kind, y, k, phi, ncomp, t, lambda a: apply_x(a, ops.FX, ops.bfx),
-                    lambda a: apply_y(a, ops.FY, ops.bfy))
-
-
-def _velocity_plain(kind, y, k, phi, ncomp, t, dx, dy):
+    """k <- the velocity of flow `kind` at state y (..., nstate, Ny, Nx),
+    time t, phi (..., 5, Ny, Nx); dense (DxT, Dy) or factored operands."""
+    dx, dy = _deriv.ddx_ddy(mats)
     px, py = (p.unsqueeze(-3) for p in _p_of_t(t, phi))
     if kind == "forward":
         k.copy_(px * dx(y) + py * dy(y))
@@ -135,18 +136,9 @@ def rk4_update_plain(y, k, acc, s, stage, wacc, ws):
 
 
 def deriv_plain(a, b, c, out, mats):
-    """out <- d_x a + d_y b + c (a, b or c may be None), dense."""
-    DxT, Dy = mats
-    _deriv_plain(a, b, c, out, lambda x: x @ DxT, lambda x: Dy @ x)
-
-
-def fderiv_plain(a, b, c, out, ops):
-    """out <- d_x a + d_y b + c (a, b or c may be None), factored."""
-    _deriv_plain(a, b, c, out, lambda x: apply_x(x, ops.FX, ops.bfx),
-                 lambda x: apply_y(x, ops.FY, ops.bfy))
-
-
-def _deriv_plain(a, b, c, out, dx, dy):
+    """out <- d_x a + d_y b + c (a, b or c may be None), dense or
+    factored."""
+    dx, dy = _deriv.ddx_ddy(mats)
     v = torch.zeros_like(out)
     if a is not None:
         v = v + dx(a)
@@ -157,19 +149,46 @@ def _deriv_plain(a, b, c, out, dx, dy):
     out.copy_(v)
 
 
+# the factored leaves' plain versions: the same functions (batched state)
+fvelocity_plain, fderiv_plain = velocity_plain, deriv_plain
+
+
+def uni_velocity_plain(role, a, b, px, py, out, mats, t):
+    """out <- what the universal kernel `_bwdAB_kernel` writes for `role`
+    (csrc/uni.cu), dense or factored: a, b (..., Ny, Nx) operands, px, py
+    p(t) planes broadcastable to them, out (..., 4, Ny, Nx)."""
+    dx, dy = _deriv.ddx_ddy(mats)
+    zero = torch.zeros_like(a)
+    if role == 0:
+        fx, fy = dx(a), dy(a)
+        planes = (px * fx + py * fy, dx(px * b) + dy(py * b), b * fx, b * fy)
+    elif role == 1:
+        planes = (_deriv.div_plus_dij(a, b, t * px * a, t * py * a, t * px * b, t * py * b,
+                                      None, mats), zero, zero, zero)
+    elif role == 2:
+        planes = (px * dx(a) + py * dy(a), px * dx(b) + py * dy(b), zero, zero)
+    elif role == 3:
+        planes = (dx(px * a) + dy(py * a), dx(px * b) + dy(py * b), zero, zero)
+    else:
+        raise ValueError(f"role {role}")
+    out.copy_(torch.stack(planes, dim=-3))
+
+
 # =========================================================================
 # CUDA kernel leaves
 # =========================================================================
 
-def _check_cuda(name, tensors, Ny, Nx):
+def _check_cuda(name, tensors, Ny, Nx, strided=()):
+    """Device, type and contiguity of a kernel's tensors; those in
+    `strided` are checked for device and type only."""
     dev = tensors[0].device
-    for x in tensors:
+    for x in (*tensors, *strided):
         if x.device.type != "cuda" or x.device != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
     if Ny % TILE or Nx % TILE:
         raise ValueError(f"{name}: Ny={Ny} and Nx={Nx} must be multiples of {TILE}")
 
@@ -304,6 +323,49 @@ def fvelocity_cuda(kind, y, k, phi, ops, ncomp, t):
     LAUNCHES["fa_velocity_" + kind] += 2
 
 
+def _plane_strides(name, x, Ny, Nx):
+    """(batch, entry) strides of a (nb, nper, Ny, Nx) operand whose planes
+    are contiguous (a strided view of a flow state is taken as it is)."""
+    if x.dim() != 4 or x.shape[-2:] != (Ny, Nx) or x.stride(-1) != 1 or x.stride(-2) != Nx:
+        raise ValueError(f"{name}: operands must be (nb, nper, Ny, Nx) with contiguous planes, "
+                         f"got {tuple(x.shape)} strides {x.stride()}")
+    return x.stride(0), x.stride(1)
+
+
+def uni_velocity_cuda(role, a, b, px, py, out, ops, t):
+    """K5: out <- the universal kernel's planes for `role` (see csrc/uni.cu)
+    over the (nb, nper) entries of a and b, (nb, nper, Ny, Nx) views with
+    contiguous planes; px, py (nb, 1, Ny, Nx) and out (nb, nper, 4, Ny, Nx)
+    contiguous. Two launches (x pass, y pass), four for role 1."""
+    from . import _build
+    Ny, Nx = out.shape[-2:]
+    if not isinstance(ops, FactoredOps):
+        raise RuntimeError("lf_uni_velocity: the uni kernel takes factored operands only "
+                           "(N >= 512); its dense form is ROADMAP Queue 2, K5")
+    _check_cuda("lf_uni_velocity", [px, py, out, *ops], Ny, Nx, strided=(a, b))
+    strides = [*_plane_strides("lf_uni_velocity", a, Ny, Nx),
+               *_plane_strides("lf_uni_velocity", b, Ny, Nx)]
+    nb, nper = out.shape[0], out.shape[1]
+    if (a.shape[:2] != (nb, nper) or b.shape[:2] != (nb, nper) or out.shape[2] != 4
+            or px.shape != (nb, 1, Ny, Nx) or py.shape != px.shape):
+        raise ValueError(f"lf_uni_velocity: a {tuple(a.shape)}, b {tuple(b.shape)}, px "
+                         f"{tuple(px.shape)} and out {tuple(out.shape)} do not fit "
+                         "(nb, nper, [4,] Ny, Nx)")
+    if any(x.untyped_storage().data_ptr() == out.untyped_storage().data_ptr()
+           for x in (a, b, px, py)):
+        raise ValueError("lf_uni_velocity: out must not share storage with an operand")
+    if role not in (0, 1, 2, 3):
+        raise ValueError(f"lf_uni_velocity: role {role}")
+    Bx, By = _check_factored("lf_uni_velocity", ops, Ny, Nx)
+    scratch = torch.empty((nb, nper, 2, Ny, Nx), dtype=out.dtype, device=out.device) \
+        if role == 1 else None
+    rc = _build.load().lf_uni_velocity(role, _ptr(a), _ptr(b), *strides, _ptr(px), _ptr(py),
+                                       _ptr(out), _ptr(scratch), *_fptrs(ops), Bx, By, nb, nper,
+                                       Ny, Nx, float(t), _stream())
+    _raise_on(rc, "lf_uni_velocity")
+    LAUNCHES[f"uni_role{role}"] += 4 if role == 1 else 2
+
+
 class _Leaves:
     """One set of leaf operations; `batched` when its velocity takes a
     leading batch axis (the factored kernels), else a batched flow loops
@@ -316,10 +378,46 @@ class _Leaves:
         self.batched = batched
 
 
+def _uni_velocity(uni, kind, y, k, phi, mats, ncomp, t):
+    """k <- the velocity of flow `kind` at the batched (nb, nstate, Ny, Nx)
+    state y as calls of the universal leaf `uni`, in the order of
+    `_uni_call`: forward and adjoint (roles 2, 3) over component pairs,
+    the last pair repeating its component when ncomp is odd; backward over
+    the state (f, delta f, delta phi): role 0 on every component at once,
+    u = M^-1 sum_c w_c, then role 1 for delta phi."""
+    nb, Ny, Nx = y.shape[0], y.shape[-2], y.shape[-1]
+    px, py = (p.unsqueeze(-3).contiguous() for p in _p_of_t(t, phi))
+    if kind in ("forward", "adjoint"):
+        out = torch.empty((nb, 1, 4, Ny, Nx), dtype=y.dtype, device=y.device)
+        for c0 in range(0, ncomp, 2):
+            c1 = min(c0 + 1, ncomp - 1)
+            uni(ROLES_UNI[kind], y[:, c0:c0 + 1], y[:, c1:c1 + 1], px, py, out, mats, t)
+            k[:, c0:c1 + 1] = out[:, 0, :c1 - c0 + 1]
+        return
+    if kind != "backward":
+        raise ValueError(kind)
+    out = torch.empty((nb, ncomp, 4, Ny, Nx), dtype=y.dtype, device=y.device)
+    uni(0, y[:, :ncomp], y[:, ncomp:2 * ncomp], px, py, out, mats, t)
+    k[:, :2 * ncomp] = out[:, :, :2].transpose(1, 2).reshape(nb, 2 * ncomp, Ny, Nx)
+    wx, wy = out[:, :, 2].sum(dim=1), out[:, :, 3].sum(dim=1)
+    m11, m12, m22 = _minv_of_t(t, phi)
+    ux = (m11 * wx + m12 * wy).unsqueeze(1)
+    uy = (m12 * wx + m22 * wy).unsqueeze(1)
+    out1 = torch.empty((nb, 1, 4, Ny, Nx), dtype=y.dtype, device=y.device)
+    uni(1, ux, uy, px, py, out1, mats, t)
+    k[:, 2 * ncomp] = out1[:, 0, 0]
+
+
 PLAIN = _Leaves(velocity_plain, rk4_update_plain, deriv_plain, False)
 KERNEL = _Leaves(velocity_cuda, rk4_update_cuda, deriv_cuda, False)
 FPLAIN = _Leaves(fvelocity_plain, rk4_update_plain, fderiv_plain, True)
 FKERNEL = _Leaves(fvelocity_cuda, rk4_update_cuda, fderiv_cuda, True)
+# the uni granularity: no derivative leaf (phi's planes come from the
+# kernel path's `gradhess`, delta phi from role 1)
+UPLAIN = _Leaves(functools.partial(_uni_velocity, uni_velocity_plain), rk4_update_plain, None,
+                 True)
+UKERNEL = _Leaves(functools.partial(_uni_velocity, uni_velocity_cuda), rk4_update_cuda, None,
+                  True)
 
 
 def _leaves_for(x, mats):
@@ -335,6 +433,14 @@ def _leaves_for(x, mats):
 
 def _plain_for(mats):
     return FPLAIN if isinstance(mats, FactoredOps) else PLAIN
+
+
+def _uni_leaves_for(x):
+    if x.device.type == "cpu":
+        return UPLAIN
+    if x.device.type == "cuda":
+        return UKERNEL
+    raise ValueError(f"no LenseFlow kernel for device {x.device}")
 
 
 # =========================================================================
@@ -456,3 +562,39 @@ def flow_apply_plain(f_map, phi, mats, t0, t1, nsteps, kind="forward"):
 
 def flow_bwd_plain(dy, f1, phi, mats, t0, t1, nsteps):
     return _flow_bwd(_plain_for(mats), dy, f1, phi, mats, t0, t1, nsteps)
+
+
+def _uni_flow_bwd(leaves, dy, f1, phi, mats, t0, t1, nsteps):
+    """The transpose-delta system with delta phi in the state: RK4 of the
+    (f, delta f, delta phi) state, 2 ncomp + 1 planes, from t1 back to t0."""
+
+    def one(dy, f1, p):
+        ncomp = f1.shape[-3]
+        state = torch.cat([f1, dy, torch.zeros_like(f1[:, :1])], dim=-3)
+        y = _integrate(leaves, "backward", state, p, mats, ncomp, int(nsteps), float(t1),
+                       float(t0))
+        return y[:, 2 * ncomp:].clone(), y[:, ncomp:2 * ncomp].clone()
+
+    return _over_batch(leaves, one, dy, f1, phi)
+
+
+def uni_flow_apply(f_map, phi, mats, t0, t1, nsteps, kind="forward"):
+    """`flow_apply` at the uni granularity: every velocity through the
+    universal kernel (roles 2, 3), its plain version on the CPU."""
+    if kind not in ("forward", "adjoint"):
+        raise ValueError(kind)
+    return _flow_apply(_uni_leaves_for(f_map), f_map, phi, mats, t0, t1, nsteps, kind)
+
+
+def uni_flow_bwd(dy, f1, phi, mats, t0, t1, nsteps):
+    """`flow_bwd` at the uni granularity (roles 0, 1), delta phi integrated
+    in the state; returns (dphi (..., 1, Ny, Nx), df0)."""
+    return _uni_flow_bwd(_uni_leaves_for(f1), dy, f1, phi, mats, t0, t1, nsteps)
+
+
+def uni_flow_apply_plain(f_map, phi, mats, t0, t1, nsteps, kind="forward"):
+    return _flow_apply(UPLAIN, f_map, phi, mats, t0, t1, nsteps, kind)
+
+
+def uni_flow_bwd_plain(dy, f1, phi, mats, t0, t1, nsteps):
+    return _uni_flow_bwd(UPLAIN, dy, f1, phi, mats, t0, t1, nsteps)

@@ -37,7 +37,8 @@ def rel(a, b):
 
 
 def _projs(Ny, Nx):
-    return JProj(Ny, Nx, thetapix=3, T=np.float32), ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32)
+    return (JProj(Ny, Nx, thetapix=3, T=np.float32),
+            ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device="cpu"))
 
 
 def _pair(arr, basis, jp, tp):

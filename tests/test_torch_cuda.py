@@ -175,3 +175,54 @@ def test_batched_irfft2_matches_single_planes_on_card():
     for i in (0, 5, 16):
         one = tfft.irfft2(X[i], 1024)
         assert rel(out[i], one) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [512, 1024])
+def test_uni_kernel_roles_match_plain_on_card(N):
+    """K5 (lf_uni_velocity), every role, against its plain version on a
+    batch of two, its operands strided views of a flow state as the uni
+    flows pass them; each output plane held to the bound on its own."""
+    _card()
+    tp = ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda")
+    ops = tderiv.deriv_ops(tp)
+    assert isinstance(ops, tfd.FactoredOps) and ops.FX.shape[0] == N // 128
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), ops)
+    planes = torch.stack([planes, 0.5 * planes])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    y = torch.randn((2, 5, N, N), generator=g, device="cuda")
+    t = 0.6
+    px, py = (p.unsqueeze(1).contiguous() for p in lfk._p_of_t(t, planes))
+    # (role, a, b): a component pair; f and delta f of both components; (u_x, u_y)
+    for role, a, b in ((0, y[:, :2], y[:, 2:4]), (1, y[:, 4:], 1e-2 * y[:, :1]),
+                       (2, y[:, :1], y[:, 1:2]), (3, y[:, :1], y[:, 1:2])):
+        o1 = torch.empty((2, a.shape[1], 4, N, N), device="cuda")
+        o2 = torch.full_like(o1, float("nan"))
+        o1.fill_(float("nan"))
+        lfk.uni_velocity_cuda(role, a, b, px, py, o1, ops, t)
+        lfk.uni_velocity_plain(role, a, b, px, py, o2, ops, t)
+        nonzero = {0: 4, 1: 1, 2: 2, 3: 2}[role]
+        for i in range(nonzero):
+            assert rel(o1[:, :, i], o2[:, :, i]) < TOL, (role, i)
+        assert (o1[:, :, nonzero:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_uni_wrapper_rejects_dense_operands():
+    _card()
+    tp = ct.ProjLambert(256, 256, thetapix=2, T=np.float32, device="cuda")
+    x = torch.zeros((1, 1, 256, 256), device="cuda")
+    with pytest.raises(RuntimeError, match="ROADMAP"):
+        lfk.uni_velocity_cuda(2, x, x, x, x, torch.empty((1, 1, 4, 256, 256), device="cuda"),
+                              tderiv.deriv_mats(tp), 0.5)
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_the_card():
+    """ProjLambert and load_sim put the port on the card unless asked for
+    another device."""
+    _card()
+    assert ct.ProjLambert(32, 32, thetapix=3).device.type == "cuda"
+    sim = ct.load_sim(thetapix=3, Nside=32, pol="P", seed=0)
+    assert sim["proj"].device.type == "cuda" and sim["ds"].d.arr.is_cuda

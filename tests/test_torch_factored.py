@@ -81,7 +81,7 @@ def test_factored_blocks_match_jax_f64(B):
 @pytest.mark.parametrize("B", [2, 4, 8])
 def test_factored_apply_matches_jax_in_kernel_and_dense(B):
     N = 64
-    tp = ct.ProjLambert(N, N, thetapix=3, T=np.float32)
+    tp = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device="cpu")
     delta = float(tp.deltax)
     jop = j_factored_ops(N, delta, "float32", B)[0]
     FXt, FY = jnp.asarray(plf._pack_factored(jop, True)), jnp.asarray(plf._pack_factored(jop, False))
@@ -113,8 +113,8 @@ def test_factored_gradhess_matches_dense_and_f64():
     form: 1e-4 (the gradhess bound chip_smoke.py and the JAX package's
     test_lensing.py use)."""
     phi, _, _ = _weak_lensing(N=64)
-    tp = ct.ProjLambert(64, 64, thetapix=3, T=np.float32)
-    tp64 = ct.ProjLambert(64, 64, thetapix=3, T=np.float64)
+    tp = ct.ProjLambert(64, 64, thetapix=3, T=np.float32, device="cpu")
+    tp64 = ct.ProjLambert(64, 64, thetapix=3, T=np.float64, device="cpu")
     pt = torch.as_tensor(phi)
     a = lfk.gradhess(pt, tfd.factored_ops(tp, 4, 4)).numpy()
     b = lfk.gradhess(pt, tderiv.deriv_mats(tp)).numpy()
@@ -128,7 +128,7 @@ def test_factored_gradhess_matches_dense_and_f64():
 
 def _flow_inputs(B):
     jp = JProj(32, 32, thetapix=3, T=np.float32)
-    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32)
+    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32, device="cpu")
     phi, f, dy = _weak_lensing()
     ops = tfd.factored_ops(tp, B, B)
     planes = lfk.gradhess(torch.as_tensor(phi), ops)
@@ -182,11 +182,11 @@ def test_deriv_ops_radix_rule():
     """A = 128 where N >= 512 and 128 | N, else dense: B = 8 packed
     operands at 1024, B = 4 at 512, dense (DxT, Dy) at 256."""
     assert [tderiv.radix(n) for n in (256, 384, 512, 640, 1024, 2048)] == [1, 1, 4, 5, 8, 16]
-    ops = tderiv.deriv_ops(ct.ProjLambert(1024, 1024, thetapix=2, T=np.float32))
+    ops = tderiv.deriv_ops(ct.ProjLambert(1024, 1024, thetapix=2, T=np.float32, device="cpu"))
     assert isinstance(ops, tfd.FactoredOps)
     assert ops.FX.shape == ops.FY.shape == (8, 128, 128) and ops.bfx.shape == (2, 8, 8)
     assert ops.FX.dtype == torch.float32
-    dense = tderiv.deriv_ops(ct.ProjLambert(256, 256, thetapix=2, T=np.float32))
+    dense = tderiv.deriv_ops(ct.ProjLambert(256, 256, thetapix=2, T=np.float32, device="cpu"))
     assert isinstance(dense, tuple) and dense[0].shape == (256, 256)
 
 
@@ -202,7 +202,7 @@ def test_kernel_backend_at_512_runs_factored_and_matches_plain(dtype, bound):
     objective is ill-conditioned in any form (2e-3 from float64 here,
     kernel and plain alike), so it is compared in float64 only."""
     N = 512
-    tp = ct.ProjLambert(N, N, thetapix=2, T=dtype)
+    tp = ct.ProjLambert(N, N, thetapix=2, T=dtype, device="cpu")
     rng = np.random.default_rng(3)
     Cl = ct.camb()
     white = lambda n, pol: ct.Field(

@@ -74,8 +74,8 @@ def test_gradhess_planes_match_jax_matmul():
     jderiv.set_deriv_mode("matmul")
     phi, _, _ = _weak_lensing()
     _, _, planes_j = _jax_planes(phi, JProj(32, 32, thetapix=3, T=np.float32))
-    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32)
-    tp64 = ct.ProjLambert(32, 32, thetapix=3, T=np.float64)
+    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32, device="cpu")
+    tp64 = ct.ProjLambert(32, 32, thetapix=3, T=np.float64, device="cpu")
     planes_t = lfk.gradhess(torch.as_tensor(phi), tderiv.deriv_mats(tp))
     planes_64 = lfk.gradhess(torch.as_tensor(phi.astype(np.float64)),
                              tderiv.deriv_mats(tp64))
@@ -89,7 +89,7 @@ def test_gradhess_planes_match_jax_matmul():
 def test_plain_flow_matches_jax_pallas_interpret(kind, t0, t1):
     jderiv.set_deriv_mode("matmul")
     jp = JProj(32, 32, thetapix=3, T=np.float32)
-    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32)
+    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32, device="cpu")
     phi, f, _ = _weak_lensing()
     g, h, planes = _jax_planes(phi, jp)
     ref = plf.pallas_flow_apply(jnp.asarray(f), g, h, t0, t1, NSTEPS, jp, kind,
@@ -105,7 +105,7 @@ def test_plain_flow_matches_jax_pallas_interpret(kind, t0, t1):
 def test_plain_backward_flow_matches_jax_pallas_interpret():
     jderiv.set_deriv_mode("matmul")
     jp = JProj(32, 32, thetapix=3, T=np.float32)
-    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32)
+    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32, device="cpu")
     phi, f, dy = _weak_lensing()
     g, h, planes = _jax_planes(phi, jp)
     dphi_ref, df0_ref = plf.pallas_flow_bwd(jnp.asarray(dy), jnp.asarray(f), g, h, 0., 1.,
@@ -128,7 +128,7 @@ def test_plain_backend_matches_jax_fft_scan(which):
     backward flow) against the JAX scan in fft mode."""
     jderiv.set_deriv_mode("fft")
     jp = JProj(32, 32, thetapix=3, T=np.float32)
-    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32)
+    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32, device="cpu")
     phi, f, dy = _weak_lensing()
     pj, fj = jnp.asarray(phi), jnp.asarray(f)
     pt, ft = torch.as_tensor(phi), torch.as_tensor(f)
@@ -154,7 +154,7 @@ def test_autograd_functions_gradcheck_f64(backend, fn):
     flow is the adjoint of the ODE, not of its RK4 discretization; at
     this weak lensing and nsteps=7 the two differ well below rtol."""
     PHI_SCALE = 1e-6
-    tp = ct.ProjLambert(16, 16, thetapix=3, T=np.float64)
+    tp = ct.ProjLambert(16, 16, thetapix=3, T=np.float64, device="cpu")
     phi, f, _ = _weak_lensing(N=16, dtype=np.float64, seed=5)
     x = torch.as_tensor(phi / PHI_SCALE).requires_grad_(True)
     f = torch.as_tensor(f).requires_grad_(True)
@@ -173,7 +173,7 @@ def test_wrapper_rejects_devices_without_a_kernel():
 @pytest.fixture(scope="module")
 def lensing_64():
     """A Cphi-drawn phi and Cf-drawn f, g (pol P) at 64^2 from numpy."""
-    tp = ct.ProjLambert(64, 64, thetapix=3, T=np.float32)
+    tp = ct.ProjLambert(64, 64, thetapix=3, T=np.float32, device="cpu")
     rng = np.random.default_rng(7)
     Cl = ct.camb()
     Cphi = ct.Cl_to_Cov("I", tp, Cl["total"]["pp"])

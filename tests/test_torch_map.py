@@ -51,7 +51,7 @@ def P32():
     for name in DIAG_OPS:
         op = getattr(ds0, name)
         arrays[name] = (np.array(op.diag.arr), op.diag.basis.pol, op.diag.basis.space)
-    tds = ct.dataset_from_numpy(arrays, dict(Ny=N, Nx=N, thetapix=3, T=np.float32))
+    tds = ct.dataset_from_numpy(arrays, dict(Ny=N, Nx=N, thetapix=3, T=np.float32), device="cpu")
     jphi = out["phi"].to(out["phi"].basis.with_space("map"))
     jf = out["f"].to(out["f"].basis.with_space("map"))
     proj = tds.d.proj
@@ -78,7 +78,7 @@ def test_conjugate_gradient_matches_jax_per_batch():
     """CG on a Fourier-diagonal system with a batch of two right-hand
     sides, per-batch residuals and best-iterate tracking."""
     rng = np.random.default_rng(0)
-    tp = ct.ProjLambert(16, 16, thetapix=3, T=np.float32)
+    tp = ct.ProjLambert(16, 16, thetapix=3, T=np.float32, device="cpu")
     from cmblensing_tpu.core.proj import ProjLambert as JProj
     jp = JProj(16, 16, thetapix=3, T=np.float32)
     A = (1.0 + rng.random((1, 16, 9)) * 10).astype(np.float32)

@@ -50,7 +50,7 @@ def _problem(pol, N):
         op = getattr(ds0, name)
         assert isinstance(op, JDiag), name
         arrays[name] = (np.array(op.diag.arr), op.diag.basis.pol, op.diag.basis.space)
-    tds = ct.dataset_from_numpy(arrays, dict(Ny=N, Nx=N, thetapix=3, T=np.float32))
+    tds = ct.dataset_from_numpy(arrays, dict(Ny=N, Nx=N, thetapix=3, T=np.float32), device="cpu")
     proj = tds.d.proj
     return dict(jds=ds, tds=tds, f=f, phi=phi, fm=fm, pm=pm, lnP=float(v), grad=np.array(g.arr),
                 tf=_carry(f, proj), tphi=_carry(phi, proj), tfm=_carry(fm, proj),
@@ -105,7 +105,7 @@ def test_quadratic_estimate_matches_jax(which, estimator, request):
 
 @pytest.mark.parametrize("pol", ["I", "P"])
 def test_port_load_sim_runs_and_lnP_rises_along_its_gradient(pol):
-    sim = ct.load_sim(thetapix=3, Nside=32, pol=pol, seed=0)
+    sim = ct.load_sim(thetapix=3, Nside=32, pol=pol, seed=0, device="cpu")
     ds = sim["ds"]
     assert ds.d.arr.shape[-3] == {"I": 1, "P": 2}[pol]
     f = sim["f"].to(sim["f"].basis.with_space("map"))
