@@ -23,7 +23,11 @@ port's two paths through the kernel backend:
               against the kernel backend, and MAP_joint as in phase 7.
 
 Each path's launch counters are set to 0 just before it and read just
-after. Exits non-zero, printing no result line, when there is no CUDA
+after. A kernel's time is device time: its launches captured into a CUDA
+graph and the replay timed by CUDA events (the host's launch cost, about
+0.04 ms a call, would hide a shorter kernel), and so is the library
+call's; plain versions and whole flows, gradients and steps are timed as
+they run. Exits non-zero, printing no result line, when there is no CUDA
 card or any phase fails.
 
 The last two lines of stdout are the per-kernel JSON record and
@@ -67,10 +71,11 @@ NTRIAL = 17            # the grid line search's batch: alpha = 0 and 16 trials
 CORR_MIN = 0.9
 # kernels of each path: every one must launch in its run
 DENSE_KERNELS = ("velocity_forward", "velocity_adjoint", "velocity_backward", "rk4_update",
-                 "deriv")
+                 "p_planes", "deriv")
 FACTORED_KERNELS = ("fderiv", "fa_velocity_forward", "fa_velocity_adjoint", "bv_velocity",
-                    "rk4_update")
-UNI_KERNELS = ("uni_role0", "uni_role1", "uni_role2", "uni_role3", "fderiv", "rk4_update")
+                    "rk4_update", "p_planes")
+UNI_KERNELS = ("uni_role0", "uni_role1", "uni_role2", "uni_role3", "fderiv", "rk4_update",
+               "p_planes")
 # the un-hoisted delta phi (integrated in the uni flow's state) against
 # the hoisted one and a float64 evaluation: one more summation order over
 # 4 nsteps stages of 6 derivatives
@@ -84,17 +89,37 @@ def rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-def cuda_ms(fn, reps, torch):
+def cuda_ms(fn, reps, torch, graph=False):
     """Milliseconds per fn() over reps back-to-back runs after one warm-up
-    run, by CUDA events around the whole run."""
+    run, by CUDA events around the whole run. With `graph` the reps runs are
+    captured into one CUDA graph and its replay is timed: device time
+    without the host's launch cost, which is what a kernel under ~0.05 ms
+    would otherwise show."""
     fn()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if graph:
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        run = g.replay
+    else:
+        def run():
+            for _ in range(reps):
+                fn()
     e0.record()
-    for _ in range(reps):
-        fn()
+    run()
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def kernel_ms(fn, reps, torch):
+    """Device milliseconds of a kernel wrapper's launches (or of the one
+    library call held beside it)."""
+    return cuda_ms(fn, reps, torch, graph=True)
 
 
 def bound(flops, planes, N, extra_floats=0):
@@ -132,7 +157,7 @@ def matmul_ms(a, b, torch, reps=20):
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return cuda_ms(lambda: a @ b, reps, torch)
+        return kernel_ms(lambda: a @ b, reps, torch)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
@@ -172,16 +197,27 @@ def phase_kernels(torch, proj):
     out = {}
     t = 0.5
     nb = 2 * 2 + lfk.NACC
+    # the p(t) planes every velocity reads: 5 planes in, 2 out, ~25 flops a pixel
+    pt, pt2 = torch.empty((2, N, N), device=f.device), torch.empty((2, N, N), device=f.device)
+    lfk.p_planes_cuda(t, phi, pt)
+    lfk.p_planes_plain(t, phi, pt2)
+    out["p_planes"] = dict(
+        max_abs_err=float((pt - pt2).abs().max()), rel=rel(pt, pt2),
+        ms=kernel_ms(lambda: lfk.p_planes_cuda(t, phi, pt), 20, torch),
+        plain_ms=cuda_ms(lambda: lfk.p_planes_plain(t, phi, pt2), 20, torch),
+        library_ms=None, **bound(25 * N * N, 7, N))
     ybwd = torch.cat([f, dy, torch.randn((lfk.NACC, N, N), device=f.device) * 1e-3])
     for kind, y in (("forward", f), ("adjoint", f), ("backward", ybwd)):
         k1, k2 = torch.empty_like(y), torch.empty_like(y)
-        lfk.velocity_cuda(kind, y, k1, phi, mats, 2, t)
-        lfk.velocity_plain(kind, y, k2, phi, mats, 2, t)
-        nder, planes = (8, 25) if kind == "backward" else (4, 11)   # y, phi, k, DxT, Dy
+        lfk.velocity_cuda(kind, y, k1, phi, pt, mats, 2, t)
+        lfk.velocity_plain(kind, y, k2, phi, pt2, mats, 2, t)
+        # y, p (and phi, backward), k, DxT, Dy
+        nder, planes = (8, 27) if kind == "backward" else (4, 8)
         out["velocity_" + kind] = dict(
             max_abs_err=float((k1 - k2).abs().max()), rel=rel(k1, k2),
-            ms=cuda_ms(lambda: lfk.velocity_cuda(kind, y, k1, phi, mats, 2, t), 20, torch),
-            plain_ms=cuda_ms(lambda: lfk.velocity_plain(kind, y, k2, phi, mats, 2, t), 20, torch),
+            ms=kernel_ms(lambda: lfk.velocity_cuda(kind, y, k1, phi, pt, mats, 2, t), 20, torch),
+            plain_ms=cuda_ms(lambda: lfk.velocity_plain(kind, y, k2, phi, pt2, mats, 2, t), 20,
+                             torch),
             library_ms=None, **bound(nder * dense_deriv_flops(N), planes, N))
     y = torch.randn((nb, N, N), device=f.device)
     k = torch.randn_like(y)
@@ -196,7 +232,7 @@ def phase_kernels(torch, proj):
     yy, acc, s = y.clone(), bufs[0].clone(), bufs[1].clone()
     out["rk4_update"] = dict(
         max_abs_err=float((res[0] - res[1]).abs().max()), rel=rel(res[0], res[1]),
-        ms=cuda_ms(lambda: lfk.rk4_update_cuda(yy, k, acc, s, 1, 1 / 21, 1 / 14), 20, torch),
+        ms=kernel_ms(lambda: lfk.rk4_update_cuda(yy, k, acc, s, 1, 1 / 21, 1 / 14), 20, torch),
         plain_ms=cuda_ms(lambda: lfk.rk4_update_plain(yy, k, acc, s, 1, 1 / 21, 1 / 14), 20, torch),
         # stage 1: acc += w k, s = y + w' k (4 flops; y, k, acc in, acc, s out)
         library_ms=None, **bound(4 * nb * N * N, 5 * nb, N))
@@ -211,7 +247,7 @@ def phase_kernels(torch, proj):
     lfk.deriv_plain(a, None, None, o2, mats)
     out["deriv"] = dict(max_abs_err=max(err3[0], float((o1 - o2).abs().max())),
                         rel=max(err3[1], rel(o1, o2)),
-                        ms=cuda_ms(lambda: lfk.deriv_cuda(a, None, None, o1, mats), 20, torch),
+                        ms=kernel_ms(lambda: lfk.deriv_cuda(a, None, None, o1, mats), 20, torch),
                         plain_ms=cuda_ms(lambda: lfk.deriv_plain(a, None, None, o2, mats), 20, torch),
                         library_ms=matmul_ms(a[0], mats[0], torch),
                         **bound(dense_deriv_flops(N), 3, N))      # a, out, DxT
@@ -344,7 +380,7 @@ def phase_factored(torch, card):
         run_p()
         k, p = result()
         out[name] = dict(max_abs_err=float((k - p).abs().max()), rel=rel(k, p),
-                         ms=cuda_ms(run_k, reps, torch), plain_ms=cuda_ms(run_p, reps, torch))
+                         ms=kernel_ms(run_k, reps, torch), plain_ms=cuda_ms(run_p, reps, torch))
 
     a, b, c = f[0:1].contiguous(), f[1:2].contiguous(), dy[0:1].contiguous()
     o1, o2 = torch.empty_like(a), torch.empty_like(a)
@@ -363,23 +399,28 @@ def phase_factored(torch, card):
     out["fderiv"].update(library_ms=None, **bound(2 * fact_deriv_flops(N_MAP), 4, N_MAP,
                                                   fact_op_floats(N_MAP)))
     t = 0.5
+    pt1, pt1p = (torch.empty((2, 1, N_MAP, N_MAP), device=DEVICE) for _ in range(2))
+    check("p_planes", lambda: lfk.p_planes_cuda(t, phi1, pt1),
+          lambda: lfk.p_planes_plain(t, phi1, pt1p), lambda: (pt1, pt1p))
+    out["p_planes"].update(library_ms=None, **bound(25 * N_MAP * N_MAP, 7, N_MAP))
     k1, k2 = torch.empty_like(y), torch.empty_like(y)
     for kind in ("forward", "adjoint"):
-        check("fa_velocity_" + kind, lambda: lfk.fvelocity_cuda(kind, y, k1, phi1, ops, 2, t),
-              lambda: lfk.fvelocity_plain(kind, y, k2, phi1, ops, 2, t), lambda: (k1, k2))
+        check("fa_velocity_" + kind,
+              lambda: lfk.fvelocity_cuda(kind, y, k1, phi1, pt1, ops, 2, t),
+              lambda: lfk.fvelocity_plain(kind, y, k2, phi1, pt1p, ops, 2, t), lambda: (k1, k2))
     acc = 1e-3 * torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
         (1, lfk.NACC, N_MAP, N_MAP)).astype(np.float32), device=DEVICE)
     yb = torch.cat([f[None], dy[None], acc], dim=1)
     kb1, kb2 = torch.empty_like(yb), torch.empty_like(yb)
-    check("bv_velocity", lambda: lfk.fvelocity_cuda("backward", yb, kb1, phi1, ops, 2, t),
-          lambda: lfk.fvelocity_plain("backward", yb, kb2, phi1, ops, 2, t),
+    check("bv_velocity", lambda: lfk.fvelocity_cuda("backward", yb, kb1, phi1, pt1, ops, 2, t),
+          lambda: lfk.fvelocity_plain("backward", yb, kb2, phi1, pt1p, ops, 2, t),
           lambda: (kb1, kb2))
     # the bundle's planes differ in scale by orders: hold each to the bound
     bv_planes = max(rel(kb1[0, i], kb2[0, i]) for i in range(yb.shape[1]))
     out["bv_velocity"]["rel"] = max(out["bv_velocity"]["rel"], bv_planes)
-    # y, phi, k: 2 + 5 + 2 planes, 4 derivatives (K3); 9 + 5 + 9, 8 (K4)
-    for name, nder, planes in (("fa_velocity_forward", 4, 9), ("fa_velocity_adjoint", 4, 9),
-                               ("bv_velocity", 8, 23)):
+    # y, p, k: 2 + 2 + 2 planes, 4 derivatives (K3); y, phi, p, k: 9 + 5 + 2 + 9, 8 (K4)
+    for name, nder, planes in (("fa_velocity_forward", 4, 6), ("fa_velocity_adjoint", 4, 6),
+                               ("bv_velocity", 8, 25)):
         out[name].update(library_ms=None, **bound(nder * fact_deriv_flops(N_MAP), planes, N_MAP,
                                                   fact_op_floats(N_MAP)))
 
@@ -397,8 +438,12 @@ def phase_factored(torch, card):
         k, p = result()
         batched[name] = dict(nb=NTRIAL, max_abs_err=float((k - p).abs().max()),
                              rel=max(rel(k[i], p[i]) for i in range(NTRIAL)),
-                             ms=cuda_ms(run_k, 5, torch), plain_ms=cuda_ms(run_p, 3, torch))
+                             ms=kernel_ms(run_k, 5, torch), plain_ms=cuda_ms(run_p, 3, torch))
 
+    pts, ptsp = (torch.empty((2, NTRIAL, N_MAP, N_MAP), device=DEVICE) for _ in range(2))
+    check_batched("p_planes", lambda: lfk.p_planes_cuda(t, phis, pts),
+                  lambda: lfk.p_planes_plain(t, phis, ptsp),
+                  lambda: (pts.transpose(0, 1), ptsp.transpose(0, 1)))
     a17 = ys[:, :1].contiguous()
     d1, d2 = torch.empty_like(a17), torch.empty_like(a17)
     check_batched("fderiv", lambda: lfk.fderiv_cuda(a17, a17, None, d1, ops),
@@ -406,8 +451,8 @@ def phase_factored(torch, card):
     s1, s2 = torch.empty_like(ys), torch.empty_like(ys)
     for kind in ("forward", "adjoint"):
         check_batched("fa_velocity_" + kind,
-                      lambda: lfk.fvelocity_cuda(kind, ys, s1, phis, ops, 2, t),
-                      lambda: lfk.fvelocity_plain(kind, ys, s2, phis, ops, 2, t),
+                      lambda: lfk.fvelocity_cuda(kind, ys, s1, phis, pts, ops, 2, t),
+                      lambda: lfk.fvelocity_plain(kind, ys, s2, phis, ptsp, ops, 2, t),
                       lambda: (s1, s2))
     for name, d in batched.items():
         out[name]["batched"] = d
@@ -530,7 +575,8 @@ def run_map(torch, sim, phase, label, card):
         raise AssertionError(f"first line search accepted no step: {alphas}")
     if not corr >= CORR_MIN:
         raise AssertionError(f"corr(phi_MAP, phi_true) = {corr} < {CORR_MIN}")
-    dense = {k: launches[k] for k in DENSE_KERNELS if k != "rk4_update" and launches[k]}
+    dense = {k: launches[k] for k in DENSE_KERNELS
+             if k not in ("rk4_update", "p_planes") and launches[k]}
     if dense:
         raise AssertionError(f"dense K2 kernels launched at {N_MAP}^2: {dense}")
     return launches, dt / MAP_STEPS, hist
@@ -597,7 +643,7 @@ def phase_uni(torch, card, fctx, gctx):
                 rel=max(rel(o1[i, c, j], o2[i, c, j])
                         for i in range(nb) for c in range(nper) for j in range(n)),
                 zero=bool((o1[:, :, n:] == 0).all()),
-                ms=cuda_ms(run_k, reps, torch), plain_ms=cuda_ms(run_p, 1, torch),
+                ms=kernel_ms(run_k, reps, torch), plain_ms=cuda_ms(run_p, 1, torch),
                 library_ms=None,
                 # a, b, out per entry; px, py per trial; the factored operands
                 **bound(nder[role] * nb * nper * fact_deriv_flops(N_MAP),
@@ -715,6 +761,7 @@ def main():
     ukernels, uni_launches, uni_grad_ms, uni_s_step = phase_uni(torch, card, fctx, gctx)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
+                "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
                 "fderiv": "cmblensing_tpu/ops/pallas_lenseflow.py:249",
                 "fa_velocity_forward": "cmblensing_tpu/ops/pallas_lenseflow.py:506",
                 "fa_velocity_adjoint": "cmblensing_tpu/ops/pallas_lenseflow.py:506",

@@ -7,18 +7,58 @@
 // y_{B-1} = G_{B/2} u_{B-1}, and for each complex pair
 // (y_{2i+1}, y_{2i+2}) = (Ar u_{2i+1} - Ai u_{2i+2}, Ai u_{2i+1} + Ar u_{2i+2}),
 // then out_r = sum_c Ri[r][c] y_c. Blocks are packed (B, A, A) as
-// [G_0, G_{B/2}, Ar_1.., Ai_1..]; the x blocks are stored transposed.
+// [G_0, G_{B/2}, Ar_1.., Ai_1..] and arrive TRANSPOSED for both axes,
+// Gt[c][k][m] = G_c[m][k] (the x blocks are stored so; the y pass takes
+// the transposed copy FactoredOps.FYT), so that a slab row is contiguous
+// in the output index m.
 //
 // One block owns an output tile across all B blocks of the derivative's
-// axis (d/dy: 16 values of m x 64 columns, i.e. the rows r*A + m for every
-// r; d/dx: 16 rows x 64 values of m). It walks the A-long contraction in
-// slabs: it forms the B butterfly channels of the operand slab at load
-// (through the caller's load functor, e.g. a multiply by p(t)), stages them
-// and the matching block slab in shared memory (40 KB), and each thread
-// accumulates 2 x 2 outputs in all B channels; the inverse butterfly is
-// applied at store, through the caller's store functor. A derivative along
-// y needs whole columns and one along x whole rows, so a kernel built on it
-// runs as passes: an x pass that stores and a y pass that accumulates.
+// axis: TM = 64 values of the in-block index m (the rows r*A + m of d/dy,
+// the columns r*A + m of d/dx, for every r) by TO = 32 pixels across the
+// axis. It walks the A-long contraction in slabs of TK = 16.
+//
+// What bounds it on an H100, and what the design does about it (FP32 FMA
+// only; the block products are 2B - 2 real A x A x N products):
+//
+//   shared-memory load rate. The B / 2 channel pairs are split over
+//     warps, four warps per pair (64 B threads a block): a warp owns the
+//     two real channels (0, B-1) or one complex pair over a quarter of the
+//     tile (16 m x 32), a thread 4 (m) x 4 (across) outputs of both
+//     channels, 32 accumulators. Per contraction step a thread makes four
+//     16-byte shared loads (16 words: two blocks at 4 m, two channels at 4
+//     pixels), conflict-free (a quarter-warp reads one contiguous 64 B
+//     and one contiguous 32 B span), for 64 FMA in a complex-pair warp:
+//     4.0 FMA per shared word (2.0 in the real-pair warps, whose products
+//     are half as many; every scheduler holds one real-pair and three
+//     complex-pair warps, so they finish together). Twice the outputs
+//     along m (8 x 4, two warps a pair, 5.3 FMA per word) was measured
+//     beside it and lost by a third at batch 1 and a tenth at batch 17:
+//     with 8 warps a block the phases below leave the FMA pipe idle. The
+//     inverse butterfly needs every channel of a pixel, so the
+//     accumulators go through shared memory once, after the last slab.
+//   butterfly recomputation. A block forms the B forward-butterfly
+//     channels of its operand slab itself, and the FA / TM = 2 blocks that
+//     share those pixels repeat it: B * B FMA per B pixels against
+//     (2B - 2) * TM product FMA, 7.1 % at B = 8 and 4.2 % at B = 4, in
+//     both passes (the tile's long side lies along m in both).
+//   latency. A ring of two slab stages in dynamic shared memory (104 KB
+//     at B = 8: one block of 16 warps an SM; two at B = 4): the next
+//     slab's blocks arrive by cp.async and the next operand slab's raw
+//     values are fetched into registers before the current slab's FMA
+//     loop, and butterflied into the other stage after it (through the
+//     caller's load functor, e.g. a multiply by p(t)); one __syncthreads
+//     per slab.
+//
+// Where a tile's time goes (clock64 around the phases of one block of the
+// 8 x 4 form, NVIDIA H100 80GB HBM3 at 700 W, 1024^2, B = 8): the FMA
+// loop 65-70 %; forming the next slab's channels 13 %, starting its loads
+// 6-12 %, the store 5-8 %. These phases follow one another within a
+// block, which is why more warps a block pay. A 1024^2 plane is only 64
+// tiles a pass: a batch-1 launch of one plane fills half the card.
+//
+// A derivative along y needs whole columns and one along x whole rows, so
+// a kernel built on it runs as passes: an x pass that stores and a y pass
+// that accumulates.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,162 +66,296 @@
 
 namespace {
 
-constexpr int FA = 128;   // block size A: an axis of length N is factored at radix N / FA
-constexpr int TS = 16;    // tile, short side: threadIdx.y and threadIdx.y + 8
-constexpr int TW = 64;    // tile, wide side: threadIdx.x and threadIdx.x + 32
-constexpr int NT = 256;   // threads per block (32 x 8)
-// shared memory: a (FA x TW) and a (TS x FA) slab, then the butterflies
-constexpr int SLAB_FLOATS = FA * TW + TS * FA;
+constexpr int FA = 128;      // block size A: an axis of length N is factored at radix N / FA
+constexpr int TM = 64;       // tile side along the derivative's axis (values of m)
+constexpr int TO = 32;       // tile side across it
+constexpr int TK = 16;       // contraction slab
+constexpr int RM = 4;        // a thread's outputs along m (by 4 across), per channel of its pair
+constexpr int WPP = TM / (4 * RM);   // warps per channel pair, each 4 RM values of m
+constexpr int NSTAGE = 2;    // slab stages in flight
+constexpr int SUO = TO + 4;  // row stride of a staged channel slab (x-pass stores conflict-free)
+constexpr int SY_Y = TO + 4; // row strides of the accumulators staged for the inverse butterfly
+constexpr int SY_X = TM + 4;
 
 enum Axis { AXIS_X = 0, AXIS_Y = 1 };
 
-// Pixel of the thread's output (s, w) in butterfly row r of the tile at
-// (s0, w0): d/dy puts the blocks on rows, d/dx on columns.
+__host__ __device__ constexpr int tile_threads(int B) { return 16 * B * WPP; }
+// resident blocks an SM asked for: 16 warps
+__host__ __device__ constexpr int tile_min_blocks(int B) { return 512 / tile_threads(B); }
+__host__ __device__ constexpr int stage_floats(int B) { return B * TK * (TM + SUO); }
+__host__ __device__ constexpr int ring_floats(int B) { return NSTAGE * stage_floats(B); }
+// the ring (reused for the staged accumulators), then the butterflies
+__host__ __device__ constexpr size_t tile_smem_bytes(int B) { return sizeof(float) * (ring_floats(B) + 2 * B * B); }
+__host__ __device__ constexpr int tile_pixels(int B) { return TM * TO / tile_threads(B); }   // per thread at store
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+// Offset in an (Ny, Nx) plane of the pixel at in-block index a (0..FA-1)
+// of butterfly row 0 along the axis and index x across it (d/dy puts the
+// blocks on rows, d/dx on columns), and the step from one butterfly row
+// to the next.
 template <int AXIS>
-__device__ __forceinline__ void out_pixel(int r, int s, int w, int s0, int w0, int& row,
-                                          int& col) {
-    const int is = s0 + threadIdx.y + 8 * s, iw = w0 + threadIdx.x + 32 * w;
-    if (AXIS == AXIS_Y) {
-        row = r * FA + is;
-        col = iw;
-    } else {
-        row = is;
-        col = r * FA + iw;
-    }
+__device__ __forceinline__ int axis_offset(int a, int x, int Nx) {
+    return AXIS == AXIS_Y ? a * Nx + x : x * Nx + a;
+}
+
+template <int AXIS>
+__device__ __forceinline__ int row_step(int Nx) {
+    return AXIS == AXIS_Y ? FA * Nx : FA;
+}
+
+// Offset in the plane of the q-th (of tile_pixels(B)) output pixel this
+// thread stores, in butterfly row r, of the tile at (m0, o0); consecutive
+// threads run along the plane's rows.
+template <int B, int AXIS>
+__device__ __forceinline__ int out_offset(int q, int r, int m0, int o0, int Nx) {
+    const int idx = threadIdx.x + q * tile_threads(B);
+    return r * row_step<AXIS>(Nx) + (AXIS == AXIS_Y ? axis_offset<AXIS>(m0 + idx / TO, o0 + idx % TO, Nx)
+                                                    : axis_offset<AXIS>(m0 + idx % TM, o0 + idx / TM, Nx));
+}
+
+template <int AXIS>
+__device__ __forceinline__ void tile_origin(int& m0, int& o0) {
+    m0 = (AXIS == AXIS_Y ? blockIdx.y : blockIdx.x) * TM;
+    o0 = (AXIS == AXIS_Y ? blockIdx.x : blockIdx.y) * TO;
 }
 
 template <int B>
 __device__ __forceinline__ void load_butterflies(const float* __restrict__ bf, float* smem) {
-    const int tid = threadIdx.y * 32 + threadIdx.x;
-    for (int p = tid; p < 2 * B * B; p += NT) smem[SLAB_FLOATS + p] = bf[p];
+    for (int p = threadIdx.x; p < 2 * B * B; p += tile_threads(B)) smem[ring_floats(B) + p] = bf[p];
+}
+
+// (o, kk) of the j-th operand-slab position this thread loads: along the
+// plane's rows, 32 pixels a warp (d/dy) or 4 rows x 8 (d/dx: whole 32-byte
+// sectors; 8 rows x 4 measured 7 % slower on the adjoint velocity).
+template <int B, int AXIS>
+__device__ __forceinline__ void slab_pos(int j, int& o, int& kk) {
+    const int p = threadIdx.x + j * tile_threads(B);
+    if (AXIS == AXIS_Y) {
+        o = p % TO;
+        kk = p / TO;
+    } else {
+        const int l = p % 32, q = p / 32;
+        o = (q % (TO / 4)) * 4 + l / 8;
+        kk = (q / (TO / 4)) * 8 + l % 8;
+    }
+}
+
+// One slab of the block products of one channel pair into the thread's
+// accumulators: the real pair (channels 0, B-1 against G_0, G_{B/2}) or
+// a complex pair (re, im against Ar, Ai).
+template <bool REAL>
+__device__ __forceinline__ void slab_fma(const float* __restrict__ gA, const float* __restrict__ gB,
+                                         const float* __restrict__ uA, const float* __restrict__ uB,
+                                         float (&accA)[RM][4], float (&accB)[RM][4]) {
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+        float ga[RM], gb[RM];
+#pragma unroll
+        for (int h = 0; h < RM / 4; ++h) {
+            const float4 a = ld4(gA + kk * TM + 16 * h), b = ld4(gB + kk * TM + 16 * h);
+            ga[4 * h] = a.x, ga[4 * h + 1] = a.y, ga[4 * h + 2] = a.z, ga[4 * h + 3] = a.w;
+            gb[4 * h] = b.x, gb[4 * h + 1] = b.y, gb[4 * h + 2] = b.z, gb[4 * h + 3] = b.w;
+        }
+        const float4 va = ld4(uA + kk * SUO), vb = ld4(uB + kk * SUO);
+        const float ua[4] = {va.x, va.y, va.z, va.w}, ub[4] = {vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                if (REAL) {
+                    accA[i][j] = fmaf(ga[i], ua[j], accA[i][j]);
+                    accB[i][j] = fmaf(gb[i], ub[j], accB[i][j]);
+                } else {
+                    accA[i][j] = fmaf(ga[i], ua[j], fmaf(-gb[i], ub[j], accA[i][j]));
+                    accB[i][j] = fmaf(gb[i], ua[j], fmaf(ga[i], ub[j], accB[i][j]));
+                }
+            }
+    }
 }
 
 // One output tile of the factored derivative along AXIS (see the header).
-// load(row, col) returns the operand at a pixel (with the caller's
-// prologue); store(row, col, v) receives the derivative there. Every
-// thread of the block must call it.
+// Gt holds the packed blocks transposed; smem is the block's dynamic
+// shared memory (tile_smem_bytes(B)), its butterflies loaded by
+// load_butterflies. load(q) returns the operand at offset q of the (Ny, Nx)
+// plane (with the caller's prologue); store(q, v) receives the derivative
+// there, at the pixels out_offset names. Every thread of the block must
+// call it.
 template <int B, int AXIS, class Load, class Store>
-__device__ __forceinline__ void fact_tile(const float* __restrict__ G, float* smem, int s0,
-                                          int w0, Load load, Store store) {
-    constexpr int TK = FA / B;      // contraction slab
-    constexpr int NC = B / 2 - 1;   // complex channel pairs
-    float* big = smem;              // (B, TK, TW) channels of d/dy, (B, TK, TW) blocks of d/dx
-    float* small = smem + FA * TW;  // (B, TS, TK) blocks of d/dy, (B, TS, TK) channels of d/dx
-    const float* sRf = smem + SLAB_FLOATS;
+__device__ __forceinline__ void fact_tile(const float* __restrict__ Gt, float* smem, int m0,
+                                          int o0, int Nx, Load load, Store store) {
+    constexpr int NT = tile_threads(B);
+    constexpr int NC = B / 2 - 1;           // complex channel pairs
+    constexpr int NPOS = TO * TK / NT;      // operand-slab positions per thread
+    constexpr int GROWS = NT / (TM / 4);    // block-slab rows (of B TK) that the threads copy at once
+    constexpr int PX = tile_pixels(B);
+    const float* sRf = smem + ring_floats(B);
     const float* sRi = sRf + B * B;
-    float* sU = AXIS == AXIS_Y ? big : small;
-    float* sG = AXIS == AXIS_Y ? small : big;
-    const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * 32 + tx;
+    const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
+    const int pair = wid / WPP, mh = wid % WPP;   // channel pair; the warp's share of the tile along m
+    const int lm = lane % 4, lo = lane / 4;       // 4 x 8 threads over the warp's 4 RM x 32 pixels
+    const int mt = mh * 4 * RM + lm * 4;          // the thread's m: mt + 16 h + {0..3}, h < RM / 4
+    // the pair's channels and blocks
+    const int chA = pair == 0 ? 0 : 2 * pair - 1, chB = pair == 0 ? B - 1 : 2 * pair;
+    const int blA = pair == 0 ? 0 : 1 + pair, blB = pair == 0 ? 1 : 1 + NC + pair;
 
-    float acc[B][2][2];
+    float accA[RM][4], accB[RM][4];
 #pragma unroll
-    for (int c = 0; c < B; ++c)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int s = 0; s < 2; ++s)
-#pragma unroll
-            for (int w = 0; w < 2; ++w) acc[c][s][w] = 0.f;
+        for (int j = 0; j < 4; ++j) accA[i][j] = accB[i][j] = 0.f;
 
-    for (int k0 = 0; k0 < FA; k0 += TK) {
-        __syncthreads();
-        if (AXIS == AXIS_Y) {
-            for (int p = tid; p < TK * TW; p += NT) {
-                const int kk = p / TW, w = p % TW;
-                float x[B];
+    // this thread's share of a slab: 16 bytes of each block row it copies,
+    // and NPOS operand positions in every butterfly row
+    const float* gsrc = Gt + m0 + (tid % (TM / 4)) * 4;
+    const int grow = tid / (TM / 4), gdst = (tid % (TM / 4)) * 4;
+    const int kstep = AXIS == AXIS_Y ? Nx : 1, rstep = row_step<AXIS>(Nx);
+    int qpos[NPOS];
 #pragma unroll
-                for (int r = 0; r < B; ++r) x[r] = load(r * FA + k0 + kk, w0 + w);
+    for (int j = 0; j < NPOS; ++j) {
+        int o, kk;
+        slab_pos<B, AXIS>(j, o, kk);
+        qpos[j] = axis_offset<AXIS>(kk, o0 + o, Nx);
+    }
+    float raw[NPOS][B];
+    auto fetch = [&](int k0, float* stage) {
+        // the slab's blocks, asynchronously, and its raw operand values
 #pragma unroll
-                for (int c = 0; c < B; ++c) {
-                    float u = 0.f;
+        for (int h = 0; h < B * TK / GROWS; ++h) {
+            const int row = grow + h * GROWS;   // c TK + kk of the slab
+            cp_async16(stage + gdst + row * TM, gsrc + ((row / TK) * FA + k0 + row % TK) * FA);
+        }
 #pragma unroll
-                    for (int r = 0; r < B; ++r) u = fmaf(sRf[c * B + r], x[r], u);
-                    sU[(c * TK + kk) * TW + w] = u;
-                }
+        for (int j = 0; j < NPOS; ++j)
+#pragma unroll
+            for (int r = 0; r < B; ++r) raw[j][r] = load(qpos[j] + k0 * kstep + r * rstep);
+    };
+    auto butterfly = [&](float* stage) {
+        float* sU = stage + B * TK * TM;
+#pragma unroll
+        for (int c = 0; c < B; ++c) {
+            float rf[B];
+#pragma unroll
+            for (int r = 0; r < B; r += 4) {
+                const float4 v = ld4(sRf + c * B + r);
+                rf[r] = v.x, rf[r + 1] = v.y, rf[r + 2] = v.z, rf[r + 3] = v.w;
             }
-            for (int p = tid; p < B * TS * TK; p += NT) {
-                const int c = p / (TS * TK), s = (p / TK) % TS, kk = p % TK;
-                sG[p] = G[((size_t)c * FA + s0 + s) * FA + k0 + kk];
-            }
-        } else {
-            for (int p = tid; p < TS * TK; p += NT) {
-                const int s = p / TK, kk = p % TK;
-                float x[B];
 #pragma unroll
-                for (int r = 0; r < B; ++r) x[r] = load(s0 + s, r * FA + k0 + kk);
+            for (int j = 0; j < NPOS; ++j) {
+                int o, kk;
+                slab_pos<B, AXIS>(j, o, kk);
+                float u = 0.f;
 #pragma unroll
-                for (int c = 0; c < B; ++c) {
-                    float u = 0.f;
-#pragma unroll
-                    for (int r = 0; r < B; ++r) u = fmaf(sRf[c * B + r], x[r], u);
-                    sU[(c * TS + s) * TK + kk] = u;
-                }
-            }
-            for (int p = tid; p < B * TK * TW; p += NT) {
-                const int c = p / (TK * TW), kk = (p / TW) % TK, w = p % TW;
-                sG[p] = G[((size_t)c * FA + k0 + kk) * FA + w0 + w];
+                for (int r = 0; r < B; ++r) u = fmaf(rf[r], raw[j][r], u);
+                sU[(c * TK + kk) * SUO + o] = u;
             }
         }
-        __syncthreads();
+    };
+
+    __syncthreads();   // the butterflies are loaded; a previous tile's staging is read
+    fetch(0, smem);
+    butterfly(smem);
+    for (int s = 0; s < FA / TK; ++s) {
+        float* cur = smem + (s % NSTAGE) * stage_floats(B);
+        float* nxt = smem + ((s + 1) % NSTAGE) * stage_floats(B);
+        cp_async_wait_all();
+        __syncthreads();   // stage `cur` is complete, and every warp has left stage `nxt`
+        const bool more = s + 1 < FA / TK;
+        if (more) fetch((s + 1) * TK, nxt);
+        const float* sG = cur + mt;
+        const float* sU = cur + B * TK * TM + lo * 4;
+        if (pair == 0)
+            slab_fma<true>(sG + blA * TK * TM, sG + blB * TK * TM, sU + chA * TK * SUO,
+                           sU + chB * TK * SUO, accA, accB);
+        else
+            slab_fma<false>(sG + blA * TK * TM, sG + blB * TK * TM, sU + chA * TK * SUO,
+                            sU + chB * TK * SUO, accA, accB);
+        if (more) butterfly(nxt);
+    }
+
+    // every channel of a pixel to one thread: stage the accumulators
+    __syncthreads();
+    float* sY = smem;
+    if (AXIS == AXIS_Y) {   // sY[c][m][o]
 #pragma unroll
-        for (int kk = 0; kk < TK; ++kk) {
-            // g[c][.]: block c's entries, u[c][.]: channel c's entries at
-            // this thread's two short-side (s) and two wide-side (w) points
-            float g[B][2], u[B][2];
+        for (int i = 0; i < RM; ++i) {
+            const int m = mt + (i / 4) * 16 + i % 4;
+            *reinterpret_cast<float4*>(sY + (chA * TM + m) * SY_Y + lo * 4) =
+                make_float4(accA[i][0], accA[i][1], accA[i][2], accA[i][3]);
+            *reinterpret_cast<float4*>(sY + (chB * TM + m) * SY_Y + lo * 4) =
+                make_float4(accB[i][0], accB[i][1], accB[i][2], accB[i][3]);
+        }
+    } else {                // sY[c][o][m]
 #pragma unroll
-            for (int c = 0; c < B; ++c) {
-                if (AXIS == AXIS_Y) {
-                    g[c][0] = sG[(c * TS + ty) * TK + kk];
-                    g[c][1] = sG[(c * TS + ty + 8) * TK + kk];
-                    u[c][0] = sU[(c * TK + kk) * TW + tx];
-                    u[c][1] = sU[(c * TK + kk) * TW + tx + 32];
-                } else {
-                    u[c][0] = sU[(c * TS + ty) * TK + kk];
-                    u[c][1] = sU[(c * TS + ty + 8) * TK + kk];
-                    g[c][0] = sG[(c * TK + kk) * TW + tx];
-                    g[c][1] = sG[(c * TK + kk) * TW + tx + 32];
-                }
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int h = 0; h < RM / 4; ++h) {
+                const int at = (lo * 4 + j) * SY_X + mt + h * 16;
+                *reinterpret_cast<float4*>(sY + chA * TO * SY_X + at) = make_float4(
+                    accA[4 * h][j], accA[4 * h + 1][j], accA[4 * h + 2][j], accA[4 * h + 3][j]);
+                *reinterpret_cast<float4*>(sY + chB * TO * SY_X + at) = make_float4(
+                    accB[4 * h][j], accB[4 * h + 1][j], accB[4 * h + 2][j], accB[4 * h + 3][j]);
             }
+    }
+    __syncthreads();
+    // inverse butterfly at store
+    float yv[PX][B];
 #pragma unroll
-            for (int s = 0; s < 2; ++s)
+    for (int q = 0; q < PX; ++q) {
+        const int idx = tid + q * NT;
 #pragma unroll
-                for (int w = 0; w < 2; ++w) {
-                    const int gi = AXIS == AXIS_Y ? s : w, ui = AXIS == AXIS_Y ? w : s;
-                    acc[0][s][w] = fmaf(g[0][gi], u[0][ui], acc[0][s][w]);
-                    acc[B - 1][s][w] = fmaf(g[1][gi], u[B - 1][ui], acc[B - 1][s][w]);
+        for (int c = 0; c < B; ++c)
+            yv[q][c] = AXIS == AXIS_Y ? sY[(c * TM + idx / TO) * SY_Y + idx % TO]
+                                      : sY[(c * TO + idx / TM) * SY_X + idx % TM];
+    }
 #pragma unroll
-                    for (int i = 0; i < NC; ++i) {
-                        const float ar = g[2 + i][gi], ai = g[2 + NC + i][gi];
-                        const float ure = u[2 * i + 1][ui], uim = u[2 * i + 2][ui];
-                        acc[2 * i + 1][s][w] = fmaf(ar, ure, fmaf(-ai, uim, acc[2 * i + 1][s][w]));
-                        acc[2 * i + 2][s][w] = fmaf(ai, ure, fmaf(ar, uim, acc[2 * i + 2][s][w]));
-                    }
-                }
+    for (int r = 0; r < B; ++r) {
+        float ri[B];
+#pragma unroll
+        for (int c = 0; c < B; c += 4) {
+            const float4 v = ld4(sRi + r * B + c);
+            ri[c] = v.x, ri[c + 1] = v.y, ri[c + 2] = v.z, ri[c + 3] = v.w;
+        }
+#pragma unroll
+        for (int q = 0; q < PX; ++q) {
+            float v = 0.f;
+#pragma unroll
+            for (int c = 0; c < B; ++c) v = fmaf(ri[c], yv[q][c], v);
+            store(out_offset<B, AXIS>(q, r, m0, o0, Nx), v);
         }
     }
-    // inverse butterfly at store
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-        for (int w = 0; w < 2; ++w)
-#pragma unroll
-            for (int r = 0; r < B; ++r) {
-                float v = 0.f;
-#pragma unroll
-                for (int c = 0; c < B; ++c) v = fmaf(sRi[r * B + c], acc[c][s][w], v);
-                int row, col;
-                out_pixel<AXIS>(r, s, w, s0, w0, row, col);
-                store(row, col, v);
-            }
 }
 
 template <int AXIS>
 dim3 pass_grid(int Ny, int Nx, int nz) {
-    return AXIS == AXIS_Y ? dim3(Nx / TW, FA / TS, nz) : dim3(FA / TW, Ny / TS, nz);
+    return AXIS == AXIS_Y ? dim3(Nx / TO, FA / TM, nz) : dim3(FA / TM, Ny / TO, nz);
 }
-
-const dim3 BLOCK(32, 8);
 
 bool shape_ok(int Bx, int By, int Ny, int Nx) {
     return Nx == Bx * FA && Ny == By * FA;
+}
+
+// Let `kernel` take the tile's dynamic shared memory (above the 48 KB a
+// kernel gets unasked), and have the SM's L1 / shared split favour shared
+// memory, so that as many blocks as the launch bounds ask for are resident.
+template <class K>
+int allow_tile_smem(K kernel, int B) {
+    const int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)tile_smem_bytes(B));
+    if (rc != 0) return rc;
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                     (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace

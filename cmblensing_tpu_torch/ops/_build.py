@@ -79,13 +79,16 @@ def bind(lib):
     library."""
     P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     sigs = {
-        "lf_velocity": [I, P, P, P, P, P, I, I, I, F, P],
+        "lf_velocity": [I, P, P, P, P, P, P, I, I, I, F, P],
         "lf_deriv": [P, P, P, P, P, P, I, I, I, P],
         "lf_rk4_update": [P, P, P, P, ctypes.c_size_t, I, F, F, P],
+        "lf_p_planes": [P, P, ctypes.c_size_t, ctypes.c_size_t, F, P],
         "lf_fderiv": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
-        "lf_fa_velocity": [I, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
-        "lf_bv_velocity": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        "lf_fa_velocity": [I, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "lf_bv_velocity": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
         "lf_uni_velocity": [I, P, P, L, L, L, L, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        "lf_factored_init": [],
+        "lf_uni_init": [],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -95,8 +98,14 @@ def bind(lib):
 
 
 def load():
-    """The loaded kernel library (built first if needed)."""
+    """The loaded kernel library (built first if needed), its kernels
+    allowed their dynamic shared memory."""
     global _LIB
     if _LIB is None:
-        _LIB = bind(ctypes.CDLL(str(build())))
+        lib = bind(ctypes.CDLL(str(build())))
+        for init in (lib.lf_factored_init, lib.lf_uni_init):
+            rc = init()
+            if rc != 0:
+                raise RuntimeError(f"{init.__name__} failed with CUDA error {rc}")
+        _LIB = lib
     return _LIB

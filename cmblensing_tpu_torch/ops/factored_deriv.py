@@ -21,7 +21,9 @@ both forms are one operator up to f32 rounding.
 Packed layout, per axis: (C, A, A) with C = 2 + 2(B/2 - 1) = B, rows
 [G_0, G_{B/2}, Re G_1..Re G_{B/2-1}, Im G_1..Im G_{B/2-1}]; the x-axis
 blocks are stored transposed, so that d/dx is a right product. The
-butterflies travel as a (2, B, B) tensor [Rf, Ri].
+butterflies travel as a (2, B, B) tensor [Rf, Ri]. The y-axis blocks
+also travel transposed (FYT), the layout the CUDA tile stages for both
+axes (csrc/fact_tile.cuh).
 """
 from __future__ import annotations
 
@@ -109,11 +111,19 @@ def factored_op(n, delta, dtype_str, B):
 class FactoredOps(NamedTuple):
     """The factored first derivatives of a projection, packed:
     FX (Bx, A, A) x-axis blocks (transposed), FY (By, A, A) y-axis
-    blocks, bfx (2, Bx, Bx) and bfy (2, By, By) butterflies [Rf, Ri]."""
+    blocks, bfx (2, Bx, Bx) and bfy (2, By, By) butterflies [Rf, Ri], and
+    FYT, FY with each block transposed (what the CUDA kernels read; the
+    plain apply does not use it, and `fyt` makes it where it is missing)."""
     FX: torch.Tensor
     FY: torch.Tensor
     bfx: torch.Tensor
     bfy: torch.Tensor
+    FYT: torch.Tensor = None
+
+
+def fyt(ops):
+    """The y-axis blocks of `ops`, each transposed."""
+    return ops.FYT if ops.FYT is not None else ops.FY.transpose(-1, -2).contiguous()
 
 
 def factored_ops(proj, Bx, By):
@@ -127,7 +137,8 @@ def factored_ops(proj, Bx, By):
         opy = factored_op(proj.Ny, d, dts, By)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=proj.device)
         ops = FactoredOps(t(opx.packed(True)), t(opy.packed(False)),
-                          t(np.stack([opx.Rf, opx.Ri])), t(np.stack([opy.Rf, opy.Ri])))
+                          t(np.stack([opx.Rf, opx.Ri])), t(np.stack([opy.Rf, opy.Ri])),
+                          t(opy.packed(True)))
         proj._tensors[key] = ops
     return ops
 

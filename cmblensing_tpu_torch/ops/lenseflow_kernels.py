@@ -19,7 +19,7 @@ given (``ops/deriv.py::deriv_ops``), and a third granularity that the
   uni       the per-velocity "uni" granularity of ``_uni_call``: every
             velocity of every flow as calls of the universal role-switched
             kernel ``_bwdAB_kernel`` (K5, csrc/uni.cu; factored operands
-            on the card, either form in its plain version), with p(t),
+            on the card, either form in its plain version), with
             M^-1(t) and u = M^-1 w as torch elementwise glue, and the
             backward flow carrying delta phi in its state, not hoisted.
 
@@ -31,17 +31,25 @@ Three flows, as there:
             with the delta-phi derivatives hoisted out of the time loop
             (see csrc/lenseflow.cu for why)
 
-A flow is a host loop of 4*nsteps RK4 stages over three leaf operations:
-a velocity evaluation, an RK4 accumulator update and a derivative
-``d_x a + d_y b + c``. Each leaf has a CUDA kernel (csrc/, built by
+A flow is a host loop of 4*nsteps RK4 stages over four leaf operations:
+the planes of p(t) = (I + t Hess phi)^-1 grad phi (formed once for each
+of the flow's 2*nsteps + 1 distinct times, not once per velocity: the two
+middle stages of a step share their time, and a step's last time is the
+next one's first), a velocity evaluation at those planes, an RK4
+accumulator update and a derivative ``d_x a + d_y b + c``. Each leaf has
+a CUDA kernel (csrc/, built by
 ops/_build.py) and a plain PyTorch version (the same circulant products
 with torch.matmul, dense or factored, same stage order). The public
 functions take the plain version for a CPU tensor and launch the kernel
 for a CUDA tensor, or raise; the ``*_plain`` functions run the plain
-version on any device, for comparing the two on the card.
+version on any device, for comparing the two on the card. Each kernel
+wrapper is a launcher maker (``*_launcher``: checks and pointer
+conversions, once) and a call of the launcher it returns; a flow makes
+its launchers once and calls them at every stage.
 
 phi enters as a (..., 5, Ny, Nx) tensor of planes (gx, gy, hxx, hxy,
-hyy); mats is what ops/deriv.py::deriv_ops returns.
+hyy), p(t) as pt, (2, ..., Ny, Nx) planes (p_x, p_y); mats is what
+ops/deriv.py::deriv_ops returns.
 """
 from __future__ import annotations
 
@@ -52,9 +60,9 @@ import torch
 
 from . import deriv as _deriv
 from .deriv import FACTOR_A
-from .factored_deriv import FactoredOps
+from .factored_deriv import FactoredOps, fyt
 
-TILE = 16
+TILE = 32   # the dense kernels' output tile
 KINDS = {"forward": 0, "adjoint": 1, "backward": 2}
 ROLES = {"forward": 0, "adjoint": 1}   # the factored kernel's role argument
 ROLES_UNI = {"forward": 2, "adjoint": 3}   # the universal kernel's roles for the applies
@@ -64,7 +72,7 @@ CUDA_ERROR_INVALID_VALUE = 1   # what a kernel's C entry returns for arguments i
 # kernel launches per kernel, counted where each wrapper launches (the
 # factored velocities launch twice per call: an x pass and a y pass)
 LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0,
-            "rk4_update": 0, "deriv": 0, "fderiv": 0, "fa_velocity_forward": 0,
+            "rk4_update": 0, "p_planes": 0, "deriv": 0, "fderiv": 0, "fa_velocity_forward": 0,
             "fa_velocity_adjoint": 0, "bv_velocity": 0, "uni_role0": 0, "uni_role1": 0,
             "uni_role2": 0, "uni_role3": 0}
 
@@ -96,11 +104,20 @@ def _minv_of_t(t, phi):
     return d * idet, -b * idet, a * idet
 
 
-def velocity_plain(kind, y, k, phi, mats, ncomp, t):
+def p_planes_plain(t, phi, out):
+    """out (2, ..., Ny, Nx) <- the planes (p_x, p_y) of p(t) from phi
+    (..., 5, Ny, Nx)."""
+    px, py = _p_of_t(t, phi)
+    out[0].copy_(px)
+    out[1].copy_(py)
+
+
+def velocity_plain(kind, y, k, phi, pt, mats, ncomp, t):
     """k <- the velocity of flow `kind` at state y (..., nstate, Ny, Nx),
-    time t, phi (..., 5, Ny, Nx); dense (DxT, Dy) or factored operands."""
+    time t, phi (..., 5, Ny, Nx), pt its p(t) planes (2, ..., Ny, Nx);
+    dense (DxT, Dy) or factored operands."""
     dx, dy = _deriv.ddx_ddy(mats)
-    px, py = (p.unsqueeze(-3) for p in _p_of_t(t, phi))
+    px, py = pt[0].unsqueeze(-3), pt[1].unsqueeze(-3)
     if kind == "forward":
         k.copy_(px * dx(y) + py * dy(y))
     elif kind == "adjoint":
@@ -201,6 +218,27 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+_OPERANDS = {}   # id(mats) -> (mats, tensors, pointers): operand sets already checked
+
+
+def _operands(name, mats, like):
+    """The derivative operands a kernel reads from `mats`, (DxT, Dy) or a
+    FactoredOps' (FX, FYT, bfx, bfy), as tensors and ready ctypes
+    pointers. Device, type and contiguity are checked the first time an
+    operand set is seen (a flow hands the same set to every launch); that
+    it lies on `like`'s device, every time."""
+    hit = _OPERANDS.get(id(mats))
+    if hit is None or hit[0] is not mats:
+        tensors = _fops(mats) if isinstance(mats, FactoredOps) else tuple(mats)
+        _check_cuda(name, tensors, TILE, TILE)
+        if len(_OPERANDS) >= 8:
+            _OPERANDS.clear()
+        hit = _OPERANDS[id(mats)] = (mats, tensors, tuple(map(_ptr, tensors)))
+    if hit[1][0].device != like.device:
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    return hit[1], hit[2]
+
+
 def _raise_on(rc, name):
     if rc == CUDA_ERROR_INVALID_VALUE:
         raise RuntimeError(f"{name}: the kernel refused its arguments (a shape, or a radix it "
@@ -209,45 +247,82 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
-def velocity_cuda(kind, y, k, phi, mats, ncomp, t):
+def _launcher(fn, name, counter, nlaunch, args):
+    """launch(*late): call the C entry `fn` on the checked, ready arguments
+    `args`, then the late ones (a time, RK4 weights) and the current
+    stream; raise on its error code; count its launches. A flow builds one
+    per kernel and buffer set and calls it at every stage, so that the
+    checks and pointer conversions are paid once per flow, not per launch."""
+    def launch(*late):
+        rc = fn(*args, *late, _stream())
+        if rc != 0:
+            _raise_on(rc, name)
+        LAUNCHES[counter] += nlaunch
+    return launch
+
+
+def p_planes_launcher(phi, out):
+    """launch(t): out (2, ..., Ny, Nx) <- the planes of p(t) from phi."""
     from . import _build
-    DxT, Dy = mats
+    Ny, Nx = phi.shape[-2:]
+    _check_cuda("lf_p_planes", [phi, out], Ny, Nx)
+    if phi.shape[-3] != 5 or out.shape != (2,) + phi.shape[:-3] + (Ny, Nx):
+        raise ValueError(f"lf_p_planes: phi {tuple(phi.shape)} and out {tuple(out.shape)} do not "
+                         "fit (..., 5, Ny, Nx) and (2, ..., Ny, Nx)")
+    return _launcher(_build.load().lf_p_planes, "lf_p_planes", "p_planes", 1,
+                     (_ptr(phi), _ptr(out), phi.numel() // (5 * Ny * Nx), Ny * Nx))
+
+
+def p_planes_cuda(t, phi, out):
+    p_planes_launcher(phi, out)(float(t))
+
+
+def velocity_launcher(kind, y, k, phi, pt, mats, ncomp):
+    """launch(t): k <- the dense velocity kernel of flow `kind` at y."""
+    from . import _build
     Ny, Nx = y.shape[-2:]
-    _check_cuda("lf_velocity", [y, k, phi, DxT, Dy], Ny, Nx)
-    if DxT.shape != (Nx, Nx) or Dy.shape != (Ny, Ny) or phi.shape != (5, Ny, Nx):
-        raise ValueError("lf_velocity: derivative matrices or phi planes mis-shaped")
+    (DxT, Dy), mptrs = _operands("lf_velocity", mats, y)
+    _check_cuda("lf_velocity", [y, k, phi, pt], Ny, Nx)
+    if (DxT.shape != (Nx, Nx) or Dy.shape != (Ny, Ny) or phi.shape != (5, Ny, Nx)
+            or pt.shape != (2, Ny, Nx)):
+        raise ValueError("lf_velocity: derivative matrices, phi or p(t) planes mis-shaped")
     nstate = {"backward": 2 * ncomp + NACC}.get(kind, ncomp)
     if y.shape != (nstate, Ny, Nx) or k.shape != y.shape:
         raise ValueError(f"lf_velocity: state {tuple(y.shape)} does not fit kind {kind}")
-    rc = _build.load().lf_velocity(KINDS[kind], _ptr(y), _ptr(k), _ptr(phi), _ptr(DxT),
-                                   _ptr(Dy), ncomp, Ny, Nx, float(t), _stream())
-    _raise_on(rc, "lf_velocity")
-    LAUNCHES["velocity_" + kind] += 1
+    return _launcher(_build.load().lf_velocity, "lf_velocity", "velocity_" + kind, 1,
+                     (KINDS[kind], _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *mptrs, ncomp, Ny, Nx))
 
 
-def rk4_update_cuda(y, k, acc, s, stage, wacc, ws):
+def velocity_cuda(kind, y, k, phi, pt, mats, ncomp, t):
+    velocity_launcher(kind, y, k, phi, pt, mats, ncomp)(float(t))
+
+
+def rk4_update_launcher(y, k, acc, s):
+    """launch(stage, wacc, ws): fold a stage into the RK4 accumulator."""
     from . import _build
     Ny, Nx = y.shape[-2:]
     _check_cuda("lf_rk4_update", [y, k, acc, s], Ny, Nx)
     if not (y.shape == k.shape == acc.shape == s.shape):
         raise ValueError("lf_rk4_update: shapes differ")
-    rc = _build.load().lf_rk4_update(_ptr(y), _ptr(k), _ptr(acc), _ptr(s), y.numel(),
-                                     int(stage), float(wacc), float(ws), _stream())
-    _raise_on(rc, "lf_rk4_update")
-    LAUNCHES["rk4_update"] += 1
+    return _launcher(_build.load().lf_rk4_update, "lf_rk4_update", "rk4_update", 1,
+                     (_ptr(y), _ptr(k), _ptr(acc), _ptr(s), y.numel()))
+
+
+def rk4_update_cuda(y, k, acc, s, stage, wacc, ws):
+    rk4_update_launcher(y, k, acc, s)(int(stage), float(wacc), float(ws))
 
 
 def deriv_cuda(a, b, c, out, mats):
     from . import _build
-    DxT, Dy = mats
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
-    _check_cuda("lf_deriv", [out, DxT, Dy, *given], Ny, Nx)
+    _, mptrs = _operands("lf_deriv", mats, out)
+    _check_cuda("lf_deriv", [out, *given], Ny, Nx)
     if any(x.shape != out.shape for x in given):
         raise ValueError("lf_deriv: operand shapes differ from the output's")
     nplanes = out.numel() // (Ny * Nx)
-    rc = _build.load().lf_deriv(_ptr(a), _ptr(b), _ptr(c), _ptr(out), _ptr(DxT), _ptr(Dy),
-                                nplanes, Ny, Nx, _stream())
+    rc = _build.load().lf_deriv(_ptr(a), _ptr(b), _ptr(c), _ptr(out), *mptrs, nplanes, Ny, Nx,
+                                _stream())
     _raise_on(rc, "lf_deriv")
     LAUNCHES["deriv"] += 1
 
@@ -265,8 +340,10 @@ def _check_factored(name, ops, Ny, Nx):
     return Bx, By
 
 
-def _fptrs(ops):
-    return [_ptr(x) for x in (ops.FX, ops.FY, ops.bfx, ops.bfy)]
+def _fops(ops):
+    """The operands the factored kernels read: x blocks, transposed y
+    blocks, the two butterflies."""
+    return ops.FX, fyt(ops), ops.bfx, ops.bfy
 
 
 def fderiv_cuda(a, b, c, out, ops):
@@ -275,7 +352,8 @@ def fderiv_cuda(a, b, c, out, ops):
     from . import _build
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
-    _check_cuda("lf_fderiv", [out, *ops, *given], Ny, Nx)
+    _, fptrs = _operands("lf_fderiv", ops, out)
+    _check_cuda("lf_fderiv", [out, *given], Ny, Nx)
     Bx, By = _check_factored("lf_fderiv", ops, Ny, Nx)
     if a is None and b is None:
         raise ValueError("lf_fderiv: needs a or b")
@@ -284,43 +362,46 @@ def fderiv_cuda(a, b, c, out, ops):
     if any(x is not None and x.data_ptr() == out.data_ptr() for x in (a, b)):
         raise ValueError("lf_fderiv: out must not alias a or b")
     nplanes = out.numel() // (Ny * Nx)
-    rc = _build.load().lf_fderiv(_ptr(a), _ptr(b), _ptr(c), _ptr(out), *_fptrs(ops), Bx, By,
-                                 nplanes, Ny, Nx, _stream())
+    rc = _build.load().lf_fderiv(_ptr(a), _ptr(b), _ptr(c), _ptr(out), *fptrs, Bx, By, nplanes,
+                                 Ny, Nx, _stream())
     _raise_on(rc, "lf_fderiv")
     LAUNCHES["fderiv"] += (a is not None) + (b is not None)
 
 
-def _check_batched_state(name, y, k, phi, nstate):
+def _check_batched_state(name, y, k, phi, pt, nstate):
     nb, Ny, Nx = y.shape[0], y.shape[-2], y.shape[-1]
-    if y.shape != (nb, nstate, Ny, Nx) or k.shape != y.shape or phi.shape != (nb, 5, Ny, Nx):
-        raise ValueError(f"{name}: state {tuple(y.shape)}, velocity {tuple(k.shape)} and "
-                         f"phi {tuple(phi.shape)} do not fit (nb, {nstate}, Ny, Nx)")
+    if (y.shape != (nb, nstate, Ny, Nx) or k.shape != y.shape or phi.shape != (nb, 5, Ny, Nx)
+            or pt.shape != (2, nb, Ny, Nx)):
+        raise ValueError(f"{name}: state {tuple(y.shape)}, velocity {tuple(k.shape)}, phi "
+                         f"{tuple(phi.shape)} and p(t) {tuple(pt.shape)} do not fit "
+                         f"(nb, {nstate}, Ny, Nx)")
     return nb
 
 
-def fvelocity_cuda(kind, y, k, phi, ops, ncomp, t):
-    """K3 (forward, adjoint) or K4 (backward): k <- the velocity of flow
-    `kind` at the batched (nb, nstate, Ny, Nx) state y, time t; phi is
-    (nb, 5, Ny, Nx). Two launches (x pass, y pass)."""
+def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp):
+    """launch(t): K3 (forward, adjoint) or K4 (backward), k <- the velocity
+    of flow `kind` at the batched (nb, nstate, Ny, Nx) state y; phi is
+    (nb, 5, Ny, Nx), pt its p(t) planes (2, nb, Ny, Nx). Two launches
+    (x pass, y pass)."""
     from . import _build
     Ny, Nx = y.shape[-2:]
     lib = _build.load()
+    name = "lf_bv_velocity" if kind == "backward" else "lf_fa_velocity"
+    _, fptrs = _operands(name, ops, y)
+    _check_cuda(name, [y, k, phi, pt], Ny, Nx)
+    Bx, By = _check_factored(name, ops, Ny, Nx)
     if kind == "backward":
-        _check_cuda("lf_bv_velocity", [y, k, phi, *ops], Ny, Nx)
-        Bx, By = _check_factored("lf_bv_velocity", ops, Ny, Nx)
-        nb = _check_batched_state("lf_bv_velocity", y, k, phi, 2 * ncomp + NACC)
-        rc = lib.lf_bv_velocity(_ptr(y), _ptr(k), _ptr(phi), *_fptrs(ops), Bx, By, nb, ncomp,
-                                Ny, Nx, float(t), _stream())
-        _raise_on(rc, "lf_bv_velocity")
-        LAUNCHES["bv_velocity"] += 2
-        return
-    _check_cuda("lf_fa_velocity", [y, k, phi, *ops], Ny, Nx)
-    Bx, By = _check_factored("lf_fa_velocity", ops, Ny, Nx)
-    nb = _check_batched_state("lf_fa_velocity", y, k, phi, ncomp)
-    rc = lib.lf_fa_velocity(ROLES[kind], _ptr(y), _ptr(k), _ptr(phi), *_fptrs(ops), Bx, By,
-                            nb, ncomp, Ny, Nx, float(t), _stream())
-    _raise_on(rc, "lf_fa_velocity")
-    LAUNCHES["fa_velocity_" + kind] += 2
+        nb = _check_batched_state(name, y, k, phi, pt, 2 * ncomp + NACC)
+        return _launcher(lib.lf_bv_velocity, name, "bv_velocity", 2,
+                         (_ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *fptrs, Bx, By, nb, ncomp, Ny, Nx))
+    nb = _check_batched_state(name, y, k, phi, pt, ncomp)
+    fa = _launcher(lib.lf_fa_velocity, name, "fa_velocity_" + kind, 2,
+                   (ROLES[kind], _ptr(y), _ptr(k), _ptr(pt), *fptrs, Bx, By, nb, ncomp, Ny, Nx))
+    return lambda t: fa()   # K3 takes no time: p(t) reaches it as planes
+
+
+def fvelocity_cuda(kind, y, k, phi, pt, ops, ncomp, t):
+    fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp)(float(t))
 
 
 def _plane_strides(name, x, Ny, Nx):
@@ -342,7 +423,8 @@ def uni_velocity_cuda(role, a, b, px, py, out, ops, t):
     if not isinstance(ops, FactoredOps):
         raise RuntimeError("lf_uni_velocity: the uni kernel takes factored operands only "
                            "(N >= 512); its dense form is ROADMAP Queue 2, K5")
-    _check_cuda("lf_uni_velocity", [px, py, out, *ops], Ny, Nx, strided=(a, b))
+    _, fptrs = _operands("lf_uni_velocity", ops, out)
+    _check_cuda("lf_uni_velocity", [px, py, out], Ny, Nx, strided=(a, b))
     strides = [*_plane_strides("lf_uni_velocity", a, Ny, Nx),
                *_plane_strides("lf_uni_velocity", b, Ny, Nx)]
     nb, nper = out.shape[0], out.shape[1]
@@ -360,8 +442,8 @@ def uni_velocity_cuda(role, a, b, px, py, out, ops, t):
     scratch = torch.empty((nb, nper, 2, Ny, Nx), dtype=out.dtype, device=out.device) \
         if role == 1 else None
     rc = _build.load().lf_uni_velocity(role, _ptr(a), _ptr(b), *strides, _ptr(px), _ptr(py),
-                                       _ptr(out), _ptr(scratch), *_fptrs(ops), Bx, By, nb, nper,
-                                       Ny, Nx, float(t), _stream())
+                                       _ptr(out), _ptr(scratch), *fptrs, Bx, By, nb, nper, Ny, Nx,
+                                       float(t), _stream())
     _raise_on(rc, "lf_uni_velocity")
     LAUNCHES[f"uni_role{role}"] += 4 if role == 1 else 2
 
@@ -371,14 +453,17 @@ class _Leaves:
     leading batch axis (the factored kernels), else a batched flow loops
     over its entries."""
 
-    def __init__(self, velocity, rk4_update, deriv, batched):
+    def __init__(self, velocity, rk4_update, deriv, p_planes, batched, launchers=None):
         self.velocity = velocity
         self.rk4_update = rk4_update
         self.deriv = deriv
+        self.p_planes = p_planes
         self.batched = batched
+        # (velocity, rk4_update, p_planes) launcher makers of the kernel leaves
+        self.launchers = launchers
 
 
-def _uni_velocity(uni, kind, y, k, phi, mats, ncomp, t):
+def _uni_velocity(uni, kind, y, k, phi, pt, mats, ncomp, t):
     """k <- the velocity of flow `kind` at the batched (nb, nstate, Ny, Nx)
     state y as calls of the universal leaf `uni`, in the order of
     `_uni_call`: forward and adjoint (roles 2, 3) over component pairs,
@@ -386,7 +471,7 @@ def _uni_velocity(uni, kind, y, k, phi, mats, ncomp, t):
     the state (f, delta f, delta phi): role 0 on every component at once,
     u = M^-1 sum_c w_c, then role 1 for delta phi."""
     nb, Ny, Nx = y.shape[0], y.shape[-2], y.shape[-1]
-    px, py = (p.unsqueeze(-3).contiguous() for p in _p_of_t(t, phi))
+    px, py = pt[0].unsqueeze(1), pt[1].unsqueeze(1)
     if kind in ("forward", "adjoint"):
         out = torch.empty((nb, 1, 4, Ny, Nx), dtype=y.dtype, device=y.device)
         for c0 in range(0, ncomp, 2):
@@ -408,16 +493,18 @@ def _uni_velocity(uni, kind, y, k, phi, mats, ncomp, t):
     k[:, 2 * ncomp] = out1[:, 0, 0]
 
 
-PLAIN = _Leaves(velocity_plain, rk4_update_plain, deriv_plain, False)
-KERNEL = _Leaves(velocity_cuda, rk4_update_cuda, deriv_cuda, False)
-FPLAIN = _Leaves(fvelocity_plain, rk4_update_plain, fderiv_plain, True)
-FKERNEL = _Leaves(fvelocity_cuda, rk4_update_cuda, fderiv_cuda, True)
+PLAIN = _Leaves(velocity_plain, rk4_update_plain, deriv_plain, p_planes_plain, False)
+KERNEL = _Leaves(velocity_cuda, rk4_update_cuda, deriv_cuda, p_planes_cuda, False,
+                 (velocity_launcher, rk4_update_launcher, p_planes_launcher))
+FPLAIN = _Leaves(fvelocity_plain, rk4_update_plain, fderiv_plain, p_planes_plain, True)
+FKERNEL = _Leaves(fvelocity_cuda, rk4_update_cuda, fderiv_cuda, p_planes_cuda, True,
+                  (fvelocity_launcher, rk4_update_launcher, p_planes_launcher))
 # the uni granularity: no derivative leaf (phi's planes come from the
 # kernel path's `gradhess`, delta phi from role 1)
 UPLAIN = _Leaves(functools.partial(_uni_velocity, uni_velocity_plain), rk4_update_plain, None,
-                 True)
+                 p_planes_plain, True)
 UKERNEL = _Leaves(functools.partial(_uni_velocity, uni_velocity_cuda), rk4_update_cuda, None,
-                  True)
+                  p_planes_cuda, True)
 
 
 def _leaves_for(x, mats):
@@ -447,23 +534,54 @@ def _uni_leaves_for(x):
 # flows
 # =========================================================================
 
+def flow_times(nsteps, t0, t1):
+    """The 2*nsteps + 1 distinct times at which an RK4 flow from t0 to t1
+    evaluates its velocity: step i uses times 2i (stage 0), 2i + 1 (the two
+    middle stages) and 2i + 2 (the last stage, and the next step's first)."""
+    half = (t1 - t0) / nsteps / 2
+    return [t0 + j * half for j in range(2 * nsteps + 1)]
+
+
+def _stages(leaves, kind, y, s, k, acc, phi, pt, mats, ncomp):
+    """(velocity at y, velocity at s, rk4_update, p_planes) of one flow over
+    its fixed buffers, as calls of (t), (t), (stage, wacc, ws) and (t): the
+    kernel leaves' launchers, built once, or the leaves themselves."""
+    made = getattr(leaves, "launchers", None)
+    if made is not None:
+        velocity, rk4_update, p_planes = made
+        return (velocity(kind, y, k, phi, pt, mats, ncomp),
+                velocity(kind, s, k, phi, pt, mats, ncomp), rk4_update(y, k, acc, s),
+                p_planes(phi, pt))
+    return (lambda t: leaves.velocity(kind, y, k, phi, pt, mats, ncomp, t),
+            lambda t: leaves.velocity(kind, s, k, phi, pt, mats, ncomp, t),
+            lambda stage, wacc, ws: leaves.rk4_update(y, k, acc, s, stage, wacc, ws),
+            lambda t: leaves.p_planes(t, phi, pt))
+
+
 def _integrate(leaves, kind, y, phi, mats, ncomp, nsteps, t0, t1):
     """Classical RK4 of flow `kind` from t0 to t1 over a (..., nstate, Ny,
     Nx) state, stages folded into a running accumulator as in
-    `_rk4_steps`."""
+    `_rk4_steps`; p(t) is formed once per time of `flow_times`."""
     y = y.contiguous().clone()
     k, acc, s = torch.empty_like(y), torch.empty_like(y), torch.empty_like(y)
+    pt = torch.empty((2,) + tuple(phi.shape[:-3]) + tuple(phi.shape[-2:]), dtype=phi.dtype,
+                     device=phi.device)
+    vel_y, vel_s, rk4, p_planes = _stages(leaves, kind, y, s, k, acc, phi, pt, mats, ncomp)
     h = (t1 - t0) / nsteps
+    times = flow_times(nsteps, t0, t1)
+    p_planes(times[0])
     for i in range(nsteps):
-        t = t0 + i * h
-        leaves.velocity(kind, y, k, phi, mats, ncomp, t)
-        leaves.rk4_update(y, k, acc, s, 0, h / 6, h / 2)
-        leaves.velocity(kind, s, k, phi, mats, ncomp, t + h / 2)
-        leaves.rk4_update(y, k, acc, s, 1, h / 3, h / 2)
-        leaves.velocity(kind, s, k, phi, mats, ncomp, t + h / 2)
-        leaves.rk4_update(y, k, acc, s, 2, h / 3, h)
-        leaves.velocity(kind, s, k, phi, mats, ncomp, t + h)
-        leaves.rk4_update(y, k, acc, s, 3, h / 6, 0.0)
+        t, tmid, tend = times[2 * i:2 * i + 3]
+        vel_y(t)
+        rk4(0, h / 6, h / 2)
+        p_planes(tmid)
+        vel_s(tmid)
+        rk4(1, h / 3, h / 2)
+        vel_s(tmid)
+        rk4(2, h / 3, h)
+        p_planes(tend)
+        vel_s(tend)
+        rk4(3, h / 6, 0.0)
     return y
 
 

@@ -1,15 +1,22 @@
 """Where the time of a 1024^2 P MAP_joint step goes on the PyTorch port,
 per LenseFlow backend, on one CUDA card.
 
-    python scripts/torch_profile_map.py [--backends kernel uni] [--steps 2]
+    python scripts/torch_profile_map.py [--backends kernel uni] [--steps 2] [--grad256]
+                                        [--host-ab]
 
 Runs MAP_joint as chip_smoke.py phase 7 does (load_sim at 1024^2 P,
 thetapix 2, seed 0; grid line search; 15 fixed CG iterations). For each
 backend: 2 warm-up steps, an unprofiled run of --steps steps for the
 wall time, then the same run under torch.profiler (CUDA activity only).
 Prints per step: wall s, device ms and the device's busy share, and the
-device ms and launches of the kernels that take the most time. Needs a
-CUDA card; exits non-zero without one.
+device ms and launches of the kernels that take the most time. With
+--grad256 it then profiles the mixed-posterior phi-gradient at 256^2 P
+(chip_smoke.py phases 3-4: thetapix 3, nsteps 7, kernel backend) the same
+way, per gradient over 5 gradients. With --host-ab it times the kernel
+backend's step with the flows' launchers made once per flow (as the port
+runs) against the checked wrappers called at every launch, in turns in
+one process: what the per-launch checks cost the host. Needs a CUDA card;
+exits non-zero without one.
 """
 import argparse
 import os
@@ -23,11 +30,27 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def report(prof, n, wall, what, label, top):
+    """Device ms, busy share and the top kernels of a profile over n units
+    of work that took `wall` seconds each unprofiled."""
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.key_averages():
+        by_name[e.key][0] += e.self_device_time_total / 1e3 / n
+        by_name[e.key][1] += e.count / n
+    device = sum(ms for ms, _ in by_name.values())
+    print(f"{what}: {wall:.4f} s/{label} wall, {device:.2f} ms/{label} device, busy "
+          f"{100 * device / (1e3 * wall):.1f} %")
+    for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ms:9.3f} ms/{label}  {cnt:8.1f} launches/{label}  {name[:90]}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--backends", nargs="+", default=["kernel", "uni"])
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--grad256", action="store_true")
+    ap.add_argument("--host-ab", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -53,15 +76,50 @@ def main():
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 run(args.steps)
                 torch.cuda.synchronize()
-        by_name = defaultdict(lambda: [0.0, 0])
-        for e in prof.key_averages():
-            by_name[e.key][0] += e.self_device_time_total / 1e3 / args.steps
-            by_name[e.key][1] += e.count / args.steps
-        device = sum(ms for ms, _ in by_name.values())
-        print(f"{backend}: {wall:.4f} s/step wall, {device:.2f} ms/step device, busy "
-              f"{100 * device / (1e3 * wall):.1f} % [1024^2 P, {args.steps} steps; {card}]")
-        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]:
-            print(f"  {ms:9.3f} ms/step  {n:8.1f} launches/step  {name[:90]}")
+        report(prof, args.steps, wall, f"{backend} [1024^2 P, {args.steps} steps; {card}]", "step",
+               args.top)
+    if args.host_ab:
+        from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+        per_flow = lfk.FKERNEL
+        per_launch = lfk._Leaves(lfk.fvelocity_cuda, lfk.rk4_update_cuda, lfk.fderiv_cuda,
+                                 lfk.p_planes_cuda, True)
+        turns = (("per flow", per_flow), ("per launch", per_launch))
+        try:
+            for label, leaves in (turns + turns[::-1]) * 2:
+                lfk.FKERNEL = leaves
+                run(1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(args.steps)
+                torch.cuda.synchronize()
+                print(f"kernel backend, checks {label}: "
+                      f"{(time.perf_counter() - t0) / args.steps:.4f} s/step wall "
+                      f"[1024^2 P, {args.steps} steps; {card}]")
+        finally:
+            lfk.FKERNEL = per_flow
+    if args.grad256:
+        sim = ct.load_sim(thetapix=3, Nside=256, pol="P", T=np.float32, seed=0)
+        ds = sim["ds"]
+        f = sim["f"].to(sim["f"].basis.with_space("map"))
+        phi = sim["phi"].to(sim["phi"].basis.with_space("map"))
+        m = ct.mix(ds, f=f, phi=phi)
+        f_mix, phi_mix = m["f_mix"].to(f.basis), m["phi_mix"].to(phi.basis)
+        vg = ct.fvalue_and_grad(lambda p: ct.Mixed(ds).logpdf(f_mix=f_mix, phi_mix=p))
+        ngrad = 5
+        with ct.lenseflow_backend_ctx("kernel"):
+            vg(phi_mix)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ngrad):
+                vg(phi_mix)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / ngrad
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(ngrad):
+                    vg(phi_mix)
+                torch.cuda.synchronize()
+        report(prof, ngrad, wall, f"kernel [256^2 P phi-gradient, nsteps 7; {card}]", "gradient",
+               args.top)
     return 0
 
 

@@ -82,39 +82,88 @@ def _card():
         pytest.skip("needs a CUDA card: the flow kernels have no CPU mode")
 
 
+def _p_planes(t, planes):
+    """p(t) planes through the kernel, held against the plain version."""
+    pt = torch.full((2,) + tuple(planes.shape[:-3]) + tuple(planes.shape[-2:]), float("nan"),
+                    device="cuda")
+    ref = torch.empty_like(pt)
+    lfk.p_planes_cuda(t, planes, pt)
+    lfk.p_planes_plain(t, planes, ref)
+    assert rel(pt, ref) < 1e-6
+    return pt
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 17])
 @pytest.mark.parametrize("N", [512, 1024])
-def test_factored_kernels_match_plain_on_card(N):
+def test_factored_kernels_match_plain_on_card(N, nb):
     """K1 (lf_fderiv, x and y), K3 (lf_fa_velocity, both roles) and K4
-    (lf_bv_velocity) against their plain versions, one launch each, on a
-    batch of two."""
+    (lf_bv_velocity) on the 64 x 32 tile at radix 4 (512^2) and 8 (1024^2)
+    against their plain versions, one launch each, at batch 1 and on the
+    line search's batch of 17, every batch entry with its own phi and
+    held to the bound on its own."""
     _card()
     tp = ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda")
     ops = tderiv.deriv_ops(tp)
     assert isinstance(ops, tfd.FactoredOps) and ops.FX.shape[0] == N // 128
+    assert torch.equal(ops.FYT, ops.FY.transpose(-1, -2))
     phi, _, _ = _weak_lensing(N=N)
     planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), ops)
-    planes = torch.stack([planes, 0.5 * planes])
+    planes = torch.stack([planes * (1 - 0.05 * i) for i in range(nb)])
     g = torch.Generator(device="cuda").manual_seed(0)
     T = lambda *s: torch.randn(s, generator=g, device="cuda")
-    a, b, c = T(2, 1, N, N), T(2, 1, N, N), T(2, 1, N, N)
+    each = lambda x, y: max(rel(x[i], y[i]) for i in range(nb))
+    a, b, c = T(nb, 1, N, N), T(nb, 1, N, N), T(nb, 1, N, N)
     for args in ((a, None, None), (None, b, None), (a, b, c)):
-        o1, o2 = torch.empty_like(a), torch.empty_like(a)
+        o1, o2 = torch.full_like(a, float("nan")), torch.empty_like(a)
         lfk.fderiv_cuda(*args, o1, ops)
         lfk.fderiv_plain(*args, o2, ops)
-        assert rel(o1, o2) < TOL
-    y = T(2, 2, N, N)
+        assert each(o1, o2) < TOL
+    y = T(nb, 2, N, N)
+    pt = _p_planes(0.3, planes)
     for kind in ("forward", "adjoint"):
-        k1, k2 = torch.empty_like(y), torch.empty_like(y)
-        lfk.fvelocity_cuda(kind, y, k1, planes, ops, 2, 0.3)
-        lfk.fvelocity_plain(kind, y, k2, planes, ops, 2, 0.3)
-        assert rel(k1, k2) < TOL
-    yb = torch.cat([T(2, 4, N, N), 1e-3 * T(2, lfk.NACC, N, N)], dim=1)
-    k1, k2 = torch.empty_like(yb), torch.empty_like(yb)
-    lfk.fvelocity_cuda("backward", yb, k1, planes, ops, 2, 0.7)
-    lfk.fvelocity_plain("backward", yb, k2, planes, ops, 2, 0.7)
+        k1, k2 = torch.full_like(y, float("nan")), torch.empty_like(y)
+        lfk.fvelocity_cuda(kind, y, k1, planes, pt, ops, 2, 0.3)
+        lfk.fvelocity_plain(kind, y, k2, planes, pt, ops, 2, 0.3)
+        assert each(k1, k2) < TOL
+    yb = torch.cat([T(nb, 4, N, N), 1e-3 * T(nb, lfk.NACC, N, N)], dim=1)
+    pt = _p_planes(0.7, planes)
+    k1, k2 = torch.full_like(yb, float("nan")), torch.empty_like(yb)
+    lfk.fvelocity_cuda("backward", yb, k1, planes, pt, ops, 2, 0.7)
+    lfk.fvelocity_plain("backward", yb, k2, planes, pt, ops, 2, 0.7)
     for i in range(yb.shape[1]):
-        assert rel(k1[:, i], k2[:, i]) < TOL
+        assert each(k1[:, i], k2[:, i]) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 256])
+def test_dense_kernels_match_plain_on_card(N):
+    """The register-tiled dense product of csrc/lenseflow.cu: lf_deriv with
+    every combination of operands and lf_velocity of the three kinds (two
+    and three components) against their plain versions, each plane held to
+    the bound on its own."""
+    _card()
+    tp = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device="cuda")
+    mats = tderiv.deriv_mats(tp)
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), mats)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    T = lambda *s: torch.randn(s, generator=g, device="cuda")
+    a, b, c = T(3, N, N), T(3, N, N), T(3, N, N)
+    for args in ((a, None, None), (None, b, None), (a, b, None), (a, b, c)):
+        o1, o2 = torch.full_like(a, float("nan")), torch.empty_like(a)
+        lfk.deriv_cuda(*args, o1, mats)
+        lfk.deriv_plain(*args, o2, mats)
+        assert rel(o1, o2) < TOL
+    pt = _p_planes(0.4, planes)
+    for kind, ncomp in (("forward", 2), ("adjoint", 2), ("forward", 3), ("backward", 2)):
+        ns = 2 * ncomp + lfk.NACC if kind == "backward" else ncomp
+        y = T(ns, N, N)
+        k1, k2 = torch.full_like(y, float("nan")), torch.empty_like(y)
+        lfk.velocity_cuda(kind, y, k1, planes, pt, mats, ncomp, 0.4)
+        lfk.velocity_plain(kind, y, k2, planes, pt, mats, ncomp, 0.4)
+        for i in range(ns):
+            assert rel(k1[i], k2[i]) < TOL, (kind, i)
 
 
 @pytest.mark.cuda
