@@ -21,13 +21,27 @@ port's two paths through the kernel backend:
               and 17 against its plain version, the uni flows against
               their plain versions and the K3/K4 flows, the phi-gradient
               against the kernel backend, and MAP_joint as in phase 7.
+  phase 9     the 'high' tier at 1024^2 P (bf16 head/residual split on the
+              tensor cores): K1, K3 (batch 1 and 17) and K4 against their
+              plain 'high' versions and the strict kernels, the 'high'
+              flows, the phi-gradient under precision_ctx("high") against
+              the strict one, argmaxf_logpdf at the JAX default CG and
+              "auto" against strict, and MAP_joint as scripts/map_1024.py
+              runs it at its default precision "auto".
+
+Phases 7 and 8 measure the strict north star (precision=None); phases
+2-6 run at the global precision 'f32'.
 
 Each path's launch counters are set to 0 just before it and read just
 after. A kernel's time is device time: its launches captured into a CUDA
 graph and the replay timed by CUDA events (the host's launch cost, about
 0.04 ms a call, would hide a shorter kernel), and so is the library
-call's; plain versions and whole flows, gradients and steps are timed as
-they run. Exits non-zero, printing no result line, when there is no CUDA
+call's. Phase 9's kernels (both tiers, and the library call) and phase
+5's p(t) and RK4 update are timed cold: the replay goes round copies of
+their buffers that together hold twice the L2, so that what a launch
+reads comes from HBM (cold_ms); the other kernels are replayed on one
+set of buffers, which the L2 holds where they fit in it. Plain versions
+and whole flows, gradients and steps are timed as they run. Exits non-zero, printing no result line, when there is no CUDA
 card or any phase fails.
 
 The last two lines of stdout are the per-kernel JSON record and
@@ -36,7 +50,10 @@ line before them. Each kernel's record holds its time, its plain
 version's, the time of one PyTorch call computing the same function
 where there is one (strict FP32 `a @ DxT` for a derivative pass), and
 its bound: the larger of its derivative FLOPs over the card's FP32 peak
-and the bytes it must move over its memory rate.
+and the bytes it must move over its memory rate; for a 'high' kernel the
+larger of its three bf16 products' FLOPs over the bf16 tensor-core peak
+plus its FP32 work (butterflies, split) over the FP32 peak, and its
+bytes over the memory rate.
 """
 import json
 import os
@@ -80,13 +97,47 @@ UNI_KERNELS = ("uni_role0", "uni_role1", "uni_role2", "uni_role3", "fderiv", "rk
 # the hoisted one and a float64 evaluation: one more summation order over
 # 4 nsteps stages of 6 derivatives
 DPHI_UNHOISTED_TOL = 1e-4
-# H100 SXM data sheet: FP32 outside the tensor cores, HBM3
-FP32_PEAK, HBM_RATE = 67e12, 3.35e12
+# H100 SXM data sheet: FP32 outside the tensor cores, dense bf16 on them, HBM3;
+# its L2 cache
+FP32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
+L2_BYTES = 50 * 2 ** 20
+# a 'high' kernel against its plain 'high' version: the same split of the
+# same FP32 values, but a butterflied channel value one ulp apart between
+# the two summation orders may round its bf16 head the other way, moving
+# its residual's rounding by ~2^-17 of the value; against the strict
+# kernel, the split's operator error (~2^-17 per product term, summed)
+HIGH_TOL, HIGH_VS_STRICT = 2e-5, 1e-3
+# ... and what tells a 'high' kernel from a strict one, or from a split
+# rounded otherwise than to nearest even: per plane in relative Frobenius
+# norm, its distance to the plain 'high' version over its distance to the
+# strict kernel. The two 'high' forms differ only where a channel value's
+# residual rounds the other way (about one value in 128 of those whose
+# butterfly sums differ by an ulp), while the split's own error touches
+# every value: on the CPU a butterfly summed in another order gives 0.09
+# (512^2) and 0.14 (1024^2), a truncating split 1.05, a split without the
+# operand's residual 1.00, strict FP32 infinity
+# (tests/test_torch_high.py::test_split_ratio_tells_the_rne_split_apart)
+HIGH_SPLIT_RATIO = 0.5
+# a whole flow adds the RK4 sums' FP32 reassociation to both distances, so
+# its ratio lies nearer 1; held only to be nearer its plain 'high' version
+# than the strict flow (a flow on strict kernels gives infinity)
+FLOW_SPLIT_RATIO = 1.0
+# f of the 'high' Wiener filter against the strict one, in norm: the
+# inexact-Krylov bound of tests/test_inference.py:267
+WF_HIGH_TOL = 1e-3
+HIGH_KERNELS = ("fderiv_high", "fa_velocity_forward_high", "fa_velocity_adjoint_high",
+                "bv_velocity_high")
 FA = 128               # the factored derivative's block size (ops/deriv.py::FACTOR_A)
 
 
 def rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
+
+
+def fro(a, b):
+    """|a - b| / |b| in Frobenius norm, in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
 
 
 def cuda_ms(fn, reps, torch, graph=False):
@@ -122,6 +173,20 @@ def kernel_ms(fn, reps, torch):
     return cuda_ms(fn, reps, torch, graph=True)
 
 
+def cold_ms(fn, args, reps, torch):
+    """Device milliseconds of fn(*args) with its tensors read from HBM, not
+    the L2: the replayed launches go round copies of args' tensors that
+    together hold at least twice the L2, so that no launch finds what it
+    reads left in the L2 by the launches before it, as a replay on one set
+    of buffers does for a working set below the L2's 50 MB."""
+    import math
+    nbytes = sum(x.numel() * x.element_size() for x in args if torch.is_tensor(x))
+    sets = [args] + [tuple(x.clone() if torch.is_tensor(x) else x for x in args)
+                     for _ in range(math.ceil(2 * L2_BYTES / nbytes) - 1)]
+    nxt = iter(range(1 << 30))
+    return kernel_ms(lambda: fn(*sets[next(nxt) % len(sets)]), reps, torch)
+
+
 def bound(flops, planes, N, extra_floats=0):
     """bound_ms and bound_by of a function doing `flops` FP32 operations
     and moving `planes` N x N float32 planes plus `extra_floats` floats
@@ -144,6 +209,22 @@ def fact_deriv_flops(N, B=None):
     return 2 * (2 * B - 2) * FA * FA * N + 2 * 2 * B * N * N
 
 
+def bound_high(N, nder, planes, nb=1, axes=2):
+    """bound_ms and bound_by of nb entries of nder 'high' factored
+    derivatives each (csrc/fact_tile.cuh, HIGH): three bf16 products per
+    block product on the tensor cores, and in FP32 the two butterflies
+    (B FMA a pixel each) and the split (three operations a channel value);
+    bytes: `planes` N x N float32 planes per entry, and the split blocks
+    ([head, residual] bf16) and butterflies of the `axes` axes it
+    differentiates along."""
+    B = N // FA
+    prod = nb * nder * 2 * (2 * B - 2) * FA * FA * N
+    fp32 = nb * nder * (2 * 2 * B + 3) * N * N
+    t_op = 3 * prod / BF16_PEAK + fp32 / FP32_PEAK
+    t_mem = (4 * nb * planes * N * N + axes * (2 * 2 * B * FA * FA + 4 * 2 * B * B)) / HBM_RATE
+    return dict(bound_ms=1e3 * max(t_op, t_mem), bound_by="operations" if t_op >= t_mem else "bytes")
+
+
 def fact_op_floats(N):
     """The factored operands' floats: (B, A, A) blocks and (2, B, B)
     butterflies per axis."""
@@ -151,12 +232,15 @@ def fact_op_floats(N):
     return 2 * (B * FA * FA + 2 * B * B)
 
 
-def matmul_ms(a, b, torch, reps=20):
+def matmul_ms(a, b, torch, reps=20, cold=False):
     """The library call for a derivative pass: strict FP32 `a @ b` (no
-    TF32; a @ DxT along x, Dy @ b along y), one cuBLAS call."""
+    TF32; a @ DxT along x, Dy @ b along y), one cuBLAS call; `cold` as
+    cold_ms."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
+        if cold:
+            return cold_ms(lambda x, y: x @ y, (a, b), reps, torch)
         return kernel_ms(lambda: a @ b, reps, torch)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
@@ -363,8 +447,8 @@ def phase_factored(torch, card):
     from cmblensing_tpu_torch.ops import deriv, factored_deriv, lenseflow_kernels as lfk
     proj = ct.ProjLambert(N_MAP, N_MAP, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE)
     ops = deriv.deriv_ops(proj)
-    if not isinstance(ops, factored_deriv.FactoredOps) or ops.FX.shape[0] != N_MAP // 128:
-        raise AssertionError(f"deriv_ops gives no radix-{N_MAP // 128} factored operands")
+    if not isinstance(ops, factored_deriv.FactoredOps) or ops.FX.shape[0] != N_MAP // FA:
+        raise AssertionError(f"deriv_ops gives no radix-{N_MAP // FA} factored operands")
     phi_map, f, dy = weak_lensing_inputs(proj, torch)
     phi = lfk.gradhess(phi_map, ops)
     phi_plain = lfk.gradhess_plain(phi_map, ops)
@@ -375,12 +459,15 @@ def phase_factored(torch, card):
     phi1, y = phi[None], f[None].contiguous()
     out = {}
 
-    def check(name, run_k, run_p, result, reps=10):
+    def check(name, run_k, run_p, result, reps=10, cold=None):
+        """cold: (fn, args) of run_k, to time it as cold_ms does."""
         run_k()
         run_p()
         k, p = result()
         out[name] = dict(max_abs_err=float((k - p).abs().max()), rel=rel(k, p),
-                         ms=kernel_ms(run_k, reps, torch), plain_ms=cuda_ms(run_p, reps, torch))
+                         ms=kernel_ms(run_k, reps, torch) if cold is None
+                         else cold_ms(*cold, reps, torch),
+                         plain_ms=cuda_ms(run_p, reps, torch))
 
     a, b, c = f[0:1].contiguous(), f[1:2].contiguous(), dy[0:1].contiguous()
     o1, o2 = torch.empty_like(a), torch.empty_like(a)
@@ -400,9 +487,30 @@ def phase_factored(torch, card):
                                                   fact_op_floats(N_MAP)))
     t = 0.5
     pt1, pt1p = (torch.empty((2, 1, N_MAP, N_MAP), device=DEVICE) for _ in range(2))
+    # p(t) and the RK4 update are bound by bytes and their working sets fit
+    # the L2: timed cold, as the flows' stages meet them
     check("p_planes", lambda: lfk.p_planes_cuda(t, phi1, pt1),
-          lambda: lfk.p_planes_plain(t, phi1, pt1p), lambda: (pt1, pt1p))
+          lambda: lfk.p_planes_plain(t, phi1, pt1p), lambda: (pt1, pt1p),
+          cold=(lambda ph, o: lfk.p_planes_cuda(t, ph, o), (phi1, pt1)))
     out["p_planes"].update(library_ms=None, **bound(25 * N_MAP * N_MAP, 7, N_MAP))
+    # the RK4 update on a K3 flow's state (stage 1: y, k, acc in; acc, s out)
+    yy, kk, acc, st = (torch.randn_like(y) for _ in range(4))
+    res = []
+    for fn in (lfk.rk4_update_cuda, lfk.rk4_update_plain):
+        a2, s2, y2 = acc.clone(), st.clone(), yy.clone()
+        for stage, (wa, ws) in enumerate(((1 / 42, 1 / 14), (1 / 21, 1 / 14), (1 / 21, 1 / 7),
+                                          (1 / 42, 0.0))):
+            fn(y2, kk, a2, s2, stage, wa, ws)
+        res.append(torch.cat([y2, a2, s2]))
+    out["rk4_update"] = dict(max_abs_err=float((res[0] - res[1]).abs().max()),
+                             rel=rel(res[0], res[1]),
+                             ms=cold_ms(lambda *a: lfk.rk4_update_cuda(*a, 1, 1 / 21, 1 / 14),
+                                        (yy, kk, acc, st), 10, torch),
+                             plain_ms=cuda_ms(lambda: lfk.rk4_update_plain(yy, kk, acc, st, 1,
+                                                                           1 / 21, 1 / 14), 10,
+                                              torch),
+                             library_ms=None, **bound(4 * 2 * N_MAP * N_MAP, 5 * 2, N_MAP))
+    del yy, kk, acc, st, res
     k1, k2 = torch.empty_like(y), torch.empty_like(y)
     for kind in ("forward", "adjoint"):
         check("fa_velocity_" + kind,
@@ -524,22 +632,23 @@ def phase_map_gradient(torch, card):
           f"{res['kernel'][2]:.3f} ms plain {res['plain'][2]:.3f} ms [{N_MAP}^2 P; {card}]")
     if not (torch.isfinite(res["kernel"][1].arr).all() and gerr < GRAD_TOL_1024):
         raise AssertionError(f"1024^2 kernel gradient disagrees with the plain backend: {gerr}")
-    return (dict(sim=sim, vg=vg, phi_mix=phi_mix, grad=res["kernel"][1]), res["kernel"][2],
-            res["plain"][2])
+    return (dict(sim=sim, vg=vg, phi_mix=phi_mix, grad=res["kernel"][1], grad_ms=res["kernel"][2]),
+            res["kernel"][2], res["plain"][2])
 
 
-def run_map(torch, sim, phase, label, card):
+def run_map(torch, sim, phase, label, card, precision=None):
     """MAP_joint at 1024^2 P as scripts/map_1024.py runs it, on the current
-    LenseFlow backend: MAP_WARM warm-up steps, then MAP_STEPS timed with
-    the launch counters and timers set to 0 just before and read just
-    after. Checks a finite, never-decreasing logpdf, a first step taken
-    and corr(phi_MAP, phi_true); returns (launches, s/step, history)."""
+    LenseFlow backend at `precision` (None: strict everywhere): MAP_WARM
+    warm-up steps, then MAP_STEPS timed with the launch counters and timers
+    set to 0 just before and read just after. Checks a finite,
+    never-decreasing logpdf, a first step taken and corr(phi_MAP,
+    phi_true); returns (launches, s/step, history)."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
     from cmblensing_tpu_torch.utils import timing
-    keys = ("logpdf", "alpha", "cg_iters", "cg_res", "gradnorm")
+    keys = ("logpdf", "alpha", "cg_iters", "cg_res", "gradnorm", "precision_fallback", "retry")
     run = lambda n: ct.MAP_joint(sim["ds"], nsteps=n, linesearch="grid", conjgrad_kwargs=MAP_CG,
-                                 history_keys=keys)
+                                 history_keys=keys, precision=precision)
     t0 = time.perf_counter()
     run(MAP_WARM)
     torch.cuda.synchronize()
@@ -566,6 +675,9 @@ def run_map(torch, sim, phase, label, card):
     print(f"phase {phase}: alphas {alphas!r}; CG iters {[h['cg_iters'] for h in hist]}; "
           f"CG res {[float(h['cg_res']) for h in hist]!r}")
     print(f"phase {phase}: gradnorm {[float(h['gradnorm']) for h in hist]!r}")
+    print(f"phase {phase}: precision {precision!r}: f-steps re-run strict (precision_fallback) "
+          f"{[h['precision_fallback'] for h in hist]}; direction retries "
+          f"{[h['retry'] for h in hist]}")
     print(f"phase {phase}: corr(phi_MAP, phi_true) = {corr:.4f} (bound >= {CORR_MIN:g})")
     print(f"phase {phase}: launches in the MAP_joint run: {launches}; per step "
           f"{ {k: v / MAP_STEPS for k, v in launches.items() if v} }")
@@ -589,12 +701,14 @@ def phase_map(torch, sim, card):
     launches, s_step, hist = run_map(torch, sim, 7, "kernel", card)
     with ct.lenseflow_backend_ctx("plain"):
         t1 = time.perf_counter()
-        ct.MAP_joint(sim["ds"], nsteps=1, linesearch="grid", conjgrad_kwargs=MAP_CG)
+        ct.MAP_joint(sim["ds"], nsteps=1, linesearch="grid", conjgrad_kwargs=MAP_CG, precision=None)
         torch.cuda.synchronize()
         plain_step = time.perf_counter() - t1
     print(f"phase 7: plain backend {plain_step:.3f} s/step (1 step) [{card}]")
     if min(launches[k] for k in FACTORED_KERNELS) <= 0:
         raise AssertionError(f"a factored kernel never launched in MAP_joint: {launches}")
+    if any(launches[k] for k in HIGH_KERNELS):
+        raise AssertionError(f"a 'high' kernel launched in the strict MAP_joint: {launches}")
     return launches, s_step, plain_step, hist
 
 
@@ -728,6 +842,207 @@ def phase_uni(torch, card, fctx, gctx):
     return {f"uni_role{r}": d for r, d in one.items()}, launches, grad_ms, s_step
 
 
+def split_ratio(high, plain, strict):
+    """Relative Frobenius distances of a 'high' result, plane by plane
+    (leading axes flattened): to its plain 'high' version (largest), to
+    the strict result (least), and the largest ratio of the two."""
+    trip = list(zip(*(x.reshape(-1, *x.shape[-2:]) for x in (high, plain, strict))))
+    return dict(fro=max(fro(h, q) for h, q, _ in trip),
+                fro_strict=min(fro(h, st) for h, _, st in trip),
+                split_ratio=max(fro(h, q) / fro(h, st) for h, q, st in trip))
+
+
+def phase_high(torch, card, fctx, gctx):
+    """The 'high' tier at 1024^2 P: (a) K1, K3 (batch 1 and NTRIAL) and K4
+    against their plain 'high' versions (HIGH_TOL, every output plane of
+    every entry on its own) and the strict kernels (HIGH_VS_STRICT), with
+    device ms beside the strict kernel's and the 'high' bound; (b) the
+    'high' flows against their plain 'high' versions and the strict flows;
+    (c) the phi-gradient under precision_ctx("high") against the strict
+    one; (d) argmaxf_logpdf with the JAX default CG at "auto" against
+    strict; (e) MAP_joint as scripts/map_1024.py runs it, at its default
+    precision "auto"."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    ops, phi, f, dy = (fctx[k] for k in ("ops", "phi", "f", "dy"))
+    t, nan = 0.5, float("nan")
+    planes_of = lambda x: x.reshape(-1, N_MAP, N_MAP)
+    out = {}
+
+    def check(name, args, shape, kernel, plain, nder, planes, nb=1, axes=2, reps=10):
+        """kernel(o, precision, *args) at 'high' against plain(o, *args)
+        and at 'f32', every output plane on its own: rel max-abs, and
+        relative Frobenius distance to plain 'high' over that to strict.
+        Both tiers are timed cold (cold_ms)."""
+        oh, op, ost = (torch.full(shape, nan, device=DEVICE) for _ in range(3))
+        kernel(oh, "high", *args)
+        plain(op, *args)
+        kernel(ost, "f32", *args)
+        torch.cuda.synchronize()
+        trip = list(zip(planes_of(oh), planes_of(op), planes_of(ost)))
+        out[name] = dict(
+            nb=nb, max_abs_err=float((oh - op).abs().max()),
+            rel=max(rel(h, q) for h, q, _ in trip),
+            rel_strict=max(rel(h, st) for h, _, st in trip), **split_ratio(oh, op, ost),
+            ms=cold_ms(lambda *a: kernel(a[0], "high", *a[1:]), (oh, *args), reps, torch),
+            strict_ms=cold_ms(lambda *a: kernel(a[0], "f32", *a[1:]), (ost, *args), reps, torch),
+            plain_ms=cuda_ms(lambda: plain(op, *args), 3, torch), library_ms=None,
+            **bound_high(N_MAP, nder, planes, nb, axes))
+
+    # single derivatives: a plane in, a plane out, one axis' operands;
+    # d_x a + d_y b + c: three in, one out, both axes
+    a, b, c = f[0:1].contiguous(), f[1:2].contiguous(), dy[0:1].contiguous()
+    for name, args, nder, planes, axes in (("fderiv_x", (a, None, None), 1, 2, 1),
+                                           ("fderiv_y", (None, b, None), 1, 2, 1),
+                                           ("fderiv", (a, b, c), 2, 4, 2)):
+        check(name, args, a.shape, lambda o, p, *x: lfk.fderiv_cuda(*x, o, ops, p),
+              lambda o, *x: lfk.fderiv_plain(*x, o, ops, "high"), nder, planes, axes=axes)
+    DxT, _ = deriv.deriv_mats(ct.ProjLambert(N_MAP, N_MAP, thetapix=THETAPIX_MAP, T=np.float32,
+                                             device=DEVICE))
+    out["fderiv_x"]["library_ms"] = matmul_ms(a[0], DxT, torch, cold=True)
+    phi1, y = phi[None], f[None].contiguous()
+    pt1 = torch.empty((2, 1, N_MAP, N_MAP), device=DEVICE)
+    lfk.p_planes_cuda(t, phi1, pt1)
+    for kind in ("forward", "adjoint"):
+        check("fa_velocity_" + kind, (y, phi1, pt1), y.shape,
+              lambda o, p, y_, ph, pt: lfk.fvelocity_cuda(kind, y_, o, ph, pt, ops, 2, t, p),
+              lambda o, y_, ph, pt: lfk.fvelocity_plain(kind, y_, o, ph, pt, ops, 2, t, "high"),
+              4, 6)
+    acc = 1e-3 * torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
+        (1, lfk.NACC, N_MAP, N_MAP)).astype(np.float32), device=DEVICE)
+    yb = torch.cat([f[None], dy[None], acc], dim=1)
+    check("bv_velocity", (yb, phi1, pt1), yb.shape,
+          lambda o, p, y_, ph, pt: lfk.fvelocity_cuda("backward", y_, o, ph, pt, ops, 2, t, p),
+          lambda o, y_, ph, pt: lfk.fvelocity_plain("backward", y_, o, ph, pt, ops, 2, t, "high"),
+          8, 25)
+    # the line search's batch shape (the 17 trials run strict in MAP_joint,
+    # but the kernels take any batch)
+    scales = torch.linspace(0.1, 2.0, NTRIAL, device=DEVICE).reshape(-1, 1, 1, 1)
+    phis = (scales * phi).contiguous()
+    ys = torch.stack([torch.roll(f, 7 * i, dims=-1) for i in range(NTRIAL)])
+    pts = torch.empty((2, NTRIAL, N_MAP, N_MAP), device=DEVICE)
+    lfk.p_planes_cuda(t, phis, pts)
+    for kind in ("forward", "adjoint"):
+        check(f"fa_velocity_{kind}[{NTRIAL}]", (ys, phis, pts), ys.shape,
+              lambda o, p, y_, ph, pt: lfk.fvelocity_cuda(kind, y_, o, ph, pt, ops, 2, t, p),
+              lambda o, y_, ph, pt: lfk.fvelocity_plain(kind, y_, o, ph, pt, ops, 2, t, "high"),
+              4, 6, nb=NTRIAL, reps=5)
+    del ys, pts, phis
+    for name, d in out.items():
+        print(f"phase 9: 'high' kernel {name:24s} vs plain 'high' {d['rel']:.3e} (bound "
+              f"{HIGH_TOL:g}, each plane)  vs strict {d['rel_strict']:.3e} (bound "
+              f"{HIGH_VS_STRICT:g}); Frobenius vs plain 'high' {d['fro']:.3e}, vs strict "
+              f"{d['fro_strict']:.3e} (least), ratio {d['split_ratio']:.3f} (bound "
+              f"{HIGH_SPLIT_RATIO:g}, each plane)  {d['ms']:.4f} ms  strict {d['strict_ms']:.4f} "
+              f"ms (both cold)  plain {d['plain_ms']:.4f} ms  'high' bound {d['bound_ms']:.4f} ms "
+              f"({d['bound_by']}, {100 * d['bound_ms'] / d['ms']:.1f} %)  [{N_MAP}^2; {card}]")
+
+    # (b) whole flows at 'high' on phase 5's inputs
+    flows = {}
+    for name, (t0, t1, kind) in (("L", (0., 1., "forward")), ("L^-1", (1., 0., "forward")),
+                                 ("L^H", (1., 0., "adjoint"))):
+        run = lambda fn, p="high": fn(f, phi, ops, t0, t1, NSTEPS, kind, p)
+        kv, pv = run(lfk.flow_apply), run(lfk.flow_apply_plain)
+        flows[name] = dict(rel=rel(kv, pv), strict=rel(kv, fctx["flows"][name]),
+                           **split_ratio(kv, pv, fctx["flows"][name]),
+                           ms=cuda_ms(lambda: run(lfk.flow_apply), 3, torch),
+                           strict_ms=cuda_ms(lambda: run(lfk.flow_apply, "f32"), 3, torch))
+    bwd = lambda fn, p="high": fn(dy, f, phi, ops, 0., 1., NSTEPS, p)
+    (dphi_k, df0_k), (dphi_p, df0_p) = bwd(lfk.flow_bwd), bwd(lfk.flow_bwd_plain)
+    bwd_ms = cuda_ms(lambda: bwd(lfk.flow_bwd), 3, torch)
+    bwd_strict_ms = cuda_ms(lambda: bwd(lfk.flow_bwd, "f32"), 3, torch)
+    flows["backward df0"] = dict(rel=rel(df0_k, df0_p), strict=rel(df0_k, fctx["flows"]["df0"]),
+                                 **split_ratio(df0_k, df0_p, fctx["flows"]["df0"]),
+                                 ms=bwd_ms, strict_ms=bwd_strict_ms)
+    flows["backward dphi"] = dict(rel=rel(dphi_k, dphi_p),
+                                  strict=rel(dphi_k, fctx["flows"]["dphi"]),
+                                  **split_ratio(dphi_k, dphi_p, fctx["flows"]["dphi"]), ms=bwd_ms,
+                                  strict_ms=bwd_strict_ms)
+    # grad/Hess phi at 'high': the derivatives of a Cphi-drawn phi are small
+    # against the operand whose split rounding they inherit, and the Hessian
+    # planes differentiate it once more, so only the Frobenius ratio is held
+    gh, ghp = (fn(fctx["phi_map"], ops, "high") for fn in (lfk.gradhess, lfk.gradhess_plain))
+    gh_ratio = split_ratio(gh, ghp, phi)
+    print(f"phase 9: 'high' gradhess vs plain 'high', per plane (gx, gy, hxx, hxy, hyy): "
+          f"{[f'{rel(gh[i], ghp[i]):.3e}' for i in range(5)]}; vs strict "
+          f"{[f'{rel(gh[i], phi[i]):.3e}' for i in range(5)]}; Frobenius ratio "
+          f"{gh_ratio['split_ratio']:.3f} (bound {HIGH_SPLIT_RATIO:g}, each plane)")
+    for name, d in flows.items():
+        print(f"phase 9: 'high' flow {name:14s} vs plain 'high' {d['rel']:.3e} (bound "
+              f"{HIGH_TOL:g})  vs strict {d['strict']:.3e}; Frobenius vs plain 'high' "
+              f"{d['fro']:.3e}, vs strict {d['fro_strict']:.3e}, ratio {d['split_ratio']:.3f} "
+              f"(bound {FLOW_SPLIT_RATIO:g})  {d['ms']:.3f} ms  strict {d['strict_ms']:.3f} ms  "
+              f"[{N_MAP}^2 P, nsteps={NSTEPS}; {card}]")
+
+    # (c) the phi-gradient at 'high' against the strict one (phase 6)
+    with ct.lenseflow_backend_ctx("kernel"), deriv.precision_ctx("high"):
+        _, g = gctx["vg"](gctx["phi_mix"])
+        grad_ms = cuda_ms(lambda: gctx["vg"](gctx["phi_mix"]), 3, torch)
+    gs = gctx["grad"].arr
+    gerr = rel(g.arr, gs)
+    cos = float((g.arr.double() * gs.double()).sum() / (g.arr.double().norm() * gs.double().norm()))
+    print(f"phase 9: gradlnP 'high' vs strict: rel max-abs {gerr:.3e}, cosine {cos:.9f}; "
+          f"{grad_ms:.3f} ms ('f32' {gctx['grad_ms']:.3f} ms) [{N_MAP}^2 P; {card}]")
+
+    # (d) the Wiener filter at the JAX default CG (tol 0.1, up to 500 iterations)
+    sim = gctx["sim"]
+    wf = {}
+    for hp in ("auto", None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fw, info = ct.argmaxf_logpdf(sim["ds"], phi=sim["phi"],
+                                     conjgrad_kwargs=dict(hessian_precision=hp))
+        torch.cuda.synchronize()
+        wf[hp] = (fw, info, 1e3 * (time.perf_counter() - t0))
+    fa_, fs_ = wf["auto"][0].arr, wf[None][0].to(wf["auto"][0].basis).arr
+    wf_err = float((fa_ - fs_).norm() / fs_.norm())
+    ia = wf["auto"][1]
+    # the 'high' solve's own check, which a fallback's info no longer holds
+    from cmblensing_tpu_torch.inference.maximization import _argmaxf_core
+    with torch.no_grad():
+        _, ih = _argmaxf_core(sim["ds"], {}, sim["phi"], sim["ds"].d, None, False, "high",
+                              tol=1e-1, nsteps=500)
+    print(f"phase 9: the 'high' solve's check: {ih['iterations']} iterations, res "
+          f"{float(ih['res']):.4e} (its own operator), res_strict {float(ih['res_strict']):.4e} "
+          f"against max(tol 0.1, 1e-10 res0), res0 {float(ih['res0']):.4e}")
+    print(f"phase 9: argmaxf_logpdf (tol 0.1, nsteps 500) \"auto\": {ia['iterations']} iterations, "
+          f"precision_ok {bool(ia.get('precision_ok', False))}, precision_fallback "
+          f"{bool(ia.get('precision_fallback', False))}, {wf['auto'][2]:.1f} ms; strict: "
+          f"{wf[None][1]['iterations']} iterations, {wf[None][2]:.1f} ms; |f_auto - f_strict| / "
+          f"|f_strict| = {wf_err:.3e} (bound {WF_HIGH_TOL:g}) [{N_MAP}^2 P; {card}]")
+
+    bad = {k: d["rel"] for k, d in out.items() if not d["rel"] < HIGH_TOL}
+    bad.update({k + " vs strict": d["rel_strict"] for k, d in out.items()
+                if not d["rel_strict"] < HIGH_VS_STRICT})
+    bad.update({"flow " + k: d["rel"] for k, d in flows.items() if not d["rel"] < HIGH_TOL})
+    bad.update({k + " Frobenius ratio": d["split_ratio"]
+                for k, d in [*out.items(), ("gradhess", gh_ratio)]
+                if not d["split_ratio"] < HIGH_SPLIT_RATIO})
+    bad.update({"flow " + k + " Frobenius ratio": d["split_ratio"] for k, d in flows.items()
+                if not d["split_ratio"] < FLOW_SPLIT_RATIO})
+    if not torch.isfinite(g.arr).all():
+        bad["gradient"] = "not finite"
+    if not wf_err < WF_HIGH_TOL:
+        bad["argmaxf"] = wf_err
+    if bad:
+        raise AssertionError(f"'high' tier disagrees: {bad}")
+
+    # (e) the north star at the JAX default precision "auto"
+    with ct.lenseflow_backend_ctx("kernel"):
+        launches, s_step, hist = run_map(torch, sim, 9, "kernel, precision \"auto\"", card,
+                                         precision="auto")
+    khist = gctx["map_hist"]
+    print(f"phase 9: beside phase 7 (strict): logpdfs {[h['logpdf'] for h in khist]!r}; alphas "
+          f"{[h['alpha'] for h in khist]!r}")
+    print(f"phase 9: f-steps re-run strict {sum(h['precision_fallback'] for h in hist)} of "
+          f"{len(hist)}; direction retries fired {sum(h['retry'] for h in hist)}")
+    if min(launches[k] for k in HIGH_KERNELS) <= 0:
+        raise AssertionError(f"a 'high' kernel never launched in the \"auto\" MAP_joint: {launches}")
+    return out, launches, dict(gradlnP_1024_high=grad_ms, argmaxf_1024_auto_ms=wf["auto"][2],
+                               argmaxf_1024_strict_ms=wf[None][2],
+                               MAP_joint_1024_auto_s_per_step=s_step)
+
+
 def main():
     try:
         import torch
@@ -759,6 +1074,7 @@ def main():
     gctx, grad_ms, grad_plain_ms = phase_map_gradient(torch, card)
     map_launches, s_step, plain_s_step, gctx["map_hist"] = phase_map(torch, gctx["sim"], card)
     ukernels, uni_launches, uni_grad_ms, uni_s_step = phase_uni(torch, card, fctx, gctx)
+    hkernels, high_launches, high_timing = phase_high(torch, card, fctx, gctx)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -767,6 +1083,7 @@ def main():
                 "fa_velocity_adjoint": "cmblensing_tpu/ops/pallas_lenseflow.py:506",
                 "bv_velocity": "cmblensing_tpu/ops/pallas_lenseflow.py:581"}
     replaces.update({f"uni_role{r}": "cmblensing_tpu/ops/pallas_lenseflow.py:734" for r in range(4)})
+    replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:225" for k in HIGH_KERNELS})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entry = lambda name, d, src, n: {
         "name": name, "route": "cuda", "source": src,
@@ -784,10 +1101,17 @@ def main():
                                    ("fa_velocity_adjoint", "fa_velocity_adjoint"),
                                    ("bv_velocity", "bv_velocity"))]
               + [entry(name, d, "cmblensing_tpu_torch/csrc/uni.cu", uni_launches[name])
-                 for name, d in ukernels.items()]}
+                 for name, d in ukernels.items()]
+              + [entry(name, hkernels[key], "cmblensing_tpu_torch/csrc/factored.cu",
+                       high_launches[name])
+                 for name, key in (("fderiv_high", "fderiv_x"),
+                                   ("fa_velocity_forward_high", "fa_velocity_forward"),
+                                   ("fa_velocity_adjoint_high", "fa_velocity_adjoint"),
+                                   ("bv_velocity_high", "bv_velocity"))]}
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),
                    "MAP_joint_1024_s_per_step": (s_step, plain_s_step),
-                   "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step})
+                   "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
+                   **high_timing})
     print("main path ms (kernel, plain):", json.dumps(timing))
     print(card)
     print(json.dumps(record))

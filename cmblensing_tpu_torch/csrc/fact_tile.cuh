@@ -59,8 +59,36 @@
 // A derivative along y needs whole columns and one along x whole rows, so
 // a kernel built on it runs as passes: an x pass that stores and a y pass
 // that accumulates.
+//
+// The 'high' tier (HIGH = true; `_mk_dot('high')`,
+// cmblensing_tpu/ops/pallas_lenseflow.py:225) runs the same tile with
+// the block products on the tensor cores: every operand split into a
+// bf16 head and a bf16 residual, three products per block product
+// (head.head + residual.head + head.residual, the residual.residual term
+// dropped), each bf16 x bf16 product exact and accumulated in FP32 by
+// mma.sync.m16n8k16. The butterflied channel values are split (round to
+// nearest even) as the slab is formed and staged as two bf16 slabs; the
+// blocks arrive split from the host (FactoredOps.FXS / FYTS, [head,
+// residual] x B blocks, transposed as above) by cp.async. A warp owns the
+// same 16 m x 32 pixels of its channel pair as in the FP32 form: one
+// m16 A fragment per block and operand half (ldmatrix.trans from the
+// [k][m] rows), four n8 B fragments per channel and half (ldmatrix.trans
+// from the [k][o] rows), per slab 24 mma (real pair) or 48 (complex pair;
+// -Ai enters as its head and residual with the sign bits flipped, which
+// is exact). The operand rows are padded (72 and 40 bf16) so that the
+// eight 16-byte rows of every ldmatrix phase fall in distinct banks.
+// The inverse butterfly, the stores and the functors are the FP32 form's.
+// What bounds it: not the products (3 x 0.47 GFLOP at 989 TFLOP/s is
+// 1.4 us a 1024^2 derivative) but the bytes (a plane in and out and one
+// axis' split blocks, 2.7 us) and the FP32 work around them. The products
+// no longer dominate a tile, so its other phases (forming and splitting
+// the next slab, the loads, the store), which follow one another within a
+// block, set its time: 0.0246 ms a 1024^2 d_x read from HBM on an NVIDIA
+// H100 80GB HBM3 at 700 W, 11 % of that bound and 74 % of the FP32 form's
+// time (chip_smoke.py phase 9).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -76,19 +104,32 @@ constexpr int NSTAGE = 2;    // slab stages in flight
 constexpr int SUO = TO + 4;  // row stride of a staged channel slab (x-pass stores conflict-free)
 constexpr int SY_Y = TO + 4; // row strides of the accumulators staged for the inverse butterfly
 constexpr int SY_X = TM + 4;
+constexpr int GS_H = TM + 8; // 'high': bf16 row strides of a staged block slab and channel slab
+constexpr int US_H = TO + 8;
 
 enum Axis { AXIS_X = 0, AXIS_Y = 1 };
 
 __host__ __device__ constexpr int tile_threads(int B) { return 16 * B * WPP; }
 // resident blocks an SM asked for: 16 warps
 __host__ __device__ constexpr int tile_min_blocks(int B) { return 512 / tile_threads(B); }
-__host__ __device__ constexpr int stage_floats(int B) { return B * TK * (TM + SUO); }
-__host__ __device__ constexpr int ring_floats(int B) { return NSTAGE * stage_floats(B); }
+// a stage: the slab of the B blocks and of the B channels, FP32; at
+// 'high' each as [head, residual] bf16 slabs (2 bf16 a float)
+__host__ __device__ constexpr int stage_floats(int B, bool high = false) {
+    return high ? B * TK * (GS_H + US_H) : B * TK * (TM + SUO);
+}
+__host__ __device__ constexpr int ring_floats(int B, bool high = false) {
+    return NSTAGE * stage_floats(B, high);
+}
 // the ring (reused for the staged accumulators), then the butterflies
-__host__ __device__ constexpr size_t tile_smem_bytes(int B) { return sizeof(float) * (ring_floats(B) + 2 * B * B); }
+__host__ __device__ constexpr size_t tile_smem_bytes(int B, bool high = false) {
+    return sizeof(float) * (ring_floats(B, high) + 2 * B * B);
+}
+static_assert(ring_floats(4, true) >= 4 * TM * SY_Y && ring_floats(4, true) >= 4 * TO * SY_X &&
+                  ring_floats(8, true) >= 8 * TM * SY_Y && ring_floats(8, true) >= 8 * TO * SY_X,
+              "the 'high' ring holds the staged accumulators");
 __host__ __device__ constexpr int tile_pixels(int B) { return TM * TO / tile_threads(B); }   // per thread at store
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
@@ -131,9 +172,9 @@ __device__ __forceinline__ void tile_origin(int& m0, int& o0) {
     o0 = (AXIS == AXIS_Y ? blockIdx.x : blockIdx.y) * TO;
 }
 
-template <int B>
+template <int B, bool HIGH = false>
 __device__ __forceinline__ void load_butterflies(const float* __restrict__ bf, float* smem) {
-    for (int p = threadIdx.x; p < 2 * B * B; p += tile_threads(B)) smem[ring_floats(B) + p] = bf[p];
+    for (int p = threadIdx.x; p < 2 * B * B; p += tile_threads(B)) smem[ring_floats(B, HIGH) + p] = bf[p];
 }
 
 // (o, kk) of the j-th operand-slab position this thread loads: along the
@@ -185,31 +226,119 @@ __device__ __forceinline__ void slab_fma(const float* __restrict__ gA, const flo
     }
 }
 
-// One output tile of the factored derivative along AXIS (see the header).
-// Gt holds the packed blocks transposed; smem is the block's dynamic
-// shared memory (tile_smem_bytes(B)), its butterflies loaded by
-// load_butterflies. load(q) returns the operand at offset q of the (Ny, Nx)
-// plane (with the caller's prologue); store(q, v) receives the derivative
-// there, at the pixels out_offset names. Every thread of the block must
-// call it.
-template <int B, int AXIS, class Load, class Store>
-__device__ __forceinline__ void fact_tile(const float* __restrict__ Gt, float* smem, int m0,
-                                          int o0, int Nx, Load load, Store store) {
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, each transposed on load;
+// this lane names row (lane % 8) of matrix lane / 8.
+__device__ __forceinline__ void ldsm_x4_t(const __nv_bfloat16* row, unsigned (&r)[4]) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(row)));
+}
+
+// d += a b: a 16 x 16 (row) by 16 x 8 (col) bf16 product, FP32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += (ah + al)(bh + bl) without al bl, as three products of n8 tile j
+// of the B fragments (rows of four registers, two per n8 tile)
+__device__ __forceinline__ void mma_high(float (&d)[4], const unsigned (&ah)[4],
+                                         const unsigned (&al)[4], const unsigned (&bh)[4],
+                                         const unsigned (&bl)[4], int j) {
+    mma_bf16(d, ah, bh[2 * j], bh[2 * j + 1]);
+    mma_bf16(d, al, bh[2 * j], bh[2 * j + 1]);
+    mma_bf16(d, ah, bl[2 * j], bl[2 * j + 1]);
+}
+
+// 'high': one slab (TK = 16, one mma k step) of the block products of one
+// channel pair on the tensor cores, into the warp's 16 m x 32 pixels: the
+// real pair (channels chA, chB against blocks blA, blB) or a complex pair
+// (accA += Ar ur - Ai ui, accB += Ai ur + Ar ui with Ar = blA, Ai = blB,
+// ur = chA, ui = chB). sG and sU are the stage's split slabs [head,
+// residual][c][k][m or o]; accX[j] is n8 tile j in the mma C layout.
+template <int B, bool REAL>
+__device__ __forceinline__ void slab_mma(const __nv_bfloat16* sG, const __nv_bfloat16* sU,
+                                         int blA, int blB, int chA, int chB, int mrow,
+                                         float (&accA)[4][4], float (&accB)[4][4]) {
+    constexpr int GL = B * TK * GS_H, UL = B * TK * US_H;   // head -> residual
+    const int lane = threadIdx.x % 32;
+    // A (m x k) from [k][m] rows: matrices (m 0-7, k 0-7), (m 8-15, k 0-7),
+    // (m 0-7, k 8-15), (m 8-15, k 8-15); B (k x o) from [k][o] rows:
+    // (k 0-7, o 0-7), (k 8-15, o 0-7), (k 0-7, o 8-15), (k 8-15, o 8-15)
+    const int ka = (lane & 7) + (lane >> 4) * 8, ma = ((lane >> 3) & 1) * 8;
+    const int kb = (lane & 7) + ((lane >> 3) & 1) * 8, ob = (lane >> 4) * 8;
+    unsigned aAh[4], aAl[4], aBh[4], aBl[4];
+    const __nv_bfloat16* ga = sG + (blA * TK + ka) * GS_H + mrow + ma;
+    const __nv_bfloat16* gb = sG + (blB * TK + ka) * GS_H + mrow + ma;
+    ldsm_x4_t(ga, aAh);
+    ldsm_x4_t(ga + GL, aAl);
+    ldsm_x4_t(gb, aBh);
+    ldsm_x4_t(gb + GL, aBl);
+    unsigned nBh[4], nBl[4];   // -Ai
+#pragma unroll
+    for (int i = 0; i < 4; ++i) nBh[i] = aBh[i] ^ 0x80008000u, nBl[i] = aBl[i] ^ 0x80008000u;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        unsigned uAh[4], uAl[4], uBh[4], uBl[4];
+        const __nv_bfloat16* ua = sU + (chA * TK + kb) * US_H + 16 * half + ob;
+        const __nv_bfloat16* ub = sU + (chB * TK + kb) * US_H + 16 * half + ob;
+        ldsm_x4_t(ua, uAh);
+        ldsm_x4_t(ua + UL, uAl);
+        ldsm_x4_t(ub, uBh);
+        ldsm_x4_t(ub + UL, uBl);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            float(&dA)[4] = accA[2 * half + j];
+            float(&dB)[4] = accB[2 * half + j];
+            if (REAL) {
+                mma_high(dA, aAh, aAl, uAh, uAl, j);
+                mma_high(dB, aBh, aBl, uBh, uBl, j);
+            } else {
+                mma_high(dA, aAh, aAl, uAh, uAl, j);
+                mma_high(dA, nBh, nBl, uBh, uBl, j);
+                mma_high(dB, aBh, aBl, uAh, uAl, j);
+                mma_high(dB, aAh, aAl, uBh, uBl, j);
+            }
+        }
+    }
+}
+
+// One output tile of the factored derivative along AXIS (see the header),
+// in FP32 or at 'high'. G holds the packed blocks transposed (FP32, or at
+// 'high' their bf16 [head, residual] split); smem is the block's dynamic
+// shared memory (tile_smem_bytes(B, HIGH)), its butterflies loaded by
+// load_butterflies<B, HIGH>. load(q) returns the operand at offset q of the
+// (Ny, Nx) plane (with the caller's prologue); store(q, v) receives the
+// derivative there, at the pixels out_offset names. Every thread of the
+// block must call it.
+template <int B, int AXIS, bool HIGH = false, class Load, class Store>
+__device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* smem, int m0, int o0,
+                                          int Nx, Load load, Store store) {
     constexpr int NT = tile_threads(B);
     constexpr int NC = B / 2 - 1;           // complex channel pairs
     constexpr int NPOS = TO * TK / NT;      // operand-slab positions per thread
     constexpr int GROWS = NT / (TM / 4);    // block-slab rows (of B TK) that the threads copy at once
     constexpr int PX = tile_pixels(B);
-    const float* sRf = smem + ring_floats(B);
+    const float* sRf = smem + ring_floats(B, HIGH);
     const float* sRi = sRf + B * B;
     const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
     const int pair = wid / WPP, mh = wid % WPP;   // channel pair; the warp's share of the tile along m
-    const int lm = lane % 4, lo = lane / 4;       // 4 x 8 threads over the warp's 4 RM x 32 pixels
-    const int mt = mh * 4 * RM + lm * 4;          // the thread's m: mt + 16 h + {0..3}, h < RM / 4
+    const int lm = lane % 4, lo = lane / 4;       // FP32: 4 x 8 threads over the warp's 4 RM x 32 pixels
+    const int mt = mh * 4 * RM + lm * 4;          // FP32: the thread's m: mt + 16 h + {0..3}, h < RM / 4
     // the pair's channels and blocks
     const int chA = pair == 0 ? 0 : 2 * pair - 1, chB = pair == 0 ? B - 1 : 2 * pair;
     const int blA = pair == 0 ? 0 : 1 + pair, blB = pair == 0 ? 1 : 1 + NC + pair;
 
+    // FP32: accX[i][j] is (m = mt + 16 (i / 4) + i % 4, pixel lo * 4 + j);
+    // 'high': accX[j] is n8 tile j of the warp's 16 m x 32 pixels
     float accA[RM][4], accB[RM][4];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
@@ -218,6 +347,8 @@ __device__ __forceinline__ void fact_tile(const float* __restrict__ Gt, float* s
 
     // this thread's share of a slab: 16 bytes of each block row it copies,
     // and NPOS operand positions in every butterfly row
+    const float* Gt = static_cast<const float*>(G);
+    const __nv_bfloat16* Gs = static_cast<const __nv_bfloat16*>(G);
     const float* gsrc = Gt + m0 + (tid % (TM / 4)) * 4;
     const int grow = tid / (TM / 4), gdst = (tid % (TM / 4)) * 4;
     const int kstep = AXIS == AXIS_Y ? Nx : 1, rstep = row_step<AXIS>(Nx);
@@ -231,10 +362,22 @@ __device__ __forceinline__ void fact_tile(const float* __restrict__ Gt, float* s
     float raw[NPOS][B];
     auto fetch = [&](int k0, float* stage) {
         // the slab's blocks, asynchronously, and its raw operand values
+        if constexpr (HIGH) {
+            // [head, residual] x B x TK rows of TM bf16, 16 bytes a copy
+            constexpr int CPR = TM / 8, NCP = 2 * B * TK * CPR / NT;
+            __nv_bfloat16* sG = reinterpret_cast<__nv_bfloat16*>(stage);
 #pragma unroll
-        for (int h = 0; h < B * TK / GROWS; ++h) {
-            const int row = grow + h * GROWS;   // c TK + kk of the slab
-            cp_async16(stage + gdst + row * TM, gsrc + ((row / TK) * FA + k0 + row % TK) * FA);
+            for (int h = 0; h < NCP; ++h) {
+                const int q = tid + h * NT, row = q / CPR, ch = q % CPR;   // row: (hl B + c) TK + kk
+                cp_async16(sG + row * GS_H + ch * 8,
+                           Gs + ((size_t)(row / TK) * FA + k0 + row % TK) * FA + m0 + ch * 8);
+            }
+        } else {
+#pragma unroll
+            for (int h = 0; h < B * TK / GROWS; ++h) {
+                const int row = grow + h * GROWS;   // c TK + kk of the slab
+                cp_async16(stage + gdst + row * TM, gsrc + ((row / TK) * FA + k0 + row % TK) * FA);
+            }
         }
 #pragma unroll
         for (int j = 0; j < NPOS; ++j)
@@ -243,6 +386,7 @@ __device__ __forceinline__ void fact_tile(const float* __restrict__ Gt, float* s
     };
     auto butterfly = [&](float* stage) {
         float* sU = stage + B * TK * TM;
+        __nv_bfloat16* sUh = reinterpret_cast<__nv_bfloat16*>(stage) + 2 * B * TK * GS_H;
 #pragma unroll
         for (int c = 0; c < B; ++c) {
             float rf[B];
@@ -258,7 +402,13 @@ __device__ __forceinline__ void fact_tile(const float* __restrict__ Gt, float* s
                 float u = 0.f;
 #pragma unroll
                 for (int r = 0; r < B; ++r) u = fmaf(rf[r], raw[j][r], u);
-                sU[(c * TK + kk) * SUO + o] = u;
+                if constexpr (HIGH) {
+                    const __nv_bfloat16 h = __float2bfloat16_rn(u);
+                    sUh[(c * TK + kk) * US_H + o] = h;
+                    sUh[(B * TK + c * TK + kk) * US_H + o] = __float2bfloat16_rn(u - __bfloat162float(h));
+                } else {
+                    sU[(c * TK + kk) * SUO + o] = u;
+                }
             }
         }
     };
@@ -267,27 +417,48 @@ __device__ __forceinline__ void fact_tile(const float* __restrict__ Gt, float* s
     fetch(0, smem);
     butterfly(smem);
     for (int s = 0; s < FA / TK; ++s) {
-        float* cur = smem + (s % NSTAGE) * stage_floats(B);
-        float* nxt = smem + ((s + 1) % NSTAGE) * stage_floats(B);
+        float* cur = smem + (s % NSTAGE) * stage_floats(B, HIGH);
+        float* nxt = smem + ((s + 1) % NSTAGE) * stage_floats(B, HIGH);
         cp_async_wait_all();
         __syncthreads();   // stage `cur` is complete, and every warp has left stage `nxt`
         const bool more = s + 1 < FA / TK;
         if (more) fetch((s + 1) * TK, nxt);
-        const float* sG = cur + mt;
-        const float* sU = cur + B * TK * TM + lo * 4;
-        if (pair == 0)
-            slab_fma<true>(sG + blA * TK * TM, sG + blB * TK * TM, sU + chA * TK * SUO,
-                           sU + chB * TK * SUO, accA, accB);
-        else
-            slab_fma<false>(sG + blA * TK * TM, sG + blB * TK * TM, sU + chA * TK * SUO,
-                            sU + chB * TK * SUO, accA, accB);
+        if constexpr (HIGH) {
+            const __nv_bfloat16* sG = reinterpret_cast<const __nv_bfloat16*>(cur);
+            const __nv_bfloat16* sU = sG + 2 * B * TK * GS_H;
+            if (pair == 0) slab_mma<B, true>(sG, sU, blA, blB, chA, chB, 16 * mh, accA, accB);
+            else slab_mma<B, false>(sG, sU, blA, blB, chA, chB, 16 * mh, accA, accB);
+        } else {
+            const float* sG = cur + mt;
+            const float* sU = cur + B * TK * TM + lo * 4;
+            if (pair == 0)
+                slab_fma<true>(sG + blA * TK * TM, sG + blB * TK * TM, sU + chA * TK * SUO,
+                               sU + chB * TK * SUO, accA, accB);
+            else
+                slab_fma<false>(sG + blA * TK * TM, sG + blB * TK * TM, sU + chA * TK * SUO,
+                                sU + chB * TK * SUO, accA, accB);
+        }
         if (more) butterfly(nxt);
     }
 
     // every channel of a pixel to one thread: stage the accumulators
     __syncthreads();
     float* sY = smem;
-    if (AXIS == AXIS_Y) {   // sY[c][m][o]
+    if constexpr (HIGH) {   // C layout: (m = 16 mh + lane / 4 + 8 (e / 2), pixel 8 j + 2 (lane % 4) + e % 2)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int m = 16 * mh + lane / 4 + 8 * (e / 2), o = 8 * j + 2 * (lane % 4) + e % 2;
+                if (AXIS == AXIS_Y) {   // sY[c][m][o]
+                    sY[(chA * TM + m) * SY_Y + o] = accA[j][e];
+                    sY[(chB * TM + m) * SY_Y + o] = accB[j][e];
+                } else {                // sY[c][o][m]
+                    sY[(chA * TO + o) * SY_X + m] = accA[j][e];
+                    sY[(chB * TO + o) * SY_X + m] = accB[j][e];
+                }
+            }
+    } else if (AXIS == AXIS_Y) {   // sY[c][m][o]
 #pragma unroll
         for (int i = 0; i < RM; ++i) {
             const int m = mt + (i / 4) * 16 + i % 4;
@@ -350,9 +521,9 @@ bool shape_ok(int Bx, int By, int Ny, int Nx) {
 // kernel gets unasked), and have the SM's L1 / shared split favour shared
 // memory, so that as many blocks as the launch bounds ask for are resident.
 template <class K>
-int allow_tile_smem(K kernel, int B) {
+int allow_tile_smem(K kernel, int B, bool high = false) {
     const int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)tile_smem_bytes(B));
+                                             (int)tile_smem_bytes(B, high));
     if (rc != 0) return rc;
     return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                      (int)cudaSharedmemCarveoutMaxShared);

@@ -1,4 +1,5 @@
-// Factored (radix-B) LenseFlow kernels for NVIDIA Hopper (sm_90a), FP32 FMA.
+// Factored (radix-B) LenseFlow kernels for NVIDIA Hopper (sm_90a), in FP32
+// FMA, and at 'high' on the tensor cores (each entry's `high` argument).
 //
 // Replaces, from cmblensing_tpu/ops/pallas_lenseflow.py:
 //   K1  the factored in-kernel derivative `_fact_apply` / `_make_ddx_ddy_fact`
@@ -10,7 +11,13 @@
 //       w = sum_c delta f_c grad f_c, then u = M^-1 w and the five hoisted
 //       delta-phi integrands (as lf_velocity's backward kind)  -> lf_bv_velocity
 //
-// Each is built on the tiled factored derivative `fact_tile` (fact_tile.cuh).
+// Each is built on the tiled factored derivative `fact_tile` (fact_tile.cuh),
+// instantiated twice: FP32 (the JAX package's precision 'f32') and 'high'
+// (its `_mk_dot('high')` body, pallas_lenseflow.py:225: bf16 head and
+// residual split, three bf16 products a block product, on mma.sync). Each
+// entry takes an `int high` that picks the instantiation; at 'high' the
+// blocks come split ([head, residual] bf16, FactoredOps.FXS / FYTS) where
+// the FP32 form takes them in FP32.
 // The TPU kernels hold whole planes in VMEM. A 1024^2 f32 plane is 4 MiB,
 // far beyond a block's 227 KB of shared memory, so here every derivative
 // is tiled, and a velocity is two launches: an x pass that stores and a y
@@ -28,7 +35,7 @@
 // lenseflow.cu), computed once per distinct time of a flow, so no functor
 // here rebuilds it. A 1024^2 plane is 64 tiles per pass: a batch-1 K1
 // launch fills half the card's 132 SMs, a two-component K3 launch all of
-// them once. wgmma on a 3xTF32 split (the 'high' tier) and a persistent
+// them once. wgmma with TMA for the 'high' products and a persistent
 // whole-flow kernel are later work.
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
@@ -51,21 +58,22 @@ constexpr int NACC = 5;   // delta-phi accumulator planes of the backward state
 // tile's stores.
 
 // K1: out = D a (+ c), or out += D a, along AXIS over blockIdx.z planes.
-template <int B, int AXIS>
+// G: the blocks (FP32, or at HIGH their bf16 split; fact_tile.cuh).
+template <int B, int AXIS, bool HIGH>
 __global__ void __launch_bounds__(tile_threads(B), tile_min_blocks(B))
 fderiv_kernel(const float* __restrict__ a, const float* __restrict__ c, float* __restrict__ out,
-              const float* __restrict__ Gt, const float* __restrict__ bf, int Ny, int Nx,
+              const void* __restrict__ G, const float* __restrict__ bf, int Ny, int Nx,
               int accumulate) {
-    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B)
-    load_butterflies<B>(bf, smem);
+    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, HIGH)
+    load_butterflies<B, HIGH>(bf, smem);
     const size_t base = (size_t)blockIdx.z * Ny * Nx;
     const float* ap = a + base;
     const float* cp = c != nullptr ? c + base : nullptr;
     float* op = out + base;
     int m0, o0;
     tile_origin<AXIS>(m0, o0);
-    fact_tile<B, AXIS>(
-        Gt, smem, m0, o0, Nx, [&](int q) { return ap[q]; },
+    fact_tile<B, AXIS, HIGH>(
+        G, smem, m0, o0, Nx, [&](int q) { return ap[q]; },
         [&](int q, float v) {
             if (cp != nullptr) v += cp[q];
             if (accumulate) atomicAdd(op + q, v);
@@ -78,13 +86,13 @@ fderiv_kernel(const float* __restrict__ a, const float* __restrict__ c, float* _
 // The x pass stores p_x d_x y (or d_x(p_x y)), the y pass adds the y term.
 // blockIdx.z = batch * ncomp + component; p holds the planes (p_x, p_y) of
 // every batch entry, (2, nbatch, Ny, Nx).
-template <int B, int AXIS>
+template <int B, int AXIS, bool HIGH>
 __global__ void __launch_bounds__(tile_threads(B), tile_min_blocks(B))
 fa_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __restrict__ p,
-          const float* __restrict__ Gt, const float* __restrict__ bf, int ncomp, int nbatch,
+          const void* __restrict__ G, const float* __restrict__ bf, int ncomp, int nbatch,
           int Ny, int Nx, int role) {
-    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B)
-    load_butterflies<B>(bf, smem);
+    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, HIGH)
+    load_butterflies<B, HIGH>(bf, smem);
     const size_t plane = (size_t)Ny * Nx;
     const float* yp = y + blockIdx.z * plane;
     float* kp = k + blockIdx.z * plane;
@@ -92,8 +100,8 @@ fa_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
     const float* pa = p + ((size_t)(AXIS == AXIS_X ? 0 : nbatch) + blockIdx.z / ncomp) * plane;
     int m0, o0;
     tile_origin<AXIS>(m0, o0);
-    fact_tile<B, AXIS>(
-        Gt, smem, m0, o0, Nx, [&](int q) { return role != 0 ? pa[q] * yp[q] : yp[q]; },
+    fact_tile<B, AXIS, HIGH>(
+        G, smem, m0, o0, Nx, [&](int q) { return role != 0 ? pa[q] * yp[q] : yp[q]; },
         [&](int q, float v) {
             if (role == 0) v *= pa[q];
             if (AXIS == AXIS_X) kp[q] = v;
@@ -107,13 +115,13 @@ fa_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
 // accumulator slot); the y pass adds the y terms, accumulates w_y in the
 // second slot and then writes u = M^-1 w and the five integrands. p as K3's;
 // M^-1(t) is rebuilt from phi's 5 planes per batch at the output pixels.
-template <int B, int AXIS>
+template <int B, int AXIS, bool HIGH>
 __global__ void __launch_bounds__(tile_threads(B), tile_min_blocks(B))
 bv_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __restrict__ phi,
-          const float* __restrict__ p, const float* __restrict__ Gt,
+          const float* __restrict__ p, const void* __restrict__ G,
           const float* __restrict__ bf, int ncomp, int nbatch, int Ny, int Nx, float t) {
-    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B)
-    load_butterflies<B>(bf, smem);
+    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, HIGH)
+    load_butterflies<B, HIGH>(bf, smem);
     const size_t plane = (size_t)Ny * Nx;
     const size_t nstate = 2 * ncomp + NACC;
     const float* yb = y + blockIdx.z * nstate * plane;
@@ -127,8 +135,8 @@ bv_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
         const float* df = yb + (ncomp + c) * plane;
         float* kf = kb + c * plane;
         float* kdf = kb + (ncomp + c) * plane;
-        fact_tile<B, AXIS>(
-            Gt, smem, m0, o0, Nx, [&](int q) { return f[q]; },
+        fact_tile<B, AXIS, HIGH>(
+            G, smem, m0, o0, Nx, [&](int q) { return f[q]; },
             [&](int q, float v) {   // v = d f_c
                 const float pv = pa[q] * v, dw = df[q] * v;
                 if (AXIS == AXIS_X) kf[q] = pv;
@@ -136,8 +144,8 @@ bv_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
                 if (c == 0) w[q] = dw;
                 else atomicAdd(w + q, dw);
             });
-        fact_tile<B, AXIS>(
-            Gt, smem, m0, o0, Nx, [&](int q) { return pa[q] * df[q]; },
+        fact_tile<B, AXIS, HIGH>(
+            G, smem, m0, o0, Nx, [&](int q) { return pa[q] * df[q]; },
             [&](int q, float v) {
                 if (AXIS == AXIS_X) kdf[q] = v;
                 else atomicAdd(kdf + q, v);
@@ -158,34 +166,27 @@ bv_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
     }
 }
 
-template <int B>
+template <int B, bool HIGH>
 int allow_smem() {
-    int rc = allow_tile_smem(fderiv_kernel<B, AXIS_X>, B);
-    if (rc == 0) rc = allow_tile_smem(fderiv_kernel<B, AXIS_Y>, B);
-    if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_X>, B);
-    if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_Y>, B);
-    if (rc == 0) rc = allow_tile_smem(bv_kernel<B, AXIS_X>, B);
-    if (rc == 0) rc = allow_tile_smem(bv_kernel<B, AXIS_Y>, B);
+    int rc = allow_tile_smem(fderiv_kernel<B, AXIS_X, HIGH>, B, HIGH);
+    if (rc == 0) rc = allow_tile_smem(fderiv_kernel<B, AXIS_Y, HIGH>, B, HIGH);
+    if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_X, HIGH>, B, HIGH);
+    if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_Y, HIGH>, B, HIGH);
+    if (rc == 0) rc = allow_tile_smem(bv_kernel<B, AXIS_X, HIGH>, B, HIGH);
+    if (rc == 0) rc = allow_tile_smem(bv_kernel<B, AXIS_Y, HIGH>, B, HIGH);
     return rc;
 }
 
-}  // namespace
-
-// Once after loading, before any launch: the kernels' dynamic shared memory.
-extern "C" int lf_factored_init() {
-    const int rc = allow_smem<4>();
-    return rc != 0 ? rc : allow_smem<8>();
-}
-
-#define LF_TILE_LAUNCH(kernel, AXIS, nz) \
-    kernel<B, AXIS><<<pass_grid<AXIS>(Ny, Nx, nz), tile_threads(B), tile_smem_bytes(B), st>>>
+#define LF_TILE_LAUNCH(kernel, AXIS, nz)                                                       \
+    kernel<B, AXIS, HIGH><<<pass_grid<AXIS>(Ny, Nx, nz), tile_threads(B),                      \
+                            tile_smem_bytes(B, HIGH), st>>>
 
 // out = d_x a + d_y b + c over nplanes planes; a or b (not both) and c may
 // be null; out must not alias a or b. One launch per non-null derivative.
-// FX and FYT are the packed blocks, both transposed (fact_tile.cuh).
-extern "C" int lf_fderiv(const float* a, const float* b, const float* c, float* out,
-                         const float* FX, const float* FYT, const float* bfx, const float* bfy,
-                         int Bx, int By, int nplanes, int Ny, int Nx, void* stream) {
+template <bool HIGH>
+int fderiv(const float* a, const float* b, const float* c, float* out, const void* FX,
+           const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nplanes,
+           int Ny, int Nx, void* stream) {
     if (!shape_ok(Bx, By, Ny, Nx) || (a == nullptr && b == nullptr))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
@@ -205,10 +206,10 @@ extern "C" int lf_fderiv(const float* a, const float* b, const float* c, float* 
 // k <- the forward (role 0) or adjoint (role 1) velocity of the
 // (nbatch, ncomp, Ny, Nx) state y under the p(t) planes p, (2, nbatch, Ny,
 // Nx). Two launches.
-extern "C" int lf_fa_velocity(int role, const float* y, float* k, const float* p,
-                              const float* FX, const float* FYT, const float* bfx,
-                              const float* bfy, int Bx, int By, int nbatch, int ncomp, int Ny,
-                              int Nx, void* stream) {
+template <bool HIGH>
+int fa_velocity(int role, const float* y, float* k, const float* p, const void* FX,
+                const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nbatch,
+                int ncomp, int Ny, int Nx, void* stream) {
     if (!shape_ok(Bx, By, Ny, Nx) || (role != 0 && role != 1)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const int nz = nbatch * ncomp;
@@ -224,10 +225,10 @@ extern "C" int lf_fa_velocity(int role, const float* y, float* k, const float* p
 // k <- the backward velocity at time t of the (nbatch, 2 ncomp + 5, Ny, Nx)
 // state y; phi is (nbatch, 5, Ny, Nx), p its p(t) planes (2, nbatch, Ny,
 // Nx). Two launches.
-extern "C" int lf_bv_velocity(const float* y, float* k, const float* phi, const float* p,
-                              const float* FX, const float* FYT, const float* bfx,
-                              const float* bfy, int Bx, int By, int nbatch, int ncomp, int Ny,
-                              int Nx, float t, void* stream) {
+template <bool HIGH>
+int bv_velocity(const float* y, float* k, const float* phi, const float* p, const void* FX,
+                const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nbatch,
+                int ncomp, int Ny, int Nx, float t, void* stream) {
     if (!shape_ok(Bx, By, Ny, Nx)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     LF_WITH_RADIX(Bx, LF_TILE_LAUNCH(bv_kernel, AXIS_X, nbatch)(y, k, phi, p, FX, bfx, ncomp,
@@ -237,4 +238,40 @@ extern "C" int lf_bv_velocity(const float* y, float* k, const float* phi, const 
     LF_WITH_RADIX(By, LF_TILE_LAUNCH(bv_kernel, AXIS_Y, nbatch)(y, k, phi, p, FYT, bfy, ncomp,
                                                                 nbatch, Ny, Nx, t))
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Once after loading, before any launch: the kernels' dynamic shared memory.
+extern "C" int lf_factored_init() {
+    int rc = allow_smem<4, false>();
+    if (rc == 0) rc = allow_smem<8, false>();
+    if (rc == 0) rc = allow_smem<4, true>();
+    return rc != 0 ? rc : allow_smem<8, true>();
+}
+
+// The entries: high != 0 runs the 'high' tier. FX and FYT are the packed
+// blocks, both transposed (fact_tile.cuh): FP32 (B, A, A), or at 'high'
+// their bf16 split (2, B, A, A) [head, residual].
+extern "C" int lf_fderiv(int high, const float* a, const float* b, const float* c, float* out,
+                         const void* FX, const void* FYT, const float* bfx, const float* bfy,
+                         int Bx, int By, int nplanes, int Ny, int Nx, void* stream) {
+    return (high ? fderiv<true> : fderiv<false>)(a, b, c, out, FX, FYT, bfx, bfy, Bx, By, nplanes,
+                                                 Ny, Nx, stream);
+}
+
+extern "C" int lf_fa_velocity(int high, int role, const float* y, float* k, const float* p,
+                              const void* FX, const void* FYT, const float* bfx,
+                              const float* bfy, int Bx, int By, int nbatch, int ncomp, int Ny,
+                              int Nx, void* stream) {
+    return (high ? fa_velocity<true> : fa_velocity<false>)(role, y, k, p, FX, FYT, bfx, bfy, Bx,
+                                                           By, nbatch, ncomp, Ny, Nx, stream);
+}
+
+extern "C" int lf_bv_velocity(int high, const float* y, float* k, const float* phi,
+                              const float* p, const void* FX, const void* FYT, const float* bfx,
+                              const float* bfy, int Bx, int By, int nbatch, int ncomp, int Ny,
+                              int Nx, float t, void* stream) {
+    return (high ? bv_velocity<true> : bv_velocity<false>)(y, k, phi, p, FX, FYT, bfx, bfy, Bx,
+                                                           By, nbatch, ncomp, Ny, Nx, t, stream);
 }

@@ -1,4 +1,4 @@
-"""Wiener filtering and joint MAP estimation at strict float32.
+"""Wiener filtering and joint MAP estimation.
 
 Counterpart of ``cmblensing_tpu/inference/maximization.py`` (reference
 src/maximization.jl): the f-step is a preconditioned CG Wiener filter;
@@ -6,14 +6,35 @@ the phi-step is preconditioned gradient ascent on the mixed posterior
 with a grid line search whose trials run as one batched evaluation.
 
 Ported: the two preconditioners, ``argmaxf_logpdf`` and ``MAP_joint``
-with ``linesearch="grid"``, all at strict float32. Not ported yet, and
-refused with NotImplementedError (ROADMAP Queue 1 item 8): the reduced
-precisions ("auto", "high", "bf16") and so the direction retry that
-guards them, ``linesearch="brent"``, ``quasi_sample``,
+with ``linesearch="grid"``, with the JAX package's precision defaults
+and their guards:
+
+- ``argmaxf_logpdf``: ``hessian_precision="auto"`` (= 'high') runs the
+  Hessian applies inside CG at 'high' (the LenseFlow kernels' bf16
+  head/residual tier, ops/deriv.py::precision_ctx) while b, a0 and the
+  CG algebra stay strict; the final residual is re-evaluated with a
+  strict Hessian and, when it misses max(tol, 1e-10 res0), the solve
+  re-runs strict (``info["precision_fallback"]``).
+- ``MAP_joint``: ``precision="auto"`` (= 'high') for the phi-gradient
+  and ``unmix``; the grid line search always strict; when its strict
+  trials reject the 'high' direction (alpha = 0), the gradient is
+  recomputed strict and searched again, and an accepted retry keeps the
+  run strict. ``precision=None`` is strict everywhere, the f-step
+  included.
+
+One deliberate difference from the JAX package (ROADMAP Queue 3, its
+fault 1): after a strict retry that also finds alpha = 0, no further
+retry fires until a step finds alpha > 0; the JAX package retries on
+every later step, a gradient and a line search each time.
+
+Not ported yet, and refused with NotImplementedError (ROADMAP Queue 1
+item 8): the 'bf16' tier, ``linesearch="brent"``, ``quasi_sample``,
 ``nburnin_update_hessian``, batched datasets, a ``logprior``, and
 ``MAP_marg``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -22,19 +43,26 @@ from ..core.field import Field, dot as field_dot, fvalue_and_grad, norm as field
     zeros_like_field
 from ..core.ops import Diag, Id, ParamDependentOp, _Identity, evaluate_at
 from ..models.dataset import DataSet, Mixed, mix, unmix
-from ..ops.solvers import conjugate_gradient
+from ..ops.deriv import precision_ctx
+from ..ops.solvers import conjugate_gradient, tree_dot
 from ..utils.progress import progress_bar
 from ..utils.timing import timed
 
 _NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 8)"
 
 
-def _require_strict(precision, name):
-    if precision not in (None, "f32"):
-        raise NotImplementedError(
-            f"{name}={precision!r}: only strict float32 is ported; the reduced tiers "
-            "(3xTF32 'high', 'bf16', and 'auto' which picks them) are ROADMAP Queue 2 "
-            "(K1/K2 'high' and 'bf16')")
+def _check_precision(precision, name, allowed):
+    if precision == "bf16":
+        raise NotImplementedError(f"{name}='bf16': the 'bf16' tier of the LenseFlow kernels is "
+                                  "not ported (ROADMAP Queue 2)")
+    if precision not in allowed:
+        raise ValueError(f"{name}={precision!r}: one of {allowed}")
+
+
+def _pctx(precision):
+    """The derivative-product precision for a block: `precision`, or the
+    one in force when None."""
+    return precision_ctx(precision) if precision else contextlib.nullcontext()
 
 
 # =========================================================================
@@ -84,30 +112,43 @@ def argmaxf_logpdf(ds: DataSet, phi=None, theta=None, d=None, fstart=None,
                    conjgrad_kwargs=None, offset=False):
     """Maximize logpdf over f at fixed (phi, theta): the Gaussian system
     H f = b solved by preconditioned CG, with H applied through the
-    analytic f-gradient, at the caller's precision (strict float32).
-    conjgrad_kwargs go to `conjugate_gradient` (tol, nsteps,
-    fixed_iters, record_history). Returns (f, info)."""
+    analytic f-gradient. conjgrad_kwargs go to `conjugate_gradient` (tol,
+    nsteps, fixed_iters, record_history), but for hessian_precision:
+    "auto" (the default, = 'high') or 'high' runs the Hessian applies at
+    that precision while b, a0 and the CG algebra stay strict, then
+    re-checks the final residual with a strict Hessian (info["res_strict"],
+    info["precision_ok"]) and re-runs the whole solve strict when it
+    misses max(tol, 1e-10 res0) (info["precision_fallback"] = True); None
+    runs everything at the precision in force. Returns (f, info)."""
     theta = theta or {}
-    cg = dict(tol=1e-1, nsteps=500)
+    cg = dict(tol=1e-1, nsteps=500, hessian_precision="auto")
     cg.update(conjgrad_kwargs or {})
-    _require_strict(cg.pop("hessian_precision", None), "hessian_precision")
+    hp = cg.pop("hessian_precision")
+    hp = "high" if hp == "auto" else hp
+    _check_precision(hp, "hessian_precision", (None, "f32", "high"))
     if d is None:
         d = ds.d
     if d.batch_shape:
         raise NotImplementedError(f"argmaxf_logpdf on a batched dataset is {_NOT_PORTED}")
     with torch.no_grad():
-        return _argmaxf_core(ds, theta, phi, d, fstart, offset, **cg)
+        x, info = _argmaxf_core(ds, theta, phi, d, fstart, offset, hp, **cg)
+        if hp and not bool(info["precision_ok"]):
+            x, info = _argmaxf_core(ds, theta, phi, d, fstart, offset, None, **cg)
+            info["precision_fallback"] = True
+    return x, info
 
 
-def _argmaxf_core(ds, theta, phi, d, fstart, offset, **cg):
+def _argmaxf_core(ds, theta, phi, d, fstart, offset, hessian_precision=None, **cg):
     precond = hessian_f_preconditioner(ds)
     dfield = _fid(ds.Cf).diag
     zero_f = zeros_like_field(dfield).to(dfield.basis.with_space("map"))
     zero_d = zeros_like_field(d)
     # gradientf(f, d) = b - H f with H SPD: b = gradientf(0, d) and
-    # H f = -(gradientf(f, 0) - a0)
-    b = ds.gradientf_logpdf(zero_f, phi=phi, theta=theta, d=d)
-    a0 = ds.gradientf_logpdf(zero_f, phi=phi, theta=theta, d=zero_d)
+    # H f = -(gradientf(f, 0) - a0); with a Hessian precision, b, a0 and
+    # the strict residual check are strict
+    with _pctx("f32" if hessian_precision else None):
+        b = ds.gradientf_logpdf(zero_f, phi=phi, theta=theta, d=d)
+        a0 = ds.gradientf_logpdf(zero_f, phi=phi, theta=theta, d=zero_d)
     if offset:
         b = b - a0
     Bb = b.basis
@@ -115,8 +156,20 @@ def _argmaxf_core(ds, theta, phi, d, fstart, offset, **cg):
     def hess(f):
         return -(ds.gradientf_logpdf(f, phi=phi, theta=theta, d=zero_d) - a0).to(Bb)
 
+    def hess_at(f):
+        with _pctx(hessian_precision):
+            return hess(f)
+
     x0 = fstart.to(Bb) if fstart is not None else None
-    return conjugate_gradient(precond, hess, b, x0=x0, **cg)
+    x, info = conjugate_gradient(precond, hess_at, b, x0=x0, **cg)
+    if hessian_precision:
+        # the final residual under a strict Hessian, in the metric of tol
+        with _pctx("f32"):
+            r = b - hess(x)
+        info["res_strict"] = tree_dot(r, precond.solve(r))
+        info["precision_ok"] = torch.all(
+            info["res_strict"] <= torch.clamp(1e-10 * info["res0"], min=float(cg.get("tol", 1e-1))))
+    return x, info
 
 
 # =========================================================================
@@ -189,19 +242,24 @@ def _step_unmix_and_norm(dstheta, theta, f_mix, phi_mix, dphi, alpha):
 def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phistart=None,
               gradtol=0.0, alpha_max=None, conjgrad_kwargs=None, quasi_sample=False,
               progress=False, history_keys=("logpdf",), nburnin_update_hessian=None,
-              linesearch="grid", ngrid=16, precision=None):
+              linesearch="grid", ngrid=16, precision="auto"):
     """Joint MAP estimate of (f, phi) by coordinate ascent (reference
     src/maximization.jl): an exact f-step (CG Wiener filter) alternates
     with a preconditioned-gradient phi-step along grad_phi° of the mixed
     posterior, its length from a grid line search of ngrid trials on
     (0, amax] (amax = twice the last accepted step, or alpha_max).
 
-    Everything runs at strict float32 (precision None or "f32").
+    precision: "auto" (the default, = 'high') or 'high' runs the
+    phi-gradient and unmix at 'high' and the line search strict, with the
+    direction retry (module docstring); 'f32' all three strict, the
+    f-step's CG at its own default ("auto") unless conjgrad_kwargs names
+    a hessian_precision; None strict everywhere, the f-step included.
     history_keys picks what each step records: "logpdf", "alpha",
-    "cg_iters", "cg_res", "gradnorm". Iteration stops early once a step
-    after minsteps moves phi° by less than gradtol (alpha |dphi|).
-    Returns dict(f, phi, history)."""
-    _require_strict(precision, "precision")
+    "cg_iters", "cg_res", "gradnorm", and "precision_fallback" (the
+    f-step re-ran strict) and "retry" (the direction retry fired).
+    Iteration stops early once a step after minsteps moves phi° by less
+    than gradtol (alpha |dphi|). Returns dict(f, phi, history)."""
+    _check_precision(precision, "precision", (None, "auto", "f32", "high"))
     if linesearch != "grid":
         raise NotImplementedError(f"linesearch={linesearch!r} is {_NOT_PORTED}")
     if quasi_sample:
@@ -217,37 +275,68 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
     theta = theta or {}
     cg = dict(tol=1e-1, nsteps=500)
     cg.update(conjgrad_kwargs or {})
+    if precision is None:
+        cg.setdefault("hessian_precision", None)
     dstheta = ds.at(theta).replace(G=Id)   # the MAP does not depend on G
     Cphi = _fid(dstheta.Cphi)
     phi = phistart if phistart is not None else _zero_map_like(Cphi)
     f = fstart
     Hpre = hessian_phimix_preconditioner(dstheta) if dstheta.Nphi is not None else Cphi.pinv()
     Hpre_inv = Hpre.pinv()
+    prec = "high" if precision == "auto" else precision
+    ls_prec = "f32" if prec == "high" else prec   # the line search is always strict
+
+    def direction(prec_):
+        with _pctx(prec_):
+            f_mix, phi_mix, g = _phi_grad_and_fmix(dstheta, theta, f, phi)
+        return f_mix, phi_mix, g, Hpre_inv @ g
+
+    def search(f_mix, phi_mix, dphi):
+        with _pctx(ls_prec):
+            alphas, dlps = _grid_linesearch_dlps(dstheta, theta, f_mix, phi_mix, dphi, amax,
+                                                 int(ngrid))
+        return float(alphas[torch.argmax(dlps)])
 
     history = []
     alpha, amax = 1.0, 2.0
+    # set after a strict retry that also found alpha = 0: no further retry
+    # until a step finds alpha > 0 (the JAX package retries every step)
+    retry_spent = False
     with torch.no_grad(), progress_bar(nsteps, "MAP_joint", enabled=progress) as pbar:
         for step in range(1, nsteps + 1):
             with timed("MAP_joint/f_step"):
                 f, cg_info = argmaxf_logpdf(dstheta, phi=phi, theta=theta, fstart=f,
                                             conjgrad_kwargs=cg)
             with timed("MAP_joint/phi_step"):
-                f_mix, phi_mix, g = _phi_grad_and_fmix(dstheta, theta, f, phi)
-                dphi = Hpre_inv @ g
+                f_mix, phi_mix, g, dphi = direction(prec)
                 if alpha_max is not None:
                     amax = alpha_max
                 elif alpha > 0:
                     # grow or shrink with the accepted step; a null step
                     # (alpha = 0) keeps the previous scale
                     amax = 2.0 * alpha
-                alphas, dlps = _grid_linesearch_dlps(dstheta, theta, f_mix, phi_mix, dphi,
-                                                     amax, int(ngrid))
-                alpha = float(alphas[torch.argmax(dlps)])
-            phi_mix, phi, lp_dev, dnorm_dev = _step_unmix_and_norm(
-                dstheta, theta, f_mix, phi_mix, dphi, alpha)
+                alpha = search(f_mix, phi_mix, dphi)
+                nfev, retried = ngrid, False
+                if alpha == 0.0 and prec != ls_prec and not retry_spent:
+                    # the strict trials rejected the reduced-precision
+                    # direction: recompute it strict and search again; an
+                    # accepted strict direction keeps the run strict
+                    retried = True
+                    f_mix, phi_mix, g, dphi = direction(ls_prec)
+                    alpha = search(f_mix, phi_mix, dphi)
+                    nfev += ngrid
+                    if alpha > 0:
+                        prec = ls_prec
+                    else:
+                        retry_spent = True
+                elif alpha > 0:
+                    retry_spent = False
+            with _pctx(prec):
+                phi_mix, phi, lp_dev, dnorm_dev = _step_unmix_and_norm(
+                    dstheta, theta, f_mix, phi_mix, dphi, alpha)
             lp, dnorm = float(lp_dev), float(dnorm_dev)
             if progress:
-                pbar.update(logpdf=lp, alpha=alpha, CG=int(cg_info["iterations"]), ls=ngrid)
+                pbar.update(logpdf=lp, alpha=alpha, CG=int(cg_info["iterations"]), ls=nfev)
             entry = {}
             if "logpdf" in history_keys:
                 entry["logpdf"] = lp
@@ -259,6 +348,10 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
                 entry["cg_res"] = cg_info["res"].cpu().numpy()
             if "gradnorm" in history_keys:
                 entry["gradnorm"] = np.asarray(float(field_norm(g)))
+            if "precision_fallback" in history_keys:
+                entry["precision_fallback"] = bool(cg_info.get("precision_fallback", False))
+            if "retry" in history_keys:
+                entry["retry"] = retried
             history.append(entry)
             if step > minsteps and dnorm * alpha < gradtol:
                 break

@@ -27,6 +27,12 @@ Three integration backends, chosen with `set_lenseflow_backend` or
   'plain'  — RK4 over torch ops with FFT derivatives (ops/deriv.py), the
              backward flow with its delta-phi accumulation hoisted out of
              the time loop.
+
+The 'kernel' and 'uni' flows run at the matmul precision in force when
+the operator is applied (ops/deriv.py::precision_ctx; 'high' on
+'kernel', 'f32' on both); the autograd Functions record it at forward
+time and run their backward at it, wherever `.backward()` is called.
+The 'plain' backend's FFT derivatives ignore it.
 """
 from __future__ import annotations
 
@@ -189,32 +195,33 @@ def _backward_flow_scan(f1, dy, g, h, proj, t1, t0, nsteps):
 # the two flows and the transpose-delta flow, per backend
 # =========================================================================
 
-def _apply(phi_map, f_map, t0, t1, nsteps, proj, backend, kind="forward"):
+def _apply(phi_map, f_map, t0, t1, nsteps, proj, backend, precision=None, kind="forward"):
     """Forward flow t0 -> t1, or (kind='adjoint') the adjoint flow
-    t1 -> t0."""
+    t1 -> t0, the kernel and uni flows at `precision` (None: the one in
+    force)."""
     if backend in ("kernel", "uni"):
         mats = _deriv.deriv_ops(proj)
-        phi = _lfk.gradhess(phi_map, mats)
+        phi = _lfk.gradhess(phi_map, mats, precision)
         flow = _lfk.flow_apply if backend == "kernel" else _lfk.uni_flow_apply
         if kind == "forward":
-            return flow(f_map, phi, mats, t0, t1, nsteps, "forward")
-        return flow(f_map, phi, mats, t1, t0, nsteps, "adjoint")
+            return flow(f_map, phi, mats, t0, t1, nsteps, "forward", precision)
+        return flow(f_map, phi, mats, t1, t0, nsteps, "adjoint", precision)
     g, h = _gradhess_phi(phi_map, proj)
     if kind == "forward":
         return _rk4(lambda t, y: _velocity(t, y, g, h, proj), f_map, t0, t1, nsteps)
     return _rk4(lambda t, y: _velocity_adj(t, y, g, h, proj), f_map, t1, t0, nsteps)
 
 
-def _bwd(phi_map, f1, dy, t0, t1, nsteps, proj, backend):
+def _bwd(phi_map, f1, dy, t0, t1, nsteps, proj, backend, precision=None):
     """Continuous adjoint of the forward flow t0 -> t1: integrate the
     coupled (f, delta f, delta phi) system from (f(t1), dy, 0) back to
-    t0. Returns (dphi, df0)."""
+    t0, the kernel and uni flows at `precision`. Returns (dphi, df0)."""
     dy = dy.contiguous()
     if backend in ("kernel", "uni"):
         mats = _deriv.deriv_ops(proj)
-        phi = _lfk.gradhess(phi_map, mats)
+        phi = _lfk.gradhess(phi_map, mats, precision)
         flow = _lfk.flow_bwd if backend == "kernel" else _lfk.uni_flow_bwd
-        return flow(dy, f1, phi, mats, t0, t1, nsteps)
+        return flow(dy, f1, phi, mats, t0, t1, nsteps, precision)
     g, h = _gradhess_phi(phi_map, proj)
     df0, dphi = _backward_flow_scan(f1, dy, g, h, proj, t1, t0, nsteps)
     return dphi, df0
@@ -222,20 +229,21 @@ def _bwd(phi_map, f1, dy, t0, t1, nsteps, proj, backend):
 
 class _LenseflowApply(torch.autograd.Function):
     """out = flow of f_map from t0 to t1 under phi; the VJP is the
-    transpose-delta flow."""
+    transpose-delta flow, at the precision the forward ran at (ctx.args:
+    backward may be called outside the caller's precision_ctx)."""
 
     @staticmethod
-    def forward(ctx, phi_map, f_map, t0, t1, nsteps, proj, backend):
-        out = _apply(phi_map, f_map, t0, t1, nsteps, proj, backend)
+    def forward(ctx, phi_map, f_map, t0, t1, nsteps, proj, backend, precision):
+        out = _apply(phi_map, f_map, t0, t1, nsteps, proj, backend, precision)
         ctx.save_for_backward(phi_map, out)
-        ctx.args = (t0, t1, nsteps, proj, backend)
+        ctx.args = (t0, t1, nsteps, proj, backend, precision)
         return out
 
     @staticmethod
     def backward(ctx, dy):
         phi_map, f1 = ctx.saved_tensors
         dphi, df0 = _bwd(phi_map, f1, dy, *ctx.args)
-        return dphi, df0, None, None, None, None, None
+        return dphi, df0, None, None, None, None, None, None
 
 
 class _LenseflowApplyAdjoint(torch.autograd.Function):
@@ -245,19 +253,19 @@ class _LenseflowApplyAdjoint(torch.autograd.Function):
     L u and cotangent f."""
 
     @staticmethod
-    def forward(ctx, phi_map, f_map, t0, t1, nsteps, proj, backend):
-        out = _apply(phi_map, f_map, t0, t1, nsteps, proj, backend, kind="adjoint")
+    def forward(ctx, phi_map, f_map, t0, t1, nsteps, proj, backend, precision):
+        out = _apply(phi_map, f_map, t0, t1, nsteps, proj, backend, precision, kind="adjoint")
         ctx.save_for_backward(phi_map, f_map)
-        ctx.args = (t0, t1, nsteps, proj, backend)
+        ctx.args = (t0, t1, nsteps, proj, backend, precision)
         return out
 
     @staticmethod
     def backward(ctx, u):
         phi_map, f_map = ctx.saved_tensors
-        t0, t1, nsteps, proj, backend = ctx.args
-        Lu = _apply(phi_map, u.contiguous(), t0, t1, nsteps, proj, backend)
+        t0, t1, nsteps, proj, backend, precision = ctx.args
+        Lu = _apply(phi_map, u.contiguous(), t0, t1, nsteps, proj, backend, precision)
         dphi, _ = _bwd(phi_map, Lu, f_map, *ctx.args)
-        return dphi, Lu, None, None, None, None, None
+        return dphi, Lu, None, None, None, None, None, None
 
 
 # =========================================================================
@@ -306,7 +314,7 @@ class LenseFlow:
             farr = farr.expand(batch + farr.shape[-3:])
         fn = _LenseflowApplyAdjoint if self._adjoint else _LenseflowApply
         out = fn.apply(phi_map, farr, float(t0), float(t1), int(self.nsteps), f.proj,
-                       _BACKEND)
+                       _BACKEND, _deriv.matmul_precision())
         return Field(out, fl.basis, f.proj).to(B)
 
     def __matmul__(self, f: Field) -> Field:

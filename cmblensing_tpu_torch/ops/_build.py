@@ -83,9 +83,9 @@ def bind(lib):
         "lf_deriv": [P, P, P, P, P, P, I, I, I, P],
         "lf_rk4_update": [P, P, P, P, ctypes.c_size_t, I, F, F, P],
         "lf_p_planes": [P, P, ctypes.c_size_t, ctypes.c_size_t, F, P],
-        "lf_fderiv": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
-        "lf_fa_velocity": [I, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-        "lf_bv_velocity": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        "lf_fderiv": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        "lf_fa_velocity": [I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "lf_bv_velocity": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
         "lf_uni_velocity": [I, P, P, L, L, L, L, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
         "lf_factored_init": [],
         "lf_uni_init": [],

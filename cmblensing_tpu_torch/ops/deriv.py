@@ -16,19 +16,56 @@ linear operator:
 All zero the Nyquist line of the first derivative (an odd operator:
 the self-aliased Nyquist mode's derivative is identically zero), so the
 forms are the same operator.
+
+The dense and factored products run at the matmul precision in force
+(``set_matmul_precision``, ``precision_ctx``), as the JAX package's do:
+'f32' strict float32 (the default); 'high' the bf16 head/residual split,
+three bf16 x bf16 products summed in float32; 'bf16' one bf16 product
+(accepted here, refused by every flow: ROADMAP Queue 2). The FFT forms
+ignore it. The switch touches neither TF32 pin of ``torch.backends``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from . import fft as _fft
-from .factored_deriv import FactoredOps, apply_x, apply_y, factored_ops
+from .factored_deriv import FactoredOps, apply_x, apply_y, dot_high, factored_ops
 
 # Block size of the factored derivative. Provisional rule, to be set
 # from H100 measurements: radix B = n / FACTOR_A where n >= 512 and
 # FACTOR_A divides n, else the dense circulant.
 FACTOR_A = 128
+
+PRECISIONS = ("f32", "high", "bf16")
+_PRECISION = "f32"
+
+
+def set_matmul_precision(p):
+    """The precision of the circulant-derivative products: 'f32',
+    'high' or 'bf16' (see the module docstring)."""
+    global _PRECISION
+    if p not in PRECISIONS:
+        raise ValueError(f"matmul precision {p!r}: one of {PRECISIONS}")
+    _PRECISION = p
+
+
+def matmul_precision():
+    """The precision in force (what the LenseFlow flows read)."""
+    return _PRECISION
+
+
+@contextlib.contextmanager
+def precision_ctx(p):
+    """Run the block at matmul precision p, then restore the previous one."""
+    prev = _PRECISION
+    set_matmul_precision(p)
+    try:
+        yield
+    finally:
+        set_matmul_precision(prev)
 
 
 def radix(n: int) -> int:
@@ -72,12 +109,24 @@ def deriv_mats(proj):
     return m
 
 
-def ddx_ddy(mats):
+def ddx_ddy(mats, precision="f32"):
     """(d/dx, d/dy) over (..., Ny, Nx) planes through the kernels'
-    operands: dense (DxT, Dy) circulants or FactoredOps."""
+    operands, dense (DxT, Dy) circulants or FactoredOps, at 'f32' or
+    'high'."""
+    if precision not in ("f32", "high"):
+        raise NotImplementedError(f"derivative products at {precision!r}: only 'f32' and 'high' "
+                                  "are ported (ROADMAP Queue 2)")
     if isinstance(mats, FactoredOps):
-        return (lambda a: apply_x(a, mats.FX, mats.bfx)), (lambda a: apply_y(a, mats.FY, mats.bfy))
+        high = precision == "high"
+        if high and mats.FXS is None:
+            raise ValueError("'high' factored derivatives need the split blocks "
+                             "(FactoredOps.FXS, FYTS) that factored_ops makes")
+        FXS, FYS = (mats.FXS, mats.FYTS.transpose(-1, -2)) if high else (None, None)
+        return ((lambda a: apply_x(a, mats.FX, mats.bfx, FXS)),
+                (lambda a: apply_y(a, mats.FY, mats.bfy, FYS)))
     DxT, Dy = mats
+    if precision == "high":
+        return (lambda a: dot_high(DxT, a, True)), (lambda a: dot_high(Dy, a, False))
     return (lambda a: a @ DxT), (lambda a: Dy @ a)
 
 

@@ -23,7 +23,9 @@ Packed layout, per axis: (C, A, A) with C = 2 + 2(B/2 - 1) = B, rows
 blocks are stored transposed, so that d/dx is a right product. The
 butterflies travel as a (2, B, B) tensor [Rf, Ri]. The y-axis blocks
 also travel transposed (FYT), the layout the CUDA tile stages for both
-axes (csrc/fact_tile.cuh).
+axes (csrc/fact_tile.cuh). For the 'high' precision the blocks travel
+split as well, (2, B, A, A) bfloat16 [head, residual] of FX and FYT
+(FXS, FYTS), split once per operator.
 """
 from __future__ import annotations
 
@@ -113,12 +115,17 @@ class FactoredOps(NamedTuple):
     FX (Bx, A, A) x-axis blocks (transposed), FY (By, A, A) y-axis
     blocks, bfx (2, Bx, Bx) and bfy (2, By, By) butterflies [Rf, Ri], and
     FYT, FY with each block transposed (what the CUDA kernels read; the
-    plain apply does not use it, and `fyt` makes it where it is missing)."""
+    plain apply does not use it, and `fyt` makes it where it is missing);
+    FXS and FYTS, FX and FYT split into bfloat16 [head, residual]
+    (2, B, A, A) for the 'high' precision, made by `factored_ops`; the
+    'high' apply and kernels take them as given."""
     FX: torch.Tensor
     FY: torch.Tensor
     bfx: torch.Tensor
     bfy: torch.Tensor
     FYT: torch.Tensor = None
+    FXS: torch.Tensor = None
+    FYTS: torch.Tensor = None
 
 
 def fyt(ops):
@@ -136,9 +143,10 @@ def factored_ops(proj, Bx, By):
         opx = factored_op(proj.Nx, d, dts, Bx)
         opy = factored_op(proj.Ny, d, dts, By)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=proj.device)
-        ops = FactoredOps(t(opx.packed(True)), t(opy.packed(False)),
-                          t(np.stack([opx.Rf, opx.Ri])), t(np.stack([opy.Rf, opy.Ri])),
-                          t(opy.packed(True)))
+        FX, FYT = t(opx.packed(True)), t(opy.packed(True))
+        ops = FactoredOps(FX, t(opy.packed(False)), t(np.stack([opx.Rf, opx.Ri])),
+                          t(np.stack([opy.Rf, opy.Ri])), FYT, torch.stack(split_bf16(FX)),
+                          torch.stack(split_bf16(FYT)))
         proj._tensors[key] = ops
     return ops
 
@@ -168,19 +176,52 @@ def _butterfly(planes, R):
     return [sum(R[c, r] * planes[r] for r in range(len(planes))) for c in range(R.shape[0])]
 
 
-def apply_x(x, FX, bf):
-    """d/dx of (..., Ny, Nx) through the packed factored x operator."""
+def split_bf16(x):
+    """(head, residual) of a float tensor as bfloat16, each rounded to
+    nearest even: head = bf16(x), residual = bf16(x - head)."""
+    h = x.to(torch.bfloat16)
+    return h, (x - h.to(x.dtype)).to(torch.bfloat16)
+
+
+def dot_high(M, v, right, Ms=None):
+    """M v (v M when `right`) at the 'high' precision, as the JAX
+    package's ``_mk_dot('high')``: operands split into bfloat16 head and
+    residual, the three significant products (hh, lh, hl) each exact in
+    float32 and summed in float32 in its order, (hh + hl) + lh. Ms is
+    M's split when the caller holds it."""
+    Mh, Ml = (t.float() for t in (Ms if Ms is not None else split_bf16(M)))
+    vh, vl = (t.float() for t in split_bf16(v))
+    if right:
+        return (vh @ Mh + vh @ Ml) + vl @ Mh
+    return (Mh @ vh + Ml @ vh) + Mh @ vl
+
+
+def _blocks_and_dot(G, right, S):
+    """What `_blocks` takes for one axis: the blocks and their product, in
+    FP32 (S None) or at 'high', where each block travels with its split, S
+    the axis' split blocks (2, B, A, A) in G's layout."""
+    if S is None:
+        return G, (lambda M, v: v @ M) if right else torch.matmul
+    return ([(G[c], (S[0, c], S[1, c])) for c in range(G.shape[0])],
+            lambda Mp, v: dot_high(Mp[0], v, right, Mp[1]))
+
+
+def apply_x(x, FX, bf, split=None):
+    """d/dx of (..., Ny, Nx) through the packed factored x operator, in
+    FP32, or at 'high' given FX's split blocks `split` (FactoredOps.FXS)."""
     B, A = FX.shape[0], FX.shape[-1]
     xr = x.reshape(x.shape[:-1] + (B, A))
     u = _butterfly([xr[..., r, :] for r in range(B)], bf[0])
-    y = _blocks(u, FX, lambda M, v: torch.matmul(v, M))
+    y = _blocks(u, *_blocks_and_dot(FX, True, split))
     return torch.stack(_butterfly(y, bf[1]), dim=-2).reshape(x.shape)
 
 
-def apply_y(x, FY, bf):
-    """d/dy of (..., Ny, Nx) through the packed factored y operator."""
+def apply_y(x, FY, bf, split=None):
+    """d/dy of (..., Ny, Nx) through the packed factored y operator, in
+    FP32, or at 'high' given FY's split blocks `split` (FactoredOps.FYTS
+    with each block transposed back)."""
     B, A = FY.shape[0], FY.shape[-1]
     xr = x.reshape(x.shape[:-2] + (B, A, x.shape[-1]))
     u = _butterfly([xr[..., r, :, :] for r in range(B)], bf[0])
-    y = _blocks(u, FY, torch.matmul)
+    y = _blocks(u, *_blocks_and_dot(FY, False, split))
     return torch.stack(_butterfly(y, bf[1]), dim=-3).reshape(x.shape)

@@ -50,6 +50,16 @@ its launchers once and calls them at every stage.
 phi enters as a (..., 5, Ny, Nx) tensor of planes (gx, gy, hxx, hxy,
 hyy), p(t) as pt, (2, ..., Ny, Nx) planes (p_x, p_y); mats is what
 ops/deriv.py::deriv_ops returns.
+
+Precision: the public flows and `gradhess` run at the matmul precision
+in force (ops/deriv.py) unless given one. 'f32' is the kernels above;
+'high' (the JAX package's bf16 head/residual split, `_mk_dot('high')` /
+`_make_ddx_ddy` 'high') runs the factored kernels' tensor-core tier
+(the `high` argument of lf_fderiv, lf_fa_velocity and lf_bv_velocity,
+csrc/factored.cu) and, for a CPU tensor, the plain 'high'
+leaves, dense or factored. With no 'high' kernel for it, the dense form
+on the card and the uni granularity raise NotImplementedError (ROADMAP
+Queue 2), as does 'bf16' everywhere: none of them runs strict instead.
 """
 from __future__ import annotations
 
@@ -74,7 +84,9 @@ CUDA_ERROR_INVALID_VALUE = 1   # what a kernel's C entry returns for arguments i
 LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0,
             "rk4_update": 0, "p_planes": 0, "deriv": 0, "fderiv": 0, "fa_velocity_forward": 0,
             "fa_velocity_adjoint": 0, "bv_velocity": 0, "uni_role0": 0, "uni_role1": 0,
-            "uni_role2": 0, "uni_role3": 0}
+            "uni_role2": 0, "uni_role3": 0, "fderiv_high": 0, "fa_velocity_forward_high": 0,
+            "fa_velocity_adjoint_high": 0, "bv_velocity_high": 0}
+PRECISIONS = ("f32", "high")   # the tiers the flows are ported at
 
 
 def reset_launches():
@@ -112,11 +124,11 @@ def p_planes_plain(t, phi, out):
     out[1].copy_(py)
 
 
-def velocity_plain(kind, y, k, phi, pt, mats, ncomp, t):
+def velocity_plain(kind, y, k, phi, pt, mats, ncomp, t, precision="f32"):
     """k <- the velocity of flow `kind` at state y (..., nstate, Ny, Nx),
     time t, phi (..., 5, Ny, Nx), pt its p(t) planes (2, ..., Ny, Nx);
-    dense (DxT, Dy) or factored operands."""
-    dx, dy = _deriv.ddx_ddy(mats)
+    dense (DxT, Dy) or factored operands, derivatives at `precision`."""
+    dx, dy = _deriv.ddx_ddy(mats, precision)
     px, py = pt[0].unsqueeze(-3), pt[1].unsqueeze(-3)
     if kind == "forward":
         k.copy_(px * dx(y) + py * dy(y))
@@ -152,10 +164,10 @@ def rk4_update_plain(y, k, acc, s, stage, wacc, ws):
         torch.add(acc, k, alpha=wacc, out=y)
 
 
-def deriv_plain(a, b, c, out, mats):
+def deriv_plain(a, b, c, out, mats, precision="f32"):
     """out <- d_x a + d_y b + c (a, b or c may be None), dense or
-    factored."""
-    dx, dy = _deriv.ddx_ddy(mats)
+    factored, at `precision`."""
+    dx, dy = _deriv.ddx_ddy(mats, precision)
     v = torch.zeros_like(out)
     if a is not None:
         v = v + dx(a)
@@ -218,22 +230,27 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-_OPERANDS = {}   # id(mats) -> (mats, tensors, pointers): operand sets already checked
+_OPERANDS = {}   # (id(mats), precision) -> (mats, tensors, pointers): sets already checked
 
 
-def _operands(name, mats, like):
+def _operands(name, mats, like, precision="f32"):
     """The derivative operands a kernel reads from `mats`, (DxT, Dy) or a
-    FactoredOps' (FX, FYT, bfx, bfy), as tensors and ready ctypes
-    pointers. Device, type and contiguity are checked the first time an
-    operand set is seen (a flow hands the same set to every launch); that
-    it lies on `like`'s device, every time."""
-    hit = _OPERANDS.get(id(mats))
+    FactoredOps' (FX, FYT, bfx, bfy) (at 'high' (FXS, FYTS, bfx, bfy)), as
+    tensors and ready ctypes pointers. Device, type and contiguity are
+    checked the first time an operand set is seen (a flow hands the same
+    set to every launch); that it lies on `like`'s device, every time."""
+    hit = _OPERANDS.get((id(mats), precision))
     if hit is None or hit[0] is not mats:
-        tensors = _fops(mats) if isinstance(mats, FactoredOps) else tuple(mats)
-        _check_cuda(name, tensors, TILE, TILE)
+        tensors = _fops(mats, precision) if isinstance(mats, FactoredOps) else tuple(mats)
+        _check_cuda(name, tensors[2:] if precision == "high" else tensors, TILE, TILE)
+        if precision == "high" and not all(
+                x is not None and x.dtype == torch.bfloat16 and x.is_contiguous()
+                and x.device == tensors[2].device for x in tensors[:2]):
+            raise ValueError(f"{name}: the split blocks must be contiguous bfloat16 on the "
+                             "butterflies' CUDA device")
         if len(_OPERANDS) >= 8:
             _OPERANDS.clear()
-        hit = _OPERANDS[id(mats)] = (mats, tensors, tuple(map(_ptr, tensors)))
+        hit = _OPERANDS[(id(mats), precision)] = (mats, tensors, tuple(map(_ptr, tensors)))
     if hit[1][0].device != like.device:
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
     return hit[1], hit[2]
@@ -340,19 +357,33 @@ def _check_factored(name, ops, Ny, Nx):
     return Bx, By
 
 
-def _fops(ops):
+def _fops(ops, precision="f32"):
     """The operands the factored kernels read: x blocks, transposed y
-    blocks, the two butterflies."""
+    blocks (at 'high' both split), the two butterflies."""
+    if precision == "high":
+        return ops.FXS, ops.FYTS, ops.bfx, ops.bfy
     return ops.FX, fyt(ops), ops.bfx, ops.bfy
 
 
-def fderiv_cuda(a, b, c, out, ops):
+_SUFFIX = ("", "_high")   # a 'high' launch's counter suffix, by the C entries' `high`
+
+
+def _high_arg(precision):
+    """The factored C entries' `high` argument for `precision`."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"factored kernels at precision {precision!r}")
+    return int(precision == "high")
+
+
+def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     """K1: out <- d_x a + d_y b + c through the factored derivative
-    kernel, one launch per derivative given; out must not alias a or b."""
+    kernel at `precision` ('f32' or 'high'), one launch per derivative
+    given; out must not alias a or b."""
     from . import _build
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
-    _, fptrs = _operands("lf_fderiv", ops, out)
+    high = _high_arg(precision)
+    _, fptrs = _operands("lf_fderiv", ops, out, precision)
     _check_cuda("lf_fderiv", [out, *given], Ny, Nx)
     Bx, By = _check_factored("lf_fderiv", ops, Ny, Nx)
     if a is None and b is None:
@@ -362,10 +393,10 @@ def fderiv_cuda(a, b, c, out, ops):
     if any(x is not None and x.data_ptr() == out.data_ptr() for x in (a, b)):
         raise ValueError("lf_fderiv: out must not alias a or b")
     nplanes = out.numel() // (Ny * Nx)
-    rc = _build.load().lf_fderiv(_ptr(a), _ptr(b), _ptr(c), _ptr(out), *fptrs, Bx, By, nplanes,
-                                 Ny, Nx, _stream())
+    rc = _build.load().lf_fderiv(high, _ptr(a), _ptr(b), _ptr(c), _ptr(out), *fptrs, Bx, By,
+                                 nplanes, Ny, Nx, _stream())
     _raise_on(rc, "lf_fderiv")
-    LAUNCHES["fderiv"] += (a is not None) + (b is not None)
+    LAUNCHES["fderiv" + _SUFFIX[high]] += (a is not None) + (b is not None)
 
 
 def _check_batched_state(name, y, k, phi, pt, nstate):
@@ -378,30 +409,33 @@ def _check_batched_state(name, y, k, phi, pt, nstate):
     return nb
 
 
-def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp):
-    """launch(t): K3 (forward, adjoint) or K4 (backward), k <- the velocity
-    of flow `kind` at the batched (nb, nstate, Ny, Nx) state y; phi is
-    (nb, 5, Ny, Nx), pt its p(t) planes (2, nb, Ny, Nx). Two launches
-    (x pass, y pass)."""
+def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
+    """launch(t): K3 (forward, adjoint) or K4 (backward) at `precision`
+    ('f32' or 'high'), k <- the velocity of flow `kind` at the batched (nb,
+    nstate, Ny, Nx) state y; phi is (nb, 5, Ny, Nx), pt its p(t) planes
+    (2, nb, Ny, Nx). Two launches (x pass, y pass)."""
     from . import _build
     Ny, Nx = y.shape[-2:]
     lib = _build.load()
+    high = _high_arg(precision)
     name = "lf_bv_velocity" if kind == "backward" else "lf_fa_velocity"
-    _, fptrs = _operands(name, ops, y)
+    _, fptrs = _operands(name, ops, y, precision)
     _check_cuda(name, [y, k, phi, pt], Ny, Nx)
     Bx, By = _check_factored(name, ops, Ny, Nx)
     if kind == "backward":
         nb = _check_batched_state(name, y, k, phi, pt, 2 * ncomp + NACC)
-        return _launcher(lib.lf_bv_velocity, name, "bv_velocity", 2,
-                         (_ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *fptrs, Bx, By, nb, ncomp, Ny, Nx))
+        return _launcher(lib.lf_bv_velocity, name, "bv_velocity" + _SUFFIX[high], 2,
+                         (high, _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *fptrs, Bx, By, nb, ncomp,
+                          Ny, Nx))
     nb = _check_batched_state(name, y, k, phi, pt, ncomp)
-    fa = _launcher(lib.lf_fa_velocity, name, "fa_velocity_" + kind, 2,
-                   (ROLES[kind], _ptr(y), _ptr(k), _ptr(pt), *fptrs, Bx, By, nb, ncomp, Ny, Nx))
+    fa = _launcher(lib.lf_fa_velocity, name, "fa_velocity_" + kind + _SUFFIX[high], 2,
+                   (high, ROLES[kind], _ptr(y), _ptr(k), _ptr(pt), *fptrs, Bx, By, nb, ncomp, Ny,
+                    Nx))
     return lambda t: fa()   # K3 takes no time: p(t) reaches it as planes
 
 
-def fvelocity_cuda(kind, y, k, phi, pt, ops, ncomp, t):
-    fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp)(float(t))
+def fvelocity_cuda(kind, y, k, phi, pt, ops, ncomp, t, precision="f32"):
+    fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision)(float(t))
 
 
 def _plane_strides(name, x, Ny, Nx):
@@ -499,6 +533,19 @@ KERNEL = _Leaves(velocity_cuda, rk4_update_cuda, deriv_cuda, p_planes_cuda, Fals
 FPLAIN = _Leaves(fvelocity_plain, rk4_update_plain, fderiv_plain, p_planes_plain, True)
 FKERNEL = _Leaves(fvelocity_cuda, rk4_update_cuda, fderiv_cuda, p_planes_cuda, True,
                   (fvelocity_launcher, rk4_update_launcher, p_planes_launcher))
+# 'high': the plain leaves' derivatives split, the factored kernels' tensor-core tier
+_high = functools.partial(functools.partial, precision="high")
+PLAIN_HIGH = _Leaves(_high(velocity_plain), rk4_update_plain, _high(deriv_plain), p_planes_plain,
+                     False)
+FPLAIN_HIGH = _Leaves(_high(fvelocity_plain), rk4_update_plain, _high(fderiv_plain),
+                      p_planes_plain, True)
+FKERNEL_HIGH = _Leaves(_high(fvelocity_cuda), rk4_update_cuda, _high(fderiv_cuda), p_planes_cuda,
+                       True, (_high(fvelocity_launcher), rk4_update_launcher, p_planes_launcher))
+# (device type, factored, precision) -> leaves
+_LEAVES = {("cpu", False, "f32"): PLAIN, ("cpu", True, "f32"): FPLAIN,
+           ("cuda", False, "f32"): KERNEL, ("cuda", True, "f32"): FKERNEL,
+           ("cpu", False, "high"): PLAIN_HIGH, ("cpu", True, "high"): FPLAIN_HIGH,
+           ("cuda", True, "high"): FKERNEL_HIGH}
 # the uni granularity: no derivative leaf (phi's planes come from the
 # kernel path's `gradhess`, delta phi from role 1)
 UPLAIN = _Leaves(functools.partial(_uni_velocity, uni_velocity_plain), rk4_update_plain, None,
@@ -507,22 +554,38 @@ UKERNEL = _Leaves(functools.partial(_uni_velocity, uni_velocity_cuda), rk4_updat
                   p_planes_cuda, True)
 
 
-def _leaves_for(x, mats):
+def _precision(precision):
+    """The precision asked for, or the one in force; 'bf16' is refused."""
+    p = _deriv.matmul_precision() if precision is None else precision
+    if p not in PRECISIONS:
+        raise NotImplementedError(f"LenseFlow flows at precision {p!r}: the 'bf16' tier of the "
+                                  "flow kernels is not ported (ROADMAP Queue 2)")
+    return p
+
+
+def _leaves_for(x, mats, precision=None):
     """The plain version for a CPU tensor, the kernel for a CUDA tensor;
-    factored or dense by the operands."""
+    factored or dense by the operands; at `precision` (the one in force
+    when None)."""
+    p = _precision(precision)
     factored = isinstance(mats, FactoredOps)
-    if x.device.type == "cpu":
-        return FPLAIN if factored else PLAIN
-    if x.device.type == "cuda":
-        return FKERNEL if factored else KERNEL
-    raise ValueError(f"no LenseFlow kernel for device {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no LenseFlow kernel for device {x.device}")
+    leaves = _LEAVES.get((x.device.type, factored, p))
+    if leaves is None:
+        raise NotImplementedError("the dense flow kernels (K2, below 512^2) have no 'high' tier "
+                                  "on the card yet (ROADMAP Queue 2, K2 'high')")
+    return leaves
 
 
-def _plain_for(mats):
-    return FPLAIN if isinstance(mats, FactoredOps) else PLAIN
+def _plain_for(mats, precision=None):
+    return _LEAVES[("cpu", isinstance(mats, FactoredOps), _precision(precision))]
 
 
-def _uni_leaves_for(x):
+def _uni_leaves_for(x, precision=None):
+    if _precision(precision) != "f32":
+        raise NotImplementedError("the uni granularity (K5) has no 'high' tier yet (ROADMAP "
+                                  "Queue 2, K5 'high')")
     if x.device.type == "cpu":
         return UPLAIN
     if x.device.type == "cuda":
@@ -650,36 +713,38 @@ def _flow_bwd(leaves, dy, f1, phi, mats, t0, t1, nsteps):
     return _over_batch(leaves, one, dy, f1, phi)
 
 
-def gradhess(phi_map, mats):
+def gradhess(phi_map, mats, precision=None):
     """(..., 5, Ny, Nx) planes (gx, gy, hxx, hxy, hyy) of a (..., 1, Ny,
     Nx) map through the derivative kernel (plain version on the CPU)."""
-    return _gradhess(_leaves_for(phi_map, mats), phi_map, mats)
+    return _gradhess(_leaves_for(phi_map, mats, precision), phi_map, mats)
 
 
-def flow_apply(f_map, phi, mats, t0, t1, nsteps, kind="forward"):
+def flow_apply(f_map, phi, mats, t0, t1, nsteps, kind="forward", precision=None):
     """Integrate the forward or adjoint flow of the (..., ncomp, Ny, Nx)
     map f_map from t0 to t1; phi (..., 5, Ny, Nx) from `gradhess`."""
     if kind not in ("forward", "adjoint"):
         raise ValueError(kind)
-    return _flow_apply(_leaves_for(f_map, mats), f_map, phi, mats, t0, t1, nsteps, kind)
+    return _flow_apply(_leaves_for(f_map, mats, precision), f_map, phi, mats, t0, t1, nsteps,
+                       kind)
 
 
-def flow_bwd(dy, f1, phi, mats, t0, t1, nsteps):
+def flow_bwd(dy, f1, phi, mats, t0, t1, nsteps, precision=None):
     """Integrate the transpose-delta system from t1 back to t0, starting
-    at (f1, dy, 0); returns (dphi (..., 1, Ny, Nx), df0)."""
-    return _flow_bwd(_leaves_for(f1, mats), dy, f1, phi, mats, t0, t1, nsteps)
+    at (f1, dy, 0); returns (dphi (..., 1, Ny, Nx), df0). The three delta
+    phi derivatives after the loop run at the same precision."""
+    return _flow_bwd(_leaves_for(f1, mats, precision), dy, f1, phi, mats, t0, t1, nsteps)
 
 
-def gradhess_plain(phi_map, mats):
-    return _gradhess(_plain_for(mats), phi_map, mats)
+def gradhess_plain(phi_map, mats, precision=None):
+    return _gradhess(_plain_for(mats, precision), phi_map, mats)
 
 
-def flow_apply_plain(f_map, phi, mats, t0, t1, nsteps, kind="forward"):
-    return _flow_apply(_plain_for(mats), f_map, phi, mats, t0, t1, nsteps, kind)
+def flow_apply_plain(f_map, phi, mats, t0, t1, nsteps, kind="forward", precision=None):
+    return _flow_apply(_plain_for(mats, precision), f_map, phi, mats, t0, t1, nsteps, kind)
 
 
-def flow_bwd_plain(dy, f1, phi, mats, t0, t1, nsteps):
-    return _flow_bwd(_plain_for(mats), dy, f1, phi, mats, t0, t1, nsteps)
+def flow_bwd_plain(dy, f1, phi, mats, t0, t1, nsteps, precision=None):
+    return _flow_bwd(_plain_for(mats, precision), dy, f1, phi, mats, t0, t1, nsteps)
 
 
 def _uni_flow_bwd(leaves, dy, f1, phi, mats, t0, t1, nsteps):
@@ -696,18 +761,20 @@ def _uni_flow_bwd(leaves, dy, f1, phi, mats, t0, t1, nsteps):
     return _over_batch(leaves, one, dy, f1, phi)
 
 
-def uni_flow_apply(f_map, phi, mats, t0, t1, nsteps, kind="forward"):
+def uni_flow_apply(f_map, phi, mats, t0, t1, nsteps, kind="forward", precision=None):
     """`flow_apply` at the uni granularity: every velocity through the
-    universal kernel (roles 2, 3), its plain version on the CPU."""
+    universal kernel (roles 2, 3), its plain version on the CPU; strict
+    float32 only."""
     if kind not in ("forward", "adjoint"):
         raise ValueError(kind)
-    return _flow_apply(_uni_leaves_for(f_map), f_map, phi, mats, t0, t1, nsteps, kind)
+    return _flow_apply(_uni_leaves_for(f_map, precision), f_map, phi, mats, t0, t1, nsteps, kind)
 
 
-def uni_flow_bwd(dy, f1, phi, mats, t0, t1, nsteps):
+def uni_flow_bwd(dy, f1, phi, mats, t0, t1, nsteps, precision=None):
     """`flow_bwd` at the uni granularity (roles 0, 1), delta phi integrated
-    in the state; returns (dphi (..., 1, Ny, Nx), df0)."""
-    return _uni_flow_bwd(_uni_leaves_for(f1), dy, f1, phi, mats, t0, t1, nsteps)
+    in the state; returns (dphi (..., 1, Ny, Nx), df0); strict float32
+    only."""
+    return _uni_flow_bwd(_uni_leaves_for(f1, precision), dy, f1, phi, mats, t0, t1, nsteps)
 
 
 def uni_flow_apply_plain(f_map, phi, mats, t0, t1, nsteps, kind="forward"):

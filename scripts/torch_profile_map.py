@@ -2,10 +2,13 @@
 per LenseFlow backend, on one CUDA card.
 
     python scripts/torch_profile_map.py [--backends kernel uni] [--steps 2] [--grad256]
-                                        [--host-ab]
+                                        [--host-ab] [--precision auto|f32]
 
 Runs MAP_joint as chip_smoke.py phase 7 does (load_sim at 1024^2 P,
-thetapix 2, seed 0; grid line search; 15 fixed CG iterations). For each
+thetapix 2, seed 0; grid line search; 15 fixed CG iterations), strict
+everywhere (--precision f32, the default: precision=None) or at the JAX
+package's default precision "auto" (--precision auto, as chip_smoke.py
+phase 9; the uni backend has no 'high' tier and refuses it). For each
 backend: 2 warm-up steps, an unprofiled run of --steps steps for the
 wall time, then the same run under torch.profiler (CUDA activity only).
 Prints per step: wall s, device ms and the device's busy share, and the
@@ -51,7 +54,9 @@ def main():
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--grad256", action="store_true")
     ap.add_argument("--host-ab", action="store_true")
+    ap.add_argument("--precision", choices=("auto", "f32"), default="f32")
     args = ap.parse_args()
+    precision = None if args.precision == "f32" else "auto"
     import torch
     if not torch.cuda.is_available():
         print("torch_profile_map: needs a CUDA card", file=sys.stderr)
@@ -63,7 +68,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     ds = ct.load_sim(thetapix=2, Nside=1024, pol="P", T=np.float32, seed=0)["ds"]
-    run = lambda n: ct.MAP_joint(ds, nsteps=n, linesearch="grid",
+    run = lambda n: ct.MAP_joint(ds, nsteps=n, linesearch="grid", precision=precision,
                                  conjgrad_kwargs=dict(tol=0.0, nsteps=15, fixed_iters=True))
     for backend in args.backends:
         with ct.lenseflow_backend_ctx(backend):
@@ -76,17 +81,19 @@ def main():
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 run(args.steps)
                 torch.cuda.synchronize()
-        report(prof, args.steps, wall, f"{backend} [1024^2 P, {args.steps} steps; {card}]", "step",
-               args.top)
+        report(prof, args.steps, wall,
+               f"{backend}, precision {args.precision} [1024^2 P, {args.steps} steps; {card}]",
+               "step", args.top)
     if args.host_ab:
         from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
         per_flow = lfk.FKERNEL
         per_launch = lfk._Leaves(lfk.fvelocity_cuda, lfk.rk4_update_cuda, lfk.fderiv_cuda,
                                  lfk.p_planes_cuda, True)
         turns = (("per flow", per_flow), ("per launch", per_launch))
+        key = ("cuda", True, "f32")   # the strict factored kernel leaves _leaves_for picks
         try:
             for label, leaves in (turns + turns[::-1]) * 2:
-                lfk.FKERNEL = leaves
+                lfk._LEAVES[key] = leaves
                 run(1)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -96,7 +103,7 @@ def main():
                       f"{(time.perf_counter() - t0) / args.steps:.4f} s/step wall "
                       f"[1024^2 P, {args.steps} steps; {card}]")
         finally:
-            lfk.FKERNEL = per_flow
+            lfk._LEAVES[key] = per_flow
     if args.grad256:
         sim = ct.load_sim(thetapix=3, Nside=256, pol="P", T=np.float32, seed=0)
         ds = sim["ds"]

@@ -11,6 +11,25 @@ relative error in any form (dense circulants or FFT, measured against
 float64 at 256^2), so two FP32 summation orders differ by as much.
 The factored kernels (csrc/factored.cu) are checked at 1024^2, the size
 whose radix (B = 8) the main path runs, and at 512^2 (B = 4).
+
+Their 'high' tier (bf16 head/residual split on the tensor cores) is held
+to its plain 'high' version at 2e-5: the two split the same FP32 values,
+but a butterflied channel value that differs by one ulp between the two
+summation orders may round its bf16 head the other way, which moves its
+residual's rounding error, ~2^-17 of the operand; and to the strict
+kernel at 1e-3, the operator error of the split (~2^-17 relative per
+product term, summed over the contraction). Those bounds alone would pass
+a 'high' entry that ran strict FP32, or split otherwise than round to
+nearest even; what tells them apart is that such rounding flips touch
+about one value in 128 while the split's error touches every value. So
+each plane is also held in relative Frobenius norm: its distance to the
+plain 'high' version under HIGH_SPLIT_RATIO of its distance to strict
+(on the CPU a reordered butterfly gives 0.09-0.14, a truncating split
+1.05, a split without the operand's residual 1.00:
+tests/test_torch_high.py::test_split_ratio_tells_the_rne_split_apart).
+A whole flow adds its RK4 sums' FP32 reassociation to both distances,
+so it is held only to lie nearer its plain 'high' version than the
+strict flow (FLOW_SPLIT_RATIO; strict kernels would give infinity).
 """
 import numpy as np
 import pytest
@@ -24,10 +43,20 @@ from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
 TOL = 1e-5
 HESS_TOL = 5e-4
 NSTEPS = 3
+HIGH_TOL, HIGH_VS_STRICT, HIGH_SPLIT_RATIO, FLOW_SPLIT_RATIO = 2e-5, 1e-3, 0.5, 1.0
 
 
 def rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
+
+
+def split_ratio(high, plain, strict):
+    """The largest, over the planes (leading axes flattened), of a 'high'
+    result's relative Frobenius distance to its plain 'high' version over
+    that to the strict result."""
+    fro = lambda a, b: float((a.double() - b.double()).norm() / b.double().norm())
+    return max(fro(h, q) / fro(h, st) for h, q, st in
+               zip(*(x.reshape(-1, *x.shape[-2:]) for x in (high, plain, strict))))
 
 
 def _weak_lensing(N, ncomp=2, seed=1):
@@ -275,3 +304,128 @@ def test_entry_points_default_to_the_card():
     assert ct.ProjLambert(32, 32, thetapix=3).device.type == "cuda"
     sim = ct.load_sim(thetapix=3, Nside=32, pol="P", seed=0)
     assert sim["proj"].device.type == "cuda" and sim["ds"].d.arr.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 17])
+@pytest.mark.parametrize("N", [512, 1024])
+def test_factored_high_kernels_match_plain_high_on_card(N, nb):
+    """The 'high' tier of K1, K3 (both roles) and K4 on the tensor cores
+    against their plain 'high' versions (HIGH_TOL) and the strict kernels
+    (HIGH_VS_STRICT), one launch each, every batch entry and output plane
+    on its own; the 'high' counters count their launches."""
+    _card()
+    tp = ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda")
+    ops = tderiv.deriv_ops(tp)
+    assert ops.FXS.dtype == torch.bfloat16 and ops.FXS.shape == (2,) + tuple(ops.FX.shape)
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), ops)
+    planes = torch.stack([planes * (1 - 0.05 * i) for i in range(nb)])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    T = lambda *s: torch.randn(s, generator=g, device="cuda")
+    each = lambda x, y: max(rel(x[i, j], y[i, j]) for i in range(x.shape[0])
+                            for j in range(x.shape[1]))
+
+    def check(shape, kernel, plain):
+        """kernel(out, precision) against plain(out) and the strict kernel."""
+        o1, o2, o3 = (torch.full(shape, float("nan"), device="cuda") for _ in range(3))
+        kernel(o1, "high")
+        plain(o2)
+        kernel(o3, "f32")
+        e = (each(o1, o2), each(o1, o3), split_ratio(o1, o2, o3))
+        print(f"'high' kernel N={N} nb={nb} shape {tuple(shape)}: vs plain 'high' {e[0]:.3e}, "
+              f"vs strict {e[1]:.3e}, Frobenius ratio {e[2]:.3f}")
+        assert e[0] < HIGH_TOL and e[1] < HIGH_VS_STRICT and e[2] < HIGH_SPLIT_RATIO, e
+
+    lfk.reset_launches()
+    a, b, c = T(nb, 1, N, N), T(nb, 1, N, N), T(nb, 1, N, N)
+    for args in ((a, None, None), (None, b, None), (a, b, c)):
+        check(a.shape, lambda o, p: lfk.fderiv_cuda(*args, o, ops, p),
+              lambda o: lfk.fderiv_plain(*args, o, ops, "high"))
+    assert lfk.LAUNCHES["fderiv_high"] == 4
+    y = T(nb, 2, N, N)
+    pt = _p_planes(0.3, planes)
+    for kind in ("forward", "adjoint"):
+        check(y.shape, lambda o, p: lfk.fvelocity_cuda(kind, y, o, planes, pt, ops, 2, 0.3, p),
+              lambda o: lfk.fvelocity_plain(kind, y, o, planes, pt, ops, 2, 0.3, "high"))
+        assert lfk.LAUNCHES[f"fa_velocity_{kind}_high"] == 2
+    yb = torch.cat([T(nb, 4, N, N), 1e-3 * T(nb, lfk.NACC, N, N)], dim=1)
+    pt = _p_planes(0.7, planes)
+    check(yb.shape, lambda o, p: lfk.fvelocity_cuda("backward", yb, o, planes, pt, ops, 2, 0.7, p),
+          lambda o: lfk.fvelocity_plain("backward", yb, o, planes, pt, ops, 2, 0.7, "high"))
+    assert lfk.LAUNCHES["bv_velocity_high"] == 2
+
+
+@pytest.mark.cuda
+def test_factored_high_flows_match_plain_high_on_card():
+    """Whole K3 flows (L, L^-1, L^H) and a K4 backward flow at 'high' at
+    1024^2 against their plain 'high' versions, on a Cphi-drawn phi and
+    Cf-drawn f, under precision_ctx: the flows read the precision in
+    force, at the main path's nsteps (7; at 2 steps this 1024^2 flow is
+    under-resolved and amplifies the operator error many times over). Each output plane within HIGH_TOL of the
+    plain 'high' flow (chip_smoke.py phase 9 measured 1.0e-6 to 3.2e-6)
+    and HIGH_VS_STRICT of the strict flow, and its Frobenius distance to
+    the plain 'high' flow under FLOW_SPLIT_RATIO of that to the strict
+    flow. grad/Hess phi at 'high' is held by that ratio alone, per plane: the
+    derivatives of this red phi are small against the operand whose split
+    rounding they inherit, and the Hessian differentiates that rounding
+    once more, so their max-abs distances to either reference say little
+    about which tier ran."""
+    _card()
+    N = 1024
+    tp = ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda")
+    ops = tderiv.deriv_ops(tp)
+    rng = np.random.default_rng(2)
+    Cl = ct.camb()
+    white = lambda n, pol: ct.Field(torch.as_tensor(
+        rng.standard_normal((n, N, N)).astype(np.float32), device="cuda"), ct.Basis(pol, "map"), tp)
+    pt = (ct.Cl_to_Cov("I", tp, Cl["total"]["pp"]).sqrt() @ white(1, "I")).to(ct.MAP).arr
+    Cf = ct.Cl_to_Cov("P", tp, Cl["unlensed_scalar"]["EE"], Cl["unlensed_scalar"]["BB"])
+    ft = (Cf.sqrt() @ white(2, "QU")).to(ct.QU_MAP).arr.contiguous()
+    dyt = white(2, "QU").arr
+    planes = lfk.gradhess(pt, ops)
+    lfk.reset_launches()
+    each = lambda x, y: max(rel(a, b) for a, b in zip(x.reshape(-1, N, N), y.reshape(-1, N, N)))
+    nsteps, found = 7, {}
+    with tderiv.precision_ctx("high"):
+        high, plain = lfk.gradhess(pt, ops), lfk.gradhess_plain(pt, ops)
+        found["gradhess"] = (None, None, split_ratio(high, plain, planes))
+        for kind, t0, t1 in (("forward", 0., 1.), ("forward", 1., 0.), ("adjoint", 1., 0.)):
+            k = lfk.flow_apply(ft, planes, ops, t0, t1, nsteps, kind)
+            p = lfk.flow_apply_plain(ft, planes, ops, t0, t1, nsteps, kind)
+            st = lfk.flow_apply(ft, planes, ops, t0, t1, nsteps, kind, "f32")
+            found[(kind, t0)] = (each(k, p), each(k, st), split_ratio(k, p, st))
+        k = lfk.flow_bwd(dyt, ft, planes, ops, 0., 1., nsteps)
+        for name, x, y, z in zip(("backward dphi", "backward df0"), k,
+                                 lfk.flow_bwd_plain(dyt, ft, planes, ops, 0., 1., nsteps),
+                                 lfk.flow_bwd(dyt, ft, planes, ops, 0., 1., nsteps, "f32")):
+            found[name] = (each(x, y), each(x, z), split_ratio(x, y, z))
+    print("'high' flows (vs plain 'high', vs strict, Frobenius ratio):", found)
+    assert found.pop("gradhess")[2] < HIGH_SPLIT_RATIO
+    assert all(r < FLOW_SPLIT_RATIO for _, _, r in found.values()), found
+    assert all(e < HIGH_TOL and s < HIGH_VS_STRICT for e, s, _ in found.values()), found
+    assert all(lfk.LAUNCHES[k + "_high"] > 0
+               for k in ("fderiv", "fa_velocity_forward", "fa_velocity_adjoint", "bv_velocity"))
+
+
+@pytest.mark.cuda
+def test_dense_and_uni_high_raise_on_card():
+    """No 'high' kernel yet for the dense K2 (below 512^2) or K5: on the
+    card they raise, never running strict in its place."""
+    _card()
+    tp = ct.ProjLambert(64, 64, thetapix=3, T=np.float32, device="cuda")
+    phi, f, dy = _weak_lensing(N=64)
+    pt, ft = torch.as_tensor(phi, device="cuda"), torch.as_tensor(f, device="cuda")
+    mats = tderiv.deriv_mats(tp)
+    planes = lfk.gradhess(pt, mats)
+    lfk.reset_launches()
+    with tderiv.precision_ctx("high"):
+        with pytest.raises(NotImplementedError, match="Queue 2"):
+            lfk.flow_apply(ft, planes, mats, 0., 1., 1)
+        with pytest.raises(NotImplementedError, match="Queue 2"):
+            lfk.gradhess(pt, mats)
+        ops = tderiv.deriv_ops(ct.ProjLambert(512, 512, thetapix=2, T=np.float32, device="cuda"))
+        f512 = torch.zeros((2, 512, 512), device="cuda")
+        with pytest.raises(NotImplementedError, match="K5 'high'"):
+            lfk.uni_flow_apply(f512, torch.zeros((5, 512, 512), device="cuda"), ops, 0., 1., 1)
+    assert all(v == 0 for v in lfk.LAUNCHES.values())

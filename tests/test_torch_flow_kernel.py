@@ -160,7 +160,7 @@ def test_autograd_functions_gradcheck_f64(backend, fn):
     f = torch.as_tensor(f).requires_grad_(True)
     F = tlf._LenseflowApply if fn == "apply" else tlf._LenseflowApplyAdjoint
     assert torch.autograd.gradcheck(
-        lambda x, f: F.apply(x * PHI_SCALE, f, 0., 1., 7, tp, backend),
+        lambda x, f: F.apply(x * PHI_SCALE, f, 0., 1., 7, tp, backend, "f32"),
         (x, f), eps=1e-6, atol=1e-6, rtol=1e-4, fast_mode=True)
 
 

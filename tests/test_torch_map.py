@@ -1,6 +1,8 @@
 """The port's Wiener filter, CG, grid line search and MAP_joint against
 the JAX package: a JAX `load_sim` at 32^2 P carried across as numpy
-arrays (`dataset_from_numpy`), both at strict float32.
+arrays (`dataset_from_numpy`), both at strict float32 (precision=None,
+hessian_precision=None on both sides; the "auto" defaults are held to
+the JAX package in tests/test_torch_high.py).
 
 Tolerances, relative max-abs:
 - CG solutions 1e-5 (measured 1.7e-7) and equal iteration counts: the
@@ -61,9 +63,8 @@ def P32():
 
 @pytest.mark.parametrize("tol", [1e-2, 1e-4])
 def test_argmaxf_logpdf_matches_jax(P32, tol):
-    kw = dict(tol=tol, nsteps=200, record_history=True)
-    jf, jinfo = jm.argmaxf_logpdf(P32["jds"], phi=P32["jphi"],
-                                  conjgrad_kwargs=dict(kw, hessian_precision=None))
+    kw = dict(tol=tol, nsteps=200, record_history=True, hessian_precision=None)
+    jf, jinfo = jm.argmaxf_logpdf(P32["jds"], phi=P32["jphi"], conjgrad_kwargs=kw)
     tf, tinfo = ct.argmaxf_logpdf(P32["tds"], phi=P32["tphi"], conjgrad_kwargs=kw)
     assert tinfo["iterations"] == int(jinfo["iterations"])
     out = tf.to(ct.Basis(jf.basis.pol, jf.basis.space)).arr.numpy()
@@ -140,12 +141,19 @@ def test_MAP_joint_matches_jax(P32):
     assert "MAP_joint/f_step" in timing.timer_report()
 
 
-@pytest.mark.parametrize("kw", [dict(precision="auto"), dict(precision="high"),
-                                dict(precision="bf16"), dict(linesearch="brent"),
-                                dict(quasi_sample=True), dict(nburnin_update_hessian=1)])
-def test_MAP_joint_refuses_what_is_not_ported(P32, kw):
-    with pytest.raises(NotImplementedError):
-        ct.MAP_joint(P32["tds"], nsteps=1, **kw)
+@pytest.mark.parametrize("kw,backend", [(dict(precision="bf16"), "kernel"),
+                                        (dict(linesearch="brent"), "kernel"),
+                                        (dict(quasi_sample=True), "kernel"),
+                                        (dict(nburnin_update_hessian=1), "kernel"),
+                                        (dict(precision="auto"), "uni"),
+                                        (dict(precision="high"), "uni")])
+def test_MAP_joint_refuses_what_is_not_ported(P32, kw, backend):
+    """'bf16', brent, quasi-samples and the Hessian update are not ported;
+    nor is K5's 'high' tier, so "auto" and 'high' on the "uni" backend
+    raise (in the first phi-gradient) rather than run strict."""
+    with ct.lenseflow_backend_ctx(backend), pytest.raises(NotImplementedError):
+        ct.MAP_joint(P32["tds"], nsteps=1, conjgrad_kwargs=dict(tol=0.0, nsteps=1,
+                                                                fixed_iters=True), **kw)
 
 
 def test_unported_batched_and_reduced_precision_paths_raise(P32):
@@ -156,8 +164,8 @@ def test_unported_batched_and_reduced_precision_paths_raise(P32):
         ct.MAP_joint(batched, nsteps=1)
     with pytest.raises(NotImplementedError):
         ct.argmaxf_logpdf(batched)
-    with pytest.raises(NotImplementedError, match="strict float32"):
-        ct.argmaxf_logpdf(tds, conjgrad_kwargs=dict(hessian_precision="high"))
+    with pytest.raises(NotImplementedError, match="bf16"):
+        ct.argmaxf_logpdf(tds, conjgrad_kwargs=dict(hessian_precision="bf16"))
 
 
 def test_MAP_joint_progress_prints_a_line_per_step(P32, capsys, monkeypatch):

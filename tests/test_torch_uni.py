@@ -249,7 +249,8 @@ def test_uni_backend_phi_gradient_matches_jax():
 
 def test_uni_backend_MAP_joint_matches_kernel_backend():
     ds = ct.load_sim(thetapix=3, Nside=32, pol="P", seed=0, device="cpu")["ds"]
-    kw = dict(nsteps=2, conjgrad_kwargs=dict(tol=0.0, nsteps=15, fixed_iters=True),
+    kw = dict(nsteps=2, precision=None,
+              conjgrad_kwargs=dict(tol=0.0, nsteps=15, fixed_iters=True, hessian_precision=None),
               history_keys=("logpdf", "alpha"))
     hist = {}
     for be in ("kernel", "uni"):
