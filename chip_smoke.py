@@ -28,9 +28,23 @@ port's two paths through the kernel backend:
               the strict one, argmaxf_logpdf at the JAX default CG and
               "auto" against strict, and MAP_joint as scripts/map_1024.py
               runs it at its default precision "auto".
+  phase 10    the dense kernels' ragged edge tiles: every K2 kernel, p(t)
+              and the RK4 update at 200^2, 160 x 200 and 600^2, both
+              tiers, against their plain versions, and one L @ f on a
+              200^2 load_sim against the plain backend.
+  phase 11    K2 'high' at 256^2 P (nsteps 7): each velocity kind and the
+              derivative against its plain 'high' version and the strict
+              kernel, the 'high' flows, the phi-gradient at 'high' against
+              strict, and two steps of MAP_joint at its default "auto".
+  phase 12    the slice: K2 'high' on its three-component (I, Q, U)
+              inputs against plain 'high' and strict; the Wiener filter
+              (argmaxf_logpdf at the JAX defaults, "auto") on a masked,
+              beamed 256^2 T+EB (pol IP) simulation, against the strict
+              solve; at 20 fixed iterations the kernel backend against the
+              plain one (strict) and against the "matmul" one ('high').
 
 Phases 7 and 8 measure the strict north star (precision=None); phases
-2-6 run at the global precision 'f32'.
+2-6 and 10 run at the global precision 'f32', and both tiers in 10.
 
 Each path's launch counters are set to 0 just before it and read just
 after. A kernel's time is device time: its launches captured into a CUDA
@@ -127,6 +141,20 @@ FLOW_SPLIT_RATIO = 1.0
 WF_HIGH_TOL = 1e-3
 HIGH_KERNELS = ("fderiv_high", "fa_velocity_forward_high", "fa_velocity_adjoint_high",
                 "bv_velocity_high")
+DENSE_HIGH_KERNELS = ("velocity_forward_high", "velocity_adjoint_high", "velocity_backward_high",
+                      "deriv_high")
+# plane shapes the dense kernels' 32 x 32 tile and 16-deep slab do not
+# divide: load_sim(Nside=200), a rectangle, and 600^2 (dense, since the
+# factored radix needs 128 | N)
+EDGE_SHAPES = ((200, 200), (160, 200), (600, 600))
+# the slice: examples/03_joint_MAP.py's masked, beamed configuration at
+# pol IP and 256^2
+WF_SIM = dict(thetapix=3, Nside=256, pol="IP", T=np.float32, muKarcminT=1, beamFWHM=2,
+              pixel_mask_kwargs=dict(edge_padding_deg=1, apodization_deg=0.5), seed=SEED)
+# f of the kernel backend's strict solve against the plain backend's at 20
+# fixed iterations, in norm: CG amplifies the operators' float32 differences
+# (1e-5 per flow) by its iteration count at most
+WF_PLAIN_TOL = 1e-4
 FA = 128               # the factored derivative's block size (ops/deriv.py::FACTOR_A)
 
 
@@ -223,6 +251,28 @@ def bound_high(N, nder, planes, nb=1, axes=2):
     t_op = 3 * prod / BF16_PEAK + fp32 / FP32_PEAK
     t_mem = (4 * nb * planes * N * N + axes * (2 * 2 * B * FA * FA + 4 * 2 * B * B)) / HBM_RATE
     return dict(bound_ms=1e3 * max(t_op, t_mem), bound_by="operations" if t_op >= t_mem else "bytes")
+
+
+def bound_dense_high(N, nder, planes):
+    """bound_ms and bound_by of nder 'high' dense derivatives of N x N planes
+    (csrc/lenseflow.cu, HIGH): three bf16 products of 2 N^3 operations each
+    on the tensor cores and the operand's split (three FP32 operations a
+    value); bytes: `planes` N x N planes of 4 bytes, the circulants' bf16
+    head and residual counting as one such plane each."""
+    t_op = 3 * nder * 2 * N ** 3 / BF16_PEAK + 3 * nder * N * N / FP32_PEAK
+    t_mem = 4 * planes * N * N / HBM_RATE
+    return dict(bound_ms=1e3 * max(t_op, t_mem), bound_by="operations" if t_op >= t_mem else "bytes")
+
+
+def split_matmuls_ms(a, M, right, torch, reps=20):
+    """The library yardstick of a 'high' derivative pass: the three bf16
+    torch.matmul of the split (head.head, head.residual, residual.head) on
+    operands split beforehand, timed cold; the port never calls it."""
+    from cmblensing_tpu_torch.ops.factored_deriv import split_bf16
+    (ah, al), (mh, ml) = split_bf16(a), split_bf16(M)
+    if right:
+        return cold_ms(lambda x, y, z, w: (x @ z, x @ w, y @ z), (ah, al, mh, ml), reps, torch)
+    return cold_ms(lambda x, y, z, w: (z @ x, w @ x, z @ y), (ah, al, mh, ml), reps, torch)
 
 
 def fact_op_floats(N):
@@ -852,6 +902,32 @@ def split_ratio(high, plain, strict):
                 split_ratio=max(fro(h, q) / fro(h, st) for h, q, st in trip))
 
 
+def high_against(torch, kernel, plain, shape):
+    """kernel(out, precision) at 'high' and at 'f32', and plain(out), its
+    plain 'high' version, each into a NaN-filled buffer of `shape`; every
+    output plane on its own: rel max-abs to plain 'high' and to strict
+    (largest of the planes) and the Frobenius distances and ratio."""
+    oh, op, ost = (torch.full(shape, float("nan"), device=DEVICE) for _ in range(3))
+    kernel(oh, "high")
+    plain(op)
+    kernel(ost, "f32")
+    torch.cuda.synchronize()
+    trip = list(zip(*(x.reshape(-1, *shape[-2:]) for x in (oh, op, ost))))
+    return dict(max_abs_err=float((oh - op).abs().max()), rel=max(rel(h, q) for h, q, _ in trip),
+                rel_strict=max(rel(h, st) for h, _, st in trip), **split_ratio(oh, op, ost))
+
+
+def high_failures(found):
+    """The entries of `found` (name -> high_against's dict) outside
+    HIGH_TOL, HIGH_VS_STRICT or HIGH_SPLIT_RATIO."""
+    bad = {k: d["rel"] for k, d in found.items() if not d["rel"] < HIGH_TOL}
+    bad.update({k + " vs strict": d["rel_strict"] for k, d in found.items()
+                if not d["rel_strict"] < HIGH_VS_STRICT})
+    bad.update({k + " ratio": d["split_ratio"] for k, d in found.items()
+                if not d["split_ratio"] < HIGH_SPLIT_RATIO})
+    return bad
+
+
 def phase_high(torch, card, fctx, gctx):
     """The 'high' tier at 1024^2 P: (a) K1, K3 (batch 1 and NTRIAL) and K4
     against their plain 'high' versions (HIGH_TOL, every output plane of
@@ -1043,6 +1119,340 @@ def phase_high(torch, card, fctx, gctx):
                                MAP_joint_1024_auto_s_per_step=s_step)
 
 
+def phase_edges(torch, card):
+    """Phase 10: K2 (each velocity kind, the derivative), p(t) and the RK4
+    update at plane shapes the 32 x 32 tile does not divide, both tiers,
+    every plane against the plain version at the same precision (FLOW_TOL
+    strict, HIGH_TOL at 'high'), nothing written past the last plane; the
+    forward velocity's device ms per shape and tier; one L @ f on a 200^2
+    load_sim on the kernel backend against the plain (cuFFT) backend."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    nan, t, found, times = float("nan"), 0.4, {}, {}
+    for Ny, Nx in EDGE_SHAPES:
+        proj = ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device=DEVICE)
+        mats = deriv.deriv_mats(proj)
+        rng = np.random.default_rng(SEED + 2)
+        T = lambda *sh: torch.as_tensor(rng.standard_normal(sh).astype(np.float32), device=DEVICE)
+        phi_f = np.zeros((1, Ny, Nx // 2 + 1), np.complex128)
+        phi_f[0, 1, 1] = 1e-3 * (Ny * Nx / 1024) ** 2   # Hess phi ~ 0.1
+        phi = lfk.gradhess_plain(torch.as_tensor(np.fft.irfft2(phi_f, s=(Ny, Nx)).astype(
+            np.float32), device=DEVICE), mats)
+        pt = torch.empty((2, Ny, Nx), device=DEVICE)
+        lfk.p_planes_plain(t, phi, pt)
+        a, b, c = T(1, Ny, Nx), T(1, Ny, Nx), T(1, Ny, Nx)
+        ys = {"forward": T(2, Ny, Nx), "adjoint": T(2, Ny, Nx),
+              "backward": torch.cat([T(4, Ny, Nx), 1e-3 * T(lfk.NACC, Ny, Nx)])}
+
+        def check(name, p, n, kernel, plain):
+            full = torch.full((n + 1, Ny, Nx), nan, device=DEVICE)
+            ref = torch.empty((n, Ny, Nx), device=DEVICE)
+            kernel(full[:n])
+            plain(ref)
+            found[(name, Ny, Nx, p)] = (max(rel(x, y) for x, y in zip(full[:n], ref)),
+                                        bool(torch.isnan(full[n]).all()))
+
+        for p in lfk.PRECISIONS:
+            for name, args in (("deriv_x", (a, None, None)), ("deriv", (a, b, c))):
+                check(name, p, 1, lambda o: lfk.deriv_cuda(*args, o, mats, p),
+                      lambda o: lfk.deriv_plain(*args, o, mats, p))
+            for kind, y in ys.items():
+                check("velocity_" + kind, p, y.shape[0],
+                      lambda o: lfk.velocity_cuda(kind, y, o, phi, pt, mats, 2, t, p),
+                      lambda o: lfk.velocity_plain(kind, y, o, phi, pt, mats, 2, t, p))
+            k = torch.empty_like(ys["forward"])
+            times[(Ny, Nx, p)] = kernel_ms(
+                lambda: lfk.velocity_cuda("forward", ys["forward"], k, phi, pt, mats, 2, t, p), 20,
+                torch)
+        check("p_planes", "f32", 2, lambda o: lfk.p_planes_cuda(t, phi, o),
+              lambda o: lfk.p_planes_plain(t, phi, o))
+        y, k = T(9, Ny, Nx), T(9, Ny, Nx)
+        rk = [torch.zeros((2, 9, Ny, Nx), device=DEVICE) for _ in range(2)]
+        for fn, (acc, s_) in zip((lfk.rk4_update_cuda, lfk.rk4_update_plain), rk):
+            fn(y, k, acc, s_, 1, 1 / 21, 1 / 14)
+        found[("rk4_update", Ny, Nx, "f32")] = (rel(rk[0], rk[1]), True)
+    torch.cuda.synchronize()
+    for (name, Ny, Nx, p), (e, clean) in found.items():
+        print(f"phase 10: {name:18s} {Ny}x{Nx} {p:4s} rel err vs plain {e:.3e} (bound "
+              f"{FLOW_TOL if p == 'f32' else HIGH_TOL:g}, each plane); past the last plane "
+              f"{'untouched' if clean else 'WRITTEN'}")
+    for (Ny, Nx, p), ms in times.items():
+        print(f"phase 10: velocity_forward {Ny}x{Nx} {p}: {ms:.4f} ms [{card}]")
+    sim = ct.load_sim(thetapix=3, Nside=200, pol="P", T=np.float32, seed=SEED, device=DEVICE)
+    L = ct.LenseFlow(sim["phi"], NSTEPS)
+    fq = sim["f"].to(ct.QU_MAP)
+    with ct.lenseflow_backend_ctx("kernel"):
+        lk = (L @ fq).arr
+    with ct.lenseflow_backend_ctx("plain"):
+        lp = (L @ fq).arr
+    lerr = rel(lk, lp)
+    print(f"phase 10: L @ f on load_sim(Nside=200, pol P): kernel vs plain backend {lerr:.3e} "
+          f"(bound {GRAD_TOL:g})")
+    bad = {k: v for k, v in found.items()
+           if not (v[1] and v[0] < (FLOW_TOL if k[3] == "f32" else HIGH_TOL))}
+    if not (torch.isfinite(lk).all() and lerr < GRAD_TOL):
+        bad["L @ f"] = lerr
+    if bad:
+        raise AssertionError(f"edge tiles disagree: {bad}")
+    return times
+
+
+def phase_dense_high(torch, card, ds, f_mix, phi_mix, strict):
+    """Phase 11: K2 'high' at 256^2 P. (a) Each velocity kind and the
+    derivative, one launch each, against its plain 'high' version
+    (HIGH_TOL) and the strict kernel (HIGH_VS_STRICT), every output plane
+    on its own, with the Frobenius ratio (HIGH_SPLIT_RATIO), device ms
+    cold beside the strict kernel's (cold too), the 'high' bound and the
+    three bf16 matmuls of the split; (b) the 'high' flows against the plain
+    'high' flows and the strict ones (HIGH_TOL, FLOW_SPLIT_RATIO); (c) the
+    phi-gradient at 'high' against the strict one and the plain 'high'
+    one (the "matmul" backend; FLOW_SPLIT_RATIO per plane), with its ms; (d) two steps of
+    MAP_joint at its defaults ("auto"), the launch counters set to 0 just
+    before and read just after: finite, non-decreasing logpdfs, every K2
+    'high' kernel launched (the kernels line reports these counts)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
+    mats = deriv.deriv_mats(proj)
+    phi_map, f, dy = weak_lensing_inputs(proj, torch)
+    phi = lfk.gradhess(phi_map, mats)
+    t, out = 0.5, {}
+    pt = torch.empty((2, N, N), device=DEVICE)
+    lfk.p_planes_cuda(t, phi, pt)
+
+    def check(name, args, shape, kernel, plain, nder, planes):
+        o = torch.empty(shape, device=DEVICE)
+        out[name] = dict(
+            **high_against(torch, lambda o_, p: kernel(o_, p, *args), lambda o_: plain(o_, *args),
+                           shape),
+            ms=cold_ms(lambda *a: kernel(a[0], "high", *a[1:]), (o, *args), 20, torch),
+            strict_ms=cold_ms(lambda *a: kernel(a[0], "f32", *a[1:]), (o, *args), 20, torch),
+            plain_ms=cuda_ms(lambda: plain(o, *args), 5, torch), library_ms=None,
+            **bound_dense_high(N, nder, planes))
+
+    a, b, c = f[0:1].contiguous(), f[1:2].contiguous(), dy[0:1].contiguous()
+    for name, args, nder, planes in (("deriv", (a, None, None), 1, 3),
+                                     ("deriv_xy", (a, b, c), 2, 6)):
+        check(name, args, a.shape, lambda o, p, *x: lfk.deriv_cuda(*x, o, mats, p),
+              lambda o, *x: lfk.deriv_plain(*x, o, mats, "high"), nder, planes)
+    out["deriv"]["library_ms"] = split_matmuls_ms(a[0], mats[0], True, torch)
+    ybwd = torch.cat([f, dy, 1e-3 * torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
+        (lfk.NACC, N, N)).astype(np.float32), device=DEVICE)])
+    for kind, y, nder, planes in (("forward", f, 4, 8), ("adjoint", f, 4, 8),
+                                  ("backward", ybwd, 8, 27)):
+        check("velocity_" + kind, (y,), y.shape,
+              lambda o, p, y_: lfk.velocity_cuda(kind, y_, o, phi, pt, mats, 2, t, p),
+              lambda o, y_: lfk.velocity_plain(kind, y_, o, phi, pt, mats, 2, t, "high"),
+              nder, planes)
+    for name, d in out.items():
+        print(f"phase 11: 'high' kernel {name:18s} vs plain 'high' {d['rel']:.3e} (bound "
+              f"{HIGH_TOL:g}, each plane)  vs strict {d['rel_strict']:.3e} (bound "
+              f"{HIGH_VS_STRICT:g}); Frobenius ratio {d['split_ratio']:.3f} (bound "
+              f"{HIGH_SPLIT_RATIO:g})  {d['ms']:.4f} ms  strict {d['strict_ms']:.4f} ms (both "
+              f"cold; phase 2's strict, L2-resident: "
+              f"{strict.get(name, {}).get('ms', float('nan')):.4f})  plain {d['plain_ms']:.4f} ms  "
+              f"library {d['library_ms']}  'high' bound {d['bound_ms']:.4f} ms ({d['bound_by']}, "
+              f"{100 * d['bound_ms'] / d['ms']:.1f} %)  [{N}^2; {card}]")
+
+    # (b) whole flows at 'high'
+    flows = {}
+    for name, (t0, t1, kind) in (("L", (0., 1., "forward")), ("L^-1", (1., 0., "forward")),
+                                 ("L^H", (1., 0., "adjoint"))):
+        run = lambda fn, p="high": fn(f, phi, mats, t0, t1, NSTEPS, kind, p)
+        kv, pv, sv = run(lfk.flow_apply), run(lfk.flow_apply_plain), run(lfk.flow_apply, "f32")
+        flows[name] = dict(rel=rel(kv, pv), strict=rel(kv, sv), **split_ratio(kv, pv, sv),
+                           ms=cuda_ms(lambda: run(lfk.flow_apply), 5, torch),
+                           strict_ms=cuda_ms(lambda: run(lfk.flow_apply, "f32"), 5, torch))
+    bwd = lambda fn, p="high": fn(dy, f, phi, mats, 0., 1., NSTEPS, p)
+    for name, kv, pv, sv in zip(("backward dphi", "backward df0"), bwd(lfk.flow_bwd),
+                                bwd(lfk.flow_bwd_plain), bwd(lfk.flow_bwd, "f32")):
+        flows[name] = dict(rel=rel(kv, pv), strict=rel(kv, sv), **split_ratio(kv, pv, sv),
+                           ms=cuda_ms(lambda: bwd(lfk.flow_bwd), 5, torch),
+                           strict_ms=cuda_ms(lambda: bwd(lfk.flow_bwd, "f32"), 5, torch))
+    for name, d in flows.items():
+        print(f"phase 11: 'high' flow {name:14s} vs plain 'high' {d['rel']:.3e} (bound "
+              f"{HIGH_TOL:g})  vs strict {d['strict']:.3e}; Frobenius ratio "
+              f"{d['split_ratio']:.3f} (bound {FLOW_SPLIT_RATIO:g})  {d['ms']:.3f} ms  strict "
+              f"{d['strict_ms']:.3f} ms  [{N}^2 P, nsteps={NSTEPS}; {card}]")
+
+    # (c) the phi-gradient at 'high' against strict and the plain 'high' one
+    vg = ct.fvalue_and_grad(lambda p: ct.Mixed(ds).logpdf(f_mix=f_mix, phi_mix=p))
+    with ct.lenseflow_backend_ctx("kernel"):
+        _, gs = vg(phi_mix)
+        strict_ms = cuda_ms(lambda: vg(phi_mix), 5, torch)
+        with deriv.precision_ctx("high"):
+            _, gh = vg(phi_mix)
+            high_ms = cuda_ms(lambda: vg(phi_mix), 5, torch)
+    # the reference: the same flows on their plain 'high' leaves, which
+    # launch no kernel
+    with ct.lenseflow_backend_ctx("matmul"), deriv.precision_ctx("high"):
+        lfk.reset_launches()
+        _, gp = vg(phi_mix)
+        ref_launches = sum(lfk.LAUNCHES.values())
+    grad = dict(rel=rel(gh.arr, gp.arr), strict=rel(gh.arr, gs.arr),
+                **split_ratio(gh.arr, gp.arr, gs.arr), ms=high_ms, strict_ms=strict_ms)
+    print(f"phase 11: gradlnP 'high' vs plain 'high' {grad['rel']:.3e}, vs strict "
+          f"{grad['strict']:.3e}; Frobenius ratio {grad['split_ratio']:.3f} (bound "
+          f"{FLOW_SPLIT_RATIO:g}); {high_ms:.3f} ms ('f32' {strict_ms:.3f} ms) [{N}^2 P; {card}]")
+
+    # (d) MAP_joint at its defaults, two steps
+    with ct.lenseflow_backend_ctx("kernel"):
+        lfk.reset_launches()
+        t0 = time.perf_counter()
+        res = ct.MAP_joint(ds, nsteps=2, history_keys=("logpdf", "alpha", "cg_iters",
+                                                       "precision_fallback"))
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+        map_launches = dict(lfk.LAUNCHES)
+    hist = res["history"]
+    lps = [h["logpdf"] for h in hist]
+    print(f"phase 11: MAP_joint {N}^2 P at \"auto\", 2 steps {map_s:.2f} s: logpdfs {lps!r}; "
+          f"alphas {[h['alpha'] for h in hist]!r}; CG iters {[h['cg_iters'] for h in hist]}; "
+          f"fallbacks {[h['precision_fallback'] for h in hist]}; launches "
+          f"{ {k: v for k, v in map_launches.items() if v} } [{card}]")
+
+    bad = high_failures(out)
+    if ref_launches:
+        bad["plain 'high' gradient launches"] = ref_launches
+    bad.update({"flow " + k: d["rel"] for k, d in flows.items() if not d["rel"] < HIGH_TOL})
+    bad.update({"flow " + k + " ratio": d["split_ratio"] for k, d in
+                [*flows.items(), ("gradient", grad)] if not d["split_ratio"] < FLOW_SPLIT_RATIO})
+    if not torch.isfinite(gh.arr).all():
+        bad["gradient"] = "not finite"
+    if not all(np.isfinite(lps)) or any(y < x for x, y in zip(lps, lps[1:])):
+        bad["MAP_joint logpdf"] = lps
+    if min(map_launches[k] for k in DENSE_HIGH_KERNELS) <= 0:
+        bad["MAP_joint 'high' launches"] = map_launches
+    if bad:
+        raise AssertionError(f"K2 'high' disagrees: {bad}")
+    return out, map_launches, dict(gradlnP_256_high=high_ms, gradlnP_256_strict=strict_ms,
+                                   MAP_joint_256_auto_2_steps_s=map_s)
+
+
+def phase_wiener(torch, card):
+    """Phase 12, the slice: load_sim at WF_SIM; (a) K2 'high' on the
+    slice's own inputs, I, Q and U on the grid's z axis: each velocity kind
+    and the derivative against its plain 'high' version and the strict
+    kernel (HIGH_TOL, HIGH_VS_STRICT, HIGH_SPLIT_RATIO, every plane); (b)
+    argmaxf_logpdf at the JAX defaults (tol 0.1, nsteps 500, "auto") with
+    the launch counters set to 0 just before and read just after, the
+    'high' solve's own strict check (res_strict) reported; the strict solve
+    (hessian_precision=None) beside it (f within WF_HIGH_TOL in norm); (c)
+    20 fixed iterations, strict, of the kernel backend against the plain
+    one (WF_PLAIN_TOL), and at 'high' against the "matmul" backend (the
+    same flows on their plain 'high' leaves: WF_PLAIN_TOL, and nearer it
+    than the strict solve, FLOW_SPLIT_RATIO), whatever the fallback does."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.inference import maximization as tm
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    t0 = time.perf_counter()
+    sim = ct.load_sim(**WF_SIM, device=DEVICE)
+    ds, phi = sim["ds"], sim["phi"]
+    torch.cuda.synchronize()
+    print(f"phase 12: load_sim {WF_SIM}: {time.perf_counter() - t0:.2f} s [{card}]")
+
+    # (a) the 'high' kernels at the shapes the IP flows give them
+    mats = deriv.deriv_mats(phi.proj)
+    planes = lfk.gradhess(phi.to(ct.MAP).arr.contiguous(), mats)
+    f = sim["f"].to(ct.IQU_MAP).arr.contiguous()
+    d = ds.d.to(ct.IQU_MAP).arr.contiguous()
+    ncomp, t = f.shape[-3], 0.5
+    pt = torch.empty((2, N, N), device=DEVICE)
+    lfk.p_planes_cuda(t, planes, pt)
+    ybwd = torch.cat([f, d, torch.zeros((lfk.NACC, N, N), device=DEVICE)])
+    kernels = {name: high_against(torch, lambda o, p: lfk.deriv_cuda(*args, o, mats, p),
+                                  lambda o: lfk.deriv_plain(*args, o, mats, "high"), f.shape)
+               for name, args in (("deriv", (f, None, None)), ("deriv_xy", (f, d, f)))}
+    for kind, y in (("forward", f), ("adjoint", f), ("backward", ybwd)):
+        kernels["velocity_" + kind] = high_against(
+            torch, lambda o, p: lfk.velocity_cuda(kind, y, o, planes, pt, mats, ncomp, t, p),
+            lambda o: lfk.velocity_plain(kind, y, o, planes, pt, mats, ncomp, t, "high"), y.shape)
+    for name, r in kernels.items():
+        print(f"phase 12: 'high' kernel {name:18s} on {ncomp} x {N}^2 vs plain 'high' "
+              f"{r['rel']:.3e} (bound {HIGH_TOL:g}, each plane)  vs strict {r['rel_strict']:.3e} "
+              f"(bound {HIGH_VS_STRICT:g}); Frobenius ratio {r['split_ratio']:.3f} (bound "
+              f"{HIGH_SPLIT_RATIO:g})")
+
+    # (b) the JAX defaults, and strict
+    solves, core = [], tm._argmaxf_core
+
+    def spy(*a, **k):
+        x, info = core(*a, **k)
+        solves.append(dict(info))
+        return x, info
+
+    def solve(**cg):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fw, info = ct.argmaxf_logpdf(ds, phi=phi, conjgrad_kwargs=cg or None)
+        torch.cuda.synchronize()
+        return fw, info, 1e3 * (time.perf_counter() - t)
+
+    with ct.lenseflow_backend_ctx("kernel"):
+        tm._argmaxf_core = spy
+        try:
+            lfk.reset_launches()
+            fa, ia, ms_auto = solve()
+            launches = dict(lfk.LAUNCHES)
+        finally:
+            tm._argmaxf_core = core
+        fs, is_, ms_strict = solve(hessian_precision=None)
+    hi = solves[0]
+    fallback = bool(ia.get("precision_fallback", False))
+    norm_err = lambda x, y: float((x.arr - y.to(x.basis).arr).norm() / x.arr.norm())
+    wf_err = norm_err(fs, fa)
+    print(f"phase 12: argmaxf_logpdf \"auto\" (tol 0.1, nsteps 500): the 'high' solve "
+          f"{hi['iterations']} iterations, res {float(hi['res']):.4e} (its own operator), "
+          f"res_strict {float(hi['res_strict']):.4e} against max(tol 0.1, 1e-10 res0 = "
+          f"{1e-10 * float(hi['res0']):.4e}); precision_fallback {fallback}; "
+          f"{ia['iterations']} iterations returned, {ms_auto:.1f} ms [{card}]")
+    print(f"phase 12: launches in the \"auto\" solve: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    print(f"phase 12: strict solve {is_['iterations']} iterations {ms_strict:.1f} ms; "
+          f"|f_auto - f_strict| / |f_strict| = {wf_err:.3e} (bound {WF_HIGH_TOL:g})"
+          + ("; after the fallback f_auto is a strict solve too" if fallback else ""))
+
+    # (c) 20 fixed iterations: strict, kernel vs plain (cuFFT) backend;
+    # 'high' throughout (b, a0 and every Hessian apply), kernel vs matmul
+    fixed = dict(tol=0.0, nsteps=20, fixed_iters=True, hessian_precision=None)
+    fixed_runs, fixed_launches = {}, {}
+    for backend, p in (("kernel", "f32"), ("plain", "f32"), ("kernel", "high"), ("matmul", "high")):
+        with ct.lenseflow_backend_ctx(backend), deriv.precision_ctx(p):
+            lfk.reset_launches()
+            fixed_runs[backend, p], _, ms = solve(**fixed)
+            fixed_launches[backend, p] = dict(lfk.LAUNCHES)
+        print(f"phase 12: 20 fixed iterations, {backend} backend at {p!r}: {ms:.1f} ms [{card}]")
+    fk, fp = fixed_runs["kernel", "f32"], fixed_runs["plain", "f32"]
+    fhk, fhm = fixed_runs["kernel", "high"], fixed_runs["matmul", "high"]
+    plain_err, high_err = norm_err(fp, fk), norm_err(fhm, fhk)
+    high_ratio = high_err / norm_err(fk, fhk)
+    print(f"phase 12: 20 fixed strict iterations, kernel vs plain backend |f_k - f_p| / |f_p| "
+          f"= {plain_err:.3e} (bound {WF_PLAIN_TOL:g}); at 'high', kernel vs matmul backend "
+          f"{high_err:.3e} (bound {WF_PLAIN_TOL:g}), over the distance to the strict kernel "
+          f"solve {high_ratio:.3f} (bound {FLOW_SPLIT_RATIO:g})")
+    bad = high_failures(kernels)
+    if not all(torch.isfinite(x.arr).all() for x in (fa, fs, fk, fp, fhk, fhm)):
+        bad["f"] = "not finite"
+    if not wf_err < WF_HIGH_TOL:
+        bad["auto vs strict"] = wf_err
+    if not plain_err < WF_PLAIN_TOL:
+        bad["kernel vs plain"] = plain_err
+    if not (high_err < WF_PLAIN_TOL and high_ratio < FLOW_SPLIT_RATIO):
+        bad["'high' kernel vs matmul"] = (high_err, high_ratio)
+    wf_high = DENSE_HIGH_KERNELS[:2] + ("deriv_high",)
+    if min(launches[k] for k in wf_high) <= 0:
+        bad["'high' launches"] = launches
+    if (min(fixed_launches["kernel", "high"][k] for k in wf_high) <= 0
+            or any(fixed_launches["matmul", "high"].values())):
+        bad["fixed 'high' launches"] = fixed_launches
+    if bad:
+        raise AssertionError(f"the masked IP Wiener filter disagrees: {bad}")
+    return launches, dict(argmaxf_256_IP_auto_ms=ms_auto, argmaxf_256_IP_strict_ms=ms_strict,
+                          argmaxf_256_IP_auto_iterations=int(ia["iterations"]),
+                          argmaxf_256_IP_strict_iterations=int(is_["iterations"]),
+                          argmaxf_256_IP_auto_fallback=fallback)
+
+
 def main():
     try:
         import torch
@@ -1075,6 +1485,10 @@ def main():
     map_launches, s_step, plain_s_step, gctx["map_hist"] = phase_map(torch, gctx["sim"], card)
     ukernels, uni_launches, uni_grad_ms, uni_s_step = phase_uni(torch, card, fctx, gctx)
     hkernels, high_launches, high_timing = phase_high(torch, card, fctx, gctx)
+    edge_ms = phase_edges(torch, card)
+    dkernels, dense_high_launches, dense_high_timing = phase_dense_high(torch, card, ds, f_mix,
+                                                                        phi_mix, kernels)
+    _, wf_timing = phase_wiener(torch, card)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -1084,6 +1498,7 @@ def main():
                 "bv_velocity": "cmblensing_tpu/ops/pallas_lenseflow.py:581"}
     replaces.update({f"uni_role{r}": "cmblensing_tpu/ops/pallas_lenseflow.py:734" for r in range(4)})
     replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:225" for k in HIGH_KERNELS})
+    replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:103" for k in DENSE_HIGH_KERNELS})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entry = lambda name, d, src, n: {
         "name": name, "route": "cuda", "source": src,
@@ -1107,11 +1522,16 @@ def main():
                  for name, key in (("fderiv_high", "fderiv_x"),
                                    ("fa_velocity_forward_high", "fa_velocity_forward"),
                                    ("fa_velocity_adjoint_high", "fa_velocity_adjoint"),
-                                   ("bv_velocity_high", "bv_velocity"))]}
+                                   ("bv_velocity_high", "bv_velocity"))]
+              + [entry(name + "_high", dkernels[name], "cmblensing_tpu_torch/csrc/lenseflow.cu",
+                       dense_high_launches[name + "_high"])
+                 for name in ("velocity_forward", "velocity_adjoint", "velocity_backward",
+                              "deriv")]}
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),
                    "MAP_joint_1024_s_per_step": (s_step, plain_s_step),
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
-                   **high_timing})
+                   **high_timing, **dense_high_timing, **wf_timing,
+                   **{f"velocity_forward_{Ny}x{Nx}_{p}": ms for (Ny, Nx, p), ms in edge_ms.items()}})
     print("main path ms (kernel, plain):", json.dumps(timing))
     print(card)
     print(json.dumps(record))

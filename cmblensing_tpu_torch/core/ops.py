@@ -1,6 +1,7 @@
 """Linear operators on fields.
 
-Counterpart of ``cmblensing_tpu/core/ops.py`` for what pol I and P need.
+Counterpart of ``cmblensing_tpu/core/ops.py`` for what pol I, P and IP
+need.
 Operator protocol (duck-typed):
 
     op @ f        apply
@@ -16,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .basis import Basis
+from .basis import Basis, EB_FOURIER, FOURIER, IEB_FOURIER
 from .field import Field, batch_broadcast, white_noise_like
 from .proj import ProjLambert
 
@@ -147,6 +148,156 @@ class Diag(OpAlgebra):
 
     def __repr__(self):
         return f"Diag({self.diag!r})"
+
+
+# =========================================================================
+# BlockDiagIEB
+# =========================================================================
+
+class BlockDiagIEB(OpAlgebra):
+    """A T/E/B operator with TE coupling, per Fourier mode
+
+        [ TT TE  .
+          ET EE  .
+           .  . BB ]
+
+    stored as spin-0 Fourier fields (TT, TE, EE, BB, ET), each (..., 1, Ny,
+    Nx//2+1). A covariance is symmetric (ET = TE, the default); a product
+    of two such operators is not, so the class carries ET apart where it
+    differs (e.g. the mixing matrix D of an IP dataset)."""
+
+    __slots__ = ("TT", "TE", "EE", "BB", "ET")
+
+    def __init__(self, TT: Field, TE: Field, EE: Field, BB: Field, ET=None):
+        self.TT, self.TE, self.EE, self.BB = TT, TE, EE, BB
+        self.ET = TE if ET is None else ET
+
+    @property
+    def proj(self):
+        return self.TT.proj
+
+    def _blocks(self):
+        return self.TT.arr, self.TE.arr, self.ET.arr, self.EE.arr, self.BB.arr
+
+    def _field(self, a):
+        return Field(a, FOURIER, self.proj)
+
+    def _of(self, tt, te, ee, bb, et):
+        F = self._field
+        return BlockDiagIEB(F(tt), F(te), F(ee), F(bb), F(et))
+
+    @staticmethod
+    def _apply(g, tt, te, et, ee, bb):
+        i = g.arr[..., 0, :, :] * tt[..., 0, :, :] + g.arr[..., 1, :, :] * te[..., 0, :, :]
+        e = g.arr[..., 0, :, :] * et[..., 0, :, :] + g.arr[..., 1, :, :] * ee[..., 0, :, :]
+        b = g.arr[..., 2, :, :] * bb[..., 0, :, :]
+        return Field(torch.stack([i, e, b], dim=-3), IEB_FOURIER, g.proj)
+
+    def __matmul__(self, f):
+        if isinstance(f, Field):
+            return self._apply(f.to(IEB_FOURIER), *self._blocks())
+        return NotImplemented
+
+    def _inv_blocks(self):
+        tt, te, et, ee, bb = self._blocks()
+        det = tt * ee - te * et
+        return (safe_divide(ee, det), safe_divide(-te, det), safe_divide(-et, det),
+                safe_divide(tt, det), safe_reciprocal(bb))
+
+    def solve(self, f):
+        return self._apply(f.to(IEB_FOURIER), *self._inv_blocks())
+
+    def pinv(self):
+        itt, ite, iet, iee, ibb = self._inv_blocks()
+        return self._of(itt, ite, iee, ibb, iet)
+
+    @property
+    def H(self):
+        if self.ET is self.TE:
+            return self
+        return BlockDiagIEB(self.TT, self.ET, self.EE, self.BB, self.TE)
+
+    def sqrt(self):
+        """The square root of each mode's 2 x 2 TE block by Cayley-Hamilton
+        (for a block with no negative real eigenvalue): sqrt(A) = (A +
+        sqrt(det A) I) / sqrt(tr A + 2 sqrt(det A))."""
+        tt, te, et, ee, bb = self._blocks()
+        s = torch.sqrt(torch.clamp(tt * ee - te * et, min=0.0))
+        t = torch.sqrt(tt + ee + 2 * s)
+        return self._of(safe_divide(tt + s, t), safe_divide(te, t), safe_divide(ee + s, t),
+                        torch.sqrt(bb), safe_divide(et, t))
+
+    def diag(self) -> Field:
+        return Field(torch.cat([self.TT.arr, self.EE.arr, self.BB.arr], dim=-3), IEB_FOURIER,
+                     self.proj)
+
+    def __getitem__(self, k):
+        if k == "IP":
+            return self
+        if k in ("I", "E", "B"):
+            return Diag({"I": self.TT, "E": self.EE, "B": self.BB}[k])
+        if k == "P":
+            return Diag(Field(torch.cat([self.EE.arr, self.BB.arr], dim=-3), EB_FOURIER,
+                              self.proj))
+        raise KeyError(k)
+
+    def _ieb(self, other):
+        """other's (TT, TE, ET, EE, BB) blocks if it is a BlockDiagIEB or a
+        Diag on IEB fourier (TE = ET = 0), else None."""
+        if isinstance(other, BlockDiagIEB):
+            return other._blocks()
+        if isinstance(other, Diag) and other.basis == IEB_FOURIER:
+            d = other.diag.arr
+            zero = torch.zeros_like(d[..., 0:1, :, :])
+            return d[..., 0:1, :, :], zero, zero, d[..., 1:2, :, :], d[..., 2:3, :, :]
+        return None
+
+    def __mul__(self, other):
+        """The product of each mode's blocks with a BlockDiagIEB or an IEB
+        fourier Diag (not symmetric unless the blocks commute); with another
+        operator a lazy product, with the identity this operator."""
+        o = self._ieb(other)
+        if o is not None:
+            tt, te, et, ee, bb = self._blocks()
+            ott, ote, oet, oee, obb = o
+            return self._of(tt * ott + te * oet, tt * ote + te * oee, et * ote + ee * oee,
+                            bb * obb, et * ott + ee * oet)
+        if isinstance(other, _Identity):
+            return self
+        if isinstance(other, OpAlgebra):
+            return LazyOp("*", self, other)
+        return NotImplemented
+
+    def __rmul__(self, other):
+        o = self._ieb(other)
+        if o is not None:   # only a Diag reaches here: it has no product with this class
+            return BlockDiagIEB(*(self._field(x) for x in (o[0], o[1], o[3], o[4], o[2]))) * self
+        if isinstance(other, _Identity):
+            return self
+        if isinstance(other, OpAlgebra):
+            return LazyOp("*", other, self)
+        return NotImplemented
+
+    def __add__(self, other):
+        """The blockwise sum with a BlockDiagIEB or an IEB fourier Diag; with
+        another operator or the identity a lazy sum."""
+        o = self._ieb(other)
+        if o is not None:
+            tt, te, et, ee, bb = (a + b for a, b in zip(self._blocks(), o))
+            return self._of(tt, te, ee, bb, et)
+        if isinstance(other, (OpAlgebra, _Identity)):
+            return LazyOp("+", self, other)
+        return NotImplemented
+
+    def __radd__(self, other):
+        if self._ieb(other) is not None:
+            return self + other
+        if isinstance(other, (OpAlgebra, _Identity)):
+            return LazyOp("+", other, self)
+        return NotImplemented
+
+    def __repr__(self):
+        return f"BlockDiagIEB({self.TT!r})"
 
 
 # =========================================================================
@@ -361,6 +512,10 @@ def logdet(op):
         s = op.scalar
         logs = torch.log(torch.abs(s)) if isinstance(s, torch.Tensor) else float(np.log(abs(s)))
         return logdet(op.op) + _op_nonzero_dim(op.op) * logs
+    if isinstance(op, BlockDiagIEB):
+        tt, te, et, ee, bb = op._blocks()
+        v = (safe_log_abs(tt * ee - te * et) + safe_log_abs(bb)) * op.proj.tensor("lam_rfft")
+        return torch.sum(v, dim=(-1, -2, -3))
     if isinstance(op, Diag):
         d = op.diag
         if d.basis.is_fourier:
@@ -371,15 +526,19 @@ def logdet(op):
 
 
 def _op_nonzero_dim(op):
-    """Number of nonzero modes of a Diag, with rfft degeneracy
-    weights."""
+    """Number of nonzero modes of a Diag or BlockDiagIEB (a nonsingular TE
+    block counts two), with rfft degeneracy weights."""
+    if isinstance(op, BlockDiagIEB):
+        tt, te, et, ee, bb = op._blocks()
+        nz = ((tt * ee - te * et != 0) * 2 + (bb != 0)).to(op.proj.torch_T)
+        return torch.sum(nz * op.proj.tensor("lam_rfft"), dim=(-1, -2, -3))
     if isinstance(op, Diag):
         d = op.diag
         nz = (d.arr != 0).to(d.proj.torch_T)
         if d.basis.is_fourier:
             nz = nz * d.proj.tensor("lam_rfft")
         return torch.sum(nz, dim=(-1, -2, -3))
-    raise TypeError(f"logdet of Scaled({type(op).__name__}) needs a Diag inside")
+    raise TypeError(f"logdet of Scaled({type(op).__name__}) needs a Diag or BlockDiagIEB inside")
 
 
 def logdet_rel(op, theta):
@@ -394,6 +553,8 @@ def logdet_rel(op, theta):
 def _diag_field_of(op):
     if isinstance(op, Diag):
         return op.diag
+    if isinstance(op, BlockDiagIEB):
+        return op.diag()
     if isinstance(op, ParamDependentOp):
         return _diag_field_of(op.fiducial)
     if isinstance(op, Scaled):

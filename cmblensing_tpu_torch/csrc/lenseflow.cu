@@ -1,4 +1,5 @@
-// LenseFlow flow kernels for NVIDIA Hopper (sm_90a), FP32 FMA.
+// LenseFlow flow kernels for NVIDIA Hopper (sm_90a): FP32 FMA, and the
+// 'high' tier on the tensor cores.
 //
 // Replaces the whole-flow Pallas kernel `_flow_kernel` and its launcher
 // `_flow_call` (cmblensing_tpu/ops/pallas_lenseflow.py), together with
@@ -57,12 +58,48 @@
 // unpadded and conflict-free, and each group runs a ring of two slabs,
 // the next one fetched into registers before the current one's FMA loop.
 // A forward or adjoint launch is 64 tiles x ncomp blocks (128 at pol P on
-// 132 SMs). Later work: capturing a flow in a CUDA graph, and wgmma on a
-// 3xTF32 split ('high' tier).
+// 132 SMs). Later work: capturing a flow in a CUDA graph.
+//
+// Any plane shape. The grid covers ceil(Ny / 32) x ceil(Nx / 32) tiles
+// and each product's contraction ceil(n / 16) slabs (split between two
+// groups, or four for a single product, in whole slabs); every load past
+// the edge of a plane or a circulant reads 0 and every store past it is
+// skipped, so the ragged last tile and slab need no padded copy (the JAX
+// package runs such sizes, 200^2 or 600^2, through its scan:
+// models/lenseflow.py:192-209). A row whose length is not a multiple of 4
+// is loaded and stored a float at a time. The guards are a template
+// parameter (EDGE), chosen at launch: where Ny and Nx are multiples of the
+// tile the kernels run the unguarded loads, so that such planes pay
+// nothing for the guards.
+//
+// The 'high' tier (HIGH = true; the 'high' branch of `_make_ddx_ddy`,
+// pallas_lenseflow.py:103): each product as the bf16 head/residual
+// split, h = bf16(x) rounded to nearest even and l = bf16(x - h), summed
+// as head.head + residual.head + head.residual in FP32 by
+// mma.sync.m16n8k16 (the residual.residual term dropped, as there). The
+// circulants arrive split from the host ((2, n, n) bf16 [head, residual]
+// of DxT and Dy, made once per operator set), the operand is split as
+// its slab is staged. Each group runs the same slabs, ring and combine as
+// the FP32 form; of its two warps each owns 16 rows x 32 columns of the
+// tile, four n8 accumulator tiles per operand, the same 16 registers a
+// thread as the FP32 form's 4 x 4. The left factor is staged [row][k]
+// (read by ldmatrix), the right one [k][column] (read by ldmatrix.trans),
+// rows padded to 24 and 40 bf16 so that every ldmatrix phase is
+// conflict-free. Per slab a warp issues three mma per n8 column tile and
+// operand, 12 per operand.
+// The stages no longer fit the 48 KB of static shared memory for the
+// backward kind (68 KB), so every dense kernel takes its stages as
+// dynamic shared memory, allowed once by lf_dense_init. What bounds it:
+// the products shrink to a few percent of the FP32 loop's time, so the
+// loads, the split at stash and the combine, which follow one another
+// within a group, set the pace: at 256^2 a 'high' launch takes 0.84-0.97
+// of the strict one's time, 5-8 % of its bound (NVIDIA H100 80GB HBM3 at
+// 700 W, chip_smoke.py phase 11, both tiers timed cold).
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the
 // caller's stream and each entry point returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -76,8 +113,25 @@ constexpr int DT = 32;        // output tile side
 constexpr int DK = 16;        // contraction slab
 constexpr int DGROUP = 64;    // threads of a group: 8 x 8, each 4 x 4 outputs per operand
 constexpr int DNT = 4 * DGROUP;
-// a group's two slab stages of the matrix and NOP operands
-__host__ __device__ constexpr int group_floats(int NOP) { return 2 * (1 + NOP) * DK * DT; }
+constexpr int AS = DK + 8;    // 'high': bf16 row strides of a staged left slab ([row][k])
+constexpr int BS = DT + 8;    // and right slab ([k][column])
+
+// bf16 elements of a 'high' slab stage: NL left and NR right slabs, head and residual
+__host__ __device__ constexpr int high_stage(int NL, int NR) {
+    return 2 * (NL * DT * AS + NR * DK * BS);
+}
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// floats of a group's two slab stages (of either product) for NOP operands
+__host__ __device__ constexpr int group_floats(int NOP, bool high) {
+    return high ? cmax(high_stage(NOP, 1), high_stage(1, NOP)) : 2 * (1 + NOP) * DK * DT;
+}
+// a block's dynamic shared memory: four groups' stages, reused for the partial tiles
+__host__ __device__ constexpr size_t dense_smem_bytes(int NOP, bool high) {
+    return sizeof(float) * 4 * group_floats(NOP, high);
+}
+static_assert(group_floats(1, false) >= DT * DT && group_floats(2, false) >= 2 * DT * DT &&
+                  group_floats(1, true) >= DT * DT && group_floats(2, true) >= 2 * DT * DT,
+              "the stages hold the four groups' partial tiles");
 
 __device__ __forceinline__ float4 ld4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
@@ -91,6 +145,91 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
     return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+// The four floats at (row, col..col+3) of a row-major array of `rows` rows
+// of `cols`, 0 past its edge; col is a multiple of 4, and x 16-byte aligned
+// where cols is.
+__device__ __forceinline__ float4 ldg4(const float* __restrict__ x, int row, int col, int rows,
+                                       int cols) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row >= rows || col >= cols) return v;
+    const float* p = x + (size_t)row * cols + col;
+    if ((cols & 3) == 0) return ld4(p);
+    v.x = p[0];
+    if (col + 1 < cols) v.y = p[1];
+    if (col + 2 < cols) v.z = p[2];
+    if (col + 3 < cols) v.w = p[3];
+    return v;
+}
+
+// ... the four bf16 there, packed in two words
+__device__ __forceinline__ uint2 ldg4h(const __nv_bfloat16* __restrict__ x, int row, int col,
+                                       int rows, int cols) {
+    if (row >= rows || col >= cols) return make_uint2(0u, 0u);
+    const __nv_bfloat16* p = x + (size_t)row * cols + col;
+    if ((cols & 3) == 0) return *reinterpret_cast<const uint2*>(p);
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    unsigned e[4] = {q[0], 0u, 0u, 0u};
+    for (int i = 1; i < 4; ++i)
+        if (col + i < cols) e[i] = q[i];
+    return make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
+}
+
+// ... and the store of four floats there, skipped past the edge
+__device__ __forceinline__ void stg4(float* __restrict__ x, int row, int col, int rows, int cols,
+                                     float4 v) {
+    if (row >= rows || col >= cols) return;
+    float* p = x + (size_t)row * cols + col;
+    if ((cols & 3) == 0) {
+        *reinterpret_cast<float4*>(p) = v;
+        return;
+    }
+    p[0] = v.x;
+    if (col + 1 < cols) p[1] = v.y;
+    if (col + 2 < cols) p[2] = v.z;
+    if (col + 3 < cols) p[3] = v.w;
+}
+
+// Loads and stores of four values at (row, col..col+3) of an array of
+// `rows` rows of `cols`: unguarded vector accesses where every tile and
+// slab of the launch lies inside its arrays (EDGE false: Ny and Nx
+// multiples of the tile), the guarded ones above where not.
+template <bool EDGE>
+__device__ __forceinline__ float4 ldq(const float* __restrict__ x, int row, int col, int rows,
+                                      int cols) {
+    return EDGE ? ldg4(x, row, col, rows, cols) : ld4(x + (size_t)row * cols + col);
+}
+
+template <bool EDGE>
+__device__ __forceinline__ uint2 ldqh(const __nv_bfloat16* __restrict__ x, int row, int col,
+                                      int rows, int cols) {
+    return EDGE ? ldg4h(x, row, col, rows, cols)
+                : *reinterpret_cast<const uint2*>(x + (size_t)row * cols + col);
+}
+
+template <bool EDGE>
+__device__ __forceinline__ void stq(float* __restrict__ x, int row, int col, int rows, int cols,
+                                    float4 v) {
+    if (EDGE)
+        stg4(x, row, col, rows, cols, v);
+    else
+        *reinterpret_cast<float4*>(x + (size_t)row * cols + col) = v;
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
+    return *reinterpret_cast<unsigned*>(&v);
+}
+
+// The bf16 heads (round to nearest even) and residuals bf16(x - head) of
+// four floats, packed in pairs as they lie in memory
+__device__ __forceinline__ void split4(float4 v, uint2& h, uint2& l) {
+    const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
+    const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+    h = make_uint2(bf16x2_bits(h01), bf16x2_bits(h23));
+    l = make_uint2(bf16x2_bits(__floats2bfloat162_rn(v.x - f01.x, v.y - f01.y)),
+                   bf16x2_bits(__floats2bfloat162_rn(v.z - f23.x, v.w - f23.y)));
+}
+
 __device__ __forceinline__ void group_sync(int bar) {
     asm volatile("bar.sync %0, %1;" ::"r"(bar), "n"(DGROUP) : "memory");
 }
@@ -98,10 +237,10 @@ __device__ __forceinline__ void group_sync(int bar) {
 // One group's share of a tile: acc[o] += (operand o)[i0.., kb..ke) . M
 // (AX == 0: d_x, M = Dx^T) or M[i0.., kb..ke) . (operand o) (AX == 1: d_y,
 // M = Dy), both row-major with rows of n. op(AX, o, row, col) returns the
-// four operand values at (row, col..col+3) after the caller's prologue.
-// The left factor is staged k-major (transposed at store), so both are
-// read as 16-byte loads.
-template <int AX, int NOP, class Op>
+// four operand values at (row, col..col+3) after the caller's prologue,
+// 0 past the plane's edge. The left factor is staged k-major (transposed
+// at store), so both are read as 16-byte loads.
+template <int AX, int NOP, bool EDGE, class Op>
 __device__ __forceinline__ void dense_tile(const float* __restrict__ M, int n, int i0, int j0,
                                            int kb, int ke, float* sm, int gt, int bar, Op op,
                                            float (&acc)[NOP][4][4]) {
@@ -117,10 +256,10 @@ __device__ __forceinline__ void dense_tile(const float* __restrict__ M, int n, i
 #pragma unroll
             for (int o = 0; o < NL; ++o)
                 lreg[o][h] = AX == 0 ? op(0, o, i0 + li, k0 + (lq + 2 * h) * 4)
-                                     : ld4(M + (size_t)(i0 + li) * n + k0 + (lq + 2 * h) * 4);
+                                     : ldq<EDGE>(M, i0 + li, k0 + (lq + 2 * h) * 4, n, n);
 #pragma unroll
             for (int o = 0; o < NR; ++o)
-                rreg[o][h] = AX == 0 ? ld4(M + (size_t)(k0 + rk + 8 * h) * n + j0 + rj)
+                rreg[o][h] = AX == 0 ? ldq<EDGE>(M, k0 + rk + 8 * h, j0 + rj, n, n)
                                      : op(1, o, k0 + rk + 8 * h, j0 + rj);
         }
     };
@@ -173,26 +312,126 @@ __device__ __forceinline__ void dense_tile(const float* __restrict__ M, int n, i
     }
 }
 
+// dense_tile at 'high': M is the (2, n, n) bf16 split [head, residual] of
+// the circulant. The same loads (M's as bf16 heads and residuals); the
+// operand is split where it is staged. acc[o][j] is n8 column tile j of
+// the warp's 16 rows (16 (gt / 32)..) in the mma C layout.
+template <int AX, int NOP, bool EDGE, class Op>
+__device__ __forceinline__ void dense_tile_high(const __nv_bfloat16* __restrict__ M, int n,
+                                                int i0, int j0, int kb, int ke, float* sm,
+                                                int gt, int bar, Op op,
+                                                float (&acc)[NOP][4][4]) {
+    constexpr int NL = AX == 0 ? NOP : 1, NR = AX == 0 ? 1 : NOP;
+    constexpr int SL = NL * DT * AS, SR = NR * DK * BS;   // head -> residual
+    constexpr int STAGE = high_stage(NL, NR);
+    const __nv_bfloat16* Ml = M + (size_t)n * n;
+    __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(sm);
+    const int li = gt % DT, lq = gt / DT;     // left loads: row li, k quads lq and lq + 2
+    const int rk = gt / 8, rj = (gt % 8) * 4; // right loads: rows rk and rk + 8, columns rj..
+    const int lane = gt % 32, w = gt / 32;
+    // ldmatrix rows this lane names: A (rows 0-7 | 8-15) x (k 0-7 | 8-15) of the
+    // warp's 16 rows; B (k 0-7 | 8-15) x (columns 0-7 | 8-15) of a 16-column half
+    const int ar = 16 * w + (lane & 7) + ((lane >> 3) & 1) * 8, ak = (lane >> 4) * 8;
+    const int bk = (lane & 7) + ((lane >> 3) & 1) * 8, bc = (lane >> 4) * 8;
+    float4 oreg[NOP][2];
+    uint2 mh[2], ml[2];
+    auto fetch = [&](int k0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            if (AX == 0) {
+#pragma unroll
+                for (int o = 0; o < NOP; ++o) oreg[o][h] = op(0, o, i0 + li, k0 + (lq + 2 * h) * 4);
+                mh[h] = ldqh<EDGE>(M, k0 + rk + 8 * h, j0 + rj, n, n);
+                ml[h] = ldqh<EDGE>(Ml, k0 + rk + 8 * h, j0 + rj, n, n);
+            } else {
+                mh[h] = ldqh<EDGE>(M, i0 + li, k0 + (lq + 2 * h) * 4, n, n);
+                ml[h] = ldqh<EDGE>(Ml, i0 + li, k0 + (lq + 2 * h) * 4, n, n);
+#pragma unroll
+                for (int o = 0; o < NOP; ++o) oreg[o][h] = op(1, o, k0 + rk + 8 * h, j0 + rj);
+            }
+        }
+    };
+    // left slabs [head, residual][o][row][k], right slabs [head, residual][o][k][column]
+    auto stash = [&](__nv_bfloat16* st) {
+        __nv_bfloat16* L = st;
+        __nv_bfloat16* R = st + 2 * SL;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int lat = li * AS + (lq + 2 * h) * 4, rat = (rk + 8 * h) * BS + rj;
+#pragma unroll
+            for (int o = 0; o < NOP; ++o) {
+                uint2 vh, vl;
+                split4(oreg[o][h], vh, vl);
+                const int at = AX == 0 ? o * DT * AS + lat : o * DK * BS + rat;
+                __nv_bfloat16* dst = AX == 0 ? L : R;
+                *reinterpret_cast<uint2*>(dst + at) = vh;
+                *reinterpret_cast<uint2*>(dst + (AX == 0 ? SL : SR) + at) = vl;
+            }
+            __nv_bfloat16* dst = AX == 0 ? R : L;
+            const int at = AX == 0 ? rat : lat;
+            *reinterpret_cast<uint2*>(dst + at) = mh[h];
+            *reinterpret_cast<uint2*>(dst + (AX == 0 ? SR : SL) + at) = ml[h];
+        }
+    };
+    auto products = [&](const __nv_bfloat16* st) {
+        const __nv_bfloat16* L = st;
+        const __nv_bfloat16* R = st + 2 * SL;
+        unsigned ah[NL][4], al[NL][4];
+#pragma unroll
+        for (int o = 0; o < NL; ++o) {
+            ldsm_x4(L + (o * DT + ar) * AS + ak, ah[o]);
+            ldsm_x4(L + SL + (o * DT + ar) * AS + ak, al[o]);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            unsigned bh[NR][4], bl[NR][4];
+#pragma unroll
+            for (int o = 0; o < NR; ++o) {
+                ldsm_x4_t(R + (o * DK + bk) * BS + 16 * half + bc, bh[o]);
+                ldsm_x4_t(R + SR + (o * DK + bk) * BS + 16 * half + bc, bl[o]);
+            }
+#pragma unroll
+            for (int o = 0; o < NOP; ++o)
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+                    mma_high(acc[o][2 * half + j], ah[AX == 0 ? o : 0], al[AX == 0 ? o : 0],
+                             bh[AX == 0 ? 0 : o], bl[AX == 0 ? 0 : o], j);
+        }
+    };
+    fetch(kb);
+    stash(ring);
+    const int nslab = (ke - kb) / DK;
+    for (int s = 0; s < nslab; ++s) {
+        group_sync(bar);   // stage s % 2 is complete, and the group has left the other one
+        const bool more = s + 1 < nslab;
+        if (more) fetch(kb + (s + 1) * DK);
+        products(ring + (s % 2) * STAGE);
+        if (more) stash(ring + ((s + 1) % 2) * STAGE);
+    }
+}
+
 // The x and y circulant products of the block's 32 x 32 tile, for NOP
 // operands: X[o] = d_x (operand o) and Y[o] = d_y (operand o) at this
 // thread's four pixels (row threadIdx.x / 8, columns 4 (threadIdx.x % 8)..
-// of the tile), either skipped (zero) when has_x / has_y is false. Four
-// groups of 64 threads take (x, y) x (the two halves of the contraction),
-// or the four quarters of the one product asked for, and meet in shared
-// memory; sm holds 4 group_floats(NOP). Every thread of the block must
-// call it.
-template <int NOP, class Op>
-__device__ __forceinline__ void dense_xy(const float* __restrict__ DxT,
-                                         const float* __restrict__ Dy, int Ny, int Nx, float* sm,
+// of the tile), either skipped (zero) when has_x / has_y is false; DxT and
+// Dy are FP32 (n, n), or at HIGH their (2, n, n) bf16 split. Four groups
+// of 64 threads take (x, y) x (two halves of the contraction's slabs), or
+// four quarters of the one product asked for, and meet in shared memory;
+// sm holds 4 group_floats(NOP, HIGH). Every thread of the block must call
+// it.
+template <int NOP, bool HIGH, bool EDGE, class Op>
+__device__ __forceinline__ void dense_xy(const void* __restrict__ DxT,
+                                         const void* __restrict__ Dy, int Ny, int Nx, float* sm,
                                          bool has_x, bool has_y, Op op, float4 (&X)[NOP],
                                          float4 (&Y)[NOP]) {
     const int tid = threadIdx.x, g = tid / DGROUP, gt = tid % DGROUP;
     const int i0 = blockIdx.y * DT, j0 = blockIdx.x * DT;
-    // one product alone is split four ways where its quarters are whole slabs
-    const int n1 = has_x ? Nx : Ny;
-    const bool four = has_x != has_y && n1 % (4 * DK) == 0;
+    const int nsx = (Nx + DK - 1) / DK, nsy = (Ny + DK - 1) / DK;   // slabs of each product
+    const bool four = has_x != has_y && (has_x ? nsx : nsy) >= 4;
     const int nsplit = four ? 4 : 2, kh = four ? g : g >> 1;
     const int axis = four ? (has_x ? 0 : 1) : g & 1;
+    const int ns = axis == 0 ? nsx : nsy;
+    const int kb = kh * ns / nsplit * DK, ke = (kh + 1) * ns / nsplit * DK;
     float acc[NOP][4][4];
 #pragma unroll
     for (int o = 0; o < NOP; ++o)
@@ -200,23 +439,44 @@ __device__ __forceinline__ void dense_xy(const float* __restrict__ DxT,
         for (int a = 0; a < 4; ++a)
 #pragma unroll
             for (int b = 0; b < 4; ++b) acc[o][a][b] = 0.f;
-    float* stage = sm + g * group_floats(NOP);
-    if (axis == 0) {
-        if (has_x)
-            dense_tile<0, NOP>(DxT, Nx, i0, j0, kh * (Nx / nsplit), (kh + 1) * (Nx / nsplit),
-                               stage, gt, 1 + g, op, acc);
-    } else if (has_y) {
-        dense_tile<1, NOP>(Dy, Ny, i0, j0, kh * (Ny / nsplit), (kh + 1) * (Ny / nsplit), stage,
-                           gt, 1 + g, op, acc);
+    float* stage = sm + g * group_floats(NOP, HIGH);
+    if (axis == 0 ? has_x : has_y) {
+        if constexpr (HIGH) {
+            if (axis == 0)
+                dense_tile_high<0, NOP, EDGE>(static_cast<const __nv_bfloat16*>(DxT), Nx, i0, j0,
+                                              kb, ke, stage, gt, 1 + g, op, acc);
+            else
+                dense_tile_high<1, NOP, EDGE>(static_cast<const __nv_bfloat16*>(Dy), Ny, i0, j0,
+                                              kb, ke, stage, gt, 1 + g, op, acc);
+        } else {
+            if (axis == 0)
+                dense_tile<0, NOP, EDGE>(static_cast<const float*>(DxT), Nx, i0, j0, kb, ke, stage,
+                                         gt, 1 + g, op, acc);
+            else
+                dense_tile<1, NOP, EDGE>(static_cast<const float*>(Dy), Ny, i0, j0, kb, ke, stage,
+                                         gt, 1 + g, op, acc);
+        }
     }
     __syncthreads();   // every group has left its stages: reuse them for the partial tiles
-    const int ti = (gt / 8) * 4, tj = (gt % 8) * 4;
+    if constexpr (HIGH) {   // C layout: (row 16 w + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2)
+        const int lane = gt % 32, r0 = 16 * (gt / 32) + lane / 4, c0 = 2 * (lane % 4);
 #pragma unroll
-    for (int o = 0; o < NOP; ++o)
+        for (int o = 0; o < NOP; ++o)
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
-            *reinterpret_cast<float4*>(sm + ((g * NOP + o) * DT + ti + a) * DT + tj) =
-                make_float4(acc[o][a][0], acc[o][a][1], acc[o][a][2], acc[o][a][3]);
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; e += 2)
+                    *reinterpret_cast<float2*>(sm + ((g * NOP + o) * DT + r0 + 4 * e) * DT + 8 * j +
+                                               c0) = make_float2(acc[o][j][e], acc[o][j][e + 1]);
+    } else {
+        const int ti = (gt / 8) * 4, tj = (gt % 8) * 4;
+#pragma unroll
+        for (int o = 0; o < NOP; ++o)
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+                *reinterpret_cast<float4*>(sm + ((g * NOP + o) * DT + ti + a) * DT + tj) =
+                    make_float4(acc[o][a][0], acc[o][a][1], acc[o][a][2], acc[o][a][3]);
+    }
     __syncthreads();
     const int at = (tid / 8) * DT + (tid % 8) * 4;
 #pragma unroll
@@ -232,80 +492,85 @@ __device__ __forceinline__ void dense_xy(const float* __restrict__ DxT,
     __syncthreads();   // the partial tiles are read: the stages are free again
 }
 
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-
 // One velocity of flow KIND; p holds the planes (p_x, p_y) at time t.
 // blockIdx.z is the component (forward, adjoint); the backward kind walks
 // its components in the block, because w sums over them.
-template <int KIND>
+template <int KIND, bool HIGH, bool EDGE>
 __global__ void __launch_bounds__(DNT)
 velocity_kernel(const float* __restrict__ y, float* __restrict__ k,
                 const float* __restrict__ phi, const float* __restrict__ p,
-                const float* __restrict__ DxT, const float* __restrict__ Dy, int ncomp, int Ny,
+                const void* __restrict__ DxT, const void* __restrict__ Dy, int ncomp, int Ny,
                 int Nx, float t) {
     constexpr int NOP = KIND == BACKWARD ? 2 : 1;
-    __shared__ __align__(16) float sm[4 * group_floats(NOP)];
+    extern __shared__ float4 dense_smem[];
+    float* sm = reinterpret_cast<float*>(dense_smem);
     const size_t plane = (size_t)Ny * Nx;
     const int tid = threadIdx.x;
     // this thread's four output pixels
-    const size_t o = (size_t)(blockIdx.y * DT + tid / 8) * Nx + blockIdx.x * DT + (tid % 8) * 4;
-    const float4 px = ld4(p + o), py = ld4(p + plane + o);
+    const int row = blockIdx.y * DT + tid / 8, col = blockIdx.x * DT + (tid % 8) * 4;
+    const float4 px = ldq<EDGE>(p, row, col, Ny, Nx), py = ldq<EDGE>(p + plane, row, col, Ny, Nx);
     float4 wx = make_float4(0.f, 0.f, 0.f, 0.f), wy = wx;
     const int c0 = KIND == BACKWARD ? 0 : blockIdx.z, c1 = KIND == BACKWARD ? ncomp : c0 + 1;
     for (int c = c0; c < c1; ++c) {
         const float* a = y + (size_t)c * plane;
         const float* b = y + (size_t)(ncomp + c) * plane;   // backward: delta f_c
         float4 X[NOP], Y[NOP];
-        dense_xy<NOP>(
+        dense_xy<NOP, HIGH, EDGE>(
             DxT, Dy, Ny, Nx, sm, true, true,
-            [&](int axis, int op, int row, int col) {
-                const size_t q = (size_t)row * Nx + col;
+            [&](int axis, int op, int r, int cc) {
                 // f_c as it is (forward, backward); p f_c (adjoint); p delta f_c (backward)
-                if (KIND == FORWARD || (KIND == BACKWARD && op == 0)) return ld4(a + q);
-                return mul4(ld4(p + axis * plane + q), ld4((op == 0 ? a : b) + q));
+                if (KIND == FORWARD || (KIND == BACKWARD && op == 0))
+                    return ldq<EDGE>(a, r, cc, Ny, Nx);
+                return mul4(ldq<EDGE>(p + axis * plane, r, cc, Ny, Nx),
+                            ldq<EDGE>(op == 0 ? a : b, r, cc, Ny, Nx));
             },
             X, Y);
         if (KIND == ADJOINT) {
-            st4(k + (size_t)c * plane + o, add4(X[0], Y[0]));
+            stq<EDGE>(k + (size_t)c * plane, row, col, Ny, Nx, add4(X[0], Y[0]));
         } else {
-            st4(k + (size_t)c * plane + o, add4(mul4(px, X[0]), mul4(py, Y[0])));   // df/dt
+            stq<EDGE>(k + (size_t)c * plane, row, col, Ny, Nx,
+                      add4(mul4(px, X[0]), mul4(py, Y[0])));   // df/dt
         }
         if (KIND == BACKWARD) {
-            st4(k + (size_t)(ncomp + c) * plane + o, add4(X[NOP - 1], Y[NOP - 1]));   // d(delta f)/dt
-            const float4 dfc = ld4(b + o);
+            stq<EDGE>(k + (size_t)(ncomp + c) * plane, row, col, Ny, Nx,
+                      add4(X[NOP - 1], Y[NOP - 1]));   // d(delta f)/dt
+            const float4 dfc = ldq<EDGE>(b, row, col, Ny, Nx);
             wx = add4(wx, mul4(dfc, X[0]));   // w = sum_c delta f_c grad f_c
             wy = add4(wy, mul4(dfc, Y[0]));
         }
     }
-    if (KIND == BACKWARD) {
+    if (KIND == BACKWARD && row < Ny) {
         // u = M^-1 w and the delta-phi integrands
         float* acc = k + (size_t)(2 * ncomp) * plane;
-        dphi_integrands(phi, plane, o, t, wx.x, wy.x, acc);
-        dphi_integrands(phi, plane, o + 1, t, wx.y, wy.y, acc);
-        dphi_integrands(phi, plane, o + 2, t, wx.z, wy.z, acc);
-        dphi_integrands(phi, plane, o + 3, t, wx.w, wy.w, acc);
+        const size_t o = (size_t)row * Nx + col;
+        const float wxs[4] = {wx.x, wx.y, wx.z, wx.w}, wys[4] = {wy.x, wy.y, wy.z, wy.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            if (!EDGE || col + e < Nx) dphi_integrands(phi, plane, o + e, t, wxs[e], wys[e], acc);
     }
 }
 
 // out = d_x a + d_y b + c over blockIdx.z planes; a, b or c may be null.
+template <bool HIGH, bool EDGE>
 __global__ void __launch_bounds__(DNT)
 deriv_kernel(const float* __restrict__ a, const float* __restrict__ b,
              const float* __restrict__ c, float* __restrict__ out,
-             const float* __restrict__ DxT, const float* __restrict__ Dy, int Ny, int Nx) {
-    __shared__ __align__(16) float sm[4 * group_floats(1)];
+             const void* __restrict__ DxT, const void* __restrict__ Dy, int Ny, int Nx) {
+    extern __shared__ float4 dense_smem[];
+    float* sm = reinterpret_cast<float*>(dense_smem);
     const size_t base = (size_t)blockIdx.z * Ny * Nx;
     const int tid = threadIdx.x;
-    const size_t o = base + (size_t)(blockIdx.y * DT + tid / 8) * Nx + blockIdx.x * DT + (tid % 8) * 4;
+    const int row = blockIdx.y * DT + tid / 8, col = blockIdx.x * DT + (tid % 8) * 4;
     float4 X[1], Y[1];
-    dense_xy<1>(
+    dense_xy<1, HIGH, EDGE>(
         DxT, Dy, Ny, Nx, sm, a != nullptr, b != nullptr,
-        [&](int axis, int, int row, int col) {
-            return ld4((axis == 0 ? a : b) + base + (size_t)row * Nx + col);
+        [&](int axis, int, int r, int cc) {
+            return ldq<EDGE>((axis == 0 ? a : b) + base, r, cc, Ny, Nx);
         },
         X, Y);
     float4 v = add4(X[0], Y[0]);
-    if (c != nullptr) v = add4(v, ld4(c + o));
-    st4(out + o, v);
+    if (c != nullptr) v = add4(v, ldq<EDGE>(c + base, row, col, Ny, Nx));
+    stq<EDGE>(out + base, row, col, Ny, Nx, v);
 }
 
 // out <- (p_x, p_y)(t), (2, nb, plane), from phi's (nb, 5, plane) planes.
@@ -347,28 +612,47 @@ unsigned stride_blocks(size_t n, int threads) {
     return (unsigned)(blocks > 65535 ? 65535 : blocks);
 }
 
-bool dense_shape_ok(int Ny, int Nx) { return Ny > 0 && Nx > 0 && Ny % DT == 0 && Nx % DT == 0; }
+int tiles(int n) { return (n + DT - 1) / DT; }
 
-}  // namespace
+bool dense_shape_ok(int Ny, int Nx, int nz) {
+    return Ny > 0 && Nx > 0 && nz > 0 && tiles(Ny) <= 65535 && nz <= 65535;
+}
 
-// k <- the velocity of flow `kind` at time t of the (nstate, Ny, Nx) state
-// y; phi is (5, Ny, Nx) and p its p(t) planes, (2, Ny, Nx). One launch.
-extern "C" int lf_velocity(int kind, const float* y, float* k, const float* phi, const float* p,
-                           const float* DxT, const float* Dy, int ncomp, int Ny, int Nx,
-                           float t, void* stream) {
-    if (!dense_shape_ok(Ny, Nx)) return (int)cudaErrorInvalidValue;
-    const dim3 grid(Nx / DT, Ny / DT, ncomp);
-    cudaStream_t st = (cudaStream_t)stream;
+// whether a launch over (Ny, Nx) planes has ragged edge tiles or slabs
+bool has_edge(int Ny, int Nx) { return Ny % DT != 0 || Nx % DT != 0; }
+
+template <class K>
+int allow(K kernel, size_t bytes) {
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)bytes);
+}
+
+template <bool HIGH, bool EDGE>
+int allow_dense() {
+    int rc = allow(velocity_kernel<FORWARD, HIGH, EDGE>, dense_smem_bytes(1, HIGH));
+    if (rc == 0) rc = allow(velocity_kernel<ADJOINT, HIGH, EDGE>, dense_smem_bytes(1, HIGH));
+    if (rc == 0) rc = allow(velocity_kernel<BACKWARD, HIGH, EDGE>, dense_smem_bytes(2, HIGH));
+    if (rc == 0) rc = allow(deriv_kernel<HIGH, EDGE>, dense_smem_bytes(1, HIGH));
+    return rc;
+}
+
+template <bool HIGH, bool EDGE>
+int velocity(int kind, const float* y, float* k, const float* phi, const float* p,
+             const void* DxT, const void* Dy, int ncomp, int Ny, int Nx, float t,
+             cudaStream_t st) {
+    const dim3 grid(tiles(Nx), tiles(Ny), kind == BACKWARD ? 1 : ncomp);
     switch (kind) {
         case FORWARD:
-            velocity_kernel<FORWARD><<<grid, DNT, 0, st>>>(y, k, phi, p, DxT, Dy, ncomp, Ny, Nx, t);
+            velocity_kernel<FORWARD, HIGH, EDGE><<<grid, DNT, dense_smem_bytes(1, HIGH), st>>>(
+                y, k, phi, p, DxT, Dy, ncomp, Ny, Nx, t);
             break;
         case ADJOINT:
-            velocity_kernel<ADJOINT><<<grid, DNT, 0, st>>>(y, k, phi, p, DxT, Dy, ncomp, Ny, Nx, t);
+            velocity_kernel<ADJOINT, HIGH, EDGE><<<grid, DNT, dense_smem_bytes(1, HIGH), st>>>(
+                y, k, phi, p, DxT, Dy, ncomp, Ny, Nx, t);
             break;
         case BACKWARD:
-            velocity_kernel<BACKWARD><<<dim3(Nx / DT, Ny / DT), DNT, 0, st>>>(y, k, phi, p, DxT,
-                                                                              Dy, ncomp, Ny, Nx, t);
+            velocity_kernel<BACKWARD, HIGH, EDGE><<<grid, DNT, dense_smem_bytes(2, HIGH), st>>>(
+                y, k, phi, p, DxT, Dy, ncomp, Ny, Nx, t);
             break;
         default:
             return (int)cudaErrorInvalidValue;
@@ -376,13 +660,47 @@ extern "C" int lf_velocity(int kind, const float* y, float* k, const float* phi,
     return (int)cudaGetLastError();
 }
 
-extern "C" int lf_deriv(const float* a, const float* b, const float* c, float* out,
-                        const float* DxT, const float* Dy, int nplanes, int Ny, int Nx,
-                        void* stream) {
-    if (!dense_shape_ok(Ny, Nx)) return (int)cudaErrorInvalidValue;
-    const dim3 grid(Nx / DT, Ny / DT, nplanes);
-    deriv_kernel<<<grid, DNT, 0, (cudaStream_t)stream>>>(a, b, c, out, DxT, Dy, Ny, Nx);
+template <bool HIGH, bool EDGE>
+int deriv(const float* a, const float* b, const float* c, float* out, const void* DxT,
+          const void* Dy, int nplanes, int Ny, int Nx, cudaStream_t st) {
+    deriv_kernel<HIGH, EDGE><<<dim3(tiles(Nx), tiles(Ny), nplanes), DNT, dense_smem_bytes(1, HIGH),
+                              st>>>(a, b, c, out, DxT, Dy, Ny, Nx);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Let the dense kernels take their stages as dynamic shared memory (the
+// 'high' backward kind's 68 KB is above the 48 KB a kernel gets unasked).
+// Once, before the first launch.
+extern "C" int lf_dense_init() {
+    int rc = allow_dense<false, false>();
+    if (rc == 0) rc = allow_dense<false, true>();
+    if (rc == 0) rc = allow_dense<true, false>();
+    return rc != 0 ? rc : allow_dense<true, true>();
+}
+
+// k <- the velocity of flow `kind` at time t of the (nstate, Ny, Nx) state
+// y; phi is (5, Ny, Nx) and p its p(t) planes, (2, Ny, Nx). high != 0 runs
+// the 'high' tier, DxT and Dy then their (2, n, n) bf16 split. One launch.
+extern "C" int lf_velocity(int high, int kind, const float* y, float* k, const float* phi,
+                           const float* p, const void* DxT, const void* Dy, int ncomp, int Ny,
+                           int Nx, float t, void* stream) {
+    if (!dense_shape_ok(Ny, Nx, ncomp)) return (int)cudaErrorInvalidValue;
+    const bool edge = has_edge(Ny, Nx);
+    auto fn = high ? (edge ? velocity<true, true> : velocity<true, false>)
+                   : (edge ? velocity<false, true> : velocity<false, false>);
+    return fn(kind, y, k, phi, p, DxT, Dy, ncomp, Ny, Nx, t, (cudaStream_t)stream);
+}
+
+extern "C" int lf_deriv(int high, const float* a, const float* b, const float* c, float* out,
+                        const void* DxT, const void* Dy, int nplanes, int Ny, int Nx,
+                        void* stream) {
+    if (!dense_shape_ok(Ny, Nx, nplanes)) return (int)cudaErrorInvalidValue;
+    const bool edge = has_edge(Ny, Nx);
+    auto fn = high ? (edge ? deriv<true, true> : deriv<true, false>)
+                   : (edge ? deriv<false, true> : deriv<false, false>);
+    return fn(a, b, c, out, DxT, Dy, nplanes, Ny, Nx, (cudaStream_t)stream);
 }
 
 // out <- the planes (p_x, p_y) of p(t) = (I + t Hess phi)^-1 grad phi,

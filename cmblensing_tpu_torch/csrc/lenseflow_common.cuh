@@ -1,5 +1,7 @@
 // Device helpers shared by the dense (lenseflow.cu) and factored
-// (factored.cu) LenseFlow kernels.
+// (factored.cu, uni.cu through fact_tile.cuh) LenseFlow kernels: p(t) and
+// the delta-phi integrands, and the bf16 tensor-core products of the
+// 'high' tier.
 #pragma once
 
 #include <stddef.h>
@@ -38,4 +40,44 @@ __device__ __forceinline__ void dphi_integrands(const float* __restrict__ phi, s
     acc[2 * plane + o] = t * px * ux;
     acc[3 * plane + o] = t * (py * ux + px * uy);
     acc[4 * plane + o] = t * py * uy;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; this lane names row
+// (lane % 8) of matrix lane / 8.
+__device__ __forceinline__ void ldsm_x4(const void* row, unsigned (&r)[4]) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(row)));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, each transposed on load;
+// this lane names row (lane % 8) of matrix lane / 8.
+__device__ __forceinline__ void ldsm_x4_t(const void* row, unsigned (&r)[4]) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(row)));
+}
+
+// d += a b: a 16 x 16 (row) by 16 x 8 (col) bf16 product, FP32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += (ah + al)(bh + bl) without al bl, as three products of n8 tile j
+// of the B fragments (rows of four registers, two per n8 tile)
+__device__ __forceinline__ void mma_high(float (&d)[4], const unsigned (&ah)[4],
+                                         const unsigned (&al)[4], const unsigned (&bh)[4],
+                                         const unsigned (&bl)[4], int j) {
+    mma_bf16(d, ah, bh[2 * j], bh[2 * j + 1]);
+    mma_bf16(d, al, bh[2 * j], bh[2 * j + 1]);
+    mma_bf16(d, ah, bl[2 * j], bl[2 * j + 1]);
 }

@@ -28,27 +28,33 @@ retry fires until a step finds alpha > 0; the JAX package retries on
 every later step, a gradient and a line search each time.
 
 Not ported yet, and refused with NotImplementedError (ROADMAP Queue 1
-item 8): the 'bf16' tier, ``linesearch="brent"``, ``quasi_sample``,
-``nburnin_update_hessian``, batched datasets, a ``logprior``, and
-``MAP_marg``.
+item 3): the 'bf16' tier, ``linesearch="brent"`` (and so an
+``alpha_tol`` and a ``logprior`` in MAP_joint), ``quasi_sample`` (and
+so a ``key``), ``nburnin_update_hessian``, batched datasets, and
+``MAP_marg``. ``argmaxf_logpdf`` solves the Gaussian conditional only and
+warns when the dataset has a logprior, as the JAX package does.
 """
 from __future__ import annotations
 
 import contextlib
+import warnings
 
 import numpy as np
 import torch
 
 from ..core.field import Field, dot as field_dot, fvalue_and_grad, norm as field_norm, \
     zeros_like_field
-from ..core.ops import Diag, Id, ParamDependentOp, _Identity, evaluate_at
+from ..core.ops import Diag, Id, ParamDependentOp, _Identity, _diag_field_of, evaluate_at
 from ..models.dataset import DataSet, Mixed, mix, unmix
 from ..ops.deriv import precision_ctx
 from ..ops.solvers import conjugate_gradient, tree_dot
 from ..utils.progress import progress_bar
 from ..utils.timing import timed
 
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 8)"
+_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 3)"
+# what MAP_joint can record per step
+HISTORY_KEYS = ("logpdf", "phi", "f", "alpha", "cg_iters", "cg_res", "cg_res_history",
+                "gradnorm", "precision_fallback", "retry")
 
 
 def _check_precision(precision, name, allowed):
@@ -85,7 +91,8 @@ def _eager_chain_mul(*ops):
 
 def hessian_f_preconditioner(ds: DataSet):
     """pinv(Cf) + B' M' pinv(Cn_hat) M B from the Fourier-diagonal
-    approximations (reference Hessian_logpdf_preconditioner)."""
+    approximations (reference Hessian_logpdf_preconditioner): Diags, or
+    BlockDiagIEBs at pol IP, composed mode by mode."""
     Cf = _fid(ds.Cf)
     Bh, Mh, Cnh = _fid(ds.B_hat), _fid(ds.M_hat), _fid(ds.Cn_hat)
     return Cf.pinv() + _eager_chain_mul(Bh.H, Mh.H, Cnh.pinv(), Mh, Bh)
@@ -121,6 +128,11 @@ def argmaxf_logpdf(ds: DataSet, phi=None, theta=None, d=None, fstart=None,
     misses max(tol, 1e-10 res0) (info["precision_fallback"] = True); None
     runs everything at the precision in force. Returns (f, info)."""
     theta = theta or {}
+    if getattr(ds, "logprior", None) is not None:
+        warnings.warn(
+            "argmaxf_logpdf solves the GAUSSIAN conditional in f; an "
+            "f-dependent ds.logprior is not part of this solve "
+            "(matches the reference's analytic gradientf)", stacklevel=2)
     cg = dict(tol=1e-1, nsteps=500, hessian_precision="auto")
     cg.update(conjgrad_kwargs or {})
     hp = cg.pop("hessian_precision")
@@ -140,7 +152,7 @@ def argmaxf_logpdf(ds: DataSet, phi=None, theta=None, d=None, fstart=None,
 
 def _argmaxf_core(ds, theta, phi, d, fstart, offset, hessian_precision=None, **cg):
     precond = hessian_f_preconditioner(ds)
-    dfield = _fid(ds.Cf).diag
+    dfield = _diag_field_of(ds.Cf)
     zero_f = zeros_like_field(dfield).to(dfield.basis.with_space("map"))
     zero_d = zeros_like_field(d)
     # gradientf(f, d) = b - H f with H SPD: b = gradientf(0, d) and
@@ -240,9 +252,9 @@ def _step_unmix_and_norm(dstheta, theta, f_mix, phi_mix, dphi, alpha):
 
 
 def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phistart=None,
-              gradtol=0.0, alpha_max=None, conjgrad_kwargs=None, quasi_sample=False,
-              progress=False, history_keys=("logpdf",), nburnin_update_hessian=None,
-              linesearch="grid", ngrid=16, precision="auto"):
+              alpha_tol=1e-4, gradtol=0.0, alpha_max=None, conjgrad_kwargs=None,
+              quasi_sample=False, key=None, progress=False, history_keys=("logpdf",),
+              nburnin_update_hessian=None, linesearch="grid", ngrid=16, precision="auto"):
     """Joint MAP estimate of (f, phi) by coordinate ascent (reference
     src/maximization.jl): an exact f-step (CG Wiener filter) alternates
     with a preconditioned-gradient phi-step along grad_phi° of the mixed
@@ -254,16 +266,28 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
     direction retry (module docstring); 'f32' all three strict, the
     f-step's CG at its own default ("auto") unless conjgrad_kwargs names
     a hessian_precision; None strict everywhere, the f-step included.
-    history_keys picks what each step records: "logpdf", "alpha",
-    "cg_iters", "cg_res", "gradnorm", and "precision_fallback" (the
-    f-step re-ran strict) and "retry" (the direction retry fired).
-    Iteration stops early once a step after minsteps moves phi° by less
-    than gradtol (alpha |dphi|). Returns dict(f, phi, history)."""
+    history_keys picks what each step records: "logpdf", "phi" (after
+    the step, map basis), "f" (the f-step's), "alpha", "cg_iters",
+    "cg_res", "cg_res_history" (when conjgrad_kwargs ask CG to record
+    it), "gradnorm", and "precision_fallback" (the f-step re-ran strict)
+    and "retry" (the direction retry fired); another key raises.
+    alpha_tol (brent's) and key (quasi_sample's) are taken at their
+    defaults only, while those two are not ported. Iteration stops early
+    once a step after minsteps moves phi° by less than gradtol (alpha
+    |dphi|). Returns dict(f, phi, history)."""
     _check_precision(precision, "precision", (None, "auto", "f32", "high"))
+    unknown = [k for k in history_keys if k not in HISTORY_KEYS]
+    if unknown:
+        raise ValueError(f"history_keys {unknown}: MAP_joint records {HISTORY_KEYS}")
     if linesearch != "grid":
         raise NotImplementedError(f"linesearch={linesearch!r} is {_NOT_PORTED}")
+    if alpha_tol != 1e-4:
+        raise NotImplementedError(f"alpha_tol={alpha_tol!r}: brent's tolerance; brent is "
+                                  f"{_NOT_PORTED}")
     if quasi_sample:
         raise NotImplementedError(f"quasi_sample is {_NOT_PORTED}")
+    if key is not None:
+        raise NotImplementedError(f"a key (quasi_sample's) is {_NOT_PORTED}")
     if nburnin_update_hessian is not None:
         raise NotImplementedError(f"nburnin_update_hessian is {_NOT_PORTED}")
     if getattr(ds, "logprior", None) is not None:
@@ -340,12 +364,18 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
             entry = {}
             if "logpdf" in history_keys:
                 entry["logpdf"] = lp
+            if "phi" in history_keys:
+                entry["phi"] = phi
+            if "f" in history_keys:
+                entry["f"] = f
             if "alpha" in history_keys:
                 entry["alpha"] = alpha
             if "cg_iters" in history_keys:
                 entry["cg_iters"] = int(cg_info["iterations"])
             if "cg_res" in history_keys:
                 entry["cg_res"] = cg_info["res"].cpu().numpy()
+            if "cg_res_history" in history_keys and "res_history" in cg_info:
+                entry["cg_res_history"] = cg_info["res_history"].cpu().numpy()
             if "gradnorm" in history_keys:
                 entry["gradnorm"] = np.asarray(float(field_norm(g)))
             if "precision_fallback" in history_keys:

@@ -1,6 +1,6 @@
 """Problem-definition containers and the simulated-dataset factory.
 
-Counterpart of ``cmblensing_tpu/models/dataset.py`` for pol I and P.
+Counterpart of ``cmblensing_tpu/models/dataset.py`` for pol I, P and IP.
 The data model is
 
     d = M(theta) B(theta) L(phi) f + n
@@ -21,8 +21,9 @@ import torch
 from ..core.basis import Basis
 from ..core.cov import Cl_to_Cov
 from ..core.field import Field
-from ..core.ops import (Diag, Id, LowPass, BandPass, OpAlgebra, ParamDependentOp,
-                        Scaled, evaluate_at, logdet_rel, safe_divide, safe_reciprocal)
+from ..core.ops import (BlockDiagIEB, Diag, Id, LazyOp, LowPass, BandPass, OpAlgebra,
+                        ParamDependentOp, Scaled, evaluate_at, logdet_rel, safe_divide,
+                        safe_reciprocal)
 from ..core.proj import ProjLambert, resolve_device
 from ..utils.cls import camb as camb_cls, noise_cls, beam_cls
 from .distributions import MvNormal
@@ -62,24 +63,55 @@ def _d_recompute(deps, r=None):
     """D(r) = sqrt((Cf(r) + sigma2len I + 2 Cn_hat) pinv(Cf(r)))."""
     Cf, Cn_hat, r0, sigma2len = deps
     Cfr = Cf(dict(r=r0 if r is None else r))
-    num = _op_lincomb(Cfr, 2.0, Cn_hat)
-    num = Diag(Field(num.diag.arr + sigma2len, num.diag.basis, num.diag.proj))
-    arr = safe_divide(num.diag.arr, Cfr.diag.arr)
-    return Diag(Field(torch.sqrt(arr), num.diag.basis, num.diag.proj))
+    num = _add_scalar_identity(_op_lincomb(Cfr, 2.0, Cn_hat), sigma2len)
+    return _op_mul_sqrt_pinv(num, Cfr)
+
+
+IEB_BLOCKS = ("TT", "TE", "EE", "BB", "ET")   # BlockDiagIEB's blocks, in its arguments' order
+
+
+def _ieb_map(op, fn):
+    """The BlockDiagIEB of fn applied to each of op's blocks."""
+    return BlockDiagIEB(*(fn(getattr(op, k)) for k in IEB_BLOCKS))
 
 
 def _op_scale(s, op):
     if isinstance(op, Diag):
         return Diag(Field(s * op.diag.arr, op.diag.basis, op.diag.proj))
+    if isinstance(op, BlockDiagIEB):
+        return _ieb_map(op, lambda x: Field(s * x.arr, x.basis, x.proj))
     return Scaled(s, op)
 
 
 def _op_lincomb(a, s, b):
-    """a + s*b for Diags."""
+    """a + s*b for two Diags or two BlockDiagIEBs."""
     if isinstance(a, Diag) and isinstance(b, Diag):
         gb = b.diag.to(a.diag.basis)
         return Diag(Field(a.diag.arr + s * gb.arr, a.diag.basis, a.diag.proj))
+    if isinstance(a, BlockDiagIEB) and isinstance(b, BlockDiagIEB):
+        return BlockDiagIEB(*(Field(getattr(a, k).arr + s * getattr(b, k).arr, getattr(a, k).basis,
+                                    a.proj) for k in IEB_BLOCKS))
     raise TypeError((type(a), type(b)))
+
+
+def _add_scalar_identity(op, s):
+    """op + s I for a Diag or a BlockDiagIEB."""
+    if isinstance(op, Diag):
+        return Diag(Field(op.diag.arr + s, op.diag.basis, op.diag.proj))
+    if isinstance(op, BlockDiagIEB):
+        F = lambda x: Field(x.arr + s, x.basis, x.proj)
+        return BlockDiagIEB(F(op.TT), op.TE, F(op.EE), F(op.BB), op.ET)
+    raise TypeError(type(op))
+
+
+def _op_mul_sqrt_pinv(num, den):
+    """sqrt(num pinv(den)) for two Diags or two BlockDiagIEBs."""
+    if isinstance(num, Diag) and isinstance(den, Diag):
+        arr = safe_divide(num.diag.arr, den.diag.arr)
+        return Diag(Field(torch.sqrt(arr), num.diag.basis, num.diag.proj))
+    if isinstance(num, BlockDiagIEB) and isinstance(den, BlockDiagIEB):
+        return (num * den.pinv()).sqrt()
+    raise TypeError((type(num), type(den)))
 
 
 # =========================================================================
@@ -103,6 +135,7 @@ class DataSet:
     G: Any = Id                # phi reparametrization
     Nphi: Any = None           # phi noise estimate
     L: Any = LenseFlow         # lensing operator factory (LenseFlow, nsteps=7)
+    logprior: Any = None       # callable logprior(theta=, f=, phi=) added to the prior term
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -128,8 +161,11 @@ class DataSet:
         likelihood); logpdf is their sum."""
         theta = theta or {}
         if which == "prior":
-            return (MvNormal(0, evaluate_at(self.Cf, theta)).logpdf(f)
-                    + MvNormal(0, evaluate_at(self.Cphi, theta)).logpdf(phi))
+            lp = (MvNormal(0, evaluate_at(self.Cf, theta)).logpdf(f)
+                  + MvNormal(0, evaluate_at(self.Cphi, theta)).logpdf(phi))
+            if self.logprior is not None:
+                lp = lp + self.logprior(theta=theta, f=f, phi=phi)
+            return lp
         if d is None:
             d = self.d
         ft = self.L(phi) @ f
@@ -150,7 +186,8 @@ class DataSet:
         return dict(f=f, phi=phi, ft=ft, n=n, d=mu + n)
 
     def gradientf_logpdf(self, f, phi=None, theta=None, d=None):
-        """Analytic gradient of logpdf with respect to f (Gaussian terms)."""
+        """Analytic gradient of logpdf with respect to f: the Gaussian terms
+        only, an f-dependent logprior left out (argmaxf_logpdf warns)."""
         theta = theta or {}
         if d is None:
             d = self.d
@@ -202,28 +239,35 @@ def unmix(ds: DataSet, f_mix=None, phi_mix=None, theta=None):
 # =========================================================================
 
 def _mask_cov(pol, proj, bandpass):
-    """Fourier-diagonal operator of a BandPass for pol I or P."""
+    """Fourier-diagonal operator of a BandPass for pol I, P or IP (its TE
+    block zero)."""
     W = bandpass.on(proj, pol="I").diag.arr   # (1, Ny, Nxh)
     if pol == "I":
         return Diag(Field(W, Basis("I", "fourier"), proj))
     if pol == "P":
         return Diag(Field(torch.cat([W, W], dim=-3), Basis("EB", "fourier"), proj))
-    raise NotImplementedError(f"pol {pol!r} is not ported yet")
+    if pol == "IP":
+        F = lambda a: Field(a, Basis("I", "fourier"), proj)
+        return BlockDiagIEB(F(W), F(torch.zeros_like(W)), F(W), F(W))
+    raise ValueError(pol)
 
 
-def load_sim(thetapix, Nside, pol, T=np.float32, muKarcminT=3, beamFWHM=0, seed=0,
-             device=None):
-    """Simulated-dataset factory for pol 'I' or 'P' at the fiducial
-    cosmology (no pixel mask, no batch; 1/f noise knee at l=100, slope
-    3). The simulation draws f, phi and the noise from a torch.Generator
-    on `device` (the CUDA card unless given, e.g. "cpu") seeded with
-    `seed`. Returns a dict with f, ft, phi, d,
-    ds, ds0 (fiducial-evaluated), Cl, proj."""
+def load_sim(thetapix, Nside, pol, T=np.float32, muKarcminT=3, beamFWHM=0,
+             pixel_mask_kwargs=None, bandpass_mask=None, seed=0, device=None):
+    """Simulated-dataset factory for pol 'I', 'P' or 'IP' at the fiducial
+    cosmology (no batch; 1/f noise knee at l=100, slope 3). The mask M is
+    `bandpass_mask` (LowPass(3000) unless given) as a Fourier-diagonal
+    operator, times, with `pixel_mask_kwargs`, the pixel mask that
+    utils/masking.py::make_mask draws from np.random.default_rng(seed)
+    with those arguments (M_hat stays the Fourier part). The simulation
+    draws f, phi and the noise from a torch.Generator on `device` (the
+    CUDA card unless given, e.g. "cpu") seeded with `seed`. Returns a dict
+    with f, ft, phi, d, ds, ds0 (fiducial-evaluated), Cl, proj."""
     from .quadratic_estimate import quadratic_estimate
 
     pol = str(pol)
-    if pol not in ("I", "P"):
-        raise NotImplementedError(f"load_sim for pol {pol!r} is not ported yet")
+    if pol not in ("I", "P", "IP"):
+        raise ValueError(f"pol should be one of 'I', 'P', or 'IP' (got {pol!r})")
     device = resolve_device(device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
@@ -234,7 +278,7 @@ def load_sim(thetapix, Nside, pol, T=np.float32, muKarcminT=3, beamFWHM=0, seed=
     Cl = camb_cls(lmax=lmax)
     r0 = float(Cl["params"].get("r", 0.2))
     Cln = noise_cls(muKarcminT=muKarcminT, beamFWHM=0, lknee=100, alphaknee=3, lmax=lmax)
-    ks = {"I": ("TT",), "P": ("EE", "BB")}[pol]
+    ks = {"I": ("TT",), "P": ("EE", "BB"), "IP": ("TT", "EE", "BB", "TE")}[pol]
 
     Cphi0 = Cl_to_Cov("I", proj, Cl["total"]["pp"])
     Cfs = Cl_to_Cov(pol, proj, *[Cl["unlensed_scalar"][k] for k in ks])
@@ -244,12 +288,18 @@ def load_sim(thetapix, Nside, pol, T=np.float32, muKarcminT=3, beamFWHM=0, seed=
 
     Cf = ParamDependentOp(("r",), _cf_recompute, (Cfs, Cft, r0))
     Cphi = ParamDependentOp(("Aphi",), _cphi_recompute, (Cphi0, 1.0))
-    M = _mask_cov(pol, proj, LowPass(3000))
+    M_hat = M = _mask_cov(pol, proj, LowPass(3000) if bandpass_mask is None else bandpass_mask)
+    if pixel_mask_kwargs is not None:
+        from ..utils.masking import make_mask
+        mask = make_mask((Ny, Nx), thetapix, rng=np.random.default_rng(seed), **pixel_mask_kwargs)
+        b = Basis({"I": "I", "P": "QU", "IP": "IQU"}[pol], "map")
+        pix = np.broadcast_to(mask[None], (b.ncomp, Ny, Nx)).copy()
+        M = LazyOp("*", M_hat, Diag(Field(torch.as_tensor(pix, device=device), b, proj)))
     Bl = beam_cls(beamFWHM=beamFWHM, lmax=lmax).sqrt()
     B = _mask_cov(pol, proj, BandPass(Bl.ell, Bl.Cl))
 
     ds = DataSet(Cn=Cn_hat, Cn_hat=Cn_hat, Cf=Cf, Cf_tilde=Cf_tilde, Cphi=Cphi,
-                 M=M, M_hat=M, B=B, B_hat=B)
+                 M=M, M_hat=M_hat, B=B, B_hat=B)
     sim = ds.simulate(generator)
     ds = ds.replace(d=sim["d"])
 
@@ -271,23 +321,40 @@ DIAG_OPS = ("Cf", "Cf_tilde", "Cn", "Cn_hat", "Cphi", "M", "M_hat", "B", "B_hat"
             "D", "G", "Nphi")
 
 
+def _op_from_numpy(spec, proj):
+    """The operator an entry of `dataset_from_numpy`'s arrays describes."""
+    if isinstance(spec, list):
+        ops = [_op_from_numpy(x, proj) for x in spec]
+        out = ops[-1]
+        for op in reversed(ops[:-1]):
+            out = LazyOp("*", op, out)
+        return out
+    if isinstance(spec, dict):
+        F = lambda a: Field(torch.as_tensor(np.array(a), device=proj.device),
+                            Basis("I", "fourier"), proj)
+        return BlockDiagIEB(*(F(spec[k]) for k in IEB_BLOCKS[:4]),
+                            F(spec["ET"]) if "ET" in spec else None)
+    arr, pol, space = spec
+    return Diag(Field(torch.as_tensor(np.array(arr), device=proj.device), Basis(pol, space), proj))
+
+
 def dataset_from_numpy(arrays, proj_kwargs, device=None):
     """A DataSet from plain numpy arrays, e.g. those of another
     implementation's dataset evaluated at theta = {}.
 
-    arrays maps "d" and each name in DIAG_OPS to (array, pol, space):
-    the data field, and the diagonal of each Fourier- or map-diagonal
-    operator, with its basis. A missing M, M_hat, B, B_hat, D or G is the
-    identity.
-    proj_kwargs are ProjLambert's (Ny, Nx, thetapix, T). The dataset
-    lives on `device`: the CUDA card unless given, e.g. "cpu"."""
+    arrays maps "d" to (array, pol, space), the data field, and each name
+    in DIAG_OPS to its operator: (array, pol, space) for a Fourier- or
+    map-diagonal operator (its diagonal and basis); a dict of the
+    spin-0 Fourier blocks TT, TE, EE, BB (and ET where it differs from
+    TE), each (1, Ny, Nx//2+1), for a BlockDiagIEB; or a list of such
+    entries for their product in that order (a mask given as a Fourier
+    diagonal times a pixel diagonal). A missing M, M_hat, B, B_hat, D or G
+    is the identity. proj_kwargs are ProjLambert's (Ny, Nx, thetapix, T).
+    The dataset lives on `device`: the CUDA card unless given, e.g.
+    "cpu"."""
     device = resolve_device(device)
     proj = ProjLambert(**proj_kwargs, device=device)
-
-    def field(name):
-        arr, pol, space = arrays[name]
-        return Field(torch.as_tensor(np.array(arr), device=device),
-                     Basis(pol, space), proj)
-
-    kw = {name: Diag(field(name)) for name in DIAG_OPS if name in arrays}
-    return DataSet(d=field("d"), **kw)
+    arr, pol, space = arrays["d"]
+    d = Field(torch.as_tensor(np.array(arr), device=device), Basis(pol, space), proj)
+    kw = {name: _op_from_numpy(arrays[name], proj) for name in DIAG_OPS if name in arrays}
+    return DataSet(d=d, **kw)

@@ -11,7 +11,7 @@ stage from grad(phi) and Hess(phi). Gradients come from two
 transpose-delta flow, which integrates the coupled (f, delta f, delta
 phi) system t: 1 -> 0, re-evolving f backward on the fly.
 
-Three integration backends, chosen with `set_lenseflow_backend` or
+Four integration backends, chosen with `set_lenseflow_backend` or
 `lenseflow_backend_ctx`:
 
   'kernel' — ops/lenseflow_kernels.py: the hand-written CUDA flow
@@ -24,13 +24,16 @@ Three integration backends, chosen with `set_lenseflow_backend` or
              delta phi in its state; the JAX package's CMBL_FORCE_UNI=1
              CMBL_NO_FA=1. On the card it takes factored operands only
              (512^2 and up); on the CPU its plain version takes either.
+  'matmul' — the 'kernel' flows on their plain matmul leaves on any
+             device (`flow_apply_plain`, `flow_bwd_plain`): on the card,
+             the reference the kernels are held to at either precision.
   'plain'  — RK4 over torch ops with FFT derivatives (ops/deriv.py), the
              backward flow with its delta-phi accumulation hoisted out of
              the time loop.
 
-The 'kernel' and 'uni' flows run at the matmul precision in force when
-the operator is applied (ops/deriv.py::precision_ctx; 'high' on
-'kernel', 'f32' on both); the autograd Functions record it at forward
+The 'kernel', 'matmul' and 'uni' flows run at the matmul precision in
+force when the operator is applied (ops/deriv.py::precision_ctx; 'high'
+on 'kernel' and 'matmul', 'f32' on all three); the autograd Functions record it at forward
 time and run their backward at it, wherever `.backward()` is called.
 The 'plain' backend's FFT derivatives ignore it.
 """
@@ -46,11 +49,11 @@ from ..ops import deriv as _deriv
 from ..ops import lenseflow_kernels as _lfk
 
 _BACKEND = "kernel"
-BACKENDS = ("kernel", "uni", "plain")
+BACKENDS = ("kernel", "uni", "matmul", "plain")
 
 
 def set_lenseflow_backend(backend):
-    """'kernel', 'uni' or 'plain' (see the module docstring)."""
+    """'kernel', 'uni', 'matmul' or 'plain' (see the module docstring)."""
     global _BACKEND
     if backend not in BACKENDS:
         raise ValueError(f"unknown LenseFlow backend {backend!r}")
@@ -195,14 +198,19 @@ def _backward_flow_scan(f1, dy, g, h, proj, t1, t0, nsteps):
 # the two flows and the transpose-delta flow, per backend
 # =========================================================================
 
+# backend -> (grad/Hess phi, forward/adjoint flow, transpose-delta flow)
+_FLOWS = {"kernel": (_lfk.gradhess, _lfk.flow_apply, _lfk.flow_bwd),
+          "uni": (_lfk.gradhess, _lfk.uni_flow_apply, _lfk.uni_flow_bwd),
+          "matmul": (_lfk.gradhess_plain, _lfk.flow_apply_plain, _lfk.flow_bwd_plain)}
+
+
 def _apply(phi_map, f_map, t0, t1, nsteps, proj, backend, precision=None, kind="forward"):
     """Forward flow t0 -> t1, or (kind='adjoint') the adjoint flow
-    t1 -> t0, the kernel and uni flows at `precision` (None: the one in
-    force)."""
-    if backend in ("kernel", "uni"):
+    t1 -> t0, the matmul flows at `precision` (None: the one in force)."""
+    if backend in _FLOWS:
+        gradhess, flow, _ = _FLOWS[backend]
         mats = _deriv.deriv_ops(proj)
-        phi = _lfk.gradhess(phi_map, mats, precision)
-        flow = _lfk.flow_apply if backend == "kernel" else _lfk.uni_flow_apply
+        phi = gradhess(phi_map, mats, precision)
         if kind == "forward":
             return flow(f_map, phi, mats, t0, t1, nsteps, "forward", precision)
         return flow(f_map, phi, mats, t1, t0, nsteps, "adjoint", precision)
@@ -215,12 +223,12 @@ def _apply(phi_map, f_map, t0, t1, nsteps, proj, backend, precision=None, kind="
 def _bwd(phi_map, f1, dy, t0, t1, nsteps, proj, backend, precision=None):
     """Continuous adjoint of the forward flow t0 -> t1: integrate the
     coupled (f, delta f, delta phi) system from (f(t1), dy, 0) back to
-    t0, the kernel and uni flows at `precision`. Returns (dphi, df0)."""
+    t0, the matmul flows at `precision`. Returns (dphi, df0)."""
     dy = dy.contiguous()
-    if backend in ("kernel", "uni"):
+    if backend in _FLOWS:
+        gradhess, _, flow = _FLOWS[backend]
         mats = _deriv.deriv_ops(proj)
-        phi = _lfk.gradhess(phi_map, mats, precision)
-        flow = _lfk.flow_bwd if backend == "kernel" else _lfk.uni_flow_bwd
+        phi = gradhess(phi_map, mats, precision)
         return flow(dy, f1, phi, mats, t0, t1, nsteps, precision)
     g, h = _gradhess_phi(phi_map, proj)
     df0, dphi = _backward_flow_scan(f1, dy, g, h, proj, t1, t0, nsteps)

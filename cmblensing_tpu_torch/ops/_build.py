@@ -79,14 +79,15 @@ def bind(lib):
     library."""
     P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     sigs = {
-        "lf_velocity": [I, P, P, P, P, P, P, I, I, I, F, P],
-        "lf_deriv": [P, P, P, P, P, P, I, I, I, P],
+        "lf_velocity": [I, I, P, P, P, P, P, P, I, I, I, F, P],
+        "lf_deriv": [I, P, P, P, P, P, P, I, I, I, P],
         "lf_rk4_update": [P, P, P, P, ctypes.c_size_t, I, F, F, P],
         "lf_p_planes": [P, P, ctypes.c_size_t, ctypes.c_size_t, F, P],
         "lf_fderiv": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
         "lf_fa_velocity": [I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
         "lf_bv_velocity": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
         "lf_uni_velocity": [I, P, P, L, L, L, L, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        "lf_dense_init": [],
         "lf_factored_init": [],
         "lf_uni_init": [],
     }
@@ -103,7 +104,7 @@ def load():
     global _LIB
     if _LIB is None:
         lib = bind(ctypes.CDLL(str(build())))
-        for init in (lib.lf_factored_init, lib.lf_uni_init):
+        for init in (lib.lf_dense_init, lib.lf_factored_init, lib.lf_uni_init):
             rc = init()
             if rc != 0:
                 raise RuntimeError(f"{init.__name__} failed with CUDA error {rc}")

@@ -54,12 +54,16 @@ ops/deriv.py::deriv_ops returns.
 Precision: the public flows and `gradhess` run at the matmul precision
 in force (ops/deriv.py) unless given one. 'f32' is the kernels above;
 'high' (the JAX package's bf16 head/residual split, `_mk_dot('high')` /
-`_make_ddx_ddy` 'high') runs the factored kernels' tensor-core tier
-(the `high` argument of lf_fderiv, lf_fa_velocity and lf_bv_velocity,
-csrc/factored.cu) and, for a CPU tensor, the plain 'high'
-leaves, dense or factored. With no 'high' kernel for it, the dense form
-on the card and the uni granularity raise NotImplementedError (ROADMAP
-Queue 2), as does 'bf16' everywhere: none of them runs strict instead.
+`_make_ddx_ddy` 'high') runs the kernels' tensor-core tier (the `high`
+argument of lf_velocity and lf_deriv, csrc/lenseflow.cu, and of
+lf_fderiv, lf_fa_velocity and lf_bv_velocity, csrc/factored.cu) and,
+for a CPU tensor, the plain 'high' leaves, dense or factored. With no
+'high' kernel for it, the uni granularity raises NotImplementedError
+(ROADMAP Queue 2), as does 'bf16' everywhere: neither runs strict
+instead.
+
+The dense kernels take any plane shape (their edge tiles are guarded);
+the factored ones a radix they are built for (ops/deriv.py::deriv_ops).
 """
 from __future__ import annotations
 
@@ -70,9 +74,8 @@ import torch
 
 from . import deriv as _deriv
 from .deriv import FACTOR_A
-from .factored_deriv import FactoredOps, fyt
+from .factored_deriv import FactoredOps, fyt, split_bf16
 
-TILE = 32   # the dense kernels' output tile
 KINDS = {"forward": 0, "adjoint": 1, "backward": 2}
 ROLES = {"forward": 0, "adjoint": 1}   # the factored kernel's role argument
 ROLES_UNI = {"forward": 2, "adjoint": 3}   # the universal kernel's roles for the applies
@@ -85,7 +88,8 @@ LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0
             "rk4_update": 0, "p_planes": 0, "deriv": 0, "fderiv": 0, "fa_velocity_forward": 0,
             "fa_velocity_adjoint": 0, "bv_velocity": 0, "uni_role0": 0, "uni_role1": 0,
             "uni_role2": 0, "uni_role3": 0, "fderiv_high": 0, "fa_velocity_forward_high": 0,
-            "fa_velocity_adjoint_high": 0, "bv_velocity_high": 0}
+            "fa_velocity_adjoint_high": 0, "bv_velocity_high": 0, "velocity_forward_high": 0,
+            "velocity_adjoint_high": 0, "velocity_backward_high": 0, "deriv_high": 0}
 PRECISIONS = ("f32", "high")   # the tiers the flows are ported at
 
 
@@ -207,19 +211,21 @@ def uni_velocity_plain(role, a, b, px, py, out, mats, t):
 # CUDA kernel leaves
 # =========================================================================
 
-def _check_cuda(name, tensors, Ny, Nx, strided=()):
-    """Device, type and contiguity of a kernel's tensors; those in
-    `strided` are checked for device and type only."""
-    dev = tensors[0].device
+def _check_cuda(name, tensors, strided=(), dtype=torch.float32):
+    """Device, type and contiguity of a kernel's tensors, and the 16-byte
+    alignment its vector loads need where a row holds a multiple of 16
+    bytes; those in `strided` are checked for device and type only."""
+    dev = (*tensors, *strided)[0].device
     for x in (*tensors, *strided):
         if x.device.type != "cuda" or x.device != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes {dtype}, got {x.dtype}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
-    if Ny % TILE or Nx % TILE:
-        raise ValueError(f"{name}: Ny={Ny} and Nx={Nx} must be multiples of {TILE}")
+    if any(x.data_ptr() % 16 for x in tensors if (x.shape[-1] * x.element_size()) % 16 == 0):
+        raise ValueError(f"{name}: tensors whose rows are whole 16-byte words must be 16-byte "
+                         "aligned")
 
 
 def _ptr(x):
@@ -234,20 +240,32 @@ _OPERANDS = {}   # (id(mats), precision) -> (mats, tensors, pointers): sets alre
 
 
 def _operands(name, mats, like, precision="f32"):
-    """The derivative operands a kernel reads from `mats`, (DxT, Dy) or a
-    FactoredOps' (FX, FYT, bfx, bfy) (at 'high' (FXS, FYTS, bfx, bfy)), as
-    tensors and ready ctypes pointers. Device, type and contiguity are
-    checked the first time an operand set is seen (a flow hands the same
-    set to every launch); that it lies on `like`'s device, every time."""
+    """The derivative operands a kernel reads from `mats`: (DxT, Dy) (at
+    'high' their (2, n, n) bfloat16 splits [head, residual], made here
+    once per operand set) or a FactoredOps' (FX, FYT, bfx, bfy) (at 'high'
+    (FXS, FYTS, bfx, bfy)), as tensors and ready ctypes pointers. Device,
+    type and contiguity are checked the first time an operand set is seen
+    (a flow hands the same set to every launch); that it lies on `like`'s
+    device, every time."""
     hit = _OPERANDS.get((id(mats), precision))
     if hit is None or hit[0] is not mats:
-        tensors = _fops(mats, precision) if isinstance(mats, FactoredOps) else tuple(mats)
-        _check_cuda(name, tensors[2:] if precision == "high" else tensors, TILE, TILE)
-        if precision == "high" and not all(
-                x is not None and x.dtype == torch.bfloat16 and x.is_contiguous()
-                and x.device == tensors[2].device for x in tensors[:2]):
-            raise ValueError(f"{name}: the split blocks must be contiguous bfloat16 on the "
-                             "butterflies' CUDA device")
+        if isinstance(mats, FactoredOps):
+            tensors = _fops(mats, precision)
+        elif precision == "high":
+            _check_cuda(name, mats)
+            tensors = tuple(torch.stack(split_bf16(M)) for M in mats)
+        else:
+            tensors = tuple(mats)
+        rest = tensors
+        if precision == "high":   # the split operands come first
+            if tensors[0] is None or tensors[1] is None:
+                raise ValueError(f"{name}: 'high' needs the split blocks that factored_ops makes")
+            _check_cuda(name, tensors[:2], dtype=torch.bfloat16)
+            rest = tensors[2:]
+        if rest:
+            _check_cuda(name, rest)
+        if tensors[0].device != tensors[-1].device:
+            raise ValueError(f"{name}: all operands must be on one CUDA device")
         if len(_OPERANDS) >= 8:
             _OPERANDS.clear()
         hit = _OPERANDS[(id(mats), precision)] = (mats, tensors, tuple(map(_ptr, tensors)))
@@ -282,7 +300,7 @@ def p_planes_launcher(phi, out):
     """launch(t): out (2, ..., Ny, Nx) <- the planes of p(t) from phi."""
     from . import _build
     Ny, Nx = phi.shape[-2:]
-    _check_cuda("lf_p_planes", [phi, out], Ny, Nx)
+    _check_cuda("lf_p_planes", [phi, out])
     if phi.shape[-3] != 5 or out.shape != (2,) + phi.shape[:-3] + (Ny, Nx):
         raise ValueError(f"lf_p_planes: phi {tuple(phi.shape)} and out {tuple(out.shape)} do not "
                          "fit (..., 5, Ny, Nx) and (2, ..., Ny, Nx)")
@@ -294,31 +312,34 @@ def p_planes_cuda(t, phi, out):
     p_planes_launcher(phi, out)(float(t))
 
 
-def velocity_launcher(kind, y, k, phi, pt, mats, ncomp):
-    """launch(t): k <- the dense velocity kernel of flow `kind` at y."""
+def velocity_launcher(kind, y, k, phi, pt, mats, ncomp, precision="f32"):
+    """launch(t): k <- the dense velocity kernel (K2) of flow `kind` at y,
+    at `precision` ('f32' or 'high')."""
     from . import _build
     Ny, Nx = y.shape[-2:]
-    (DxT, Dy), mptrs = _operands("lf_velocity", mats, y)
-    _check_cuda("lf_velocity", [y, k, phi, pt], Ny, Nx)
+    high = _high_arg(precision)
+    _, mptrs = _operands("lf_velocity", mats, y, precision)
+    _check_cuda("lf_velocity", [y, k, phi, pt])
+    DxT, Dy = mats
     if (DxT.shape != (Nx, Nx) or Dy.shape != (Ny, Ny) or phi.shape != (5, Ny, Nx)
             or pt.shape != (2, Ny, Nx)):
         raise ValueError("lf_velocity: derivative matrices, phi or p(t) planes mis-shaped")
     nstate = {"backward": 2 * ncomp + NACC}.get(kind, ncomp)
     if y.shape != (nstate, Ny, Nx) or k.shape != y.shape:
         raise ValueError(f"lf_velocity: state {tuple(y.shape)} does not fit kind {kind}")
-    return _launcher(_build.load().lf_velocity, "lf_velocity", "velocity_" + kind, 1,
-                     (KINDS[kind], _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *mptrs, ncomp, Ny, Nx))
+    return _launcher(_build.load().lf_velocity, "lf_velocity", "velocity_" + kind + _SUFFIX[high],
+                     1, (high, KINDS[kind], _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *mptrs, ncomp,
+                         Ny, Nx))
 
 
-def velocity_cuda(kind, y, k, phi, pt, mats, ncomp, t):
-    velocity_launcher(kind, y, k, phi, pt, mats, ncomp)(float(t))
+def velocity_cuda(kind, y, k, phi, pt, mats, ncomp, t, precision="f32"):
+    velocity_launcher(kind, y, k, phi, pt, mats, ncomp, precision)(float(t))
 
 
 def rk4_update_launcher(y, k, acc, s):
     """launch(stage, wacc, ws): fold a stage into the RK4 accumulator."""
     from . import _build
-    Ny, Nx = y.shape[-2:]
-    _check_cuda("lf_rk4_update", [y, k, acc, s], Ny, Nx)
+    _check_cuda("lf_rk4_update", [y, k, acc, s])
     if not (y.shape == k.shape == acc.shape == s.shape):
         raise ValueError("lf_rk4_update: shapes differ")
     return _launcher(_build.load().lf_rk4_update, "lf_rk4_update", "rk4_update", 1,
@@ -329,19 +350,24 @@ def rk4_update_cuda(y, k, acc, s, stage, wacc, ws):
     rk4_update_launcher(y, k, acc, s)(int(stage), float(wacc), float(ws))
 
 
-def deriv_cuda(a, b, c, out, mats):
+def deriv_cuda(a, b, c, out, mats, precision="f32"):
+    """K2's derivative: out <- d_x a + d_y b + c through the dense kernel at
+    `precision` ('f32' or 'high'), one launch."""
     from . import _build
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
-    _, mptrs = _operands("lf_deriv", mats, out)
-    _check_cuda("lf_deriv", [out, *given], Ny, Nx)
+    high = _high_arg(precision)
+    _, mptrs = _operands("lf_deriv", mats, out, precision)
+    _check_cuda("lf_deriv", [out, *given])
+    if mats[0].shape != (Nx, Nx) or mats[1].shape != (Ny, Ny):
+        raise ValueError("lf_deriv: derivative matrices mis-shaped")
     if any(x.shape != out.shape for x in given):
         raise ValueError("lf_deriv: operand shapes differ from the output's")
     nplanes = out.numel() // (Ny * Nx)
-    rc = _build.load().lf_deriv(_ptr(a), _ptr(b), _ptr(c), _ptr(out), *mptrs, nplanes, Ny, Nx,
-                                _stream())
+    rc = _build.load().lf_deriv(high, _ptr(a), _ptr(b), _ptr(c), _ptr(out), *mptrs, nplanes, Ny,
+                                Nx, _stream())
     _raise_on(rc, "lf_deriv")
-    LAUNCHES["deriv"] += 1
+    LAUNCHES["deriv" + _SUFFIX[high]] += 1
 
 
 def _check_factored(name, ops, Ny, Nx):
@@ -384,7 +410,7 @@ def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     given = [x for x in (a, b, c) if x is not None]
     high = _high_arg(precision)
     _, fptrs = _operands("lf_fderiv", ops, out, precision)
-    _check_cuda("lf_fderiv", [out, *given], Ny, Nx)
+    _check_cuda("lf_fderiv", [out, *given])
     Bx, By = _check_factored("lf_fderiv", ops, Ny, Nx)
     if a is None and b is None:
         raise ValueError("lf_fderiv: needs a or b")
@@ -420,7 +446,7 @@ def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
     high = _high_arg(precision)
     name = "lf_bv_velocity" if kind == "backward" else "lf_fa_velocity"
     _, fptrs = _operands(name, ops, y, precision)
-    _check_cuda(name, [y, k, phi, pt], Ny, Nx)
+    _check_cuda(name, [y, k, phi, pt])
     Bx, By = _check_factored(name, ops, Ny, Nx)
     if kind == "backward":
         nb = _check_batched_state(name, y, k, phi, pt, 2 * ncomp + NACC)
@@ -458,7 +484,7 @@ def uni_velocity_cuda(role, a, b, px, py, out, ops, t):
         raise RuntimeError("lf_uni_velocity: the uni kernel takes factored operands only "
                            "(N >= 512); its dense form is ROADMAP Queue 2, K5")
     _, fptrs = _operands("lf_uni_velocity", ops, out)
-    _check_cuda("lf_uni_velocity", [px, py, out], Ny, Nx, strided=(a, b))
+    _check_cuda("lf_uni_velocity", [px, py, out], strided=(a, b))
     strides = [*_plane_strides("lf_uni_velocity", a, Ny, Nx),
                *_plane_strides("lf_uni_velocity", b, Ny, Nx)]
     nb, nper = out.shape[0], out.shape[1]
@@ -539,13 +565,15 @@ PLAIN_HIGH = _Leaves(_high(velocity_plain), rk4_update_plain, _high(deriv_plain)
                      False)
 FPLAIN_HIGH = _Leaves(_high(fvelocity_plain), rk4_update_plain, _high(fderiv_plain),
                       p_planes_plain, True)
+KERNEL_HIGH = _Leaves(_high(velocity_cuda), rk4_update_cuda, _high(deriv_cuda), p_planes_cuda,
+                      False, (_high(velocity_launcher), rk4_update_launcher, p_planes_launcher))
 FKERNEL_HIGH = _Leaves(_high(fvelocity_cuda), rk4_update_cuda, _high(fderiv_cuda), p_planes_cuda,
                        True, (_high(fvelocity_launcher), rk4_update_launcher, p_planes_launcher))
 # (device type, factored, precision) -> leaves
 _LEAVES = {("cpu", False, "f32"): PLAIN, ("cpu", True, "f32"): FPLAIN,
            ("cuda", False, "f32"): KERNEL, ("cuda", True, "f32"): FKERNEL,
            ("cpu", False, "high"): PLAIN_HIGH, ("cpu", True, "high"): FPLAIN_HIGH,
-           ("cuda", True, "high"): FKERNEL_HIGH}
+           ("cuda", False, "high"): KERNEL_HIGH, ("cuda", True, "high"): FKERNEL_HIGH}
 # the uni granularity: no derivative leaf (phi's planes come from the
 # kernel path's `gradhess`, delta phi from role 1)
 UPLAIN = _Leaves(functools.partial(_uni_velocity, uni_velocity_plain), rk4_update_plain, None,
@@ -567,15 +595,9 @@ def _leaves_for(x, mats, precision=None):
     """The plain version for a CPU tensor, the kernel for a CUDA tensor;
     factored or dense by the operands; at `precision` (the one in force
     when None)."""
-    p = _precision(precision)
-    factored = isinstance(mats, FactoredOps)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no LenseFlow kernel for device {x.device}")
-    leaves = _LEAVES.get((x.device.type, factored, p))
-    if leaves is None:
-        raise NotImplementedError("the dense flow kernels (K2, below 512^2) have no 'high' tier "
-                                  "on the card yet (ROADMAP Queue 2, K2 'high')")
-    return leaves
+    return _LEAVES[(x.device.type, isinstance(mats, FactoredOps), _precision(precision))]
 
 
 def _plain_for(mats, precision=None):

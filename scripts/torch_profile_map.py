@@ -2,7 +2,7 @@
 per LenseFlow backend, on one CUDA card.
 
     python scripts/torch_profile_map.py [--backends kernel uni] [--steps 2] [--grad256]
-                                        [--host-ab] [--precision auto|f32]
+                                        [--host-ab] [--precision auto|f32] [--wiener256]
 
 Runs MAP_joint as chip_smoke.py phase 7 does (load_sim at 1024^2 P,
 thetapix 2, seed 0; grid line search; 15 fixed CG iterations), strict
@@ -15,7 +15,11 @@ Prints per step: wall s, device ms and the device's busy share, and the
 device ms and launches of the kernels that take the most time. With
 --grad256 it then profiles the mixed-posterior phi-gradient at 256^2 P
 (chip_smoke.py phases 3-4: thetapix 3, nsteps 7, kernel backend) the same
-way, per gradient over 5 gradients. With --host-ab it times the kernel
+way, per gradient over 5 gradients. With --wiener256 it profiles the
+Wiener filter of chip_smoke.py phase 12 (argmaxf_logpdf at the JAX
+defaults on a masked, beamed 256^2 IP simulation, kernel backend), one
+solve at "auto" and one strict, per solve. `--backends` with no name
+skips the 1024^2 step. With --host-ab it times the kernel
 backend's step with the flows' launchers made once per flow (as the port
 runs) against the checked wrappers called at every launch, in turns in
 one process: what the per-launch checks cost the host. Needs a CUDA card;
@@ -49,12 +53,13 @@ def report(prof, n, wall, what, label, top):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backends", nargs="+", default=["kernel", "uni"])
+    ap.add_argument("--backends", nargs="*", default=["kernel", "uni"])
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--grad256", action="store_true")
     ap.add_argument("--host-ab", action="store_true")
     ap.add_argument("--precision", choices=("auto", "f32"), default="f32")
+    ap.add_argument("--wiener256", action="store_true")
     args = ap.parse_args()
     precision = None if args.precision == "f32" else "auto"
     import torch
@@ -127,6 +132,26 @@ def main():
                 torch.cuda.synchronize()
         report(prof, ngrad, wall, f"kernel [256^2 P phi-gradient, nsteps 7; {card}]", "gradient",
                args.top)
+    if args.wiener256:
+        sim = ct.load_sim(thetapix=3, Nside=256, pol="IP", T=np.float32, muKarcminT=1,
+                          beamFWHM=2, seed=0,
+                          pixel_mask_kwargs=dict(edge_padding_deg=1, apodization_deg=0.5))
+        for hp in ("auto", None):
+            solve = lambda: ct.argmaxf_logpdf(sim["ds"], phi=sim["phi"],
+                                              conjgrad_kwargs=dict(hessian_precision=hp))
+            with ct.lenseflow_backend_ctx("kernel"):
+                solve()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, info = solve()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    solve()
+                    torch.cuda.synchronize()
+            report(prof, 1, wall, f"kernel, hessian_precision {hp!r} [masked 256^2 IP Wiener "
+                   f"filter, {info['iterations']} iterations, fallback "
+                   f"{bool(info.get('precision_fallback', False))}; {card}]", "solve", args.top)
     return 0
 
 

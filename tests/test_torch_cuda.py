@@ -94,13 +94,20 @@ def test_cuda_kernel_matches_plain_on_card():
 
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
+    """Any plane shape is taken (the edge tiles are guarded), but not a
+    tensor whose 16-byte rows lie off a 16-byte boundary, a state that
+    does not fit its kind, or another type than float32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the flow kernel has no CPU mode")
     tp = ct.ProjLambert(24, 24, thetapix=3, T=np.float32, device="cuda")
     mats = tderiv.deriv_mats(tp)
-    x = torch.zeros((2, 24, 24), device="cuda")
-    with pytest.raises(ValueError, match="multiples"):
-        lfk.flow_apply(x, torch.zeros((5, 24, 24), device="cuda"), mats, 0., 1., 1)
+    x = torch.zeros(2 * 24 * 24 + 1, device="cuda")[1:].view(2, 24, 24)
+    with pytest.raises(ValueError, match="aligned"):
+        lfk.deriv_cuda(x, None, None, torch.empty_like(x), mats)
+    phi, pt = torch.zeros((5, 24, 24), device="cuda"), torch.zeros((2, 24, 24), device="cuda")
+    y3 = torch.zeros((3, 24, 24), device="cuda")
+    with pytest.raises(ValueError, match="does not fit"):
+        lfk.velocity_cuda("backward", y3, torch.empty_like(y3), phi, pt, mats, 2, 0.5)
     y = torch.zeros((2, 32, 32), device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         lfk.deriv_cuda(y, None, None, torch.empty_like(y), (y[0], y[0]))
@@ -409,9 +416,10 @@ def test_factored_high_flows_match_plain_high_on_card():
 
 
 @pytest.mark.cuda
-def test_dense_and_uni_high_raise_on_card():
-    """No 'high' kernel yet for the dense K2 (below 512^2) or K5: on the
-    card they raise, never running strict in its place."""
+def test_dense_high_runs_only_high_kernels_on_card():
+    """Since K2's 'high' tier was ported, a dense 'high' flow and grad/Hess
+    phi launch only the 'high' dense kernels (and the precision-free RK4
+    update and p(t)), never the strict ones in their place."""
     _card()
     tp = ct.ProjLambert(64, 64, thetapix=3, T=np.float32, device="cuda")
     phi, f, dy = _weak_lensing(N=64)
@@ -420,12 +428,313 @@ def test_dense_and_uni_high_raise_on_card():
     planes = lfk.gradhess(pt, mats)
     lfk.reset_launches()
     with tderiv.precision_ctx("high"):
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            lfk.flow_apply(ft, planes, mats, 0., 1., 1)
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            lfk.gradhess(pt, mats)
-        ops = tderiv.deriv_ops(ct.ProjLambert(512, 512, thetapix=2, T=np.float32, device="cuda"))
-        f512 = torch.zeros((2, 512, 512), device="cuda")
-        with pytest.raises(NotImplementedError, match="K5 'high'"):
-            lfk.uni_flow_apply(f512, torch.zeros((5, 512, 512), device="cuda"), ops, 0., 1., 1)
+        assert torch.isfinite(lfk.flow_apply(ft, planes, mats, 0., 1., 1)).all()
+        assert torch.isfinite(lfk.gradhess(pt, mats)).all()
+    ran = {k: v for k, v in lfk.LAUNCHES.items() if v}
+    assert set(ran) == {"velocity_forward_high", "deriv_high", "rk4_update", "p_planes"}, ran
+
+
+@pytest.mark.cuda
+def test_uni_high_raises_on_card():
+    """K5 has no 'high' kernel yet: on the card a 'high' uni flow raises
+    before any launch, never running strict in its place."""
+    _card()
+    ops = tderiv.deriv_ops(ct.ProjLambert(512, 512, thetapix=2, T=np.float32, device="cuda"))
+    f512 = torch.zeros((2, 512, 512), device="cuda")
+    lfk.reset_launches()
+    with tderiv.precision_ctx("high"), pytest.raises(NotImplementedError, match="K5 'high'"):
+        lfk.uni_flow_apply(f512, torch.zeros((5, 512, 512), device="cuda"), ops, 0., 1., 1)
     assert all(v == 0 for v in lfk.LAUNCHES.values())
+
+
+def _check_high(shape, kernel, plain, label):
+    """kernel(out, precision) at 'high' against plain(out) (its plain 'high'
+    version) and the strict kernel: every plane within HIGH_TOL and
+    HIGH_VS_STRICT, and its Frobenius distance to plain 'high' under
+    HIGH_SPLIT_RATIO of that to strict."""
+    o1, o2, o3 = (torch.full(shape, float("nan"), device="cuda") for _ in range(3))
+    kernel(o1, "high")
+    plain(o2)
+    kernel(o3, "f32")
+    each = lambda x, y: max(rel(a, b) for a, b in zip(x.reshape(-1, *shape[-2:]),
+                                                       y.reshape(-1, *shape[-2:])))
+    e = (each(o1, o2), each(o1, o3), split_ratio(o1, o2, o3))
+    print(f"'high' {label} {tuple(shape)}: vs plain 'high' {e[0]:.3e}, vs strict {e[1]:.3e}, "
+          f"Frobenius ratio {e[2]:.3f}")
+    assert e[0] < HIGH_TOL and e[1] < HIGH_VS_STRICT and e[2] < HIGH_SPLIT_RATIO, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 256])
+def test_dense_high_kernels_match_plain_high_on_card(N):
+    """K2 'high' (csrc/lenseflow.cu, HIGH: mma.sync bf16 on the split
+    circulants and operand): lf_deriv with each operand set and
+    lf_velocity of the three kinds at two and three components, one
+    launch each, against the plain 'high' version and the strict kernel
+    (_check_high); the 'high' counters count their launches."""
+    _card()
+    tp = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device="cuda")
+    mats = tderiv.deriv_mats(tp)
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), mats)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    T = lambda *s: torch.randn(s, generator=g, device="cuda")
+    lfk.reset_launches()
+    a, b, c = T(3, N, N), T(3, N, N), T(3, N, N)
+    for args in ((a, None, None), (None, b, None), (a, b, c)):
+        _check_high(a.shape, lambda o, p: lfk.deriv_cuda(*args, o, mats, p),
+                    lambda o: lfk.deriv_plain(*args, o, mats, "high"), "deriv")
+    assert lfk.LAUNCHES["deriv_high"] == 3 and lfk.LAUNCHES["deriv"] == 3
+    pt = _p_planes(0.4, planes)
+    # ncomp 2 is pol P (Q, U), 3 is pol IP (I, Q, U on the grid's z axis)
+    for ncomp in (2, 3):
+        for kind in ("forward", "adjoint", "backward"):
+            y = T(2 * ncomp + lfk.NACC if kind == "backward" else ncomp, N, N)
+            _check_high(y.shape, lambda o, p: lfk.velocity_cuda(kind, y, o, planes, pt, mats,
+                                                                ncomp, 0.4, p),
+                        lambda o: lfk.velocity_plain(kind, y, o, planes, pt, mats, ncomp, 0.4,
+                                                     "high"), kind)
+    assert all(lfk.LAUNCHES[f"velocity_{kind}_high"] == 2
+               for kind in ("forward", "adjoint", "backward"))
+
+
+@pytest.mark.cuda
+def test_dense_high_flows_match_plain_high_on_card():
+    """Whole dense flows at 'high' at the main path's 256^2 and nsteps 7,
+    on a Cphi-drawn phi and a Cf-drawn f: each output plane within
+    HIGH_TOL of the plain 'high' flow and HIGH_VS_STRICT of the strict
+    flow, and nearer the plain 'high' flow than the strict one
+    (FLOW_SPLIT_RATIO)."""
+    _card()
+    N = 256
+    tp = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device="cuda")
+    mats = tderiv.deriv_mats(tp)
+    rng = np.random.default_rng(3)
+    Cl = ct.camb()
+    white = lambda n, pol: ct.Field(torch.as_tensor(
+        rng.standard_normal((n, N, N)).astype(np.float32), device="cuda"), ct.Basis(pol, "map"), tp)
+    pm = (ct.Cl_to_Cov("I", tp, Cl["total"]["pp"]).sqrt() @ white(1, "I")).to(ct.MAP).arr
+    Cf = ct.Cl_to_Cov("P", tp, Cl["unlensed_scalar"]["EE"], Cl["unlensed_scalar"]["BB"])
+    ft = (Cf.sqrt() @ white(2, "QU")).to(ct.QU_MAP).arr.contiguous()
+    dyt = white(2, "QU").arr
+    planes = lfk.gradhess(pm, mats)
+    each = lambda x, y: max(rel(a, b) for a, b in zip(x.reshape(-1, N, N), y.reshape(-1, N, N)))
+    found = {}
+    for kind, t0, t1 in (("forward", 0., 1.), ("forward", 1., 0.), ("adjoint", 1., 0.)):
+        k = lfk.flow_apply(ft, planes, mats, t0, t1, 7, kind, "high")
+        p = lfk.flow_apply_plain(ft, planes, mats, t0, t1, 7, kind, "high")
+        st = lfk.flow_apply(ft, planes, mats, t0, t1, 7, kind, "f32")
+        found[(kind, t0)] = (each(k, p), each(k, st), split_ratio(k, p, st))
+    for name, x, y, z in zip(("backward dphi", "backward df0"),
+                             lfk.flow_bwd(dyt, ft, planes, mats, 0., 1., 7, "high"),
+                             lfk.flow_bwd_plain(dyt, ft, planes, mats, 0., 1., 7, "high"),
+                             lfk.flow_bwd(dyt, ft, planes, mats, 0., 1., 7, "f32")):
+        found[name] = (each(x, y), each(x, z), split_ratio(x, y, z))
+    print("dense 'high' flows (vs plain 'high', vs strict, Frobenius ratio):", found)
+    assert all(e < HIGH_TOL and s < HIGH_VS_STRICT and r < FLOW_SPLIT_RATIO
+               for e, s, r in found.values()), found
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "high"])
+@pytest.mark.parametrize("shape", [(200, 200), (160, 200), (33, 45)])
+def test_dense_edge_tiles_match_plain_on_card(shape, precision):
+    """K2 at plane shapes its 32 x 32 tile and 16-deep slab do not divide
+    (200^2 is load_sim(Nside=200); 33 x 45 also loads its rows a float at
+    a time): lf_deriv, the three velocity kinds, p(t), the RK4 update
+    and whole flows against their plain versions at the same precision,
+    every plane on its own (TOL strict, HIGH_TOL at 'high'), and nothing
+    written past the last plane (a NaN sentinel plane behind it)."""
+    _card()
+    Ny, Nx = shape
+    tol = TOL if precision == "f32" else HIGH_TOL
+    tp = ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device="cuda")
+    mats = tderiv.deriv_mats(tp)
+    rng = np.random.default_rng(4)
+    phi_f = np.zeros((1, Ny, Nx // 2 + 1), np.complex128)
+    phi_f[0, 1, 1] = 1e-3 * (Ny * Nx / 1024) ** 2
+    phi = torch.as_tensor(np.fft.irfft2(phi_f, s=(Ny, Nx)).astype(np.float32), device="cuda")
+    T = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32), device="cuda")
+    each = lambda x, y: max(rel(a, b) for a, b in zip(x.reshape(-1, Ny, Nx), y.reshape(-1, Ny, Nx)))
+
+    def check(n, kernel, plain, label):
+        full = torch.full((n + 1, Ny, Nx), float("nan"), device="cuda")
+        ref = torch.empty((n, Ny, Nx), device="cuda")
+        kernel(full[:n])
+        plain(ref)
+        assert torch.isnan(full[n]).all(), f"{label} wrote past the last plane"
+        assert each(full[:n], ref) < tol, (label, each(full[:n], ref))
+
+    planes = lfk.gradhess_plain(phi, mats)
+    a, b, c = T(3, Ny, Nx), T(3, Ny, Nx), T(3, Ny, Nx)
+    for args in ((a, None, None), (None, b, None), (a, b, c)):
+        check(3, lambda o: lfk.deriv_cuda(*args, o, mats, precision),
+              lambda o: lfk.deriv_plain(*args, o, mats, precision), "deriv")
+    check(2, lambda o: lfk.p_planes_cuda(0.4, planes, o),
+          lambda o: lfk.p_planes_plain(0.4, planes, o), "p_planes")
+    pt = _p_planes(0.4, planes)
+    for kind in ("forward", "adjoint", "backward"):
+        y = T(4 + lfk.NACC if kind == "backward" else 2, Ny, Nx)
+        check(y.shape[0], lambda o: lfk.velocity_cuda(kind, y, o, planes, pt, mats, 2, 0.4,
+                                                      precision),
+              lambda o: lfk.velocity_plain(kind, y, o, planes, pt, mats, 2, 0.4, precision), kind)
+    y, k = T(9, Ny, Nx), T(9, Ny, Nx)
+    rk = [torch.zeros((2, 9, Ny, Nx), device="cuda") for _ in range(2)]
+    for fn, (acc, s) in zip((lfk.rk4_update_cuda, lfk.rk4_update_plain), rk):
+        fn(y, k, acc, s, 1, 1 / 21, 1 / 14)
+    assert each(*rk) < TOL
+    # grad/Hess phi. This phi is one long mode, so its derivatives cancel
+    # hard (the sum of |D_ij phi_j| is ~1e3 x |D phi|, ~1e5 x for the
+    # Hessian) and any FP32 summation order lies ~1e-5 (gradient) to ~1e-3
+    # (Hessian) from the exact value: two orders differ by as much, which
+    # no fixed kernel-vs-plain bound can hold (the first version of this
+    # test read 7.5e-4 against HESS_TOL at 200^2). Held instead, per plane,
+    # to be no less accurate against a float64 evaluation than the plain
+    # FP32 version, within a factor 2 for the two orders' luck (or within
+    # TOL where the plain version lies nearer than TOL). At 'high', to the
+    # Frobenius split ratio.
+    if precision == "f32":
+        m64 = tderiv.deriv_mats(ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float64, device="cuda"))
+        exact = lfk.gradhess_plain(phi.double(), m64)
+        per_plane = lambda x: [rel(a.double(), b) for a, b in zip(x, exact)]
+        k_err, p_err = per_plane(lfk.gradhess(phi, mats)), per_plane(planes)
+        print(f"gradhess {shape} vs float64, per plane: kernel {k_err}, plain {p_err}")
+        assert all(ke <= 2 * max(pe, TOL) for ke, pe in zip(k_err, p_err)), (k_err, p_err)
+    else:
+        assert split_ratio(lfk.gradhess(phi, mats, "high"), lfk.gradhess_plain(phi, mats, "high"),
+                           lfk.gradhess(phi, mats, "f32")) < HIGH_SPLIT_RATIO
+    # whole flows on a Cphi-drawn phi and a Cf-drawn f at the main path's
+    # nsteps 7 (white fields at few steps under-resolve the backward flow,
+    # whose delta phi then amplifies the 'high' split's rounding flips)
+    Cl = ct.camb()
+    white = lambda n, pol: ct.Field(T(n, Ny, Nx), ct.Basis(pol, "map"), tp)
+    pm = (ct.Cl_to_Cov("I", tp, Cl["total"]["pp"]).sqrt() @ white(1, "I")).to(ct.MAP).arr
+    Cf = ct.Cl_to_Cov("P", tp, Cl["unlensed_scalar"]["EE"], Cl["unlensed_scalar"]["BB"])
+    f2 = (Cf.sqrt() @ white(2, "QU")).to(ct.QU_MAP).arr.contiguous()
+    dy = white(2, "QU").arr
+    planes = lfk.gradhess_plain(pm, mats)
+    for kind in ("forward", "adjoint"):
+        assert each(lfk.flow_apply(f2, planes, mats, 0., 1., 7, kind, precision),
+                    lfk.flow_apply_plain(f2, planes, mats, 0., 1., 7, kind, precision)) < tol
+    for x, z in zip(lfk.flow_bwd(dy, f2, planes, mats, 0., 1., 7, precision),
+                    lfk.flow_bwd_plain(dy, f2, planes, mats, 0., 1., 7, precision)):
+        assert each(x, z) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(200, 200), (160, 200)])
+def test_dense_high_backward_flow_on_white_fields_stage_by_stage_on_card(shape):
+    """The inputs on which the 'high' backward flow first lay above
+    HIGH_TOL from its plain 'high' version (2.4e-5 at 160 x 200): white f
+    and delta f, the one-mode phi, 3 steps. The flow is replayed stage by
+    stage through the same kernel leaves (its delta f comes out bit for
+    bit), and each of its 4 nsteps 'high' velocity launches and its three
+    closing derivatives is held against the plain 'high' version on the
+    very state the kernel flow reached: each within HIGH_TOL. So the
+    kernel is right at every launch; what the whole flow adds (printed,
+    with its distance to the strict flow) is the plain and kernel
+    trajectories drifting apart by reassociation and split-rounding flips,
+    which 3 coarse steps over a white field's large velocities amplify.
+    The whole flows of test_dense_edge_tiles_match_plain_on_card run the
+    main path's Cphi/Cf-drawn fields at its nsteps 7."""
+    _card()
+    Ny, Nx = shape
+    nsteps, ncomp = 3, 2
+    tp = ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device="cuda")
+    mats = tderiv.deriv_mats(tp)
+    phi_f = np.zeros((1, Ny, Nx // 2 + 1), np.complex128)
+    phi_f[0, 1, 1] = 1e-3 * (Ny * Nx / 1024) ** 2
+    phi = torch.as_tensor(np.fft.irfft2(phi_f, s=(Ny, Nx)).astype(np.float32), device="cuda")
+    planes = lfk.gradhess_plain(phi, mats)
+    rng = np.random.default_rng(4)
+    f2, dy = (torch.as_tensor(rng.standard_normal((ncomp, Ny, Nx)).astype(np.float32),
+                              device="cuda") for _ in range(2))
+    each = lambda x, y: max(rel(a, b) for a, b in zip(x.reshape(-1, Ny, Nx), y.reshape(-1, Ny, Nx)))
+    y = torch.cat([f2, dy, torch.zeros((lfk.NACC, Ny, Nx), device="cuda")])
+    k, acc, s, ref = (torch.empty_like(y) for _ in range(4))
+    pt = torch.empty((2, Ny, Nx), device="cuda")
+    launch_errs = []
+
+    def velocity(state, t):
+        lfk.velocity_cuda("backward", state, k, planes, pt, mats, ncomp, t, "high")
+        lfk.velocity_plain("backward", state, ref, planes, pt, mats, ncomp, t, "high")
+        launch_errs.append(each(k, ref))
+
+    # lenseflow_kernels._integrate's schedule, t from 1 to 0
+    h, times = -1.0 / nsteps, lfk.flow_times(nsteps, 1.0, 0.0)
+    lfk.p_planes_cuda(times[0], planes, pt)
+    for i in range(nsteps):
+        t, tmid, tend = times[2 * i:2 * i + 3]
+        velocity(y, t)
+        lfk.rk4_update_cuda(y, k, acc, s, 0, h / 6, h / 2)
+        lfk.p_planes_cuda(tmid, planes, pt)
+        velocity(s, tmid)
+        lfk.rk4_update_cuda(y, k, acc, s, 1, h / 3, h / 2)
+        velocity(s, tmid)
+        lfk.rk4_update_cuda(y, k, acc, s, 2, h / 3, h)
+        lfk.p_planes_cuda(tend, planes, pt)
+        velocity(s, tend)
+        lfk.rk4_update_cuda(y, k, acc, s, 3, h / 6, 0.0)
+    dphi, df0 = lfk.flow_bwd(dy, f2, planes, mats, 0., 1., nsteps, "high")
+    assert torch.equal(df0, y[ncomp:2 * ncomp])
+    ux, uy, sxx, sxy, syy = (y[2 * ncomp + i:2 * ncomp + i + 1].contiguous()
+                             for i in range(lfk.NACC))
+    X, Y, D = (torch.empty_like(ux) for _ in range(3))
+    deriv_errs = []
+    for args, out in (((sxx, sxy, ux), X), ((None, syy, uy), Y), ((X, Y, None), D)):
+        lfk.deriv_cuda(*args, out, mats, "high")
+        plain = torch.empty_like(out)
+        lfk.deriv_plain(*args, plain, mats, "high")
+        deriv_errs.append(each(out, plain))
+    assert torch.equal(D, dphi)
+    flows = zip(("dphi", "df0"), (dphi, df0),
+                lfk.flow_bwd_plain(dy, f2, planes, mats, 0., 1., nsteps, "high"),
+                lfk.flow_bwd(dy, f2, planes, mats, 0., 1., nsteps, "f32"))
+    print(f"white backward flow {shape}, nsteps {nsteps}: launches vs plain 'high' on the same "
+          f"state, largest {max(launch_errs):.3e}; closing derivatives {deriv_errs}; whole flow "
+          + ", ".join(f"{name} vs plain 'high' {each(x, p):.3e}, vs strict {each(x, st):.3e}, "
+                      f"Frobenius ratio {split_ratio(x, p, st):.3f}" for name, x, p, st in flows))
+    assert len(launch_errs) == 4 * nsteps
+    assert max(launch_errs) < HIGH_TOL and max(deriv_errs) < HIGH_TOL, (launch_errs, deriv_errs)
+
+
+@pytest.mark.cuda
+def test_IP_wiener_filter_kernel_matches_plain_on_card():
+    """The slice at a test's size: the masked, beamed 64^2 IP Wiener
+    filter on the kernel backend against the plain (cuFFT) one, strict,
+    20 fixed CG iterations: f within 1e-4 in norm (each flow within 1e-5
+    of its plain version, amplified by at most the iteration count); the
+    same 20 iterations at 'high' throughout against the "matmul" backend
+    (the same flows on their plain 'high' leaves, no launch): within 1e-4,
+    and nearer it than the strict kernel solve; at "auto" the 'high' solve
+    runs K2 'high' and ends finite."""
+    _card()
+    sim = ct.load_sim(thetapix=3, Nside=64, pol="IP", T=np.float32, muKarcminT=1, beamFWHM=2,
+                      pixel_mask_kwargs=dict(edge_padding_deg=0.4, apodization_deg=0.2), seed=0,
+                      device="cuda")
+    ds, phi = sim["ds"], sim["phi"]
+    fixed = dict(tol=0.0, nsteps=20, fixed_iters=True, hessian_precision=None)
+    out = {}
+    for backend in ("kernel", "plain"):
+        with ct.lenseflow_backend_ctx(backend):
+            out[backend] = ct.argmaxf_logpdf(ds, phi=phi, conjgrad_kwargs=fixed)[0]
+    fk, fp = out["kernel"], out["plain"].to(out["kernel"].basis)
+    err = float((fk.arr - fp.arr).norm() / fp.arr.norm())
+    print(f"64^2 IP Wiener filter, kernel vs plain backend: {err:.3e}")
+    assert err < 1e-4
+    for backend in ("kernel", "matmul"):
+        lfk.reset_launches()
+        with ct.lenseflow_backend_ctx(backend), tderiv.precision_ctx("high"):
+            out[backend, "high"] = ct.argmaxf_logpdf(ds, phi=phi, conjgrad_kwargs=fixed)[0].arr
+        assert (lfk.LAUNCHES["velocity_forward_high"] > 0) == (backend == "kernel"), lfk.LAUNCHES
+    fhk, fhm = out["kernel", "high"], out["matmul", "high"]
+    dist = lambda a, b: float((a - b).norm() / b.norm())
+    print(f"at 'high', kernel vs matmul backend {dist(fhk, fhm):.3e}, vs the strict kernel "
+          f"solve {dist(fhk, fk.arr):.3e}")
+    assert dist(fhk, fhm) < 1e-4 and dist(fhk, fhm) < dist(fhk, fk.arr)
+    lfk.reset_launches()
+    with ct.lenseflow_backend_ctx("kernel"):
+        fa, _ = ct.argmaxf_logpdf(ds, phi=phi, conjgrad_kwargs=dict(nsteps=30))
+    assert torch.isfinite(fa.arr).all()
+    assert all(lfk.LAUNCHES[k] > 0 for k in ("velocity_forward_high", "velocity_adjoint_high",
+                                             "deriv_high")), lfk.LAUNCHES
