@@ -42,12 +42,28 @@ port's two paths through the kernel backend:
               beamed 256^2 T+EB (pol IP) simulation, against the strict
               solve; at 20 fixed iterations the kernel backend against the
               plain one (strict) and against the "matmul" one ('high').
+  phase 13    the large maps, K1, K3 and K4 at radix 16 (2048^2) and 32
+              (4096^2) in channel groups: (a) each kernel at both tiers
+              against its plain versions (K3 also at batch 17), the whole
+              4096^2 flows at both tiers; (b) the strict phi-gradient
+              at 2048^2 and 4096^2, kernel and plain backends, each
+              against the same evaluation with its flows in float64;
+              (c) a strict
+              MAP_joint step at 2048^2 P on the kernel and the plain
+              backends, the line search's memory per trial, one step at
+              "auto"; (d) MAP_joint at 4096^2 P at "auto" as
+              scripts/map_4096.py runs it (1 warm-up and 2 timed steps:
+              s/step, peak memory, rho_b), and L @ f at 640^2 (dense)
+              against the plain backend.
+
+    python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
 
 Phases 7 and 8 measure the strict north star (precision=None); phases
 2-6 and 10 run at the global precision 'f32', and both tiers in 10.
 
 Each path's launch counters are set to 0 just before it and read just
-after. A kernel's time is device time: its launches captured into a CUDA
+after; phase 13's radix-16/32 records name, under "path", the run their
+launches come from. A kernel's time is device time: its launches captured into a CUDA
 graph and the replay timed by CUDA events (the host's launch cost, about
 0.04 ms a call, would hide a shorter kernel), and so is the library
 call's. Phase 9's kernels (both tiers, and the library call) and phase
@@ -69,6 +85,7 @@ larger of its three bf16 products' FLOPs over the bf16 tensor-core peak
 plus its FP32 work (butterflies, split) over the FP32 peak, and its
 bytes over the memory rate.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -156,6 +173,24 @@ WF_SIM = dict(thetapix=3, Nside=256, pol="IP", T=np.float32, muKarcminT=1, beamF
 # (1e-5 per flow) by its iteration count at most
 WF_PLAIN_TOL = 1e-4
 FA = 128               # the factored derivative's block size (ops/deriv.py::FACTOR_A)
+# where K1, K3 and K4 are written, both tiers (factored.cu and
+# factored_high.cu instantiate them)
+FACTORED_SRC = "cmblensing_tpu_torch/csrc/factored_kernels.cuh"
+# phase 13, the large maps: MAP_joint as scripts/map_4096.py runs it
+# (load_sim(thetapix=2, Nside=N, pol="P", T=float32, seed=0), grid line
+# search, 15 fixed CG iterations) at 2048^2 (radix 16) and 4096^2 (radix
+# 32); at 4096^2 1 warm-up step and 2 timed at the JAX default "auto"
+N_LARGE = (2048, 4096)
+LARGE_WARM, LARGE_STEPS = 1, 2
+# the bandpower bins of scripts/map_4096.py:184
+RHO_LEDGES = np.array([2, 100, 200, 350, 500, 750, 1000, 1500, 2000, 3000, 4500, 6000])
+# a strict MAP_joint step on the kernel backend against the plain one:
+# alpha and logpdf, relative
+STEP_TOL = 1e-6
+# L @ f at 640^2 (the dense circulant, radix 5 not being built) against
+# the plain backend: both float32 forms lie 1.7e-5 to 1.9e-5 from float64
+# there (tests/test_torch_large_maps.py)
+FLOW640_TOL = 5e-5
 
 
 def rel(a, b):
@@ -1453,6 +1488,453 @@ def phase_wiener(torch, card):
                           argmaxf_256_IP_auto_fallback=fallback)
 
 
+def large_kernels(torch, card, N):
+    """Phase 13 (a) at N^2: K1 (d_x, d_y), K3 (forward, adjoint; batch 1
+    and NTRIAL) and K4 at radix N / FA, each at both tiers on the same
+    inputs: strict against its plain version (FLOW_TOL, every output plane
+    on its own), 'high' against plain 'high' and the strict kernel
+    (HIGH_TOL, HIGH_VS_STRICT, HIGH_SPLIT_RATIO, every plane); both tiers
+    timed cold, with their bounds, and the library call of K1's d_x
+    (`a @ DxT`); each launched twice at each tier, bit for bit the same.
+    Returns ({tier: {name: record}}, the inputs)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, factored_deriv, lenseflow_kernels as lfk
+    B = N // FA
+    proj = ct.ProjLambert(N, N, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE)
+    t0 = time.perf_counter()
+    ops = deriv.deriv_ops(proj)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    if not isinstance(ops, factored_deriv.FactoredOps) or ops.FX.shape[0] != B:
+        raise AssertionError(f"deriv_ops gives no radix-{B} factored operands at {N}^2")
+    print(f"phase 13: factored operands at {N}^2 (radix {B}, host float64, and their split): "
+          f"{host_s:.2f} s")
+    phi_map, f, dy = weak_lensing_inputs(proj, torch)
+    phi = lfk.gradhess(phi_map, ops)
+    planes_of = lambda x: x.reshape(-1, N, N)
+    nan, t = float("nan"), 0.5
+    out = {"f32": {}, "high": {}}
+
+    def check(name, args, shape, kernel, plain, nder, planes, nb=1, axes=2, reps=5):
+        """kernel(o, precision, *args) and plain(o, precision, *args) at both
+        tiers, every output plane on its own."""
+        ost, opl, oh, oph = (torch.full(shape, nan, device=DEVICE) for _ in range(4))
+        kernel(ost, "f32", *args)
+        plain(opl, "f32", *args)
+        kernel(oh, "high", *args)
+        plain(oph, "high", *args)
+        # the channel groups' sums run in a fixed order: a second launch
+        # into a buffer of other contents gives the same bits
+        for o, p in ((ost, "f32"), (oh, "high")):
+            again = torch.zeros(shape, device=DEVICE)
+            kernel(again, p, *args)
+            if not torch.equal(again, o):
+                raise AssertionError(f"radix-{B} {name} {p}: two launches differ")
+            del again
+        torch.cuda.synchronize()
+        strict = list(zip(planes_of(ost), planes_of(opl)))
+        trip = list(zip(planes_of(oh), planes_of(oph), planes_of(ost)))
+        floats = (1 if axes == 1 else 2) * (B * FA * FA + 2 * B * B)
+        out["f32"][name] = dict(
+            nb=nb, max_abs_err=float((ost - opl).abs().max()),
+            rel=max(rel(k, p) for k, p in strict),
+            ms=cold_ms(lambda *a: kernel(a[0], "f32", *a[1:]), (ost, *args), reps, torch),
+            plain_ms=cuda_ms(lambda: plain(opl, "f32", *args), 1, torch), library_ms=None,
+            **bound(nb * nder * fact_deriv_flops(N), nb * planes, N, floats))
+        out["high"][name] = dict(
+            nb=nb, max_abs_err=float((oh - oph).abs().max()),
+            rel=max(rel(h, q) for h, q, _ in trip),
+            rel_strict=max(rel(h, st) for h, _, st in trip), **split_ratio(oh, oph, ost),
+            ms=cold_ms(lambda *a: kernel(a[0], "high", *a[1:]), (oh, *args), reps, torch),
+            plain_ms=cuda_ms(lambda: plain(oph, "high", *args), 1, torch), library_ms=None,
+            **bound_high(N, nder, planes, nb, axes))
+        del ost, opl, oh, oph
+
+    a, b = f[0:1].contiguous(), f[1:2].contiguous()
+    for name, args, axes in (("fderiv_x", (a, None, None), 1), ("fderiv_y", (None, b, None), 1)):
+        check(name, args, a.shape, lambda o, p, *x: lfk.fderiv_cuda(*x, o, ops, p),
+              lambda o, p, *x: lfk.fderiv_plain(*x, o, ops, p), 1, 2, axes=axes)
+    DxT, _ = deriv.deriv_mats(proj)
+    out["f32"]["fderiv_x"]["library_ms"] = matmul_ms(a[0], DxT, torch, cold=True)
+    out["high"]["fderiv_x"]["library_ms"] = split_matmuls_ms(a[0], DxT, True, torch, reps=5)
+    del DxT
+    proj._tensors.pop("_deriv_mats", None)
+    phi1, y = phi[None], f[None].contiguous()
+    pt1 = torch.empty((2, 1, N, N), device=DEVICE)
+    lfk.p_planes_cuda(t, phi1, pt1)
+    for kind in ("forward", "adjoint"):
+        check("fa_velocity_" + kind, (y, phi1, pt1), y.shape,
+              lambda o, p, y_, ph, pt: lfk.fvelocity_cuda(kind, y_, o, ph, pt, ops, 2, t, p),
+              lambda o, p, y_, ph, pt: lfk.fvelocity_plain(kind, y_, o, ph, pt, ops, 2, t, p),
+              4, 6)
+    acc = 1e-3 * torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
+        (1, lfk.NACC, N, N)).astype(np.float32), device=DEVICE)
+    yb = torch.cat([f[None], dy[None], acc], dim=1)
+    check("bv_velocity", (yb, phi1, pt1), yb.shape,
+          lambda o, p, y_, ph, pt: lfk.fvelocity_cuda("backward", y_, o, ph, pt, ops, 2, t, p),
+          lambda o, p, y_, ph, pt: lfk.fvelocity_plain("backward", y_, o, ph, pt, ops, 2, t, p),
+          8, 25)
+    del yb, acc
+    # the line search's batch: NTRIAL trials, each with its own phi
+    scales = torch.linspace(0.1, 2.0, NTRIAL, device=DEVICE).reshape(-1, 1, 1, 1)
+    phis = (scales * phi).contiguous()
+    ys = torch.stack([torch.roll(f, 7 * i, dims=-1) for i in range(NTRIAL)])
+    pts = torch.empty((2, NTRIAL, N, N), device=DEVICE)
+    lfk.p_planes_cuda(t, phis, pts)
+    for kind in ("forward", "adjoint"):
+        check(f"fa_velocity_{kind}[{NTRIAL}]", (ys, phis, pts), ys.shape,
+              lambda o, p, y_, ph, pt: lfk.fvelocity_cuda(kind, y_, o, ph, pt, ops, 2, t, p),
+              lambda o, p, y_, ph, pt: lfk.fvelocity_plain(kind, y_, o, ph, pt, ops, 2, t, p),
+              4, 6, nb=NTRIAL, reps=3)
+    del ys, pts, phis
+    torch.cuda.empty_cache()
+    for tier, found in out.items():
+        for name, d in found.items():
+            extra = (f"  vs strict {d['rel_strict']:.3e} (bound {HIGH_VS_STRICT:g}); Frobenius "
+                     f"ratio {d['split_ratio']:.3f} (bound {HIGH_SPLIT_RATIO:g})"
+                     if tier == "high" else "")
+            print(f"phase 13: {tier:4s} kernel {name:26s} radix {B:2d} rel err vs plain "
+                  f"{d['rel']:.3e} (bound {FLOW_TOL if tier == 'f32' else HIGH_TOL:g}, each "
+                  f"plane){extra}  {d['ms']:.4f} ms cold  plain {d['plain_ms']:.4f} ms  library "
+                  f"{d['library_ms']}  bound {d['bound_ms']:.4f} ms ({d['bound_by']}, "
+                  f"{100 * d['bound_ms'] / d['ms']:.1f} %)  [{N}^2; {card}]")
+    bad = {k: d["rel"] for k, d in out["f32"].items() if not d["rel"] < FLOW_TOL}
+    bad.update(high_failures(out["high"]))
+    if bad:
+        raise AssertionError(f"radix-{B} kernels disagree with their plain versions: {bad}")
+    return out, dict(ops=ops, phi=phi, f=f, dy=dy)
+
+
+def large_flows(torch, card, ctx):
+    """Phase 13 (a): the whole L, L^-1, L^H and backward flows at 4096^2
+    against their plain versions, strict (FLOW_TOL) and at 'high' (HIGH_TOL,
+    and nearer plain 'high' than strict, FLOW_SPLIT_RATIO)."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    ops, phi, f, dy = (ctx[k] for k in ("ops", "phi", "f", "dy"))
+    N = f.shape[-1]
+    found = {}
+    for name, (t0, t1, kind) in (("L", (0., 1., "forward")), ("L^-1", (1., 0., "forward")),
+                                 ("L^H", (1., 0., "adjoint"))):
+        run = lambda fn, p: fn(f, phi, ops, t0, t1, NSTEPS, kind, p)
+        ks, ps = run(lfk.flow_apply, "f32"), run(lfk.flow_apply_plain, "f32")
+        kh, ph = run(lfk.flow_apply, "high"), run(lfk.flow_apply_plain, "high")
+        found[name] = dict(rel=rel(ks, ps), high=rel(kh, ph), **split_ratio(kh, ph, ks),
+                           ms=cuda_ms(lambda: run(lfk.flow_apply, "f32"), 2, torch),
+                           high_ms=cuda_ms(lambda: run(lfk.flow_apply, "high"), 2, torch))
+    bwd = lambda fn, p: fn(dy, f, phi, ops, 0., 1., NSTEPS, p)
+    (ks, ps, kh, ph) = (bwd(lfk.flow_bwd, "f32"), bwd(lfk.flow_bwd_plain, "f32"),
+                        bwd(lfk.flow_bwd, "high"), bwd(lfk.flow_bwd_plain, "high"))
+    ms, high_ms = (cuda_ms(lambda: bwd(lfk.flow_bwd, p), 2, torch) for p in ("f32", "high"))
+    for i, name in enumerate(("backward dphi", "backward df0")):
+        found[name] = dict(rel=rel(ks[i], ps[i]), high=rel(kh[i], ph[i]),
+                           **split_ratio(kh[i], ph[i], ks[i]), ms=ms, high_ms=high_ms)
+    for name, d in found.items():
+        print(f"phase 13: flow {name:14s} strict vs plain {d['rel']:.3e} (bound {FLOW_TOL:g}); "
+              f"'high' vs plain 'high' {d['high']:.3e} (bound {HIGH_TOL:g}), Frobenius ratio "
+              f"{d['split_ratio']:.3f} (bound {FLOW_SPLIT_RATIO:g})  {d['ms']:.2f} ms strict  "
+              f"{d['high_ms']:.2f} ms 'high'  [{N}^2 P, nsteps={NSTEPS}; {card}]")
+    bad = {k: d["rel"] for k, d in found.items() if not d["rel"] < FLOW_TOL}
+    bad.update({k + " 'high'": d["high"] for k, d in found.items() if not d["high"] < HIGH_TOL})
+    bad.update({k + " ratio": d["split_ratio"] for k, d in found.items()
+                if not d["split_ratio"] < FLOW_SPLIT_RATIO})
+    if bad:
+        raise AssertionError(f"{N}^2 flows disagree with their plain versions: {bad}")
+
+
+def large_sim(torch, card, N):
+    import cmblensing_tpu_torch as ct
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = ct.load_sim(thetapix=THETAPIX_MAP, Nside=N, pol="P", T=np.float32, seed=SEED,
+                      device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"phase 13: load_sim at {N}^2 P: {time.perf_counter() - t0:.2f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    return sim
+
+
+@contextlib.contextmanager
+def flows_in_float64(proj):
+    """Within it, LenseFlow's flows (forward, adjoint and the
+    transpose-delta flow of the VJP) run on the plain backend in float64,
+    on a float64 projection of proj's geometry, their results cast back
+    to the caller's dtype: an evaluation that shares everything but the
+    flows with the caller's float32 one."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.models import lenseflow as lf
+    p64 = ct.ProjLambert(proj.Ny, proj.Nx, thetapix=proj.thetapix, T=np.float64, device=DEVICE)
+    apply, bwd = lf._apply, lf._bwd
+
+    def apply64(phi_map, f_map, t0, t1, nsteps, proj, backend, precision=None, kind="forward"):
+        return apply(phi_map.double(), f_map.double(), t0, t1, nsteps, p64, "plain", None,
+                     kind).to(f_map.dtype)
+
+    def bwd64(phi_map, f1, dy, t0, t1, nsteps, proj, backend, precision=None):
+        dphi, df0 = bwd(phi_map.double(), f1.double(), dy.double(), t0, t1, nsteps, p64, "plain")
+        return dphi.to(dy.dtype), df0.to(dy.dtype)
+
+    lf._apply, lf._bwd = apply64, bwd64
+    try:
+        yield
+    finally:
+        lf._apply, lf._bwd = apply, bwd
+
+
+def large_gradient(torch, card, sim):
+    """Phase 13 (b): the strict mixed phi-gradient on the kernel and the
+    plain (cuFFT) backends, each against the same float32 evaluation with
+    its flows in float64 (flows_in_float64): what each backend's float32
+    flows put into the gradient; the kernel backend held to GRAD_TOL of
+    it. Returns
+    ({backend: launches}, {"gap": kernel vs plain, backend: its distance
+    to the float64-flow evaluation})."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    ds = sim["ds"]
+    f = sim["f"].to(sim["f"].basis.with_space("map"))
+    phi = sim["phi"].to(sim["phi"].basis.with_space("map"))
+    m = ct.mix(ds, f=f, phi=phi)
+    f_mix, phi_mix = m["f_mix"].to(f.basis), m["phi_mix"].to(phi.basis)
+    vg = ct.fvalue_and_grad(lambda p: ct.Mixed(ds).logpdf(f_mix=f_mix, phi_mix=p))
+    res = {}
+    for be in ("kernel", "plain", "float64 flows"):
+        ref = be == "float64 flows"
+        with ct.lenseflow_backend_ctx("plain" if ref else be), \
+                (flows_in_float64(phi.proj) if ref else contextlib.nullcontext()):
+            lfk.reset_launches()
+            t0 = time.perf_counter()
+            v, g = vg(phi_mix)
+            torch.cuda.synchronize()
+            res[be] = (v, g.arr, 1e3 * (time.perf_counter() - t0), dict(lfk.LAUNCHES))
+    N = phi.proj.Nx
+    gaps = {"gap": rel(res["kernel"][1], res["plain"][1])}
+    gaps.update({be: rel(res[be][1], res["float64 flows"][1]) for be in ("kernel", "plain")})
+    print(f"phase 13: gradlnP at {N}^2 P, strict: lnP kernel {float(res['kernel'][0])!r} plain "
+          f"{float(res['plain'][0])!r}; grad rel max-abs err kernel vs plain {gaps['gap']:.3e}; "
+          f"against the same evaluation with float64 flows: kernel {gaps['kernel']:.3e} (bound "
+          f"{GRAD_TOL:g}), plain {gaps['plain']:.3e}; kernel {res['kernel'][2]:.1f} ms plain "
+          f"{res['plain'][2]:.1f} ms (first call) [{card}]")
+    # held against the float64-flow evaluation: at 4096^2 the plain
+    # backend's own float32 flows put 1.0e-4 into the gradient on an H100,
+    # so kernel and plain lie 1.17e-4 apart while the kernel lies 6.7e-5
+    # from it (ROADMAP Queue 3, accuracy bounds)
+    if not (torch.isfinite(res["kernel"][1]).all() and gaps["kernel"] < GRAD_TOL):
+        raise AssertionError(f"{N}^2 kernel gradient disagrees with the evaluation with float64 "
+                             f"flows: {gaps}")
+    return {be: res[be][3] for be in ("kernel", "plain")}, gaps
+
+
+def map_steps(torch, ds, n, precision, keys=("logpdf", "alpha", "cg_iters", "precision_fallback",
+                                              "retry")):
+    import cmblensing_tpu_torch as ct
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ct.MAP_joint(ds, nsteps=n, linesearch="grid", conjgrad_kwargs=MAP_CG,
+                       history_keys=keys, precision=precision)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def large_step_2048(torch, card, sim):
+    """Phase 13 (c) at 2048^2 P: one strict MAP_joint step on the kernel and
+    on the plain backend (the same alpha and logpdf, STEP_TOL); the line
+    search's memory per trial (peak of 17 trials over that of chunks of 5);
+    one step at "auto". Returns (launches of the strict and the "auto"
+    kernel steps, their s/step, the plain s/step, planes per trial)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.inference import maximization as tm
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    ds = sim["ds"]
+    runs, launches = {}, {}
+    # the "auto" step first: it meets the size's one-time costs (operands,
+    # FFT plans), which the two timed strict steps then do not
+    for be, p in (("kernel", "auto"), ("kernel", None), ("plain", None)):
+        with ct.lenseflow_backend_ctx(be):
+            lfk.reset_launches()
+            runs[be, p] = map_steps(torch, ds, 1, p, keys=("logpdf", "alpha", "cg_iters",
+                                                          "precision_fallback", "retry", "f"))
+            launches[be, p] = dict(lfk.LAUNCHES)
+    (hk, tk), (hp, tp_), (ha, ta) = (runs[k] for k in (("kernel", None), ("plain", None),
+                                                        ("kernel", "auto")))
+    hk, hp, ha = hk["history"][0], hp["history"][0], ha["history"][0]
+    d_lp = abs(hk["logpdf"] - hp["logpdf"]) / abs(hp["logpdf"])
+    d_a = abs(hk["alpha"] - hp["alpha"]) / max(abs(hp["alpha"]), 1e-30)
+    N = ds.d.proj.Nx
+    print(f"phase 13: MAP_joint {N}^2 P strict, 1 step: kernel {tk:.3f} s, plain {tp_:.3f} s; "
+          f"logpdf {hk['logpdf']!r} vs {hp['logpdf']!r} (rel {d_lp:.2e}, bound {STEP_TOL:g}); "
+          f"alpha {hk['alpha']!r} vs {hp['alpha']!r} (rel {d_a:.2e}) [{card}]")
+    print(f"phase 13: MAP_joint {N}^2 P \"auto\", 1 step (the first at {N}^2, set-up "
+          f"included): {ta:.3f} s; logpdf {ha['logpdf']!r}, alpha {ha['alpha']!r}, fallback "
+          f"{ha['precision_fallback']}, retry {ha['retry']}")
+    # the line search's footprint: peak memory of 17 trials and of chunks of
+    # 5, on the second step's search from the strict step's result
+    res = runs[("kernel", None)][0]
+    dsg = ds.replace(G=ct.Id)
+    with torch.no_grad():
+        f_mix, phi_mix, g = tm._phi_grad_and_fmix(dsg, {}, res["history"][0]["f"], res["phi"])
+        dphi = tm.hessian_phimix_preconditioner(dsg).pinv() @ g
+        del g
+        peak, dl = {}, {}
+        for chunk in (5, None):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _, dl[chunk] = tm._grid_linesearch_dlps(dsg, {}, f_mix, phi_mix, dphi,
+                                                    2 * hk["alpha"], 16, chunk=chunk or 16)
+            torch.cuda.synchronize()
+            peak[chunk] = torch.cuda.max_memory_allocated() - base
+    plane = N * N * 4
+    per_trial = (peak[None] - peak[5]) / (NTRIAL - 5) / plane
+    fin = torch.isfinite(dl[None]) & torch.isfinite(dl[5])
+    ddl = float((dl[5] - dl[None])[fin].abs().max() / dl[None][fin].abs().max())
+    print(f"phase 13: grid line search at {N}^2 P: peak {peak[None] / 2 ** 30:.2f} GiB for "
+          f"{NTRIAL} trials, {peak[5] / 2 ** 30:.2f} GiB in chunks of 5: {per_trial:.1f} planes "
+          f"a trial (the constant: {tm.LINESEARCH_PLANES_PER_TRIAL}); chunks of 5 vs one batch: "
+          f"max |d dlp| / max |dlp| = {ddl:.2e}, argmax {int(dl[5].argmax())} vs "
+          f"{int(dl[None].argmax())} [{card}]")
+    bad = {}
+    if not (d_lp < STEP_TOL and d_a < STEP_TOL):
+        bad["strict step kernel vs plain"] = (d_lp, d_a)
+    if not (np.isfinite(ha["logpdf"]) and ha["alpha"] > 0 and hk["alpha"] > 0):
+        bad["steps"] = (hk, ha)
+    if bad:
+        raise AssertionError(f"{N}^2 MAP_joint step disagrees: {bad}")
+    return launches[("kernel", None)], launches[("kernel", "auto")], tk, tp_, per_trial
+
+
+def large_map_4096(torch, card, sim):
+    """Phase 13 (d): MAP_joint at 4096^2 P at the JAX default "auto", as
+    scripts/map_4096.py runs it: LARGE_WARM warm-up steps, then LARGE_STEPS
+    timed with the launch counters set to 0 just before and read just
+    after; every logpdf finite and never decreasing, alpha > 0 on the
+    first step. Prints s/step, peak memory, corr and rho_b."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.inference import maximization as tm
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    from cmblensing_tpu_torch.utils import timing
+    ds = sim["ds"]
+    N = ds.d.proj.Nx
+    torch.cuda.reset_peak_memory_stats()
+    _, warm = map_steps(torch, ds, LARGE_WARM, "auto")
+    timing.reset_timers()
+    lfk.reset_launches()
+    keys = ("logpdf", "alpha", "cg_iters", "gradnorm", "precision_fallback", "retry")
+    res, dt = map_steps(torch, ds, LARGE_STEPS, "auto", keys)
+    launches = dict(lfk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = res["history"]
+    lps, alphas = [h["logpdf"] for h in hist], [h["alpha"] for h in hist]
+    phi_true = sim["phi"].to(ct.MAP)
+    phi_map = res["phi"].to(ct.MAP)
+    pt, pm = phi_true.arr.reshape(-1).double(), phi_map.arr.reshape(-1).double()
+    corr = float(pm @ pt / (pm.norm() * pt.norm()))
+    ell, rho = ct.bandpower_corr(phi_map, phi_true, RHO_LEDGES)
+    chunk = tm._linesearch_chunk(phi_map, 16)
+    print(f"phase 13: MAP_joint {N}^2 P \"auto\": {LARGE_WARM} warm-up step {warm:.2f} s; "
+          f"{LARGE_STEPS} steps {dt:.2f} s = {dt / LARGE_STEPS:.3f} s/step; peak memory "
+          f"{peak:.2f} GiB; line-search chunk {chunk} (16: all 17 trials in one batch) [{card}]")
+    for line in timing.timer_report().splitlines():
+        print("phase 13: timers", line)
+    print(f"phase 13: logpdfs {lps!r}; alphas {alphas!r}; CG iters "
+          f"{[h['cg_iters'] for h in hist]}; gradnorm {[float(h['gradnorm']) for h in hist]!r}")
+    print(f"phase 13: f-steps re-run strict (precision_fallback) "
+          f"{[h['precision_fallback'] for h in hist]}; direction retries "
+          f"{[h['retry'] for h in hist]}")
+    print(f"phase 13: corr(phi_MAP, phi_true) = {corr:.4f} (no bound: {LARGE_STEPS} steps of 15 "
+          f"fixed CG iterations); rho_b " + ", ".join(f"l~{l:.0f}: {r:.3f}"
+                                                      for l, r in zip(ell, rho)))
+    print(f"phase 13: launches in the {N}^2 \"auto\" run: "
+          f"{ {k: v for k, v in launches.items() if v} }; per step "
+          f"{ {k: v / LARGE_STEPS for k, v in launches.items() if v} }")
+    if not all(np.isfinite(lps)) or any(b < a for a, b in zip(lps, lps[1:])):
+        raise AssertionError(f"{N}^2 MAP_joint logpdf not finite and non-decreasing: {lps}")
+    if not alphas[0] > 0:
+        raise AssertionError(f"{N}^2 MAP_joint: the first line search accepted no step: {alphas}")
+    return launches, dt / LARGE_STEPS, peak
+
+
+def dense_640(torch, card):
+    """L @ f on a 640^2 P load_sim through the default backend (the dense
+    circulant: radix 5 is not built) against the plain backend."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    sim = ct.load_sim(thetapix=THETAPIX_MAP, Nside=640, pol="P", T=np.float32, seed=SEED,
+                      device=DEVICE)
+    phi, f = sim["phi"].to(ct.MAP), sim["f"].to(ct.QU_MAP)
+    lfk.reset_launches()
+    k = (sim["ds"].L(phi) @ f).to(ct.QU_MAP).arr
+    dense = lfk.LAUNCHES["velocity_forward"]
+    with ct.lenseflow_backend_ctx("plain"):
+        p = (sim["ds"].L(phi) @ f).to(ct.QU_MAP).arr
+    e = rel(k, p)
+    print(f"phase 13: L @ f on a 640^2 load_sim, default backend (radix {deriv.radix(640)}: "
+          f"dense, {dense} K2 launches) vs plain: {e:.3e} (bound {FLOW640_TOL:g})")
+    if not (dense > 0 and e < FLOW640_TOL):
+        raise AssertionError(f"640^2 L @ f: {e}, {dense} dense launches")
+
+
+def phase_large(torch, card):
+    """Phase 13: the large maps (see the module docstring). Returns (the
+    kernel records {(N, tier): {name: record}}, launches {(N, tier, name):
+    (path, count)}: each radix-16/32 kernel's count from the run of the
+    path named, timings)."""
+    t_start = time.perf_counter()
+    records, timing_out = {}, {}
+    for N in N_LARGE:
+        found, ctx = large_kernels(torch, card, N)
+        for tier, d in found.items():
+            records[N, tier] = d
+        if N == 4096:
+            large_flows(torch, card, ctx)
+        del ctx
+        torch.cuda.empty_cache()
+    # path -> (its run's launch counts, set to 0 just before it and read
+    # just after; the kernels the path runs, each of which must launch)
+    paths = {}
+    sim = large_sim(torch, card, 2048)
+    large_gradient(torch, card, sim)
+    strict, auto, tk, tp_, per_trial = large_step_2048(torch, card, sim)
+    paths["MAP_joint 2048^2 P strict, 1 step"] = (strict, FACTORED_KERNELS[:4])
+    paths["MAP_joint 2048^2 P auto, 1 step"] = (auto, HIGH_KERNELS)
+    timing_out["MAP_joint_2048_s_per_step"] = (tk, tp_)
+    timing_out["linesearch_planes_per_trial_2048"] = per_trial
+    del sim
+    torch.cuda.empty_cache()
+    sim = large_sim(torch, card, 4096)
+    grad_launches, _ = large_gradient(torch, card, sim)
+    paths["gradlnP 4096^2 P strict"] = (grad_launches["kernel"],
+                                       ("fderiv", "fa_velocity_forward", "bv_velocity"))
+    torch.cuda.empty_cache()
+    run_launches, s_step, peak = large_map_4096(torch, card, sim)
+    # the main path: "auto" runs the strict K1 and K3 in its line search and
+    # strict residual checks, strict K4 only on a direction retry
+    main_path = "MAP_joint 4096^2 P auto"
+    paths[main_path] = (run_launches,
+                        HIGH_KERNELS + ("fderiv", "fa_velocity_forward", "fa_velocity_adjoint"))
+    timing_out.update(MAP_joint_4096_s_per_step=s_step, MAP_joint_4096_peak_GiB=peak)
+    del sim
+    torch.cuda.empty_cache()
+    dense_640(torch, card)
+    for path, (counts, names) in paths.items():
+        if min(counts[k] for k in names) <= 0:
+            raise AssertionError(f"{path}: a kernel of the path never launched: "
+                                 f"{ {k: counts[k] for k in names} }")
+    record_path = {(2048, "f32"): "MAP_joint 2048^2 P strict, 1 step",
+                   (2048, "high"): "MAP_joint 2048^2 P auto, 1 step",
+                   (4096, "f32"): main_path, (4096, "high"): main_path}
+    launches = {}
+    for (N, tier), path in record_path.items():
+        for name in FACTORED_KERNELS[:4]:
+            key = name + ("_high" if tier == "high" else "")
+            # strict K4 at 4096^2 runs on the strict gradient's path
+            p = "gradlnP 4096^2 P strict" if (N, key) == (4096, "bv_velocity") else path
+            launches[N, tier, name] = (p, paths[p][0][key])
+    print(f"phase 13: wall time {time.perf_counter() - t_start:.1f} s [{card}]")
+    return records, launches, timing_out
+
+
 def main():
     try:
         import torch
@@ -1476,6 +1958,9 @@ def main():
             if "registers" in line or "error" in line.lower():
                 print("phase 1: ptxas:", line.strip())
 
+    if sys.argv[1:] == ["--phase", "13"]:
+        phase_large(torch, card)
+        return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
@@ -1489,6 +1974,7 @@ def main():
     dkernels, dense_high_launches, dense_high_timing = phase_dense_high(torch, card, ds, f_mix,
                                                                         phi_mix, kernels)
     _, wf_timing = phase_wiener(torch, card)
+    large, large_launches, large_timing = phase_large(torch, card)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -1509,7 +1995,7 @@ def main():
     fkernels["fderiv_x"]["batched"] = fkernels["fderiv"]["batched"]
     record = {"kernels": [entry(name, d, "cmblensing_tpu_torch/csrc/lenseflow.cu", launches[name])
                           for name, d in kernels.items()]
-              + [entry(name, fkernels[key], "cmblensing_tpu_torch/csrc/factored.cu",
+              + [entry(name, fkernels[key], FACTORED_SRC,
                        map_launches[name])
                  for name, key in (("fderiv", "fderiv_x"),
                                    ("fa_velocity_forward", "fa_velocity_forward"),
@@ -1517,7 +2003,7 @@ def main():
                                    ("bv_velocity", "bv_velocity"))]
               + [entry(name, d, "cmblensing_tpu_torch/csrc/uni.cu", uni_launches[name])
                  for name, d in ukernels.items()]
-              + [entry(name, hkernels[key], "cmblensing_tpu_torch/csrc/factored.cu",
+              + [entry(name, hkernels[key], FACTORED_SRC,
                        high_launches[name])
                  for name, key in (("fderiv_high", "fderiv_x"),
                                    ("fa_velocity_forward_high", "fa_velocity_forward"),
@@ -1527,10 +2013,26 @@ def main():
                        dense_high_launches[name + "_high"])
                  for name in ("velocity_forward", "velocity_adjoint", "velocity_backward",
                               "deriv")]}
+    # radix 16 and 32 (phase 13): K1's record is its d_x pass, K3's carry
+    # their batch-17 runs under "batched"; "path" names the run whose
+    # launches each gives
+    for (Nl, tier), found in large.items():
+        sfx = "_high" if tier == "high" else ""
+        for name, key in (("fderiv", "fderiv_x"), ("fa_velocity_forward", "fa_velocity_forward"),
+                          ("fa_velocity_adjoint", "fa_velocity_adjoint"),
+                          ("bv_velocity", "bv_velocity")):
+            d = dict(found[key])
+            if f"{key}[{NTRIAL}]" in found:
+                d["batched"] = {k: found[f"{key}[{NTRIAL}]"][k]
+                                for k in ("nb", "max_abs_err", "rel", "ms", "plain_ms")}
+            path, n = large_launches[Nl, tier, name]
+            rec = entry(name + sfx, d, FACTORED_SRC, n)
+            rec.update(name=f"{name}{sfx}_b{Nl // FA}", path=path)
+            record["kernels"].append(rec)
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),
                    "MAP_joint_1024_s_per_step": (s_step, plain_s_step),
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
-                   **high_timing, **dense_high_timing, **wf_timing,
+                   **high_timing, **dense_high_timing, **wf_timing, **large_timing,
                    **{f"velocity_forward_{Ny}x{Nx}_{p}": ms for (Ny, Nx, p), ms in edge_ms.items()}})
     print("main path ms (kernel, plain):", json.dumps(timing))
     print(card)

@@ -43,3 +43,4 @@ from .models.dataset import (  # noqa: E402
 )
 from .ops.solvers import conjugate_gradient  # noqa: E402
 from .inference.maximization import MAP_joint, argmaxf_logpdf  # noqa: E402
+from .utils.spectra import bandpower_corr, get_Cl  # noqa: E402

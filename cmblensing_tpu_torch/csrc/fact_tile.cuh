@@ -17,6 +17,32 @@
 // the columns r*A + m of d/dx, for every r) by TO = 32 pixels across the
 // axis. It walks the A-long contraction in slabs of TK = 16.
 //
+// Channel groups (B = 16, 32). A block holds at most 8 channels (four
+// channel pairs, 512 threads and the B = 8 ring): beyond that all B
+// channels would need 64 B threads and 12.8 KB B of ring, more than a
+// block may have. So the B / 2 pairs are split into B / 8 groups of four,
+// one launch each, in order (g, a kernel argument). A group's block forms
+// only its 8 channels of the forward butterfly (from all B operand rows),
+// runs their block products, and applies its 8 columns of the inverse
+// butterfly to every output row r: a partial sum of the derivative. The
+// first group's launch stores it (or adds it, where the kernel adds) and
+// each later launch adds onto it. The derivative is linear in the
+// channels, so the groups' partial sums add up to it; a kernel's epilogue
+// must then be linear in the derivative too, or run in the last group's
+// launch. The launches run in stream order and, within one, each pixel
+// is one thread's, so the adds onto a pixel come in a fixed order and the
+// result is the same bit for bit from run to run. Each group re-reads the
+// operand: B / 8 times the operand reads of a one-group tile. Up to B = 8
+// there is one group, and the tile is as before.
+//
+// What the order costs (chip_smoke.py phase 13, NVIDIA H100 80GB HBM3 at
+// 700 W): the groups of one launch on the grid, adding in whatever order
+// they finish, ran 0.7-1.0x the time of these launches a kernel (K3 on 17
+// trials at 4096^2: 33.9 ms against 48.1), their operand re-reads and
+// adds sharing the L2, but no two runs gave the same bits; one block
+// running its tile's groups one after another, in order, ran 1.0-1.3x
+// their time, ptxas spilling up to 2.5 KB a thread around the loop.
+//
 // What bounds it on an H100, and what the design does about it (FP32 FMA
 // only; the block products are 2B - 2 real A x A x N products):
 //
@@ -111,25 +137,49 @@ constexpr int US_H = TO + 8;
 
 enum Axis { AXIS_X = 0, AXIS_Y = 1 };
 
-__host__ __device__ constexpr int tile_threads(int B) { return 16 * B * WPP; }
+// the channels a block holds (all of them up to B = 8), and the groups of
+// them (see the header)
+__host__ __device__ constexpr int tile_channels(int B) { return B < 8 ? B : 8; }
+__host__ __device__ constexpr int tile_groups(int B) { return B / tile_channels(B); }
+__host__ __device__ constexpr int tile_threads(int B) { return 16 * tile_channels(B) * WPP; }
 // resident blocks an SM asked for: 16 warps
 __host__ __device__ constexpr int tile_min_blocks(int B) { return 512 / tile_threads(B); }
-// a stage: the slab of the B blocks and of the B channels, FP32; at
+// a stage: the slab of the group's blocks and of its channels, FP32; at
 // 'high' each as [head, residual] bf16 slabs (2 bf16 a float)
 __host__ __device__ constexpr int stage_floats(int B, bool high = false) {
-    return high ? B * TK * (GS_H + US_H) : B * TK * (TM + SUO);
+    return high ? tile_channels(B) * TK * (GS_H + US_H) : tile_channels(B) * TK * (TM + SUO);
 }
 __host__ __device__ constexpr int ring_floats(int B, bool high = false) {
     return NSTAGE * stage_floats(B, high);
 }
-// the ring (reused for the staged accumulators), then the butterflies
+// the ring (reused for the staged accumulators), then the group's rows of
+// the forward butterfly and columns of the inverse one
 __host__ __device__ constexpr size_t tile_smem_bytes(int B, bool high = false) {
-    return sizeof(float) * (ring_floats(B, high) + 2 * B * B);
+    return sizeof(float) * (ring_floats(B, high) + 2 * tile_channels(B) * B);
 }
 static_assert(ring_floats(4, true) >= 4 * TM * SY_Y && ring_floats(4, true) >= 4 * TO * SY_X &&
                   ring_floats(8, true) >= 8 * TM * SY_Y && ring_floats(8, true) >= 8 * TO * SY_X,
               "the 'high' ring holds the staged accumulators");
+static_assert(tile_min_blocks(4) >= 1 && tile_min_blocks(8) >= 1 && tile_min_blocks(16) >= 1 &&
+                  tile_min_blocks(32) >= 1 && tile_threads(32) == 512,
+              "a radix's block stays within the launch bounds");
 __host__ __device__ constexpr int tile_pixels(int B) { return TM * TO / tile_threads(B); }   // per thread at store
+
+// The packed block (of B: [G_0, G_{B/2}, Ar.., Ai..]) and the butterfly
+// channel that slot s of group g's stage holds. Slots 2 i and 2 i + 1 are
+// the group's pair i: the real pair (channels 0, B - 1; blocks G_0,
+// G_{B/2}) for pair 0 of group 0, else complex pair p = 4 g + i (channels
+// 2p - 1, 2p; blocks Ar_p, Ai_p).
+template <int B>
+__host__ __device__ constexpr int slot_block(int g, int s) {
+    const int p = g * (tile_channels(B) / 2) + s / 2;
+    return p == 0 ? s % 2 : (s % 2 == 0 ? 1 + p : B / 2 + p);
+}
+template <int B>
+__host__ __device__ constexpr int slot_channel(int g, int s) {
+    const int p = g * (tile_channels(B) / 2) + s / 2;
+    return p == 0 ? (s % 2 == 0 ? 0 : B - 1) : 2 * p - 1 + s % 2;
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -168,15 +218,24 @@ __device__ __forceinline__ int out_offset(int q, int r, int m0, int o0, int Nx) 
                                                     : axis_offset<AXIS>(m0 + idx % TM, o0 + idx / TM, Nx));
 }
 
+// The block's tile (m0, o0): along m and across the derivative's axis.
 template <int AXIS>
 __device__ __forceinline__ void tile_origin(int& m0, int& o0) {
     m0 = (AXIS == AXIS_Y ? blockIdx.y : blockIdx.x) * TM;
     o0 = (AXIS == AXIS_Y ? blockIdx.x : blockIdx.y) * TO;
 }
 
+// Group g's rows of the forward butterfly Rf and columns of the inverse Ri
+// (bf is (2, B, B) [Rf, Ri]), in slot order: Rf[slot s][r], then Ri[r][slot s].
 template <int B, bool HIGH = false>
-__device__ __forceinline__ void load_butterflies(const float* __restrict__ bf, float* smem) {
-    for (int p = threadIdx.x; p < 2 * B * B; p += tile_threads(B)) smem[ring_floats(B, HIGH) + p] = bf[p];
+__device__ __forceinline__ void load_butterflies(const float* __restrict__ bf, float* smem, int g) {
+    constexpr int BC = tile_channels(B);
+    float* dst = smem + ring_floats(B, HIGH);
+    for (int p = threadIdx.x; p < BC * B; p += tile_threads(B)) {
+        const int s = p / B, r = p % B;
+        dst[p] = bf[slot_channel<B>(g, s) * B + r];
+        dst[BC * B + r * BC + s] = bf[B * B + r * B + slot_channel<B>(g, s)];
+    }
 }
 
 // (o, kk) of the j-th operand-slab position this thread loads: along the
@@ -230,15 +289,16 @@ __device__ __forceinline__ void slab_fma(const float* __restrict__ gA, const flo
 
 // 'high': one slab (TK = 16, one mma k step) of the block products of one
 // channel pair on the tensor cores, into the warp's 16 m x 32 pixels: the
-// real pair (channels chA, chB against blocks blA, blB) or a complex pair
+// real pair (channels chA, chB against blocks blA, blB; stage slots of a
+// group of BC channels) or a complex pair
 // (accA += Ar ur - Ai ui, accB += Ai ur + Ar ui with Ar = blA, Ai = blB,
 // ur = chA, ui = chB). sG and sU are the stage's split slabs [head,
 // residual][c][k][m or o]; accX[j] is n8 tile j in the mma C layout.
-template <int B, bool REAL>
+template <int BC, bool REAL>
 __device__ __forceinline__ void slab_mma(const __nv_bfloat16* sG, const __nv_bfloat16* sU,
                                          int blA, int blB, int chA, int chB, int mrow,
                                          float (&accA)[4][4], float (&accB)[4][4]) {
-    constexpr int GL = B * TK * GS_H, UL = B * TK * US_H;   // head -> residual
+    constexpr int GL = BC * TK * GS_H, UL = BC * TK * US_H;   // head -> residual
     const int lane = threadIdx.x % 32;
     // A (m x k) from [k][m] rows: matrices (m 0-7, k 0-7), (m 8-15, k 0-7),
     // (m 0-7, k 8-15), (m 8-15, k 8-15); B (k x o) from [k][o] rows:
@@ -282,30 +342,32 @@ __device__ __forceinline__ void slab_mma(const __nv_bfloat16* sG, const __nv_bfl
 }
 
 // One output tile of the factored derivative along AXIS (see the header),
-// in FP32 or at 'high'. G holds the packed blocks transposed (FP32, or at
-// 'high' their bf16 [head, residual] split); smem is the block's dynamic
-// shared memory (tile_smem_bytes(B, HIGH)), its butterflies loaded by
-// load_butterflies<B, HIGH>. load(q) returns the operand at offset q of the
-// (Ny, Nx) plane (with the caller's prologue); store(q, v) receives the
-// derivative there, at the pixels out_offset names. Every thread of the
-// block must call it.
+// in FP32 or at 'high', or channel group g's partial sum of it (B > 8).
+// G holds the packed blocks transposed (FP32, or at 'high' their bf16
+// [head, residual] split); smem is the block's dynamic shared memory
+// (tile_smem_bytes(B, HIGH)), its butterflies loaded by
+// load_butterflies<B, HIGH>(bf, smem, g). load(q) returns the operand at
+// offset q of the (Ny, Nx) plane (with the caller's prologue); store(q, v)
+// receives the derivative (or the group's partial sum of it) there, at the
+// pixels out_offset names. Every thread of the block must call it.
 template <int B, int AXIS, bool HIGH = false, class Load, class Store>
 __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* smem, int m0, int o0,
-                                          int Nx, Load load, Store store) {
+                                          int g, int Nx, Load load, Store store) {
+    constexpr int BC = tile_channels(B);   // the channels (stage slots) this block holds
     constexpr int NT = tile_threads(B);
-    constexpr int NC = B / 2 - 1;           // complex channel pairs
     constexpr int NPOS = TO * TK / NT;      // operand-slab positions per thread
-    constexpr int GROWS = NT / (TM / 4);    // block-slab rows (of B TK) that the threads copy at once
+    constexpr int GROWS = NT / (TM / 4);    // block-slab rows (of BC TK) that the threads copy at once
     constexpr int PX = tile_pixels(B);
-    const float* sRf = smem + ring_floats(B, HIGH);
-    const float* sRi = sRf + B * B;
+    const float* sRf = smem + ring_floats(B, HIGH);   // [slot][r]
+    const float* sRi = sRf + BC * B;                  // [r][slot]
     const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
-    const int pair = wid / WPP, mh = wid % WPP;   // channel pair; the warp's share of the tile along m
+    const int pair = wid / WPP, mh = wid % WPP;   // channel pair of the group; the warp's share of the tile along m
     const int lm = lane % 4, lo = lane / 4;       // FP32: 4 x 8 threads over the warp's 4 RM x 32 pixels
     const int mt = mh * 4 * RM + lm * 4;          // FP32: the thread's m: mt + 16 h + {0..3}, h < RM / 4
-    // the pair's channels and blocks
-    const int chA = pair == 0 ? 0 : 2 * pair - 1, chB = pair == 0 ? B - 1 : 2 * pair;
-    const int blA = pair == 0 ? 0 : 1 + pair, blB = pair == 0 ? 1 : 1 + NC + pair;
+    // the pair's stage slots (channels and blocks alike), and whether it is
+    // the real pair
+    const int chA = 2 * pair, chB = 2 * pair + 1, blA = chA, blB = chB;
+    const bool real = g == 0 && pair == 0;
 
     // FP32: accX[i][j] is (m = mt + 16 (i / 4) + i % 4, pixel lo * 4 + j);
     // 'high': accX[j] is n8 tile j of the warp's 16 m x 32 pixels
@@ -333,20 +395,22 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
     auto fetch = [&](int k0, float* stage) {
         // the slab's blocks, asynchronously, and its raw operand values
         if constexpr (HIGH) {
-            // [head, residual] x B x TK rows of TM bf16, 16 bytes a copy
-            constexpr int CPR = TM / 8, NCP = 2 * B * TK * CPR / NT;
+            // [head, residual] x BC x TK rows of TM bf16, 16 bytes a copy
+            constexpr int CPR = TM / 8, NCP = 2 * BC * TK * CPR / NT;
             __nv_bfloat16* sG = reinterpret_cast<__nv_bfloat16*>(stage);
 #pragma unroll
             for (int h = 0; h < NCP; ++h) {
-                const int q = tid + h * NT, row = q / CPR, ch = q % CPR;   // row: (hl B + c) TK + kk
+                const int q = tid + h * NT, row = q / CPR, ch = q % CPR;   // row: (hl BC + s) TK + kk
+                const int hs = row / TK, blk = (hs / BC) * B + slot_block<B>(g, hs % BC);
                 cp_async16(sG + row * GS_H + ch * 8,
-                           Gs + ((size_t)(row / TK) * FA + k0 + row % TK) * FA + m0 + ch * 8);
+                           Gs + ((size_t)blk * FA + k0 + row % TK) * FA + m0 + ch * 8);
             }
         } else {
 #pragma unroll
-            for (int h = 0; h < B * TK / GROWS; ++h) {
-                const int row = grow + h * GROWS;   // c TK + kk of the slab
-                cp_async16(stage + gdst + row * TM, gsrc + ((row / TK) * FA + k0 + row % TK) * FA);
+            for (int h = 0; h < BC * TK / GROWS; ++h) {
+                const int row = grow + h * GROWS;   // s TK + kk of the slab
+                cp_async16(stage + gdst + row * TM,
+                           gsrc + ((size_t)slot_block<B>(g, row / TK) * FA + k0 + row % TK) * FA);
             }
         }
 #pragma unroll
@@ -354,11 +418,11 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
 #pragma unroll
             for (int r = 0; r < B; ++r) raw[j][r] = load(qpos[j] + k0 * kstep + r * rstep);
     };
-    auto butterfly = [&](float* stage) {
-        float* sU = stage + B * TK * TM;
-        __nv_bfloat16* sUh = reinterpret_cast<__nv_bfloat16*>(stage) + 2 * B * TK * GS_H;
+    auto butterfly = [&](float* stage) {   // the group's channels, slot c
+        float* sU = stage + BC * TK * TM;
+        __nv_bfloat16* sUh = reinterpret_cast<__nv_bfloat16*>(stage) + 2 * BC * TK * GS_H;
 #pragma unroll
-        for (int c = 0; c < B; ++c) {
+        for (int c = 0; c < BC; ++c) {
             float rf[B];
 #pragma unroll
             for (int r = 0; r < B; r += 4) {
@@ -375,7 +439,7 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
                 if constexpr (HIGH) {
                     const __nv_bfloat16 h = __float2bfloat16_rn(u);
                     sUh[(c * TK + kk) * US_H + o] = h;
-                    sUh[(B * TK + c * TK + kk) * US_H + o] = __float2bfloat16_rn(u - __bfloat162float(h));
+                    sUh[(BC * TK + c * TK + kk) * US_H + o] = __float2bfloat16_rn(u - __bfloat162float(h));
                 } else {
                     sU[(c * TK + kk) * SUO + o] = u;
                 }
@@ -395,13 +459,13 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
         if (more) fetch((s + 1) * TK, nxt);
         if constexpr (HIGH) {
             const __nv_bfloat16* sG = reinterpret_cast<const __nv_bfloat16*>(cur);
-            const __nv_bfloat16* sU = sG + 2 * B * TK * GS_H;
-            if (pair == 0) slab_mma<B, true>(sG, sU, blA, blB, chA, chB, 16 * mh, accA, accB);
-            else slab_mma<B, false>(sG, sU, blA, blB, chA, chB, 16 * mh, accA, accB);
+            const __nv_bfloat16* sU = sG + 2 * BC * TK * GS_H;
+            if (real) slab_mma<BC, true>(sG, sU, blA, blB, chA, chB, 16 * mh, accA, accB);
+            else slab_mma<BC, false>(sG, sU, blA, blB, chA, chB, 16 * mh, accA, accB);
         } else {
             const float* sG = cur + mt;
-            const float* sU = cur + B * TK * TM + lo * 4;
-            if (pair == 0)
+            const float* sU = cur + BC * TK * TM + lo * 4;
+            if (real)
                 slab_fma<true>(sG + blA * TK * TM, sG + blB * TK * TM, sU + chA * TK * SUO,
                                sU + chB * TK * SUO, accA, accB);
             else
@@ -450,29 +514,29 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
             }
     }
     __syncthreads();
-    // inverse butterfly at store
-    float yv[PX][B];
+    // inverse butterfly at store (the group's columns of it)
+    float yv[PX][BC];
 #pragma unroll
     for (int q = 0; q < PX; ++q) {
         const int idx = tid + q * NT;
 #pragma unroll
-        for (int c = 0; c < B; ++c)
+        for (int c = 0; c < BC; ++c)
             yv[q][c] = AXIS == AXIS_Y ? sY[(c * TM + idx / TO) * SY_Y + idx % TO]
                                       : sY[(c * TO + idx / TM) * SY_X + idx % TM];
     }
 #pragma unroll
     for (int r = 0; r < B; ++r) {
-        float ri[B];
+        float ri[BC];
 #pragma unroll
-        for (int c = 0; c < B; c += 4) {
-            const float4 v = ld4(sRi + r * B + c);
+        for (int c = 0; c < BC; c += 4) {
+            const float4 v = ld4(sRi + r * BC + c);
             ri[c] = v.x, ri[c + 1] = v.y, ri[c + 2] = v.z, ri[c + 3] = v.w;
         }
 #pragma unroll
         for (int q = 0; q < PX; ++q) {
             float v = 0.f;
 #pragma unroll
-            for (int c = 0; c < B; ++c) v = fmaf(ri[c], yv[q][c], v);
+            for (int c = 0; c < BC; ++c) v = fmaf(ri[c], yv[q][c], v);
             store(out_offset<B, AXIS>(q, r, m0, o0, Nx), v);
         }
     }
@@ -480,7 +544,8 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
 
 template <int AXIS>
 dim3 pass_grid(int Ny, int Nx, int nz) {
-    return AXIS == AXIS_Y ? dim3(Nx / TO, FA / TM, nz) : dim3(FA / TM, Ny / TO, nz);
+    constexpr int NM = FA / TM;   // tiles along m
+    return AXIS == AXIS_Y ? dim3(Nx / TO, NM, nz) : dim3(NM, Ny / TO, nz);
 }
 
 bool shape_ok(int Bx, int By, int Ny, int Nx) {
@@ -502,17 +567,27 @@ int allow_tile_smem(K kernel, int B, bool high = false) {
 }  // namespace
 
 // Instantiate the statement for the radix Bv (as the constant B); other
-// radices are refused.
+// radices are refused. The radices built: ops/deriv.py::BUILT_RADICES
+// names the same set. LF_WITH_ONE_GROUP_RADIX takes only those of one
+// channel group (4, 8), for a kernel whose epilogue needs every channel.
+#define LF_RADIX_CASE(n, ...)                                                                   \
+    case n: {                                                                                   \
+        constexpr int B = n;                                                                    \
+        __VA_ARGS__;                                                                            \
+    } break;
 #define LF_WITH_RADIX(Bv, ...)                                                                  \
     switch (Bv) {                                                                               \
-        case 4: {                                                                               \
-            constexpr int B = 4;                                                                \
-            __VA_ARGS__;                                                                        \
-        } break;                                                                                \
-        case 8: {                                                                               \
-            constexpr int B = 8;                                                                \
-            __VA_ARGS__;                                                                        \
-        } break;                                                                                \
+        LF_RADIX_CASE(4, __VA_ARGS__)                                                           \
+        LF_RADIX_CASE(8, __VA_ARGS__)                                                           \
+        LF_RADIX_CASE(16, __VA_ARGS__)                                                          \
+        LF_RADIX_CASE(32, __VA_ARGS__)                                                          \
+        default:                                                                                \
+            return (int)cudaErrorInvalidValue;                                                  \
+    }
+#define LF_WITH_ONE_GROUP_RADIX(Bv, ...)                                                        \
+    switch (Bv) {                                                                               \
+        LF_RADIX_CASE(4, __VA_ARGS__)                                                           \
+        LF_RADIX_CASE(8, __VA_ARGS__)                                                           \
         default:                                                                                \
             return (int)cudaErrorInvalidValue;                                                  \
     }

@@ -43,6 +43,11 @@
 // rate, butterfly recomputation and latency) and spends nothing on the
 // zero planes beyond their stores.
 //
+// Radix 4 and 8 only, one channel group: the entry refuses 16 and 32
+// (ROADMAP Queue 2, K5). Running fact_tile's channel groups there would
+// also need the stores of the first group alone to add a or b (role 1's
+// inner stage) and to zero the planes a role leaves at zero.
+//
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
 // stream; the entry point returns the first nonzero cudaGetLastError().
 
@@ -64,7 +69,7 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
            float* __restrict__ scratch, const float* __restrict__ Gt,
            const float* __restrict__ bf, int Ny, int Nx, float t) {
     extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B)
-    load_butterflies<B>(bf, smem);
+    load_butterflies<B>(bf, smem, 0);   // one channel group (radix 4, 8)
     const size_t plane = (size_t)Ny * Nx;
     const int nder = role == 1 && stage == 1 ? 1 : 2;
     const int z = blockIdx.z / nder, j = blockIdx.z % nder, bi = z / nper, ci = z % nper;
@@ -87,7 +92,7 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
     // the y pass adds onto the x pass's plane with a result-less atomicAdd:
     // one add per pixel, so the sum is that of a load, add and store
     fact_tile<B, AXIS>(
-        Gt, smem, m0, o0, Nx,
+        Gt, smem, m0, o0, 0, Nx,
         [&](int q) {
             const float x = src[q];
             return pre ? scale * pa[q] * x : x;
@@ -141,16 +146,18 @@ extern "C" int lf_uni_velocity(int role, const float* a, const float* b, long lo
     cudaStream_t st = (cudaStream_t)stream;
     for (int stage = 0; stage < (role == 1 ? 2 : 1); ++stage) {
         const int nz = nbatch * nper * (role == 1 && stage == 1 ? 1 : 2);
-        LF_WITH_RADIX(Bx, uni_kernel<B, AXIS_X><<<pass_grid<AXIS_X>(Ny, Nx, nz), tile_threads(B),
-                                                  tile_smem_bytes(B), st>>>(
-                              role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper, px, py, out,
-                              scratch, FX, bfx, Ny, Nx, t))
+        LF_WITH_ONE_GROUP_RADIX(
+            Bx, uni_kernel<B, AXIS_X><<<pass_grid<AXIS_X>(Ny, Nx, nz), tile_threads(B),
+                                          tile_smem_bytes(B), st>>>(
+                     role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper, px, py, out, scratch, FX, bfx,
+                     Ny, Nx, t))
         int rc = (int)cudaGetLastError();
         if (rc != 0) return rc;
-        LF_WITH_RADIX(By, uni_kernel<B, AXIS_Y><<<pass_grid<AXIS_Y>(Ny, Nx, nz), tile_threads(B),
-                                                  tile_smem_bytes(B), st>>>(
-                              role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper, px, py, out,
-                              scratch, FYT, bfy, Ny, Nx, t))
+        LF_WITH_ONE_GROUP_RADIX(
+            By, uni_kernel<B, AXIS_Y><<<pass_grid<AXIS_Y>(Ny, Nx, nz), tile_threads(B),
+                                          tile_smem_bytes(B), st>>>(
+                     role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper, px, py, out, scratch, FYT, bfy,
+                     Ny, Nx, t))
         rc = (int)cudaGetLastError();
         if (rc != 0) return rc;
     }

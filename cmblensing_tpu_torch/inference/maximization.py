@@ -37,6 +37,7 @@ warns when the dataset has a logprior, as the JAX package does.
 from __future__ import annotations
 
 import contextlib
+import os
 import warnings
 
 import numpy as np
@@ -215,29 +216,92 @@ def _mixed_gaussian_z(dstheta, theta, f_mix, phi_mix):
     return [f, phi, dstheta.d - mu]
 
 
-def _grid_linesearch_dlps(dstheta, theta, f_mix, phi_mix, dphi, amax, ngrid):
+# What one grid line-search trial holds on the card at its peak, in map
+# planes of phi's size (a pol-P trial: unmix's L^-1 flow and the L flow
+# with their RK4 buffers and p(t) planes, grad/Hess phi, the residual
+# fields z_i and their covariance solves): 18.1 measured on an NVIDIA H100
+# 80GB HBM3 at 2048^2 P (chip_smoke.py phase 13 prints it: the peak
+# memory of a line search of 17 trials over that of chunks of 5, per
+# trial), rounded up. The JAX package's v5e estimate was 100.
+LINESEARCH_PLANES_PER_TRIAL = 20
+
+
+def linesearch_budget(device):
+    """The bytes the grid line search's trials may hold at once on
+    `device`: half the card's memory (the rest for the dataset, the
+    f-step's CG and the allocator's slack); None (no limit) off the
+    card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory // 2
+
+
+def _linesearch_chunk(phi_mix, ngrid, budget=None):
+    """How many trials the grid line search evaluates in one batch
+    (counterpart of the JAX package's `_linesearch_chunk`): ngrid (all
+    ngrid + 1 trials, alpha = 0 included, in one batch) while ngrid of
+    them fit in `budget` bytes at LINESEARCH_PLANES_PER_TRIAL planes each
+    (the JAX rule: one trial over rather than a second batch); else the
+    fewest batches of at most as many as fit (at least 1), evened out so
+    that padding the last one wastes least. The budget is
+    `linesearch_budget` of phi's device unless given;
+    CMBL_LINESEARCH_CHUNK overrides the rule."""
+    env_chunk = os.environ.get("CMBL_LINESEARCH_CHUNK")
+    if env_chunk:
+        return max(1, int(env_chunk))
+    if budget is None:
+        budget = linesearch_budget(phi_mix.arr.device)
+    if budget is None:
+        return ngrid
+    per_trial = LINESEARCH_PLANES_PER_TRIAL * phi_mix.proj.Ny * phi_mix.proj.Nx \
+        * phi_mix.arr.element_size()
+    fit = max(1, int(budget // per_trial))
+    if fit >= ngrid:
+        return ngrid
+    nchunk = -(-(ngrid + 1) // fit)
+    return -(-(ngrid + 1) // nchunk)
+
+
+def _grid_linesearch_dlps(dstheta, theta, f_mix, phi_mix, dphi, amax, ngrid, chunk=None):
     """The grid line search's trials: (alphas, dlps), alpha = 0 as trial
     0, each trial's Delta logpdf computed cancellation-free,
 
         lp(a) - lp(0) = -1/2 sum_i <z_i(a) - z_i(0), Sigma_i^-1 (z_i(a) + z_i(0))>,
 
     so that float32 resolves the difference and not the ~1e7 totals.
-    All ngrid + 1 trials, alpha = 0 included, run as ONE batched
-    evaluation (batch x component on the flow kernels' grid): z_i(0) is
-    row 0 of the same computation as the others, so its dlp is exactly 0
-    and no difference between two evaluation paths reaches the Sigma^-1
-    metric, which would amplify it (the JAX package's path-consistency
-    fix)."""
+    While the trials fit the memory guard (`_linesearch_chunk`, or
+    `chunk` when given), all ngrid + 1 of them, alpha = 0 included, run
+    as ONE batched evaluation (batch x component on the flow kernels'
+    grid); otherwise as batches of `chunk` trials, the last one padded
+    with alpha = 0 trials, so that every batch is the same computation.
+    z_i(0) is row 0 of the first batch, computed as the others are, so
+    its dlp is exactly 0 and no difference between two evaluation paths
+    reaches the Sigma^-1 metric, which would amplify it (the JAX
+    package's path-consistency fix)."""
     rdt, dev = phi_mix.arr.dtype, phi_mix.arr.device
     steps = (torch.arange(1, ngrid + 1, dtype=rdt, device=dev) / ngrid) ** 1.5
     alphas = torch.cat([torch.zeros(1, dtype=rdt, device=dev),
                         torch.as_tensor(amax, dtype=rdt, device=dev) * steps])
-    step = Field(alphas.reshape(-1, 1, 1, 1) * dphi.arr, dphi.basis, dphi.proj)
-    zs = _mixed_gaussian_z(dstheta, theta, f_mix, phi_mix + step)
-    dlps = 0.0
-    for z, S in zip(zs, _mixed_gaussian_covs(dstheta, theta)):
-        z0 = Field(z.arr[:1], z.basis, z.proj)
-        dlps = dlps - 0.5 * field_dot(z - z0, S.solve(z + z0))
+    if chunk is None:
+        chunk = _linesearch_chunk(phi_mix, ngrid)
+    if chunk >= ngrid:
+        chunk = ngrid + 1
+    nchunk = -(-(ngrid + 1) // chunk)
+    padded = torch.cat([alphas, alphas.new_zeros(nchunk * chunk - (ngrid + 1))])
+    covs = _mixed_gaussian_covs(dstheta, theta)
+    z0s, dlps = None, []
+    for a in padded.split(chunk):
+        step = Field(a.reshape(-1, 1, 1, 1) * dphi.arr, dphi.basis, dphi.proj)
+        zs = _mixed_gaussian_z(dstheta, theta, f_mix, phi_mix + step)
+        if z0s is None:
+            z0s = [Field(z.arr[:1], z.basis, z.proj) for z in zs]
+        d = 0.0
+        for z, z0, S in zip(zs, z0s, covs):
+            d = d - 0.5 * field_dot(z - z0, S.solve(z + z0))
+        dlps.append(d)
+        del zs, step
+    dlps = torch.cat(dlps)[:ngrid + 1]
     dlps = torch.where(torch.isfinite(dlps), dlps, torch.full_like(dlps, -float("inf")))
     return alphas, dlps
 

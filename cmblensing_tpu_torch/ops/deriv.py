@@ -35,9 +35,21 @@ from . import fft as _fft
 from .factored_deriv import FactoredOps, apply_x, apply_y, dot_high, factored_ops
 
 # Block size of the factored derivative. Provisional rule, to be set
-# from H100 measurements: radix B = n / FACTOR_A where n >= 512 and
-# FACTOR_A divides n, else the dense circulant.
+# from H100 measurements: radix B = n / FACTOR_A where that is a radix the
+# factored kernels are built for, else the dense circulant.
 FACTOR_A = 128
+# The radices csrc/factored.cu is built for (LF_WITH_RADIX in
+# csrc/fact_tile.cuh): 512^2 to 4096^2. The kernel wrappers refuse any
+# other (ops/lenseflow_kernels.py::_check_factored).
+BUILT_RADICES = (4, 8, 16, 32)
+
+
+def radix_groups(B: int) -> int:
+    """The channel groups the factored kernels run one after another at
+    radix B (csrc/fact_tile.cuh::tile_groups): a block holds at most 8
+    channels."""
+    return max(1, B // 8)
+
 
 PRECISIONS = ("f32", "high", "bf16")
 _PRECISION = "f32"
@@ -69,9 +81,11 @@ def precision_ctx(p):
 
 
 def radix(n: int) -> int:
-    """Radix B of the factored derivative along an axis of length n; 1
-    means the dense circulant."""
-    return n // FACTOR_A if n >= 512 and n % FACTOR_A == 0 else 1
+    """Radix B of the factored derivative along an axis of length n: n /
+    FACTOR_A where that is one of BUILT_RADICES, else 1, the dense
+    circulant (which takes any n)."""
+    B, r = divmod(n, FACTOR_A)
+    return B if r == 0 and B in BUILT_RADICES else 1
 
 
 def deriv_ops(proj):

@@ -50,7 +50,12 @@ def _block_diagonalize(D, B):
     A = N // B
     W = np.exp(-2j * np.pi * np.outer(np.arange(B), np.arange(B)) / B)
     D4 = D.reshape(B, A, B, A)
-    Ghat = np.einsum("rk,rasb,sl->kalb", W, D4, np.conj(W)) / B
+    # the JAX package's single einsum (so its blocks, bit for bit) while
+    # its B^4 A^2 multiply-adds are cheap; beyond, two contractions of
+    # B^3 A^2 each, the same sums in another order (the single one takes
+    # seconds at 2048 = 16 x 128 and over a minute at 4096 = 32 x 128)
+    Ghat = np.einsum("rk,rasb,sl->kalb", W, D4, np.conj(W),
+                     optimize=B ** 4 * A ** 2 > 2 ** 28) / B
     G = np.einsum("kakb->kab", Ghat)
     off = Ghat - np.einsum("kab,kl->kalb", G, np.eye(B))
     if not np.max(np.abs(off)) < 1e-9 * max(np.max(np.abs(G)), 1e-30):

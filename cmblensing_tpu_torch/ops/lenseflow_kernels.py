@@ -73,7 +73,7 @@ import functools
 import torch
 
 from . import deriv as _deriv
-from .deriv import FACTOR_A
+from .deriv import BUILT_RADICES, FACTOR_A
 from .factored_deriv import FactoredOps, fyt, split_bf16
 
 KINDS = {"forward": 0, "adjoint": 1, "backward": 2}
@@ -83,7 +83,8 @@ NACC = 5   # delta-phi accumulator planes carried by the backward flow
 CUDA_ERROR_INVALID_VALUE = 1   # what a kernel's C entry returns for arguments it does not take
 
 # kernel launches per kernel, counted where each wrapper launches (the
-# factored velocities launch twice per call: an x pass and a y pass)
+# factored velocities launch twice per call, an x pass and a y pass, and
+# at radix 16 and 32 so for each channel group)
 LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0,
             "rk4_update": 0, "p_planes": 0, "deriv": 0, "fderiv": 0, "fa_velocity_forward": 0,
             "fa_velocity_adjoint": 0, "bv_velocity": 0, "uni_role0": 0, "uni_role1": 0,
@@ -277,7 +278,7 @@ def _operands(name, mats, like, precision="f32"):
 def _raise_on(rc, name):
     if rc == CUDA_ERROR_INVALID_VALUE:
         raise RuntimeError(f"{name}: the kernel refused its arguments (a shape, or a radix it "
-                           "is not built for; ROADMAP Queue 2, K1)")
+                           "is not built for)")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
@@ -372,14 +373,17 @@ def deriv_cuda(a, b, c, out, mats, precision="f32"):
 
 def _check_factored(name, ops, Ny, Nx):
     """The radices of `ops`, after checking that they fit this plane
-    shape; which radices csrc/factored.cu is built for, it checks
-    itself."""
+    shape and that the kernels are built for them (ops/deriv.py::
+    BUILT_RADICES; csrc/factored.cu refuses any other as well)."""
     Bx, By = ops.FX.shape[0], ops.FY.shape[0]
     if ops.FX.shape[-1] != FACTOR_A or ops.FY.shape[-1] != FACTOR_A:
         raise ValueError(f"{name}: the kernel takes blocks of {FACTOR_A}, got "
                          f"{tuple(ops.FX.shape)}, {tuple(ops.FY.shape)}")
     if Nx != Bx * FACTOR_A or Ny != By * FACTOR_A:
         raise ValueError(f"{name}: a {Ny}x{Nx} plane does not fit radix ({Bx}, {By})")
+    if Bx not in BUILT_RADICES or By not in BUILT_RADICES:
+        raise ValueError(f"{name}: radix ({Bx}, {By}): the factored kernels are built for "
+                         f"{BUILT_RADICES}")
     return Bx, By
 
 
@@ -404,7 +408,8 @@ def _high_arg(precision):
 def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     """K1: out <- d_x a + d_y b + c through the factored derivative
     kernel at `precision` ('f32' or 'high'), one launch per derivative
-    given; out must not alias a or b."""
+    given and channel group (ops/deriv.py::radix_groups); out must not
+    alias a or b."""
     from . import _build
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
@@ -422,7 +427,8 @@ def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     rc = _build.load().lf_fderiv(high, _ptr(a), _ptr(b), _ptr(c), _ptr(out), *fptrs, Bx, By,
                                  nplanes, Ny, Nx, _stream())
     _raise_on(rc, "lf_fderiv")
-    LAUNCHES["fderiv" + _SUFFIX[high]] += (a is not None) + (b is not None)
+    LAUNCHES["fderiv" + _SUFFIX[high]] += ((a is not None) * _deriv.radix_groups(Bx)
+                                          + (b is not None) * _deriv.radix_groups(By))
 
 
 def _check_batched_state(name, y, k, phi, pt, nstate):
@@ -439,7 +445,8 @@ def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
     """launch(t): K3 (forward, adjoint) or K4 (backward) at `precision`
     ('f32' or 'high'), k <- the velocity of flow `kind` at the batched (nb,
     nstate, Ny, Nx) state y; phi is (nb, 5, Ny, Nx), pt its p(t) planes
-    (2, nb, Ny, Nx). Two launches (x pass, y pass)."""
+    (2, nb, Ny, Nx). An x pass and a y pass, one launch each per channel
+    group (ops/deriv.py::radix_groups)."""
     from . import _build
     Ny, Nx = y.shape[-2:]
     lib = _build.load()
@@ -448,13 +455,14 @@ def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
     _, fptrs = _operands(name, ops, y, precision)
     _check_cuda(name, [y, k, phi, pt])
     Bx, By = _check_factored(name, ops, Ny, Nx)
+    nlaunch = _deriv.radix_groups(Bx) + _deriv.radix_groups(By)
     if kind == "backward":
         nb = _check_batched_state(name, y, k, phi, pt, 2 * ncomp + NACC)
-        return _launcher(lib.lf_bv_velocity, name, "bv_velocity" + _SUFFIX[high], 2,
+        return _launcher(lib.lf_bv_velocity, name, "bv_velocity" + _SUFFIX[high], nlaunch,
                          (high, _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *fptrs, Bx, By, nb, ncomp,
                           Ny, Nx))
     nb = _check_batched_state(name, y, k, phi, pt, ncomp)
-    fa = _launcher(lib.lf_fa_velocity, name, "fa_velocity_" + kind + _SUFFIX[high], 2,
+    fa = _launcher(lib.lf_fa_velocity, name, "fa_velocity_" + kind + _SUFFIX[high], nlaunch,
                    (high, ROLES[kind], _ptr(y), _ptr(k), _ptr(pt), *fptrs, Bx, By, nb, ncomp, Ny,
                     Nx))
     return lambda t: fa()   # K3 takes no time: p(t) reaches it as planes
@@ -499,6 +507,9 @@ def uni_velocity_cuda(role, a, b, px, py, out, ops, t):
     if role not in (0, 1, 2, 3):
         raise ValueError(f"lf_uni_velocity: role {role}")
     Bx, By = _check_factored("lf_uni_velocity", ops, Ny, Nx)
+    if _deriv.radix_groups(Bx) > 1 or _deriv.radix_groups(By) > 1:
+        raise NotImplementedError(f"lf_uni_velocity: radix ({Bx}, {By}): the uni kernel is built "
+                                  "for radix 4 and 8 only; 16 and 32 are ROADMAP Queue 2, K5")
     scratch = torch.empty((nb, nper, 2, Ny, Nx), dtype=out.dtype, device=out.device) \
         if role == 1 else None
     rc = _build.load().lf_uni_velocity(role, _ptr(a), _ptr(b), *strides, _ptr(px), _ptr(py),

@@ -3,13 +3,15 @@ per LenseFlow backend, on one CUDA card.
 
     python scripts/torch_profile_map.py [--backends kernel uni] [--steps 2] [--grad256]
                                         [--host-ab] [--precision auto|f32] [--wiener256]
+                                        [--N 1024] [--warm 2]
 
-Runs MAP_joint as chip_smoke.py phase 7 does (load_sim at 1024^2 P,
+Runs MAP_joint as chip_smoke.py phase 7 does (load_sim at 1024^2 P, or at
+--N^2 (2048 and 4096 as chip_smoke.py phase 13),
 thetapix 2, seed 0; grid line search; 15 fixed CG iterations), strict
 everywhere (--precision f32, the default: precision=None) or at the JAX
 package's default precision "auto" (--precision auto, as chip_smoke.py
 phase 9; the uni backend has no 'high' tier and refuses it). For each
-backend: 2 warm-up steps, an unprofiled run of --steps steps for the
+backend: --warm warm-up steps, an unprofiled run of --steps steps for the
 wall time, then the same run under torch.profiler (CUDA activity only).
 Prints per step: wall s, device ms and the device's busy share, and the
 device ms and launches of the kernels that take the most time. With
@@ -60,6 +62,8 @@ def main():
     ap.add_argument("--host-ab", action="store_true")
     ap.add_argument("--precision", choices=("auto", "f32"), default="f32")
     ap.add_argument("--wiener256", action="store_true")
+    ap.add_argument("--N", type=int, default=1024)
+    ap.add_argument("--warm", type=int, default=2)
     args = ap.parse_args()
     precision = None if args.precision == "f32" else "auto"
     import torch
@@ -72,12 +76,12 @@ def main():
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    ds = ct.load_sim(thetapix=2, Nside=1024, pol="P", T=np.float32, seed=0)["ds"]
+    ds = ct.load_sim(thetapix=2, Nside=args.N, pol="P", T=np.float32, seed=0)["ds"]
     run = lambda n: ct.MAP_joint(ds, nsteps=n, linesearch="grid", precision=precision,
                                  conjgrad_kwargs=dict(tol=0.0, nsteps=15, fixed_iters=True))
     for backend in args.backends:
         with ct.lenseflow_backend_ctx(backend):
-            run(2)
+            run(args.warm)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run(args.steps)
@@ -87,7 +91,7 @@ def main():
                 run(args.steps)
                 torch.cuda.synchronize()
         report(prof, args.steps, wall,
-               f"{backend}, precision {args.precision} [1024^2 P, {args.steps} steps; {card}]",
+               f"{backend}, precision {args.precision} [{args.N}^2 P, {args.steps} steps; {card}]",
                "step", args.top)
     if args.host_ab:
         from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk

@@ -9,8 +9,9 @@ Bound: 1e-5 relative max-abs, both sides strict FP32 summing in another
 order; 5e-4 for grad/Hess(phi), whose float32 value carries ~1e-4
 relative error in any form (dense circulants or FFT, measured against
 float64 at 256^2), so two FP32 summation orders differ by as much.
-The factored kernels (csrc/factored.cu) are checked at 1024^2, the size
-whose radix (B = 8) the main path runs, and at 512^2 (B = 4).
+The factored kernels (csrc/factored.cu) are checked at every radix they
+are built for: 512^2 (B = 4), 1024^2 (B = 8) and, in channel groups,
+2048^2 (B = 16) and 4096^2 (B = 32).
 
 Their 'high' tier (bf16 head/residual split on the tensor cores) is held
 to its plain 'high' version at 2e-5: the two split the same FP32 values,
@@ -129,15 +130,21 @@ def _p_planes(t, planes):
     return pt
 
 
+# (N, batch) of the factored kernel tests: every built radix at batch 1
+# and, up to 2048^2, on the line search's batch of 17 (at 4096^2 a batch of
+# 17 backward states is 10 GB a buffer; chip_smoke.py phase 13 runs K3 there)
+FACTORED_CASES = [(512, 1), (512, 17), (1024, 1), (1024, 17), (2048, 1), (2048, 17), (4096, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [1, 17])
-@pytest.mark.parametrize("N", [512, 1024])
+@pytest.mark.parametrize("N,nb", FACTORED_CASES)
 def test_factored_kernels_match_plain_on_card(N, nb):
     """K1 (lf_fderiv, x and y), K3 (lf_fa_velocity, both roles) and K4
-    (lf_bv_velocity) on the 64 x 32 tile at radix 4 (512^2) and 8 (1024^2)
-    against their plain versions, one launch each, at batch 1 and on the
-    line search's batch of 17, every batch entry with its own phi and
-    held to the bound on its own."""
+    (lf_bv_velocity) on the 64 x 32 tile at radix 4 (512^2), 8 (1024^2),
+    16 (2048^2) and 32 (4096^2; the last two in channel groups) against
+    their plain versions, one call each, at batch 1 and on the line
+    search's batch of 17, every batch entry with its own phi and held to
+    the bound on its own."""
     _card()
     tp = ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda")
     ops = tderiv.deriv_ops(tp)
@@ -233,12 +240,19 @@ def test_factored_flows_match_plain_on_card():
 
 @pytest.mark.cuda
 def test_factored_wrapper_rejects_what_the_kernel_does_not_take():
+    """A radix the kernels are not built for is refused by the wrapper
+    and, should it reach the C entry, by the entry too."""
+    from cmblensing_tpu_torch.ops import _build
     _card()
     tp = ct.ProjLambert(256, 256, thetapix=2, T=np.float32, device="cuda")
     ops = tfd.factored_ops(tp, 2, 2)
     x = torch.zeros((1, 256, 256), device="cuda")
-    with pytest.raises(RuntimeError, match="radix"):
+    with pytest.raises(ValueError, match="radix"):
         lfk.fderiv_cuda(x, None, None, torch.empty_like(x), ops)
+    out = torch.empty_like(x)
+    fops = [lfk._ptr(t) for t in lfk._fops(ops)]
+    assert _build.load().lf_fderiv(0, lfk._ptr(x), None, None, lfk._ptr(out), *fops, 2, 2, 1,
+                                   256, 256, lfk._stream()) == lfk.CUDA_ERROR_INVALID_VALUE
     ops8 = tderiv.deriv_ops(ct.ProjLambert(1024, 1024, thetapix=2, T=np.float32, device="cuda"))
     y = torch.zeros((1, 1024, 1024), device="cuda")
     with pytest.raises(ValueError, match="alias"):
@@ -314,8 +328,7 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [1, 17])
-@pytest.mark.parametrize("N", [512, 1024])
+@pytest.mark.parametrize("N,nb", FACTORED_CASES)
 def test_factored_high_kernels_match_plain_high_on_card(N, nb):
     """The 'high' tier of K1, K3 (both roles) and K4 on the tensor cores
     against their plain 'high' versions (HIGH_TOL) and the strict kernels
@@ -345,22 +358,79 @@ def test_factored_high_kernels_match_plain_high_on_card(N, nb):
         assert e[0] < HIGH_TOL and e[1] < HIGH_VS_STRICT and e[2] < HIGH_SPLIT_RATIO, e
 
     lfk.reset_launches()
+    ngroup = tderiv.radix_groups(N // 128)   # launches a pass: one per channel group
     a, b, c = T(nb, 1, N, N), T(nb, 1, N, N), T(nb, 1, N, N)
     for args in ((a, None, None), (None, b, None), (a, b, c)):
         check(a.shape, lambda o, p: lfk.fderiv_cuda(*args, o, ops, p),
               lambda o: lfk.fderiv_plain(*args, o, ops, "high"))
-    assert lfk.LAUNCHES["fderiv_high"] == 4
+    assert lfk.LAUNCHES["fderiv_high"] == 4 * ngroup
     y = T(nb, 2, N, N)
     pt = _p_planes(0.3, planes)
     for kind in ("forward", "adjoint"):
         check(y.shape, lambda o, p: lfk.fvelocity_cuda(kind, y, o, planes, pt, ops, 2, 0.3, p),
               lambda o: lfk.fvelocity_plain(kind, y, o, planes, pt, ops, 2, 0.3, "high"))
-        assert lfk.LAUNCHES[f"fa_velocity_{kind}_high"] == 2
+        assert lfk.LAUNCHES[f"fa_velocity_{kind}_high"] == 2 * ngroup
     yb = torch.cat([T(nb, 4, N, N), 1e-3 * T(nb, lfk.NACC, N, N)], dim=1)
     pt = _p_planes(0.7, planes)
     check(yb.shape, lambda o, p: lfk.fvelocity_cuda("backward", yb, o, planes, pt, ops, 2, 0.7, p),
           lambda o: lfk.fvelocity_plain("backward", yb, o, planes, pt, ops, 2, 0.7, "high"))
-    assert lfk.LAUNCHES["bv_velocity_high"] == 2
+    assert lfk.LAUNCHES["bv_velocity_high"] == 2 * ngroup
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [2048, 4096])
+def test_factored_outputs_ignore_what_the_buffer_held_on_card(N):
+    """With channel groups the later groups' launches add their partial
+    sums onto the first group's; the output must not depend on what its
+    buffer held, and the adds run in a fixed order: K1 (d_x alone, and d_x a +
+    d_y b + c), K3 (both roles) and K4 into buffers of NaN, of 1e30 and of
+    zeros give finite results within TOL of the plain version, at both
+    tiers, and the same bits for every buffer."""
+    _card()
+    ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), ops)[None]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    T = lambda *s: torch.randn(s, generator=g, device="cuda")
+    a, b, c = T(1, 1, N, N), T(1, 1, N, N), T(1, 1, N, N)
+    y, yb = T(1, 2, N, N), torch.cat([T(1, 4, N, N), 1e-3 * T(1, lfk.NACC, N, N)], dim=1)
+    pt = _p_planes(0.4, planes)
+    cases = [(a.shape, lambda o, p, x=x: lfk.fderiv_cuda(*x, o, ops, p),
+              lambda o, p, x=x: lfk.fderiv_plain(*x, o, ops, p))
+             for x in ((a, None, None), (a, b, c), (None, b, c))]
+    cases += [(y.shape, lambda o, p, k=k: lfk.fvelocity_cuda(k, y, o, planes, pt, ops, 2, 0.4, p),
+               lambda o, p, k=k: lfk.fvelocity_plain(k, y, o, planes, pt, ops, 2, 0.4, p))
+              for k in ("forward", "adjoint")]
+    cases.append((yb.shape,
+                  lambda o, p: lfk.fvelocity_cuda("backward", yb, o, planes, pt, ops, 2, 0.4, p),
+                  lambda o, p: lfk.fvelocity_plain("backward", yb, o, planes, pt, ops, 2, 0.4, p)))
+    for shape, kernel, plain in cases:
+        for p in ("f32", "high"):
+            ref = torch.empty(shape, device="cuda")
+            plain(ref, p)
+            first = None
+            for fill in (float("nan"), 1e30, 0.0):
+                o = torch.full(shape, fill, device="cuda")
+                kernel(o, p)
+                assert torch.isfinite(o).all(), (shape, p, fill)
+                errs = [rel(o[0, i], ref[0, i]) for i in range(shape[1])]
+                assert max(errs) < (TOL if p == "f32" else HIGH_TOL), (shape, p, fill, errs)
+                first = o if first is None else first
+                assert torch.equal(o, first), (shape, p, fill)
+
+
+@pytest.mark.cuda
+def test_uni_wrapper_refuses_radix_16_and_32():
+    """K5 is built for radix 4 and 8 only: at 2048^2 its wrapper raises
+    before any launch, naming ROADMAP Queue 2."""
+    _card()
+    N = 2048
+    ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
+    x = torch.zeros((1, 1, N, N), device="cuda")
+    lfk.reset_launches()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        lfk.uni_velocity_cuda(2, x, x, x, x, torch.empty((1, 1, 4, N, N), device="cuda"), ops, 0.5)
+    assert all(v == 0 for v in lfk.LAUNCHES.values())
 
 
 @pytest.mark.cuda

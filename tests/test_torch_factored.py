@@ -14,7 +14,11 @@ against the JAX package on the same numpy inputs.
   tests/test_deriv.py holds those kernels to against the scan.
 
 The factored kernels take blocks of A = 128 on the card; the plain
-version takes any A, so these tests run at 32^2-64^2 with A = 8..32.
+version takes any A, so these tests run at 32^2-64^2 with A = 2..32.
+Radix 16 and 32 (A = 4 and 2 at 64^2) are held to JAX's factored
+in-kernel derivatives built by `_factored_ops(n, delta, dtype, B)`, their
+butterfly metadata handed to the interpreted kernels through
+`_fmeta_from_key` (JAX's own operand cache is keyed without B).
 The CUDA kernels themselves are held against this plain version on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -32,6 +36,7 @@ from cmblensing_tpu.ops.factored_deriv import _factored_ops as j_factored_ops
 
 import cmblensing_tpu_torch as ct
 from cmblensing_tpu_torch.models import lenseflow as tlf
+from test_torch_high import _jax_factored, _radix_case
 from cmblensing_tpu_torch.ops import deriv as tderiv
 from cmblensing_tpu_torch.ops import factored_deriv as tfd
 from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
@@ -47,7 +52,12 @@ def rel(a, b):
 
 @pytest.fixture(autouse=True)
 def _restore_mode():
+    """One torch thread per test (the workers of a parallel run would
+    otherwise contend for the cores); the deriv mode restored."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     jderiv.set_deriv_mode("auto")
 
 
@@ -63,7 +73,7 @@ def _weak_lensing(N=32, ncomp=2, seed=1):
     return phi, f, dy
 
 
-@pytest.mark.parametrize("B", [2, 4, 8])
+@pytest.mark.parametrize("B", [2, 4, 8, 16, 32])
 def test_factored_blocks_match_jax_f64(B):
     delta = float(JProj(64, 64, thetapix=3, T=np.float64).deltax)
     jop = j_factored_ops(64, delta, "float64", B)[0]
@@ -78,7 +88,7 @@ def test_factored_blocks_match_jax_f64(B):
         np.testing.assert_array_equal(top.packed(transpose), plf._pack_factored(jop, transpose))
 
 
-@pytest.mark.parametrize("B", [2, 4, 8])
+@pytest.mark.parametrize("B", [2, 4, 8, 16, 32])
 def test_factored_apply_matches_jax_in_kernel_and_dense(B):
     N = 64
     tp = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device="cpu")
@@ -126,40 +136,61 @@ def test_factored_gradhess_matches_dense_and_f64():
         assert rel(a[i], c[i]) < bound
 
 
-def _flow_inputs(B):
-    jp = JProj(32, 32, thetapix=3, T=np.float32)
-    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32, device="cpu")
-    phi, f, dy = _weak_lensing()
+def _flow_inputs(B, N=32, ncomp=2):
+    jp = JProj(N, N, thetapix=3, T=np.float32)
+    tp = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device="cpu")
+    phi, f, dy = _weak_lensing(N=N, ncomp=ncomp)
     ops = tfd.factored_ops(tp, B, B)
     planes = lfk.gradhess(torch.as_tensor(phi), ops)
     return jp, ops, planes, f, dy
 
 
-@pytest.mark.parametrize("B", [2, 4])
-@pytest.mark.parametrize("kind,t0,t1", [("forward", 0.0, 1.0), ("forward", 1.0, 0.0),
-                                        ("adjoint", 1.0, 0.0)])
-def test_factored_flow_matches_jax_fa_call_interpret(B, kind, t0, t1):
+# radix 2 and 4 against JAX's dense in-kernel derivatives at 32^2 (the
+# same operator); radix 16 and 32 against its factored ones at 64^2
+# (`_radix_case`)
+FLOW_RADICES = [2, 4, 16, 32]
+_FA_KINDS = [("forward", 0.0, 1.0), ("forward", 1.0, 0.0), ("adjoint", 1.0, 0.0)]
+
+
+# every kind at radix 2, 4 and 16; L^H at radix 32 (whose interpreted
+# kernel takes a minute on a loaded CPU; its forward role is held at
+# 'high' in tests/test_torch_high.py)
+@pytest.mark.parametrize("kind,t0,t1,B", [(*k, B) for B in (2, 4, 16) for k in _FA_KINDS]
+                         + [(*_FA_KINDS[2], 32)])
+def test_factored_flow_matches_jax_fa_call_interpret(B, kind, t0, t1, monkeypatch):
     """L, L^-1 (forward kind run 1 -> 0) and L^H against the
     component-gridded `_fa_call` on the same phi planes."""
-    jp, ops, planes, f, _ = _flow_inputs(B)
+    N, ncomp, nsteps = _radix_case(B)
+    jp, ops, planes, f, _ = _flow_inputs(B, N, ncomp)
     jplanes = tuple(jnp.asarray(p) for p in planes.numpy())
-    ref = plf._fa_call(jnp.asarray(f), jplanes, plf._mats_for(jp, np.float32), kind, NSTEPS,
-                       t0, t1, "f32", True)
-    out = lfk.flow_apply(torch.as_tensor(f), planes, ops, t0, t1, NSTEPS, kind)
+    if B > 8:
+        mats, fmeta = _jax_factored(N, B)
+        monkeypatch.setattr(plf, "_fmeta_from_key", lambda fkey: fmeta)
+        ref = plf._fa_call(jnp.asarray(f), jplanes, mats, kind, nsteps, t0, t1, "f32", True,
+                           ("f32", B))
+    else:
+        ref = plf._fa_call(jnp.asarray(f), jplanes, plf._mats_for(jp, np.float32), kind, nsteps,
+                           t0, t1, "f32", True)
+    out = lfk.flow_apply(torch.as_tensor(f), planes, ops, t0, t1, nsteps, kind)
     assert rel(out.numpy(), ref) < TOL
 
 
-@pytest.mark.parametrize("B", [2, 4])
-def test_factored_backward_flow_matches_jax_bv_flow_interpret(B):
+@pytest.mark.parametrize("B", FLOW_RADICES)
+def test_factored_backward_flow_matches_jax_bv_flow_interpret(B, monkeypatch):
     jderiv.set_deriv_mode("matmul")
-    jp, ops, planes, f, dy = _flow_inputs(B)
-    state = jnp.concatenate([jnp.asarray(f), jnp.asarray(dy), jnp.zeros((1, 32, 32), jnp.float32)])
-    ref = plf._bv_flow(state, tuple(jnp.asarray(p) for p in planes.numpy()), jp, NSTEPS, 1.0, 0.0,
+    N, ncomp, nsteps = _radix_case(B)
+    jp, ops, planes, f, dy = _flow_inputs(B, N, ncomp)
+    if B > 8:
+        fmats, fmeta = _jax_factored(N, B)
+        monkeypatch.setattr(plf, "_fmats_for", lambda proj, dtype: (fmats, fmeta))
+        monkeypatch.setattr(plf, "_fmeta_from_key", lambda fkey: fmeta)
+    state = jnp.concatenate([jnp.asarray(f), jnp.asarray(dy), jnp.zeros((1, N, N), jnp.float32)])
+    ref = plf._bv_flow(state, tuple(jnp.asarray(p) for p in planes.numpy()), jp, nsteps, 1.0, 0.0,
                        "f32", interpret=True)
-    dphi, df0 = lfk.flow_bwd(torch.as_tensor(dy), torch.as_tensor(f), planes, ops, 0., 1., NSTEPS)
-    assert dphi.shape == (1, 32, 32) and df0.shape == f.shape
-    assert rel(df0.numpy(), ref[2:4]) < TOL
-    assert rel(dphi.numpy(), ref[4:]) < TOL
+    dphi, df0 = lfk.flow_bwd(torch.as_tensor(dy), torch.as_tensor(f), planes, ops, 0., 1., nsteps)
+    assert dphi.shape == (1, N, N) and df0.shape == f.shape
+    assert rel(df0.numpy(), ref[ncomp:2 * ncomp]) < TOL
+    assert rel(dphi.numpy(), ref[2 * ncomp:]) < TOL
 
 
 def test_factored_flows_take_the_batch_in_one_call():
@@ -179,9 +210,14 @@ def test_factored_flows_take_the_batch_in_one_call():
 
 
 def test_deriv_ops_radix_rule():
-    """A = 128 where N >= 512 and 128 | N, else dense: B = 8 packed
-    operands at 1024, B = 4 at 512, dense (DxT, Dy) at 256."""
-    assert [tderiv.radix(n) for n in (256, 384, 512, 640, 1024, 2048)] == [1, 1, 4, 5, 8, 16]
+    """A = 128 where N / 128 is a radix the factored kernels are built for
+    (4, 8, 16, 32), else dense: B = 8 packed operands at 1024, B = 4 at
+    512, dense (DxT, Dy) at 256; 640 (B = 5, odd) and 768 (B = 6, not
+    built) take the dense circulant. The kernels run radix 16 and 32 in
+    2 and 4 channel groups of 8 channels."""
+    assert [tderiv.radix(n) for n in (256, 384, 512, 640, 768, 1024, 2048, 4096)] == \
+        [1, 1, 4, 1, 1, 8, 16, 32]
+    assert [tderiv.radix_groups(B) for B in tderiv.BUILT_RADICES] == [1, 1, 2, 4]
     ops = tderiv.deriv_ops(ct.ProjLambert(1024, 1024, thetapix=2, T=np.float32, device="cpu"))
     assert isinstance(ops, tfd.FactoredOps)
     assert ops.FX.shape == ops.FY.shape == (8, 128, 128) and ops.bfx.shape == (2, 8, 8)

@@ -102,7 +102,7 @@ def _jax_factored(N, B):
 # the derivative products (K1 'high' and the dense 'high')
 # =========================================================================
 
-@pytest.mark.parametrize("form", ["dense", 2, 4, 8])
+@pytest.mark.parametrize("form", ["dense", 2, 4, 8, 16, 32])
 def test_high_derivatives_match_jax_high_in_kernel(form):
     """d/dx, d/dy at 'high' (`dot_high` and the factored apply at radix
     B, or the dense split product) against JAX's 'high' body in a Pallas
@@ -235,24 +235,39 @@ def _planes(phi, mats):
     return lfk.gradhess(torch.as_tensor(phi), mats)
 
 
-@pytest.mark.parametrize("B", [2, 4])
-@pytest.mark.parametrize("kind,t0,t1", [("forward", 0.0, 1.0), ("forward", 1.0, 0.0),
-                                        ("adjoint", 1.0, 0.0), ("adjoint", 0.0, 1.0)])
+_FA_KINDS = [("forward", 0.0, 1.0), ("forward", 1.0, 0.0), ("adjoint", 1.0, 0.0),
+             ("adjoint", 0.0, 1.0)]
+
+
+def _radix_case(B):
+    """(N, ncomp, nsteps) of a flow test at radix B: radix 16 and 32 at
+    64^2 (A = 4, 2) on one component and one RK4 step, since the
+    interpreted kernels unroll B^2 butterfly terms a derivative."""
+    return (64, 1, 1) if B > 8 else (32, 2, NSTEPS)
+
+
+# every kind at radix 2 and 4; L and L^H at radix 16, L at radix 32 (whose
+# interpreted kernel takes a minute on a loaded CPU; its adjoint role is
+# held strict in tests/test_torch_factored.py)
+@pytest.mark.parametrize("kind,t0,t1,B", [(*k, B) for B in (2, 4) for k in _FA_KINDS]
+                         + [(*k, 16) for k in (_FA_KINDS[0], _FA_KINDS[2])]
+                         + [(*_FA_KINDS[0], 32)])
 def test_high_fa_flows_match_jax_fa_call_interpret(B, kind, t0, t1, monkeypatch):
     """K3's plain 'high' flows (L, L^-1; L^H and its inverse) against
     `_fa_call(..., "high", interpret=True)` with the factored in-kernel
     derivatives, on the same phi planes: FLOW_TOL."""
-    fmats, fmeta = _jax_factored(32, B)
+    N, ncomp, nsteps = _radix_case(B)
+    fmats, fmeta = _jax_factored(N, B)
     monkeypatch.setattr(plf, "_fmeta_from_key", lambda fkey: fmeta)
-    tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32, device="cpu")
+    tp = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device="cpu")
     ops = tfd.factored_ops(tp, B, B)
-    phi, f, _ = _weak_lensing()
+    phi, f, _ = _weak_lensing(N, ncomp)
     planes = _planes(phi, ops)
     ref = plf._fa_call(jnp.asarray(f), tuple(jnp.asarray(p) for p in planes.numpy()), fmats,
-                       kind, NSTEPS, t0, t1, "high", True, ("high", B))
-    out = lfk.flow_apply(torch.as_tensor(f), planes, ops, t0, t1, NSTEPS, kind, "high")
+                       kind, nsteps, t0, t1, "high", True, ("high", B))
+    out = lfk.flow_apply(torch.as_tensor(f), planes, ops, t0, t1, nsteps, kind, "high")
     assert rel(out.numpy(), ref) < FLOW_TOL
-    strict = lfk.flow_apply(torch.as_tensor(f), planes, ops, t0, t1, NSTEPS, kind)
+    strict = lfk.flow_apply(torch.as_tensor(f), planes, ops, t0, t1, nsteps, kind)
     assert rel(out.numpy(), strict.numpy()) < HIGH_VS_STRICT
 
 
@@ -284,6 +299,30 @@ def test_high_backward_flow_matches_jax_bv_flow_interpret(monkeypatch):
                              "high")
     assert rel(df0.numpy(), ref[2:4]) < FLOW_TOL
     assert rel(dphi.numpy(), ref[4:]) < DPHI_TOL
+
+
+@pytest.mark.parametrize("B", [16, 32])
+def test_high_backward_flow_matches_jax_bv_flow_interpret_at_radix_16_and_32(B, monkeypatch):
+    """As the test above, at radix 16 and 32 (64^2, A = 4 and 2; JAX's
+    factored operands from `_factored_ops`), on one component: delta f to
+    FLOW_TOL, delta phi to 2e-5 (JAX's three delta-phi products run strict
+    on the CPU)."""
+    jderiv.set_deriv_mode("matmul")
+    N, ncomp, nsteps = _radix_case(B)
+    fmats, fmeta = _jax_factored(N, B)
+    monkeypatch.setattr(plf, "_fmats_for", lambda proj, dtype: (fmats, fmeta))
+    monkeypatch.setattr(plf, "_fmeta_from_key", lambda fkey: fmeta)
+    jp = JProj(N, N, thetapix=3, T=np.float32)
+    ops = tfd.factored_ops(ct.ProjLambert(N, N, thetapix=3, T=np.float32, device="cpu"), B, B)
+    phi, f, dy = _weak_lensing(N, ncomp)
+    planes = _planes(phi, ops)
+    state = jnp.concatenate([jnp.asarray(f), jnp.asarray(dy), jnp.zeros((1, N, N), jnp.float32)])
+    ref = plf._bv_flow(state, tuple(jnp.asarray(p) for p in planes.numpy()), jp, nsteps, 1.0, 0.0,
+                       "high", interpret=True)
+    dphi, df0 = lfk.flow_bwd(torch.as_tensor(dy), torch.as_tensor(f), planes, ops, 0., 1., nsteps,
+                             "high")
+    assert rel(df0.numpy(), ref[ncomp:2 * ncomp]) < FLOW_TOL
+    assert rel(dphi.numpy(), ref[2 * ncomp:]) < 2e-5
 
 
 @pytest.mark.parametrize("kind,t0,t1", [("forward", 0.0, 1.0), ("adjoint", 1.0, 0.0),
