@@ -55,11 +55,25 @@ port's two paths through the kernel backend:
               scripts/map_4096.py runs it (1 warm-up and 2 timed steps:
               s/step, peak memory, rho_b), and L @ f at 640^2 (dense)
               against the plain backend.
+  phase 14    the 'bf16' tier (one bf16 product of the rounded operands):
+              (a) K1, K3 (batch 1 and 17) and K4 at 1024^2 against plain
+              'bf16' and the strict kernels, with the library call of K1's
+              d_x; (b) K2 at 256^2 on the masked IP slice's (I, Q, U)
+              inputs and at 200^2 (edge tiles); (c) K1, K3, K4 at 2048^2
+              and 4096^2, each launched twice, bit for bit, and there one
+              MAP_joint(precision="bf16") step and a two-iteration Wiener
+              filter at 'bf16'; (d) the 1024^2 flows; (e) the
+              1024^2 phi-gradient against strict and the plain 'bf16'
+              backend; (f) MAP_joint(precision="bf16") as in phase 7,
+              beside phases 7 and 9, and argmaxf_logpdf at 1024^2; (g) the
+              masked 256^2 IP Wiener filter at hessian_precision="bf16"
+              against the strict solve.
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
+    python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
 
 Phases 7 and 8 measure the strict north star (precision=None); phases
-2-6 and 10 run at the global precision 'f32', and both tiers in 10.
+2-6 and 10 run at the global precision 'f32', and every tier in 10.
 
 Each path's launch counters are set to 0 just before it and read just
 after; phase 13's radix-16/32 records name, under "path", the run their
@@ -83,7 +97,9 @@ its bound: the larger of its derivative FLOPs over the card's FP32 peak
 and the bytes it must move over its memory rate; for a 'high' kernel the
 larger of its three bf16 products' FLOPs over the bf16 tensor-core peak
 plus its FP32 work (butterflies, split) over the FP32 peak, and its
-bytes over the memory rate.
+bytes over the memory rate; for a 'bf16' kernel the same with its one
+bf16 product, and the library call is one bf16 matmul with float32
+output.
 """
 import contextlib
 import json
@@ -154,8 +170,22 @@ HIGH_SPLIT_RATIO = 0.5
 # than the strict flow (a flow on strict kernels gives infinity)
 FLOW_SPLIT_RATIO = 1.0
 # f of the 'high' Wiener filter against the strict one, in norm: the
-# inexact-Krylov bound of tests/test_inference.py:267
+# inexact-Krylov bound of tests/test_inference.py:267 (the 'bf16' one's too)
 WF_HIGH_TOL = 1e-3
+# a 'bf16' kernel against its plain 'bf16' version: a dense one rounds the
+# same operands (only the FP32 sums differ); a factored one's plain
+# butterfly repeats the tile's fused multiply-adds, but a channel value
+# formed in another order may round to the neighbouring bf16 value (a bf16
+# ulp is 3.9e-3 of it), and so may a flow's state; every plane also held,
+# in relative Frobenius norm, under HIGH_SPLIT_RATIO (kernels) or
+# FLOW_SPLIT_RATIO (flows, gradients) of its distance to strict
+BF16_DENSE_TOL, BF16_TOL = 1e-5, 2e-3
+BF16_KERNELS = ("fderiv_bf16", "fa_velocity_forward_bf16", "fa_velocity_adjoint_bf16",
+                "bv_velocity_bf16")
+DENSE_BF16_KERNELS = ("velocity_forward_bf16", "velocity_adjoint_bf16", "velocity_backward_bf16",
+                      "deriv_bf16")
+# each tier's bound against its plain version for the dense kernels
+DENSE_TIER_TOL = {"f32": FLOW_TOL, "high": HIGH_TOL, "bf16": BF16_DENSE_TOL}
 HIGH_KERNELS = ("fderiv_high", "fa_velocity_forward_high", "fa_velocity_adjoint_high",
                 "bv_velocity_high")
 DENSE_HIGH_KERNELS = ("velocity_forward_high", "velocity_adjoint_high", "velocity_backward_high",
@@ -173,8 +203,8 @@ WF_SIM = dict(thetapix=3, Nside=256, pol="IP", T=np.float32, muKarcminT=1, beamF
 # (1e-5 per flow) by its iteration count at most
 WF_PLAIN_TOL = 1e-4
 FA = 128               # the factored derivative's block size (ops/deriv.py::FACTOR_A)
-# where K1, K3 and K4 are written, both tiers (factored.cu and
-# factored_high.cu instantiate them)
+# where K1, K3 and K4 are written, every tier (factored.cu, factored_high.cu
+# and factored_bf16.cu instantiate them)
 FACTORED_SRC = "cmblensing_tpu_torch/csrc/factored_kernels.cuh"
 # phase 13, the large maps: MAP_joint as scripts/map_4096.py runs it
 # (load_sim(thetapix=2, Nside=N, pol="P", T=float32, seed=0), grid line
@@ -272,29 +302,35 @@ def fact_deriv_flops(N, B=None):
     return 2 * (2 * B - 2) * FA * FA * N + 2 * 2 * B * N * N
 
 
-def bound_high(N, nder, planes, nb=1, axes=2):
+def bound_high(N, nder, planes, nb=1, axes=2, tier="high"):
     """bound_ms and bound_by of nb entries of nder 'high' factored
-    derivatives each (csrc/fact_tile.cuh, HIGH): three bf16 products per
-    block product on the tensor cores, and in FP32 the two butterflies
+    derivatives each (csrc/fact_tile.cuh, TIER_HIGH): three bf16 products
+    per block product on the tensor cores, and in FP32 the two butterflies
     (B FMA a pixel each) and the split (three operations a channel value);
     bytes: `planes` N x N float32 planes per entry, and the split blocks
     ([head, residual] bf16) and butterflies of the `axes` axes it
-    differentiates along."""
+    differentiates along. At tier 'bf16': one product, one rounding a
+    channel value, the blocks' heads."""
     B = N // FA
+    passes, split_ops = (3, 3) if tier == "high" else (1, 1)
     prod = nb * nder * 2 * (2 * B - 2) * FA * FA * N
-    fp32 = nb * nder * (2 * 2 * B + 3) * N * N
-    t_op = 3 * prod / BF16_PEAK + fp32 / FP32_PEAK
-    t_mem = (4 * nb * planes * N * N + axes * (2 * 2 * B * FA * FA + 4 * 2 * B * B)) / HBM_RATE
+    fp32 = nb * nder * (2 * 2 * B + split_ops) * N * N
+    t_op = passes * prod / BF16_PEAK + fp32 / FP32_PEAK
+    blocks = (2 if tier == "high" else 1) * 2 * B * FA * FA
+    t_mem = (4 * nb * planes * N * N + axes * (blocks + 4 * 2 * B * B)) / HBM_RATE
     return dict(bound_ms=1e3 * max(t_op, t_mem), bound_by="operations" if t_op >= t_mem else "bytes")
 
 
-def bound_dense_high(N, nder, planes):
+def bound_dense_high(N, nder, planes, tier="high"):
     """bound_ms and bound_by of nder 'high' dense derivatives of N x N planes
-    (csrc/lenseflow.cu, HIGH): three bf16 products of 2 N^3 operations each
-    on the tensor cores and the operand's split (three FP32 operations a
-    value); bytes: `planes` N x N planes of 4 bytes, the circulants' bf16
-    head and residual counting as one such plane each."""
-    t_op = 3 * nder * 2 * N ** 3 / BF16_PEAK + 3 * nder * N * N / FP32_PEAK
+    (csrc/lenseflow.cu, TIER_HIGH): three bf16 products of 2 N^3 operations
+    each on the tensor cores and the operand's split (three FP32 operations
+    a value); bytes: `planes` N x N planes of 4 bytes, the circulants' bf16
+    head and residual counting as one such plane each. At tier 'bf16': one
+    product and one rounding a value (the circulant's head is half a
+    plane)."""
+    passes = 3 if tier == "high" else 1
+    t_op = passes * nder * 2 * N ** 3 / BF16_PEAK + passes * nder * N * N / FP32_PEAK
     t_mem = 4 * planes * N * N / HBM_RATE
     return dict(bound_ms=1e3 * max(t_op, t_mem), bound_by="operations" if t_op >= t_mem else "bytes")
 
@@ -308,6 +344,24 @@ def split_matmuls_ms(a, M, right, torch, reps=20):
     if right:
         return cold_ms(lambda x, y, z, w: (x @ z, x @ w, y @ z), (ah, al, mh, ml), reps, torch)
     return cold_ms(lambda x, y, z, w: (z @ x, w @ x, z @ y), (ah, al, mh, ml), reps, torch)
+
+
+def library_bf16_ms(a, M, torch, reps=20):
+    """The library yardstick of a 'bf16' derivative pass, a @ M with both
+    operands rounded to bf16 and float32 output, as one PyTorch call
+    (torch.mm with out_dtype, where this torch has it; else torch.matmul on
+    bf16, cast to float32), M rounded beforehand, timed cold; the port never
+    calls it. Returns (ms, the call)."""
+    Mb = M.bfloat16()
+    try:
+        torch.mm(a.bfloat16(), Mb, out_dtype=torch.float32)
+        fn, how = (lambda x, m: torch.mm(x.bfloat16(), m, out_dtype=torch.float32),
+                   "torch.mm(a.bfloat16(), M.bfloat16(), out_dtype=torch.float32)")
+    except (TypeError, RuntimeError):
+        fn, how = (lambda x, m: torch.matmul(x.bfloat16(), m).float(),
+                   "torch.matmul(a.bfloat16(), M.bfloat16()).float() (this torch.mm has no "
+                   "out_dtype)")
+    return cold_ms(fn, (a, Mb), reps, torch), how
 
 
 def fact_op_floats(N):
@@ -937,13 +991,14 @@ def split_ratio(high, plain, strict):
                 split_ratio=max(fro(h, q) / fro(h, st) for h, q, st in trip))
 
 
-def high_against(torch, kernel, plain, shape):
-    """kernel(out, precision) at 'high' and at 'f32', and plain(out), its
-    plain 'high' version, each into a NaN-filled buffer of `shape`; every
-    output plane on its own: rel max-abs to plain 'high' and to strict
-    (largest of the planes) and the Frobenius distances and ratio."""
+def high_against(torch, kernel, plain, shape, tier="high"):
+    """kernel(out, precision) at `tier` ('high' or 'bf16') and at 'f32',
+    and plain(out), its plain version at `tier`, each into a NaN-filled
+    buffer of `shape`; every output plane on its own: rel max-abs to the
+    plain version and to strict (largest of the planes) and the Frobenius
+    distances and ratio."""
     oh, op, ost = (torch.full(shape, float("nan"), device=DEVICE) for _ in range(3))
-    kernel(oh, "high")
+    kernel(oh, tier)
     plain(op)
     kernel(ost, "f32")
     torch.cuda.synchronize()
@@ -1010,7 +1065,8 @@ def phase_high(torch, card, fctx, gctx):
               lambda o, *x: lfk.fderiv_plain(*x, o, ops, "high"), nder, planes, axes=axes)
     DxT, _ = deriv.deriv_mats(ct.ProjLambert(N_MAP, N_MAP, thetapix=THETAPIX_MAP, T=np.float32,
                                              device=DEVICE))
-    out["fderiv_x"]["library_ms"] = matmul_ms(a[0], DxT, torch, cold=True)
+    # the library yardstick of a 'high' d_x: the split's three bf16 matmuls
+    out["fderiv_x"]["library_ms"] = split_matmuls_ms(a[0], DxT, True, torch)
     phi1, y = phi[None], f[None].contiguous()
     pt1 = torch.empty((2, 1, N_MAP, N_MAP), device=DEVICE)
     lfk.p_planes_cuda(t, phi1, pt1)
@@ -1045,8 +1101,9 @@ def phase_high(torch, card, fctx, gctx):
               f"{HIGH_VS_STRICT:g}); Frobenius vs plain 'high' {d['fro']:.3e}, vs strict "
               f"{d['fro_strict']:.3e} (least), ratio {d['split_ratio']:.3f} (bound "
               f"{HIGH_SPLIT_RATIO:g}, each plane)  {d['ms']:.4f} ms  strict {d['strict_ms']:.4f} "
-              f"ms (both cold)  plain {d['plain_ms']:.4f} ms  'high' bound {d['bound_ms']:.4f} ms "
-              f"({d['bound_by']}, {100 * d['bound_ms'] / d['ms']:.1f} %)  [{N_MAP}^2; {card}]")
+              f"ms (both cold)  plain {d['plain_ms']:.4f} ms  library {d['library_ms']}  'high' "
+              f"bound {d['bound_ms']:.4f} ms ({d['bound_by']}, {100 * d['bound_ms'] / d['ms']:.1f} "
+              f"%)  [{N_MAP}^2; {card}]")
 
     # (b) whole flows at 'high' on phase 5's inputs
     flows = {}
@@ -1142,6 +1199,7 @@ def phase_high(torch, card, fctx, gctx):
     with ct.lenseflow_backend_ctx("kernel"):
         launches, s_step, hist = run_map(torch, sim, 9, "kernel, precision \"auto\"", card,
                                          precision="auto")
+    gctx["map_hist_auto"], gctx["map_s_auto"] = hist, s_step
     khist = gctx["map_hist"]
     print(f"phase 9: beside phase 7 (strict): logpdfs {[h['logpdf'] for h in khist]!r}; alphas "
           f"{[h['alpha'] for h in khist]!r}")
@@ -1156,9 +1214,9 @@ def phase_high(torch, card, fctx, gctx):
 
 def phase_edges(torch, card):
     """Phase 10: K2 (each velocity kind, the derivative), p(t) and the RK4
-    update at plane shapes the 32 x 32 tile does not divide, both tiers,
-    every plane against the plain version at the same precision (FLOW_TOL
-    strict, HIGH_TOL at 'high'), nothing written past the last plane; the
+    update at plane shapes the 32 x 32 tile does not divide, every tier,
+    every plane against the plain version at the same precision
+    (DENSE_TIER_TOL), nothing written past the last plane; the
     forward velocity's device ms per shape and tier; one L @ f on a 200^2
     load_sim on the kernel backend against the plain (cuFFT) backend."""
     import cmblensing_tpu_torch as ct
@@ -1209,7 +1267,7 @@ def phase_edges(torch, card):
     torch.cuda.synchronize()
     for (name, Ny, Nx, p), (e, clean) in found.items():
         print(f"phase 10: {name:18s} {Ny}x{Nx} {p:4s} rel err vs plain {e:.3e} (bound "
-              f"{FLOW_TOL if p == 'f32' else HIGH_TOL:g}, each plane); past the last plane "
+              f"{DENSE_TIER_TOL[p]:g}, each plane); past the last plane "
               f"{'untouched' if clean else 'WRITTEN'}")
     for (Ny, Nx, p), ms in times.items():
         print(f"phase 10: velocity_forward {Ny}x{Nx} {p}: {ms:.4f} ms [{card}]")
@@ -1223,8 +1281,7 @@ def phase_edges(torch, card):
     lerr = rel(lk, lp)
     print(f"phase 10: L @ f on load_sim(Nside=200, pol P): kernel vs plain backend {lerr:.3e} "
           f"(bound {GRAD_TOL:g})")
-    bad = {k: v for k, v in found.items()
-           if not (v[1] and v[0] < (FLOW_TOL if k[3] == "f32" else HIGH_TOL))}
+    bad = {k: v for k, v in found.items() if not (v[1] and v[0] < DENSE_TIER_TOL[k[3]])}
     if not (torch.isfinite(lk).all() and lerr < GRAD_TOL):
         bad["L @ f"] = lerr
     if bad:
@@ -1935,6 +1992,457 @@ def phase_large(torch, card):
     return records, launches, timing_out
 
 
+def bf16_failures(found, tol, ratio=HIGH_SPLIT_RATIO):
+    """The entries of `found` (name -> high_against's dict at 'bf16')
+    outside `tol` of their plain 'bf16' version or `ratio`."""
+    bad = {k: d["rel"] for k, d in found.items() if not d["rel"] < tol}
+    bad.update({k + " ratio": d["split_ratio"] for k, d in found.items()
+                if not d["split_ratio"] < ratio})
+    return bad
+
+
+def bf16_line(phase, label, d, tol, card, where):
+    print(f"phase {phase}: 'bf16' kernel {label:26s} vs plain 'bf16' {d['rel']:.3e} (bound "
+          f"{tol:g}, each plane)  vs strict {d['rel_strict']:.3e}; Frobenius vs plain 'bf16' "
+          f"{d['fro']:.3e}, vs strict {d['fro_strict']:.3e} (least), ratio {d['split_ratio']:.4f} "
+          f"(bound {HIGH_SPLIT_RATIO:g})  {d['ms']:.4f} ms  strict {d['strict_ms']:.4f} ms (both "
+          f"cold)  plain {d['plain_ms']:.4f} ms  library {d['library_ms']}  'bf16' bound "
+          f"{d['bound_ms']:.4f} ms ({d['bound_by']}, {100 * d['bound_ms'] / d['ms']:.1f} %)  "
+          f"[{where}; {card}]")
+
+
+def bf16_factored(torch, card, N, reps=10, twice=False):
+    """Phase 14 (a), (c): K1 (d_x, d_y, d_x a + d_y b + c), K3 (both roles,
+    batch 1 and NTRIAL) and K4 at 'bf16' at N^2 (radix N / FA) against
+    their plain 'bf16' versions (BF16_TOL) and the strict kernels
+    (HIGH_SPLIT_RATIO), every output plane on its own, both tiers timed
+    cold, with the 'bf16' bound and, for K1's d_x, the library call; with
+    `twice` each launched a second time into a buffer of other contents,
+    bit for bit the same. Returns ({name: record}, the inputs)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, factored_deriv, lenseflow_kernels as lfk
+    B = N // FA
+    proj = ct.ProjLambert(N, N, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE)
+    ops = deriv.deriv_ops(proj)
+    if not isinstance(ops, factored_deriv.FactoredOps) or ops.FX.shape[0] != B:
+        raise AssertionError(f"deriv_ops gives no radix-{B} factored operands at {N}^2")
+    phi_map, f, dy = weak_lensing_inputs(proj, torch)
+    phi = lfk.gradhess(phi_map, ops)
+    t, out = 0.5, {}
+
+    def check(name, args, shape, kernel, plain, nder, planes, nb=1, axes=2, reps_=reps):
+        o = torch.empty(shape, device=DEVICE)
+        found = high_against(torch, lambda o_, p: kernel(o_, p, *args),
+                             lambda o_: plain(o_, *args), shape, "bf16")
+        if twice:
+            first = torch.empty(shape, device=DEVICE)
+            kernel(first, "bf16", *args)
+            o.fill_(1e30)
+            kernel(o, "bf16", *args)
+            if not torch.equal(first, o):
+                raise AssertionError(f"radix-{B} 'bf16' {name}: two launches differ")
+            del first
+        out[name] = dict(
+            nb=nb, **found,
+            ms=cold_ms(lambda *a: kernel(a[0], "bf16", *a[1:]), (o, *args), reps_, torch),
+            strict_ms=cold_ms(lambda *a: kernel(a[0], "f32", *a[1:]), (o, *args), reps_, torch),
+            plain_ms=cuda_ms(lambda: plain(o, *args), 1, torch), library_ms=None,
+            **bound_high(N, nder, planes, nb, axes, tier="bf16"))
+        del o
+
+    a, b, c = f[0:1].contiguous(), f[1:2].contiguous(), dy[0:1].contiguous()
+    for name, args, nder, planes, axes in (("fderiv_x", (a, None, None), 1, 2, 1),
+                                           ("fderiv_y", (None, b, None), 1, 2, 1),
+                                           ("fderiv", (a, b, c), 2, 4, 2)):
+        check(name, args, a.shape, lambda o, p, *x: lfk.fderiv_cuda(*x, o, ops, p),
+              lambda o, *x: lfk.fderiv_plain(*x, o, ops, "bf16"), nder, planes, axes=axes)
+    DxT, _ = deriv.deriv_mats(proj)
+    out["fderiv_x"]["library_ms"], out["fderiv_x"]["library_call"] = library_bf16_ms(
+        a[0], DxT, torch, reps=max(3, reps // 2))
+    del DxT
+    proj._tensors.pop("_deriv_mats", None)
+    phi1, y = phi[None], f[None].contiguous()
+    pt1 = torch.empty((2, 1, N, N), device=DEVICE)
+    lfk.p_planes_cuda(t, phi1, pt1)
+    for kind in ("forward", "adjoint"):
+        check("fa_velocity_" + kind, (y, phi1, pt1), y.shape,
+              lambda o, p, y_, ph, pt: lfk.fvelocity_cuda(kind, y_, o, ph, pt, ops, 2, t, p),
+              lambda o, y_, ph, pt: lfk.fvelocity_plain(kind, y_, o, ph, pt, ops, 2, t, "bf16"),
+              4, 6)
+    acc = 1e-3 * torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
+        (1, lfk.NACC, N, N)).astype(np.float32), device=DEVICE)
+    yb = torch.cat([f[None], dy[None], acc], dim=1)
+    check("bv_velocity", (yb, phi1, pt1), yb.shape,
+          lambda o, p, y_, ph, pt: lfk.fvelocity_cuda("backward", y_, o, ph, pt, ops, 2, t, p),
+          lambda o, y_, ph, pt: lfk.fvelocity_plain("backward", y_, o, ph, pt, ops, 2, t, "bf16"),
+          8, 25)
+    del yb, acc
+    scales = torch.linspace(0.1, 2.0, NTRIAL, device=DEVICE).reshape(-1, 1, 1, 1)
+    phis = (scales * phi).contiguous()
+    ys = torch.stack([torch.roll(f, 7 * i, dims=-1) for i in range(NTRIAL)])
+    pts = torch.empty((2, NTRIAL, N, N), device=DEVICE)
+    lfk.p_planes_cuda(t, phis, pts)
+    for kind in ("forward", "adjoint"):
+        check(f"fa_velocity_{kind}[{NTRIAL}]", (ys, phis, pts), ys.shape,
+              lambda o, p, y_, ph, pt: lfk.fvelocity_cuda(kind, y_, o, ph, pt, ops, 2, t, p),
+              lambda o, y_, ph, pt: lfk.fvelocity_plain(kind, y_, o, ph, pt, ops, 2, t, "bf16"),
+              4, 6, nb=NTRIAL, reps_=max(3, reps // 2))
+    del ys, pts, phis
+    torch.cuda.empty_cache()
+    for name, d in out.items():
+        bf16_line(14, f"{name} radix {B}", d, BF16_TOL, card, f"{N}^2")
+    print(f"phase 14: K1 d_x library call at {N}^2: {out['fderiv_x']['library_call']}")
+    bad = bf16_failures(out, BF16_TOL)
+    if bad:
+        raise AssertionError(f"radix-{B} 'bf16' kernels disagree with plain 'bf16': {bad}")
+    return out, dict(proj=proj, ops=ops, phi_map=phi_map, phi=phi, f=f, dy=dy)
+
+
+def bf16_large_paths(torch, card, N):
+    """Phase 14 (c): the user's paths at 'bf16' at N^2 P (load_sim as
+    scripts/map_4096.py), each with the launch counters set to 0 just
+    before and read just after: one MAP_joint(precision="bf16") step as
+    scripts/map_4096.py runs it (its phi-gradient and unmix at 'bf16', the
+    strict retry where the strict line search rejects that direction),
+    logpdf finite and a step taken; and argmaxf_logpdf at
+    hessian_precision="bf16", 2 fixed iterations, f finite (the path of
+    K3's adjoint role: a phi-step runs no adjoint flow). Returns {path:
+    launches}."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    sim = ct.load_sim(thetapix=THETAPIX_MAP, Nside=N, pol="P", T=np.float32, seed=SEED,
+                      device=DEVICE)
+    paths = {}
+    with ct.lenseflow_backend_ctx("kernel"):
+        lfk.reset_launches()
+        res, dt = map_steps(torch, sim["ds"], 1, "bf16")
+        paths[f"MAP_joint {N}^2 P bf16, 1 step"] = dict(lfk.LAUNCHES)
+        h = res["history"][0]
+        lfk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fw, info = ct.argmaxf_logpdf(sim["ds"], phi=sim["phi"], conjgrad_kwargs=dict(
+            tol=0.0, nsteps=2, fixed_iters=True, hessian_precision="bf16"))
+        torch.cuda.synchronize()
+        wf_ms = 1e3 * (time.perf_counter() - t0)
+        paths[f"argmaxf_logpdf {N}^2 P bf16, 2 iterations"] = dict(lfk.LAUNCHES)
+    print(f"phase 14: MAP_joint {N}^2 P precision \"bf16\", 1 step (the first at {N}^2 in "
+          f"this phase, set-up included): {dt:.3f} s; logpdf {h['logpdf']!r}, alpha "
+          f"{h['alpha']!r}, direction retry {h['retry']}, f-step fallback "
+          f"{h['precision_fallback']} [{card}]")
+    print(f"phase 14: argmaxf_logpdf {N}^2 P hessian_precision='bf16', 2 fixed iterations: "
+          f"{wf_ms:.1f} ms, precision_fallback {bool(info.get('precision_fallback', False))}")
+    for path, launches in paths.items():
+        print(f"phase 14: launches in {path}: { {k: v for k, v in launches.items() if v} }")
+    if not (np.isfinite(h["logpdf"]) and h["alpha"] > 0 and torch.isfinite(fw.arr).all()):
+        raise AssertionError(f"{N}^2 'bf16' paths: {h}, f finite {bool(torch.isfinite(fw.arr).all())}")
+    return paths
+
+
+def bf16_dense(torch, card, sim):
+    """Phase 14 (b): K2 'bf16' at 256^2 on the masked IP slice's own inputs,
+    I, Q and U on the grid's z axis (each velocity kind, the derivative),
+    against plain 'bf16' (BF16_DENSE_TOL) and strict (HIGH_SPLIT_RATIO),
+    timed cold with the 'bf16' bound and, for the derivative, the library
+    call; and at 200^2 (edge tiles; nothing written past the last plane)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    ds, phi = sim["ds"], sim["phi"]
+    mats = deriv.deriv_mats(phi.proj)
+    planes = lfk.gradhess(phi.to(ct.MAP).arr.contiguous(), mats)
+    f = sim["f"].to(ct.IQU_MAP).arr.contiguous()
+    d = ds.d.to(ct.IQU_MAP).arr.contiguous()
+    ncomp, t, out = f.shape[-3], 0.5, {}
+    pt = torch.empty((2, N, N), device=DEVICE)
+    lfk.p_planes_cuda(t, planes, pt)
+    ybwd = torch.cat([f, d, 1e-3 * d[:1].expand(lfk.NACC, N, N)]).contiguous()
+
+    def check(name, args, shape, kernel, plain, nder, planes_):
+        o = torch.empty(shape, device=DEVICE)
+        out[name] = dict(
+            **high_against(torch, lambda o_, p: kernel(o_, p, *args), lambda o_: plain(o_, *args),
+                           shape, "bf16"),
+            ms=cold_ms(lambda *a: kernel(a[0], "bf16", *a[1:]), (o, *args), 20, torch),
+            strict_ms=cold_ms(lambda *a: kernel(a[0], "f32", *a[1:]), (o, *args), 20, torch),
+            plain_ms=cuda_ms(lambda: plain(o, *args), 5, torch), library_ms=None,
+            **bound_dense_high(N, nder, planes_, tier="bf16"))
+
+    for name, args, nder, planes_ in (("deriv", (f, None, None), ncomp, 2 * ncomp + 0.5),
+                                      ("deriv_xy", (f, d, f), 2 * ncomp, 4 * ncomp + 1)):
+        check(name, args, f.shape, lambda o, p, *x: lfk.deriv_cuda(*x, o, mats, p),
+              lambda o, *x: lfk.deriv_plain(*x, o, mats, "bf16"), nder, planes_)
+    # the same d_x of the slice's three planes as one product
+    out["deriv"]["library_ms"], out["deriv"]["library_call"] = library_bf16_ms(
+        f.reshape(-1, N), mats[0], torch)
+    for kind, y, nder, planes_ in (("forward", f, 2 * ncomp, 2 * ncomp + 3),
+                                   ("adjoint", f, 2 * ncomp, 2 * ncomp + 3),
+                                   ("backward", ybwd, 4 * ncomp, 4 * ncomp + 2 * lfk.NACC + 8)):
+        check("velocity_" + kind, (y,), y.shape,
+              lambda o, p, y_: lfk.velocity_cuda(kind, y_, o, planes, pt, mats, ncomp, t, p),
+              lambda o, y_: lfk.velocity_plain(kind, y_, o, planes, pt, mats, ncomp, t, "bf16"),
+              nder, planes_)
+    for name, dd in out.items():
+        bf16_line(14, name, dd, BF16_DENSE_TOL, card, f"{ncomp} x {N}^2 IP")
+    print(f"phase 14: K2 d_x library call: {out['deriv']['library_call']}")
+    bad = bf16_failures(out, BF16_DENSE_TOL)
+    # edge tiles: 200^2, two components
+    Ny = Nx = 200
+    proj = ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device=DEVICE)
+    emats = deriv.deriv_mats(proj)
+    rng = np.random.default_rng(SEED + 2)
+    T = lambda *sh: torch.as_tensor(rng.standard_normal(sh).astype(np.float32), device=DEVICE)
+    phi_f = np.zeros((1, Ny, Nx // 2 + 1), np.complex128)
+    phi_f[0, 1, 1] = 1e-3 * (Ny * Nx / 1024) ** 2
+    ephi = lfk.gradhess_plain(torch.as_tensor(np.fft.irfft2(phi_f, s=(Ny, Nx)).astype(
+        np.float32), device=DEVICE), emats)
+    ept = torch.empty((2, Ny, Nx), device=DEVICE)
+    lfk.p_planes_plain(t, ephi, ept)
+    a, b, c = T(1, Ny, Nx), T(1, Ny, Nx), T(1, Ny, Nx)
+    edge = {}
+    cases = [(name, args, (1, Ny, Nx), lambda o, p, args=args: lfk.deriv_cuda(*args, o, emats, p),
+              lambda o, args=args: lfk.deriv_plain(*args, o, emats, "bf16"))
+             for name, args in (("deriv_x", (a, None, None)), ("deriv", (a, b, c)))]
+    for kind, y in (("forward", T(2, Ny, Nx)), ("adjoint", T(2, Ny, Nx)),
+                    ("backward", torch.cat([T(4, Ny, Nx), 1e-3 * T(lfk.NACC, Ny, Nx)]))):
+        cases.append(("velocity_" + kind, None, y.shape,
+                      lambda o, p, kind=kind, y=y: lfk.velocity_cuda(kind, y, o, ephi, ept, emats,
+                                                                     2, t, p),
+                      lambda o, kind=kind, y=y: lfk.velocity_plain(kind, y, o, ephi, ept, emats,
+                                                                   2, t, "bf16")))
+    for name, _, shape, kernel, plain in cases:
+        full = torch.full((shape[0] + 1,) + tuple(shape[1:]), float("nan"), device=DEVICE)
+        kernel(full[:shape[0]], "bf16")
+        edge[name] = dict(**high_against(torch, kernel, plain, shape, "bf16"),
+                          clean=bool(torch.isnan(full[shape[0]]).all()))
+    for name, dd in edge.items():
+        print(f"phase 14: 'bf16' kernel {name:18s} {Ny}x{Nx} vs plain 'bf16' {dd['rel']:.3e} "
+              f"(bound {BF16_DENSE_TOL:g}, each plane), Frobenius ratio {dd['split_ratio']:.4f}; "
+              f"past the last plane {'untouched' if dd['clean'] else 'WRITTEN'}")
+    bad.update({f"{k} {Ny}x{Nx}": v for k, v in bf16_failures(edge, BF16_DENSE_TOL).items()})
+    bad.update({f"{k} {Ny}x{Nx} wrote past its planes": True for k, dd in edge.items()
+                if not dd["clean"]})
+    if bad:
+        raise AssertionError(f"K2 'bf16' disagrees with plain 'bf16': {bad}")
+    return out
+
+
+def bf16_gradient(torch, card, ds, f_mix, phi_mix, label):
+    """The mixed phi-gradient under precision_ctx("bf16") on the kernel
+    backend, the launch counters set to 0 just before and read just after,
+    against the strict one (rel max-abs, cosine) and the plain 'bf16' one
+    (the "matmul" backend, which launches nothing; FLOW_SPLIT_RATIO per
+    plane). Returns (record, launches)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    vg = ct.fvalue_and_grad(lambda p: ct.Mixed(ds).logpdf(f_mix=f_mix, phi_mix=p))
+    with ct.lenseflow_backend_ctx("kernel"):
+        _, gs = vg(phi_mix)
+        strict_ms = cuda_ms(lambda: vg(phi_mix), 3, torch)
+        with deriv.precision_ctx("bf16"):
+            lfk.reset_launches()
+            _, gb = vg(phi_mix)
+            torch.cuda.synchronize()
+            launches = dict(lfk.LAUNCHES)
+            ms = cuda_ms(lambda: vg(phi_mix), 3, torch)
+    with ct.lenseflow_backend_ctx("matmul"), deriv.precision_ctx("bf16"):
+        lfk.reset_launches()
+        _, gp = vg(phi_mix)
+        ref_launches = sum(lfk.LAUNCHES.values())
+    a, s_, p_ = gb.arr, gs.arr, gp.arr
+    cos = float((a.double() * s_.double()).sum() / (a.double().norm() * s_.double().norm()))
+    rec = dict(rel=rel(a, p_), strict=rel(a, s_), cos=cos, **split_ratio(a, p_, s_), ms=ms,
+               strict_ms=strict_ms)
+    print(f"phase 14: gradlnP {label} 'bf16' vs plain 'bf16' {rec['rel']:.3e}, vs strict "
+          f"{rec['strict']:.3e} (cosine {cos:.9f}); Frobenius ratio {rec['split_ratio']:.4f} "
+          f"(bound {FLOW_SPLIT_RATIO:g}); {ms:.3f} ms ('f32' {strict_ms:.3f} ms) [{card}]")
+    bad = {}
+    if ref_launches:
+        bad["plain 'bf16' gradient launches"] = ref_launches
+    if not (torch.isfinite(a).all() and rec["split_ratio"] < FLOW_SPLIT_RATIO):
+        bad["gradient"] = rec
+    if any(v for k, v in launches.items() if k.endswith("_high")):
+        bad["'high' launches"] = launches
+    if bad:
+        raise AssertionError(f"{label} 'bf16' gradient: {bad}")
+    return rec, launches
+
+
+def bf16_wiener(torch, card, sim, label, hp="bf16"):
+    """argmaxf_logpdf at the JAX default CG (tol 0.1, nsteps 500) with
+    hessian_precision `hp`, the launch counters set to 0 just before and
+    read just after, the reduced solve's own strict check reported, and
+    the strict solve beside it: |f - f_strict| / |f_strict| within
+    WF_HIGH_TOL where the check passed (a fallback returns a strict solve).
+    Returns (record, launches)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.inference import maximization as tm
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    solves, core = [], tm._argmaxf_core
+
+    def spy(*a, **k):
+        x, info = core(*a, **k)
+        solves.append(dict(info))
+        return x, info
+
+    def solve(**cg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fw, info = ct.argmaxf_logpdf(sim["ds"], phi=sim["phi"], conjgrad_kwargs=cg)
+        torch.cuda.synchronize()
+        return fw, info, 1e3 * (time.perf_counter() - t0)
+
+    with ct.lenseflow_backend_ctx("kernel"):
+        tm._argmaxf_core = spy
+        try:
+            lfk.reset_launches()
+            fb, ib, ms = solve(hessian_precision=hp)
+            launches = dict(lfk.LAUNCHES)
+        finally:
+            tm._argmaxf_core = core
+        fs, is_, ms_strict = solve(hessian_precision=None)
+    red = solves[0]
+    fallback = bool(ib.get("precision_fallback", False))
+    err = float((fb.arr - fs.to(fb.basis).arr).norm() / fs.arr.norm())
+    print(f"phase 14: argmaxf_logpdf {label} hessian_precision={hp!r} (tol 0.1, nsteps 500): the "
+          f"'{hp}' solve {red['iterations']} iterations, res {float(red['res']):.4e}, res_strict "
+          f"{float(red['res_strict']):.4e} against max(tol 0.1, 1e-10 res0 = "
+          f"{1e-10 * float(red['res0']):.4e}); precision_fallback {fallback}; "
+          f"{ib['iterations']} iterations returned, {ms:.1f} ms; strict solve "
+          f"{is_['iterations']} iterations {ms_strict:.1f} ms; |f - f_strict| / |f_strict| = "
+          f"{err:.3e} (bound {WF_HIGH_TOL:g}"
+          + (", f is the strict fallback's" if fallback else "") + f") [{card}]")
+    print(f"phase 14: launches in the {label} solve: {({k: v for k, v in launches.items() if v})}")
+    if not (torch.isfinite(fb.arr).all() and err < WF_HIGH_TOL):
+        raise AssertionError(f"{label} 'bf16' Wiener filter: {err}")
+    return dict(ms=ms, strict_ms=ms_strict, iterations=int(red["iterations"]),
+                returned_iterations=int(ib["iterations"]), fallback=fallback, err=err), launches
+
+
+def bf16_flows(torch, card, ctx):
+    """Phase 14 (d): the 1024^2 L, L^-1, L^H and backward flows at 'bf16'
+    against their plain 'bf16' versions (BF16_TOL) and nearer them than
+    the strict flows (FLOW_SPLIT_RATIO), with times."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    ops, phi, f, dy = (ctx[k] for k in ("ops", "phi", "f", "dy"))
+    flows = {}
+    for name, (t0, t1, kind) in (("L", (0., 1., "forward")), ("L^-1", (1., 0., "forward")),
+                                 ("L^H", (1., 0., "adjoint"))):
+        run = lambda fn, p="bf16": fn(f, phi, ops, t0, t1, NSTEPS, kind, p)
+        kv, pv, sv = run(lfk.flow_apply), run(lfk.flow_apply_plain), run(lfk.flow_apply, "f32")
+        flows[name] = dict(rel=rel(kv, pv), strict=rel(kv, sv), **split_ratio(kv, pv, sv),
+                           ms=cuda_ms(lambda: run(lfk.flow_apply), 3, torch),
+                           strict_ms=cuda_ms(lambda: run(lfk.flow_apply, "f32"), 3, torch))
+    bwd = lambda fn, p="bf16": fn(dy, f, phi, ops, 0., 1., NSTEPS, p)
+    ms, strict_ms = (cuda_ms(lambda: bwd(lfk.flow_bwd, p), 3, torch) for p in ("bf16", "f32"))
+    for name, kv, pv, sv in zip(("backward dphi", "backward df0"), bwd(lfk.flow_bwd),
+                                bwd(lfk.flow_bwd_plain), bwd(lfk.flow_bwd, "f32")):
+        flows[name] = dict(rel=rel(kv, pv), strict=rel(kv, sv), **split_ratio(kv, pv, sv), ms=ms,
+                           strict_ms=strict_ms)
+    N = f.shape[-1]
+    for name, d in flows.items():
+        print(f"phase 14: 'bf16' flow {name:14s} vs plain 'bf16' {d['rel']:.3e} (bound "
+              f"{BF16_TOL:g})  vs strict {d['strict']:.3e}; Frobenius ratio "
+              f"{d['split_ratio']:.4f} (bound {FLOW_SPLIT_RATIO:g})  {d['ms']:.3f} ms  strict "
+              f"{d['strict_ms']:.3f} ms  [{N}^2 P, nsteps={NSTEPS}; {card}]")
+    bad = bf16_failures(flows, BF16_TOL, FLOW_SPLIT_RATIO)
+    if bad:
+        raise AssertionError(f"{N}^2 'bf16' flows disagree with plain 'bf16': {bad}")
+    return flows
+
+
+def phase_bf16(torch, card, gctx=None, beside=None):
+    """Phase 14, the 'bf16' tier (see the module docstring). gctx is phase
+    6's 1024^2 context (made here when phase 14 runs alone); beside holds
+    phases 7 and 9's MAP_joint (s/step, history) to print beside (f).
+    Returns (kernel records {(N, name): record}, launches {(N, name): (path,
+    count)}, timings)."""
+    import cmblensing_tpu_torch as ct
+    t_start = time.perf_counter()
+    records, paths, timing_out = {}, {}, {}
+    # (a) the 1024^2 kernels
+    found, ctx = bf16_factored(torch, card, N_MAP)
+    records.update({(N_MAP, k): d for k, d in found.items()})
+    # (d) the 1024^2 flows on the same inputs
+    flows = bf16_flows(torch, card, ctx)
+    timing_out["flows_1024_bf16_ms"] = {k: (d["ms"], d["strict_ms"]) for k, d in flows.items()}
+    del ctx
+    # (b) K2 on the masked 256^2 IP slice's inputs, and at 200^2
+    t0 = time.perf_counter()
+    wf_sim = ct.load_sim(**WF_SIM, device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"phase 14: load_sim {WF_SIM}: {time.perf_counter() - t0:.2f} s [{card}]")
+    records.update({(N, k): d for k, d in bf16_dense(torch, card, wf_sim).items()})
+    # the dense backward flow's path: the masked IP slice's phi-gradient
+    ds = wf_sim["ds"]
+    fm = wf_sim["f"].to(wf_sim["f"].basis.with_space("map"))
+    pm = wf_sim["phi"].to(ct.MAP)
+    m = ct.mix(ds, f=fm, phi=pm)
+    grad_ip, paths["gradlnP masked 256^2 IP bf16"] = bf16_gradient(
+        torch, card, ds, m["f_mix"].to(fm.basis), m["phi_mix"].to(ct.MAP), "masked 256^2 IP")
+    timing_out["gradlnP_256_IP_bf16_ms"] = (grad_ip["ms"], grad_ip["strict_ms"])
+    # (g) the masked 256^2 IP Wiener filter at hessian_precision="bf16"
+    wf, paths["argmaxf_logpdf masked 256^2 IP bf16"] = bf16_wiener(torch, card, wf_sim,
+                                                                   "masked 256^2 IP")
+    timing_out["argmaxf_256_IP_bf16"] = wf
+    del wf_sim, ds, m
+    # (c) radix 16 and 32: the kernels, twice each, and the LenseFlow entry points
+    for Nl in N_LARGE:
+        found, ctx = bf16_factored(torch, card, Nl, reps=3, twice=True)
+        records.update({(Nl, k): d for k, d in found.items()})
+        del ctx
+        torch.cuda.empty_cache()
+        paths.update(bf16_large_paths(torch, card, Nl))
+        torch.cuda.empty_cache()
+    # (e) the 1024^2 phi-gradient
+    if gctx is None:
+        gctx = phase_map_gradient(torch, card)[0]
+    sim = gctx["sim"]
+    fs = sim["f"].to(sim["f"].basis.with_space("map"))
+    m = ct.mix(sim["ds"], f=fs, phi=sim["phi"].to(ct.MAP))
+    grad, _ = bf16_gradient(torch, card, sim["ds"], m["f_mix"].to(fs.basis),
+                            m["phi_mix"].to(ct.MAP), f"{N_MAP}^2 P")
+    timing_out["gradlnP_1024_bf16_ms"] = (grad["ms"], grad["strict_ms"])
+    # (f) MAP_joint(precision="bf16") as scripts/map_1024.py runs it, and the
+    # 1024^2 Wiener filter at hessian_precision="bf16" (the path of K3's
+    # adjoint role at 'bf16': the phi-step runs no adjoint flow)
+    with ct.lenseflow_backend_ctx("kernel"):
+        launches, s_step, hist = run_map(torch, sim, 14, "kernel, precision \"bf16\"", card,
+                                         precision="bf16")
+    paths["MAP_joint 1024^2 P bf16"] = launches
+    timing_out["MAP_joint_1024_bf16_s_per_step"] = s_step
+    print(f"phase 14: f-steps re-run strict {sum(h['precision_fallback'] for h in hist)} of "
+          f"{len(hist)}; direction retries fired {sum(h['retry'] for h in hist)}")
+    for phase, label in ((7, "strict"), (9, "\"auto\"")):
+        s, h = (beside or {}).get(phase, (None, None))
+        if h is None:
+            print(f"phase 14: beside phase {phase} ({label}): not run in this call")
+            continue
+        print(f"phase 14: beside phase {phase} ({label}): {s:.3f} s/step; logpdfs "
+              f"{[x['logpdf'] for x in h]!r}; alphas {[x['alpha'] for x in h]!r}; fallbacks "
+              f"{sum(x.get('precision_fallback', False) for x in h)}; retries "
+              f"{sum(x.get('retry', False) for x in h)}")
+    wf1024, paths["argmaxf_logpdf 1024^2 P bf16"] = bf16_wiener(torch, card, sim, f"{N_MAP}^2 P")
+    timing_out["argmaxf_1024_bf16"] = wf1024
+    # every kernel of each path launched in its run; the records' launches
+    path_of = {(N_MAP, "fderiv_bf16"): "MAP_joint 1024^2 P bf16",
+               (N_MAP, "fa_velocity_forward_bf16"): "MAP_joint 1024^2 P bf16",
+               (N_MAP, "fa_velocity_adjoint_bf16"): "argmaxf_logpdf 1024^2 P bf16",
+               (N_MAP, "bv_velocity_bf16"): "MAP_joint 1024^2 P bf16",
+               (N, "velocity_forward_bf16"): "argmaxf_logpdf masked 256^2 IP bf16",
+               (N, "velocity_adjoint_bf16"): "argmaxf_logpdf masked 256^2 IP bf16",
+               (N, "deriv_bf16"): "gradlnP masked 256^2 IP bf16",
+               (N, "velocity_backward_bf16"): "gradlnP masked 256^2 IP bf16"}
+    for Nl in N_LARGE:
+        path_of.update({(Nl, k): f"MAP_joint {Nl}^2 P bf16, 1 step" for k in BF16_KERNELS})
+        path_of[Nl, "fa_velocity_adjoint_bf16"] = f"argmaxf_logpdf {Nl}^2 P bf16, 2 iterations"
+    launches = {key: (p, paths[p][key[1]]) for key, p in path_of.items()}
+    never = {key: v for key, v in launches.items() if v[1] <= 0}
+    if never:
+        raise AssertionError(f"a 'bf16' kernel never launched in its path's run: {never}")
+    print(f"phase 14: wall time {time.perf_counter() - t_start:.1f} s [{card}]")
+    return records, launches, timing_out
+
+
 def main():
     try:
         import torch
@@ -1961,6 +2469,9 @@ def main():
     if sys.argv[1:] == ["--phase", "13"]:
         phase_large(torch, card)
         return 0
+    if sys.argv[1:] == ["--phase", "14"]:
+        phase_bf16(torch, card)
+        return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
@@ -1975,6 +2486,8 @@ def main():
                                                                         phi_mix, kernels)
     _, wf_timing = phase_wiener(torch, card)
     large, large_launches, large_timing = phase_large(torch, card)
+    beside = {7: (s_step, gctx["map_hist"]), 9: (gctx["map_s_auto"], gctx["map_hist_auto"])}
+    bf16, bf16_launches, bf16_timing = phase_bf16(torch, card, gctx, beside)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -1985,6 +2498,8 @@ def main():
     replaces.update({f"uni_role{r}": "cmblensing_tpu/ops/pallas_lenseflow.py:734" for r in range(4)})
     replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:225" for k in HIGH_KERNELS})
     replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:103" for k in DENSE_HIGH_KERNELS})
+    replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:218" for k in BF16_KERNELS})
+    replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:92" for k in DENSE_BF16_KERNELS})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entry = lambda name, d, src, n: {
         "name": name, "route": "cuda", "source": src,
@@ -2029,10 +2544,32 @@ def main():
             rec = entry(name + sfx, d, FACTORED_SRC, n)
             rec.update(name=f"{name}{sfx}_b{Nl // FA}", path=path)
             record["kernels"].append(rec)
+    # the 'bf16' tier (phase 14): K1's record is its d_x pass, K2's its
+    # derivative of the slice's three planes; K3's carry their batch-17 runs
+    # under "batched"; "path" names the run whose launches each gives
+    factored = (("fderiv", "fderiv_x"), ("fa_velocity_forward", "fa_velocity_forward"),
+                ("fa_velocity_adjoint", "fa_velocity_adjoint"), ("bv_velocity", "bv_velocity"))
+    dense = tuple((k, k) for k in ("velocity_forward", "velocity_adjoint", "velocity_backward",
+                                   "deriv"))
+    dense_src = "cmblensing_tpu_torch/csrc/lenseflow.cu"
+    for Nl, names, src in ([(N_MAP, factored, FACTORED_SRC), (N, dense, dense_src)]
+                           + [(Nl, factored, FACTORED_SRC) for Nl in N_LARGE]):
+        for name, key in names:
+            d = dict(bf16[Nl, key])
+            if (Nl, f"{key}[{NTRIAL}]") in bf16:
+                d["batched"] = {k: bf16[Nl, f"{key}[{NTRIAL}]"][k]
+                                for k in ("nb", "max_abs_err", "rel", "ms", "plain_ms")}
+            path, n = bf16_launches[Nl, name + "_bf16"]
+            rec = entry(name + "_bf16", d, src, n)
+            rec["path"] = path
+            if Nl in N_LARGE:
+                rec["name"] = f"{name}_bf16_b{Nl // FA}"
+            record["kernels"].append(rec)
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),
                    "MAP_joint_1024_s_per_step": (s_step, plain_s_step),
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
                    **high_timing, **dense_high_timing, **wf_timing, **large_timing,
+                   **bf16_timing,
                    **{f"velocity_forward_{Ny}x{Nx}_{p}": ms for (Ny, Nx, p), ms in edge_ms.items()}})
     print("main path ms (kernel, plain):", json.dumps(timing))
     print(card)

@@ -86,7 +86,7 @@
 // a kernel built on it runs as passes: an x pass that stores and a y pass
 // that accumulates.
 //
-// The 'high' tier (HIGH = true; `_mk_dot('high')`,
+// The 'high' tier (TIER_HIGH; `_mk_dot('high')`,
 // cmblensing_tpu/ops/pallas_lenseflow.py:225) runs the same tile with
 // the block products on the tensor cores: every operand split into a
 // bf16 head and a bf16 residual, three products per block product
@@ -112,6 +112,15 @@
 // block, set its time: 0.0246 ms a 1024^2 d_x read from HBM on an NVIDIA
 // H100 80GB HBM3 at 700 W, 11 % of that bound and 74 % of the FP32 form's
 // time (chip_smoke.py phase 9).
+//
+// The 'bf16' tier (TIER_BF16; `_mk_dot('bf16')`, pallas_lenseflow.py:218)
+// is the 'high' tile without the residuals: each butterflied channel value
+// rounded to a bf16 head once (round to nearest even) as the slab is
+// formed, the blocks' heads (FactoredOps.FXS[0] / FYTS[0]) by cp.async,
+// and one mma per block product where 'high' issues three; the rest is
+// the 'high' form's. Its ring holds half the 'high' ring's bytes (57 KB at
+// B = 8), below the accumulators staged for the inverse butterfly (74 KB),
+// which then set the block's shared memory (work_floats).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -132,7 +141,7 @@ constexpr int NSTAGE = 2;    // slab stages in flight
 constexpr int SUO = TO + 4;  // row stride of a staged channel slab (x-pass stores conflict-free)
 constexpr int SY_Y = TO + 4; // row strides of the accumulators staged for the inverse butterfly
 constexpr int SY_X = TM + 4;
-constexpr int GS_H = TM + 8; // 'high': bf16 row strides of a staged block slab and channel slab
+constexpr int GS_H = TM + 8; // bf16 tiers: row strides of a staged block slab and channel slab
 constexpr int US_H = TO + 8;
 
 enum Axis { AXIS_X = 0, AXIS_Y = 1 };
@@ -144,22 +153,31 @@ __host__ __device__ constexpr int tile_groups(int B) { return B / tile_channels(
 __host__ __device__ constexpr int tile_threads(int B) { return 16 * tile_channels(B) * WPP; }
 // resident blocks an SM asked for: 16 warps
 __host__ __device__ constexpr int tile_min_blocks(int B) { return 512 / tile_threads(B); }
-// a stage: the slab of the group's blocks and of its channels, FP32; at
-// 'high' each as [head, residual] bf16 slabs (2 bf16 a float)
-__host__ __device__ constexpr int stage_floats(int B, bool high = false) {
-    return high ? tile_channels(B) * TK * (GS_H + US_H) : tile_channels(B) * TK * (TM + SUO);
+// the bf16 slabs a stage holds of each operand: [head, residual] at
+// 'high', the head at 'bf16'
+__host__ __device__ constexpr int tier_halves(int tier) { return tier == TIER_HIGH ? 2 : 1; }
+// a stage: the slab of the group's blocks and of its channels, FP32; at a
+// bf16 tier each as tier_halves bf16 slabs (2 bf16 a float)
+__host__ __device__ constexpr int stage_floats(int B, int tier = TIER_F32) {
+    return tier == TIER_F32 ? tile_channels(B) * TK * (TM + SUO)
+                            : tier_halves(tier) * tile_channels(B) * TK * (GS_H + US_H) / 2;
 }
-__host__ __device__ constexpr int ring_floats(int B, bool high = false) {
-    return NSTAGE * stage_floats(B, high);
+__host__ __device__ constexpr int ring_floats(int B, int tier = TIER_F32) {
+    return NSTAGE * stage_floats(B, tier);
 }
-// the ring (reused for the staged accumulators), then the group's rows of
-// the forward butterfly and columns of the inverse one
-__host__ __device__ constexpr size_t tile_smem_bytes(int B, bool high = false) {
-    return sizeof(float) * (ring_floats(B, high) + 2 * tile_channels(B) * B);
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// the ring, reused for the accumulators staged for the inverse butterfly
+__host__ __device__ constexpr int work_floats(int B, int tier = TIER_F32) {
+    return cmax(ring_floats(B, tier), tile_channels(B) * cmax(TM * SY_Y, TO * SY_X));
 }
-static_assert(ring_floats(4, true) >= 4 * TM * SY_Y && ring_floats(4, true) >= 4 * TO * SY_X &&
-                  ring_floats(8, true) >= 8 * TM * SY_Y && ring_floats(8, true) >= 8 * TO * SY_X,
-              "the 'high' ring holds the staged accumulators");
+// the ring or staged accumulators, then the group's rows of the forward
+// butterfly and columns of the inverse one
+__host__ __device__ constexpr size_t tile_smem_bytes(int B, int tier = TIER_F32) {
+    return sizeof(float) * (work_floats(B, tier) + 2 * tile_channels(B) * B);
+}
+static_assert(work_floats(8, TIER_F32) == ring_floats(8, TIER_F32) &&
+                  work_floats(8, TIER_HIGH) == ring_floats(8, TIER_HIGH),
+              "the FP32 and 'high' rings hold the staged accumulators");
 static_assert(tile_min_blocks(4) >= 1 && tile_min_blocks(8) >= 1 && tile_min_blocks(16) >= 1 &&
                   tile_min_blocks(32) >= 1 && tile_threads(32) == 512,
               "a radix's block stays within the launch bounds");
@@ -227,10 +245,10 @@ __device__ __forceinline__ void tile_origin(int& m0, int& o0) {
 
 // Group g's rows of the forward butterfly Rf and columns of the inverse Ri
 // (bf is (2, B, B) [Rf, Ri]), in slot order: Rf[slot s][r], then Ri[r][slot s].
-template <int B, bool HIGH = false>
+template <int B, int TIER = TIER_F32>
 __device__ __forceinline__ void load_butterflies(const float* __restrict__ bf, float* smem, int g) {
     constexpr int BC = tile_channels(B);
-    float* dst = smem + ring_floats(B, HIGH);
+    float* dst = smem + work_floats(B, TIER);
     for (int p = threadIdx.x; p < BC * B; p += tile_threads(B)) {
         const int s = p / B, r = p % B;
         dst[p] = bf[slot_channel<B>(g, s) * B + r];
@@ -287,14 +305,14 @@ __device__ __forceinline__ void slab_fma(const float* __restrict__ gA, const flo
     }
 }
 
-// 'high': one slab (TK = 16, one mma k step) of the block products of one
-// channel pair on the tensor cores, into the warp's 16 m x 32 pixels: the
-// real pair (channels chA, chB against blocks blA, blB; stage slots of a
-// group of BC channels) or a complex pair
+// A bf16 tier: one slab (TK = 16, one mma k step) of the block products
+// of one channel pair on the tensor cores, into the warp's 16 m x 32
+// pixels: the real pair (channels chA, chB against blocks blA, blB; stage
+// slots of a group of BC channels) or a complex pair
 // (accA += Ar ur - Ai ui, accB += Ai ur + Ar ui with Ar = blA, Ai = blB,
-// ur = chA, ui = chB). sG and sU are the stage's split slabs [head,
-// residual][c][k][m or o]; accX[j] is n8 tile j in the mma C layout.
-template <int BC, bool REAL>
+// ur = chA, ui = chB). sG and sU are the stage's slabs [head, residual
+// (RESID, 'high')][c][k][m or o]; accX[j] is n8 tile j in the mma C layout.
+template <int BC, bool REAL, bool RESID>
 __device__ __forceinline__ void slab_mma(const __nv_bfloat16* sG, const __nv_bfloat16* sU,
                                          int blA, int blB, int chA, int chB, int mrow,
                                          float (&accA)[4][4], float (&accB)[4][4]) {
@@ -305,60 +323,66 @@ __device__ __forceinline__ void slab_mma(const __nv_bfloat16* sG, const __nv_bfl
     // (k 0-7, o 0-7), (k 8-15, o 0-7), (k 0-7, o 8-15), (k 8-15, o 8-15)
     const int ka = (lane & 7) + (lane >> 4) * 8, ma = ((lane >> 3) & 1) * 8;
     const int kb = (lane & 7) + ((lane >> 3) & 1) * 8, ob = (lane >> 4) * 8;
-    unsigned aAh[4], aAl[4], aBh[4], aBl[4];
+    unsigned aAh[4], aAl[4] = {}, aBh[4], aBl[4] = {};
     const __nv_bfloat16* ga = sG + (blA * TK + ka) * GS_H + mrow + ma;
     const __nv_bfloat16* gb = sG + (blB * TK + ka) * GS_H + mrow + ma;
     ldsm_x4_t(ga, aAh);
-    ldsm_x4_t(ga + GL, aAl);
     ldsm_x4_t(gb, aBh);
-    ldsm_x4_t(gb + GL, aBl);
+    if constexpr (RESID) {
+        ldsm_x4_t(ga + GL, aAl);
+        ldsm_x4_t(gb + GL, aBl);
+    }
     unsigned nBh[4], nBl[4];   // -Ai
 #pragma unroll
     for (int i = 0; i < 4; ++i) nBh[i] = aBh[i] ^ 0x80008000u, nBl[i] = aBl[i] ^ 0x80008000u;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-        unsigned uAh[4], uAl[4], uBh[4], uBl[4];
+        unsigned uAh[4], uAl[4] = {}, uBh[4], uBl[4] = {};
         const __nv_bfloat16* ua = sU + (chA * TK + kb) * US_H + 16 * half + ob;
         const __nv_bfloat16* ub = sU + (chB * TK + kb) * US_H + 16 * half + ob;
         ldsm_x4_t(ua, uAh);
-        ldsm_x4_t(ua + UL, uAl);
         ldsm_x4_t(ub, uBh);
-        ldsm_x4_t(ub + UL, uBl);
+        if constexpr (RESID) {
+            ldsm_x4_t(ua + UL, uAl);
+            ldsm_x4_t(ub + UL, uBl);
+        }
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
             float(&dA)[4] = accA[2 * half + j];
             float(&dB)[4] = accB[2 * half + j];
             if (REAL) {
-                mma_high(dA, aAh, aAl, uAh, uAl, j);
-                mma_high(dB, aBh, aBl, uBh, uBl, j);
+                mma_tier<RESID>(dA, aAh, aAl, uAh, uAl, j);
+                mma_tier<RESID>(dB, aBh, aBl, uBh, uBl, j);
             } else {
-                mma_high(dA, aAh, aAl, uAh, uAl, j);
-                mma_high(dA, nBh, nBl, uBh, uBl, j);
-                mma_high(dB, aBh, aBl, uAh, uAl, j);
-                mma_high(dB, aAh, aAl, uBh, uBl, j);
+                mma_tier<RESID>(dA, aAh, aAl, uAh, uAl, j);
+                mma_tier<RESID>(dA, nBh, nBl, uBh, uBl, j);
+                mma_tier<RESID>(dB, aBh, aBl, uAh, uAl, j);
+                mma_tier<RESID>(dB, aAh, aAl, uBh, uBl, j);
             }
         }
     }
 }
 
 // One output tile of the factored derivative along AXIS (see the header),
-// in FP32 or at 'high', or channel group g's partial sum of it (B > 8).
-// G holds the packed blocks transposed (FP32, or at 'high' their bf16
-// [head, residual] split); smem is the block's dynamic shared memory
-// (tile_smem_bytes(B, HIGH)), its butterflies loaded by
-// load_butterflies<B, HIGH>(bf, smem, g). load(q) returns the operand at
+// at precision tier TIER, or channel group g's partial sum of it (B > 8).
+// G holds the packed blocks transposed (FP32; at 'high' their bf16 [head,
+// residual] split, at 'bf16' their bf16 heads); smem is the block's
+// dynamic shared memory (tile_smem_bytes(B, TIER)), its butterflies loaded
+// by load_butterflies<B, TIER>(bf, smem, g). load(q) returns the operand at
 // offset q of the (Ny, Nx) plane (with the caller's prologue); store(q, v)
 // receives the derivative (or the group's partial sum of it) there, at the
 // pixels out_offset names. Every thread of the block must call it.
-template <int B, int AXIS, bool HIGH = false, class Load, class Store>
+template <int B, int AXIS, int TIER = TIER_F32, class Load, class Store>
 __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* smem, int m0, int o0,
                                           int g, int Nx, Load load, Store store) {
+    constexpr bool MMA = TIER != TIER_F32, RESID = TIER == TIER_HIGH;
+    constexpr int NH = tier_halves(TIER);   // bf16 slabs of each operand a stage
     constexpr int BC = tile_channels(B);   // the channels (stage slots) this block holds
     constexpr int NT = tile_threads(B);
     constexpr int NPOS = TO * TK / NT;      // operand-slab positions per thread
     constexpr int GROWS = NT / (TM / 4);    // block-slab rows (of BC TK) that the threads copy at once
     constexpr int PX = tile_pixels(B);
-    const float* sRf = smem + ring_floats(B, HIGH);   // [slot][r]
+    const float* sRf = smem + work_floats(B, TIER);   // [slot][r]
     const float* sRi = sRf + BC * B;                  // [r][slot]
     const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
     const int pair = wid / WPP, mh = wid % WPP;   // channel pair of the group; the warp's share of the tile along m
@@ -370,7 +394,7 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
     const bool real = g == 0 && pair == 0;
 
     // FP32: accX[i][j] is (m = mt + 16 (i / 4) + i % 4, pixel lo * 4 + j);
-    // 'high': accX[j] is n8 tile j of the warp's 16 m x 32 pixels
+    // bf16 tiers: accX[j] is n8 tile j of the warp's 16 m x 32 pixels
     float accA[RM][4], accB[RM][4];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
@@ -394,9 +418,9 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
     float raw[NPOS][B];
     auto fetch = [&](int k0, float* stage) {
         // the slab's blocks, asynchronously, and its raw operand values
-        if constexpr (HIGH) {
-            // [head, residual] x BC x TK rows of TM bf16, 16 bytes a copy
-            constexpr int CPR = TM / 8, NCP = 2 * BC * TK * CPR / NT;
+        if constexpr (MMA) {
+            // [head(, residual)] x BC x TK rows of TM bf16, 16 bytes a copy
+            constexpr int CPR = TM / 8, NCP = NH * BC * TK * CPR / NT;
             __nv_bfloat16* sG = reinterpret_cast<__nv_bfloat16*>(stage);
 #pragma unroll
             for (int h = 0; h < NCP; ++h) {
@@ -420,7 +444,7 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
     };
     auto butterfly = [&](float* stage) {   // the group's channels, slot c
         float* sU = stage + BC * TK * TM;
-        __nv_bfloat16* sUh = reinterpret_cast<__nv_bfloat16*>(stage) + 2 * BC * TK * GS_H;
+        __nv_bfloat16* sUh = reinterpret_cast<__nv_bfloat16*>(stage) + NH * BC * TK * GS_H;
 #pragma unroll
         for (int c = 0; c < BC; ++c) {
             float rf[B];
@@ -436,10 +460,11 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
                 float u = 0.f;
 #pragma unroll
                 for (int r = 0; r < B; ++r) u = fmaf(rf[r], raw[j][r], u);
-                if constexpr (HIGH) {
+                if constexpr (MMA) {
                     const __nv_bfloat16 h = __float2bfloat16_rn(u);
                     sUh[(c * TK + kk) * US_H + o] = h;
-                    sUh[(BC * TK + c * TK + kk) * US_H + o] = __float2bfloat16_rn(u - __bfloat162float(h));
+                    if constexpr (RESID)
+                        sUh[(BC * TK + c * TK + kk) * US_H + o] = __float2bfloat16_rn(u - __bfloat162float(h));
                 } else {
                     sU[(c * TK + kk) * SUO + o] = u;
                 }
@@ -451,17 +476,17 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
     fetch(0, smem);
     butterfly(smem);
     for (int s = 0; s < FA / TK; ++s) {
-        float* cur = smem + (s % NSTAGE) * stage_floats(B, HIGH);
-        float* nxt = smem + ((s + 1) % NSTAGE) * stage_floats(B, HIGH);
+        float* cur = smem + (s % NSTAGE) * stage_floats(B, TIER);
+        float* nxt = smem + ((s + 1) % NSTAGE) * stage_floats(B, TIER);
         cp_async_wait_all();
         __syncthreads();   // stage `cur` is complete, and every warp has left stage `nxt`
         const bool more = s + 1 < FA / TK;
         if (more) fetch((s + 1) * TK, nxt);
-        if constexpr (HIGH) {
+        if constexpr (MMA) {
             const __nv_bfloat16* sG = reinterpret_cast<const __nv_bfloat16*>(cur);
-            const __nv_bfloat16* sU = sG + 2 * BC * TK * GS_H;
-            if (real) slab_mma<BC, true>(sG, sU, blA, blB, chA, chB, 16 * mh, accA, accB);
-            else slab_mma<BC, false>(sG, sU, blA, blB, chA, chB, 16 * mh, accA, accB);
+            const __nv_bfloat16* sU = sG + NH * BC * TK * GS_H;
+            if (real) slab_mma<BC, true, RESID>(sG, sU, blA, blB, chA, chB, 16 * mh, accA, accB);
+            else slab_mma<BC, false, RESID>(sG, sU, blA, blB, chA, chB, 16 * mh, accA, accB);
         } else {
             const float* sG = cur + mt;
             const float* sU = cur + BC * TK * TM + lo * 4;
@@ -478,7 +503,7 @@ __device__ __forceinline__ void fact_tile(const void* __restrict__ G, float* sme
     // every channel of a pixel to one thread: stage the accumulators
     __syncthreads();
     float* sY = smem;
-    if constexpr (HIGH) {   // C layout: (m = 16 mh + lane / 4 + 8 (e / 2), pixel 8 j + 2 (lane % 4) + e % 2)
+    if constexpr (MMA) {   // C layout: (m = 16 mh + lane / 4 + 8 (e / 2), pixel 8 j + 2 (lane % 4) + e % 2)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -556,9 +581,9 @@ bool shape_ok(int Bx, int By, int Ny, int Nx) {
 // kernel gets unasked), and have the SM's L1 / shared split favour shared
 // memory, so that as many blocks as the launch bounds ask for are resident.
 template <class K>
-int allow_tile_smem(K kernel, int B, bool high = false) {
+int allow_tile_smem(K kernel, int B, int tier = TIER_F32) {
     const int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)tile_smem_bytes(B, high));
+                                             (int)tile_smem_bytes(B, tier));
     if (rc != 0) return rc;
     return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                      (int)cudaSharedmemCarveoutMaxShared);

@@ -1,5 +1,6 @@
 // Factored (radix-B) LenseFlow kernels for NVIDIA Hopper (sm_90a), in FP32
-// FMA, and at 'high' on the tensor cores (each entry's `high` argument).
+// FMA, and at 'high' and 'bf16' on the tensor cores (each entry's `tier`
+// argument).
 //
 // Replaces, from cmblensing_tpu/ops/pallas_lenseflow.py:
 //   K1  the factored in-kernel derivative `_fact_apply` / `_make_ddx_ddy_fact`
@@ -12,12 +13,14 @@
 //       delta-phi integrands (as lf_velocity's backward kind)  -> lf_bv_velocity
 //
 // Each is built on the tiled factored derivative `fact_tile` (fact_tile.cuh),
-// instantiated twice: FP32 (the JAX package's precision 'f32') and 'high'
-// (its `_mk_dot('high')` body, pallas_lenseflow.py:225: bf16 head and
-// residual split, three bf16 products a block product, on mma.sync). Each
-// entry takes an `int high` that picks the instantiation; at 'high' the
-// blocks come split ([head, residual] bf16, FactoredOps.FXS / FYTS) where
-// the FP32 form takes them in FP32.
+// instantiated three times: FP32 (the JAX package's precision 'f32'),
+// 'high' (its `_mk_dot('high')` body, pallas_lenseflow.py:225: bf16 head
+// and residual split, three bf16 products a block product, on mma.sync)
+// and 'bf16' (`_mk_dot('bf16')`, :218: one bf16 product of the rounded
+// operands). Each entry takes an `int tier` (lenseflow_common.cuh::Tier)
+// that picks the instantiation; at 'high' the blocks come split ([head,
+// residual] bf16, FactoredOps.FXS / FYTS), at 'bf16' as those heads
+// (FXS[0], FYTS[0]), where the FP32 form takes them in FP32.
 // The TPU kernels hold whole planes in VMEM. A 1024^2 f32 plane is 4 MiB,
 // far beyond a block's 227 KB of shared memory, so here every derivative
 // is tiled, and a velocity is two launches: an x pass that stores and a y
@@ -40,48 +43,59 @@
 // whole-flow kernel are later work.
 //
 // The kernels and their launchers are in factored_kernels.cuh. This source
-// instantiates the FP32 tier and holds the C entries; factored_high.cu
-// instantiates the 'high' tier, so that nvcc builds the two at once (with
-// radix 16 and 32 one source took 75 s).
+// instantiates the FP32 tier and holds the C entries; factored_high.cu and
+// factored_bf16.cu instantiate the 'high' and 'bf16' tiers, so that nvcc
+// builds the three at once (with radix 16 and 32 two tiers in one source
+// took 75 s).
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
 // stream; each entry point returns the first nonzero cudaGetLastError().
 
 #include "factored_kernels.cuh"
 
+// The launcher of `tier` among a kernel's three (nullptr for another value).
+template <class F>
+F tier_fn(int tier, F f32, F high, F bf16) {
+    return tier == TIER_F32 ? f32 : tier == TIER_HIGH ? high : tier == TIER_BF16 ? bf16 : nullptr;
+}
+
 // Once after loading, before any launch: the kernels' dynamic shared memory.
 extern "C" int lf_factored_init() {
-    int rc = allow_smem<4, false>();
-    if (rc == 0) rc = allow_smem<8, false>();
-    if (rc == 0) rc = allow_smem<16, false>();
-    if (rc == 0) rc = allow_smem<32, false>();
-    return rc != 0 ? rc : lf_high::init();
+    int rc = allow_smem_all<TIER_F32>();
+    if (rc == 0) rc = lf_high::init();
+    return rc != 0 ? rc : lf_bf16::init();
 }
 
-// The entries: high != 0 runs the 'high' tier. FX and FYT are the packed
-// blocks, both transposed (fact_tile.cuh): FP32 (B, A, A), or at 'high'
-// their bf16 split (2, B, A, A) [head, residual].
-extern "C" int lf_fderiv(int high, const float* a, const float* b, const float* c, float* out,
+// The entries: `tier` picks FP32 (0), 'high' (1) or 'bf16' (2). FX and FYT
+// are the packed blocks, both transposed (fact_tile.cuh): FP32 (B, A, A),
+// at 'high' their bf16 split (2, B, A, A) [head, residual], at 'bf16' the
+// heads (B, A, A).
+extern "C" int lf_fderiv(int tier, const float* a, const float* b, const float* c, float* out,
                          const void* FX, const void* FYT, const float* bfx, const float* bfy,
                          int Bx, int By, int nplanes, int Ny, int Nx, void* stream) {
-    return (high ? lf_high::fderiv : fderiv<false>)(a, b, c, out, FX, FYT, bfx, bfy, Bx, By,
-                                                     nplanes, Ny, Nx, stream);
+    const auto fn = tier_fn(tier, fderiv<TIER_F32>, lf_high::fderiv, lf_bf16::fderiv);
+    return fn == nullptr ? (int)cudaErrorInvalidValue
+                         : fn(a, b, c, out, FX, FYT, bfx, bfy, Bx, By, nplanes, Ny, Nx, stream);
 }
 
-extern "C" int lf_fa_velocity(int high, int role, const float* y, float* k, const float* p,
+extern "C" int lf_fa_velocity(int tier, int role, const float* y, float* k, const float* p,
                               const void* FX, const void* FYT, const float* bfx,
                               const float* bfy, int Bx, int By, int nbatch, int ncomp, int Ny,
                               int Nx, void* stream) {
-    return (high ? lf_high::fa_velocity : fa_velocity<false>)(role, y, k, p, FX, FYT, bfx, bfy,
-                                                               Bx, By, nbatch, ncomp, Ny, Nx,
-                                                               stream);
+    const auto fn = tier_fn(tier, fa_velocity<TIER_F32>, lf_high::fa_velocity,
+                            lf_bf16::fa_velocity);
+    return fn == nullptr ? (int)cudaErrorInvalidValue
+                         : fn(role, y, k, p, FX, FYT, bfx, bfy, Bx, By, nbatch, ncomp, Ny, Nx,
+                              stream);
 }
 
-extern "C" int lf_bv_velocity(int high, const float* y, float* k, const float* phi,
+extern "C" int lf_bv_velocity(int tier, const float* y, float* k, const float* phi,
                               const float* p, const void* FX, const void* FYT, const float* bfx,
                               const float* bfy, int Bx, int By, int nbatch, int ncomp, int Ny,
                               int Nx, float t, void* stream) {
-    return (high ? lf_high::bv_velocity : bv_velocity<false>)(y, k, phi, p, FX, FYT, bfx, bfy,
-                                                               Bx, By, nbatch, ncomp, Ny, Nx, t,
-                                                               stream);
+    const auto fn = tier_fn(tier, bv_velocity<TIER_F32>, lf_high::bv_velocity,
+                            lf_bf16::bv_velocity);
+    return fn == nullptr ? (int)cudaErrorInvalidValue
+                         : fn(y, k, phi, p, FX, FYT, bfx, bfy, Bx, By, nbatch, ncomp, Ny, Nx, t,
+                              stream);
 }

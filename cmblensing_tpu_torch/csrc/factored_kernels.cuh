@@ -1,7 +1,8 @@
 // The factored LenseFlow kernels (K1, K3, K4) and their host launchers,
-// shared by the two sources that instantiate them: factored.cu (FP32, and
-// the C entries) and factored_high.cu (the 'high' tier), compiled in
-// parallel. See factored.cu for what each kernel replaces and computes.
+// shared by the three sources that instantiate them, one precision tier
+// each: factored.cu (FP32, and the C entries), factored_high.cu ('high')
+// and factored_bf16.cu ('bf16'), compiled in parallel. See factored.cu for
+// what each kernel replaces and computes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,21 +26,21 @@ constexpr int NACC = 5;   // delta-phi accumulator planes of the backward state
 // stores, and every later group adds.
 
 // K1: out = D a (+ c), or out += D a, along AXIS over blockIdx.z planes.
-// G: the blocks (FP32, or at HIGH their bf16 split; fact_tile.cuh).
-template <int B, int AXIS, bool HIGH>
+// G: the blocks at the tier's precision (fact_tile.cuh).
+template <int B, int AXIS, int TIER>
 __global__ void __launch_bounds__(tile_threads(B), tile_min_blocks(B))
 fderiv_kernel(const float* __restrict__ a, const float* __restrict__ c, float* __restrict__ out,
               const void* __restrict__ G, const float* __restrict__ bf, int Ny, int Nx,
               int accumulate, int g) {
-    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, HIGH)
-    load_butterflies<B, HIGH>(bf, smem, g);
+    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, TIER)
+    load_butterflies<B, TIER>(bf, smem, g);
     const size_t base = (size_t)blockIdx.z * Ny * Nx;
     const float* ap = a + base;
     const float* cp = c != nullptr ? c + base : nullptr;
     float* op = out + base;
     int m0, o0;
     tile_origin<AXIS>(m0, o0);
-    fact_tile<B, AXIS, HIGH>(
+    fact_tile<B, AXIS, TIER>(
         G, smem, m0, o0, g, Nx, [&](int q) { return ap[q]; },
         [&](int q, float v) {
             if (g == 0 && cp != nullptr) v += cp[q];
@@ -53,13 +54,13 @@ fderiv_kernel(const float* __restrict__ a, const float* __restrict__ c, float* _
 // The x pass stores p_x d_x y (or d_x(p_x y)), the y pass adds the y term.
 // blockIdx.z = batch * ncomp + component; p holds the planes (p_x, p_y) of
 // every batch entry, (2, nbatch, Ny, Nx).
-template <int B, int AXIS, bool HIGH>
+template <int B, int AXIS, int TIER>
 __global__ void __launch_bounds__(tile_threads(B), tile_min_blocks(B))
 fa_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __restrict__ p,
           const void* __restrict__ G, const float* __restrict__ bf, int ncomp, int nbatch,
           int Ny, int Nx, int role, int g) {
-    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, HIGH)
-    load_butterflies<B, HIGH>(bf, smem, g);
+    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, TIER)
+    load_butterflies<B, TIER>(bf, smem, g);
     const size_t plane = (size_t)Ny * Nx;
     const float* yp = y + blockIdx.z * plane;
     float* kp = k + blockIdx.z * plane;
@@ -67,7 +68,7 @@ fa_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
     const float* pa = p + ((size_t)(AXIS == AXIS_X ? 0 : nbatch) + blockIdx.z / ncomp) * plane;
     int m0, o0;
     tile_origin<AXIS>(m0, o0);
-    fact_tile<B, AXIS, HIGH>(
+    fact_tile<B, AXIS, TIER>(
         G, smem, m0, o0, g, Nx, [&](int q) { return role != 0 ? pa[q] * yp[q] : yp[q]; },
         [&](int q, float v) {
             if (role == 0) v *= pa[q];
@@ -83,14 +84,14 @@ fa_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
 // second slot and then, in its last channel group's launch, writes
 // u = M^-1 w and the five integrands. p as K3's; M^-1(t) is rebuilt from phi's 5
 // planes per batch at the output pixels.
-template <int B, int AXIS, bool HIGH>
+template <int B, int AXIS, int TIER>
 __global__ void __launch_bounds__(tile_threads(B), tile_min_blocks(B))
 bv_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __restrict__ phi,
           const float* __restrict__ p, const void* __restrict__ G,
           const float* __restrict__ bf, int ncomp, int nbatch, int Ny, int Nx, float t,
           int g) {
-    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, HIGH)
-    load_butterflies<B, HIGH>(bf, smem, g);
+    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, TIER)
+    load_butterflies<B, TIER>(bf, smem, g);
     const size_t plane = (size_t)Ny * Nx;
     const size_t nstate = 2 * ncomp + NACC;
     const float* yb = y + blockIdx.z * nstate * plane;
@@ -105,7 +106,7 @@ bv_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
         const float* df = yb + (ncomp + c) * plane;
         float* kf = kb + c * plane;
         float* kdf = kb + (ncomp + c) * plane;
-        fact_tile<B, AXIS, HIGH>(
+        fact_tile<B, AXIS, TIER>(
             G, smem, m0, o0, g, Nx, [&](int q) { return f[q]; },
             [&](int q, float v) {   // v = d f_c
                 const float pv = pa[q] * v, dw = df[q] * v;
@@ -114,7 +115,7 @@ bv_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
                 if (c == 0 && g == 0) w[q] = dw;
                 else atomicAdd(w + q, dw);
             });
-        fact_tile<B, AXIS, HIGH>(
+        fact_tile<B, AXIS, TIER>(
             G, smem, m0, o0, g, Nx, [&](int q) { return pa[q] * df[q]; },
             [&](int q, float v) {
                 if (store) kdf[q] = v;
@@ -136,28 +137,37 @@ bv_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
     }
 }
 
-template <int B, bool HIGH>
+template <int B, int TIER>
 int allow_smem() {
-    int rc = allow_tile_smem(fderiv_kernel<B, AXIS_X, HIGH>, B, HIGH);
-    if (rc == 0) rc = allow_tile_smem(fderiv_kernel<B, AXIS_Y, HIGH>, B, HIGH);
-    if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_X, HIGH>, B, HIGH);
-    if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_Y, HIGH>, B, HIGH);
-    if (rc == 0) rc = allow_tile_smem(bv_kernel<B, AXIS_X, HIGH>, B, HIGH);
-    if (rc == 0) rc = allow_tile_smem(bv_kernel<B, AXIS_Y, HIGH>, B, HIGH);
+    int rc = allow_tile_smem(fderiv_kernel<B, AXIS_X, TIER>, B, TIER);
+    if (rc == 0) rc = allow_tile_smem(fderiv_kernel<B, AXIS_Y, TIER>, B, TIER);
+    if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_X, TIER>, B, TIER);
+    if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_Y, TIER>, B, TIER);
+    if (rc == 0) rc = allow_tile_smem(bv_kernel<B, AXIS_X, TIER>, B, TIER);
+    if (rc == 0) rc = allow_tile_smem(bv_kernel<B, AXIS_Y, TIER>, B, TIER);
     return rc;
+}
+
+// every radix's kernels at one tier
+template <int TIER>
+int allow_smem_all() {
+    int rc = allow_smem<4, TIER>();
+    if (rc == 0) rc = allow_smem<8, TIER>();
+    if (rc == 0) rc = allow_smem<16, TIER>();
+    return rc != 0 ? rc : allow_smem<32, TIER>();
 }
 
 // One launch of `kernel` per channel group g of the radix B in force, in
 // order; (...) are its arguments before g.
 #define LF_TILE_LAUNCH(kernel, AXIS, nz, ...)                                                  \
     for (int g = 0; g < tile_groups(B); ++g)                                                    \
-    kernel<B, AXIS, HIGH><<<pass_grid<AXIS>(Ny, Nx, nz), tile_threads(B),                      \
-                            tile_smem_bytes(B, HIGH), st>>>(__VA_ARGS__, g)
+    kernel<B, AXIS, TIER><<<pass_grid<AXIS>(Ny, Nx, nz), tile_threads(B),                      \
+                            tile_smem_bytes(B, TIER), st>>>(__VA_ARGS__, g)
 
 // out = d_x a + d_y b + c over nplanes planes; a or b (not both) and c may
 // be null; out must not alias a or b. One launch per non-null derivative
 // and channel group.
-template <bool HIGH>
+template <int TIER>
 int fderiv(const float* a, const float* b, const float* c, float* out, const void* FX,
            const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nplanes,
            int Ny, int Nx, void* stream) {
@@ -181,7 +191,7 @@ int fderiv(const float* a, const float* b, const float* c, float* out, const voi
 // k <- the forward (role 0) or adjoint (role 1) velocity of the
 // (nbatch, ncomp, Ny, Nx) state y under the p(t) planes p, (2, nbatch, Ny,
 // Nx). Two launches a channel group.
-template <bool HIGH>
+template <int TIER>
 int fa_velocity(int role, const float* y, float* k, const float* p, const void* FX,
                 const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nbatch,
                 int ncomp, int Ny, int Nx, void* stream) {
@@ -200,7 +210,7 @@ int fa_velocity(int role, const float* y, float* k, const float* p, const void* 
 // k <- the backward velocity at time t of the (nbatch, 2 ncomp + 5, Ny, Nx)
 // state y; phi is (nbatch, 5, Ny, Nx), p its p(t) planes (2, nbatch, Ny,
 // Nx). Two launches a channel group.
-template <bool HIGH>
+template <int TIER>
 int bv_velocity(const float* y, float* k, const float* phi, const float* p, const void* FX,
                 const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nbatch,
                 int ncomp, int Ny, int Nx, float t, void* stream) {
@@ -217,17 +227,44 @@ int bv_velocity(const float* y, float* k, const float* phi, const float* p, cons
 
 }  // namespace
 
-// The 'high' tier's launchers and shared-memory set-up, instantiated in
-// factored_high.cu: fderiv<true>, fa_velocity<true>, bv_velocity<true>.
-namespace lf_high {
-int fderiv(const float* a, const float* b, const float* c, float* out, const void* FX,
-           const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nplanes,
-           int Ny, int Nx, void* stream);
-int fa_velocity(int role, const float* y, float* k, const float* p, const void* FX,
-                const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nbatch,
-                int ncomp, int Ny, int Nx, void* stream);
-int bv_velocity(const float* y, float* k, const float* phi, const float* p, const void* FX,
-                const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nbatch,
-                int ncomp, int Ny, int Nx, float t, void* stream);
-int init();
-}  // namespace lf_high
+// The reduced tiers' launchers and shared-memory set-up, each instantiated
+// in a source of its own: lf_high in factored_high.cu (fderiv<TIER_HIGH>,
+// ...), lf_bf16 in factored_bf16.cu (fderiv<TIER_BF16>, ...).
+#define LF_TIER_ENTRIES(ns)                                                                    \
+    namespace ns {                                                                              \
+    int fderiv(const float* a, const float* b, const float* c, float* out, const void* FX,      \
+               const void* FYT, const float* bfx, const float* bfy, int Bx, int By,             \
+               int nplanes, int Ny, int Nx, void* stream);                                      \
+    int fa_velocity(int role, const float* y, float* k, const float* p, const void* FX,         \
+                    const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
+                    int nbatch, int ncomp, int Ny, int Nx, void* stream);                       \
+    int bv_velocity(const float* y, float* k, const float* phi, const float* p, const void* FX, \
+                    const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
+                    int nbatch, int ncomp, int Ny, int Nx, float t, void* stream);              \
+    int init();                                                                                 \
+    }
+LF_TIER_ENTRIES(lf_high)
+LF_TIER_ENTRIES(lf_bf16)
+
+// Their definitions, in the source that instantiates tier T as namespace ns.
+#define LF_TIER_DEFINE(ns, T)                                                                  \
+    namespace ns {                                                                              \
+    int fderiv(const float* a, const float* b, const float* c, float* out, const void* FX,      \
+               const void* FYT, const float* bfx, const float* bfy, int Bx, int By,             \
+               int nplanes, int Ny, int Nx, void* stream) {                                     \
+        return ::fderiv<T>(a, b, c, out, FX, FYT, bfx, bfy, Bx, By, nplanes, Ny, Nx, stream);   \
+    }                                                                                           \
+    int fa_velocity(int role, const float* y, float* k, const float* p, const void* FX,         \
+                    const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
+                    int nbatch, int ncomp, int Ny, int Nx, void* stream) {                      \
+        return ::fa_velocity<T>(role, y, k, p, FX, FYT, bfx, bfy, Bx, By, nbatch, ncomp, Ny,    \
+                                Nx, stream);                                                    \
+    }                                                                                           \
+    int bv_velocity(const float* y, float* k, const float* phi, const float* p, const void* FX, \
+                    const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
+                    int nbatch, int ncomp, int Ny, int Nx, float t, void* stream) {             \
+        return ::bv_velocity<T>(y, k, phi, p, FX, FYT, bfx, bfy, Bx, By, nbatch, ncomp, Ny, Nx, \
+                                t, stream);                                                     \
+    }                                                                                           \
+    int init() { return allow_smem_all<T>(); }                                                  \
+    }

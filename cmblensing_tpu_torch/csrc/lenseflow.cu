@@ -1,5 +1,5 @@
 // LenseFlow flow kernels for NVIDIA Hopper (sm_90a): FP32 FMA, and the
-// 'high' tier on the tensor cores.
+// 'high' and 'bf16' tiers on the tensor cores.
 //
 // Replaces the whole-flow Pallas kernel `_flow_kernel` and its launcher
 // `_flow_call` (cmblensing_tpu/ops/pallas_lenseflow.py), together with
@@ -72,7 +72,7 @@
 // tile the kernels run the unguarded loads, so that such planes pay
 // nothing for the guards.
 //
-// The 'high' tier (HIGH = true; the 'high' branch of `_make_ddx_ddy`,
+// The 'high' tier (TIER_HIGH; the 'high' branch of `_make_ddx_ddy`,
 // pallas_lenseflow.py:103): each product as the bf16 head/residual
 // split, h = bf16(x) rounded to nearest even and l = bf16(x - h), summed
 // as head.head + residual.head + head.residual in FP32 by
@@ -96,6 +96,14 @@
 // of the strict one's time, 5-8 % of its bound (NVIDIA H100 80GB HBM3 at
 // 700 W, chip_smoke.py phase 11, both tiers timed cold).
 //
+// The 'bf16' tier (TIER_BF16; the 'bf16' branch of `_make_ddx_ddy`,
+// pallas_lenseflow.py:92): the 'high' form without the residuals. The
+// circulant arrives as its bf16 head ((n, n), rounded to nearest even on
+// the host once per operator set), the operand (y or p y) is rounded to
+// its head as its slab is staged, and a warp issues one mma per n8 column
+// tile and operand a slab, 4 per operand. The guards (EDGE), the ring and
+// the combine are the 'high' form's; its stages hold half the bytes.
+//
 // Plain C interface, loaded with ctypes. Every launch goes on the
 // caller's stream and each entry point returns cudaGetLastError().
 
@@ -113,24 +121,29 @@ constexpr int DT = 32;        // output tile side
 constexpr int DK = 16;        // contraction slab
 constexpr int DGROUP = 64;    // threads of a group: 8 x 8, each 4 x 4 outputs per operand
 constexpr int DNT = 4 * DGROUP;
-constexpr int AS = DK + 8;    // 'high': bf16 row strides of a staged left slab ([row][k])
+constexpr int AS = DK + 8;    // bf16 tiers: row strides of a staged left slab ([row][k])
 constexpr int BS = DT + 8;    // and right slab ([k][column])
 
-// bf16 elements of a 'high' slab stage: NL left and NR right slabs, head and residual
-__host__ __device__ constexpr int high_stage(int NL, int NR) {
-    return 2 * (NL * DT * AS + NR * DK * BS);
-}
+// bf16 elements of one slab of a bf16 tier's stage: NL left and NR right
+// slabs; a stage holds two (head, residual) at 'high', one (head) at 'bf16'
+__host__ __device__ constexpr int bf16_slab(int NL, int NR) { return NL * DT * AS + NR * DK * BS; }
+__host__ __device__ constexpr int tier_halves(int tier) { return tier == TIER_HIGH ? 2 : 1; }
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 // floats of a group's two slab stages (of either product) for NOP operands
-__host__ __device__ constexpr int group_floats(int NOP, bool high) {
-    return high ? cmax(high_stage(NOP, 1), high_stage(1, NOP)) : 2 * (1 + NOP) * DK * DT;
+// (two stages of bf16 slabs take as many floats as one stage has bf16)
+__host__ __device__ constexpr int group_floats(int NOP, int tier) {
+    return tier == TIER_F32 ? 2 * (1 + NOP) * DK * DT
+                            : tier_halves(tier) * cmax(bf16_slab(NOP, 1), bf16_slab(1, NOP));
 }
 // a block's dynamic shared memory: four groups' stages, reused for the partial tiles
-__host__ __device__ constexpr size_t dense_smem_bytes(int NOP, bool high) {
-    return sizeof(float) * 4 * group_floats(NOP, high);
+__host__ __device__ constexpr size_t dense_smem_bytes(int NOP, int tier) {
+    return sizeof(float) * 4 * group_floats(NOP, tier);
 }
-static_assert(group_floats(1, false) >= DT * DT && group_floats(2, false) >= 2 * DT * DT &&
-                  group_floats(1, true) >= DT * DT && group_floats(2, true) >= 2 * DT * DT,
+static_assert(group_floats(1, TIER_F32) >= DT * DT && group_floats(2, TIER_F32) >= 2 * DT * DT &&
+                  group_floats(1, TIER_HIGH) >= DT * DT &&
+                  group_floats(2, TIER_HIGH) >= 2 * DT * DT &&
+                  group_floats(1, TIER_BF16) >= DT * DT &&
+                  group_floats(2, TIER_BF16) >= 2 * DT * DT,
               "the stages hold the four groups' partial tiles");
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -219,8 +232,14 @@ __device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
     return *reinterpret_cast<unsigned*>(&v);
 }
 
-// The bf16 heads (round to nearest even) and residuals bf16(x - head) of
-// four floats, packed in pairs as they lie in memory
+// The bf16 heads (round to nearest even) of four floats, packed in pairs
+// as they lie in memory
+__device__ __forceinline__ uint2 round4(float4 v) {
+    return make_uint2(bf16x2_bits(__floats2bfloat162_rn(v.x, v.y)),
+                      bf16x2_bits(__floats2bfloat162_rn(v.z, v.w)));
+}
+
+// ... and with them the residuals bf16(x - head)
 __device__ __forceinline__ void split4(float4 v, uint2& h, uint2& l) {
     const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
     const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
@@ -312,18 +331,20 @@ __device__ __forceinline__ void dense_tile(const float* __restrict__ M, int n, i
     }
 }
 
-// dense_tile at 'high': M is the (2, n, n) bf16 split [head, residual] of
-// the circulant. The same loads (M's as bf16 heads and residuals); the
-// operand is split where it is staged. acc[o][j] is n8 column tile j of
-// the warp's 16 rows (16 (gt / 32)..) in the mma C layout.
-template <int AX, int NOP, bool EDGE, class Op>
-__device__ __forceinline__ void dense_tile_high(const __nv_bfloat16* __restrict__ M, int n,
+// dense_tile at a bf16 tier: M is the (2, n, n) bf16 split [head,
+// residual] of the circulant (RESID, 'high') or its (n, n) head ('bf16').
+// The same loads (M's as bf16); the operand is split, or rounded to its
+// head, where it is staged. acc[o][j] is n8 column tile j of the warp's 16
+// rows (16 (gt / 32)..) in the mma C layout.
+template <int AX, int NOP, bool EDGE, bool RESID, class Op>
+__device__ __forceinline__ void dense_tile_bf16(const __nv_bfloat16* __restrict__ M, int n,
                                                 int i0, int j0, int kb, int ke, float* sm,
                                                 int gt, int bar, Op op,
                                                 float (&acc)[NOP][4][4]) {
     constexpr int NL = AX == 0 ? NOP : 1, NR = AX == 0 ? 1 : NOP;
+    constexpr int NH = RESID ? 2 : 1;                     // slabs of each operand: head (, residual)
     constexpr int SL = NL * DT * AS, SR = NR * DK * BS;   // head -> residual
-    constexpr int STAGE = high_stage(NL, NR);
+    constexpr int STAGE = NH * bf16_slab(NL, NR);
     const __nv_bfloat16* Ml = M + (size_t)n * n;
     __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(sm);
     const int li = gt % DT, lq = gt / DT;     // left loads: row li, k quads lq and lq + 2
@@ -342,10 +363,10 @@ __device__ __forceinline__ void dense_tile_high(const __nv_bfloat16* __restrict_
 #pragma unroll
                 for (int o = 0; o < NOP; ++o) oreg[o][h] = op(0, o, i0 + li, k0 + (lq + 2 * h) * 4);
                 mh[h] = ldqh<EDGE>(M, k0 + rk + 8 * h, j0 + rj, n, n);
-                ml[h] = ldqh<EDGE>(Ml, k0 + rk + 8 * h, j0 + rj, n, n);
+                if constexpr (RESID) ml[h] = ldqh<EDGE>(Ml, k0 + rk + 8 * h, j0 + rj, n, n);
             } else {
                 mh[h] = ldqh<EDGE>(M, i0 + li, k0 + (lq + 2 * h) * 4, n, n);
-                ml[h] = ldqh<EDGE>(Ml, i0 + li, k0 + (lq + 2 * h) * 4, n, n);
+                if constexpr (RESID) ml[h] = ldqh<EDGE>(Ml, i0 + li, k0 + (lq + 2 * h) * 4, n, n);
 #pragma unroll
                 for (int o = 0; o < NOP; ++o) oreg[o][h] = op(1, o, k0 + rk + 8 * h, j0 + rj);
             }
@@ -354,48 +375,50 @@ __device__ __forceinline__ void dense_tile_high(const __nv_bfloat16* __restrict_
     // left slabs [head, residual][o][row][k], right slabs [head, residual][o][k][column]
     auto stash = [&](__nv_bfloat16* st) {
         __nv_bfloat16* L = st;
-        __nv_bfloat16* R = st + 2 * SL;
+        __nv_bfloat16* R = st + NH * SL;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             const int lat = li * AS + (lq + 2 * h) * 4, rat = (rk + 8 * h) * BS + rj;
 #pragma unroll
             for (int o = 0; o < NOP; ++o) {
-                uint2 vh, vl;
-                split4(oreg[o][h], vh, vl);
+                uint2 vh, vl{};
+                if constexpr (RESID) split4(oreg[o][h], vh, vl);
+                else vh = round4(oreg[o][h]);
                 const int at = AX == 0 ? o * DT * AS + lat : o * DK * BS + rat;
                 __nv_bfloat16* dst = AX == 0 ? L : R;
                 *reinterpret_cast<uint2*>(dst + at) = vh;
-                *reinterpret_cast<uint2*>(dst + (AX == 0 ? SL : SR) + at) = vl;
+                if constexpr (RESID) *reinterpret_cast<uint2*>(dst + (AX == 0 ? SL : SR) + at) = vl;
             }
             __nv_bfloat16* dst = AX == 0 ? R : L;
             const int at = AX == 0 ? rat : lat;
             *reinterpret_cast<uint2*>(dst + at) = mh[h];
-            *reinterpret_cast<uint2*>(dst + (AX == 0 ? SR : SL) + at) = ml[h];
+            if constexpr (RESID) *reinterpret_cast<uint2*>(dst + (AX == 0 ? SR : SL) + at) = ml[h];
         }
     };
     auto products = [&](const __nv_bfloat16* st) {
         const __nv_bfloat16* L = st;
-        const __nv_bfloat16* R = st + 2 * SL;
-        unsigned ah[NL][4], al[NL][4];
+        const __nv_bfloat16* R = st + NH * SL;
+        unsigned ah[NL][4], al[NL][4] = {};
 #pragma unroll
         for (int o = 0; o < NL; ++o) {
             ldsm_x4(L + (o * DT + ar) * AS + ak, ah[o]);
-            ldsm_x4(L + SL + (o * DT + ar) * AS + ak, al[o]);
+            if constexpr (RESID) ldsm_x4(L + SL + (o * DT + ar) * AS + ak, al[o]);
         }
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-            unsigned bh[NR][4], bl[NR][4];
+            unsigned bh[NR][4], bl[NR][4] = {};
 #pragma unroll
             for (int o = 0; o < NR; ++o) {
                 ldsm_x4_t(R + (o * DK + bk) * BS + 16 * half + bc, bh[o]);
-                ldsm_x4_t(R + SR + (o * DK + bk) * BS + 16 * half + bc, bl[o]);
+                if constexpr (RESID) ldsm_x4_t(R + SR + (o * DK + bk) * BS + 16 * half + bc, bl[o]);
             }
 #pragma unroll
             for (int o = 0; o < NOP; ++o)
 #pragma unroll
                 for (int j = 0; j < 2; ++j)
-                    mma_high(acc[o][2 * half + j], ah[AX == 0 ? o : 0], al[AX == 0 ? o : 0],
-                             bh[AX == 0 ? 0 : o], bl[AX == 0 ? 0 : o], j);
+                    mma_tier<RESID>(acc[o][2 * half + j], ah[AX == 0 ? o : 0],
+                                    al[AX == 0 ? o : 0], bh[AX == 0 ? 0 : o],
+                                    bl[AX == 0 ? 0 : o], j);
         }
     };
     fetch(kb);
@@ -414,12 +437,12 @@ __device__ __forceinline__ void dense_tile_high(const __nv_bfloat16* __restrict_
 // operands: X[o] = d_x (operand o) and Y[o] = d_y (operand o) at this
 // thread's four pixels (row threadIdx.x / 8, columns 4 (threadIdx.x % 8)..
 // of the tile), either skipped (zero) when has_x / has_y is false; DxT and
-// Dy are FP32 (n, n), or at HIGH their (2, n, n) bf16 split. Four groups
-// of 64 threads take (x, y) x (two halves of the contraction's slabs), or
-// four quarters of the one product asked for, and meet in shared memory;
-// sm holds 4 group_floats(NOP, HIGH). Every thread of the block must call
-// it.
-template <int NOP, bool HIGH, bool EDGE, class Op>
+// Dy are FP32 (n, n), at 'high' their (2, n, n) bf16 split, at 'bf16' their
+// (n, n) bf16 heads. Four groups of 64 threads take (x, y) x (two halves of
+// the contraction's slabs), or four quarters of the one product asked for,
+// and meet in shared memory; sm holds 4 group_floats(NOP, TIER). Every
+// thread of the block must call it.
+template <int NOP, int TIER, bool EDGE, class Op>
 __device__ __forceinline__ void dense_xy(const void* __restrict__ DxT,
                                          const void* __restrict__ Dy, int Ny, int Nx, float* sm,
                                          bool has_x, bool has_y, Op op, float4 (&X)[NOP],
@@ -439,15 +462,16 @@ __device__ __forceinline__ void dense_xy(const void* __restrict__ DxT,
         for (int a = 0; a < 4; ++a)
 #pragma unroll
             for (int b = 0; b < 4; ++b) acc[o][a][b] = 0.f;
-    float* stage = sm + g * group_floats(NOP, HIGH);
+    constexpr bool RESID = TIER == TIER_HIGH;
+    float* stage = sm + g * group_floats(NOP, TIER);
     if (axis == 0 ? has_x : has_y) {
-        if constexpr (HIGH) {
+        if constexpr (TIER != TIER_F32) {
             if (axis == 0)
-                dense_tile_high<0, NOP, EDGE>(static_cast<const __nv_bfloat16*>(DxT), Nx, i0, j0,
-                                              kb, ke, stage, gt, 1 + g, op, acc);
+                dense_tile_bf16<0, NOP, EDGE, RESID>(static_cast<const __nv_bfloat16*>(DxT), Nx,
+                                                     i0, j0, kb, ke, stage, gt, 1 + g, op, acc);
             else
-                dense_tile_high<1, NOP, EDGE>(static_cast<const __nv_bfloat16*>(Dy), Ny, i0, j0,
-                                              kb, ke, stage, gt, 1 + g, op, acc);
+                dense_tile_bf16<1, NOP, EDGE, RESID>(static_cast<const __nv_bfloat16*>(Dy), Ny,
+                                                     i0, j0, kb, ke, stage, gt, 1 + g, op, acc);
         } else {
             if (axis == 0)
                 dense_tile<0, NOP, EDGE>(static_cast<const float*>(DxT), Nx, i0, j0, kb, ke, stage,
@@ -458,7 +482,7 @@ __device__ __forceinline__ void dense_xy(const void* __restrict__ DxT,
         }
     }
     __syncthreads();   // every group has left its stages: reuse them for the partial tiles
-    if constexpr (HIGH) {   // C layout: (row 16 w + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2)
+    if constexpr (TIER != TIER_F32) {   // C layout: (row 16 w + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2)
         const int lane = gt % 32, r0 = 16 * (gt / 32) + lane / 4, c0 = 2 * (lane % 4);
 #pragma unroll
         for (int o = 0; o < NOP; ++o)
@@ -495,7 +519,7 @@ __device__ __forceinline__ void dense_xy(const void* __restrict__ DxT,
 // One velocity of flow KIND; p holds the planes (p_x, p_y) at time t.
 // blockIdx.z is the component (forward, adjoint); the backward kind walks
 // its components in the block, because w sums over them.
-template <int KIND, bool HIGH, bool EDGE>
+template <int KIND, int TIER, bool EDGE>
 __global__ void __launch_bounds__(DNT)
 velocity_kernel(const float* __restrict__ y, float* __restrict__ k,
                 const float* __restrict__ phi, const float* __restrict__ p,
@@ -515,7 +539,7 @@ velocity_kernel(const float* __restrict__ y, float* __restrict__ k,
         const float* a = y + (size_t)c * plane;
         const float* b = y + (size_t)(ncomp + c) * plane;   // backward: delta f_c
         float4 X[NOP], Y[NOP];
-        dense_xy<NOP, HIGH, EDGE>(
+        dense_xy<NOP, TIER, EDGE>(
             DxT, Dy, Ny, Nx, sm, true, true,
             [&](int axis, int op, int r, int cc) {
                 // f_c as it is (forward, backward); p f_c (adjoint); p delta f_c (backward)
@@ -551,7 +575,7 @@ velocity_kernel(const float* __restrict__ y, float* __restrict__ k,
 }
 
 // out = d_x a + d_y b + c over blockIdx.z planes; a, b or c may be null.
-template <bool HIGH, bool EDGE>
+template <int TIER, bool EDGE>
 __global__ void __launch_bounds__(DNT)
 deriv_kernel(const float* __restrict__ a, const float* __restrict__ b,
              const float* __restrict__ c, float* __restrict__ out,
@@ -562,7 +586,7 @@ deriv_kernel(const float* __restrict__ a, const float* __restrict__ b,
     const int tid = threadIdx.x;
     const int row = blockIdx.y * DT + tid / 8, col = blockIdx.x * DT + (tid % 8) * 4;
     float4 X[1], Y[1];
-    dense_xy<1, HIGH, EDGE>(
+    dense_xy<1, TIER, EDGE>(
         DxT, Dy, Ny, Nx, sm, a != nullptr, b != nullptr,
         [&](int axis, int, int r, int cc) {
             return ldq<EDGE>((axis == 0 ? a : b) + base, r, cc, Ny, Nx);
@@ -627,31 +651,31 @@ int allow(K kernel, size_t bytes) {
                                      (int)bytes);
 }
 
-template <bool HIGH, bool EDGE>
+template <int TIER, bool EDGE>
 int allow_dense() {
-    int rc = allow(velocity_kernel<FORWARD, HIGH, EDGE>, dense_smem_bytes(1, HIGH));
-    if (rc == 0) rc = allow(velocity_kernel<ADJOINT, HIGH, EDGE>, dense_smem_bytes(1, HIGH));
-    if (rc == 0) rc = allow(velocity_kernel<BACKWARD, HIGH, EDGE>, dense_smem_bytes(2, HIGH));
-    if (rc == 0) rc = allow(deriv_kernel<HIGH, EDGE>, dense_smem_bytes(1, HIGH));
+    int rc = allow(velocity_kernel<FORWARD, TIER, EDGE>, dense_smem_bytes(1, TIER));
+    if (rc == 0) rc = allow(velocity_kernel<ADJOINT, TIER, EDGE>, dense_smem_bytes(1, TIER));
+    if (rc == 0) rc = allow(velocity_kernel<BACKWARD, TIER, EDGE>, dense_smem_bytes(2, TIER));
+    if (rc == 0) rc = allow(deriv_kernel<TIER, EDGE>, dense_smem_bytes(1, TIER));
     return rc;
 }
 
-template <bool HIGH, bool EDGE>
+template <int TIER, bool EDGE>
 int velocity(int kind, const float* y, float* k, const float* phi, const float* p,
              const void* DxT, const void* Dy, int ncomp, int Ny, int Nx, float t,
              cudaStream_t st) {
     const dim3 grid(tiles(Nx), tiles(Ny), kind == BACKWARD ? 1 : ncomp);
     switch (kind) {
         case FORWARD:
-            velocity_kernel<FORWARD, HIGH, EDGE><<<grid, DNT, dense_smem_bytes(1, HIGH), st>>>(
+            velocity_kernel<FORWARD, TIER, EDGE><<<grid, DNT, dense_smem_bytes(1, TIER), st>>>(
                 y, k, phi, p, DxT, Dy, ncomp, Ny, Nx, t);
             break;
         case ADJOINT:
-            velocity_kernel<ADJOINT, HIGH, EDGE><<<grid, DNT, dense_smem_bytes(1, HIGH), st>>>(
+            velocity_kernel<ADJOINT, TIER, EDGE><<<grid, DNT, dense_smem_bytes(1, TIER), st>>>(
                 y, k, phi, p, DxT, Dy, ncomp, Ny, Nx, t);
             break;
         case BACKWARD:
-            velocity_kernel<BACKWARD, HIGH, EDGE><<<grid, DNT, dense_smem_bytes(2, HIGH), st>>>(
+            velocity_kernel<BACKWARD, TIER, EDGE><<<grid, DNT, dense_smem_bytes(2, TIER), st>>>(
                 y, k, phi, p, DxT, Dy, ncomp, Ny, Nx, t);
             break;
         default:
@@ -660,12 +684,22 @@ int velocity(int kind, const float* y, float* k, const float* phi, const float* 
     return (int)cudaGetLastError();
 }
 
-template <bool HIGH, bool EDGE>
+template <int TIER, bool EDGE>
 int deriv(const float* a, const float* b, const float* c, float* out, const void* DxT,
           const void* Dy, int nplanes, int Ny, int Nx, cudaStream_t st) {
-    deriv_kernel<HIGH, EDGE><<<dim3(tiles(Nx), tiles(Ny), nplanes), DNT, dense_smem_bytes(1, HIGH),
+    deriv_kernel<TIER, EDGE><<<dim3(tiles(Nx), tiles(Ny), nplanes), DNT, dense_smem_bytes(1, TIER),
                               st>>>(a, b, c, out, DxT, Dy, Ny, Nx);
     return (int)cudaGetLastError();
+}
+
+// The launcher of `tier` among FP32, 'high' and 'bf16', with the edge
+// guards or without (nullptr for another tier).
+template <class F>
+F dense_fn(int tier, bool edge, F f32, F f32e, F high, F highe, F bf16, F bf16e) {
+    return tier == TIER_F32    ? (edge ? f32e : f32)
+           : tier == TIER_HIGH ? (edge ? highe : high)
+           : tier == TIER_BF16 ? (edge ? bf16e : bf16)
+                               : nullptr;
 }
 
 }  // namespace
@@ -674,32 +708,37 @@ int deriv(const float* a, const float* b, const float* c, float* out, const void
 // 'high' backward kind's 68 KB is above the 48 KB a kernel gets unasked).
 // Once, before the first launch.
 extern "C" int lf_dense_init() {
-    int rc = allow_dense<false, false>();
-    if (rc == 0) rc = allow_dense<false, true>();
-    if (rc == 0) rc = allow_dense<true, false>();
-    return rc != 0 ? rc : allow_dense<true, true>();
+    int rc = allow_dense<TIER_F32, false>();
+    if (rc == 0) rc = allow_dense<TIER_F32, true>();
+    if (rc == 0) rc = allow_dense<TIER_HIGH, false>();
+    if (rc == 0) rc = allow_dense<TIER_HIGH, true>();
+    if (rc == 0) rc = allow_dense<TIER_BF16, false>();
+    return rc != 0 ? rc : allow_dense<TIER_BF16, true>();
 }
 
 // k <- the velocity of flow `kind` at time t of the (nstate, Ny, Nx) state
-// y; phi is (5, Ny, Nx) and p its p(t) planes, (2, Ny, Nx). high != 0 runs
-// the 'high' tier, DxT and Dy then their (2, n, n) bf16 split. One launch.
-extern "C" int lf_velocity(int high, int kind, const float* y, float* k, const float* phi,
+// y; phi is (5, Ny, Nx) and p its p(t) planes, (2, Ny, Nx). `tier` picks
+// FP32 (0), 'high' (1; DxT and Dy then their (2, n, n) bf16 split) or
+// 'bf16' (2; their (n, n) bf16 heads). One launch.
+extern "C" int lf_velocity(int tier, int kind, const float* y, float* k, const float* phi,
                            const float* p, const void* DxT, const void* Dy, int ncomp, int Ny,
                            int Nx, float t, void* stream) {
-    if (!dense_shape_ok(Ny, Nx, ncomp)) return (int)cudaErrorInvalidValue;
-    const bool edge = has_edge(Ny, Nx);
-    auto fn = high ? (edge ? velocity<true, true> : velocity<true, false>)
-                   : (edge ? velocity<false, true> : velocity<false, false>);
+    const auto fn = dense_fn(tier, has_edge(Ny, Nx), velocity<TIER_F32, false>,
+                             velocity<TIER_F32, true>, velocity<TIER_HIGH, false>,
+                             velocity<TIER_HIGH, true>, velocity<TIER_BF16, false>,
+                             velocity<TIER_BF16, true>);
+    if (!dense_shape_ok(Ny, Nx, ncomp) || fn == nullptr) return (int)cudaErrorInvalidValue;
     return fn(kind, y, k, phi, p, DxT, Dy, ncomp, Ny, Nx, t, (cudaStream_t)stream);
 }
 
-extern "C" int lf_deriv(int high, const float* a, const float* b, const float* c, float* out,
+extern "C" int lf_deriv(int tier, const float* a, const float* b, const float* c, float* out,
                         const void* DxT, const void* Dy, int nplanes, int Ny, int Nx,
                         void* stream) {
-    if (!dense_shape_ok(Ny, Nx, nplanes)) return (int)cudaErrorInvalidValue;
-    const bool edge = has_edge(Ny, Nx);
-    auto fn = high ? (edge ? deriv<true, true> : deriv<true, false>)
-                   : (edge ? deriv<false, true> : deriv<false, false>);
+    const auto fn = dense_fn(tier, has_edge(Ny, Nx), deriv<TIER_F32, false>,
+                             deriv<TIER_F32, true>, deriv<TIER_HIGH, false>,
+                             deriv<TIER_HIGH, true>, deriv<TIER_BF16, false>,
+                             deriv<TIER_BF16, true>);
+    if (!dense_shape_ok(Ny, Nx, nplanes) || fn == nullptr) return (int)cudaErrorInvalidValue;
     return fn(a, b, c, out, DxT, Dy, nplanes, Ny, Nx, (cudaStream_t)stream);
 }
 

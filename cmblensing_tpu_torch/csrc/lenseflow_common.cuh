@@ -1,10 +1,17 @@
 // Device helpers shared by the dense (lenseflow.cu) and factored
 // (factored.cu, uni.cu through fact_tile.cuh) LenseFlow kernels: p(t) and
-// the delta-phi integrands, and the bf16 tensor-core products of the
-// 'high' tier.
+// the delta-phi integrands, the precision tiers, and the bf16 tensor-core
+// products of the 'high' and 'bf16' tiers.
 #pragma once
 
 #include <stddef.h>
+
+// The precision tiers of the derivative products, the value of every C
+// entry's `tier` argument (ops/lenseflow_kernels.py::PRECISIONS, in order):
+// FP32 FMA; 'high', the bf16 head/residual split, three bf16 products a
+// product; 'bf16', one bf16 product of the operands rounded to nearest
+// even. The two bf16 tiers accumulate in FP32 on mma.sync.
+enum Tier { TIER_F32 = 0, TIER_HIGH = 1, TIER_BF16 = 2 };
 
 // p(t) = (I + t Hess phi)^-1 grad phi at pixel idx; phi holds the planes
 // (gx, gy, hxx, hxy, hyy) with stride `plane`.
@@ -80,4 +87,16 @@ __device__ __forceinline__ void mma_high(float (&d)[4], const unsigned (&ah)[4],
     mma_bf16(d, ah, bh[2 * j], bh[2 * j + 1]);
     mma_bf16(d, al, bh[2 * j], bh[2 * j + 1]);
     mma_bf16(d, ah, bl[2 * j], bl[2 * j + 1]);
+}
+
+// The product of a bf16 tier: mma_high with the residuals (RESID, 'high'),
+// or the heads' one product ('bf16'; al and bl unread)
+template <bool RESID>
+__device__ __forceinline__ void mma_tier(float (&d)[4], const unsigned (&ah)[4],
+                                         const unsigned (&al)[4], const unsigned (&bh)[4],
+                                         const unsigned (&bl)[4], int j) {
+    if constexpr (RESID)
+        mma_high(d, ah, al, bh, bl, j);
+    else
+        mma_bf16(d, ah, bh[2 * j], bh[2 * j + 1]);
 }

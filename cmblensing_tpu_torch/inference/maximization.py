@@ -15,11 +15,15 @@ and their guards:
   CG algebra stay strict; the final residual is re-evaluated with a
   strict Hessian and, when it misses max(tol, 1e-10 res0), the solve
   re-runs strict (``info["precision_fallback"]``).
-- ``MAP_joint``: ``precision="auto"`` (= 'high') for the phi-gradient
-  and ``unmix``; the grid line search always strict; when its strict
-  trials reject the 'high' direction (alpha = 0), the gradient is
-  recomputed strict and searched again, and an accepted retry keeps the
-  run strict. ``precision=None`` is strict everywhere, the f-step
+- ``hessian_precision="bf16"`` runs those applies at 'bf16' (one bf16
+  product per circulant product), with the same strict check and
+  fallback.
+- ``MAP_joint``: ``precision="auto"`` (= 'high') or 'bf16' for the
+  phi-gradient and ``unmix``; the grid line search always strict; when
+  its strict trials reject the reduced-precision direction (alpha = 0),
+  the gradient is recomputed strict and searched again, and an accepted
+  retry keeps the run strict. The f-step keeps its own default
+  ("auto"). ``precision=None`` is strict everywhere, the f-step
   included.
 
 One deliberate difference from the JAX package (ROADMAP Queue 3, its
@@ -28,7 +32,7 @@ retry fires until a step finds alpha > 0; the JAX package retries on
 every later step, a gradient and a line search each time.
 
 Not ported yet, and refused with NotImplementedError (ROADMAP Queue 1
-item 3): the 'bf16' tier, ``linesearch="brent"`` (and so an
+item 3): ``linesearch="brent"`` (and so an
 ``alpha_tol`` and a ``logprior`` in MAP_joint), ``quasi_sample`` (and
 so a ``key``), ``nburnin_update_hessian``, batched datasets, and
 ``MAP_marg``. ``argmaxf_logpdf`` solves the Gaussian conditional only and
@@ -59,9 +63,6 @@ HISTORY_KEYS = ("logpdf", "phi", "f", "alpha", "cg_iters", "cg_res", "cg_res_his
 
 
 def _check_precision(precision, name, allowed):
-    if precision == "bf16":
-        raise NotImplementedError(f"{name}='bf16': the 'bf16' tier of the LenseFlow kernels is "
-                                  "not ported (ROADMAP Queue 2)")
     if precision not in allowed:
         raise ValueError(f"{name}={precision!r}: one of {allowed}")
 
@@ -122,8 +123,8 @@ def argmaxf_logpdf(ds: DataSet, phi=None, theta=None, d=None, fstart=None,
     H f = b solved by preconditioned CG, with H applied through the
     analytic f-gradient. conjgrad_kwargs go to `conjugate_gradient` (tol,
     nsteps, fixed_iters, record_history), but for hessian_precision:
-    "auto" (the default, = 'high') or 'high' runs the Hessian applies at
-    that precision while b, a0 and the CG algebra stay strict, then
+    "auto" (the default, = 'high'), 'high' or 'bf16' runs the Hessian
+    applies at that precision while b, a0 and the CG algebra stay strict, then
     re-checks the final residual with a strict Hessian (info["res_strict"],
     info["precision_ok"]) and re-runs the whole solve strict when it
     misses max(tol, 1e-10 res0) (info["precision_fallback"] = True); None
@@ -138,7 +139,7 @@ def argmaxf_logpdf(ds: DataSet, phi=None, theta=None, d=None, fstart=None,
     cg.update(conjgrad_kwargs or {})
     hp = cg.pop("hessian_precision")
     hp = "high" if hp == "auto" else hp
-    _check_precision(hp, "hessian_precision", (None, "f32", "high"))
+    _check_precision(hp, "hessian_precision", (None, "f32", "high", "bf16"))
     if d is None:
         d = ds.d
     if d.batch_shape:
@@ -325,11 +326,12 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
     posterior, its length from a grid line search of ngrid trials on
     (0, amax] (amax = twice the last accepted step, or alpha_max).
 
-    precision: "auto" (the default, = 'high') or 'high' runs the
-    phi-gradient and unmix at 'high' and the line search strict, with the
-    direction retry (module docstring); 'f32' all three strict, the
-    f-step's CG at its own default ("auto") unless conjgrad_kwargs names
-    a hessian_precision; None strict everywhere, the f-step included.
+    precision: "auto" (the default, = 'high'), 'high' or 'bf16' runs the
+    phi-gradient and unmix at that precision and the line search strict,
+    with the direction retry (module docstring); 'f32' all three strict.
+    At each of these the f-step's CG runs at its own default ("auto")
+    unless conjgrad_kwargs names a hessian_precision; None is strict
+    everywhere, the f-step included.
     history_keys picks what each step records: "logpdf", "phi" (after
     the step, map basis), "f" (the f-step's), "alpha", "cg_iters",
     "cg_res", "cg_res_history" (when conjgrad_kwargs ask CG to record
@@ -339,7 +341,7 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
     defaults only, while those two are not ported. Iteration stops early
     once a step after minsteps moves phi° by less than gradtol (alpha
     |dphi|). Returns dict(f, phi, history)."""
-    _check_precision(precision, "precision", (None, "auto", "f32", "high"))
+    _check_precision(precision, "precision", (None, "auto", "f32", "high", "bf16"))
     unknown = [k for k in history_keys if k not in HISTORY_KEYS]
     if unknown:
         raise ValueError(f"history_keys {unknown}: MAP_joint records {HISTORY_KEYS}")
@@ -372,7 +374,7 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
     Hpre = hessian_phimix_preconditioner(dstheta) if dstheta.Nphi is not None else Cphi.pinv()
     Hpre_inv = Hpre.pinv()
     prec = "high" if precision == "auto" else precision
-    ls_prec = "f32" if prec == "high" else prec   # the line search is always strict
+    ls_prec = "f32" if prec in ("high", "bf16") else prec   # the line search is always strict
 
     def direction(prec_):
         with _pctx(prec_):

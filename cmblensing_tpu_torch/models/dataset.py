@@ -217,7 +217,8 @@ class Mixed:
 
 
 def mix(ds: DataSet, f=None, phi=None, theta=None):
-    """(f, phi) -> (f°, phi°): f° = L(phi) D(theta) f, phi° = G(theta) phi."""
+    """(f, phi) -> (f°, phi°): f° = L(phi) D(theta) f, phi° = G(theta) phi,
+    L's flows at the matmul precision in force (ops/deriv.py)."""
     theta = theta or {}
     D = evaluate_at(ds.D, theta)
     G = evaluate_at(ds.G, theta)
@@ -225,7 +226,8 @@ def mix(ds: DataSet, f=None, phi=None, theta=None):
 
 
 def unmix(ds: DataSet, f_mix=None, phi_mix=None, theta=None):
-    """(f°, phi°) -> (f, phi)."""
+    """(f°, phi°) -> (f, phi), L^-1's flows at the matmul precision in
+    force (MAP_joint's unmix runs at its `precision`)."""
     theta = theta or {}
     D = evaluate_at(ds.D, theta)
     G = evaluate_at(ds.G, theta)

@@ -33,8 +33,9 @@ Four integration backends, chosen with `set_lenseflow_backend` or
 
 The 'kernel', 'matmul' and 'uni' flows run at the matmul precision in
 force when the operator is applied (ops/deriv.py::precision_ctx; 'high'
-on 'kernel' and 'matmul', 'f32' on all three); the autograd Functions record it at forward
-time and run their backward at it, wherever `.backward()` is called.
+and 'bf16' on 'kernel' and 'matmul', 'f32' on all three); the autograd
+Functions record it at forward time and run their backward at it,
+wherever `.backward()` is called.
 The 'plain' backend's FFT derivatives ignore it.
 """
 from __future__ import annotations

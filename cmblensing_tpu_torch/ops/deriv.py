@@ -20,9 +20,11 @@ forms are the same operator.
 The dense and factored products run at the matmul precision in force
 (``set_matmul_precision``, ``precision_ctx``), as the JAX package's do:
 'f32' strict float32 (the default); 'high' the bf16 head/residual split,
-three bf16 x bf16 products summed in float32; 'bf16' one bf16 product
-(accepted here, refused by every flow: ROADMAP Queue 2). The FFT forms
-ignore it. The switch touches neither TF32 pin of ``torch.backends``.
+three bf16 x bf16 products summed in float32; 'bf16' one product of the
+operands rounded to bf16, summed in float32 (~1e-3 relative; the "uni"
+LenseFlow backend refuses it, as it refuses 'high': ROADMAP Queue 2, K5).
+The FFT forms ignore it. The switch touches neither TF32 pin of
+``torch.backends``.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from . import fft as _fft
-from .factored_deriv import FactoredOps, apply_x, apply_y, dot_high, factored_ops
+from .factored_deriv import FactoredOps, apply_x, apply_y, dot_bf16, dot_high, factored_ops
 
 # Block size of the factored derivative. Provisional rule, to be set
 # from H100 measurements: radix B = n / FACTOR_A where that is a radix the
@@ -125,22 +127,23 @@ def deriv_mats(proj):
 
 def ddx_ddy(mats, precision="f32"):
     """(d/dx, d/dy) over (..., Ny, Nx) planes through the kernels'
-    operands, dense (DxT, Dy) circulants or FactoredOps, at 'f32' or
-    'high'."""
-    if precision not in ("f32", "high"):
-        raise NotImplementedError(f"derivative products at {precision!r}: only 'f32' and 'high' "
-                                  "are ported (ROADMAP Queue 2)")
+    operands, dense (DxT, Dy) circulants or FactoredOps, at 'f32', 'high'
+    or 'bf16'."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"derivative products at {precision!r}: one of {PRECISIONS}")
     if isinstance(mats, FactoredOps):
-        high = precision == "high"
-        if high and mats.FXS is None:
-            raise ValueError("'high' factored derivatives need the split blocks "
+        if precision != "f32" and mats.FXS is None:
+            raise ValueError(f"{precision!r} factored derivatives need the split blocks "
                              "(FactoredOps.FXS, FYTS) that factored_ops makes")
-        FXS, FYS = (mats.FXS, mats.FYTS.transpose(-1, -2)) if high else (None, None)
-        return ((lambda a: apply_x(a, mats.FX, mats.bfx, FXS)),
-                (lambda a: apply_y(a, mats.FY, mats.bfy, FYS)))
+        FXS, FYS = ((mats.FXS, mats.FYTS.transpose(-1, -2)) if precision != "f32"
+                    else (None, None))
+        return ((lambda a: apply_x(a, mats.FX, mats.bfx, FXS, precision)),
+                (lambda a: apply_y(a, mats.FY, mats.bfy, FYS, precision)))
     DxT, Dy = mats
     if precision == "high":
         return (lambda a: dot_high(DxT, a, True)), (lambda a: dot_high(Dy, a, False))
+    if precision == "bf16":
+        return (lambda a: dot_bf16(DxT, a, True)), (lambda a: dot_bf16(Dy, a, False))
     return (lambda a: a @ DxT), (lambda a: Dy @ a)
 
 

@@ -25,7 +25,8 @@ butterflies travel as a (2, B, B) tensor [Rf, Ri]. The y-axis blocks
 also travel transposed (FYT), the layout the CUDA tile stages for both
 axes (csrc/fact_tile.cuh). For the 'high' precision the blocks travel
 split as well, (2, B, A, A) bfloat16 [head, residual] of FX and FYT
-(FXS, FYTS), split once per operator.
+(FXS, FYTS), split once per operator; the 'bf16' precision reads their
+heads, FXS[0] and FYTS[0].
 """
 from __future__ import annotations
 
@@ -123,7 +124,8 @@ class FactoredOps(NamedTuple):
     plain apply does not use it, and `fyt` makes it where it is missing);
     FXS and FYTS, FX and FYT split into bfloat16 [head, residual]
     (2, B, A, A) for the 'high' precision, made by `factored_ops`; the
-    'high' apply and kernels take them as given."""
+    'high' apply and kernels take them as given, the 'bf16' ones their
+    heads FXS[0], FYTS[0] (the blocks rounded to nearest even)."""
     FX: torch.Tensor
     FY: torch.Tensor
     bfx: torch.Tensor
@@ -181,6 +183,27 @@ def _butterfly(planes, R):
     return [sum(R[c, r] * planes[r] for r in range(len(planes))) for c in range(R.shape[0])]
 
 
+def _butterfly_fma(planes, R):
+    """`_butterfly` summed as the CUDA tile sums it (csrc/fact_tile.cuh):
+    u = fma(R[c, r], planes[r], u) from u = 0 over r in order, each step
+    rounded once to float32. The product of two float32 values is exact in
+    float64, so each step is its fused multiply-add but where a float64
+    rounding lands on a float32 tie (double rounding, about one step in
+    2^29). Zero weights are skipped, as fma(0, x, u) = u. At 'bf16' the
+    kernel rounds these values to bf16, so this order makes the plain
+    version round the same values."""
+    wide = [p.double() for p in planes]
+    out = []
+    for c in range(R.shape[0]):
+        u = torch.zeros_like(planes[0])
+        for r, x in enumerate(wide):
+            w = float(R[c, r])
+            if w != 0.0:
+                u = (u.double() + w * x).float()
+        out.append(u)
+    return out
+
+
 def split_bf16(x):
     """(head, residual) of a float tensor as bfloat16, each rounded to
     nearest even: head = bf16(x), residual = bf16(x - head)."""
@@ -201,32 +224,62 @@ def dot_high(M, v, right, Ms=None):
     return (Mh @ vh + Ml @ vh) + Mh @ vl
 
 
-def _blocks_and_dot(G, right, S):
+def dot_bf16(M, v, right):
+    """M v (v M when `right`) at the 'bf16' precision, as the JAX
+    package's ``_mk_dot('bf16')``: one product of the operands rounded to
+    bfloat16 (nearest even), each term exact in float32 and summed in
+    float32. M may come rounded already (a block's head)."""
+    Mh, vh = M.to(torch.bfloat16).float(), v.to(torch.bfloat16).float()
+    return vh @ Mh if right else Mh @ vh
+
+
+def _blocks_and_dot(G, right, S, precision):
     """What `_blocks` takes for one axis: the blocks and their product, in
-    FP32 (S None) or at 'high', where each block travels with its split, S
-    the axis' split blocks (2, B, A, A) in G's layout."""
-    if S is None:
+    FP32, at 'high', where each block travels with its split, or at 'bf16',
+    where the blocks are their heads; S the axis' split blocks (2, B, A, A)
+    in G's layout."""
+    if precision == "f32":
         return G, (lambda M, v: v @ M) if right else torch.matmul
+    if precision == "bf16":
+        return S[0], lambda Mh, v: dot_bf16(Mh, v, right)
     return ([(G[c], (S[0, c], S[1, c])) for c in range(G.shape[0])],
             lambda Mp, v: dot_high(Mp[0], v, right, Mp[1]))
 
 
-def apply_x(x, FX, bf, split=None):
+def _tier(split, precision):
+    """The precision of an apply: 'high' where only the split is given
+    (the form the 'high' callers use), else `precision` ('f32' unless
+    said); 'high' and 'bf16' read the split blocks."""
+    p = precision or ("f32" if split is None else "high")
+    if p not in ("f32", "high", "bf16"):
+        raise ValueError(f"factored apply at precision {p!r}")
+    if p != "f32" and split is None:
+        raise ValueError(f"the factored apply at {p!r} needs the split blocks")
+    return p
+
+
+def apply_x(x, FX, bf, split=None, precision=None):
     """d/dx of (..., Ny, Nx) through the packed factored x operator, in
-    FP32, or at 'high' given FX's split blocks `split` (FactoredOps.FXS)."""
+    FP32, or at 'high' or 'bf16' given FX's split blocks `split`
+    (FactoredOps.FXS; 'high' when only it is given). At 'bf16' the forward
+    butterfly sums in the CUDA tile's order (`_butterfly_fma`), so that the
+    channel values rounded to bf16 are the kernel's."""
+    p = _tier(split, precision)
     B, A = FX.shape[0], FX.shape[-1]
     xr = x.reshape(x.shape[:-1] + (B, A))
-    u = _butterfly([xr[..., r, :] for r in range(B)], bf[0])
-    y = _blocks(u, *_blocks_and_dot(FX, True, split))
+    u = (_butterfly_fma if p == "bf16" else _butterfly)([xr[..., r, :] for r in range(B)], bf[0])
+    y = _blocks(u, *_blocks_and_dot(FX, True, split, p))
     return torch.stack(_butterfly(y, bf[1]), dim=-2).reshape(x.shape)
 
 
-def apply_y(x, FY, bf, split=None):
-    """d/dy of (..., Ny, Nx) through the packed factored y operator, in
-    FP32, or at 'high' given FY's split blocks `split` (FactoredOps.FYTS
-    with each block transposed back)."""
+def apply_y(x, FY, bf, split=None, precision=None):
+    """d/dy of (..., Ny, Nx) through the packed factored y operator, as
+    `apply_x`; `split` is FactoredOps.FYTS with each block transposed
+    back."""
+    p = _tier(split, precision)
     B, A = FY.shape[0], FY.shape[-1]
     xr = x.reshape(x.shape[:-2] + (B, A, x.shape[-1]))
-    u = _butterfly([xr[..., r, :, :] for r in range(B)], bf[0])
-    y = _blocks(u, *_blocks_and_dot(FY, False, split))
+    u = (_butterfly_fma if p == "bf16" else _butterfly)([xr[..., r, :, :] for r in range(B)],
+                                                        bf[0])
+    y = _blocks(u, *_blocks_and_dot(FY, False, split, p))
     return torch.stack(_butterfly(y, bf[1]), dim=-3).reshape(x.shape)

@@ -54,13 +54,16 @@ ops/deriv.py::deriv_ops returns.
 Precision: the public flows and `gradhess` run at the matmul precision
 in force (ops/deriv.py) unless given one. 'f32' is the kernels above;
 'high' (the JAX package's bf16 head/residual split, `_mk_dot('high')` /
-`_make_ddx_ddy` 'high') runs the kernels' tensor-core tier (the `high`
-argument of lf_velocity and lf_deriv, csrc/lenseflow.cu, and of
-lf_fderiv, lf_fa_velocity and lf_bv_velocity, csrc/factored.cu) and,
-for a CPU tensor, the plain 'high' leaves, dense or factored. With no
-'high' kernel for it, the uni granularity raises NotImplementedError
-(ROADMAP Queue 2), as does 'bf16' everywhere: neither runs strict
-instead.
+`_make_ddx_ddy` 'high') and 'bf16' (one product of the operands rounded
+to bf16, `_mk_dot('bf16')` / `_make_ddx_ddy` 'bf16') run the kernels'
+tensor-core tiers (the `tier` argument, the index in PRECISIONS, of
+lf_velocity and lf_deriv, csrc/lenseflow.cu, and of lf_fderiv,
+lf_fa_velocity and lf_bv_velocity, csrc/factored.cu) and, for a CPU
+tensor, the plain leaves at that precision, dense or factored; at
+'bf16' phi's planes are formed strict (PLANES_PRECISION). With no
+'high' or 'bf16' kernel for it, the uni granularity raises
+NotImplementedError at either (ROADMAP Queue 2, K5) rather than run
+strict.
 
 The dense kernels take any plane shape (their edge tiles are guarded);
 the factored ones a radix they are built for (ops/deriv.py::deriv_ops).
@@ -90,8 +93,13 @@ LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0
             "fa_velocity_adjoint": 0, "bv_velocity": 0, "uni_role0": 0, "uni_role1": 0,
             "uni_role2": 0, "uni_role3": 0, "fderiv_high": 0, "fa_velocity_forward_high": 0,
             "fa_velocity_adjoint_high": 0, "bv_velocity_high": 0, "velocity_forward_high": 0,
-            "velocity_adjoint_high": 0, "velocity_backward_high": 0, "deriv_high": 0}
-PRECISIONS = ("f32", "high")   # the tiers the flows are ported at
+            "velocity_adjoint_high": 0, "velocity_backward_high": 0, "deriv_high": 0,
+            "fderiv_bf16": 0, "fa_velocity_forward_bf16": 0, "fa_velocity_adjoint_bf16": 0,
+            "bv_velocity_bf16": 0, "velocity_forward_bf16": 0, "velocity_adjoint_bf16": 0,
+            "velocity_backward_bf16": 0, "deriv_bf16": 0}
+# the tiers the flows are ported at, in the order of the C entries' `tier`
+# argument (csrc/lenseflow_common.cuh::Tier)
+PRECISIONS = ("f32", "high", "bf16")
 
 
 def reset_launches():
@@ -242,9 +250,11 @@ _OPERANDS = {}   # (id(mats), precision) -> (mats, tensors, pointers): sets alre
 
 def _operands(name, mats, like, precision="f32"):
     """The derivative operands a kernel reads from `mats`: (DxT, Dy) (at
-    'high' their (2, n, n) bfloat16 splits [head, residual], made here
-    once per operand set) or a FactoredOps' (FX, FYT, bfx, bfy) (at 'high'
-    (FXS, FYTS, bfx, bfy)), as tensors and ready ctypes pointers. Device,
+    'high' their (2, n, n) bfloat16 splits [head, residual], at 'bf16'
+    their (n, n) bfloat16 heads, made here once per operand set) or a
+    FactoredOps' (FX, FYT, bfx, bfy) (at 'high' (FXS, FYTS, bfx, bfy), at
+    'bf16' (FXS[0], FYTS[0], bfx, bfy)), as tensors and ready ctypes
+    pointers. Device,
     type and contiguity are checked the first time an operand set is seen
     (a flow hands the same set to every launch); that it lies on `like`'s
     device, every time."""
@@ -255,12 +265,16 @@ def _operands(name, mats, like, precision="f32"):
         elif precision == "high":
             _check_cuda(name, mats)
             tensors = tuple(torch.stack(split_bf16(M)) for M in mats)
+        elif precision == "bf16":
+            _check_cuda(name, mats)
+            tensors = tuple(M.to(torch.bfloat16) for M in mats)
         else:
             tensors = tuple(mats)
         rest = tensors
-        if precision == "high":   # the split operands come first
+        if precision != "f32":   # the bf16 operands come first
             if tensors[0] is None or tensors[1] is None:
-                raise ValueError(f"{name}: 'high' needs the split blocks that factored_ops makes")
+                raise ValueError(f"{name}: {precision!r} needs the split blocks that factored_ops "
+                                 "makes")
             _check_cuda(name, tensors[:2], dtype=torch.bfloat16)
             rest = tensors[2:]
         if rest:
@@ -315,10 +329,10 @@ def p_planes_cuda(t, phi, out):
 
 def velocity_launcher(kind, y, k, phi, pt, mats, ncomp, precision="f32"):
     """launch(t): k <- the dense velocity kernel (K2) of flow `kind` at y,
-    at `precision` ('f32' or 'high')."""
+    at `precision` ('f32', 'high' or 'bf16')."""
     from . import _build
     Ny, Nx = y.shape[-2:]
-    high = _high_arg(precision)
+    tier = _tier_arg(precision)
     _, mptrs = _operands("lf_velocity", mats, y, precision)
     _check_cuda("lf_velocity", [y, k, phi, pt])
     DxT, Dy = mats
@@ -328,8 +342,8 @@ def velocity_launcher(kind, y, k, phi, pt, mats, ncomp, precision="f32"):
     nstate = {"backward": 2 * ncomp + NACC}.get(kind, ncomp)
     if y.shape != (nstate, Ny, Nx) or k.shape != y.shape:
         raise ValueError(f"lf_velocity: state {tuple(y.shape)} does not fit kind {kind}")
-    return _launcher(_build.load().lf_velocity, "lf_velocity", "velocity_" + kind + _SUFFIX[high],
-                     1, (high, KINDS[kind], _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *mptrs, ncomp,
+    return _launcher(_build.load().lf_velocity, "lf_velocity", "velocity_" + kind + _SUFFIX[tier],
+                     1, (tier, KINDS[kind], _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *mptrs, ncomp,
                          Ny, Nx))
 
 
@@ -353,11 +367,11 @@ def rk4_update_cuda(y, k, acc, s, stage, wacc, ws):
 
 def deriv_cuda(a, b, c, out, mats, precision="f32"):
     """K2's derivative: out <- d_x a + d_y b + c through the dense kernel at
-    `precision` ('f32' or 'high'), one launch."""
+    `precision` ('f32', 'high' or 'bf16'), one launch."""
     from . import _build
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
-    high = _high_arg(precision)
+    tier = _tier_arg(precision)
     _, mptrs = _operands("lf_deriv", mats, out, precision)
     _check_cuda("lf_deriv", [out, *given])
     if mats[0].shape != (Nx, Nx) or mats[1].shape != (Ny, Ny):
@@ -365,10 +379,10 @@ def deriv_cuda(a, b, c, out, mats, precision="f32"):
     if any(x.shape != out.shape for x in given):
         raise ValueError("lf_deriv: operand shapes differ from the output's")
     nplanes = out.numel() // (Ny * Nx)
-    rc = _build.load().lf_deriv(high, _ptr(a), _ptr(b), _ptr(c), _ptr(out), *mptrs, nplanes, Ny,
+    rc = _build.load().lf_deriv(tier, _ptr(a), _ptr(b), _ptr(c), _ptr(out), *mptrs, nplanes, Ny,
                                 Nx, _stream())
     _raise_on(rc, "lf_deriv")
-    LAUNCHES["deriv" + _SUFFIX[high]] += 1
+    LAUNCHES["deriv" + _SUFFIX[tier]] += 1
 
 
 def _check_factored(name, ops, Ny, Nx):
@@ -389,31 +403,35 @@ def _check_factored(name, ops, Ny, Nx):
 
 def _fops(ops, precision="f32"):
     """The operands the factored kernels read: x blocks, transposed y
-    blocks (at 'high' both split), the two butterflies."""
+    blocks (at 'high' both split, at 'bf16' their heads), the two
+    butterflies."""
     if precision == "high":
         return ops.FXS, ops.FYTS, ops.bfx, ops.bfy
+    if precision == "bf16":
+        heads = (None, None) if ops.FXS is None else (ops.FXS[0], ops.FYTS[0])
+        return (*heads, ops.bfx, ops.bfy)
     return ops.FX, fyt(ops), ops.bfx, ops.bfy
 
 
-_SUFFIX = ("", "_high")   # a 'high' launch's counter suffix, by the C entries' `high`
+_SUFFIX = ("", "_high", "_bf16")   # a launch's counter suffix, by the C entries' `tier`
 
 
-def _high_arg(precision):
-    """The factored C entries' `high` argument for `precision`."""
+def _tier_arg(precision):
+    """The C entries' `tier` argument for `precision`."""
     if precision not in PRECISIONS:
-        raise ValueError(f"factored kernels at precision {precision!r}")
-    return int(precision == "high")
+        raise ValueError(f"LenseFlow kernels at precision {precision!r}: one of {PRECISIONS}")
+    return PRECISIONS.index(precision)
 
 
 def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     """K1: out <- d_x a + d_y b + c through the factored derivative
-    kernel at `precision` ('f32' or 'high'), one launch per derivative
+    kernel at `precision` ('f32', 'high' or 'bf16'), one launch per derivative
     given and channel group (ops/deriv.py::radix_groups); out must not
     alias a or b."""
     from . import _build
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
-    high = _high_arg(precision)
+    tier = _tier_arg(precision)
     _, fptrs = _operands("lf_fderiv", ops, out, precision)
     _check_cuda("lf_fderiv", [out, *given])
     Bx, By = _check_factored("lf_fderiv", ops, Ny, Nx)
@@ -424,10 +442,10 @@ def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     if any(x is not None and x.data_ptr() == out.data_ptr() for x in (a, b)):
         raise ValueError("lf_fderiv: out must not alias a or b")
     nplanes = out.numel() // (Ny * Nx)
-    rc = _build.load().lf_fderiv(high, _ptr(a), _ptr(b), _ptr(c), _ptr(out), *fptrs, Bx, By,
+    rc = _build.load().lf_fderiv(tier, _ptr(a), _ptr(b), _ptr(c), _ptr(out), *fptrs, Bx, By,
                                  nplanes, Ny, Nx, _stream())
     _raise_on(rc, "lf_fderiv")
-    LAUNCHES["fderiv" + _SUFFIX[high]] += ((a is not None) * _deriv.radix_groups(Bx)
+    LAUNCHES["fderiv" + _SUFFIX[tier]] += ((a is not None) * _deriv.radix_groups(Bx)
                                           + (b is not None) * _deriv.radix_groups(By))
 
 
@@ -443,14 +461,14 @@ def _check_batched_state(name, y, k, phi, pt, nstate):
 
 def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
     """launch(t): K3 (forward, adjoint) or K4 (backward) at `precision`
-    ('f32' or 'high'), k <- the velocity of flow `kind` at the batched (nb,
+    ('f32', 'high' or 'bf16'), k <- the velocity of flow `kind` at the batched (nb,
     nstate, Ny, Nx) state y; phi is (nb, 5, Ny, Nx), pt its p(t) planes
     (2, nb, Ny, Nx). An x pass and a y pass, one launch each per channel
     group (ops/deriv.py::radix_groups)."""
     from . import _build
     Ny, Nx = y.shape[-2:]
     lib = _build.load()
-    high = _high_arg(precision)
+    tier = _tier_arg(precision)
     name = "lf_bv_velocity" if kind == "backward" else "lf_fa_velocity"
     _, fptrs = _operands(name, ops, y, precision)
     _check_cuda(name, [y, k, phi, pt])
@@ -458,12 +476,12 @@ def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
     nlaunch = _deriv.radix_groups(Bx) + _deriv.radix_groups(By)
     if kind == "backward":
         nb = _check_batched_state(name, y, k, phi, pt, 2 * ncomp + NACC)
-        return _launcher(lib.lf_bv_velocity, name, "bv_velocity" + _SUFFIX[high], nlaunch,
-                         (high, _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *fptrs, Bx, By, nb, ncomp,
+        return _launcher(lib.lf_bv_velocity, name, "bv_velocity" + _SUFFIX[tier], nlaunch,
+                         (tier, _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *fptrs, Bx, By, nb, ncomp,
                           Ny, Nx))
     nb = _check_batched_state(name, y, k, phi, pt, ncomp)
-    fa = _launcher(lib.lf_fa_velocity, name, "fa_velocity_" + kind + _SUFFIX[high], nlaunch,
-                   (high, ROLES[kind], _ptr(y), _ptr(k), _ptr(pt), *fptrs, Bx, By, nb, ncomp, Ny,
+    fa = _launcher(lib.lf_fa_velocity, name, "fa_velocity_" + kind + _SUFFIX[tier], nlaunch,
+                   (tier, ROLES[kind], _ptr(y), _ptr(k), _ptr(pt), *fptrs, Bx, By, nb, ncomp, Ny,
                     Nx))
     return lambda t: fa()   # K3 takes no time: p(t) reaches it as planes
 
@@ -580,11 +598,23 @@ KERNEL_HIGH = _Leaves(_high(velocity_cuda), rk4_update_cuda, _high(deriv_cuda), 
                       False, (_high(velocity_launcher), rk4_update_launcher, p_planes_launcher))
 FKERNEL_HIGH = _Leaves(_high(fvelocity_cuda), rk4_update_cuda, _high(fderiv_cuda), p_planes_cuda,
                        True, (_high(fvelocity_launcher), rk4_update_launcher, p_planes_launcher))
+# 'bf16': the plain leaves' one rounded product, the kernels' 'bf16' tier
+_bf16 = functools.partial(functools.partial, precision="bf16")
+PLAIN_BF16 = _Leaves(_bf16(velocity_plain), rk4_update_plain, _bf16(deriv_plain), p_planes_plain,
+                     False)
+FPLAIN_BF16 = _Leaves(_bf16(fvelocity_plain), rk4_update_plain, _bf16(fderiv_plain),
+                      p_planes_plain, True)
+KERNEL_BF16 = _Leaves(_bf16(velocity_cuda), rk4_update_cuda, _bf16(deriv_cuda), p_planes_cuda,
+                      False, (_bf16(velocity_launcher), rk4_update_launcher, p_planes_launcher))
+FKERNEL_BF16 = _Leaves(_bf16(fvelocity_cuda), rk4_update_cuda, _bf16(fderiv_cuda), p_planes_cuda,
+                       True, (_bf16(fvelocity_launcher), rk4_update_launcher, p_planes_launcher))
 # (device type, factored, precision) -> leaves
 _LEAVES = {("cpu", False, "f32"): PLAIN, ("cpu", True, "f32"): FPLAIN,
            ("cuda", False, "f32"): KERNEL, ("cuda", True, "f32"): FKERNEL,
            ("cpu", False, "high"): PLAIN_HIGH, ("cpu", True, "high"): FPLAIN_HIGH,
-           ("cuda", False, "high"): KERNEL_HIGH, ("cuda", True, "high"): FKERNEL_HIGH}
+           ("cuda", False, "high"): KERNEL_HIGH, ("cuda", True, "high"): FKERNEL_HIGH,
+           ("cpu", False, "bf16"): PLAIN_BF16, ("cpu", True, "bf16"): FPLAIN_BF16,
+           ("cuda", False, "bf16"): KERNEL_BF16, ("cuda", True, "bf16"): FKERNEL_BF16}
 # the uni granularity: no derivative leaf (phi's planes come from the
 # kernel path's `gradhess`, delta phi from role 1)
 UPLAIN = _Leaves(functools.partial(_uni_velocity, uni_velocity_plain), rk4_update_plain, None,
@@ -594,11 +624,10 @@ UKERNEL = _Leaves(functools.partial(_uni_velocity, uni_velocity_cuda), rk4_updat
 
 
 def _precision(precision):
-    """The precision asked for, or the one in force; 'bf16' is refused."""
+    """The precision asked for, or the one in force."""
     p = _deriv.matmul_precision() if precision is None else precision
     if p not in PRECISIONS:
-        raise NotImplementedError(f"LenseFlow flows at precision {p!r}: the 'bf16' tier of the "
-                                  "flow kernels is not ported (ROADMAP Queue 2)")
+        raise ValueError(f"LenseFlow flows at precision {p!r}: one of {PRECISIONS}")
     return p
 
 
@@ -616,9 +645,10 @@ def _plain_for(mats, precision=None):
 
 
 def _uni_leaves_for(x, precision=None):
-    if _precision(precision) != "f32":
-        raise NotImplementedError("the uni granularity (K5) has no 'high' tier yet (ROADMAP "
-                                  "Queue 2, K5 'high')")
+    p = _precision(precision)
+    if p != "f32":
+        raise NotImplementedError(f"the uni granularity (K5) has no {p!r} tier yet (ROADMAP "
+                                  "Queue 2, K5 'high' and 'bf16')")
     if x.device.type == "cpu":
         return UPLAIN
     if x.device.type == "cuda":
@@ -746,10 +776,26 @@ def _flow_bwd(leaves, dy, f1, phi, mats, t0, t1, nsteps):
     return _over_batch(leaves, one, dy, f1, phi)
 
 
+# The precision of phi's planes for a flow at each tier. At 'bf16' they
+# are formed strict, where the JAX package forms them at the tier: the
+# Hessian differentiates phi's bf16 rounding (2^-9 of a field whose power
+# lies at low l) twice, so on a Cphi-drawn phi its error exceeds the
+# Hessian itself (1.3 against a largest |hxx| of 0.38 at 256^2, 2.4
+# against 0.41 at 1024^2, 6.1 against 0.45 at 2048^2), det(I + t Hess phi)
+# turns negative and p(t) blows up: L @ f reached 3.5e8 against 21.6 at
+# 1024^2, and one MAP_joint(precision="bf16") step at 2048^2 P went to a
+# NaN logpdf (scripts/torch_bf16_planes.py on an NVIDIA H100; ROADMAP
+# Queue 3). The five planes are a flow's only derivatives of phi, five K1
+# / K2 launches against its velocities' hundreds.
+PLANES_PRECISION = {"f32": "f32", "high": "high", "bf16": "f32"}
+
+
 def gradhess(phi_map, mats, precision=None):
     """(..., 5, Ny, Nx) planes (gx, gy, hxx, hxy, hyy) of a (..., 1, Ny,
-    Nx) map through the derivative kernel (plain version on the CPU)."""
-    return _gradhess(_leaves_for(phi_map, mats, precision), phi_map, mats)
+    Nx) map through the derivative kernel (plain version on the CPU), at
+    the planes' precision for the tier asked for (PLANES_PRECISION)."""
+    p = PLANES_PRECISION[_precision(precision)]
+    return _gradhess(_leaves_for(phi_map, mats, p), phi_map, mats)
 
 
 def flow_apply(f_map, phi, mats, t0, t1, nsteps, kind="forward", precision=None):
@@ -769,7 +815,7 @@ def flow_bwd(dy, f1, phi, mats, t0, t1, nsteps, precision=None):
 
 
 def gradhess_plain(phi_map, mats, precision=None):
-    return _gradhess(_plain_for(mats, precision), phi_map, mats)
+    return _gradhess(_plain_for(mats, PLANES_PRECISION[_precision(precision)]), phi_map, mats)
 
 
 def flow_apply_plain(f_map, phi, mats, t0, t1, nsteps, kind="forward", precision=None):

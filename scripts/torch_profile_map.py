@@ -2,15 +2,16 @@
 per LenseFlow backend, on one CUDA card.
 
     python scripts/torch_profile_map.py [--backends kernel uni] [--steps 2] [--grad256]
-                                        [--host-ab] [--precision auto|f32] [--wiener256]
+                                        [--host-ab] [--precision auto|f32|bf16] [--wiener256]
                                         [--N 1024] [--warm 2]
 
 Runs MAP_joint as chip_smoke.py phase 7 does (load_sim at 1024^2 P, or at
 --N^2 (2048 and 4096 as chip_smoke.py phase 13),
 thetapix 2, seed 0; grid line search; 15 fixed CG iterations), strict
-everywhere (--precision f32, the default: precision=None) or at the JAX
+everywhere (--precision f32, the default: precision=None), at the JAX
 package's default precision "auto" (--precision auto, as chip_smoke.py
-phase 9; the uni backend has no 'high' tier and refuses it). For each
+phase 9) or at 'bf16' (--precision bf16, as chip_smoke.py phase 14); the
+uni backend has neither reduced tier and refuses both. For each
 backend: --warm warm-up steps, an unprofiled run of --steps steps for the
 wall time, then the same run under torch.profiler (CUDA activity only).
 Prints per step: wall s, device ms and the device's busy share, and the
@@ -20,7 +21,8 @@ device ms and launches of the kernels that take the most time. With
 way, per gradient over 5 gradients. With --wiener256 it profiles the
 Wiener filter of chip_smoke.py phase 12 (argmaxf_logpdf at the JAX
 defaults on a masked, beamed 256^2 IP simulation, kernel backend), one
-solve at "auto" and one strict, per solve. `--backends` with no name
+solve at "auto" and one strict, per solve, and with --precision bf16 one
+at hessian_precision="bf16". `--backends` with no name
 skips the 1024^2 step. With --host-ab it times the kernel
 backend's step with the flows' launchers made once per flow (as the port
 runs) against the checked wrappers called at every launch, in turns in
@@ -60,12 +62,12 @@ def main():
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--grad256", action="store_true")
     ap.add_argument("--host-ab", action="store_true")
-    ap.add_argument("--precision", choices=("auto", "f32"), default="f32")
+    ap.add_argument("--precision", choices=("auto", "f32", "bf16"), default="f32")
     ap.add_argument("--wiener256", action="store_true")
     ap.add_argument("--N", type=int, default=1024)
     ap.add_argument("--warm", type=int, default=2)
     args = ap.parse_args()
-    precision = None if args.precision == "f32" else "auto"
+    precision = None if args.precision == "f32" else args.precision
     import torch
     if not torch.cuda.is_available():
         print("torch_profile_map: needs a CUDA card", file=sys.stderr)
@@ -140,7 +142,7 @@ def main():
         sim = ct.load_sim(thetapix=3, Nside=256, pol="IP", T=np.float32, muKarcminT=1,
                           beamFWHM=2, seed=0,
                           pixel_mask_kwargs=dict(edge_padding_deg=1, apodization_deg=0.5))
-        for hp in ("auto", None):
+        for hp in ("auto", None) + (("bf16",) if args.precision == "bf16" else ()):
             solve = lambda: ct.argmaxf_logpdf(sim["ds"], phi=sim["phi"],
                                               conjgrad_kwargs=dict(hessian_precision=hp))
             with ct.lenseflow_backend_ctx("kernel"):

@@ -31,6 +31,15 @@ tests/test_torch_high.py::test_split_ratio_tells_the_rne_split_apart).
 A whole flow adds its RK4 sums' FP32 reassociation to both distances,
 so it is held only to lie nearer its plain 'high' version than the
 strict flow (FLOW_SPLIT_RATIO; strict kernels would give infinity).
+
+Their 'bf16' tier (one bf16 product of the rounded operands) is held to
+its plain 'bf16' version: the dense kernels at 1e-5 (both round the same
+operands; only FP32 sums differ), the factored ones and every flow at
+2e-3 (a bf16 ulp is 3.9e-3: the plain butterfly repeats the tile's
+fused multiply-adds, but where a value is formed in another order it may
+round to the neighbouring bf16 value), and per plane in relative
+Frobenius norm under BF16_RATIO (kernels) or FLOW_SPLIT_RATIO (flows) of
+the distance to strict.
 """
 import numpy as np
 import pytest
@@ -45,6 +54,7 @@ TOL = 1e-5
 HESS_TOL = 5e-4
 NSTEPS = 3
 HIGH_TOL, HIGH_VS_STRICT, HIGH_SPLIT_RATIO, FLOW_SPLIT_RATIO = 2e-5, 1e-3, 0.5, 1.0
+BF16_DENSE_TOL, BF16_TOL, BF16_RATIO = 1e-5, 2e-3, 0.5
 
 
 def rel(a, b):
@@ -808,3 +818,168 @@ def test_IP_wiener_filter_kernel_matches_plain_on_card():
     assert torch.isfinite(fa.arr).all()
     assert all(lfk.LAUNCHES[k] > 0 for k in ("velocity_forward_high", "velocity_adjoint_high",
                                              "deriv_high")), lfk.LAUNCHES
+
+
+def _check_bf16(shape, kernel, plain, label, tol=BF16_TOL):
+    """kernel(out, precision) at 'bf16' against plain(out) (its plain
+    'bf16' version) and the strict kernel: every plane within `tol` of
+    plain 'bf16', and its Frobenius distance to plain 'bf16' under
+    BF16_RATIO of that to strict."""
+    o1, o2, o3 = (torch.full(shape, float("nan"), device="cuda") for _ in range(3))
+    kernel(o1, "bf16")
+    plain(o2)
+    kernel(o3, "f32")
+    each = lambda x, y: max(rel(a, b) for a, b in zip(x.reshape(-1, *shape[-2:]),
+                                                       y.reshape(-1, *shape[-2:])))
+    e = (each(o1, o2), each(o1, o3), split_ratio(o1, o2, o3))
+    print(f"'bf16' {label} {tuple(shape)}: vs plain 'bf16' {e[0]:.3e}, vs strict {e[1]:.3e}, "
+          f"Frobenius ratio {e[2]:.4f}")
+    assert e[0] < tol and e[2] < BF16_RATIO, e
+    return o1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,nb", FACTORED_CASES)
+def test_factored_bf16_kernels_match_plain_bf16_on_card(N, nb):
+    """The 'bf16' tier of K1, K3 (both roles) and K4 (one mma.sync a block
+    product on the blocks' bf16 heads) against their plain 'bf16' versions
+    (BF16_TOL) and the strict kernels (BF16_RATIO), every batch entry and
+    output plane on its own; the 'bf16' counters count their launches; at
+    radix 16 and 32 (channel groups) a second launch into a buffer of
+    other contents gives the same bits."""
+    _card()
+    tp = ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda")
+    ops = tderiv.deriv_ops(tp)
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), ops)
+    planes = torch.stack([planes * (1 - 0.05 * i) for i in range(nb)])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    T = lambda *s: torch.randn(s, generator=g, device="cuda")
+    ngroup = tderiv.radix_groups(N // 128)
+
+    def check(shape, kernel, plain, label):
+        out = _check_bf16(shape, kernel, plain, f"{label} N={N} nb={nb}")
+        if ngroup > 1:
+            again = torch.zeros(shape, device="cuda")
+            kernel(again, "bf16")
+            assert torch.equal(again, out), f"{label}: two launches differ"
+
+    lfk.reset_launches()
+    a, b, c = T(nb, 1, N, N), T(nb, 1, N, N), T(nb, 1, N, N)
+    for args in ((a, None, None), (None, b, None), (a, b, c)):
+        check(a.shape, lambda o, p: lfk.fderiv_cuda(*args, o, ops, p),
+              lambda o: lfk.fderiv_plain(*args, o, ops, "bf16"), "fderiv")
+    assert lfk.LAUNCHES["fderiv_bf16"] == 4 * ngroup * (2 if ngroup > 1 else 1)
+    y = T(nb, 2, N, N)
+    pt = _p_planes(0.3, planes)
+    for kind in ("forward", "adjoint"):
+        check(y.shape, lambda o, p: lfk.fvelocity_cuda(kind, y, o, planes, pt, ops, 2, 0.3, p),
+              lambda o: lfk.fvelocity_plain(kind, y, o, planes, pt, ops, 2, 0.3, "bf16"), kind)
+    yb = torch.cat([T(nb, 4, N, N), 1e-3 * T(nb, lfk.NACC, N, N)], dim=1)
+    pt = _p_planes(0.7, planes)
+    check(yb.shape, lambda o, p: lfk.fvelocity_cuda("backward", yb, o, planes, pt, ops, 2, 0.7, p),
+          lambda o: lfk.fvelocity_plain("backward", yb, o, planes, pt, ops, 2, 0.7, "bf16"),
+          "backward")
+    twice = 2 if ngroup > 1 else 1
+    assert all(lfk.LAUNCHES[f"{k}_bf16"] == 2 * ngroup * twice
+               for k in ("fa_velocity_forward", "fa_velocity_adjoint", "bv_velocity"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (256, 256), (200, 200), (33, 45)])
+def test_dense_bf16_kernels_match_plain_bf16_on_card(shape):
+    """K2 'bf16' (csrc/lenseflow.cu, TIER_BF16: one mma.sync on the
+    circulant's bf16 head and the rounded operand) at whole tiles and at
+    ragged edge tiles: lf_deriv with each operand set and lf_velocity of
+    the three kinds at two and three components, one launch each, against
+    the plain 'bf16' version (BF16_DENSE_TOL: the same rounded operands)
+    and the strict kernel (BF16_RATIO), nothing written past the last
+    plane; the 'bf16' counters count their launches."""
+    _card()
+    Ny, Nx = shape
+    tp = ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device="cuda")
+    mats = tderiv.deriv_mats(tp)
+    phi_f = np.zeros((1, Ny, Nx // 2 + 1), np.complex128)
+    phi_f[0, 1, 1] = 1e-3 * (Ny * Nx / 1024) ** 2
+    phi = torch.as_tensor(np.fft.irfft2(phi_f, s=(Ny, Nx)).astype(np.float32), device="cuda")
+    planes = lfk.gradhess_plain(phi, mats)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    T = lambda *s: torch.randn(s, generator=g, device="cuda")
+
+    def check(shape_, kernel, plain, label):
+        n = shape_[0]
+        full = torch.full((n + 1,) + tuple(shape_[1:]), float("nan"), device="cuda")
+        _check_bf16(shape_, kernel, plain, label, BF16_DENSE_TOL)
+        kernel(full[:n], "bf16")
+        assert torch.isnan(full[n]).all(), f"{label} wrote past the last plane"
+
+    lfk.reset_launches()
+    a, b, c = T(3, Ny, Nx), T(3, Ny, Nx), T(3, Ny, Nx)
+    for args in ((a, None, None), (None, b, None), (a, b, c)):
+        check(a.shape, lambda o, p: lfk.deriv_cuda(*args, o, mats, p),
+              lambda o: lfk.deriv_plain(*args, o, mats, "bf16"), "deriv")
+    assert lfk.LAUNCHES["deriv_bf16"] == 6
+    pt = _p_planes(0.4, planes)
+    for ncomp in (2, 3):
+        for kind in ("forward", "adjoint", "backward"):
+            y = T(2 * ncomp + lfk.NACC if kind == "backward" else ncomp, Ny, Nx)
+            check(y.shape, lambda o, p: lfk.velocity_cuda(kind, y, o, planes, pt, mats, ncomp,
+                                                          0.4, p),
+                  lambda o: lfk.velocity_plain(kind, y, o, planes, pt, mats, ncomp, 0.4, "bf16"),
+                  kind)
+    assert all(lfk.LAUNCHES[f"velocity_{kind}_bf16"] == 4
+               for kind in ("forward", "adjoint", "backward"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [256, 1024])
+def test_bf16_flows_match_plain_bf16_on_card(N):
+    """Whole flows at 'bf16' at nsteps 7, dense (256^2) and factored
+    (1024^2), on a Cphi-drawn phi and a Cf-drawn f: each output plane
+    within BF16_TOL of the plain 'bf16' flow and nearer it than the strict
+    flow (FLOW_SPLIT_RATIO); only 'bf16' kernels launch for the products."""
+    _card()
+    tp = ct.ProjLambert(N, N, thetapix=3 if N == 256 else 2, T=np.float32, device="cuda")
+    mats = tderiv.deriv_ops(tp)
+    rng = np.random.default_rng(3)
+    Cl = ct.camb()
+    white = lambda n, pol: ct.Field(torch.as_tensor(
+        rng.standard_normal((n, N, N)).astype(np.float32), device="cuda"), ct.Basis(pol, "map"), tp)
+    pm = (ct.Cl_to_Cov("I", tp, Cl["total"]["pp"]).sqrt() @ white(1, "I")).to(ct.MAP).arr
+    Cf = ct.Cl_to_Cov("P", tp, Cl["unlensed_scalar"]["EE"], Cl["unlensed_scalar"]["BB"])
+    ft = (Cf.sqrt() @ white(2, "QU")).to(ct.QU_MAP).arr.contiguous()
+    dyt = white(2, "QU").arr
+    planes = lfk.gradhess(pm, mats)
+    each = lambda x, y: max(rel(a, b) for a, b in zip(x.reshape(-1, N, N), y.reshape(-1, N, N)))
+    found = {}
+    lfk.reset_launches()
+    for kind, t0, t1 in (("forward", 0., 1.), ("forward", 1., 0.), ("adjoint", 1., 0.)):
+        k = lfk.flow_apply(ft, planes, mats, t0, t1, 7, kind, "bf16")
+        found[(kind, t0)] = (k, lfk.flow_apply_plain(ft, planes, mats, t0, t1, 7, kind, "bf16"),
+                             lfk.flow_apply(ft, planes, mats, t0, t1, 7, kind, "f32"))
+    for name, x, y, z in zip(("backward dphi", "backward df0"),
+                             lfk.flow_bwd(dyt, ft, planes, mats, 0., 1., 7, "bf16"),
+                             lfk.flow_bwd_plain(dyt, ft, planes, mats, 0., 1., 7, "bf16"),
+                             lfk.flow_bwd(dyt, ft, planes, mats, 0., 1., 7, "f32")):
+        found[name] = (x, y, z)
+    for name, (k, p, st) in found.items():
+        e = (each(k, p), each(k, st), split_ratio(k, p, st))
+        print(f"'bf16' flow {name} {N}^2: vs plain 'bf16' {e[0]:.3e}, vs strict {e[1]:.3e}, "
+              f"ratio {e[2]:.4f}")
+        assert e[0] < BF16_TOL and e[2] < FLOW_SPLIT_RATIO, (name, e)
+    bf16 = sum(v for k_, v in lfk.LAUNCHES.items() if k_.endswith("_bf16"))
+    high = sum(v for k_, v in lfk.LAUNCHES.items() if k_.endswith("_high"))
+    assert bf16 > 0 and high == 0
+
+
+@pytest.mark.cuda
+def test_uni_bf16_raises_on_card():
+    """K5 has no 'bf16' kernel yet: on the card a 'bf16' uni flow raises
+    before any launch, never running strict in its place."""
+    _card()
+    ops = tderiv.deriv_ops(ct.ProjLambert(512, 512, thetapix=2, T=np.float32, device="cuda"))
+    f512 = torch.zeros((1, 2, 512, 512), device="cuda")
+    lfk.reset_launches()
+    with tderiv.precision_ctx("bf16"), pytest.raises(NotImplementedError, match="K5"):
+        lfk.uni_flow_apply(f512, torch.zeros((1, 5, 512, 512), device="cuda"), ops, 0., 1., 1)
+    assert all(v == 0 for v in lfk.LAUNCHES.values())

@@ -360,9 +360,8 @@ def test_dense_high_flows_match_jax_flow_call_interpret(kind, t0, t1):
 
 def test_flows_read_the_precision_in_force():
     """The public flows and gradhess run at the precision ops/deriv.py
-    holds; precision_ctx restores it; 'bf16' is accepted by the switch and
-    refused by every flow; the uni granularity refuses 'high' (K5 has no
-    'high' tier yet) rather than run strict."""
+    holds; precision_ctx restores it; the uni granularity refuses 'high'
+    and 'bf16' (K5 has neither tier yet) rather than run strict."""
     tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32, device="cpu")
     ops = tfd.factored_ops(tp, 2, 2)
     phi, f, dy = _weak_lensing()
@@ -377,10 +376,10 @@ def test_flows_read_the_precision_in_force():
     assert torch.equal(a, lfk.flow_apply(ft, planes, ops, 0., 1., 1, precision="high"))
     assert not torch.equal(a, lfk.flow_apply(ft, planes, ops, 0., 1., 1))
     tderiv.set_matmul_precision("bf16")
-    for call in (lambda: lfk.flow_apply(ft, planes, ops, 0., 1., 1),
-                 lambda: lfk.gradhess(torch.as_tensor(phi), ops),
-                 lambda: lfk.flow_bwd(torch.as_tensor(dy), ft, planes, ops, 0., 1., 1)):
-        with pytest.raises(NotImplementedError, match="bf16"):
+    for call in (lambda: lfk.uni_flow_apply(ft[None], planes[None], ops, 0., 1., 1),
+                 lambda: lfk.uni_flow_bwd(torch.as_tensor(dy)[None], ft[None], planes[None], ops,
+                                          0., 1., 1)):
+        with pytest.raises(NotImplementedError, match="K5 'high' and 'bf16'"):
             call()
     with pytest.raises(ValueError):
         tderiv.set_matmul_precision("tf32")
