@@ -68,15 +68,32 @@ port's two paths through the kernel backend:
               beside phases 7 and 9, and argmaxf_logpdf at 1024^2; (g) the
               masked 256^2 IP Wiener filter at hessian_precision="bf16"
               against the strict solve.
+  phase 15    K5 at 'high' and 'bf16' and with dense operands
+              (csrc/uni.cu, csrc/uni_dense.cu), and the "uni" backend at the
+              JAX defaults: (a) K5 'high' and 'bf16' at 1024^2 (radix 8),
+              every role at batch 1 and 17 against plain at the tier and
+              the strict kernel, timed cold; (b) the dense K5 at every tier
+              on the 256^2 P inputs, the masked IP slice's I, Q, U, the edge
+              tiles and 768^2 P, nothing written past a plane; (c) the uni
+              flows at 'high' and 'bf16' against the plain uni flows and
+              K3/K4 (1024^2) or K2 (256^2); (d) the phi-gradient on "uni"
+              against the kernel backend at every tier, 256^2 and 1024^2 P;
+              (e) MAP_joint 1024^2 P on "uni" at "auto" and 'bf16' as in
+              phase 7, beside phases 8, 9 and 14 (f), with no K3/K4 launch;
+              (f) the masked 256^2 IP Wiener filter on "uni" at the JAX
+              defaults against the kernel backend, and 20 fixed strict
+              iterations; (g) L @ f on a 768^2 P load_sim on "uni", strict
+              and 'high', against the kernel backend.
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
     python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
+    python3 chip_smoke.py --phase 15    (phase 1, the build, and phase 15 alone)
 
 Phases 7 and 8 measure the strict north star (precision=None); phases
 2-6 and 10 run at the global precision 'f32', and every tier in 10.
 
 Each path's launch counters are set to 0 just before it and read just
-after; phase 13's radix-16/32 records name, under "path", the run their
+after; the records of phases 13-15 name, under "path", the run their
 launches come from. A kernel's time is device time: its launches captured into a CUDA
 graph and the replay timed by CUDA events (the host's launch cost, about
 0.04 ms a call, would hide a shorter kernel), and so is the library
@@ -190,6 +207,29 @@ HIGH_KERNELS = ("fderiv_high", "fa_velocity_forward_high", "fa_velocity_adjoint_
                 "bv_velocity_high")
 DENSE_HIGH_KERNELS = ("velocity_forward_high", "velocity_adjoint_high", "velocity_backward_high",
                       "deriv_high")
+# phase 15, K5 at every tier and form: the planes each role writes (the
+# rest are 0) and its derivatives per entry
+UNI_NONZERO, UNI_NDER = {0: 4, 1: 1, 2: 2, 3: 2}, {0: 4, 1: 6, 2: 4, 3: 4}
+# K5 against its plain version at each tier, factored and dense, as the
+# other kernels at that tier; role 1 at 'bf16' takes BF16_TOL in either
+# form: its outer products round the inner stage's sums, which kernel and
+# plain form in other orders, and a sum one ulp apart may round to the
+# neighbouring bf16 value (dense 2.0e-4 on the card, tests/test_torch_cuda.py)
+UNI_TOL = {"f32": FLOW_TOL, "high": HIGH_TOL, "bf16": BF16_TOL}
+UNI_DENSE_TOL = {"f32": FLOW_TOL, "high": HIGH_TOL, "bf16": BF16_DENSE_TOL}
+# ... and role 1's Frobenius ratio at 'high' and 'bf16' to FLOW_SPLIT_RATIO,
+# as a flow's: those reassociated inner sums move both of its distances (at
+# 'high', 0.44-0.47 at 512^2 and 1024^2, 0.62 at 600^2, 0.74 at 768^2 on the
+# card; the other roles 0.04-0.24)
+UNI_RATIO = {0: HIGH_SPLIT_RATIO, 1: FLOW_SPLIT_RATIO, 2: HIGH_SPLIT_RATIO, 3: HIGH_SPLIT_RATIO}
+# delta phi of the uni backward flow (integrated in the state) against the
+# kernel backend's (hoisted) at a tier: at 'high' the two forms' strict
+# bound; at 'bf16' tests/test_torch_bf16.py's DPHI_TOL (the same operator
+# rounded at other places)
+UNI_DPHI_TOL = {"high": DPHI_UNHOISTED_TOL, "bf16": 5e-3}
+# the JAX package's dense-K5 territory: no built radix divides 768 (radix
+# 6), and `_flow_fits` fails there, so `_uni_call` runs on dense mats
+N_DENSE_UNI = 768
 # plane shapes the dense kernels' 32 x 32 tile and 16-deep slab do not
 # divide: load_sim(Nside=200), a rectangle, and 600^2 (dense, since the
 # factored radix needs 128 | N)
@@ -863,26 +903,13 @@ def phase_uni(torch, card, fctx, gctx):
     t = 0.5
     nonzero, nder = {0: 4, 1: 1, 2: 2, 3: 2}, {0: 4, 1: 6, 2: 4, 3: 4}
 
-    def operands(phis, state):
-        """px, py and each role's (a, b) as the uni flows pass them: views
-        of a (nb, 4, N, N) state (f, delta f); role 1 takes u = M^-1 w of
-        role 0's w."""
-        px, py = (p.unsqueeze(1).contiguous() for p in lfk._p_of_t(t, phis))
-        w = torch.empty((state.shape[0], 2, 4, N_MAP, N_MAP), device=DEVICE)
-        lfk.uni_velocity_plain(0, state[:, :2], state[:, 2:], px, py, w, ops, t)
-        m11, m12, m22 = lfk._minv_of_t(t, phis)
-        wx, wy = w[:, :, 2].sum(1), w[:, :, 3].sum(1)
-        u = torch.stack([m11 * wx + m12 * wy, m12 * wx + m22 * wy], dim=1)
-        pair = (state[:, :1], state[:, 1:2])
-        return px, py, {0: (state[:, :2], state[:, 2:]), 1: (u[:, :1], u[:, 1:]), 2: pair, 3: pair}
-
     def check_roles(phis, state, reps):
         """Each role, kernel against plain; every output plane of every
         entry of every trial held to the bound on its own, the planes the
         role leaves at zero exactly zero."""
-        px, py, ab = operands(phis, state)
+        px, py, calls = uni_operands(torch, ops, phis, state, t)
         nb, res = state.shape[0], {}
-        for role, (a, b) in ab.items():
+        for role, _, a, b in calls:
             nper = a.shape[1]
             o1 = torch.full((nb, nper, 4, N_MAP, N_MAP), float("nan"), device=DEVICE)
             o2 = torch.empty_like(o1)
@@ -967,6 +994,7 @@ def phase_uni(torch, card, fctx, gctx):
 
     with ct.lenseflow_backend_ctx("uni"):
         launches, s_step, hist = run_map(torch, gctx["sim"], 8, "uni", card)
+    gctx["map_hist_uni"], gctx["map_s_uni"] = hist, s_step
     khist = gctx["map_hist"]
     print(f"phase 8: beside phase 7 (kernel): logpdfs {[h['logpdf'] for h in khist]!r}; alphas "
           f"{[h['alpha'] for h in khist]!r}")
@@ -2408,6 +2436,7 @@ def phase_bf16(torch, card, gctx=None, beside=None):
     with ct.lenseflow_backend_ctx("kernel"):
         launches, s_step, hist = run_map(torch, sim, 14, "kernel, precision \"bf16\"", card,
                                          precision="bf16")
+    gctx["map_hist_bf16"], gctx["map_s_bf16"] = hist, s_step
     paths["MAP_joint 1024^2 P bf16"] = launches
     timing_out["MAP_joint_1024_bf16_s_per_step"] = s_step
     print(f"phase 14: f-steps re-run strict {sum(h['precision_fallback'] for h in hist)} of "
@@ -2443,6 +2472,496 @@ def phase_bf16(torch, card, gctx=None, beside=None):
     return records, launches, timing_out
 
 
+def uni_operands(torch, mats, phis, state, t=0.5):
+    """px, py and each K5 call's (key, role, a, b) as the uni flows pass
+    them: views of a (nb, 2 ncomp, Ny, Nx) state (f, delta f); role 0 on
+    every component at once, roles 2 and 3 on each component pair (the
+    last pair repeating its component when ncomp is odd; key (role, first
+    component) after the first pair, else the role), role 1 on u = M^-1 w
+    of role 0's w."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    nb, Ny, Nx = state.shape[0], state.shape[-2], state.shape[-1]
+    nc = state.shape[1] // 2
+    px, py = (p.unsqueeze(1).contiguous() for p in lfk._p_of_t(t, phis))
+    w = torch.empty((nb, nc, 4, Ny, Nx), device=state.device)
+    lfk.uni_velocity_plain(0, state[:, :nc], state[:, nc:], px, py, w, mats, t)
+    m11, m12, m22 = lfk._minv_of_t(t, phis)
+    wx, wy = w[:, :, 2].sum(1), w[:, :, 3].sum(1)
+    u = torch.stack([m11 * wx + m12 * wy, m12 * wx + m22 * wy], dim=1)
+    calls = [(0, 0, state[:, :nc], state[:, nc:]), (1, 1, u[:, :1], u[:, 1:])]
+    for role in (2, 3):
+        for c0 in range(0, nc, 2):
+            c1 = min(c0 + 1, nc - 1)
+            calls.append((role if c0 == 0 else (role, c0), role, state[:, c0:c0 + 1],
+                          state[:, c1:c1 + 1]))
+    return px, py, calls
+
+
+def uni_roles(torch, mats, px, py, calls, tier, tol, bound_of=None, reps=10, t=0.5):
+    """Each K5 call of `calls` (uni_operands') at `tier` against its plain
+    version at the tier and the strict kernel, every output plane of every
+    entry on its own: rel max-abs within `tol` (role 1 at 'bf16':
+    BF16_TOL, UNI_TOL says why), at a reduced tier the Frobenius ratio
+    under UNI_RATIO (and within HIGH_VS_STRICT of strict at 'high');
+    the planes a role leaves at zero exactly zero; two launches the same
+    bits; nothing written past the last plane (a NaN plane behind out).
+    With bound_of(role, nb, nper) each call is timed cold at the tier and
+    strict, its plain version as it runs, and given its bound. Returns
+    ({key: record}, {key: what failed})."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    Ny, Nx = px.shape[-2:]
+    nb, nan = px.shape[0], float("nan")
+    found, bad = {}, {}
+    for key, role, a, b in calls:
+        nper = a.shape[1]
+        shape = (nb, nper, 4, Ny, Nx)
+        fulls = [torch.full((nb * nper * 4 + 1, Ny, Nx), nan, device=DEVICE) for _ in range(3)]
+        ok_, again, ost = (x[:-1].view(shape) for x in fulls)
+        for o, p in ((ok_, tier), (again, tier), (ost, "f32")):
+            lfk.uni_velocity_cuda(role, a, b, px, py, o, mats, t, p)
+        op = torch.full(shape, nan, device=DEVICE)
+        lfk.uni_velocity_plain(role, a, b, px, py, op, mats, t, tier)
+        torch.cuda.synchronize()
+        n = UNI_NONZERO[role]
+        k_, p_, s_ = (x[:, :, :n] for x in (ok_, op, ost))
+        trip = list(zip(*(x.reshape(-1, Ny, Nx) for x in (k_, p_, s_))))
+        d = dict(nb=nb, nper=nper, max_abs_err=float((k_ - p_).abs().max()),
+                 rel=max(rel(k, q) for k, q, _ in trip),
+                 tol=BF16_TOL if tier == "bf16" and role == 1 else tol,
+                 zero=bool((ok_[:, :, n:] == 0).all()), same_bits=bool(torch.equal(ok_, again)),
+                 inside=all(bool(torch.isnan(x[-1]).all()) for x in fulls))
+        if tier != "f32":
+            d.update(rel_strict=max(rel(k, s) for k, _, s in trip), ratio_bound=UNI_RATIO[role],
+                     **split_ratio(k_, p_, s_))
+        if bound_of is not None:
+            at = lambda p: (lambda a_, b_, px_, py_, o: lfk.uni_velocity_cuda(
+                role, a_, b_, px_, py_, o, mats, t, p))
+            d.update(ms=cold_ms(at(tier), (a, b, px, py, ok_), reps, torch),
+                     strict_ms=cold_ms(at("f32"), (a, b, px, py, ost), reps, torch),
+                     plain_ms=cuda_ms(lambda: lfk.uni_velocity_plain(role, a, b, px, py, op, mats,
+                                                                     t, tier), 1, torch),
+                     library_ms=None, **bound_of(role, nb, nper))
+        why = [w for w, ok in ((f"rel {d['rel']:.3e}", d["rel"] < d["tol"]),
+                               ("zero planes", d["zero"]), ("two launches differ", d["same_bits"]),
+                               ("wrote past the last plane", d["inside"])) if not ok]
+        if tier != "f32" and not d["split_ratio"] < UNI_RATIO[role]:
+            why.append(f"Frobenius ratio {d['split_ratio']:.3f}")
+        if tier == "high" and not d["rel_strict"] < HIGH_VS_STRICT:
+            why.append(f"vs strict {d['rel_strict']:.3e}")
+        if why:
+            bad[key] = why
+        found[key] = d
+    return found, bad
+
+
+def uni_role_line(label, key, d):
+    """One printed line of a uni_roles record."""
+    ratio = (f"; vs strict {d['rel_strict']:.3e}, Frobenius ratio {d['split_ratio']:.4f} (bound "
+             f"{d['ratio_bound']:g})" if "split_ratio" in d else "")
+    times = (f"  {d['ms']:.4f} ms  strict {d['strict_ms']:.4f} ms (both cold)  plain "
+             f"{d['plain_ms']:.4f} ms  bound {d['bound_ms']:.4f} ms ({d['bound_by']}, "
+             f"{100 * d['bound_ms'] / d['ms']:.1f} %)" if "ms" in d else "")
+    return (f"K5 {label} role {key} (nb {d['nb']}, nper {d['nper']}): vs plain {d['rel']:.3e} "
+            f"(bound {d['tol']:g}){ratio}; zero planes exact {d['zero']}, same bits "
+            f"{d['same_bits']}, inside {d['inside']}{times}")
+
+
+def uni_fctx(torch):
+    """phase 5's 1024^2 inputs (fctx), for phase 15 run alone."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    proj = ct.ProjLambert(N_MAP, N_MAP, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE)
+    ops = deriv.deriv_ops(proj)
+    phi_map, f, dy = weak_lensing_inputs(proj, torch)
+    return dict(ops=ops, phi=lfk.gradhess(phi_map, ops), phi_map=phi_map, f=f, dy=dy)
+
+
+def uni_tiers_factored(torch, card, fctx):
+    """(a) K5 'high' and 'bf16' at 1024^2 (radix 8), every role at batch 1
+    and on NTRIAL trials with NTRIAL phi scalings (uni_roles), timed cold
+    with the tier's bound (bound_high)."""
+    ops, phi, f, dy = (fctx[k] for k in ("ops", "phi", "f", "dy"))
+    state = torch.cat([f, dy])
+    scales = torch.linspace(0.1, 2.0, NTRIAL, device=DEVICE).reshape(-1, 1, 1, 1)
+    states = torch.stack([torch.roll(state, 7 * i, dims=-1) for i in range(NTRIAL)])
+    phis = (scales * phi).contiguous()
+    records, bad = {}, {}
+    for tier in ("high", "bf16"):
+        bound_of = lambda role, nb, nper: bound_high(N_MAP, UNI_NDER[role] * nb * nper,
+                                                     nb * (6 * nper + 2), 1, 2, tier)
+        one, b1 = uni_roles(torch, ops, *uni_operands(torch, ops, phi[None], state[None]), tier,
+                            UNI_TOL[tier], bound_of)
+        many, b2 = uni_roles(torch, ops, *uni_operands(torch, ops, phis, states), tier,
+                             UNI_TOL[tier], bound_of, reps=3)
+        for key, d in one.items():
+            print(f"phase 15: (a) {uni_role_line(f'{tier!r} {N_MAP}^2', key, d)} [{card}]")
+            print(f"phase 15: (a) {uni_role_line(f'{tier!r} {N_MAP}^2', key, many[key])} [{card}]")
+            d["batched"] = {k: many[key][k] for k in ("nb", "max_abs_err", "rel", "ms", "plain_ms")}
+            records[f"uni_role{key}_{tier}"] = d
+        bad.update({f"{tier} {k}": v for k, v in b1.items()})
+        bad.update({f"{tier} {k}[{NTRIAL}]": v for k, v in b2.items()})
+    return records, bad
+
+
+def uni_edge_inputs(torch, Ny, Nx, seed):
+    """A one-mode phi's planes (Hess phi ~ 0.1) and a random (f, delta f)
+    state of two components, from numpy, at a plane shape of any sides."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    mats = deriv.deriv_mats(ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device=DEVICE))
+    phi_f = np.zeros((1, Ny, Nx // 2 + 1), np.complex128)
+    phi_f[0, 1, 1] = 1e-3 * (Ny * Nx / 1024) ** 2
+    phi = torch.as_tensor(np.fft.irfft2(phi_f, s=(Ny, Nx)).astype(np.float32), device=DEVICE)
+    rng = np.random.default_rng(seed)
+    state = torch.as_tensor(rng.standard_normal((4, Ny, Nx)).astype(np.float32), device=DEVICE)
+    return mats, lfk.gradhess(phi, mats), state
+
+
+def uni_tiers_dense(torch, card, wf_sim):
+    """(b) the dense K5 (csrc/uni_dense.cu) at every tier: on the 256^2 P
+    inputs (two components; timed cold with the tier's bound: the kernels
+    line's records), on the masked IP slice's three components (I, Q, U:
+    role 0 on all three, roles 2 and 3 on the pairs (I, Q) and (U, U)),
+    at the edge tiles and at 768^2 P (uni_roles)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
+    mats = deriv.deriv_mats(proj)
+    phi_map, f, dy = weak_lensing_inputs(proj, torch)
+    phi = lfk.gradhess(phi_map, mats)
+    ip_phi = lfk.gradhess(wf_sim["phi"].to(ct.MAP).arr.contiguous(), mats)
+    ip_state = torch.cat([wf_sim["f"].to(ct.IQU_MAP).arr, wf_sim["ds"].d.to(ct.IQU_MAP).arr])
+    p768 = ct.ProjLambert(N_DENSE_UNI, N_DENSE_UNI, thetapix=THETAPIX_MAP, T=np.float32,
+                          device=DEVICE)
+    m768 = deriv.deriv_mats(p768)
+    phi768, f768, dy768 = weak_lensing_inputs(p768, torch)
+    others = [(f"IP {N}^2", mats, ip_phi, ip_state),
+              (f"{N_DENSE_UNI}^2 P", m768, lfk.gradhess(phi768, m768), torch.cat([f768, dy768]))]
+    others += [(f"{Ny}x{Nx}", *uni_edge_inputs(torch, Ny, Nx, SEED + i))
+               for i, (Ny, Nx) in enumerate(EDGE_SHAPES)]
+    records, bad = {}, {}
+    for tier in lfk.PRECISIONS:
+        sfx = "" if tier == "f32" else "_" + tier
+        extra = {"f32": 2, "high": 2, "bf16": 1}[tier]   # the circulants, in planes
+
+        def bound_of(role, nb, nper):
+            nder, planes = UNI_NDER[role] * nb * nper, nb * (6 * nper + 2)
+            if tier == "f32":
+                return bound(nder * dense_deriv_flops(N), planes, N, extra * N * N)
+            return bound_dense_high(N, nder, planes + extra, tier)
+
+        found, why = uni_roles(torch, mats, *uni_operands(torch, mats, phi[None], torch.cat(
+            [f, dy])[None]), tier, UNI_DENSE_TOL[tier], bound_of)
+        for key, d in found.items():
+            print(f"phase 15: (b) {uni_role_line(f'dense {tier!r} {N}^2 P', key, d)} [{card}]")
+            records[f"uni_dense_role{key}{sfx}"] = d
+        bad.update({f"dense {tier} {N}^2 P {k}": v for k, v in why.items()})
+        for label, m, planes, state in others:
+            found, why = uni_roles(torch, m, *uni_operands(torch, m, planes[None], state[None]),
+                                   tier, UNI_DENSE_TOL[tier])
+            worst = max(found.values(), key=lambda d: d["rel"] / d["tol"])
+            ratio = "" if tier == "f32" else (
+                f", largest Frobenius ratio {max(d['split_ratio'] for d in found.values()):.4f}")
+            print(f"phase 15: (b) K5 dense {tier!r} {label}: {len(found)} calls, worst vs plain "
+                  f"{worst['rel']:.3e} (bound {worst['tol']:g}){ratio}; zero planes, same bits, "
+                  f"nothing past the last plane: "
+                  f"{all(d['zero'] and d['same_bits'] and d['inside'] for d in found.values())}")
+            bad.update({f"dense {tier} {label} {k}": v for k, v in why.items()})
+    return records, bad
+
+
+def uni_tier_flows(torch, card, fctx):
+    """(c) the uni flows (L, L^-1, L^H, backward delta phi and delta f) at
+    'high' and 'bf16': at 1024^2 P against the plain uni flows at the tier
+    (the tier's bound, and nearer them than the strict uni flows,
+    FLOW_SPLIT_RATIO) and against the K3/K4 flows at the tier; at 256^2 P
+    against the K2 flows at the tier. Delta phi, hoisted on K3/K4 and K2,
+    to UNI_DPHI_TOL."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    p256 = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
+    m256 = deriv.deriv_mats(p256)
+    phi256, f256, dy256 = weak_lensing_inputs(p256, torch)
+    kinds = (("L", 0., 1., "forward"), ("L^-1", 1., 0., "forward"), ("L^H", 1., 0., "adjoint"))
+    found, bad = {}, {}
+    for tier in ("high", "bf16"):
+        tol = {"high": HIGH_TOL, "bf16": BF16_TOL}[tier]
+        for size, mats, phi_map, f, dy in ((N_MAP, fctx["ops"], fctx["phi_map"], fctx["f"],
+                                            fctx["dy"]), (N, m256, phi256, f256, dy256)):
+            planes = lfk.gradhess(phi_map, mats, tier)
+            runs = {}
+            for name, t0, t1, kind in kinds:
+                ap = lambda fn, p: fn(f, planes, mats, t0, t1, NSTEPS, kind, p)
+                torch.cuda.synchronize()
+                t_ = time.perf_counter()
+                u = ap(lfk.uni_flow_apply, tier)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t_)
+                runs[name] = (u, ap(lfk.flow_apply, tier), ms)
+                if size == N_MAP:
+                    runs[name] += (ap(lfk.uni_flow_apply_plain, tier),
+                                   ap(lfk.uni_flow_apply, "f32"))
+            bw = lambda fn, p: fn(dy, f, planes, mats, 0., 1., NSTEPS, p)
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            ub = bw(lfk.uni_flow_bwd, tier)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t_)
+            kb = bw(lfk.flow_bwd, tier)
+            extra = (bw(lfk.uni_flow_bwd_plain, tier), bw(lfk.uni_flow_bwd, "f32")) \
+                if size == N_MAP else ()
+            for i, name in enumerate(("backward dphi", "backward df0")):
+                runs[name] = (ub[i], kb[i], ms) + tuple(x[i] for x in extra)
+            other = "K3/K4" if size == N_MAP else "K2"
+            for name, r in runs.items():
+                d = dict(vs_kernel=rel(r[0], r[1]), ms=r[2])
+                ktol = UNI_DPHI_TOL[tier] if name == "backward dphi" else tol
+                line = f"vs {other} flow {d['vs_kernel']:.3e} (bound {ktol:g})"
+                if len(r) > 3:
+                    d.update(vs_plain=rel(r[0], r[3]), **split_ratio(r[0], r[3], r[4]))
+                    line = (f"vs plain uni {d['vs_plain']:.3e} (bound {tol:g}), Frobenius ratio "
+                            f"{d['split_ratio']:.4f} (bound {FLOW_SPLIT_RATIO:g}); " + line)
+                    if not (d["vs_plain"] < tol and d["split_ratio"] < FLOW_SPLIT_RATIO):
+                        bad[f"{tier} {size} {name} vs plain"] = (d["vs_plain"], d["split_ratio"])
+                if not d["vs_kernel"] < ktol:
+                    bad[f"{tier} {size} {name} vs {other}"] = d["vs_kernel"]
+                print(f"phase 15: (c) uni flow {name:14s} {tier!r} {size}^2 P: {line}  uni "
+                      f"{d['ms']:.2f} ms [nsteps={NSTEPS}; {card}]")
+                found[tier, size, name] = d
+    return found, bad
+
+
+def uni_gradients(torch, card, slice256, gctx):
+    """(d) the phi-gradient on "uni" against the kernel backend: at 256^2
+    P (nsteps 7, the dense K5) strict within GRAD_TOL, at 'high' and
+    'bf16' nearer the kernel backend's at the tier than the strict uni
+    gradient (FLOW_SPLIT_RATIO); at 1024^2 P at 'high' and 'bf16' the
+    same ratio. The launch counters are set to 0 just before each uni run
+    and read just after. Returns (paths' launches, records, failures)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    paths, found, bad = {}, {}, {}
+    for size, vg, phi_mix, tiers in ((N, slice256["vg"], slice256["phi_mix"], lfk.PRECISIONS),
+                                     (N_MAP, gctx["vg"], gctx["phi_mix"], ("f32", "high", "bf16"))):
+        g = {}
+        for tier in tiers:
+            for be in ("kernel", "uni"):
+                with ct.lenseflow_backend_ctx(be), deriv.precision_ctx(tier):
+                    lfk.reset_launches()
+                    _, g[be, tier] = vg(phi_mix)
+                    torch.cuda.synchronize()
+                    if be == "uni":
+                        paths[f"gradlnP {size}^2 P uni {tier}"] = dict(lfk.LAUNCHES)
+                        ms = cuda_ms(lambda: vg(phi_mix), 3, torch)
+            gu, gk = g["uni", tier].arr, g["kernel", tier].arr
+            d = dict(rel=rel(gu, gk), ms=ms)
+            if tier == "f32":
+                ok = d["rel"] < (GRAD_TOL if size == N else GRAD_TOL_1024)
+                line = f"bound {GRAD_TOL:g}"
+            else:
+                d["ratio"] = fro(gu, gk) / fro(gu, g["uni", "f32"].arr)
+                ok = d["ratio"] < FLOW_SPLIT_RATIO
+                line = (f"Frobenius distance over the distance to strict uni {d['ratio']:.4f} "
+                        f"(bound {FLOW_SPLIT_RATIO:g})")
+            print(f"phase 15: (d) gradlnP {size}^2 P on \"uni\" at {tier!r} vs the kernel backend "
+                  f"at {tier!r}: rel max-abs {d['rel']:.3e}; {line}; uni {ms:.3f} ms [{card}]")
+            if not (ok and torch.isfinite(gu).all()):
+                bad[f"gradient {size} {tier}"] = d
+            found[size, tier] = d
+    return paths, found, bad
+
+
+def uni_maps(torch, card, gctx, beside):
+    """(e) MAP_joint at 1024^2 P on "uni" at its default "auto" and at
+    precision="bf16" (run_map, phase 7's configuration): no K3/K4 launch,
+    K5's 'high' (every role) or 'bf16' (the phi-step's roles 0-2)
+    launched; beside phases 8, 9 and 14 (f). Then the path of K5's 'bf16'
+    role 3: argmaxf_logpdf at 1024^2 P on "uni", hessian_precision="bf16",
+    2 fixed iterations."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    sim, paths, timing_out = gctx["sim"], {}, {}
+    k34 = [k for k in lfk.LAUNCHES if k.startswith(("fa_velocity", "bv_velocity"))]
+    for tier, want in (("auto", [f"uni_role{r}_high" for r in range(4)]),
+                       ("bf16", [f"uni_role{r}_bf16" for r in range(3)])):
+        with ct.lenseflow_backend_ctx("uni"):
+            launches, s_step, hist = run_map(torch, sim, 15, f"uni, precision {tier!r}", card,
+                                             precision=tier)
+        paths[f"MAP_joint {N_MAP}^2 P uni {tier}"] = launches
+        timing_out[f"MAP_joint_1024_uni_{tier}_s_per_step"] = s_step
+        print(f"phase 15: (e) f-steps re-run strict {sum(h['precision_fallback'] for h in hist)} "
+              f"of {len(hist)}; direction retries fired {sum(h['retry'] for h in hist)}")
+        if any(launches[k] for k in k34) or min(launches[k] for k in want) <= 0:
+            raise AssertionError(f"MAP_joint on \"uni\" at {tier!r}: K3/K4 launched, or K5's "
+                                 f"{tier!r} tier did not: {launches}")
+    for phase, label in ((8, "\"uni\" strict"), (9, "\"kernel\" \"auto\""),
+                         (14, "\"kernel\" 'bf16'")):
+        s, h = (beside or {}).get(phase, (None, None))
+        if h is None:
+            print(f"phase 15: (e) beside phase {phase} ({label}): not run in this call")
+            continue
+        print(f"phase 15: (e) beside phase {phase} ({label}): {s:.3f} s/step; logpdfs "
+              f"{[x['logpdf'] for x in h]!r}; alphas {[x['alpha'] for x in h]!r}; fallbacks "
+              f"{sum(x.get('precision_fallback', False) for x in h)}; retries "
+              f"{sum(x.get('retry', False) for x in h)}")
+    with ct.lenseflow_backend_ctx("uni"):
+        lfk.reset_launches()
+        fw, _ = ct.argmaxf_logpdf(sim["ds"], phi=sim["phi"], conjgrad_kwargs=dict(
+            tol=0.0, nsteps=2, fixed_iters=True, hessian_precision="bf16"))
+        torch.cuda.synchronize()
+    paths[f"argmaxf_logpdf {N_MAP}^2 P uni bf16, 2 iterations"] = dict(lfk.LAUNCHES)
+    if not torch.isfinite(fw.arr).all():
+        raise AssertionError("the 'bf16' argmaxf_logpdf on \"uni\" is not finite")
+    return paths, timing_out
+
+
+def uni_wiener(torch, card, wf_sim):
+    """(f) the masked 256^2 IP Wiener filter on "uni": argmaxf_logpdf at
+    the JAX defaults (tol 0.1, nsteps 500, "auto") against the kernel
+    backend in the same call (the same fallback verdict; both iteration
+    counts and times); 20 fixed strict iterations within WF_PLAIN_TOL of
+    the kernel backend's; and 2 fixed iterations at
+    hessian_precision="bf16" (the path of the dense K5's 'bf16' role 3).
+    The counters are set to 0 just before each uni run and read after."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    ds, phi = wf_sim["ds"], wf_sim["phi"]
+    paths, runs = {}, {}
+
+    def solve(backend, **cg):
+        with ct.lenseflow_backend_ctx(backend):
+            lfk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fw, info = ct.argmaxf_logpdf(ds, phi=phi, conjgrad_kwargs=cg or None)
+            torch.cuda.synchronize()
+            return fw, info, 1e3 * (time.perf_counter() - t0), dict(lfk.LAUNCHES)
+
+    for be in ("kernel", "uni"):
+        runs[be] = solve(be)
+        _, info, ms, _ = runs[be]
+        print(f"phase 15: (f) argmaxf_logpdf \"auto\" (tol 0.1, nsteps 500) masked {N}^2 IP on "
+              f"\"{be}\": {info['iterations']} iterations returned, precision_fallback "
+              f"{bool(info.get('precision_fallback', False))}, {ms:.1f} ms [{card}]")
+    paths[f"argmaxf_logpdf masked {N}^2 IP uni auto"] = runs["uni"][3]
+    fixed = dict(tol=0.0, nsteps=20, fixed_iters=True, hessian_precision=None)
+    for be in ("kernel", "uni"):
+        runs[be, "fixed"] = solve(be, **fixed)
+    paths[f"argmaxf_logpdf masked {N}^2 IP uni, 20 fixed strict iterations"] = \
+        runs["uni", "fixed"][3]
+    fk, fu = runs["kernel", "fixed"][0], runs["uni", "fixed"][0]
+    err = float((fu.arr - fk.to(fu.basis).arr).norm() / fk.arr.norm())
+    print(f"phase 15: (f) 20 fixed strict iterations, uni vs kernel backend |f_u - f_k| / |f_k| = "
+          f"{err:.3e} (bound {WF_PLAIN_TOL:g}); uni {runs['uni', 'fixed'][2]:.1f} ms, kernel "
+          f"{runs['kernel', 'fixed'][2]:.1f} ms [{card}]")
+    fb, _, _, paths[f"argmaxf_logpdf masked {N}^2 IP uni bf16, 2 iterations"] = solve(
+        "uni", tol=0.0, nsteps=2, fixed_iters=True, hessian_precision="bf16")
+    verdict = [bool(runs[be][1].get("precision_fallback", False)) for be in ("kernel", "uni")]
+    bad = {}
+    if verdict[0] != verdict[1]:
+        bad["fallback verdict"] = verdict
+    if not err < WF_PLAIN_TOL:
+        bad["20 fixed iterations"] = err
+    if not all(torch.isfinite(x.arr).all() for x in (runs["uni"][0], fu, fb)):
+        bad["f"] = "not finite"
+    timing_out = dict(argmaxf_256_IP_uni_auto_ms=runs["uni"][2],
+                      argmaxf_256_IP_kernel_auto_ms=runs["kernel"][2],
+                      argmaxf_256_IP_uni_auto_iterations=int(runs["uni"][1]["iterations"]),
+                      argmaxf_256_IP_uni_auto_fallback=verdict[1])
+    return paths, timing_out, bad
+
+
+def uni_768(torch, card):
+    """(g) L @ f on a 768^2 P load_sim on "uni" (the dense K5: radix 6 is
+    not built), strict within FLOW_TOL and at 'high' within HIGH_TOL of
+    the kernel backend (K2) at the same tier; K5's dense role 2 launched."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    sim = ct.load_sim(thetapix=THETAPIX_MAP, Nside=N_DENSE_UNI, pol="P", T=np.float32, seed=SEED,
+                      device=DEVICE)
+    phi, f = sim["phi"].to(ct.MAP), sim["f"].to(ct.QU_MAP)
+    bad = {}
+    for tier, tol in (("f32", FLOW_TOL), ("high", HIGH_TOL)):
+        out = {}
+        for be in ("kernel", "uni"):
+            with ct.lenseflow_backend_ctx(be), deriv.precision_ctx(tier):
+                lfk.reset_launches()
+                out[be] = (sim["ds"].L(phi) @ f).to(ct.QU_MAP).arr
+                launches = dict(lfk.LAUNCHES)
+        e = rel(out["uni"], out["kernel"])
+        k5 = launches["uni_dense_role2" + ("" if tier == "f32" else "_high")]
+        print(f"phase 15: (g) L @ f on a {N_DENSE_UNI}^2 P load_sim at {tier!r}: uni ({k5} dense "
+              f"K5 launches) vs kernel backend {e:.3e} (bound {tol:g})")
+        if not (k5 > 0 and e < tol):
+            bad[f"768 L @ f {tier}"] = (e, k5)
+    return bad
+
+
+def phase_uni_tiers(torch, card, fctx=None, gctx=None, beside=None):
+    """Phase 15: K5 at 'high' and 'bf16' and with dense operands, and the
+    "uni" backend at the JAX defaults (see the module docstring). fctx and
+    gctx are phases 5 and 6's 1024^2 contexts (made here when phase 15
+    runs alone); beside holds phases 8, 9 and 14's MAP_joint (s/step,
+    history). Returns (kernel records {name: record}, launches {name:
+    (path, count)}, timings)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    t_start = time.perf_counter()
+    fctx = fctx or uni_fctx(torch)
+    if gctx is None:
+        gctx = phase_map_gradient(torch, card)[0]
+    bad, timing_out = {}, {}
+    records, why = uni_tiers_factored(torch, card, fctx)
+    bad.update(why)
+    t0 = time.perf_counter()
+    wf_sim = ct.load_sim(**WF_SIM, device=DEVICE)
+    sim256 = ct.load_sim(thetapix=3, Nside=N, pol="P", T=np.float32, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"phase 15: load_sim {WF_SIM} and at {N}^2 P: {time.perf_counter() - t0:.2f} s [{card}]")
+    dense, why = uni_tiers_dense(torch, card, wf_sim)
+    records.update(dense)
+    bad.update(why)
+    _, why = uni_tier_flows(torch, card, fctx)
+    bad.update(why)
+    f256 = sim256["f"].to(sim256["f"].basis.with_space("map"))
+    p256 = sim256["phi"].to(ct.MAP)
+    m = ct.mix(sim256["ds"], f=f256, phi=p256)
+    f_mix, phi_mix = m["f_mix"].to(f256.basis), m["phi_mix"].to(p256.basis)
+    vg = ct.fvalue_and_grad(lambda p: ct.Mixed(sim256["ds"]).logpdf(f_mix=f_mix, phi_mix=p))
+    paths, grads, why = uni_gradients(torch, card, dict(vg=vg, phi_mix=phi_mix), gctx)
+    bad.update(why)
+    timing_out.update({f"gradlnP_{s}_uni_{t}_ms": d["ms"] for (s, t), d in grads.items()})
+    wpaths, wtiming, why = uni_wiener(torch, card, wf_sim)
+    paths.update(wpaths)
+    timing_out.update(wtiming)
+    bad.update(why)
+    bad.update(uni_768(torch, card))
+    if bad:
+        raise AssertionError(f"phase 15: K5 or the uni path disagrees: {bad}")
+    mpaths, mtiming = uni_maps(torch, card, gctx, beside)
+    paths.update(mpaths)
+    timing_out.update(mtiming)
+    # each record's launches: the named path's run
+    path_of = {f"uni_role{r}_high": f"MAP_joint {N_MAP}^2 P uni auto" for r in range(4)}
+    path_of.update({f"uni_role{r}_bf16": f"MAP_joint {N_MAP}^2 P uni bf16" for r in range(3)})
+    path_of["uni_role3_bf16"] = f"argmaxf_logpdf {N_MAP}^2 P uni bf16, 2 iterations"
+    for tier, sfx, role3 in (("f32", "", f"argmaxf_logpdf masked {N}^2 IP uni, 20 fixed strict "
+                              "iterations"),
+                             ("high", "_high", f"argmaxf_logpdf masked {N}^2 IP uni auto"),
+                             ("bf16", "_bf16", f"argmaxf_logpdf masked {N}^2 IP uni bf16, 2 "
+                              "iterations")):
+        path_of.update({f"uni_dense_role{r}{sfx}": f"gradlnP {N}^2 P uni {tier}" for r in range(3)})
+        path_of[f"uni_dense_role3{sfx}"] = role3
+    launches = {name: (p, paths[p][name]) for name, p in path_of.items()}
+    never = {k: v for k, v in launches.items() if v[1] <= 0}
+    if never:
+        raise AssertionError(f"a K5 kernel never launched in its path's run: {never}")
+    for name, (p, n) in launches.items():
+        print(f"phase 15: {name}: {n} launches in {p}")
+    print(f"phase 15: wall time {time.perf_counter() - t_start:.1f} s [{card}]")
+    return records, launches, timing_out
+
+
 def main():
     try:
         import torch
@@ -2472,6 +2991,9 @@ def main():
     if sys.argv[1:] == ["--phase", "14"]:
         phase_bf16(torch, card)
         return 0
+    if sys.argv[1:] == ["--phase", "15"]:
+        phase_uni_tiers(torch, card)
+        return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
@@ -2488,6 +3010,10 @@ def main():
     large, large_launches, large_timing = phase_large(torch, card)
     beside = {7: (s_step, gctx["map_hist"]), 9: (gctx["map_s_auto"], gctx["map_hist_auto"])}
     bf16, bf16_launches, bf16_timing = phase_bf16(torch, card, gctx, beside)
+    beside.update({8: (gctx["map_s_uni"], gctx["map_hist_uni"]),
+                   14: (gctx["map_s_bf16"], gctx["map_hist_bf16"])})
+    uni_tiers, uni_tier_launches, uni_tier_timing = phase_uni_tiers(torch, card, fctx, gctx,
+                                                                    beside)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -2495,7 +3021,9 @@ def main():
                 "fa_velocity_forward": "cmblensing_tpu/ops/pallas_lenseflow.py:506",
                 "fa_velocity_adjoint": "cmblensing_tpu/ops/pallas_lenseflow.py:506",
                 "bv_velocity": "cmblensing_tpu/ops/pallas_lenseflow.py:581"}
-    replaces.update({f"uni_role{r}": "cmblensing_tpu/ops/pallas_lenseflow.py:734" for r in range(4)})
+    replaces.update({f"uni{form}_role{r}{sfx}": "cmblensing_tpu/ops/pallas_lenseflow.py:734"
+                     for form in ("", "_dense") for r in range(4)
+                     for sfx in ("", "_high", "_bf16")})
     replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:225" for k in HIGH_KERNELS})
     replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:103" for k in DENSE_HIGH_KERNELS})
     replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:218" for k in BF16_KERNELS})
@@ -2565,11 +3093,20 @@ def main():
             if Nl in N_LARGE:
                 rec["name"] = f"{name}_bf16_b{Nl // FA}"
             record["kernels"].append(rec)
+    # K5 at 'high' and 'bf16' (factored, 1024^2; "batched": the NTRIAL
+    # trials) and dense at every tier (256^2 P) (phase 15); "path" names the
+    # run whose launches each gives
+    for name, d in uni_tiers.items():
+        path, n = uni_tier_launches[name]
+        src = "cmblensing_tpu_torch/csrc/" + ("uni_dense.cu" if "dense" in name else "uni.cu")
+        rec = entry(name, d, src, n)
+        rec["path"] = path
+        record["kernels"].append(rec)
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),
                    "MAP_joint_1024_s_per_step": (s_step, plain_s_step),
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
                    **high_timing, **dense_high_timing, **wf_timing, **large_timing,
-                   **bf16_timing,
+                   **bf16_timing, **uni_tier_timing,
                    **{f"velocity_forward_{Ny}x{Nx}_{p}": ms for (Ny, Nx, p), ms in edge_ms.items()}})
     print("main path ms (kernel, plain):", json.dumps(timing))
     print(card)

@@ -1,5 +1,7 @@
 // The universal role-switched LenseFlow velocity kernel (K5) for NVIDIA
-// Hopper (sm_90a), FP32 FMA.
+// Hopper (sm_90a) on factored operands: FP32 FMA, and the 'high' and
+// 'bf16' tiers on the tensor cores (the entry's `tier` argument). Its
+// dense form is uni_dense.cu.
 //
 // Replaces `_bwdAB_kernel` (cmblensing_tpu/ops/pallas_lenseflow.py, launched
 // by `_uni_call`): every velocity of every flow as calls of one kernel,
@@ -41,7 +43,20 @@
 // written, read and re-read). It runs on K1's tile as K3 and K4 do (see
 // fact_tile.cuh for what that tile does about the shared-memory load
 // rate, butterfly recomputation and latency) and spends nothing on the
-// zero planes beyond their stores.
+// zero planes beyond their stores. At 'high' and 'bf16' the block
+// products shrink to a few percent of the tile's time and its other
+// phases set the pace, bound by bytes as K3's reduced tiers are
+// (fact_tile.cuh).
+//
+// Tiers: `_bwdAB_kernel` builds its derivatives with `_make_dd_any(...,
+// precision, fmeta)`, `_mk_dot('high')` (:225) or `_mk_dot('bf16')` (:218)
+// at the reduced tiers; here fact_tile<B, AXIS, TIER> (fact_tile.cuh) runs
+// them, the blocks split ([head, residual] bf16, FactoredOps.FXS / FYTS)
+// at 'high', their heads at 'bf16', every channel value split or rounded
+// as its slab is formed. Role 1's outer stage differentiates the inner
+// stage's stored sums, so at a reduced tier it rounds those sums, as JAX
+// rounds `a + ddx(t px a) + ddy(t py a)`. The loads, stores and the y
+// pass's one add per pixel are the FP32 form's at every tier.
 //
 // Radix 4 and 8 only, one channel group: the entry refuses 16 and 32
 // (ROADMAP Queue 2, K5). Running fact_tile's channel groups there would
@@ -61,15 +76,15 @@ namespace {
 // One pass (AXIS) of one derivative of one stage of the role's velocity:
 // blockIdx.z = entry * nder + j, j the stage's derivative (each is one
 // fact_tile call, independent of the other, so they ride on the grid).
-template <int B, int AXIS>
+template <int B, int AXIS, int TIER>
 __global__ void __launch_bounds__(tile_threads(B), tile_min_blocks(B))
 uni_kernel(int role, int stage, const float* __restrict__ a, const float* __restrict__ b,
            long long a_bs, long long a_cs, long long b_bs, long long b_cs, int nper,
            const float* __restrict__ px, const float* __restrict__ py, float* __restrict__ out,
-           float* __restrict__ scratch, const float* __restrict__ Gt,
+           float* __restrict__ scratch, const void* __restrict__ Gt,
            const float* __restrict__ bf, int Ny, int Nx, float t) {
-    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B)
-    load_butterflies<B>(bf, smem, 0);   // one channel group (radix 4, 8)
+    extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, TIER)
+    load_butterflies<B, TIER>(bf, smem, 0);   // one channel group (radix 4, 8)
     const size_t plane = (size_t)Ny * Nx;
     const int nder = role == 1 && stage == 1 ? 1 : 2;
     const int z = blockIdx.z / nder, j = blockIdx.z % nder, bi = z / nper, ci = z % nper;
@@ -91,7 +106,7 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
     float* dst = inner ? sc + j * plane : (role == 1 ? o : o + j * plane);
     // the y pass adds onto the x pass's plane with a result-less atomicAdd:
     // one add per pixel, so the sum is that of a load, add and store
-    fact_tile<B, AXIS>(
+    fact_tile<B, AXIS, TIER>(
         Gt, smem, m0, o0, 0, Nx,
         [&](int q) {
             const float x = src[q];
@@ -118,48 +133,72 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
         });
 }
 
-}  // namespace
-
-// Once after loading, before any launch: the kernel's dynamic shared memory.
-extern "C" int lf_uni_init() {
-    int rc = allow_tile_smem(uni_kernel<4, AXIS_X>, 4);
-    if (rc == 0) rc = allow_tile_smem(uni_kernel<4, AXIS_Y>, 4);
-    if (rc == 0) rc = allow_tile_smem(uni_kernel<8, AXIS_X>, 8);
-    if (rc == 0) rc = allow_tile_smem(uni_kernel<8, AXIS_Y>, 8);
-    return rc;
+template <int TIER>
+int allow_uni() {
+    int rc = allow_tile_smem(uni_kernel<4, AXIS_X, TIER>, 4, TIER);
+    if (rc == 0) rc = allow_tile_smem(uni_kernel<4, AXIS_Y, TIER>, 4, TIER);
+    if (rc == 0) rc = allow_tile_smem(uni_kernel<8, AXIS_X, TIER>, 8, TIER);
+    return rc != 0 ? rc : allow_tile_smem(uni_kernel<8, AXIS_Y, TIER>, 8, TIER);
 }
 
-// out <- the role's velocity (see the header) of the (nbatch, nper) entries
-// of a and b, at time t; px, py are (nbatch, Ny, Nx), out is (nbatch, nper,
-// 4, Ny, Nx) and scratch (nbatch, nper, 2, Ny, Nx) (role 1 only; may be
-// null otherwise); FX and FYT are the packed blocks, both transposed
-// (fact_tile.cuh). Two launches, four for role 1.
-extern "C" int lf_uni_velocity(int role, const float* a, const float* b, long long a_bs,
-                               long long a_cs, long long b_bs, long long b_cs, const float* px,
-                               const float* py, float* out, float* scratch, const float* FX,
-                               const float* FYT, const float* bfx, const float* bfy, int Bx,
-                               int By, int nbatch, int nper, int Ny, int Nx, float t,
-                               void* stream) {
-    if (!shape_ok(Bx, By, Ny, Nx) || role < 0 || role > 3 || nbatch < 1 || nper < 1 ||
-        (role == 1 && scratch == nullptr))
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
+// One velocity at one tier: an x pass and a y pass a stage.
+template <int TIER>
+int uni_velocity(int role, const float* a, const float* b, long long a_bs, long long a_cs,
+                 long long b_bs, long long b_cs, const float* px, const float* py, float* out,
+                 float* scratch, const void* FX, const void* FYT, const float* bfx,
+                 const float* bfy, int Bx, int By, int nbatch, int nper, int Ny, int Nx, float t,
+                 cudaStream_t st) {
     for (int stage = 0; stage < (role == 1 ? 2 : 1); ++stage) {
         const int nz = nbatch * nper * (role == 1 && stage == 1 ? 1 : 2);
         LF_WITH_ONE_GROUP_RADIX(
-            Bx, uni_kernel<B, AXIS_X><<<pass_grid<AXIS_X>(Ny, Nx, nz), tile_threads(B),
-                                          tile_smem_bytes(B), st>>>(
+            Bx, uni_kernel<B, AXIS_X, TIER><<<pass_grid<AXIS_X>(Ny, Nx, nz), tile_threads(B),
+                                                tile_smem_bytes(B, TIER), st>>>(
                      role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper, px, py, out, scratch, FX, bfx,
                      Ny, Nx, t))
         int rc = (int)cudaGetLastError();
         if (rc != 0) return rc;
         LF_WITH_ONE_GROUP_RADIX(
-            By, uni_kernel<B, AXIS_Y><<<pass_grid<AXIS_Y>(Ny, Nx, nz), tile_threads(B),
-                                          tile_smem_bytes(B), st>>>(
+            By, uni_kernel<B, AXIS_Y, TIER><<<pass_grid<AXIS_Y>(Ny, Nx, nz), tile_threads(B),
+                                                tile_smem_bytes(B, TIER), st>>>(
                      role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper, px, py, out, scratch, FYT, bfy,
                      Ny, Nx, t))
         rc = (int)cudaGetLastError();
         if (rc != 0) return rc;
     }
     return 0;
+}
+
+}  // namespace
+
+// Once after loading, before any launch: the kernel's dynamic shared memory
+// at every tier (the 'high' ring is 115 KB at B = 8).
+extern "C" int lf_uni_init() {
+    int rc = allow_uni<TIER_F32>();
+    if (rc == 0) rc = allow_uni<TIER_HIGH>();
+    return rc != 0 ? rc : allow_uni<TIER_BF16>();
+}
+
+// out <- the role's velocity (see the header) of the (nbatch, nper) entries
+// of a and b, at time t; px, py are (nbatch, Ny, Nx), out is (nbatch, nper,
+// 4, Ny, Nx) and scratch (nbatch, nper, 2, Ny, Nx) (role 1 only; may be
+// null otherwise). `tier` picks FP32 (0), 'high' (1) or 'bf16' (2); FX and
+// FYT are the packed blocks, both transposed (fact_tile.cuh): FP32, at
+// 'high' their bf16 split (2, B, A, A), at 'bf16' their heads. Two
+// launches, four for role 1.
+extern "C" int lf_uni_velocity(int tier, int role, const float* a, const float* b,
+                               long long a_bs, long long a_cs, long long b_bs, long long b_cs,
+                               const float* px, const float* py, float* out, float* scratch,
+                               const void* FX, const void* FYT, const float* bfx,
+                               const float* bfy, int Bx, int By, int nbatch, int nper, int Ny,
+                               int Nx, float t, void* stream) {
+    if (!shape_ok(Bx, By, Ny, Nx) || role < 0 || role > 3 || nbatch < 1 || nper < 1 ||
+        (role == 1 && scratch == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const auto fn = tier == TIER_F32    ? &uni_velocity<TIER_F32>
+                    : tier == TIER_HIGH ? &uni_velocity<TIER_HIGH>
+                    : tier == TIER_BF16 ? &uni_velocity<TIER_BF16>
+                                        : nullptr;
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    return fn(role, a, b, a_bs, a_cs, b_bs, b_cs, px, py, out, scratch, FX, FYT, bfx, bfy, Bx, By,
+              nbatch, nper, Ny, Nx, t, (cudaStream_t)stream);
 }

@@ -22,8 +22,12 @@ Four integration backends, chosen with `set_lenseflow_backend` or
              velocity of every flow is a call of the universal
              role-switched kernel (K5), the backward flow integrates
              delta phi in its state; the JAX package's CMBL_FORCE_UNI=1
-             CMBL_NO_FA=1. On the card it takes factored operands only
-             (512^2 and up); on the CPU its plain version takes either.
+             CMBL_NO_FA=1. K5 takes the operands `deriv_ops` gives, at
+             every tier: factored at 512^2 and 1024^2 (radix 4, 8), dense
+             at every other size up to 1024^2 (256^2, 200^2, 768^2); at
+             2048^2 and 4096^2 (radix 16, 32) it raises
+             NotImplementedError (ROADMAP Queue 2). On the CPU its plain
+             version takes either form.
   'matmul' — the 'kernel' flows on their plain matmul leaves on any
              device (`flow_apply_plain`, `flow_bwd_plain`): on the card,
              the reference the kernels are held to at either precision.
@@ -32,8 +36,9 @@ Four integration backends, chosen with `set_lenseflow_backend` or
              the time loop.
 
 The 'kernel', 'matmul' and 'uni' flows run at the matmul precision in
-force when the operator is applied (ops/deriv.py::precision_ctx; 'high'
-and 'bf16' on 'kernel' and 'matmul', 'f32' on all three); the autograd
+force when the operator is applied (ops/deriv.py::precision_ctx: 'f32',
+'high' or 'bf16' on each); phi's planes come from the kernel path's
+`gradhess` at the tier's PLANES_PRECISION on every backend; the autograd
 Functions record it at forward time and run their backward at it,
 wherever `.backward()` is called.
 The 'plain' backend's FFT derivatives ignore it.

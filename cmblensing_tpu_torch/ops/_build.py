@@ -86,10 +86,13 @@ def bind(lib):
         "lf_fderiv": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
         "lf_fa_velocity": [I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
         "lf_bv_velocity": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
-        "lf_uni_velocity": [I, P, P, L, L, L, L, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        "lf_uni_velocity": [I, I, P, P, L, L, L, L, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F,
+                            P],
+        "lf_uni_dense_velocity": [I, I, P, P, L, L, L, L, P, P, P, P, P, P, I, I, I, I, F, P],
         "lf_dense_init": [],
         "lf_factored_init": [],
         "lf_uni_init": [],
+        "lf_uni_dense_init": [],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -104,7 +107,8 @@ def load():
     global _LIB
     if _LIB is None:
         lib = bind(ctypes.CDLL(str(build())))
-        for init in (lib.lf_dense_init, lib.lf_factored_init, lib.lf_uni_init):
+        for init in (lib.lf_dense_init, lib.lf_factored_init, lib.lf_uni_init,
+                     lib.lf_uni_dense_init):
             rc = init()
             if rc != 0:
                 raise RuntimeError(f"{init.__name__} failed with CUDA error {rc}")

@@ -21,8 +21,7 @@ The dense and factored products run at the matmul precision in force
 (``set_matmul_precision``, ``precision_ctx``), as the JAX package's do:
 'f32' strict float32 (the default); 'high' the bf16 head/residual split,
 three bf16 x bf16 products summed in float32; 'bf16' one product of the
-operands rounded to bf16, summed in float32 (~1e-3 relative; the "uni"
-LenseFlow backend refuses it, as it refuses 'high': ROADMAP Queue 2, K5).
+operands rounded to bf16, summed in float32 (~1e-3 relative).
 The FFT forms ignore it. The switch touches neither TF32 pin of
 ``torch.backends``.
 """

@@ -18,10 +18,11 @@ given (``ops/deriv.py::deriv_ops``), and a third granularity that the
             one launch per pass.
   uni       the per-velocity "uni" granularity of ``_uni_call``: every
             velocity of every flow as calls of the universal role-switched
-            kernel ``_bwdAB_kernel`` (K5, csrc/uni.cu; factored operands
-            on the card, either form in its plain version), with
-            M^-1(t) and u = M^-1 w as torch elementwise glue, and the
-            backward flow carrying delta phi in its state, not hoisted.
+            kernel ``_bwdAB_kernel`` (K5: csrc/uni.cu on factored operands
+            at radix 4 and 8, csrc/uni_dense.cu on dense ones at any plane
+            shape), with M^-1(t) and u = M^-1 w as torch elementwise glue,
+            and the backward flow carrying delta phi in its state, not
+            hoisted. Batch x entry rides on K5's grid in either form.
 
 Three flows, as there:
 
@@ -57,13 +58,13 @@ in force (ops/deriv.py) unless given one. 'f32' is the kernels above;
 `_make_ddx_ddy` 'high') and 'bf16' (one product of the operands rounded
 to bf16, `_mk_dot('bf16')` / `_make_ddx_ddy` 'bf16') run the kernels'
 tensor-core tiers (the `tier` argument, the index in PRECISIONS, of
-lf_velocity and lf_deriv, csrc/lenseflow.cu, and of lf_fderiv,
-lf_fa_velocity and lf_bv_velocity, csrc/factored.cu) and, for a CPU
-tensor, the plain leaves at that precision, dense or factored; at
-'bf16' phi's planes are formed strict (PLANES_PRECISION). With no
-'high' or 'bf16' kernel for it, the uni granularity raises
-NotImplementedError at either (ROADMAP Queue 2, K5) rather than run
-strict.
+lf_velocity and lf_deriv, csrc/lenseflow.cu, of lf_fderiv,
+lf_fa_velocity and lf_bv_velocity, csrc/factored.cu, and of
+lf_uni_velocity and lf_uni_dense_velocity, K5) and, for a CPU tensor,
+the plain leaves at that precision, dense or factored; at 'bf16' phi's
+planes are formed strict (PLANES_PRECISION). The uni granularity runs
+every tier; its one refusal is K5 at radix 16 and 32, which raises
+NotImplementedError (ROADMAP Queue 2, K5).
 
 The dense kernels take any plane shape (their edge tiles are guarded);
 the factored ones a radix they are built for (ops/deriv.py::deriv_ops).
@@ -90,13 +91,17 @@ CUDA_ERROR_INVALID_VALUE = 1   # what a kernel's C entry returns for arguments i
 # at radix 16 and 32 so for each channel group)
 LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0,
             "rk4_update": 0, "p_planes": 0, "deriv": 0, "fderiv": 0, "fa_velocity_forward": 0,
-            "fa_velocity_adjoint": 0, "bv_velocity": 0, "uni_role0": 0, "uni_role1": 0,
-            "uni_role2": 0, "uni_role3": 0, "fderiv_high": 0, "fa_velocity_forward_high": 0,
+            "fa_velocity_adjoint": 0, "bv_velocity": 0, "fderiv_high": 0,
+            "fa_velocity_forward_high": 0,
             "fa_velocity_adjoint_high": 0, "bv_velocity_high": 0, "velocity_forward_high": 0,
             "velocity_adjoint_high": 0, "velocity_backward_high": 0, "deriv_high": 0,
             "fderiv_bf16": 0, "fa_velocity_forward_bf16": 0, "fa_velocity_adjoint_bf16": 0,
             "bv_velocity_bf16": 0, "velocity_forward_bf16": 0, "velocity_adjoint_bf16": 0,
             "velocity_backward_bf16": 0, "deriv_bf16": 0}
+# K5 at every tier, factored (uni_role*: two launches a call, four for
+# role 1) and dense (uni_dense_role*: one launch a call, two for role 1)
+LAUNCHES.update({f"uni{form}_role{r}{sfx}": 0 for form in ("", "_dense") for r in range(4)
+                 for sfx in ("", "_high", "_bf16")})
 # the tiers the flows are ported at, in the order of the C entries' `tier`
 # argument (csrc/lenseflow_common.cuh::Tier)
 PRECISIONS = ("f32", "high", "bf16")
@@ -195,18 +200,22 @@ def deriv_plain(a, b, c, out, mats, precision="f32"):
 fvelocity_plain, fderiv_plain = velocity_plain, deriv_plain
 
 
-def uni_velocity_plain(role, a, b, px, py, out, mats, t):
+def uni_velocity_plain(role, a, b, px, py, out, mats, t, precision="f32"):
     """out <- what the universal kernel `_bwdAB_kernel` writes for `role`
-    (csrc/uni.cu), dense or factored: a, b (..., Ny, Nx) operands, px, py
-    p(t) planes broadcastable to them, out (..., 4, Ny, Nx)."""
-    dx, dy = _deriv.ddx_ddy(mats)
+    (csrc/uni.cu, csrc/uni_dense.cu), dense or factored, its derivatives
+    at `precision`: a, b (..., Ny, Nx) operands, px, py p(t) planes
+    broadcastable to them, out (..., 4, Ny, Nx). Role 1 nests its
+    derivatives as the kernel does, d_x(a + d_x(t px a) + d_y(t py a)) +
+    d_y(b + ...): six products, each operand rounded at the tier, the
+    outer ones the rounded sums."""
+    dx, dy = _deriv.ddx_ddy(mats, precision)
     zero = torch.zeros_like(a)
     if role == 0:
         fx, fy = dx(a), dy(a)
         planes = (px * fx + py * fy, dx(px * b) + dy(py * b), b * fx, b * fy)
     elif role == 1:
-        planes = (_deriv.div_plus_dij(a, b, t * px * a, t * py * a, t * px * b, t * py * b,
-                                      None, mats), zero, zero, zero)
+        inner = [x + dx(t * px * x) + dy(t * py * x) for x in (a, b)]
+        planes = (dx(inner[0]) + dy(inner[1]), zero, zero, zero)
     elif role == 2:
         planes = (px * dx(a) + py * dy(a), px * dx(b) + py * dy(b), zero, zero)
     elif role == 3:
@@ -499,42 +508,75 @@ def _plane_strides(name, x, Ny, Nx):
     return x.stride(0), x.stride(1)
 
 
-def uni_velocity_cuda(role, a, b, px, py, out, ops, t):
-    """K5: out <- the universal kernel's planes for `role` (see csrc/uni.cu)
-    over the (nb, nper) entries of a and b, (nb, nper, Ny, Nx) views with
-    contiguous planes; px, py (nb, 1, Ny, Nx) and out (nb, nper, 4, Ny, Nx)
-    contiguous. Two launches (x pass, y pass), four for role 1."""
+def _uni_check_dense(name, mats, a, b, Ny, Nx):
+    """The dense K5's operands: circulants of this plane shape, and a and
+    b 16-byte aligned, with strides of whole 16-byte words, where the
+    kernel reads their rows four floats at a time (Nx a multiple of 4)."""
+    DxT, Dy = mats
+    if DxT.shape != (Nx, Nx) or Dy.shape != (Ny, Ny):
+        raise ValueError(f"{name}: derivative matrices {tuple(DxT.shape)}, {tuple(Dy.shape)} do "
+                         f"not fit a {Ny}x{Nx} plane")
+    if Nx % 4 == 0 and any(x.data_ptr() % 16 or x.stride(0) % 4 or x.stride(1) % 4
+                           for x in (a, b)):
+        raise ValueError(f"{name}: a and b must be 16-byte aligned with strides of whole 16-byte "
+                         "words")
+
+
+def uni_velocity_launcher(role, a, b, px, py, out, mats, precision="f32"):
+    """launch(t): K5, out <- the universal kernel's planes for `role` (see
+    csrc/uni.cu) over the (nb, nper) entries of a and b, (nb, nper, Ny, Nx)
+    views with contiguous planes; px, py (nb, 1, Ny, Nx) and out (nb, nper,
+    4, Ny, Nx) contiguous; at `precision` ('f32', 'high' or 'bf16').
+    Factored operands (csrc/uni.cu, radix 4 and 8): two launches (x pass,
+    y pass), four for role 1; dense ones (csrc/uni_dense.cu, any plane
+    shape): one launch, two for role 1. Checks, pointers and role 1's
+    scratch are made here once; a flow makes one launcher per K5 call of
+    its velocity."""
     from . import _build
     Ny, Nx = out.shape[-2:]
-    if not isinstance(ops, FactoredOps):
-        raise RuntimeError("lf_uni_velocity: the uni kernel takes factored operands only "
-                           "(N >= 512); its dense form is ROADMAP Queue 2, K5")
-    _, fptrs = _operands("lf_uni_velocity", ops, out)
-    _check_cuda("lf_uni_velocity", [px, py, out], strided=(a, b))
-    strides = [*_plane_strides("lf_uni_velocity", a, Ny, Nx),
-               *_plane_strides("lf_uni_velocity", b, Ny, Nx)]
+    factored = isinstance(mats, FactoredOps)
+    name = "lf_uni_velocity" if factored else "lf_uni_dense_velocity"
+    tier = _tier_arg(precision)
+    _, mptrs = _operands(name, mats, out, precision)
+    _check_cuda(name, [px, py, out], strided=(a, b))
+    if role not in (0, 1, 2, 3):
+        raise ValueError(f"{name}: role {role}")
+    if factored:
+        Bx, By = _check_factored(name, mats, Ny, Nx)
+        if _deriv.radix_groups(Bx) > 1 or _deriv.radix_groups(By) > 1:
+            raise NotImplementedError(f"{name}: radix ({Bx}, {By}): the uni kernel is built for "
+                                      "radix 4 and 8 only; 16 and 32 are ROADMAP Queue 2, K5")
+    strides = [*_plane_strides(name, a, Ny, Nx), *_plane_strides(name, b, Ny, Nx)]
     nb, nper = out.shape[0], out.shape[1]
     if (a.shape[:2] != (nb, nper) or b.shape[:2] != (nb, nper) or out.shape[2] != 4
             or px.shape != (nb, 1, Ny, Nx) or py.shape != px.shape):
-        raise ValueError(f"lf_uni_velocity: a {tuple(a.shape)}, b {tuple(b.shape)}, px "
+        raise ValueError(f"{name}: a {tuple(a.shape)}, b {tuple(b.shape)}, px "
                          f"{tuple(px.shape)} and out {tuple(out.shape)} do not fit "
                          "(nb, nper, [4,] Ny, Nx)")
     if any(x.untyped_storage().data_ptr() == out.untyped_storage().data_ptr()
            for x in (a, b, px, py)):
-        raise ValueError("lf_uni_velocity: out must not share storage with an operand")
-    if role not in (0, 1, 2, 3):
-        raise ValueError(f"lf_uni_velocity: role {role}")
-    Bx, By = _check_factored("lf_uni_velocity", ops, Ny, Nx)
-    if _deriv.radix_groups(Bx) > 1 or _deriv.radix_groups(By) > 1:
-        raise NotImplementedError(f"lf_uni_velocity: radix ({Bx}, {By}): the uni kernel is built "
-                                  "for radix 4 and 8 only; 16 and 32 are ROADMAP Queue 2, K5")
+        raise ValueError(f"{name}: out must not share storage with an operand")
+    if not factored:
+        _uni_check_dense(name, mats, a, b, Ny, Nx)
     scratch = torch.empty((nb, nper, 2, Ny, Nx), dtype=out.dtype, device=out.device) \
         if role == 1 else None
-    rc = _build.load().lf_uni_velocity(role, _ptr(a), _ptr(b), *strides, _ptr(px), _ptr(py),
-                                       _ptr(out), _ptr(scratch), *fptrs, Bx, By, nb, nper, Ny, Nx,
-                                       float(t), _stream())
-    _raise_on(rc, "lf_uni_velocity")
-    LAUNCHES[f"uni_role{role}"] += 4 if role == 1 else 2
+    lib = _build.load()
+    head = (tier, role, _ptr(a), _ptr(b), *strides, _ptr(px), _ptr(py), _ptr(out), _ptr(scratch),
+            *mptrs)
+    if factored:
+        return _launcher(lib.lf_uni_velocity, name, f"uni_role{role}{_SUFFIX[tier]}",
+                         4 if role == 1 else 2, (*head, Bx, By, nb, nper, Ny, Nx))
+    return _launcher(lib.lf_uni_dense_velocity, name, f"uni_dense_role{role}{_SUFFIX[tier]}",
+                     2 if role == 1 else 1, (*head, nb, nper, Ny, Nx))
+
+
+def uni_velocity_cuda(role, a, b, px, py, out, mats, t, precision="f32"):
+    uni_velocity_launcher(role, a, b, px, py, out, mats, precision)(float(t))
+
+
+def uni_velocity_plain_launcher(role, a, b, px, py, out, mats, precision="f32"):
+    """launch(t): `uni_velocity_plain` on these buffers."""
+    return lambda t: uni_velocity_plain(role, a, b, px, py, out, mats, t, precision)
 
 
 class _Leaves:
@@ -552,34 +594,49 @@ class _Leaves:
         self.launchers = launchers
 
 
-def _uni_velocity(uni, kind, y, k, phi, pt, mats, ncomp, t):
-    """k <- the velocity of flow `kind` at the batched (nb, nstate, Ny, Nx)
-    state y as calls of the universal leaf `uni`, in the order of
+def _uni_flow_velocity_launcher(uni, kind, y, k, phi, pt, mats, ncomp, precision="f32"):
+    """launch(t): k <- the velocity of flow `kind` at the batched (nb,
+    nstate, Ny, Nx) state y as calls of the universal leaf's launchers
+    `uni` (made here once, on buffers made here once), in the order of
     `_uni_call`: forward and adjoint (roles 2, 3) over component pairs,
     the last pair repeating its component when ncomp is odd; backward over
     the state (f, delta f, delta phi): role 0 on every component at once,
     u = M^-1 sum_c w_c, then role 1 for delta phi."""
     nb, Ny, Nx = y.shape[0], y.shape[-2], y.shape[-1]
     px, py = pt[0].unsqueeze(1), pt[1].unsqueeze(1)
+    new = lambda n: torch.empty((nb, n, 4, Ny, Nx), dtype=y.dtype, device=y.device)
     if kind in ("forward", "adjoint"):
-        out = torch.empty((nb, 1, 4, Ny, Nx), dtype=y.dtype, device=y.device)
-        for c0 in range(0, ncomp, 2):
-            c1 = min(c0 + 1, ncomp - 1)
-            uni(ROLES_UNI[kind], y[:, c0:c0 + 1], y[:, c1:c1 + 1], px, py, out, mats, t)
-            k[:, c0:c1 + 1] = out[:, 0, :c1 - c0 + 1]
-        return
+        out = new(1)
+        pairs = [(c0, min(c0 + 1, ncomp - 1)) for c0 in range(0, ncomp, 2)]
+        calls = [(uni(ROLES_UNI[kind], y[:, c0:c0 + 1], y[:, c1:c1 + 1], px, py, out, mats,
+                      precision), c0, c1) for c0, c1 in pairs]
+
+        def launch(t):
+            for call, c0, c1 in calls:
+                call(t)
+                k[:, c0:c1 + 1] = out[:, 0, :c1 - c0 + 1]
+        return launch
     if kind != "backward":
         raise ValueError(kind)
-    out = torch.empty((nb, ncomp, 4, Ny, Nx), dtype=y.dtype, device=y.device)
-    uni(0, y[:, :ncomp], y[:, ncomp:2 * ncomp], px, py, out, mats, t)
-    k[:, :2 * ncomp] = out[:, :, :2].transpose(1, 2).reshape(nb, 2 * ncomp, Ny, Nx)
-    wx, wy = out[:, :, 2].sum(dim=1), out[:, :, 3].sum(dim=1)
-    m11, m12, m22 = _minv_of_t(t, phi)
-    ux = (m11 * wx + m12 * wy).unsqueeze(1)
-    uy = (m12 * wx + m22 * wy).unsqueeze(1)
-    out1 = torch.empty((nb, 1, 4, Ny, Nx), dtype=y.dtype, device=y.device)
-    uni(1, ux, uy, px, py, out1, mats, t)
-    k[:, 2 * ncomp] = out1[:, 0, 0]
+    out, out1 = new(ncomp), new(1)
+    u = torch.empty((nb, 2, Ny, Nx), dtype=y.dtype, device=y.device)
+    role0 = uni(0, y[:, :ncomp], y[:, ncomp:2 * ncomp], px, py, out, mats, precision)
+    role1 = uni(1, u[:, :1], u[:, 1:], px, py, out1, mats, precision)
+
+    def launch(t):
+        role0(t)
+        k[:, :2 * ncomp] = out[:, :, :2].transpose(1, 2).reshape(nb, 2 * ncomp, Ny, Nx)
+        wx, wy = out[:, :, 2].sum(dim=1), out[:, :, 3].sum(dim=1)
+        m11, m12, m22 = _minv_of_t(t, phi)
+        u[:, 0] = m11 * wx + m12 * wy
+        u[:, 1] = m12 * wx + m22 * wy
+        role1(t)
+        k[:, 2 * ncomp] = out1[:, 0, 0]
+    return launch
+
+
+def _uni_flow_velocity(uni, kind, y, k, phi, pt, mats, ncomp, t, precision="f32"):
+    _uni_flow_velocity_launcher(uni, kind, y, k, phi, pt, mats, ncomp, precision)(t)
 
 
 PLAIN = _Leaves(velocity_plain, rk4_update_plain, deriv_plain, p_planes_plain, False)
@@ -616,11 +673,23 @@ _LEAVES = {("cpu", False, "f32"): PLAIN, ("cpu", True, "f32"): FPLAIN,
            ("cpu", False, "bf16"): PLAIN_BF16, ("cpu", True, "bf16"): FPLAIN_BF16,
            ("cuda", False, "bf16"): KERNEL_BF16, ("cuda", True, "bf16"): FKERNEL_BF16}
 # the uni granularity: no derivative leaf (phi's planes come from the
-# kernel path's `gradhess`, delta phi from role 1)
-UPLAIN = _Leaves(functools.partial(_uni_velocity, uni_velocity_plain), rk4_update_plain, None,
-                 p_planes_plain, True)
-UKERNEL = _Leaves(functools.partial(_uni_velocity, uni_velocity_cuda), rk4_update_cuda, None,
-                  p_planes_cuda, True)
+# kernel path's `gradhess`, delta phi from role 1); K5 at each tier
+_uplain = functools.partial(_uni_flow_velocity, uni_velocity_plain_launcher)
+_ukernel = functools.partial(_uni_flow_velocity, uni_velocity_launcher)
+_ulaunchers = functools.partial(_uni_flow_velocity_launcher, uni_velocity_launcher)
+UPLAIN = _Leaves(_uplain, rk4_update_plain, None, p_planes_plain, True)
+UKERNEL = _Leaves(_ukernel, rk4_update_cuda, None, p_planes_cuda, True,
+                  (_ulaunchers, rk4_update_launcher, p_planes_launcher))
+UPLAIN_HIGH = _Leaves(_high(_uplain), rk4_update_plain, None, p_planes_plain, True)
+UKERNEL_HIGH = _Leaves(_high(_ukernel), rk4_update_cuda, None, p_planes_cuda, True,
+                       (_high(_ulaunchers), rk4_update_launcher, p_planes_launcher))
+UPLAIN_BF16 = _Leaves(_bf16(_uplain), rk4_update_plain, None, p_planes_plain, True)
+UKERNEL_BF16 = _Leaves(_bf16(_ukernel), rk4_update_cuda, None, p_planes_cuda, True,
+                       (_bf16(_ulaunchers), rk4_update_launcher, p_planes_launcher))
+# (device type, precision) -> uni leaves, dense or factored alike
+_ULEAVES = {("cpu", "f32"): UPLAIN, ("cuda", "f32"): UKERNEL,
+            ("cpu", "high"): UPLAIN_HIGH, ("cuda", "high"): UKERNEL_HIGH,
+            ("cpu", "bf16"): UPLAIN_BF16, ("cuda", "bf16"): UKERNEL_BF16}
 
 
 def _precision(precision):
@@ -645,15 +714,11 @@ def _plain_for(mats, precision=None):
 
 
 def _uni_leaves_for(x, precision=None):
-    p = _precision(precision)
-    if p != "f32":
-        raise NotImplementedError(f"the uni granularity (K5) has no {p!r} tier yet (ROADMAP "
-                                  "Queue 2, K5 'high' and 'bf16')")
-    if x.device.type == "cpu":
-        return UPLAIN
-    if x.device.type == "cuda":
-        return UKERNEL
-    raise ValueError(f"no LenseFlow kernel for device {x.device}")
+    """The uni leaves: K5's plain version for a CPU tensor, the kernel for
+    a CUDA tensor, at `precision` (the one in force when None)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no LenseFlow kernel for device {x.device}")
+    return _ULEAVES[(x.device.type, _precision(precision))]
 
 
 # =========================================================================
@@ -842,8 +907,8 @@ def _uni_flow_bwd(leaves, dy, f1, phi, mats, t0, t1, nsteps):
 
 def uni_flow_apply(f_map, phi, mats, t0, t1, nsteps, kind="forward", precision=None):
     """`flow_apply` at the uni granularity: every velocity through the
-    universal kernel (roles 2, 3), its plain version on the CPU; strict
-    float32 only."""
+    universal kernel (roles 2, 3), its plain version on the CPU, at
+    `precision` (the one in force when None)."""
     if kind not in ("forward", "adjoint"):
         raise ValueError(kind)
     return _flow_apply(_uni_leaves_for(f_map, precision), f_map, phi, mats, t0, t1, nsteps, kind)
@@ -851,14 +916,16 @@ def uni_flow_apply(f_map, phi, mats, t0, t1, nsteps, kind="forward", precision=N
 
 def uni_flow_bwd(dy, f1, phi, mats, t0, t1, nsteps, precision=None):
     """`flow_bwd` at the uni granularity (roles 0, 1), delta phi integrated
-    in the state; returns (dphi (..., 1, Ny, Nx), df0); strict float32
-    only."""
+    in the state by role 1 at `precision`, as `_uni_call` integrates it;
+    returns (dphi (..., 1, Ny, Nx), df0)."""
     return _uni_flow_bwd(_uni_leaves_for(f1, precision), dy, f1, phi, mats, t0, t1, nsteps)
 
 
-def uni_flow_apply_plain(f_map, phi, mats, t0, t1, nsteps, kind="forward"):
-    return _flow_apply(UPLAIN, f_map, phi, mats, t0, t1, nsteps, kind)
+def uni_flow_apply_plain(f_map, phi, mats, t0, t1, nsteps, kind="forward", precision=None):
+    return _flow_apply(_ULEAVES["cpu", _precision(precision)], f_map, phi, mats, t0, t1, nsteps,
+                       kind)
 
 
-def uni_flow_bwd_plain(dy, f1, phi, mats, t0, t1, nsteps):
-    return _uni_flow_bwd(UPLAIN, dy, f1, phi, mats, t0, t1, nsteps)
+def uni_flow_bwd_plain(dy, f1, phi, mats, t0, t1, nsteps, precision=None):
+    return _uni_flow_bwd(_ULEAVES["cpu", _precision(precision)], dy, f1, phi, mats, t0, t1,
+                         nsteps)

@@ -2,9 +2,9 @@
 spectra, and analytic noise and beam spectra.
 
 PyTorch-package counterpart of ``cmblensing_tpu/utils/cls.py`` (host
-numpy only). The fiducial spectra are read in place from the JAX
-package's data file, by path: importing ``cmblensing_tpu`` would load
-JAX.
+numpy only). The fiducial spectra are read from the port's own copy of
+the JAX package's data file (``dat/default_camb_cls.npz``), so that the
+port stands on its own.
 """
 from __future__ import annotations
 
@@ -13,8 +13,8 @@ import os
 
 import numpy as np
 
-_CLS_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
-                        "cmblensing_tpu", "dat", "default_camb_cls.npz")
+_CLS_NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "dat",
+                        "default_camb_cls.npz")
 
 
 class Cls:

@@ -10,8 +10,8 @@ Runs MAP_joint as chip_smoke.py phase 7 does (load_sim at 1024^2 P, or at
 thetapix 2, seed 0; grid line search; 15 fixed CG iterations), strict
 everywhere (--precision f32, the default: precision=None), at the JAX
 package's default precision "auto" (--precision auto, as chip_smoke.py
-phase 9) or at 'bf16' (--precision bf16, as chip_smoke.py phase 14); the
-uni backend has neither reduced tier and refuses both. For each
+phase 9) or at 'bf16' (--precision bf16, as chip_smoke.py phase 14), on
+either backend (the uni one on K5's tier, as chip_smoke.py phase 15). For each
 backend: --warm warm-up steps, an unprofiled run of --steps steps for the
 wall time, then the same run under torch.profiler (CUDA activity only).
 Prints per step: wall s, device ms and the device's busy share, and the

@@ -341,8 +341,9 @@ def test_bf16_backward_flow_matches_jax_bv_flow_interpret(monkeypatch):
 def test_bf16_flows_take_the_bf16_leaves_and_uni_refuses_them():
     """precision_ctx("bf16") puts the public flows on the plain 'bf16'
     leaves, dense or factored, and their results differ from strict, while
-    gradhess forms phi's planes strict; the uni granularity (K5, no
-    'bf16' tier yet) raises rather than run strict."""
+    gradhess forms phi's planes strict; the uni granularity, which refused
+    'bf16' before K5 had the tier, takes its 'bf16' leaves too, dense or
+    factored, and its backward flow differs from strict."""
     phi, f, dy = _weak_lensing()
     ft = torch.as_tensor(f)
     tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32, device="cpu")
@@ -353,8 +354,11 @@ def test_bf16_flows_take_the_bf16_leaves_and_uni_refuses_them():
             assert lfk._leaves_for(ft, mats) is leaves
             a = lfk.flow_apply(ft, planes, mats, 0., 1., 1)
             g = lfk.gradhess(torch.as_tensor(phi)[None], mats)
-            with pytest.raises(NotImplementedError, match="K5"):
-                lfk.uni_flow_bwd(torch.as_tensor(dy)[None], ft[None], planes[None], mats, 0., 1., 1)
+            assert lfk._uni_leaves_for(ft) is lfk.UPLAIN_BF16
+            ub = lfk.uni_flow_bwd(torch.as_tensor(dy)[None], ft[None], planes[None], mats, 0., 1.,
+                                  1)
+        us = lfk.uni_flow_bwd(torch.as_tensor(dy)[None], ft[None], planes[None], mats, 0., 1., 1)
+        assert all(torch.isfinite(x).all() and not torch.equal(x, y) for x, y in zip(ub, us))
         assert torch.equal(a, lfk.flow_apply(ft, planes, mats, 0., 1., 1, precision="bf16"))
         assert not torch.equal(a, lfk.flow_apply(ft, planes, mats, 0., 1., 1))
         # phi's planes are formed strict at 'bf16' (PLANES_PRECISION)

@@ -169,6 +169,20 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stderr
 
 
+def test_port_reads_its_own_copy_of_the_fiducial_spectra():
+    """utils/cls.py reads the spectra from a file inside the port, equal
+    array for array to the JAX package's, so that the port does not break
+    when the reference package moves."""
+    from cmblensing_tpu_torch.utils import cls as tcls
+    port = os.path.realpath(tcls._CLS_NPZ)
+    assert port.startswith(os.path.join(os.path.realpath(REPO), "cmblensing_tpu_torch") + os.sep)
+    ref = os.path.join(REPO, "cmblensing_tpu", "dat", "default_camb_cls.npz")
+    with np.load(port) as a, np.load(ref) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in b.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
 def test_tf32_off_after_import():
     import cmblensing_tpu_torch  # noqa: F401
     assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -32,6 +32,13 @@ A whole flow adds its RK4 sums' FP32 reassociation to both distances,
 so it is held only to lie nearer its plain 'high' version than the
 strict flow (FLOW_SPLIT_RATIO; strict kernels would give infinity).
 
+K5 (csrc/uni.cu, factored at radix 4 and 8; csrc/uni_dense.cu, dense at
+any plane shape) is held at every tier to the same bounds as the other
+kernels at that tier, but for role 1, whose outer products round the
+inner stage's sums (formed in another order by its plain version): at
+'bf16' BF16_TOL in either form, and at both reduced tiers the Frobenius
+ratio of a flow (FLOW_SPLIT_RATIO).
+
 Their 'bf16' tier (one bf16 product of the rounded operands) is held to
 its plain 'bf16' version: the dense kernels at 1e-5 (both round the same
 operands; only FP32 sums differ), the factored ones and every flow at
@@ -286,6 +293,23 @@ def test_batched_irfft2_matches_single_planes_on_card():
         assert rel(out[i], one) < 1e-6
 
 
+def _uni_role_inputs(N, mats, seed=0):
+    """px, py of a batch of two phi's at t = 0.6 and each role's (a, b) as
+    the uni flows pass them: strided views of a (2, 5, N, N) state (a
+    component pair; f and delta f of both components; (u_x, u_y))."""
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), mats)
+    planes = torch.stack([planes, 0.5 * planes])
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn((2, 5) + tuple(phi.shape[-2:]), generator=g, device="cuda")
+    px, py = (p.unsqueeze(1).contiguous() for p in lfk._p_of_t(0.6, planes))
+    return px, py, ((0, y[:, :2], y[:, 2:4]), (1, y[:, 4:], 1e-2 * y[:, :1]),
+                    (2, y[:, :1], y[:, 1:2]), (3, y[:, :1], y[:, 1:2]))
+
+
+UNI_NONZERO = {0: 4, 1: 1, 2: 2, 3: 2}   # the planes each K5 role writes; the rest are 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [512, 1024])
 def test_uni_kernel_roles_match_plain_on_card(N):
@@ -296,35 +320,118 @@ def test_uni_kernel_roles_match_plain_on_card(N):
     tp = ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda")
     ops = tderiv.deriv_ops(tp)
     assert isinstance(ops, tfd.FactoredOps) and ops.FX.shape[0] == N // 128
-    phi, _, _ = _weak_lensing(N=N)
-    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), ops)
-    planes = torch.stack([planes, 0.5 * planes])
-    g = torch.Generator(device="cuda").manual_seed(0)
-    y = torch.randn((2, 5, N, N), generator=g, device="cuda")
+    px, py, roles = _uni_role_inputs(N, ops)
     t = 0.6
-    px, py = (p.unsqueeze(1).contiguous() for p in lfk._p_of_t(t, planes))
-    # (role, a, b): a component pair; f and delta f of both components; (u_x, u_y)
-    for role, a, b in ((0, y[:, :2], y[:, 2:4]), (1, y[:, 4:], 1e-2 * y[:, :1]),
-                       (2, y[:, :1], y[:, 1:2]), (3, y[:, :1], y[:, 1:2])):
+    for role, a, b in roles:
         o1 = torch.empty((2, a.shape[1], 4, N, N), device="cuda")
         o2 = torch.full_like(o1, float("nan"))
         o1.fill_(float("nan"))
         lfk.uni_velocity_cuda(role, a, b, px, py, o1, ops, t)
         lfk.uni_velocity_plain(role, a, b, px, py, o2, ops, t)
-        nonzero = {0: 4, 1: 1, 2: 2, 3: 2}[role]
+        nonzero = UNI_NONZERO[role]
         for i in range(nonzero):
             assert rel(o1[:, :, i], o2[:, :, i]) < TOL, (role, i)
         assert (o1[:, :, nonzero:] == 0).all()
 
 
+# K5 at each tier against its plain version at that tier, per output plane
+UNI_TOL = {"f32": TOL, "high": HIGH_TOL, "bf16": BF16_TOL}
+UNI_DENSE_TOL = {"f32": TOL, "high": HIGH_TOL, "bf16": BF16_DENSE_TOL}
+
+
+def _check_uni_roles(mats, px, py, roles, precision, tol, label, sentinel=False):
+    """Each role of K5 at `precision` against its plain version at the
+    tier (every output plane of every entry within `tol`; at a reduced
+    tier also its Frobenius distance to plain under HIGH_SPLIT_RATIO of
+    that to the strict kernel, FLOW_SPLIT_RATIO for role 1, and within
+    HIGH_VS_STRICT of strict at 'high'), the planes a role leaves at zero exactly zero, two launches
+    the same bits; with `sentinel` nothing written past the last plane (a
+    NaN plane behind out)."""
+    t = 0.6
+    Ny, Nx = px.shape[-2:]
+    each = lambda x, z: max(rel(u, v) for u, v in zip(x.reshape(-1, Ny, Nx),
+                                                       z.reshape(-1, Ny, Nx)))
+    for role, a, b in roles:
+        nb, nper = a.shape[:2]
+        outs = []
+        for p in (precision, precision, "f32"):
+            full = torch.full((nb * nper * 4 + 1, Ny, Nx), float("nan"), device="cuda")
+            out = full[:-1].view(nb, nper, 4, Ny, Nx)
+            lfk.uni_velocity_cuda(role, a, b, px, py, out, mats, t, p)
+            if sentinel:
+                assert torch.isnan(full[-1]).all(), f"{label} role {role} wrote past the last plane"
+            outs.append(out)
+        ref = torch.full_like(outs[0], float("nan"))
+        lfk.uni_velocity_plain(role, a, b, px, py, ref, mats, t, precision)
+        n = UNI_NONZERO[role]
+        k, st, pl = (x[:, :, :n] for x in (outs[0], outs[2], ref))
+        err = each(k, pl)
+        msg = f"K5 {label} role {role} at {precision!r}: vs plain {err:.3e}"
+        # role 1's outer products round the inner stage's sums, which the
+        # kernel and plain form in other orders: at 'bf16' a sum one ulp
+        # apart may round to the neighbouring bf16 value (dense: 2.0e-4)
+        ok = err < (BF16_TOL if precision == "bf16" and role == 1 else tol)
+        if precision != "f32":
+            # those reassociated sums move both of role 1's distances: its
+            # ratio is held as a flow's (0.31-0.47 at 'high' on the card)
+            e_st, r = each(k, st), split_ratio(k, pl, st)
+            msg += f", vs strict {e_st:.3e}, Frobenius ratio {r:.4f}"
+            ok = (ok and r < (FLOW_SPLIT_RATIO if role == 1 else HIGH_SPLIT_RATIO)
+                  and (precision != "high" or e_st < HIGH_VS_STRICT))
+        print(msg)
+        assert ok, msg
+        assert (outs[0][:, :, n:] == 0).all(), (label, role)
+        assert torch.equal(outs[0], outs[1]), (label, role)
+
+
 @pytest.mark.cuda
-def test_uni_wrapper_rejects_dense_operands():
+@pytest.mark.parametrize("precision", ["high", "bf16"])
+@pytest.mark.parametrize("N", [512, 1024])
+def test_uni_tier_kernel_roles_match_plain_on_card(N, precision):
+    """K5 'high' and 'bf16' on factored operands (radix 4 and 8): every
+    role on strided batch-2 operands against its plain version at the
+    tier (HIGH_TOL, BF16_TOL) and the strict kernel (the Frobenius ratio),
+    two launches per call counted on the tier's counter (four for role 1)."""
     _card()
-    tp = ct.ProjLambert(256, 256, thetapix=2, T=np.float32, device="cuda")
-    x = torch.zeros((1, 1, 256, 256), device="cuda")
-    with pytest.raises(RuntimeError, match="ROADMAP"):
-        lfk.uni_velocity_cuda(2, x, x, x, x, torch.empty((1, 1, 4, 256, 256), device="cuda"),
-                              tderiv.deriv_mats(tp), 0.5)
+    ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
+    assert isinstance(ops, tfd.FactoredOps) and ops.FX.shape[0] == N // 128
+    px, py, roles = _uni_role_inputs(N, ops)
+    lfk.reset_launches()
+    _check_uni_roles(ops, px, py, roles, precision, UNI_TOL[precision], f"{N}^2")
+    sfx = "_" + precision
+    assert [lfk.LAUNCHES[f"uni_role{r}{sfx}"] for r in range(4)] == [4, 8, 4, 4], lfk.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "high", "bf16"])
+@pytest.mark.parametrize("shape", [(256, 256), (200, 200), (160, 200)])
+def test_uni_dense_kernel_roles_match_plain_on_card(shape, precision):
+    """The dense K5 (csrc/uni_dense.cu) at every tier, at whole tiles
+    (256^2) and at ragged edge tiles (200^2, 160 x 200): every role on
+    strided batch-2 operands against its plain version at the tier (TOL,
+    HIGH_TOL, BF16_DENSE_TOL: the same rounded operands; role 1 at 'bf16'
+    BF16_TOL, _check_uni_roles says why) and the strict kernel, nothing
+    written past the last plane, two launches the same bits; one launch a
+    call on the tier's dense counter (two for role 1)."""
+    _card()
+    Ny, Nx = shape
+    mats = tderiv.deriv_mats(ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device="cuda"))
+    phi_f = np.zeros((1, Ny, Nx // 2 + 1), np.complex128)
+    phi_f[0, 1, 1] = 1e-3 * (Ny * Nx / 1024) ** 2
+    phi = torch.as_tensor(np.fft.irfft2(phi_f, s=(Ny, Nx)).astype(np.float32), device="cuda")
+    planes = lfk.gradhess_plain(phi, mats)
+    planes = torch.stack([planes, 0.5 * planes])
+    px, py = (p.unsqueeze(1).contiguous() for p in lfk._p_of_t(0.6, planes))
+    y = torch.randn((2, 5, Ny, Nx), generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    roles = ((0, y[:, :2], y[:, 2:4]), (1, y[:, 4:], 1e-2 * y[:, :1]), (2, y[:, :1], y[:, 1:2]),
+             (3, y[:, :1], y[:, 1:2]))
+    lfk.reset_launches()
+    _check_uni_roles(mats, px, py, roles, precision, UNI_DENSE_TOL[precision], f"{Ny}x{Nx}",
+                     sentinel=True)
+    sfx = "" if precision == "f32" else "_" + precision
+    n = 3 if precision == "f32" else 2   # _check_uni_roles's strict launches count there too
+    assert [lfk.LAUNCHES[f"uni_dense_role{r}{sfx}"] for r in range(4)] == [n, 2 * n, n, n]
 
 
 @pytest.mark.cuda
@@ -515,16 +622,59 @@ def test_dense_high_runs_only_high_kernels_on_card():
 
 
 @pytest.mark.cuda
-def test_uni_high_raises_on_card():
-    """K5 has no 'high' kernel yet: on the card a 'high' uni flow raises
-    before any launch, never running strict in its place."""
+@pytest.mark.parametrize("precision", ["f32", "high", "bf16"])
+@pytest.mark.parametrize("N", [256, 512])
+def test_uni_tier_flows_match_plain_on_card(N, precision):
+    """The uni flows (L, L^-1, L^H, backward delta phi and delta f) on K5,
+    dense at 256^2 (csrc/uni_dense.cu, where K5 used to refuse dense
+    operands) and factored at 512^2, at every tier, where 'high' and
+    'bf16' used to raise: each output plane within the tier's bound of the
+    plain uni flow at the tier (TOL; HIGH_TOL; BF16_TOL), and at a reduced
+    tier nearer it than the strict flow (FLOW_SPLIT_RATIO); L, L^-1, L^H
+    and delta f within that bound of the kernel backend's flow (K2, K3/K4)
+    at the same tier; only K5 and the integrator launch in the applies."""
     _card()
-    ops = tderiv.deriv_ops(ct.ProjLambert(512, 512, thetapix=2, T=np.float32, device="cuda"))
-    f512 = torch.zeros((2, 512, 512), device="cuda")
+    tp = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device="cuda")
+    mats = tderiv.deriv_ops(tp)
+    rng = np.random.default_rng(3)
+    Cl = ct.camb()
+    white = lambda n, pol: ct.Field(torch.as_tensor(
+        rng.standard_normal((n, N, N)).astype(np.float32), device="cuda"), ct.Basis(pol, "map"), tp)
+    pm = (ct.Cl_to_Cov("I", tp, Cl["total"]["pp"]).sqrt() @ white(1, "I")).to(ct.MAP).arr
+    Cf = ct.Cl_to_Cov("P", tp, Cl["unlensed_scalar"]["EE"], Cl["unlensed_scalar"]["BB"])
+    ft = (Cf.sqrt() @ white(2, "QU")).to(ct.QU_MAP).arr.contiguous()
+    dyt = white(2, "QU").arr
+    planes = lfk.gradhess(pm, mats, precision)
+    each = lambda x, y: max(rel(a, b) for a, b in zip(x.reshape(-1, N, N), y.reshape(-1, N, N)))
+    tol = {"f32": TOL, "high": HIGH_TOL, "bf16": BF16_TOL}[precision]
+    kinds = (("forward", 0., 1.), ("forward", 1., 0.), ("adjoint", 1., 0.))
+    found = {}
     lfk.reset_launches()
-    with tderiv.precision_ctx("high"), pytest.raises(NotImplementedError, match="K5 'high'"):
-        lfk.uni_flow_apply(f512, torch.zeros((5, 512, 512), device="cuda"), ops, 0., 1., 1)
-    assert all(v == 0 for v in lfk.LAUNCHES.values())
+    for kind, t0, t1 in kinds:
+        found[(kind, t0)] = [lfk.uni_flow_apply(ft, planes, mats, t0, t1, 7, kind, precision)]
+    launched = {k_: v for k_, v in lfk.LAUNCHES.items() if v}
+    for kind, t0, t1 in kinds:
+        found[(kind, t0)] += [fn(ft, planes, mats, t0, t1, 7, kind, p) for fn, p in (
+            (lfk.uni_flow_apply_plain, precision), (lfk.uni_flow_apply, "f32"),
+            (lfk.flow_apply, precision))]
+    bwd = [fn(dyt, ft, planes, mats, 0., 1., 7, p) for fn, p in (
+        (lfk.uni_flow_bwd, precision), (lfk.uni_flow_bwd_plain, precision),
+        (lfk.uni_flow_bwd, "f32"), (lfk.flow_bwd, precision))]
+    for i, name in enumerate(("backward dphi", "backward df0")):
+        found[name] = [r[i] for r in bwd]
+    for name, (k, p, st, kern) in found.items():
+        e = (each(k, p), each(k, kern))
+        r = split_ratio(k, p, st) if precision != "f32" else 0.0
+        print(f"uni flow {name} {N}^2 at {precision!r}: vs plain uni {e[0]:.3e}, vs kernel "
+              f"backend {e[1]:.3e}, ratio {r:.4f}")
+        assert e[0] < tol and r < FLOW_SPLIT_RATIO, (name, e, r)
+        if name != "backward dphi":   # delta phi is hoisted on the kernel backend
+            assert e[1] < tol, (name, e)
+    form = "" if isinstance(mats, tfd.FactoredOps) else "_dense"
+    sfx = "" if precision == "f32" else "_" + precision
+    k5 = {k_ for k_ in launched if k_.startswith("uni")}
+    assert k5 == {f"uni{form}_role2{sfx}", f"uni{form}_role3{sfx}"}, launched
+    assert set(launched) - k5 == {"rk4_update", "p_planes"}, launched
 
 
 def _check_high(shape, kernel, plain, label):
@@ -970,16 +1120,3 @@ def test_bf16_flows_match_plain_bf16_on_card(N):
     bf16 = sum(v for k_, v in lfk.LAUNCHES.items() if k_.endswith("_bf16"))
     high = sum(v for k_, v in lfk.LAUNCHES.items() if k_.endswith("_high"))
     assert bf16 > 0 and high == 0
-
-
-@pytest.mark.cuda
-def test_uni_bf16_raises_on_card():
-    """K5 has no 'bf16' kernel yet: on the card a 'bf16' uni flow raises
-    before any launch, never running strict in its place."""
-    _card()
-    ops = tderiv.deriv_ops(ct.ProjLambert(512, 512, thetapix=2, T=np.float32, device="cuda"))
-    f512 = torch.zeros((1, 2, 512, 512), device="cuda")
-    lfk.reset_launches()
-    with tderiv.precision_ctx("bf16"), pytest.raises(NotImplementedError, match="K5"):
-        lfk.uni_flow_apply(f512, torch.zeros((1, 5, 512, 512), device="cuda"), ops, 0., 1., 1)
-    assert all(v == 0 for v in lfk.LAUNCHES.values())

@@ -360,8 +360,9 @@ def test_dense_high_flows_match_jax_flow_call_interpret(kind, t0, t1):
 
 def test_flows_read_the_precision_in_force():
     """The public flows and gradhess run at the precision ops/deriv.py
-    holds; precision_ctx restores it; the uni granularity refuses 'high'
-    and 'bf16' (K5 has neither tier yet) rather than run strict."""
+    holds; precision_ctx restores it; the uni granularity reads it too (K5
+    at 'high' and 'bf16', where it used to refuse both): the uni leaves of
+    the tier in force, a result that differs from strict."""
     tp = ct.ProjLambert(32, 32, thetapix=3, T=np.float32, device="cpu")
     ops = tfd.factored_ops(tp, 2, 2)
     phi, f, dy = _weak_lensing()
@@ -370,17 +371,19 @@ def test_flows_read_the_precision_in_force():
     with tderiv.precision_ctx("high"):
         assert tderiv.matmul_precision() == "high"
         a = lfk.flow_apply(ft, planes, ops, 0., 1., 1)
-        with pytest.raises(NotImplementedError, match="K5 'high'"):
-            lfk.uni_flow_apply(ft, planes, ops, 0., 1., 1)
+        assert lfk._uni_leaves_for(ft) is lfk.UPLAIN_HIGH
+        u = lfk.uni_flow_apply(ft, planes, ops, 0., 1., 1)
     assert tderiv.matmul_precision() == "f32"
     assert torch.equal(a, lfk.flow_apply(ft, planes, ops, 0., 1., 1, precision="high"))
     assert not torch.equal(a, lfk.flow_apply(ft, planes, ops, 0., 1., 1))
+    assert torch.equal(u, lfk.uni_flow_apply(ft, planes, ops, 0., 1., 1, precision="high"))
+    assert not torch.equal(u, lfk.uni_flow_apply(ft, planes, ops, 0., 1., 1))
     tderiv.set_matmul_precision("bf16")
-    for call in (lambda: lfk.uni_flow_apply(ft[None], planes[None], ops, 0., 1., 1),
-                 lambda: lfk.uni_flow_bwd(torch.as_tensor(dy)[None], ft[None], planes[None], ops,
-                                          0., 1., 1)):
-        with pytest.raises(NotImplementedError, match="K5 'high' and 'bf16'"):
-            call()
+    assert lfk._uni_leaves_for(ft) is lfk.UPLAIN_BF16
+    dphi, df0 = lfk.uni_flow_bwd(torch.as_tensor(dy)[None], ft[None], planes[None], ops, 0., 1., 1)
+    dphi_s, df0_s = lfk.uni_flow_bwd(torch.as_tensor(dy)[None], ft[None], planes[None], ops, 0.,
+                                     1., 1, "f32")
+    assert not torch.equal(dphi, dphi_s) and not torch.equal(df0, df0_s)
     with pytest.raises(ValueError):
         tderiv.set_matmul_precision("tf32")
     assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -148,13 +148,19 @@ def test_MAP_joint_matches_jax(P32):
                                         (dict(precision="auto"), "uni"),
                                         (dict(precision="high"), "uni")])
 def test_MAP_joint_refuses_what_is_not_ported(P32, kw, backend):
-    """Brent, quasi-samples and the Hessian update are not ported; nor are
-    K5's 'high' and 'bf16' tiers, so 'bf16', "auto" and 'high' on the "uni"
-    backend raise (in the first f-step's 'high' solve, or the first
-    phi-gradient) rather than run strict."""
-    with ct.lenseflow_backend_ctx(backend), pytest.raises(NotImplementedError):
-        ct.MAP_joint(P32["tds"], nsteps=1, conjgrad_kwargs=dict(tol=0.0, nsteps=1,
-                                                                fixed_iters=True), **kw)
+    """Brent, quasi-samples and the Hessian update are not ported, and
+    raise. 'bf16', "auto" and 'high' on the "uni" backend raised while K5
+    had no 'high' and 'bf16' tiers; now that it has, they run: one step,
+    a finite logpdf (tests/test_torch_uni_tiers.py holds them to the
+    kernel backend)."""
+    run = lambda: ct.MAP_joint(P32["tds"], nsteps=1, conjgrad_kwargs=dict(
+        tol=0.0, nsteps=1, fixed_iters=True), **kw)
+    with ct.lenseflow_backend_ctx(backend):
+        if backend == "uni":
+            assert np.isfinite(run()["history"][-1]["logpdf"])
+            return
+        with pytest.raises(NotImplementedError):
+            run()
 
 
 def test_unported_batched_and_reduced_precision_paths_raise(P32):

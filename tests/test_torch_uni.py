@@ -302,16 +302,26 @@ def test_entry_points_raise_without_a_card_or_device(monkeypatch, entry):
 
 
 def test_uni_kernel_wrapper_refuses_what_it_has_no_kernel_for():
-    """The K5 wrapper takes factored operands on one CUDA device only: on
-    dense ones it names the ROADMAP item, on a CPU tensor it refuses;
-    the uni flows refuse a device with no kernel."""
+    """The K5 wrapper takes dense or factored operands, at every tier, on
+    one CUDA device: on a CPU tensor it refuses either form, where the
+    dense form's refusal used to name the ROADMAP item; the uni flows on
+    dense operands run on the CPU at each tier (K5's plain version), and
+    refuse a device with no kernel. Its one refusal on the card, radix 16
+    and 32, is tests/test_torch_cuda.py::test_uni_wrapper_refuses_radix_16_and_32."""
     x = torch.zeros((1, 1, 16, 16))
     out = torch.empty((1, 1, 4, 16, 16))
-    with pytest.raises(RuntimeError, match="ROADMAP"):
-        lfk.uni_velocity_cuda(2, x, x, x, x, out, (x[0, 0], x[0, 0]), 0.5)
-    ops = tfd.factored_ops(ct.ProjLambert(16, 16, thetapix=3, device="cpu"), 2, 2)
-    with pytest.raises(ValueError, match="CUDA device"):
-        lfk.uni_velocity_cuda(2, x, x, x, x, out, ops, 0.5)
+    tp = ct.ProjLambert(16, 16, thetapix=3, device="cpu")
+    ops = tfd.factored_ops(tp, 2, 2)
+    for mats in (tderiv.deriv_mats(tp), ops):
+        for p in lfk.PRECISIONS:
+            with pytest.raises(ValueError, match="CUDA device"):
+                lfk.uni_velocity_cuda(2, x, x, x, x, out, mats, 0.5, p)
+    phi, f, _ = _weak_lensing(N=16)
+    planes = lfk.gradhess(torch.as_tensor(phi), tderiv.deriv_mats(tp))
+    for p in lfk.PRECISIONS:
+        fp = lfk.uni_flow_apply(torch.as_tensor(f), planes, tderiv.deriv_mats(tp), 0., 1., 1,
+                                precision=p)
+        assert fp.shape == f.shape and torch.isfinite(fp).all()
     meta = torch.empty((2, 16, 16), device="meta")
     with pytest.raises(ValueError, match="no LenseFlow kernel"):
         lfk.uni_flow_apply(meta, torch.empty((5, 16, 16), device="meta"), ops, 0., 1., 1)
