@@ -84,16 +84,28 @@ port's two paths through the kernel backend:
               defaults against the kernel backend, and 20 fixed strict
               iterations; (g) L @ f on a 768^2 P load_sim on "uni", strict
               and 'high', against the kernel backend.
+  phase 16    K5 at radix 16 (2048^2) and 32 (4096^2) in channel groups
+              (csrc/uni.cu) and the "uni" backend there: (a) every role at
+              every tier at batch 1 (and 17 at 2048^2) against plain at the
+              tier and the strict kernel, twice the same bits, nothing past
+              a plane, timed cold; (b) the uni flows at every tier against
+              K3/K4's (bit for bit) and, at 2048^2, the plain uni flows;
+              (c) the strict phi-gradient on "uni" against "kernel" at both
+              sizes ('bf16' too at 4096^2); (d) MAP_joint 2048^2 P on "uni"
+              strict beside "kernel", at "auto" and 'bf16', the line
+              search's memory per trial, and at 4096^2 P "auto" as phase
+              13 (d); no K3/K4 launch on "uni".
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
     python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
     python3 chip_smoke.py --phase 15    (phase 1, the build, and phase 15 alone)
+    python3 chip_smoke.py --phase 16    (phase 1, the build, and phase 16 alone)
 
 Phases 7 and 8 measure the strict north star (precision=None); phases
 2-6 and 10 run at the global precision 'f32', and every tier in 10.
 
 Each path's launch counters are set to 0 just before it and read just
-after; the records of phases 13-15 name, under "path", the run their
+after; the records of phases 13-16 name, under "path", the run their
 launches come from. A kernel's time is device time: its launches captured into a CUDA
 graph and the replay timed by CUDA events (the host's launch cost, about
 0.04 ms a call, would hide a shorter kernel), and so is the library
@@ -1726,7 +1738,7 @@ def large_flows(torch, card, ctx):
         raise AssertionError(f"{N}^2 flows disagree with their plain versions: {bad}")
 
 
-def large_sim(torch, card, N):
+def large_sim(torch, card, N, phase=13):
     import cmblensing_tpu_torch as ct
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1734,7 +1746,7 @@ def large_sim(torch, card, N):
     sim = ct.load_sim(thetapix=THETAPIX_MAP, Nside=N, pol="P", T=np.float32, seed=SEED,
                       device=DEVICE)
     torch.cuda.synchronize()
-    print(f"phase 13: load_sim at {N}^2 P: {time.perf_counter() - t0:.2f} s; peak memory "
+    print(f"phase {phase}: load_sim at {N}^2 P: {time.perf_counter() - t0:.2f} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
     return sim
 
@@ -1766,6 +1778,18 @@ def flows_in_float64(proj):
         lf._apply, lf._bwd = apply, bwd
 
 
+def mixed_vg(sim):
+    """(vg, phi_mix): the value and phi-gradient of the mixed posterior at
+    the simulation's truth, mixed (vg(phi_mix) -> (lnP, grad))."""
+    import cmblensing_tpu_torch as ct
+    ds = sim["ds"]
+    f = sim["f"].to(sim["f"].basis.with_space("map"))
+    phi = sim["phi"].to(sim["phi"].basis.with_space("map"))
+    m = ct.mix(ds, f=f, phi=phi)
+    f_mix, phi_mix = m["f_mix"].to(f.basis), m["phi_mix"].to(phi.basis)
+    return ct.fvalue_and_grad(lambda p: ct.Mixed(ds).logpdf(f_mix=f_mix, phi_mix=p)), phi_mix
+
+
 def large_gradient(torch, card, sim):
     """Phase 13 (b): the strict mixed phi-gradient on the kernel and the
     plain (cuFFT) backends, each against the same float32 evaluation with
@@ -1776,23 +1800,18 @@ def large_gradient(torch, card, sim):
     to the float64-flow evaluation})."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
-    ds = sim["ds"]
-    f = sim["f"].to(sim["f"].basis.with_space("map"))
-    phi = sim["phi"].to(sim["phi"].basis.with_space("map"))
-    m = ct.mix(ds, f=f, phi=phi)
-    f_mix, phi_mix = m["f_mix"].to(f.basis), m["phi_mix"].to(phi.basis)
-    vg = ct.fvalue_and_grad(lambda p: ct.Mixed(ds).logpdf(f_mix=f_mix, phi_mix=p))
+    vg, phi_mix = mixed_vg(sim)
     res = {}
     for be in ("kernel", "plain", "float64 flows"):
         ref = be == "float64 flows"
         with ct.lenseflow_backend_ctx("plain" if ref else be), \
-                (flows_in_float64(phi.proj) if ref else contextlib.nullcontext()):
+                (flows_in_float64(phi_mix.proj) if ref else contextlib.nullcontext()):
             lfk.reset_launches()
             t0 = time.perf_counter()
             v, g = vg(phi_mix)
             torch.cuda.synchronize()
             res[be] = (v, g.arr, 1e3 * (time.perf_counter() - t0), dict(lfk.LAUNCHES))
-    N = phi.proj.Nx
+    N = phi_mix.proj.Nx
     gaps = {"gap": rel(res["kernel"][1], res["plain"][1])}
     gaps.update({be: rel(res[be][1], res["float64 flows"][1]) for be in ("kernel", "plain")})
     print(f"phase 13: gradlnP at {N}^2 P, strict: lnP kernel {float(res['kernel'][0])!r} plain "
@@ -1821,6 +1840,42 @@ def map_steps(torch, ds, n, precision, keys=("logpdf", "alpha", "cg_iters", "pre
     return res, time.perf_counter() - t0
 
 
+def linesearch_footprint(torch, card, ds, res, phase):
+    """The grid line search's footprint on the current LenseFlow backend:
+    its peak memory for NTRIAL trials in one batch and in chunks of 5, on
+    the second step's search from a one-step MAP_joint result `res`
+    (history key "f"); returns the planes a trial holds, the difference of
+    the two peaks over NTRIAL - 5 trials."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.inference import maximization as tm
+    h = res["history"][0]
+    dsg = ds.replace(G=ct.Id)
+    with torch.no_grad():
+        f_mix, phi_mix, g = tm._phi_grad_and_fmix(dsg, {}, h["f"], res["phi"])
+        dphi = tm.hessian_phimix_preconditioner(dsg).pinv() @ g
+        del g
+        peak, dl = {}, {}
+        for chunk in (5, None):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _, dl[chunk] = tm._grid_linesearch_dlps(dsg, {}, f_mix, phi_mix, dphi,
+                                                    2 * h["alpha"], 16, chunk=chunk or 16)
+            torch.cuda.synchronize()
+            peak[chunk] = torch.cuda.max_memory_allocated() - base
+    N = ds.d.proj.Nx
+    per_trial = (peak[None] - peak[5]) / (NTRIAL - 5) / (N * N * 4)
+    fin = torch.isfinite(dl[None]) & torch.isfinite(dl[5])
+    ddl = float((dl[5] - dl[None])[fin].abs().max() / dl[None][fin].abs().max())
+    print(f"phase {phase}: grid line search at {N}^2 P: peak {peak[None] / 2 ** 30:.2f} GiB for "
+          f"{NTRIAL} trials, {peak[5] / 2 ** 30:.2f} GiB in chunks of 5: {per_trial:.1f} planes "
+          f"a trial (the constant: {tm.LINESEARCH_PLANES_PER_TRIAL}); chunks of 5 vs one batch: "
+          f"max |d dlp| / max |dlp| = {ddl:.2e}, argmax {int(dl[5].argmax())} vs "
+          f"{int(dl[None].argmax())} [{card}]")
+    return per_trial
+
+
 def large_step_2048(torch, card, sim):
     """Phase 13 (c) at 2048^2 P: one strict MAP_joint step on the kernel and
     on the plain backend (the same alpha and logpdf, STEP_TOL); the line
@@ -1828,7 +1883,6 @@ def large_step_2048(torch, card, sim):
     one step at "auto". Returns (launches of the strict and the "auto"
     kernel steps, their s/step, the plain s/step, planes per trial)."""
     import cmblensing_tpu_torch as ct
-    from cmblensing_tpu_torch.inference import maximization as tm
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
     ds = sim["ds"]
     runs, launches = {}, {}
@@ -1852,33 +1906,7 @@ def large_step_2048(torch, card, sim):
     print(f"phase 13: MAP_joint {N}^2 P \"auto\", 1 step (the first at {N}^2, set-up "
           f"included): {ta:.3f} s; logpdf {ha['logpdf']!r}, alpha {ha['alpha']!r}, fallback "
           f"{ha['precision_fallback']}, retry {ha['retry']}")
-    # the line search's footprint: peak memory of 17 trials and of chunks of
-    # 5, on the second step's search from the strict step's result
-    res = runs[("kernel", None)][0]
-    dsg = ds.replace(G=ct.Id)
-    with torch.no_grad():
-        f_mix, phi_mix, g = tm._phi_grad_and_fmix(dsg, {}, res["history"][0]["f"], res["phi"])
-        dphi = tm.hessian_phimix_preconditioner(dsg).pinv() @ g
-        del g
-        peak, dl = {}, {}
-        for chunk in (5, None):
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            _, dl[chunk] = tm._grid_linesearch_dlps(dsg, {}, f_mix, phi_mix, dphi,
-                                                    2 * hk["alpha"], 16, chunk=chunk or 16)
-            torch.cuda.synchronize()
-            peak[chunk] = torch.cuda.max_memory_allocated() - base
-    plane = N * N * 4
-    per_trial = (peak[None] - peak[5]) / (NTRIAL - 5) / plane
-    fin = torch.isfinite(dl[None]) & torch.isfinite(dl[5])
-    ddl = float((dl[5] - dl[None])[fin].abs().max() / dl[None][fin].abs().max())
-    print(f"phase 13: grid line search at {N}^2 P: peak {peak[None] / 2 ** 30:.2f} GiB for "
-          f"{NTRIAL} trials, {peak[5] / 2 ** 30:.2f} GiB in chunks of 5: {per_trial:.1f} planes "
-          f"a trial (the constant: {tm.LINESEARCH_PLANES_PER_TRIAL}); chunks of 5 vs one batch: "
-          f"max |d dlp| / max |dlp| = {ddl:.2e}, argmax {int(dl[5].argmax())} vs "
-          f"{int(dl[None].argmax())} [{card}]")
+    per_trial = linesearch_footprint(torch, card, ds, runs[("kernel", None)][0], 13)
     bad = {}
     if not (d_lp < STEP_TOL and d_a < STEP_TOL):
         bad["strict step kernel vs plain"] = (d_lp, d_a)
@@ -1889,12 +1917,13 @@ def large_step_2048(torch, card, sim):
     return launches[("kernel", None)], launches[("kernel", "auto")], tk, tp_, per_trial
 
 
-def large_map_4096(torch, card, sim):
+def large_map_4096(torch, card, sim, phase=13, steps=LARGE_STEPS):
     """Phase 13 (d): MAP_joint at 4096^2 P at the JAX default "auto", as
-    scripts/map_4096.py runs it: LARGE_WARM warm-up steps, then LARGE_STEPS
-    timed with the launch counters set to 0 just before and read just
-    after; every logpdf finite and never decreasing, alpha > 0 on the
-    first step. Prints s/step, peak memory, corr and rho_b."""
+    scripts/map_4096.py runs it, on the current LenseFlow backend:
+    LARGE_WARM warm-up steps, then `steps` timed with the launch counters
+    set to 0 just before and read just after; every logpdf finite and
+    never decreasing, alpha > 0 on the first step. Prints s/step, peak
+    memory, corr and rho_b."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.inference import maximization as tm
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
@@ -1906,7 +1935,7 @@ def large_map_4096(torch, card, sim):
     timing.reset_timers()
     lfk.reset_launches()
     keys = ("logpdf", "alpha", "cg_iters", "gradnorm", "precision_fallback", "retry")
-    res, dt = map_steps(torch, ds, LARGE_STEPS, "auto", keys)
+    res, dt = map_steps(torch, ds, steps, "auto", keys)
     launches = dict(lfk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     hist = res["history"]
@@ -1917,27 +1946,27 @@ def large_map_4096(torch, card, sim):
     corr = float(pm @ pt / (pm.norm() * pt.norm()))
     ell, rho = ct.bandpower_corr(phi_map, phi_true, RHO_LEDGES)
     chunk = tm._linesearch_chunk(phi_map, 16)
-    print(f"phase 13: MAP_joint {N}^2 P \"auto\": {LARGE_WARM} warm-up step {warm:.2f} s; "
-          f"{LARGE_STEPS} steps {dt:.2f} s = {dt / LARGE_STEPS:.3f} s/step; peak memory "
+    print(f"phase {phase}: MAP_joint {N}^2 P \"auto\": {LARGE_WARM} warm-up step {warm:.2f} s; "
+          f"{steps} steps {dt:.2f} s = {dt / steps:.3f} s/step; peak memory "
           f"{peak:.2f} GiB; line-search chunk {chunk} (16: all 17 trials in one batch) [{card}]")
     for line in timing.timer_report().splitlines():
-        print("phase 13: timers", line)
-    print(f"phase 13: logpdfs {lps!r}; alphas {alphas!r}; CG iters "
+        print(f"phase {phase}: timers", line)
+    print(f"phase {phase}: logpdfs {lps!r}; alphas {alphas!r}; CG iters "
           f"{[h['cg_iters'] for h in hist]}; gradnorm {[float(h['gradnorm']) for h in hist]!r}")
-    print(f"phase 13: f-steps re-run strict (precision_fallback) "
+    print(f"phase {phase}: f-steps re-run strict (precision_fallback) "
           f"{[h['precision_fallback'] for h in hist]}; direction retries "
           f"{[h['retry'] for h in hist]}")
-    print(f"phase 13: corr(phi_MAP, phi_true) = {corr:.4f} (no bound: {LARGE_STEPS} steps of 15 "
+    print(f"phase {phase}: corr(phi_MAP, phi_true) = {corr:.4f} (no bound: {steps} steps of 15 "
           f"fixed CG iterations); rho_b " + ", ".join(f"l~{l:.0f}: {r:.3f}"
                                                       for l, r in zip(ell, rho)))
-    print(f"phase 13: launches in the {N}^2 \"auto\" run: "
+    print(f"phase {phase}: launches in the {N}^2 \"auto\" run: "
           f"{ {k: v for k, v in launches.items() if v} }; per step "
-          f"{ {k: v / LARGE_STEPS for k, v in launches.items() if v} }")
+          f"{ {k: v / steps for k, v in launches.items() if v} }")
     if not all(np.isfinite(lps)) or any(b < a for a, b in zip(lps, lps[1:])):
         raise AssertionError(f"{N}^2 MAP_joint logpdf not finite and non-decreasing: {lps}")
     if not alphas[0] > 0:
         raise AssertionError(f"{N}^2 MAP_joint: the first line search accepted no step: {alphas}")
-    return launches, dt / LARGE_STEPS, peak
+    return launches, dt / steps, peak
 
 
 def dense_640(torch, card):
@@ -2566,40 +2595,59 @@ def uni_role_line(label, key, d):
             f"{d['same_bits']}, inside {d['inside']}{times}")
 
 
-def uni_fctx(torch):
-    """phase 5's 1024^2 inputs (fctx), for phase 15 run alone."""
+def uni_fctx(torch, N=N_MAP):
+    """phase 5's inputs (fctx) at N^2 (thetapix 2) on its factored
+    operands: at 1024^2 for phase 15 run alone, at 2048^2 and 4096^2 for
+    phase 16."""
     import cmblensing_tpu_torch as ct
-    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
-    proj = ct.ProjLambert(N_MAP, N_MAP, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE)
+    from cmblensing_tpu_torch.ops import deriv, factored_deriv, lenseflow_kernels as lfk
+    proj = ct.ProjLambert(N, N, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE)
     ops = deriv.deriv_ops(proj)
+    if not isinstance(ops, factored_deriv.FactoredOps) or ops.FX.shape[0] != N // FA:
+        raise AssertionError(f"deriv_ops gives no radix-{N // FA} factored operands at {N}^2")
     phi_map, f, dy = weak_lensing_inputs(proj, torch)
     return dict(ops=ops, phi=lfk.gradhess(phi_map, ops), phi_map=phi_map, f=f, dy=dy)
 
 
-def uni_tiers_factored(torch, card, fctx):
-    """(a) K5 'high' and 'bf16' at 1024^2 (radix 8), every role at batch 1
-    and on NTRIAL trials with NTRIAL phi scalings (uni_roles), timed cold
-    with the tier's bound (bound_high)."""
-    ops, phi, f, dy = (fctx[k] for k in ("ops", "phi", "f", "dy"))
+def uni_tiers_factored(torch, card, ctx, N, tiers, phase, batched=True):
+    """K5 on factored operands at N^2 (radix N / FA) at each of `tiers`:
+    every role on the operands the uni flows give it at batch 1 and, with
+    `batched`, on NTRIAL trials with NTRIAL phi scalings (uni_roles: each
+    plane against plain at the tier, at a reduced tier against the strict
+    kernel too; two launches the same bits; nothing written past a plane;
+    the zero planes exact), timed cold with the tier's bound (bound,
+    bound_high). Returns ({(tier, role key): record}, {what: why it
+    failed})."""
+    ops, phi, f, dy = (ctx[k] for k in ("ops", "phi", "f", "dy"))
     state = torch.cat([f, dy])
-    scales = torch.linspace(0.1, 2.0, NTRIAL, device=DEVICE).reshape(-1, 1, 1, 1)
-    states = torch.stack([torch.roll(state, 7 * i, dims=-1) for i in range(NTRIAL)])
-    phis = (scales * phi).contiguous()
+    inputs = {1: uni_operands(torch, ops, phi[None], state[None])}
+    if batched:
+        scales = torch.linspace(0.1, 2.0, NTRIAL, device=DEVICE).reshape(-1, 1, 1, 1)
+        states = torch.stack([torch.roll(state, 7 * i, dims=-1) for i in range(NTRIAL)])
+        inputs[NTRIAL] = uni_operands(torch, ops, (scales * phi).contiguous(), states)
+        del states
     records, bad = {}, {}
-    for tier in ("high", "bf16"):
-        bound_of = lambda role, nb, nper: bound_high(N_MAP, UNI_NDER[role] * nb * nper,
-                                                     nb * (6 * nper + 2), 1, 2, tier)
-        one, b1 = uni_roles(torch, ops, *uni_operands(torch, ops, phi[None], state[None]), tier,
-                            UNI_TOL[tier], bound_of)
-        many, b2 = uni_roles(torch, ops, *uni_operands(torch, ops, phis, states), tier,
-                             UNI_TOL[tier], bound_of, reps=3)
-        for key, d in one.items():
-            print(f"phase 15: (a) {uni_role_line(f'{tier!r} {N_MAP}^2', key, d)} [{card}]")
-            print(f"phase 15: (a) {uni_role_line(f'{tier!r} {N_MAP}^2', key, many[key])} [{card}]")
-            d["batched"] = {k: many[key][k] for k in ("nb", "max_abs_err", "rel", "ms", "plain_ms")}
-            records[f"uni_role{key}_{tier}"] = d
-        bad.update({f"{tier} {k}": v for k, v in b1.items()})
-        bad.update({f"{tier} {k}[{NTRIAL}]": v for k, v in b2.items()})
+    for tier in tiers:
+        def bound_of(role, nb, nper):
+            nder, planes = UNI_NDER[role] * nb * nper, nb * (6 * nper + 2)
+            if tier == "f32":
+                return bound(nder * fact_deriv_flops(N), planes, N, fact_op_floats(N))
+            return bound_high(N, nder, planes, 1, 2, tier)
+
+        found = {}
+        for nb, operands in inputs.items():
+            found[nb], why = uni_roles(torch, ops, *operands, tier, UNI_TOL[tier], bound_of,
+                                       reps=10 if nb == 1 else 3)
+            bad.update({f"{tier} {N}^2 [{nb}] {k}": v for k, v in why.items()})
+        for key, d in found[1].items():
+            for nb in found:
+                print(f"phase {phase}: (a) "
+                      f"{uni_role_line(f'{tier!r} {N}^2 radix {N // FA}', key, found[nb][key])} "
+                      f"[{card}]")
+            if NTRIAL in found:
+                d["batched"] = {k: found[NTRIAL][key][k]
+                                for k in ("nb", "max_abs_err", "rel", "ms", "plain_ms")}
+            records[tier, key] = d
     return records, bad
 
 
@@ -2731,18 +2779,18 @@ def uni_tier_flows(torch, card, fctx):
     return found, bad
 
 
-def uni_gradients(torch, card, slice256, gctx):
-    """(d) the phi-gradient on "uni" against the kernel backend: at 256^2
-    P (nsteps 7, the dense K5) strict within GRAD_TOL, at 'high' and
+def uni_gradients(torch, card, cases, tag):
+    """The phi-gradient on "uni" against the kernel backend, for each
+    (size, vg, phi_mix, tiers) of `cases` (tiers beginning with 'f32'):
+    strict within GRAD_TOL (GRAD_TOL_1024 at 1024^2), at 'high' and
     'bf16' nearer the kernel backend's at the tier than the strict uni
-    gradient (FLOW_SPLIT_RATIO); at 1024^2 P at 'high' and 'bf16' the
-    same ratio. The launch counters are set to 0 just before each uni run
-    and read just after. Returns (paths' launches, records, failures)."""
+    gradient (FLOW_SPLIT_RATIO); no K3/K4 launch on "uni". The launch
+    counters are set to 0 just before each uni run and read just after.
+    Returns (paths' launches, records, failures)."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
     paths, found, bad = {}, {}, {}
-    for size, vg, phi_mix, tiers in ((N, slice256["vg"], slice256["phi_mix"], lfk.PRECISIONS),
-                                     (N_MAP, gctx["vg"], gctx["phi_mix"], ("f32", "high", "bf16"))):
+    for size, vg, phi_mix, tiers in cases:
         g = {}
         for tier in tiers:
             for be in ("kernel", "uni"):
@@ -2751,19 +2799,21 @@ def uni_gradients(torch, card, slice256, gctx):
                     _, g[be, tier] = vg(phi_mix)
                     torch.cuda.synchronize()
                     if be == "uni":
-                        paths[f"gradlnP {size}^2 P uni {tier}"] = dict(lfk.LAUNCHES)
+                        path = f"gradlnP {size}^2 P uni {tier}"
+                        paths[path] = dict(lfk.LAUNCHES)
+                        uni_no_k34(path, paths[path])
                         ms = cuda_ms(lambda: vg(phi_mix), 3, torch)
             gu, gk = g["uni", tier].arr, g["kernel", tier].arr
             d = dict(rel=rel(gu, gk), ms=ms)
             if tier == "f32":
-                ok = d["rel"] < (GRAD_TOL if size == N else GRAD_TOL_1024)
-                line = f"bound {GRAD_TOL:g}"
+                tol = GRAD_TOL_1024 if size == N_MAP else GRAD_TOL
+                ok, line = d["rel"] < tol, f"bound {tol:g}"
             else:
                 d["ratio"] = fro(gu, gk) / fro(gu, g["uni", "f32"].arr)
                 ok = d["ratio"] < FLOW_SPLIT_RATIO
                 line = (f"Frobenius distance over the distance to strict uni {d['ratio']:.4f} "
                         f"(bound {FLOW_SPLIT_RATIO:g})")
-            print(f"phase 15: (d) gradlnP {size}^2 P on \"uni\" at {tier!r} vs the kernel backend "
+            print(f"{tag} gradlnP {size}^2 P on \"uni\" at {tier!r} vs the kernel backend "
                   f"at {tier!r}: rel max-abs {d['rel']:.3e}; {line}; uni {ms:.3f} ms [{card}]")
             if not (ok and torch.isfinite(gu).all()):
                 bad[f"gradient {size} {tier}"] = d
@@ -2779,21 +2829,21 @@ def uni_maps(torch, card, gctx, beside):
     role 3: argmaxf_logpdf at 1024^2 P on "uni", hessian_precision="bf16",
     2 fixed iterations."""
     import cmblensing_tpu_torch as ct
-    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
     sim, paths, timing_out = gctx["sim"], {}, {}
-    k34 = [k for k in lfk.LAUNCHES if k.startswith(("fa_velocity", "bv_velocity"))]
     for tier, want in (("auto", [f"uni_role{r}_high" for r in range(4)]),
                        ("bf16", [f"uni_role{r}_bf16" for r in range(3)])):
         with ct.lenseflow_backend_ctx("uni"):
             launches, s_step, hist = run_map(torch, sim, 15, f"uni, precision {tier!r}", card,
                                              precision=tier)
-        paths[f"MAP_joint {N_MAP}^2 P uni {tier}"] = launches
+        path = f"MAP_joint {N_MAP}^2 P uni {tier}"
+        paths[path] = launches
+        uni_no_k34(path, launches)
         timing_out[f"MAP_joint_1024_uni_{tier}_s_per_step"] = s_step
         print(f"phase 15: (e) f-steps re-run strict {sum(h['precision_fallback'] for h in hist)} "
               f"of {len(hist)}; direction retries fired {sum(h['retry'] for h in hist)}")
-        if any(launches[k] for k in k34) or min(launches[k] for k in want) <= 0:
-            raise AssertionError(f"MAP_joint on \"uni\" at {tier!r}: K3/K4 launched, or K5's "
-                                 f"{tier!r} tier did not: {launches}")
+        if min(launches[k] for k in want) <= 0:
+            raise AssertionError(f"MAP_joint on \"uni\" at {tier!r}: K5's {tier!r} tier did not "
+                                 f"launch: {launches}")
     for phase, label in ((8, "\"uni\" strict"), (9, "\"kernel\" \"auto\""),
                          (14, "\"kernel\" 'bf16'")):
         s, h = (beside or {}).get(phase, (None, None))
@@ -2804,14 +2854,7 @@ def uni_maps(torch, card, gctx, beside):
               f"{[x['logpdf'] for x in h]!r}; alphas {[x['alpha'] for x in h]!r}; fallbacks "
               f"{sum(x.get('precision_fallback', False) for x in h)}; retries "
               f"{sum(x.get('retry', False) for x in h)}")
-    with ct.lenseflow_backend_ctx("uni"):
-        lfk.reset_launches()
-        fw, _ = ct.argmaxf_logpdf(sim["ds"], phi=sim["phi"], conjgrad_kwargs=dict(
-            tol=0.0, nsteps=2, fixed_iters=True, hessian_precision="bf16"))
-        torch.cuda.synchronize()
-    paths[f"argmaxf_logpdf {N_MAP}^2 P uni bf16, 2 iterations"] = dict(lfk.LAUNCHES)
-    if not torch.isfinite(fw.arr).all():
-        raise AssertionError("the 'bf16' argmaxf_logpdf on \"uni\" is not finite")
+    path, paths[path] = uni_bf16_wiener(torch, sim)
     return paths, timing_out
 
 
@@ -2911,7 +2954,8 @@ def phase_uni_tiers(torch, card, fctx=None, gctx=None, beside=None):
     if gctx is None:
         gctx = phase_map_gradient(torch, card)[0]
     bad, timing_out = {}, {}
-    records, why = uni_tiers_factored(torch, card, fctx)
+    found, why = uni_tiers_factored(torch, card, fctx, N_MAP, ("high", "bf16"), 15)
+    records = {f"uni_role{key}_{tier}": d for (tier, key), d in found.items()}
     bad.update(why)
     t0 = time.perf_counter()
     wf_sim = ct.load_sim(**WF_SIM, device=DEVICE)
@@ -2928,7 +2972,9 @@ def phase_uni_tiers(torch, card, fctx=None, gctx=None, beside=None):
     m = ct.mix(sim256["ds"], f=f256, phi=p256)
     f_mix, phi_mix = m["f_mix"].to(f256.basis), m["phi_mix"].to(p256.basis)
     vg = ct.fvalue_and_grad(lambda p: ct.Mixed(sim256["ds"]).logpdf(f_mix=f_mix, phi_mix=p))
-    paths, grads, why = uni_gradients(torch, card, dict(vg=vg, phi_mix=phi_mix), gctx)
+    paths, grads, why = uni_gradients(torch, card, (
+        (N, vg, phi_mix, lfk.PRECISIONS), (N_MAP, gctx["vg"], gctx["phi_mix"], lfk.PRECISIONS)),
+        "phase 15: (d)")
     bad.update(why)
     timing_out.update({f"gradlnP_{s}_uni_{t}_ms": d["ms"] for (s, t), d in grads.items()})
     wpaths, wtiming, why = uni_wiener(torch, card, wf_sim)
@@ -2962,6 +3008,236 @@ def phase_uni_tiers(torch, card, fctx=None, gctx=None, beside=None):
     return records, launches, timing_out
 
 
+def uni_large_flows(torch, card, N, ctx):
+    """Phase 16 (b): the uni flows (L, L^-1, L^H, backward delta phi and
+    delta f; nsteps NSTEPS) at every tier against the kernel backend's
+    flows (K3/K4) at the tier: L, L^-1, L^H and delta f the same bits, or
+    else within FLOW_TOL; delta phi (hoisted there) within
+    DPHI_UNHOISTED_TOL strict, UNI_DPHI_TOL at a reduced tier. At 2048^2
+    also against the plain uni flows at the tier (UNI_TOL, and at a
+    reduced tier nearer them than the strict uni flow, FLOW_SPLIT_RATIO).
+    Returns {what: why it failed}."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    ops, phi_map, f, dy = (ctx[k] for k in ("ops", "phi_map", "f", "dy"))
+    vs_plain = N == 2048
+    kinds = (("L", 0., 1., "forward"), ("L^-1", 1., 0., "forward"), ("L^H", 1., 0., "adjoint"))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t_)
+
+    bad = {}
+    for tier in lfk.PRECISIONS:
+        planes = lfk.gradhess(phi_map, ops, tier)
+        runs = {}
+        for name, t0, t1, kind in kinds:
+            ap = lambda fn, p: fn(f, planes, ops, t0, t1, NSTEPS, kind, p)
+            (u, ms), (k, kms) = timed(lambda: ap(lfk.uni_flow_apply, tier)), timed(
+                lambda: ap(lfk.flow_apply, tier))
+            runs[name] = (u, k, ms, kms)
+            if vs_plain:
+                runs[name] += (ap(lfk.uni_flow_apply_plain, tier), ap(lfk.uni_flow_apply, "f32"))
+        bw = lambda fn, p: fn(dy, f, planes, ops, 0., 1., NSTEPS, p)
+        (ub, ms), (kb, kms) = timed(lambda: bw(lfk.uni_flow_bwd, tier)), timed(
+            lambda: bw(lfk.flow_bwd, tier))
+        extra = (bw(lfk.uni_flow_bwd_plain, tier), bw(lfk.uni_flow_bwd, "f32")) if vs_plain else ()
+        for i, name in enumerate(("backward dphi", "backward df0")):
+            runs[name] = (ub[i], kb[i], ms, kms) + tuple(x[i] for x in extra)
+        for name, r in runs.items():
+            dphi = name == "backward dphi"
+            same, vs_k = bool(torch.equal(r[0], r[1])), rel(r[0], r[1])
+            ktol = (DPHI_UNHOISTED_TOL if tier == "f32" else UNI_DPHI_TOL[tier]) if dphi \
+                else FLOW_TOL
+            line = f"vs K3/K4 flow {vs_k:.3e} (bound {ktol:g}), same bits {same}"
+            if not (vs_k < ktol or (same and not dphi)):
+                bad[f"{tier} {N} {name} vs K3/K4"] = vs_k
+            if vs_plain:
+                vs_p, ratio = rel(r[0], r[4]), split_ratio(r[0], r[4], r[5]) \
+                    if tier != "f32" else {"split_ratio": 0.0}
+                line = (f"vs plain uni {vs_p:.3e} (bound {UNI_TOL[tier]:g}), Frobenius ratio "
+                        f"{ratio['split_ratio']:.4f} (bound {FLOW_SPLIT_RATIO:g}); " + line)
+                if not (vs_p < UNI_TOL[tier] and ratio["split_ratio"] < FLOW_SPLIT_RATIO):
+                    bad[f"{tier} {N} {name} vs plain"] = (vs_p, ratio["split_ratio"])
+            print(f"phase 16: (b) uni flow {name:14s} {tier!r} {N}^2 P: {line}  uni {r[2]:.2f} ms, "
+                  f"K3/K4 {r[3]:.2f} ms [nsteps={NSTEPS}; {card}]")
+        del runs
+    return bad
+
+
+def uni_no_k34(path, launches):
+    """Raise where a run on "uni" launched K3 or K4."""
+    k34 = {k: v for k, v in launches.items() if k.startswith(("fa_velocity", "bv_velocity")) and v}
+    if k34:
+        raise AssertionError(f"{path}: K3/K4 launched on the uni backend: {k34}")
+
+
+def uni_bf16_wiener(torch, sim):
+    """argmaxf_logpdf on "uni" at hessian_precision="bf16", 2 fixed
+    iterations, f finite: the path of K5's 'bf16' role 3 (a phi-step
+    runs no adjoint flow at 'bf16'). Returns (path, launches)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    N = sim["ds"].d.proj.Nx
+    with ct.lenseflow_backend_ctx("uni"):
+        lfk.reset_launches()
+        fw, _ = ct.argmaxf_logpdf(sim["ds"], phi=sim["phi"], conjgrad_kwargs=dict(
+            tol=0.0, nsteps=2, fixed_iters=True, hessian_precision="bf16"))
+        torch.cuda.synchronize()
+    path = f"argmaxf_logpdf {N}^2 P uni bf16, 2 iterations"
+    launches = dict(lfk.LAUNCHES)
+    uni_no_k34(path, launches)
+    if not torch.isfinite(fw.arr).all():
+        raise AssertionError(f"{path}: f not finite")
+    return path, launches
+
+
+def uni_steps_2048(torch, card, sim):
+    """Phase 16 (d) at 2048^2 P: one strict MAP_joint step on "kernel" and
+    on "uni" (the same alpha and logpdf, STEP_TOL), one at "auto" and one
+    at 'bf16' on "uni" (logpdf finite, a step taken), each with the
+    counters set to 0 just before and read just after, no K3/K4 launch on
+    "uni"; the line search's footprint on "uni". Returns ({path:
+    launches}, timings)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    ds = sim["ds"]
+    keys = ("logpdf", "alpha", "cg_iters", "precision_fallback", "retry", "f")
+    runs, paths = {}, {}
+    # the "auto" step first: it meets the size's one-time costs on "uni"
+    for be, p in (("uni", "auto"), ("kernel", None), ("uni", None), ("uni", "bf16")):
+        with ct.lenseflow_backend_ctx(be):
+            lfk.reset_launches()
+            runs[be, p] = map_steps(torch, ds, 1, p, keys)
+            if be == "uni":
+                path = f"MAP_joint 2048^2 P uni {p or 'strict'}, 1 step"
+                paths[path] = dict(lfk.LAUNCHES)
+                uni_no_k34(path, paths[path])
+    hist = {k: r[0]["history"][0] for k, r in runs.items()}
+    hk, hu = hist["kernel", None], hist["uni", None]
+    d_lp = abs(hu["logpdf"] - hk["logpdf"]) / abs(hk["logpdf"])
+    d_a = abs(hu["alpha"] - hk["alpha"]) / max(abs(hk["alpha"]), 1e-30)
+    print(f"phase 16: (d) MAP_joint 2048^2 P strict, 1 step: uni {runs['uni', None][1]:.3f} s, "
+          f"kernel {runs['kernel', None][1]:.3f} s; logpdf {hu['logpdf']!r} vs {hk['logpdf']!r} "
+          f"(rel {d_lp:.2e}, bound {STEP_TOL:g}); alpha {hu['alpha']!r} vs {hk['alpha']!r} (rel "
+          f"{d_a:.2e}) [{card}]")
+    for p in ("auto", "bf16"):
+        h = hist["uni", p]
+        print(f"phase 16: (d) MAP_joint 2048^2 P on \"uni\" at {p!r}, 1 step"
+              f"{' (the first at 2048^2 in this phase, set-up included)' if p == 'auto' else ''}: "
+              f"{runs['uni', p][1]:.3f} s; logpdf {h['logpdf']!r}, alpha {h['alpha']!r}, fallback "
+              f"{h['precision_fallback']}, retry {h['retry']}")
+    with ct.lenseflow_backend_ctx("uni"):
+        per_trial = linesearch_footprint(torch, card, ds, runs["uni", None][0], 16)
+    bad = {}
+    if not (d_lp < STEP_TOL and d_a < STEP_TOL):
+        bad["strict step uni vs kernel"] = (d_lp, d_a)
+    if not all(np.isfinite(h["logpdf"]) and h["alpha"] > 0 for h in hist.values()):
+        bad["steps"] = hist
+    if bad:
+        raise AssertionError(f"phase 16: 2048^2 MAP_joint on \"uni\" disagrees: {bad}")
+    return paths, {"MAP_joint_2048_uni_s_per_step": (runs["uni", None][1],
+                                                     runs["kernel", None][1]),
+                   "MAP_joint_2048_uni_auto_s": runs["uni", "auto"][1],
+                   "MAP_joint_2048_uni_bf16_s": runs["uni", "bf16"][1],
+                   "linesearch_planes_per_trial_2048_uni": per_trial}
+
+
+def phase_uni_large(torch, card, beside=None):
+    """Phase 16: K5 at radix 16 and 32 and the "uni" backend at 2048^2 and
+    4096^2 P (see the module docstring). beside holds phase 13's 4096^2
+    "auto" s/step, when it ran in this call. Returns (kernel records
+    {name: record}, launches {name: (path, count)}, timings)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    t_start = time.perf_counter()
+    records, bad = {}, {}
+    for N in N_LARGE:
+        ctx = uni_fctx(torch, N)
+        found, why = uni_tiers_factored(torch, card, ctx, N, lfk.PRECISIONS, 16, N == 2048)
+        records.update({f"uni_role{key}{'' if tier == 'f32' else '_' + tier}_b{N // FA}": d
+                        for (tier, key), d in found.items()})
+        bad.update(why)
+        bad.update(uni_large_flows(torch, card, N, ctx))
+        del ctx
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"phase 16: K5 or the uni flows disagree: {bad}")
+    sim = large_sim(torch, card, 2048, 16)
+    paths, _, bad = uni_gradients(torch, card, ((2048, *mixed_vg(sim), ("f32",)),), "phase 16: (c)")
+    step_paths, timing_out = uni_steps_2048(torch, card, sim)
+    paths.update(step_paths)
+    path, paths[path] = uni_bf16_wiener(torch, sim)
+    del sim
+    torch.cuda.empty_cache()
+    sim = large_sim(torch, card, 4096, 16)
+    gpaths, grads, why = uni_gradients(torch, card, ((4096, *mixed_vg(sim), ("f32", "bf16")),),
+                                       "phase 16: (c)")
+    paths.update(gpaths)
+    bad.update(why)
+    if bad:
+        raise AssertionError(f"phase 16: the gradient on \"uni\" disagrees: {bad}")
+    path, paths[path] = uni_bf16_wiener(torch, sim)
+    torch.cuda.empty_cache()
+    with ct.lenseflow_backend_ctx("uni"):
+        run_launches, s_step, peak = large_map_4096(torch, card, sim, 16)
+    main_path = "MAP_joint 4096^2 P uni auto"
+    paths[main_path] = run_launches
+    uni_no_k34(main_path, run_launches)
+    del sim
+    torch.cuda.empty_cache()
+    kernel_s = (beside or {}).get("MAP_joint_4096_s_per_step")
+    print(f"phase 16: (d) MAP_joint 4096^2 P \"auto\": uni {s_step:.3f} s/step, peak {peak:.2f} GiB; "
+          + (f"phase 13 (kernel) {kernel_s:.3f} s/step, peak "
+             f"{beside['MAP_joint_4096_peak_GiB']:.2f} GiB" if kernel_s else
+             "phase 13 (kernel) not run in this call") + f" [{card}]")
+    timing_out.update(MAP_joint_4096_uni_s_per_step=s_step, MAP_joint_4096_uni_peak_GiB=peak,
+                      gradlnP_4096_uni_ms=grads[4096, "f32"]["ms"],
+                      gradlnP_4096_uni_bf16_ms=grads[4096, "bf16"]["ms"])
+    # each record's launches: the named path's run (strict roles 0 and 1
+    # run in a 4096^2 "auto" step only on a direction retry, 'bf16' role 3
+    # in no phi-step)
+    path_of = {}
+    for r in range(4):
+        path_of[f"uni_role{r}_b16"] = "MAP_joint 2048^2 P uni strict, 1 step"
+        path_of[f"uni_role{r}_high_b16"] = "MAP_joint 2048^2 P uni auto, 1 step"
+        path_of[f"uni_role{r}_bf16_b16"] = ("MAP_joint 2048^2 P uni bf16, 1 step" if r < 3 else
+                                           "argmaxf_logpdf 2048^2 P uni bf16, 2 iterations")
+        path_of[f"uni_role{r}_b32"] = "gradlnP 4096^2 P uni f32" if r < 3 else main_path
+        path_of[f"uni_role{r}_high_b32"] = main_path
+        path_of[f"uni_role{r}_bf16_b32"] = ("gradlnP 4096^2 P uni bf16" if r < 3 else
+                                           "argmaxf_logpdf 4096^2 P uni bf16, 2 iterations")
+    launches = {name: (p, paths[p][name.rsplit("_", 1)[0]]) for name, p in path_of.items()}
+    never = {k: v for k, v in launches.items() if v[1] <= 0}
+    if never:
+        raise AssertionError(f"a radix-16/32 K5 kernel never launched in its path's run: {never}")
+    for name, (p, n) in launches.items():
+        print(f"phase 16: {name}: {n} launches in {p}")
+    print(f"phase 16: wall time {time.perf_counter() - t_start:.1f} s [{card}]")
+    return records, launches, timing_out
+
+
+def print_ptxas(log):
+    """Phase 1: the build log's register lines and errors, and for K5's
+    factored instantiations (uni.cu) each one's radix, axis and tier with
+    its registers, stack and spills."""
+    import re
+    source, kernel = None, None
+    for line in log.splitlines():
+        line = line.strip()
+        if line.startswith("[") and line.endswith("]"):
+            source = line[1:-1]
+        m = re.search(r"uni_kernelILi(\d+)ELi(\d)ELi(\d)E", line)
+        if source == "uni.cu" and "Compiling entry function" in line and m:
+            kernel = "uni_kernel<B={}, AXIS={}, TIER={}>".format(*m.groups())
+        elif source == "uni.cu" and kernel and ("registers" in line or "spill" in line):
+            print(f"phase 1: ptxas: {kernel}: {line.split(':', 1)[-1].strip()}")
+        elif "registers" in line or "error" in line.lower():
+            print("phase 1: ptxas:", line)
+
+
 def main():
     try:
         import torch
@@ -2981,9 +3257,7 @@ def main():
     _build.load()
     print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     if _build.BUILD_LOG:
-        for line in _build.BUILD_LOG.splitlines():
-            if "registers" in line or "error" in line.lower():
-                print("phase 1: ptxas:", line.strip())
+        print_ptxas(_build.BUILD_LOG)
 
     if sys.argv[1:] == ["--phase", "13"]:
         phase_large(torch, card)
@@ -2993,6 +3267,9 @@ def main():
         return 0
     if sys.argv[1:] == ["--phase", "15"]:
         phase_uni_tiers(torch, card)
+        return 0
+    if sys.argv[1:] == ["--phase", "16"]:
+        phase_uni_large(torch, card)
         return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
@@ -3014,6 +3291,9 @@ def main():
                    14: (gctx["map_s_bf16"], gctx["map_hist_bf16"])})
     uni_tiers, uni_tier_launches, uni_tier_timing = phase_uni_tiers(torch, card, fctx, gctx,
                                                                     beside)
+    del fctx, gctx, beside
+    torch.cuda.empty_cache()
+    uni_large, uni_large_launches, uni_large_timing = phase_uni_large(torch, card, large_timing)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -3102,11 +3382,18 @@ def main():
         rec = entry(name, d, src, n)
         rec["path"] = path
         record["kernels"].append(rec)
+    # K5 at radix 16 and 32, every tier (phase 16; "batched": the NTRIAL
+    # trials at 2048^2); "path" names the run whose launches each gives
+    for name, d in uni_large.items():
+        path, n = uni_large_launches[name]
+        rec = entry(name.rsplit("_", 1)[0], d, "cmblensing_tpu_torch/csrc/uni.cu", n)
+        rec.update(name=name, path=path)
+        record["kernels"].append(rec)
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),
                    "MAP_joint_1024_s_per_step": (s_step, plain_s_step),
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
                    **high_timing, **dense_high_timing, **wf_timing, **large_timing,
-                   **bf16_timing, **uni_tier_timing,
+                   **bf16_timing, **uni_tier_timing, **uni_large_timing,
                    **{f"velocity_forward_{Ny}x{Nx}_{p}": ms for (Ny, Nx, p), ms in edge_ms.items()}})
     print("main path ms (kernel, plain):", json.dumps(timing))
     print(card)

@@ -593,8 +593,7 @@ int allow_tile_smem(K kernel, int B, int tier = TIER_F32) {
 
 // Instantiate the statement for the radix Bv (as the constant B); other
 // radices are refused. The radices built: ops/deriv.py::BUILT_RADICES
-// names the same set. LF_WITH_ONE_GROUP_RADIX takes only those of one
-// channel group (4, 8), for a kernel whose epilogue needs every channel.
+// names the same set.
 #define LF_RADIX_CASE(n, ...)                                                                   \
     case n: {                                                                                   \
         constexpr int B = n;                                                                    \
@@ -609,10 +608,10 @@ int allow_tile_smem(K kernel, int B, int tier = TIER_F32) {
         default:                                                                                \
             return (int)cudaErrorInvalidValue;                                                  \
     }
-#define LF_WITH_ONE_GROUP_RADIX(Bv, ...)                                                        \
-    switch (Bv) {                                                                               \
-        LF_RADIX_CASE(4, __VA_ARGS__)                                                           \
-        LF_RADIX_CASE(8, __VA_ARGS__)                                                           \
-        default:                                                                                \
-            return (int)cudaErrorInvalidValue;                                                  \
-    }
+
+// One launch of `kernel` per channel group g of the radix B in force, in
+// order, at tier TIER on stream st; (...) are its arguments before g.
+#define LF_TILE_LAUNCH(kernel, AXIS, nz, ...)                                                  \
+    for (int g = 0; g < tile_groups(B); ++g)                                                    \
+    kernel<B, AXIS, TIER><<<pass_grid<AXIS>(Ny, Nx, nz), tile_threads(B),                      \
+                            tile_smem_bytes(B, TIER), st>>>(__VA_ARGS__, g)

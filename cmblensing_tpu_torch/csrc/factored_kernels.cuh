@@ -157,13 +157,6 @@ int allow_smem_all() {
     return rc != 0 ? rc : allow_smem<32, TIER>();
 }
 
-// One launch of `kernel` per channel group g of the radix B in force, in
-// order; (...) are its arguments before g.
-#define LF_TILE_LAUNCH(kernel, AXIS, nz, ...)                                                  \
-    for (int g = 0; g < tile_groups(B); ++g)                                                    \
-    kernel<B, AXIS, TIER><<<pass_grid<AXIS>(Ny, Nx, nz), tile_threads(B),                      \
-                            tile_smem_bytes(B, TIER), st>>>(__VA_ARGS__, g)
-
 // out = d_x a + d_y b + c over nplanes planes; a or b (not both) and c may
 // be null; out must not alias a or b. One launch per non-null derivative
 // and channel group.

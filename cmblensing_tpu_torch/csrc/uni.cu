@@ -18,8 +18,9 @@
 //
 // Built on the tiled factored derivative `fact_tile` (fact_tile.cuh), as K3
 // and K4 are: each role is an x pass that stores and a y pass that adds,
-// two launches. Role 1 nests its derivatives, so it is two such stages,
-// four launches: the inner stage forms the two bracketed planes in a
+// two launches (a launch a channel group and pass at radix 16 and 32,
+// below). Role 1 nests its derivatives, so it is two such stages: the
+// inner stage forms the two bracketed planes in a
 // scratch buffer (the t p multiply in the load functor, a or b added at
 // store), the outer stage differentiates them. One binary serves every role
 // and every t. A launch takes up to two derivatives per entry, one
@@ -58,10 +59,17 @@
 // rounds `a + ddx(t px a) + ddy(t py a)`. The loads, stores and the y
 // pass's one add per pixel are the FP32 form's at every tier.
 //
-// Radix 4 and 8 only, one channel group: the entry refuses 16 and 32
-// (ROADMAP Queue 2, K5). Running fact_tile's channel groups there would
-// also need the stores of the first group alone to add a or b (role 1's
-// inner stage) and to zero the planes a role leaves at zero.
+// Radix 16 and 32 run fact_tile's channel groups as K1, K3 and K4 do
+// (LF_TILE_LAUNCH): a launch a group and pass, in order, g the last
+// argument, each adding its partial sum of the derivative. The x pass's
+// group 0 stores where the one-group kernel stores and every later launch
+// adds, so each later group adds only what is linear in its partial sum:
+// role 0's b d_x a and b d_y a, each pass's own plane, are stored by that
+// pass's group 0 and added to by its later groups; role 1's "+ a" (or
+// "+ b") and the planes a role leaves at zero are written by the x pass's
+// group 0 alone. At a reduced tier role 1's outer stage splits or rounds
+// the inner sums, which are now also summed over the groups (in the
+// launches' fixed order, so the bits are the same every run).
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
 // stream; the entry point returns the first nonzero cudaGetLastError().
@@ -82,9 +90,9 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
            long long a_bs, long long a_cs, long long b_bs, long long b_cs, int nper,
            const float* __restrict__ px, const float* __restrict__ py, float* __restrict__ out,
            float* __restrict__ scratch, const void* __restrict__ Gt,
-           const float* __restrict__ bf, int Ny, int Nx, float t) {
+           const float* __restrict__ bf, int Ny, int Nx, float t, int g) {
     extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, TIER)
-    load_butterflies<B, TIER>(bf, smem, 0);   // one channel group (radix 4, 8)
+    load_butterflies<B, TIER>(bf, smem, g);
     const size_t plane = (size_t)Ny * Nx;
     const int nder = role == 1 && stage == 1 ? 1 : 2;
     const int z = blockIdx.z / nder, j = blockIdx.z % nder, bi = z / nper, ci = z % nper;
@@ -93,7 +101,8 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
     const float* pa = (AXIS == AXIS_X ? px : py) + (size_t)bi * plane;   // p along this axis
     float* o = out + (size_t)z * 4 * plane;
     float* sc = role == 1 ? scratch + (size_t)z * 2 * plane : nullptr;
-    const bool first = AXIS == AXIS_X;     // the x pass stores, the y pass adds
+    // the x pass's first channel group stores, every later launch adds
+    const bool first = AXIS == AXIS_X && g == 0;
     const bool inner = role == 1 && stage == 0;
     int m0, o0;
     tile_origin<AXIS>(m0, o0);
@@ -104,17 +113,19 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
     const float scale = inner ? t : 1.f;
     // where the derivative goes: out plane j, or the inner stage's scratch plane j
     float* dst = inner ? sc + j * plane : (role == 1 ? o : o + j * plane);
-    // the y pass adds onto the x pass's plane with a result-less atomicAdd:
-    // one add per pixel, so the sum is that of a load, add and store
+    // a later launch adds onto the first one's plane with a result-less
+    // atomicAdd: one add per pixel, so the sum is that of a load, add and store
     fact_tile<B, AXIS, TIER>(
-        Gt, smem, m0, o0, 0, Nx,
+        Gt, smem, m0, o0, g, Nx,
         [&](int q) {
             const float x = src[q];
             return pre ? scale * pa[q] * x : x;
         },
         [&](int q, float v) {
             if (role == 0 && j == 0) {
-                o[(2 + AXIS) * plane + q] = bz[q] * v;     // b d_x a, b d_y a
+                float* bd = o + (2 + AXIS) * plane + q;    // b d_x a, b d_y a: this pass's plane
+                if (g == 0) *bd = bz[q] * v;
+                else atomicAdd(bd, bz[q] * v);
                 v *= pa[q];                                // p . grad a
             } else if (role == 2) {
                 v *= pa[q];                                // p . grad of a, b
@@ -133,15 +144,22 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
         });
 }
 
-template <int TIER>
-int allow_uni() {
-    int rc = allow_tile_smem(uni_kernel<4, AXIS_X, TIER>, 4, TIER);
-    if (rc == 0) rc = allow_tile_smem(uni_kernel<4, AXIS_Y, TIER>, 4, TIER);
-    if (rc == 0) rc = allow_tile_smem(uni_kernel<8, AXIS_X, TIER>, 8, TIER);
-    return rc != 0 ? rc : allow_tile_smem(uni_kernel<8, AXIS_Y, TIER>, 8, TIER);
+template <int B, int TIER>
+int allow_uni_radix() {
+    const int rc = allow_tile_smem(uni_kernel<B, AXIS_X, TIER>, B, TIER);
+    return rc != 0 ? rc : allow_tile_smem(uni_kernel<B, AXIS_Y, TIER>, B, TIER);
 }
 
-// One velocity at one tier: an x pass and a y pass a stage.
+template <int TIER>
+int allow_uni() {
+    int rc = allow_uni_radix<4, TIER>();
+    if (rc == 0) rc = allow_uni_radix<8, TIER>();
+    if (rc == 0) rc = allow_uni_radix<16, TIER>();
+    return rc != 0 ? rc : allow_uni_radix<32, TIER>();
+}
+
+// One velocity at one tier: an x pass and a y pass a stage, a launch a
+// channel group each.
 template <int TIER>
 int uni_velocity(int role, const float* a, const float* b, long long a_bs, long long a_cs,
                  long long b_bs, long long b_cs, const float* px, const float* py, float* out,
@@ -150,18 +168,14 @@ int uni_velocity(int role, const float* a, const float* b, long long a_bs, long 
                  cudaStream_t st) {
     for (int stage = 0; stage < (role == 1 ? 2 : 1); ++stage) {
         const int nz = nbatch * nper * (role == 1 && stage == 1 ? 1 : 2);
-        LF_WITH_ONE_GROUP_RADIX(
-            Bx, uni_kernel<B, AXIS_X, TIER><<<pass_grid<AXIS_X>(Ny, Nx, nz), tile_threads(B),
-                                                tile_smem_bytes(B, TIER), st>>>(
-                     role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper, px, py, out, scratch, FX, bfx,
-                     Ny, Nx, t))
+        LF_WITH_RADIX(Bx, LF_TILE_LAUNCH(uni_kernel, AXIS_X, nz, role, stage, a, b, a_bs, a_cs,
+                                         b_bs, b_cs, nper, px, py, out, scratch, FX, bfx, Ny, Nx,
+                                         t))
         int rc = (int)cudaGetLastError();
         if (rc != 0) return rc;
-        LF_WITH_ONE_GROUP_RADIX(
-            By, uni_kernel<B, AXIS_Y, TIER><<<pass_grid<AXIS_Y>(Ny, Nx, nz), tile_threads(B),
-                                                tile_smem_bytes(B, TIER), st>>>(
-                     role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper, px, py, out, scratch, FYT, bfy,
-                     Ny, Nx, t))
+        LF_WITH_RADIX(By, LF_TILE_LAUNCH(uni_kernel, AXIS_Y, nz, role, stage, a, b, a_bs, a_cs,
+                                         b_bs, b_cs, nper, px, py, out, scratch, FYT, bfy, Ny, Nx,
+                                         t))
         rc = (int)cudaGetLastError();
         if (rc != 0) return rc;
     }
@@ -184,7 +198,8 @@ extern "C" int lf_uni_init() {
 // null otherwise). `tier` picks FP32 (0), 'high' (1) or 'bf16' (2); FX and
 // FYT are the packed blocks, both transposed (fact_tile.cuh): FP32, at
 // 'high' their bf16 split (2, B, A, A), at 'bf16' their heads. Two
-// launches, four for role 1.
+// launches a channel group (one group up to B = 8, B / 8 from 16), four
+// for role 1.
 extern "C" int lf_uni_velocity(int tier, int role, const float* a, const float* b,
                                long long a_bs, long long a_cs, long long b_bs, long long b_cs,
                                const float* px, const float* py, float* out, float* scratch,

@@ -220,11 +220,14 @@ def _mixed_gaussian_z(dstheta, theta, f_mix, phi_mix):
 # What one grid line-search trial holds on the card at its peak, in map
 # planes of phi's size (a pol-P trial: unmix's L^-1 flow and the L flow
 # with their RK4 buffers and p(t) planes, grad/Hess phi, the residual
-# fields z_i and their covariance solves): 18.1 measured on an NVIDIA H100
-# 80GB HBM3 at 2048^2 P (chip_smoke.py phase 13 prints it: the peak
-# memory of a line search of 17 trials over that of chunks of 5, per
-# trial), rounded up. The JAX package's v5e estimate was 100.
-LINESEARCH_PLANES_PER_TRIAL = 20
+# fields z_i and their covariance solves), measured on an NVIDIA H100
+# 80GB HBM3 at 2048^2 P as the peak memory of a line search of 17 trials
+# over that of chunks of 5, per trial: 18.1 on the "kernel" backend
+# (chip_smoke.py phase 13 prints it) and 26.1 on "uni", whose velocities
+# go through a (trials, 1, 4, N, N) K5 output and a copy (phase 16); the
+# larger, rounded up, for every backend. The JAX package's v5e estimate
+# was 100.
+LINESEARCH_PLANES_PER_TRIAL = 28
 
 
 def linesearch_budget(device):

@@ -23,11 +23,10 @@ Four integration backends, chosen with `set_lenseflow_backend` or
              role-switched kernel (K5), the backward flow integrates
              delta phi in its state; the JAX package's CMBL_FORCE_UNI=1
              CMBL_NO_FA=1. K5 takes the operands `deriv_ops` gives, at
-             every tier: factored at 512^2 and 1024^2 (radix 4, 8), dense
-             at every other size up to 1024^2 (256^2, 200^2, 768^2); at
-             2048^2 and 4096^2 (radix 16, 32) it raises
-             NotImplementedError (ROADMAP Queue 2). On the CPU its plain
-             version takes either form.
+             every tier: factored at 512^2 to 4096^2 (radix 4 to 32, in
+             channel groups from 16), dense at every other size (256^2,
+             200^2, 768^2). On the CPU its plain version takes either
+             form.
   'matmul' — the 'kernel' flows on their plain matmul leaves on any
              device (`flow_apply_plain`, `flow_bwd_plain`): on the card,
              the reference the kernels are held to at either precision.

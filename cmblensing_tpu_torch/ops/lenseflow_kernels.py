@@ -19,10 +19,10 @@ given (``ops/deriv.py::deriv_ops``), and a third granularity that the
   uni       the per-velocity "uni" granularity of ``_uni_call``: every
             velocity of every flow as calls of the universal role-switched
             kernel ``_bwdAB_kernel`` (K5: csrc/uni.cu on factored operands
-            at radix 4 and 8, csrc/uni_dense.cu on dense ones at any plane
-            shape), with M^-1(t) and u = M^-1 w as torch elementwise glue,
-            and the backward flow carrying delta phi in its state, not
-            hoisted. Batch x entry rides on K5's grid in either form.
+            at every built radix, csrc/uni_dense.cu on dense ones at any
+            plane shape), with M^-1(t) and u = M^-1 w as torch elementwise
+            glue, and the backward flow carrying delta phi in its state,
+            not hoisted. Batch x entry rides on K5's grid in either form.
 
 Three flows, as there:
 
@@ -63,8 +63,8 @@ lf_fa_velocity and lf_bv_velocity, csrc/factored.cu, and of
 lf_uni_velocity and lf_uni_dense_velocity, K5) and, for a CPU tensor,
 the plain leaves at that precision, dense or factored; at 'bf16' phi's
 planes are formed strict (PLANES_PRECISION). The uni granularity runs
-every tier; its one refusal is K5 at radix 16 and 32, which raises
-NotImplementedError (ROADMAP Queue 2, K5).
+every tier, dense and at every built radix (16 and 32 in channel groups,
+as K1, K3 and K4).
 
 The dense kernels take any plane shape (their edge tiles are guarded);
 the factored ones a radix they are built for (ops/deriv.py::deriv_ops).
@@ -98,8 +98,9 @@ LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0
             "fderiv_bf16": 0, "fa_velocity_forward_bf16": 0, "fa_velocity_adjoint_bf16": 0,
             "bv_velocity_bf16": 0, "velocity_forward_bf16": 0, "velocity_adjoint_bf16": 0,
             "velocity_backward_bf16": 0, "deriv_bf16": 0}
-# K5 at every tier, factored (uni_role*: two launches a call, four for
-# role 1) and dense (uni_dense_role*: one launch a call, two for role 1)
+# K5 at every tier, factored (uni_role*: two launches a call and channel
+# group, four for role 1) and dense (uni_dense_role*: one launch a call,
+# two for role 1)
 LAUNCHES.update({f"uni{form}_role{r}{sfx}": 0 for form in ("", "_dense") for r in range(4)
                  for sfx in ("", "_high", "_bf16")})
 # the tiers the flows are ported at, in the order of the C entries' `tier`
@@ -527,9 +528,10 @@ def uni_velocity_launcher(role, a, b, px, py, out, mats, precision="f32"):
     csrc/uni.cu) over the (nb, nper) entries of a and b, (nb, nper, Ny, Nx)
     views with contiguous planes; px, py (nb, 1, Ny, Nx) and out (nb, nper,
     4, Ny, Nx) contiguous; at `precision` ('f32', 'high' or 'bf16').
-    Factored operands (csrc/uni.cu, radix 4 and 8): two launches (x pass,
-    y pass), four for role 1; dense ones (csrc/uni_dense.cu, any plane
-    shape): one launch, two for role 1. Checks, pointers and role 1's
+    Factored operands (csrc/uni.cu, every built radix): an x pass and a y
+    pass a stage, a launch a channel group each (radix_groups), two stages
+    for role 1; dense ones (csrc/uni_dense.cu, any plane shape): one
+    launch, two for role 1. Checks, pointers and role 1's
     scratch are made here once; a flow makes one launcher per K5 call of
     its velocity."""
     from . import _build
@@ -543,9 +545,6 @@ def uni_velocity_launcher(role, a, b, px, py, out, mats, precision="f32"):
         raise ValueError(f"{name}: role {role}")
     if factored:
         Bx, By = _check_factored(name, mats, Ny, Nx)
-        if _deriv.radix_groups(Bx) > 1 or _deriv.radix_groups(By) > 1:
-            raise NotImplementedError(f"{name}: radix ({Bx}, {By}): the uni kernel is built for "
-                                      "radix 4 and 8 only; 16 and 32 are ROADMAP Queue 2, K5")
     strides = [*_plane_strides(name, a, Ny, Nx), *_plane_strides(name, b, Ny, Nx)]
     nb, nper = out.shape[0], out.shape[1]
     if (a.shape[:2] != (nb, nper) or b.shape[:2] != (nb, nper) or out.shape[2] != 4
@@ -564,8 +563,9 @@ def uni_velocity_launcher(role, a, b, px, py, out, mats, precision="f32"):
     head = (tier, role, _ptr(a), _ptr(b), *strides, _ptr(px), _ptr(py), _ptr(out), _ptr(scratch),
             *mptrs)
     if factored:
-        return _launcher(lib.lf_uni_velocity, name, f"uni_role{role}{_SUFFIX[tier]}",
-                         4 if role == 1 else 2, (*head, Bx, By, nb, nper, Ny, Nx))
+        nlaunch = (2 if role == 1 else 1) * (_deriv.radix_groups(Bx) + _deriv.radix_groups(By))
+        return _launcher(lib.lf_uni_velocity, name, f"uni_role{role}{_SUFFIX[tier]}", nlaunch,
+                         (*head, Bx, By, nb, nper, Ny, Nx))
     return _launcher(lib.lf_uni_dense_velocity, name, f"uni_dense_role{role}{_SUFFIX[tier]}",
                      2 if role == 1 else 1, (*head, nb, nper, Ny, Nx))
 

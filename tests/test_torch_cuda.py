@@ -32,8 +32,8 @@ A whole flow adds its RK4 sums' FP32 reassociation to both distances,
 so it is held only to lie nearer its plain 'high' version than the
 strict flow (FLOW_SPLIT_RATIO; strict kernels would give infinity).
 
-K5 (csrc/uni.cu, factored at radix 4 and 8; csrc/uni_dense.cu, dense at
-any plane shape) is held at every tier to the same bounds as the other
+K5 (csrc/uni.cu, factored at radix 4 to 32, in channel groups from 16;
+csrc/uni_dense.cu, dense at any plane shape) is held at every tier to the same bounds as the other
 kernels at that tier, but for role 1, whose outer products round the
 inner stage's sums (formed in another order by its plain version): at
 'bf16' BF16_TOL in either form, and at both reduced tiers the Frobenius
@@ -537,17 +537,35 @@ def test_factored_outputs_ignore_what_the_buffer_held_on_card(N):
 
 
 @pytest.mark.cuda
-def test_uni_wrapper_refuses_radix_16_and_32():
-    """K5 is built for radix 4 and 8 only: at 2048^2 its wrapper raises
-    before any launch, naming ROADMAP Queue 2."""
+@pytest.mark.parametrize("precision", ["f32", "high", "bf16"])
+@pytest.mark.parametrize("N", [2048, 4096])
+def test_uni_kernel_roles_at_radix_16_and_32_match_plain_on_card(N, precision):
+    """K5 at radix 16 and 32, where the channel groups run as launches of
+    their own, in order (the first stores, later ones add): every role on
+    strided batch-2 operands against its plain version at the tier
+    (_check_uni_roles: the tier's bound, and at a reduced tier the strict
+    kernel and the Frobenius ratio; the zero planes exact; two launches
+    the same bits; nothing written past the last plane), into buffers of
+    NaN, 1e30 and zeros the same finite bits; a launch a channel group and
+    pass on the tier's counter, two stages for role 1."""
     _card()
-    N = 2048
     ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
-    x = torch.zeros((1, 1, N, N), device="cuda")
+    assert isinstance(ops, tfd.FactoredOps) and ops.FX.shape[0] == N // 128
+    px, py, roles = _uni_role_inputs(N, ops)
     lfk.reset_launches()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        lfk.uni_velocity_cuda(2, x, x, x, x, torch.empty((1, 1, 4, N, N), device="cuda"), ops, 0.5)
-    assert all(v == 0 for v in lfk.LAUNCHES.values())
+    _check_uni_roles(ops, px, py, roles, precision, UNI_TOL[precision], f"{N}^2", sentinel=True)
+    sfx = "" if precision == "f32" else "_" + precision
+    n = (3 if precision == "f32" else 2) * 2 * tderiv.radix_groups(N // 128)   # calls x passes x groups
+    assert [lfk.LAUNCHES[f"uni_role{r}{sfx}"] for r in range(4)] == [n, 2 * n, n, n], lfk.LAUNCHES
+    for role, a, b in roles:
+        first = None
+        for fill in (float("nan"), 1e30, 0.0):
+            o = torch.full((2, a.shape[1], 4, N, N), fill, device="cuda")
+            lfk.uni_velocity_cuda(role, a, b, px, py, o, ops, 0.6, precision)
+            assert torch.isfinite(o).all(), (role, fill)
+            first = o if first is None else first
+            assert torch.equal(o, first), (role, fill)
+        del first, o
 
 
 @pytest.mark.cuda

@@ -306,8 +306,9 @@ def test_uni_kernel_wrapper_refuses_what_it_has_no_kernel_for():
     one CUDA device: on a CPU tensor it refuses either form, where the
     dense form's refusal used to name the ROADMAP item; the uni flows on
     dense operands run on the CPU at each tier (K5's plain version), and
-    refuse a device with no kernel. Its one refusal on the card, radix 16
-    and 32, is tests/test_torch_cuda.py::test_uni_wrapper_refuses_radix_16_and_32."""
+    refuse a device with no kernel. On the card it takes every built
+    radix, 16 and 32 in channel groups
+    (tests/test_torch_cuda.py::test_uni_kernel_roles_at_radix_16_and_32_match_plain_on_card)."""
     x = torch.zeros((1, 1, 16, 16))
     out = torch.empty((1, 1, 4, 16, 16))
     tp = ct.ProjLambert(16, 16, thetapix=3, device="cpu")
