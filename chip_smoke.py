@@ -95,11 +95,27 @@ port's two paths through the kernel backend:
               strict beside "kernel", at "auto" and 'bf16', the line
               search's memory per trial, and at 4096^2 P "auto" as phase
               13 (d); no K3/K4 launch on "uni".
+  phase 17    the redesigned kernels: (a) K1 at 'high' and 'bf16'
+              (csrc/fderiv_sm90.cu: one launch a pass, the channel groups
+              the CTAs of one cluster) at 512^2, 1024^2, 2048^2 and 4096^2,
+              d_x, d_y and d_x + d_y + c at batch 1 and on 5 planes, against
+              plain at the tier and the strict kernel, the same bits into
+              buffers of NaN, 1e30 and 0, nothing past a plane, timed cold
+              beside the strict kernel and the library call, and one launch
+              a pass counted on the backward flow's delta phi; (b) K2's
+              'bf16' derivative on the masked IP slice's I, Q, U planes and
+              at 200^2, 160 x 200, 600^2, held at 1e-5 of plain 'bf16',
+              timed cold beside the library call, its launches counted on
+              the slice's backward flow. Its numbers are the kernels' one
+              record a size: at the sizes an earlier phase records (K1
+              'high' in phases 9 and 13, K1 and K2 'bf16' in phase 14) the
+              record keeps that phase's name and path launches.
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
     python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
     python3 chip_smoke.py --phase 15    (phase 1, the build, and phase 15 alone)
     python3 chip_smoke.py --phase 16    (phase 1, the build, and phase 16 alone)
+    python3 chip_smoke.py --phase 17    (phase 1, the build, and phase 17 alone)
 
 Phases 7 and 8 measure the strict north star (precision=None); phases
 2-6 and 10 run at the global precision 'f32', and every tier in 10.
@@ -255,8 +271,9 @@ WF_SIM = dict(thetapix=3, Nside=256, pol="IP", T=np.float32, muKarcminT=1, beamF
 # (1e-5 per flow) by its iteration count at most
 WF_PLAIN_TOL = 1e-4
 FA = 128               # the factored derivative's block size (ops/deriv.py::FACTOR_A)
-# where K1, K3 and K4 are written, every tier (factored.cu, factored_high.cu
-# and factored_bf16.cu instantiate them)
+# where K1 (strict), K3 and K4 are written, every tier (factored.cu,
+# factored_high.cu and factored_bf16.cu instantiate them); K1 at 'high' and
+# 'bf16' is FDERIV_SM90_SRC
 FACTORED_SRC = "cmblensing_tpu_torch/csrc/factored_kernels.cuh"
 # phase 13, the large maps: MAP_joint as scripts/map_4096.py runs it
 # (load_sim(thetapix=2, Nside=N, pol="P", T=float32, seed=0), grid line
@@ -273,6 +290,15 @@ STEP_TOL = 1e-6
 # the plain backend: both float32 forms lie 1.7e-5 to 1.9e-5 from float64
 # there (tests/test_torch_large_maps.py)
 FLOW640_TOL = 5e-5
+# phase 17: K1 at 'high' and 'bf16' redesigned (one launch a pass, its
+# channel groups the CTAs of a cluster) at every built radix, at batch 1 and
+# on NPLANES_SM90 planes, held to each tier's bounds above; and K2's 'bf16'
+# derivative redesigned, on the masked IP slice's planes and at the edge
+# shapes, held to BF16_DENSE_TOL
+FDERIV_SM90_SRC = "cmblensing_tpu_torch/csrc/fderiv_sm90.cu"
+N_SM90 = (512, 1024, 2048, 4096)
+NPLANES_SM90 = 5
+K1_SM90_TOL = {"high": HIGH_TOL, "bf16": BF16_TOL}
 
 
 def rel(a, b):
@@ -3219,6 +3245,213 @@ def phase_uni_large(torch, card, beside=None):
     return records, launches, timing_out
 
 
+def sm90_k1(torch, card, N):
+    """Phase 17 (a) at N^2: K1 at 'high' and 'bf16' (csrc/fderiv_sm90.cu) on
+    d_x a, d_y b and d_x a + d_y b + c at batch 1 and NPLANES_SM90, against
+    its plain version at the tier and the strict kernel (high_against; every
+    plane: K1_SM90_TOL, at 'high' HIGH_VS_STRICT, the Frobenius ratio under
+    HIGH_SPLIT_RATIO); into buffers of NaN, 1e30 and zeros the same bits,
+    nothing written past the last plane; d_x and d_y timed cold beside the
+    strict kernel and, for d_x, the library call of the tier; then the path:
+    the backward flow (nsteps 1) at the tier, whose hoisted delta phi runs
+    K1 on five passes, the launch counters set to 0 just before and read
+    just after, delta phi within K1_SM90_TOL of plain flow_bwd at the tier
+    (phi a weak-lensing potential: the flow needs I + t Hess phi
+    invertible over t in [0, 1]). Returns ({tier: record}, {tier: launches}, failures)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    B = N // FA
+    proj = ct.ProjLambert(N, N, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE)
+    ops = deriv.deriv_ops(proj)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    a, b, c = (torch.randn((NPLANES_SM90, 1, N, N), generator=g, device=DEVICE)
+               for _ in range(3))
+    reps = 10 if N <= 1024 else 5
+    DxT, _ = deriv.deriv_mats(proj)
+    records, launches, bad = {}, {}, {}
+    for tier in ("high", "bf16"):
+        found = {}
+        for nb in (1, NPLANES_SM90):
+            x, y, z = a[:nb], b[:nb], c[:nb]
+            for label, args, nder, planes, axes in (("x", (x, None, None), 1, 2, 1),
+                                                    ("y", (None, y, None), 1, 2, 1),
+                                                    ("xyc", (x, y, z), 2, 4, 2)):
+                key = f"{label}[{nb}]"
+                run = lambda o, p, args=args: lfk.fderiv_cuda(*args, o, ops, p)
+                d = found[key] = high_against(
+                    torch, run, lambda o, args=args: lfk.fderiv_plain(*args, o, ops, tier),
+                    x.shape, tier)
+                first, clean, same = None, True, True
+                for fill in (float("nan"), 1e30, 0.0):
+                    buf = torch.full((nb + 1, 1, N, N), fill, device=DEVICE)
+                    run(buf[:nb], tier)
+                    past = buf[nb]
+                    clean &= bool((torch.isnan(past) if fill != fill else past == fill).all())
+                    if first is None:
+                        first = buf[:nb].clone()
+                    else:
+                        same &= bool(torch.equal(first, buf[:nb]))
+                    del buf
+                d.update(clean=clean, same=same, nb=nb, **bound_high(N, nder, planes, nb, axes,
+                                                                     tier=tier))
+                if label != "xyc" and (nb == 1 or label == "x"):
+                    o = torch.empty_like(x)
+                    d["ms"] = cold_ms(lambda o_, *q: lfk.fderiv_cuda(*q, o_, ops, tier),
+                                      (o, *args), reps, torch)
+                    d["strict_ms"] = cold_ms(lambda o_, *q: lfk.fderiv_cuda(*q, o_, ops, "f32"),
+                                             (o, *args), reps, torch)
+                    d["plain_ms"] = cuda_ms(lambda: lfk.fderiv_plain(*args, o, ops, tier), 1, torch)
+                    del o
+        lib = (library_bf16_ms(a[0, 0], DxT, torch, reps=max(3, reps // 2))[0] if tier == "bf16"
+               else split_matmuls_ms(a[0, 0], DxT, True, torch, reps=max(3, reps // 2)))
+        for key, d in found.items():
+            if not (d["rel"] < K1_SM90_TOL[tier] and d["split_ratio"] < HIGH_SPLIT_RATIO
+                    and (tier == "bf16" or d["rel_strict"] < HIGH_VS_STRICT)):
+                bad[f"{tier} {N}^2 {key}"] = (d["rel"], d["rel_strict"], d["split_ratio"])
+            if not (d["clean"] and d["same"]):
+                bad[f"{tier} {N}^2 {key} same bits / nothing past a plane"] = (d["same"], d["clean"])
+            timed = (f"  {d['ms']:.4f} ms cold (strict {d['strict_ms']:.4f}, plain "
+                     f"{d['plain_ms']:.4f}), bound {d['bound_ms']:.4f} ms ({d['bound_by']}, "
+                     f"{100 * d['bound_ms'] / d['ms']:.1f} %)" if "ms" in d else "")
+            print(f"phase 17: K1 {tier:4s} radix {B:2d} {key:9s} vs plain {d['rel']:.3e} (bound "
+                  f"{K1_SM90_TOL[tier]:g}) vs strict {d['rel_strict']:.3e}, Frobenius ratio "
+                  f"{d['split_ratio']:.4f}; same bits in NaN / 1e30 / 0 {d['same']}, past the "
+                  f"last plane {'untouched' if d['clean'] else 'WRITTEN'}{timed}"
+                  + (f"  library {lib:.4f} ms" if key == "x[1]" else "") + f" [{N}^2; {card}]")
+        many = [found[f"{k}[{NPLANES_SM90}]"] for k in ("x", "y", "xyc")]
+        records[tier] = dict(found["x[1]"], library_ms=lib, d_y_ms=found["y[1]"]["ms"],
+                             batched=dict(nb=NPLANES_SM90, ms=many[0]["ms"],
+                                          rel=max(m["rel"] for m in many)))
+        # the path: the backward flow's hoisted delta phi, five K1 passes
+        # phi = A cos(k (x + y)) with |Hess phi| = A k^2 = 0.1 (weak lensing)
+        xs = torch.arange(N, device=DEVICE, dtype=torch.float32) * (2 * np.pi / N)
+        k = 2 * np.pi / (N * float(proj.deltax))
+        phi_map = (0.1 / k ** 2 * torch.cos(xs[:, None] + xs[None, :]))[None]
+        phi = lfk.gradhess(phi_map.contiguous(), ops, "f32")
+        f1, dy = b[:2, 0].contiguous(), c[:2, 0].contiguous()
+        lfk.reset_launches()
+        dphi, _ = lfk.flow_bwd(dy, f1, phi, ops, 0., 1., 1, tier)
+        torch.cuda.synchronize()
+        launches[tier] = dict(lfk.LAUNCHES)
+        n = launches[tier]["fderiv_" + tier]
+        e = rel(dphi, lfk.flow_bwd_plain(dy, f1, phi, ops, 0., 1., 1, tier)[0])
+        print(f"phase 17: launches in the backward flow at {N}^2, {tier!r} (nsteps 1): K1 {n} "
+              f"(five passes), K4 {launches[tier]['bv_velocity_' + tier]}; delta phi vs plain "
+              f"{tier!r} {e:.3e} (bound {K1_SM90_TOL[tier]:g})")
+        if n != 5 or not e < K1_SM90_TOL[tier]:
+            bad[f"{tier} {N}^2 path"] = (n, e)
+        del phi, f1, dy, dphi
+    del DxT, a, b, c
+    proj._tensors.clear()
+    torch.cuda.empty_cache()
+    return records, launches, bad
+
+
+def sm90_k2(torch, card):
+    """Phase 17 (b): K2's 'bf16' derivative on the masked IP slice's I, Q, U
+    planes (d_x f, d_y d, d_x f + d_y d + f) and at 200^2, 160 x 200 and
+    600^2 (random planes), each within BF16_DENSE_TOL of plain 'bf16' on
+    every plane, the same bits twice (into NaN and into zeros), nothing
+    written past the last plane; d_x timed cold, on the slice beside the
+    library call; then the path: the slice's backward flow at 'bf16'
+    (nsteps 7), whose hoisted delta phi runs K2's derivative three times,
+    the launch counters set to 0 just before and read just after. Returns
+    (record, launches, failures)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    sim = ct.load_sim(**WF_SIM, device=DEVICE)
+    mats = deriv.deriv_mats(sim["phi"].proj)
+    f = sim["f"].to(ct.IQU_MAP).arr.contiguous()
+    d = sim["ds"].d.to(ct.IQU_MAP).arr.contiguous()
+    phi = lfk.gradhess(sim["phi"].to(ct.MAP).arr.contiguous(), mats, "f32")
+    rng = np.random.default_rng(SEED + 17)
+    cases = [("IP slice", mats, (f, None, None)), ("IP slice", mats, (None, d, None)),
+             ("IP slice", mats, (f, d, f))]
+    for Ny, Nx in EDGE_SHAPES:
+        em = deriv.deriv_mats(ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device=DEVICE))
+        x, y, z = (torch.as_tensor(rng.standard_normal((2, Ny, Nx)).astype(np.float32),
+                                   device=DEVICE) for _ in range(3))
+        cases += [(f"{Ny}x{Nx}", em, (x, None, None)), (f"{Ny}x{Nx}", em, (x, y, z))]
+    found, bad, rec = {}, {}, None
+    for where, m, args in cases:
+        like = next(t for t in args if t is not None)
+        n = like.shape[0]
+        ref = torch.empty_like(like)
+        lfk.deriv_plain(*args, ref, m, "bf16")
+        outs = []
+        for fill in (float("nan"), 0.0):
+            buf = torch.full((n + 1,) + tuple(like.shape[1:]), fill, device=DEVICE)
+            lfk.deriv_cuda(*args, buf[:n], m, "bf16")
+            clean = bool((torch.isnan(buf[n]) if fill != fill else buf[n] == 0).all())
+            outs.append((buf[:n], clean))
+        key = f"{where} {'x' if args[1] is None else 'y' if args[0] is None else 'xyc'}"
+        e = max(rel(p, q) for p, q in zip(outs[0][0], ref))
+        dd = found[key] = dict(rel=e, max_abs_err=float((outs[0][0] - ref).abs().max()),
+                               same=bool(torch.equal(outs[0][0], outs[1][0])),
+                               clean=outs[0][1] and outs[1][1])
+        if args[1] is None:   # d_x: timed cold
+            o = torch.empty_like(like)
+            dd["ms"] = cold_ms(lambda o_, x_: lfk.deriv_cuda(x_, None, None, o_, m, "bf16"),
+                               (o, args[0]), 20, torch)
+            if where == "IP slice":
+                dd["plain_ms"] = cuda_ms(lambda: lfk.deriv_plain(f, None, None, o, m, "bf16"), 5,
+                                         torch)
+                dd["library_ms"], dd["library_call"] = library_bf16_ms(f.reshape(-1, N), m[0],
+                                                                       torch)
+                dd.update(bound_dense_high(N, f.shape[0], 2 * f.shape[0] + 0.5, tier="bf16"))
+                rec = dd
+        if not (e < BF16_DENSE_TOL and dd["same"] and dd["clean"]):
+            bad[key] = (e, dd["same"], dd["clean"])
+        print(f"phase 17: K2 'bf16' deriv {key:16s} vs plain 'bf16' {e:.3e} (bound "
+              f"{BF16_DENSE_TOL:g}, each plane); the same bits twice {dd['same']}, past the last "
+              f"plane {'untouched' if dd['clean'] else 'WRITTEN'}"
+              + (f"; {dd['ms']:.4f} ms cold" if "ms" in dd else "")
+              + (f", plain {dd['plain_ms']:.4f} ms, library {dd['library_ms']:.4f} ms "
+                 f"({dd['library_call']}), bound {dd['bound_ms']:.4f} ms ({dd['bound_by']}, "
+                 f"{100 * dd['bound_ms'] / dd['ms']:.1f} %)" if dd is rec else "")
+              + f" [{card}]")
+    lfk.reset_launches()
+    dphi, _ = lfk.flow_bwd(d, f, phi, mats, 0., 1., NSTEPS, "bf16")
+    torch.cuda.synchronize()
+    launches = dict(lfk.LAUNCHES)
+    print(f"phase 17: launches in the masked IP slice's backward flow at 'bf16' (nsteps "
+          f"{NSTEPS}): K2 deriv {launches['deriv_bf16']}, velocity "
+          f"{launches['velocity_backward_bf16']}; delta phi finite {bool(torch.isfinite(dphi).all())}")
+    if launches["deriv_bf16"] != 3 or not torch.isfinite(dphi).all():
+        bad["path"] = (launches["deriv_bf16"], bool(torch.isfinite(dphi).all()))
+    return rec, launches, bad
+
+
+def phase_sm90(torch, card):
+    """Phase 17: the redesigned K1 ('high', 'bf16') at every built radix and
+    K2's redesigned 'bf16' derivative (see the module docstring). Returns
+    (kernel records {name: record}, launches {name: (path, count)})."""
+    from cmblensing_tpu_torch.ops import _build
+    t_start = time.perf_counter()
+    lib = _build.load()
+    print("phase 17: K1 clusters that fit on the card at once (cudaOccupancyMaxActiveClusters; "
+          "radix 4, 8, 16, 32): " + "; ".join(
+              f"{t} {[lib.lf_fderiv_sm90_clusters(i, B) for B in (4, 8, 16, 32)]}"
+              for i, t in ((1, "'high'"), (2, "'bf16'"))) + f" [{card}]")
+    records, launches, bad = {}, {}, {}
+    for N in N_SM90:
+        found, paths, why = sm90_k1(torch, card, N)
+        bad.update(why)
+        for tier, d in found.items():   # the earlier phases' names: fderiv_high at 1024^2
+            name = f"fderiv_{tier}" + ("" if N == N_MAP else f"_b{N // FA}")
+            records[name] = d
+            launches[name] = (f"flow_bwd {N}^2 {tier}, nsteps 1", paths[tier]["fderiv_" + tier])
+    rec, paths, why = sm90_k2(torch, card)
+    bad.update(why)
+    records["deriv_bf16"] = rec
+    launches["deriv_bf16"] = (f"flow_bwd masked 256^2 IP bf16, nsteps {NSTEPS}",
+                                   paths["deriv_bf16"])
+    if bad:
+        raise AssertionError(f"phase 17: the redesigned kernels fail their checks: {bad}")
+    print(f"phase 17: wall time {time.perf_counter() - t_start:.1f} s [{card}]")
+    return records, launches
+
+
 def print_ptxas(log):
     """Phase 1: the build log's register lines and errors, and for K5's
     factored instantiations (uni.cu) each one's radix, axis and tier with
@@ -3271,6 +3504,9 @@ def main():
     if sys.argv[1:] == ["--phase", "16"]:
         phase_uni_large(torch, card)
         return 0
+    if sys.argv[1:] == ["--phase", "17"]:
+        phase_sm90(torch, card)
+        return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
@@ -3294,6 +3530,7 @@ def main():
     del fctx, gctx, beside
     torch.cuda.empty_cache()
     uni_large, uni_large_launches, uni_large_timing = phase_uni_large(torch, card, large_timing)
+    sm90, sm90_launches = phase_sm90(torch, card)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -3309,8 +3546,10 @@ def main():
     replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:218" for k in BF16_KERNELS})
     replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:92" for k in DENSE_BF16_KERNELS})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # K1's 'high' and 'bf16' tiers run csrc/fderiv_sm90.cu
     entry = lambda name, d, src, n: {
-        "name": name, "route": "cuda", "source": src,
+        "name": name, "route": "cuda",
+        "source": FDERIV_SM90_SRC if name in ("fderiv_high", "fderiv_bf16") else src,
         "replaces": replaces.get(name, "cmblensing_tpu/ops/pallas_lenseflow.py:472"),
         "launches": n, **{k: d[k] for k in keys},
         **({"batched": d["batched"]} if "batched" in d else {})}
@@ -3387,6 +3626,22 @@ def main():
     for name, d in uni_large.items():
         path, n = uni_large_launches[name]
         rec = entry(name.rsplit("_", 1)[0], d, "cmblensing_tpu_torch/csrc/uni.cu", n)
+        rec.update(name=name, path=path)
+        record["kernels"].append(rec)
+    # the redesigned K1 ('high', 'bf16') at every radix and K2's 'bf16'
+    # derivative (phase 17): one record a kernel and size. Where an earlier
+    # phase records the kernel at that size (K1 'high' at 1024^2 in phase 9,
+    # 2048^2 and 4096^2 in phase 13; 'bf16' K1 and K2 in phase 14), the
+    # record keeps the launches of that phase's path and takes phase 17's
+    # numbers; radix 4 (512^2) comes from phase 17 alone
+    for rec in record["kernels"]:
+        d = sm90.pop(rec["name"], None)
+        if d is not None:
+            rec.pop("batched", None)
+            rec.update({k: d[k] for k in keys + ("batched",) if k in d})
+    for name, d in sm90.items():
+        path, n = sm90_launches[name]
+        rec = entry(name.rsplit("_b", 1)[0], d, FDERIV_SM90_SRC, n)
         rec.update(name=name, path=path)
         record["kernels"].append(rec)
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),

@@ -4,7 +4,10 @@
 // parameter), and the tile's loads, stores and launch helpers: shared by
 // the dense LenseFlow kernels K2 (lenseflow.cu, whose header says what
 // bounds the product and how the tile is laid out) and the dense form of
-// the universal kernel K5 (uni_dense.cu).
+// the universal kernel K5 (uni_dense.cu). lf_deriv's 'bf16' tier no longer
+// runs it (lenseflow.cu::deriv_bf16_kernel: the whole contraction of a
+// tile in one block, no split and no shared-memory reduction); its
+// velocity kernels, K5 and the strict and 'high' derivatives do.
 #pragma once
 
 #include <cuda_bf16.h>

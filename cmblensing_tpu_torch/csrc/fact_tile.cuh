@@ -1,5 +1,9 @@
 // The radix-B factored derivative as a tiled device function, shared by
-// the factored LenseFlow kernels (factored.cu: K1, K3, K4; uni.cu: K5).
+// the factored LenseFlow kernels (factored.cu: K1 strict, K3, K4; uni.cu:
+// K5). K1's 'high' and 'bf16' tiers no longer run it: they are
+// fderiv_sm90.cu, one launch a pass, its channel groups the CTAs of a
+// cluster; what this header says of K1 at those tiers describes the form
+// they ran before.
 //
 // The factored derivative along an axis of length N = B * A (A = FA = 128):
 // a real butterfly over the B row (or column) blocks r of the operand,
@@ -109,9 +113,9 @@
 // axis' split blocks, 2.7 us) and the FP32 work around them. The products
 // no longer dominate a tile, so its other phases (forming and splitting
 // the next slab, the loads, the store), which follow one another within a
-// block, set its time: 0.0246 ms a 1024^2 d_x read from HBM on an NVIDIA
-// H100 80GB HBM3 at 700 W, 11 % of that bound and 74 % of the FP32 form's
-// time (chip_smoke.py phase 9).
+// block, set its time: K1's 1024^2 d_x on this tile took 0.0246 ms read
+// from HBM on an NVIDIA H100 80GB HBM3 at 700 W, 11 % of that bound and
+// 74 % of the FP32 form's time (chip_smoke.py phase 9).
 //
 // The 'bf16' tier (TIER_BF16; `_mk_dot('bf16')`, pallas_lenseflow.py:218)
 // is the 'high' tile without the residuals: each butterflied channel value

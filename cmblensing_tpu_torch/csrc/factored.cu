@@ -4,7 +4,8 @@
 //
 // Replaces, from cmblensing_tpu/ops/pallas_lenseflow.py:
 //   K1  the factored in-kernel derivative `_fact_apply` / `_make_ddx_ddy_fact`
-//       -> the device function fact_tile, and lf_fderiv (out = d_x a + d_y b + c)
+//       -> the device function fact_tile, and lf_fderiv (out = d_x a + d_y b + c;
+//       its 'high' and 'bf16' tiers run fderiv_sm90.cu, one launch a pass)
 //   K3  `_fa_kernel` (launched by `_fa_call`): a forward or adjoint velocity,
 //       the role a runtime argument                -> lf_fa_velocity
 //   K4  `_bv_kernel` (`_bv_call`, driven by `_bv_flow`): one backward
@@ -37,10 +38,9 @@
 // 16 x 64 tile, which is why that y pass ran 19 % slower) and latency.
 // p(t) comes as two ready planes per batch entry (lf_p_planes,
 // lenseflow.cu), computed once per distinct time of a flow, so no functor
-// here rebuilds it. A 1024^2 plane is 64 tiles per pass: a batch-1 K1
-// launch fills half the card's 132 SMs, a two-component K3 launch all of
-// them once. wgmma with TMA for the 'high' products and a persistent
-// whole-flow kernel are later work.
+// here rebuilds it. A 1024^2 plane is 64 tiles per pass: a batch-1 strict
+// K1 launch fills half the card's 132 SMs, a two-component K3 launch all of
+// them once. A persistent whole-flow kernel is later work.
 //
 // The kernels and their launchers are in factored_kernels.cuh. This source
 // instantiates the FP32 tier and holds the C entries; factored_high.cu and
@@ -66,16 +66,25 @@ extern "C" int lf_factored_init() {
     return rc != 0 ? rc : lf_bf16::init();
 }
 
+namespace lf_sm90 {   // K1 at 'high' and 'bf16' (fderiv_sm90.cu)
+int fderiv(int tier, const float* a, const float* b, const float* c, float* out, const void* WX,
+           const void* WYT, const float* bfx, const float* bfy, int Bx, int By, int nplanes,
+           int Ny, int Nx, void* stream);
+}
+
 // The entries: `tier` picks FP32 (0), 'high' (1) or 'bf16' (2). FX and FYT
 // are the packed blocks, both transposed (fact_tile.cuh): FP32 (B, A, A),
 // at 'high' their bf16 split (2, B, A, A) [head, residual], at 'bf16' the
-// heads (B, A, A).
+// heads (B, A, A). lf_fderiv runs fact_tile strict and fderiv_sm90.cu at
+// 'high' and 'bf16', which takes the split blocks with their rows swizzled
+// (FactoredOps.FXW / FYTW, (2, B, A, A); 'bf16' reads the heads).
 extern "C" int lf_fderiv(int tier, const float* a, const float* b, const float* c, float* out,
                          const void* FX, const void* FYT, const float* bfx, const float* bfy,
                          int Bx, int By, int nplanes, int Ny, int Nx, void* stream) {
-    const auto fn = tier_fn(tier, fderiv<TIER_F32>, lf_high::fderiv, lf_bf16::fderiv);
-    return fn == nullptr ? (int)cudaErrorInvalidValue
-                         : fn(a, b, c, out, FX, FYT, bfx, bfy, Bx, By, nplanes, Ny, Nx, stream);
+    if (tier == TIER_F32)
+        return fderiv<TIER_F32>(a, b, c, out, FX, FYT, bfx, bfy, Bx, By, nplanes, Ny, Nx, stream);
+    return lf_sm90::fderiv(tier, a, b, c, out, FX, FYT, bfx, bfy, Bx, By, nplanes, Ny, Nx,
+                           stream);
 }
 
 extern "C" int lf_fa_velocity(int tier, int role, const float* y, float* k, const float* p,

@@ -1,8 +1,8 @@
-// The factored LenseFlow kernels (K1, K3, K4) and their host launchers,
-// shared by the three sources that instantiate them, one precision tier
-// each: factored.cu (FP32, and the C entries), factored_high.cu ('high')
-// and factored_bf16.cu ('bf16'), compiled in parallel. See factored.cu for
-// what each kernel replaces and computes.
+// The factored LenseFlow kernels (K1 strict, K3, K4) and their host
+// launchers, shared by the three sources that instantiate them, one
+// precision tier each: factored.cu (FP32, and the C entries),
+// factored_high.cu ('high') and factored_bf16.cu ('bf16'), compiled in
+// parallel. See factored.cu for what each kernel replaces and computes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,8 +25,8 @@ constexpr int NACC = 5;   // delta-phi accumulator planes of the backward state
 // kernel's last argument): group 0 stores where the one-group tile
 // stores, and every later group adds.
 
-// K1: out = D a (+ c), or out += D a, along AXIS over blockIdx.z planes.
-// G: the blocks at the tier's precision (fact_tile.cuh).
+// K1, strict: out = D a (+ c), or out += D a, along AXIS over blockIdx.z
+// planes. G: the FP32 blocks (fact_tile.cuh).
 template <int B, int AXIS, int TIER>
 __global__ void __launch_bounds__(tile_threads(B), tile_min_blocks(B))
 fderiv_kernel(const float* __restrict__ a, const float* __restrict__ c, float* __restrict__ out,
@@ -139,8 +139,11 @@ bv_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
 
 template <int B, int TIER>
 int allow_smem() {
-    int rc = allow_tile_smem(fderiv_kernel<B, AXIS_X, TIER>, B, TIER);
-    if (rc == 0) rc = allow_tile_smem(fderiv_kernel<B, AXIS_Y, TIER>, B, TIER);
+    int rc = 0;
+    if constexpr (TIER == TIER_F32) {   // K1's reduced tiers run fderiv_sm90.cu
+        rc = allow_tile_smem(fderiv_kernel<B, AXIS_X, TIER>, B, TIER);
+        if (rc == 0) rc = allow_tile_smem(fderiv_kernel<B, AXIS_Y, TIER>, B, TIER);
+    }
     if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_X, TIER>, B, TIER);
     if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_Y, TIER>, B, TIER);
     if (rc == 0) rc = allow_tile_smem(bv_kernel<B, AXIS_X, TIER>, B, TIER);
@@ -157,9 +160,10 @@ int allow_smem_all() {
     return rc != 0 ? rc : allow_smem<32, TIER>();
 }
 
-// out = d_x a + d_y b + c over nplanes planes; a or b (not both) and c may
-// be null; out must not alias a or b. One launch per non-null derivative
-// and channel group.
+// out = d_x a + d_y b + c over nplanes planes, strict (TIER_F32; the
+// reduced tiers are lf_sm90::fderiv, fderiv_sm90.cu); a or b (not both) and
+// c may be null; out must not alias a or b. One launch per non-null
+// derivative and channel group.
 template <int TIER>
 int fderiv(const float* a, const float* b, const float* c, float* out, const void* FX,
            const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nplanes,
@@ -220,14 +224,13 @@ int bv_velocity(const float* y, float* k, const float* phi, const float* p, cons
 
 }  // namespace
 
-// The reduced tiers' launchers and shared-memory set-up, each instantiated
-// in a source of its own: lf_high in factored_high.cu (fderiv<TIER_HIGH>,
-// ...), lf_bf16 in factored_bf16.cu (fderiv<TIER_BF16>, ...).
+// The reduced tiers' launchers of K3 and K4 and their shared-memory set-up,
+// each instantiated in a source of its own: lf_high in factored_high.cu
+// (fa_velocity<TIER_HIGH>, ...), lf_bf16 in factored_bf16.cu
+// (fa_velocity<TIER_BF16>, ...). K1's reduced tiers are lf_sm90::fderiv
+// (fderiv_sm90.cu).
 #define LF_TIER_ENTRIES(ns)                                                                    \
     namespace ns {                                                                              \
-    int fderiv(const float* a, const float* b, const float* c, float* out, const void* FX,      \
-               const void* FYT, const float* bfx, const float* bfy, int Bx, int By,             \
-               int nplanes, int Ny, int Nx, void* stream);                                      \
     int fa_velocity(int role, const float* y, float* k, const float* p, const void* FX,         \
                     const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
                     int nbatch, int ncomp, int Ny, int Nx, void* stream);                       \
@@ -242,11 +245,6 @@ LF_TIER_ENTRIES(lf_bf16)
 // Their definitions, in the source that instantiates tier T as namespace ns.
 #define LF_TIER_DEFINE(ns, T)                                                                  \
     namespace ns {                                                                              \
-    int fderiv(const float* a, const float* b, const float* c, float* out, const void* FX,      \
-               const void* FYT, const float* bfx, const float* bfy, int Bx, int By,             \
-               int nplanes, int Ny, int Nx, void* stream) {                                     \
-        return ::fderiv<T>(a, b, c, out, FX, FYT, bfx, bfy, Bx, By, nplanes, Ny, Nx, stream);   \
-    }                                                                                           \
     int fa_velocity(int role, const float* y, float* k, const float* p, const void* FX,         \
                     const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
                     int nbatch, int ncomp, int Ny, int Nx, void* stream) {                      \

@@ -4,7 +4,36 @@
 // products of the 'high' and 'bf16' tiers.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stddef.h>
+
+// Phase probe (scripts/torch_kernel_phases.py builds a source with
+// LF_CLOCK_PHASES defined; the library the port loads never does): thread 0
+// of each block adds the clock64 cycles since its previous mark t to phase
+// i's sum, lf_phase_ticks[i], read and cleared through the C entries below.
+#ifdef LF_CLOCK_PHASES
+constexpr int LF_NPHASE = 16;
+__device__ unsigned long long lf_phase_ticks[LF_NPHASE];
+__device__ __forceinline__ void lf_clock_mark(int i, long long& t) {
+    if (threadIdx.x == 0) {
+        const long long now = clock64();
+        atomicAdd(&lf_phase_ticks[i], (unsigned long long)(now - t));
+        t = now;
+    }
+}
+#define LF_CLOCK_START(t) long long t = clock64()
+#define LF_CLOCK(i, t) lf_clock_mark(i, t)
+extern "C" int lf_phase_ticks_read(unsigned long long* host) {
+    return (int)cudaMemcpyFromSymbol(host, lf_phase_ticks, sizeof(lf_phase_ticks));
+}
+extern "C" int lf_phase_ticks_clear() {
+    const unsigned long long zero[LF_NPHASE] = {};
+    return (int)cudaMemcpyToSymbol(lf_phase_ticks, zero, sizeof(zero));
+}
+#else
+#define LF_CLOCK_START(t)
+#define LF_CLOCK(i, t)
+#endif
 
 // The precision tiers of the derivative products, the value of every C
 // entry's `tier` argument (ops/lenseflow_kernels.py::PRECISIONS, in order):

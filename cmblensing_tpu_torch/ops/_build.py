@@ -93,6 +93,8 @@ def bind(lib):
         "lf_factored_init": [],
         "lf_uni_init": [],
         "lf_uni_dense_init": [],
+        "lf_fderiv_sm90_init": [],
+        "lf_fderiv_sm90_clusters": [I, I],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -103,12 +105,13 @@ def bind(lib):
 
 def load():
     """The loaded kernel library (built first if needed), its kernels
-    allowed their dynamic shared memory."""
+    allowed their dynamic shared memory; raises where a kernel's cluster
+    does not fit on the card."""
     global _LIB
     if _LIB is None:
         lib = bind(ctypes.CDLL(str(build())))
         for init in (lib.lf_dense_init, lib.lf_factored_init, lib.lf_uni_init,
-                     lib.lf_uni_dense_init):
+                     lib.lf_uni_dense_init, lib.lf_fderiv_sm90_init):
             rc = init()
             if rc != 0:
                 raise RuntimeError(f"{init.__name__} failed with CUDA error {rc}")

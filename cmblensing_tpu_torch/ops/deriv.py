@@ -46,9 +46,11 @@ BUILT_RADICES = (4, 8, 16, 32)
 
 
 def radix_groups(B: int) -> int:
-    """The channel groups the factored kernels run one after another at
+    """The channel groups the fact_tile kernels run one after another at
     radix B (csrc/fact_tile.cuh::tile_groups): a block holds at most 8
-    channels."""
+    channels. K3, K4, K5 and the strict K1 run them; K1's 'high' and 'bf16'
+    tiers (csrc/fderiv_sm90.cu) no longer do: their channel groups are the
+    CTAs of one cluster, one launch a pass."""
     return max(1, B // 8)
 
 

@@ -26,7 +26,10 @@ also travel transposed (FYT), the layout the CUDA tile stages for both
 axes (csrc/fact_tile.cuh). For the 'high' precision the blocks travel
 split as well, (2, B, A, A) bfloat16 [head, residual] of FX and FYT
 (FXS, FYTS), split once per operator; the 'bf16' precision reads their
-heads, FXS[0] and FYTS[0].
+heads, FXS[0] and FYTS[0]. K1's 'high' and 'bf16' kernel
+(csrc/fderiv_sm90.cu) reads FXS and FYTS with the rows of each block
+swizzled (FXW, FYTW: `swizzle_blocks`), the layout its bulk copies land in
+shared memory without ldmatrix bank conflicts.
 """
 from __future__ import annotations
 
@@ -125,7 +128,9 @@ class FactoredOps(NamedTuple):
     FXS and FYTS, FX and FYT split into bfloat16 [head, residual]
     (2, B, A, A) for the 'high' precision, made by `factored_ops`; the
     'high' apply and kernels take them as given, the 'bf16' ones their
-    heads FXS[0], FYTS[0] (the blocks rounded to nearest even)."""
+    heads FXS[0], FYTS[0] (the blocks rounded to nearest even); FXW and
+    FYTW, FXS and FYTS swizzled (`swizzle_blocks`), what K1's 'high' and
+    'bf16' kernel reads."""
     FX: torch.Tensor
     FY: torch.Tensor
     bfx: torch.Tensor
@@ -133,6 +138,8 @@ class FactoredOps(NamedTuple):
     FYT: torch.Tensor = None
     FXS: torch.Tensor = None
     FYTS: torch.Tensor = None
+    FXW: torch.Tensor = None
+    FYTW: torch.Tensor = None
 
 
 def fyt(ops):
@@ -151,11 +158,29 @@ def factored_ops(proj, Bx, By):
         opy = factored_op(proj.Ny, d, dts, By)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=proj.device)
         FX, FYT = t(opx.packed(True)), t(opy.packed(True))
+        FXS, FYTS = torch.stack(split_bf16(FX)), torch.stack(split_bf16(FYT))
+        # the kernel's layout, for blocks whose rows are whole 64-wide chunk
+        # groups (the kernel takes A = 128 alone)
+        W = [swizzle_blocks(S) if S.shape[-1] % 64 == 0 else None for S in (FXS, FYTS)]
         ops = FactoredOps(FX, t(opy.packed(False)), t(np.stack([opx.Rf, opx.Ri])),
-                          t(np.stack([opy.Rf, opy.Ri])), FYT, torch.stack(split_bf16(FX)),
-                          torch.stack(split_bf16(FYT)))
+                          t(np.stack([opy.Rf, opy.Ri])), FYT, FXS, FYTS, *W)
         proj._tensors[key] = ops
     return ops
+
+
+def swizzle_blocks(S):
+    """The (..., A, A) blocks S, rows k and columns m, with the 8-element
+    (16-byte bf16) chunks of each row permuted: element m of row k moves to
+    column m ^ 8 (k % 8). The map is its own inverse. K1's 'high' and 'bf16'
+    kernel (csrc/fderiv_sm90.cu) bulk-copies 16-row slabs of the blocks
+    into shared memory as they lie; there, the eight rows an ldmatrix phase
+    reads at one m fall in eight distinct bank groups. The rows' length
+    must be a multiple of 64."""
+    if S.shape[-1] % 64:
+        raise ValueError(f"swizzle_blocks: rows of {S.shape[-1]}, not a multiple of 64")
+    k = torch.arange(S.shape[-2], device=S.device)[:, None]
+    m = torch.arange(S.shape[-1], device=S.device)[None, :]
+    return torch.gather(S, -1, (m ^ (k % 8) * 8).expand(S.shape).contiguous())
 
 
 # =========================================================================

@@ -64,7 +64,7 @@ lf_uni_velocity and lf_uni_dense_velocity, K5) and, for a CPU tensor,
 the plain leaves at that precision, dense or factored; at 'bf16' phi's
 planes are formed strict (PLANES_PRECISION). The uni granularity runs
 every tier, dense and at every built radix (16 and 32 in channel groups,
-as K1, K3 and K4).
+as K3, K4 and the strict K1).
 
 The dense kernels take any plane shape (their edge tiles are guarded);
 the factored ones a radix they are built for (ops/deriv.py::deriv_ops).
@@ -88,7 +88,8 @@ CUDA_ERROR_INVALID_VALUE = 1   # what a kernel's C entry returns for arguments i
 
 # kernel launches per kernel, counted where each wrapper launches (the
 # factored velocities launch twice per call, an x pass and a y pass, and
-# at radix 16 and 32 so for each channel group)
+# at radix 16 and 32 so for each channel group; K1 at 'high' and 'bf16'
+# once a pass at every radix)
 LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0,
             "rk4_update": 0, "p_planes": 0, "deriv": 0, "fderiv": 0, "fa_velocity_forward": 0,
             "fa_velocity_adjoint": 0, "bv_velocity": 0, "fderiv_high": 0,
@@ -258,20 +259,20 @@ def _stream():
 _OPERANDS = {}   # (id(mats), precision) -> (mats, tensors, pointers): sets already checked
 
 
-def _operands(name, mats, like, precision="f32"):
+def _operands(name, mats, like, precision="f32", swizzled=False):
     """The derivative operands a kernel reads from `mats`: (DxT, Dy) (at
     'high' their (2, n, n) bfloat16 splits [head, residual], at 'bf16'
     their (n, n) bfloat16 heads, made here once per operand set) or a
     FactoredOps' (FX, FYT, bfx, bfy) (at 'high' (FXS, FYTS, bfx, bfy), at
-    'bf16' (FXS[0], FYTS[0], bfx, bfy)), as tensors and ready ctypes
-    pointers. Device,
+    'bf16' (FXS[0], FYTS[0], bfx, bfy); `swizzled`: (FXW, FYTW, bfx, bfy)
+    at both), as tensors and ready ctypes pointers. Device,
     type and contiguity are checked the first time an operand set is seen
     (a flow hands the same set to every launch); that it lies on `like`'s
     device, every time."""
-    hit = _OPERANDS.get((id(mats), precision))
+    hit = _OPERANDS.get((id(mats), precision, swizzled))
     if hit is None or hit[0] is not mats:
         if isinstance(mats, FactoredOps):
-            tensors = _fops(mats, precision)
+            tensors = _fops(mats, precision, swizzled)
         elif precision == "high":
             _check_cuda(name, mats)
             tensors = tuple(torch.stack(split_bf16(M)) for M in mats)
@@ -293,7 +294,7 @@ def _operands(name, mats, like, precision="f32"):
             raise ValueError(f"{name}: all operands must be on one CUDA device")
         if len(_OPERANDS) >= 8:
             _OPERANDS.clear()
-        hit = _OPERANDS[(id(mats), precision)] = (mats, tensors, tuple(map(_ptr, tensors)))
+        hit = _OPERANDS[(id(mats), precision, swizzled)] = (mats, tensors, tuple(map(_ptr, tensors)))
     if hit[1][0].device != like.device:
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
     return hit[1], hit[2]
@@ -411,10 +412,13 @@ def _check_factored(name, ops, Ny, Nx):
     return Bx, By
 
 
-def _fops(ops, precision="f32"):
+def _fops(ops, precision="f32", swizzled=False):
     """The operands the factored kernels read: x blocks, transposed y
     blocks (at 'high' both split, at 'bf16' their heads), the two
-    butterflies."""
+    butterflies; `swizzled` (K1 at 'high' and 'bf16'): the split blocks
+    swizzled, whose heads 'bf16' reads."""
+    if swizzled:
+        return ops.FXW, ops.FYTW, ops.bfx, ops.bfy
     if precision == "high":
         return ops.FXS, ops.FYTS, ops.bfx, ops.bfy
     if precision == "bf16":
@@ -435,14 +439,16 @@ def _tier_arg(precision):
 
 def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     """K1: out <- d_x a + d_y b + c through the factored derivative
-    kernel at `precision` ('f32', 'high' or 'bf16'), one launch per derivative
-    given and channel group (ops/deriv.py::radix_groups); out must not
-    alias a or b."""
+    kernel at `precision` ('f32', 'high' or 'bf16'); out must not alias a
+    or b. Strict: fact_tile, one launch per derivative given and channel
+    group (ops/deriv.py::radix_groups); 'high' and 'bf16'
+    (csrc/fderiv_sm90.cu): one launch per derivative given at every radix,
+    its channel groups the CTAs of a cluster."""
     from . import _build
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
     tier = _tier_arg(precision)
-    _, fptrs = _operands("lf_fderiv", ops, out, precision)
+    _, fptrs = _operands("lf_fderiv", ops, out, precision, swizzled=tier != 0)
     _check_cuda("lf_fderiv", [out, *given])
     Bx, By = _check_factored("lf_fderiv", ops, Ny, Nx)
     if a is None and b is None:
@@ -455,8 +461,8 @@ def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     rc = _build.load().lf_fderiv(tier, _ptr(a), _ptr(b), _ptr(c), _ptr(out), *fptrs, Bx, By,
                                  nplanes, Ny, Nx, _stream())
     _raise_on(rc, "lf_fderiv")
-    LAUNCHES["fderiv" + _SUFFIX[tier]] += ((a is not None) * _deriv.radix_groups(Bx)
-                                          + (b is not None) * _deriv.radix_groups(By))
+    groups = _deriv.radix_groups if tier == 0 else (lambda B: 1)
+    LAUNCHES["fderiv" + _SUFFIX[tier]] += (a is not None) * groups(Bx) + (b is not None) * groups(By)
 
 
 def _check_batched_state(name, y, k, phi, pt, nstate):

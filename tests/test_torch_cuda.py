@@ -475,12 +475,12 @@ def test_factored_high_kernels_match_plain_high_on_card(N, nb):
         assert e[0] < HIGH_TOL and e[1] < HIGH_VS_STRICT and e[2] < HIGH_SPLIT_RATIO, e
 
     lfk.reset_launches()
-    ngroup = tderiv.radix_groups(N // 128)   # launches a pass: one per channel group
+    ngroup = tderiv.radix_groups(N // 128)   # K3, K4 launches a pass: one per channel group
     a, b, c = T(nb, 1, N, N), T(nb, 1, N, N), T(nb, 1, N, N)
     for args in ((a, None, None), (None, b, None), (a, b, c)):
         check(a.shape, lambda o, p: lfk.fderiv_cuda(*args, o, ops, p),
               lambda o: lfk.fderiv_plain(*args, o, ops, "high"))
-    assert lfk.LAUNCHES["fderiv_high"] == 4 * ngroup
+    assert lfk.LAUNCHES["fderiv_high"] == 4   # K1 'high': one launch a pass at every radix
     y = T(nb, 2, N, N)
     pt = _p_planes(0.3, planes)
     for kind in ("forward", "adjoint"):
@@ -1037,7 +1037,7 @@ def test_factored_bf16_kernels_match_plain_bf16_on_card(N, nb):
     for args in ((a, None, None), (None, b, None), (a, b, c)):
         check(a.shape, lambda o, p: lfk.fderiv_cuda(*args, o, ops, p),
               lambda o: lfk.fderiv_plain(*args, o, ops, "bf16"), "fderiv")
-    assert lfk.LAUNCHES["fderiv_bf16"] == 4 * ngroup * (2 if ngroup > 1 else 1)
+    assert lfk.LAUNCHES["fderiv_bf16"] == 4 * (2 if ngroup > 1 else 1)   # one launch a pass
     y = T(nb, 2, N, N)
     pt = _p_planes(0.3, planes)
     for kind in ("forward", "adjoint"):
@@ -1051,6 +1051,109 @@ def test_factored_bf16_kernels_match_plain_bf16_on_card(N, nb):
     twice = 2 if ngroup > 1 else 1
     assert all(lfk.LAUNCHES[f"{k}_bf16"] == 2 * ngroup * twice
                for k in ("fa_velocity_forward", "fa_velocity_adjoint", "bv_velocity"))
+
+
+# K1 at 'high' and 'bf16' (csrc/fderiv_sm90.cu): each tier's bound against
+# its plain version and its Frobenius ratio
+K1_TIER = {"high": (HIGH_TOL, HIGH_SPLIT_RATIO), "bf16": (BF16_TOL, BF16_RATIO)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "bf16"])
+def test_fderiv_sm90_block_products_match_plain_on_card(precision):
+    """The redesigned K1's block products alone: with both butterflies the
+    identity, channel c is the operand's row block c and output block r is
+    channel r, so the kernel's output is its block products (each channel
+    passing through the cluster's exchange as it is), against the plain
+    version on the same operator at the tier, at 1024^2 (two CTAs a
+    cluster) and 4096^2 (four), along both axes."""
+    _card()
+    for N in (1024, 4096):
+        ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
+        B = N // 128
+        eye = torch.eye(B, device="cuda").expand(2, B, B).contiguous()
+        ops = ops._replace(bfx=eye, bfy=eye)
+        a = torch.randn((1, 1, N, N), generator=torch.Generator(device="cuda").manual_seed(3),
+                        device="cuda")
+        for args in ((a, None, None), (None, a, None)):
+            o1, o2 = torch.full_like(a, float("nan")), torch.empty_like(a)
+            lfk.fderiv_cuda(*args, o1, ops, precision)
+            lfk.fderiv_plain(*args, o2, ops, precision)
+            e = rel(o1, o2)
+            print(f"K1 {precision} block products N={N} axis {'x' if args[0] is a else 'y'}: "
+                  f"vs plain {e:.3e}")
+            assert e < K1_TIER[precision][0], e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "bf16"])
+@pytest.mark.parametrize("N,nb", [(N, nb) for N in (512, 1024, 2048, 4096) for nb in (1, 5)])
+def test_fderiv_sm90_matches_plain_on_card(N, nb, precision):
+    """K1 at 'high' and 'bf16' (csrc/fderiv_sm90.cu) at every built radix,
+    at batch 1 and on 5 planes: d_x a, d_y b and d_x a + d_y b + c against
+    the plain version at the tier (each plane within HIGH_TOL or BF16_TOL)
+    and the strict kernel (the Frobenius ratio; at 'high' HIGH_VS_STRICT
+    too); into buffers of NaN, 1e30 and zeros the same bits, nothing
+    written past the last plane; one launch a pass at every radix."""
+    _card()
+    ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a, b, c = (torch.randn((nb, 1, N, N), generator=g, device="cuda") for _ in range(3))
+    tol, ratio = K1_TIER[precision]
+    lfk.reset_launches()
+    for args in ((a, None, None), (None, b, None), (a, b, c)):
+        ref, strict = torch.empty_like(a), torch.empty_like(a)
+        lfk.fderiv_plain(*args, ref, ops, precision)
+        lfk.fderiv_cuda(*args, strict, ops, "f32")
+        first = None
+        for fill in (float("nan"), 1e30, 0.0):
+            buf = torch.full((nb + 1, 1, N, N), fill, device="cuda")
+            lfk.fderiv_cuda(*args, buf[:nb], ops, precision)
+            past = buf[nb]
+            assert (torch.isnan(past) if fill != fill else past == fill).all(), "wrote past"
+            first = buf[:nb].clone() if first is None else first
+            assert torch.equal(buf[:nb], first), (fill, "not the same bits")
+            del buf
+        each = lambda x, y: max(rel(p, q) for p, q in zip(x.reshape(-1, N, N), y.reshape(-1, N, N)))
+        e = (each(first, ref), each(first, strict), split_ratio(first, ref, strict))
+        print(f"K1 {precision} N={N} nb={nb} {[x is not None for x in args]}: vs plain {e[0]:.3e}, "
+              f"vs strict {e[1]:.3e}, Frobenius ratio {e[2]:.4f}")
+        assert e[0] < tol and e[2] < ratio, e
+        assert precision != "high" or e[1] < HIGH_VS_STRICT, e
+    assert lfk.LAUNCHES["fderiv_" + precision] == 3 * 4   # 3 buffers x 4 passes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 256, 256), (1, 160, 200), (4, 300, 300), (2, 600, 600)])
+def test_deriv_bf16_matches_plain_on_card(shape):
+    """K2's 'bf16' derivative (deriv_bf16_kernel: a 32 x TN tile's whole
+    contraction in one block, 128 values at a time through a ring of two)
+    on the IP slice's three 256^2 planes (TN 64), a ragged rectangle (TN
+    32), four 300^2 planes (TN 64, ragged tiles, circulant rows not 16-byte
+    aligned) and two 600^2 planes (TN 64, five chunks an axis): d_x a,
+    d_y b and d_x a + d_y b + c within BF16_DENSE_TOL of plain 'bf16' on
+    every plane, the same bits twice, nothing written past
+    the last plane; one launch each."""
+    _card()
+    n, Ny, Nx = shape
+    mats = tderiv.deriv_mats(ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    a, b, c = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
+    lfk.reset_launches()
+    for args in ((a, None, None), (None, b, None), (a, b, c)):
+        ref = torch.empty_like(a)
+        lfk.deriv_plain(*args, ref, mats, "bf16")
+        outs = []
+        for fill in (float("nan"), 0.0):
+            buf = torch.full((n + 1, Ny, Nx), fill, device="cuda")
+            lfk.deriv_cuda(*args, buf[:n], mats, "bf16")
+            assert (torch.isnan(buf[n]) if fill != fill else buf[n] == 0).all(), "wrote past"
+            outs.append(buf[:n])
+        assert torch.equal(*outs)
+        e = max(rel(p, q) for p, q in zip(outs[0], ref))
+        print(f"K2 bf16 deriv {shape} {[x is not None for x in args]}: vs plain {e:.3e}")
+        assert e < BF16_DENSE_TOL, e
+    assert lfk.LAUNCHES["deriv_bf16"] == 6
 
 
 @pytest.mark.cuda

@@ -263,3 +263,24 @@ def test_factored_wrapper_rejects_devices_without_a_kernel():
                           *(torch.empty((2, 2, 2), device="meta"),) * 2)
     with pytest.raises(ValueError, match="no LenseFlow kernel"):
         lfk.flow_apply(x, torch.empty((1, 5, 16, 16), device="meta"), ops, 0., 1., 1)
+
+
+def test_swizzled_blocks_unpack_to_the_split_blocks():
+    """K1's 'high' and 'bf16' kernel (csrc/fderiv_sm90.cu) reads the split
+    blocks with each row's 8-element chunks permuted by the row index
+    (swizzle_blocks; FactoredOps.FXW, FYTW, made by factored_ops): element
+    m of row k sits at column m ^ 8 (k % 8), the map is its own inverse,
+    so unpacking FXW / FYTW gives back FXS / FYTS exactly; the layout exists
+    only for rows of whole 64-element groups (the kernel's A = 128)."""
+    ops = tfd.factored_ops(ct.ProjLambert(512, 512, thetapix=2, T=np.float32, device="cpu"), 4, 4)
+    k, m = torch.arange(128)[:, None], torch.arange(128)[None, :]
+    moved = (m ^ (k % 8) * 8).expand(128, 128)
+    for S, W in ((ops.FXS, ops.FXW), (ops.FYTS, ops.FYTW)):
+        assert W.dtype == torch.bfloat16 and W.shape == S.shape == (2, 4, 128, 128)
+        assert torch.equal(tfd.swizzle_blocks(W), S)
+        assert torch.equal(W[..., k.expand(128, 128), moved], S)
+        assert not torch.equal(W, S)
+    small = tfd.factored_ops(ct.ProjLambert(64, 64, thetapix=2, T=np.float32, device="cpu"), 2, 2)
+    assert small.FXW is None and small.FYTW is None and small.FXS is not None
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tfd.swizzle_blocks(small.FXS)
