@@ -95,21 +95,30 @@ port's two paths through the kernel backend:
               strict beside "kernel", at "auto" and 'bf16', the line
               search's memory per trial, and at 4096^2 P "auto" as phase
               13 (d); no K3/K4 launch on "uni".
-  phase 17    the redesigned kernels: (a) K1 at 'high' and 'bf16'
-              (csrc/fderiv_sm90.cu: one launch a pass, the channel groups
-              the CTAs of one cluster) at 512^2, 1024^2, 2048^2 and 4096^2,
-              d_x, d_y and d_x + d_y + c at batch 1 and on 5 planes, against
-              plain at the tier and the strict kernel, the same bits into
-              buffers of NaN, 1e30 and 0, nothing past a plane, timed cold
-              beside the strict kernel and the library call, and one launch
-              a pass counted on the backward flow's delta phi; (b) K2's
-              'bf16' derivative on the masked IP slice's I, Q, U planes and
-              at 200^2, 160 x 200, 600^2, held at 1e-5 of plain 'bf16',
-              timed cold beside the library call, its launches counted on
-              the slice's backward flow. Its numbers are the kernels' one
-              record a size: at the sizes an earlier phase records (K1
-              'high' in phases 9 and 13, K1 and K2 'bf16' in phase 14) the
-              record keeps that phase's name and path launches.
+  phase 17    the kernels on the cluster tile (csrc/fact_sm90.cuh: one
+              launch a pass, the channel groups the CTAs of one cluster) at
+              'high' and 'bf16', at 512^2, 1024^2, 2048^2 and 4096^2: (a) K1
+              (csrc/fderiv_sm90.cu), d_x, d_y and d_x + d_y + c at batch 1
+              and on 5 planes, timed cold beside the strict kernel and the
+              library call, one launch a pass counted on the backward
+              flow's delta phi; (c) K3 (csrc/fa_sm90.cu), both roles at
+              batch 1 and (to 1024^2) 17 trials, timed cold beside the
+              strict kernel, one launch a pass counted on the forward and
+              adjoint flows; (d) K5 (csrc/uni_sm90.cu), every role and stage
+              on strided views of a flow state at batch 1 and (to 1024^2)
+              17 trials, timed cold, two launches a stage counted on the uni
+              flows; the flows at nsteps 1 and 7, to 1024^2 against their
+              plain versions (flow_checks); each kernel against plain at
+              the tier and the strict kernel,
+              the same bits into buffers of NaN, 1e30 and 0, nothing past a
+              plane, K5's zero planes exact; (b) K2's 'bf16' derivative on
+              the masked IP slice's I, Q, U planes and at 200^2, 160 x 200,
+              600^2, held at 1e-5 of plain 'bf16', timed cold beside the
+              library call, its launches counted on the slice's backward
+              flow. Its numbers are the kernels' one record a size: at the
+              sizes an earlier phase records (K1 and K3 'high' in phases 9
+              and 13, K1, K2 and K3 'bf16' in phase 14, K5 in phases 15 and
+              16) the record keeps that phase's name and path launches.
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
     python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
@@ -299,6 +308,13 @@ FDERIV_SM90_SRC = "cmblensing_tpu_torch/csrc/fderiv_sm90.cu"
 N_SM90 = (512, 1024, 2048, 4096)
 NPLANES_SM90 = 5
 K1_SM90_TOL = {"high": HIGH_TOL, "bf16": BF16_TOL}
+# ... and K3 and K5 at 'high' and 'bf16' on the same cluster tile
+# (csrc/fact_sm90.cuh), at every built radix, at batch 1 and (to 1024^2;
+# phases 13, 14 and 16 run them at 2048^2) NTRIAL trials, held to the same
+# bounds (K5: uni_roles), the same bits in buffers of NaN, 1e30 and 0
+FA_SM90_SRC = "cmblensing_tpu_torch/csrc/fa_sm90.cu"
+UNI_SM90_SRC = "cmblensing_tpu_torch/csrc/uni_sm90.cu"
+N_SM90_BATCHED = 1024   # the largest size phase 17 runs NTRIAL trials and flows vs plain at
 
 
 def rel(a, b):
@@ -3245,6 +3261,24 @@ def phase_uni_large(torch, card, beside=None):
     return records, launches, timing_out
 
 
+def same_bits(torch, shape, run):
+    """run(out) into buffers of NaN, 1e30 and zeros of `shape`, each with one
+    more entry behind out: (the same bits from every buffer, nothing
+    written past the last entry)."""
+    first, clean, same = None, True, True
+    for fill in (float("nan"), 1e30, 0.0):
+        buf = torch.full((shape[0] + 1,) + tuple(shape[1:]), fill, device=DEVICE)
+        run(buf[:shape[0]])
+        past = buf[shape[0]]
+        clean &= bool((torch.isnan(past) if fill != fill else past == fill).all())
+        if first is None:
+            first = buf[:shape[0]].clone()
+        else:
+            same &= bool(torch.equal(first, buf[:shape[0]]))
+        del buf
+    return same, clean
+
+
 def sm90_k1(torch, card, N):
     """Phase 17 (a) at N^2: K1 at 'high' and 'bf16' (csrc/fderiv_sm90.cu) on
     d_x a, d_y b and d_x a + d_y b + c at batch 1 and NPLANES_SM90, against
@@ -3281,17 +3315,7 @@ def sm90_k1(torch, card, N):
                 d = found[key] = high_against(
                     torch, run, lambda o, args=args: lfk.fderiv_plain(*args, o, ops, tier),
                     x.shape, tier)
-                first, clean, same = None, True, True
-                for fill in (float("nan"), 1e30, 0.0):
-                    buf = torch.full((nb + 1, 1, N, N), fill, device=DEVICE)
-                    run(buf[:nb], tier)
-                    past = buf[nb]
-                    clean &= bool((torch.isnan(past) if fill != fill else past == fill).all())
-                    if first is None:
-                        first = buf[:nb].clone()
-                    else:
-                        same &= bool(torch.equal(first, buf[:nb]))
-                    del buf
+                same, clean = same_bits(torch, x.shape, lambda o, run=run: run(o, tier))
                 d.update(clean=clean, same=same, nb=nb, **bound_high(N, nder, planes, nb, axes,
                                                                      tier=tier))
                 if label != "xyc" and (nb == 1 or label == "x"):
@@ -3320,6 +3344,7 @@ def sm90_k1(torch, card, N):
                   + (f"  library {lib:.4f} ms" if key == "x[1]" else "") + f" [{N}^2; {card}]")
         many = [found[f"{k}[{NPLANES_SM90}]"] for k in ("x", "y", "xyc")]
         records[tier] = dict(found["x[1]"], library_ms=lib, d_y_ms=found["y[1]"]["ms"],
+                             source=FDERIV_SM90_SRC,
                              batched=dict(nb=NPLANES_SM90, ms=many[0]["ms"],
                                           rel=max(m["rel"] for m in many)))
         # the path: the backward flow's hoisted delta phi, five K1 passes
@@ -3343,6 +3368,203 @@ def sm90_k1(torch, card, N):
         del phi, f1, dy, dphi
     del DxT, a, b, c
     proj._tensors.clear()
+    torch.cuda.empty_cache()
+    return records, launches, bad
+
+
+def flow_checks(flows, tier, nsteps):
+    """Phase 17's reduced-tier flows at nsteps against their plain versions
+    at the tier and the strict kernel flows, {name: (flow, plain, strict)},
+    every plane on its own: the Frobenius ratio under FLOW_SPLIT_RATIO, and
+    at NSTEPS the relative max-abs within K1_SM90_TOL (the path phases 14
+    and 16 hold); at nsteps 1 the max-abs is printed against that bound but
+    not held: one step of dt = 1 takes it past (K3 'bf16' L 2.6e-3 at
+    512^2, K5 'high' delta phi 3.2e-5) while the Frobenius ratio stays
+    under 1, and the flows on fact_tile, the form these kernels replaced,
+    give the same bits (scripts/torch_flow_witness.py, PERF.md). Returns
+    (the line to print, {name: failing readings})."""
+    line, why = "", {}
+    for name, (out, plain, strict) in flows.items():
+        e = max(rel(a, b) for a, b in zip(out.reshape(-1, *out.shape[-2:]),
+                                          plain.reshape(-1, *out.shape[-2:])))
+        r = split_ratio(out, plain, strict)["split_ratio"]
+        held = nsteps == NSTEPS
+        line += (f"; {name} vs plain {e:.3e} (bound {K1_SM90_TOL[tier]:g}"
+                 f"{'' if held else ', held at nsteps ' + str(NSTEPS)}), Frobenius ratio "
+                 f"{r:.4f} (bound {FLOW_SPLIT_RATIO:g})")
+        if not r < FLOW_SPLIT_RATIO or (held and not e < K1_SM90_TOL[tier]):
+            why[name] = (e, r)
+    return line, why
+
+
+def sm90_k3(torch, card, N):
+    """Phase 17 (c) at N^2: K3 at 'high' and 'bf16' (csrc/fa_sm90.cu), both
+    roles, at batch 1 and (to N_SM90_BATCHED) on NTRIAL trials each with
+    its own phi, against plain at the tier and the strict kernel
+    (high_against; every plane: K1_SM90_TOL, at 'high' HIGH_VS_STRICT, the
+    Frobenius ratio under HIGH_SPLIT_RATIO); into buffers of NaN, 1e30 and
+    zeros the same bits, nothing written past the last entry; timed cold
+    beside the strict kernel, with the tier's bound; then the path: the
+    forward and adjoint flows (nsteps 1 and NSTEPS) at the tier, the
+    launch counters set to 0 just before each and read just after: one
+    launch a pass (8 nsteps a flow), no strict K3 launch, the flow finite
+    and, to N_SM90_BATCHED, held to its plain version by flow_checks
+    (phases 13 and 16 hold the larger flows). Returns ({name: record}, {name: (path, launches)}, failures)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    B, t = N // FA, 0.5
+    proj = ct.ProjLambert(N, N, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE)
+    ops = deriv.deriv_ops(proj)
+    phi_map, f, _ = weak_lensing_inputs(proj, torch)
+    phi = lfk.gradhess(phi_map, ops)
+    inputs = {1: (f[None].contiguous(), phi[None])}
+    if N <= N_SM90_BATCHED:
+        scales = torch.linspace(0.1, 2.0, NTRIAL, device=DEVICE).reshape(-1, 1, 1, 1)
+        inputs[NTRIAL] = (torch.stack([torch.roll(f, 7 * i, dims=-1) for i in range(NTRIAL)]),
+                          (scales * phi).contiguous())
+    found, bad = {}, {}
+    for nb, (y, phis) in inputs.items():
+        pt = torch.empty((2, nb, N, N), device=DEVICE)
+        lfk.p_planes_cuda(t, phis, pt)
+        for tier in ("high", "bf16"):
+            for kind in ("forward", "adjoint"):
+                at = lambda p, kind=kind: (lambda o, y_, ph, pt_: lfk.fvelocity_cuda(
+                    kind, y_, o, ph, pt_, ops, 2, t, p))
+                plain = lambda o, kind=kind, tier=tier: lfk.fvelocity_plain(
+                    kind, y, o, phis, pt, ops, 2, t, tier)
+                d = high_against(torch, lambda o, p, at=at: at(p)(o, y, phis, pt), plain,
+                                 y.shape, tier)
+                d["same"], d["clean"] = same_bits(torch, y.shape,
+                                                  lambda o, at=at, tier=tier: at(tier)(o, y, phis,
+                                                                                      pt))
+                o = torch.empty_like(y)
+                reps = (10 if N <= 1024 else 5) if nb == 1 else 3
+                d.update(nb=nb, library_ms=None, source=FA_SM90_SRC,
+                         ms=cold_ms(at(tier), (o, y, phis, pt), reps, torch),
+                         plain_ms=cuda_ms(lambda: plain(o), 1, torch),
+                         **bound_high(N, 4, 6, nb, 2, tier))
+                if nb == 1:
+                    d["strict_ms"] = cold_ms(at("f32"), (o, y, phis, pt), reps, torch)
+                del o
+                found[tier, kind, nb] = d
+                if not (d["rel"] < K1_SM90_TOL[tier] and d["split_ratio"] < HIGH_SPLIT_RATIO
+                        and (tier == "bf16" or d["rel_strict"] < HIGH_VS_STRICT)):
+                    bad[f"K3 {tier} {kind} {N}^2 [{nb}]"] = (d["rel"], d["rel_strict"],
+                                                            d["split_ratio"])
+                if not (d["same"] and d["clean"]):
+                    bad[f"K3 {tier} {kind} {N}^2 [{nb}] same bits / nothing past an entry"] = (
+                        d["same"], d["clean"])
+                strict = f", strict {d['strict_ms']:.4f}" if "strict_ms" in d else ""
+                print(f"phase 17: K3 {tier:4s} {kind:8s} radix {B:2d} [{nb:2d}] vs plain "
+                      f"{d['rel']:.3e} (bound {K1_SM90_TOL[tier]:g}) vs strict "
+                      f"{d['rel_strict']:.3e}, Frobenius ratio {d['split_ratio']:.4f}; same "
+                      f"bits in NaN / 1e30 / 0 {d['same']}, past the last entry "
+                      f"{'untouched' if d['clean'] else 'WRITTEN'}  {d['ms']:.4f} ms cold"
+                      f"{strict}, plain {d['plain_ms']:.4f}, bound {d['bound_ms']:.4f} ms "
+                      f"({d['bound_by']}, {100 * d['bound_ms'] / d['ms']:.1f} %) [{N}^2; {card}]")
+        del pt
+    records, launches = {}, {}
+    sfx = "" if N == N_MAP else f"_b{B}"
+    for tier in ("high", "bf16"):
+        for kind in ("forward", "adjoint"):
+            d = dict(found[tier, kind, 1])
+            if (tier, kind, NTRIAL) in found:
+                d["batched"] = {k: found[tier, kind, NTRIAL][k]
+                                for k in ("nb", "max_abs_err", "rel", "ms", "plain_ms")}
+            name = f"fa_velocity_{kind}_{tier}{sfx}"
+            records[name] = d
+            # the path: the flow at the tier, one launch a pass, at nsteps 1
+            # and NSTEPS
+            for nsteps in (1, NSTEPS):
+                run = lambda fn, p: fn(f, phi, ops, 0., 1., nsteps, kind, p)
+                lfk.reset_launches()
+                out = run(lfk.flow_apply, tier)
+                torch.cuda.synchronize()
+                n, n_strict = (lfk.LAUNCHES[f"fa_velocity_{kind}{x}"] for x in ("_" + tier, ""))
+                path = f"flow_apply {kind} {N}^2 {tier}, nsteps {nsteps}"
+                if nsteps == NSTEPS:
+                    launches[name] = (path, n)
+                line, why = flow_checks({"flow": (out, run(lfk.flow_apply_plain, tier),
+                                                  run(lfk.flow_apply, "f32"))}, tier, nsteps) \
+                    if N <= N_SM90_BATCHED else ("", {})
+                print(f"phase 17: launches in {path}: K3 {n} at the tier (a launch a pass), "
+                      f"{n_strict} strict; the flow finite {bool(torch.isfinite(out).all())}"
+                      + line)
+                if n != 8 * nsteps or n_strict != 0 or not torch.isfinite(out).all() or why:
+                    bad[f"K3 {tier} {kind} {N}^2 path, nsteps {nsteps}"] = (n, n_strict, why)
+    del phi, f, phi_map, inputs
+    proj._tensors.clear()
+    torch.cuda.empty_cache()
+    return records, launches, bad
+
+
+def sm90_k5(torch, card, N):
+    """Phase 17 (d) at N^2: K5 at 'high' and 'bf16' (csrc/uni_sm90.cu), every
+    role and stage, on the strided views of a flow state the uni flows pass
+    it, at batch 1 and (to N_SM90_BATCHED) NTRIAL trials (uni_tiers_factored:
+    every plane against plain at the tier and the strict kernel, the zero
+    planes exact, two launches the same bits, nothing past a plane, timed
+    cold with the bound); into buffers of NaN, 1e30 and zeros the same
+    bits; then the path: the uni forward, adjoint and backward flows (nsteps
+    1 and NSTEPS) at the tier, the launch counters set to 0 just before and
+    read just after: two launches a stage (roles 2, 3, 0: 8 nsteps a flow;
+    role 1: 16 nsteps), no strict K5 launch, each flow finite and, to
+    N_SM90_BATCHED, held to its plain version by flow_checks (as phases 15
+    (c) and 16 (b) hold them at NSTEPS). Returns ({name: record}, {name: (path,
+    launches)}, failures)."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    B, t = N // FA, 0.5
+    ctx = uni_fctx(torch, N)
+    found, bad = uni_tiers_factored(torch, card, ctx, N, ("high", "bf16"), 17,
+                                    batched=N <= N_SM90_BATCHED)
+    ops, phi, f, dy = (ctx[k] for k in ("ops", "phi", "f", "dy"))
+    px, py, calls = uni_operands(torch, ops, phi[None], torch.cat([f, dy])[None], t)
+    records, launches = {}, {}
+    sfx = "" if N == N_MAP else f"_b{B}"
+    for tier in ("high", "bf16"):
+        for key, role, a, b in calls:
+            d = found[tier, key]
+            d["same"], d["clean"] = same_bits(
+                torch, (1, a.shape[1], 4, N, N),
+                lambda o, role=role, a=a, b=b: lfk.uni_velocity_cuda(role, a, b, px, py, o, ops, t,
+                                                                     tier))
+            print(f"phase 17: K5 {tier:4s} role {key} radix {B:2d}: same bits in NaN / 1e30 / 0 "
+                  f"{d['same']}, past the last entry {'untouched' if d['clean'] else 'WRITTEN'}")
+            if not (d["same"] and d["clean"]):
+                bad[f"K5 {tier} role {key} {N}^2 same bits / nothing past an entry"] = (
+                    d["same"], d["clean"])
+            d["source"] = UNI_SM90_SRC
+            records[f"uni_role{key}_{tier}{sfx}"] = d
+        # the path: the uni flows at the tier, two launches a stage, at
+        # nsteps 1 and NSTEPS
+        for nsteps in (1, NSTEPS):
+            run = lambda p, plain=False: (
+                (lfk.uni_flow_apply_plain if plain else lfk.uni_flow_apply)(
+                    f, phi, ops, 0., 1., nsteps, "forward", p),
+                (lfk.uni_flow_apply_plain if plain else lfk.uni_flow_apply)(
+                    f, phi, ops, 0., 1., nsteps, "adjoint", p),
+                *(lfk.uni_flow_bwd_plain if plain else lfk.uni_flow_bwd)(
+                    dy, f, phi, ops, 0., 1., nsteps, p)[::-1])
+            lfk.reset_launches()
+            outs = run(tier)
+            torch.cuda.synchronize()
+            n = [lfk.LAUNCHES[f"uni_role{r}_{tier}"] for r in range(4)]
+            n_strict = sum(lfk.LAUNCHES[f"uni_role{r}"] for r in range(4))
+            finite = all(bool(torch.isfinite(x).all()) for x in outs)
+            line, why = flow_checks(
+                dict(zip(("L", "L^H", "delta f", "delta phi"),
+                         zip(outs, run(tier, plain=True), run("f32")))), tier, nsteps) \
+                if N <= N_SM90_BATCHED else ("", {})
+            path = f"uni flows {N}^2 {tier} (forward, adjoint, backward), nsteps {nsteps}"
+            if nsteps == NSTEPS:
+                for r in range(4):
+                    launches[f"uni_role{r}_{tier}{sfx}"] = (path, n[r])
+            print(f"phase 17: launches in the {path}: K5 roles 0-3 {n} at the tier (two a "
+                  f"stage), {n_strict} strict; the flows finite {finite}" + line)
+            if (n != [8 * nsteps, 16 * nsteps, 8 * nsteps, 8 * nsteps] or n_strict or not finite
+                    or why):
+                bad[f"K5 {tier} {N}^2 path, nsteps {nsteps}"] = (n, n_strict, finite, why)
+    del ctx, phi, f, dy, px, py, calls
     torch.cuda.empty_cache()
     return records, launches, bad
 
@@ -3423,16 +3645,19 @@ def sm90_k2(torch, card):
 
 
 def phase_sm90(torch, card):
-    """Phase 17: the redesigned K1 ('high', 'bf16') at every built radix and
-    K2's redesigned 'bf16' derivative (see the module docstring). Returns
-    (kernel records {name: record}, launches {name: (path, count)})."""
+    """Phase 17: K1, K3 and K5 at 'high' and 'bf16' on the cluster tile at
+    every built radix and K2's redesigned 'bf16' derivative (see the module
+    docstring). Returns (kernel records {name: record}, launches {name:
+    (path, count)})."""
     from cmblensing_tpu_torch.ops import _build
     t_start = time.perf_counter()
     lib = _build.load()
-    print("phase 17: K1 clusters that fit on the card at once (cudaOccupancyMaxActiveClusters; "
-          "radix 4, 8, 16, 32): " + "; ".join(
-              f"{t} {[lib.lf_fderiv_sm90_clusters(i, B) for B in (4, 8, 16, 32)]}"
-              for i, t in ((1, "'high'"), (2, "'bf16'"))) + f" [{card}]")
+    for kernel, fn in (("K1", lib.lf_fderiv_sm90_clusters), ("K3", lib.lf_fa_sm90_clusters),
+                       ("K5", lib.lf_uni_sm90_clusters)):
+        print(f"phase 17: {kernel} clusters that fit on the card at once "
+              "(cudaOccupancyMaxActiveClusters; radix 4, 8, 16, 32): " + "; ".join(
+                  f"{t} {[fn(i, B) for B in (4, 8, 16, 32)]}"
+                  for i, t in ((1, "'high'"), (2, "'bf16'"))) + f" [{card}]")
     records, launches, bad = {}, {}, {}
     for N in N_SM90:
         found, paths, why = sm90_k1(torch, card, N)
@@ -3441,6 +3666,11 @@ def phase_sm90(torch, card):
             name = f"fderiv_{tier}" + ("" if N == N_MAP else f"_b{N // FA}")
             records[name] = d
             launches[name] = (f"flow_bwd {N}^2 {tier}, nsteps 1", paths[tier]["fderiv_" + tier])
+        for check in (sm90_k3, sm90_k5):
+            found, paths, why = check(torch, card, N)
+            bad.update(why)
+            records.update(found)
+            launches.update(paths)
     rec, paths, why = sm90_k2(torch, card)
     bad.update(why)
     records["deriv_bf16"] = rec
@@ -3628,21 +3858,23 @@ def main():
         rec = entry(name.rsplit("_", 1)[0], d, "cmblensing_tpu_torch/csrc/uni.cu", n)
         rec.update(name=name, path=path)
         record["kernels"].append(rec)
-    # the redesigned K1 ('high', 'bf16') at every radix and K2's 'bf16'
-    # derivative (phase 17): one record a kernel and size. Where an earlier
-    # phase records the kernel at that size (K1 'high' at 1024^2 in phase 9,
-    # 2048^2 and 4096^2 in phase 13; 'bf16' K1 and K2 in phase 14), the
-    # record keeps the launches of that phase's path and takes phase 17's
-    # numbers; radix 4 (512^2) comes from phase 17 alone
+    # K1, K3 and K5 at 'high' and 'bf16' on the cluster tile at every radix
+    # and K2's 'bf16' derivative (phase 17): one record a kernel and size.
+    # Where an earlier phase records the kernel at that size (K1, K3 'high'
+    # at 1024^2 in phase 9, 2048^2 and 4096^2 in phase 13; 'bf16' K1, K2, K3
+    # in phase 14; K5 in phases 15 and 16), the record keeps the launches of
+    # that phase's path and takes phase 17's numbers and source; radix 4
+    # (512^2) comes from phase 17 alone, with its path's launches
     for rec in record["kernels"]:
         d = sm90.pop(rec["name"], None)
         if d is not None:
-            rec.pop("batched", None)
-            rec.update({k: d[k] for k in keys + ("batched",) if k in d})
+            if "batched" in d:
+                rec.pop("batched", None)
+            rec.update({k: d[k] for k in keys + ("batched", "source") if k in d})
     for name, d in sm90.items():
         path, n = sm90_launches[name]
-        rec = entry(name.rsplit("_b", 1)[0], d, FDERIV_SM90_SRC, n)
-        rec.update(name=name, path=path)
+        rec = entry(name.rsplit("_b", 1)[0], d, d.get("source", FDERIV_SM90_SRC), n)
+        rec.update(name=name, path=path, source=d.get("source", rec["source"]))
         record["kernels"].append(rec)
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),
                    "MAP_joint_1024_s_per_step": (s_step, plain_s_step),

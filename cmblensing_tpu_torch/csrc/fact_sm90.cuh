@@ -1,0 +1,639 @@
+// The radix-B factored derivative at 'high' and 'bf16' for NVIDIA Hopper
+// (sm_90a) as a device function on a thread-block cluster, fact_sm90, and
+// the launch and set-up helpers of the kernels built on it: K1
+// (fderiv_sm90.cu), K3 (fa_sm90.cu) and K5 (uni_sm90.cu) at those tiers,
+// one launch a pass at every built radix. Their strict tier, and K4 at
+// every tier, run fact_tile (fact_tile.cuh) with its ordered channel
+// groups.
+//
+// Replaces, at the tiers 'high' and 'bf16', the factored in-kernel
+// derivative `_fact_apply` / `_make_ddx_ddy_fact` of
+// cmblensing_tpu/ops/pallas_lenseflow.py (:249, :273) with its products
+// `_mk_dot('high')` (:225) and `_mk_dot('bf16')` (:218), inside `_fa_kernel`
+// (:506, K3) and `_bwdAB_kernel` (:734, K5) as well as alone (K1).
+//
+// The operator (fact_tile.cuh's header has it in full): along an axis of
+// length N = B * A (A = FA = 128), the forward butterfly
+// u_c = sum_r Rf[c][r] x_r over the B blocks r of the operand, the block
+// products y_0 = G_0 u_0, y_{B-1} = G_{B/2} u_{B-1} and, for each complex
+// pair, (Ar u_re - Ai u_im, Ai u_re + Ar u_im), then the inverse
+// butterfly out_r = sum_c Ri[r][c] y_c.
+//
+// Tile and cluster. A tile is every value of the in-block index m (all
+// 128) by TO = 16 pixels across the axis, so each operand strip is read by
+// one tile. Its B channels are split over the NC CTAs of a cluster: NC = 2
+// at radix 4, 8 and 16, 4 at radix 32 (K1; K3 and K5 take one at radix 8,
+// cluster_ctas / velocity_ctas), each CTA holding BC = B / NC channels (2,
+// 4 or 8, 8, 8) as channel pairs (the real pair (0, B - 1) in CTA 0). A
+// 1024^2 pass is 64 tiles, 128 CTAs (64 for K3 and K5); a 4096^2 pass 256
+// tiles, 1024 CTAs, times the planes on the grid's y axis. Each CTA forms its BC
+// channels from all B operand rows (fmaf from 0 over r in order, the
+// order ops/factored_deriv.py::_butterfly_fma mirrors), rounds them (to
+// the bf16 head, and at 'high' the residual too), and runs its block
+// products. Then, after a cluster barrier (every CTA has left its ring),
+// each CTA pushes its channel outputs y_c through distributed shared
+// memory to the CTA that owns their pixels (CTA p owns m in [p MQ, (p + 1)
+// MQ), MQ = 128 / NC) and receives there all B channels of its share;
+// after a second cluster barrier (every push has landed), each CTA sums
+// all B output rows of its pixels over the B channels, in one fixed order,
+// from its own shared memory, and hands each pair of adjacent pixels once
+// to the caller's store: no atomics, so the bits repeat from run to run
+// by construction, and no CTA touches another's memory after the second
+// barrier, so none waits for another before it exits. Pushing (stores)
+// where the first form of this tile pulled (loads of the other CTAs' y_c
+// after the barrier) took the exchange, sums and stores with their
+// barriers from 35 % of a radix-32 'bf16' K1 CTA's cycles to 29 %, the
+// pass 0.87-0.94x (scripts/torch_kernel_phases.py). The operand reaches
+// the cluster from device memory once per tile: the cluster's CTAs run
+// together and load the same strip, so all but the first read of a line
+// hit the L2.
+//
+// Phases overlap. One producer warp streams the CTA's block k-slabs (TK =
+// 16 rows of 128 m, 4 KB a block and half) by cp.async.bulk into a ring of
+// three stages behind full / empty mbarriers; the blocks are repacked once
+// on the host (ops/factored_deriv.py::swizzle_blocks, FactoredOps.FXW /
+// FYTW), each row's 16-byte chunks permuted by the row index, so that the
+// contiguous bulk copy lands in a layout ldmatrix reads without bank
+// conflicts. Eight consumer warps load the operand through the caller's
+// load functor, each thread the B values of its slab position, a slab
+// ahead into registers; they run a slab's products, then form and round
+// the next slab's channels into a double-buffered channel slab. Those
+// loads and the channels they feed are what still holds a radix-32 K1 CTA
+// back (43-50 % of its cycles; K3's two-plane adjoint loads 41-50 %): four
+// CTAs load each strip, and a CTA of 9 warps (one an SM, the registers'
+// limit) hides little of their latency. Staging the operand in shared
+// memory instead ran slower: as 512 64-byte bulk copies a slab from the
+// producer, 3-5x (the copy engine's cost per copy set the pace); as one
+// box of a 4-D tensor map a slab, 1.0-1.2x at radix 32; and as a multicast
+// (each CTA loading 1 / NC of a slab's rows through the load functor and
+// pushing them by st.async into two raw stages of every CTA of the
+// cluster, behind cluster-wide full and empty mbarriers, the 'high' ring
+// cut to two stages at radix 16 and 32 to make room), 1.12-2.05x, the
+// same bits, in all 16 cases of K1 d_x, d_y and K3 forward, adjoint at
+// radix 16 and 32, 'high' and 'bf16' (cold ms, multicast / these loads:
+// K1 'high' 4096^2 d_x 0.5261 / 0.3404, 'bf16' 0.4425 / 0.2322; K3 'high'
+// 4096^2 forward 2.5798 / 2.0190, adjoint 2.4588 / 2.0952, 2048^2 0.4623
+// / 0.3849, 0.4365 / 0.3913; medians of 4 rounds of turns,
+// scripts/torch_kernel_phases.py's A/B before the form was dropped): the
+// operand's loads fell from 21.5 K to 11 K cycles of a radix-32 'high'
+// K1 CTA, but every slab became a cluster-wide handshake, so the first
+// slab (6 K to 15 K), the channels read back from shared memory (17 K to
+// 34 K) and the refill's wait and push (12 K) took more than that, 141 K
+// cycles a CTA against 96 K (NVIDIA H100 80GB HBM3, 700 W).
+//
+// Products on mma.sync (m16n8k16, bf16 in, FP32 accumulate), not wgmma:
+// what bounds the tile is the FP32 butterfly work (4 B operations a pixel,
+// forward and inverse: 0.033 ms a 4096^2 pass at the FP32 peak) and its
+// bytes, not the tensor cores (the products of a 4096^2 'bf16' pass are
+// 8.3 GFLOP, 0.0084 ms at the bf16 peak, three times that at 'high'), and
+// the consumer warps that form a channel slab are the ones that hold it,
+// so mma.sync reads it with ldmatrix from padded rows where wgmma would
+// need its canonical layout written by those warps and one more barrier a
+// slab.
+//
+// Shared memory (radix 32, 'high'): a ring of three 64 KB block stages (8
+// blocks' head and residual slabs), which receives the y_c of the CTA's
+// share (64 KB) after the last slab; two channel slabs (24 KB); the
+// butterflies (5 KB): 221 KB, one CTA an SM. 'bf16': 113 KB. Radix 8 on
+// one CTA holds the same 8 channels a CTA: 'high' 217 KB, 'bf16' 109 KB. A kernel on
+// this tile holds nothing else in shared memory, so every kernel's
+// clusters fit as K1's do (sm90_init checks it at load).
+//
+// The caller's functors: load(q) returns the operand at offset q of the
+// (Ny, Nx) plane (a product of planes, say); store(q, part) receives the
+// derivative at the adjacent pixels q and q + 1 (x, y of each float2; q
+// even) once, after the second cluster barrier, as the partial sums of
+// fact_tile's channel groups (Parts, one up to radix 8, 2 and 4 at radix
+// 16 and 32), and does with them what its kernel does: a multiply by p, a
+// store, or an add onto what the x pass stored, the groups folded in the
+// order fact_tile's ordered launches add them (fold). Each pixel pair is
+// one thread's and the passes run in stream order, so a read, an add and
+// a store repeat their bits; and a kernel on this tile gives, bit for bit,
+// what the same kernel on fact_tile at that tier would, which keeps the
+// uni flows' delta f (K5 role 0, here) the bits of the kernel backend's
+// (K4, on fact_tile at every tier). At radix 4 and 8 the one group's sum
+// is the single fmaf chain over all B channels. Parts and fold exist only
+// for that match with fact_tile: when K4 moves onto this tile (ROADMAP
+// Queue 2), they go, and the store receives one sum over all B channels
+// in a fixed order.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "lenseflow_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int FA = 128;          // block size A
+constexpr int TO = 16;           // tile pixels across the axis
+constexpr int TK = 16;           // contraction slab: one mma k step
+constexpr int NCW = 8;           // consumer warps
+constexpr int NCT = 32 * NCW;    // consumer threads: one operand-slab position each
+constexpr int NT = NCT + 32;     // and the producer warp
+constexpr int US = TO + 8;       // row stride (bf16) of a staged channel slab [c][k][o]
+static_assert(TO * TK == NCT, "a consumer thread forms one slab position");
+
+enum Axis { AXIS_X = 0, AXIS_Y = 1 };
+
+// The CTAs of a tile's cluster, its channel groups, as a kernel on this
+// tile chooses them: K1 takes cluster_ctas (2 at radix 4, 8 and 16, 4 at
+// radix 32); K3 and K5 take velocity_ctas, one CTA at radix 8, where a
+// cluster of one ran K3 1.02-1.07x faster at 'high' and 1.18-1.33x at
+// 'bf16' than two (1024^2, batch 1 and 17 trials, cold; K1 'high' 2x
+// slower, and every kernel slower at radix 4; NVIDIA H100 80GB HBM3, 700 W)
+__host__ __device__ constexpr int cluster_ctas(int B) { return B == 32 ? 4 : 2; }
+__host__ __device__ constexpr int velocity_ctas(int B) { return B == 8 ? 1 : cluster_ctas(B); }
+__host__ __device__ constexpr int halves(int tier) { return tier == TIER_HIGH ? 2 : 1; }
+constexpr int NSTAGE = 3;        // block-slab stages of the ring
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// bytes of a ring stage: the CTA's block slabs (bf16 [half][slot][k][m])
+__host__ __device__ constexpr int stage_bytes(int B, int NC, int tier) {
+    return halves(tier) * (B / NC) * TK * FA * 2;
+}
+// the values of m whose output pixels a CTA sums and stores (a quarter, a
+// half or all of the tile)
+__host__ __device__ constexpr int mquarter(int NC) { return FA / NC; }
+// bytes of the ring (reused to receive the channel outputs y_c of the
+// CTA's share of the tile, all B channels), the channel slabs and the
+// butterfly rows, then the mbarriers
+__host__ __device__ constexpr int ring_bytes(int B, int NC, int tier) {
+    return cmax(NSTAGE * stage_bytes(B, NC, tier), 4 * B * mquarter(NC) * TO);
+}
+__host__ __device__ constexpr int useg_bytes(int B, int NC, int tier) {
+    return 2 * halves(tier) * (B / NC) * TK * US * 2;
+}
+// the CTA's rows of the forward butterfly, and the inverse one
+__host__ __device__ constexpr int bfly_bytes(int B, int NC) { return 4 * ((B / NC) * B + B * B); }
+__host__ __device__ constexpr size_t smem_bytes(int B, int NC, int tier) {
+    return (size_t)ring_bytes(B, NC, tier) + useg_bytes(B, NC, tier) + bfly_bytes(B, NC) +
+           2 * NSTAGE * 8;
+}
+static_assert(smem_bytes(32, 4, TIER_HIGH) <= 232448 && smem_bytes(8, 1, TIER_HIGH) <= 232448,
+              "a CTA's shared memory fits the 227 KB a block may have");
+
+// The channel and the packed block ([G_0, G_{B/2}, Ar.., Ai..]) that slot s
+// of CTA q holds: slots 2 i, 2 i + 1 are its pair i, the real pair (0,
+// B - 1; G_0, G_{B/2}) as pair 0 of CTA 0, else complex pair p (channels
+// 2p - 1, 2p; blocks Ar_p, Ai_p).
+template <int B, int NC>
+__host__ __device__ constexpr int slot_channel(int q, int s) {
+    const int p = q * (B / NC / 2) + s / 2;
+    return p == 0 ? (s % 2 == 0 ? 0 : B - 1) : 2 * p - 1 + s % 2;
+}
+template <int B, int NC>
+__host__ __device__ constexpr int slot_block(int q, int s) {
+    const int p = q * (B / NC / 2) + s / 2;
+    return p == 0 ? s % 2 : (s % 2 == 0 ? 1 + p : B / 2 + p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    unsigned done;
+    do {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}\n"
+            : "=r"(done)
+            : "r"(smem_addr(bar)), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// bytes from global to this CTA's shared memory, completing on bar
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+            "r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {
+    asm volatile("bar.sync 1, %0;" ::"n"(NCT) : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+// two adjacent floats (8-byte aligned), as the store functors read and
+// write the pixel pairs, and their sum and product, each rounded on its own
+// (never fused into an FMA)
+__device__ __forceinline__ float2 ld2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void st2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ float2 add2(float2 a, float2 b) {
+    return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+}
+__device__ __forceinline__ float2 mul2(float2 a, float2 b) {
+    return make_float2(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y));
+}
+
+// fact_tile's channel groups (fact_tile.cuh::tile_groups: 8 channels, all
+// B up to radix 8), which are this tile's CTAs at radix 16 and 32: the
+// inverse butterfly sums each group's channels on its own and hands the
+// store the groups' partial sums of a pixel pair, in order
+__host__ __device__ constexpr int sm90_groups(int B) { return B <= 8 ? 1 : B / 8; }
+template <int NG>
+struct Parts {
+    float2 g[NG];
+};
+// acc + s(g_i) + s(g_{i+1}) + ... in that order: what fact_tile's launches
+// of groups i, i + 1, ... add onto a pixel (s: the store's per-group
+// transform, a multiply by p, say)
+template <int NG, class S>
+__device__ __forceinline__ float2 fold(float2 acc, const Parts<NG>& part, int i, S s) {
+#pragma unroll
+    for (int k = 0; k < NG; ++k)
+        if (k >= i) acc = add2(acc, s(part.g[k]));
+    return acc;
+}
+
+// One tile (blockIdx.x / NC) of the factored derivative along AXIS at TIER
+// (HIGH or BF16) on a cluster of NC CTAs (see the header); every thread
+// of the CTA calls it. W holds the packed blocks transposed (Gt[c][k][m])
+// as their bf16 [head, residual] split, rows swizzled (swizzle_blocks),
+// (2, B, A, A); 'bf16' reads the heads. bf is (2, B, B) [Rf, Ri]. Nx is the
+// plane's row length; load and store as the header says.
+template <int B, int NC, int AXIS, int TIER, class Load, class Store>
+__device__ __forceinline__ void fact_sm90(const __nv_bfloat16* __restrict__ W,
+                                          const float* __restrict__ bf, int Nx, Load load,
+                                          Store store) {
+    constexpr int BC = B / NC, NH = halves(TIER), MQ = mquarter(NC);
+    constexpr int NST = NSTAGE, SB = stage_bytes(B, NC, TIER);
+    constexpr bool RESID = TIER == TIER_HIGH;
+    constexpr int NP = BC / 2, WPP = NCW / NP, MT = FA / 16 / WPP;   // pairs; warps a pair; m16 tiles a warp
+    constexpr int NS = FA / TK;                // slabs
+    constexpr int SLAB = TK * FA;              // bf16 of a block slab
+    constexpr int ULEN = BC * TK * US;         // bf16 of one half of a channel slab
+    extern __shared__ __align__(128) unsigned char smem[];
+    float* sR = reinterpret_cast<float*>(smem);   // the ring, after the last slab: [c][..]
+    __nv_bfloat16* sU = reinterpret_cast<__nv_bfloat16*>(smem + ring_bytes(B, NC, TIER));
+    float* sRf = reinterpret_cast<float*>(sU + 2 * NH * ULEN);
+    float* sRi = sRf + BC * B;   // [r][q' BC + s']
+    uint64_t* full = reinterpret_cast<uint64_t*>(sRi + B * B);
+    uint64_t* empty = full + NST;
+    auto stage = [&](int s) { return smem + (s % NST) * SB; };
+
+    cg::cluster_group cluster = cg::this_cluster();
+    const int q = (int)cluster.block_rank();
+    const int o0 = (blockIdx.x / NC) * TO;
+    const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
+    LF_CLOCK_START(lf_t);   // phases 0-11, marked by thread 0 (consumer warp 0)
+
+    for (int p = tid; p < BC * B; p += NT) sRf[p] = bf[slot_channel<B, NC>(q, p / B) * B + p % B];
+    for (int p = tid; p < B * B; p += NT) {
+        const int j = p % B;
+        sRi[p] = bf[B * B + (p / B) * B + slot_channel<B, NC>(j / BC, j % BC)];
+    }
+    if (tid == 0) {
+        for (int s = 0; s < NST; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, NCW);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    LF_CLOCK(0, lf_t);   // set-up
+    // a consumer warp's channel outputs, accX[t][j]: m16 tile t of the warp,
+    // n8 tile j, in the mma C layout
+    float accA[MT][2][4], accB[MT][2][4];
+
+    if (wid == NCW) {
+        // producer: slab s's blocks, in slot order, into stage s
+        for (int s = 0; s < NS; ++s) {
+            const int st = s % NST;
+            if (s >= NST) mbar_wait(empty + st, (s / NST - 1) & 1);
+            if (lane == 0) mbar_expect_tx(full + st, SB);
+            __syncwarp();
+            for (int i = lane; i < NH * BC; i += 32)
+                bulk_g2s(stage(s) + i * SLAB * 2,
+                         W + ((size_t)((i / BC) * B + slot_block<B, NC>(q, i % BC)) * FA + s * TK) * FA,
+                         SLAB * 2, full + st);
+            __syncwarp();
+        }
+    } else {
+        const int pair = wid / WPP, mw = (wid % WPP) * MT * 16;
+        const int chA = 2 * pair, chB = chA + 1;   // slots: channels and blocks alike
+        const bool real = q == 0 && pair == 0;
+        // this thread's operand-slab position (kk, o): its B values come
+        // into registers a slab ahead
+        const int kk = AXIS == AXIS_Y ? tid / TO : tid % TK;
+        const int o = AXIS == AXIS_Y ? tid % TO : tid / TK;
+        const size_t q0 = AXIS == AXIS_Y ? (size_t)kk * Nx + o0 + o : (size_t)(o0 + o) * Nx + kk;
+        const size_t kstep = AXIS == AXIS_Y ? (size_t)TK * Nx : TK;
+        const size_t rstep = AXIS == AXIS_Y ? (size_t)FA * Nx : FA;
+        float raw[B];
+        auto fetch = [&](int s) {
+#pragma unroll
+            for (int r = 0; r < B; ++r) raw[r] = load(q0 + s * kstep + r * rstep);
+        };
+        auto butterfly = [&](__nv_bfloat16* u) {
+#pragma unroll
+            for (int ch = 0; ch < BC; ++ch) {
+                float v = 0.f;
+#pragma unroll
+                for (int r = 0; r < B; r += 4) {
+                    const float4 w = ld4(sRf + ch * B + r);
+                    v = fmaf(w.x, raw[r], v);
+                    v = fmaf(w.y, raw[r + 1], v);
+                    v = fmaf(w.z, raw[r + 2], v);
+                    v = fmaf(w.w, raw[r + 3], v);
+                }
+                const __nv_bfloat16 h = __float2bfloat16_rn(v);
+                u[(ch * TK + kk) * US + o] = h;
+                if constexpr (RESID)
+                    u[ULEN + (ch * TK + kk) * US + o] = __float2bfloat16_rn(v - __bfloat162float(h));
+            }
+        };
+#pragma unroll
+        for (int t = 0; t < MT; ++t)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) accA[t][j][e] = accB[t][j][e] = 0.f;
+        // ldmatrix rows this lane names: A (m x k) from the [k][m] block rows,
+        // B (k x o) from the [k][o] channel rows (fact_tile.cuh's slab_mma)
+        const int ka = (lane & 7) + (lane >> 4) * 8, ma = ((lane >> 3) & 1) * 8;
+        const int kb = (lane & 7) + ((lane >> 3) & 1) * 8, ob = (lane >> 4) * 8;
+        const int swz = (lane & 7) << 3;   // the block rows' chunk permutation at row ka
+        auto products = [&](const __nv_bfloat16* sG, const __nv_bfloat16* u) {
+            unsigned uAh[4], uAl[4] = {}, uBh[4], uBl[4] = {};
+            ldsm_x4_t(u + (chA * TK + kb) * US + ob, uAh);
+            ldsm_x4_t(u + (chB * TK + kb) * US + ob, uBh);
+            if constexpr (RESID) {
+                ldsm_x4_t(u + ULEN + (chA * TK + kb) * US + ob, uAl);
+                ldsm_x4_t(u + ULEN + (chB * TK + kb) * US + ob, uBl);
+            }
+#pragma unroll
+            for (int t = 0; t < MT; ++t) {
+                const int at = ka * FA + ((mw + 16 * t + ma) ^ swz);
+                unsigned aAh[4], aAl[4] = {}, aBh[4], aBl[4] = {};
+                ldsm_x4_t(sG + chA * SLAB + at, aAh);
+                ldsm_x4_t(sG + chB * SLAB + at, aBh);
+                if constexpr (RESID) {
+                    ldsm_x4_t(sG + (BC + chA) * SLAB + at, aAl);
+                    ldsm_x4_t(sG + (BC + chB) * SLAB + at, aBl);
+                }
+                unsigned nBh[4], nBl[4];   // -Ai: the sign bits flipped, exact
+#pragma unroll
+                for (int i = 0; i < 4; ++i) nBh[i] = aBh[i] ^ 0x80008000u, nBl[i] = aBl[i] ^ 0x80008000u;
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    if (real) {
+                        mma_tier<RESID>(accA[t][j], aAh, aAl, uAh, uAl, j);
+                        mma_tier<RESID>(accB[t][j], aBh, aBl, uBh, uBl, j);
+                    } else {
+                        mma_tier<RESID>(accA[t][j], aAh, aAl, uAh, uAl, j);
+                        mma_tier<RESID>(accA[t][j], nBh, nBl, uBh, uBl, j);
+                        mma_tier<RESID>(accB[t][j], aBh, aBl, uAh, uAl, j);
+                        mma_tier<RESID>(accB[t][j], aAh, aAl, uBh, uBl, j);
+                    }
+                }
+            }
+        };
+
+        fetch(0);
+        butterfly(sU);
+        LF_CLOCK(1, lf_t);   // the first slab's operand and channels
+        for (int s = 0; s < NS; ++s) {
+            if (s + 1 < NS) fetch(s + 1);
+            LF_CLOCK(4, lf_t);   // the next operand slab's loads issued
+            consumer_sync();   // channel slab s is formed, and every warp has left slab s - 1's
+            LF_CLOCK(3, lf_t);   // waiting for the other consumer warps
+            mbar_wait(full + s % NST, (s / NST) & 1);
+            LF_CLOCK(2, lf_t);   // waiting for the block slab
+            products(reinterpret_cast<const __nv_bfloat16*>(stage(s)), sU + (s % 2) * NH * ULEN);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + s % NST);   // stage s read
+            LF_CLOCK(5, lf_t);   // the products
+            if (s + 1 < NS) {
+                butterfly(sU + ((s + 1) % 2) * NH * ULEN);
+                LF_CLOCK(6, lf_t);   // the next slab's channels (its loads' latency included)
+            }
+        }
+        LF_CLOCK(7, lf_t);   // the last slab
+    }
+    cluster.sync();   // every CTA of the cluster has left its ring: it may receive
+    LF_CLOCK(8, lf_t);   // the first cluster barrier
+
+    // Each consumer thread pushes its channel outputs y_c (its accumulators)
+    // to the CTA that sums their pixels: CTA p takes m in [p MQ, (p + 1) MQ)
+    // and receives all B channels there, in (CTA, slot) order, as
+    // sR[c][m - p MQ][o] (y pass) or sR[c][o][m - p MQ] (x pass), through
+    // distributed shared memory; stores, so no load's latency stalls.
+    if (wid < NCW) {
+        const int pair = wid / WPP, mw = (wid % WPP) * MT * 16;
+        const int cA = q * BC + 2 * pair, cB = cA + 1;
+        float* dst[NC];
+#pragma unroll
+        for (int p = 0; p < NC; ++p) dst[p] = cluster.map_shared_rank(sR, p);
+#pragma unroll
+        for (int t = 0; t < MT; ++t)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; e += 2) {   // C layout: (m, o), (m, o + 1)
+                    const int m = mw + 16 * t + lane / 4 + 4 * e, ov = 8 * j + 2 * (lane % 4);
+                    float* d = dst[m / MQ];
+                    const int ml = m % MQ;
+                    if (AXIS == AXIS_Y) {
+                        *reinterpret_cast<float2*>(d + (cA * MQ + ml) * TO + ov) =
+                            make_float2(accA[t][j][e], accA[t][j][e + 1]);
+                        *reinterpret_cast<float2*>(d + (cB * MQ + ml) * TO + ov) =
+                            make_float2(accB[t][j][e], accB[t][j][e + 1]);
+                    } else {
+                        d[(cA * TO + ov) * MQ + ml] = accA[t][j][e];
+                        d[(cA * TO + ov + 1) * MQ + ml] = accA[t][j][e + 1];
+                        d[(cB * TO + ov) * MQ + ml] = accB[t][j][e];
+                        d[(cB * TO + ov + 1) * MQ + ml] = accB[t][j][e + 1];
+                    }
+                }
+    }
+    LF_CLOCK(9, lf_t);   // the pushes issued
+    cluster.sync();   // every push has landed; no CTA reads or writes another's memory after
+    LF_CLOCK(10, lf_t);   // the second cluster barrier
+
+    // The inverse butterfly of this CTA's share: all B output rows r of its
+    // pixels, each pair of pixels adjacent in memory (along o in the y pass,
+    // m in the x pass) one thread's, summed over the B channels in (CTA,
+    // slot) order, each group of sm90_groups on its own (fmaf from 0, as
+    // fact_tile sums a group), and handed to the caller's store once.
+    if (tid < NCT) {
+        constexpr int NG = sm90_groups(B), GS = B / NG;   // groups; channels a group
+        constexpr int NPAIR = MQ * TO / 2 / NCT;   // pairs a thread: 4 / NC
+#pragma unroll 1
+        for (int jp = 0; jp < NPAIR; ++jp) {
+            const int idx = tid + jp * NCT;
+            const int ml = AXIS == AXIS_Y ? idx / (TO / 2) : idx % (MQ / 2) * 2;
+            const int ov = AXIS == AXIS_Y ? idx % (TO / 2) * 2 : idx / (MQ / 2);
+            const int at = AXIS == AXIS_Y ? ml * TO + ov : ov * MQ + ml;
+            const int m = q * MQ + ml;
+            float2 y[B];
+#pragma unroll
+            for (int j = 0; j < B; ++j) y[j] = *reinterpret_cast<const float2*>(sR + j * MQ * TO + at);
+#pragma unroll 4
+            for (int r = 0; r < B; ++r) {
+                Parts<NG> part;
+#pragma unroll
+                for (int g = 0; g < NG; ++g) {
+                    float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+                    for (int j = g * GS; j < (g + 1) * GS; j += 4) {
+                        const float4 w = ld4(sRi + r * B + j);
+                        v.x = fmaf(w.x, y[j].x, v.x), v.y = fmaf(w.x, y[j].y, v.y);
+                        v.x = fmaf(w.y, y[j + 1].x, v.x), v.y = fmaf(w.y, y[j + 1].y, v.y);
+                        v.x = fmaf(w.z, y[j + 2].x, v.x), v.y = fmaf(w.z, y[j + 2].y, v.y);
+                        v.x = fmaf(w.w, y[j + 3].x, v.x), v.y = fmaf(w.w, y[j + 3].y, v.y);
+                    }
+                    part.g[g] = v;
+                }
+                store(AXIS == AXIS_Y ? (size_t)(r * FA + m) * Nx + o0 + ov
+                                     : (size_t)(o0 + ov) * Nx + r * FA + m,
+                      part);
+            }
+        }
+    }
+    LF_CLOCK(11, lf_t);   // the inverse butterfly: sums and stores
+}
+
+// The tiles of a pass along AXIS over an (Ny, Nx) plane: one a 16-pixel
+// strip across the axis.
+template <int AXIS>
+unsigned sm90_tiles(int Ny, int Nx) {
+    return (AXIS == AXIS_Y ? Nx : Ny) / TO;
+}
+
+template <int B, int NC, int TIER>
+cudaLaunchConfig_t sm90_config(cudaLaunchAttribute* attr, unsigned ntile, unsigned nplanes,
+                               cudaStream_t st) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(ntile * NC, nplanes, 1);
+    cfg.blockDim = dim3(NT, 1, 1);
+    cfg.dynamicSmemBytes = smem_bytes(B, NC, TIER);
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = NC;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
+// One launch of a kernel on this tile (B, NC, TIER) over ntile tiles and
+// nplanes planes (the grid's y axis) on stream st, by cudaLaunchKernelEx
+// (the cluster dimension is a launch attribute); its error code, or the
+// launch's cudaGetLastError().
+template <int B, int NC, int TIER, class... Params, class... Args>
+int sm90_launch(void (*kernel)(Params...), unsigned ntile, unsigned nplanes, cudaStream_t st,
+                Args... args) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = sm90_config<B, NC, TIER>(attr, ntile, nplanes, st);
+    const int rc = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+    return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+// Allow a kernel on this tile its dynamic shared memory, and count the
+// clusters of it that fit on the card at once
+// (cudaOccupancyMaxActiveClusters) into *n.
+template <int B, int NC, int TIER, class... Params>
+int sm90_prepare(void (*kernel)(Params...), int* n) {
+    const int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem_bytes(B, NC, TIER));
+    if (rc != 0) return rc;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = sm90_config<B, NC, TIER>(attr, 1, 1, 0);
+    return (int)cudaOccupancyMaxActiveClusters(n, (const void*)kernel, &cfg);
+}
+
+template <int V>
+using ic = std::integral_constant<int, V>;
+
+// f(ic<B>(), ic<TIER>()) at the run-time radix Bv and reduced tier `tier`
+// (the radices built: ops/deriv.py::BUILT_RADICES); other values refused.
+template <class F>
+int sm90_dispatch(int tier, int Bv, F f) {
+#define LF_SM90_RADICES(T)                      \
+    switch (Bv) {                               \
+        case 4: return f(ic<4>(), ic<T>());     \
+        case 8: return f(ic<8>(), ic<T>());     \
+        case 16: return f(ic<16>(), ic<T>());   \
+        case 32: return f(ic<32>(), ic<T>());   \
+        default: return (int)cudaErrorInvalidValue; \
+    }
+    if (tier == TIER_HIGH) LF_SM90_RADICES(TIER_HIGH)
+    if (tier == TIER_BF16) LF_SM90_RADICES(TIER_BF16)
+#undef LF_SM90_RADICES
+    return (int)cudaErrorInvalidValue;
+}
+
+// Every instantiation of a kernel on this tile, by prepare(tier, B, &n)
+// (sm90_prepare of both passes): its dynamic shared memory allowed, and an
+// error code where not one of its clusters fits on the card.
+template <class P>
+int sm90_init(P prepare) {
+    const int tiers[] = {TIER_HIGH, TIER_BF16}, radices[] = {4, 8, 16, 32};
+    for (int tier : tiers)
+        for (int B : radices) {
+            int n = 0;
+            const int rc = prepare(tier, B, &n);
+            if (rc != 0) return rc;
+            if (n < 1) return (int)cudaErrorInvalidConfiguration;
+        }
+    return 0;
+}
+
+}  // namespace
+
+// The set-up entries of the kernel template `kernel<B, AXIS, TIER>` on this
+// tile, its clusters of ctas(B) CTAs: init_name() allows every instantiation its shared memory once
+// after loading, before any launch, and returns an error code where one of
+// its clusters does not fit (sm90_init); clusters_name(tier, B) returns
+// the clusters of radix B at `tier` that fit on the card at once (the
+// lesser of the two passes'), or minus a CUDA error code.
+#define LF_SM90_SETUP(kernel, ctas, init_name, clusters_name)                                 \
+    namespace {                                                                               \
+    int kernel##_prepare(int tier, int Bv, int* n) {                                          \
+        return sm90_dispatch(tier, Bv, [&](auto b, auto t) {                                  \
+            constexpr int B_ = decltype(b)::value, T_ = decltype(t)::value;                   \
+            int nx = 0, ny = 0;                                                               \
+            int rc = sm90_prepare<B_, ctas(B_), T_>(kernel<B_, AXIS_X, T_>, &nx);             \
+            if (rc == 0) rc = sm90_prepare<B_, ctas(B_), T_>(kernel<B_, AXIS_Y, T_>, &ny);    \
+            *n = nx < ny ? nx : ny;                                                           \
+            return rc;                                                                        \
+        });                                                                                   \
+    }                                                                                         \
+    }                                                                                         \
+    extern "C" int init_name() { return sm90_init(kernel##_prepare); }                        \
+    extern "C" int clusters_name(int tier, int B) {                                           \
+        int n = 0;                                                                            \
+        const int rc = kernel##_prepare(tier, B, &n);                                         \
+        return rc != 0 ? -rc : n;                                                             \
+    }

@@ -1,9 +1,10 @@
 // The radix-B factored derivative as a tiled device function, shared by
-// the factored LenseFlow kernels (factored.cu: K1 strict, K3, K4; uni.cu:
-// K5). K1's 'high' and 'bf16' tiers no longer run it: they are
-// fderiv_sm90.cu, one launch a pass, its channel groups the CTAs of a
-// cluster; what this header says of K1 at those tiers describes the form
-// they ran before.
+// the factored LenseFlow kernels it runs: K1, K3 and K5 strict
+// (factored.cu, uni.cu) and K4 at every tier. K1, K3 and K5 at 'high' and
+// 'bf16' run the cluster tile fact_sm90 instead (fact_sm90.cuh;
+// fderiv_sm90.cu, fa_sm90.cu, uni_sm90.cu: one launch a pass, the channel
+// groups the CTAs of a cluster); what this header says of K1 and K3 at
+// those tiers describes the form they ran before.
 //
 // The factored derivative along an axis of length N = B * A (A = FA = 128):
 // a real butterfly over the B row (or column) blocks r of the operand,

@@ -4,8 +4,7 @@
 //
 // Replaces, from cmblensing_tpu/ops/pallas_lenseflow.py:
 //   K1  the factored in-kernel derivative `_fact_apply` / `_make_ddx_ddy_fact`
-//       -> the device function fact_tile, and lf_fderiv (out = d_x a + d_y b + c;
-//       its 'high' and 'bf16' tiers run fderiv_sm90.cu, one launch a pass)
+//       -> the device function fact_tile, and lf_fderiv (out = d_x a + d_y b + c)
 //   K3  `_fa_kernel` (launched by `_fa_call`): a forward or adjoint velocity,
 //       the role a runtime argument                -> lf_fa_velocity
 //   K4  `_bv_kernel` (`_bv_call`, driven by `_bv_flow`): one backward
@@ -13,22 +12,28 @@
 //       w = sum_c delta f_c grad f_c, then u = M^-1 w and the five hoisted
 //       delta-phi integrands (as lf_velocity's backward kind)  -> lf_bv_velocity
 //
-// Each is built on the tiled factored derivative `fact_tile` (fact_tile.cuh),
-// instantiated three times: FP32 (the JAX package's precision 'f32'),
-// 'high' (its `_mk_dot('high')` body, pallas_lenseflow.py:225: bf16 head
-// and residual split, three bf16 products a block product, on mma.sync)
-// and 'bf16' (`_mk_dot('bf16')`, :218: one bf16 product of the rounded
-// operands). Each entry takes an `int tier` (lenseflow_common.cuh::Tier)
-// that picks the instantiation; at 'high' the blocks come split ([head,
-// residual] bf16, FactoredOps.FXS / FYTS), at 'bf16' as those heads
-// (FXS[0], FYTS[0]), where the FP32 form takes them in FP32.
+// K1 and K3 at 'high' and 'bf16' run the cluster tile fact_sm90
+// (fact_sm90.cuh; fderiv_sm90.cu, fa_sm90.cu: one launch a pass at every
+// radix, the channel groups the CTAs of a cluster, no atomics); their
+// strict tier, and K4 at every tier, run the tiled factored derivative
+// `fact_tile` (fact_tile.cuh), instantiated three times: FP32 (the JAX
+// package's precision 'f32'), 'high' (its `_mk_dot('high')` body,
+// pallas_lenseflow.py:225: bf16 head and residual split, three bf16
+// products a block product, on mma.sync) and 'bf16' (`_mk_dot('bf16')`,
+// :218: one bf16 product of the rounded operands; K4 alone at those two).
+// Each entry takes an `int tier` (lenseflow_common.cuh::Tier) that picks
+// the form; at 'high' K4's blocks come split ([head, residual] bf16,
+// FactoredOps.FXS / FYTS), at 'bf16' as those heads (FXS[0], FYTS[0]),
+// where the FP32 form takes them in FP32, and the cluster tile takes them
+// split with their rows swizzled (FXW / FYTW).
 // The TPU kernels hold whole planes in VMEM. A 1024^2 f32 plane is 4 MiB,
 // far beyond a block's 227 KB of shared memory, so here every derivative
 // is tiled, and a velocity is two launches: an x pass that stores and a y
-// pass that accumulates (at radix 16 and 32, a launch per channel group
-// each; fact_tile.cuh). The grid's z axis runs over batch x component
-// (K1, K3) or batch (K4), so a batched flow (the line search's trials,
-// each with its own phi) is one launch per pass.
+// pass that accumulates (on fact_tile at radix 16 and 32, a launch per
+// channel group each; fact_tile.cuh). The grid's z axis (the cluster
+// tile's y axis) runs over batch x component (K1, K3) or batch (K4), so a
+// batched flow (the line search's trials, each with its own phi) is one
+// launch per pass.
 //
 // What bounds it on this card: FP32 FMA. At N = 1024, B = 8 a derivative
 // is 14 A x A x N block products (0.47 GFLOP) against 2.1 GFLOP dense, and
@@ -42,11 +47,11 @@
 // K1 launch fills half the card's 132 SMs, a two-component K3 launch all of
 // them once. A persistent whole-flow kernel is later work.
 //
-// The kernels and their launchers are in factored_kernels.cuh. This source
-// instantiates the FP32 tier and holds the C entries; factored_high.cu and
-// factored_bf16.cu instantiate the 'high' and 'bf16' tiers, so that nvcc
-// builds the three at once (with radix 16 and 32 two tiers in one source
-// took 75 s).
+// The fact_tile kernels and their launchers are in factored_kernels.cuh.
+// This source instantiates their FP32 tier and holds the C entries;
+// factored_high.cu and factored_bf16.cu instantiate K4's 'high' and
+// 'bf16' tiers, so that nvcc builds the sources at once (with radix 16 and
+// 32 two tiers in one source took 75 s).
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
 // stream; each entry point returns the first nonzero cudaGetLastError().
@@ -66,18 +71,22 @@ extern "C" int lf_factored_init() {
     return rc != 0 ? rc : lf_bf16::init();
 }
 
-namespace lf_sm90 {   // K1 at 'high' and 'bf16' (fderiv_sm90.cu)
+namespace lf_sm90 {   // K1 and K3 at 'high' and 'bf16' (fderiv_sm90.cu, fa_sm90.cu)
 int fderiv(int tier, const float* a, const float* b, const float* c, float* out, const void* WX,
            const void* WYT, const float* bfx, const float* bfy, int Bx, int By, int nplanes,
            int Ny, int Nx, void* stream);
+int fa_velocity(int tier, int role, const float* y, float* k, const float* p, const void* WX,
+                const void* WYT, const float* bfx, const float* bfy, int Bx, int By, int nbatch,
+                int ncomp, int Ny, int Nx, void* stream);
 }
 
 // The entries: `tier` picks FP32 (0), 'high' (1) or 'bf16' (2). FX and FYT
 // are the packed blocks, both transposed (fact_tile.cuh): FP32 (B, A, A),
 // at 'high' their bf16 split (2, B, A, A) [head, residual], at 'bf16' the
-// heads (B, A, A). lf_fderiv runs fact_tile strict and fderiv_sm90.cu at
-// 'high' and 'bf16', which takes the split blocks with their rows swizzled
-// (FactoredOps.FXW / FYTW, (2, B, A, A); 'bf16' reads the heads).
+// heads (B, A, A). lf_fderiv and lf_fa_velocity run fact_tile strict and
+// the cluster tile (fderiv_sm90.cu, fa_sm90.cu) at 'high' and 'bf16',
+// which takes the split blocks with their rows swizzled (FactoredOps.FXW /
+// FYTW, (2, B, A, A); 'bf16' reads the heads).
 extern "C" int lf_fderiv(int tier, const float* a, const float* b, const float* c, float* out,
                          const void* FX, const void* FYT, const float* bfx, const float* bfy,
                          int Bx, int By, int nplanes, int Ny, int Nx, void* stream) {
@@ -91,11 +100,11 @@ extern "C" int lf_fa_velocity(int tier, int role, const float* y, float* k, cons
                               const void* FX, const void* FYT, const float* bfx,
                               const float* bfy, int Bx, int By, int nbatch, int ncomp, int Ny,
                               int Nx, void* stream) {
-    const auto fn = tier_fn(tier, fa_velocity<TIER_F32>, lf_high::fa_velocity,
-                            lf_bf16::fa_velocity);
-    return fn == nullptr ? (int)cudaErrorInvalidValue
-                         : fn(role, y, k, p, FX, FYT, bfx, bfy, Bx, By, nbatch, ncomp, Ny, Nx,
-                              stream);
+    if (tier == TIER_F32)
+        return fa_velocity<TIER_F32>(role, y, k, p, FX, FYT, bfx, bfy, Bx, By, nbatch, ncomp, Ny,
+                                     Nx, stream);
+    return lf_sm90::fa_velocity(tier, role, y, k, p, FX, FYT, bfx, bfy, Bx, By, nbatch, ncomp, Ny,
+                                Nx, stream);
 }
 
 extern "C" int lf_bv_velocity(int tier, const float* y, float* k, const float* phi,

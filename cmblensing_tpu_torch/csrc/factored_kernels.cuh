@@ -1,8 +1,10 @@
-// The factored LenseFlow kernels (K1 strict, K3, K4) and their host
-// launchers, shared by the three sources that instantiate them, one
-// precision tier each: factored.cu (FP32, and the C entries),
-// factored_high.cu ('high') and factored_bf16.cu ('bf16'), compiled in
-// parallel. See factored.cu for what each kernel replaces and computes.
+// The factored LenseFlow kernels on fact_tile (K1 and K3 strict, K4 at
+// every tier) and their host launchers, shared by the three sources that
+// instantiate them, one precision tier each: factored.cu (FP32, and the C
+// entries), factored_high.cu ('high') and factored_bf16.cu ('bf16'),
+// compiled in parallel. K1 and K3 at 'high' and 'bf16' run the cluster
+// tile (fact_sm90.cuh: fderiv_sm90.cu, fa_sm90.cu). See factored.cu for
+// what each kernel replaces and computes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,7 +25,8 @@ constexpr int NACC = 5;   // delta-phi accumulator planes of the backward state
 // of a load, add and store, the same in every run. Radix 16 and 32 run
 // fact_tile's channel groups as launches of their own, in order (g, every
 // kernel's last argument): group 0 stores where the one-group tile
-// stores, and every later group adds.
+// stores, and every later group adds. (The cluster tile's kernels need
+// none of this: each pixel is summed over every channel in one CTA.)
 
 // K1, strict: out = D a (+ c), or out += D a, along AXIS over blockIdx.z
 // planes. G: the FP32 blocks (fact_tile.cuh).
@@ -49,8 +52,9 @@ fderiv_kernel(const float* __restrict__ a, const float* __restrict__ c, float* _
         });
 }
 
-// K3: one pass of a forward (role 0: p . grad y, p multiplied after the
-// derivative) or adjoint (role 1: div(p y), p multiplied before) velocity.
+// K3, strict: one pass of a forward (role 0: p . grad y, p multiplied
+// after the derivative) or adjoint (role 1: div(p y), p multiplied before)
+// velocity (at 'high' and 'bf16': fa_sm90.cu).
 // The x pass stores p_x d_x y (or d_x(p_x y)), the y pass adds the y term.
 // blockIdx.z = batch * ncomp + component; p holds the planes (p_x, p_y) of
 // every batch entry, (2, nbatch, Ny, Nx).
@@ -140,12 +144,12 @@ bv_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
 template <int B, int TIER>
 int allow_smem() {
     int rc = 0;
-    if constexpr (TIER == TIER_F32) {   // K1's reduced tiers run fderiv_sm90.cu
+    if constexpr (TIER == TIER_F32) {   // K1's, K3's reduced tiers run fact_sm90.cuh
         rc = allow_tile_smem(fderiv_kernel<B, AXIS_X, TIER>, B, TIER);
         if (rc == 0) rc = allow_tile_smem(fderiv_kernel<B, AXIS_Y, TIER>, B, TIER);
+        if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_X, TIER>, B, TIER);
+        if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_Y, TIER>, B, TIER);
     }
-    if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_X, TIER>, B, TIER);
-    if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_Y, TIER>, B, TIER);
     if (rc == 0) rc = allow_tile_smem(bv_kernel<B, AXIS_X, TIER>, B, TIER);
     if (rc == 0) rc = allow_tile_smem(bv_kernel<B, AXIS_Y, TIER>, B, TIER);
     return rc;
@@ -187,7 +191,8 @@ int fderiv(const float* a, const float* b, const float* c, float* out, const voi
 
 // k <- the forward (role 0) or adjoint (role 1) velocity of the
 // (nbatch, ncomp, Ny, Nx) state y under the p(t) planes p, (2, nbatch, Ny,
-// Nx). Two launches a channel group.
+// Nx), strict (TIER_F32; the reduced tiers are lf_sm90::fa_velocity,
+// fa_sm90.cu). Two launches a channel group.
 template <int TIER>
 int fa_velocity(int role, const float* y, float* k, const float* p, const void* FX,
                 const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nbatch,
@@ -224,16 +229,13 @@ int bv_velocity(const float* y, float* k, const float* phi, const float* p, cons
 
 }  // namespace
 
-// The reduced tiers' launchers of K3 and K4 and their shared-memory set-up,
-// each instantiated in a source of its own: lf_high in factored_high.cu
-// (fa_velocity<TIER_HIGH>, ...), lf_bf16 in factored_bf16.cu
-// (fa_velocity<TIER_BF16>, ...). K1's reduced tiers are lf_sm90::fderiv
-// (fderiv_sm90.cu).
+// The reduced tiers' launcher of K4 and its shared-memory set-up, each
+// instantiated in a source of its own: lf_high in factored_high.cu
+// (bv_velocity<TIER_HIGH>, ...), lf_bf16 in factored_bf16.cu
+// (bv_velocity<TIER_BF16>, ...). K1's and K3's reduced tiers are
+// lf_sm90::fderiv and lf_sm90::fa_velocity (fderiv_sm90.cu, fa_sm90.cu).
 #define LF_TIER_ENTRIES(ns)                                                                    \
     namespace ns {                                                                              \
-    int fa_velocity(int role, const float* y, float* k, const float* p, const void* FX,         \
-                    const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
-                    int nbatch, int ncomp, int Ny, int Nx, void* stream);                       \
     int bv_velocity(const float* y, float* k, const float* phi, const float* p, const void* FX, \
                     const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
                     int nbatch, int ncomp, int Ny, int Nx, float t, void* stream);              \
@@ -245,12 +247,6 @@ LF_TIER_ENTRIES(lf_bf16)
 // Their definitions, in the source that instantiates tier T as namespace ns.
 #define LF_TIER_DEFINE(ns, T)                                                                  \
     namespace ns {                                                                              \
-    int fa_velocity(int role, const float* y, float* k, const float* p, const void* FX,         \
-                    const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
-                    int nbatch, int ncomp, int Ny, int Nx, void* stream) {                      \
-        return ::fa_velocity<T>(role, y, k, p, FX, FYT, bfx, bfy, Bx, By, nbatch, ncomp, Ny,    \
-                                Nx, stream);                                                    \
-    }                                                                                           \
     int bv_velocity(const float* y, float* k, const float* phi, const float* p, const void* FX, \
                     const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
                     int nbatch, int ncomp, int Ny, int Nx, float t, void* stream) {             \

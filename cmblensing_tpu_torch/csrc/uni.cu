@@ -1,7 +1,7 @@
 // The universal role-switched LenseFlow velocity kernel (K5) for NVIDIA
-// Hopper (sm_90a) on factored operands: FP32 FMA, and the 'high' and
-// 'bf16' tiers on the tensor cores (the entry's `tier` argument). Its
-// dense form is uni_dense.cu.
+// Hopper (sm_90a) on factored operands: FP32 FMA here, and the 'high' and
+// 'bf16' tiers on the tensor cores in uni_sm90.cu (the entry's `tier`
+// argument picks). Its dense form is uni_dense.cu.
 //
 // Replaces `_bwdAB_kernel` (cmblensing_tpu/ops/pallas_lenseflow.py, launched
 // by `_uni_call`): every velocity of every flow as calls of one kernel,
@@ -16,14 +16,17 @@
 //   role 2  a, b = two components: out = [p . grad a, p . grad b, 0, 0]
 //   role 3  a, b = two components: out = [div(p a), div(p b), 0, 0]
 //
-// Built on the tiled factored derivative `fact_tile` (fact_tile.cuh), as K3
-// and K4 are: each role is an x pass that stores and a y pass that adds,
-// two launches (a launch a channel group and pass at radix 16 and 32,
-// below). Role 1 nests its derivatives, so it is two such stages: the
-// inner stage forms the two bracketed planes in a
-// scratch buffer (the t p multiply in the load functor, a or b added at
-// store), the outer stage differentiates them. One binary serves every role
-// and every t. A launch takes up to two derivatives per entry, one
+// The strict form is built on the tiled factored derivative `fact_tile`
+// (fact_tile.cuh), as strict K3 and K4 are: each role is an x pass that
+// stores and a y pass that adds, two launches (a launch a channel group and
+// pass at radix 16 and 32, below). The 'high' and 'bf16' form
+// (uni_sm90.cu) keeps this contract on the cluster tile fact_sm90, one
+// launch a pass at every radix and no atomics. Role 1 nests its
+// derivatives, so it is two such stages: the inner stage forms the two
+// bracketed planes in a scratch buffer (the t p multiply in the load
+// functor, a or b added at store), the outer stage differentiates them.
+// One binary serves every role and every t. A launch takes up to two
+// derivatives per entry, one
 // fact_tile call each on blocks of their own, with the role's load and
 // store chosen at run time inside the functors, so the kernel holds one
 // fact_tile instantiation per radix and axis; the branches are uniform
@@ -41,35 +44,25 @@
 // derivative is 0.47 GFLOP of block products and 4 planes of butterflies;
 // roles 0, 2 and 3 do 4 derivatives, role 1 six, against 8 planes of
 // traffic (a, b, px, py in, out). Role 1 also moves its scratch (2 planes
-// written, read and re-read). It runs on K1's tile as K3 and K4 do (see
-// fact_tile.cuh for what that tile does about the shared-memory load
+// written, read and re-read). It runs on K1's strict tile as K3 and K4 do
+// (see fact_tile.cuh for what that tile does about the shared-memory load
 // rate, butterfly recomputation and latency) and spends nothing on the
-// zero planes beyond their stores. At 'high' and 'bf16' the block
-// products shrink to a few percent of the tile's time and its other
-// phases set the pace, bound by bytes as K3's reduced tiers are
-// (fact_tile.cuh).
+// zero planes beyond their stores.
 //
 // Tiers: `_bwdAB_kernel` builds its derivatives with `_make_dd_any(...,
 // precision, fmeta)`, `_mk_dot('high')` (:225) or `_mk_dot('bf16')` (:218)
-// at the reduced tiers; here fact_tile<B, AXIS, TIER> (fact_tile.cuh) runs
-// them, the blocks split ([head, residual] bf16, FactoredOps.FXS / FYTS)
-// at 'high', their heads at 'bf16', every channel value split or rounded
-// as its slab is formed. Role 1's outer stage differentiates the inner
-// stage's stored sums, so at a reduced tier it rounds those sums, as JAX
-// rounds `a + ddx(t px a) + ddy(t py a)`. The loads, stores and the y
-// pass's one add per pixel are the FP32 form's at every tier.
+// at the reduced tiers; uni_sm90.cu runs those (fact_sm90.cuh).
 //
-// Radix 16 and 32 run fact_tile's channel groups as K1, K3 and K4 do
-// (LF_TILE_LAUNCH): a launch a group and pass, in order, g the last
+// Radix 16 and 32 run fact_tile's channel groups as strict K1 and K3, and
+// K4, do (LF_TILE_LAUNCH): a launch a group and pass, in order, g the last
 // argument, each adding its partial sum of the derivative. The x pass's
 // group 0 stores where the one-group kernel stores and every later launch
 // adds, so each later group adds only what is linear in its partial sum:
 // role 0's b d_x a and b d_y a, each pass's own plane, are stored by that
 // pass's group 0 and added to by its later groups; role 1's "+ a" (or
 // "+ b") and the planes a role leaves at zero are written by the x pass's
-// group 0 alone. At a reduced tier role 1's outer stage splits or rounds
-// the inner sums, which are now also summed over the groups (in the
-// launches' fixed order, so the bits are the same every run).
+// group 0 alone (in the launches' fixed order, so the bits are the same
+// every run).
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
 // stream; the entry point returns the first nonzero cudaGetLastError().
@@ -158,8 +151,8 @@ int allow_uni() {
     return rc != 0 ? rc : allow_uni_radix<32, TIER>();
 }
 
-// One velocity at one tier: an x pass and a y pass a stage, a launch a
-// channel group each.
+// One velocity, strict: an x pass and a y pass a stage, a launch a channel
+// group each.
 template <int TIER>
 int uni_velocity(int role, const float* a, const float* b, long long a_bs, long long a_cs,
                  long long b_bs, long long b_cs, const float* px, const float* py, float* out,
@@ -184,22 +177,27 @@ int uni_velocity(int role, const float* a, const float* b, long long a_bs, long 
 
 }  // namespace
 
-// Once after loading, before any launch: the kernel's dynamic shared memory
-// at every tier (the 'high' ring is 115 KB at B = 8).
-extern "C" int lf_uni_init() {
-    int rc = allow_uni<TIER_F32>();
-    if (rc == 0) rc = allow_uni<TIER_HIGH>();
-    return rc != 0 ? rc : allow_uni<TIER_BF16>();
+namespace lf_sm90 {   // K5 at 'high' and 'bf16' (uni_sm90.cu)
+int uni_velocity(int tier, int role, const float* a, const float* b, long long a_bs,
+                 long long a_cs, long long b_bs, long long b_cs, const float* px, const float* py,
+                 float* out, float* scratch, const void* WX, const void* WYT, const float* bfx,
+                 const float* bfy, int Bx, int By, int nbatch, int nper, int Ny, int Nx, float t,
+                 void* stream);
 }
+
+// Once after loading, before any launch: the strict kernel's dynamic
+// shared memory (lf_uni_sm90_init allows the other tiers').
+extern "C" int lf_uni_init() { return allow_uni<TIER_F32>(); }
 
 // out <- the role's velocity (see the header) of the (nbatch, nper) entries
 // of a and b, at time t; px, py are (nbatch, Ny, Nx), out is (nbatch, nper,
 // 4, Ny, Nx) and scratch (nbatch, nper, 2, Ny, Nx) (role 1 only; may be
-// null otherwise). `tier` picks FP32 (0), 'high' (1) or 'bf16' (2); FX and
-// FYT are the packed blocks, both transposed (fact_tile.cuh): FP32, at
-// 'high' their bf16 split (2, B, A, A), at 'bf16' their heads. Two
-// launches a channel group (one group up to B = 8, B / 8 from 16), four
-// for role 1.
+// null otherwise). `tier` picks FP32 (0) on fact_tile, FX and FYT the
+// packed blocks, both transposed (fact_tile.cuh), two launches a channel
+// group (one group up to B = 8, B / 8 from 16), four for role 1; or 'high'
+// (1) and 'bf16' (2) on the cluster tile (uni_sm90.cu), FX and FYT the
+// swizzled split blocks (FactoredOps.FXW / FYTW), two launches, four for
+// role 1, a and b and their strides 8-byte aligned.
 extern "C" int lf_uni_velocity(int tier, int role, const float* a, const float* b,
                                long long a_bs, long long a_cs, long long b_bs, long long b_cs,
                                const float* px, const float* py, float* out, float* scratch,
@@ -209,11 +207,10 @@ extern "C" int lf_uni_velocity(int tier, int role, const float* a, const float* 
     if (!shape_ok(Bx, By, Ny, Nx) || role < 0 || role > 3 || nbatch < 1 || nper < 1 ||
         (role == 1 && scratch == nullptr))
         return (int)cudaErrorInvalidValue;
-    const auto fn = tier == TIER_F32    ? &uni_velocity<TIER_F32>
-                    : tier == TIER_HIGH ? &uni_velocity<TIER_HIGH>
-                    : tier == TIER_BF16 ? &uni_velocity<TIER_BF16>
-                                        : nullptr;
-    if (fn == nullptr) return (int)cudaErrorInvalidValue;
-    return fn(role, a, b, a_bs, a_cs, b_bs, b_cs, px, py, out, scratch, FX, FYT, bfx, bfy, Bx, By,
-              nbatch, nper, Ny, Nx, t, (cudaStream_t)stream);
+    if (tier != TIER_F32)
+        return lf_sm90::uni_velocity(tier, role, a, b, a_bs, a_cs, b_bs, b_cs, px, py, out, scratch,
+                                     FX, FYT, bfx, bfy, Bx, By, nbatch, nper, Ny, Nx, t, stream);
+    return uni_velocity<TIER_F32>(role, a, b, a_bs, a_cs, b_bs, b_cs, px, py, out, scratch, FX,
+                                  FYT, bfx, bfy, Bx, By, nbatch, nper, Ny, Nx, t,
+                                  (cudaStream_t)stream);
 }

@@ -94,7 +94,11 @@ def bind(lib):
         "lf_uni_init": [],
         "lf_uni_dense_init": [],
         "lf_fderiv_sm90_init": [],
+        "lf_fa_sm90_init": [],
+        "lf_uni_sm90_init": [],
         "lf_fderiv_sm90_clusters": [I, I],
+        "lf_fa_sm90_clusters": [I, I],
+        "lf_uni_sm90_clusters": [I, I],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -111,7 +115,8 @@ def load():
     if _LIB is None:
         lib = bind(ctypes.CDLL(str(build())))
         for init in (lib.lf_dense_init, lib.lf_factored_init, lib.lf_uni_init,
-                     lib.lf_uni_dense_init, lib.lf_fderiv_sm90_init):
+                     lib.lf_uni_dense_init, lib.lf_fderiv_sm90_init, lib.lf_fa_sm90_init,
+                     lib.lf_uni_sm90_init):
             rc = init()
             if rc != 0:
                 raise RuntimeError(f"{init.__name__} failed with CUDA error {rc}")

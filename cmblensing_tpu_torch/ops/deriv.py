@@ -48,9 +48,10 @@ BUILT_RADICES = (4, 8, 16, 32)
 def radix_groups(B: int) -> int:
     """The channel groups the fact_tile kernels run one after another at
     radix B (csrc/fact_tile.cuh::tile_groups): a block holds at most 8
-    channels. K3, K4, K5 and the strict K1 run them; K1's 'high' and 'bf16'
-    tiers (csrc/fderiv_sm90.cu) no longer do: their channel groups are the
-    CTAs of one cluster, one launch a pass."""
+    channels. K1, K3 and K5 strict and K4 at every tier run them; K1, K3
+    and K5 at 'high' and 'bf16' (csrc/fact_sm90.cuh) do not: their channel
+    groups are the CTAs of one cluster, one launch a pass
+    (ops/lenseflow_kernels.py::pass_launches)."""
     return max(1, B // 8)
 
 

@@ -26,10 +26,10 @@ also travel transposed (FYT), the layout the CUDA tile stages for both
 axes (csrc/fact_tile.cuh). For the 'high' precision the blocks travel
 split as well, (2, B, A, A) bfloat16 [head, residual] of FX and FYT
 (FXS, FYTS), split once per operator; the 'bf16' precision reads their
-heads, FXS[0] and FYTS[0]. K1's 'high' and 'bf16' kernel
-(csrc/fderiv_sm90.cu) reads FXS and FYTS with the rows of each block
-swizzled (FXW, FYTW: `swizzle_blocks`), the layout its bulk copies land in
-shared memory without ldmatrix bank conflicts.
+heads, FXS[0] and FYTS[0]. The 'high' and 'bf16' kernels on the cluster
+tile (csrc/fact_sm90.cuh: K1, K3, K5) read FXS and FYTS with the rows of
+each block swizzled (FXW, FYTW: `swizzle_blocks`), the layout their bulk
+copies land in shared memory without ldmatrix bank conflicts.
 """
 from __future__ import annotations
 
@@ -129,8 +129,8 @@ class FactoredOps(NamedTuple):
     (2, B, A, A) for the 'high' precision, made by `factored_ops`; the
     'high' apply and kernels take them as given, the 'bf16' ones their
     heads FXS[0], FYTS[0] (the blocks rounded to nearest even); FXW and
-    FYTW, FXS and FYTS swizzled (`swizzle_blocks`), what K1's 'high' and
-    'bf16' kernel reads."""
+    FYTW, FXS and FYTS swizzled (`swizzle_blocks`), what the 'high' and
+    'bf16' kernels on the cluster tile (K1, K3, K5) read."""
     FX: torch.Tensor
     FY: torch.Tensor
     bfx: torch.Tensor
@@ -171,11 +171,11 @@ def factored_ops(proj, Bx, By):
 def swizzle_blocks(S):
     """The (..., A, A) blocks S, rows k and columns m, with the 8-element
     (16-byte bf16) chunks of each row permuted: element m of row k moves to
-    column m ^ 8 (k % 8). The map is its own inverse. K1's 'high' and 'bf16'
-    kernel (csrc/fderiv_sm90.cu) bulk-copies 16-row slabs of the blocks
-    into shared memory as they lie; there, the eight rows an ldmatrix phase
-    reads at one m fall in eight distinct bank groups. The rows' length
-    must be a multiple of 64."""
+    column m ^ 8 (k % 8). The map is its own inverse. The 'high' and 'bf16'
+    kernels on the cluster tile (csrc/fact_sm90.cuh) bulk-copy 16-row slabs
+    of the blocks into shared memory as they lie; there, the eight rows an
+    ldmatrix phase reads at one m fall in eight distinct bank groups. The
+    rows' length must be a multiple of 64."""
     if S.shape[-1] % 64:
         raise ValueError(f"swizzle_blocks: rows of {S.shape[-1]}, not a multiple of 64")
     k = torch.arange(S.shape[-2], device=S.device)[:, None]

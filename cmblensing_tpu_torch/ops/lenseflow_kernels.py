@@ -63,8 +63,10 @@ lf_fa_velocity and lf_bv_velocity, csrc/factored.cu, and of
 lf_uni_velocity and lf_uni_dense_velocity, K5) and, for a CPU tensor,
 the plain leaves at that precision, dense or factored; at 'bf16' phi's
 planes are formed strict (PLANES_PRECISION). The uni granularity runs
-every tier, dense and at every built radix (16 and 32 in channel groups,
-as K3, K4 and the strict K1).
+every tier, dense and at every built radix. K1, K3 and K5 at 'high' and
+'bf16' run the cluster tile (csrc/fact_sm90.cuh), one launch a pass at
+every radix; strict, and K4 at every tier, they run fact_tile, at radix
+16 and 32 in channel groups (pass_launches).
 
 The dense kernels take any plane shape (their edge tiles are guarded);
 the factored ones a radix they are built for (ops/deriv.py::deriv_ops).
@@ -87,9 +89,8 @@ NACC = 5   # delta-phi accumulator planes carried by the backward flow
 CUDA_ERROR_INVALID_VALUE = 1   # what a kernel's C entry returns for arguments it does not take
 
 # kernel launches per kernel, counted where each wrapper launches (the
-# factored velocities launch twice per call, an x pass and a y pass, and
-# at radix 16 and 32 so for each channel group; K1 at 'high' and 'bf16'
-# once a pass at every radix)
+# factored velocities launch twice per call, an x pass and a y pass;
+# pass_launches says how many launches a pass takes)
 LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0,
             "rk4_update": 0, "p_planes": 0, "deriv": 0, "fderiv": 0, "fa_velocity_forward": 0,
             "fa_velocity_adjoint": 0, "bv_velocity": 0, "fderiv_high": 0,
@@ -99,8 +100,8 @@ LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0
             "fderiv_bf16": 0, "fa_velocity_forward_bf16": 0, "fa_velocity_adjoint_bf16": 0,
             "bv_velocity_bf16": 0, "velocity_forward_bf16": 0, "velocity_adjoint_bf16": 0,
             "velocity_backward_bf16": 0, "deriv_bf16": 0}
-# K5 at every tier, factored (uni_role*: two launches a call and channel
-# group, four for role 1) and dense (uni_dense_role*: one launch a call,
+# K5 at every tier, factored (uni_role*: two passes a call, four for role
+# 1, pass_launches each) and dense (uni_dense_role*: one launch a call,
 # two for role 1)
 LAUNCHES.update({f"uni{form}_role{r}{sfx}": 0 for form in ("", "_dense") for r in range(4)
                  for sfx in ("", "_high", "_bf16")})
@@ -396,6 +397,20 @@ def deriv_cuda(a, b, c, out, mats, precision="f32"):
     LAUNCHES["deriv" + _SUFFIX[tier]] += 1
 
 
+def pass_launches(B, precision, kernel):
+    """The launches of one pass of a factored kernel at radix B and
+    `precision`: K1, K3 and K5 ('fderiv', 'fa', 'uni') at 'high' and 'bf16'
+    run on the cluster tile (csrc/fact_sm90.cuh), one launch a pass at every
+    radix; strict, and K4 ('bv') at every tier, they run fact_tile, one
+    launch a channel group (ops/deriv.py::radix_groups). Refuses a kernel,
+    tier or radix that no factored kernel runs."""
+    if kernel not in ("fderiv", "fa", "uni", "bv") or precision not in PRECISIONS \
+            or B not in BUILT_RADICES:
+        raise ValueError(f"pass_launches: no factored kernel {kernel!r} at {precision!r}, "
+                         f"radix {B}")
+    return 1 if precision != "f32" and kernel != "bv" else _deriv.radix_groups(B)
+
+
 def _check_factored(name, ops, Ny, Nx):
     """The radices of `ops`, after checking that they fit this plane
     shape and that the kernels are built for them (ops/deriv.py::
@@ -415,8 +430,8 @@ def _check_factored(name, ops, Ny, Nx):
 def _fops(ops, precision="f32", swizzled=False):
     """The operands the factored kernels read: x blocks, transposed y
     blocks (at 'high' both split, at 'bf16' their heads), the two
-    butterflies; `swizzled` (K1 at 'high' and 'bf16'): the split blocks
-    swizzled, whose heads 'bf16' reads."""
+    butterflies; `swizzled` (K1, K3 and K5 at 'high' and 'bf16', the
+    cluster tile): the split blocks swizzled, whose heads 'bf16' reads."""
     if swizzled:
         return ops.FXW, ops.FYTW, ops.bfx, ops.bfy
     if precision == "high":
@@ -441,9 +456,9 @@ def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     """K1: out <- d_x a + d_y b + c through the factored derivative
     kernel at `precision` ('f32', 'high' or 'bf16'); out must not alias a
     or b. Strict: fact_tile, one launch per derivative given and channel
-    group (ops/deriv.py::radix_groups); 'high' and 'bf16'
-    (csrc/fderiv_sm90.cu): one launch per derivative given at every radix,
-    its channel groups the CTAs of a cluster."""
+    group; 'high' and 'bf16' (csrc/fderiv_sm90.cu): one launch per
+    derivative given at every radix, its channel groups the CTAs of a
+    cluster (pass_launches)."""
     from . import _build
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
@@ -461,8 +476,8 @@ def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     rc = _build.load().lf_fderiv(tier, _ptr(a), _ptr(b), _ptr(c), _ptr(out), *fptrs, Bx, By,
                                  nplanes, Ny, Nx, _stream())
     _raise_on(rc, "lf_fderiv")
-    groups = _deriv.radix_groups if tier == 0 else (lambda B: 1)
-    LAUNCHES["fderiv" + _SUFFIX[tier]] += (a is not None) * groups(Bx) + (b is not None) * groups(By)
+    LAUNCHES["fderiv" + _SUFFIX[tier]] += ((a is not None) * pass_launches(Bx, precision, "fderiv")
+                                           + (b is not None) * pass_launches(By, precision, "fderiv"))
 
 
 def _check_batched_state(name, y, k, phi, pt, nstate):
@@ -479,17 +494,20 @@ def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
     """launch(t): K3 (forward, adjoint) or K4 (backward) at `precision`
     ('f32', 'high' or 'bf16'), k <- the velocity of flow `kind` at the batched (nb,
     nstate, Ny, Nx) state y; phi is (nb, 5, Ny, Nx), pt its p(t) planes
-    (2, nb, Ny, Nx). An x pass and a y pass, one launch each per channel
-    group (ops/deriv.py::radix_groups)."""
+    (2, nb, Ny, Nx). An x pass and a y pass (pass_launches each): K3 at
+    'high' and 'bf16' on the cluster tile (csrc/fa_sm90.cu), which reads
+    the swizzled split blocks; strict K3, and K4 at every tier, on
+    fact_tile."""
     from . import _build
     Ny, Nx = y.shape[-2:]
     lib = _build.load()
     tier = _tier_arg(precision)
-    name = "lf_bv_velocity" if kind == "backward" else "lf_fa_velocity"
-    _, fptrs = _operands(name, ops, y, precision)
+    kernel = "bv" if kind == "backward" else "fa"
+    name = f"lf_{kernel}_velocity"
     _check_cuda(name, [y, k, phi, pt])
+    _, fptrs = _operands(name, ops, y, precision, swizzled=tier != 0 and kernel == "fa")
     Bx, By = _check_factored(name, ops, Ny, Nx)
-    nlaunch = _deriv.radix_groups(Bx) + _deriv.radix_groups(By)
+    nlaunch = pass_launches(Bx, precision, kernel) + pass_launches(By, precision, kernel)
     if kind == "backward":
         nb = _check_batched_state(name, y, k, phi, pt, 2 * ncomp + NACC)
         return _launcher(lib.lf_bv_velocity, name, "bv_velocity" + _SUFFIX[tier], nlaunch,
@@ -534,19 +552,21 @@ def uni_velocity_launcher(role, a, b, px, py, out, mats, precision="f32"):
     csrc/uni.cu) over the (nb, nper) entries of a and b, (nb, nper, Ny, Nx)
     views with contiguous planes; px, py (nb, 1, Ny, Nx) and out (nb, nper,
     4, Ny, Nx) contiguous; at `precision` ('f32', 'high' or 'bf16').
-    Factored operands (csrc/uni.cu, every built radix): an x pass and a y
-    pass a stage, a launch a channel group each (radix_groups), two stages
-    for role 1; dense ones (csrc/uni_dense.cu, any plane shape): one
-    launch, two for role 1. Checks, pointers and role 1's
-    scratch are made here once; a flow makes one launcher per K5 call of
-    its velocity."""
+    Factored operands (every built radix): an x pass and a y pass a stage
+    (pass_launches each), two stages for role 1; strict on fact_tile
+    (csrc/uni.cu), at 'high' and 'bf16' on the cluster tile
+    (csrc/uni_sm90.cu), which reads the swizzled split blocks and the
+    pixel pairs of a and b as float2, so their data and strides must keep
+    8-byte alignment; dense ones (csrc/uni_dense.cu, any plane shape): one
+    launch, two for role 1. Checks, pointers and role 1's scratch are made
+    here once; a flow makes one launcher per K5 call of its velocity."""
     from . import _build
     Ny, Nx = out.shape[-2:]
     factored = isinstance(mats, FactoredOps)
     name = "lf_uni_velocity" if factored else "lf_uni_dense_velocity"
     tier = _tier_arg(precision)
-    _, mptrs = _operands(name, mats, out, precision)
     _check_cuda(name, [px, py, out], strided=(a, b))
+    _, mptrs = _operands(name, mats, out, precision, swizzled=factored and tier != 0)
     if role not in (0, 1, 2, 3):
         raise ValueError(f"{name}: role {role}")
     if factored:
@@ -563,13 +583,18 @@ def uni_velocity_launcher(role, a, b, px, py, out, mats, precision="f32"):
         raise ValueError(f"{name}: out must not share storage with an operand")
     if not factored:
         _uni_check_dense(name, mats, a, b, Ny, Nx)
+    elif tier != 0 and any(x.data_ptr() % 8 or x.stride(0) % 2 or x.stride(1) % 2
+                           for x in (a, b)):
+        raise ValueError(f"{name}: at {precision!r} a and b must be 8-byte aligned with even "
+                         "strides (the kernel reads their pixel pairs as float2)")
     scratch = torch.empty((nb, nper, 2, Ny, Nx), dtype=out.dtype, device=out.device) \
         if role == 1 else None
     lib = _build.load()
     head = (tier, role, _ptr(a), _ptr(b), *strides, _ptr(px), _ptr(py), _ptr(out), _ptr(scratch),
             *mptrs)
     if factored:
-        nlaunch = (2 if role == 1 else 1) * (_deriv.radix_groups(Bx) + _deriv.radix_groups(By))
+        nlaunch = (2 if role == 1 else 1) * (pass_launches(Bx, precision, "uni")
+                                             + pass_launches(By, precision, "uni"))
         return _launcher(lib.lf_uni_velocity, name, f"uni_role{role}{_SUFFIX[tier]}", nlaunch,
                          (*head, Bx, By, nb, nper, Ny, Nx))
     return _launcher(lib.lf_uni_dense_velocity, name, f"uni_dense_role{role}{_SUFFIX[tier]}",

@@ -1,0 +1,205 @@
+"""The reduced-tier flows of one checkout of the port against their plain
+versions at nsteps 1 and 7, for a comparison between checkouts; the cold
+times of K3 and K5 at one radix; and the 1024^2 P MAP_joint step at "auto".
+One CUDA card.
+
+    python scripts/torch_flow_witness.py flows --tree DIR --out FILE [--N 512 1024]
+    python scripts/torch_flow_witness.py compare FILE_A FILE_B
+    python scripts/torch_flow_witness.py kernels --tree DIR [--N 1024] [--reps 10]
+    python scripts/torch_flow_witness.py map --tree DIR [--steps 4]
+
+DIR is a checkout of the repository (the parent commit unpacked by
+`git archive`, say); its cmblensing_tpu_torch is imported, and its
+kernels built into DIR/build, in place of this one's. The inputs are
+chip_smoke.py's (weak_lensing_inputs, seed 0), so every checkout sees the
+same ones.
+
+  flows    at each --N, 'high' and 'bf16', nsteps 1 and 7: the kernel
+           backend's L and L^H (K3) and the uni backend's L, L^H and
+           backward flow (delta f, delta phi; K5), each against its plain
+           version at the tier (relative max-abs, every plane) and, in
+           relative Frobenius norm, the distance to plain over the distance
+           to the strict kernel flow (chip_smoke.py's split_ratio);
+           the kernel flows' outputs saved to FILE
+  compare  two such files: for each output, the same bits or how far apart
+  kernels  K3 forward and adjoint (batch 1 and 17 trials) and K5 roles 0-3
+           (batch 1) at 'high' and 'bf16' on --N^2 (radix N / 128):
+           cold device ms (chip_smoke.py's cold_ms) and relative max-abs
+           against the plain version; run it on two checkouts in turns to
+           compare them
+  map      MAP_joint at 1024^2 P, "auto", as chip_smoke.py phase 9 (kernel
+           backend) and phase 15 (uni): 2 warm-up steps, then --steps timed
+
+Prints the card's name and power limit. Exits non-zero without a card.
+"""
+import argparse
+import importlib.util
+import os
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIERS = ("high", "bf16")
+
+
+def smoke():
+    """This checkout's chip_smoke.py as a module (its helpers import the
+    port lazily, so they use whichever package sys.path finds first)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def inputs(cs, torch, N):
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    proj = ct.ProjLambert(N, N, thetapix=cs.THETAPIX_MAP, T=np.float32, device="cuda")
+    ops = deriv.deriv_ops(proj)
+    phi_map, f, dy = cs.weak_lensing_inputs(proj, torch)
+    return ops, lfk.gradhess(phi_map, ops), f, dy
+
+
+def flows(cs, torch, args):
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    saved = {}
+    for N in args.N:
+        ops, phi, f, dy = inputs(cs, torch, N)
+
+        def run(tier, form):
+            ap = {"kernel": lfk.flow_apply, "plain": lfk.flow_apply_plain}[form]
+            uap = {"kernel": lfk.uni_flow_apply, "plain": lfk.uni_flow_apply_plain}[form]
+            ubw = {"kernel": lfk.uni_flow_bwd, "plain": lfk.uni_flow_bwd_plain}[form]
+            out = {}
+            for n in (1, 7):
+                out[n, "K3 L"] = ap(f, phi, ops, 0., 1., n, "forward", tier)
+                out[n, "K3 L^H"] = ap(f, phi, ops, 0., 1., n, "adjoint", tier)
+                out[n, "K5 L"] = uap(f, phi, ops, 0., 1., n, "forward", tier)
+                out[n, "K5 L^H"] = uap(f, phi, ops, 0., 1., n, "adjoint", tier)
+                dphi, df = ubw(dy, f, phi, ops, 0., 1., n, tier)
+                out[n, "K5 delta f"], out[n, "K5 delta phi"] = df, dphi
+            torch.cuda.synchronize()
+            return out
+
+        strict = run("f32", "kernel")
+        for tier in TIERS:
+            k, p = run(tier, "kernel"), run(tier, "plain")
+            for key in k:
+                r = cs.split_ratio(k[key], p[key], strict[key])
+                e = max(cs.rel(a, b) for a, b in zip(k[key].reshape(-1, N, N),
+                                                      p[key].reshape(-1, N, N)))
+                bound = cs.K1_SM90_TOL[tier]
+                print(f"{N}^2 {tier:4s} nsteps {key[0]} {key[1]:12s}: vs plain {e:.3e} (bound "
+                      f"{bound:g}{'' if e < bound else ', OVER'}); Frobenius vs plain "
+                      f"{r['fro']:.3e}, vs strict {r['fro_strict']:.3e}, ratio "
+                      f"{r['split_ratio']:.4f} (bound {cs.FLOW_SPLIT_RATIO:g})", flush=True)
+                saved[f"{N} {tier} {key[0]} {key[1]}"] = k[key].cpu()
+        del ops, phi, f, dy
+        torch.cuda.empty_cache()
+    torch.save(saved, args.out)
+
+
+def compare(args):
+    import torch
+    a, b = torch.load(args.files[0]), torch.load(args.files[1])
+    for key in a:
+        x, y = a[key], b[key]
+        same = torch.equal(x, y)
+        d = float((x - y).abs().max() / y.abs().max())
+        print(f"{key:34s}: {'the same bits' if same else f'differ, relative max-abs {d:.3e}'}")
+
+
+def kernels(cs, torch, args, card):
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    N = args.N[0]
+    ops, phi, f, dy = inputs(cs, torch, N)
+    t = 0.5
+    for nb in (1, cs.NTRIAL):
+        phis = phi[None] if nb == 1 else torch.stack([(0.1 + 0.1 * i) * phi
+                                                      for i in range(nb)])
+        y = f[None] if nb == 1 else torch.stack([torch.roll(f, 7 * i, dims=-1)
+                                                 for i in range(nb)])
+        pt = torch.empty((2, nb, N, N), device="cuda")
+        lfk.p_planes_cuda(t, phis, pt)
+        for tier in TIERS:
+            for kind in ("forward", "adjoint"):
+                o, ref = torch.empty_like(y), torch.empty_like(y)
+                run = lambda o_, y_, kind=kind, tier=tier: lfk.fvelocity_cuda(
+                    kind, y_, o_, phis, pt, ops, 2, t, tier)
+                run(o, y)
+                lfk.fvelocity_plain(kind, y, ref, phis, pt, ops, 2, t, tier)
+                ms = cs.cold_ms(run, (o, y), args.reps, torch)
+                print(f"K3 {tier:4s} {kind:8s} {N}^2 [{nb:2d}]: {ms:.4f} ms cold; vs plain "
+                      f"{cs.rel(o, ref):.3e} [{card}]", flush=True)
+    px, py, calls = cs.uni_operands(torch, ops, phi[None], torch.cat([f, dy])[None], t)
+    for tier in TIERS:
+        for key, role, a, b in calls:
+            if not isinstance(key, int):
+                continue
+            out = torch.empty((1, a.shape[1], 4, N, N), device="cuda")
+            ref = torch.empty_like(out)
+            run = lambda o_, role=role, a=a, b=b, tier=tier: lfk.uni_velocity_cuda(
+                role, a, b, px, py, o_, ops, t, tier)
+            run(out)
+            lfk.uni_velocity_plain(role, a, b, px, py, ref, ops, t, tier)
+            ms = cs.cold_ms(run, (out,), args.reps, torch)
+            print(f"K5 {tier:4s} role {role} {N}^2 [ 1]: {ms:.4f} ms cold; vs plain "
+                  f"{cs.rel(out, ref):.3e} [{card}]", flush=True)
+
+
+def map_step(cs, torch, args, card):
+    import cmblensing_tpu_torch as ct
+    sim = ct.load_sim(thetapix=cs.THETAPIX_MAP, Nside=cs.N_MAP, pol="P", T=np.float32,
+                      seed=cs.SEED, device="cuda")
+    for backend in ("kernel", "uni"):
+        with ct.lenseflow_backend_ctx(backend):
+            run = lambda n: ct.MAP_joint(sim["ds"], nsteps=n, linesearch="grid",
+                                         conjgrad_kwargs=cs.MAP_CG, precision="auto",
+                                         history_keys=("logpdf",))
+            run(cs.MAP_WARM)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(args.steps)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / args.steps
+        lps = [h["logpdf"] for h in res["history"]]
+        print(f"MAP_joint {cs.N_MAP}^2 P \"auto\" on {backend}: {dt:.4f} s/step over "
+              f"{args.steps} steps; logpdfs {lps} [{card}]", flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("mode", choices=("flows", "compare", "kernels", "map"))
+    ap.add_argument("files", nargs="*")
+    ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--N", type=int, nargs="+", default=None)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=4)
+    args = ap.parse_args()
+    if args.mode == "compare":
+        return compare(args)
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_flow_witness: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.tree))
+    cs = smoke()
+    card = cs.card_line()
+    import cmblensing_tpu_torch
+    print(f"{args.mode} on {os.path.dirname(cmblensing_tpu_torch.__file__)} [{card}]", flush=True)
+    if args.mode == "flows":
+        args.N = args.N or [512, 1024]
+        flows(cs, torch, args)
+    elif args.mode == "kernels":
+        args.N = args.N or [1024]
+        kernels(cs, torch, args, card)
+    else:
+        map_step(cs, torch, args, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

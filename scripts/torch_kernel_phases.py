@@ -1,25 +1,32 @@
-"""Where the time of the redesigned K1 and K2 'bf16' kernels goes, by
-clock64 phase, and K2's 'bf16' derivative against the library call, on
-one CUDA card.
+"""Where the time of the kernels on the cluster tile (K1, K3) and of K2's
+'bf16' derivative goes, by clock64 phase, and K2's 'bf16' derivative
+against the library call, on one CUDA card.
 
     python scripts/torch_kernel_phases.py [--N 1024 4096] [--rounds 6]
         [--parent DIR]
 
-Builds two probe libraries from the port's sources into build/ (nvcc,
-sm_90a, in parallel): csrc/fderiv_sm90.cu and csrc/lenseflow.cu with
-LF_CLOCK_PHASES defined (thread 0 of every block adds the clock64 cycles
-between the kernels' phase marks, lenseflow_common.cuh); with --parent,
-also DIR's cmblensing_tpu_torch/csrc/lenseflow.cu as it is (another
-checkout, for example the parent commit unpacked by `git archive`).
-Then:
+Builds probe libraries from the port's sources into build/ (nvcc,
+sm_90a, in parallel): csrc/fderiv_sm90.cu, csrc/fa_sm90.cu and
+csrc/lenseflow.cu with LF_CLOCK_PHASES defined (thread 0 of every block
+adds the clock64 cycles between the kernels' phase marks,
+lenseflow_common.cuh); with --parent, also DIR's
+cmblensing_tpu_torch/csrc/lenseflow.cu as it is and its fderiv_sm90.cu with
+LF_CLOCK_PHASES (another checkout, for example the parent commit unpacked
+by `git archive`). Then:
 
   K1   at each --N, 'high' and 'bf16', d_x and d_y of one plane: the mean
-       cycles a CTA spends in each phase of csrc/fderiv_sm90.cu (set-up,
+       cycles a CTA spends in each phase of csrc/fact_sm90.cuh (set-up,
        the first slab, and per slab the next slab's loads issued, the
        consumer barrier, the block-slab wait, the products and the next
        slab's channels; the two cluster barriers around the push of y_c
-       through DSMEM, and the inverse butterfly), each as a share of the
-       CTA's total;
+       through DSMEM, and the inverse butterfly with the kernel's store),
+       each as a share of the CTA's total;
+       with --parent, then --rounds rounds of cold device times of d_x, in
+       turns, the port's K1 and DIR's (both probe builds, each round in the
+       order port, parent and the next in reverse), and the two outputs'
+       relative max-abs difference;
+  K3   the same phases for both roles of a two-component velocity (one
+       call: the x pass and the y pass);
   K2   the 'bf16' derivative d_x of the masked IP slice's shape (3 x 256^2)
        and of 200^2, 160 x 200 and 600^2 (random planes): the phases of
        csrc/lenseflow.cu::deriv_bf16_kernel (loads issued, load wait,
@@ -48,7 +55,7 @@ sys.path.insert(0, ROOT)
 K1_PHASES = {0: "set-up", 1: "first slab", 4: "next loads issued", 3: "consumer barrier",
              2: "block-slab wait", 5: "products", 6: "next channels", 7: "after the last slab",
              8: "cluster barrier 1", 9: "push y_c (DSMEM stores)", 10: "cluster barrier 2",
-             11: "inverse butterfly"}
+             11: "inverse butterfly and store"}
 K2_PHASES = {0: "loads issued", 1: "load wait", 4: "rounding and barrier", 2: "products",
              3: "stores"}
 
@@ -86,7 +93,8 @@ def ticks(lib, run, nblocks, torch):
 
 def show(label, t, names):
     total = sum(t[i] for i in names)
-    parts = ", ".join(f"{n} {t[i]:.0f} ({100 * t[i] / total:.1f} %)" for i, n in names.items())
+    parts = ", ".join(f"{n} {t[i]:.0f} ({100 * t[i] / total:.1f} %)" for i, n in names.items()
+                      if t[i] > 0)
     print(f"{label}: {total:.0f} cycles a block: {parts}")
 
 
@@ -107,10 +115,12 @@ def main():
     card = cs.card_line()
     print(f"card: {card}")
     jobs = [build("k1", _build.CSRC / "fderiv_sm90.cu", ["LF_CLOCK_PHASES"]),
-            build("k2", _build.CSRC / "lenseflow.cu", ["LF_CLOCK_PHASES"])]
+            build("k2", _build.CSRC / "lenseflow.cu", ["LF_CLOCK_PHASES"]),
+            build("k3", _build.CSRC / "fa_sm90.cu", ["LF_CLOCK_PHASES"])]
     if args.parent:
-        jobs.append(build("parent", os.path.join(args.parent, "cmblensing_tpu_torch", "csrc",
-                                                 "lenseflow.cu")))
+        pcsrc = os.path.join(args.parent, "cmblensing_tpu_torch", "csrc")
+        jobs.append(build("parent", os.path.join(pcsrc, "lenseflow.cu")))
+        jobs.append(build("k1_parent", os.path.join(pcsrc, "fderiv_sm90.cu"), ["LF_CLOCK_PHASES"]))
     for out, proc in jobs:
         log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -120,10 +130,16 @@ def main():
     fd = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
     dd = [I, P, P, P, P, P, P, I, I, I, P]
     probe = {"lf_phase_ticks_read": [P], "lf_phase_ticks_clear": []}
+    fa = [I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
     k1 = load(jobs[0][0], {"lf_fderiv_sm90_probe": fd, "lf_fderiv_sm90_init": [], **probe})
     k2 = load(jobs[1][0], {"lf_deriv": dd, "lf_dense_init": [], **probe})
-    parent = load(jobs[2][0], {"lf_deriv": dd, "lf_dense_init": []}) if args.parent else None
+    k3 = load(jobs[2][0], {"lf_fa_sm90_probe": fa, "lf_fa_sm90_init": [], **probe})
+    parent = load(jobs[3][0], {"lf_deriv": dd, "lf_dense_init": []}) if args.parent else None
+    k1p = (load(jobs[4][0], {"lf_fderiv_sm90_probe": fd, "lf_fderiv_sm90_init": [], **probe})
+           if args.parent else None)
+    assert k1p is None or k1p.lf_fderiv_sm90_init() == 0
     assert k1.lf_fderiv_sm90_init() == 0 and k2.lf_dense_init() == 0
+    assert k3.lf_fa_sm90_init() == 0
     assert parent is None or parent.lf_dense_init() == 0
     ptr, stream = lfk._ptr, lfk._stream
 
@@ -132,7 +148,8 @@ def main():
         ops = deriv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
         a = torch.randn((1, 1, N, N), device="cuda")
         out = torch.empty_like(a)
-        nc = 4 if B == 32 else 2
+        nc = 4 if B == 32 else 2   # csrc/fact_sm90.cuh: cluster_ctas (K1), velocity_ctas (K3)
+        nc3 = 1 if B == 8 else nc
         for tier, name in ((1, "'high'"), (2, "'bf16'")):
             for axis in ("x", "y"):
                 x, y = (a, None) if axis == "x" else (None, a)
@@ -141,7 +158,35 @@ def main():
                     ptr(ops.bfx), ptr(ops.bfy), B, B, 1, N, N, stream())
                 show(f"K1 {name} d_{axis} {N}^2 (radix {B}, {nc} CTAs a cluster)",
                      ticks(k1, run, N // 16 * nc, torch), K1_PHASES)
-        del ops, a, out
+            if k1p is None:
+                continue
+            forms = {f: (lambda o, x_, lib=lib: lib.lf_fderiv_sm90_probe(
+                tier, ptr(x_), None, None, ptr(o), ptr(ops.FXW), ptr(ops.FYTW), ptr(ops.bfx),
+                ptr(ops.bfy), B, B, 1, N, N, stream())) for f, lib in (("port", k1), ("parent", k1p))}
+            outs = {f: torch.empty_like(a) for f in forms}
+            for f in forms:
+                forms[f](outs[f], a)
+            torch.cuda.synchronize()
+            e = float((outs["port"] - outs["parent"]).abs().max() / outs["parent"].abs().max())
+            times = {f: [] for f in forms}
+            for r in range(args.rounds):
+                for f in (("port", "parent") if r % 2 == 0 else ("parent", "port")):
+                    times[f].append(cs.cold_ms(forms[f], (outs[f], a), 20, torch))
+            print(f"K1 {name} d_x {N}^2: port vs parent relative max-abs {e:.3e}; cold ms in "
+                  f"{args.rounds} rounds of turns: " + "; ".join(
+                      f"{f} {', '.join(f'{v:.4f}' for v in t)} (median {float(np.median(t)):.4f})"
+                      for f, t in times.items()) + f" [{card}]")
+        y = torch.randn((1, 2, N, N), device="cuda")
+        p = 0.1 * torch.randn((2, 1, N, N), device="cuda")
+        k = torch.empty_like(y)
+        for tier, name in ((1, "'high'"), (2, "'bf16'")):
+            for role, kind in ((0, "forward"), (1, "adjoint")):
+                run = lambda: k3.lf_fa_sm90_probe(
+                    tier, role, ptr(y), ptr(k), ptr(p), ptr(ops.FXW), ptr(ops.FYTW), ptr(ops.bfx),
+                    ptr(ops.bfy), B, B, 1, 2, N, N, stream())
+                show(f"K3 {name} {kind} {N}^2 (2 components, x and y pass; radix {B}, {nc3} CTAs "
+                     "a cluster)", ticks(k3, run, 2 * 2 * N // 16 * nc3, torch), K1_PHASES)
+        del ops, a, out, y, p, k
         torch.cuda.empty_cache()
 
     shapes = ((3, 256, 256), (1, 200, 200), (1, 160, 200), (1, 600, 600))

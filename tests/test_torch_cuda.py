@@ -293,15 +293,16 @@ def test_batched_irfft2_matches_single_planes_on_card():
         assert rel(out[i], one) < 1e-6
 
 
-def _uni_role_inputs(N, mats, seed=0):
-    """px, py of a batch of two phi's at t = 0.6 and each role's (a, b) as
-    the uni flows pass them: strided views of a (2, 5, N, N) state (a
-    component pair; f and delta f of both components; (u_x, u_y))."""
+def _uni_role_inputs(N, mats, seed=0, nb=2):
+    """px, py of a batch of nb phi's (phi, phi / 2, ...) at t = 0.6 and each
+    role's (a, b) as the uni flows pass them: strided views of a (nb, 5, N,
+    N) state (a component pair; f and delta f of both components; (u_x,
+    u_y))."""
     phi, _, _ = _weak_lensing(N=N)
     planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), mats)
-    planes = torch.stack([planes, 0.5 * planes])
+    planes = torch.stack([planes / (1 + i) for i in range(nb)])
     g = torch.Generator(device="cuda").manual_seed(seed)
-    y = torch.randn((2, 5) + tuple(phi.shape[-2:]), generator=g, device="cuda")
+    y = torch.randn((nb, 5) + tuple(phi.shape[-2:]), generator=g, device="cuda")
     px, py = (p.unsqueeze(1).contiguous() for p in lfk._p_of_t(0.6, planes))
     return px, py, ((0, y[:, :2], y[:, 2:4]), (1, y[:, 4:], 1e-2 * y[:, :1]),
                     (2, y[:, :1], y[:, 1:2]), (3, y[:, :1], y[:, 1:2]))
@@ -475,7 +476,7 @@ def test_factored_high_kernels_match_plain_high_on_card(N, nb):
         assert e[0] < HIGH_TOL and e[1] < HIGH_VS_STRICT and e[2] < HIGH_SPLIT_RATIO, e
 
     lfk.reset_launches()
-    ngroup = tderiv.radix_groups(N // 128)   # K3, K4 launches a pass: one per channel group
+    ngroup = tderiv.radix_groups(N // 128)   # K4 launches a pass: one per channel group
     a, b, c = T(nb, 1, N, N), T(nb, 1, N, N), T(nb, 1, N, N)
     for args in ((a, None, None), (None, b, None), (a, b, c)):
         check(a.shape, lambda o, p: lfk.fderiv_cuda(*args, o, ops, p),
@@ -486,7 +487,7 @@ def test_factored_high_kernels_match_plain_high_on_card(N, nb):
     for kind in ("forward", "adjoint"):
         check(y.shape, lambda o, p: lfk.fvelocity_cuda(kind, y, o, planes, pt, ops, 2, 0.3, p),
               lambda o: lfk.fvelocity_plain(kind, y, o, planes, pt, ops, 2, 0.3, "high"))
-        assert lfk.LAUNCHES[f"fa_velocity_{kind}_high"] == 2 * ngroup
+        assert lfk.LAUNCHES[f"fa_velocity_{kind}_high"] == 2   # K3 'high': a launch a pass
     yb = torch.cat([T(nb, 4, N, N), 1e-3 * T(nb, lfk.NACC, N, N)], dim=1)
     pt = _p_planes(0.7, planes)
     check(yb.shape, lambda o, p: lfk.fvelocity_cuda("backward", yb, o, planes, pt, ops, 2, 0.7, p),
@@ -555,7 +556,8 @@ def test_uni_kernel_roles_at_radix_16_and_32_match_plain_on_card(N, precision):
     lfk.reset_launches()
     _check_uni_roles(ops, px, py, roles, precision, UNI_TOL[precision], f"{N}^2", sentinel=True)
     sfx = "" if precision == "f32" else "_" + precision
-    n = (3 if precision == "f32" else 2) * 2 * tderiv.radix_groups(N // 128)   # calls x passes x groups
+    # calls x passes x launches a pass (channel groups strict, one on the cluster tile)
+    n = (3 if precision == "f32" else 2) * 2 * lfk.pass_launches(N // 128, precision, "uni")
     assert [lfk.LAUNCHES[f"uni_role{r}{sfx}"] for r in range(4)] == [n, 2 * n, n, n], lfk.LAUNCHES
     for role, a, b in roles:
         first = None
@@ -1049,8 +1051,10 @@ def test_factored_bf16_kernels_match_plain_bf16_on_card(N, nb):
           lambda o: lfk.fvelocity_plain("backward", yb, o, planes, pt, ops, 2, 0.7, "bf16"),
           "backward")
     twice = 2 if ngroup > 1 else 1
-    assert all(lfk.LAUNCHES[f"{k}_bf16"] == 2 * ngroup * twice
-               for k in ("fa_velocity_forward", "fa_velocity_adjoint", "bv_velocity"))
+    # K3 one launch a pass (the cluster tile), K4 one a channel group
+    assert all(lfk.LAUNCHES[f"{k}_bf16"] == 2 * lfk.pass_launches(N // 128, "bf16", kern) * twice
+               for k, kern in (("fa_velocity_forward", "fa"), ("fa_velocity_adjoint", "fa"),
+                               ("bv_velocity", "bv")))
 
 
 # K1 at 'high' and 'bf16' (csrc/fderiv_sm90.cu): each tier's bound against
@@ -1241,3 +1245,89 @@ def test_bf16_flows_match_plain_bf16_on_card(N):
     bf16 = sum(v for k_, v in lfk.LAUNCHES.items() if k_.endswith("_bf16"))
     high = sum(v for k_, v in lfk.LAUNCHES.items() if k_.endswith("_high"))
     assert bf16 > 0 and high == 0
+
+
+# K3 and K5 at 'high' and 'bf16' on the cluster tile (csrc/fa_sm90.cu,
+# csrc/uni_sm90.cu): every built radix, at batch 1 and on 17 trials (to
+# 2048^2; 4096^2 at batch 1)
+SM90_CASES = [(N, nb) for N in (512, 1024, 2048, 4096) for nb in (1, 17) if nb == 1 or N < 4096]
+
+
+def _same_bits(shape, kernel):
+    """kernel(out) into buffers of NaN, 1e30 and zeros with one more
+    (sentinel) plane behind out: finite, the same bits for every buffer,
+    the sentinel untouched. Returns the output."""
+    first = None
+    for fill in (float("nan"), 1e30, 0.0):
+        full = torch.full((shape[0] + 1,) + tuple(shape[1:]), fill, device="cuda")
+        kernel(full[:shape[0]])
+        past = full[shape[0]]
+        assert (torch.isnan(past) if fill != fill else past == fill).all(), (fill, "wrote past")
+        assert torch.isfinite(full[:shape[0]]).all(), fill
+        first = full[:shape[0]].clone() if first is None else first
+        assert torch.equal(full[:shape[0]], first), (fill, "not the same bits")
+        del full
+    return first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "bf16"])
+@pytest.mark.parametrize("N,nb", SM90_CASES)
+def test_fa_sm90_matches_plain_on_card(N, nb, precision):
+    """K3 at 'high' and 'bf16' (csrc/fa_sm90.cu), both roles, at every
+    built radix, on nb batch entries each with its own phi: against the
+    plain version at the tier (each plane within HIGH_TOL or BF16_TOL) and
+    the strict kernel (the Frobenius ratio; at 'high' HIGH_VS_STRICT too);
+    into buffers of NaN, 1e30 and zeros finite and the same bits, nothing
+    written past the last entry; one launch a pass at every radix."""
+    _card()
+    ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), ops)
+    planes = torch.stack([planes * (1 - 0.05 * i) for i in range(nb)])
+    y = torch.randn((nb, 2, N, N), generator=torch.Generator(device="cuda").manual_seed(2),
+                    device="cuda")
+    pt = _p_planes(0.3, planes)
+    tol, ratio = K1_TIER[precision]
+    each = lambda x, z: max(rel(u, v) for u, v in zip(x.reshape(-1, N, N), z.reshape(-1, N, N)))
+    for kind in ("forward", "adjoint"):
+        ref, strict = torch.empty_like(y), torch.empty_like(y)
+        lfk.fvelocity_plain(kind, y, ref, planes, pt, ops, 2, 0.3, precision)
+        lfk.fvelocity_cuda(kind, y, strict, planes, pt, ops, 2, 0.3, "f32")
+        lfk.reset_launches()
+        got = _same_bits(y.shape, lambda o: lfk.fvelocity_cuda(kind, y, o, planes, pt, ops, 2,
+                                                                 0.3, precision))
+        assert lfk.LAUNCHES[f"fa_velocity_{kind}_{precision}"] == 3 * 2   # 3 buffers x 2 passes
+        e = (each(got, ref), each(got, strict), split_ratio(got, ref, strict))
+        print(f"K3 {precision} {kind} N={N} nb={nb}: vs plain {e[0]:.3e}, vs strict {e[1]:.3e}, "
+              f"Frobenius ratio {e[2]:.4f}")
+        assert e[0] < tol and e[2] < ratio, e
+        assert precision != "high" or e[1] < HIGH_VS_STRICT, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "bf16"])
+@pytest.mark.parametrize("N,nb", SM90_CASES)
+def test_uni_sm90_roles_match_plain_on_card(N, nb, precision):
+    """K5 at 'high' and 'bf16' (csrc/uni_sm90.cu), every role and stage, at
+    every built radix, on strided views of an (nb, 5, N, N) flow state:
+    against the plain version at the tier and the strict kernel
+    (_check_uni_roles: the zero planes exact, nothing written past the last
+    plane); into buffers of NaN, 1e30 and zeros finite and the same bits;
+    one launch a pass and stage at every radix; a view the kernel cannot
+    read as pixel pairs (an odd stride) refused."""
+    _card()
+    ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
+    px, py, roles = _uni_role_inputs(N, ops, nb=nb)
+    lfk.reset_launches()
+    _check_uni_roles(ops, px, py, roles, precision, UNI_TOL[precision], f"{N}^2 nb {nb}",
+                     sentinel=True)
+    # 2 launches at the tier a call (role 1: 4), _check_uni_roles's two calls
+    assert [lfk.LAUNCHES[f"uni_role{r}_{precision}"] for r in range(4)] == [4, 8, 4, 4]
+    for role, a, b in roles:
+        _same_bits((nb, a.shape[1], 4, N, N), lambda o: lfk.uni_velocity_cuda(
+            role, a, b, px, py, o.view(nb, a.shape[1], 4, N, N), ops, 0.6, precision))
+    odd = torch.empty((nb, 1, N * N + 1), device="cuda")[..., 1:].view(nb, 1, N, N)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        lfk.uni_velocity_cuda(2, odd, odd, px, py, torch.empty((nb, 1, 4, N, N), device="cuda"),
+                              ops, 0.6, precision)

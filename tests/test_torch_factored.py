@@ -226,6 +226,17 @@ def test_deriv_ops_radix_rule():
     assert isinstance(dense, tuple) and dense[0].shape == (256, 256)
 
 
+@pytest.mark.parametrize("B,precision,kernel", [(8, "F32", "fa"), (8, "high", "uni_dense"),
+                                                 (5, "high", "fderiv")])
+def test_pass_launches_refuses_what_no_factored_kernel_runs(B, precision, kernel):
+    """A wrapper's launch count comes from pass_launches, so a tier it does
+    not know (a misspelt 'f32' would count the cluster tile's one launch
+    for the strict kernel's groups), a kernel that is not factored (the
+    dense K5) or a radix no kernel is built for raises instead of counting."""
+    with pytest.raises(ValueError, match="pass_launches"):
+        lfk.pass_launches(B, precision, kernel)
+
+
 @pytest.mark.parametrize("dtype,bound", [(np.float64, 1e-10), (np.float32, 1e-4)])
 def test_kernel_backend_at_512_runs_factored_and_matches_plain(dtype, bound):
     """At 512^2 the 'kernel' backend routes through the factored flows
@@ -266,12 +277,13 @@ def test_factored_wrapper_rejects_devices_without_a_kernel():
 
 
 def test_swizzled_blocks_unpack_to_the_split_blocks():
-    """K1's 'high' and 'bf16' kernel (csrc/fderiv_sm90.cu) reads the split
-    blocks with each row's 8-element chunks permuted by the row index
-    (swizzle_blocks; FactoredOps.FXW, FYTW, made by factored_ops): element
-    m of row k sits at column m ^ 8 (k % 8), the map is its own inverse,
-    so unpacking FXW / FYTW gives back FXS / FYTS exactly; the layout exists
-    only for rows of whole 64-element groups (the kernel's A = 128)."""
+    """The 'high' and 'bf16' kernels on the cluster tile (csrc/fact_sm90.cuh:
+    K1, K3, K5) read the split blocks with each row's 8-element chunks
+    permuted by the row index (swizzle_blocks; FactoredOps.FXW, FYTW, made
+    by factored_ops): element m of row k sits at column m ^ 8 (k % 8), the
+    map is its own inverse, so unpacking FXW / FYTW gives back FXS / FYTS
+    exactly; the layout exists only for rows of whole 64-element groups
+    (the kernels' A = 128)."""
     ops = tfd.factored_ops(ct.ProjLambert(512, 512, thetapix=2, T=np.float32, device="cpu"), 4, 4)
     k, m = torch.arange(128)[:, None], torch.arange(128)[None, :]
     moved = (m ^ (k % 8) * 8).expand(128, 128)
