@@ -97,19 +97,23 @@ port's two paths through the kernel backend:
               13 (d); no K3/K4 launch on "uni".
   phase 17    the kernels on the cluster tile (csrc/fact_sm90.cuh: one
               launch a pass, the channel groups the CTAs of one cluster) at
-              'high' and 'bf16', at 512^2, 1024^2, 2048^2 and 4096^2: (a) K1
+              512^2, 1024^2, 2048^2 and 4096^2: (a) K1 at 'high' and 'bf16'
               (csrc/fderiv_sm90.cu), d_x, d_y and d_x + d_y + c at batch 1
               and on 5 planes, timed cold beside the strict kernel and the
               library call, one launch a pass counted on the backward
-              flow's delta phi; (c) K3 (csrc/fa_sm90.cu), both roles at
-              batch 1 and (to 1024^2) 17 trials, timed cold beside the
-              strict kernel, one launch a pass counted on the forward and
-              adjoint flows; (d) K5 (csrc/uni_sm90.cu), every role and stage
-              on strided views of a flow state at batch 1 and (to 1024^2)
-              17 trials, timed cold, two launches a stage counted on the uni
-              flows; the flows at nsteps 1 and 7, to 1024^2 against their
-              plain versions (flow_checks); each kernel against plain at
-              the tier and the strict kernel,
+              flow's delta phi; (c) K3 at 'high' and 'bf16' on the tile
+              lenseflow_kernels.FORMS puts them on at each radix (the
+              cluster tile, csrc/fa_sm90.cu, or fact_tile) and strict on
+              the cluster tile at radix 16 and 32, both roles at batch 1
+              and (to 1024^2) 17 trials, timed cold beside the strict
+              kernel, one launch a pass counted on the forward and adjoint
+              flows; (d) K5 the same way (csrc/uni_sm90.cu or csrc/uni.cu),
+              every role and stage on strided views of a flow state at
+              batch 1 and (to 1024^2) 17 trials, timed cold, two launches
+              a stage counted on the uni flows; the reduced tiers' flows at
+              nsteps 1 and 7, to 1024^2 against their plain versions
+              (flow_checks); each kernel against plain at the tier (and a
+              reduced tier against the strict kernel),
               the same bits into buffers of NaN, 1e30 and 0, nothing past a
               plane, K5's zero planes exact; (b) K2's 'bf16' derivative on
               the masked IP slice's I, Q, U planes and at 200^2, 160 x 200,
@@ -308,10 +312,12 @@ FDERIV_SM90_SRC = "cmblensing_tpu_torch/csrc/fderiv_sm90.cu"
 N_SM90 = (512, 1024, 2048, 4096)
 NPLANES_SM90 = 5
 K1_SM90_TOL = {"high": HIGH_TOL, "bf16": BF16_TOL}
-# ... and K3 and K5 at 'high' and 'bf16' on the same cluster tile
-# (csrc/fact_sm90.cuh), at every built radix, at batch 1 and (to 1024^2;
-# phases 13, 14 and 16 run them at 2048^2) NTRIAL trials, held to the same
-# bounds (K5: uni_roles), the same bits in buffers of NaN, 1e30 and 0
+# ... and K3 and K5 at 'high' and 'bf16' on the tile lenseflow_kernels.FORMS
+# puts them on (the cluster tile, csrc/fact_sm90.cuh, at radix 16 and 32),
+# strict where that is the cluster tile, at every built radix, at batch 1
+# and (to 1024^2; phases 13, 14 and 16 run them at 2048^2) NTRIAL trials,
+# held to the same bounds (strict: FLOW_TOL; K5: uni_roles), the same bits
+# in buffers of NaN, 1e30 and 0
 FA_SM90_SRC = "cmblensing_tpu_torch/csrc/fa_sm90.cu"
 UNI_SM90_SRC = "cmblensing_tpu_torch/csrc/uni_sm90.cu"
 N_SM90_BATCHED = 1024   # the largest size phase 17 runs NTRIAL trials and flows vs plain at
@@ -3397,22 +3403,47 @@ def flow_checks(flows, tier, nsteps):
     return line, why
 
 
+def sm90_tiers(kernel, B):
+    """The tiers phase 17 runs K3 ('fa') or K5 ('uni') at, radix B: 'high'
+    and 'bf16' on the tile lenseflow_kernels.FORMS puts them on, and the
+    strict tier where FORMS puts it on the cluster tile (radix 16 and 32;
+    on fact_tile phases 5, 8, 13 and 16 hold it)."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    return [p for p in lfk.PRECISIONS if p != "f32" or lfk.FORMS[kernel, p, B] == "cluster"]
+
+
+def form_source(kernel, tier, B):
+    """The tile FORMS runs K3 ('fa') or K5 ('uni') on at (tier, B), and
+    the source of that form."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    form = lfk.FORMS[kernel, tier, B]
+    if form == "cluster":
+        return form, FA_SM90_SRC if kernel == "fa" else UNI_SM90_SRC
+    return form, FACTORED_SRC if kernel == "fa" else "cmblensing_tpu_torch/csrc/uni.cu"
+
+
 def sm90_k3(torch, card, N):
-    """Phase 17 (c) at N^2: K3 at 'high' and 'bf16' (csrc/fa_sm90.cu), both
-    roles, at batch 1 and (to N_SM90_BATCHED) on NTRIAL trials each with
-    its own phi, against plain at the tier and the strict kernel
+    """Phase 17 (c) at N^2: K3 at 'high' and 'bf16' on the tile FORMS puts
+    them on (csrc/fa_sm90.cu, the cluster tile, or fact_tile) and strict on
+    the cluster tile where FORMS puts it there (sm90_tiers), both roles, at
+    batch 1 and (to N_SM90_BATCHED) on NTRIAL trials each with its own
+    phi: strict against its plain version (FLOW_TOL, every plane), a
+    reduced tier against plain at the tier and the strict kernel
     (high_against; every plane: K1_SM90_TOL, at 'high' HIGH_VS_STRICT, the
     Frobenius ratio under HIGH_SPLIT_RATIO); into buffers of NaN, 1e30 and
     zeros the same bits, nothing written past the last entry; timed cold
-    beside the strict kernel, with the tier's bound; then the path: the
-    forward and adjoint flows (nsteps 1 and NSTEPS) at the tier, the
-    launch counters set to 0 just before each and read just after: one
-    launch a pass (8 nsteps a flow), no strict K3 launch, the flow finite
-    and, to N_SM90_BATCHED, held to its plain version by flow_checks
-    (phases 13 and 16 hold the larger flows). Returns ({name: record}, {name: (path, launches)}, failures)."""
+    (a reduced tier beside the strict kernel), with the tier's bound; then
+    the path: the forward and adjoint flows (nsteps 1 and NSTEPS) at the
+    tier, the launch counters set to 0 just before each and read just
+    after: one launch a pass (8 nsteps a flow), no strict K3 launch in a
+    reduced tier's flow, the flow finite and, at a reduced tier to
+    N_SM90_BATCHED, held to its plain version by flow_checks (phases 13 and
+    16 hold the larger flows and the strict ones). Returns ({name: record},
+    {name: (path, launches)}, failures)."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
     B, t = N // FA, 0.5
+    tiers = sm90_tiers("fa", B)
     proj = ct.ProjLambert(N, N, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE)
     ops = deriv.deriv_ops(proj)
     phi_map, f, _ = weak_lensing_inputs(proj, torch)
@@ -3426,52 +3457,67 @@ def sm90_k3(torch, card, N):
     for nb, (y, phis) in inputs.items():
         pt = torch.empty((2, nb, N, N), device=DEVICE)
         lfk.p_planes_cuda(t, phis, pt)
-        for tier in ("high", "bf16"):
+        for tier in tiers:
+            form, src = form_source("fa", tier, B)
             for kind in ("forward", "adjoint"):
                 at = lambda p, kind=kind: (lambda o, y_, ph, pt_: lfk.fvelocity_cuda(
                     kind, y_, o, ph, pt_, ops, 2, t, p))
                 plain = lambda o, kind=kind, tier=tier: lfk.fvelocity_plain(
                     kind, y, o, phis, pt, ops, 2, t, tier)
-                d = high_against(torch, lambda o, p, at=at: at(p)(o, y, phis, pt), plain,
-                                 y.shape, tier)
+                if tier == "f32":
+                    o, ref = torch.full_like(y, float("nan")), torch.empty_like(y)
+                    at(tier)(o, y, phis, pt)
+                    plain(ref)
+                    d = dict(max_abs_err=float((o - ref).abs().max()),
+                             rel=max(rel(a, b) for a, b in zip(o.reshape(-1, N, N),
+                                                               ref.reshape(-1, N, N))))
+                    del o, ref
+                else:
+                    d = high_against(torch, lambda o, p, at=at: at(p)(o, y, phis, pt), plain,
+                                     y.shape, tier)
                 d["same"], d["clean"] = same_bits(torch, y.shape,
                                                   lambda o, at=at, tier=tier: at(tier)(o, y, phis,
                                                                                       pt))
                 o = torch.empty_like(y)
                 reps = (10 if N <= 1024 else 5) if nb == 1 else 3
-                d.update(nb=nb, library_ms=None, source=FA_SM90_SRC,
+                d.update(nb=nb, library_ms=None, source=src, form=form,
                          ms=cold_ms(at(tier), (o, y, phis, pt), reps, torch),
                          plain_ms=cuda_ms(lambda: plain(o), 1, torch),
-                         **bound_high(N, 4, 6, nb, 2, tier))
-                if nb == 1:
+                         **(bound(nb * 4 * fact_deriv_flops(N), nb * 6, N, fact_op_floats(N))
+                            if tier == "f32" else bound_high(N, 4, 6, nb, 2, tier)))
+                if nb == 1 and tier != "f32":
                     d["strict_ms"] = cold_ms(at("f32"), (o, y, phis, pt), reps, torch)
                 del o
                 found[tier, kind, nb] = d
-                if not (d["rel"] < K1_SM90_TOL[tier] and d["split_ratio"] < HIGH_SPLIT_RATIO
-                        and (tier == "bf16" or d["rel_strict"] < HIGH_VS_STRICT)):
-                    bad[f"K3 {tier} {kind} {N}^2 [{nb}]"] = (d["rel"], d["rel_strict"],
-                                                            d["split_ratio"])
+                if tier == "f32":
+                    ok = d["rel"] < FLOW_TOL
+                    vs = f"{d['rel']:.3e} (bound {FLOW_TOL:g})"
+                else:
+                    ok = (d["rel"] < K1_SM90_TOL[tier] and d["split_ratio"] < HIGH_SPLIT_RATIO
+                          and (tier == "bf16" or d["rel_strict"] < HIGH_VS_STRICT))
+                    vs = (f"{d['rel']:.3e} (bound {K1_SM90_TOL[tier]:g}) vs strict "
+                          f"{d['rel_strict']:.3e}, Frobenius ratio {d['split_ratio']:.4f}")
+                if not ok:
+                    bad[f"K3 {tier} {kind} {N}^2 [{nb}]"] = vs
                 if not (d["same"] and d["clean"]):
                     bad[f"K3 {tier} {kind} {N}^2 [{nb}] same bits / nothing past an entry"] = (
                         d["same"], d["clean"])
                 strict = f", strict {d['strict_ms']:.4f}" if "strict_ms" in d else ""
-                print(f"phase 17: K3 {tier:4s} {kind:8s} radix {B:2d} [{nb:2d}] vs plain "
-                      f"{d['rel']:.3e} (bound {K1_SM90_TOL[tier]:g}) vs strict "
-                      f"{d['rel_strict']:.3e}, Frobenius ratio {d['split_ratio']:.4f}; same "
-                      f"bits in NaN / 1e30 / 0 {d['same']}, past the last entry "
+                print(f"phase 17: K3 {tier:4s} {kind:8s} radix {B:2d} [{nb:2d}] on {form} vs "
+                      f"plain {vs}; same bits in NaN / 1e30 / 0 {d['same']}, past the last entry "
                       f"{'untouched' if d['clean'] else 'WRITTEN'}  {d['ms']:.4f} ms cold"
                       f"{strict}, plain {d['plain_ms']:.4f}, bound {d['bound_ms']:.4f} ms "
                       f"({d['bound_by']}, {100 * d['bound_ms'] / d['ms']:.1f} %) [{N}^2; {card}]")
         del pt
     records, launches = {}, {}
     sfx = "" if N == N_MAP else f"_b{B}"
-    for tier in ("high", "bf16"):
+    for tier in tiers:
         for kind in ("forward", "adjoint"):
             d = dict(found[tier, kind, 1])
             if (tier, kind, NTRIAL) in found:
                 d["batched"] = {k: found[tier, kind, NTRIAL][k]
                                 for k in ("nb", "max_abs_err", "rel", "ms", "plain_ms")}
-            name = f"fa_velocity_{kind}_{tier}{sfx}"
+            name = f"fa_velocity_{kind}{'' if tier == 'f32' else '_' + tier}{sfx}"
             records[name] = d
             # the path: the flow at the tier, one launch a pass, at nsteps 1
             # and NSTEPS
@@ -3480,16 +3526,18 @@ def sm90_k3(torch, card, N):
                 lfk.reset_launches()
                 out = run(lfk.flow_apply, tier)
                 torch.cuda.synchronize()
-                n, n_strict = (lfk.LAUNCHES[f"fa_velocity_{kind}{x}"] for x in ("_" + tier, ""))
+                n, n_strict = (lfk.LAUNCHES[f"fa_velocity_{kind}{x}"]
+                               for x in ("" if tier == "f32" else "_" + tier, ""))
+                n_strict = 0 if tier == "f32" else n_strict
                 path = f"flow_apply {kind} {N}^2 {tier}, nsteps {nsteps}"
                 if nsteps == NSTEPS:
                     launches[name] = (path, n)
                 line, why = flow_checks({"flow": (out, run(lfk.flow_apply_plain, tier),
                                                   run(lfk.flow_apply, "f32"))}, tier, nsteps) \
-                    if N <= N_SM90_BATCHED else ("", {})
-                print(f"phase 17: launches in {path}: K3 {n} at the tier (a launch a pass), "
-                      f"{n_strict} strict; the flow finite {bool(torch.isfinite(out).all())}"
-                      + line)
+                    if N <= N_SM90_BATCHED and tier != "f32" else ("", {})
+                print(f"phase 17: launches in {path}: K3 {n} at the tier (a launch a pass)"
+                      + ("" if tier == "f32" else f", {n_strict} strict")
+                      + f"; the flow finite {bool(torch.isfinite(out).all())}" + line)
                 if n != 8 * nsteps or n_strict != 0 or not torch.isfinite(out).all() or why:
                     bad[f"K3 {tier} {kind} {N}^2 path, nsteps {nsteps}"] = (n, n_strict, why)
     del phi, f, phi_map, inputs
@@ -3499,42 +3547,48 @@ def sm90_k3(torch, card, N):
 
 
 def sm90_k5(torch, card, N):
-    """Phase 17 (d) at N^2: K5 at 'high' and 'bf16' (csrc/uni_sm90.cu), every
-    role and stage, on the strided views of a flow state the uni flows pass
-    it, at batch 1 and (to N_SM90_BATCHED) NTRIAL trials (uni_tiers_factored:
-    every plane against plain at the tier and the strict kernel, the zero
-    planes exact, two launches the same bits, nothing past a plane, timed
-    cold with the bound); into buffers of NaN, 1e30 and zeros the same
-    bits; then the path: the uni forward, adjoint and backward flows (nsteps
-    1 and NSTEPS) at the tier, the launch counters set to 0 just before and
-    read just after: two launches a stage (roles 2, 3, 0: 8 nsteps a flow;
-    role 1: 16 nsteps), no strict K5 launch, each flow finite and, to
-    N_SM90_BATCHED, held to its plain version by flow_checks (as phases 15
-    (c) and 16 (b) hold them at NSTEPS). Returns ({name: record}, {name: (path,
-    launches)}, failures)."""
+    """Phase 17 (d) at N^2: K5 at 'high' and 'bf16' on the tile FORMS puts
+    them on (csrc/uni_sm90.cu, the cluster tile, or csrc/uni.cu on
+    fact_tile) and strict on the cluster tile where FORMS puts it there
+    (sm90_tiers), every role and stage, on the strided views of a flow
+    state the uni flows pass it, at batch 1 and (to N_SM90_BATCHED) NTRIAL
+    trials (uni_tiers_factored: every plane against plain at the tier and,
+    at a reduced tier, the strict kernel, the zero planes exact, two
+    launches the same bits, nothing past a plane, timed cold with the
+    bound); into buffers of NaN, 1e30 and zeros the same bits; then the
+    path: the uni forward, adjoint and backward flows (nsteps 1 and
+    NSTEPS) at the tier, the launch counters set to 0 just before and read
+    just after: two launches a stage (roles 2, 3, 0: 8 nsteps a flow; role
+    1: 16 nsteps), no strict K5 launch in a reduced tier's flows, each flow
+    finite and, at a reduced tier to N_SM90_BATCHED, held to its plain
+    version by flow_checks (as phases 15 (c) and 16 (b) hold them at
+    NSTEPS). Returns ({name: record}, {name: (path, launches)}, failures)."""
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
     B, t = N // FA, 0.5
+    tiers = sm90_tiers("uni", B)
     ctx = uni_fctx(torch, N)
-    found, bad = uni_tiers_factored(torch, card, ctx, N, ("high", "bf16"), 17,
-                                    batched=N <= N_SM90_BATCHED)
+    found, bad = uni_tiers_factored(torch, card, ctx, N, tiers, 17, batched=N <= N_SM90_BATCHED)
     ops, phi, f, dy = (ctx[k] for k in ("ops", "phi", "f", "dy"))
     px, py, calls = uni_operands(torch, ops, phi[None], torch.cat([f, dy])[None], t)
     records, launches = {}, {}
     sfx = "" if N == N_MAP else f"_b{B}"
-    for tier in ("high", "bf16"):
+    for tier in tiers:
+        form, src = form_source("uni", tier, B)
+        tsfx = "" if tier == "f32" else "_" + tier
         for key, role, a, b in calls:
             d = found[tier, key]
             d["same"], d["clean"] = same_bits(
                 torch, (1, a.shape[1], 4, N, N),
                 lambda o, role=role, a=a, b=b: lfk.uni_velocity_cuda(role, a, b, px, py, o, ops, t,
                                                                      tier))
-            print(f"phase 17: K5 {tier:4s} role {key} radix {B:2d}: same bits in NaN / 1e30 / 0 "
-                  f"{d['same']}, past the last entry {'untouched' if d['clean'] else 'WRITTEN'}")
+            print(f"phase 17: K5 {tier:4s} role {key} radix {B:2d} on {form}: same bits in NaN / "
+                  f"1e30 / 0 {d['same']}, past the last entry "
+                  f"{'untouched' if d['clean'] else 'WRITTEN'}")
             if not (d["same"] and d["clean"]):
                 bad[f"K5 {tier} role {key} {N}^2 same bits / nothing past an entry"] = (
                     d["same"], d["clean"])
-            d["source"] = UNI_SM90_SRC
-            records[f"uni_role{key}_{tier}{sfx}"] = d
+            d.update(source=src, form=form)
+            records[f"uni_role{key}{tsfx}{sfx}"] = d
         # the path: the uni flows at the tier, two launches a stage, at
         # nsteps 1 and NSTEPS
         for nsteps in (1, NSTEPS):
@@ -3548,19 +3602,20 @@ def sm90_k5(torch, card, N):
             lfk.reset_launches()
             outs = run(tier)
             torch.cuda.synchronize()
-            n = [lfk.LAUNCHES[f"uni_role{r}_{tier}"] for r in range(4)]
-            n_strict = sum(lfk.LAUNCHES[f"uni_role{r}"] for r in range(4))
+            n = [lfk.LAUNCHES[f"uni_role{r}{tsfx}"] for r in range(4)]
+            n_strict = 0 if tier == "f32" else sum(lfk.LAUNCHES[f"uni_role{r}"] for r in range(4))
             finite = all(bool(torch.isfinite(x).all()) for x in outs)
             line, why = flow_checks(
                 dict(zip(("L", "L^H", "delta f", "delta phi"),
                          zip(outs, run(tier, plain=True), run("f32")))), tier, nsteps) \
-                if N <= N_SM90_BATCHED else ("", {})
+                if N <= N_SM90_BATCHED and tier != "f32" else ("", {})
             path = f"uni flows {N}^2 {tier} (forward, adjoint, backward), nsteps {nsteps}"
             if nsteps == NSTEPS:
                 for r in range(4):
-                    launches[f"uni_role{r}_{tier}{sfx}"] = (path, n[r])
+                    launches[f"uni_role{r}{tsfx}{sfx}"] = (path, n[r])
             print(f"phase 17: launches in the {path}: K5 roles 0-3 {n} at the tier (two a "
-                  f"stage), {n_strict} strict; the flows finite {finite}" + line)
+                  "stage)" + ("" if tier == "f32" else f", {n_strict} strict")
+                  + f"; the flows finite {finite}" + line)
             if (n != [8 * nsteps, 16 * nsteps, 8 * nsteps, 8 * nsteps] or n_strict or not finite
                     or why):
                 bad[f"K5 {tier} {N}^2 path, nsteps {nsteps}"] = (n, n_strict, finite, why)
@@ -3645,19 +3700,25 @@ def sm90_k2(torch, card):
 
 
 def phase_sm90(torch, card):
-    """Phase 17: K1, K3 and K5 at 'high' and 'bf16' on the cluster tile at
-    every built radix and K2's redesigned 'bf16' derivative (see the module
-    docstring). Returns (kernel records {name: record}, launches {name:
+    """Phase 17: K1 at 'high' and 'bf16' on the cluster tile at every built
+    radix, K3 and K5 on the tile FORMS puts them on at every tier and
+    radix (strict only where that is the cluster tile), and K2's
+    redesigned 'bf16' derivative (see the module docstring). Returns (kernel records {name: record}, launches {name:
     (path, count)})."""
-    from cmblensing_tpu_torch.ops import _build
+    from cmblensing_tpu_torch.ops import _build, lenseflow_kernels as lfk
     t_start = time.perf_counter()
     lib = _build.load()
-    for kernel, fn in (("K1", lib.lf_fderiv_sm90_clusters), ("K3", lib.lf_fa_sm90_clusters),
-                       ("K5", lib.lf_uni_sm90_clusters)):
+    for kernel, fn, key in (("K1", lib.lf_fderiv_sm90_clusters, "fderiv"),
+                            ("K3", lib.lf_fa_sm90_clusters, "fa"),
+                            ("K5", lib.lf_uni_sm90_clusters, "uni")):
+        # '-' where FORMS runs fact_tile: no cluster form is built there
+        fits = {p: [fn(i, B) if lfk.FORMS[key, p, B] == "cluster" else "-"
+                    for B in (4, 8, 16, 32)] for i, p in enumerate(lfk.PRECISIONS)}
         print(f"phase 17: {kernel} clusters that fit on the card at once "
               "(cudaOccupancyMaxActiveClusters; radix 4, 8, 16, 32): " + "; ".join(
-                  f"{t} {[fn(i, B) for B in (4, 8, 16, 32)]}"
-                  for i, t in ((1, "'high'"), (2, "'bf16'"))) + f" [{card}]")
+                  f"{p!r} {n}" for p, n in fits.items() if set(n) != {"-"}) + f" [{card}]")
+        if any(isinstance(c, int) and c < 1 for n in fits.values() for c in n):
+            raise AssertionError(f"phase 17: a {kernel} cluster does not fit: {fits}")
     records, launches, bad = {}, {}, {}
     for N in N_SM90:
         found, paths, why = sm90_k1(torch, card, N)
@@ -3683,19 +3744,20 @@ def phase_sm90(torch, card):
 
 
 def print_ptxas(log):
-    """Phase 1: the build log's register lines and errors, and for K5's
-    factored instantiations (uni.cu) each one's radix, axis and tier with
-    its registers, stack and spills."""
+    """Phase 1: the build log's register lines and errors, and for K3 and
+    K5 on the cluster tile (fa_sm90.cu, uni_sm90.cu) and K5 on fact_tile
+    (uni.cu) each instantiation's radix, axis and tier with its registers,
+    stack and spills."""
     import re
-    source, kernel = None, None
+    kernel = None
     for line in log.splitlines():
         line = line.strip()
         if line.startswith("[") and line.endswith("]"):
-            source = line[1:-1]
-        m = re.search(r"uni_kernelILi(\d+)ELi(\d)ELi(\d)E", line)
-        if source == "uni.cu" and "Compiling entry function" in line and m:
-            kernel = "uni_kernel<B={}, AXIS={}, TIER={}>".format(*m.groups())
-        elif source == "uni.cu" and kernel and ("registers" in line or "spill" in line):
+            continue
+        m = re.search(r"(uni_kernel|fa_sm90_kernel|uni_sm90_kernel)ILi(\d+)ELi(\d)ELi(\d)E", line)
+        if "Compiling entry function" in line:
+            kernel = "{}<B={}, AXIS={}, TIER={}>".format(*m.groups()) if m else None
+        elif kernel and ("registers" in line or "spill" in line):
             print(f"phase 1: ptxas: {kernel}: {line.split(':', 1)[-1].strip()}")
         elif "registers" in line or "error" in line.lower():
             print("phase 1: ptxas:", line)
@@ -3870,11 +3932,12 @@ def main():
         if d is not None:
             if "batched" in d:
                 rec.pop("batched", None)
-            rec.update({k: d[k] for k in keys + ("batched", "source") if k in d})
+            rec.update({k: d[k] for k in keys + ("batched", "source", "form") if k in d})
     for name, d in sm90.items():
         path, n = sm90_launches[name]
         rec = entry(name.rsplit("_b", 1)[0], d, d.get("source", FDERIV_SM90_SRC), n)
-        rec.update(name=name, path=path, source=d.get("source", rec["source"]))
+        rec.update(name=name, path=path, source=d.get("source", rec["source"]),
+                   **({"form": d["form"]} if "form" in d else {}))
         record["kernels"].append(rec)
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),
                    "MAP_joint_1024_s_per_step": (s_step, plain_s_step),

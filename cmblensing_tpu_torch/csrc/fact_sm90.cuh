@@ -1,16 +1,21 @@
-// The radix-B factored derivative at 'high' and 'bf16' for NVIDIA Hopper
-// (sm_90a) as a device function on a thread-block cluster, fact_sm90, and
-// the launch and set-up helpers of the kernels built on it: K1
-// (fderiv_sm90.cu), K3 (fa_sm90.cu) and K5 (uni_sm90.cu) at those tiers,
-// one launch a pass at every built radix. Their strict tier, and K4 at
-// every tier, run fact_tile (fact_tile.cuh) with its ordered channel
-// groups.
+// The radix-B factored derivative for NVIDIA Hopper (sm_90a) as a device
+// function on a thread-block cluster, fact_sm90, at every tier, and the
+// launch and set-up helpers of the kernels built on it, one launch a pass
+// at every built radix: K1 at 'high' and 'bf16' (fderiv_sm90.cu), K3
+// (fa_sm90.cu) and K5 (uni_sm90.cu) at every tier. Which tile K3 and K5
+// run at a (tier, radix) is one table (lenseflow_common.cuh::k3_on_tile,
+// k5_on_tile; the host's ops/lenseflow_kernels.py::FORMS): this one at
+// radix 16 and 32, where fact_tile would need ordered channel-group
+// launches, and at 4 and 8 wherever an A/B in turns did not measure
+// fact_tile more than 2 % faster; each kernel is built on this tile only
+// where it runs it (sm90_dispatch's Built). Strict K1, and K4 at every tier, run
+// fact_tile (fact_tile.cuh).
 //
-// Replaces, at the tiers 'high' and 'bf16', the factored in-kernel
-// derivative `_fact_apply` / `_make_ddx_ddy_fact` of
-// cmblensing_tpu/ops/pallas_lenseflow.py (:249, :273) with its products
-// `_mk_dot('high')` (:225) and `_mk_dot('bf16')` (:218), inside `_fa_kernel`
-// (:506, K3) and `_bwdAB_kernel` (:734, K5) as well as alone (K1).
+// Replaces the factored in-kernel derivative `_fact_apply` /
+// `_make_ddx_ddy_fact` of cmblensing_tpu/ops/pallas_lenseflow.py (:249,
+// :273) with its products `_mk_dot('f32')`, `_mk_dot('high')` (:225) and
+// `_mk_dot('bf16')` (:218), inside `_fa_kernel` (:506, K3) and
+// `_bwdAB_kernel` (:734, K5) as well as alone (K1).
 //
 // The operator (fact_tile.cuh's header has it in full): along an axis of
 // length N = B * A (A = FA = 128), the forward butterfly
@@ -81,7 +86,8 @@
 // 34 K) and the refill's wait and push (12 K) took more than that, 141 K
 // cycles a CTA against 96 K (NVIDIA H100 80GB HBM3, 700 W).
 //
-// Products on mma.sync (m16n8k16, bf16 in, FP32 accumulate), not wgmma:
+// The reduced tiers' products on mma.sync (m16n8k16, bf16 in, FP32
+// accumulate), not wgmma:
 // what bounds the tile is the FP32 butterfly work (4 B operations a pixel,
 // forward and inverse: 0.033 ms a 4096^2 pass at the FP32 peak) and its
 // bytes, not the tensor cores (the products of a 4096^2 'bf16' pass are
@@ -91,18 +97,41 @@
 // need its canonical layout written by those warps and one more barrier a
 // slab.
 //
+// The strict tier (TIER_F32) keeps the tile, the ring, the producer warp,
+// the cluster barriers, the push and the inverse butterfly, and changes
+// what the products need. The producer bulk-copies slabs of the FP32
+// blocks as fact_tile takes them (FactoredOps.FX / FYT, (B, A, A),
+// transposed, contiguous in m: 8 KB a block slab, the 'high' stage's 64 KB
+// at 8 blocks); the channels stay in FP32 (a slab row of TO + 4 floats);
+// the block products are FP32 FMA in fact_tile's slab_fma order (slab_f32:
+// each channel output an fmaf chain from 0 over k ascending, the complex
+// pairs' two FMA a term in its order), so every channel output y_c, and
+// after the inverse butterfly of each channel group (Parts, fold) every
+// pixel, has the bits of fact_tile's ordered launches. A thread holds 2 NP
+// values of m (NP the CTA's channel pairs: 4 at radix 8 to 32, so 8 values)
+// by 4 pixels of each channel of its pair, 64 accumulators, and reads a k step
+// as 16 block and 8 channel words for 128 FMA (a complex pair; 5.3 FMA a
+// shared word): each quarter-warp reads 128 contiguous bytes of a block
+// row (its 8 lanes' float4 along m) and broadcasts one channel float4, so
+// the blocks need no swizzle. ptxas: K3 167 registers, no spills; K5 167-
+// 168, 52 bytes spilled in the radix-32 x pass alone (the 'high' radix-32
+// kernels spill 16-20; 9 warps hold at most 168 registers a thread).
+//
 // Shared memory (radix 32, 'high'): a ring of three 64 KB block stages (8
 // blocks' head and residual slabs), which receives the y_c of the CTA's
 // share (64 KB) after the last slab; two channel slabs (24 KB); the
-// butterflies (5 KB): 221 KB, one CTA an SM. 'bf16': 113 KB. Radix 8 on
-// one CTA holds the same 8 channels a CTA: 'high' 217 KB, 'bf16' 109 KB. A kernel on
-// this tile holds nothing else in shared memory, so every kernel's
-// clusters fit as K1's do (sm90_init checks it at load).
+// butterflies (5 KB): 221 KB, one CTA an SM. 'bf16': 113 KB; strict: the
+// same 192 KB ring, 20 KB of channel slabs, 217 KB. Radix 8 on one CTA
+// holds the same 8 channels a CTA: 'high' 217 KB, 'bf16' 109 KB, strict
+// 213 KB. A kernel on this tile holds nothing else in shared memory, so
+// every kernel's clusters fit as K1's do (sm90_init checks it at load).
 //
 // The caller's functors: load(q) returns the operand at offset q of the
-// (Ny, Nx) plane (a product of planes, say); store(q, part) receives the
-// derivative at the adjacent pixels q and q + 1 (x, y of each float2; q
-// even) once, after the second cluster barrier, as the partial sums of
+// (Ny, Nx) plane (a product of planes, say); fetch(q) reads what the store
+// of the adjacent pixels q and q + 1 needs (p, or what the x pass stored)
+// and returns it as a small value (q even); store(q, part, fetched)
+// receives the derivative at those pixels (x, y of each float2) once,
+// after the second cluster barrier, as the partial sums of
 // fact_tile's channel groups (Parts, one up to radix 8, 2 and 4 at radix
 // 16 and 32), and does with them what its kernel does: a multiply by p, a
 // store, or an add onto what the x pass stored, the groups folded in the
@@ -115,7 +144,15 @@
 // is the single fmaf chain over all B channels. Parts and fold exist only
 // for that match with fact_tile: when K4 moves onto this tile (ROADMAP
 // Queue 2), they go, and the store receives one sum over all B channels
-// in a fixed order.
+// in a fixed order. A thread fetches RB rows of its pixel pair (4 at
+// radix 32, 8 below) before it sums and stores any of them: a store the
+// compiler cannot tell apart from the next row's reads would otherwise
+// hold each read back until the row before it was written. That took the
+// store phase of a radix-32 strict K3 forward CTA from 34.8 K cycles to
+// 20.0 K (of 130 K and 118 K), and K3 and K5 at radix 16 and 32 at every
+// tier to 0.69-0.95x their time, the same bits (cold, in turns,
+// scripts/torch_flow_witness.py kernels; K1, whose store reads little,
+// 1.00-1.01x; NVIDIA H100 80GB HBM3, 700 W).
 
 #pragma once
 
@@ -153,12 +190,16 @@ enum Axis { AXIS_X = 0, AXIS_Y = 1 };
 __host__ __device__ constexpr int cluster_ctas(int B) { return B == 32 ? 4 : 2; }
 __host__ __device__ constexpr int velocity_ctas(int B) { return B == 8 ? 1 : cluster_ctas(B); }
 __host__ __device__ constexpr int halves(int tier) { return tier == TIER_HIGH ? 2 : 1; }
+// bytes of a block or channel value: FP32 strict, bf16 at the reduced tiers
+__host__ __device__ constexpr int value_bytes(int tier) { return tier == TIER_F32 ? 4 : 2; }
+constexpr int USF = TO + 4;      // row stride (FP32) of a strict staged channel slab [c][k][o]
 constexpr int NSTAGE = 3;        // block-slab stages of the ring
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-// bytes of a ring stage: the CTA's block slabs (bf16 [half][slot][k][m])
+// bytes of a ring stage: the CTA's block slabs ([half][slot][k][m]; FP32
+// strict, bf16 at the reduced tiers)
 __host__ __device__ constexpr int stage_bytes(int B, int NC, int tier) {
-    return halves(tier) * (B / NC) * TK * FA * 2;
+    return halves(tier) * (B / NC) * TK * FA * value_bytes(tier);
 }
 // the values of m whose output pixels a CTA sums and stores (a quarter, a
 // half or all of the tile)
@@ -170,7 +211,7 @@ __host__ __device__ constexpr int ring_bytes(int B, int NC, int tier) {
     return cmax(NSTAGE * stage_bytes(B, NC, tier), 4 * B * mquarter(NC) * TO);
 }
 __host__ __device__ constexpr int useg_bytes(int B, int NC, int tier) {
-    return 2 * halves(tier) * (B / NC) * TK * US * 2;
+    return tier == TIER_F32 ? 2 * (B / NC) * TK * USF * 4 : 2 * halves(tier) * (B / NC) * TK * US * 2;
 }
 // the CTA's rows of the forward butterfly, and the inverse one
 __host__ __device__ constexpr int bfly_bytes(int B, int NC) { return 4 * ((B / NC) * B + B * B); }
@@ -178,7 +219,8 @@ __host__ __device__ constexpr size_t smem_bytes(int B, int NC, int tier) {
     return (size_t)ring_bytes(B, NC, tier) + useg_bytes(B, NC, tier) + bfly_bytes(B, NC) +
            2 * NSTAGE * 8;
 }
-static_assert(smem_bytes(32, 4, TIER_HIGH) <= 232448 && smem_bytes(8, 1, TIER_HIGH) <= 232448,
+static_assert(smem_bytes(32, 4, TIER_HIGH) <= 232448 && smem_bytes(8, 1, TIER_HIGH) <= 232448 &&
+                  smem_bytes(32, 4, TIER_F32) <= 232448 && smem_bytes(8, 1, TIER_F32) <= 232448,
               "a CTA's shared memory fits the 227 KB a block may have");
 
 // The channel and the packed block ([G_0, G_{B/2}, Ar.., Ai..]) that slot s
@@ -275,27 +317,93 @@ __device__ __forceinline__ float2 fold(float2 acc, const Parts<NG>& part, int i,
     return acc;
 }
 
+// VW adjacent floats (VW = 2 or 4, 8 or 16-byte aligned) from p into v, or
+// from v to p
+template <int VW>
+__device__ __forceinline__ void ldv(const float* p, float* v) {
+    if constexpr (VW == 4) {
+        const float4 x = ld4(p);
+        v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+    } else {
+        const float2 x = ld2(p);
+        v[0] = x.x, v[1] = x.y;
+    }
+}
+template <int VW>
+__device__ __forceinline__ void stv(float* p, const float* v) {
+    if constexpr (VW == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    else st2(p, make_float2(v[0], v[1]));
+}
+
+// The strict tier: one slab (TK rows of k) of a channel pair's block
+// products in FP32 FMA, into the thread's RMF values of m by 4 pixels of
+// each channel of the pair, acc[i / 2][i % 2][j] at (m_i, pixel j): the
+// real pair (channel A against block A, B against B) or a complex pair
+// (A += Ar ur - Ai ui, B += Ai ur + Ar ui; Ar = block A, ur = channel A).
+// fact_tile.cuh's slab_fma, operation for operation and k ascending, so
+// that every channel output has its bits. gX point at the thread's first
+// m of row k = 0 of a block slab [k][m] (its m: VW adjacent values at each
+// of RMF / VW offsets 8 VW apart), uX at its 4 pixels of row 0 of a
+// channel slab [k][o].
+template <bool REAL, int RMF, int VW, int MT>
+__device__ __forceinline__ void slab_f32(const float* gA, const float* gB, const float* uA,
+                                         const float* uB, float (&accA)[MT][2][4],
+                                         float (&accB)[MT][2][4]) {
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+        float ga[RMF], gb[RMF], ua[4], ub[4];
+#pragma unroll
+        for (int h = 0; h < RMF / VW; ++h) {
+            ldv<VW>(gA + kk * FA + 8 * VW * h, ga + VW * h);
+            ldv<VW>(gB + kk * FA + 8 * VW * h, gb + VW * h);
+        }
+        ldv<4>(uA + kk * USF, ua);
+        ldv<4>(uB + kk * USF, ub);
+#pragma unroll
+        for (int i = 0; i < RMF; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                float& a = accA[i / 2][i % 2][j];
+                float& b = accB[i / 2][i % 2][j];
+                if (REAL) {
+                    a = fmaf(ga[i], ua[j], a);
+                    b = fmaf(gb[i], ub[j], b);
+                } else {
+                    a = fmaf(ga[i], ua[j], fmaf(-gb[i], ub[j], a));
+                    b = fmaf(gb[i], ua[j], fmaf(ga[i], ub[j], b));
+                }
+            }
+    }
+}
+
 // One tile (blockIdx.x / NC) of the factored derivative along AXIS at TIER
-// (HIGH or BF16) on a cluster of NC CTAs (see the header); every thread
-// of the CTA calls it. W holds the packed blocks transposed (Gt[c][k][m])
-// as their bf16 [head, residual] split, rows swizzled (swizzle_blocks),
-// (2, B, A, A); 'bf16' reads the heads. bf is (2, B, B) [Rf, Ri]. Nx is the
-// plane's row length; load and store as the header says.
-template <int B, int NC, int AXIS, int TIER, class Load, class Store>
-__device__ __forceinline__ void fact_sm90(const __nv_bfloat16* __restrict__ W,
+// on a cluster of NC CTAs (see the header); every thread of the CTA calls
+// it. W holds the packed blocks transposed (Gt[c][k][m]): strict, in FP32
+// as fact_tile takes them, (B, A, A); at 'high' and 'bf16' as their bf16
+// [head, residual] split, rows swizzled (swizzle_blocks), (2, B, A, A),
+// whose heads 'bf16' reads. bf is (2, B, B) [Rf, Ri]. Nx is the plane's
+// row length; load and store as the header says.
+template <int B, int NC, int AXIS, int TIER, class Load, class Fetch, class Store>
+__device__ __forceinline__ void fact_sm90(const void* __restrict__ W,
                                           const float* __restrict__ bf, int Nx, Load load,
-                                          Store store) {
+                                          Fetch fetch, Store store) {
     constexpr int BC = B / NC, NH = halves(TIER), MQ = mquarter(NC);
     constexpr int NST = NSTAGE, SB = stage_bytes(B, NC, TIER);
-    constexpr bool RESID = TIER == TIER_HIGH;
+    constexpr bool F32 = TIER == TIER_F32, RESID = TIER == TIER_HIGH;
     constexpr int NP = BC / 2, WPP = NCW / NP, MT = FA / 16 / WPP;   // pairs; warps a pair; m16 tiles a warp
+    // strict: a thread's values of m (by 4 pixels) per channel, VW adjacent
+    // ones at each of RMF / VW offsets 8 VW apart
+    constexpr int RMF = 2 * NP, VW = RMF < 4 ? RMF : 4;
     constexpr int NS = FA / TK;                // slabs
-    constexpr int SLAB = TK * FA;              // bf16 of a block slab
+    constexpr int SLABV = TK * FA, SLAB = SLABV * value_bytes(TIER);   // values, bytes of a block slab
     constexpr int ULEN = BC * TK * US;         // bf16 of one half of a channel slab
+    constexpr int UFLEN = BC * TK * USF;       // strict: floats of a channel slab
+    static_assert(!F32 || (RMF == 2 * MT && RMF % VW == 0), "the strict register tile fills acc");
     extern __shared__ __align__(128) unsigned char smem[];
     float* sR = reinterpret_cast<float*>(smem);   // the ring, after the last slab: [c][..]
     __nv_bfloat16* sU = reinterpret_cast<__nv_bfloat16*>(smem + ring_bytes(B, NC, TIER));
-    float* sRf = reinterpret_cast<float*>(sU + 2 * NH * ULEN);
+    float* sUf = reinterpret_cast<float*>(sU);   // strict: the channel slabs, FP32
+    float* sRf = reinterpret_cast<float*>(smem + ring_bytes(B, NC, TIER) + useg_bytes(B, NC, TIER));
     float* sRi = sRf + BC * B;   // [r][q' BC + s']
     uint64_t* full = reinterpret_cast<uint64_t*>(sRi + B * B);
     uint64_t* empty = full + NST;
@@ -322,20 +430,25 @@ __device__ __forceinline__ void fact_sm90(const __nv_bfloat16* __restrict__ W,
     __syncthreads();
     LF_CLOCK(0, lf_t);   // set-up
     // a consumer warp's channel outputs, accX[t][j]: m16 tile t of the warp,
-    // n8 tile j, in the mma C layout
+    // n8 tile j, in the mma C layout; strict: accX[i / 2][i % 2][j], the
+    // thread's m_i (below) by pixel 4 (lane / 8) + j
     float accA[MT][2][4], accB[MT][2][4];
+    // strict: the thread's first m, m_i = mt + 8 VW (i / VW) + i % VW
+    const int mt = (wid % WPP) * MT * 16 + VW * (lane % 8), lo = lane / 8;
 
     if (wid == NCW) {
         // producer: slab s's blocks, in slot order, into stage s
+        const unsigned char* Wb = static_cast<const unsigned char*>(W);
         for (int s = 0; s < NS; ++s) {
             const int st = s % NST;
             if (s >= NST) mbar_wait(empty + st, (s / NST - 1) & 1);
             if (lane == 0) mbar_expect_tx(full + st, SB);
             __syncwarp();
             for (int i = lane; i < NH * BC; i += 32)
-                bulk_g2s(stage(s) + i * SLAB * 2,
-                         W + ((size_t)((i / BC) * B + slot_block<B, NC>(q, i % BC)) * FA + s * TK) * FA,
-                         SLAB * 2, full + st);
+                bulk_g2s(stage(s) + i * SLAB,
+                         Wb + ((size_t)((i / BC) * B + slot_block<B, NC>(q, i % BC)) * FA + s * TK) *
+                                  FA * value_bytes(TIER),
+                         SLAB, full + st);
             __syncwarp();
         }
     } else {
@@ -354,7 +467,9 @@ __device__ __forceinline__ void fact_sm90(const __nv_bfloat16* __restrict__ W,
 #pragma unroll
             for (int r = 0; r < B; ++r) raw[r] = load(q0 + s * kstep + r * rstep);
         };
-        auto butterfly = [&](__nv_bfloat16* u) {
+        // channel slab b (0, 1) of this thread's position: strict in FP32,
+        // else its bf16 head (and at 'high' residual)
+        auto butterfly = [&](int b) {
 #pragma unroll
             for (int ch = 0; ch < BC; ++ch) {
                 float v = 0.f;
@@ -366,10 +481,15 @@ __device__ __forceinline__ void fact_sm90(const __nv_bfloat16* __restrict__ W,
                     v = fmaf(w.z, raw[r + 2], v);
                     v = fmaf(w.w, raw[r + 3], v);
                 }
-                const __nv_bfloat16 h = __float2bfloat16_rn(v);
-                u[(ch * TK + kk) * US + o] = h;
-                if constexpr (RESID)
-                    u[ULEN + (ch * TK + kk) * US + o] = __float2bfloat16_rn(v - __bfloat162float(h));
+                if constexpr (F32) {
+                    sUf[b * UFLEN + (ch * TK + kk) * USF + o] = v;
+                } else {
+                    __nv_bfloat16* u = sU + b * NH * ULEN;
+                    const __nv_bfloat16 h = __float2bfloat16_rn(v);
+                    u[(ch * TK + kk) * US + o] = h;
+                    if constexpr (RESID)
+                        u[ULEN + (ch * TK + kk) * US + o] = __float2bfloat16_rn(v - __bfloat162float(h));
+                }
             }
         };
 #pragma unroll
@@ -384,43 +504,56 @@ __device__ __forceinline__ void fact_sm90(const __nv_bfloat16* __restrict__ W,
         const int kb = (lane & 7) + ((lane >> 3) & 1) * 8, ob = (lane >> 4) * 8;
         const int swz = (lane & 7) << 3;   // the block rows' chunk permutation at row ka
         auto products = [&](const __nv_bfloat16* sG, const __nv_bfloat16* u) {
-            unsigned uAh[4], uAl[4] = {}, uBh[4], uBl[4] = {};
-            ldsm_x4_t(u + (chA * TK + kb) * US + ob, uAh);
-            ldsm_x4_t(u + (chB * TK + kb) * US + ob, uBh);
-            if constexpr (RESID) {
-                ldsm_x4_t(u + ULEN + (chA * TK + kb) * US + ob, uAl);
-                ldsm_x4_t(u + ULEN + (chB * TK + kb) * US + ob, uBl);
-            }
-#pragma unroll
-            for (int t = 0; t < MT; ++t) {
-                const int at = ka * FA + ((mw + 16 * t + ma) ^ swz);
-                unsigned aAh[4], aAl[4] = {}, aBh[4], aBl[4] = {};
-                ldsm_x4_t(sG + chA * SLAB + at, aAh);
-                ldsm_x4_t(sG + chB * SLAB + at, aBh);
+            if constexpr (!F32) {
+                unsigned uAh[4], uAl[4] = {}, uBh[4], uBl[4] = {};
+                ldsm_x4_t(u + (chA * TK + kb) * US + ob, uAh);
+                ldsm_x4_t(u + (chB * TK + kb) * US + ob, uBh);
                 if constexpr (RESID) {
-                    ldsm_x4_t(sG + (BC + chA) * SLAB + at, aAl);
-                    ldsm_x4_t(sG + (BC + chB) * SLAB + at, aBl);
+                    ldsm_x4_t(u + ULEN + (chA * TK + kb) * US + ob, uAl);
+                    ldsm_x4_t(u + ULEN + (chB * TK + kb) * US + ob, uBl);
                 }
-                unsigned nBh[4], nBl[4];   // -Ai: the sign bits flipped, exact
 #pragma unroll
-                for (int i = 0; i < 4; ++i) nBh[i] = aBh[i] ^ 0x80008000u, nBl[i] = aBl[i] ^ 0x80008000u;
+                for (int t = 0; t < MT; ++t) {
+                    const int at = ka * FA + ((mw + 16 * t + ma) ^ swz);
+                    unsigned aAh[4], aAl[4] = {}, aBh[4], aBl[4] = {};
+                    ldsm_x4_t(sG + chA * SLABV + at, aAh);
+                    ldsm_x4_t(sG + chB * SLABV + at, aBh);
+                    if constexpr (RESID) {
+                        ldsm_x4_t(sG + (BC + chA) * SLABV + at, aAl);
+                        ldsm_x4_t(sG + (BC + chB) * SLABV + at, aBl);
+                    }
+                    unsigned nBh[4], nBl[4];   // -Ai: the sign bits flipped, exact
 #pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                    if (real) {
-                        mma_tier<RESID>(accA[t][j], aAh, aAl, uAh, uAl, j);
-                        mma_tier<RESID>(accB[t][j], aBh, aBl, uBh, uBl, j);
-                    } else {
-                        mma_tier<RESID>(accA[t][j], aAh, aAl, uAh, uAl, j);
-                        mma_tier<RESID>(accA[t][j], nBh, nBl, uBh, uBl, j);
-                        mma_tier<RESID>(accB[t][j], aBh, aBl, uAh, uAl, j);
-                        mma_tier<RESID>(accB[t][j], aAh, aAl, uBh, uBl, j);
+                    for (int i = 0; i < 4; ++i) nBh[i] = aBh[i] ^ 0x80008000u, nBl[i] = aBl[i] ^ 0x80008000u;
+#pragma unroll
+                    for (int j = 0; j < 2; ++j) {
+                        if (real) {
+                            mma_tier<RESID>(accA[t][j], aAh, aAl, uAh, uAl, j);
+                            mma_tier<RESID>(accB[t][j], aBh, aBl, uBh, uBl, j);
+                        } else {
+                            mma_tier<RESID>(accA[t][j], aAh, aAl, uAh, uAl, j);
+                            mma_tier<RESID>(accA[t][j], nBh, nBl, uBh, uBl, j);
+                            mma_tier<RESID>(accB[t][j], aBh, aBl, uAh, uAl, j);
+                            mma_tier<RESID>(accB[t][j], aAh, aAl, uBh, uBl, j);
+                        }
                     }
                 }
             }
         };
 
+        // strict: the pair's block slabs at the thread's first m, and its
+        // channel slabs at its first pixel
+        auto products_f32 = [&](const float* sG, const float* u) {
+            if constexpr (F32) {
+                const float *gA = sG + chA * SLABV + mt, *gB = sG + chB * SLABV + mt;
+                const float *uA = u + chA * TK * USF + 4 * lo, *uB = u + chB * TK * USF + 4 * lo;
+                if (real) slab_f32<true, RMF, VW>(gA, gB, uA, uB, accA, accB);
+                else slab_f32<false, RMF, VW>(gA, gB, uA, uB, accA, accB);
+            }
+        };
+
         fetch(0);
-        butterfly(sU);
+        butterfly(0);
         LF_CLOCK(1, lf_t);   // the first slab's operand and channels
         for (int s = 0; s < NS; ++s) {
             if (s + 1 < NS) fetch(s + 1);
@@ -429,12 +562,15 @@ __device__ __forceinline__ void fact_sm90(const __nv_bfloat16* __restrict__ W,
             LF_CLOCK(3, lf_t);   // waiting for the other consumer warps
             mbar_wait(full + s % NST, (s / NST) & 1);
             LF_CLOCK(2, lf_t);   // waiting for the block slab
-            products(reinterpret_cast<const __nv_bfloat16*>(stage(s)), sU + (s % 2) * NH * ULEN);
+            if constexpr (F32)
+                products_f32(reinterpret_cast<const float*>(stage(s)), sUf + (s % 2) * UFLEN);
+            else
+                products(reinterpret_cast<const __nv_bfloat16*>(stage(s)), sU + (s % 2) * NH * ULEN);
             __syncwarp();
             if (lane == 0) mbar_arrive(empty + s % NST);   // stage s read
             LF_CLOCK(5, lf_t);   // the products
             if (s + 1 < NS) {
-                butterfly(sU + ((s + 1) % 2) * NH * ULEN);
+                butterfly((s + 1) % 2);
                 LF_CLOCK(6, lf_t);   // the next slab's channels (its loads' latency included)
             }
         }
@@ -454,6 +590,33 @@ __device__ __forceinline__ void fact_sm90(const __nv_bfloat16* __restrict__ W,
         float* dst[NC];
 #pragma unroll
         for (int p = 0; p < NC; ++p) dst[p] = cluster.map_shared_rank(sR, p);
+        if constexpr (F32) {
+            // VW adjacent m at a time: rows of 4 pixels (y pass), or VW of
+            // m in each pixel's row (x pass)
+#pragma unroll
+            for (int i0 = 0; i0 < RMF; i0 += VW) {
+                const int m = mt + 8 * i0, ov = 4 * lo;
+                float* d = dst[m / MQ];
+                const int ml = m % MQ;
+#pragma unroll
+                for (int i = i0; i < i0 + VW; ++i)
+                    if (AXIS == AXIS_Y) {
+                        stv<4>(d + (cA * MQ + ml + i - i0) * TO + ov, accA[i / 2][i % 2]);
+                        stv<4>(d + (cB * MQ + ml + i - i0) * TO + ov, accB[i / 2][i % 2]);
+                    }
+                if (AXIS == AXIS_X)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        float va[VW], vb[VW];
+#pragma unroll
+                        for (int i = 0; i < VW; ++i)
+                            va[i] = accA[(i0 + i) / 2][(i0 + i) % 2][j],
+                            vb[i] = accB[(i0 + i) / 2][(i0 + i) % 2][j];
+                        stv<VW>(d + (cA * TO + ov + j) * MQ + ml, va);
+                        stv<VW>(d + (cB * TO + ov + j) * MQ + ml, vb);
+                    }
+            }
+        } else
 #pragma unroll
         for (int t = 0; t < MT; ++t)
 #pragma unroll
@@ -488,6 +651,7 @@ __device__ __forceinline__ void fact_sm90(const __nv_bfloat16* __restrict__ W,
     if (tid < NCT) {
         constexpr int NG = sm90_groups(B), GS = B / NG;   // groups; channels a group
         constexpr int NPAIR = MQ * TO / 2 / NCT;   // pairs a thread: 4 / NC
+        constexpr int RB = B < 8 ? B : B < 32 ? 8 : 4;   // rows whose reads go out together
 #pragma unroll 1
         for (int jp = 0; jp < NPAIR; ++jp) {
             const int idx = tid + jp * NCT;
@@ -498,25 +662,36 @@ __device__ __forceinline__ void fact_sm90(const __nv_bfloat16* __restrict__ W,
             float2 y[B];
 #pragma unroll
             for (int j = 0; j < B; ++j) y[j] = *reinterpret_cast<const float2*>(sR + j * MQ * TO + at);
-#pragma unroll 4
-            for (int r = 0; r < B; ++r) {
-                Parts<NG> part;
+            auto pixel = [&](int r) {   // the pair's offset in output row r
+                return AXIS == AXIS_Y ? (size_t)(r * FA + m) * Nx + o0 + ov
+                                      : (size_t)(o0 + ov) * Nx + r * FA + m;
+            };
+            // RB rows at a time: their reads issued together (fetch), then
+            // each row's sums handed to the store with what was read
+#pragma unroll 1
+            for (int r0 = 0; r0 < B; r0 += RB) {
+                decltype(fetch(size_t(0))) pre[RB];
 #pragma unroll
-                for (int g = 0; g < NG; ++g) {
-                    float2 v = make_float2(0.f, 0.f);
+                for (int i = 0; i < RB; ++i) pre[i] = fetch(pixel(r0 + i));
 #pragma unroll
-                    for (int j = g * GS; j < (g + 1) * GS; j += 4) {
-                        const float4 w = ld4(sRi + r * B + j);
-                        v.x = fmaf(w.x, y[j].x, v.x), v.y = fmaf(w.x, y[j].y, v.y);
-                        v.x = fmaf(w.y, y[j + 1].x, v.x), v.y = fmaf(w.y, y[j + 1].y, v.y);
-                        v.x = fmaf(w.z, y[j + 2].x, v.x), v.y = fmaf(w.z, y[j + 2].y, v.y);
-                        v.x = fmaf(w.w, y[j + 3].x, v.x), v.y = fmaf(w.w, y[j + 3].y, v.y);
+                for (int i = 0; i < RB; ++i) {
+                    const int r = r0 + i;
+                    Parts<NG> part;
+#pragma unroll
+                    for (int g = 0; g < NG; ++g) {
+                        float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+                        for (int j = g * GS; j < (g + 1) * GS; j += 4) {
+                            const float4 w = ld4(sRi + r * B + j);
+                            v.x = fmaf(w.x, y[j].x, v.x), v.y = fmaf(w.x, y[j].y, v.y);
+                            v.x = fmaf(w.y, y[j + 1].x, v.x), v.y = fmaf(w.y, y[j + 1].y, v.y);
+                            v.x = fmaf(w.z, y[j + 2].x, v.x), v.y = fmaf(w.z, y[j + 2].y, v.y);
+                            v.x = fmaf(w.w, y[j + 3].x, v.x), v.y = fmaf(w.w, y[j + 3].y, v.y);
+                        }
+                        part.g[g] = v;
                     }
-                    part.g[g] = v;
+                    store(pixel(r), part, pre[i]);
                 }
-                store(AXIS == AXIS_Y ? (size_t)(r * FA + m) * Nx + o0 + ov
-                                     : (size_t)(o0 + ov) * Nx + r * FA + m,
-                      part);
             }
         }
     }
@@ -576,32 +751,48 @@ int sm90_prepare(void (*kernel)(Params...), int* n) {
 template <int V>
 using ic = std::integral_constant<int, V>;
 
-// f(ic<B>(), ic<TIER>()) at the run-time radix Bv and reduced tier `tier`
-// (the radices built: ops/deriv.py::BUILT_RADICES); other values refused.
-template <class F>
-int sm90_dispatch(int tier, int Bv, F f) {
-#define LF_SM90_RADICES(T)                      \
-    switch (Bv) {                               \
-        case 4: return f(ic<4>(), ic<T>());     \
-        case 8: return f(ic<8>(), ic<T>());     \
-        case 16: return f(ic<16>(), ic<T>());   \
-        case 32: return f(ic<32>(), ic<T>());   \
-        default: return (int)cudaErrorInvalidValue; \
-    }
-    if (tier == TIER_HIGH) LF_SM90_RADICES(TIER_HIGH)
-    if (tier == TIER_BF16) LF_SM90_RADICES(TIER_BF16)
-#undef LF_SM90_RADICES
-    return (int)cudaErrorInvalidValue;
+// f(ic<B>(), ic<TIER>()) at the run-time radix Bv and tier `tier`, where
+// Built::on(B, TIER) says that the kernel is built on this tile there (the
+// radices ops/deriv.py::BUILT_RADICES names; which tier and radix each
+// kernel runs here is the host's table, ops/lenseflow_kernels.py::FORMS);
+// other values refused.
+template <class Built, int B, int T, class F>
+int sm90_at(F& f) {
+    if constexpr (Built::on(B, T)) return f(ic<B>(), ic<T>());
+    else return (int)cudaErrorInvalidValue;
 }
 
-// Every instantiation of a kernel on this tile, by prepare(tier, B, &n)
-// (sm90_prepare of both passes): its dynamic shared memory allowed, and an
-// error code where not one of its clusters fits on the card.
-template <class P>
+template <class Built, int T, class F>
+int sm90_radix(int Bv, F& f) {
+    switch (Bv) {
+        case 4: return sm90_at<Built, 4, T>(f);
+        case 8: return sm90_at<Built, 8, T>(f);
+        case 16: return sm90_at<Built, 16, T>(f);
+        case 32: return sm90_at<Built, 32, T>(f);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+template <class Built, class F>
+int sm90_dispatch(int tier, int Bv, F f) {
+    switch (tier) {
+        case TIER_F32: return sm90_radix<Built, TIER_F32>(Bv, f);
+        case TIER_HIGH: return sm90_radix<Built, TIER_HIGH>(Bv, f);
+        case TIER_BF16: return sm90_radix<Built, TIER_BF16>(Bv, f);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Every instantiation of a kernel on this tile (Built::on), by
+// prepare(tier, B, &n) (sm90_prepare of both passes): its dynamic shared
+// memory allowed, and an error code where not one of its clusters fits on
+// the card.
+template <class Built, class P>
 int sm90_init(P prepare) {
-    const int tiers[] = {TIER_HIGH, TIER_BF16}, radices[] = {4, 8, 16, 32};
+    const int tiers[] = {TIER_F32, TIER_HIGH, TIER_BF16}, radices[] = {4, 8, 16, 32};
     for (int tier : tiers)
         for (int B : radices) {
+            if (!Built::on(B, tier)) continue;
             int n = 0;
             const int rc = prepare(tier, B, &n);
             if (rc != 0) return rc;
@@ -613,15 +804,17 @@ int sm90_init(P prepare) {
 }  // namespace
 
 // The set-up entries of the kernel template `kernel<B, AXIS, TIER>` on this
-// tile, its clusters of ctas(B) CTAs: init_name() allows every instantiation its shared memory once
-// after loading, before any launch, and returns an error code where one of
-// its clusters does not fit (sm90_init); clusters_name(tier, B) returns
-// the clusters of radix B at `tier` that fit on the card at once (the
-// lesser of the two passes'), or minus a CUDA error code.
-#define LF_SM90_SETUP(kernel, ctas, init_name, clusters_name)                                 \
+// tile, its clusters of ctas(B) CTAs, built where built::on(B, TIER):
+// init_name() allows every instantiation its shared memory once after
+// loading, before any launch, and returns an error code where one of its
+// clusters does not fit (sm90_init); clusters_name(tier, B) returns the
+// clusters of radix B at `tier` that fit on the card at once (the lesser
+// of the two passes'), or minus a CUDA error code (cudaErrorInvalidValue
+// where it is not built).
+#define LF_SM90_SETUP(kernel, ctas, built, init_name, clusters_name)                           \
     namespace {                                                                               \
     int kernel##_prepare(int tier, int Bv, int* n) {                                          \
-        return sm90_dispatch(tier, Bv, [&](auto b, auto t) {                                  \
+        return sm90_dispatch<built>(tier, Bv, [&](auto b, auto t) {                           \
             constexpr int B_ = decltype(b)::value, T_ = decltype(t)::value;                   \
             int nx = 0, ny = 0;                                                               \
             int rc = sm90_prepare<B_, ctas(B_), T_>(kernel<B_, AXIS_X, T_>, &nx);             \
@@ -631,7 +824,7 @@ int sm90_init(P prepare) {
         });                                                                                   \
     }                                                                                         \
     }                                                                                         \
-    extern "C" int init_name() { return sm90_init(kernel##_prepare); }                        \
+    extern "C" int init_name() { return sm90_init<built>(kernel##_prepare); }                 \
     extern "C" int clusters_name(int tier, int B) {                                           \
         int n = 0;                                                                            \
         const int rc = kernel##_prepare(tier, B, &n);                                         \

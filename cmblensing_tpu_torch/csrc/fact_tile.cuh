@@ -1,10 +1,15 @@
 // The radix-B factored derivative as a tiled device function, shared by
-// the factored LenseFlow kernels it runs: K1, K3 and K5 strict
-// (factored.cu, uni.cu) and K4 at every tier. K1, K3 and K5 at 'high' and
-// 'bf16' run the cluster tile fact_sm90 instead (fact_sm90.cuh;
+// the factored LenseFlow kernels it runs: K1 strict (factored.cu), K4 at
+// every tier, and K3 and K5 strict at radix 4 and 8 and, at radix 8, K3 at
+// 'high' and K5 at 'high' and 'bf16' (lenseflow_common.cuh::k3_on_tile,
+// k5_on_tile; the host's ops/lenseflow_kernels.py::FORMS;
+// factored_kernels.cuh, uni.cu). K1 at 'high' and 'bf16', and K3 and K5
+// everywhere else, run the cluster tile fact_sm90 (fact_sm90.cuh;
 // fderiv_sm90.cu, fa_sm90.cu, uni_sm90.cu: one launch a pass, the channel
-// groups the CTAs of a cluster); what this header says of K1 and K3 at
-// those tiers describes the form they ran before.
+// groups the CTAs of a cluster), whose strict tier repeats this tile's FMA
+// order (slab_fma) and so its bits; what this header says of K1 at the
+// reduced tiers, and of K3 and K5 at radix 16 and 32, describes the form
+// they ran before.
 //
 // The factored derivative along an axis of length N = B * A (A = FA = 128):
 // a real butterfly over the B row (or column) blocks r of the operand,
@@ -610,6 +615,27 @@ int allow_tile_smem(K kernel, int B, int tier = TIER_F32) {
         LF_RADIX_CASE(8, __VA_ARGS__)                                                           \
         LF_RADIX_CASE(16, __VA_ARGS__)                                                          \
         LF_RADIX_CASE(32, __VA_ARGS__)                                                          \
+        default:                                                                                \
+            return (int)cudaErrorInvalidValue;                                                  \
+    }
+
+// The same for the radices one channel group holds (4 and 8), at the
+// tier TIER in force, where ON(B, TIER) says a kernel runs this tile (K3
+// and K5: lenseflow_common.cuh::k3_on_tile, k5_on_tile); only those forms
+// are built, the others refused.
+#define LF_TILE_RADIX_CASE(n, ON, ...)                                                          \
+    case n: {                                                                                   \
+        constexpr int B = n;                                                                    \
+        if constexpr (ON(n, TIER)) {                                                            \
+            __VA_ARGS__;                                                                        \
+        } else {                                                                                \
+            return (int)cudaErrorInvalidValue;                                                  \
+        }                                                                                       \
+    } break;
+#define LF_WITH_TILE_RADIX(Bv, ON, ...)                                                         \
+    switch (Bv) {                                                                               \
+        LF_TILE_RADIX_CASE(4, ON, __VA_ARGS__)                                                  \
+        LF_TILE_RADIX_CASE(8, ON, __VA_ARGS__)                                                  \
         default:                                                                                \
             return (int)cudaErrorInvalidValue;                                                  \
     }

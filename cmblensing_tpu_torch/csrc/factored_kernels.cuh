@@ -1,10 +1,12 @@
-// The factored LenseFlow kernels on fact_tile (K1 and K3 strict, K4 at
-// every tier) and their host launchers, shared by the three sources that
-// instantiate them, one precision tier each: factored.cu (FP32, and the C
-// entries), factored_high.cu ('high') and factored_bf16.cu ('bf16'),
-// compiled in parallel. K1 and K3 at 'high' and 'bf16' run the cluster
-// tile (fact_sm90.cuh: fderiv_sm90.cu, fa_sm90.cu). See factored.cu for
-// what each kernel replaces and computes.
+// The factored LenseFlow kernels on fact_tile (K1 strict, K3 where
+// lenseflow_common.cuh::k3_on_tile puts it: strict at radix 4 and 8,
+// 'high' at 8; K4 at every tier) and their host launchers, shared by the
+// three sources that instantiate them, one precision tier each:
+// factored.cu (FP32, and the C entries), factored_high.cu ('high') and
+// factored_bf16.cu ('bf16'), compiled in parallel. K1 at 'high' and
+// 'bf16', and K3 everywhere else, run the cluster tile (fact_sm90.cuh:
+// fderiv_sm90.cu, fa_sm90.cu).
+// See factored.cu for what each kernel replaces and computes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,11 +24,12 @@ constexpr int NACC = 5;   // delta-phi accumulator planes of the backward state
 // L2), without a load's latency between the tile's stores. Every pixel of
 // a launch is stored and added to by one thread only, in program order,
 // and launches run in stream order, so the sum and its rounding are those
-// of a load, add and store, the same in every run. Radix 16 and 32 run
-// fact_tile's channel groups as launches of their own, in order (g, every
-// kernel's last argument): group 0 stores where the one-group tile
-// stores, and every later group adds. (The cluster tile's kernels need
-// none of this: each pixel is summed over every channel in one CTA.)
+// of a load, add and store, the same in every run. K1 and K4 at radix 16
+// and 32 run fact_tile's channel groups as launches of their own, in order
+// (g, every kernel's last argument): group 0 stores where the one-group
+// tile stores, and every later group adds; K3 here runs one group (radix
+// 4 and 8). (The cluster tile's kernels need none of this: each pixel is
+// summed over every channel in one CTA.)
 
 // K1, strict: out = D a (+ c), or out += D a, along AXIS over blockIdx.z
 // planes. G: the FP32 blocks (fact_tile.cuh).
@@ -52,9 +55,10 @@ fderiv_kernel(const float* __restrict__ a, const float* __restrict__ c, float* _
         });
 }
 
-// K3, strict: one pass of a forward (role 0: p . grad y, p multiplied
-// after the derivative) or adjoint (role 1: div(p y), p multiplied before)
-// velocity (at 'high' and 'bf16': fa_sm90.cu).
+// K3 where it runs this tile (k3_on_tile): one pass of a forward (role 0:
+// p . grad y, p multiplied after the derivative) or adjoint (role 1:
+// div(p y), p multiplied before) velocity (on the cluster tile:
+// fa_sm90.cu).
 // The x pass stores p_x d_x y (or d_x(p_x y)), the y pass adds the y term.
 // blockIdx.z = batch * ncomp + component; p holds the planes (p_x, p_y) of
 // every batch entry, (2, nbatch, Ny, Nx).
@@ -63,6 +67,7 @@ __global__ void __launch_bounds__(tile_threads(B), tile_min_blocks(B))
 fa_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __restrict__ p,
           const void* __restrict__ G, const float* __restrict__ bf, int ncomp, int nbatch,
           int Ny, int Nx, int role, int g) {
+    static_assert(tile_groups(B) == 1, "K3 on fact_tile holds every channel in one group");
     extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, TIER)
     load_butterflies<B, TIER>(bf, smem, g);
     const size_t plane = (size_t)Ny * Nx;
@@ -76,7 +81,7 @@ fa_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
         G, smem, m0, o0, g, Nx, [&](int q) { return role != 0 ? pa[q] * yp[q] : yp[q]; },
         [&](int q, float v) {
             if (role == 0) v *= pa[q];
-            if (AXIS == AXIS_X && g == 0) kp[q] = v;
+            if (AXIS == AXIS_X) kp[q] = v;
             else atomicAdd(kp + q, v);
         });
 }
@@ -144,9 +149,11 @@ bv_kernel(const float* __restrict__ y, float* __restrict__ k, const float* __res
 template <int B, int TIER>
 int allow_smem() {
     int rc = 0;
-    if constexpr (TIER == TIER_F32) {   // K1's, K3's reduced tiers run fact_sm90.cuh
+    if constexpr (TIER == TIER_F32) {   // K1's reduced tiers run fact_sm90.cuh
         rc = allow_tile_smem(fderiv_kernel<B, AXIS_X, TIER>, B, TIER);
         if (rc == 0) rc = allow_tile_smem(fderiv_kernel<B, AXIS_Y, TIER>, B, TIER);
+    }
+    if constexpr (k3_on_tile(B, TIER)) {   // K3's other forms run fact_sm90.cuh
         if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_X, TIER>, B, TIER);
         if (rc == 0) rc = allow_tile_smem(fa_kernel<B, AXIS_Y, TIER>, B, TIER);
     }
@@ -189,23 +196,26 @@ int fderiv(const float* a, const float* b, const float* c, float* out, const voi
     return (int)cudaGetLastError();
 }
 
-// k <- the forward (role 0) or adjoint (role 1) velocity of the
-// (nbatch, ncomp, Ny, Nx) state y under the p(t) planes p, (2, nbatch, Ny,
-// Nx), strict (TIER_F32; the reduced tiers are lf_sm90::fa_velocity,
-// fa_sm90.cu). Two launches a channel group.
+// One pass (axis 0: x, stores; 1: y, adds) of the forward (role 0) or
+// adjoint (role 1) velocity of the (nbatch, ncomp, Ny, Nx) state y into k
+// under the p(t) planes p, (2, nbatch, Ny, Nx), on fact_tile at tier TIER
+// and radix Bv along the axis where k3_on_tile puts it (one channel group,
+// one launch; every other form is refused: the cluster tile runs it,
+// fa_sm90.cu). G: the axis' blocks as fact_tile takes them at the tier.
 template <int TIER>
-int fa_velocity(int role, const float* y, float* k, const float* p, const void* FX,
-                const void* FYT, const float* bfx, const float* bfy, int Bx, int By, int nbatch,
-                int ncomp, int Ny, int Nx, void* stream) {
-    if (!shape_ok(Bx, By, Ny, Nx) || (role != 0 && role != 1)) return (int)cudaErrorInvalidValue;
+int fa_tile(int axis, int Bv, int role, const float* y, float* k, const float* p, const void* G,
+            const float* bf, int nbatch, int ncomp, int Ny, int Nx, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int nz = nbatch * ncomp;
-    LF_WITH_RADIX(Bx, LF_TILE_LAUNCH(fa_kernel, AXIS_X, nz, y, k, p, FX, bfx, ncomp, nbatch, Ny,
-                                     Nx, role))
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-    LF_WITH_RADIX(By, LF_TILE_LAUNCH(fa_kernel, AXIS_Y, nz, y, k, p, FYT, bfy, ncomp, nbatch, Ny,
-                                     Nx, role))
+    if (axis == AXIS_X) {
+        LF_WITH_TILE_RADIX(Bv, k3_on_tile,
+                           LF_TILE_LAUNCH(fa_kernel, AXIS_X, nz, y, k, p, G, bf, ncomp, nbatch,
+                                          Ny, Nx, role))
+    } else {
+        LF_WITH_TILE_RADIX(Bv, k3_on_tile,
+                           LF_TILE_LAUNCH(fa_kernel, AXIS_Y, nz, y, k, p, G, bf, ncomp, nbatch,
+                                          Ny, Nx, role))
+    }
     return (int)cudaGetLastError();
 }
 
@@ -229,13 +239,18 @@ int bv_velocity(const float* y, float* k, const float* phi, const float* p, cons
 
 }  // namespace
 
-// The reduced tiers' launcher of K4 and its shared-memory set-up, each
-// instantiated in a source of its own: lf_high in factored_high.cu
-// (bv_velocity<TIER_HIGH>, ...), lf_bf16 in factored_bf16.cu
-// (bv_velocity<TIER_BF16>, ...). K1's and K3's reduced tiers are
-// lf_sm90::fderiv and lf_sm90::fa_velocity (fderiv_sm90.cu, fa_sm90.cu).
+// The reduced tiers' launchers on fact_tile of K3 (where k3_on_tile puts
+// it: 'high' at radix 8; lf_bf16::fa_tile builds no kernel and refuses
+// every call) and K4 and their shared-memory set-up, each instantiated in
+// a source of its own: lf_high in factored_high.cu (fa_tile<TIER_HIGH>,
+// ...), lf_bf16 in factored_bf16.cu. K1's reduced tiers, and K3 on the
+// cluster tile, are lf_sm90::fderiv and lf_sm90::fa_pass (fderiv_sm90.cu,
+// fa_sm90.cu).
 #define LF_TIER_ENTRIES(ns)                                                                    \
     namespace ns {                                                                              \
+    int fa_tile(int axis, int Bv, int role, const float* y, float* k, const float* p,          \
+                const void* G, const float* bf, int nbatch, int ncomp, int Ny, int Nx,          \
+                void* stream);                                                                  \
     int bv_velocity(const float* y, float* k, const float* phi, const float* p, const void* FX, \
                     const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
                     int nbatch, int ncomp, int Ny, int Nx, float t, void* stream);              \
@@ -247,6 +262,11 @@ LF_TIER_ENTRIES(lf_bf16)
 // Their definitions, in the source that instantiates tier T as namespace ns.
 #define LF_TIER_DEFINE(ns, T)                                                                  \
     namespace ns {                                                                              \
+    int fa_tile(int axis, int Bv, int role, const float* y, float* k, const float* p,          \
+                const void* G, const float* bf, int nbatch, int ncomp, int Ny, int Nx,          \
+                void* stream) {                                                                 \
+        return ::fa_tile<T>(axis, Bv, role, y, k, p, G, bf, nbatch, ncomp, Ny, Nx, stream);     \
+    }                                                                                           \
     int bv_velocity(const float* y, float* k, const float* phi, const float* p, const void* FX, \
                     const void* FYT, const float* bfx, const float* bfy, int Bx, int By,        \
                     int nbatch, int ncomp, int Ny, int Nx, float t, void* stream) {             \

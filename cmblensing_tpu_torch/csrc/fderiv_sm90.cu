@@ -8,7 +8,8 @@
 // `_mk_dot('high')` (:225) and `_mk_dot('bf16')` (:218): lf_fderiv
 // (factored.cu) runs this kernel at TIER_HIGH and TIER_BF16 and keeps
 // fact_tile (fact_tile.cuh) for the strict tier. K3 (fa_sm90.cu) and K5
-// (uni_sm90.cu) run the same tile at those tiers; K4 runs fact_tile at
+// (uni_sm90.cu) run the same tile at every tier where the host's table
+// puts them on it (ops/lenseflow_kernels.py::FORMS); K4 runs fact_tile at
 // every tier.
 //
 // What bounds it, and what the tile does about it: fact_sm90.cuh's header
@@ -34,7 +35,7 @@ namespace {
 template <int B, int AXIS, int TIER>
 __global__ void __launch_bounds__(NT, 1)
 fderiv_sm90_kernel(const float* __restrict__ a, const float* __restrict__ c,
-                   float* __restrict__ out, const __nv_bfloat16* __restrict__ W,
+                   float* __restrict__ out, const void* __restrict__ W,
                    const float* __restrict__ bf, int Ny, int Nx, int accumulate) {
     const size_t base = (size_t)blockIdx.y * Ny * Nx;
     const float* ap = a + base;
@@ -42,25 +43,35 @@ fderiv_sm90_kernel(const float* __restrict__ a, const float* __restrict__ c,
     float* op = out + base;
     fact_sm90<B, cluster_ctas(B), AXIS, TIER>(
         W, bf, Nx, [&](size_t q) { return __ldcg(ap + q); },
-        [&](size_t q, const Parts<sm90_groups(B)>& part) {
+        [&](size_t q) {   // the pixel pair's c and (accumulating) out
+            const float2 cv = cp != nullptr ? ld2(cp + q) : make_float2(0.f, 0.f);
+            const float2 ov = accumulate ? ld2(op + q) : make_float2(0.f, 0.f);
+            return make_float4(cv.x, cv.y, ov.x, ov.y);
+        },
+        [&](size_t q, const Parts<sm90_groups(B)>& part, float4 pre) {
             // fderiv_kernel's order: the first group (+ c) stored or added,
             // then each later group added
             float2 v = part.g[0];
-            if (cp != nullptr) v = add2(v, ld2(cp + q));
-            if (accumulate) v = add2(ld2(op + q), v);
+            if (cp != nullptr) v = add2(v, make_float2(pre.x, pre.y));
+            if (accumulate) v = add2(make_float2(pre.z, pre.w), v);
             st2(op + q, fold(v, part, 1, [](float2 g) { return g; }));
         });
 }
 
+// Where K1 is built on this tile: 'high' and 'bf16', every radix (strict
+// K1 runs fact_tile).
+struct K1Built {
+    static constexpr bool on(int, int tier) { return tier != TIER_F32; }
+};
+
 template <int AXIS>
 int pass(int tier, int Bv, const float* x, const float* c, float* out, const void* W,
          const float* bf, int Ny, int Nx, int nplanes, int accumulate, cudaStream_t st) {
-    return sm90_dispatch(tier, Bv, [&](auto b, auto t) {
+    return sm90_dispatch<K1Built>(tier, Bv, [&](auto b, auto t) {
         constexpr int B = decltype(b)::value, TIER = decltype(t)::value;
         constexpr int NC = cluster_ctas(B);
         return sm90_launch<B, NC, TIER>(fderiv_sm90_kernel<B, AXIS, TIER>, sm90_tiles<AXIS>(Ny, Nx),
-                                    nplanes, st, x, c, out, static_cast<const __nv_bfloat16*>(W),
-                                    bf, Ny, Nx, accumulate);
+                                    nplanes, st, x, c, out, W, bf, Ny, Nx, accumulate);
     });
 }
 
@@ -87,7 +98,8 @@ int fderiv(int tier, const float* a, const float* b, const float* c, float* out,
 }
 }  // namespace lf_sm90
 
-LF_SM90_SETUP(fderiv_sm90_kernel, cluster_ctas, lf_fderiv_sm90_init, lf_fderiv_sm90_clusters)
+LF_SM90_SETUP(fderiv_sm90_kernel, cluster_ctas, K1Built, lf_fderiv_sm90_init,
+              lf_fderiv_sm90_clusters)
 
 #ifdef LF_CLOCK_PHASES
 // the phase probe's entry to lf_sm90::fderiv (lf_fderiv lives in factored.cu)

@@ -42,6 +42,26 @@ extern "C" int lf_phase_ticks_clear() {
 // even. The two bf16 tiers accumulate in FP32 on mma.sync.
 enum Tier { TIER_F32 = 0, TIER_HIGH = 1, TIER_BF16 = 2 };
 
+// Where K3 and K5 run fact_tile (fact_tile.cuh; factored_kernels.cuh,
+// uni.cu), by radix and tier: the host's table
+// (ops/lenseflow_kernels.py::FORMS, with the A/B in turns that chose it),
+// which the build passes as one bitmask for each (ops/_build.py::
+// form_flags: bit 2 tier + (B == 8)). Radix 16 and 32, and every tier and
+// radix a mask leaves out, run the cluster tile (fact_sm90.cuh;
+// fa_sm90.cu, uni_sm90.cu). Each kernel is built on the one tile the table
+// names for it; a source built without the flags has no k3_on_tile.
+#if defined(LF_FA_ON_TILE) && defined(LF_UNI_ON_TILE)
+__host__ __device__ constexpr bool on_tile(int mask, int B, int tier) {
+    return (B == 4 || B == 8) && (mask >> (2 * tier + (B == 8)) & 1);
+}
+__host__ __device__ constexpr bool k3_on_tile(int B, int tier) {
+    return on_tile(LF_FA_ON_TILE, B, tier);
+}
+__host__ __device__ constexpr bool k5_on_tile(int B, int tier) {
+    return on_tile(LF_UNI_ON_TILE, B, tier);
+}
+#endif
+
 // p(t) = (I + t Hess phi)^-1 grad phi at pixel idx; phi holds the planes
 // (gx, gy, hxx, hxy, hyy) with stride `plane`.
 __device__ __forceinline__ void p_of_t(const float* __restrict__ phi, size_t plane,

@@ -1,7 +1,11 @@
 // The universal role-switched LenseFlow velocity kernel (K5) for NVIDIA
-// Hopper (sm_90a) on factored operands: FP32 FMA here, and the 'high' and
-// 'bf16' tiers on the tensor cores in uni_sm90.cu (the entry's `tier`
-// argument picks). Its dense form is uni_dense.cu.
+// Hopper (sm_90a) on factored operands, on two tiles: here on fact_tile
+// strict at radix 4 and 8 and at 'high' and 'bf16' at radix 8 (FP32 FMA, or
+// the tensor cores at the reduced tiers; the entry's `tier` argument
+// picks; lenseflow_common.cuh::k5_on_tile), and on the cluster tile in
+// uni_sm90.cu at every other tier and radix; the host's table
+// (ops/lenseflow_kernels.py::FORMS, the same) names the tile of each pass
+// (the entry's `forms`, a bit a pass). Its dense form is uni_dense.cu.
 //
 // Replaces `_bwdAB_kernel` (cmblensing_tpu/ops/pallas_lenseflow.py, launched
 // by `_uni_call`): every velocity of every flow as calls of one kernel,
@@ -16,12 +20,11 @@
 //   role 2  a, b = two components: out = [p . grad a, p . grad b, 0, 0]
 //   role 3  a, b = two components: out = [div(p a), div(p b), 0, 0]
 //
-// The strict form is built on the tiled factored derivative `fact_tile`
-// (fact_tile.cuh), as strict K3 and K4 are: each role is an x pass that
-// stores and a y pass that adds, two launches (a launch a channel group and
-// pass at radix 16 and 32, below). The 'high' and 'bf16' form
-// (uni_sm90.cu) keeps this contract on the cluster tile fact_sm90, one
-// launch a pass at every radix and no atomics. Role 1 nests its
+// This form is built on the tiled factored derivative `fact_tile`
+// (fact_tile.cuh), as K3 at radix 4 and 8 and K4 are: each role is an x
+// pass that stores and a y pass that adds, two launches. The cluster form
+// (uni_sm90.cu) keeps this contract on fact_sm90, one launch a pass at
+// every radix and no atomics, and the bits. Role 1 nests its
 // derivatives, so it is two such stages: the inner stage forms the two
 // bracketed planes in a scratch buffer (the t p multiply in the load
 // functor, a or b added at store), the outer stage differentiates them.
@@ -51,18 +54,18 @@
 //
 // Tiers: `_bwdAB_kernel` builds its derivatives with `_make_dd_any(...,
 // precision, fmeta)`, `_mk_dot('high')` (:225) or `_mk_dot('bf16')` (:218)
-// at the reduced tiers; uni_sm90.cu runs those (fact_sm90.cuh).
+// at the reduced tiers; fact_tile<B, AXIS, TIER> runs them here, the blocks
+// split ([head, residual] bf16, FactoredOps.FXS / FYTS) at 'high', their
+// heads at 'bf16', every channel value split or rounded as its slab is
+// formed. Role 1's outer stage differentiates the inner stage's stored
+// sums, so at a reduced tier it rounds those sums, as JAX rounds `a +
+// ddx(t px a) + ddy(t py a)`.
 //
-// Radix 16 and 32 run fact_tile's channel groups as strict K1 and K3, and
-// K4, do (LF_TILE_LAUNCH): a launch a group and pass, in order, g the last
-// argument, each adding its partial sum of the derivative. The x pass's
-// group 0 stores where the one-group kernel stores and every later launch
-// adds, so each later group adds only what is linear in its partial sum:
-// role 0's b d_x a and b d_y a, each pass's own plane, are stored by that
-// pass's group 0 and added to by its later groups; role 1's "+ a" (or
-// "+ b") and the planes a role leaves at zero are written by the x pass's
-// group 0 alone (in the launches' fixed order, so the bits are the same
-// every run).
+// Radix 16 and 32 would need fact_tile's channel groups as launches of
+// their own, in order; K5 runs the cluster tile there (uni_sm90.cu), whose
+// store folds the groups' partial sums in that order. The kernel below
+// takes the group argument g of LF_TILE_LAUNCH, always 0 (one group up to
+// radix 8).
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
 // stream; the entry point returns the first nonzero cudaGetLastError().
@@ -84,6 +87,7 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
            const float* __restrict__ px, const float* __restrict__ py, float* __restrict__ out,
            float* __restrict__ scratch, const void* __restrict__ Gt,
            const float* __restrict__ bf, int Ny, int Nx, float t, int g) {
+    static_assert(tile_groups(B) == 1, "K5 on fact_tile holds every channel in one group");
     extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, TIER)
     load_butterflies<B, TIER>(bf, smem, g);
     const size_t plane = (size_t)Ny * Nx;
@@ -94,8 +98,7 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
     const float* pa = (AXIS == AXIS_X ? px : py) + (size_t)bi * plane;   // p along this axis
     float* o = out + (size_t)z * 4 * plane;
     float* sc = role == 1 ? scratch + (size_t)z * 2 * plane : nullptr;
-    // the x pass's first channel group stores, every later launch adds
-    const bool first = AXIS == AXIS_X && g == 0;
+    constexpr bool first = AXIS == AXIS_X;   // the x pass stores, the y pass adds
     const bool inner = role == 1 && stage == 0;
     int m0, o0;
     tile_origin<AXIS>(m0, o0);
@@ -106,8 +109,8 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
     const float scale = inner ? t : 1.f;
     // where the derivative goes: out plane j, or the inner stage's scratch plane j
     float* dst = inner ? sc + j * plane : (role == 1 ? o : o + j * plane);
-    // a later launch adds onto the first one's plane with a result-less
-    // atomicAdd: one add per pixel, so the sum is that of a load, add and store
+    // the y pass adds onto the x pass's plane with a result-less atomicAdd:
+    // one add per pixel, so the sum is that of a load, add and store
     fact_tile<B, AXIS, TIER>(
         Gt, smem, m0, o0, g, Nx,
         [&](int q) {
@@ -116,9 +119,7 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
         },
         [&](int q, float v) {
             if (role == 0 && j == 0) {
-                float* bd = o + (2 + AXIS) * plane + q;    // b d_x a, b d_y a: this pass's plane
-                if (g == 0) *bd = bz[q] * v;
-                else atomicAdd(bd, bz[q] * v);
+                o[(2 + AXIS) * plane + q] = bz[q] * v;     // b d_x a, b d_y a: this pass's plane
                 v *= pa[q];                                // p . grad a
             } else if (role == 2) {
                 v *= pa[q];                                // p . grad of a, b
@@ -139,78 +140,100 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
 
 template <int B, int TIER>
 int allow_uni_radix() {
-    const int rc = allow_tile_smem(uni_kernel<B, AXIS_X, TIER>, B, TIER);
-    return rc != 0 ? rc : allow_tile_smem(uni_kernel<B, AXIS_Y, TIER>, B, TIER);
+    if constexpr (k5_on_tile(B, TIER)) {
+        const int rc = allow_tile_smem(uni_kernel<B, AXIS_X, TIER>, B, TIER);
+        return rc != 0 ? rc : allow_tile_smem(uni_kernel<B, AXIS_Y, TIER>, B, TIER);
+    } else {
+        return 0;   // the cluster tile's form: none built here
+    }
 }
 
 template <int TIER>
 int allow_uni() {
-    int rc = allow_uni_radix<4, TIER>();
-    if (rc == 0) rc = allow_uni_radix<8, TIER>();
-    if (rc == 0) rc = allow_uni_radix<16, TIER>();
-    return rc != 0 ? rc : allow_uni_radix<32, TIER>();
+    const int rc = allow_uni_radix<4, TIER>();
+    return rc != 0 ? rc : allow_uni_radix<8, TIER>();
 }
 
-// One velocity, strict: an x pass and a y pass a stage, a launch a channel
-// group each.
+// One pass (axis 0: x, stores; 1: y, adds) of stage `stage` of the role's
+// velocity on fact_tile at tier TIER and radix Bv along the axis where
+// k5_on_tile puts it (one channel group, one launch; every other form is
+// refused: the cluster tile runs it, uni_sm90.cu). G: the axis' blocks as
+// fact_tile takes them at the tier.
 template <int TIER>
-int uni_velocity(int role, const float* a, const float* b, long long a_bs, long long a_cs,
-                 long long b_bs, long long b_cs, const float* px, const float* py, float* out,
-                 float* scratch, const void* FX, const void* FYT, const float* bfx,
-                 const float* bfy, int Bx, int By, int nbatch, int nper, int Ny, int Nx, float t,
-                 cudaStream_t st) {
-    for (int stage = 0; stage < (role == 1 ? 2 : 1); ++stage) {
-        const int nz = nbatch * nper * (role == 1 && stage == 1 ? 1 : 2);
-        LF_WITH_RADIX(Bx, LF_TILE_LAUNCH(uni_kernel, AXIS_X, nz, role, stage, a, b, a_bs, a_cs,
-                                         b_bs, b_cs, nper, px, py, out, scratch, FX, bfx, Ny, Nx,
-                                         t))
-        int rc = (int)cudaGetLastError();
-        if (rc != 0) return rc;
-        LF_WITH_RADIX(By, LF_TILE_LAUNCH(uni_kernel, AXIS_Y, nz, role, stage, a, b, a_bs, a_cs,
-                                         b_bs, b_cs, nper, px, py, out, scratch, FYT, bfy, Ny, Nx,
-                                         t))
-        rc = (int)cudaGetLastError();
-        if (rc != 0) return rc;
+int uni_tile(int axis, int Bv, int role, int stage, const float* a, const float* b,
+             long long a_bs, long long a_cs, long long b_bs, long long b_cs, const float* px,
+             const float* py, float* out, float* scratch, const void* G, const float* bf,
+             int nbatch, int nper, int Ny, int Nx, float t, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    const int nz = nbatch * nper * (role == 1 && stage == 1 ? 1 : 2);
+    if (axis == AXIS_X) {
+        LF_WITH_TILE_RADIX(Bv, k5_on_tile,
+                           LF_TILE_LAUNCH(uni_kernel, AXIS_X, nz, role, stage, a, b, a_bs, a_cs,
+                                          b_bs, b_cs, nper, px, py, out, scratch, G, bf, Ny, Nx,
+                                          t))
+    } else {
+        LF_WITH_TILE_RADIX(Bv, k5_on_tile,
+                           LF_TILE_LAUNCH(uni_kernel, AXIS_Y, nz, role, stage, a, b, a_bs, a_cs,
+                                          b_bs, b_cs, nper, px, py, out, scratch, G, bf, Ny, Nx,
+                                          t))
     }
-    return 0;
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-namespace lf_sm90 {   // K5 at 'high' and 'bf16' (uni_sm90.cu)
-int uni_velocity(int tier, int role, const float* a, const float* b, long long a_bs,
-                 long long a_cs, long long b_bs, long long b_cs, const float* px, const float* py,
-                 float* out, float* scratch, const void* WX, const void* WYT, const float* bfx,
-                 const float* bfy, int Bx, int By, int nbatch, int nper, int Ny, int Nx, float t,
-                 void* stream);
+namespace lf_sm90 {   // K5 on the cluster tile (uni_sm90.cu)
+int uni_pass(int tier, int axis, int Bv, int role, int stage, const float* a, const float* b,
+             long long a_bs, long long a_cs, long long b_bs, long long b_cs, const float* px,
+             const float* py, float* out, float* scratch, const void* W, const float* bf,
+             int nbatch, int nper, int Ny, int Nx, float t, void* stream);
 }
 
-// Once after loading, before any launch: the strict kernel's dynamic
-// shared memory (lf_uni_sm90_init allows the other tiers').
-extern "C" int lf_uni_init() { return allow_uni<TIER_F32>(); }
+// Once after loading, before any launch: the fact_tile kernels' dynamic
+// shared memory (lf_uni_sm90_init allows the cluster tile's).
+extern "C" int lf_uni_init() {
+    int rc = allow_uni<TIER_F32>();
+    if (rc == 0) rc = allow_uni<TIER_HIGH>();
+    return rc != 0 ? rc : allow_uni<TIER_BF16>();
+}
 
 // out <- the role's velocity (see the header) of the (nbatch, nper) entries
 // of a and b, at time t; px, py are (nbatch, Ny, Nx), out is (nbatch, nper,
 // 4, Ny, Nx) and scratch (nbatch, nper, 2, Ny, Nx) (role 1 only; may be
-// null otherwise). `tier` picks FP32 (0) on fact_tile, FX and FYT the
-// packed blocks, both transposed (fact_tile.cuh), two launches a channel
-// group (one group up to B = 8, B / 8 from 16), four for role 1; or 'high'
-// (1) and 'bf16' (2) on the cluster tile (uni_sm90.cu), FX and FYT the
-// swizzled split blocks (FactoredOps.FXW / FYTW), two launches, four for
-// role 1, a and b and their strides 8-byte aligned.
-extern "C" int lf_uni_velocity(int tier, int role, const float* a, const float* b,
+// null otherwise). `tier` picks FP32 (0), 'high' (1) or 'bf16' (2); each
+// pass runs on the form that bit `axis` of `forms` names (the host's
+// table, ops/lenseflow_kernels.py::FORMS): 0 fact_tile (where k5_on_tile
+// puts it; GX / GYT the tier's fact_tile blocks: FX / FYT, their split, or
+// its heads), 1 the cluster tile (uni_sm90.cu, everywhere else; GX / GYT
+// strict FX / FYT, at 'high' and 'bf16' the swizzled split FXW / FYTW; a
+// and b and their strides 8-byte aligned); a form not built there is
+// refused. A launch a pass, an x pass and a y pass a stage, two stages for
+// role 1.
+extern "C" int lf_uni_velocity(int tier, int forms, int role, const float* a, const float* b,
                                long long a_bs, long long a_cs, long long b_bs, long long b_cs,
                                const float* px, const float* py, float* out, float* scratch,
-                               const void* FX, const void* FYT, const float* bfx,
+                               const void* GX, const void* GYT, const float* bfx,
                                const float* bfy, int Bx, int By, int nbatch, int nper, int Ny,
                                int Nx, float t, void* stream) {
-    if (!shape_ok(Bx, By, Ny, Nx) || role < 0 || role > 3 || nbatch < 1 || nper < 1 ||
-        (role == 1 && scratch == nullptr))
+    const auto tile = tier == TIER_F32    ? &uni_tile<TIER_F32>
+                      : tier == TIER_HIGH ? &uni_tile<TIER_HIGH>
+                      : tier == TIER_BF16 ? &uni_tile<TIER_BF16>
+                                          : nullptr;
+    if (tile == nullptr || !shape_ok(Bx, By, Ny, Nx) || role < 0 || role > 3 || nbatch < 1 ||
+        nper < 1 || nbatch * nper * 2 > 65535 || (role == 1 && scratch == nullptr) || (forms & ~3))
         return (int)cudaErrorInvalidValue;
-    if (tier != TIER_F32)
-        return lf_sm90::uni_velocity(tier, role, a, b, a_bs, a_cs, b_bs, b_cs, px, py, out, scratch,
-                                     FX, FYT, bfx, bfy, Bx, By, nbatch, nper, Ny, Nx, t, stream);
-    return uni_velocity<TIER_F32>(role, a, b, a_bs, a_cs, b_bs, b_cs, px, py, out, scratch, FX,
-                                  FYT, bfx, bfy, Bx, By, nbatch, nper, Ny, Nx, t,
-                                  (cudaStream_t)stream);
+    for (int stage = 0; stage < (role == 1 ? 2 : 1); ++stage)
+        for (int axis = AXIS_X; axis <= AXIS_Y; ++axis) {
+            const int Bv = axis == AXIS_X ? Bx : By;
+            const void* G = axis == AXIS_X ? GX : GYT;
+            const float* bf = axis == AXIS_X ? bfx : bfy;
+            const int rc = (forms >> axis & 1)
+                               ? lf_sm90::uni_pass(tier, axis, Bv, role, stage, a, b, a_bs, a_cs,
+                                                   b_bs, b_cs, px, py, out, scratch, G, bf, nbatch,
+                                                   nper, Ny, Nx, t, stream)
+                               : tile(axis, Bv, role, stage, a, b, a_bs, a_cs, b_bs, b_cs, px, py,
+                                      out, scratch, G, bf, nbatch, nper, Ny, Nx, t, stream);
+            if (rc != 0) return rc;
+        }
+    return 0;
 }

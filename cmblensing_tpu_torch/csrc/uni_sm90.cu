@@ -1,14 +1,19 @@
-// K5 at 'high' and 'bf16' for NVIDIA Hopper (sm_90a) on factored operands:
-// the universal role-switched velocity kernel on the cluster tile
-// fact_sm90 (fact_sm90.cuh), one launch a pass and stage at every radix,
-// its clusters velocity_ctas: one CTA at radix 8, as K3's.
+// K5 for NVIDIA Hopper (sm_90a) on factored operands at every tier: the
+// universal role-switched velocity kernel on the cluster tile fact_sm90
+// (fact_sm90.cuh), one launch a pass and stage at every radix, its
+// clusters velocity_ctas: one CTA at radix 8, as K3's.
 //
-// Replaces, at the tiers 'high' and 'bf16', `_bwdAB_kernel`
-// (cmblensing_tpu/ops/pallas_lenseflow.py:734, launched by `_uni_call`
-// :795) with its derivatives `_mk_dot('high')` (:225) and `_mk_dot('bf16')`
-// (:218): lf_uni_velocity (uni.cu) runs this kernel at TIER_HIGH and
-// TIER_BF16 and keeps uni_kernel on fact_tile for the strict tier; the
-// dense K5 is uni_dense.cu.
+// Replaces `_bwdAB_kernel` (cmblensing_tpu/ops/pallas_lenseflow.py:734,
+// launched by `_uni_call` :795) with its derivatives strict,
+// `_mk_dot('high')` (:225) and `_mk_dot('bf16')` (:218): lf_uni_velocity
+// (uni.cu) runs each pass on the tile the host's table names
+// (ops/lenseflow_kernels.py::FORMS; lenseflow_common.cuh::k5_on_tile):
+// this kernel at radix 16 and 32 at every tier (the strict one in FP32
+// FMA, the bits of uni_kernel's ordered channel-group launches it replaced
+// there) and at radix 4 at 'high' and 'bf16'; uni_kernel on fact_tile
+// strict at radix 4 and 8 and at every tier at 8, where an A/B in turns
+// measured it faster. Only these forms are built; the two tiles give the
+// same bits. The dense K5 is uni_dense.cu.
 //
 // The contract is uni_kernel's (uni.cu's header has the roles in full):
 // roles 0-3 at run time, role 1 as two stages (the inner stage forms the
@@ -47,12 +52,17 @@
 // derivatives and role 1 six (two launches a stage), against 8 planes of
 // traffic (a, b, px, py in, out) and role 1's scratch.
 //
-// Plain C++ entry (lf_sm90::uni_velocity, called by lf_uni_velocity) and C
+// Plain C++ entry (lf_sm90::uni_pass, called by lf_uni_velocity) and C
 // entries for set-up (lf_uni_sm90_init) and the cluster-fit query.
 
 #include "fact_sm90.cuh"
 
 namespace {
+
+// what a store reads of a pixel pair before its sums arrive (fetch)
+struct Pre3 {
+    float2 b, p, d;
+};
 
 // One pass (AXIS) of one derivative of one stage of the role's velocity.
 template <int B, int AXIS, int TIER>
@@ -61,7 +71,7 @@ uni_sm90_kernel(int role, int stage, const float* __restrict__ a, const float* _
                 long long a_bs, long long a_cs, long long b_bs, long long b_cs, int nper,
                 const float* __restrict__ px, const float* __restrict__ py,
                 float* __restrict__ out, float* __restrict__ scratch,
-                const __nv_bfloat16* __restrict__ W, const float* __restrict__ bf, int Ny,
+                const void* __restrict__ W, const float* __restrict__ bf, int Ny,
                 int Nx, float t) {
     const size_t plane = (size_t)Ny * Nx;
     const int nder = role == 1 && stage == 1 ? 1 : 2;
@@ -80,28 +90,39 @@ uni_sm90_kernel(int role, int stage, const float* __restrict__ a, const float* _
     const float scale = inner ? t : 1.f;
     // where the derivative goes: out plane j, or the inner stage's scratch plane j
     float* dst = inner ? sc + j * plane : (role == 1 ? o : o + j * plane);
+    const bool mul = (role == 0 && j == 0) || role == 2;   // p . grad: p multiplied at store
     fact_sm90<B, velocity_ctas(B), AXIS, TIER>(
         W, bf, Nx,
         [&](size_t q) {
             const float x = __ldcg(src + q);
             return pre ? scale * __ldcg(pa + q) * x : x;
         },
-        [&](size_t q, const Parts<sm90_groups(B)>& part) {
+        [&](size_t q) {
+            // the pixel pair's b (role 0's b d a), p (p . grad), and the
+            // operand (the inner stage's "+ a") or the x pass's plane (the
+            // y pass)
+            Pre3 got = {make_float2(0.f, 0.f), make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+            if (role == 0 && j == 0) got.b = ld2(bz + q);
+            if (mul) got.p = ld2(pa + q);
+            if (!first) got.d = ld2(dst + q);
+            else if (inner) got.d = ld2(src + q);
+            return got;
+        },
+        [&](size_t q, const Parts<sm90_groups(B)>& part, const Pre3& got) {
             // uni_kernel's order: each channel group's sum through the role's
             // product, the pass's first group stored (the y pass: added onto
             // the x pass's plane), every later one added
             const auto id = [](float2 g) { return g; };
-            const bool mul = (role == 0 && j == 0) || role == 2;   // p . grad
-            const float2 pv = mul ? ld2(pa + q) : make_float2(0.f, 0.f);
+            const float2 pv = got.p;
             const auto byp = [&](float2 g) { return mul2(g, pv); };
             if (role == 0 && j == 0) {   // b d_x a, b d_y a: this pass's plane
-                const float2 bv = ld2(bz + q);
+                const float2 bv = got.b;
                 const auto byb = [&](float2 g) { return mul2(bv, g); };
                 st2(o + (2 + AXIS) * plane + q, fold(byb(part.g[0]), part, 1, byb));
             }
             if (first) {
                 float2 v = mul ? byp(part.g[0]) : part.g[0];
-                if (inner) v = add2(v, ld2(src + q));   // a (or b) + d_x(t px a)
+                if (inner) v = add2(v, got.d);   // a (or b) + d_x(t px a)
                 st2(dst + q, mul ? fold(v, part, 1, byp) : fold(v, part, 1, id));
                 if (j == 0 && role != 0) {   // the planes this role leaves at zero
                     const float2 zero = make_float2(0.f, 0.f);
@@ -112,56 +133,56 @@ uni_sm90_kernel(int role, int stage, const float* __restrict__ a, const float* _
                     }
                 }
             } else {
-                const float2 dv = ld2(dst + q);
-                st2(dst + q, mul ? fold(dv, part, 0, byp) : fold(dv, part, 0, id));
+                st2(dst + q, mul ? fold(got.d, part, 0, byp) : fold(got.d, part, 0, id));
             }
         });
 }
+
+// Where K5 is built on this tile: every built tier and radix that does not
+// run fact_tile (lenseflow_common.cuh::k5_on_tile).
+struct K5Built {
+    static constexpr bool on(int B, int tier) { return !k5_on_tile(B, tier); }
+};
 
 template <int AXIS>
 int pass(int tier, int Bv, int role, int stage, const float* a, const float* b, long long a_bs,
          long long a_cs, long long b_bs, long long b_cs, int nper, const float* px,
          const float* py, float* out, float* scratch, const void* W, const float* bf, int nz,
          int Ny, int Nx, float t, cudaStream_t st) {
-    return sm90_dispatch(tier, Bv, [&](auto bv, auto tv) {
+    return sm90_dispatch<K5Built>(tier, Bv, [&](auto bv, auto tv) {
         constexpr int B = decltype(bv)::value, TIER = decltype(tv)::value;
         constexpr int NC = velocity_ctas(B);
         return sm90_launch<B, NC, TIER>(uni_sm90_kernel<B, AXIS, TIER>, sm90_tiles<AXIS>(Ny, Nx), nz,
                                     st, role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper, px, py,
-                                    out, scratch, static_cast<const __nv_bfloat16*>(W), bf, Ny,
-                                    Nx, t);
+                                    out, scratch, W, bf, Ny, Nx, t);
     });
 }
 
 }  // namespace
 
 namespace lf_sm90 {
-// out <- the role's velocity of the (nbatch, nper) entries of a and b at
-// time t, at `tier` ('high' or 'bf16'), as lf_uni_velocity (uni.cu) takes
-// it; WX, WYT: the swizzled split blocks (2, B, A, A) bf16 of each axis.
-// Two launches a stage (an x pass that stores and a y pass that adds),
-// four for role 1.
-int uni_velocity(int tier, int role, const float* a, const float* b, long long a_bs,
-                 long long a_cs, long long b_bs, long long b_cs, const float* px, const float* py,
-                 float* out, float* scratch, const void* WX, const void* WYT, const float* bfx,
-                 const float* bfy, int Bx, int By, int nbatch, int nper, int Ny, int Nx, float t,
-                 void* stream) {
-    if (Nx != Bx * FA || Ny != By * FA || nbatch * nper * 2 > 65535 ||
+// One pass (axis 0: x, stores; 1: y, adds) of stage `stage` of the role's
+// velocity of the (nbatch, nper) entries of a and b at time t, as
+// lf_uni_velocity (uni.cu) takes it, at `tier`, radix Bv along the axis:
+// one launch. W: the axis' blocks (strict: FP32 (B, A, A) as fact_tile
+// takes them; 'high' and 'bf16': the swizzled split (2, B, A, A) bf16). a,
+// b and their strides must keep 8-byte alignment. The passes and stages
+// run in stream order.
+int uni_pass(int tier, int axis, int Bv, int role, int stage, const float* a, const float* b,
+             long long a_bs, long long a_cs, long long b_bs, long long b_cs, const float* px,
+             const float* py, float* out, float* scratch, const void* W, const float* bf,
+             int nbatch, int nper, int Ny, int Nx, float t, void* stream) {
+    if ((axis == AXIS_X ? Nx : Ny) != Bv * FA || nbatch * nper * 2 > 65535 ||
         ((reinterpret_cast<size_t>(a) | reinterpret_cast<size_t>(b)) & 7) ||
         ((a_bs | a_cs | b_bs | b_cs) & 1))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    for (int stage = 0; stage < (role == 1 ? 2 : 1); ++stage) {
-        const int nz = nbatch * nper * (role == 1 && stage == 1 ? 1 : 2);
-        int rc = pass<AXIS_X>(tier, Bx, role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper, px, py,
-                              out, scratch, WX, bfx, nz, Ny, Nx, t, st);
-        if (rc == 0)
-            rc = pass<AXIS_Y>(tier, By, role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper, px, py,
-                              out, scratch, WYT, bfy, nz, Ny, Nx, t, st);
-        if (rc != 0) return rc;
-    }
-    return 0;
+    const int nz = nbatch * nper * (role == 1 && stage == 1 ? 1 : 2);
+    return axis == AXIS_X ? pass<AXIS_X>(tier, Bv, role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper,
+                                         px, py, out, scratch, W, bf, nz, Ny, Nx, t, st)
+                          : pass<AXIS_Y>(tier, Bv, role, stage, a, b, a_bs, a_cs, b_bs, b_cs, nper,
+                                         px, py, out, scratch, W, bf, nz, Ny, Nx, t, st);
 }
 }  // namespace lf_sm90
 
-LF_SM90_SETUP(uni_sm90_kernel, velocity_ctas, lf_uni_sm90_init, lf_uni_sm90_clusters)
+LF_SM90_SETUP(uni_sm90_kernel, velocity_ctas, K5Built, lf_uni_sm90_init, lf_uni_sm90_clusters)

@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` is compiled at first use with nvcc for sm_90a, one
 nvcc process per source, all started together, and the objects are
 linked into one shared library with a plain C interface, under
 ``build/`` at the repository root. The library is named by a hash of
-every source and header in ``csrc/``, so that an edit to any of them
+every source and header in ``csrc/`` and of the flags made from the
+host's table of tiles (``form_flags``), so that an edit to any of them
 rebuilds. It is loaded with ctypes. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -35,8 +36,22 @@ def _nvcc():
                        "csrc/ with the CUDA toolkit at first use on a CUDA host")
 
 
+def form_flags():
+    """The build's copy of which tile K3 and K5 run at radix 4 and 8 (at 16
+    and 32 they run the cluster tile), made from the host's table
+    (ops/lenseflow_kernels.py::FORMS), so that only the forms it names are
+    built: -DLF_FA_ON_TILE and -DLF_UNI_ON_TILE, each a bitmask of the
+    (tier, radix) on fact_tile, bit 2 tier + (radix == 8)
+    (csrc/lenseflow_common.cuh::k3_on_tile, k5_on_tile read them)."""
+    from .lenseflow_kernels import FORMS, PRECISIONS
+    return [f"-DLF_{k.upper()}_ON_TILE="
+            + str(sum(1 << (2 * t + (B == 8)) for t, p in enumerate(PRECISIONS) for B in (4, 8)
+                      if FORMS[k, p, B] == "tile"))
+            for k in ("fa", "uni")]
+
+
 def _tag():
-    h = hashlib.sha1()
+    h = hashlib.sha1(" ".join(form_flags()).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -55,7 +70,7 @@ def build():
     work.mkdir(parents=True, exist_ok=True)
     srcs = sorted(CSRC.glob("*.cu"))
     objs = [work / f"{s.stem}.o" for s in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *form_flags(), "-c", "-o", str(o), str(s)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for s, o in zip(srcs, objs)]
     logs = [p.communicate()[0] for p in procs]
@@ -84,10 +99,10 @@ def bind(lib):
         "lf_rk4_update": [P, P, P, P, ctypes.c_size_t, I, F, F, P],
         "lf_p_planes": [P, P, ctypes.c_size_t, ctypes.c_size_t, F, P],
         "lf_fderiv": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
-        "lf_fa_velocity": [I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "lf_fa_velocity": [I, I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
         "lf_bv_velocity": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
-        "lf_uni_velocity": [I, I, P, P, L, L, L, L, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F,
-                            P],
+        "lf_uni_velocity": [I, I, I, P, P, L, L, L, L, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                            F, P],
         "lf_uni_dense_velocity": [I, I, P, P, L, L, L, L, P, P, P, P, P, P, I, I, I, I, F, P],
         "lf_dense_init": [],
         "lf_factored_init": [],

@@ -63,10 +63,11 @@ lf_fa_velocity and lf_bv_velocity, csrc/factored.cu, and of
 lf_uni_velocity and lf_uni_dense_velocity, K5) and, for a CPU tensor,
 the plain leaves at that precision, dense or factored; at 'bf16' phi's
 planes are formed strict (PLANES_PRECISION). The uni granularity runs
-every tier, dense and at every built radix. K1, K3 and K5 at 'high' and
-'bf16' run the cluster tile (csrc/fact_sm90.cuh), one launch a pass at
-every radix; strict, and K4 at every tier, they run fact_tile, at radix
-16 and 32 in channel groups (pass_launches).
+every tier, dense and at every built radix. The factored kernels run
+one of two tiles, as FORMS names it for each kernel, tier and radix: the
+cluster tile (csrc/fact_sm90.cuh; one launch a pass at every radix) or
+fact_tile (csrc/fact_tile.cuh; at radix 16 and 32, strict K1 and K4 in
+channel groups, a launch each; pass_launches).
 
 The dense kernels take any plane shape (their edge tiles are guarded);
 the factored ones a radix they are built for (ops/deriv.py::deriv_ops).
@@ -257,23 +258,22 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-_OPERANDS = {}   # (id(mats), precision) -> (mats, tensors, pointers): sets already checked
+_OPERANDS = {}   # (id(mats), precision, forms) -> (mats, tensors, pointers): sets already checked
 
 
-def _operands(name, mats, like, precision="f32", swizzled=False):
+def _operands(name, mats, like, precision="f32", forms=0):
     """The derivative operands a kernel reads from `mats`: (DxT, Dy) (at
     'high' their (2, n, n) bfloat16 splits [head, residual], at 'bf16'
     their (n, n) bfloat16 heads, made here once per operand set) or a
-    FactoredOps' (FX, FYT, bfx, bfy) (at 'high' (FXS, FYTS, bfx, bfy), at
-    'bf16' (FXS[0], FYTS[0], bfx, bfy); `swizzled`: (FXW, FYTW, bfx, bfy)
-    at both), as tensors and ready ctypes pointers. Device,
-    type and contiguity are checked the first time an operand set is seen
-    (a flow hands the same set to every launch); that it lies on `like`'s
-    device, every time."""
-    hit = _OPERANDS.get((id(mats), precision, swizzled))
+    FactoredOps' blocks of each pass on the form `forms` names for it and
+    its butterflies (`_fops`), as tensors and ready ctypes pointers.
+    Device, type and contiguity are checked the first time an operand set
+    is seen (a flow hands the same set to every launch); that it lies on
+    `like`'s device, every time."""
+    hit = _OPERANDS.get((id(mats), precision, forms))
     if hit is None or hit[0] is not mats:
         if isinstance(mats, FactoredOps):
-            tensors = _fops(mats, precision, swizzled)
+            tensors = _fops(mats, precision, forms)
         elif precision == "high":
             _check_cuda(name, mats)
             tensors = tuple(torch.stack(split_bf16(M)) for M in mats)
@@ -295,7 +295,7 @@ def _operands(name, mats, like, precision="f32", swizzled=False):
             raise ValueError(f"{name}: all operands must be on one CUDA device")
         if len(_OPERANDS) >= 8:
             _OPERANDS.clear()
-        hit = _OPERANDS[(id(mats), precision, swizzled)] = (mats, tensors, tuple(map(_ptr, tensors)))
+        hit = _OPERANDS[(id(mats), precision, forms)] = (mats, tensors, tuple(map(_ptr, tensors)))
     if hit[1][0].device != like.device:
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
     return hit[1], hit[2]
@@ -397,18 +397,58 @@ def deriv_cuda(a, b, c, out, mats, precision="f32"):
     LAUNCHES["deriv" + _SUFFIX[tier]] += 1
 
 
+# The tile each factored kernel runs a pass on, by (kernel, precision,
+# radix), and so the one form csrc/ builds of it there (the build passes
+# K3's and K5's entries to nvcc, ops/_build.py::form_flags, and the C
+# entries refuse the other form): "tile", fact_tile (csrc/fact_tile.cuh: a
+# launch a channel group, in order; one group up to radix 8), or
+# "cluster", the cluster tile (csrc/fact_sm90.cuh: a launch a pass, the
+# channel groups the CTAs of one thread-block cluster). Both give the
+# same bits at a tier. K1 ('fderiv') runs fact_tile strict and the
+# cluster tile at 'high' and 'bf16'; K4 ('bv') fact_tile at every tier;
+# K3 ('fa') and K5 ('uni') the cluster tile at radix 16 and 32 and, at 4
+# and 8, fact_tile only where an A/B in turns measured it more than 2 %
+# faster (twice the largest difference between two runs of the same sum,
+# 1.1 %; a tie stays on the cluster tile, which the tier runs at 16 and 32):
+# the mean cold ms of four rounds, summed over K3's two roles or K5's four
+# at the batches the main path runs the tier at (strict: 1 and 17, the
+# grid line search's trials being strict; 'high' and 'bf16': 1), 512^2
+# (radix 4) and 1024^2 (radix 8), fact_tile against the cluster tile
+# (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W):
+_TILE_AT_4_8 = {   # (kernel, precision, radix): (fact_tile ms, cluster tile ms)
+    ("fa", "f32", 4): (0.5830, 0.8014), ("fa", "f32", 8): (2.4684, 3.0015),
+    ("fa", "high", 4): (0.0595, 0.0542), ("fa", "high", 8): (0.1221, 0.1308),
+    ("fa", "bf16", 4): (0.0462, 0.0463), ("fa", "bf16", 8): (0.0928, 0.0935),
+    ("uni", "f32", 4): (1.7422, 2.7891), ("uni", "f32", 8): (7.2594, 8.6492),
+    ("uni", "high", 4): (0.1526, 0.1454), ("uni", "high", 8): (0.3624, 0.4072),
+    ("uni", "bf16", 4): (0.1153, 0.1109), ("uni", "bf16", 8): (0.2860, 0.3035)}
+FORMS = {**{("fderiv", p, B): "tile" if p == "f32" else "cluster"
+            for p in PRECISIONS for B in BUILT_RADICES},
+         **{("bv", p, B): "tile" for p in PRECISIONS for B in BUILT_RADICES},
+         **{(k, p, B): "cluster" for k in ("fa", "uni") for p in PRECISIONS for B in (16, 32)},
+         **{key: "tile" if tile * 1.02 < cluster else "cluster"
+            for key, (tile, cluster) in _TILE_AT_4_8.items()}}
+
+
 def pass_launches(B, precision, kernel):
     """The launches of one pass of a factored kernel at radix B and
-    `precision`: K1, K3 and K5 ('fderiv', 'fa', 'uni') at 'high' and 'bf16'
-    run on the cluster tile (csrc/fact_sm90.cuh), one launch a pass at every
-    radix; strict, and K4 ('bv') at every tier, they run fact_tile, one
-    launch a channel group (ops/deriv.py::radix_groups). Refuses a kernel,
-    tier or radix that no factored kernel runs."""
-    if kernel not in ("fderiv", "fa", "uni", "bv") or precision not in PRECISIONS \
-            or B not in BUILT_RADICES:
+    `precision`: one on the cluster tile, one a channel group on fact_tile
+    (ops/deriv.py::radix_groups), as FORMS puts the pass. Refuses a
+    kernel, tier or radix that no factored kernel runs."""
+    form = FORMS.get((kernel, precision, B))
+    if form is None:
         raise ValueError(f"pass_launches: no factored kernel {kernel!r} at {precision!r}, "
                          f"radix {B}")
-    return 1 if precision != "f32" and kernel != "bv" else _deriv.radix_groups(B)
+    return 1 if form == "cluster" else _deriv.radix_groups(B)
+
+
+def _forms(kernel, precision, Bx, By):
+    """The C entries' `forms` argument: bit 0 (the x pass) and bit 1 (the
+    y pass) set where FORMS puts that pass on the cluster tile."""
+    for B in (Bx, By):
+        pass_launches(B, precision, kernel)
+    return sum((FORMS[kernel, precision, B] == "cluster") << axis
+               for axis, B in enumerate((Bx, By)))
 
 
 def _check_factored(name, ops, Ny, Nx):
@@ -427,19 +467,22 @@ def _check_factored(name, ops, Ny, Nx):
     return Bx, By
 
 
-def _fops(ops, precision="f32", swizzled=False):
-    """The operands the factored kernels read: x blocks, transposed y
-    blocks (at 'high' both split, at 'bf16' their heads), the two
-    butterflies; `swizzled` (K1, K3 and K5 at 'high' and 'bf16', the
-    cluster tile): the split blocks swizzled, whose heads 'bf16' reads."""
-    if swizzled:
-        return ops.FXW, ops.FYTW, ops.bfx, ops.bfy
-    if precision == "high":
-        return ops.FXS, ops.FYTS, ops.bfx, ops.bfy
-    if precision == "bf16":
-        heads = (None, None) if ops.FXS is None else (ops.FXS[0], ops.FYTS[0])
-        return (*heads, ops.bfx, ops.bfy)
-    return ops.FX, fyt(ops), ops.bfx, ops.bfy
+def _fops(ops, precision="f32", forms=0):
+    """The operands the factored kernels read: the x blocks and the
+    transposed y blocks, each as its pass's form takes them (bit 0 of
+    `forms` the x pass's, bit 1 the y pass's: 1 the cluster tile, 0
+    fact_tile), and the two butterflies. Strict, either form: FX and FYT,
+    FP32 (B, A, A), contiguous; at 'high' and 'bf16' fact_tile takes the
+    split blocks (FXS, FYTS) or their heads, the cluster tile the split
+    blocks swizzled (FXW, FYTW), whose heads 'bf16' reads."""
+    def blocks(axis):
+        if precision == "f32":
+            return ops.FX if axis == 0 else fyt(ops)
+        if forms >> axis & 1:
+            return ops.FXW if axis == 0 else ops.FYTW
+        S = ops.FXS if axis == 0 else ops.FYTS
+        return S if precision == "high" or S is None else S[0]
+    return blocks(0), blocks(1), ops.bfx, ops.bfy
 
 
 _SUFFIX = ("", "_high", "_bf16")   # a launch's counter suffix, by the C entries' `tier`
@@ -463,9 +506,9 @@ def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
     tier = _tier_arg(precision)
-    _, fptrs = _operands("lf_fderiv", ops, out, precision, swizzled=tier != 0)
     _check_cuda("lf_fderiv", [out, *given])
     Bx, By = _check_factored("lf_fderiv", ops, Ny, Nx)
+    _, fptrs = _operands("lf_fderiv", ops, out, precision, _forms("fderiv", precision, Bx, By))
     if a is None and b is None:
         raise ValueError("lf_fderiv: needs a or b")
     if any(x.shape != out.shape for x in given):
@@ -494,10 +537,10 @@ def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
     """launch(t): K3 (forward, adjoint) or K4 (backward) at `precision`
     ('f32', 'high' or 'bf16'), k <- the velocity of flow `kind` at the batched (nb,
     nstate, Ny, Nx) state y; phi is (nb, 5, Ny, Nx), pt its p(t) planes
-    (2, nb, Ny, Nx). An x pass and a y pass (pass_launches each): K3 at
-    'high' and 'bf16' on the cluster tile (csrc/fa_sm90.cu), which reads
-    the swizzled split blocks; strict K3, and K4 at every tier, on
-    fact_tile."""
+    (2, nb, Ny, Nx). An x pass and a y pass (pass_launches each), each
+    on the tile FORMS names: K3 on the cluster tile (csrc/fa_sm90.cu; at
+    'high' and 'bf16' it reads the swizzled split blocks) or fact_tile,
+    K4 on fact_tile at every tier."""
     from . import _build
     Ny, Nx = y.shape[-2:]
     lib = _build.load()
@@ -505,8 +548,9 @@ def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
     kernel = "bv" if kind == "backward" else "fa"
     name = f"lf_{kernel}_velocity"
     _check_cuda(name, [y, k, phi, pt])
-    _, fptrs = _operands(name, ops, y, precision, swizzled=tier != 0 and kernel == "fa")
     Bx, By = _check_factored(name, ops, Ny, Nx)
+    forms = _forms(kernel, precision, Bx, By)
+    _, fptrs = _operands(name, ops, y, precision, forms)
     nlaunch = pass_launches(Bx, precision, kernel) + pass_launches(By, precision, kernel)
     if kind == "backward":
         nb = _check_batched_state(name, y, k, phi, pt, 2 * ncomp + NACC)
@@ -515,8 +559,8 @@ def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
                           Ny, Nx))
     nb = _check_batched_state(name, y, k, phi, pt, ncomp)
     fa = _launcher(lib.lf_fa_velocity, name, "fa_velocity_" + kind + _SUFFIX[tier], nlaunch,
-                   (tier, ROLES[kind], _ptr(y), _ptr(k), _ptr(pt), *fptrs, Bx, By, nb, ncomp, Ny,
-                    Nx))
+                   (tier, forms, ROLES[kind], _ptr(y), _ptr(k), _ptr(pt), *fptrs, Bx, By, nb, ncomp,
+                    Ny, Nx))
     return lambda t: fa()   # K3 takes no time: p(t) reaches it as planes
 
 
@@ -553,11 +597,10 @@ def uni_velocity_launcher(role, a, b, px, py, out, mats, precision="f32"):
     views with contiguous planes; px, py (nb, 1, Ny, Nx) and out (nb, nper,
     4, Ny, Nx) contiguous; at `precision` ('f32', 'high' or 'bf16').
     Factored operands (every built radix): an x pass and a y pass a stage
-    (pass_launches each), two stages for role 1; strict on fact_tile
-    (csrc/uni.cu), at 'high' and 'bf16' on the cluster tile
-    (csrc/uni_sm90.cu), which reads the swizzled split blocks and the
-    pixel pairs of a and b as float2, so their data and strides must keep
-    8-byte alignment; dense ones (csrc/uni_dense.cu, any plane shape): one
+    (pass_launches each), two stages for role 1, each pass on the tile
+    FORMS names: fact_tile (csrc/uni.cu) or the cluster tile
+    (csrc/uni_sm90.cu), which reads the pixel pairs of a and b as float2,
+    so their data and strides must keep 8-byte alignment; dense ones (csrc/uni_dense.cu, any plane shape): one
     launch, two for role 1. Checks, pointers and role 1's scratch are made
     here once; a flow makes one launcher per K5 call of its velocity."""
     from . import _build
@@ -566,11 +609,13 @@ def uni_velocity_launcher(role, a, b, px, py, out, mats, precision="f32"):
     name = "lf_uni_velocity" if factored else "lf_uni_dense_velocity"
     tier = _tier_arg(precision)
     _check_cuda(name, [px, py, out], strided=(a, b))
-    _, mptrs = _operands(name, mats, out, precision, swizzled=factored and tier != 0)
     if role not in (0, 1, 2, 3):
         raise ValueError(f"{name}: role {role}")
+    forms = 0
     if factored:
         Bx, By = _check_factored(name, mats, Ny, Nx)
+        forms = _forms("uni", precision, Bx, By)
+    _, mptrs = _operands(name, mats, out, precision, forms)
     strides = [*_plane_strides(name, a, Ny, Nx), *_plane_strides(name, b, Ny, Nx)]
     nb, nper = out.shape[0], out.shape[1]
     if (a.shape[:2] != (nb, nper) or b.shape[:2] != (nb, nper) or out.shape[2] != 4
@@ -583,22 +628,21 @@ def uni_velocity_launcher(role, a, b, px, py, out, mats, precision="f32"):
         raise ValueError(f"{name}: out must not share storage with an operand")
     if not factored:
         _uni_check_dense(name, mats, a, b, Ny, Nx)
-    elif tier != 0 and any(x.data_ptr() % 8 or x.stride(0) % 2 or x.stride(1) % 2
-                           for x in (a, b)):
-        raise ValueError(f"{name}: at {precision!r} a and b must be 8-byte aligned with even "
-                         "strides (the kernel reads their pixel pairs as float2)")
+    elif forms and any(x.data_ptr() % 8 or x.stride(0) % 2 or x.stride(1) % 2 for x in (a, b)):
+        raise ValueError(f"{name}: on the cluster tile (radix {Bx}, {By} at {precision!r}) a and "
+                         "b must be 8-byte aligned with even strides (the kernel reads their "
+                         "pixel pairs as float2)")
     scratch = torch.empty((nb, nper, 2, Ny, Nx), dtype=out.dtype, device=out.device) \
         if role == 1 else None
     lib = _build.load()
-    head = (tier, role, _ptr(a), _ptr(b), *strides, _ptr(px), _ptr(py), _ptr(out), _ptr(scratch),
-            *mptrs)
+    tail = (_ptr(a), _ptr(b), *strides, _ptr(px), _ptr(py), _ptr(out), _ptr(scratch), *mptrs)
     if factored:
         nlaunch = (2 if role == 1 else 1) * (pass_launches(Bx, precision, "uni")
                                              + pass_launches(By, precision, "uni"))
         return _launcher(lib.lf_uni_velocity, name, f"uni_role{role}{_SUFFIX[tier]}", nlaunch,
-                         (*head, Bx, By, nb, nper, Ny, Nx))
+                         (tier, forms, role, *tail, Bx, By, nb, nper, Ny, Nx))
     return _launcher(lib.lf_uni_dense_velocity, name, f"uni_dense_role{role}{_SUFFIX[tier]}",
-                     2 if role == 1 else 1, (*head, nb, nper, Ny, Nx))
+                     2 if role == 1 else 1, (tier, role, *tail, nb, nper, Ny, Nx))
 
 
 def uni_velocity_cuda(role, a, b, px, py, out, mats, t, precision="f32"):

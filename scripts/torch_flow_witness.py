@@ -1,12 +1,13 @@
-"""The reduced-tier flows of one checkout of the port against their plain
-versions at nsteps 1 and 7, for a comparison between checkouts; the cold
-times of K3 and K5 at one radix; and the 1024^2 P MAP_joint step at "auto".
-One CUDA card.
+"""The flows of one checkout of the port against their plain versions at
+nsteps 1 and 7, for a comparison between checkouts; the cold times of K3
+and K5 at one radix; and the MAP_joint step at "auto". One CUDA card.
 
     python scripts/torch_flow_witness.py flows --tree DIR --out FILE [--N 512 1024]
+        [--tiers high bf16]
     python scripts/torch_flow_witness.py compare FILE_A FILE_B
     python scripts/torch_flow_witness.py kernels --tree DIR [--N 1024] [--reps 10]
-    python scripts/torch_flow_witness.py map --tree DIR [--steps 4]
+        [--tiers high bf16]
+    python scripts/torch_flow_witness.py map --tree DIR [--N 1024] [--steps 4]
 
 DIR is a checkout of the repository (the parent commit unpacked by
 `git archive`, say); its cmblensing_tpu_torch is imported, and its
@@ -14,21 +15,26 @@ kernels built into DIR/build, in place of this one's. The inputs are
 chip_smoke.py's (weak_lensing_inputs, seed 0), so every checkout sees the
 same ones.
 
-  flows    at each --N, 'high' and 'bf16', nsteps 1 and 7: the kernel
-           backend's L and L^H (K3) and the uni backend's L, L^H and
-           backward flow (delta f, delta phi; K5), each against its plain
-           version at the tier (relative max-abs, every plane) and, in
-           relative Frobenius norm, the distance to plain over the distance
-           to the strict kernel flow (chip_smoke.py's split_ratio);
-           the kernel flows' outputs saved to FILE
+  flows    at each --N and tier of --tiers ('high', 'bf16', 'f32'), nsteps
+           1 and 7: the kernel backend's L and L^H (K3) and the uni
+           backend's L, L^H and backward flow (delta f, delta phi; K5),
+           each against its plain version at the tier (relative max-abs,
+           every plane) and, at a reduced tier, in relative Frobenius norm,
+           the distance to plain over the distance to the strict kernel
+           flow (chip_smoke.py's split_ratio); the kernel flows' outputs
+           saved to FILE
   compare  two such files: for each output, the same bits or how far apart
   kernels  K3 forward and adjoint (batch 1 and 17 trials) and K5 roles 0-3
-           (batch 1) at 'high' and 'bf16' on --N^2 (radix N / 128):
-           cold device ms (chip_smoke.py's cold_ms) and relative max-abs
-           against the plain version; run it on two checkouts in turns to
-           compare them
-  map      MAP_joint at 1024^2 P, "auto", as chip_smoke.py phase 9 (kernel
-           backend) and phase 15 (uni): 2 warm-up steps, then --steps timed
+           (batch 1) at each tier of --tiers on --N^2 (radix N / 128): cold
+           device ms (chip_smoke.py's cold_ms) and relative max-abs against
+           the plain version; run it on two checkouts in turns to compare
+           them (the A/B of the tile K3 and K5 run at a tier and radix,
+           ops/lenseflow_kernels.py::FORMS, against a checkout that runs
+           the other)
+  map      MAP_joint at --N^2 P (1024 or 4096), "auto", as chip_smoke.py
+           phases 9 and 15 (1024^2: 2 warm-up steps) or 13 (d) and 16 (d)
+           (4096^2: 1), on the kernel and the uni backend, then --steps
+           timed
 
 Prints the card's name and power limit. Exits non-zero without a card.
 """
@@ -42,6 +48,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIERS = ("high", "bf16")
+PRECISIONS = ("f32", "high", "bf16")
 
 
 def smoke():
@@ -84,18 +91,22 @@ def flows(cs, torch, args):
             return out
 
         strict = run("f32", "kernel")
-        for tier in TIERS:
-            k, p = run(tier, "kernel"), run(tier, "plain")
+        for tier in args.tiers:
+            k, p = (strict if tier == "f32" else run(tier, "kernel")), run(tier, "plain")
             for key in k:
-                r = cs.split_ratio(k[key], p[key], strict[key])
                 e = max(cs.rel(a, b) for a, b in zip(k[key].reshape(-1, N, N),
                                                       p[key].reshape(-1, N, N)))
-                bound = cs.K1_SM90_TOL[tier]
-                print(f"{N}^2 {tier:4s} nsteps {key[0]} {key[1]:12s}: vs plain {e:.3e} (bound "
-                      f"{bound:g}{'' if e < bound else ', OVER'}); Frobenius vs plain "
-                      f"{r['fro']:.3e}, vs strict {r['fro_strict']:.3e}, ratio "
-                      f"{r['split_ratio']:.4f} (bound {cs.FLOW_SPLIT_RATIO:g})", flush=True)
+                bound = cs.K1_SM90_TOL.get(tier, cs.FLOW_TOL)
+                line = (f"{N}^2 {tier:4s} nsteps {key[0]} {key[1]:12s}: vs plain {e:.3e} (bound "
+                        f"{bound:g}{'' if e < bound else ', OVER'})")
+                if tier != "f32":
+                    r = cs.split_ratio(k[key], p[key], strict[key])
+                    line += (f"; Frobenius vs plain {r['fro']:.3e}, vs strict "
+                             f"{r['fro_strict']:.3e}, ratio {r['split_ratio']:.4f} (bound "
+                             f"{cs.FLOW_SPLIT_RATIO:g})")
+                print(line, flush=True)
                 saved[f"{N} {tier} {key[0]} {key[1]}"] = k[key].cpu()
+            del k, p
         del ops, phi, f, dy
         torch.cuda.empty_cache()
     torch.save(saved, args.out)
@@ -112,8 +123,13 @@ def compare(args):
 
 
 def kernels(cs, torch, args, card):
+    for N in args.N:
+        kernels_at(cs, torch, args, card, N)
+        torch.cuda.empty_cache()
+
+
+def kernels_at(cs, torch, args, card, N):
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
-    N = args.N[0]
     ops, phi, f, dy = inputs(cs, torch, N)
     t = 0.5
     for nb in (1, cs.NTRIAL):
@@ -123,7 +139,7 @@ def kernels(cs, torch, args, card):
                                                  for i in range(nb)])
         pt = torch.empty((2, nb, N, N), device="cuda")
         lfk.p_planes_cuda(t, phis, pt)
-        for tier in TIERS:
+        for tier in args.tiers:
             for kind in ("forward", "adjoint"):
                 o, ref = torch.empty_like(y), torch.empty_like(y)
                 run = lambda o_, y_, kind=kind, tier=tier: lfk.fvelocity_cuda(
@@ -134,7 +150,7 @@ def kernels(cs, torch, args, card):
                 print(f"K3 {tier:4s} {kind:8s} {N}^2 [{nb:2d}]: {ms:.4f} ms cold; vs plain "
                       f"{cs.rel(o, ref):.3e} [{card}]", flush=True)
     px, py, calls = cs.uni_operands(torch, ops, phi[None], torch.cat([f, dy])[None], t)
-    for tier in TIERS:
+    for tier in args.tiers:
         for key, role, a, b in calls:
             if not isinstance(key, int):
                 continue
@@ -151,22 +167,28 @@ def kernels(cs, torch, args, card):
 
 def map_step(cs, torch, args, card):
     import cmblensing_tpu_torch as ct
-    sim = ct.load_sim(thetapix=cs.THETAPIX_MAP, Nside=cs.N_MAP, pol="P", T=np.float32,
-                      seed=cs.SEED, device="cuda")
+    N = args.N[0]
+    warm = cs.MAP_WARM if N == cs.N_MAP else cs.LARGE_WARM
+    sim = ct.load_sim(thetapix=cs.THETAPIX_MAP, Nside=N, pol="P", T=np.float32, seed=cs.SEED,
+                      device="cuda")
     for backend in ("kernel", "uni"):
         with ct.lenseflow_backend_ctx(backend):
             run = lambda n: ct.MAP_joint(sim["ds"], nsteps=n, linesearch="grid",
                                          conjgrad_kwargs=cs.MAP_CG, precision="auto",
                                          history_keys=("logpdf",))
-            run(cs.MAP_WARM)
+            run(warm)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = run(args.steps)
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / args.steps
         lps = [h["logpdf"] for h in res["history"]]
-        print(f"MAP_joint {cs.N_MAP}^2 P \"auto\" on {backend}: {dt:.4f} s/step over "
-              f"{args.steps} steps; logpdfs {lps} [{card}]", flush=True)
+        print(f"MAP_joint {N}^2 P \"auto\" on {backend}: {dt:.4f} s/step over {args.steps} steps "
+              f"after {warm} warm-up; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"logpdfs {lps} [{card}]", flush=True)
+        del res
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -178,6 +200,7 @@ def main():
     ap.add_argument("--N", type=int, nargs="+", default=None)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--tiers", nargs="+", choices=PRECISIONS, default=None)
     args = ap.parse_args()
     if args.mode == "compare":
         return compare(args)
@@ -191,12 +214,13 @@ def main():
     import cmblensing_tpu_torch
     print(f"{args.mode} on {os.path.dirname(cmblensing_tpu_torch.__file__)} [{card}]", flush=True)
     if args.mode == "flows":
-        args.N = args.N or [512, 1024]
+        args.N, args.tiers = args.N or [512, 1024], args.tiers or TIERS
         flows(cs, torch, args)
     elif args.mode == "kernels":
-        args.N = args.N or [1024]
+        args.N, args.tiers = args.N or [1024], args.tiers or TIERS
         kernels(cs, torch, args, card)
     else:
+        args.N = args.N or [cs.N_MAP]
         map_step(cs, torch, args, card)
     return 0
 

@@ -26,7 +26,8 @@ by `git archive`). Then:
        order port, parent and the next in reverse), and the two outputs'
        relative max-abs difference;
   K3   the same phases for both roles of a two-component velocity (one
-       call: the x pass and the y pass);
+       call: the x pass and the y pass), strict, 'high' and 'bf16' where
+       ops/lenseflow_kernels.py::FORMS runs K3 on the cluster tile;
   K2   the 'bf16' derivative d_x of the masked IP slice's shape (3 x 256^2)
        and of 200^2, 160 x 200 and 600^2 (random planes): the phases of
        csrc/lenseflow.cu::deriv_bf16_kernel (loads issued, load wait,
@@ -65,8 +66,8 @@ def build(tag, src, defines=()):
     from cmblensing_tpu_torch.ops import _build
     out = os.path.join(ROOT, "build", f"phases_{tag}.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-shared", "-o", out,
-           str(src)]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.form_flags(), *(f"-D{d}" for d in defines),
+           "-shared", "-o", out, str(src)]
     return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -179,10 +180,13 @@ def main():
         y = torch.randn((1, 2, N, N), device="cuda")
         p = 0.1 * torch.randn((2, 1, N, N), device="cuda")
         k = torch.empty_like(y)
-        for tier, name in ((1, "'high'"), (2, "'bf16'")):
+        for tier, name in ((0, "strict"), (1, "'high'"), (2, "'bf16'")):
+            if lfk.FORMS["fa", lfk.PRECISIONS[tier], B] != "cluster":
+                continue   # K3 runs fact_tile there: no cluster form is built
+            WX, WYT = (ops.FX, ops.FYT) if tier == 0 else (ops.FXW, ops.FYTW)
             for role, kind in ((0, "forward"), (1, "adjoint")):
                 run = lambda: k3.lf_fa_sm90_probe(
-                    tier, role, ptr(y), ptr(k), ptr(p), ptr(ops.FXW), ptr(ops.FYTW), ptr(ops.bfx),
+                    tier, role, ptr(y), ptr(k), ptr(p), ptr(WX), ptr(WYT), ptr(ops.bfx),
                     ptr(ops.bfy), B, B, 1, 2, N, N, stream())
                 show(f"K3 {name} {kind} {N}^2 (2 components, x and y pass; radix {B}, {nc3} CTAs "
                      "a cluster)", ticks(k3, run, 2 * 2 * N // 16 * nc3, torch), K1_PHASES)

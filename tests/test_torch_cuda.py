@@ -1247,9 +1247,10 @@ def test_bf16_flows_match_plain_bf16_on_card(N):
     assert bf16 > 0 and high == 0
 
 
-# K3 and K5 at 'high' and 'bf16' on the cluster tile (csrc/fa_sm90.cu,
-# csrc/uni_sm90.cu): every built radix, at batch 1 and on 17 trials (to
-# 2048^2; 4096^2 at batch 1)
+# K3 and K5 at 'high' and 'bf16' on the tile lenseflow_kernels.FORMS puts
+# them on (the cluster tile, csrc/fa_sm90.cu, csrc/uni_sm90.cu, at radix
+# 16 and 32; fact_tile at 4 and 8): every built radix, at batch 1 and on 17
+# trials (to 2048^2; 4096^2 at batch 1)
 SM90_CASES = [(N, nb) for N in (512, 1024, 2048, 4096) for nb in (1, 17) if nb == 1 or N < 4096]
 
 
@@ -1274,8 +1275,9 @@ def _same_bits(shape, kernel):
 @pytest.mark.parametrize("precision", ["high", "bf16"])
 @pytest.mark.parametrize("N,nb", SM90_CASES)
 def test_fa_sm90_matches_plain_on_card(N, nb, precision):
-    """K3 at 'high' and 'bf16' (csrc/fa_sm90.cu), both roles, at every
-    built radix, on nb batch entries each with its own phi: against the
+    """K3 at 'high' and 'bf16' (csrc/fa_sm90.cu at radix 16 and 32, as
+    FORMS puts it), both roles, at every built radix, on nb batch entries
+    each with its own phi: against the
     plain version at the tier (each plane within HIGH_TOL or BF16_TOL) and
     the strict kernel (the Frobenius ratio; at 'high' HIGH_VS_STRICT too);
     into buffers of NaN, 1e30 and zeros finite and the same bits, nothing
@@ -1309,13 +1311,14 @@ def test_fa_sm90_matches_plain_on_card(N, nb, precision):
 @pytest.mark.parametrize("precision", ["high", "bf16"])
 @pytest.mark.parametrize("N,nb", SM90_CASES)
 def test_uni_sm90_roles_match_plain_on_card(N, nb, precision):
-    """K5 at 'high' and 'bf16' (csrc/uni_sm90.cu), every role and stage, at
-    every built radix, on strided views of an (nb, 5, N, N) flow state:
-    against the plain version at the tier and the strict kernel
-    (_check_uni_roles: the zero planes exact, nothing written past the last
-    plane); into buffers of NaN, 1e30 and zeros finite and the same bits;
-    one launch a pass and stage at every radix; a view the kernel cannot
-    read as pixel pairs (an odd stride) refused."""
+    """K5 at 'high' and 'bf16' (csrc/uni_sm90.cu at radix 16 and 32, as
+    FORMS puts it), every role and stage, at every built radix, on strided
+    views of an (nb, 5, N, N) flow state: against the plain version at the
+    tier and the strict kernel (_check_uni_roles: the zero planes exact,
+    nothing written past the last plane); into buffers of NaN, 1e30 and
+    zeros finite and the same bits; one launch a pass and stage at every
+    radix; on the cluster tile a view it cannot read as pixel pairs (an
+    odd stride) refused, on fact_tile taken."""
     _card()
     ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
     px, py, roles = _uni_role_inputs(N, ops, nb=nb)
@@ -1328,6 +1331,109 @@ def test_uni_sm90_roles_match_plain_on_card(N, nb, precision):
         _same_bits((nb, a.shape[1], 4, N, N), lambda o: lfk.uni_velocity_cuda(
             role, a, b, px, py, o.view(nb, a.shape[1], 4, N, N), ops, 0.6, precision))
     odd = torch.empty((nb, 1, N * N + 1), device="cuda")[..., 1:].view(nb, 1, N, N)
-    with pytest.raises(ValueError, match="8-byte aligned"):
-        lfk.uni_velocity_cuda(2, odd, odd, px, py, torch.empty((nb, 1, 4, N, N), device="cuda"),
-                              ops, 0.6, precision)
+    run = lambda: lfk.uni_velocity_cuda(2, odd, odd, px, py,
+                                        torch.empty((nb, 1, 4, N, N), device="cuda"), ops, 0.6,
+                                        precision)
+    if lfk.FORMS["uni", precision, N // 128] == "cluster":
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            run()
+    else:
+        run()
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,nb", [(N, nb) for N in (2048, 4096) for nb in (1, 17)])
+def test_strict_k3_k5_on_the_cluster_tile_at_radix_16_and_32_on_card(N, nb):
+    """Strict K3 (both roles) and K5 (every role and stage) at radix 16
+    and 32, which run the cluster tile's FP32 tier (csrc/fa_sm90.cu,
+    csrc/uni_sm90.cu), on nb batch entries each with its own phi: every
+    output plane within TOL of the plain version; into buffers of NaN,
+    1e30 and zeros finite and the same bits, nothing written past the last
+    entry; the planes a K5 role leaves at zero exactly zero; one launch a
+    pass (and stage) on the counters."""
+    _card()
+    assert all(lfk.FORMS[k, "f32", N // 128] == "cluster" for k in ("fa", "uni"))
+    ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), ops)
+    planes = torch.stack([planes * (1 - 0.05 * i) for i in range(nb)])
+    g = torch.Generator(device="cuda").manual_seed(5)
+    y = torch.randn((nb, 2, N, N), generator=g, device="cuda")
+    pt = _p_planes(0.3, planes)
+    each = lambda x, z: max(rel(u, v) for u, v in zip(x.reshape(-1, N, N), z.reshape(-1, N, N)))
+    for kind in ("forward", "adjoint"):
+        ref = torch.empty_like(y)
+        lfk.fvelocity_plain(kind, y, ref, planes, pt, ops, 2, 0.3)
+        lfk.reset_launches()
+        got = _same_bits(y.shape, lambda o: lfk.fvelocity_cuda(kind, y, o, planes, pt, ops, 2,
+                                                                 0.3))
+        assert lfk.LAUNCHES[f"fa_velocity_{kind}"] == 3 * 2   # 3 buffers x 2 passes
+        e = each(got, ref)
+        print(f"strict K3 {kind} N={N} nb={nb}: vs plain {e:.3e}")
+        assert e < TOL, e
+        del ref, got
+    del y, pt
+    px, py = (p.unsqueeze(1).contiguous() for p in lfk._p_of_t(0.6, planes))
+    del planes
+    state = torch.randn((nb, 5, N, N), generator=g, device="cuda")
+    roles = ((0, state[:, :2], state[:, 2:4]), (1, state[:, 4:], 1e-2 * state[:, :1]),
+             (2, state[:, :1], state[:, 1:2]), (3, state[:, :1], state[:, 1:2]))
+    for role, a, b in roles:
+        shape = (nb, a.shape[1], 4, N, N)
+        ref = torch.empty(shape, device="cuda")
+        lfk.uni_velocity_plain(role, a, b, px, py, ref, ops, 0.6)
+        lfk.reset_launches()
+        got = _same_bits(shape, lambda o: lfk.uni_velocity_cuda(role, a, b, px, py, o, ops, 0.6))
+        assert lfk.LAUNCHES[f"uni_role{role}"] == 3 * (4 if role == 1 else 2)
+        n = UNI_NONZERO[role]
+        e = each(got[:, :, :n], ref[:, :, :n])
+        print(f"strict K5 role {role} N={N} nb={nb}: vs plain {e:.3e}")
+        assert e < TOL, (role, e)
+        assert (got[:, :, n:] == 0).all(), role
+        del ref, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "high", "bf16"])
+@pytest.mark.parametrize("N", [512, 1024])
+def test_k3_k5_entries_run_only_the_tile_forms_names_on_card(N, precision):
+    """At radix 4 and 8 csrc/ builds K3 and K5 on the one tile FORMS names
+    for each tier (the build passes FORMS to nvcc, _build.form_flags), and
+    no other form: lf_fa_velocity and lf_uni_velocity run the pass forms
+    FORMS gives (rc 0, a finite output) and refuse every other choice
+    (either pass on the other tile) with cudaErrorInvalidValue."""
+    _card()
+    from cmblensing_tpu_torch.ops import _build
+    B, stream = N // 128, lfk._stream()
+    lib, tier = _build.load(), lfk.PRECISIONS.index(precision)
+    ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), ops)[None]
+    y = torch.randn((1, 2, N, N), generator=torch.Generator(device="cuda").manual_seed(6),
+                    device="cuda")
+    pt = _p_planes(0.3, planes)
+    px, py, roles = _uni_role_inputs(N, ops)
+    _, a, b = roles[2]
+    strides = [*lfk._plane_strides("lf_uni_velocity", a, N, N),
+               *lfk._plane_strides("lf_uni_velocity", b, N, N)]
+    for forms in range(4):
+        o = torch.full_like(y, float("nan"))
+        _, ptrs = lfk._operands("lf_fa_velocity", ops, y, precision, forms)
+        rc = lib.lf_fa_velocity(tier, forms, 0, lfk._ptr(y), lfk._ptr(o), lfk._ptr(pt), *ptrs, B,
+                                B, 1, 2, N, N, stream)
+        torch.cuda.synchronize()
+        if forms == lfk._forms("fa", precision, B, B):
+            assert rc == 0 and torch.isfinite(o).all(), forms
+        else:
+            assert rc == 1, (forms, rc)
+        o = torch.full((2, 1, 4, N, N), float("nan"), device="cuda")
+        _, ptrs = lfk._operands("lf_uni_velocity", ops, o, precision, forms)
+        rc = lib.lf_uni_velocity(tier, forms, 2, lfk._ptr(a), lfk._ptr(b), *strides,
+                                 lfk._ptr(px), lfk._ptr(py), lfk._ptr(o), None, *ptrs, B, B, 2, 1,
+                                 N, N, 0.6, stream)
+        torch.cuda.synchronize()
+        if forms == lfk._forms("uni", precision, B, B):
+            assert rc == 0 and torch.isfinite(o).all(), forms
+        else:
+            assert rc == 1, (forms, rc)

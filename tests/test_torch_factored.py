@@ -237,6 +237,88 @@ def test_pass_launches_refuses_what_no_factored_kernel_runs(B, precision, kernel
         lfk.pass_launches(B, precision, kernel)
 
 
+@pytest.mark.parametrize("B,precision,kernel,n", [
+    (16, "f32", "fa", 1), (32, "f32", "fa", 1), (16, "f32", "uni", 1), (32, "f32", "uni", 1),
+    (8, "f32", "fa", 1), (32, "high", "fa", 1), (16, "bf16", "uni", 1),
+    (16, "f32", "bv", 2), (32, "high", "bv", 4), (16, "f32", "fderiv", 2),
+    (32, "f32", "fderiv", 4), (32, "bf16", "fderiv", 1)])
+def test_pass_launches_counts_what_each_factored_kernel_runs(B, precision, kernel, n):
+    """Beside the refusals above, the launches of a pass it accepts: one on
+    the cluster tile (strict K3 and K5 at radix 16 and 32, every reduced
+    tier of K1, K3 and K5), one a channel group on fact_tile (K4 at every
+    tier and strict K1: 2 at radix 16, 4 at 32; one group to radix 8)."""
+    assert lfk.pass_launches(B, precision, kernel) == n
+
+
+@pytest.mark.parametrize("kernel", ["fderiv", "fa", "uni", "bv"])
+@pytest.mark.parametrize("precision", ["f32", "high", "bf16"])
+@pytest.mark.parametrize("B", [4, 8, 16, 32])
+def test_forms_table_names_a_built_tile_and_its_launches(B, precision, kernel):
+    """FORMS names, for every factored kernel, tier and built radix, the one
+    tile csrc/ builds that kernel on there (the C entries refuse the
+    other): K1 on fact_tile strict and on the cluster tile at 'high' and
+    'bf16', K4 on fact_tile, K3 and K5 on the cluster tile but strict at
+    radix 4 and 8, and at radix 8 K3 at 'high' and K5 at 'high' and
+    'bf16', where fact_tile won the A/B in turns by more than 2 %
+    (csrc/lenseflow_common.cuh::k3_on_tile, k5_on_tile). _forms sets the
+    bit of each pass the cluster tile runs, each pass by its own radix."""
+    reduced_at_8 = {"fa": ("high",), "uni": ("high", "bf16")}.get(kernel, ())
+    on_tile = {"fderiv": precision == "f32", "bv": True}.get(
+        kernel, (precision == "f32" and B <= 8) or (B == 8 and precision in reduced_at_8))
+    form = lfk.FORMS[kernel, precision, B]
+    assert form == ("tile" if on_tile else "cluster")
+    assert lfk.pass_launches(B, precision, kernel) >= 1
+    assert lfk._forms(kernel, precision, B, B) == (0 if on_tile else 3)
+    other = lfk.FORMS[kernel, precision, 16] == "cluster"
+    assert lfk._forms(kernel, precision, B, 16) == (not on_tile) + 2 * other
+
+
+def test_build_flags_carry_the_forms_table():
+    """The build hands csrc/ K3's and K5's entries of FORMS at radix 4 and
+    8 (csrc/lenseflow_common.cuh::k3_on_tile, k5_on_tile decode bit 2 tier
+    + (radix == 8)), and the library's name changes with them."""
+    from cmblensing_tpu_torch.ops import _build
+    flags = dict(f[2:].split("=") for f in _build.form_flags())
+    assert set(flags) == {"LF_FA_ON_TILE", "LF_UNI_ON_TILE"}
+    for kernel in ("fa", "uni"):
+        mask = int(flags[f"LF_{kernel.upper()}_ON_TILE"])
+        for t, precision in enumerate(lfk.PRECISIONS):
+            for B in (4, 8):
+                on = mask >> (2 * t + (B == 8)) & 1
+                assert on == (lfk.FORMS[kernel, precision, B] == "tile"), (kernel, precision, B)
+    tag = _build._tag()
+    saved = lfk.FORMS["fa", "bf16", 8]
+    try:
+        lfk.FORMS["fa", "bf16", 8] = "tile" if saved == "cluster" else "cluster"
+        assert _build._tag() != tag
+    finally:
+        lfk.FORMS["fa", "bf16", 8] = saved
+
+
+@pytest.mark.parametrize("precision", ["f32", "high", "bf16"])
+def test_fops_hands_each_pass_the_blocks_of_its_tile(precision):
+    """_fops gives each pass the blocks its tile reads: strict, on either
+    tile, the FP32 (B, A, A) blocks, contiguous, FX and the transposed y
+    blocks as fact_tile takes them (the cluster tile's float4 reads along
+    m are conflict-free unswizzled); at 'high' and 'bf16' fact_tile the
+    split blocks (FXS, FYTS) or their heads, the cluster tile the swizzled
+    split (FXW, FYTW), per pass as the forms' bits say."""
+    ops = tderiv.deriv_ops(ct.ProjLambert(512, 512, thetapix=2, T=np.float32, device="cpu"))
+    for forms in range(4):
+        GX, GYT, bfx, bfy = lfk._fops(ops, precision, forms)
+        assert bfx is ops.bfx and bfy is ops.bfy
+        for axis, G in enumerate((GX, GYT)):
+            if precision == "f32":
+                want = ops.FX if axis == 0 else ops.FY.transpose(-1, -2)
+                assert G.dtype == torch.float32 and G.shape == (4, 128, 128) and G.is_contiguous()
+                assert torch.equal(G, want)
+            elif forms >> axis & 1:
+                assert G is (ops.FXW if axis == 0 else ops.FYTW)
+            else:
+                S = ops.FXS if axis == 0 else ops.FYTS
+                assert torch.equal(G, S if precision == "high" else S[0])
+
+
 @pytest.mark.parametrize("dtype,bound", [(np.float64, 1e-10), (np.float32, 1e-4)])
 def test_kernel_backend_at_512_runs_factored_and_matches_plain(dtype, bound):
     """At 512^2 the 'kernel' backend routes through the factored flows
