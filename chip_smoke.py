@@ -43,7 +43,7 @@ port's two paths through the kernel backend:
               solve; at 20 fixed iterations the kernel backend against the
               plain one (strict) and against the "matmul" one ('high').
   phase 13    the large maps, K1, K3 and K4 at radix 16 (2048^2) and 32
-              (4096^2) in channel groups: (a) each kernel at both tiers
+              (4096^2) on the cluster tile: (a) each kernel at both tiers
               against its plain versions (K3 also at batch 17), the whole
               4096^2 flows at both tiers; (b) the strict phi-gradient
               at 2048^2 and 4096^2, kernel and plain backends, each
@@ -84,8 +84,8 @@ port's two paths through the kernel backend:
               defaults against the kernel backend, and 20 fixed strict
               iterations; (g) L @ f on a 768^2 P load_sim on "uni", strict
               and 'high', against the kernel backend.
-  phase 16    K5 at radix 16 (2048^2) and 32 (4096^2) in channel groups
-              (csrc/uni.cu) and the "uni" backend there: (a) every role at
+  phase 16    K5 at radix 16 (2048^2) and 32 (4096^2) on the cluster tile
+              (csrc/uni_sm90.cu) and the "uni" backend there: (a) every role at
               every tier at batch 1 (and 17 at 2048^2) against plain at the
               tier and the strict kernel, twice the same bits, nothing past
               a plane, timed cold; (b) the uni flows at every tier against
@@ -119,10 +119,23 @@ port's two paths through the kernel backend:
               the masked IP slice's I, Q, U planes and at 200^2, 160 x 200,
               600^2, held at 1e-5 of plain 'bf16', timed cold beside the
               library call, its launches counted on the slice's backward
-              flow. Its numbers are the kernels' one record a size: at the
-              sizes an earlier phase records (K1 and K3 'high' in phases 9
-              and 13, K1, K2 and K3 'bf16' in phase 14, K5 in phases 15 and
-              16) the record keeps that phase's name and path launches.
+              flow; (e) K4 at every tier (csrc/bv_sm90.cu: the velocity's
+              derivatives in turn inside one launch a pass, u = M^-1 w in
+              the y pass's store) and strict K1 (csrc/fderiv_sm90.cu's FP32
+              tier, with (a); its one form) on the tile FORMS puts them on,
+              the cluster tile at radix 16 and 32: each against its plain
+              version at the tier (and a reduced tier against strict), the
+              same bits into buffers of NaN, 1e30 and 0, nothing past the
+              last entry, K4's k_f and k_df bit for bit K5 role 0's, timed cold
+              beside the parent's time (PARENT_MS), one launch a pass
+              counted on the backward flow at the tier (nsteps 7; at
+              512^2 held to its plain version, delta phi at 'bf16'
+              printed: ROADMAP Queue 3). Its numbers are the
+              kernels' one record a size: at the sizes an earlier phase
+              records (K1, K3 and K4 in phases 5, 9 and 13, K1, K2, K3 and
+              K4 'bf16' in phase 14, K5 in phases 15 and 16) the record
+              keeps that phase's name and path launches and takes this
+              phase's numbers, source and form.
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
     python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
@@ -284,9 +297,10 @@ WF_SIM = dict(thetapix=3, Nside=256, pol="IP", T=np.float32, muKarcminT=1, beamF
 # (1e-5 per flow) by its iteration count at most
 WF_PLAIN_TOL = 1e-4
 FA = 128               # the factored derivative's block size (ops/deriv.py::FACTOR_A)
-# where K1 (strict), K3 and K4 are written, every tier (factored.cu,
-# factored_high.cu and factored_bf16.cu instantiate them); K1 at 'high' and
-# 'bf16' is FDERIV_SM90_SRC
+# where K1 (strict), K3 and K4 on fact_tile are written, every tier
+# (factored.cu, factored_high.cu and factored_bf16.cu instantiate them),
+# the form FORMS names at radix 4 and 8 where it won its A/B; on the
+# cluster tile they are FDERIV_SM90_SRC, FA_SM90_SRC and BV_SM90_SRC
 FACTORED_SRC = "cmblensing_tpu_torch/csrc/factored_kernels.cuh"
 # phase 13, the large maps: MAP_joint as scripts/map_4096.py runs it
 # (load_sim(thetapix=2, Nside=N, pol="P", T=float32, seed=0), grid line
@@ -321,6 +335,20 @@ K1_SM90_TOL = {"high": HIGH_TOL, "bf16": BF16_TOL}
 FA_SM90_SRC = "cmblensing_tpu_torch/csrc/fa_sm90.cu"
 UNI_SM90_SRC = "cmblensing_tpu_torch/csrc/uni_sm90.cu"
 N_SM90_BATCHED = 1024   # the largest size phase 17 runs NTRIAL trials and flows vs plain at
+# ... and (e) K4 at every tier and strict K1 on the tile FORMS names (the
+# cluster tile at radix 16 and 32: csrc/bv_sm90.cu, csrc/fderiv_sm90.cu),
+# timed beside their parent's cold ms, fact_tile in ordered channel-group
+# launches at 16 and 32 (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W): K4
+# ("bv", tier, N), strict K1 d_x and d_y ("fderiv", axis, N)
+BV_SM90_SRC = "cmblensing_tpu_torch/csrc/bv_sm90.cu"
+PARENT_MS = {("bv", "f32", 1024): 0.3459, ("bv", "high", 1024): 0.2572,
+             ("bv", "bf16", 1024): 0.2382, ("bv", "f32", 2048): 1.306,
+             ("bv", "high", 2048): 1.114, ("bv", "bf16", 2048): 1.016,
+             ("bv", "f32", 4096): 8.788, ("bv", "high", 4096): 7.968,
+             ("bv", "bf16", 4096): 7.631, ("fderiv", "x", 1024): 0.0305,
+             ("fderiv", "y", 1024): 0.0291, ("fderiv", "x", 2048): 0.0870,
+             ("fderiv", "y", 2048): 0.0804, ("fderiv", "x", 4096): 0.6168,
+             ("fderiv", "y", 4096): 0.5277}
 
 
 def rel(a, b):
@@ -1668,8 +1696,8 @@ def large_kernels(torch, card, N):
         plain(opl, "f32", *args)
         kernel(oh, "high", *args)
         plain(oph, "high", *args)
-        # the channel groups' sums run in a fixed order: a second launch
-        # into a buffer of other contents gives the same bits
+        # each pixel pair is one thread's, its sums in a fixed order: a
+        # second launch into a buffer of other contents gives the same bits
         for o, p in ((ost, "f32"), (oh, "high")):
             again = torch.zeros(shape, device=DEVICE)
             kernel(again, p, *args)
@@ -3286,18 +3314,23 @@ def same_bits(torch, shape, run):
 
 
 def sm90_k1(torch, card, N):
-    """Phase 17 (a) at N^2: K1 at 'high' and 'bf16' (csrc/fderiv_sm90.cu) on
-    d_x a, d_y b and d_x a + d_y b + c at batch 1 and NPLANES_SM90, against
-    its plain version at the tier and the strict kernel (high_against; every
-    plane: K1_SM90_TOL, at 'high' HIGH_VS_STRICT, the Frobenius ratio under
+    """Phase 17 (a) at N^2, and (e)'s strict K1: K1 at 'high' and 'bf16'
+    (csrc/fderiv_sm90.cu) and strict on the tile FORMS names
+    (sm90_tiers("fderiv", B): the cluster tile at radix 16 and 32, its FP32
+    tier) on d_x a, d_y b and d_x a + d_y b + c at batch 1 and
+    NPLANES_SM90, against its plain version at the tier (strict: FLOW_TOL)
+    and, at a reduced tier, the strict kernel (high_against; every plane:
+    K1_SM90_TOL, at 'high' HIGH_VS_STRICT, the Frobenius ratio under
     HIGH_SPLIT_RATIO); into buffers of NaN, 1e30 and zeros the same bits,
     nothing written past the last plane; d_x and d_y timed cold beside the
-    strict kernel and, for d_x, the library call of the tier; then the path:
-    the backward flow (nsteps 1) at the tier, whose hoisted delta phi runs
-    K1 on five passes, the launch counters set to 0 just before and read
-    just after, delta phi within K1_SM90_TOL of plain flow_bwd at the tier
-    (phi a weak-lensing potential: the flow needs I + t Hess phi
-    invertible over t in [0, 1]). Returns ({tier: record}, {tier: launches}, failures)."""
+    strict kernel (strict: beside its parent's time, PARENT_MS) and, for
+    d_x, the library call of the tier; then the path: the backward flow
+    (nsteps 1) at the tier, whose hoisted delta phi runs K1 on five passes,
+    the launch counters set to 0 just before and read just after, delta
+    phi within K1_SM90_TOL (strict: FLOW_TOL) of plain flow_bwd at the tier
+    (phi a weak-lensing potential: the flow needs I + t Hess phi invertible
+    over t in [0, 1]). Returns ({tier: record}, {tier: launches},
+    failures)."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
     B = N // FA
@@ -3309,7 +3342,9 @@ def sm90_k1(torch, card, N):
     reps = 10 if N <= 1024 else 5
     DxT, _ = deriv.deriv_mats(proj)
     records, launches, bad = {}, {}, {}
-    for tier in ("high", "bf16"):
+    for tier in [p for p in sm90_tiers("fderiv", B) if p == "f32"] + ["high", "bf16"]:
+        tol = K1_SM90_TOL.get(tier, FLOW_TOL)
+        form, src = form_source("fderiv", tier, B)
         found = {}
         for nb in (1, NPLANES_SM90):
             x, y, z = a[:nb], b[:nb], c[:nb]
@@ -3318,39 +3353,58 @@ def sm90_k1(torch, card, N):
                                                     ("xyc", (x, y, z), 2, 4, 2)):
                 key = f"{label}[{nb}]"
                 run = lambda o, p, args=args: lfk.fderiv_cuda(*args, o, ops, p)
-                d = found[key] = high_against(
-                    torch, run, lambda o, args=args: lfk.fderiv_plain(*args, o, ops, tier),
-                    x.shape, tier)
+                if tier == "f32":
+                    o, ref = torch.full_like(x, float("nan")), torch.empty_like(x)
+                    run(o, tier)
+                    lfk.fderiv_plain(*args, ref, ops)
+                    d = found[key] = dict(max_abs_err=float((o - ref).abs().max()),
+                                          rel=max(rel(p, q) for p, q in zip(o, ref)))
+                    d.update(bound(nb * nder * fact_deriv_flops(N), nb * planes, N,
+                                   axes * (B * FA * FA + 2 * B * B)))
+                    del o, ref
+                else:
+                    d = found[key] = high_against(
+                        torch, run, lambda o, args=args: lfk.fderiv_plain(*args, o, ops, tier),
+                        x.shape, tier)
+                    d.update(bound_high(N, nder, planes, nb, axes, tier=tier))
                 same, clean = same_bits(torch, x.shape, lambda o, run=run: run(o, tier))
-                d.update(clean=clean, same=same, nb=nb, **bound_high(N, nder, planes, nb, axes,
-                                                                     tier=tier))
+                d.update(clean=clean, same=same, nb=nb, form=form, source=src)
                 if label != "xyc" and (nb == 1 or label == "x"):
                     o = torch.empty_like(x)
                     d["ms"] = cold_ms(lambda o_, *q: lfk.fderiv_cuda(*q, o_, ops, tier),
                                       (o, *args), reps, torch)
-                    d["strict_ms"] = cold_ms(lambda o_, *q: lfk.fderiv_cuda(*q, o_, ops, "f32"),
-                                             (o, *args), reps, torch)
+                    if tier != "f32":
+                        d["strict_ms"] = cold_ms(lambda o_, *q: lfk.fderiv_cuda(*q, o_, ops, "f32"),
+                                                 (o, *args), reps, torch)
                     d["plain_ms"] = cuda_ms(lambda: lfk.fderiv_plain(*args, o, ops, tier), 1, torch)
                     del o
         lib = (library_bf16_ms(a[0, 0], DxT, torch, reps=max(3, reps // 2))[0] if tier == "bf16"
-               else split_matmuls_ms(a[0, 0], DxT, True, torch, reps=max(3, reps // 2)))
+               else split_matmuls_ms(a[0, 0], DxT, True, torch, reps=max(3, reps // 2))
+               if tier == "high" else matmul_ms(a[0, 0], DxT, torch, reps=max(3, reps // 2),
+                                                cold=True))
         for key, d in found.items():
-            if not (d["rel"] < K1_SM90_TOL[tier] and d["split_ratio"] < HIGH_SPLIT_RATIO
-                    and (tier == "bf16" or d["rel_strict"] < HIGH_VS_STRICT)):
-                bad[f"{tier} {N}^2 {key}"] = (d["rel"], d["rel_strict"], d["split_ratio"])
+            if tier == "f32":
+                ok, vs = d["rel"] < FLOW_TOL, f"{d['rel']:.3e} (bound {FLOW_TOL:g})"
+            else:
+                ok = (d["rel"] < tol and d["split_ratio"] < HIGH_SPLIT_RATIO
+                      and (tier == "bf16" or d["rel_strict"] < HIGH_VS_STRICT))
+                vs = (f"{d['rel']:.3e} (bound {tol:g}) vs strict {d['rel_strict']:.3e}, "
+                      f"Frobenius ratio {d['split_ratio']:.4f}")
+            if not ok:
+                bad[f"{tier} {N}^2 {key}"] = vs
             if not (d["clean"] and d["same"]):
                 bad[f"{tier} {N}^2 {key} same bits / nothing past a plane"] = (d["same"], d["clean"])
-            timed = (f"  {d['ms']:.4f} ms cold (strict {d['strict_ms']:.4f}, plain "
-                     f"{d['plain_ms']:.4f}), bound {d['bound_ms']:.4f} ms ({d['bound_by']}, "
+            beside = (f"strict {d['strict_ms']:.4f}" if "strict_ms" in d
+                      else f"parent {PARENT_MS.get(('fderiv', key[0], N), 'not recorded')}")
+            timed = (f"  {d['ms']:.4f} ms cold ({beside}, plain {d['plain_ms']:.4f}), bound "
+                     f"{d['bound_ms']:.4f} ms ({d['bound_by']}, "
                      f"{100 * d['bound_ms'] / d['ms']:.1f} %)" if "ms" in d else "")
-            print(f"phase 17: K1 {tier:4s} radix {B:2d} {key:9s} vs plain {d['rel']:.3e} (bound "
-                  f"{K1_SM90_TOL[tier]:g}) vs strict {d['rel_strict']:.3e}, Frobenius ratio "
-                  f"{d['split_ratio']:.4f}; same bits in NaN / 1e30 / 0 {d['same']}, past the "
-                  f"last plane {'untouched' if d['clean'] else 'WRITTEN'}{timed}"
+            print(f"phase 17: K1 {tier:4s} radix {B:2d} {key:9s} on {form} vs plain {vs}; same "
+                  f"bits in NaN / 1e30 / 0 {d['same']}, past the last plane "
+                  f"{'untouched' if d['clean'] else 'WRITTEN'}{timed}"
                   + (f"  library {lib:.4f} ms" if key == "x[1]" else "") + f" [{N}^2; {card}]")
         many = [found[f"{k}[{NPLANES_SM90}]"] for k in ("x", "y", "xyc")]
         records[tier] = dict(found["x[1]"], library_ms=lib, d_y_ms=found["y[1]"]["ms"],
-                             source=FDERIV_SM90_SRC,
                              batched=dict(nb=NPLANES_SM90, ms=many[0]["ms"],
                                           rel=max(m["rel"] for m in many)))
         # the path: the backward flow's hoisted delta phi, five K1 passes
@@ -3360,17 +3414,18 @@ def sm90_k1(torch, card, N):
         phi_map = (0.1 / k ** 2 * torch.cos(xs[:, None] + xs[None, :]))[None]
         phi = lfk.gradhess(phi_map.contiguous(), ops, "f32")
         f1, dy = b[:2, 0].contiguous(), c[:2, 0].contiguous()
+        sfx = "" if tier == "f32" else "_" + tier
         lfk.reset_launches()
         dphi, _ = lfk.flow_bwd(dy, f1, phi, ops, 0., 1., 1, tier)
         torch.cuda.synchronize()
         launches[tier] = dict(lfk.LAUNCHES)
-        n = launches[tier]["fderiv_" + tier]
+        n = launches[tier]["fderiv" + sfx]
         e = rel(dphi, lfk.flow_bwd_plain(dy, f1, phi, ops, 0., 1., 1, tier)[0])
         print(f"phase 17: launches in the backward flow at {N}^2, {tier!r} (nsteps 1): K1 {n} "
-              f"(five passes), K4 {launches[tier]['bv_velocity_' + tier]}; delta phi vs plain "
-              f"{tier!r} {e:.3e} (bound {K1_SM90_TOL[tier]:g})")
-        if n != 5 or not e < K1_SM90_TOL[tier]:
-            bad[f"{tier} {N}^2 path"] = (n, e)
+              f"(five passes), K4 {launches[tier]['bv_velocity' + sfx]} (a launch a pass); "
+              f"delta phi vs plain {tier!r} {e:.3e} (bound {tol:g})")
+        if n != 5 or launches[tier]["bv_velocity" + sfx] != 8 or not e < tol:
+            bad[f"{tier} {N}^2 path"] = (n, launches[tier]["bv_velocity" + sfx], e)
         del phi, f1, dy, dphi
     del DxT, a, b, c
     proj._tensors.clear()
@@ -3378,7 +3433,7 @@ def sm90_k1(torch, card, N):
     return records, launches, bad
 
 
-def flow_checks(flows, tier, nsteps):
+def flow_checks(flows, tier, nsteps, unheld=()):
     """Phase 17's reduced-tier flows at nsteps against their plain versions
     at the tier and the strict kernel flows, {name: (flow, plain, strict)},
     every plane on its own: the Frobenius ratio under FLOW_SPLIT_RATIO, and
@@ -3387,39 +3442,46 @@ def flow_checks(flows, tier, nsteps):
     not held: one step of dt = 1 takes it past (K3 'bf16' L 2.6e-3 at
     512^2, K5 'high' delta phi 3.2e-5) while the Frobenius ratio stays
     under 1, and the flows on fact_tile, the form these kernels replaced,
-    give the same bits (scripts/torch_flow_witness.py, PERF.md). Returns
-    (the line to print, {name: failing readings})."""
+    give the same bits (scripts/torch_flow_witness.py, PERF.md). The
+    max-abs of the outputs named in `unheld` is printed and held at no
+    nsteps: an open fault of ROADMAP Queue 3 (K4's delta phi at 512^2
+    'bf16', 2.063e-3 from plain on the parent's kernels too). Returns (the
+    line to print, {name: failing readings})."""
     line, why = "", {}
     for name, (out, plain, strict) in flows.items():
         e = max(rel(a, b) for a, b in zip(out.reshape(-1, *out.shape[-2:]),
                                           plain.reshape(-1, *out.shape[-2:])))
         r = split_ratio(out, plain, strict)["split_ratio"]
-        held = nsteps == NSTEPS
-        line += (f"; {name} vs plain {e:.3e} (bound {K1_SM90_TOL[tier]:g}"
-                 f"{'' if held else ', held at nsteps ' + str(NSTEPS)}), Frobenius ratio "
-                 f"{r:.4f} (bound {FLOW_SPLIT_RATIO:g})")
+        held = nsteps == NSTEPS and name not in unheld
+        note = ("" if held else ", not held: ROADMAP Queue 3" if name in unheld
+                else f", held at nsteps {NSTEPS}")
+        line += (f"; {name} vs plain {e:.3e} (bound {K1_SM90_TOL[tier]:g}{note}), Frobenius "
+                 f"ratio {r:.4f} (bound {FLOW_SPLIT_RATIO:g})")
         if not r < FLOW_SPLIT_RATIO or (held and not e < K1_SM90_TOL[tier]):
             why[name] = (e, r)
     return line, why
 
 
 def sm90_tiers(kernel, B):
-    """The tiers phase 17 runs K3 ('fa') or K5 ('uni') at, radix B: 'high'
-    and 'bf16' on the tile lenseflow_kernels.FORMS puts them on, and the
-    strict tier where FORMS puts it on the cluster tile (radix 16 and 32;
-    on fact_tile phases 5, 8, 13 and 16 hold it)."""
+    """The tiers phase 17 runs K1 ('fderiv'), K3 ('fa'), K4 ('bv') or K5
+    ('uni') at, radix B: 'high' and 'bf16' on the tile
+    lenseflow_kernels.FORMS puts them on, and the strict tier where FORMS
+    puts it on the cluster tile (radix 16 and 32; on fact_tile phases 5, 8,
+    13 and 16 hold it); K4 at every tier on either tile."""
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
-    return [p for p in lfk.PRECISIONS if p != "f32" or lfk.FORMS[kernel, p, B] == "cluster"]
+    return [p for p in lfk.PRECISIONS
+            if p != "f32" or kernel == "bv" or lfk.FORMS[kernel, p, B] == "cluster"]
 
 
 def form_source(kernel, tier, B):
-    """The tile FORMS runs K3 ('fa') or K5 ('uni') on at (tier, B), and
-    the source of that form."""
+    """The tile FORMS runs K1 ('fderiv'), K3 ('fa'), K4 ('bv') or K5
+    ('uni') on at (tier, B), and the source of that form."""
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
     form = lfk.FORMS[kernel, tier, B]
     if form == "cluster":
-        return form, FA_SM90_SRC if kernel == "fa" else UNI_SM90_SRC
-    return form, FACTORED_SRC if kernel == "fa" else "cmblensing_tpu_torch/csrc/uni.cu"
+        return form, {"fderiv": FDERIV_SM90_SRC, "fa": FA_SM90_SRC, "bv": BV_SM90_SRC,
+                      "uni": UNI_SM90_SRC}[kernel]
+    return form, FACTORED_SRC if kernel != "uni" else "cmblensing_tpu_torch/csrc/uni.cu"
 
 
 def sm90_k3(torch, card, N):
@@ -3624,6 +3686,130 @@ def sm90_k5(torch, card, N):
     return records, launches, bad
 
 
+def sm90_k4(torch, card, N):
+    """Phase 17 (e) at N^2: K4 at every tier on the tile FORMS puts it on
+    (csrc/bv_sm90.cu, the cluster tile: one launch a pass, the velocity's
+    derivatives in turn inside the launch, u = M^-1 w in the y pass's
+    store; or fact_tile), at batch 1 on a backward state of weak-lensing f
+    and dy: strict against its plain version (FLOW_TOL, every plane), a
+    reduced tier against plain at the tier and the strict kernel
+    (high_against; every plane: K1_SM90_TOL, at 'high' HIGH_VS_STRICT, the
+    Frobenius ratio under HIGH_SPLIT_RATIO); into buffers of NaN, 1e30 and
+    zeros the same bits, nothing written past the last entry; k_f and k_df
+    bit for bit K5 role 0's (lf_uni_velocity) on the same state and p(t)
+    planes; timed cold beside the parent's (PARENT_MS), with the tier's
+    bound; then the path: the backward flow (nsteps NSTEPS) at the tier, the
+    launch counters set to 0 just before and read just after: one launch a
+    pass (8 nsteps), no strict K4 launch in a reduced tier's flow, delta
+    phi and delta f finite and, below N_MAP (at N_MAP phases 5, 9 and 14
+    hold the same flows), held to the plain flow by flow_checks (strict:
+    FLOW_TOL; at 'bf16' delta phi's max-abs printed, not held: ROADMAP
+    Queue 3). Returns ({name: record}, {name: (path, launches)},
+    failures)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    B, t = N // FA, 0.5
+    proj = ct.ProjLambert(N, N, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE)
+    ops = deriv.deriv_ops(proj)
+    phi_map, f, dy = weak_lensing_inputs(proj, torch)
+    phi = lfk.gradhess(phi_map, ops)
+    acc = 1e-3 * torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
+        (1, lfk.NACC, N, N)).astype(np.float32), device=DEVICE)
+    yb = torch.cat([f[None], dy[None], acc], dim=1)
+    del acc
+    phi1 = phi[None]
+    pt = torch.empty((2, 1, N, N), device=DEVICE)
+    lfk.p_planes_cuda(t, phi1, pt)
+    at = lambda p: (lambda o, y_, ph, pt_: lfk.fvelocity_cuda("backward", y_, o, ph, pt_, ops, 2,
+                                                              t, p))
+    reps = 10 if N <= 1024 else 5
+    records, launches, bad = {}, {}, {}
+    sfx = "" if N == N_MAP else f"_b{B}"
+    for tier in sm90_tiers("bv", B):
+        form, src = form_source("bv", tier, B)
+        tsfx = "" if tier == "f32" else "_" + tier
+        plain = lambda o, tier=tier: lfk.fvelocity_plain("backward", yb, o, phi1, pt, ops, 2, t,
+                                                         tier)
+        if tier == "f32":
+            o, ref = torch.full_like(yb, float("nan")), torch.empty_like(yb)
+            at(tier)(o, yb, phi1, pt)
+            plain(ref)
+            d = dict(max_abs_err=float((o - ref).abs().max()),
+                     rel=max(rel(p, q) for p, q in zip(o[0], ref[0])))
+            ok, vs = d["rel"] < FLOW_TOL, f"{d['rel']:.3e} (bound {FLOW_TOL:g})"
+            del ref
+        else:
+            d = high_against(torch, lambda o, p: at(p)(o, yb, phi1, pt), plain, yb.shape, tier)
+            ok = (d["rel"] < K1_SM90_TOL[tier] and d["split_ratio"] < HIGH_SPLIT_RATIO
+                  and (tier == "bf16" or d["rel_strict"] < HIGH_VS_STRICT))
+            vs = (f"{d['rel']:.3e} (bound {K1_SM90_TOL[tier]:g}) vs strict "
+                  f"{d['rel_strict']:.3e}, Frobenius ratio {d['split_ratio']:.4f}")
+            o = torch.empty_like(yb)
+            at(tier)(o, yb, phi1, pt)
+        out = torch.empty((1, 2, 4, N, N), device=DEVICE)
+        lfk.uni_velocity_cuda(0, yb[:, :2], yb[:, 2:4], pt[0].unsqueeze(1), pt[1].unsqueeze(1),
+                              out, ops, t, tier)
+        torch.cuda.synchronize()
+        k5 = bool(torch.equal(o[:, :2], out[:, :, 0]) and torch.equal(o[:, 2:4], out[:, :, 1]))
+        del o, out
+        d["same"], d["clean"] = same_bits(torch, yb.shape,
+                                          lambda o, tier=tier: at(tier)(o, yb, phi1, pt))
+        o = torch.empty_like(yb)
+        d.update(nb=1, library_ms=None, source=src, form=form, k5_bits=k5,
+                 ms=cold_ms(at(tier), (o, yb, phi1, pt), reps, torch),
+                 plain_ms=cuda_ms(lambda: plain(o), 1, torch),
+                 **(bound(8 * fact_deriv_flops(N), 25, N, fact_op_floats(N)) if tier == "f32"
+                    else bound_high(N, 8, 25, 1, 2, tier)))
+        del o
+        if not ok:
+            bad[f"K4 {tier} {N}^2"] = vs
+        if not (d["same"] and d["clean"] and k5):
+            bad[f"K4 {tier} {N}^2 same bits / nothing past an entry / K5 role 0's bits"] = (
+                d["same"], d["clean"], k5)
+        print(f"phase 17: K4 {tier:4s} radix {B:2d} on {form} vs plain {vs}; same bits in NaN / "
+              f"1e30 / 0 {d['same']}, past the last entry "
+              f"{'untouched' if d['clean'] else 'WRITTEN'}; k_f, k_df bit for bit K5 role 0's "
+              f"{k5}  {d['ms']:.4f} ms cold (parent "
+              f"{PARENT_MS.get(('bv', tier, N), 'not recorded')}), plain {d['plain_ms']:.4f}, "
+              f"bound {d['bound_ms']:.4f} ms ({d['bound_by']}, "
+              f"{100 * d['bound_ms'] / d['ms']:.1f} %) [{N}^2; {card}]")
+        name = f"bv_velocity{tsfx}{sfx}"
+        records[name] = d
+        # the path: the backward flow at the tier, one launch a pass
+        run = lambda fn: fn(dy, f, phi, ops, 0., 1., NSTEPS, tier)
+        lfk.reset_launches()
+        outs = run(lfk.flow_bwd)
+        torch.cuda.synchronize()
+        n, n_strict = (lfk.LAUNCHES[f"bv_velocity{x}"] for x in (tsfx, ""))
+        n_strict = 0 if tier == "f32" else n_strict
+        finite = all(bool(torch.isfinite(x).all()) for x in outs)
+        path = f"flow_bwd {N}^2 {tier}, nsteps {NSTEPS}"
+        launches[name] = (path, n)
+        line, why = "", {}
+        if N < N_MAP:   # at N_MAP phases 5, 9 and 14 hold these flows to plain
+            ref = run(lfk.flow_bwd_plain)
+            if tier == "f32":
+                e = max(rel(a, b) for x, y in zip(outs, ref)
+                        for a, b in zip(x.reshape(-1, N, N), y.reshape(-1, N, N)))
+                line = f"; delta phi, delta f vs plain {e:.3e} (bound {FLOW_TOL:g})"
+                why = {} if e < FLOW_TOL else {"flow": e}
+            else:
+                strict = lfk.flow_bwd(dy, f, phi, ops, 0., 1., NSTEPS, "f32")
+                line, why = flow_checks(dict(zip(("delta phi", "delta f"), zip(outs, ref, strict))),
+                                        tier, NSTEPS, ("delta phi",) if tier == "bf16" else ())
+            del ref
+        print(f"phase 17: launches in {path}: K4 {n} at the tier (a launch a pass)"
+              + ("" if tier == "f32" else f", {n_strict} strict")
+              + f"; the flow finite {finite}" + line)
+        if n != 8 * NSTEPS or n_strict or not finite or why:
+            bad[f"K4 {tier} {N}^2 path"] = (n, n_strict, finite, why)
+        del outs
+    del yb, phi, phi1, pt, f, dy, phi_map
+    proj._tensors.clear()
+    torch.cuda.empty_cache()
+    return records, launches, bad
+
+
 def sm90_k2(torch, card):
     """Phase 17 (b): K2's 'bf16' derivative on the masked IP slice's I, Q, U
     planes (d_x f, d_y d, d_x f + d_y d + f) and at 200^2, 160 x 200 and
@@ -3701,15 +3887,17 @@ def sm90_k2(torch, card):
 
 def phase_sm90(torch, card):
     """Phase 17: K1 at 'high' and 'bf16' on the cluster tile at every built
-    radix, K3 and K5 on the tile FORMS puts them on at every tier and
-    radix (strict only where that is the cluster tile), and K2's
-    redesigned 'bf16' derivative (see the module docstring). Returns (kernel records {name: record}, launches {name:
+    radix, K3, K5 and strict K1 on the tile FORMS puts them on at every
+    tier and radix (strict only where that is the cluster tile), K4 on it
+    at every tier, and K2's redesigned 'bf16' derivative (see the module
+    docstring). Returns (kernel records {name: record}, launches {name:
     (path, count)})."""
     from cmblensing_tpu_torch.ops import _build, lenseflow_kernels as lfk
     t_start = time.perf_counter()
     lib = _build.load()
     for kernel, fn, key in (("K1", lib.lf_fderiv_sm90_clusters, "fderiv"),
                             ("K3", lib.lf_fa_sm90_clusters, "fa"),
+                            ("K4", lib.lf_bv_sm90_clusters, "bv"),
                             ("K5", lib.lf_uni_sm90_clusters, "uni")):
         # '-' where FORMS runs fact_tile: no cluster form is built there
         fits = {p: [fn(i, B) if lfk.FORMS[key, p, B] == "cluster" else "-"
@@ -3724,10 +3912,11 @@ def phase_sm90(torch, card):
         found, paths, why = sm90_k1(torch, card, N)
         bad.update(why)
         for tier, d in found.items():   # the earlier phases' names: fderiv_high at 1024^2
-            name = f"fderiv_{tier}" + ("" if N == N_MAP else f"_b{N // FA}")
+            tsfx = "" if tier == "f32" else "_" + tier
+            name = "fderiv" + tsfx + ("" if N == N_MAP else f"_b{N // FA}")
             records[name] = d
-            launches[name] = (f"flow_bwd {N}^2 {tier}, nsteps 1", paths[tier]["fderiv_" + tier])
-        for check in (sm90_k3, sm90_k5):
+            launches[name] = (f"flow_bwd {N}^2 {tier}, nsteps 1", paths[tier]["fderiv" + tsfx])
+        for check in (sm90_k3, sm90_k5, sm90_k4):
             found, paths, why = check(torch, card, N)
             bad.update(why)
             records.update(found)
@@ -3744,17 +3933,17 @@ def phase_sm90(torch, card):
 
 
 def print_ptxas(log):
-    """Phase 1: the build log's register lines and errors, and for K3 and
-    K5 on the cluster tile (fa_sm90.cu, uni_sm90.cu) and K5 on fact_tile
-    (uni.cu) each instantiation's radix, axis and tier with its registers,
-    stack and spills."""
+    """Phase 1: the build log's register lines and errors, and for the
+    kernels on the cluster tile (fderiv_sm90.cu, fa_sm90.cu, bv_sm90.cu,
+    uni_sm90.cu) and K5 on fact_tile (uni.cu) each instantiation's radix,
+    axis and tier with its registers, stack and spills."""
     import re
     kernel = None
     for line in log.splitlines():
         line = line.strip()
         if line.startswith("[") and line.endswith("]"):
             continue
-        m = re.search(r"(uni_kernel|fa_sm90_kernel|uni_sm90_kernel)ILi(\d+)ELi(\d)ELi(\d)E", line)
+        m = re.search(r"(uni_kernel|fderiv_sm90_kernel|fa_sm90_kernel|bv_sm90_kernel|uni_sm90_kernel)ILi(\d+)ELi(\d)ELi(\d)E", line)
         if "Compiling entry function" in line:
             kernel = "{}<B={}, AXIS={}, TIER={}>".format(*m.groups()) if m else None
         elif kernel and ("registers" in line or "spill" in line):

@@ -1,15 +1,17 @@
 // The radix-B factored derivative for NVIDIA Hopper (sm_90a) as a device
-// function on a thread-block cluster, fact_sm90, at every tier, and the
+// function on a thread-block cluster, fact_sm90 (one operand) and
+// fact_sm90_ops (several in turn, one launch), at every tier, and the
 // launch and set-up helpers of the kernels built on it, one launch a pass
-// at every built radix: K1 at 'high' and 'bf16' (fderiv_sm90.cu), K3
-// (fa_sm90.cu) and K5 (uni_sm90.cu) at every tier. Which tile K3 and K5
-// run at a (tier, radix) is one table (lenseflow_common.cuh::k3_on_tile,
-// k5_on_tile; the host's ops/lenseflow_kernels.py::FORMS): this one at
-// radix 16 and 32, where fact_tile would need ordered channel-group
-// launches, and at 4 and 8 wherever an A/B in turns did not measure
-// fact_tile more than 2 % faster; each kernel is built on this tile only
-// where it runs it (sm90_dispatch's Built). Strict K1, and K4 at every tier, run
-// fact_tile (fact_tile.cuh).
+// at every built radix: K1 (fderiv_sm90.cu), K3 (fa_sm90.cu), K4
+// (bv_sm90.cu, on fact_sm90_ops: the backward velocity's 2 ncomp
+// derivatives in one launch) and K5 (uni_sm90.cu) at every tier. Which
+// tile a kernel runs at a (tier, radix) is one table
+// (lenseflow_common.cuh::k3_on_tile .. k5_on_tile; the host's
+// ops/lenseflow_kernels.py::FORMS): this one at radix 16 and 32, where
+// fact_tile would need ordered channel-group launches, K1 everywhere, and
+// K3, K4 and K5 at 4 and 8 wherever an A/B in turns did not measure
+// fact_tile (fact_tile.cuh) more than 2 % faster; each kernel is built on
+// this tile only where it runs it (sm90_dispatch's Built).
 //
 // Replaces the factored in-kernel derivative `_fact_apply` /
 // `_make_ddx_ddy_fact` of cmblensing_tpu/ops/pallas_lenseflow.py (:249,
@@ -27,10 +29,10 @@
 // Tile and cluster. A tile is every value of the in-block index m (all
 // 128) by TO = 16 pixels across the axis, so each operand strip is read by
 // one tile. Its B channels are split over the NC CTAs of a cluster: NC = 2
-// at radix 4, 8 and 16, 4 at radix 32 (K1; K3 and K5 take one at radix 8,
+// at radix 4, 8 and 16, 4 at radix 32 (K1; K3, K4 and K5 take one at radix 8,
 // cluster_ctas / velocity_ctas), each CTA holding BC = B / NC channels (2,
 // 4 or 8, 8, 8) as channel pairs (the real pair (0, B - 1) in CTA 0). A
-// 1024^2 pass is 64 tiles, 128 CTAs (64 for K3 and K5); a 4096^2 pass 256
+// 1024^2 pass is 64 tiles, 128 CTAs (64 for K3, K4 and K5); a 4096^2 pass 256
 // tiles, 1024 CTAs, times the planes on the grid's y axis. Each CTA forms its BC
 // channels from all B operand rows (fmaf from 0 over r in order, the
 // order ops/factored_deriv.py::_butterfly_fma mirrors), rounds them (to
@@ -113,9 +115,11 @@
 // as 16 block and 8 channel words for 128 FMA (a complex pair; 5.3 FMA a
 // shared word): each quarter-warp reads 128 contiguous bytes of a block
 // row (its 8 lanes' float4 along m) and broadcasts one channel float4, so
-// the blocks need no swizzle. ptxas: K3 167 registers, no spills; K5 167-
-// 168, 52 bytes spilled in the radix-32 x pass alone (the 'high' radix-32
-// kernels spill 16-20; 9 warps hold at most 168 registers a thread).
+// the blocks need no swizzle. ptxas: K1 and K3 167-168 registers, no
+// spills; K5 167-168, 60 bytes spilled in the radix-32 x pass alone (the
+// 'high' radix-32 kernels spill 8-24; 9 warps hold at most 168 registers a
+// thread); K4, whose operand loop (fact_sm90_ops) holds more across the
+// products, 168 and 228-692 bytes spilled at radix 32 at every tier.
 //
 // Shared memory (radix 32, 'high'): a ring of three 64 KB block stages (8
 // blocks' head and residual slabs), which receives the y_c of the CTA's
@@ -136,15 +140,17 @@
 // 16 and 32), and does with them what its kernel does: a multiply by p, a
 // store, or an add onto what the x pass stored, the groups folded in the
 // order fact_tile's ordered launches add them (fold). Each pixel pair is
-// one thread's and the passes run in stream order, so a read, an add and
-// a store repeat their bits; and a kernel on this tile gives, bit for bit,
-// what the same kernel on fact_tile at that tier would, which keeps the
-// uni flows' delta f (K5 role 0, here) the bits of the kernel backend's
-// (K4, on fact_tile at every tier). At radix 4 and 8 the one group's sum
-// is the single fmaf chain over all B channels. Parts and fold exist only
-// for that match with fact_tile: when K4 moves onto this tile (ROADMAP
-// Queue 2), they go, and the store receives one sum over all B channels
-// in a fixed order. A thread fetches RB rows of its pixel pair (4 at
+// one thread's, in every operand of a launch (PairAt), and the passes run
+// in stream order, so a read, an add and a store repeat their bits; and a
+// kernel on this tile gives, bit for bit, what the same kernel on
+// fact_tile at that tier would, which keeps the uni flows' delta f (K5
+// role 0) the bits of the kernel backend's (K4) on either tile. At radix 4
+// and 8 the one group's sum is the single fmaf chain over all B channels.
+// Parts and fold exist only for those bits: no kernel runs fact_tile's
+// channel groups any more (K4 and strict K1 were the last, at radix 16 and
+// 32), so they can go (ROADMAP Queue 2), the store receiving one sum over
+// all B channels in a fixed order, once a witness has shown what that
+// order does to the bits. A thread fetches RB rows of its pixel pair (4 at
 // radix 32, 8 below) before it sums and stores any of them: a store the
 // compiler cannot tell apart from the next row's reads would otherwise
 // hold each read back until the row before it was written. That took the
@@ -183,7 +189,7 @@ enum Axis { AXIS_X = 0, AXIS_Y = 1 };
 
 // The CTAs of a tile's cluster, its channel groups, as a kernel on this
 // tile chooses them: K1 takes cluster_ctas (2 at radix 4, 8 and 16, 4 at
-// radix 32); K3 and K5 take velocity_ctas, one CTA at radix 8, where a
+// radix 32); K3, K4 and K5 take velocity_ctas, one CTA at radix 8, where a
 // cluster of one ran K3 1.02-1.07x faster at 'high' and 1.18-1.33x at
 // 'bf16' than two (1024^2, batch 1 and 17 trials, cold; K1 'high' 2x
 // slower, and every kernel slower at radix 4; NVIDIA H100 80GB HBM3, 700 W)
@@ -194,6 +200,12 @@ __host__ __device__ constexpr int halves(int tier) { return tier == TIER_HIGH ? 
 __host__ __device__ constexpr int value_bytes(int tier) { return tier == TIER_F32 ? 4 : 2; }
 constexpr int USF = TO + 4;      // row stride (FP32) of a strict staged channel slab [c][k][o]
 constexpr int NSTAGE = 3;        // block-slab stages of the ring
+constexpr int NSLAB = FA / TK;   // contraction slabs of an operand
+// the uses of ring stage st by one operand's NSLAB slabs (slab s fills
+// stage s % NSTAGE): 3, 3, 2
+__host__ __device__ constexpr int stage_uses(int st) {
+    return NSLAB / NSTAGE + (st < NSLAB % NSTAGE);
+}
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // bytes of a ring stage: the CTA's block slabs ([half][slot][k][m]; FP32
@@ -376,17 +388,82 @@ __device__ __forceinline__ void slab_f32(const float* gA, const float* gB, const
     }
 }
 
+// The pixel pair jp (of store_pairs(NC)) that consumer thread tid sums and
+// stores in the share of CTA q of a tile: two pixels adjacent in memory
+// (along o in the y pass, m in the x pass), at offset `at` of its channel
+// rows in the received y_c, and in output row r at pixel(r). The same
+// thread owns the same pairs in every operand of a launch.
+__host__ __device__ constexpr int store_pairs(int NC) { return mquarter(NC) * TO / 2 / NCT; }
+template <int NC, int AXIS>
+struct PairAt {
+    static constexpr int MQ = mquarter(NC);
+    int at, m, ov;
+    __device__ __forceinline__ PairAt(int tid, int jp, int q) {
+        const int idx = tid + jp * NCT;
+        const int ml = AXIS == AXIS_Y ? idx / (TO / 2) : idx % (MQ / 2) * 2;
+        ov = AXIS == AXIS_Y ? idx % (TO / 2) * 2 : idx / (MQ / 2);
+        at = AXIS == AXIS_Y ? ml * TO + ov : ov * MQ + ml;
+        m = q * MQ + ml;
+    }
+    // the pair's offset in output row r of the tile across the axis at o0
+    __device__ __forceinline__ size_t pixel(int r, int o0, int Nx) const {
+        return AXIS == AXIS_Y ? (size_t)(r * FA + m) * Nx + o0 + ov
+                              : (size_t)(o0 + ov) * Nx + r * FA + m;
+    }
+};
+
+// The pixel pairs this thread stored in its kernel's fact_sm90_ops call
+// (consumer threads; none for the producer warp), R rows at a time in the
+// store's order: f(pairs), pairs[i] the offset of the pair in row r0 + i,
+// so that f can issue the reads of R pairs before it writes any.
+template <int B, int NC, int AXIS, int R, class F>
+__device__ __forceinline__ void sm90_own_pairs(int Nx, F f) {
+    static_assert(B % R == 0, "whole batches of rows");
+    const int q = (int)cg::this_cluster().block_rank(), tid = threadIdx.x;
+    const int o0 = (blockIdx.x / NC) * TO;
+    if (tid >= NCT) return;
+#pragma unroll 1
+    for (int jp = 0; jp < store_pairs(NC); ++jp) {
+        const PairAt<NC, AXIS> at(tid, jp, q);
+#pragma unroll 1
+        for (int r0 = 0; r0 < B; r0 += R) {
+            size_t pairs[R];
+#pragma unroll
+            for (int i = 0; i < R; ++i) pairs[i] = at.pixel(r0 + i, o0, Nx);
+            f(pairs);
+        }
+    }
+}
+
 // One tile (blockIdx.x / NC) of the factored derivative along AXIS at TIER
-// on a cluster of NC CTAs (see the header); every thread of the CTA calls
-// it. W holds the packed blocks transposed (Gt[c][k][m]): strict, in FP32
-// as fact_tile takes them, (B, A, A); at 'high' and 'bf16' as their bf16
-// [head, residual] split, rows swizzled (swizzle_blocks), (2, B, A, A),
-// whose heads 'bf16' reads. bf is (2, B, B) [Rf, Ri]. Nx is the plane's
-// row length; load and store as the header says.
-template <int B, int NC, int AXIS, int TIER, class Load, class Fetch, class Store>
-__device__ __forceinline__ void fact_sm90(const void* __restrict__ W,
-                                          const float* __restrict__ bf, int Nx, Load load,
-                                          Fetch fetch, Store store) {
+// on a cluster of NC CTAs (see the header), of each of nop operands in
+// turn, in one launch; every thread of the CTA calls it. W holds the packed
+// blocks transposed (Gt[c][k][m]): strict, in FP32 as fact_tile takes them,
+// (B, A, A); at 'high' and 'bf16' as their bf16 [head, residual] split,
+// rows swizzled (swizzle_blocks), (2, B, A, A), whose heads 'bf16' reads.
+// bf is (2, B, B) [Rf, Ri]. Nx is the plane's row length. The functors take
+// the operand's index first: load(op, q), fetch(op, q), store(op, q, part,
+// fetched), as the header says of one operand. nop is an int, or
+// OneOperand (fact_sm90: the loop and its barrier gone at compile time).
+// RBX, where not 0, caps the rows whose store reads a thread issues
+// together (RB below), for a kernel whose fetched values are many.
+//
+// Operands after the first reuse the set-up (the butterflies in shared
+// memory, the ring's mbarriers): the producer streams the axis' blocks once
+// more for each, and the ring's phase carries on from one operand to the
+// next (slab s of every operand fills stage s % NST, and the stage's
+// mbarriers count its uses over the launch, stage_uses a operand), so the
+// next operand's first slabs are in flight as soon as this CTA's store has
+// read its share out of the ring (one __syncthreads). No CTA writes into
+// another before the next operand's first cluster barrier, which every CTA
+// of the cluster reaches only after its store. (Initialising the
+// mbarriers anew for each operand, behind a cluster barrier, ran K4 1.00-
+// 1.03x this form's time: PERF.md §6.)
+template <int B, int NC, int AXIS, int TIER, int RBX = 0, class Nop, class Load, class Fetch,
+          class Store>
+__device__ __forceinline__ void fact_sm90_ops(const void* __restrict__ W,
+                                              const float* __restrict__ bf, int Nx, Nop nop,
+                                              Load load, Fetch fetch, Store store) {
     constexpr int BC = B / NC, NH = halves(TIER), MQ = mquarter(NC);
     constexpr int NST = NSTAGE, SB = stage_bytes(B, NC, TIER);
     constexpr bool F32 = TIER == TIER_F32, RESID = TIER == TIER_HIGH;
@@ -394,7 +471,7 @@ __device__ __forceinline__ void fact_sm90(const void* __restrict__ W,
     // strict: a thread's values of m (by 4 pixels) per channel, VW adjacent
     // ones at each of RMF / VW offsets 8 VW apart
     constexpr int RMF = 2 * NP, VW = RMF < 4 ? RMF : 4;
-    constexpr int NS = FA / TK;                // slabs
+    constexpr int NS = NSLAB;                  // slabs
     constexpr int SLABV = TK * FA, SLAB = SLABV * value_bytes(TIER);   // values, bytes of a block slab
     constexpr int ULEN = BC * TK * US;         // bf16 of one half of a channel slab
     constexpr int UFLEN = BC * TK * USF;       // strict: floats of a channel slab
@@ -436,266 +513,283 @@ __device__ __forceinline__ void fact_sm90(const void* __restrict__ W,
     // strict: the thread's first m, m_i = mt + 8 VW (i / VW) + i % VW
     const int mt = (wid % WPP) * MT * 16 + VW * (lane % 8), lo = lane / 8;
 
-    if (wid == NCW) {
-        // producer: slab s's blocks, in slot order, into stage s
-        const unsigned char* Wb = static_cast<const unsigned char*>(W);
-        for (int s = 0; s < NS; ++s) {
-            const int st = s % NST;
-            if (s >= NST) mbar_wait(empty + st, (s / NST - 1) & 1);
-            if (lane == 0) mbar_expect_tx(full + st, SB);
-            __syncwarp();
-            for (int i = lane; i < NH * BC; i += 32)
-                bulk_g2s(stage(s) + i * SLAB,
-                         Wb + ((size_t)((i / BC) * B + slot_block<B, NC>(q, i % BC)) * FA + s * TK) *
-                                  FA * value_bytes(TIER),
-                         SLAB, full + st);
-            __syncwarp();
-        }
-    } else {
-        const int pair = wid / WPP, mw = (wid % WPP) * MT * 16;
-        const int chA = 2 * pair, chB = chA + 1;   // slots: channels and blocks alike
-        const bool real = q == 0 && pair == 0;
-        // this thread's operand-slab position (kk, o): its B values come
-        // into registers a slab ahead
-        const int kk = AXIS == AXIS_Y ? tid / TO : tid % TK;
-        const int o = AXIS == AXIS_Y ? tid % TO : tid / TK;
-        const size_t q0 = AXIS == AXIS_Y ? (size_t)kk * Nx + o0 + o : (size_t)(o0 + o) * Nx + kk;
-        const size_t kstep = AXIS == AXIS_Y ? (size_t)TK * Nx : TK;
-        const size_t rstep = AXIS == AXIS_Y ? (size_t)FA * Nx : FA;
-        float raw[B];
-        auto fetch = [&](int s) {
-#pragma unroll
-            for (int r = 0; r < B; ++r) raw[r] = load(q0 + s * kstep + r * rstep);
-        };
-        // channel slab b (0, 1) of this thread's position: strict in FP32,
-        // else its bf16 head (and at 'high' residual)
-        auto butterfly = [&](int b) {
-#pragma unroll
-            for (int ch = 0; ch < BC; ++ch) {
-                float v = 0.f;
-#pragma unroll
-                for (int r = 0; r < B; r += 4) {
-                    const float4 w = ld4(sRf + ch * B + r);
-                    v = fmaf(w.x, raw[r], v);
-                    v = fmaf(w.y, raw[r + 1], v);
-                    v = fmaf(w.z, raw[r + 2], v);
-                    v = fmaf(w.w, raw[r + 3], v);
-                }
-                if constexpr (F32) {
-                    sUf[b * UFLEN + (ch * TK + kk) * USF + o] = v;
-                } else {
-                    __nv_bfloat16* u = sU + b * NH * ULEN;
-                    const __nv_bfloat16 h = __float2bfloat16_rn(v);
-                    u[(ch * TK + kk) * US + o] = h;
-                    if constexpr (RESID)
-                        u[ULEN + (ch * TK + kk) * US + o] = __float2bfloat16_rn(v - __bfloat162float(h));
-                }
+#pragma unroll 1
+    for (int op = 0; op < (int)nop; ++op) {
+        if (op > 0) __syncthreads();   // this CTA's store has read its share out of the ring
+        // slab s of the operand fills stage s % NST, that stage's use
+        // op stage_uses(s % NST) + s / NST of the launch (its mbarriers' phase)
+        auto use = [&](int s) { return op * stage_uses(s % NST) + s / NST; };
+        if (wid == NCW) {
+            // producer: slab s's blocks, in slot order, into stage s % NST
+            const unsigned char* Wb = static_cast<const unsigned char*>(W);
+            for (int s = 0; s < NS; ++s) {
+                const int st = s % NST;
+                if (use(s) > 0) mbar_wait(empty + st, (use(s) - 1) & 1);
+                if (lane == 0) mbar_expect_tx(full + st, SB);
+                __syncwarp();
+                for (int i = lane; i < NH * BC; i += 32)
+                    bulk_g2s(stage(s) + i * SLAB,
+                             Wb + ((size_t)((i / BC) * B + slot_block<B, NC>(q, i % BC)) * FA + s * TK) *
+                                      FA * value_bytes(TIER),
+                             SLAB, full + st);
+                __syncwarp();
             }
-        };
+        } else {
+            const int pair = wid / WPP, mw = (wid % WPP) * MT * 16;
+            const int chA = 2 * pair, chB = chA + 1;   // slots: channels and blocks alike
+            const bool real = q == 0 && pair == 0;
+            // this thread's operand-slab position (kk, o): its B values come
+            // into registers a slab ahead
+            const int kk = AXIS == AXIS_Y ? tid / TO : tid % TK;
+            const int o = AXIS == AXIS_Y ? tid % TO : tid / TK;
+            const size_t q0 = AXIS == AXIS_Y ? (size_t)kk * Nx + o0 + o : (size_t)(o0 + o) * Nx + kk;
+            const size_t kstep = AXIS == AXIS_Y ? (size_t)TK * Nx : TK;
+            const size_t rstep = AXIS == AXIS_Y ? (size_t)FA * Nx : FA;
+            float raw[B];
+            auto fetch = [&](int s) {
 #pragma unroll
-        for (int t = 0; t < MT; ++t)
+                for (int r = 0; r < B; ++r) raw[r] = load(op, q0 + s * kstep + r * rstep);
+            };
+            // channel slab b (0, 1) of this thread's position: strict in FP32,
+            // else its bf16 head (and at 'high' residual)
+            auto butterfly = [&](int b) {
 #pragma unroll
-            for (int j = 0; j < 2; ++j)
+                for (int ch = 0; ch < BC; ++ch) {
+                    float v = 0.f;
 #pragma unroll
-                for (int e = 0; e < 4; ++e) accA[t][j][e] = accB[t][j][e] = 0.f;
-        // ldmatrix rows this lane names: A (m x k) from the [k][m] block rows,
-        // B (k x o) from the [k][o] channel rows (fact_tile.cuh's slab_mma)
-        const int ka = (lane & 7) + (lane >> 4) * 8, ma = ((lane >> 3) & 1) * 8;
-        const int kb = (lane & 7) + ((lane >> 3) & 1) * 8, ob = (lane >> 4) * 8;
-        const int swz = (lane & 7) << 3;   // the block rows' chunk permutation at row ka
-        auto products = [&](const __nv_bfloat16* sG, const __nv_bfloat16* u) {
-            if constexpr (!F32) {
-                unsigned uAh[4], uAl[4] = {}, uBh[4], uBl[4] = {};
-                ldsm_x4_t(u + (chA * TK + kb) * US + ob, uAh);
-                ldsm_x4_t(u + (chB * TK + kb) * US + ob, uBh);
-                if constexpr (RESID) {
-                    ldsm_x4_t(u + ULEN + (chA * TK + kb) * US + ob, uAl);
-                    ldsm_x4_t(u + ULEN + (chB * TK + kb) * US + ob, uBl);
-                }
-#pragma unroll
-                for (int t = 0; t < MT; ++t) {
-                    const int at = ka * FA + ((mw + 16 * t + ma) ^ swz);
-                    unsigned aAh[4], aAl[4] = {}, aBh[4], aBl[4] = {};
-                    ldsm_x4_t(sG + chA * SLABV + at, aAh);
-                    ldsm_x4_t(sG + chB * SLABV + at, aBh);
-                    if constexpr (RESID) {
-                        ldsm_x4_t(sG + (BC + chA) * SLABV + at, aAl);
-                        ldsm_x4_t(sG + (BC + chB) * SLABV + at, aBl);
+                    for (int r = 0; r < B; r += 4) {
+                        const float4 w = ld4(sRf + ch * B + r);
+                        v = fmaf(w.x, raw[r], v);
+                        v = fmaf(w.y, raw[r + 1], v);
+                        v = fmaf(w.z, raw[r + 2], v);
+                        v = fmaf(w.w, raw[r + 3], v);
                     }
-                    unsigned nBh[4], nBl[4];   // -Ai: the sign bits flipped, exact
+                    if constexpr (F32) {
+                        sUf[b * UFLEN + (ch * TK + kk) * USF + o] = v;
+                    } else {
+                        __nv_bfloat16* u = sU + b * NH * ULEN;
+                        const __nv_bfloat16 h = __float2bfloat16_rn(v);
+                        u[(ch * TK + kk) * US + o] = h;
+                        if constexpr (RESID)
+                            u[ULEN + (ch * TK + kk) * US + o] = __float2bfloat16_rn(v - __bfloat162float(h));
+                    }
+                }
+            };
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) nBh[i] = aBh[i] ^ 0x80008000u, nBl[i] = aBl[i] ^ 0x80008000u;
+            for (int t = 0; t < MT; ++t)
 #pragma unroll
-                    for (int j = 0; j < 2; ++j) {
-                        if (real) {
-                            mma_tier<RESID>(accA[t][j], aAh, aAl, uAh, uAl, j);
-                            mma_tier<RESID>(accB[t][j], aBh, aBl, uBh, uBl, j);
-                        } else {
-                            mma_tier<RESID>(accA[t][j], aAh, aAl, uAh, uAl, j);
-                            mma_tier<RESID>(accA[t][j], nBh, nBl, uBh, uBl, j);
-                            mma_tier<RESID>(accB[t][j], aBh, aBl, uAh, uAl, j);
-                            mma_tier<RESID>(accB[t][j], aAh, aAl, uBh, uBl, j);
+                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) accA[t][j][e] = accB[t][j][e] = 0.f;
+            // ldmatrix rows this lane names: A (m x k) from the [k][m] block rows,
+            // B (k x o) from the [k][o] channel rows (fact_tile.cuh's slab_mma)
+            const int ka = (lane & 7) + (lane >> 4) * 8, ma = ((lane >> 3) & 1) * 8;
+            const int kb = (lane & 7) + ((lane >> 3) & 1) * 8, ob = (lane >> 4) * 8;
+            const int swz = (lane & 7) << 3;   // the block rows' chunk permutation at row ka
+            auto products = [&](const __nv_bfloat16* sG, const __nv_bfloat16* u) {
+                if constexpr (!F32) {
+                    unsigned uAh[4], uAl[4] = {}, uBh[4], uBl[4] = {};
+                    ldsm_x4_t(u + (chA * TK + kb) * US + ob, uAh);
+                    ldsm_x4_t(u + (chB * TK + kb) * US + ob, uBh);
+                    if constexpr (RESID) {
+                        ldsm_x4_t(u + ULEN + (chA * TK + kb) * US + ob, uAl);
+                        ldsm_x4_t(u + ULEN + (chB * TK + kb) * US + ob, uBl);
+                    }
+#pragma unroll
+                    for (int t = 0; t < MT; ++t) {
+                        const int at = ka * FA + ((mw + 16 * t + ma) ^ swz);
+                        unsigned aAh[4], aAl[4] = {}, aBh[4], aBl[4] = {};
+                        ldsm_x4_t(sG + chA * SLABV + at, aAh);
+                        ldsm_x4_t(sG + chB * SLABV + at, aBh);
+                        if constexpr (RESID) {
+                            ldsm_x4_t(sG + (BC + chA) * SLABV + at, aAl);
+                            ldsm_x4_t(sG + (BC + chB) * SLABV + at, aBl);
+                        }
+                        unsigned nBh[4], nBl[4];   // -Ai: the sign bits flipped, exact
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) nBh[i] = aBh[i] ^ 0x80008000u, nBl[i] = aBl[i] ^ 0x80008000u;
+#pragma unroll
+                        for (int j = 0; j < 2; ++j) {
+                            if (real) {
+                                mma_tier<RESID>(accA[t][j], aAh, aAl, uAh, uAl, j);
+                                mma_tier<RESID>(accB[t][j], aBh, aBl, uBh, uBl, j);
+                            } else {
+                                mma_tier<RESID>(accA[t][j], aAh, aAl, uAh, uAl, j);
+                                mma_tier<RESID>(accA[t][j], nBh, nBl, uBh, uBl, j);
+                                mma_tier<RESID>(accB[t][j], aBh, aBl, uAh, uAl, j);
+                                mma_tier<RESID>(accB[t][j], aAh, aAl, uBh, uBl, j);
+                            }
                         }
                     }
                 }
-            }
-        };
+            };
 
-        // strict: the pair's block slabs at the thread's first m, and its
-        // channel slabs at its first pixel
-        auto products_f32 = [&](const float* sG, const float* u) {
-            if constexpr (F32) {
-                const float *gA = sG + chA * SLABV + mt, *gB = sG + chB * SLABV + mt;
-                const float *uA = u + chA * TK * USF + 4 * lo, *uB = u + chB * TK * USF + 4 * lo;
-                if (real) slab_f32<true, RMF, VW>(gA, gB, uA, uB, accA, accB);
-                else slab_f32<false, RMF, VW>(gA, gB, uA, uB, accA, accB);
-            }
-        };
+            // strict: the pair's block slabs at the thread's first m, and its
+            // channel slabs at its first pixel
+            auto products_f32 = [&](const float* sG, const float* u) {
+                if constexpr (F32) {
+                    const float *gA = sG + chA * SLABV + mt, *gB = sG + chB * SLABV + mt;
+                    const float *uA = u + chA * TK * USF + 4 * lo, *uB = u + chB * TK * USF + 4 * lo;
+                    if (real) slab_f32<true, RMF, VW>(gA, gB, uA, uB, accA, accB);
+                    else slab_f32<false, RMF, VW>(gA, gB, uA, uB, accA, accB);
+                }
+            };
 
-        fetch(0);
-        butterfly(0);
-        LF_CLOCK(1, lf_t);   // the first slab's operand and channels
-        for (int s = 0; s < NS; ++s) {
-            if (s + 1 < NS) fetch(s + 1);
-            LF_CLOCK(4, lf_t);   // the next operand slab's loads issued
-            consumer_sync();   // channel slab s is formed, and every warp has left slab s - 1's
-            LF_CLOCK(3, lf_t);   // waiting for the other consumer warps
-            mbar_wait(full + s % NST, (s / NST) & 1);
-            LF_CLOCK(2, lf_t);   // waiting for the block slab
-            if constexpr (F32)
-                products_f32(reinterpret_cast<const float*>(stage(s)), sUf + (s % 2) * UFLEN);
-            else
-                products(reinterpret_cast<const __nv_bfloat16*>(stage(s)), sU + (s % 2) * NH * ULEN);
-            __syncwarp();
-            if (lane == 0) mbar_arrive(empty + s % NST);   // stage s read
-            LF_CLOCK(5, lf_t);   // the products
-            if (s + 1 < NS) {
-                butterfly((s + 1) % 2);
-                LF_CLOCK(6, lf_t);   // the next slab's channels (its loads' latency included)
+            fetch(0);
+            butterfly(0);
+            LF_CLOCK(1, lf_t);   // the first slab's operand and channels
+            for (int s = 0; s < NS; ++s) {
+                if (s + 1 < NS) fetch(s + 1);
+                LF_CLOCK(4, lf_t);   // the next operand slab's loads issued
+                consumer_sync();   // channel slab s is formed, and every warp has left slab s - 1's
+                LF_CLOCK(3, lf_t);   // waiting for the other consumer warps
+                mbar_wait(full + s % NST, use(s) & 1);
+                LF_CLOCK(2, lf_t);   // waiting for the block slab
+                if constexpr (F32)
+                    products_f32(reinterpret_cast<const float*>(stage(s)), sUf + (s % 2) * UFLEN);
+                else
+                    products(reinterpret_cast<const __nv_bfloat16*>(stage(s)), sU + (s % 2) * NH * ULEN);
+                __syncwarp();
+                if (lane == 0) mbar_arrive(empty + s % NST);   // stage s read
+                LF_CLOCK(5, lf_t);   // the products
+                if (s + 1 < NS) {
+                    butterfly((s + 1) % 2);
+                    LF_CLOCK(6, lf_t);   // the next slab's channels (its loads' latency included)
+                }
             }
+            LF_CLOCK(7, lf_t);   // the last slab
         }
-        LF_CLOCK(7, lf_t);   // the last slab
-    }
-    cluster.sync();   // every CTA of the cluster has left its ring: it may receive
-    LF_CLOCK(8, lf_t);   // the first cluster barrier
+        cluster.sync();   // every CTA of the cluster has left its ring: it may receive
+        LF_CLOCK(8, lf_t);   // the first cluster barrier
 
-    // Each consumer thread pushes its channel outputs y_c (its accumulators)
-    // to the CTA that sums their pixels: CTA p takes m in [p MQ, (p + 1) MQ)
-    // and receives all B channels there, in (CTA, slot) order, as
-    // sR[c][m - p MQ][o] (y pass) or sR[c][o][m - p MQ] (x pass), through
-    // distributed shared memory; stores, so no load's latency stalls.
-    if (wid < NCW) {
-        const int pair = wid / WPP, mw = (wid % WPP) * MT * 16;
-        const int cA = q * BC + 2 * pair, cB = cA + 1;
-        float* dst[NC];
+        // Each consumer thread pushes its channel outputs y_c (its accumulators)
+        // to the CTA that sums their pixels: CTA p takes m in [p MQ, (p + 1) MQ)
+        // and receives all B channels there, in (CTA, slot) order, as
+        // sR[c][m - p MQ][o] (y pass) or sR[c][o][m - p MQ] (x pass), through
+        // distributed shared memory; stores, so no load's latency stalls.
+        if (wid < NCW) {
+            const int pair = wid / WPP, mw = (wid % WPP) * MT * 16;
+            const int cA = q * BC + 2 * pair, cB = cA + 1;
+            float* dst[NC];
 #pragma unroll
-        for (int p = 0; p < NC; ++p) dst[p] = cluster.map_shared_rank(sR, p);
-        if constexpr (F32) {
-            // VW adjacent m at a time: rows of 4 pixels (y pass), or VW of
-            // m in each pixel's row (x pass)
+            for (int p = 0; p < NC; ++p) dst[p] = cluster.map_shared_rank(sR, p);
+            if constexpr (F32) {
+                // VW adjacent m at a time: rows of 4 pixels (y pass), or VW of
+                // m in each pixel's row (x pass)
 #pragma unroll
-            for (int i0 = 0; i0 < RMF; i0 += VW) {
-                const int m = mt + 8 * i0, ov = 4 * lo;
-                float* d = dst[m / MQ];
-                const int ml = m % MQ;
-#pragma unroll
-                for (int i = i0; i < i0 + VW; ++i)
-                    if (AXIS == AXIS_Y) {
-                        stv<4>(d + (cA * MQ + ml + i - i0) * TO + ov, accA[i / 2][i % 2]);
-                        stv<4>(d + (cB * MQ + ml + i - i0) * TO + ov, accB[i / 2][i % 2]);
-                    }
-                if (AXIS == AXIS_X)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        float va[VW], vb[VW];
-#pragma unroll
-                        for (int i = 0; i < VW; ++i)
-                            va[i] = accA[(i0 + i) / 2][(i0 + i) % 2][j],
-                            vb[i] = accB[(i0 + i) / 2][(i0 + i) % 2][j];
-                        stv<VW>(d + (cA * TO + ov + j) * MQ + ml, va);
-                        stv<VW>(d + (cB * TO + ov + j) * MQ + ml, vb);
-                    }
-            }
-        } else
-#pragma unroll
-        for (int t = 0; t < MT; ++t)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; e += 2) {   // C layout: (m, o), (m, o + 1)
-                    const int m = mw + 16 * t + lane / 4 + 4 * e, ov = 8 * j + 2 * (lane % 4);
+                for (int i0 = 0; i0 < RMF; i0 += VW) {
+                    const int m = mt + 8 * i0, ov = 4 * lo;
                     float* d = dst[m / MQ];
                     const int ml = m % MQ;
-                    if (AXIS == AXIS_Y) {
-                        *reinterpret_cast<float2*>(d + (cA * MQ + ml) * TO + ov) =
-                            make_float2(accA[t][j][e], accA[t][j][e + 1]);
-                        *reinterpret_cast<float2*>(d + (cB * MQ + ml) * TO + ov) =
-                            make_float2(accB[t][j][e], accB[t][j][e + 1]);
-                    } else {
-                        d[(cA * TO + ov) * MQ + ml] = accA[t][j][e];
-                        d[(cA * TO + ov + 1) * MQ + ml] = accA[t][j][e + 1];
-                        d[(cB * TO + ov) * MQ + ml] = accB[t][j][e];
-                        d[(cB * TO + ov + 1) * MQ + ml] = accB[t][j][e + 1];
-                    }
-                }
-    }
-    LF_CLOCK(9, lf_t);   // the pushes issued
-    cluster.sync();   // every push has landed; no CTA reads or writes another's memory after
-    LF_CLOCK(10, lf_t);   // the second cluster barrier
-
-    // The inverse butterfly of this CTA's share: all B output rows r of its
-    // pixels, each pair of pixels adjacent in memory (along o in the y pass,
-    // m in the x pass) one thread's, summed over the B channels in (CTA,
-    // slot) order, each group of sm90_groups on its own (fmaf from 0, as
-    // fact_tile sums a group), and handed to the caller's store once.
-    if (tid < NCT) {
-        constexpr int NG = sm90_groups(B), GS = B / NG;   // groups; channels a group
-        constexpr int NPAIR = MQ * TO / 2 / NCT;   // pairs a thread: 4 / NC
-        constexpr int RB = B < 8 ? B : B < 32 ? 8 : 4;   // rows whose reads go out together
-#pragma unroll 1
-        for (int jp = 0; jp < NPAIR; ++jp) {
-            const int idx = tid + jp * NCT;
-            const int ml = AXIS == AXIS_Y ? idx / (TO / 2) : idx % (MQ / 2) * 2;
-            const int ov = AXIS == AXIS_Y ? idx % (TO / 2) * 2 : idx / (MQ / 2);
-            const int at = AXIS == AXIS_Y ? ml * TO + ov : ov * MQ + ml;
-            const int m = q * MQ + ml;
-            float2 y[B];
 #pragma unroll
-            for (int j = 0; j < B; ++j) y[j] = *reinterpret_cast<const float2*>(sR + j * MQ * TO + at);
-            auto pixel = [&](int r) {   // the pair's offset in output row r
-                return AXIS == AXIS_Y ? (size_t)(r * FA + m) * Nx + o0 + ov
-                                      : (size_t)(o0 + ov) * Nx + r * FA + m;
-            };
-            // RB rows at a time: their reads issued together (fetch), then
-            // each row's sums handed to the store with what was read
-#pragma unroll 1
-            for (int r0 = 0; r0 < B; r0 += RB) {
-                decltype(fetch(size_t(0))) pre[RB];
-#pragma unroll
-                for (int i = 0; i < RB; ++i) pre[i] = fetch(pixel(r0 + i));
-#pragma unroll
-                for (int i = 0; i < RB; ++i) {
-                    const int r = r0 + i;
-                    Parts<NG> part;
-#pragma unroll
-                    for (int g = 0; g < NG; ++g) {
-                        float2 v = make_float2(0.f, 0.f);
-#pragma unroll
-                        for (int j = g * GS; j < (g + 1) * GS; j += 4) {
-                            const float4 w = ld4(sRi + r * B + j);
-                            v.x = fmaf(w.x, y[j].x, v.x), v.y = fmaf(w.x, y[j].y, v.y);
-                            v.x = fmaf(w.y, y[j + 1].x, v.x), v.y = fmaf(w.y, y[j + 1].y, v.y);
-                            v.x = fmaf(w.z, y[j + 2].x, v.x), v.y = fmaf(w.z, y[j + 2].y, v.y);
-                            v.x = fmaf(w.w, y[j + 3].x, v.x), v.y = fmaf(w.w, y[j + 3].y, v.y);
+                    for (int i = i0; i < i0 + VW; ++i)
+                        if (AXIS == AXIS_Y) {
+                            stv<4>(d + (cA * MQ + ml + i - i0) * TO + ov, accA[i / 2][i % 2]);
+                            stv<4>(d + (cB * MQ + ml + i - i0) * TO + ov, accB[i / 2][i % 2]);
                         }
-                        part.g[g] = v;
+                    if (AXIS == AXIS_X)
+#pragma unroll
+                        for (int j = 0; j < 4; ++j) {
+                            float va[VW], vb[VW];
+#pragma unroll
+                            for (int i = 0; i < VW; ++i)
+                                va[i] = accA[(i0 + i) / 2][(i0 + i) % 2][j],
+                                vb[i] = accB[(i0 + i) / 2][(i0 + i) % 2][j];
+                            stv<VW>(d + (cA * TO + ov + j) * MQ + ml, va);
+                            stv<VW>(d + (cB * TO + ov + j) * MQ + ml, vb);
+                        }
+                }
+            } else
+#pragma unroll
+            for (int t = 0; t < MT; ++t)
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; e += 2) {   // C layout: (m, o), (m, o + 1)
+                        const int m = mw + 16 * t + lane / 4 + 4 * e, ov = 8 * j + 2 * (lane % 4);
+                        float* d = dst[m / MQ];
+                        const int ml = m % MQ;
+                        if (AXIS == AXIS_Y) {
+                            *reinterpret_cast<float2*>(d + (cA * MQ + ml) * TO + ov) =
+                                make_float2(accA[t][j][e], accA[t][j][e + 1]);
+                            *reinterpret_cast<float2*>(d + (cB * MQ + ml) * TO + ov) =
+                                make_float2(accB[t][j][e], accB[t][j][e + 1]);
+                        } else {
+                            d[(cA * TO + ov) * MQ + ml] = accA[t][j][e];
+                            d[(cA * TO + ov + 1) * MQ + ml] = accA[t][j][e + 1];
+                            d[(cB * TO + ov) * MQ + ml] = accB[t][j][e];
+                            d[(cB * TO + ov + 1) * MQ + ml] = accB[t][j][e + 1];
+                        }
                     }
-                    store(pixel(r), part, pre[i]);
+        }
+        LF_CLOCK(9, lf_t);   // the pushes issued
+        cluster.sync();   // every push has landed; no CTA reads or writes another's memory after
+        LF_CLOCK(10, lf_t);   // the second cluster barrier
+
+        // The inverse butterfly of this CTA's share: all B output rows r of its
+        // pixels, each pair of pixels adjacent in memory (along o in the y pass,
+        // m in the x pass) one thread's, summed over the B channels in (CTA,
+        // slot) order, each group of sm90_groups on its own (fmaf from 0, as
+        // fact_tile sums a group), and handed to the caller's store once.
+        if (tid < NCT) {
+            constexpr int NG = sm90_groups(B), GS = B / NG;   // groups; channels a group
+            constexpr int NPAIR = store_pairs(NC);   // pairs a thread: 4 / NC
+            // rows whose reads go out together
+            constexpr int RB0 = B < 8 ? B : B < 32 ? 8 : 4, RB = RBX && RBX < RB0 ? RBX : RB0;
+#pragma unroll 1
+            for (int jp = 0; jp < NPAIR; ++jp) {
+                const PairAt<NC, AXIS> at(tid, jp, q);
+                float2 y[B];
+#pragma unroll
+                for (int j = 0; j < B; ++j) y[j] = *reinterpret_cast<const float2*>(sR + j * MQ * TO + at.at);
+                auto pixel = [&](int r) { return at.pixel(r, o0, Nx); };
+                // RB rows at a time: their reads issued together (fetch), then
+                // each row's sums handed to the store with what was read
+#pragma unroll 1
+                for (int r0 = 0; r0 < B; r0 += RB) {
+                    decltype(fetch(op, size_t(0))) pre[RB];
+#pragma unroll
+                    for (int i = 0; i < RB; ++i) pre[i] = fetch(op, pixel(r0 + i));
+#pragma unroll
+                    for (int i = 0; i < RB; ++i) {
+                        const int r = r0 + i;
+                        Parts<NG> part;
+#pragma unroll
+                        for (int g = 0; g < NG; ++g) {
+                            float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+                            for (int j = g * GS; j < (g + 1) * GS; j += 4) {
+                                const float4 w = ld4(sRi + r * B + j);
+                                v.x = fmaf(w.x, y[j].x, v.x), v.y = fmaf(w.x, y[j].y, v.y);
+                                v.x = fmaf(w.y, y[j + 1].x, v.x), v.y = fmaf(w.y, y[j + 1].y, v.y);
+                                v.x = fmaf(w.z, y[j + 2].x, v.x), v.y = fmaf(w.z, y[j + 2].y, v.y);
+                                v.x = fmaf(w.w, y[j + 3].x, v.x), v.y = fmaf(w.w, y[j + 3].y, v.y);
+                            }
+                            part.g[g] = v;
+                        }
+                        store(op, pixel(r), part, pre[i]);
+                    }
                 }
             }
         }
+        LF_CLOCK(11, lf_t);   // the inverse butterfly: sums and stores
     }
-    LF_CLOCK(11, lf_t);   // the inverse butterfly: sums and stores
+}
+
+// The operand count of fact_sm90: one, known at compile time.
+struct OneOperand {
+    __host__ __device__ constexpr operator int() const { return 1; }
+};
+
+// One operand: fact_sm90_ops with load(q), fetch(q), store(q, part, fetched).
+template <int B, int NC, int AXIS, int TIER, class Load, class Fetch, class Store>
+__device__ __forceinline__ void fact_sm90(const void* __restrict__ W,
+                                          const float* __restrict__ bf, int Nx, Load load,
+                                          Fetch fetch, Store store) {
+    fact_sm90_ops<B, NC, AXIS, TIER>(
+        W, bf, Nx, OneOperand(), [&](int, size_t q) { return load(q); },
+        [&](int, size_t q) { return fetch(q); },
+        [&](int, size_t q, const auto& part, const auto& pre) { store(q, part, pre); });
 }
 
 // The tiles of a pass along AXIS over an (Ny, Nx) plane: one a 16-pixel

@@ -1,15 +1,14 @@
 // The radix-B factored derivative as a tiled device function, shared by
-// the factored LenseFlow kernels it runs: K1 strict (factored.cu), K4 at
-// every tier, and K3 and K5 strict at radix 4 and 8 and, at radix 8, K3 at
-// 'high' and K5 at 'high' and 'bf16' (lenseflow_common.cuh::k3_on_tile,
-// k5_on_tile; the host's ops/lenseflow_kernels.py::FORMS;
-// factored_kernels.cuh, uni.cu). K1 at 'high' and 'bf16', and K3 and K5
-// everywhere else, run the cluster tile fact_sm90 (fact_sm90.cuh;
-// fderiv_sm90.cu, fa_sm90.cu, uni_sm90.cu: one launch a pass, the channel
-// groups the CTAs of a cluster), whose strict tier repeats this tile's FMA
-// order (slab_fma) and so its bits; what this header says of K1 at the
-// reduced tiers, and of K3 and K5 at radix 16 and 32, describes the form
-// they ran before.
+// the factored LenseFlow kernels that run it at radix 4 and 8 where the
+// host's table puts them (lenseflow_common.cuh::k3_on_tile, k4_on_tile,
+// k5_on_tile; ops/lenseflow_kernels.py::FORMS;
+// factored_kernels.cuh, uni.cu). Every other form, radix 16 and 32 among
+// them, runs the cluster tile fact_sm90 (fact_sm90.cuh; fderiv_sm90.cu,
+// fa_sm90.cu, bv_sm90.cu, uni_sm90.cu: one launch a pass, the channels
+// split over the CTAs of a cluster), whose strict tier repeats this tile's
+// FMA order (slab_fma) and so its bits. Nothing builds this tile at radix
+// 16 or 32 any more, nor K1 at any radix: what this header says of its
+// channel groups there, and of K1, describes the forms they ran before.
 //
 // The factored derivative along an axis of length N = B * A (A = FA = 128):
 // a real butterfly over the B row (or column) blocks r of the operand,
@@ -601,28 +600,11 @@ int allow_tile_smem(K kernel, int B, int tier = TIER_F32) {
 
 }  // namespace
 
-// Instantiate the statement for the radix Bv (as the constant B); other
-// radices are refused. The radices built: ops/deriv.py::BUILT_RADICES
-// names the same set.
-#define LF_RADIX_CASE(n, ...)                                                                   \
-    case n: {                                                                                   \
-        constexpr int B = n;                                                                    \
-        __VA_ARGS__;                                                                            \
-    } break;
-#define LF_WITH_RADIX(Bv, ...)                                                                  \
-    switch (Bv) {                                                                               \
-        LF_RADIX_CASE(4, __VA_ARGS__)                                                           \
-        LF_RADIX_CASE(8, __VA_ARGS__)                                                           \
-        LF_RADIX_CASE(16, __VA_ARGS__)                                                          \
-        LF_RADIX_CASE(32, __VA_ARGS__)                                                          \
-        default:                                                                                \
-            return (int)cudaErrorInvalidValue;                                                  \
-    }
-
-// The same for the radices one channel group holds (4 and 8), at the
-// tier TIER in force, where ON(B, TIER) says a kernel runs this tile (K3
-// and K5: lenseflow_common.cuh::k3_on_tile, k5_on_tile); only those forms
-// are built, the others refused.
+// Instantiate the statement for the radix Bv (as the constant B) among
+// those one channel group holds (4 and 8), at the tier TIER in force,
+// where ON(B, TIER) says a kernel runs this tile
+// (lenseflow_common.cuh::k3_on_tile, k4_on_tile, k5_on_tile);
+// only those forms are built, the others refused.
 #define LF_TILE_RADIX_CASE(n, ON, ...)                                                          \
     case n: {                                                                                   \
         constexpr int B = n;                                                                    \
@@ -640,9 +622,9 @@ int allow_tile_smem(K kernel, int B, int tier = TIER_F32) {
             return (int)cudaErrorInvalidValue;                                                  \
     }
 
-// One launch of `kernel` per channel group g of the radix B in force, in
-// order, at tier TIER on stream st; (...) are its arguments before g.
+// One launch of `kernel` at the radix B (one channel group) and tier TIER
+// in force on stream st; (...) are its arguments.
 #define LF_TILE_LAUNCH(kernel, AXIS, nz, ...)                                                  \
-    for (int g = 0; g < tile_groups(B); ++g)                                                    \
+    static_assert(tile_groups(B) == 1, "fact_tile runs one channel group");                    \
     kernel<B, AXIS, TIER><<<pass_grid<AXIS>(Ny, Nx, nz), tile_threads(B),                      \
-                            tile_smem_bytes(B, TIER), st>>>(__VA_ARGS__, g)
+                            tile_smem_bytes(B, TIER), st>>>(__VA_ARGS__)

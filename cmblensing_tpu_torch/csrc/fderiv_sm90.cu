@@ -1,27 +1,30 @@
-// K1 at 'high' and 'bf16' for NVIDIA Hopper (sm_90a): the radix-B factored
+// K1 for NVIDIA Hopper (sm_90a) at every tier: the radix-B factored
 // derivative d_x a or d_y a on the cluster tile fact_sm90 (fact_sm90.cuh),
-// one launch a pass at every radix.
+// one launch a pass.
 //
-// Replaces, at the tiers 'high' and 'bf16', the factored in-kernel
-// derivative `_fact_apply` / `_make_ddx_ddy_fact` of
-// cmblensing_tpu/ops/pallas_lenseflow.py (:249, :273) with its products
-// `_mk_dot('high')` (:225) and `_mk_dot('bf16')` (:218): lf_fderiv
-// (factored.cu) runs this kernel at TIER_HIGH and TIER_BF16 and keeps
-// fact_tile (fact_tile.cuh) for the strict tier. K3 (fa_sm90.cu) and K5
-// (uni_sm90.cu) run the same tile at every tier where the host's table
-// puts them on it (ops/lenseflow_kernels.py::FORMS); K4 runs fact_tile at
-// every tier.
+// Replaces the factored in-kernel derivative `_fact_apply` /
+// `_make_ddx_ddy_fact` of cmblensing_tpu/ops/pallas_lenseflow.py (:249,
+// :273) with its products strict, `_mk_dot('high')` (:225) and
+// `_mk_dot('bf16')` (:218): lf_fderiv (factored.cu) runs every pass of K1
+// here, at every tier and radix; strict on the cluster tile's FP32 tier,
+// FP32 FMA in fact_tile's order, so the bits of the fact_tile kernel it
+// replaced (one launch a channel group at radix 16 and 32, one at 4 and
+// 8). That form is built no more: the A/B in turns measured this one
+// 1.2-1.6x faster at radix 4 and 8, and 1.04x slower at 16 (2048^2, d_x +
+// d_y, 0.1687 against 0.1617 ms; PERF.md §6), a cost kept so that K1 has
+// one form and fact_tile no channel-group launches. K3 (fa_sm90.cu), K4
+// (bv_sm90.cu) and K5 (uni_sm90.cu) run the same tile.
 //
 // What bounds it, and what the tile does about it: fact_sm90.cuh's header
-// (a plane in and out and one axis' split blocks; the FP32 butterflies;
-// the operand's loads, which still take half of a radix-32 CTA's cycles).
+// (a plane in and out and one axis' blocks; the FP32 butterflies; the
+// operand's loads, which still take half of a radix-32 CTA's cycles).
 // The load reads the operand through the L2 alone (__ldcg: 0.90x the time
 // at 2048^2, the same elsewhere); the store adds c and, in the y pass of
 // d_x a + d_y b, what the x pass stored, by a read, an add and a store of
 // the pixel pair the thread owns, its channel groups' partial sums added in
 // fact_tile's order (at radix 4 and 8 one group: a single sum, as before).
 //
-// Plain C++ entry (lf_sm90::fderiv, called by lf_fderiv) and C entries
+// Plain C++ entry (lf_sm90::fderiv_pass, called by lf_fderiv) and C entries
 // for set-up (lf_fderiv_sm90_init) and the cluster-fit query; every launch
 // goes on the caller's stream and returns its error code: a refused
 // cluster launch raises in the wrapper.
@@ -49,8 +52,8 @@ fderiv_sm90_kernel(const float* __restrict__ a, const float* __restrict__ c,
             return make_float4(cv.x, cv.y, ov.x, ov.y);
         },
         [&](size_t q, const Parts<sm90_groups(B)>& part, float4 pre) {
-            // fderiv_kernel's order: the first group (+ c) stored or added,
-            // then each later group added
+            // the replaced fact_tile kernel's order: the first group (+ c)
+            // stored or added, then each later group added
             float2 v = part.g[0];
             if (cp != nullptr) v = add2(v, make_float2(pre.x, pre.y));
             if (accumulate) v = add2(make_float2(pre.z, pre.w), v);
@@ -58,10 +61,9 @@ fderiv_sm90_kernel(const float* __restrict__ a, const float* __restrict__ c,
         });
 }
 
-// Where K1 is built on this tile: 'high' and 'bf16', every radix (strict
-// K1 runs fact_tile).
+// Where K1 is built on this tile: every tier and radix.
 struct K1Built {
-    static constexpr bool on(int, int tier) { return tier != TIER_F32; }
+    static constexpr bool on(int, int) { return true; }
 };
 
 template <int AXIS>
@@ -78,23 +80,20 @@ int pass(int tier, int Bv, const float* x, const float* c, float* out, const voi
 }  // namespace
 
 namespace lf_sm90 {
-// out = d_x a + d_y b + c over nplanes planes at `tier` ('high' or 'bf16');
-// a or b (not both) and c may be null; out must not alias a or b. WX, WYT:
-// the swizzled split blocks (2, B, A, A) bf16 of each axis. One launch a
-// pass: the x pass stores, the y pass adds onto it in stream order.
-int fderiv(int tier, const float* a, const float* b, const float* c, float* out, const void* WX,
-           const void* WYT, const float* bfx, const float* bfy, int Bx, int By, int nplanes,
-           int Ny, int Nx, void* stream) {
-    if (Nx != Bx * FA || Ny != By * FA || (a == nullptr && b == nullptr) || nplanes < 1 ||
-        nplanes > 65535)
+// One pass (axis 0: x; 1: y) of K1 at `tier`, radix Bv along the axis: out
+// = D x (+ c), or out += D x where `accumulate`, over nplanes planes; c may
+// be null; out must not alias x. W: the axis' blocks (strict: FP32 (B, A,
+// A) as fact_tile takes them; 'high' and 'bf16': the swizzled split (2, B,
+// A, A) bf16). One launch; passes that add run after the pass they add
+// onto, in stream order.
+int fderiv_pass(int tier, int axis, int Bv, const float* x, const float* c, float* out,
+                const void* W, const float* bf, int nplanes, int Ny, int Nx, int accumulate,
+                void* stream) {
+    if ((axis == AXIS_X ? Nx : Ny) != Bv * FA || nplanes < 1 || nplanes > 65535)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    if (a != nullptr) {
-        const int rc = pass<AXIS_X>(tier, Bx, a, c, out, WX, bfx, Ny, Nx, nplanes, 0, st);
-        if (rc != 0 || b == nullptr) return rc;
-    }
-    return pass<AXIS_Y>(tier, By, b, a != nullptr ? nullptr : c, out, WYT, bfy, Ny, Nx, nplanes,
-                        a != nullptr, st);
+    return axis == AXIS_X ? pass<AXIS_X>(tier, Bv, x, c, out, W, bf, Ny, Nx, nplanes, accumulate, st)
+                          : pass<AXIS_Y>(tier, Bv, x, c, out, W, bf, Ny, Nx, nplanes, accumulate, st);
 }
 }  // namespace lf_sm90
 
@@ -102,11 +101,18 @@ LF_SM90_SETUP(fderiv_sm90_kernel, cluster_ctas, K1Built, lf_fderiv_sm90_init,
               lf_fderiv_sm90_clusters)
 
 #ifdef LF_CLOCK_PHASES
-// the phase probe's entry to lf_sm90::fderiv (lf_fderiv lives in factored.cu)
+// the phase probe's entry: out = d_x a + d_y b + c on this tile (a or b may
+// be null; lf_fderiv lives in factored.cu)
 extern "C" int lf_fderiv_sm90_probe(int tier, const float* a, const float* b, const float* c,
                                     float* out, const void* WX, const void* WYT, const float* bfx,
                                     const float* bfy, int Bx, int By, int nplanes, int Ny, int Nx,
                                     void* stream) {
-    return lf_sm90::fderiv(tier, a, b, c, out, WX, WYT, bfx, bfy, Bx, By, nplanes, Ny, Nx, stream);
+    int rc = 0;
+    if (a != nullptr)
+        rc = lf_sm90::fderiv_pass(tier, AXIS_X, Bx, a, c, out, WX, bfx, nplanes, Ny, Nx, 0, stream);
+    if (rc == 0 && b != nullptr)
+        rc = lf_sm90::fderiv_pass(tier, AXIS_Y, By, b, a != nullptr ? nullptr : c, out, WYT, bfy,
+                                  nplanes, Ny, Nx, a != nullptr, stream);
+    return rc;
 }
 #endif

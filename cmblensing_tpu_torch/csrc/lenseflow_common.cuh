@@ -42,20 +42,25 @@ extern "C" int lf_phase_ticks_clear() {
 // even. The two bf16 tiers accumulate in FP32 on mma.sync.
 enum Tier { TIER_F32 = 0, TIER_HIGH = 1, TIER_BF16 = 2 };
 
-// Where K3 and K5 run fact_tile (fact_tile.cuh; factored_kernels.cuh,
-// uni.cu), by radix and tier: the host's table
+// Where the factored kernels run fact_tile (fact_tile.cuh;
+// factored_kernels.cuh, uni.cu), by radix and tier: the host's table
 // (ops/lenseflow_kernels.py::FORMS, with the A/B in turns that chose it),
-// which the build passes as one bitmask for each (ops/_build.py::
+// which the build passes as one bitmask for each kernel (ops/_build.py::
 // form_flags: bit 2 tier + (B == 8)). Radix 16 and 32, and every tier and
 // radix a mask leaves out, run the cluster tile (fact_sm90.cuh;
-// fa_sm90.cu, uni_sm90.cu). Each kernel is built on the one tile the table
-// names for it; a source built without the flags has no k3_on_tile.
-#if defined(LF_FA_ON_TILE) && defined(LF_UNI_ON_TILE)
+// fa_sm90.cu, bv_sm90.cu, uni_sm90.cu), as K1 (lf_fderiv, fderiv_sm90.cu)
+// does at every tier and radix: it has no mask. Each kernel is
+// built on the one tile the table names for it; a source built without
+// the flags has none of these.
+#if defined(LF_FA_ON_TILE) && defined(LF_BV_ON_TILE) && defined(LF_UNI_ON_TILE)
 __host__ __device__ constexpr bool on_tile(int mask, int B, int tier) {
     return (B == 4 || B == 8) && (mask >> (2 * tier + (B == 8)) & 1);
 }
 __host__ __device__ constexpr bool k3_on_tile(int B, int tier) {
     return on_tile(LF_FA_ON_TILE, B, tier);
+}
+__host__ __device__ constexpr bool k4_on_tile(int B, int tier) {
+    return on_tile(LF_BV_ON_TILE, B, tier);
 }
 __host__ __device__ constexpr bool k5_on_tile(int B, int tier) {
     return on_tile(LF_UNI_ON_TILE, B, tier);
@@ -75,27 +80,38 @@ __device__ __forceinline__ void p_of_t(const float* __restrict__ phi, size_t pla
     py = (-b * gx + a * gy) * idet;
 }
 
-// The five hoisted delta-phi integrands of the backward flow at pixel o,
-// from w = sum_c delta f_c grad f_c: u = M^-1(t) w, then
-// (u_x, u_y, t p_x u_x, t (p_y u_x + p_x u_y), t p_y u_y), written to the
-// planes acc[0..4] (stride `plane`).
-__device__ __forceinline__ void dphi_integrands(const float* __restrict__ phi, size_t plane,
-                                                size_t o, float t, float wx, float wy,
-                                                float* __restrict__ acc) {
-    const float gx = phi[o], gy = phi[plane + o];
-    const float a = 1.f + t * phi[2 * plane + o];
-    const float b = t * phi[3 * plane + o];
-    const float d = 1.f + t * phi[4 * plane + o];
+// The five hoisted delta-phi integrands of the backward flow at a pixel,
+// from phi's five values there (gx, gy, hxx, hxy, hyy) and w = sum_c
+// delta f_c grad f_c: u = M^-1(t) w, then
+// (u_x, u_y, t p_x u_x, t (p_y u_x + p_x u_y), t p_y u_y) into out.
+__device__ __forceinline__ void dphi_values(const float (&ph)[5], float t, float wx, float wy,
+                                            float (&out)[5]) {
+    const float gx = ph[0], gy = ph[1];
+    const float a = 1.f + t * ph[2];
+    const float b = t * ph[3];
+    const float d = 1.f + t * ph[4];
     const float idet = 1.f / (a * d - b * b);
     const float px = (d * gx - b * gy) * idet, py = (-b * gx + a * gy) * idet;
     const float m11 = d * idet, m12 = -b * idet, m22 = a * idet;
     const float ux = m11 * wx + m12 * wy;
     const float uy = m12 * wx + m22 * wy;
-    acc[o] = ux;
-    acc[plane + o] = uy;
-    acc[2 * plane + o] = t * px * ux;
-    acc[3 * plane + o] = t * (py * ux + px * uy);
-    acc[4 * plane + o] = t * py * uy;
+    out[0] = ux;
+    out[1] = uy;
+    out[2] = t * px * ux;
+    out[3] = t * (py * ux + px * uy);
+    out[4] = t * py * uy;
+}
+
+// The same at pixel o of phi's planes (stride `plane`), written to the
+// planes acc[0..4].
+__device__ __forceinline__ void dphi_integrands(const float* __restrict__ phi, size_t plane,
+                                                size_t o, float t, float wx, float wy,
+                                                float* __restrict__ acc) {
+    const float ph[5] = {phi[o], phi[plane + o], phi[2 * plane + o], phi[3 * plane + o],
+                         phi[4 * plane + o]};
+    float out[5];
+    dphi_values(ph, t, wx, wy, out);
+    for (int i = 0; i < 5; ++i) acc[i * plane + o] = out[i];
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

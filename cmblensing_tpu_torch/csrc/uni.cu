@@ -21,7 +21,7 @@
 //   role 3  a, b = two components: out = [div(p a), div(p b), 0, 0]
 //
 // This form is built on the tiled factored derivative `fact_tile`
-// (fact_tile.cuh), as K3 at radix 4 and 8 and K4 are: each role is an x
+// (fact_tile.cuh), as K3 and K4 at radix 4 and 8 are: each role is an x
 // pass that stores and a y pass that adds, two launches. The cluster form
 // (uni_sm90.cu) keeps this contract on fact_sm90, one launch a pass at
 // every radix and no atomics, and the bits. Role 1 nests its
@@ -47,7 +47,7 @@
 // derivative is 0.47 GFLOP of block products and 4 planes of butterflies;
 // roles 0, 2 and 3 do 4 derivatives, role 1 six, against 8 planes of
 // traffic (a, b, px, py in, out). Role 1 also moves its scratch (2 planes
-// written, read and re-read). It runs on K1's strict tile as K3 and K4 do
+// written, read and re-read). It runs on the tile K3 and K4 run at radix 8
 // (see fact_tile.cuh for what that tile does about the shared-memory load
 // rate, butterfly recomputation and latency) and spends nothing on the
 // zero planes beyond their stores.
@@ -63,9 +63,8 @@
 //
 // Radix 16 and 32 would need fact_tile's channel groups as launches of
 // their own, in order; K5 runs the cluster tile there (uni_sm90.cu), whose
-// store folds the groups' partial sums in that order. The kernel below
-// takes the group argument g of LF_TILE_LAUNCH, always 0 (one group up to
-// radix 8).
+// store folds the groups' partial sums in that order. The kernel below runs
+// one group (radix 4 and 8).
 //
 // Plain C interface, loaded with ctypes. Every launch goes on the caller's
 // stream; the entry point returns the first nonzero cudaGetLastError().
@@ -86,10 +85,9 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
            long long a_bs, long long a_cs, long long b_bs, long long b_cs, int nper,
            const float* __restrict__ px, const float* __restrict__ py, float* __restrict__ out,
            float* __restrict__ scratch, const void* __restrict__ Gt,
-           const float* __restrict__ bf, int Ny, int Nx, float t, int g) {
-    static_assert(tile_groups(B) == 1, "K5 on fact_tile holds every channel in one group");
+           const float* __restrict__ bf, int Ny, int Nx, float t) {
     extern __shared__ __align__(16) float smem[];   // tile_smem_bytes(B, TIER)
-    load_butterflies<B, TIER>(bf, smem, g);
+    load_butterflies<B, TIER>(bf, smem, 0);
     const size_t plane = (size_t)Ny * Nx;
     const int nder = role == 1 && stage == 1 ? 1 : 2;
     const int z = blockIdx.z / nder, j = blockIdx.z % nder, bi = z / nper, ci = z % nper;
@@ -112,7 +110,7 @@ uni_kernel(int role, int stage, const float* __restrict__ a, const float* __rest
     // the y pass adds onto the x pass's plane with a result-less atomicAdd:
     // one add per pixel, so the sum is that of a load, add and store
     fact_tile<B, AXIS, TIER>(
-        Gt, smem, m0, o0, g, Nx,
+        Gt, smem, m0, o0, 0, Nx,
         [&](int q) {
             const float x = src[q];
             return pre ? scale * pa[q] * x : x;

@@ -36,7 +36,7 @@
 // groups' partial sums and multiplies and adds them in uni_kernel's order,
 // each product and sum rounded on its own (mul2, add2: never fused into an
 // FMA), so that the uni flows give the bits of the kernel backend's: K3's
-// (fa_sm90.cu) and K4's delta f (fact_tile). Role 1's inner stage finishes both
+// (fa_sm90.cu) and K4's delta f (bv_sm90.cu). Role 1's inner stage finishes both
 // passes before the outer stage reads the scratch (stream order), and the
 // outer stage forms its channels from those FP32 sums and rounds them at
 // the tier, as JAX rounds `a + ddx(t px a) + ddy(t py a)`. The role's

@@ -37,17 +37,22 @@ def _nvcc():
 
 
 def form_flags():
-    """The build's copy of which tile K3 and K5 run at radix 4 and 8 (at 16
-    and 32 they run the cluster tile), made from the host's table
-    (ops/lenseflow_kernels.py::FORMS), so that only the forms it names are
-    built: -DLF_FA_ON_TILE and -DLF_UNI_ON_TILE, each a bitmask of the
-    (tier, radix) on fact_tile, bit 2 tier + (radix == 8)
-    (csrc/lenseflow_common.cuh::k3_on_tile, k5_on_tile read them)."""
+    """The build's copy of which tile each factored kernel runs at radix 4
+    and 8 (at 16 and 32 they all run the cluster tile), made from the
+    host's table (ops/lenseflow_kernels.py::FORMS), so that only the forms
+    it names are built: -DLF_FA_ON_TILE (K3), -DLF_BV_ON_TILE (K4) and
+    -DLF_UNI_ON_TILE (K5), each a bitmask of the (tier, radix) on
+    fact_tile, bit 2 tier + (radix == 8) (csrc/lenseflow_common.cuh::
+    k3_on_tile .. k5_on_tile read them). K1 has the cluster tile alone: an
+    entry of its that names another is refused."""
     from .lenseflow_kernels import FORMS, PRECISIONS
+    other = [key for key, form in FORMS.items() if key[0] == "fderiv" and form != "cluster"]
+    if other:
+        raise ValueError(f"FORMS: K1 is built on the cluster tile alone, not at {other}")
     return [f"-DLF_{k.upper()}_ON_TILE="
             + str(sum(1 << (2 * t + (B == 8)) for t, p in enumerate(PRECISIONS) for B in (4, 8)
                       if FORMS[k, p, B] == "tile"))
-            for k in ("fa", "uni")]
+            for k in ("fa", "bv", "uni")]
 
 
 def _tag():
@@ -100,7 +105,7 @@ def bind(lib):
         "lf_p_planes": [P, P, ctypes.c_size_t, ctypes.c_size_t, F, P],
         "lf_fderiv": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
         "lf_fa_velocity": [I, I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-        "lf_bv_velocity": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+        "lf_bv_velocity": [I, I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
         "lf_uni_velocity": [I, I, I, P, P, L, L, L, L, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             F, P],
         "lf_uni_dense_velocity": [I, I, P, P, L, L, L, L, P, P, P, P, P, P, I, I, I, I, F, P],
@@ -110,9 +115,11 @@ def bind(lib):
         "lf_uni_dense_init": [],
         "lf_fderiv_sm90_init": [],
         "lf_fa_sm90_init": [],
+        "lf_bv_sm90_init": [],
         "lf_uni_sm90_init": [],
         "lf_fderiv_sm90_clusters": [I, I],
         "lf_fa_sm90_clusters": [I, I],
+        "lf_bv_sm90_clusters": [I, I],
         "lf_uni_sm90_clusters": [I, I],
     }
     for name, argtypes in sigs.items():
@@ -131,7 +138,7 @@ def load():
         lib = bind(ctypes.CDLL(str(build())))
         for init in (lib.lf_dense_init, lib.lf_factored_init, lib.lf_uni_init,
                      lib.lf_uni_dense_init, lib.lf_fderiv_sm90_init, lib.lf_fa_sm90_init,
-                     lib.lf_uni_sm90_init):
+                     lib.lf_bv_sm90_init, lib.lf_uni_sm90_init):
             rc = init()
             if rc != 0:
                 raise RuntimeError(f"{init.__name__} failed with CUDA error {rc}")

@@ -39,19 +39,19 @@ from .factored_deriv import FactoredOps, apply_x, apply_y, dot_bf16, dot_high, f
 # from H100 measurements: radix B = n / FACTOR_A where that is a radix the
 # factored kernels are built for, else the dense circulant.
 FACTOR_A = 128
-# The radices csrc/factored.cu is built for (LF_WITH_RADIX in
-# csrc/fact_tile.cuh): 512^2 to 4096^2. The kernel wrappers refuse any
+# The radices the factored kernels are built for (csrc/fact_sm90.cuh::
+# sm90_radix; fact_tile at 4 and 8): 512^2 to 4096^2. The kernel wrappers refuse any
 # other (ops/lenseflow_kernels.py::_check_factored).
 BUILT_RADICES = (4, 8, 16, 32)
 
 
 def radix_groups(B: int) -> int:
-    """The channel groups the fact_tile kernels run one after another at
-    radix B (csrc/fact_tile.cuh::tile_groups): a block holds at most 8
-    channels. K1, K3 and K5 strict and K4 at every tier run them; K1, K3
-    and K5 at 'high' and 'bf16' (csrc/fact_sm90.cuh) do not: their channel
-    groups are the CTAs of one cluster, one launch a pass
-    (ops/lenseflow_kernels.py::pass_launches)."""
+    """The channel groups fact_tile's block would hold at radix B
+    (csrc/fact_tile.cuh::tile_groups: at most 8 channels a block): one at
+    radix 4 and 8, the only radices a kernel runs fact_tile at
+    (ops/lenseflow_kernels.py::FORMS); at 16 and 32 every kernel runs the
+    cluster tile (csrc/fact_sm90.cuh), whose channel groups are the CTAs of
+    one cluster, one launch a pass (pass_launches)."""
     return max(1, B // 8)
 
 

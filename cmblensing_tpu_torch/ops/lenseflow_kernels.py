@@ -65,9 +65,9 @@ the plain leaves at that precision, dense or factored; at 'bf16' phi's
 planes are formed strict (PLANES_PRECISION). The uni granularity runs
 every tier, dense and at every built radix. The factored kernels run
 one of two tiles, as FORMS names it for each kernel, tier and radix: the
-cluster tile (csrc/fact_sm90.cuh; one launch a pass at every radix) or
-fact_tile (csrc/fact_tile.cuh; at radix 16 and 32, strict K1 and K4 in
-channel groups, a launch each; pass_launches).
+cluster tile (csrc/fact_sm90.cuh; every kernel at radix 16 and 32) or
+fact_tile (csrc/fact_tile.cuh; radix 4 and 8 only); either takes one
+launch a pass (pass_launches).
 
 The dense kernels take any plane shape (their edge tiles are guarded);
 the factored ones a radix they are built for (ops/deriv.py::deriv_ops).
@@ -399,33 +399,36 @@ def deriv_cuda(a, b, c, out, mats, precision="f32"):
 
 # The tile each factored kernel runs a pass on, by (kernel, precision,
 # radix), and so the one form csrc/ builds of it there (the build passes
-# K3's and K5's entries to nvcc, ops/_build.py::form_flags, and the C
-# entries refuse the other form): "tile", fact_tile (csrc/fact_tile.cuh: a
-# launch a channel group, in order; one group up to radix 8), or
-# "cluster", the cluster tile (csrc/fact_sm90.cuh: a launch a pass, the
-# channel groups the CTAs of one thread-block cluster). Both give the
-# same bits at a tier. K1 ('fderiv') runs fact_tile strict and the
-# cluster tile at 'high' and 'bf16'; K4 ('bv') fact_tile at every tier;
-# K3 ('fa') and K5 ('uni') the cluster tile at radix 16 and 32 and, at 4
-# and 8, fact_tile only where an A/B in turns measured it more than 2 %
+# the entries at radix 4 and 8 to nvcc, ops/_build.py::form_flags, and the
+# C entries refuse the other form): "tile", fact_tile (csrc/fact_tile.cuh:
+# radix 4 and 8, one channel group) or "cluster", the cluster tile
+# (csrc/fact_sm90.cuh: the channels split over the CTAs of one
+# thread-block cluster). Either is a launch a pass, and both give the same
+# bits at a tier (K4's delta-phi integrands aside: PERF.md §2). Every
+# kernel ('fderiv' K1, 'fa' K3, 'bv' K4, 'uni' K5) runs the cluster tile at
+# radix 16 and 32, K1 at every radix (strict it won its A/B at 4 and 8,
+# PERF.md §6, and its fact_tile form went); at 4 and 8 each other kernel
+# runs fact_tile only where an A/B in turns measured it more than 2 %
 # faster (twice the largest difference between two runs of the same sum,
 # 1.1 %; a tie stays on the cluster tile, which the tier runs at 16 and 32):
-# the mean cold ms of four rounds, summed over K3's two roles or K5's four
-# at the batches the main path runs the tier at (strict: 1 and 17, the
-# grid line search's trials being strict; 'high' and 'bf16': 1), 512^2
-# (radix 4) and 1024^2 (radix 8), fact_tile against the cluster tile
-# (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W):
+# the mean cold ms of four rounds, summed over K3's two roles or K5's
+# four, and K4's call, at the batches the main path runs the
+# tier at (K3 and K5 strict: 1 and 17, the grid line search's trials being
+# strict; else 1), 512^2 (radix 4) and 1024^2 (radix 8), fact_tile against
+# the cluster tile (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W):
 _TILE_AT_4_8 = {   # (kernel, precision, radix): (fact_tile ms, cluster tile ms)
     ("fa", "f32", 4): (0.5830, 0.8014), ("fa", "f32", 8): (2.4684, 3.0015),
     ("fa", "high", 4): (0.0595, 0.0542), ("fa", "high", 8): (0.1221, 0.1308),
     ("fa", "bf16", 4): (0.0462, 0.0463), ("fa", "bf16", 8): (0.0928, 0.0935),
     ("uni", "f32", 4): (1.7422, 2.7891), ("uni", "f32", 8): (7.2594, 8.6492),
     ("uni", "high", 4): (0.1526, 0.1454), ("uni", "high", 8): (0.3624, 0.4072),
-    ("uni", "bf16", 4): (0.1153, 0.1109), ("uni", "bf16", 8): (0.2860, 0.3035)}
-FORMS = {**{("fderiv", p, B): "tile" if p == "f32" else "cluster"
-            for p in PRECISIONS for B in BUILT_RADICES},
-         **{("bv", p, B): "tile" for p in PRECISIONS for B in BUILT_RADICES},
-         **{(k, p, B): "cluster" for k in ("fa", "uni") for p in PRECISIONS for B in (16, 32)},
+    ("uni", "bf16", 4): (0.1153, 0.1109), ("uni", "bf16", 8): (0.2860, 0.3035),
+    # K4: one call; batch 1
+    ("bv", "f32", 4): (0.1637, 0.1121), ("bv", "f32", 8): (0.3522, 0.3918),
+    ("bv", "high", 4): (0.1276, 0.0975), ("bv", "high", 8): (0.2510, 0.3179),
+    ("bv", "bf16", 4): (0.1026, 0.0800), ("bv", "bf16", 8): (0.2104, 0.2383)}
+FORMS = {**{(k, p, B): "cluster" for k in ("fderiv", "fa", "bv", "uni") for p in PRECISIONS
+            for B in BUILT_RADICES},
          **{key: "tile" if tile * 1.02 < cluster else "cluster"
             for key, (tile, cluster) in _TILE_AT_4_8.items()}}
 
@@ -433,8 +436,9 @@ FORMS = {**{("fderiv", p, B): "tile" if p == "f32" else "cluster"
 def pass_launches(B, precision, kernel):
     """The launches of one pass of a factored kernel at radix B and
     `precision`: one on the cluster tile, one a channel group on fact_tile
-    (ops/deriv.py::radix_groups), as FORMS puts the pass. Refuses a
-    kernel, tier or radix that no factored kernel runs."""
+    (ops/deriv.py::radix_groups: one at radix 4 and 8, the only radices
+    FORMS puts on it), as FORMS puts the pass. Refuses a kernel, tier or
+    radix that no factored kernel runs."""
     form = FORMS.get((kernel, precision, B))
     if form is None:
         raise ValueError(f"pass_launches: no factored kernel {kernel!r} at {precision!r}, "
@@ -498,10 +502,9 @@ def _tier_arg(precision):
 def fderiv_cuda(a, b, c, out, ops, precision="f32"):
     """K1: out <- d_x a + d_y b + c through the factored derivative
     kernel at `precision` ('f32', 'high' or 'bf16'); out must not alias a
-    or b. Strict: fact_tile, one launch per derivative given and channel
-    group; 'high' and 'bf16' (csrc/fderiv_sm90.cu): one launch per
-    derivative given at every radix, its channel groups the CTAs of a
-    cluster (pass_launches)."""
+    or b. One launch per derivative given, on the cluster tile at every
+    tier and radix (csrc/fderiv_sm90.cu; at 'high' and 'bf16' it reads the
+    swizzled split blocks)."""
     from . import _build
     Ny, Nx = out.shape[-2:]
     given = [x for x in (a, b, c) if x is not None]
@@ -538,9 +541,10 @@ def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
     ('f32', 'high' or 'bf16'), k <- the velocity of flow `kind` at the batched (nb,
     nstate, Ny, Nx) state y; phi is (nb, 5, Ny, Nx), pt its p(t) planes
     (2, nb, Ny, Nx). An x pass and a y pass (pass_launches each), each
-    on the tile FORMS names: K3 on the cluster tile (csrc/fa_sm90.cu; at
-    'high' and 'bf16' it reads the swizzled split blocks) or fact_tile,
-    K4 on fact_tile at every tier."""
+    on the tile FORMS names: the cluster tile (csrc/fa_sm90.cu,
+    csrc/bv_sm90.cu; at 'high' and 'bf16' it reads the swizzled split
+    blocks) or fact_tile (csrc/factored_kernels.cuh). K4's y pass ends by
+    writing u = M^-1 w and the five delta-phi integrands."""
     from . import _build
     Ny, Nx = y.shape[-2:]
     lib = _build.load()
@@ -555,8 +559,8 @@ def fvelocity_launcher(kind, y, k, phi, pt, ops, ncomp, precision="f32"):
     if kind == "backward":
         nb = _check_batched_state(name, y, k, phi, pt, 2 * ncomp + NACC)
         return _launcher(lib.lf_bv_velocity, name, "bv_velocity" + _SUFFIX[tier], nlaunch,
-                         (tier, _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *fptrs, Bx, By, nb, ncomp,
-                          Ny, Nx))
+                         (tier, forms, _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *fptrs, Bx, By, nb,
+                          ncomp, Ny, Nx))
     nb = _check_batched_state(name, y, k, phi, pt, ncomp)
     fa = _launcher(lib.lf_fa_velocity, name, "fa_velocity_" + kind + _SUFFIX[tier], nlaunch,
                    (tier, forms, ROLES[kind], _ptr(y), _ptr(k), _ptr(pt), *fptrs, Bx, By, nb, ncomp,

@@ -1,13 +1,16 @@
 """The flows of one checkout of the port against their plain versions at
-nsteps 1 and 7, for a comparison between checkouts; the cold times of K3
-and K5 at one radix; and the MAP_joint step at "auto". One CUDA card.
+nsteps 1 and 7, for a comparison between checkouts; the cold times of the
+factored kernels at one radix; and the MAP_joint step at "auto". One CUDA
+card.
 
     python scripts/torch_flow_witness.py flows --tree DIR --out FILE [--N 512 1024]
-        [--tiers high bf16]
+        [--tiers high bf16] [--backward] [--nsteps 1 7] [--no-plain]
     python scripts/torch_flow_witness.py compare FILE_A FILE_B
     python scripts/torch_flow_witness.py kernels --tree DIR [--N 1024] [--reps 10]
-        [--tiers high bf16]
+        [--tiers high bf16] [--kernels K1 K3 K4 K5]
     python scripts/torch_flow_witness.py map --tree DIR [--N 1024] [--steps 4]
+    python scripts/torch_flow_witness.py ulp [--N 2048 4096] [--tiers f32 high bf16]
+        [--nsteps 7]
 
 DIR is a checkout of the repository (the parent commit unpacked by
 `git archive`, say); its cmblensing_tpu_torch is imported, and its
@@ -15,26 +18,39 @@ kernels built into DIR/build, in place of this one's. The inputs are
 chip_smoke.py's (weak_lensing_inputs, seed 0), so every checkout sees the
 same ones.
 
-  flows    at each --N and tier of --tiers ('high', 'bf16', 'f32'), nsteps
-           1 and 7: the kernel backend's L and L^H (K3) and the uni
-           backend's L, L^H and backward flow (delta f, delta phi; K5),
-           each against its plain version at the tier (relative max-abs,
-           every plane) and, at a reduced tier, in relative Frobenius norm,
-           the distance to plain over the distance to the strict kernel
-           flow (chip_smoke.py's split_ratio); the kernel flows' outputs
-           saved to FILE
+  flows    at each --N and tier of --tiers ('high', 'bf16', 'f32'), at each
+           of --nsteps (1 and 7): the kernel backend's L and L^H (K3) and
+           backward flow (delta f, delta phi; K4, K1), K4's velocity at one
+           backward state (k_f, k_df, the five delta-phi integrands), and
+           the uni backend's L, L^H and backward flow (delta f, delta phi;
+           K5), each against its plain version at the tier (relative
+           max-abs, every plane) and, at a reduced tier, in relative
+           Frobenius norm, the distance to plain over the distance to the
+           strict kernel flow (chip_smoke.py's split_ratio), unless
+           --no-plain; with --backward the backward flows and K4's velocity
+           alone; the kernel outputs saved to FILE
   compare  two such files: for each output, the same bits or how far apart
-  kernels  K3 forward and adjoint (batch 1 and 17 trials) and K5 roles 0-3
-           (batch 1) at each tier of --tiers on --N^2 (radix N / 128): cold
-           device ms (chip_smoke.py's cold_ms) and relative max-abs against
-           the plain version; run it on two checkouts in turns to compare
-           them (the A/B of the tile K3 and K5 run at a tier and radix,
-           ops/lenseflow_kernels.py::FORMS, against a checkout that runs
-           the other)
+           (the largest relative max-abs of its planes)
+  kernels  of --kernels at each tier of --tiers on --N^2 (radix N / 128),
+           cold device ms (chip_smoke.py's cold_ms) and relative max-abs
+           against the plain version: K1 strict d_x and d_y (batch 1;
+           strict alone, whatever --tiers), K3 forward and adjoint (batch 1
+           and 17 trials), K4 (batch 1), K5 roles 0-3 (batch 1); run it on
+           two checkouts in turns to compare them (the A/B of the tile a
+           kernel runs at a tier and radix, ops/lenseflow_kernels.py::
+           FORMS, against a checkout that runs the other)
   map      MAP_joint at --N^2 P (1024 or 4096), "auto", as chip_smoke.py
            phases 9 and 15 (1024^2: 2 warm-up steps) or 13 (d) and 16 (d)
            (4096^2: 1), on the kernel and the uni backend, then --steps
            timed
+  ulp      at each --N and tier of --tiers, the kernel backend's backward
+           flow (nsteps: the last of --nsteps) twice: as it runs, and with
+           its five delta-phi accumulators each moved by one float32 ulp
+           (up or down, a seeded coin per value) before the K1 passes that
+           form delta phi from them; prints how far delta phi moves
+           (relative max-abs) and, for scale, how far the accumulators did
+           (the largest relative max-abs of the five planes): what a
+           last-bit change of K4's integrands alone does to delta phi
 
 Prints the card's name and power limit. Exits non-zero without a card.
 """
@@ -74,40 +90,54 @@ def flows(cs, torch, args):
     saved = {}
     for N in args.N:
         ops, phi, f, dy = inputs(cs, torch, N)
+        yb = torch.cat([f[None], dy[None], 1e-3 * torch.as_tensor(
+            np.random.default_rng(cs.SEED + 1).standard_normal((1, 5, N, N)).astype(np.float32),
+            device="cuda")], dim=1)
+        pt = torch.empty((2, 1, N, N), device="cuda")
+        lfk.p_planes_cuda(0.5, phi[None], pt)
 
         def run(tier, form):
             ap = {"kernel": lfk.flow_apply, "plain": lfk.flow_apply_plain}[form]
+            bw = {"kernel": lfk.flow_bwd, "plain": lfk.flow_bwd_plain}[form]
             uap = {"kernel": lfk.uni_flow_apply, "plain": lfk.uni_flow_apply_plain}[form]
             ubw = {"kernel": lfk.uni_flow_bwd, "plain": lfk.uni_flow_bwd_plain}[form]
+            vel = {"kernel": lfk.fvelocity_cuda, "plain": lfk.fvelocity_plain}[form]
             out = {}
-            for n in (1, 7):
-                out[n, "K3 L"] = ap(f, phi, ops, 0., 1., n, "forward", tier)
-                out[n, "K3 L^H"] = ap(f, phi, ops, 0., 1., n, "adjoint", tier)
-                out[n, "K5 L"] = uap(f, phi, ops, 0., 1., n, "forward", tier)
-                out[n, "K5 L^H"] = uap(f, phi, ops, 0., 1., n, "adjoint", tier)
+            k = torch.empty_like(yb)
+            vel("backward", yb, k, phi[None], pt, ops, 2, 0.5, tier)
+            out[0, "K4 k_f"], out[0, "K4 k_df"], out[0, "K4 integrands"] = k[:, :2], k[:, 2:4], k[:, 4:]
+            for n in args.nsteps:
+                if not args.backward:
+                    out[n, "K3 L"] = ap(f, phi, ops, 0., 1., n, "forward", tier)
+                    out[n, "K3 L^H"] = ap(f, phi, ops, 0., 1., n, "adjoint", tier)
+                    out[n, "K5 L"] = uap(f, phi, ops, 0., 1., n, "forward", tier)
+                    out[n, "K5 L^H"] = uap(f, phi, ops, 0., 1., n, "adjoint", tier)
+                out[n, "K4 delta phi"], out[n, "K4 delta f"] = bw(dy, f, phi, ops, 0., 1., n, tier)
                 dphi, df = ubw(dy, f, phi, ops, 0., 1., n, tier)
                 out[n, "K5 delta f"], out[n, "K5 delta phi"] = df, dphi
             torch.cuda.synchronize()
             return out
 
-        strict = run("f32", "kernel")
+        strict = run("f32", "kernel") if not args.no_plain else None
         for tier in args.tiers:
-            k, p = (strict if tier == "f32" else run(tier, "kernel")), run(tier, "plain")
+            k = strict if tier == "f32" and strict is not None else run(tier, "kernel")
+            p = run(tier, "plain") if not args.no_plain else None
             for key in k:
-                e = max(cs.rel(a, b) for a, b in zip(k[key].reshape(-1, N, N),
-                                                      p[key].reshape(-1, N, N)))
-                bound = cs.K1_SM90_TOL.get(tier, cs.FLOW_TOL)
-                line = (f"{N}^2 {tier:4s} nsteps {key[0]} {key[1]:12s}: vs plain {e:.3e} (bound "
-                        f"{bound:g}{'' if e < bound else ', OVER'})")
-                if tier != "f32":
-                    r = cs.split_ratio(k[key], p[key], strict[key])
-                    line += (f"; Frobenius vs plain {r['fro']:.3e}, vs strict "
-                             f"{r['fro_strict']:.3e}, ratio {r['split_ratio']:.4f} (bound "
-                             f"{cs.FLOW_SPLIT_RATIO:g})")
+                line = f"{N}^2 {tier:4s} nsteps {key[0]} {key[1]:13s}"
+                if p is not None:
+                    e = max(cs.rel(a, b) for a, b in zip(k[key].reshape(-1, N, N),
+                                                          p[key].reshape(-1, N, N)))
+                    bound = cs.K1_SM90_TOL.get(tier, cs.FLOW_TOL)
+                    line += f": vs plain {e:.3e} (bound {bound:g}{'' if e < bound else ', OVER'})"
+                    if tier != "f32":
+                        r = cs.split_ratio(k[key], p[key], strict[key])
+                        line += (f"; Frobenius vs plain {r['fro']:.3e}, vs strict "
+                                 f"{r['fro_strict']:.3e}, ratio {r['split_ratio']:.4f} (bound "
+                                 f"{cs.FLOW_SPLIT_RATIO:g})")
                 print(line, flush=True)
                 saved[f"{N} {tier} {key[0]} {key[1]}"] = k[key].cpu()
             del k, p
-        del ops, phi, f, dy
+        del ops, phi, f, dy, yb, pt, strict
         torch.cuda.empty_cache()
     torch.save(saved, args.out)
 
@@ -117,9 +147,13 @@ def compare(args):
     a, b = torch.load(args.files[0]), torch.load(args.files[1])
     for key in a:
         x, y = a[key], b[key]
-        same = torch.equal(x, y)
-        d = float((x - y).abs().max() / y.abs().max())
-        print(f"{key:34s}: {'the same bits' if same else f'differ, relative max-abs {d:.3e}'}")
+        if torch.equal(x, y):
+            print(f"{key:36s}: the same bits")
+            continue
+        n = x.shape[-1]
+        d = max(float((p - q).abs().max() / q.abs().max())
+                for p, q in zip(x.reshape(-1, n, n), y.reshape(-1, n, n)))
+        print(f"{key:36s}: differ, relative max-abs {d:.3e} (the largest of its planes)")
 
 
 def kernels(cs, torch, args, card):
@@ -132,7 +166,16 @@ def kernels_at(cs, torch, args, card, N):
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
     ops, phi, f, dy = inputs(cs, torch, N)
     t = 0.5
-    for nb in (1, cs.NTRIAL):
+    if "K1" in args.kernels:
+        for label, x in (("d_x", (f[:1], None, None)), ("d_y", (None, f[:1], None))):
+            o, ref = torch.empty_like(f[:1]), torch.empty_like(f[:1])
+            run = lambda o_, x=x: lfk.fderiv_cuda(*x, o_, ops)
+            run(o)
+            lfk.fderiv_plain(*x, ref, ops)
+            ms = cs.cold_ms(run, (o,), args.reps, torch)
+            print(f"K1 f32  {label:8s} {N}^2 [ 1]: {ms:.4f} ms cold; vs plain "
+                  f"{cs.rel(o, ref):.3e} [{card}]", flush=True)
+    for nb in ((1, cs.NTRIAL) if "K3" in args.kernels else ()):
         phis = phi[None] if nb == 1 else torch.stack([(0.1 + 0.1 * i) * phi
                                                       for i in range(nb)])
         y = f[None] if nb == 1 else torch.stack([torch.roll(f, 7 * i, dims=-1)
@@ -149,6 +192,23 @@ def kernels_at(cs, torch, args, card, N):
                 ms = cs.cold_ms(run, (o, y), args.reps, torch)
                 print(f"K3 {tier:4s} {kind:8s} {N}^2 [{nb:2d}]: {ms:.4f} ms cold; vs plain "
                       f"{cs.rel(o, ref):.3e} [{card}]", flush=True)
+    if "K4" in args.kernels:
+        yb = torch.cat([f[None], dy[None], 1e-3 * torch.ones((1, 5, N, N), device="cuda")], dim=1)
+        pt = torch.empty((2, 1, N, N), device="cuda")
+        lfk.p_planes_cuda(t, phi[None], pt)
+        for tier in args.tiers:
+            o, ref = torch.empty_like(yb), torch.empty_like(yb)
+            run = lambda o_, y_, tier=tier: lfk.fvelocity_cuda("backward", y_, o_, phi[None], pt,
+                                                               ops, 2, t, tier)
+            run(o, yb)
+            lfk.fvelocity_plain("backward", yb, ref, phi[None], pt, ops, 2, t, tier)
+            ms = cs.cold_ms(run, (o, yb), args.reps, torch)
+            e = max(cs.rel(a, b) for a, b in zip(o[0], ref[0]))
+            print(f"K4 {tier:4s} backward {N}^2 [ 1]: {ms:.4f} ms cold; vs plain {e:.3e} "
+                  f"[{card}]", flush=True)
+        del yb
+    if "K5" not in args.kernels:
+        return
     px, py, calls = cs.uni_operands(torch, ops, phi[None], torch.cat([f, dy])[None], t)
     for tier in args.tiers:
         for key, role, a, b in calls:
@@ -163,6 +223,42 @@ def kernels_at(cs, torch, args, card, N):
             ms = cs.cold_ms(run, (out,), args.reps, torch)
             print(f"K5 {tier:4s} role {role} {N}^2 [ 1]: {ms:.4f} ms cold; vs plain "
                   f"{cs.rel(out, ref):.3e} [{card}]", flush=True)
+
+
+def ulp(cs, torch, args, card):
+    import copy
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    n = args.nsteps[-1]
+    for N in args.N:
+        ops, phi, f, dy = inputs(cs, torch, N)
+        for tier in args.tiers:
+            leaves = lfk._leaves_for(f, ops, tier)
+            nudged, moved = copy.copy(leaves), []
+            g = torch.Generator(device=f.device).manual_seed(cs.SEED)
+
+            def deriv(a, b, c, out, mats):
+                # _flow_bwd's first two K1 calls read the accumulators
+                # (s_xx, s_xy, u_x; s_yy, u_y), the third what they made
+                if len(moved) < 2:
+                    ups = [None if x is None else torch.nextafter(x, torch.where(
+                        torch.rand(x.shape, generator=g, device=x.device) < 0.5,
+                        -torch.inf, torch.inf)) for x in (a, b, c)]
+                    moved.append(max(cs.rel(u, x) for u, x in zip(ups, (a, b, c))
+                                     if x is not None))
+                    a, b, c = ups
+                leaves.deriv(a, b, c, out, mats)
+
+            nudged.deriv = deriv
+            dphi, _ = lfk._flow_bwd(leaves, dy, f, phi, ops, 0., 1., n)
+            dphi_u, _ = lfk._flow_bwd(nudged, dy, f, phi, ops, 0., 1., n)
+            again, _ = lfk._flow_bwd(leaves, dy, f, phi, ops, 0., 1., n)
+            print(f"{N}^2 {tier:4s} nsteps {n}: delta phi moves {cs.rel(dphi_u, dphi):.3e} "
+                  f"(relative max-abs) when the accumulators move {max(moved):.3e}; the same "
+                  f"flow again: {'the same bits' if torch.equal(again, dphi) else 'DIFFERS'} "
+                  f"[{card}]", flush=True)
+            del dphi, dphi_u, again
+        del ops, phi, f, dy
+        torch.cuda.empty_cache()
 
 
 def map_step(cs, torch, args, card):
@@ -193,7 +289,7 @@ def map_step(cs, torch, args, card):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("mode", choices=("flows", "compare", "kernels", "map"))
+    ap.add_argument("mode", choices=("flows", "compare", "kernels", "map", "ulp"))
     ap.add_argument("files", nargs="*")
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--out", default=None)
@@ -201,6 +297,11 @@ def main():
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--tiers", nargs="+", choices=PRECISIONS, default=None)
+    ap.add_argument("--kernels", nargs="+", choices=("K1", "K3", "K4", "K5"),
+                    default=["K1", "K3", "K4", "K5"])
+    ap.add_argument("--nsteps", type=int, nargs="+", default=[1, 7])
+    ap.add_argument("--backward", action="store_true")
+    ap.add_argument("--no-plain", action="store_true")
     args = ap.parse_args()
     if args.mode == "compare":
         return compare(args)
@@ -219,6 +320,9 @@ def main():
     elif args.mode == "kernels":
         args.N, args.tiers = args.N or [1024], args.tiers or TIERS
         kernels(cs, torch, args, card)
+    elif args.mode == "ulp":
+        args.N, args.tiers = args.N or [2048, 4096], args.tiers or PRECISIONS
+        ulp(cs, torch, args, card)
     else:
         args.N = args.N or [cs.N_MAP]
         map_step(cs, torch, args, card)

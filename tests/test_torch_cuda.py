@@ -9,9 +9,10 @@ Bound: 1e-5 relative max-abs, both sides strict FP32 summing in another
 order; 5e-4 for grad/Hess(phi), whose float32 value carries ~1e-4
 relative error in any form (dense circulants or FFT, measured against
 float64 at 256^2), so two FP32 summation orders differ by as much.
-The factored kernels (csrc/factored.cu) are checked at every radix they
-are built for: 512^2 (B = 4), 1024^2 (B = 8) and, in channel groups,
-2048^2 (B = 16) and 4096^2 (B = 32).
+The factored kernels (csrc/factored.cu and the cluster tile's sources)
+are checked at every radix they are built for: 512^2 (B = 4), 1024^2
+(B = 8), 2048^2 (B = 16) and 4096^2 (B = 32), each on the tile
+lenseflow_kernels.FORMS names.
 
 Their 'high' tier (bf16 head/residual split on the tensor cores) is held
 to its plain 'high' version at 2e-5: the two split the same FP32 values,
@@ -32,7 +33,7 @@ A whole flow adds its RK4 sums' FP32 reassociation to both distances,
 so it is held only to lie nearer its plain 'high' version than the
 strict flow (FLOW_SPLIT_RATIO; strict kernels would give infinity).
 
-K5 (csrc/uni.cu, factored at radix 4 to 32, in channel groups from 16;
+K5 (csrc/uni_sm90.cu or csrc/uni.cu, factored at radix 4 to 32;
 csrc/uni_dense.cu, dense at any plane shape) is held at every tier to the same bounds as the other
 kernels at that tier, but for role 1, whose outer products round the
 inner stage's sums (formed in another order by its plain version): at
@@ -157,9 +158,9 @@ FACTORED_CASES = [(512, 1), (512, 17), (1024, 1), (1024, 17), (2048, 1), (2048, 
 @pytest.mark.parametrize("N,nb", FACTORED_CASES)
 def test_factored_kernels_match_plain_on_card(N, nb):
     """K1 (lf_fderiv, x and y), K3 (lf_fa_velocity, both roles) and K4
-    (lf_bv_velocity) on the 64 x 32 tile at radix 4 (512^2), 8 (1024^2),
-    16 (2048^2) and 32 (4096^2; the last two in channel groups) against
-    their plain versions, one call each, at batch 1 and on the line
+    (lf_bv_velocity), strict, on the tile FORMS names at radix 4 (512^2), 8
+    (1024^2), 16 (2048^2) and 32 (4096^2; the last two on the cluster tile)
+    against their plain versions, one call each, at batch 1 and on the line
     search's batch of 17, every batch entry with its own phi and held to
     the bound on its own."""
     _card()
@@ -476,7 +477,6 @@ def test_factored_high_kernels_match_plain_high_on_card(N, nb):
         assert e[0] < HIGH_TOL and e[1] < HIGH_VS_STRICT and e[2] < HIGH_SPLIT_RATIO, e
 
     lfk.reset_launches()
-    ngroup = tderiv.radix_groups(N // 128)   # K4 launches a pass: one per channel group
     a, b, c = T(nb, 1, N, N), T(nb, 1, N, N), T(nb, 1, N, N)
     for args in ((a, None, None), (None, b, None), (a, b, c)):
         check(a.shape, lambda o, p: lfk.fderiv_cuda(*args, o, ops, p),
@@ -492,18 +492,19 @@ def test_factored_high_kernels_match_plain_high_on_card(N, nb):
     pt = _p_planes(0.7, planes)
     check(yb.shape, lambda o, p: lfk.fvelocity_cuda("backward", yb, o, planes, pt, ops, 2, 0.7, p),
           lambda o: lfk.fvelocity_plain("backward", yb, o, planes, pt, ops, 2, 0.7, "high"))
-    assert lfk.LAUNCHES["bv_velocity_high"] == 2 * ngroup
+    assert lfk.LAUNCHES["bv_velocity_high"] == 2   # K4 'high': a launch a pass on either tile
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [2048, 4096])
 def test_factored_outputs_ignore_what_the_buffer_held_on_card(N):
-    """With channel groups the later groups' launches add their partial
-    sums onto the first group's; the output must not depend on what its
-    buffer held, and the adds run in a fixed order: K1 (d_x alone, and d_x a +
-    d_y b + c), K3 (both roles) and K4 into buffers of NaN, of 1e30 and of
-    zeros give finite results within TOL of the plain version, at both
-    tiers, and the same bits for every buffer."""
+    """At radix 16 and 32 every kernel runs the cluster tile, whose store
+    folds the channel groups' partial sums in a fixed order and whose y
+    pass adds onto the x pass's output; the output must not depend on what
+    its buffer held: K1 (d_x alone, and d_x a + d_y b + c), K3 (both roles)
+    and K4 into buffers of NaN, of 1e30 and of zeros give finite results
+    within TOL of the plain version, at both tiers, and the same bits for
+    every buffer."""
     _card()
     ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
     phi, _, _ = _weak_lensing(N=N)
@@ -1025,7 +1026,7 @@ def test_factored_bf16_kernels_match_plain_bf16_on_card(N, nb):
     planes = torch.stack([planes * (1 - 0.05 * i) for i in range(nb)])
     g = torch.Generator(device="cuda").manual_seed(0)
     T = lambda *s: torch.randn(s, generator=g, device="cuda")
-    ngroup = tderiv.radix_groups(N // 128)
+    ngroup = tderiv.radix_groups(N // 128)   # the radices whose outputs are checked twice
 
     def check(shape, kernel, plain, label):
         out = _check_bf16(shape, kernel, plain, f"{label} N={N} nb={nb}")
@@ -1051,7 +1052,7 @@ def test_factored_bf16_kernels_match_plain_bf16_on_card(N, nb):
           lambda o: lfk.fvelocity_plain("backward", yb, o, planes, pt, ops, 2, 0.7, "bf16"),
           "backward")
     twice = 2 if ngroup > 1 else 1
-    # K3 one launch a pass (the cluster tile), K4 one a channel group
+    # K3 and K4 one launch a pass on either tile
     assert all(lfk.LAUNCHES[f"{k}_bf16"] == 2 * lfk.pass_launches(N // 128, "bf16", kern) * twice
                for k, kern in (("fa_velocity_forward", "fa"), ("fa_velocity_adjoint", "fa"),
                                ("bv_velocity", "bv")))
@@ -1398,11 +1399,13 @@ def test_strict_k3_k5_on_the_cluster_tile_at_radix_16_and_32_on_card(N, nb):
 @pytest.mark.parametrize("precision", ["f32", "high", "bf16"])
 @pytest.mark.parametrize("N", [512, 1024])
 def test_k3_k5_entries_run_only_the_tile_forms_names_on_card(N, precision):
-    """At radix 4 and 8 csrc/ builds K3 and K5 on the one tile FORMS names
-    for each tier (the build passes FORMS to nvcc, _build.form_flags), and
-    no other form: lf_fa_velocity and lf_uni_velocity run the pass forms
-    FORMS gives (rc 0, a finite output) and refuse every other choice
-    (either pass on the other tile) with cudaErrorInvalidValue."""
+    """At radix 4 and 8 csrc/ builds K3, K4 and K5 on the one tile FORMS
+    names for each tier (the build passes FORMS to nvcc,
+    _build.form_flags), and no other form: lf_fa_velocity, lf_bv_velocity
+    and lf_uni_velocity run the pass forms FORMS gives (rc 0, a finite
+    output) and refuse every other choice (either pass on the other tile)
+    with cudaErrorInvalidValue; lf_fderiv, K1 on its one form, the cluster
+    tile, runs (rc 0, a finite output)."""
     _card()
     from cmblensing_tpu_torch.ops import _build
     B, stream = N // 128, lfk._stream()
@@ -1437,3 +1440,99 @@ def test_k3_k5_entries_run_only_the_tile_forms_names_on_card(N, precision):
             assert rc == 0 and torch.isfinite(o).all(), forms
         else:
             assert rc == 1, (forms, rc)
+        yb = torch.cat([y, y, 1e-3 * y[:, :1].expand(1, lfk.NACC, N, N)], dim=1).contiguous()
+        o = torch.full_like(yb, float("nan"))
+        _, ptrs = lfk._operands("lf_bv_velocity", ops, yb, precision, forms)
+        rc = lib.lf_bv_velocity(tier, forms, lfk._ptr(yb), lfk._ptr(o), lfk._ptr(planes),
+                                lfk._ptr(pt), *ptrs, B, B, 1, 2, N, N, 0.3, stream)
+        torch.cuda.synchronize()
+        if forms == lfk._forms("bv", precision, B, B):
+            assert rc == 0 and torch.isfinite(o).all(), forms
+        else:
+            assert rc == 1, (forms, rc)
+    o = torch.full_like(y, float("nan"))
+    assert lfk._forms("fderiv", precision, B, B) == 3
+    _, ptrs = lfk._operands("lf_fderiv", ops, y, precision, 3)
+    rc = lib.lf_fderiv(tier, lfk._ptr(y[:, 0]), lfk._ptr(y[:, 1]), None, lfk._ptr(o[:, 0]), *ptrs,
+                       B, B, 1, N, N, stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and torch.isfinite(o[:, 0]).all()
+
+
+# K4 at every tier and strict K1 on the tile FORMS names (the cluster tile,
+# csrc/bv_sm90.cu and csrc/fderiv_sm90.cu, at radix 16 and 32), at 512^2 to
+# 2048^2: (N, batch, components)
+K4_CASES = [(512, 1, 1), (512, 3, 3), (1024, 1, 2), (1024, 3, 2), (2048, 1, 2), (2048, 2, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "high", "bf16"])
+@pytest.mark.parametrize("N,nb,ncomp", K4_CASES)
+def test_k4_on_the_tile_forms_names_matches_plain_on_card(N, nb, ncomp, precision):
+    """K4 (lf_bv_velocity) on the tile FORMS names, on nb backward states of
+    ncomp components each with its own phi: every output plane (k_f, k_df,
+    the five delta-phi integrands) against the plain version at the tier
+    (TOL; 'high' and 'bf16' K1_TIER's bound and Frobenius ratio to the
+    strict kernel, at 'high' HIGH_VS_STRICT too); into buffers of NaN, 1e30
+    and zeros finite and the same bits, nothing written past the last
+    entry; one launch a pass; k_f and k_df bit for bit those of K5 role 0
+    (lf_uni_velocity) on the same state and p(t) planes, as the uni flows'
+    delta f is the kernel backend's."""
+    _card()
+    ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
+    phi, _, _ = _weak_lensing(N=N)
+    planes = lfk.gradhess_plain(torch.as_tensor(phi, device="cuda"), ops)
+    planes = torch.stack([planes * (1 - 0.05 * i) for i in range(nb)])
+    g = torch.Generator(device="cuda").manual_seed(7)
+    yb = torch.cat([torch.randn((nb, 2 * ncomp, N, N), generator=g, device="cuda"),
+                    1e-3 * torch.randn((nb, lfk.NACC, N, N), generator=g, device="cuda")], dim=1)
+    pt = _p_planes(0.7, planes)
+    run = lambda o, p: lfk.fvelocity_cuda("backward", yb, o, planes, pt, ops, ncomp, 0.7, p)
+    ref, strict = torch.empty_like(yb), torch.empty_like(yb)
+    lfk.fvelocity_plain("backward", yb, ref, planes, pt, ops, ncomp, 0.7, precision)
+    run(strict, "f32")
+    sfx = "" if precision == "f32" else "_" + precision
+    lfk.reset_launches()
+    got = _same_bits(yb.shape, lambda o: run(o, precision))
+    assert lfk.LAUNCHES["bv_velocity" + sfx] == 3 * 2   # 3 buffers x 2 passes
+    each = lambda x, z: max(rel(x[j, i], z[j, i]) for j in range(nb) for i in range(x.shape[1]))
+    e = each(got, ref)
+    if precision == "f32":
+        print(f"K4 strict N={N} nb={nb} ncomp={ncomp}: vs plain {e:.3e}")
+        assert e < TOL, e
+    else:
+        tol, ratio = K1_TIER[precision]
+        r = split_ratio(got, ref, strict)
+        print(f"K4 {precision} N={N} nb={nb} ncomp={ncomp}: vs plain {e:.3e}, vs strict "
+              f"{each(got, strict):.3e}, Frobenius ratio {r:.4f}")
+        assert e < tol and r < ratio, (e, r)
+        assert precision != "high" or each(got, strict) < HIGH_VS_STRICT
+    out = torch.empty((nb, ncomp, 4, N, N), device="cuda")
+    lfk.uni_velocity_cuda(0, yb[:, :ncomp], yb[:, ncomp:2 * ncomp], pt[0].unsqueeze(1),
+                          pt[1].unsqueeze(1), out, ops, 0.7, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :ncomp], out[:, :, 0]), "k_f against K5 role 0"
+    assert torch.equal(got[:, ncomp:2 * ncomp], out[:, :, 1]), "k_df against K5 role 0"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,nb", [(N, nb) for N in (512, 1024, 2048) for nb in (1, 5)])
+def test_strict_k1_on_the_tile_forms_names_matches_plain_on_card(N, nb):
+    """Strict K1 (lf_fderiv) on the tile FORMS names (the cluster tile's
+    FP32 tier at radix 16 and 32, csrc/fderiv_sm90.cu): d_x a, d_y b and
+    d_x a + d_y b + c on nb planes within TOL of the plain version, every
+    plane on its own; into buffers of NaN, 1e30 and zeros finite and the
+    same bits, nothing written past the last plane; one launch a pass."""
+    _card()
+    ops = tderiv.deriv_ops(ct.ProjLambert(N, N, thetapix=2, T=np.float32, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    a, b, c = (torch.randn((nb, 1, N, N), generator=g, device="cuda") for _ in range(3))
+    for args, npass in (((a, None, None), 1), ((None, b, None), 1), ((a, b, c), 2)):
+        ref = torch.empty_like(a)
+        lfk.fderiv_plain(*args, ref, ops)
+        lfk.reset_launches()
+        got = _same_bits(a.shape, lambda o: lfk.fderiv_cuda(*args, o, ops))
+        assert lfk.LAUNCHES["fderiv"] == 3 * npass
+        e = max(rel(got[i], ref[i]) for i in range(nb))
+        print(f"strict K1 N={N} nb={nb} passes {npass}: vs plain {e:.3e}")
+        assert e < TOL, e

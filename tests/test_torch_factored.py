@@ -240,14 +240,22 @@ def test_pass_launches_refuses_what_no_factored_kernel_runs(B, precision, kernel
 @pytest.mark.parametrize("B,precision,kernel,n", [
     (16, "f32", "fa", 1), (32, "f32", "fa", 1), (16, "f32", "uni", 1), (32, "f32", "uni", 1),
     (8, "f32", "fa", 1), (32, "high", "fa", 1), (16, "bf16", "uni", 1),
-    (16, "f32", "bv", 2), (32, "high", "bv", 4), (16, "f32", "fderiv", 2),
-    (32, "f32", "fderiv", 4), (32, "bf16", "fderiv", 1)])
+    (16, "f32", "bv", 1), (32, "high", "bv", 1), (16, "f32", "fderiv", 1),
+    (32, "f32", "fderiv", 1), (32, "bf16", "fderiv", 1)])
 def test_pass_launches_counts_what_each_factored_kernel_runs(B, precision, kernel, n):
     """Beside the refusals above, the launches of a pass it accepts: one on
-    the cluster tile (strict K3 and K5 at radix 16 and 32, every reduced
-    tier of K1, K3 and K5), one a channel group on fact_tile (K4 at every
-    tier and strict K1: 2 at radix 16, 4 at 32; one group to radix 8)."""
+    either tile, every kernel at every tier and radix (at radix 16 and 32
+    the cluster tile, K4 and strict K1 too, whose fact_tile forms took a
+    launch a channel group there, 2 at radix 16 and 4 at 32; fact_tile at
+    radix 4 and 8 holds one group)."""
     assert lfk.pass_launches(B, precision, kernel) == n
+
+
+# The (kernel, tier) pairs FORMS puts on fact_tile, by radix: where the A/B
+# in turns measured fact_tile more than 2 % faster (PERF.md §6)
+ON_FACT_TILE = {4: {("fa", "f32"), ("uni", "f32")},
+                8: {("fa", "f32"), ("uni", "f32"), ("fa", "high"), ("uni", "high"),
+                    ("uni", "bf16"), ("bv", "f32"), ("bv", "high"), ("bv", "bf16")}}
 
 
 @pytest.mark.parametrize("kernel", ["fderiv", "fa", "uni", "bv"])
@@ -256,32 +264,36 @@ def test_pass_launches_counts_what_each_factored_kernel_runs(B, precision, kerne
 def test_forms_table_names_a_built_tile_and_its_launches(B, precision, kernel):
     """FORMS names, for every factored kernel, tier and built radix, the one
     tile csrc/ builds that kernel on there (the C entries refuse the
-    other): K1 on fact_tile strict and on the cluster tile at 'high' and
-    'bf16', K4 on fact_tile, K3 and K5 on the cluster tile but strict at
-    radix 4 and 8, and at radix 8 K3 at 'high' and K5 at 'high' and
-    'bf16', where fact_tile won the A/B in turns by more than 2 %
-    (csrc/lenseflow_common.cuh::k3_on_tile, k5_on_tile). _forms sets the
+    other): the cluster tile at radix 16 and 32 for every kernel and tier
+    (K4 and strict K1 since they left fact_tile's channel groups), K1 at
+    'high' and 'bf16' everywhere; at radix 4 and 8 fact_tile only where it
+    won the A/B in turns by more than 2 % (ON_FACT_TILE;
+    csrc/lenseflow_common.cuh::k3_on_tile .. k5_on_tile; strict K1 won it on
+    the cluster tile, its only form). _forms sets the
     bit of each pass the cluster tile runs, each pass by its own radix."""
-    reduced_at_8 = {"fa": ("high",), "uni": ("high", "bf16")}.get(kernel, ())
-    on_tile = {"fderiv": precision == "f32", "bv": True}.get(
-        kernel, (precision == "f32" and B <= 8) or (B == 8 and precision in reduced_at_8))
+    on_tile = (kernel, precision) in ON_FACT_TILE.get(B, ())
     form = lfk.FORMS[kernel, precision, B]
     assert form == ("tile" if on_tile else "cluster")
-    assert lfk.pass_launches(B, precision, kernel) >= 1
+    assert lfk.pass_launches(B, precision, kernel) == 1
     assert lfk._forms(kernel, precision, B, B) == (0 if on_tile else 3)
-    other = lfk.FORMS[kernel, precision, 16] == "cluster"
-    assert lfk._forms(kernel, precision, B, 16) == (not on_tile) + 2 * other
+    assert lfk.FORMS[kernel, precision, 16] == "cluster"
+    assert lfk._forms(kernel, precision, B, 16) == (not on_tile) + 2
 
 
 def test_build_flags_carry_the_forms_table():
-    """The build hands csrc/ K3's and K5's entries of FORMS at radix 4 and
-    8 (csrc/lenseflow_common.cuh::k3_on_tile, k5_on_tile decode bit 2 tier
-    + (radix == 8)), and the library's name changes with them."""
+    """The build hands csrc/ the entries of FORMS at radix 4 and 8 of every
+    factored kernel with two forms (csrc/lenseflow_common.cuh::k3_on_tile,
+    k4_on_tile, k5_on_tile decode bit 2 tier + (radix == 8)): K4's mask
+    beside K3's and K5's; K1, on the cluster tile alone, has none. The
+    library's name changes with them."""
     from cmblensing_tpu_torch.ops import _build
     flags = dict(f[2:].split("=") for f in _build.form_flags())
-    assert set(flags) == {"LF_FA_ON_TILE", "LF_UNI_ON_TILE"}
-    for kernel in ("fa", "uni"):
+    assert set(flags) == {"LF_FA_ON_TILE", "LF_BV_ON_TILE", "LF_UNI_ON_TILE"}
+    assert all(lfk.FORMS["fderiv", p, B] == "cluster" for p in lfk.PRECISIONS
+               for B in (4, 8, 16, 32))
+    for kernel in ("fa", "bv", "uni"):
         mask = int(flags[f"LF_{kernel.upper()}_ON_TILE"])
+        assert mask < 1 << 6
         for t, precision in enumerate(lfk.PRECISIONS):
             for B in (4, 8):
                 on = mask >> (2 * t + (B == 8)) & 1
@@ -293,6 +305,91 @@ def test_build_flags_carry_the_forms_table():
         assert _build._tag() != tag
     finally:
         lfk.FORMS["fa", "bf16", 8] = saved
+
+
+@pytest.mark.parametrize("key", [("bv", "f32", 4), ("bv", "high", 8), ("bv", "bf16", 8),
+                                 ("fderiv", "f32", 4), ("fderiv", "f32", 8)])
+def test_build_tag_follows_the_k1_and_k4_entries(key):
+    """Flipping one of K4's entries of FORMS at radix 4 or 8 flips its bit
+    in the flags handed to nvcc and renames the library, so that the other
+    form is built and none of the old one is reused. Strict K1 has the
+    cluster tile alone (its fact_tile form lost the A/B and went): an entry
+    that names fact_tile for it is refused, by the flags and so the build."""
+    from cmblensing_tpu_torch.ops import _build
+    flags, tag = _build.form_flags(), _build._tag()
+    saved = lfk.FORMS[key]
+    try:
+        lfk.FORMS[key] = "tile" if saved == "cluster" else "cluster"
+        if key[0] == "fderiv":
+            with pytest.raises(ValueError, match="K1"):
+                _build._tag()
+            return
+        changed = [f for f in _build.form_flags() if f not in flags]
+        assert len(changed) == 1 and changed[0].startswith(f"-DLF_{key[0].upper()}_ON_TILE=")
+        assert _build._tag() != tag
+    finally:
+        lfk.FORMS[key] = saved
+    assert _build._tag() == tag
+
+
+class _Entry:
+    """A C entry's stand-in: records its arguments and returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _fake_card(monkeypatch):
+    """The launchers' checks of the card switched off, and a library whose
+    entries record their arguments, so that the wrappers' host logic runs
+    on CPU tensors."""
+    from cmblensing_tpu_torch.ops import _build
+    lib = type("Lib", (), {})()
+    for name in ("lf_fderiv", "lf_bv_velocity", "lf_fa_velocity"):
+        setattr(lib, name, _Entry())
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(lfk, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(lfk, "_stream", lambda: None)
+    lfk._OPERANDS.clear()
+    return lib
+
+
+@pytest.mark.parametrize("precision", ["f32", "high", "bf16"])
+@pytest.mark.parametrize("shape", [(512, 512), (1024, 2048), (2048, 1024)])
+def test_k1_and_k4_launchers_hand_the_entries_each_pass_form(shape, precision, monkeypatch):
+    """fvelocity_launcher hands lf_bv_velocity the `forms` bits of each pass
+    (bit 0 the x pass, bit 1 the y pass, each by its own radix: the cluster
+    tile at 16, FORMS's entry at 4 and 8) and the blocks of the tile each
+    pass runs; fderiv_cuda hands lf_fderiv the cluster tile's blocks (its
+    one form); both count one launch a pass."""
+    lib = _fake_card(monkeypatch)
+    Ny, Nx = shape
+    ops = tderiv.deriv_ops(ct.ProjLambert(Ny, Nx, thetapix=2, T=np.float32, device="cpu"))
+    Bx, By = Nx // 128, Ny // 128
+    forms = sum((lfk.FORMS["bv", precision, B] == "cluster") << axis
+                for axis, B in enumerate((Bx, By)))
+    y = torch.empty((1, 9, Ny, Nx))
+    phi, pt = torch.empty((1, 5, Ny, Nx)), torch.empty((2, 1, Ny, Nx))
+    lfk.reset_launches()
+    lfk.fvelocity_launcher("backward", y, torch.empty_like(y), phi, pt, ops, 2, precision)(0.25)
+    (args,) = lib.lf_bv_velocity.calls
+    GX, GYT, _, _ = lfk._fops(ops, precision, forms)
+    assert args[:2] == (lfk.PRECISIONS.index(precision), forms)
+    assert [a.value for a in args[6:8]] == [GX.data_ptr(), GYT.data_ptr()]
+    assert args[10:17] == (Bx, By, 1, 2, Ny, Nx, 0.25)
+    assert lfk.LAUNCHES["bv_velocity" + ("" if precision == "f32" else "_" + precision)] == 2
+    a = torch.empty((1, Ny, Nx))
+    lfk.reset_launches()
+    lfk.fderiv_cuda(a, a.clone(), None, torch.empty_like(a), ops, precision)
+    (args,) = lib.lf_fderiv.calls
+    assert args[0] == lfk.PRECISIONS.index(precision) and len(args) == 15
+    GX, GYT, _, _ = lfk._fops(ops, precision, 3)
+    assert [a_.value for a_ in args[5:7]] == [GX.data_ptr(), GYT.data_ptr()]
+    assert lfk.LAUNCHES["fderiv" + ("" if precision == "f32" else "_" + precision)] == 2
 
 
 @pytest.mark.parametrize("precision", ["f32", "high", "bf16"])
