@@ -7,8 +7,9 @@ each against its plain PyTorch version on the card, and drives the
 port's two paths through the kernel backend:
 
   phases 2-4  the mixed-posterior phi-gradient of a 256^2 pol-P
-              simulation (LenseFlow nsteps=7) on the dense kernels
-              (csrc/lenseflow.cu), checked against the plain backend and
+              simulation (LenseFlow nsteps=7) on the dense kernels (one
+              launch a flow, csrc/dense_flow.cu; the derivative,
+              csrc/lenseflow.cu), checked against the plain backend and
               timed;
   phases 5-7  at 1024^2 P (thetapix 2): the factored kernels
               (csrc/factored.cu) and whole flows against their plain
@@ -28,16 +29,16 @@ port's two paths through the kernel backend:
               the strict one, argmaxf_logpdf at the JAX default CG and
               "auto" against strict, and MAP_joint as scripts/map_1024.py
               runs it at its default precision "auto".
-  phase 10    the dense kernels' ragged edge tiles: every K2 kernel, p(t)
-              and the RK4 update at 200^2, 160 x 200 and 600^2, both
-              tiers, against their plain versions, and one L @ f on a
+  phase 10    the dense kernels' ragged edge tiles: K2's derivative, p(t)
+              and the RK4 update at 200^2, 160 x 200 and 600^2, every
+              tier, against their plain versions, and one L @ f on a
               200^2 load_sim against the plain backend.
-  phase 11    K2 'high' at 256^2 P (nsteps 7): each velocity kind and the
-              derivative against its plain 'high' version and the strict
-              kernel, the 'high' flows, the phi-gradient at 'high' against
-              strict, and two steps of MAP_joint at its default "auto".
-  phase 12    the slice: K2 'high' on its three-component (I, Q, U)
-              inputs against plain 'high' and strict; the Wiener filter
+  phase 11    K2 'high' at 256^2 P (nsteps 7): the derivative against its
+              plain 'high' version and the strict kernel, the 'high'
+              flows, the phi-gradient at 'high' against strict, and two
+              steps of MAP_joint at its default "auto".
+  phase 12    the slice: K2's 'high' derivative on its three-component (I,
+              Q, U) inputs against plain 'high' and strict; the Wiener filter
               (argmaxf_logpdf at the JAX defaults, "auto") on a masked,
               beamed 256^2 T+EB (pol IP) simulation, against the strict
               solve; at 20 fixed iterations the kernel backend against the
@@ -58,8 +59,8 @@ port's two paths through the kernel backend:
   phase 14    the 'bf16' tier (one bf16 product of the rounded operands):
               (a) K1, K3 (batch 1 and 17) and K4 at 1024^2 against plain
               'bf16' and the strict kernels, with the library call of K1's
-              d_x; (b) K2 at 256^2 on the masked IP slice's (I, Q, U)
-              inputs and at 200^2 (edge tiles); (c) K1, K3, K4 at 2048^2
+              d_x; (b) K2's derivative at 256^2 on the masked IP slice's (I,
+              Q, U) inputs and at 200^2 (edge tiles); (c) K1, K3, K4 at 2048^2
               and 4096^2, each launched twice, bit for bit, and there one
               MAP_joint(precision="bf16") step and a two-iteration Wiener
               filter at 'bf16'; (d) the 1024^2 flows; (e) the
@@ -67,7 +68,7 @@ port's two paths through the kernel backend:
               backend; (f) MAP_joint(precision="bf16") as in phase 7,
               beside phases 7 and 9, and argmaxf_logpdf at 1024^2; (g) the
               masked 256^2 IP Wiener filter at hessian_precision="bf16"
-              against the strict solve.
+              against the strict solve (phase 12's in a whole run).
   phase 15    K5 at 'high' and 'bf16' and with dense operands
               (csrc/uni.cu, csrc/uni_dense.cu), and the "uni" backend at the
               JAX defaults: (a) K5 'high' and 'bf16' at 1024^2 (radix 8),
@@ -82,7 +83,8 @@ port's two paths through the kernel backend:
               phase 7, beside phases 8, 9 and 14 (f), with no K3/K4 launch;
               (f) the masked 256^2 IP Wiener filter on "uni" at the JAX
               defaults against the kernel backend, and 20 fixed strict
-              iterations; (g) L @ f on a 768^2 P load_sim on "uni", strict
+              iterations (the kernel backend's solves phase 12's in a whole
+              run); (g) L @ f on a 768^2 P load_sim on "uni", strict
               and 'high', against the kernel backend.
   phase 16    K5 at radix 16 (2048^2) and 32 (4096^2) on the cluster tile
               (csrc/uni_sm90.cu) and the "uni" backend there: (a) every role at
@@ -94,7 +96,7 @@ port's two paths through the kernel backend:
               sizes ('bf16' too at 4096^2); (d) MAP_joint 2048^2 P on "uni"
               strict beside "kernel", at "auto" and 'bf16', the line
               search's memory per trial, and at 4096^2 P "auto" as phase
-              13 (d); no K3/K4 launch on "uni".
+              13 (d) but one timed step; no K3/K4 launch on "uni".
   phase 17    the kernels on the cluster tile (csrc/fact_sm90.cuh: one
               launch a pass, the channel groups the CTAs of one cluster) at
               512^2, 1024^2, 2048^2 and 4096^2: (a) K1 at 'high' and 'bf16'
@@ -109,8 +111,10 @@ port's two paths through the kernel backend:
               kernel, one launch a pass counted on the forward and adjoint
               flows; (d) K5 the same way (csrc/uni_sm90.cu or csrc/uni.cu),
               every role and stage on strided views of a flow state at
-              batch 1 and (to 1024^2) 17 trials, timed cold, two launches
-              a stage counted on the uni flows; the reduced tiers' flows at
+              batch 1 and (to 1024^2) 17 trials, timed cold (at 2048^2
+              and 4096^2 in a whole run phase 16 (a)'s check of the same
+              inputs, not re-run), two launches a stage counted on the uni
+              flows; the reduced tiers' flows at
               nsteps 1 and 7, to 1024^2 against their plain versions
               (flow_checks); each kernel against plain at the tier (and a
               reduced tier against the strict kernel),
@@ -129,19 +133,29 @@ port's two paths through the kernel backend:
               last entry, K4's k_f and k_df bit for bit K5 role 0's, timed cold
               beside the parent's time (PARENT_MS), one launch a pass
               counted on the backward flow at the tier (nsteps 7; at
-              512^2 held to its plain version, delta phi at 'bf16'
-              printed: ROADMAP Queue 3). Its numbers are the
+              512^2 held to its plain version, delta phi at 'bf16' to
+              DPHI_BF16_TOL). Its numbers are the
               kernels' one record a size: at the sizes an earlier phase
               records (K1, K3 and K4 in phases 5, 9 and 13, K1, K2, K3 and
               K4 'bf16' in phase 14, K5 in phases 15 and 16) the record
               keeps that phase's name and path launches and takes this
               phase's numbers, source and form.
+  phase 18    K2, one launch a whole dense LenseFlow flow
+              (csrc/dense_flow.cu: the RK4 stages, p(t) and the update
+              inside, grid-wide barriers between stages), every kind and
+              tier at 256^2 P, the IP slice's 3 x 256^2, 200^2, 160 x 200
+              and 600^2, nsteps 7: against the plain leaves walking the
+              same stage table (FLOW_TIER_TOL, and at 'high' and 'bf16'
+              FLOW_SPLIT_RATIO), the same bits twice, one launch a flow;
+              3 entries in one launch bit for bit the single flows; timed
+              warm and cold (and 17 entries at 256^2 P) beside the bound.
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
     python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
     python3 chip_smoke.py --phase 15    (phase 1, the build, and phase 15 alone)
     python3 chip_smoke.py --phase 16    (phase 1, the build, and phase 16 alone)
     python3 chip_smoke.py --phase 17    (phase 1, the build, and phase 17 alone)
+    python3 chip_smoke.py --phase 18    (phase 1, the build, and phase 18 alone)
 
 Phases 7 and 8 measure the strict north star (precision=None); phases
 2-6 and 10 run at the global precision 'f32', and every tier in 10.
@@ -205,8 +219,7 @@ MAP_WARM, MAP_STEPS = 2, 6
 NTRIAL = 17            # the grid line search's batch: alpha = 0 and 16 trials
 CORR_MIN = 0.9
 # kernels of each path: every one must launch in its run
-DENSE_KERNELS = ("velocity_forward", "velocity_adjoint", "velocity_backward", "rk4_update",
-                 "p_planes", "deriv")
+DENSE_KERNELS = ("flow_forward", "flow_adjoint", "flow_backward", "deriv")
 FACTORED_KERNELS = ("fderiv", "fa_velocity_forward", "fa_velocity_adjoint", "bv_velocity",
                     "rk4_update", "p_planes")
 UNI_KERNELS = ("uni_role0", "uni_role1", "uni_role2", "uni_role3", "fderiv", "rk4_update",
@@ -253,13 +266,11 @@ WF_HIGH_TOL = 1e-3
 BF16_DENSE_TOL, BF16_TOL = 1e-5, 2e-3
 BF16_KERNELS = ("fderiv_bf16", "fa_velocity_forward_bf16", "fa_velocity_adjoint_bf16",
                 "bv_velocity_bf16")
-DENSE_BF16_KERNELS = ("velocity_forward_bf16", "velocity_adjoint_bf16", "velocity_backward_bf16",
-                      "deriv_bf16")
 # each tier's bound against its plain version for the dense kernels
 DENSE_TIER_TOL = {"f32": FLOW_TOL, "high": HIGH_TOL, "bf16": BF16_DENSE_TOL}
 HIGH_KERNELS = ("fderiv_high", "fa_velocity_forward_high", "fa_velocity_adjoint_high",
                 "bv_velocity_high")
-DENSE_HIGH_KERNELS = ("velocity_forward_high", "velocity_adjoint_high", "velocity_backward_high",
+DENSE_HIGH_KERNELS = ("flow_forward_high", "flow_adjoint_high", "flow_backward_high",
                       "deriv_high")
 # phase 15, K5 at every tier and form: the planes each role writes (the
 # rest are 0) and its derivatives per entry
@@ -280,7 +291,8 @@ UNI_RATIO = {0: HIGH_SPLIT_RATIO, 1: FLOW_SPLIT_RATIO, 2: HIGH_SPLIT_RATIO, 3: H
 # kernel backend's (hoisted) at a tier: at 'high' the two forms' strict
 # bound; at 'bf16' tests/test_torch_bf16.py's DPHI_TOL (the same operator
 # rounded at other places)
-UNI_DPHI_TOL = {"high": DPHI_UNHOISTED_TOL, "bf16": 5e-3}
+DPHI_BF16_TOL = 5e-3   # tests/test_torch_bf16.py:72, DPHI_TOL
+UNI_DPHI_TOL = {"high": DPHI_UNHOISTED_TOL, "bf16": DPHI_BF16_TOL}
 # the JAX package's dense-K5 territory: no built radix divides 768 (radix
 # 6), and `_flow_fits` fails there, so `_uni_call` runs on dense mats
 N_DENSE_UNI = 768
@@ -308,6 +320,8 @@ FACTORED_SRC = "cmblensing_tpu_torch/csrc/factored_kernels.cuh"
 # 32); at 4096^2 1 warm-up step and 2 timed at the JAX default "auto"
 N_LARGE = (2048, 4096)
 LARGE_WARM, LARGE_STEPS = 1, 2
+# ... on "uni" (phase 16 (d)) one timed step: the smoke's time budget
+UNI_LARGE_STEPS = 1
 # the bandpower bins of scripts/map_4096.py:184
 RHO_LEDGES = np.array([2, 100, 200, 350, 500, 750, 1000, 1500, 2000, 3000, 4500, 6000])
 # a strict MAP_joint step on the kernel backend against the plain one:
@@ -349,6 +363,23 @@ PARENT_MS = {("bv", "f32", 1024): 0.3459, ("bv", "high", 1024): 0.2572,
              ("fderiv", "y", 1024): 0.0291, ("fderiv", "x", 2048): 0.0870,
              ("fderiv", "y", 2048): 0.0804, ("fderiv", "x", 4096): 0.6168,
              ("fderiv", "y", 4096): 0.5277}
+
+# phase 18: K2, one launch a whole dense flow (csrc/dense_flow.cu), every
+# kind and tier, against its plain version (the plain dense leaves walking
+# the same stage table) at PERF.md §2's bounds for a flow at the tier, and
+# at a reduced tier nearer its plain version than the strict flow
+# (FLOW_SPLIT_RATIO), on the shapes the dense path gives it: 256^2 P, the IP
+# slice's 3 x 256^2, the edge shapes; FLOW_BATCH entries in one launch bit
+# for bit the single flows'; timed warm (a CUDA graph's replay on one set of
+# buffers, which the L2 holds) and cold (cold_ms), and at NTRIAL entries
+DENSE_FLOW_SRC = "cmblensing_tpu_torch/csrc/dense_flow.cu"
+FLOW_TIER_TOL = {"f32": FLOW_TOL, "high": HIGH_TOL, "bf16": BF16_TOL}
+FLOW_BATCH = 3
+# name -> (Ny, Nx, components); the cases timed (and, with 256P's batch of
+# NTRIAL, printed for PERF.md)
+FLOW_CASES = {"256P": (N, N, 2), "256IP": (N, N, 3), "200": (200, 200, 2),
+              "160x200": (160, 200, 2), "600": (600, 600, 2)}
+FLOW_TIMED = ("256P", "256IP", "200", "600")
 
 
 def rel(a, b):
@@ -537,7 +568,8 @@ def weak_lensing_inputs(proj, torch):
 
 
 def phase_kernels(torch, proj):
-    """Each kernel and each whole flow against its plain version."""
+    """K2's derivative and each whole flow against its plain version (the
+    flow kernel's own record, every kind and tier: phase 18)."""
     from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
     phi_map, f, dy = weak_lensing_inputs(proj, torch)
     mats = deriv.deriv_mats(proj)
@@ -546,47 +578,6 @@ def phase_kernels(torch, proj):
     errs = {}
 
     out = {}
-    t = 0.5
-    nb = 2 * 2 + lfk.NACC
-    # the p(t) planes every velocity reads: 5 planes in, 2 out, ~25 flops a pixel
-    pt, pt2 = torch.empty((2, N, N), device=f.device), torch.empty((2, N, N), device=f.device)
-    lfk.p_planes_cuda(t, phi, pt)
-    lfk.p_planes_plain(t, phi, pt2)
-    out["p_planes"] = dict(
-        max_abs_err=float((pt - pt2).abs().max()), rel=rel(pt, pt2),
-        ms=kernel_ms(lambda: lfk.p_planes_cuda(t, phi, pt), 20, torch),
-        plain_ms=cuda_ms(lambda: lfk.p_planes_plain(t, phi, pt2), 20, torch),
-        library_ms=None, **bound(25 * N * N, 7, N))
-    ybwd = torch.cat([f, dy, torch.randn((lfk.NACC, N, N), device=f.device) * 1e-3])
-    for kind, y in (("forward", f), ("adjoint", f), ("backward", ybwd)):
-        k1, k2 = torch.empty_like(y), torch.empty_like(y)
-        lfk.velocity_cuda(kind, y, k1, phi, pt, mats, 2, t)
-        lfk.velocity_plain(kind, y, k2, phi, pt2, mats, 2, t)
-        # y, p (and phi, backward), k, DxT, Dy
-        nder, planes = (8, 27) if kind == "backward" else (4, 8)
-        out["velocity_" + kind] = dict(
-            max_abs_err=float((k1 - k2).abs().max()), rel=rel(k1, k2),
-            ms=kernel_ms(lambda: lfk.velocity_cuda(kind, y, k1, phi, pt, mats, 2, t), 20, torch),
-            plain_ms=cuda_ms(lambda: lfk.velocity_plain(kind, y, k2, phi, pt2, mats, 2, t), 20,
-                             torch),
-            library_ms=None, **bound(nder * dense_deriv_flops(N), planes, N))
-    y = torch.randn((nb, N, N), device=f.device)
-    k = torch.randn_like(y)
-    bufs = [torch.randn_like(y) for _ in range(2)]
-    res = []
-    for fn in (lfk.rk4_update_cuda, lfk.rk4_update_plain):
-        yy, acc, s = y.clone(), bufs[0].clone(), bufs[1].clone()
-        for stage, (wa, ws) in enumerate(((1 / 42, 1 / 14), (1 / 21, 1 / 14), (1 / 21, 1 / 7),
-                                          (1 / 42, 0.0))):
-            fn(yy, k, acc, s, stage, wa, ws)
-        res.append(torch.cat([yy, acc, s]))
-    yy, acc, s = y.clone(), bufs[0].clone(), bufs[1].clone()
-    out["rk4_update"] = dict(
-        max_abs_err=float((res[0] - res[1]).abs().max()), rel=rel(res[0], res[1]),
-        ms=kernel_ms(lambda: lfk.rk4_update_cuda(yy, k, acc, s, 1, 1 / 21, 1 / 14), 20, torch),
-        plain_ms=cuda_ms(lambda: lfk.rk4_update_plain(yy, k, acc, s, 1, 1 / 21, 1 / 14), 20, torch),
-        # stage 1: acc += w k, s = y + w' k (4 flops; y, k, acc in, acc, s out)
-        library_ms=None, **bound(4 * nb * N * N, 5 * nb, N))
     # the derivative kernel: d_x a + d_y b + c checked, the d_x a pass timed
     # beside its one-call library counterpart
     a, b, c = f[0:1].contiguous(), f[1:2].contiguous(), dy[0:1].contiguous()
@@ -954,8 +945,7 @@ def run_map(torch, sim, phase, label, card, precision=None):
         raise AssertionError(f"first line search accepted no step: {alphas}")
     if not corr >= CORR_MIN:
         raise AssertionError(f"corr(phi_MAP, phi_true) = {corr} < {CORR_MIN}")
-    dense = {k: launches[k] for k in DENSE_KERNELS
-             if k not in ("rk4_update", "p_planes") and launches[k]}
+    dense = {k: launches[k] for k in DENSE_KERNELS if launches[k]}
     if dense:
         raise AssertionError(f"dense K2 kernels launched at {N_MAP}^2: {dense}")
     return launches, dt / MAP_STEPS, hist
@@ -1329,15 +1319,15 @@ def phase_high(torch, card, fctx, gctx):
 
 
 def phase_edges(torch, card):
-    """Phase 10: K2 (each velocity kind, the derivative), p(t) and the RK4
-    update at plane shapes the 32 x 32 tile does not divide, every tier,
-    every plane against the plain version at the same precision
-    (DENSE_TIER_TOL), nothing written past the last plane; the
-    forward velocity's device ms per shape and tier; one L @ f on a 200^2
-    load_sim on the kernel backend against the plain (cuFFT) backend."""
+    """Phase 10: K2's derivative, p(t) and the RK4 update at plane shapes
+    the 32 x 32 tile does not divide, every tier, every plane against the
+    plain version at the same precision (DENSE_TIER_TOL), nothing written
+    past the last plane (the flow kernel there: phase 18); one L @ f on a
+    200^2 load_sim on the kernel backend against the plain (cuFFT)
+    backend."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
-    nan, t, found, times = float("nan"), 0.4, {}, {}
+    nan, t, found = float("nan"), 0.4, {}
     for Ny, Nx in EDGE_SHAPES:
         proj = ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device=DEVICE)
         mats = deriv.deriv_mats(proj)
@@ -1347,11 +1337,7 @@ def phase_edges(torch, card):
         phi_f[0, 1, 1] = 1e-3 * (Ny * Nx / 1024) ** 2   # Hess phi ~ 0.1
         phi = lfk.gradhess_plain(torch.as_tensor(np.fft.irfft2(phi_f, s=(Ny, Nx)).astype(
             np.float32), device=DEVICE), mats)
-        pt = torch.empty((2, Ny, Nx), device=DEVICE)
-        lfk.p_planes_plain(t, phi, pt)
         a, b, c = T(1, Ny, Nx), T(1, Ny, Nx), T(1, Ny, Nx)
-        ys = {"forward": T(2, Ny, Nx), "adjoint": T(2, Ny, Nx),
-              "backward": torch.cat([T(4, Ny, Nx), 1e-3 * T(lfk.NACC, Ny, Nx)])}
 
         def check(name, p, n, kernel, plain):
             full = torch.full((n + 1, Ny, Nx), nan, device=DEVICE)
@@ -1365,14 +1351,6 @@ def phase_edges(torch, card):
             for name, args in (("deriv_x", (a, None, None)), ("deriv", (a, b, c))):
                 check(name, p, 1, lambda o: lfk.deriv_cuda(*args, o, mats, p),
                       lambda o: lfk.deriv_plain(*args, o, mats, p))
-            for kind, y in ys.items():
-                check("velocity_" + kind, p, y.shape[0],
-                      lambda o: lfk.velocity_cuda(kind, y, o, phi, pt, mats, 2, t, p),
-                      lambda o: lfk.velocity_plain(kind, y, o, phi, pt, mats, 2, t, p))
-            k = torch.empty_like(ys["forward"])
-            times[(Ny, Nx, p)] = kernel_ms(
-                lambda: lfk.velocity_cuda("forward", ys["forward"], k, phi, pt, mats, 2, t, p), 20,
-                torch)
         check("p_planes", "f32", 2, lambda o: lfk.p_planes_cuda(t, phi, o),
               lambda o: lfk.p_planes_plain(t, phi, o))
         y, k = T(9, Ny, Nx), T(9, Ny, Nx)
@@ -1385,8 +1363,6 @@ def phase_edges(torch, card):
         print(f"phase 10: {name:18s} {Ny}x{Nx} {p:4s} rel err vs plain {e:.3e} (bound "
               f"{DENSE_TIER_TOL[p]:g}, each plane); past the last plane "
               f"{'untouched' if clean else 'WRITTEN'}")
-    for (Ny, Nx, p), ms in times.items():
-        print(f"phase 10: velocity_forward {Ny}x{Nx} {p}: {ms:.4f} ms [{card}]")
     sim = ct.load_sim(thetapix=3, Nside=200, pol="P", T=np.float32, seed=SEED, device=DEVICE)
     L = ct.LenseFlow(sim["phi"], NSTEPS)
     fq = sim["f"].to(ct.QU_MAP)
@@ -1402,12 +1378,11 @@ def phase_edges(torch, card):
         bad["L @ f"] = lerr
     if bad:
         raise AssertionError(f"edge tiles disagree: {bad}")
-    return times
 
 
 def phase_dense_high(torch, card, ds, f_mix, phi_mix, strict):
-    """Phase 11: K2 'high' at 256^2 P. (a) Each velocity kind and the
-    derivative, one launch each, against its plain 'high' version
+    """Phase 11: K2 'high' at 256^2 P. (a) The derivative, one launch
+    each (the flow kernel's own checks: phase 18), against its plain 'high' version
     (HIGH_TOL) and the strict kernel (HIGH_VS_STRICT), every output plane
     on its own, with the Frobenius ratio (HIGH_SPLIT_RATIO), device ms
     cold beside the strict kernel's (cold too), the 'high' bound and the
@@ -1424,9 +1399,7 @@ def phase_dense_high(torch, card, ds, f_mix, phi_mix, strict):
     mats = deriv.deriv_mats(proj)
     phi_map, f, dy = weak_lensing_inputs(proj, torch)
     phi = lfk.gradhess(phi_map, mats)
-    t, out = 0.5, {}
-    pt = torch.empty((2, N, N), device=DEVICE)
-    lfk.p_planes_cuda(t, phi, pt)
+    out = {}
 
     def check(name, args, shape, kernel, plain, nder, planes):
         o = torch.empty(shape, device=DEVICE)
@@ -1444,14 +1417,6 @@ def phase_dense_high(torch, card, ds, f_mix, phi_mix, strict):
         check(name, args, a.shape, lambda o, p, *x: lfk.deriv_cuda(*x, o, mats, p),
               lambda o, *x: lfk.deriv_plain(*x, o, mats, "high"), nder, planes)
     out["deriv"]["library_ms"] = split_matmuls_ms(a[0], mats[0], True, torch)
-    ybwd = torch.cat([f, dy, 1e-3 * torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
-        (lfk.NACC, N, N)).astype(np.float32), device=DEVICE)])
-    for kind, y, nder, planes in (("forward", f, 4, 8), ("adjoint", f, 4, 8),
-                                  ("backward", ybwd, 8, 27)):
-        check("velocity_" + kind, (y,), y.shape,
-              lambda o, p, y_: lfk.velocity_cuda(kind, y_, o, phi, pt, mats, 2, t, p),
-              lambda o, y_: lfk.velocity_plain(kind, y_, o, phi, pt, mats, 2, t, "high"),
-              nder, planes)
     for name, d in out.items():
         print(f"phase 11: 'high' kernel {name:18s} vs plain 'high' {d['rel']:.3e} (bound "
               f"{HIGH_TOL:g}, each plane)  vs strict {d['rel_strict']:.3e} (bound "
@@ -1538,10 +1503,10 @@ def phase_dense_high(torch, card, ds, f_mix, phi_mix, strict):
 
 
 def phase_wiener(torch, card):
-    """Phase 12, the slice: load_sim at WF_SIM; (a) K2 'high' on the
-    slice's own inputs, I, Q and U on the grid's z axis: each velocity kind
-    and the derivative against its plain 'high' version and the strict
-    kernel (HIGH_TOL, HIGH_VS_STRICT, HIGH_SPLIT_RATIO, every plane); (b)
+    """Phase 12, the slice: load_sim at WF_SIM; (a) K2's 'high' derivative
+    on the slice's own inputs, I, Q and U on the grid's z axis, against
+    its plain 'high' version and the strict kernel (HIGH_TOL,
+    HIGH_VS_STRICT, HIGH_SPLIT_RATIO, every plane); (b)
     argmaxf_logpdf at the JAX defaults (tol 0.1, nsteps 500, "auto") with
     the launch counters set to 0 just before and read just after, the
     'high' solve's own strict check (res_strict) reported; the strict solve
@@ -1549,7 +1514,10 @@ def phase_wiener(torch, card):
     20 fixed iterations, strict, of the kernel backend against the plain
     one (WF_PLAIN_TOL), and at 'high' against the "matmul" backend (the
     same flows on their plain 'high' leaves: WF_PLAIN_TOL, and nearer it
-    than the strict solve, FLOW_SPLIT_RATIO), whatever the fallback does."""
+    than the strict solve, FLOW_SPLIT_RATIO), whatever the fallback does.
+    Returns (the "auto" solve's launches, timings, wctx): wctx holds the
+    simulation and the kernel backend's solves of it, for phases 14 (g)
+    and 15 (f) to compare with, not to re-run."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.inference import maximization as tm
     from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
@@ -1559,22 +1527,15 @@ def phase_wiener(torch, card):
     torch.cuda.synchronize()
     print(f"phase 12: load_sim {WF_SIM}: {time.perf_counter() - t0:.2f} s [{card}]")
 
-    # (a) the 'high' kernels at the shapes the IP flows give them
+    # (a) the 'high' derivative at the shapes the IP flows give it (the flow
+    # kernel on them: phase 18)
     mats = deriv.deriv_mats(phi.proj)
-    planes = lfk.gradhess(phi.to(ct.MAP).arr.contiguous(), mats)
     f = sim["f"].to(ct.IQU_MAP).arr.contiguous()
     d = ds.d.to(ct.IQU_MAP).arr.contiguous()
-    ncomp, t = f.shape[-3], 0.5
-    pt = torch.empty((2, N, N), device=DEVICE)
-    lfk.p_planes_cuda(t, planes, pt)
-    ybwd = torch.cat([f, d, torch.zeros((lfk.NACC, N, N), device=DEVICE)])
+    ncomp = f.shape[-3]
     kernels = {name: high_against(torch, lambda o, p: lfk.deriv_cuda(*args, o, mats, p),
                                   lambda o: lfk.deriv_plain(*args, o, mats, "high"), f.shape)
                for name, args in (("deriv", (f, None, None)), ("deriv_xy", (f, d, f)))}
-    for kind, y in (("forward", f), ("adjoint", f), ("backward", ybwd)):
-        kernels["velocity_" + kind] = high_against(
-            torch, lambda o, p: lfk.velocity_cuda(kind, y, o, planes, pt, mats, ncomp, t, p),
-            lambda o: lfk.velocity_plain(kind, y, o, planes, pt, mats, ncomp, t, "high"), y.shape)
     for name, r in kernels.items():
         print(f"phase 12: 'high' kernel {name:18s} on {ncomp} x {N}^2 vs plain 'high' "
               f"{r['rel']:.3e} (bound {HIGH_TOL:g}, each plane)  vs strict {r['rel_strict']:.3e} "
@@ -1623,12 +1584,13 @@ def phase_wiener(torch, card):
     # (c) 20 fixed iterations: strict, kernel vs plain (cuFFT) backend;
     # 'high' throughout (b, a0 and every Hessian apply), kernel vs matmul
     fixed = dict(tol=0.0, nsteps=20, fixed_iters=True, hessian_precision=None)
-    fixed_runs, fixed_launches = {}, {}
+    fixed_runs, fixed_launches, fixed_ms = {}, {}, {}
     for backend, p in (("kernel", "f32"), ("plain", "f32"), ("kernel", "high"), ("matmul", "high")):
         with ct.lenseflow_backend_ctx(backend), deriv.precision_ctx(p):
             lfk.reset_launches()
             fixed_runs[backend, p], _, ms = solve(**fixed)
             fixed_launches[backend, p] = dict(lfk.LAUNCHES)
+        fixed_ms[backend, p] = ms
         print(f"phase 12: 20 fixed iterations, {backend} backend at {p!r}: {ms:.1f} ms [{card}]")
     fk, fp = fixed_runs["kernel", "f32"], fixed_runs["plain", "f32"]
     fhk, fhm = fixed_runs["kernel", "high"], fixed_runs["matmul", "high"]
@@ -1655,10 +1617,14 @@ def phase_wiener(torch, card):
         bad["fixed 'high' launches"] = fixed_launches
     if bad:
         raise AssertionError(f"the masked IP Wiener filter disagrees: {bad}")
+    wctx = dict(sim=sim, strict=(fs, is_, ms_strict),
+                kernel={"kernel": (fa, ia, ms_auto, launches),
+                        ("kernel", "fixed"): (fk, None, fixed_ms["kernel", "f32"],
+                                              fixed_launches["kernel", "f32"])})
     return launches, dict(argmaxf_256_IP_auto_ms=ms_auto, argmaxf_256_IP_strict_ms=ms_strict,
                           argmaxf_256_IP_auto_iterations=int(ia["iterations"]),
                           argmaxf_256_IP_strict_iterations=int(is_["iterations"]),
-                          argmaxf_256_IP_auto_fallback=fallback)
+                          argmaxf_256_IP_auto_fallback=fallback), wctx
 
 
 def large_kernels(torch, card, N):
@@ -2055,12 +2021,12 @@ def dense_640(torch, card):
     phi, f = sim["phi"].to(ct.MAP), sim["f"].to(ct.QU_MAP)
     lfk.reset_launches()
     k = (sim["ds"].L(phi) @ f).to(ct.QU_MAP).arr
-    dense = lfk.LAUNCHES["velocity_forward"]
+    dense = lfk.LAUNCHES["flow_forward"]
     with ct.lenseflow_backend_ctx("plain"):
         p = (sim["ds"].L(phi) @ f).to(ct.QU_MAP).arr
     e = rel(k, p)
     print(f"phase 13: L @ f on a 640^2 load_sim, default backend (radix {deriv.radix(640)}: "
-          f"dense, {dense} K2 launches) vs plain: {e:.3e} (bound {FLOW640_TOL:g})")
+          f"dense, {dense} K2 flow launches) vs plain: {e:.3e} (bound {FLOW640_TOL:g})")
     if not (dense > 0 and e < FLOW640_TOL):
         raise AssertionError(f"640^2 L @ f: {e}, {dense} dense launches")
 
@@ -2273,22 +2239,19 @@ def bf16_large_paths(torch, card, N):
 
 
 def bf16_dense(torch, card, sim):
-    """Phase 14 (b): K2 'bf16' at 256^2 on the masked IP slice's own inputs,
-    I, Q and U on the grid's z axis (each velocity kind, the derivative),
-    against plain 'bf16' (BF16_DENSE_TOL) and strict (HIGH_SPLIT_RATIO),
-    timed cold with the 'bf16' bound and, for the derivative, the library
-    call; and at 200^2 (edge tiles; nothing written past the last plane)."""
+    """Phase 14 (b): K2's 'bf16' derivative at 256^2 on the masked IP
+    slice's own inputs, I, Q and U on the grid's z axis, against plain
+    'bf16' (BF16_DENSE_TOL) and strict (HIGH_SPLIT_RATIO), timed cold with
+    the 'bf16' bound and the library call; and at 200^2 (edge tiles;
+    nothing written past the last plane). The flow kernel at 'bf16' on
+    these shapes: phase 18."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
     ds, phi = sim["ds"], sim["phi"]
     mats = deriv.deriv_mats(phi.proj)
-    planes = lfk.gradhess(phi.to(ct.MAP).arr.contiguous(), mats)
     f = sim["f"].to(ct.IQU_MAP).arr.contiguous()
     d = ds.d.to(ct.IQU_MAP).arr.contiguous()
-    ncomp, t, out = f.shape[-3], 0.5, {}
-    pt = torch.empty((2, N, N), device=DEVICE)
-    lfk.p_planes_cuda(t, planes, pt)
-    ybwd = torch.cat([f, d, 1e-3 * d[:1].expand(lfk.NACC, N, N)]).contiguous()
+    ncomp, out = f.shape[-3], {}
 
     def check(name, args, shape, kernel, plain, nder, planes_):
         o = torch.empty(shape, device=DEVICE)
@@ -2307,13 +2270,6 @@ def bf16_dense(torch, card, sim):
     # the same d_x of the slice's three planes as one product
     out["deriv"]["library_ms"], out["deriv"]["library_call"] = library_bf16_ms(
         f.reshape(-1, N), mats[0], torch)
-    for kind, y, nder, planes_ in (("forward", f, 2 * ncomp, 2 * ncomp + 3),
-                                   ("adjoint", f, 2 * ncomp, 2 * ncomp + 3),
-                                   ("backward", ybwd, 4 * ncomp, 4 * ncomp + 2 * lfk.NACC + 8)):
-        check("velocity_" + kind, (y,), y.shape,
-              lambda o, p, y_: lfk.velocity_cuda(kind, y_, o, planes, pt, mats, ncomp, t, p),
-              lambda o, y_: lfk.velocity_plain(kind, y_, o, planes, pt, mats, ncomp, t, "bf16"),
-              nder, planes_)
     for name, dd in out.items():
         bf16_line(14, name, dd, BF16_DENSE_TOL, card, f"{ncomp} x {N}^2 IP")
     print(f"phase 14: K2 d_x library call: {out['deriv']['library_call']}")
@@ -2324,24 +2280,11 @@ def bf16_dense(torch, card, sim):
     emats = deriv.deriv_mats(proj)
     rng = np.random.default_rng(SEED + 2)
     T = lambda *sh: torch.as_tensor(rng.standard_normal(sh).astype(np.float32), device=DEVICE)
-    phi_f = np.zeros((1, Ny, Nx // 2 + 1), np.complex128)
-    phi_f[0, 1, 1] = 1e-3 * (Ny * Nx / 1024) ** 2
-    ephi = lfk.gradhess_plain(torch.as_tensor(np.fft.irfft2(phi_f, s=(Ny, Nx)).astype(
-        np.float32), device=DEVICE), emats)
-    ept = torch.empty((2, Ny, Nx), device=DEVICE)
-    lfk.p_planes_plain(t, ephi, ept)
     a, b, c = T(1, Ny, Nx), T(1, Ny, Nx), T(1, Ny, Nx)
     edge = {}
     cases = [(name, args, (1, Ny, Nx), lambda o, p, args=args: lfk.deriv_cuda(*args, o, emats, p),
               lambda o, args=args: lfk.deriv_plain(*args, o, emats, "bf16"))
              for name, args in (("deriv_x", (a, None, None)), ("deriv", (a, b, c)))]
-    for kind, y in (("forward", T(2, Ny, Nx)), ("adjoint", T(2, Ny, Nx)),
-                    ("backward", torch.cat([T(4, Ny, Nx), 1e-3 * T(lfk.NACC, Ny, Nx)]))):
-        cases.append(("velocity_" + kind, None, y.shape,
-                      lambda o, p, kind=kind, y=y: lfk.velocity_cuda(kind, y, o, ephi, ept, emats,
-                                                                     2, t, p),
-                      lambda o, kind=kind, y=y: lfk.velocity_plain(kind, y, o, ephi, ept, emats,
-                                                                   2, t, "bf16")))
     for name, _, shape, kernel, plain in cases:
         full = torch.full((shape[0] + 1,) + tuple(shape[1:]), float("nan"), device=DEVICE)
         kernel(full[:shape[0]], "bf16")
@@ -2400,13 +2343,15 @@ def bf16_gradient(torch, card, ds, f_mix, phi_mix, label):
     return rec, launches
 
 
-def bf16_wiener(torch, card, sim, label, hp="bf16"):
+def bf16_wiener(torch, card, sim, label, hp="bf16", strict=None):
     """argmaxf_logpdf at the JAX default CG (tol 0.1, nsteps 500) with
     hessian_precision `hp`, the launch counters set to 0 just before and
     read just after, the reduced solve's own strict check reported, and
-    the strict solve beside it: |f - f_strict| / |f_strict| within
-    WF_HIGH_TOL where the check passed (a fallback returns a strict solve).
-    Returns (record, launches)."""
+    the strict solve beside it (`strict`, (f, info, ms) of an earlier
+    phase's strict solve of `sim` on the kernel backend, else solved
+    here): |f - f_strict| / |f_strict| within WF_HIGH_TOL where the check
+    passed (a fallback returns a strict solve). Returns (record,
+    launches)."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.inference import maximization as tm
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
@@ -2432,7 +2377,7 @@ def bf16_wiener(torch, card, sim, label, hp="bf16"):
             launches = dict(lfk.LAUNCHES)
         finally:
             tm._argmaxf_core = core
-        fs, is_, ms_strict = solve(hessian_precision=None)
+        fs, is_, ms_strict = strict or solve(hessian_precision=None)
     red = solves[0]
     fallback = bool(ib.get("precision_fallback", False))
     err = float((fb.arr - fs.to(fb.basis).arr).norm() / fs.arr.norm())
@@ -2483,10 +2428,12 @@ def bf16_flows(torch, card, ctx):
     return flows
 
 
-def phase_bf16(torch, card, gctx=None, beside=None):
+def phase_bf16(torch, card, gctx=None, beside=None, wctx=None):
     """Phase 14, the 'bf16' tier (see the module docstring). gctx is phase
     6's 1024^2 context (made here when phase 14 runs alone); beside holds
-    phases 7 and 9's MAP_joint (s/step, history) to print beside (f).
+    phases 7 and 9's MAP_joint (s/step, history) to print beside (f);
+    wctx is phase 12's masked IP simulation and its strict solve (loaded
+    and solved here when phase 14 runs alone).
     Returns (kernel records {(N, name): record}, launches {(N, name): (path,
     count)}, timings)."""
     import cmblensing_tpu_torch as ct
@@ -2500,10 +2447,13 @@ def phase_bf16(torch, card, gctx=None, beside=None):
     timing_out["flows_1024_bf16_ms"] = {k: (d["ms"], d["strict_ms"]) for k, d in flows.items()}
     del ctx
     # (b) K2 on the masked 256^2 IP slice's inputs, and at 200^2
-    t0 = time.perf_counter()
-    wf_sim = ct.load_sim(**WF_SIM, device=DEVICE)
-    torch.cuda.synchronize()
-    print(f"phase 14: load_sim {WF_SIM}: {time.perf_counter() - t0:.2f} s [{card}]")
+    if wctx is None:
+        t0 = time.perf_counter()
+        wf_sim = ct.load_sim(**WF_SIM, device=DEVICE)
+        torch.cuda.synchronize()
+        print(f"phase 14: load_sim {WF_SIM}: {time.perf_counter() - t0:.2f} s [{card}]")
+    else:
+        wf_sim = wctx["sim"]
     records.update({(N, k): d for k, d in bf16_dense(torch, card, wf_sim).items()})
     # the dense backward flow's path: the masked IP slice's phi-gradient
     ds = wf_sim["ds"]
@@ -2514,8 +2464,8 @@ def phase_bf16(torch, card, gctx=None, beside=None):
         torch, card, ds, m["f_mix"].to(fm.basis), m["phi_mix"].to(ct.MAP), "masked 256^2 IP")
     timing_out["gradlnP_256_IP_bf16_ms"] = (grad_ip["ms"], grad_ip["strict_ms"])
     # (g) the masked 256^2 IP Wiener filter at hessian_precision="bf16"
-    wf, paths["argmaxf_logpdf masked 256^2 IP bf16"] = bf16_wiener(torch, card, wf_sim,
-                                                                   "masked 256^2 IP")
+    wf, paths["argmaxf_logpdf masked 256^2 IP bf16"] = bf16_wiener(
+        torch, card, wf_sim, "masked 256^2 IP", strict=wctx and wctx["strict"])
     timing_out["argmaxf_256_IP_bf16"] = wf
     del wf_sim, ds, m
     # (c) radix 16 and 32: the kernels, twice each, and the LenseFlow entry points
@@ -2562,10 +2512,10 @@ def phase_bf16(torch, card, gctx=None, beside=None):
                (N_MAP, "fa_velocity_forward_bf16"): "MAP_joint 1024^2 P bf16",
                (N_MAP, "fa_velocity_adjoint_bf16"): "argmaxf_logpdf 1024^2 P bf16",
                (N_MAP, "bv_velocity_bf16"): "MAP_joint 1024^2 P bf16",
-               (N, "velocity_forward_bf16"): "argmaxf_logpdf masked 256^2 IP bf16",
-               (N, "velocity_adjoint_bf16"): "argmaxf_logpdf masked 256^2 IP bf16",
+               (N, "flow_forward_bf16"): "argmaxf_logpdf masked 256^2 IP bf16",
+               (N, "flow_adjoint_bf16"): "argmaxf_logpdf masked 256^2 IP bf16",
                (N, "deriv_bf16"): "gradlnP masked 256^2 IP bf16",
-               (N, "velocity_backward_bf16"): "gradlnP masked 256^2 IP bf16"}
+               (N, "flow_backward_bf16"): "gradlnP masked 256^2 IP bf16"}
     for Nl in N_LARGE:
         path_of.update({(Nl, k): f"MAP_joint {Nl}^2 P bf16, 1 step" for k in BF16_KERNELS})
         path_of[Nl, "fa_velocity_adjoint_bf16"] = f"argmaxf_logpdf {Nl}^2 P bf16, 2 iterations"
@@ -2934,18 +2884,21 @@ def uni_maps(torch, card, gctx, beside):
     return paths, timing_out
 
 
-def uni_wiener(torch, card, wf_sim):
+def uni_wiener(torch, card, wf_sim, kernel_runs=None):
     """(f) the masked 256^2 IP Wiener filter on "uni": argmaxf_logpdf at
     the JAX defaults (tol 0.1, nsteps 500, "auto") against the kernel
     backend in the same call (the same fallback verdict; both iteration
     counts and times); 20 fixed strict iterations within WF_PLAIN_TOL of
     the kernel backend's; and 2 fixed iterations at
     hessian_precision="bf16" (the path of the dense K5's 'bf16' role 3).
-    The counters are set to 0 just before each uni run and read after."""
+    The counters are set to 0 just before each uni run and read after.
+    kernel_runs holds phase 12's two kernel-backend solves of wf_sim (the
+    "auto" one, "kernel", and the 20 fixed iterations, ("kernel",
+    "fixed")), which are then not re-run."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
     ds, phi = wf_sim["ds"], wf_sim["phi"]
-    paths, runs = {}, {}
+    paths, runs = {}, dict(kernel_runs or {})
 
     def solve(backend, **cg):
         with ct.lenseflow_backend_ctx(backend):
@@ -2957,7 +2910,8 @@ def uni_wiener(torch, card, wf_sim):
             return fw, info, 1e3 * (time.perf_counter() - t0), dict(lfk.LAUNCHES)
 
     for be in ("kernel", "uni"):
-        runs[be] = solve(be)
+        if be not in runs:
+            runs[be] = solve(be)
         _, info, ms, _ = runs[be]
         print(f"phase 15: (f) argmaxf_logpdf \"auto\" (tol 0.1, nsteps 500) masked {N}^2 IP on "
               f"\"{be}\": {info['iterations']} iterations returned, precision_fallback "
@@ -2965,7 +2919,8 @@ def uni_wiener(torch, card, wf_sim):
     paths[f"argmaxf_logpdf masked {N}^2 IP uni auto"] = runs["uni"][3]
     fixed = dict(tol=0.0, nsteps=20, fixed_iters=True, hessian_precision=None)
     for be in ("kernel", "uni"):
-        runs[be, "fixed"] = solve(be, **fixed)
+        if (be, "fixed") not in runs:
+            runs[be, "fixed"] = solve(be, **fixed)
     paths[f"argmaxf_logpdf masked {N}^2 IP uni, 20 fixed strict iterations"] = \
         runs["uni", "fixed"][3]
     fk, fu = runs["kernel", "fixed"][0], runs["uni", "fixed"][0]
@@ -3016,13 +2971,15 @@ def uni_768(torch, card):
     return bad
 
 
-def phase_uni_tiers(torch, card, fctx=None, gctx=None, beside=None):
+def phase_uni_tiers(torch, card, fctx=None, gctx=None, beside=None, wctx=None):
     """Phase 15: K5 at 'high' and 'bf16' and with dense operands, and the
     "uni" backend at the JAX defaults (see the module docstring). fctx and
     gctx are phases 5 and 6's 1024^2 contexts (made here when phase 15
     runs alone); beside holds phases 8, 9 and 14's MAP_joint (s/step,
-    history). Returns (kernel records {name: record}, launches {name:
-    (path, count)}, timings)."""
+    history); wctx is phase 12's masked IP simulation and its kernel
+    backend's solves (loaded and solved here when phase 15 runs alone).
+    Returns (kernel records {name: record}, launches {name: (path,
+    count)}, timings)."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
     t_start = time.perf_counter()
@@ -3034,7 +2991,7 @@ def phase_uni_tiers(torch, card, fctx=None, gctx=None, beside=None):
     records = {f"uni_role{key}_{tier}": d for (tier, key), d in found.items()}
     bad.update(why)
     t0 = time.perf_counter()
-    wf_sim = ct.load_sim(**WF_SIM, device=DEVICE)
+    wf_sim = ct.load_sim(**WF_SIM, device=DEVICE) if wctx is None else wctx["sim"]
     sim256 = ct.load_sim(thetapix=3, Nside=N, pol="P", T=np.float32, seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
     print(f"phase 15: load_sim {WF_SIM} and at {N}^2 P: {time.perf_counter() - t0:.2f} s [{card}]")
@@ -3053,7 +3010,7 @@ def phase_uni_tiers(torch, card, fctx=None, gctx=None, beside=None):
         "phase 15: (d)")
     bad.update(why)
     timing_out.update({f"gradlnP_{s}_uni_{t}_ms": d["ms"] for (s, t), d in grads.items()})
-    wpaths, wtiming, why = uni_wiener(torch, card, wf_sim)
+    wpaths, wtiming, why = uni_wiener(torch, card, wf_sim, wctx and wctx["kernel"])
     paths.update(wpaths)
     timing_out.update(wtiming)
     bad.update(why)
@@ -3258,7 +3215,7 @@ def phase_uni_large(torch, card, beside=None):
     path, paths[path] = uni_bf16_wiener(torch, sim)
     torch.cuda.empty_cache()
     with ct.lenseflow_backend_ctx("uni"):
-        run_launches, s_step, peak = large_map_4096(torch, card, sim, 16)
+        run_launches, s_step, peak = large_map_4096(torch, card, sim, 16, UNI_LARGE_STEPS)
     main_path = "MAP_joint 4096^2 P uni auto"
     paths[main_path] = run_launches
     uni_no_k34(main_path, run_launches)
@@ -3433,7 +3390,7 @@ def sm90_k1(torch, card, N):
     return records, launches, bad
 
 
-def flow_checks(flows, tier, nsteps, unheld=()):
+def flow_checks(flows, tier, nsteps, tols=None):
     """Phase 17's reduced-tier flows at nsteps against their plain versions
     at the tier and the strict kernel flows, {name: (flow, plain, strict)},
     every plane on its own: the Frobenius ratio under FLOW_SPLIT_RATIO, and
@@ -3442,22 +3399,21 @@ def flow_checks(flows, tier, nsteps, unheld=()):
     not held: one step of dt = 1 takes it past (K3 'bf16' L 2.6e-3 at
     512^2, K5 'high' delta phi 3.2e-5) while the Frobenius ratio stays
     under 1, and the flows on fact_tile, the form these kernels replaced,
-    give the same bits (scripts/torch_flow_witness.py, PERF.md). The
-    max-abs of the outputs named in `unheld` is printed and held at no
-    nsteps: an open fault of ROADMAP Queue 3 (K4's delta phi at 512^2
-    'bf16', 2.063e-3 from plain on the parent's kernels too). Returns (the
+    give the same bits (scripts/torch_flow_witness.py, PERF.md). `tols`
+    names outputs held to a bound of their own in place of K1_SM90_TOL:
+    K4's delta phi at 'bf16', DPHI_BF16_TOL (PERF.md §2). Returns (the
     line to print, {name: failing readings})."""
     line, why = "", {}
     for name, (out, plain, strict) in flows.items():
         e = max(rel(a, b) for a, b in zip(out.reshape(-1, *out.shape[-2:]),
                                           plain.reshape(-1, *out.shape[-2:])))
         r = split_ratio(out, plain, strict)["split_ratio"]
-        held = nsteps == NSTEPS and name not in unheld
-        note = ("" if held else ", not held: ROADMAP Queue 3" if name in unheld
-                else f", held at nsteps {NSTEPS}")
-        line += (f"; {name} vs plain {e:.3e} (bound {K1_SM90_TOL[tier]:g}{note}), Frobenius "
+        held = nsteps == NSTEPS
+        tol = (tols or {}).get(name, K1_SM90_TOL[tier])
+        note = "" if held else f", held at nsteps {NSTEPS}"
+        line += (f"; {name} vs plain {e:.3e} (bound {tol:g}{note}), Frobenius "
                  f"ratio {r:.4f} (bound {FLOW_SPLIT_RATIO:g})")
-        if not r < FLOW_SPLIT_RATIO or (held and not e < K1_SM90_TOL[tier]):
+        if not r < FLOW_SPLIT_RATIO or (held and not e < tol):
             why[name] = (e, r)
     return line, why
 
@@ -3608,7 +3564,7 @@ def sm90_k3(torch, card, N):
     return records, launches, bad
 
 
-def sm90_k5(torch, card, N):
+def sm90_k5(torch, card, N, held=None):
     """Phase 17 (d) at N^2: K5 at 'high' and 'bf16' on the tile FORMS puts
     them on (csrc/uni_sm90.cu, the cluster tile, or csrc/uni.cu on
     fact_tile) and strict on the cluster tile where FORMS puts it there
@@ -3624,14 +3580,25 @@ def sm90_k5(torch, card, N):
     1: 16 nsteps), no strict K5 launch in a reduced tier's flows, each flow
     finite and, at a reduced tier to N_SM90_BATCHED, held to its plain
     version by flow_checks (as phases 15 (c) and 16 (b) hold them at
-    NSTEPS). Returns ({name: record}, {name: (path, launches)}, failures)."""
+    NSTEPS). `held`: phase 16's records, when it ran in this call; its
+    uni_tiers_factored at 2048^2 and 4096^2 ran this one's on the same
+    inputs (uni_fctx), so its records are taken, not re-run. Returns
+    ({name: record}, {name: (path, launches)}, failures)."""
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
     B, t = N // FA, 0.5
     tiers = sm90_tiers("uni", B)
     ctx = uni_fctx(torch, N)
-    found, bad = uni_tiers_factored(torch, card, ctx, N, tiers, 17, batched=N <= N_SM90_BATCHED)
     ops, phi, f, dy = (ctx[k] for k in ("ops", "phi", "f", "dy"))
     px, py, calls = uni_operands(torch, ops, phi[None], torch.cat([f, dy])[None], t)
+    name = lambda tier, key: f"uni_role{key}{'' if tier == 'f32' else '_' + tier}_b{B}"
+    held = {(tier, key): (held or {}).get(name(tier, key)) for tier in tiers for key, *_ in calls}
+    if N in N_LARGE and all(held.values()):
+        found, bad = {k: dict(d) for k, d in held.items()}, {}
+        print(f"phase 17: (a) K5 {N}^2 radix {B} at {', '.join(tiers)}: held to plain by phase 16 "
+              f"(a) in this call, its records taken [{card}]")
+    else:
+        found, bad = uni_tiers_factored(torch, card, ctx, N, tiers, 17,
+                                        batched=N <= N_SM90_BATCHED)
     records, launches = {}, {}
     sfx = "" if N == N_MAP else f"_b{B}"
     for tier in tiers:
@@ -3796,7 +3763,8 @@ def sm90_k4(torch, card, N):
             else:
                 strict = lfk.flow_bwd(dy, f, phi, ops, 0., 1., NSTEPS, "f32")
                 line, why = flow_checks(dict(zip(("delta phi", "delta f"), zip(outs, ref, strict))),
-                                        tier, NSTEPS, ("delta phi",) if tier == "bf16" else ())
+                                        tier, NSTEPS,
+                                        {"delta phi": DPHI_BF16_TOL} if tier == "bf16" else None)
             del ref
         print(f"phase 17: launches in {path}: K4 {n} at the tier (a launch a pass)"
               + ("" if tier == "f32" else f", {n_strict} strict")
@@ -3878,20 +3846,23 @@ def sm90_k2(torch, card):
     torch.cuda.synchronize()
     launches = dict(lfk.LAUNCHES)
     print(f"phase 17: launches in the masked IP slice's backward flow at 'bf16' (nsteps "
-          f"{NSTEPS}): K2 deriv {launches['deriv_bf16']}, velocity "
-          f"{launches['velocity_backward_bf16']}; delta phi finite {bool(torch.isfinite(dphi).all())}")
-    if launches["deriv_bf16"] != 3 or not torch.isfinite(dphi).all():
-        bad["path"] = (launches["deriv_bf16"], bool(torch.isfinite(dphi).all()))
+          f"{NSTEPS}): K2 deriv {launches['deriv_bf16']}, whole flow "
+          f"{launches['flow_backward_bf16']}; delta phi finite {bool(torch.isfinite(dphi).all())}")
+    if (launches["deriv_bf16"] != 3 or launches["flow_backward_bf16"] != 1
+            or not torch.isfinite(dphi).all()):
+        bad["path"] = (launches["deriv_bf16"], launches["flow_backward_bf16"],
+                       bool(torch.isfinite(dphi).all()))
     return rec, launches, bad
 
 
-def phase_sm90(torch, card):
+def phase_sm90(torch, card, uni_large=None):
     """Phase 17: K1 at 'high' and 'bf16' on the cluster tile at every built
     radix, K3, K5 and strict K1 on the tile FORMS puts them on at every
     tier and radix (strict only where that is the cluster tile), K4 on it
     at every tier, and K2's redesigned 'bf16' derivative (see the module
-    docstring). Returns (kernel records {name: record}, launches {name:
-    (path, count)})."""
+    docstring). uni_large: phase 16's kernel records, when it ran in this
+    call (sm90_k5). Returns (kernel records {name: record}, launches
+    {name: (path, count)})."""
     from cmblensing_tpu_torch.ops import _build, lenseflow_kernels as lfk
     t_start = time.perf_counter()
     lib = _build.load()
@@ -3916,7 +3887,8 @@ def phase_sm90(torch, card):
             name = "fderiv" + tsfx + ("" if N == N_MAP else f"_b{N // FA}")
             records[name] = d
             launches[name] = (f"flow_bwd {N}^2 {tier}, nsteps 1", paths[tier]["fderiv" + tsfx])
-        for check in (sm90_k3, sm90_k5, sm90_k4):
+        k5 = lambda torch, card, N: sm90_k5(torch, card, N, uni_large)
+        for check in (sm90_k3, k5, sm90_k4):
             found, paths, why = check(torch, card, N)
             bad.update(why)
             records.update(found)
@@ -3932,11 +3904,203 @@ def phase_sm90(torch, card):
     return records, launches
 
 
+def flow_bound(kind, tier, ncomp, nb, Ny, Nx, nsteps=NSTEPS):
+    """bound_ms and bound_by of nb whole dense flows of `kind` at `tier`:
+    4 nsteps stages, each ncomp (forward, adjoint) or 2 ncomp (backward)
+    derivatives along x (2 Ny Nx Nx operations) and as many along y (2 Ny
+    Ny Nx), on the FP32 units (strict), or three ('high') or one ('bf16')
+    bf16 products on the tensor cores plus the operand's split or rounding
+    (three or one FP32 operations a value); bytes: the state in and out
+    and phi's five planes per entry, and the two circulants (FP32; 'high'
+    their bf16 head and residual, 'bf16' the head) once."""
+    nx = (2 if kind == "backward" else 1) * ncomp * 4 * nsteps * nb
+    ops = nx * 2 * Ny * Nx * (Nx + Ny)
+    if tier == "f32":
+        t_op = ops / FP32_PEAK
+    else:
+        passes = 3 if tier == "high" else 1
+        t_op = passes * ops / BF16_PEAK + passes * 2 * nx * Ny * Nx / FP32_PEAK
+    nstate = 2 * ncomp + 5 if kind == "backward" else ncomp
+    circ = (Nx * Nx + Ny * Ny) * (2 if tier == "bf16" else 4)
+    t_mem = (4 * nb * (2 * nstate + 5) * Ny * Nx + circ) / HBM_RATE
+    return dict(bound_ms=1e3 * max(t_op, t_mem), bound_by="operations" if t_op >= t_mem else "bytes")
+
+
+def flow_inputs(torch, case):
+    """(mats, phi planes, f, dy) of a FLOW_CASES case: phi drawn from the
+    fiducial Cphi, f (pol P) from Cf and a white cotangent dy, with numpy
+    from SEED, as weak_lensing_inputs draws them (the lensing realistically
+    weak; white fields under strong one-mode lensing make 7 coarse steps
+    drift, whatever the kernel); the IP slice's third component a rolled
+    copy of the first."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    Ny, Nx, ncomp = FLOW_CASES[case]
+    proj = ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device=DEVICE)
+    mats = deriv.deriv_mats(proj)
+    rng = np.random.default_rng(SEED)
+    Cl = ct.camb()
+    white = lambda c: ct.Field(torch.as_tensor(rng.standard_normal((c, Ny, Nx)).astype(np.float32),
+                                               device=DEVICE),
+                               ct.Basis("I" if c == 1 else "QU", "map"), proj)
+    Cphi = ct.Cl_to_Cov("I", proj, Cl["total"]["pp"])
+    Cf = ct.Cl_to_Cov("P", proj, Cl["unlensed_scalar"]["EE"], Cl["unlensed_scalar"]["BB"])
+    phi_map = (Cphi.sqrt() @ white(1)).to(ct.MAP).arr.contiguous()
+    f = (Cf.sqrt() @ white(2)).to(ct.QU_MAP).arr
+    dy = white(2).arr
+    if ncomp == 3:
+        f, dy = (torch.cat([x, torch.roll(x[:1], 17, dims=-1)]) for x in (f, dy))
+    return mats, lfk.gradhess(phi_map, mats), f.contiguous(), dy.contiguous()
+
+
+def flow_state(torch, kind, f, dy):
+    """The state a dense flow of `kind` starts from, and its (t0, t1): f
+    from 0 to 1 (forward) or 1 to 0 (adjoint, as L^H); the backward
+    kind's (f, dy, zero accumulators) from 1 to 0, as _flow_bwd starts it."""
+    if kind != "backward":
+        return f.contiguous(), ((0., 1.) if kind == "forward" else (1., 0.))
+    acc = torch.zeros(f.shape[:-3] + (5,) + f.shape[-2:], device=f.device)
+    return torch.cat([f, dy, acc], dim=-3).contiguous(), (1., 0.)
+
+
+def flow_case(torch, kind, tier, mats, phi, f, dy, timed):
+    """One dense flow through the flow kernel against its plain version and,
+    at a reduced tier, the strict kernel flow, every state plane on its own;
+    the same bits twice; its launches; timed warm, cold and plain."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    y, (t0, t1) = flow_state(torch, kind, f, dy)
+    ncomp = f.shape[-3]
+    sched = lfk.flow_schedule(NSTEPS, t0, t1)
+
+    def kernel(p, y_=y, ph=phi):
+        o = y_.clone()
+        lfk.flow_cuda(kind, o, ph, mats, ncomp, sched, p)
+        return o
+
+    def plain():
+        o = y.clone()
+        lfk.flow_plain(kind, o, phi, mats, ncomp, sched, tier)
+        return o
+
+    lfk.reset_launches()
+    out = kernel(tier)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in lfk.LAUNCHES.items() if v}
+    ref = plain()
+    planes = lambda x: x.reshape(-1, *x.shape[-2:])
+    d = dict(max_abs_err=float((out - ref).abs().max()),
+             rel=max(rel(a, b) for a, b in zip(planes(out), planes(ref))),
+             same=bool(torch.equal(out, kernel(tier))), launches=launches,
+             library_ms=None, **flow_bound(kind, tier, ncomp, 1, *f.shape[-2:]))
+    if tier != "f32":
+        strict = kernel("f32")
+        d.update(rel_strict=max(rel(a, b) for a, b in zip(planes(out), planes(strict))),
+                 **split_ratio(out, ref, strict))
+    if timed:
+        # repeated flows in place on the inputs (or their copies)
+        launch = lfk.flow_launcher(kind, y.clone(), phi, mats, ncomp, sched, tier)
+        flow = lambda y_, ph: lfk.flow_cuda(kind, y_, ph, mats, ncomp, sched, tier)
+        d.update(ms=kernel_ms(launch, 10, torch), cold_ms=cold_ms(flow, (y.clone(), phi), 10, torch),
+                 plain_ms=cuda_ms(plain, 1, torch))
+    return d
+
+
+def flow_batch(torch, kind, tier, mats, phi, f, dy, nb, timed):
+    """nb entries (phi scaled, the state rolled) in one launch: bit for bit
+    the nb single flows (where not timed), its launches; timed warm and
+    cold (where timed)."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    phis = torch.stack([(0.5 + i / nb) * phi for i in range(nb)])
+    ys = torch.stack([torch.roll(flow_state(torch, kind, f, dy)[0], 7 * i, dims=-1)
+                      for i in range(nb)])
+    t0, t1 = flow_state(torch, kind, f, dy)[1]
+    ncomp = f.shape[-3]
+    sched = lfk.flow_schedule(NSTEPS, t0, t1)
+
+    def run(y_, ph):
+        o = y_.clone()
+        lfk.flow_cuda(kind, o, ph, mats, ncomp, sched, tier)
+        return o
+
+    lfk.reset_launches()
+    out = run(ys, phis)
+    torch.cuda.synchronize()
+    d = dict(nb=nb, launches={k: v for k, v in lfk.LAUNCHES.items() if v},
+             **{k: v for k, v in flow_bound(kind, tier, ncomp, nb, *f.shape[-2:]).items()})
+    if timed:
+        launch = lfk.flow_launcher(kind, ys.clone(), phis, mats, ncomp, sched, tier)
+        flow = lambda y_, ph: lfk.flow_cuda(kind, y_, ph, mats, ncomp, sched, tier)
+        d.update(ms=kernel_ms(launch, 5, torch), cold_ms=cold_ms(flow, (ys.clone(), phis), 5, torch))
+    else:
+        d["same_as_singles"] = all(bool(torch.equal(out[i], run(ys[i], phis[i])))
+                                   for i in range(nb))
+    return d
+
+
+def phase_whole_flow(torch, card):
+    """Phase 18: K2's whole-flow kernel (see FLOW_CASES above). Returns
+    ({(case, tier, kind): record}, {(tier, kind): batch-NTRIAL record})."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    t_start = time.perf_counter()
+    found, batched, bad = {}, {}, {}
+    for case in FLOW_CASES:
+        mats, phi, f, dy = flow_inputs(torch, case)
+        Ny, Nx, ncomp = FLOW_CASES[case]
+        for tier in lfk.PRECISIONS:
+            sfx = "" if tier == "f32" else "_" + tier
+            for kind in ("forward", "adjoint", "backward"):
+                d = found[case, tier, kind] = flow_case(torch, kind, tier, mats, phi, f, dy,
+                                                        case in FLOW_TIMED)
+                tol = FLOW_TIER_TOL[tier]
+                ok = (d["rel"] < tol and d["same"] and d["launches"] == {f"flow_{kind}{sfx}": 1}
+                      and (tier == "f32" or d["split_ratio"] < FLOW_SPLIT_RATIO))
+                line = (f"phase 18: flow {kind:8s} {tier:4s} {case:7s} ({ncomp} x {Ny}x{Nx}) vs "
+                        f"plain {d['rel']:.3e} (bound {tol:g}, each plane)")
+                if tier != "f32":
+                    line += (f", vs strict {d['rel_strict']:.3e}, Frobenius ratio "
+                             f"{d['split_ratio']:.4f} (bound {FLOW_SPLIT_RATIO:g})")
+                line += (f"; twice {'the same bits' if d['same'] else 'DIFFERENT'}; launches "
+                         f"{d['launches']}")
+                if "ms" in d:
+                    line += (f"; {d['ms']:.4f} ms warm, {d['cold_ms']:.4f} ms cold, plain "
+                             f"{d['plain_ms']:.3f} ms, bound {d['bound_ms']:.4f} ms "
+                             f"({d['bound_by']}, {100 * d['bound_ms'] / d['cold_ms']:.1f} % cold)")
+                print(line + f" [{card}]", flush=True)
+                if not ok:
+                    bad[case, tier, kind] = (d["rel"], d["same"], d["launches"],
+                                             d.get("split_ratio"))
+                if case == "256P":
+                    for nb in (FLOW_BATCH, NTRIAL):
+                        b = flow_batch(torch, kind, tier, mats, phi, f, dy, nb, nb == NTRIAL)
+                        one = b["launches"] == {f"flow_{kind}{sfx}": 1}
+                        if nb == NTRIAL:
+                            batched[tier, kind] = b
+                            msg = (f"{b['ms']:.4f} ms warm, {b['cold_ms']:.4f} ms cold, bound "
+                                   f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                        else:
+                            msg = ("bit for bit the single flows" if b["same_as_singles"]
+                                   else "NOT the single flows' bits")
+                        print(f"phase 18: flow {kind:8s} {tier:4s} 256P batch {nb:2d} in one "
+                              f"launch: launches {b['launches']}; {msg} [{card}]", flush=True)
+                        if not one or not b.get("same_as_singles", True):
+                            bad[case, tier, kind, nb] = b["launches"]
+        del mats, phi, f, dy
+        torch.cuda.empty_cache()
+    blocks = {kind: lfk.flow_blocks(kind, "f32", 1, 2, N, N) for kind in ("forward", "backward")}
+    print(f"phase 18: blocks a launch at 256^2 P: {blocks} (the card's SMs x the blocks an SM "
+          f"holds, at most the items of a stage); wall time {time.perf_counter() - t_start:.1f} s")
+    if bad:
+        raise AssertionError(f"the whole-flow kernel disagrees: {bad}")
+    return found, batched
+
+
+
 def print_ptxas(log):
     """Phase 1: the build log's register lines and errors, and for the
     kernels on the cluster tile (fderiv_sm90.cu, fa_sm90.cu, bv_sm90.cu,
     uni_sm90.cu) and K5 on fact_tile (uni.cu) each instantiation's radix,
-    axis and tier with its registers, stack and spills."""
+    axis and tier, for the whole-flow kernel (dense_flow.cu) its kind,
+    tier and edge guards, with its registers, stack and spills."""
     import re
     kernel = None
     for line in log.splitlines():
@@ -3944,8 +4108,10 @@ def print_ptxas(log):
         if line.startswith("[") and line.endswith("]"):
             continue
         m = re.search(r"(uni_kernel|fderiv_sm90_kernel|fa_sm90_kernel|bv_sm90_kernel|uni_sm90_kernel)ILi(\d+)ELi(\d)ELi(\d)E", line)
+        mf = re.search(r"flow_kernelILi(\d)ELi(\d)ELb(\d)E", line)
         if "Compiling entry function" in line:
-            kernel = "{}<B={}, AXIS={}, TIER={}>".format(*m.groups()) if m else None
+            kernel = ("{}<B={}, AXIS={}, TIER={}>".format(*m.groups()) if m else
+                      "flow_kernel<KIND={}, TIER={}, EDGE={}>".format(*mf.groups()) if mf else None)
         elif kernel and ("registers" in line or "spill" in line):
             print(f"phase 1: ptxas: {kernel}: {line.split(':', 1)[-1].strip()}")
         elif "registers" in line or "error" in line.lower():
@@ -3988,6 +4154,9 @@ def main():
     if sys.argv[1:] == ["--phase", "17"]:
         phase_sm90(torch, card)
         return 0
+    if sys.argv[1:] == ["--phase", "18"]:
+        phase_whole_flow(torch, card)
+        return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
@@ -3997,24 +4166,26 @@ def main():
     map_launches, s_step, plain_s_step, gctx["map_hist"] = phase_map(torch, gctx["sim"], card)
     ukernels, uni_launches, uni_grad_ms, uni_s_step = phase_uni(torch, card, fctx, gctx)
     hkernels, high_launches, high_timing = phase_high(torch, card, fctx, gctx)
-    edge_ms = phase_edges(torch, card)
+    phase_edges(torch, card)
     dkernels, dense_high_launches, dense_high_timing = phase_dense_high(torch, card, ds, f_mix,
                                                                         phi_mix, kernels)
-    _, wf_timing = phase_wiener(torch, card)
+    _, wf_timing, wctx = phase_wiener(torch, card)
     large, large_launches, large_timing = phase_large(torch, card)
     beside = {7: (s_step, gctx["map_hist"]), 9: (gctx["map_s_auto"], gctx["map_hist_auto"])}
-    bf16, bf16_launches, bf16_timing = phase_bf16(torch, card, gctx, beside)
+    bf16, bf16_launches, bf16_timing = phase_bf16(torch, card, gctx, beside, wctx)
     beside.update({8: (gctx["map_s_uni"], gctx["map_hist_uni"]),
                    14: (gctx["map_s_bf16"], gctx["map_hist_bf16"])})
     uni_tiers, uni_tier_launches, uni_tier_timing = phase_uni_tiers(torch, card, fctx, gctx,
-                                                                    beside)
-    del fctx, gctx, beside
+                                                                    beside, wctx)
+    del fctx, gctx, beside, wctx
     torch.cuda.empty_cache()
     uni_large, uni_large_launches, uni_large_timing = phase_uni_large(torch, card, large_timing)
-    sm90, sm90_launches = phase_sm90(torch, card)
+    sm90, sm90_launches = phase_sm90(torch, card, uni_large)
+    flows, flows_batched = phase_whole_flow(torch, card)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
+                "rk4_update": "cmblensing_tpu/ops/pallas_lenseflow.py:371",
                 "fderiv": "cmblensing_tpu/ops/pallas_lenseflow.py:249",
                 "fa_velocity_forward": "cmblensing_tpu/ops/pallas_lenseflow.py:506",
                 "fa_velocity_adjoint": "cmblensing_tpu/ops/pallas_lenseflow.py:506",
@@ -4023,9 +4194,9 @@ def main():
                      for form in ("", "_dense") for r in range(4)
                      for sfx in ("", "_high", "_bf16")})
     replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:225" for k in HIGH_KERNELS})
-    replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:103" for k in DENSE_HIGH_KERNELS})
+    replaces["deriv_high"] = "cmblensing_tpu/ops/pallas_lenseflow.py:103"
     replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:218" for k in BF16_KERNELS})
-    replaces.update({k: "cmblensing_tpu/ops/pallas_lenseflow.py:92" for k in DENSE_BF16_KERNELS})
+    replaces["deriv_bf16"] = "cmblensing_tpu/ops/pallas_lenseflow.py:92"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1's 'high' and 'bf16' tiers run csrc/fderiv_sm90.cu
     entry = lambda name, d, src, n: {
@@ -4038,6 +4209,8 @@ def main():
     fkernels["fderiv_x"]["batched"] = fkernels["fderiv"]["batched"]
     record = {"kernels": [entry(name, d, "cmblensing_tpu_torch/csrc/lenseflow.cu", launches[name])
                           for name, d in kernels.items()]
+              + [entry(name, fkernels[name], "cmblensing_tpu_torch/csrc/lenseflow.cu",
+                       map_launches[name]) for name in ("p_planes", "rk4_update")]
               + [entry(name, fkernels[key], FACTORED_SRC,
                        map_launches[name])
                  for name, key in (("fderiv", "fderiv_x"),
@@ -4052,10 +4225,24 @@ def main():
                                    ("fa_velocity_forward_high", "fa_velocity_forward"),
                                    ("fa_velocity_adjoint_high", "fa_velocity_adjoint"),
                                    ("bv_velocity_high", "bv_velocity"))]
-              + [entry(name + "_high", dkernels[name], "cmblensing_tpu_torch/csrc/lenseflow.cu",
-                       dense_high_launches[name + "_high"])
-                 for name in ("velocity_forward", "velocity_adjoint", "velocity_backward",
-                              "deriv")]}
+              + [entry("deriv_high", dkernels["deriv"], "cmblensing_tpu_torch/csrc/lenseflow.cu",
+                       dense_high_launches["deriv_high"])]}
+    # K2's whole-flow kernel at every tier (phase 18, 256^2 P; "batched":
+    # NTRIAL entries in one launch): launches of the dense paths, strict
+    # phase 3's, 'high' phase 11's MAP_joint, 'bf16' phase 14's slice
+    for tier in ("f32", "high", "bf16"):
+        sfx = "" if tier == "f32" else "_" + tier
+        for kind in ("forward", "adjoint", "backward"):
+            name = f"flow_{kind}{sfx}"
+            n = (launches[name] if tier == "f32" else dense_high_launches[name] if tier == "high"
+                 else bf16_launches[N, name][1])
+            rec = entry(name, flows["256P", tier, kind], DENSE_FLOW_SRC, n)
+            rec.update(cold_ms=flows["256P", tier, kind]["cold_ms"],
+                       batched={k: flows_batched[tier, kind][k]
+                                for k in ("nb", "ms", "cold_ms", "bound_ms")})
+            if tier == "bf16":
+                rec["path"] = bf16_launches[N, name][0]
+            record["kernels"].append(rec)
     # radix 16 and 32 (phase 13): K1's record is its d_x pass, K3's carry
     # their batch-17 runs under "batched"; "path" names the run whose
     # launches each gives
@@ -4077,8 +4264,7 @@ def main():
     # under "batched"; "path" names the run whose launches each gives
     factored = (("fderiv", "fderiv_x"), ("fa_velocity_forward", "fa_velocity_forward"),
                 ("fa_velocity_adjoint", "fa_velocity_adjoint"), ("bv_velocity", "bv_velocity"))
-    dense = tuple((k, k) for k in ("velocity_forward", "velocity_adjoint", "velocity_backward",
-                                   "deriv"))
+    dense = (("deriv", "deriv"),)
     dense_src = "cmblensing_tpu_torch/csrc/lenseflow.cu"
     for Nl, names, src in ([(N_MAP, factored, FACTORED_SRC), (N, dense, dense_src)]
                            + [(Nl, factored, FACTORED_SRC) for Nl in N_LARGE]):
@@ -4133,7 +4319,8 @@ def main():
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
                    **high_timing, **dense_high_timing, **wf_timing, **large_timing,
                    **bf16_timing, **uni_tier_timing, **uni_large_timing,
-                   **{f"velocity_forward_{Ny}x{Nx}_{p}": ms for (Ny, Nx, p), ms in edge_ms.items()}})
+                   **{f"flow_{kind}_{case}_{tier}_ms_warm_cold": (d["ms"], d["cold_ms"])
+                      for (case, tier, kind), d in flows.items() if "ms" in d}})
     print("main path ms (kernel, plain):", json.dumps(timing))
     print(card)
     print(json.dumps(record))

@@ -2,12 +2,13 @@
 // derivatives of a 32 x 32 output tile in FP32 FMA, or at 'high' and 'bf16'
 // on mma.sync bf16, any plane shape with the edge guards a template
 // parameter), and the tile's loads, stores and launch helpers: shared by
-// the dense LenseFlow kernels K2 (lenseflow.cu, whose header says what
-// bounds the product and how the tile is laid out) and the dense form of
-// the universal kernel K5 (uni_dense.cu). lf_deriv's 'bf16' tier no longer
-// runs it (lenseflow.cu::deriv_bf16_kernel: the whole contraction of a
-// tile in one block, no split and no shared-memory reduction); its
-// velocity kernels, K5 and the strict and 'high' derivatives do.
+// the dense LenseFlow kernels K2 (dense_flow.cu, the whole flow, and
+// lenseflow.cu, the derivative, whose header says what bounds the product
+// and how the tile is laid out) and the dense form of the universal kernel
+// K5 (uni_dense.cu). lf_deriv's 'bf16' tier no longer runs it
+// (lenseflow.cu::deriv_bf16_kernel: the whole contraction of a tile in one
+// block, no split and no shared-memory reduction); the whole-flow kernel,
+// K5 and the strict and 'high' derivatives do.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -334,7 +335,7 @@ __device__ __forceinline__ void dense_tile_bf16(const __nv_bfloat16* __restrict_
     }
 }
 
-// The x and y circulant products of the block's 32 x 32 tile, for NOP
+// The x and y circulant products of the 32 x 32 tile at (i0, j0), for NOP
 // operands: X[o] = d_x (operand o) and Y[o] = d_y (operand o) at this
 // thread's four pixels (row threadIdx.x / 8, columns 4 (threadIdx.x % 8)..
 // of the tile), either skipped (zero) when has_x / has_y is false; DxT and
@@ -344,12 +345,11 @@ __device__ __forceinline__ void dense_tile_bf16(const __nv_bfloat16* __restrict_
 // and meet in shared memory; sm holds 4 group_floats(NOP, TIER). Every
 // thread of the block must call it.
 template <int NOP, int TIER, bool EDGE, class Op>
-__device__ __forceinline__ void dense_xy(const void* __restrict__ DxT,
-                                         const void* __restrict__ Dy, int Ny, int Nx, float* sm,
-                                         bool has_x, bool has_y, Op op, float4 (&X)[NOP],
-                                         float4 (&Y)[NOP]) {
+__device__ __forceinline__ void dense_xy_at(const void* __restrict__ DxT,
+                                            const void* __restrict__ Dy, int Ny, int Nx, int i0,
+                                            int j0, float* sm, bool has_x, bool has_y, Op op,
+                                            float4 (&X)[NOP], float4 (&Y)[NOP]) {
     const int tid = threadIdx.x, g = tid / DGROUP, gt = tid % DGROUP;
-    const int i0 = blockIdx.y * DT, j0 = blockIdx.x * DT;
     const int nsx = (Nx + DK - 1) / DK, nsy = (Ny + DK - 1) / DK;   // slabs of each product
     const bool four = has_x != has_y && (has_x ? nsx : nsy) >= 4;
     const int nsplit = four ? 4 : 2, kh = four ? g : g >> 1;
@@ -415,6 +415,16 @@ __device__ __forceinline__ void dense_xy(const void* __restrict__ DxT,
         Y[o] = four ? (has_x ? make_float4(0.f, 0.f, 0.f, 0.f) : all) : add4(p1, p3);
     }
     __syncthreads();   // the partial tiles are read: the stages are free again
+}
+
+// ... of the block's own tile (blockIdx.y, blockIdx.x)
+template <int NOP, int TIER, bool EDGE, class Op>
+__device__ __forceinline__ void dense_xy(const void* __restrict__ DxT,
+                                         const void* __restrict__ Dy, int Ny, int Nx, float* sm,
+                                         bool has_x, bool has_y, Op op, float4 (&X)[NOP],
+                                         float4 (&Y)[NOP]) {
+    dense_xy_at<NOP, TIER, EDGE>(DxT, Dy, Ny, Nx, blockIdx.y * DT, blockIdx.x * DT, sm, has_x,
+                                 has_y, op, X, Y);
 }
 
 int tiles(int n) { return (n + DT - 1) / DT; }

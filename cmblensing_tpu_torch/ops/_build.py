@@ -99,7 +99,9 @@ def bind(lib):
     library."""
     P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     sigs = {
-        "lf_velocity": [I, I, P, P, P, P, P, P, I, I, I, F, P],
+        "lf_flow": [I, I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        "lf_flow_blocks": [I, I, I, I, I, I],
+        "lf_flow_init": [],
         "lf_deriv": [I, P, P, P, P, P, P, I, I, I, P],
         "lf_rk4_update": [P, P, P, P, ctypes.c_size_t, I, F, F, P],
         "lf_p_planes": [P, P, ctypes.c_size_t, ctypes.c_size_t, F, P],
@@ -136,7 +138,7 @@ def load():
     global _LIB
     if _LIB is None:
         lib = bind(ctypes.CDLL(str(build())))
-        for init in (lib.lf_dense_init, lib.lf_factored_init, lib.lf_uni_init,
+        for init in (lib.lf_dense_init, lib.lf_flow_init, lib.lf_factored_init, lib.lf_uni_init,
                      lib.lf_uni_dense_init, lib.lf_fderiv_sm90_init, lib.lf_fa_sm90_init,
                      lib.lf_bv_sm90_init, lib.lf_uni_sm90_init):
             rc = init()

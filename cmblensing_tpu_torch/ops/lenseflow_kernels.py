@@ -5,11 +5,12 @@ Two kernel families, chosen by the derivative operands the flow is
 given (``ops/deriv.py::deriv_ops``), and a third granularity that the
 'uni' LenseFlow backend picks (``uni_flow_*``):
 
-  dense     (DxT, Dy) circulants: csrc/lenseflow.cu, replacing
+  dense     (DxT, Dy) circulants: csrc/dense_flow.cu, replacing
             ``_flow_call`` / ``_flow_kernel`` of
             ``cmblensing_tpu/ops/pallas_lenseflow.py`` with the dense
             in-kernel derivatives (``_make_ddx_ddy``), the form that runs
-            at 256^2. A batched flow loops over its batch entries.
+            at 256^2: a whole flow, every batch entry, one cooperative
+            launch (``flow_launcher``); the derivative in csrc/lenseflow.cu.
   factored  FactoredOps (ops/factored_deriv.py), where a radix pays
             (512^2 and up): csrc/factored.cu, replacing ``_fa_kernel``
             (forward/adjoint velocity), ``_bv_kernel`` (backward velocity)
@@ -32,19 +33,25 @@ Three flows, as there:
             with the delta-phi derivatives hoisted out of the time loop
             (see csrc/lenseflow.cu for why)
 
-A flow is a host loop of 4*nsteps RK4 stages over four leaf operations:
-the planes of p(t) = (I + t Hess phi)^-1 grad phi (formed once for each
-of the flow's 2*nsteps + 1 distinct times, not once per velocity: the two
-middle stages of a step share their time, and a step's last time is the
-next one's first), a velocity evaluation at those planes, an RK4
-accumulator update and a derivative ``d_x a + d_y b + c``. Each leaf has
-a CUDA kernel (csrc/, built by
-ops/_build.py) and a plain PyTorch version (the same circulant products
-with torch.matmul, dense or factored, same stage order). The public
-functions take the plain version for a CPU tensor and launch the kernel
-for a CUDA tensor, or raise; the ``*_plain`` functions run the plain
-version on any device, for comparing the two on the card. Each kernel
-wrapper is a launcher maker (``*_launcher``: checks and pointer
+A flow is 4*nsteps RK4 stages, the rows of one table (``flow_schedule``:
+each stage's velocity time, RK4 stage and weights, and which state and
+p(t) buffers it reads and writes), over four leaf operations: the planes
+of p(t) = (I + t Hess phi)^-1 grad phi (formed once for each of the
+flow's 2*nsteps + 1 distinct times, not once per velocity: the two middle
+stages of a step share their time, and a step's last time is the next
+one's first), a velocity evaluation at those planes, an RK4 accumulator
+update and a derivative ``d_x a + d_y b + c``. The factored and uni
+flows walk the table on the host, a launch or more a leaf; the dense
+kernel flow hands it to one launch of the whole-flow kernel, which does
+the velocity, the update and p(t) of every stage inside. Each leaf, and
+the dense flow, has a CUDA kernel (csrc/, built by ops/_build.py) and a
+plain PyTorch version (the same circulant products with torch.matmul,
+dense or factored, same stage order; the plain version of the dense
+flow is the plain leaves walking the same table, ``flow_plain``). The
+public functions take the plain version for a CPU tensor and launch the
+kernel for a CUDA tensor, or raise; the ``*_plain`` functions run the
+plain version on any device, for comparing the two on the card. Each
+kernel wrapper is a launcher maker (``*_launcher``: checks and pointer
 conversions, once) and a call of the launcher it returns; a flow makes
 its launchers once and calls them at every stage.
 
@@ -58,7 +65,7 @@ in force (ops/deriv.py) unless given one. 'f32' is the kernels above;
 `_make_ddx_ddy` 'high') and 'bf16' (one product of the operands rounded
 to bf16, `_mk_dot('bf16')` / `_make_ddx_ddy` 'bf16') run the kernels'
 tensor-core tiers (the `tier` argument, the index in PRECISIONS, of
-lf_velocity and lf_deriv, csrc/lenseflow.cu, of lf_fderiv,
+lf_flow, csrc/dense_flow.cu, and lf_deriv, csrc/lenseflow.cu, of lf_fderiv,
 lf_fa_velocity and lf_bv_velocity, csrc/factored.cu, and of
 lf_uni_velocity and lf_uni_dense_velocity, K5) and, for a CPU tensor,
 the plain leaves at that precision, dense or factored; at 'bf16' phi's
@@ -74,6 +81,7 @@ the factored ones a radix they are built for (ops/deriv.py::deriv_ops).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -91,16 +99,17 @@ CUDA_ERROR_INVALID_VALUE = 1   # what a kernel's C entry returns for arguments i
 
 # kernel launches per kernel, counted where each wrapper launches (the
 # factored velocities launch twice per call, an x pass and a y pass;
-# pass_launches says how many launches a pass takes)
-LAUNCHES = {"velocity_forward": 0, "velocity_adjoint": 0, "velocity_backward": 0,
+# pass_launches says how many launches a pass takes; a dense flow is one
+# launch, flow_<kind>)
+LAUNCHES = {"flow_forward": 0, "flow_adjoint": 0, "flow_backward": 0,
             "rk4_update": 0, "p_planes": 0, "deriv": 0, "fderiv": 0, "fa_velocity_forward": 0,
             "fa_velocity_adjoint": 0, "bv_velocity": 0, "fderiv_high": 0,
             "fa_velocity_forward_high": 0,
-            "fa_velocity_adjoint_high": 0, "bv_velocity_high": 0, "velocity_forward_high": 0,
-            "velocity_adjoint_high": 0, "velocity_backward_high": 0, "deriv_high": 0,
+            "fa_velocity_adjoint_high": 0, "bv_velocity_high": 0, "flow_forward_high": 0,
+            "flow_adjoint_high": 0, "flow_backward_high": 0, "deriv_high": 0,
             "fderiv_bf16": 0, "fa_velocity_forward_bf16": 0, "fa_velocity_adjoint_bf16": 0,
-            "bv_velocity_bf16": 0, "velocity_forward_bf16": 0, "velocity_adjoint_bf16": 0,
-            "velocity_backward_bf16": 0, "deriv_bf16": 0}
+            "bv_velocity_bf16": 0, "flow_forward_bf16": 0, "flow_adjoint_bf16": 0,
+            "flow_backward_bf16": 0, "deriv_bf16": 0}
 # K5 at every tier, factored (uni_role*: two passes a call, four for role
 # 1, pass_launches each) and dense (uni_dense_role*: one launch a call,
 # two for role 1)
@@ -309,17 +318,20 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
-def _launcher(fn, name, counter, nlaunch, args):
+def _launcher(fn, name, counter, nlaunch, args, keep=()):
     """launch(*late): call the C entry `fn` on the checked, ready arguments
     `args`, then the late ones (a time, RK4 weights) and the current
     stream; raise on its error code; count its launches. A flow builds one
     per kernel and buffer set and calls it at every stage, so that the
-    checks and pointer conversions are paid once per flow, not per launch."""
+    checks and pointer conversions are paid once per flow, not per launch.
+    `keep`: tensors whose pointers are in `args`, held as long as the
+    launcher (a CUDA graph may replay it after its caller let them go)."""
     def launch(*late):
         rc = fn(*args, *late, _stream())
         if rc != 0:
             _raise_on(rc, name)
         LAUNCHES[counter] += nlaunch
+    launch.keep = keep
     return launch
 
 
@@ -337,30 +349,6 @@ def p_planes_launcher(phi, out):
 
 def p_planes_cuda(t, phi, out):
     p_planes_launcher(phi, out)(float(t))
-
-
-def velocity_launcher(kind, y, k, phi, pt, mats, ncomp, precision="f32"):
-    """launch(t): k <- the dense velocity kernel (K2) of flow `kind` at y,
-    at `precision` ('f32', 'high' or 'bf16')."""
-    from . import _build
-    Ny, Nx = y.shape[-2:]
-    tier = _tier_arg(precision)
-    _, mptrs = _operands("lf_velocity", mats, y, precision)
-    _check_cuda("lf_velocity", [y, k, phi, pt])
-    DxT, Dy = mats
-    if (DxT.shape != (Nx, Nx) or Dy.shape != (Ny, Ny) or phi.shape != (5, Ny, Nx)
-            or pt.shape != (2, Ny, Nx)):
-        raise ValueError("lf_velocity: derivative matrices, phi or p(t) planes mis-shaped")
-    nstate = {"backward": 2 * ncomp + NACC}.get(kind, ncomp)
-    if y.shape != (nstate, Ny, Nx) or k.shape != y.shape:
-        raise ValueError(f"lf_velocity: state {tuple(y.shape)} does not fit kind {kind}")
-    return _launcher(_build.load().lf_velocity, "lf_velocity", "velocity_" + kind + _SUFFIX[tier],
-                     1, (tier, KINDS[kind], _ptr(y), _ptr(k), _ptr(phi), _ptr(pt), *mptrs, ncomp,
-                         Ny, Nx))
-
-
-def velocity_cuda(kind, y, k, phi, pt, mats, ncomp, t, precision="f32"):
-    velocity_launcher(kind, y, k, phi, pt, mats, ncomp, precision)(float(t))
 
 
 def rk4_update_launcher(y, k, acc, s):
@@ -395,6 +383,61 @@ def deriv_cuda(a, b, c, out, mats, precision="f32"):
                                 Nx, _stream())
     _raise_on(rc, "lf_deriv")
     LAUNCHES["deriv" + _SUFFIX[tier]] += 1
+
+
+def flow_launcher(kind, y, phi, mats, ncomp, sched, precision="f32"):
+    """launch(): K2, the whole dense flow of `kind` over the RK4 stages
+    `sched` (flow_schedule), y updated in place, every batch entry, in one
+    cooperative launch of the flow kernel (csrc/dense_flow.cu) at
+    `precision` ('f32', 'high' or 'bf16'). y is the (..., nstate, Ny, Nx)
+    state (nstate = ncomp, or 2 ncomp + NACC for the backward kind), phi
+    its (..., 5, Ny, Nx) planes, a set for each entry. The scratch (the RK4
+    accumulator, two s buffers and two p(t) buffers: no stage writes a
+    buffer it reads) and the stage table on the card (flow_table) are made
+    here, once a flow."""
+    from . import _build
+    Ny, Nx = y.shape[-2:]
+    tier = _tier_arg(precision)
+    if kind not in KINDS:
+        raise ValueError(f"lf_flow: kind {kind!r}")
+    _, mptrs = _operands("lf_flow", mats, y, precision)
+    _check_cuda("lf_flow", [y, phi])
+    DxT, Dy = mats
+    if DxT.shape != (Nx, Nx) or Dy.shape != (Ny, Ny):
+        raise ValueError("lf_flow: derivative matrices mis-shaped")
+    nstate = 2 * ncomp + NACC if kind == "backward" else ncomp
+    nb = y.numel() // (nstate * Ny * Nx)
+    if y.dim() < 3 or y.shape[-3] != nstate or phi.shape[-3:] != (5, Ny, Nx) \
+            or phi.numel() != nb * 5 * Ny * Nx:
+        raise ValueError(f"lf_flow: state {tuple(y.shape)} and phi {tuple(phi.shape)} do not fit "
+                         f"(..., {nstate}, Ny, Nx) and (..., 5, Ny, Nx) for kind {kind}")
+    if not sched:
+        raise ValueError("lf_flow: a flow of no stages")
+    acc, s0, s1 = torch.empty_like(y), torch.empty_like(y), torch.empty_like(y)
+    p = torch.empty((2, nb, 2, Ny, Nx), dtype=y.dtype, device=y.device)
+    table = flow_table(sched, y.device)
+    return _launcher(_build.load().lf_flow, "lf_flow", "flow_" + kind + _SUFFIX[tier], 1,
+                     (tier, KINDS[kind], _ptr(y), _ptr(acc), _ptr(s0), _ptr(s1), _ptr(p),
+                      _ptr(phi), *mptrs, _ptr(table), len(sched), nb, ncomp, Ny, Nx),
+                     keep=(y, phi, acc, s0, s1, p, table))
+
+
+def flow_cuda(kind, y, phi, mats, ncomp, sched, precision="f32"):
+    flow_launcher(kind, y, phi, mats, ncomp, sched, precision)()
+
+
+def flow_plain(kind, y, phi, mats, ncomp, sched, precision="f32"):
+    """The plain version of `flow_cuda`: the plain dense leaves at
+    `precision` walking the same stage table, y in place."""
+    _walk(_plain_for(mats, precision), kind, y, phi, mats, ncomp, sched)
+
+
+def flow_blocks(kind, precision, nb, ncomp, Ny, Nx):
+    """The blocks one flow launch of these shapes takes on this card: its
+    SMs times the flow kernel's blocks an SM holds at once, at most the
+    items of a stage (csrc/dense_flow.cu); 0 where none fits."""
+    from . import _build
+    return _build.load().lf_flow_blocks(_tier_arg(precision), KINDS[kind], nb, ncomp, Ny, Nx)
 
 
 # The tile each factored kernel runs a pass on, by (kernel, precision,
@@ -659,11 +702,13 @@ def uni_velocity_plain_launcher(role, a, b, px, py, out, mats, precision="f32"):
 
 
 class _Leaves:
-    """One set of leaf operations; `batched` when its velocity takes a
-    leading batch axis (the factored kernels), else a batched flow loops
-    over its entries."""
+    """One set of leaf operations; `batched` when its velocity (or flow)
+    takes a leading batch axis, else a batched flow loops over its
+    entries. A flow walks the stage table over velocity, rk4_update and
+    p_planes (with launchers: their launcher makers), unless the set has
+    `flow`, which integrates a whole flow in one call (the dense kernel)."""
 
-    def __init__(self, velocity, rk4_update, deriv, p_planes, batched, launchers=None):
+    def __init__(self, velocity, rk4_update, deriv, p_planes, batched, launchers=None, flow=None):
         self.velocity = velocity
         self.rk4_update = rk4_update
         self.deriv = deriv
@@ -671,6 +716,7 @@ class _Leaves:
         self.batched = batched
         # (velocity, rk4_update, p_planes) launcher makers of the kernel leaves
         self.launchers = launchers
+        self.flow = flow
 
 
 def _uni_flow_velocity_launcher(uni, kind, y, k, phi, pt, mats, ncomp, precision="f32"):
@@ -718,30 +764,27 @@ def _uni_flow_velocity(uni, kind, y, k, phi, pt, mats, ncomp, t, precision="f32"
     _uni_flow_velocity_launcher(uni, kind, y, k, phi, pt, mats, ncomp, precision)(t)
 
 
-PLAIN = _Leaves(velocity_plain, rk4_update_plain, deriv_plain, p_planes_plain, False)
-KERNEL = _Leaves(velocity_cuda, rk4_update_cuda, deriv_cuda, p_planes_cuda, False,
-                 (velocity_launcher, rk4_update_launcher, p_planes_launcher))
+PLAIN = _Leaves(velocity_plain, rk4_update_plain, deriv_plain, p_planes_plain, True)
+KERNEL = _Leaves(None, None, deriv_cuda, None, True, flow=flow_cuda)
 FPLAIN = _Leaves(fvelocity_plain, rk4_update_plain, fderiv_plain, p_planes_plain, True)
 FKERNEL = _Leaves(fvelocity_cuda, rk4_update_cuda, fderiv_cuda, p_planes_cuda, True,
                   (fvelocity_launcher, rk4_update_launcher, p_planes_launcher))
-# 'high': the plain leaves' derivatives split, the factored kernels' tensor-core tier
+# 'high': the plain leaves' derivatives split, the kernels' tensor-core tier
 _high = functools.partial(functools.partial, precision="high")
 PLAIN_HIGH = _Leaves(_high(velocity_plain), rk4_update_plain, _high(deriv_plain), p_planes_plain,
-                     False)
+                     True)
 FPLAIN_HIGH = _Leaves(_high(fvelocity_plain), rk4_update_plain, _high(fderiv_plain),
                       p_planes_plain, True)
-KERNEL_HIGH = _Leaves(_high(velocity_cuda), rk4_update_cuda, _high(deriv_cuda), p_planes_cuda,
-                      False, (_high(velocity_launcher), rk4_update_launcher, p_planes_launcher))
+KERNEL_HIGH = _Leaves(None, None, _high(deriv_cuda), None, True, flow=_high(flow_cuda))
 FKERNEL_HIGH = _Leaves(_high(fvelocity_cuda), rk4_update_cuda, _high(fderiv_cuda), p_planes_cuda,
                        True, (_high(fvelocity_launcher), rk4_update_launcher, p_planes_launcher))
 # 'bf16': the plain leaves' one rounded product, the kernels' 'bf16' tier
 _bf16 = functools.partial(functools.partial, precision="bf16")
 PLAIN_BF16 = _Leaves(_bf16(velocity_plain), rk4_update_plain, _bf16(deriv_plain), p_planes_plain,
-                     False)
+                     True)
 FPLAIN_BF16 = _Leaves(_bf16(fvelocity_plain), rk4_update_plain, _bf16(fderiv_plain),
                       p_planes_plain, True)
-KERNEL_BF16 = _Leaves(_bf16(velocity_cuda), rk4_update_cuda, _bf16(deriv_cuda), p_planes_cuda,
-                      False, (_bf16(velocity_launcher), rk4_update_launcher, p_planes_launcher))
+KERNEL_BF16 = _Leaves(None, None, _bf16(deriv_cuda), None, True, flow=_bf16(flow_cuda))
 FKERNEL_BF16 = _Leaves(_bf16(fvelocity_cuda), rk4_update_cuda, _bf16(fderiv_cuda), p_planes_cuda,
                        True, (_bf16(fvelocity_launcher), rk4_update_launcher, p_planes_launcher))
 # (device type, factored, precision) -> leaves
@@ -812,46 +855,109 @@ def flow_times(nsteps, t0, t1):
     return [t0 + j * half for j in range(2 * nsteps + 1)]
 
 
-def _stages(leaves, kind, y, s, k, acc, phi, pt, mats, ncomp):
-    """(velocity at y, velocity at s, rk4_update, p_planes) of one flow over
-    its fixed buffers, as calls of (t), (t), (stage, wacc, ws) and (t): the
-    kernel leaves' launchers, built once, or the leaves themselves."""
+Stage = collections.namedtuple("Stage", "rk t wacc ws src dst psrc pdst tp")
+STATE_BUFFERS = ("y", "s0", "s1")   # a Stage's src and dst index these
+
+
+@functools.lru_cache(maxsize=64)
+def flow_schedule(nsteps, t0, t1):
+    """The 4*nsteps RK4 stages of a flow from t0 to t1, in order, in the
+    form of the TPU kernel's `_rk4_steps`, the stages folded into a
+    running accumulator: each Stage's RK4 stage rk (0-3); its velocity's
+    time t (flow_times 2i, 2i + 1, 2i + 1, 2i + 2 for step i); its weights
+    wacc, of the accumulator, and ws, of s (h/6, h/2; h/3, h/2; h/3, h;
+    h/6, 0); the state buffer its velocity reads (src, into STATE_BUFFERS)
+    and the one its update writes (dst: an s buffer at stages 0-2, y at
+    3); the p(t) buffer it reads (psrc: p at an even time of flow_times in
+    buffer 0, at an odd one in buffer 1) and the one it forms the flow's
+    next time's p into (pdst, at time tp; -1 where the next stage keeps
+    this one's time). Two s and two p buffers, so that no stage writes a
+    buffer it reads: in the flow kernel the stage input and p are read at
+    every pixel of a tile's rows and columns while its own pixels are
+    written. The p of the first stage's time, in its psrc, comes first."""
+    h = (t1 - t0) / nsteps
+    times = flow_times(nsteps, t0, t1)
+    rows = []
+    for i in range(nsteps):
+        t, tmid, tend = times[2 * i:2 * i + 3]
+        rows += [Stage(0, t, h / 6, h / 2, 0, 1, 0, 1, tmid),
+                 Stage(1, tmid, h / 3, h / 2, 1, 2, 1, -1, 0.0),
+                 Stage(2, tmid, h / 3, h, 2, 1, 1, 0, tend),
+                 Stage(3, tend, h / 6, 0.0, 1, 0, 0, -1, 0.0)]
+    return tuple(rows)
+
+
+_TABLES = {}   # (schedule, device) -> the stage table on that device
+
+
+def flow_table(sched, device):
+    """The stage table the flow kernel reads (csrc/dense_flow.cu, its FS_*
+    columns): a float32 row a Stage, (t, wacc, ws, tp, rk, src, dst, psrc,
+    pdst), on `device`, made once per schedule and device and kept (a
+    CUDA graph that captured a flow reads it at every replay)."""
+    key = (sched, str(device))
+    hit = _TABLES.get(key)
+    if hit is None:
+        device = torch.device(device)
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flow_table: run a flow of this schedule once before capturing one "
+                               "into a CUDA graph (its stage table is copied to the card then)")
+        rows = [[st.t, st.wacc, st.ws, st.tp, st.rk, st.src, st.dst, st.psrc, st.pdst]
+                for st in sched]
+        hit = _TABLES[key] = torch.tensor(rows, dtype=torch.float32, device=device)
+    return hit
+
+
+def _walk(leaves, kind, y, phi, mats, ncomp, sched):
+    """The flow of `kind` over the stage table `sched` on per-stage leaves,
+    y updated in place: p of the first stage's time, then at each stage
+    the velocity at its input, the RK4 update and, where the table says,
+    p at the next time. Leaves with launcher makers (kernels) run one
+    launch after another, so a stage's reads end before the next one
+    writes: there one s and one p buffer take the table's two of each, and
+    the launchers are made once a flow, in the order velocity at y,
+    velocity at s, rk4_update, p_planes. They keep to one of each because
+    the grid line search runs these flows on 17 trials at once under a
+    memory guard that counts a trial's planes (inference/maximization.py::
+    LINESEARCH_PLANES_PER_TRIAL, 28 against 26.1 measured on "uni"): a
+    second s and p buffer would add four planes of a pol-P flow a trial."""
+    k, acc = torch.empty_like(y), torch.empty_like(y)
+    pshape = (2,) + tuple(phi.shape[:-3]) + tuple(phi.shape[-2:])
+    new_p = lambda: torch.empty(pshape, dtype=phi.dtype, device=phi.device)
     made = getattr(leaves, "launchers", None)
     if made is not None:
         velocity, rk4_update, p_planes = made
-        return (velocity(kind, y, k, phi, pt, mats, ncomp),
-                velocity(kind, s, k, phi, pt, mats, ncomp), rk4_update(y, k, acc, s),
-                p_planes(phi, pt))
-    return (lambda t: leaves.velocity(kind, y, k, phi, pt, mats, ncomp, t),
-            lambda t: leaves.velocity(kind, s, k, phi, pt, mats, ncomp, t),
-            lambda stage, wacc, ws: leaves.rk4_update(y, k, acc, s, stage, wacc, ws),
-            lambda t: leaves.p_planes(t, phi, pt))
+        s, pt = torch.empty_like(y), new_p()
+        vel = (velocity(kind, y, k, phi, pt, mats, ncomp), velocity(kind, s, k, phi, pt, mats, ncomp))
+        rk4, pp = rk4_update(y, k, acc, s), p_planes(phi, pt)
+        vel_at, rk4_at, p_at = (lambda st: vel[st.src != 0]), (lambda st: rk4), (lambda buf: pp)
+    else:
+        bufs, pbufs = (y, torch.empty_like(y), torch.empty_like(y)), (new_p(), new_p())
+        vel_at = lambda st: functools.partial(leaves.velocity, kind, bufs[st.src], k, phi,
+                                              pbufs[st.psrc], mats, ncomp)
+        rk4_at = lambda st: functools.partial(leaves.rk4_update, y, k, acc, bufs[st.dst])
+        p_at = lambda buf: lambda t: leaves.p_planes(t, phi, pbufs[buf])
+    p_at(sched[0].psrc)(sched[0].t)
+    for st in sched:
+        vel_at(st)(st.t)
+        rk4_at(st)(st.rk, st.wacc, st.ws)
+        if st.pdst >= 0:
+            p_at(st.pdst)(st.tp)
 
 
 def _integrate(leaves, kind, y, phi, mats, ncomp, nsteps, t0, t1):
     """Classical RK4 of flow `kind` from t0 to t1 over a (..., nstate, Ny,
-    Nx) state, stages folded into a running accumulator as in
-    `_rk4_steps`; p(t) is formed once per time of `flow_times`."""
+    Nx) state, over the stage table flow_schedule(nsteps, t0, t1): in one
+    call of the leaves' whole flow where they have one (the dense kernel),
+    else walked stage by stage (_walk). p(t) is formed once per time of
+    `flow_times`."""
     y = y.contiguous().clone()
-    k, acc, s = torch.empty_like(y), torch.empty_like(y), torch.empty_like(y)
-    pt = torch.empty((2,) + tuple(phi.shape[:-3]) + tuple(phi.shape[-2:]), dtype=phi.dtype,
-                     device=phi.device)
-    vel_y, vel_s, rk4, p_planes = _stages(leaves, kind, y, s, k, acc, phi, pt, mats, ncomp)
-    h = (t1 - t0) / nsteps
-    times = flow_times(nsteps, t0, t1)
-    p_planes(times[0])
-    for i in range(nsteps):
-        t, tmid, tend = times[2 * i:2 * i + 3]
-        vel_y(t)
-        rk4(0, h / 6, h / 2)
-        p_planes(tmid)
-        vel_s(tmid)
-        rk4(1, h / 3, h / 2)
-        vel_s(tmid)
-        rk4(2, h / 3, h)
-        p_planes(tend)
-        vel_s(tend)
-        rk4(3, h / 6, 0.0)
+    sched = flow_schedule(nsteps, t0, t1)
+    flow = getattr(leaves, "flow", None)
+    if flow is not None:
+        flow(kind, y, phi, mats, ncomp, sched)
+    else:
+        _walk(leaves, kind, y, phi, mats, ncomp, sched)
     return y
 
 

@@ -11,6 +11,9 @@ card.
     python scripts/torch_flow_witness.py map --tree DIR [--N 1024] [--steps 4]
     python scripts/torch_flow_witness.py ulp [--N 2048 4096] [--tiers f32 high bf16]
         [--nsteps 7]
+    python scripts/torch_flow_witness.py dense --tree DIR --out FILE [--nsteps 7]
+        [--tiers f32 high bf16] [--cases 256P 256IP 200 600] [--plain] [--time]
+    python scripts/torch_flow_witness.py e2e --tree DIR [--steps 4]
 
 DIR is a checkout of the repository (the parent commit unpacked by
 `git archive`, say); its cmblensing_tpu_torch is imported, and its
@@ -51,6 +54,27 @@ same ones.
            (relative max-abs) and, for scale, how far the accumulators did
            (the largest relative max-abs of the five planes): what a
            last-bit change of K4's integrands alone does to delta phi
+
+  dense    the dense flows (csrc/dense_flow.cu's one launch a flow, or a
+           parent's per-stage flow) at each case of --cases (256^2 P, the
+           IP slice's 3 x 256^2, 200^2, 600^2; chip_smoke.py's inputs,
+           thetapix 3) and tier of --tiers, nsteps the last of --nsteps:
+           forward, adjoint and backward (delta phi, delta f), saved to FILE
+           for `compare`; with --plain each against the plain leaves' flow
+           at the tier (relative max-abs) and twice the same bits; with
+           --time each flow's ms and its kernel launches: as called (CUDA
+           events around the calls, the host's launches included), its
+           launches replayed from one CUDA graph (device time, the L2 warm)
+           and so with its inputs cycled through copies that hold twice the
+           L2 (cold), and the same at batch 17 (the line search's trials)
+           at 256^2 P
+  e2e      at 256^2: the mixed-posterior phi-gradient (P, nsteps 7) strict
+           and at "auto" ('high'), the masked IP Wiener filter
+           (argmaxf_logpdf at the JAX defaults) at "auto" and strict, and
+           --steps MAP_joint steps at 256^2 P at its defaults ("auto";
+           chip_smoke.py phases 3, 11 and 12): wall ms, kernel launches, CG iterations, and the
+           device's busy share (torch.profiler's device time over the wall
+           time of the same work unprofiled)
 
 Prints the card's name and power limit. Exits non-zero without a card.
 """
@@ -261,6 +285,144 @@ def ulp(cs, torch, args, card):
         torch.cuda.empty_cache()
 
 
+DENSE_CASES = {"256P": (256, 256, 2), "256IP": (256, 256, 3), "200": (200, 200, 2),
+               "600": (600, 600, 2)}
+
+
+def dense_inputs(cs, torch, case):
+    """chip_smoke.py's weak-lensing inputs at a case of DENSE_CASES (thetapix
+    3); the IP slice's third component a rolled copy of the first."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    Ny, Nx, ncomp = DENSE_CASES[case]
+    proj = ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device="cuda")
+    mats = deriv.deriv_ops(proj)
+    phi_map, f, dy = cs.weak_lensing_inputs(proj, torch)
+    if ncomp == 3:
+        f = torch.cat([f, torch.roll(f[:1], 17, dims=-1)])
+        dy = torch.cat([dy, torch.roll(dy[:1], 17, dims=-1)])
+    return mats, lfk.gradhess(phi_map, mats), f.contiguous(), dy.contiguous()
+
+
+def dense_flows(lfk, mats, phi, f, dy, n, tier, plain=False):
+    """name -> a call running one dense flow of each kind at the tier."""
+    ap = lfk.flow_apply_plain if plain else lfk.flow_apply
+    bw = lfk.flow_bwd_plain if plain else lfk.flow_bwd
+    return {"forward": lambda: ap(f, phi, mats, 0., 1., n, "forward", tier),
+            "adjoint": lambda: ap(f, phi, mats, 1., 0., n, "adjoint", tier),
+            "backward": lambda: bw(dy, f, phi, mats, 0., 1., n, tier)}
+
+
+def dense(cs, torch, args, card):
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    n, saved = args.nsteps[-1], {}
+    for case in args.cases:
+        mats, phi, f, dy = dense_inputs(cs, torch, case)
+        for tier in args.tiers:
+            for kind, run in dense_flows(lfk, mats, phi, f, dy, n, tier).items():
+                lfk.reset_launches()
+                out = run()
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in lfk.LAUNCHES.items() if v}
+                outs = out if isinstance(out, tuple) else (out,)
+                for i, o in enumerate(outs):
+                    saved[f"{case} {tier} {n} {kind}[{i}]"] = o.cpu()
+                line = f"dense {case:5s} {tier:4s} {kind:8s} nsteps {n}: launches {launches}"
+                if args.plain:
+                    ref = dense_flows(lfk, mats, phi, f, dy, n, tier, plain=True)[kind]()
+                    ref = ref if isinstance(ref, tuple) else (ref,)
+                    again = run()
+                    again = again if isinstance(again, tuple) else (again,)
+                    e = max(cs.rel(a, b) for a, b in zip(outs, ref))
+                    same = all(torch.equal(a, b) for a, b in zip(outs, again))
+                    line += (f"; vs plain {e:.3e} (bound {cs.FLOW_TIER_TOL[tier]:g}); twice: "
+                             f"{'the same bits' if same else 'DIFFER'}")
+                if args.time:
+                    line += "; " + dense_times(cs, torch, run, (f, phi, dy))
+                print(line + f" [{card}]", flush=True)
+        if args.time and case == "256P":
+            nb = cs.NTRIAL
+            phis = torch.stack([(0.1 + 0.1 * i) * phi for i in range(nb)])
+            fs = torch.stack([torch.roll(f, 7 * i, dims=-1) for i in range(nb)])
+            dys = torch.stack([torch.roll(dy, 5 * i, dims=-2) for i in range(nb)])
+            for tier in args.tiers:
+                for kind, run in dense_flows(lfk, mats, phis, fs, dys, n, tier).items():
+                    lfk.reset_launches()
+                    run()
+                    torch.cuda.synchronize()
+                    launches = sum(lfk.LAUNCHES.values())
+                    print(f"dense {case:5s} {tier:4s} {kind:8s} batch {nb} nsteps {n}: launches "
+                          f"{launches}; " + dense_times(cs, torch, run, (fs, phis, dys)) +
+                          f" [{card}]", flush=True)
+        del mats, phi, f, dy
+        torch.cuda.empty_cache()
+    if args.out:
+        torch.save(saved, args.out)
+
+
+def dense_times(cs, torch, run, inputs):
+    """A flow's ms as called (host launches included), replayed from a CUDA
+    graph with the L2 warm, and cold (cs.cold_ms over copies of inputs)."""
+    called = cs.cuda_ms(run, 5, torch)
+    warm = cs.kernel_ms(run, 10, torch)
+    cold = cs.cold_ms(lambda *xs: run(), inputs, 10, torch)
+    return f"called {called:.4f} ms, graph warm {warm:.4f} ms, graph cold {cold:.4f} ms"
+
+
+def e2e(cs, torch, args, card):
+    """The 256^2 paths end to end, each timed unprofiled, then profiled."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    from torch.profiler import ProfilerActivity, profile
+    sim = ct.load_sim(thetapix=3, Nside=256, pol="P", T=np.float32, seed=cs.SEED, device="cuda")
+    ds = sim["ds"]
+    f = sim["f"].to(sim["f"].basis.with_space("map"))
+    phi = sim["phi"].to(sim["phi"].basis.with_space("map"))
+    m = ct.mix(ds, f=f, phi=phi)
+    f_mix, phi_mix = m["f_mix"].to(f.basis), m["phi_mix"].to(phi.basis)
+    vg = ct.fvalue_and_grad(lambda p: ct.Mixed(ds).logpdf(f_mix=f_mix, phi_mix=p))
+    wf = ct.load_sim(**cs.WF_SIM, device="cuda")
+
+    def grad(precision):
+        with deriv.precision_ctx(precision):
+            return vg(phi_mix)
+
+    def solve(hp):
+        return ct.argmaxf_logpdf(wf["ds"], phi=wf["phi"],
+                                 conjgrad_kwargs=dict(hessian_precision=hp))[1]["iterations"]
+
+    def steps():   # at its defaults ("auto"), as chip_smoke.py phase 11
+        res = ct.MAP_joint(ds, nsteps=args.steps, history_keys=("logpdf",))
+        return [h["logpdf"] for h in res["history"]]
+
+    # the gradient at "auto" is its 'high' tier
+    work = {"gradlnP_256 f32": (lambda: grad("f32"), 5), "gradlnP_256 auto": (lambda: grad("high"), 5),
+            "wiener_256IP auto": (lambda: solve("auto"), 1), "wiener_256IP f32": (lambda: solve(None), 1),
+            f"MAP_joint_256 auto {args.steps} steps": (steps, 1)}
+    with ct.lenseflow_backend_ctx("kernel"):
+        for name, (fn, reps) in work.items():
+            fn()
+            torch.cuda.synchronize()
+            lfk.reset_launches()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                what = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps
+            launches = sum(lfk.LAUNCHES.values()) / reps
+            dense = {k: v / reps for k, v in lfk.LAUNCHES.items() if v and k.startswith("flow")}
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            device = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+            extra = (f"; CG iterations {what}" if name.startswith("wiener")
+                     else f"; logpdfs {what}" if name.startswith("MAP") else "")
+            print(f"e2e {name:28s}: {1e3 * wall:.2f} ms wall, {device:.2f} ms device, busy "
+                  f"{100 * device / (1e3 * wall):.1f} %, {launches:.0f} port launches {dense}"
+                  f"{extra} [{card}]", flush=True)
+
+
 def map_step(cs, torch, args, card):
     import cmblensing_tpu_torch as ct
     N = args.N[0]
@@ -289,7 +451,7 @@ def map_step(cs, torch, args, card):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("mode", choices=("flows", "compare", "kernels", "map", "ulp"))
+    ap.add_argument("mode", choices=("flows", "compare", "kernels", "map", "ulp", "dense", "e2e"))
     ap.add_argument("files", nargs="*")
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--out", default=None)
@@ -302,6 +464,9 @@ def main():
     ap.add_argument("--nsteps", type=int, nargs="+", default=[1, 7])
     ap.add_argument("--backward", action="store_true")
     ap.add_argument("--no-plain", action="store_true")
+    ap.add_argument("--cases", nargs="+", choices=tuple(DENSE_CASES), default=list(DENSE_CASES))
+    ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--time", action="store_true")
     args = ap.parse_args()
     if args.mode == "compare":
         return compare(args)
@@ -320,6 +485,11 @@ def main():
     elif args.mode == "kernels":
         args.N, args.tiers = args.N or [1024], args.tiers or TIERS
         kernels(cs, torch, args, card)
+    elif args.mode == "dense":
+        args.tiers = args.tiers or PRECISIONS
+        dense(cs, torch, args, card)
+    elif args.mode == "e2e":
+        e2e(cs, torch, args, card)
     elif args.mode == "ulp":
         args.N, args.tiers = args.N or [2048, 4096], args.tiers or PRECISIONS
         ulp(cs, torch, args, card)

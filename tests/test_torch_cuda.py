@@ -123,10 +123,10 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     x = torch.zeros(2 * 24 * 24 + 1, device="cuda")[1:].view(2, 24, 24)
     with pytest.raises(ValueError, match="aligned"):
         lfk.deriv_cuda(x, None, None, torch.empty_like(x), mats)
-    phi, pt = torch.zeros((5, 24, 24), device="cuda"), torch.zeros((2, 24, 24), device="cuda")
+    phi = torch.zeros((5, 24, 24), device="cuda")
     y3 = torch.zeros((3, 24, 24), device="cuda")
-    with pytest.raises(ValueError, match="does not fit"):
-        lfk.velocity_cuda("backward", y3, torch.empty_like(y3), phi, pt, mats, 2, 0.5)
+    with pytest.raises(ValueError, match="do not fit"):
+        lfk.flow_cuda("backward", y3, phi, mats, 2, lfk.flow_schedule(1, 1., 0.))
     y = torch.zeros((2, 32, 32), device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         lfk.deriv_cuda(y, None, None, torch.empty_like(y), (y[0], y[0]))
@@ -146,6 +146,19 @@ def _p_planes(t, planes):
     lfk.p_planes_plain(t, planes, ref)
     assert rel(pt, ref) < 1e-6
     return pt
+
+
+def _flow_pair(kind, y, planes, mats, ncomp, nsteps, precision, plain_too=True):
+    """One whole dense flow of `kind` from state y through the flow kernel,
+    and through its plain version (the plain leaves walking the same stage
+    table): forward from 0 to 1, adjoint and backward from 1 to 0."""
+    t0, t1 = (0., 1.) if kind == "forward" else (1., 0.)
+    sched = lfk.flow_schedule(nsteps, t0, t1)
+    k, p = y.clone(), y.clone()
+    lfk.flow_cuda(kind, k, planes, mats, ncomp, sched, precision)
+    if plain_too:
+        lfk.flow_plain(kind, p, planes, mats, ncomp, sched, precision)
+    return k, p
 
 
 # (N, batch) of the factored kernel tests: every built radix at batch 1
@@ -200,9 +213,10 @@ def test_factored_kernels_match_plain_on_card(N, nb):
 @pytest.mark.parametrize("N", [64, 256])
 def test_dense_kernels_match_plain_on_card(N):
     """The register-tiled dense product of csrc/lenseflow.cu: lf_deriv with
-    every combination of operands and lf_velocity of the three kinds (two
-    and three components) against their plain versions, each plane held to
-    the bound on its own."""
+    every combination of operands, and the whole-flow kernel (csrc/
+    dense_flow.cu) of the three kinds (two and three components, nsteps
+    2), against their plain versions, each plane held to the bound on its
+    own."""
     _card()
     tp = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device="cuda")
     mats = tderiv.deriv_mats(tp)
@@ -216,13 +230,10 @@ def test_dense_kernels_match_plain_on_card(N):
         lfk.deriv_cuda(*args, o1, mats)
         lfk.deriv_plain(*args, o2, mats)
         assert rel(o1, o2) < TOL
-    pt = _p_planes(0.4, planes)
     for kind, ncomp in (("forward", 2), ("adjoint", 2), ("forward", 3), ("backward", 2)):
         ns = 2 * ncomp + lfk.NACC if kind == "backward" else ncomp
         y = T(ns, N, N)
-        k1, k2 = torch.full_like(y, float("nan")), torch.empty_like(y)
-        lfk.velocity_cuda(kind, y, k1, planes, pt, mats, ncomp, 0.4)
-        lfk.velocity_plain(kind, y, k2, planes, pt, mats, ncomp, 0.4)
+        k1, k2 = _flow_pair(kind, y, planes, mats, ncomp, 2, "f32")
         for i in range(ns):
             assert rel(k1[i], k2[i]) < TOL, (kind, i)
 
@@ -626,8 +637,8 @@ def test_factored_high_flows_match_plain_high_on_card():
 @pytest.mark.cuda
 def test_dense_high_runs_only_high_kernels_on_card():
     """Since K2's 'high' tier was ported, a dense 'high' flow and grad/Hess
-    phi launch only the 'high' dense kernels (and the precision-free RK4
-    update and p(t)), never the strict ones in their place."""
+    phi launch only the 'high' dense kernels, the flow one launch with its
+    RK4 update and p(t) inside, never the strict ones in their place."""
     _card()
     tp = ct.ProjLambert(64, 64, thetapix=3, T=np.float32, device="cuda")
     phi, f, dy = _weak_lensing(N=64)
@@ -639,7 +650,7 @@ def test_dense_high_runs_only_high_kernels_on_card():
         assert torch.isfinite(lfk.flow_apply(ft, planes, mats, 0., 1., 1)).all()
         assert torch.isfinite(lfk.gradhess(pt, mats)).all()
     ran = {k: v for k, v in lfk.LAUNCHES.items() if v}
-    assert set(ran) == {"velocity_forward_high", "deriv_high", "rk4_update", "p_planes"}, ran
+    assert ran == {"flow_forward_high": 1, "deriv_high": 5}, ran
 
 
 @pytest.mark.cuda
@@ -719,10 +730,10 @@ def _check_high(shape, kernel, plain, label):
 @pytest.mark.parametrize("N", [64, 256])
 def test_dense_high_kernels_match_plain_high_on_card(N):
     """K2 'high' (csrc/lenseflow.cu, HIGH: mma.sync bf16 on the split
-    circulants and operand): lf_deriv with each operand set and
-    lf_velocity of the three kinds at two and three components, one
-    launch each, against the plain 'high' version and the strict kernel
-    (_check_high); the 'high' counters count their launches."""
+    circulants and operand): lf_deriv with each operand set, one launch
+    each, against the plain 'high' version and the strict kernel
+    (_check_high); the 'high' counters count their launches. The whole
+    flow at 'high': test_whole_flow_matches_plain_on_card."""
     _card()
     tp = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device="cuda")
     mats = tderiv.deriv_mats(tp)
@@ -736,17 +747,6 @@ def test_dense_high_kernels_match_plain_high_on_card(N):
         _check_high(a.shape, lambda o, p: lfk.deriv_cuda(*args, o, mats, p),
                     lambda o: lfk.deriv_plain(*args, o, mats, "high"), "deriv")
     assert lfk.LAUNCHES["deriv_high"] == 3 and lfk.LAUNCHES["deriv"] == 3
-    pt = _p_planes(0.4, planes)
-    # ncomp 2 is pol P (Q, U), 3 is pol IP (I, Q, U on the grid's z axis)
-    for ncomp in (2, 3):
-        for kind in ("forward", "adjoint", "backward"):
-            y = T(2 * ncomp + lfk.NACC if kind == "backward" else ncomp, N, N)
-            _check_high(y.shape, lambda o, p: lfk.velocity_cuda(kind, y, o, planes, pt, mats,
-                                                                ncomp, 0.4, p),
-                        lambda o: lfk.velocity_plain(kind, y, o, planes, pt, mats, ncomp, 0.4,
-                                                     "high"), kind)
-    assert all(lfk.LAUNCHES[f"velocity_{kind}_high"] == 2
-               for kind in ("forward", "adjoint", "backward"))
 
 
 @pytest.mark.cuda
@@ -792,8 +792,8 @@ def test_dense_high_flows_match_plain_high_on_card():
 def test_dense_edge_tiles_match_plain_on_card(shape, precision):
     """K2 at plane shapes its 32 x 32 tile and 16-deep slab do not divide
     (200^2 is load_sim(Nside=200); 33 x 45 also loads its rows a float at
-    a time): lf_deriv, the three velocity kinds, p(t), the RK4 update
-    and whole flows against their plain versions at the same precision,
+    a time): lf_deriv, p(t), the RK4 update and whole flows (the flow
+    kernel) against their plain versions at the same precision,
     every plane on its own (TOL strict, HIGH_TOL at 'high'), and nothing
     written past the last plane (a NaN sentinel plane behind it)."""
     _card()
@@ -823,12 +823,6 @@ def test_dense_edge_tiles_match_plain_on_card(shape, precision):
               lambda o: lfk.deriv_plain(*args, o, mats, precision), "deriv")
     check(2, lambda o: lfk.p_planes_cuda(0.4, planes, o),
           lambda o: lfk.p_planes_plain(0.4, planes, o), "p_planes")
-    pt = _p_planes(0.4, planes)
-    for kind in ("forward", "adjoint", "backward"):
-        y = T(4 + lfk.NACC if kind == "backward" else 2, Ny, Nx)
-        check(y.shape[0], lambda o: lfk.velocity_cuda(kind, y, o, planes, pt, mats, 2, 0.4,
-                                                      precision),
-              lambda o: lfk.velocity_plain(kind, y, o, planes, pt, mats, 2, 0.4, precision), kind)
     y, k = T(9, Ny, Nx), T(9, Ny, Nx)
     rk = [torch.zeros((2, 9, Ny, Nx), device="cuda") for _ in range(2)]
     for fn, (acc, s) in zip((lfk.rk4_update_cuda, lfk.rk4_update_plain), rk):
@@ -877,17 +871,20 @@ def test_dense_edge_tiles_match_plain_on_card(shape, precision):
 def test_dense_high_backward_flow_on_white_fields_stage_by_stage_on_card(shape):
     """The inputs on which the 'high' backward flow first lay above
     HIGH_TOL from its plain 'high' version (2.4e-5 at 160 x 200): white f
-    and delta f, the one-mode phi, 3 steps. The flow is replayed stage by
-    stage through the same kernel leaves (its delta f comes out bit for
-    bit), and each of its 4 nsteps 'high' velocity launches and its three
-    closing derivatives is held against the plain 'high' version on the
-    very state the kernel flow reached: each within HIGH_TOL. So the
-    kernel is right at every launch; what the whole flow adds (printed,
-    with its distance to the strict flow) is the plain and kernel
-    trajectories drifting apart by reassociation and split-rounding flips,
-    which 3 coarse steps over a white field's large velocities amplify.
-    The whole flows of test_dense_edge_tiles_match_plain_on_card run the
-    main path's Cphi/Cf-drawn fields at its nsteps 7."""
+    and delta f, the one-mode phi, 3 steps. The flow kernel runs the flow
+    step by step, a launch on each step's slice of the stage table (its
+    four stages, the p of its first time formed first), and the chained
+    steps give the whole flow's bits; each step is held against the plain
+    'high' leaves walking that slice from the very state the kernel
+    reached (HIGH_TOL, every state plane), as are the three closing
+    derivatives on the accumulators the flow reached, and delta f is
+    flow_bwd's bit for bit. So the kernel is right at every step; what
+    the whole flow adds (printed, with its distance to the strict flow)
+    is the plain and kernel trajectories drifting apart by reassociation
+    and split-rounding flips, which 3 coarse steps over a white field's
+    large velocities amplify. The whole flows of
+    test_whole_flow_matches_plain_on_card run the main path's
+    Cphi/Cf-drawn fields at its nsteps 7."""
     _card()
     Ny, Nx = shape
     nsteps, ncomp = 3, 2
@@ -901,31 +898,15 @@ def test_dense_high_backward_flow_on_white_fields_stage_by_stage_on_card(shape):
     f2, dy = (torch.as_tensor(rng.standard_normal((ncomp, Ny, Nx)).astype(np.float32),
                               device="cuda") for _ in range(2))
     each = lambda x, y: max(rel(a, b) for a, b in zip(x.reshape(-1, Ny, Nx), y.reshape(-1, Ny, Nx)))
-    y = torch.cat([f2, dy, torch.zeros((lfk.NACC, Ny, Nx), device="cuda")])
-    k, acc, s, ref = (torch.empty_like(y) for _ in range(4))
-    pt = torch.empty((2, Ny, Nx), device="cuda")
-    launch_errs = []
-
-    def velocity(state, t):
-        lfk.velocity_cuda("backward", state, k, planes, pt, mats, ncomp, t, "high")
-        lfk.velocity_plain("backward", state, ref, planes, pt, mats, ncomp, t, "high")
-        launch_errs.append(each(k, ref))
-
-    # lenseflow_kernels._integrate's schedule, t from 1 to 0
-    h, times = -1.0 / nsteps, lfk.flow_times(nsteps, 1.0, 0.0)
-    lfk.p_planes_cuda(times[0], planes, pt)
+    y0 = torch.cat([f2, dy, torch.zeros((lfk.NACC, Ny, Nx), device="cuda")])
+    y, _ = _flow_pair("backward", y0, planes, mats, ncomp, nsteps, "high", plain_too=False)
+    sched, state, step_errs = lfk.flow_schedule(nsteps, 1., 0.), y0.clone(), []
     for i in range(nsteps):
-        t, tmid, tend = times[2 * i:2 * i + 3]
-        velocity(y, t)
-        lfk.rk4_update_cuda(y, k, acc, s, 0, h / 6, h / 2)
-        lfk.p_planes_cuda(tmid, planes, pt)
-        velocity(s, tmid)
-        lfk.rk4_update_cuda(y, k, acc, s, 1, h / 3, h / 2)
-        velocity(s, tmid)
-        lfk.rk4_update_cuda(y, k, acc, s, 2, h / 3, h)
-        lfk.p_planes_cuda(tend, planes, pt)
-        velocity(s, tend)
-        lfk.rk4_update_cuda(y, k, acc, s, 3, h / 6, 0.0)
+        step, plain = sched[4 * i:4 * i + 4], state.clone()
+        lfk.flow_plain("backward", plain, planes, mats, ncomp, step, "high")
+        lfk.flow_cuda("backward", state, planes, mats, ncomp, step, "high")
+        step_errs.append(each(state, plain))
+    assert torch.equal(state, y)
     dphi, df0 = lfk.flow_bwd(dy, f2, planes, mats, 0., 1., nsteps, "high")
     assert torch.equal(df0, y[ncomp:2 * ncomp])
     ux, uy, sxx, sxy, syy = (y[2 * ncomp + i:2 * ncomp + i + 1].contiguous()
@@ -941,12 +922,11 @@ def test_dense_high_backward_flow_on_white_fields_stage_by_stage_on_card(shape):
     flows = zip(("dphi", "df0"), (dphi, df0),
                 lfk.flow_bwd_plain(dy, f2, planes, mats, 0., 1., nsteps, "high"),
                 lfk.flow_bwd(dy, f2, planes, mats, 0., 1., nsteps, "f32"))
-    print(f"white backward flow {shape}, nsteps {nsteps}: launches vs plain 'high' on the same "
-          f"state, largest {max(launch_errs):.3e}; closing derivatives {deriv_errs}; whole flow "
+    print(f"white backward flow {shape}, nsteps {nsteps}: steps vs plain 'high' from the same "
+          f"state {step_errs}; closing derivatives {deriv_errs}; whole flow "
           + ", ".join(f"{name} vs plain 'high' {each(x, p):.3e}, vs strict {each(x, st):.3e}, "
                       f"Frobenius ratio {split_ratio(x, p, st):.3f}" for name, x, p, st in flows))
-    assert len(launch_errs) == 4 * nsteps
-    assert max(launch_errs) < HIGH_TOL and max(deriv_errs) < HIGH_TOL, (launch_errs, deriv_errs)
+    assert max(step_errs) < HIGH_TOL and max(deriv_errs) < HIGH_TOL, (step_errs, deriv_errs)
 
 
 @pytest.mark.cuda
@@ -977,7 +957,7 @@ def test_IP_wiener_filter_kernel_matches_plain_on_card():
         lfk.reset_launches()
         with ct.lenseflow_backend_ctx(backend), tderiv.precision_ctx("high"):
             out[backend, "high"] = ct.argmaxf_logpdf(ds, phi=phi, conjgrad_kwargs=fixed)[0].arr
-        assert (lfk.LAUNCHES["velocity_forward_high"] > 0) == (backend == "kernel"), lfk.LAUNCHES
+        assert (lfk.LAUNCHES["flow_forward_high"] > 0) == (backend == "kernel"), lfk.LAUNCHES
     fhk, fhm = out["kernel", "high"], out["matmul", "high"]
     dist = lambda a, b: float((a - b).norm() / b.norm())
     print(f"at 'high', kernel vs matmul backend {dist(fhk, fhm):.3e}, vs the strict kernel "
@@ -987,7 +967,7 @@ def test_IP_wiener_filter_kernel_matches_plain_on_card():
     with ct.lenseflow_backend_ctx("kernel"):
         fa, _ = ct.argmaxf_logpdf(ds, phi=phi, conjgrad_kwargs=dict(nsteps=30))
     assert torch.isfinite(fa.arr).all()
-    assert all(lfk.LAUNCHES[k] > 0 for k in ("velocity_forward_high", "velocity_adjoint_high",
+    assert all(lfk.LAUNCHES[k] > 0 for k in ("flow_forward_high", "flow_adjoint_high",
                                              "deriv_high")), lfk.LAUNCHES
 
 
@@ -1166,11 +1146,11 @@ def test_deriv_bf16_matches_plain_on_card(shape):
 def test_dense_bf16_kernels_match_plain_bf16_on_card(shape):
     """K2 'bf16' (csrc/lenseflow.cu, TIER_BF16: one mma.sync on the
     circulant's bf16 head and the rounded operand) at whole tiles and at
-    ragged edge tiles: lf_deriv with each operand set and lf_velocity of
-    the three kinds at two and three components, one launch each, against
-    the plain 'bf16' version (BF16_DENSE_TOL: the same rounded operands)
-    and the strict kernel (BF16_RATIO), nothing written past the last
-    plane; the 'bf16' counters count their launches."""
+    ragged edge tiles: lf_deriv with each operand set, one launch each,
+    against the plain 'bf16' version (BF16_DENSE_TOL: the same rounded
+    operands) and the strict kernel (BF16_RATIO), nothing written past
+    the last plane; the 'bf16' counters count their launches. The whole
+    flow at 'bf16': test_whole_flow_matches_plain_on_card."""
     _card()
     Ny, Nx = shape
     tp = ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device="cuda")
@@ -1195,16 +1175,6 @@ def test_dense_bf16_kernels_match_plain_bf16_on_card(shape):
         check(a.shape, lambda o, p: lfk.deriv_cuda(*args, o, mats, p),
               lambda o: lfk.deriv_plain(*args, o, mats, "bf16"), "deriv")
     assert lfk.LAUNCHES["deriv_bf16"] == 6
-    pt = _p_planes(0.4, planes)
-    for ncomp in (2, 3):
-        for kind in ("forward", "adjoint", "backward"):
-            y = T(2 * ncomp + lfk.NACC if kind == "backward" else ncomp, Ny, Nx)
-            check(y.shape, lambda o, p: lfk.velocity_cuda(kind, y, o, planes, pt, mats, ncomp,
-                                                          0.4, p),
-                  lambda o: lfk.velocity_plain(kind, y, o, planes, pt, mats, ncomp, 0.4, "bf16"),
-                  kind)
-    assert all(lfk.LAUNCHES[f"velocity_{kind}_bf16"] == 4
-               for kind in ("forward", "adjoint", "backward"))
 
 
 @pytest.mark.cuda
@@ -1536,3 +1506,89 @@ def test_strict_k1_on_the_tile_forms_names_matches_plain_on_card(N, nb):
         e = max(rel(got[i], ref[i]) for i in range(nb))
         print(f"strict K1 N={N} nb={nb} passes {npass}: vs plain {e:.3e}")
         assert e < TOL, e
+
+
+# the whole-flow kernel's cases: the main path's 256^2 P, the IP slice's
+# 3 x 256^2 (its third component a rolled copy of the first), and edge
+# shapes (ragged tiles); each tier's bound for a flow (PERF.md §2)
+WHOLE_FLOW_CASES = [(256, 256, 2), (256, 256, 3), (200, 200, 2), (160, 200, 2)]
+FLOW_TIER_TOL = {"f32": TOL, "high": HIGH_TOL, "bf16": BF16_TOL}
+
+
+def _drawn_inputs(Ny, Nx, ncomp, seed=3):
+    """mats, phi planes and f, dy drawn from the fiducial Cphi and Cf (pol
+    P; a third component, where asked, a rolled copy of the first)."""
+    tp = ct.ProjLambert(Ny, Nx, thetapix=3, T=np.float32, device="cuda")
+    mats = tderiv.deriv_mats(tp)
+    rng = np.random.default_rng(seed)
+    Cl = ct.camb()
+    white = lambda n, pol: ct.Field(torch.as_tensor(
+        rng.standard_normal((n, Ny, Nx)).astype(np.float32), device="cuda"),
+        ct.Basis(pol, "map"), tp)
+    pm = (ct.Cl_to_Cov("I", tp, Cl["total"]["pp"]).sqrt() @ white(1, "I")).to(ct.MAP).arr
+    Cf = ct.Cl_to_Cov("P", tp, Cl["unlensed_scalar"]["EE"], Cl["unlensed_scalar"]["BB"])
+    f = (Cf.sqrt() @ white(2, "QU")).to(ct.QU_MAP).arr
+    dy = white(2, "QU").arr
+    if ncomp == 3:
+        f, dy = (torch.cat([x, torch.roll(x[:1], 17, dims=-1)]) for x in (f, dy))
+    return mats, lfk.gradhess_plain(pm, mats), f.contiguous(), dy.contiguous()
+
+
+def _flow_state(kind, f, dy):
+    if kind != "backward":
+        return f
+    acc = torch.zeros(f.shape[:-3] + (lfk.NACC,) + f.shape[-2:], device=f.device)
+    return torch.cat([f, dy, acc], dim=-3).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "high", "bf16"])
+@pytest.mark.parametrize("Ny,Nx,ncomp", WHOLE_FLOW_CASES)
+def test_whole_flow_matches_plain_on_card(Ny, Nx, ncomp, precision):
+    """K2, one launch a whole dense flow (csrc/dense_flow.cu), every kind,
+    at nsteps 7: every state plane within the tier's bound of the plain
+    leaves walking the same stage table, and at 'high' and 'bf16' nearer it
+    than the strict kernel flow (FLOW_SPLIT_RATIO); the same bits on two
+    calls; one launch a flow on the launch counter."""
+    _card()
+    mats, planes, f, dy = _drawn_inputs(Ny, Nx, ncomp)
+    sfx = "" if precision == "f32" else "_" + precision
+    each = lambda x, y: max(rel(a, b) for a, b in zip(x.reshape(-1, Ny, Nx), y.reshape(-1, Ny, Nx)))
+    for kind in ("forward", "adjoint", "backward"):
+        y = _flow_state(kind, f, dy)
+        lfk.reset_launches()
+        k, p = _flow_pair(kind, y, planes, mats, ncomp, 7, precision)
+        assert {n: v for n, v in lfk.LAUNCHES.items() if v} == {f"flow_{kind}{sfx}": 1}
+        again, _ = _flow_pair(kind, y, planes, mats, ncomp, 7, precision, plain_too=False)
+        e = each(k, p)
+        line = f"whole flow {kind} {ncomp} x {Ny}x{Nx} {precision}: vs plain {e:.3e}"
+        if precision != "f32":
+            st, _ = _flow_pair(kind, y, planes, mats, ncomp, 7, "f32", plain_too=False)
+            r = split_ratio(k, p, st)
+            line += f", Frobenius ratio {r:.4f}"
+            assert r < FLOW_SPLIT_RATIO, (kind, r)
+        print(line)
+        assert e < FLOW_TIER_TOL[precision], (kind, e)
+        assert torch.equal(k, again), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (200, 200)])
+def test_whole_flow_batch_is_the_single_flows_bits_on_card(shape):
+    """Three batch entries, each its own phi and state, in one launch of
+    the flow kernel give each entry's single flow bit for bit, at every
+    kind and tier."""
+    _card()
+    Ny, Nx = shape
+    mats, planes, f, dy = _drawn_inputs(Ny, Nx, 2)
+    phis = torch.stack([s * planes for s in (0.5, 1.0, 1.5)])
+    for kind in ("forward", "adjoint", "backward"):
+        ys = torch.stack([torch.roll(_flow_state(kind, f, dy), 7 * i, dims=-1) for i in range(3)])
+        for precision in ("f32", "high", "bf16"):
+            sfx = "" if precision == "f32" else "_" + precision
+            lfk.reset_launches()
+            out, _ = _flow_pair(kind, ys, phis, mats, 2, 7, precision, plain_too=False)
+            assert {n: v for n, v in lfk.LAUNCHES.items() if v} == {f"flow_{kind}{sfx}": 1}
+            for i in range(3):
+                one, _ = _flow_pair(kind, ys[i], phis[i], mats, 2, 7, precision, plain_too=False)
+                assert torch.equal(out[i], one), (kind, precision, i)

@@ -195,7 +195,9 @@ def test_uni_flow_shares_the_planes_and_matches_the_kernel_granularity(kind):
 
 
 # kernel launches one call of each leaf makes on the card, by leaf set:
-# what the wrappers add to lenseflow_kernels.LAUNCHES
+# what the wrappers add to lenseflow_kernels.LAUNCHES (the dense kernel
+# leaves run a whole flow in one launch, flow_<kind>, and these counts are
+# the plain dense leaves' calls in the flow's walk of the same table)
 PER_CALL = {
     "dense": {"velocity": 1, "rk4_update": 1, "p_planes": 1, "deriv": 1},
     # a factored velocity is an x pass and a y pass; K1 one launch per derivative given
@@ -217,13 +219,13 @@ def test_launches_per_flow(form):
     rec = _Recorder(plain)
     lfk._flow_apply(rec, torch.as_tensor(f), planes, mats, 0., 1., n, "forward")
     launches = {k: v * PER_CALL[form][k] for k, v in rec.calls.items()}
-    assert launches["velocity"] == 4 * n * PER_CALL[form]["velocity"]   # velocity_forward / fa_velocity_forward
+    assert launches["velocity"] == 4 * n * PER_CALL[form]["velocity"]   # dense walk / fa_velocity_forward
     assert launches["rk4_update"] == 4 * n                               # rk4_update
     assert launches["p_planes"] == 2 * n + 1                             # p_planes
     assert "deriv" not in launches                                       # deriv / fderiv: none in an apply
     rec = _Recorder(plain)
     lfk._flow_bwd(rec, torch.as_tensor(dy), torch.as_tensor(f), planes, mats, 0., 1., n)
-    assert rec.calls["velocity"] == 4 * n        # velocity_backward 4n, bv_velocity 8n (two passes)
+    assert rec.calls["velocity"] == 4 * n        # dense walk 4n, bv_velocity 8n (two passes)
     assert rec.calls["rk4_update"] == 4 * n      # rk4_update
     assert rec.calls["p_planes"] == 2 * n + 1    # p_planes
     assert rec.calls["deriv"] == 3               # deriv 3; fderiv 5 (2 + 1 + 2 derivatives given)
@@ -269,7 +271,7 @@ def test_kernel_wrappers_count_where_they_launch():
     phi, f, _ = _weak_lensing()
     mats = _operands("dense")
     lfk.flow_apply(torch.as_tensor(f), lfk.gradhess(torch.as_tensor(phi), mats), mats, 0., 1., 1)
-    assert set(lfk.LAUNCHES) >= {"velocity_forward", "velocity_adjoint", "velocity_backward",
+    assert set(lfk.LAUNCHES) >= {"flow_forward", "flow_adjoint", "flow_backward",
                                  "rk4_update", "p_planes", "deriv", "fderiv",
                                  "fa_velocity_forward", "fa_velocity_adjoint", "bv_velocity"}
     assert all(v == 0 for v in lfk.LAUNCHES.values())
