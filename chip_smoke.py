@@ -149,6 +149,21 @@ port's two paths through the kernel backend:
               FLOW_SPLIT_RATIO), the same bits twice, one launch a flow;
               3 entries in one launch bit for bit the single flows; timed
               warm and cold (and 17 entries at 256^2 P) beside the bound.
+  phase 19    BASELINE.json configs[3], the port's batched sims and Gibbs/HMC
+              sampler: (a) load_sim(thetapix=2, Nside=512, pol="P",
+              Nbatch=32), one warm-up and two timed sample_joint passes at
+              scripts/sample_512_batched.py's settings (N = 25 leapfrog
+              steps of eps 0.003, 3 burn-in steps always accepted, CG 25
+              fixed iterations, strict) on the factored kernels at radix 4
+              (K1, K3, K4, rk4 and p each launched in the timed run): s/pass
+              and its split by pass, accept, dH, every logpdf finite, peak
+              memory, launches a pass; (b) the kernels at the path's shapes
+              (32 sims x 2 components): phi's planes and the L, L^-1, L^H
+              and backward flows (nsteps 1) of the last state against their
+              plain versions; (c) one pass at 2 sims with N = 3 on
+              the kernel backend against the plain one from one generator
+              seed (always accepted: phi carries the HMC trajectory; the
+              accept each dH gives compared).
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
     python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
@@ -156,8 +171,11 @@ port's two paths through the kernel backend:
     python3 chip_smoke.py --phase 16    (phase 1, the build, and phase 16 alone)
     python3 chip_smoke.py --phase 17    (phase 1, the build, and phase 17 alone)
     python3 chip_smoke.py --phase 18    (phase 1, the build, and phase 18 alone)
+    python3 chip_smoke.py --phase 19    (phase 1, the build, and phase 19 alone)
 
-Phases 7 and 8 measure the strict north star (precision=None); phases
+Phases 13, 14 (c) and 16 take one 4096^2 P simulation (load_sim is
+seeded), loaded once in a whole run. Phases 7 and 8 measure the strict
+north star (precision=None); phases
 2-6 and 10 run at the global precision 'f32', and every tier in 10.
 
 Each path's launch counters are set to 0 just before it and read just
@@ -380,6 +398,27 @@ FLOW_BATCH = 3
 FLOW_CASES = {"256P": (N, N, 2), "256IP": (N, N, 3), "200": (200, 200, 2),
               "160x200": (160, 200, 2), "600": (600, 600, 2)}
 FLOW_TIMED = ("256P", "256IP", "200", "600")
+# phase 19: BASELINE.json configs[3], sample_joint over 32 sims at 512^2 P as
+# scripts/sample_512_batched.py runs it (load_sim(thetapix=2, Nside=512,
+# pol="P", Nbatch=32, seed=0); N = 25 leapfrog steps of eps 0.003; 3
+# always-accepted burn-in steps; CG 25 fixed iterations, strict): one
+# warm-up pass, then SAMPLE_PASSES timed
+N_SAMPLE, SAMPLE_SIMS, SAMPLE_PASSES, SAMPLE_NBURNIN = 512, 32, 2, 3
+SAMPLE_SYMP = [dict(N=25, eps=0.003)]
+SAMPLE_CG = dict(tol=0.0, nsteps=25, fixed_iters=True)
+# the kernels a strict pass at radix 4 runs: K1 (phi's planes, delta phi),
+# K3 (L, L^H, L^-1), K4 (the HMC gradients' backward flows), rk4 and p
+SAMPLE_KERNELS = ("fderiv", "fa_velocity_forward", "fa_velocity_adjoint", "bv_velocity",
+                  "rk4_update", "p_planes")
+# ... and one pass at 2 sims with N = 3 on "kernel" against "plain" from one
+# generator seed, always accepted so that phi carries each HMC trajectory
+# (tests/test_torch_cuda.py::test_gibbs_pass_kernel_matches_plain_on_card):
+# f, phi and the logpdf within GIBBS_PLAIN_TOL (25 fixed CG iterations
+# amplify the flows' 1e-5, as WF_PLAIN_TOL's 20 do), dH within GIBBS_DH_ATOL
+# (float32 Hamiltonians of ~6e6 a sim, whose ulp is 0.5: 8 ulps; measured
+# 1.5 on an H100), and the accept each dH gives, log u < dH, the same
+# wherever log u lies farther than that from dH
+GIBBS_PLAIN_TOL, GIBBS_DH_ATOL = 1e-4, 4.0
 
 
 def rel(a, b):
@@ -1780,8 +1819,19 @@ def large_flows(torch, card, ctx):
         raise AssertionError(f"{N}^2 flows disagree with their plain versions: {bad}")
 
 
-def large_sim(torch, card, N, phase=13):
+# the 4096^2 P simulation of phases 13, 14 (c) and 16 (load_sim is seeded:
+# one simulation), loaded once in a whole run by phase 13 and dropped by
+# phase 16, its last user
+SIM_CACHE = {}
+
+
+def large_sim(torch, card, N, phase=13, keep=False):
+    """load_sim at N^2 P as scripts/map_4096.py runs it, or the one an
+    earlier phase of this call kept (keep=True keeps it)."""
     import cmblensing_tpu_torch as ct
+    if N in SIM_CACHE:
+        print(f"phase {phase}: load_sim at {N}^2 P: the simulation phase 13 loaded in this call")
+        return SIM_CACHE[N]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1790,6 +1840,8 @@ def large_sim(torch, card, N, phase=13):
     torch.cuda.synchronize()
     print(f"phase {phase}: load_sim at {N}^2 P: {time.perf_counter() - t0:.2f} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    if keep:
+        SIM_CACHE[N] = sim
     return sim
 
 
@@ -2058,7 +2110,7 @@ def phase_large(torch, card):
     timing_out["linesearch_planes_per_trial_2048"] = per_trial
     del sim
     torch.cuda.empty_cache()
-    sim = large_sim(torch, card, 4096)
+    sim = large_sim(torch, card, 4096, keep=True)
     grad_launches, _ = large_gradient(torch, card, sim)
     paths["gradlnP 4096^2 P strict"] = (grad_launches["kernel"],
                                        ("fderiv", "fa_velocity_forward", "bv_velocity"))
@@ -2209,8 +2261,7 @@ def bf16_large_paths(torch, card, N):
     launches}."""
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
-    sim = ct.load_sim(thetapix=THETAPIX_MAP, Nside=N, pol="P", T=np.float32, seed=SEED,
-                      device=DEVICE)
+    sim = large_sim(torch, card, N, 14)
     paths = {}
     with ct.lenseflow_backend_ctx("kernel"):
         lfk.reset_launches()
@@ -3220,6 +3271,7 @@ def phase_uni_large(torch, card, beside=None):
     paths[main_path] = run_launches
     uni_no_k34(main_path, run_launches)
     del sim
+    SIM_CACHE.clear()
     torch.cuda.empty_cache()
     kernel_s = (beside or {}).get("MAP_joint_4096_s_per_step")
     print(f"phase 16: (d) MAP_joint 4096^2 P \"auto\": uni {s_step:.3f} s/step, peak {peak:.2f} GiB; "
@@ -4095,6 +4147,152 @@ def phase_whole_flow(torch, card):
 
 
 
+def sample_run(torch, ds, nsims, passes, seed, backend="kernel", symp=SAMPLE_SYMP,
+               nburnin=SAMPLE_NBURNIN):
+    import cmblensing_tpu_torch as ct
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    with ct.lenseflow_backend_ctx(backend):
+        return ct.sample_joint(ds, passes, nchains=nsims, generator=g, symp_kwargs=symp,
+                               nburnin_always_accept=nburnin, conjgrad_kwargs=SAMPLE_CG)
+
+
+def gibbs_vs_plain(torch, card, ds):
+    """Phase 19 (c): one Gibbs pass of the dataset ds (its first 2 sims) at
+    N = 3 on "kernel" against "plain" from one generator seed: a chain's
+    first pass, always accepted, so that phi carries each backend's HMC
+    trajectory, and the accept each backend's dH gives (log u < dH)
+    compared."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.inference import sampling as ts
+    ds = ds.replace(d=ct.Field(ds.d.arr[:2], ds.d.basis, ds.d.proj))
+    draw, runs = ts._uniform, {}
+    try:
+        for backend in ("kernel", "plain"):
+            us = []
+            ts._uniform = lambda g, shape: us.append(draw(g, shape)) or us[-1]
+            t0 = time.perf_counter()
+            res = sample_run(torch, ds, 2, 1, 5, backend, [dict(N=3, eps=0.003)], 1)
+            torch.cuda.synchronize()
+            runs[backend] = (res[0][0], us, time.perf_counter() - t0)
+    finally:
+        ts._uniform = draw
+    (k, uk, tk), (p, up, tp_) = runs["kernel"], runs["plain"]
+    errs = {name: rel(k[name].to(k[name].basis.with_space("map")).arr,
+                      p[name].to(k[name].basis.with_space("map")).arr) for name in ("f", "phi")}
+    errs["logpdf"] = rel(k["logpdf"], p["logpdf"])
+    dh = float((k["dH"] - p["dH"]).abs().max())
+    logu = torch.log(uk[0]).cpu()
+    clear = (logu - k["dH"]).abs() > GIBBS_DH_ATOL
+    same_accept = bool(torch.equal((logu < k["dH"])[clear], (logu < p["dH"])[clear]))
+    print(f"phase 19: (c) a Gibbs pass {N_SAMPLE}^2 P x 2 sims, N = 3, kernel vs plain: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (bound {GIBBS_PLAIN_TOL:g}); dH {k['dH'].tolist()} vs {p['dH'].tolist()} "
+          f"(bound {GIBBS_DH_ATOL:g}); log u {logu.tolist()}: accept {(logu < k['dH']).tolist()} "
+          f"vs {(logu < p['dH']).tolist()}; kernel {tk:.2f} s, plain {tp_:.2f} s [{card}]")
+    if not (all(torch.equal(a, b) for a, b in zip(uk, up)) and max(errs.values()) < GIBBS_PLAIN_TOL
+            and dh < GIBBS_DH_ATOL and same_accept and torch.isfinite(k["logpdf"]).all()):
+        raise AssertionError(f"phase 19: the Gibbs pass on kernel disagrees with plain: {errs}, "
+                             f"dH {dh}, same accept {same_accept}")
+
+
+def sample_kernels(torch, card, state):
+    """Phase 19 (b): the kernels at the shapes the sampler's path gives
+    them, on its state after the timed passes (32 sims): phi's planes (K1)
+    against their plain version (HESS_TOL_1024, the bound at thetapix 2),
+    and the forward (L, L^-1), adjoint and backward flows of f (32 x 2
+    planes; K3, K4, rk4, p, and K1 after the backward loop) against the
+    plain leaves, every plane within FLOW_TOL; nsteps 1, whose stages take
+    a whole flow's shapes. Returns {what: error}."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    dev = lambda f: f.to(f.basis.with_space("map")).arr.to(DEVICE).contiguous()
+    phi, f, dy = dev(state["phi"]), dev(state["f"]), dev(state["f_mix"])
+    N = phi.shape[-1]
+    ops = deriv.deriv_ops(ct.ProjLambert(N, N, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE))
+    planes = lfk.gradhess(phi, ops)
+    each = lambda a, b: max(rel(x, y) for x, y in zip(a.reshape(-1, N, N), b.reshape(-1, N, N)))
+    errs = {"planes": rel(planes, lfk.gradhess_plain(phi, ops))}
+    for name, (t0, t1, kind) in (("L", (0., 1., "forward")), ("L^-1", (1., 0., "forward")),
+                                 ("L^H", (1., 0., "adjoint"))):
+        run = lambda fn: fn(f, planes, ops, t0, t1, 1, kind)
+        errs[name] = each(run(lfk.flow_apply), run(lfk.flow_apply_plain))
+    k, p = (fn(dy, f, planes, ops, 0., 1., 1) for fn in (lfk.flow_bwd, lfk.flow_bwd_plain))
+    errs["backward dphi"], errs["backward df0"] = each(k[0], p[0]), each(k[1], p[1])
+    print(f"phase 19: (b) the kernels at {phi.shape[0]} sims x {N}^2 P vs plain: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (bounds {HESS_TOL_1024:g} planes, {FLOW_TOL:g} flows, each plane) [{card}]")
+    return {n: e for n, e in errs.items()
+            if not e < (HESS_TOL_1024 if n == "planes" else FLOW_TOL)}
+
+
+def phase_sample(torch, card):
+    """Phase 19: (a) BASELINE.json configs[3] at full size: load_sim 512^2 P
+    with Nbatch=32, one warm-up sample_joint pass and SAMPLE_PASSES timed at
+    scripts/sample_512_batched.py's settings (s/pass, its split by pass,
+    accept, dH, every logpdf finite, peak memory, launches a pass; each of
+    SAMPLE_KERNELS launched); (b) sample_kernels on its last state; (c)
+    gibbs_vs_plain on its first 2 sims (the data of load_sim(Nbatch=2): one
+    simulation repeated). Returns (launches of the timed run, timings)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    from cmblensing_tpu_torch.utils import timing
+    t_start = time.perf_counter()
+    sim = ct.load_sim(thetapix=THETAPIX_MAP, Nside=N_SAMPLE, pol="P", T=np.float32,
+                      Nbatch=SAMPLE_SIMS, seed=SEED, device=DEVICE)
+    ds = sim["ds"]
+    if ds.d.batch_shape != (SAMPLE_SIMS,):
+        raise AssertionError(f"load_sim(Nbatch={SAMPLE_SIMS}) gave d of batch {ds.d.batch_shape}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample_run(torch, ds, SAMPLE_SIMS, 1, 1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    timing.reset_timers()
+    torch.cuda.reset_peak_memory_stats()
+    lfk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sample_run(torch, ds, SAMPLE_SIMS, SAMPLE_PASSES, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(lfk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    chain = res[0]
+    lps = torch.stack([e["logpdf"] for e in chain])
+    acc = torch.stack([e["accept"] for e in chain]).float()
+    dH = torch.stack([e["dH"] for e in chain])
+    s_pass = wall / SAMPLE_PASSES
+    print(f"phase 19: (a) sample_joint {N_SAMPLE}^2 P x {SAMPLE_SIMS} sims (N 25, eps 0.003, CG 25 "
+          f"fixed): warm-up pass {warm:.2f} s; {SAMPLE_PASSES} passes {wall:.2f} s = "
+          f"{s_pass:.3f} s/pass; peak memory {peak:.2f} GiB; accept {acc.mean().item():.3f} "
+          f"(steps <= {SAMPLE_NBURNIN} always accepted); dH mean per pass "
+          f"{dH.mean(dim=1).tolist()}, range [{dH.min().item():.3f}, {dH.max().item():.3f}]; "
+          f"logpdf mean per pass {lps.mean(dim=1).tolist()} [{card}]")
+    for line in timing.timer_report().splitlines():
+        print(f"phase 19: (a) split {line}")
+    per_pass = {k: v / SAMPLE_PASSES for k, v in launches.items() if v}
+    print(f"phase 19: (a) launches a pass {per_pass}")
+    if not (bool(torch.isfinite(lps).all()) and lps.shape == (SAMPLE_PASSES, SAMPLE_SIMS)
+            and chain[-1]["phi"].batch_shape == (SAMPLE_SIMS,)):
+        raise AssertionError(f"phase 19: sample_joint gave logpdfs {lps.tolist()}")
+    never = {k: launches[k] for k in SAMPLE_KERNELS if launches[k] <= 0}
+    if never:
+        raise AssertionError(f"phase 19: a kernel of the sampler's path never launched: {never}")
+    bad = sample_kernels(torch, card, chain[-1])
+    if bad:
+        raise AssertionError(f"phase 19: the kernels at the sampler's shapes disagree: {bad}")
+    del sim, res, chain
+    torch.cuda.empty_cache()
+    gibbs_vs_plain(torch, card, ds)
+    del ds
+    torch.cuda.empty_cache()
+    print(f"phase 19: wall time {time.perf_counter() - t_start:.1f} s [{card}]")
+    return launches, {"sample_joint_512x32_s_per_pass": s_pass,
+                      "sample_joint_512x32_peak_GiB": peak,
+                      "sample_joint_512x32_launches_per_pass": per_pass}
+
+
 def print_ptxas(log):
     """Phase 1: the build log's register lines and errors, and for the
     kernels on the cluster tile (fderiv_sm90.cu, fa_sm90.cu, bv_sm90.cu,
@@ -4157,6 +4355,9 @@ def main():
     if sys.argv[1:] == ["--phase", "18"]:
         phase_whole_flow(torch, card)
         return 0
+    if sys.argv[1:] == ["--phase", "19"]:
+        phase_sample(torch, card)
+        return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
@@ -4182,6 +4383,7 @@ def main():
     uni_large, uni_large_launches, uni_large_timing = phase_uni_large(torch, card, large_timing)
     sm90, sm90_launches = phase_sm90(torch, card, uni_large)
     flows, flows_batched = phase_whole_flow(torch, card)
+    sample_launches, sample_timing = phase_sample(torch, card)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -4314,11 +4516,15 @@ def main():
         rec.update(name=name, path=path, source=d.get("source", rec["source"]),
                    **({"form": d["form"]} if "form" in d else {}))
         record["kernels"].append(rec)
+    # the sampler's run (phase 19): the launches of the strict kernels it runs
+    for rec in record["kernels"]:
+        if rec["name"] in SAMPLE_KERNELS:
+            rec["launches_sample_joint_512x32"] = sample_launches[rec["name"]]
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),
                    "MAP_joint_1024_s_per_step": (s_step, plain_s_step),
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
                    **high_timing, **dense_high_timing, **wf_timing, **large_timing,
-                   **bf16_timing, **uni_tier_timing, **uni_large_timing,
+                   **bf16_timing, **uni_tier_timing, **uni_large_timing, **sample_timing,
                    **{f"flow_{kind}_{case}_{tier}_ms_warm_cold": (d["ms"], d["cold_ms"])
                       for (case, tier, kind), d in flows.items() if "ms" in d}})
     print("main path ms (kernel, plain):", json.dumps(timing))

@@ -3,11 +3,13 @@ LenseFlow flow as hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of ``cmblensing_tpu`` (JAX), which stays the reference. This
 package imports torch and never jax. It covers the mixed-posterior
-phi-gradient and joint MAP estimation: load_sim for pol I, P and IP
-(with a simulated pixel mask), Fourier-diagonal operators (the T/E/B
-block operator at pol IP), LenseFlow with its continuous-adjoint
+phi-gradient, joint MAP estimation and Gibbs/HMC sampling: load_sim for
+pol I, P and IP (with a simulated pixel mask, and a batch of Nbatch
+copies of its data), batched Fields, Fourier-diagonal operators (the
+T/E/B block operator at pol IP), LenseFlow with its continuous-adjoint
 gradients, the quadratic estimator that sets the phi mixing, the CG
-Wiener filter and MAP_joint with its grid line search.
+Wiener filter (batched), MAP_joint with its grid line search, and
+sample_joint over a batch of chains with its checkpoints and chains.
 
 Strict float32: TF32 is switched off for matmuls and convolutions, the
 counterpart of the JAX package pinning every f32 matmul to
@@ -25,7 +27,10 @@ from .core.basis import (  # noqa: E402
     Basis, MAP, FOURIER, QU_MAP, QU_FOURIER, EB_MAP, EB_FOURIER, IQU_MAP, IEB_FOURIER,
     lense_basis, deriv_basis, harmonic_basis,
 )
-from .core.field import Field, dot, norm, fgrad, fvalue_and_grad, zeros_like_field  # noqa: E402
+from .core.field import (  # noqa: E402
+    Field, dot, norm, fgrad, fvalue_and_grad, zeros_like_field, from_maps, zeros, randn,
+    sum_field, batch, unbatch, batch_index, batch_length, repeat_batch, batch_map,
+)
 from .core.ops import (  # noqa: E402
     BlockDiagIEB, Diag, Identity, Id, LazyOp, ParamDependentOp, Scaled, BandPass, LowPass,
     evaluate_at, logdet, logdet_rel, simulate_op, nan2zero,
@@ -39,8 +44,15 @@ from .models.lenseflow import (  # noqa: E402
 )
 from .models.quadratic_estimate import quadratic_estimate  # noqa: E402
 from .models.dataset import (  # noqa: E402
-    DataSet, Mixed, mix, unmix, load_sim, dataset_from_numpy,
+    DataSet, Mixed, mix, unmix, load_sim, dataset_from_numpy, state_from_numpy,
 )
 from .ops.solvers import conjugate_gradient  # noqa: E402
-from .inference.maximization import MAP_joint, argmaxf_logpdf  # noqa: E402
+from .inference.maximization import MAP_joint, argmaxf_logpdf, sample_f  # noqa: E402
+from .inference.sampling import (  # noqa: E402
+    sample_joint, hmc_step, symplectic_integrate, mass_matrix_phi, grid_and_sample,
+    once_every, start_after_burnin,
+)
+from .inference.chains import (  # noqa: E402
+    Chain, Chains, load_chains, effective_sample_size, mean_std_and_errors, kde,
+)
 from .utils.spectra import bandpower_corr, get_Cl  # noqa: E402

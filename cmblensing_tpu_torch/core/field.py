@@ -17,7 +17,7 @@ import operator
 import numpy as np
 import torch
 
-from .basis import Basis, promote_basis, harmonic_basis
+from .basis import Basis, MAP, promote_basis, harmonic_basis
 from .proj import ProjLambert
 from ..ops import fft as _fft
 from ..utils.summation import asum
@@ -40,6 +40,11 @@ class Field:
     @property
     def batch_shape(self):
         return tuple(self.arr.shape[:-3])
+
+    @property
+    def Nbatch(self):
+        bs = self.batch_shape
+        return int(np.prod(bs)) if bs else 1
 
     @property
     def dtype(self):
@@ -93,6 +98,8 @@ class Field:
             if reverse:
                 a1, a2 = a2, a1
             return Field(op(a1, a2), b, self.proj)
+        if isinstance(other, np.ndarray):
+            other = torch.as_tensor(other, device=self.arr.device)
         if isinstance(other, (int, float, np.floating, torch.Tensor)):
             o = batch_broadcast(other, self)
             a1, a2 = (o, self.arr) if reverse else (self.arr, o)
@@ -102,8 +109,14 @@ class Field:
     def __add__(self, o):
         return self._binop(o, operator.add)
 
+    def __radd__(self, o):
+        return self._binop(o, operator.add, reverse=True)
+
     def __sub__(self, o):
         return self._binop(o, operator.sub)
+
+    def __rsub__(self, o):
+        return self._binop(o, operator.sub, reverse=True)
 
     def __mul__(self, o):
         return self._binop(o, operator.mul)
@@ -111,8 +124,20 @@ class Field:
     def __rmul__(self, o):
         return self._binop(o, operator.mul, reverse=True)
 
+    def __truediv__(self, o):
+        return self._binop(o, operator.truediv)
+
+    def __rtruediv__(self, o):
+        return self._binop(o, operator.truediv, reverse=True)
+
+    def __pow__(self, p):
+        return Field(self.arr ** p, self.basis, self.proj)
+
     def __neg__(self):
         return Field(-self.arr, self.basis, self.proj)
+
+    def __pos__(self):
+        return self
 
     def conj(self):
         return Field(torch.conj(self.arr), self.basis, self.proj)
@@ -175,14 +200,41 @@ def _convert(f: Field, b: Basis) -> Field:
 
 # --- constructors ---------------------------------------------------------
 
-def white_noise_like(generator, f: Field) -> Field:
-    """Standard-normal white noise matching f's pol and batch shape, in
-    the map basis, drawn from `generator`."""
-    b = f.basis.with_space("map")
-    shape = f.batch_shape + (b.ncomp, f.proj.Ny, f.proj.Nx)
-    arr = torch.randn(shape, generator=generator, dtype=f.proj.torch_T,
-                      device=f.proj.device)
-    return Field(arr, b, f.proj)
+def from_maps(arr, proj: ProjLambert, pol=None) -> Field:
+    """A map-basis Field from an array of shape (Ny, Nx), (ncomp, Ny, Nx)
+    or (*batch, ncomp, Ny, Nx), on proj's device; pol 'I', 'QU' or 'IQU'
+    (from ncomp when None)."""
+    arr = torch.as_tensor(arr, dtype=proj.torch_T, device=proj.device)
+    if arr.ndim == 2:
+        arr = arr[None]
+    if pol is None:
+        pol = {1: "I", 2: "QU", 3: "IQU"}[arr.shape[-3]]
+    return Field(arr, Basis(pol, "map"), proj)
+
+
+def zeros(proj: ProjLambert, basis: Basis = MAP, batch_shape=()) -> Field:
+    shape = tuple(batch_shape) + (basis.ncomp,) + (proj.shape_fourier if basis.is_fourier
+                                                   else proj.shape_map)
+    dtype = torch.complex64 if proj.torch_T == torch.float32 else torch.complex128
+    arr = torch.zeros(shape, dtype=dtype if basis.is_fourier else proj.torch_T,
+                      device=proj.device)
+    return Field(arr, basis, proj)
+
+
+def randn(generator, proj: ProjLambert, pol="I", batch_shape=()) -> Field:
+    """Standard-normal white noise in the map basis, drawn from
+    `generator`."""
+    b = Basis(pol, "map")
+    shape = tuple(batch_shape) + (b.ncomp, proj.Ny, proj.Nx)
+    return Field(torch.randn(shape, generator=generator, dtype=proj.torch_T, device=proj.device),
+                 b, proj)
+
+
+def white_noise_like(generator, f: Field, batch_shape=None) -> Field:
+    """Standard-normal white noise matching f's pol, with f's batch shape
+    (or `batch_shape`), in the map basis, drawn from `generator`."""
+    bs = f.batch_shape if batch_shape is None else tuple(batch_shape)
+    return randn(generator, f.proj, f.basis.pol, bs)
 
 
 def zeros_like_field(f: Field) -> Field:
@@ -205,6 +257,11 @@ def dot(a: Field, b: Field):
 
 def norm(f: Field):
     return torch.sqrt(dot(f, f))
+
+
+def sum_field(f: Field):
+    """Sum of the map-basis values, per batch entry."""
+    return asum(f.to(f.basis.with_space("map")).arr)
 
 
 # --- gradients w.r.t. fields ----------------------------------------------
@@ -240,3 +297,51 @@ def fgrad(fn):
         return vg(f, *args, **kwargs)[1]
 
     return gradfn
+
+
+# --- batching: a leading batch axis on the arrays -----------------------
+
+def batch(fs):
+    """Fields stacked along a new leading batch axis, in the first one's
+    basis (a Field comes back as it is)."""
+    if isinstance(fs, Field):
+        return fs
+    fs = list(fs)
+    b = fs[0].basis
+    return Field(torch.stack([f.to(b).arr for f in fs]), b, fs[0].proj)
+
+
+def unbatch(f: Field):
+    """The list of f's batch entries (f itself, unbatched)."""
+    if not f.batch_shape:
+        return [f]
+    arr = f.arr.reshape((-1,) + f.arr.shape[len(f.batch_shape):])
+    return [Field(a, f.basis, f.proj) for a in arr]
+
+
+def batch_index(f: Field, i):
+    if not f.batch_shape:
+        raise ValueError("field is not batched")
+    return Field(f.arr[i], f.basis, f.proj)
+
+
+def batch_length(f) -> int:
+    if isinstance(f, Field):
+        return f.Nbatch
+    if hasattr(f, "shape"):
+        return int(np.prod(f.shape)) if len(f.shape) else 1
+    return 1
+
+
+def repeat_batch(f: Field, n: int) -> Field:
+    """An unbatched field repeated n times along a new batch axis."""
+    return Field(f.arr.unsqueeze(0).expand((n,) + tuple(f.arr.shape)).contiguous(), f.basis,
+                 f.proj)
+
+
+def batch_map(fn, fs):
+    """fn over the batch entries of a Field (batched back together), or
+    over a list."""
+    if isinstance(fs, Field):
+        return batch([fn(f) for f in unbatch(fs)])
+    return [fn(f) for f in fs]

@@ -563,10 +563,10 @@ def _diag_field_of(op):
     raise TypeError(type(op))
 
 
-def simulate_op(generator, op):
-    """Draw xi with <xi xi'> = op: sqrt(op) @ white noise drawn from
-    `generator`."""
-    xi = white_noise_like(generator, _diag_field_of(op))
+def simulate_op(generator, op, batch_shape=()):
+    """Draw xi with <xi xi'> = op: sqrt(op) @ white noise of batch shape
+    `batch_shape` drawn from `generator`."""
+    xi = white_noise_like(generator, _diag_field_of(op), batch_shape=batch_shape)
     if isinstance(op, ParamDependentOp):
         op = op.fiducial
     return op.sqrt() @ xi

@@ -113,6 +113,10 @@ class ProjLambert:
             self._tensors[name] = t
         return t
 
+    def __reduce__(self):
+        # pickled by its parameters: unpickling gives the memoized instance
+        return (ProjLambert, (self.Ny, self.Nx, self.thetapix, self.T, str(self.device)))
+
     def __hash__(self):
         return hash((ProjLambert, self.Ny, self.Nx, self.thetapix, self.T.str,
                      str(self.device)))

@@ -34,8 +34,10 @@ every later step, a gradient and a line search each time.
 Not ported yet, and refused with NotImplementedError (ROADMAP Queue 1
 item 3): ``linesearch="brent"`` (and so an
 ``alpha_tol`` and a ``logprior`` in MAP_joint), ``quasi_sample`` (and
-so a ``key``), ``nburnin_update_hessian``, batched datasets, and
-``MAP_marg``. ``argmaxf_logpdf`` solves the Gaussian conditional only and
+so a ``key``), ``nburnin_update_hessian``, ``MAP_joint`` on batched datasets, and
+``MAP_marg``. ``argmaxf_logpdf`` and ``sample_f`` take a batched d: CG
+keeps a residual and a step per entry, and the strict re-check's verdict
+covers every entry. ``argmaxf_logpdf`` solves the Gaussian conditional only and
 warns when the dataset has a logprior, as the JAX package does.
 """
 from __future__ import annotations
@@ -48,7 +50,7 @@ import numpy as np
 import torch
 
 from ..core.field import Field, dot as field_dot, fvalue_and_grad, norm as field_norm, \
-    zeros_like_field
+    repeat_batch, zeros_like_field
 from ..core.ops import Diag, Id, ParamDependentOp, _Identity, _diag_field_of, evaluate_at
 from ..models.dataset import DataSet, Mixed, mix, unmix
 from ..ops.deriv import precision_ctx
@@ -142,8 +144,6 @@ def argmaxf_logpdf(ds: DataSet, phi=None, theta=None, d=None, fstart=None,
     _check_precision(hp, "hessian_precision", (None, "f32", "high", "bf16"))
     if d is None:
         d = ds.d
-    if d.batch_shape:
-        raise NotImplementedError(f"argmaxf_logpdf on a batched dataset is {_NOT_PORTED}")
     with torch.no_grad():
         x, info = _argmaxf_core(ds, theta, phi, d, fstart, offset, hp, **cg)
         if hp and not bool(info["precision_ok"]):
@@ -156,6 +156,8 @@ def _argmaxf_core(ds, theta, phi, d, fstart, offset, hessian_precision=None, **c
     precond = hessian_f_preconditioner(ds)
     dfield = _diag_field_of(ds.Cf)
     zero_f = zeros_like_field(dfield).to(dfield.basis.with_space("map"))
+    if d.batch_shape:
+        zero_f = repeat_batch(zero_f, d.batch_shape[0])
     zero_d = zeros_like_field(d)
     # gradientf(f, d) = b - H f with H SPD: b = gradientf(0, d) and
     # H f = -(gradientf(f, 0) - a0); with a Hessian precision, b, a0 and
@@ -184,6 +186,20 @@ def _argmaxf_core(ds, theta, phi, d, fstart, offset, hessian_precision=None, **c
         info["precision_ok"] = torch.all(
             info["res_strict"] <= torch.clamp(1e-10 * info["res0"], min=float(cg.get("tol", 1e-1))))
     return x, info
+
+
+def sample_f(generator, ds: DataSet, phi=None, theta=None, d=None, **kwargs):
+    """A posterior sample of f at fixed (phi, theta) by constrained
+    simulation: a simulation (f_s, d_s) drawn from `generator` at phi, and
+    f_s + argmax_f of the posterior given d - d_s (argmaxf_logpdf with
+    offset=True; kwargs go to it). Returns (f, info)."""
+    theta = theta or {}
+    if d is None:
+        d = ds.d
+    with torch.no_grad():
+        sim = ds.simulate(generator, theta=theta, phi=phi)
+    df, info = argmaxf_logpdf(ds, phi=phi, theta=theta, d=d - sim["d"], offset=True, **kwargs)
+    return sim["f"] + df.to(sim["f"].basis), info
 
 
 # =========================================================================

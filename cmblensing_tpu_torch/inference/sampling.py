@@ -1,0 +1,432 @@
+"""Gibbs/HMC sampling of the joint lensing posterior.
+
+Counterpart of ``cmblensing_tpu/inference/sampling.py`` (reference
+src/sampling.jl): the leapfrog integrator is a Python loop of N
+gradients taken by autograd through ``Mixed.logpdf``; HMC accepts or
+rejects each batch entry (chain) on its own; chains are the leading
+batch axis of every field, so a Gibbs pass over 32 chains runs each
+LenseFlow flow once, with chains x components on the kernels' grids;
+checkpoints are CRC-protected records appended by the native writer
+(``native/``), from which a run resumes.
+
+Randomness comes from one ``torch.Generator`` held in the state under
+"generator" (where the JAX package splits keys): every normal draw goes
+through ``core/ops.py::simulate_op`` (white noise by
+``core/field.py::white_noise_like``), every uniform through `_uniform`.
+
+Not ported: ``mesh=`` (the chains sharded over several cards, ROADMAP
+Queue 1 item 9).
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import warnings
+from functools import partial
+
+import numpy as np
+import torch
+
+from ..core.field import Field, dot as field_dot, fgrad, batch_broadcast, repeat_batch, \
+    zeros_like_field
+from ..core.ops import Diag, safe_reciprocal, simulate_op
+from ..core.proj import ProjLambert
+from ..models.dataset import DataSet, Mixed, mix, unmix
+from ..utils.progress import progress_bar
+from ..utils.timing import timed, timer_report, timers_snapshot
+from .maximization import _argmaxf_core, _fid
+
+
+def _uniform(generator, shape):
+    """Uniform [0, 1) draws of `shape` from `generator`, on its device."""
+    return torch.rand(shape, generator=generator, device=generator.device)
+
+
+# =========================================================================
+# symplectic integration (reference src/sampling.jl:14-46)
+# =========================================================================
+
+def symplectic_integrate(x0, p0, Lambda, U_grad, N=50, eps=0.1, U=None):
+    """Leapfrog integration of the potential U with mass matrix Lambda,
+    N steps of size eps. U_grad(x) is the gradient of U at x (a Field).
+    Returns (dH, x, p), dH the change of H(x, p) = U(x) - p' Lambda^-1 p / 2
+    (None without U), in the reference's sign conventions (U = logpdf)."""
+
+    def energy(x, p):
+        quad = field_dot(p, Lambda.solve(p))
+        return -quad / 2 if U is None else U(x) - quad / 2
+
+    x, p, gU = x0, p0, U_grad(x0)
+    for _ in range(N):
+        x1 = x - eps * Lambda.solve(p - (eps / 2) * gU)
+        gU1 = U_grad(x1)
+        p = p - (eps / 2) * (gU1 + gU)
+        x, gU = x1, gU1
+    dH = energy(x, p) - energy(x0, p0) if U is not None else None
+    return dH, x, p
+
+
+def mass_matrix_phi(theta, ds: DataSet):
+    """pinv(G)^2 (pinv(Cphi) + pinv(Nphi)) at theta (src/sampling.jl:422-425)."""
+    dst = ds.at(theta or {})
+    G, Cphi, Nphi = _fid(dst.G), _fid(dst.Cphi), _fid(dst.Nphi)
+    icp = safe_reciprocal(Cphi.diag.arr)
+    inp = safe_reciprocal(Nphi.diag.to(Cphi.diag.basis).arr)
+    ig2 = safe_reciprocal(G.diag.to(Cphi.diag.basis).arr) ** 2 if isinstance(G, Diag) else 1.0
+    return Diag(Field(ig2 * (icp + inp), Cphi.diag.basis, Cphi.diag.proj))
+
+
+def hmc_step(generator, U, x, Lambda, U_grad=None, N=25, eps=0.01, always_accept=False):
+    """One HMC step (src/sampling.jl:405-419): a momentum p ~ N(0, Lambda)
+    of x's batch shape, a leapfrog trajectory, and each batch entry
+    accepted where log(u) < dH (u uniform) or always_accept. U is the
+    log-posterior, per batch entry. Returns (x, dH, accept)."""
+    if U_grad is None:
+        U_grad = fgrad(lambda y: torch.sum(U(y)))
+    p = simulate_op(generator, Lambda, batch_shape=x.batch_shape)
+    dH, xt, _ = symplectic_integrate(x, p.to(x.basis), Lambda, U_grad, N=N, eps=eps, U=U)
+    logu = torch.log(_uniform(generator, dH.shape))
+    accept = torch.logical_or(torch.as_tensor(bool(always_accept), device=dH.device), logu < dH)
+    x_new = Field(torch.where(batch_broadcast(accept, x), xt.to(x.basis).arr, x.arr), x.basis,
+                  x.proj)
+    return x_new, dH, accept
+
+
+# =========================================================================
+# 1-D gridded slice sampling (reference grid_and_sample,
+# src/sampling.jl:80-135)
+# =========================================================================
+
+def grid_and_sample(generator, logpdf_fn, xs, nsamples=1, smooth_frac=0.1, batched=False):
+    """Evaluate a 1-D logpdf on the grid xs, smooth it, and draw nsamples
+    by inverse-transform sampling, one uniform draw of `generator` per
+    sample. logpdf_fn may return one value per batch entry, and then each
+    entry is sampled on its own; with batched=True it takes the whole grid
+    and returns (nx,) or (nx, nbatch).
+
+    Returns (samples, interpolated logpdf callable(s), grid logpdfs)."""
+    xs = np.asarray(xs, dtype=np.float64)
+    as_np = lambda v: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v,
+                                 dtype=np.float64)
+    if batched:
+        lps = as_np(logpdf_fn(xs)).reshape(len(xs), -1)            # (nx, nbatch)
+    else:
+        lps = np.stack([np.atleast_1d(as_np(logpdf_fn(float(x)))) for x in xs])
+    nb = lps.shape[1]
+    out = np.zeros((nsamples, nb))
+    interp_fns = []
+    for b in range(nb):
+        lp = lps[:, b].copy()
+        finite = np.isfinite(lp)
+        if not finite.any():
+            # a poisoned chain: sample uniformly from the grid rather
+            # than end the run with a zero-size reduction
+            warnings.warn("grid_and_sample: no finite logpdf on the grid "
+                          f"for batch entry {b}; sampling uniformly", stacklevel=2)
+            finite = np.ones_like(finite)
+            lp = np.zeros_like(lp)
+        xs_b, lp_b = xs[finite], lp[finite]
+        lp_b = lp_b - lp_b.max()
+        # mild smoothing of the log pdf (the reference uses loess)
+        if smooth_frac and len(lp_b) > 4:
+            w = max(3, int(len(lp_b) * smooth_frac) | 1)
+            kern = np.hanning(w)
+            kern /= kern.sum()
+            lp_s = np.convolve(np.pad(lp_b, w // 2, mode="edge"), kern, mode="valid")
+        else:
+            lp_s = lp_b
+        pdf = np.exp(lp_s - lp_s.max())
+        cdf = np.concatenate([[0], np.cumsum((pdf[1:] + pdf[:-1]) / 2 * np.diff(xs_b))])
+        if cdf[-1] > 0:
+            cdf /= cdf[-1]
+        else:   # a pdf that underflowed everywhere: uniform
+            cdf = np.linspace(0.0, 1.0, len(xs_b))
+        r = _uniform(generator, (nsamples,)).cpu().numpy()
+        out[:, b] = np.interp(r, cdf, xs_b)
+        interp_fns.append(partial(np.interp, xp=xs_b, fp=lp_s))
+    samples = out[0] if nsamples == 1 else out
+    if nb == 1:
+        samples = samples[..., 0] if np.ndim(samples) else samples
+        return (float(samples) if np.ndim(samples) == 0 else samples,
+                interp_fns[0], lps[:, 0])
+    return samples, interp_fns, lps
+
+
+# =========================================================================
+# Gibbs passes (reference sample_joint, src/sampling.jl:180-335)
+# =========================================================================
+# Each pass takes and returns the state dict; the state's "generator" is
+# the source of every draw. Passes run under torch.no_grad(), the HMC
+# gradient enabling autograd for itself (core/field.py::fvalue_and_grad).
+
+@torch.no_grad()
+def gibbs_sample_f(state, ds, conjgrad_kwargs):
+    """f from its conditional posterior by constrained simulation
+    (src/maximization.jl:56-62): a simulation at phi, and the strict CG
+    solve given d - d_sim, from state["f"] (reference src/sampling.jl:388)."""
+    cg = dict(tol=1e-1, nsteps=500)
+    cg.update(conjgrad_kwargs or {})
+    theta, phi = state["theta"], state["phi"]
+    sim = ds.simulate(state["generator"], theta=theta, phi=phi)
+    df, _ = _argmaxf_core(ds, theta, phi, ds.d - sim["d"], state.get("f"), True, None,
+                          nsteps=int(cg["nsteps"]), tol=float(cg["tol"]),
+                          fixed_iters=bool(cg.get("fixed_iters", False)))
+    return dict(state, f=sim["f"] + df.to(sim["f"].basis))
+
+
+@torch.no_grad()
+def gibbs_mix(state, ds):
+    m = mix(ds, f=state["f"], phi=state["phi"], theta=state["theta"])
+    # phi° in its map basis: the HMC momenta and gradients live on the
+    # pixels (core/field.py::fgrad)
+    pm = m["phi_mix"]
+    return dict(state, f_mix=m["f_mix"], phi_mix=pm.to(pm.basis.with_space("map")))
+
+
+@torch.no_grad()
+def gibbs_unmix(state, ds):
+    u = unmix(ds, f_mix=state["f_mix"], phi_mix=state["phi_mix"], theta=state["theta"])
+    return dict(state, f=u["f"], phi=u["phi"])
+
+
+def _hmc_phi(ds, generator, f_mix, phi_mix, theta, N, eps, always_accept):
+    """One HMC trajectory on phi° of the mixed posterior at fixed f°."""
+    mixed = Mixed(ds)
+
+    def U(pm):
+        return mixed.logpdf(f_mix=f_mix, phi_mix=pm, theta=theta)
+
+    return hmc_step(generator, U, phi_mix, mass_matrix_phi(theta, ds), N=N, eps=eps,
+                    always_accept=always_accept)
+
+
+@torch.no_grad()
+def gibbs_sample_phi(state, ds, symp_kwargs, always_accept=False):
+    """An HMC step on phi° for each entry of symp_kwargs (N, eps)."""
+    phi_mix, dH, accept = state["phi_mix"], None, None
+    for kw in symp_kwargs:
+        phi_mix, dH, accept = _hmc_phi(ds, state["generator"], state["f_mix"], phi_mix,
+                                       state["theta"], int(kw.get("N", 25)),
+                                       float(kw.get("eps", 0.01)), bool(always_accept))
+    return dict(state, phi_mix=phi_mix, dH=dH, accept=accept)
+
+
+def gibbs_sample_slice_theta(name, xs):
+    """A pass that slice-samples the scalar theta[name] on the grid xs
+    (reference gibbs_sample_slice_θ!, src/sampling.jl:427-437): the mixed
+    logpdf at each grid value in turn, each evaluation over every chain
+    at once; one value a chain."""
+
+    @torch.no_grad()
+    def pass_fn(state, ds, **_):
+        theta = dict(state["theta"])
+        mixed = Mixed(ds)
+
+        def lp_grid(vs):
+            return torch.stack([mixed.logpdf(f_mix=state["f_mix"], phi_mix=state["phi_mix"],
+                                             theta=dict(theta, **{name: float(v)}))
+                                for v in vs])
+
+        val, _, _ = grid_and_sample(state["generator"], lp_grid, xs, batched=True)
+        theta[name] = float(np.asarray(val).ravel()[0]) if np.size(val) == 1 else val
+        return dict(state, theta=theta)
+
+    return pass_fn
+
+
+@torch.no_grad()
+def gibbs_postprocess(state, ds):
+    phi, f = state["phi"], state["f"]
+    lp = ds.logpdf(f=f, phi=phi, theta=state["theta"])
+    return dict(state, logpdf=lp, ft=ds.L(phi) @ f)
+
+
+def sample_joint(ds: DataSet, nsamps_per_chain, nchains=1, generator=None, theta_range=None,
+                 theta_start=None, phi_start="prior", nhmc=1, symp_kwargs=None,
+                 nburnin_always_accept=10, conjgrad_kwargs=None, filename=None, resume=None,
+                 nfilewrite=5, nsavemaps=1, progress=False, verbose_timing=False,
+                 gibbs_passes=None, mesh=None):
+    """Gibbs-sample P(f, phi, theta | d) over nchains chains, the leading
+    batch axis of every field (d repeated per chain unless batched).
+
+    The default pass (src/sampling.jl:186-193): f by the CG f-step ->
+    mix -> HMC on phi° (symp_kwargs, each step accepted while the step
+    number is at most nburnin_always_accept) -> a slice pass for each
+    theta in theta_range (a grid of values) -> unmix -> logpdf and the
+    lensed f. gibbs_passes replaces it with a list of pass(state, ds).
+    phi starts from the prior ("prior"), zero (0 or None) or the given
+    field; theta from theta_start, else a uniform draw over its range.
+    `generator` (a torch.Generator on ds's device, seeded 0 when not
+    given) is the source of every draw.
+
+    Checkpoints: with `filename`, records of the last nfilewrite steps
+    (fields every nsavemaps steps, on the host) are appended to
+    <filename>.ckpt by the native writer; resume=True continues from the
+    last record, its draws where they left off. verbose_timing prints
+    each step's split by pass. Returns Chains with one batched chain."""
+    if mesh is not None:
+        raise NotImplementedError("sample_joint(mesh=...) is not ported yet "
+                                  "(ROADMAP Queue 1 item 9)")
+    proj = ds.d.proj
+    if generator is None:
+        generator = torch.Generator(device=proj.device)
+        generator.manual_seed(0)
+    symp_kwargs = symp_kwargs or [dict(N=25, eps=0.01)] * nhmc
+    cg = dict(tol=1e-1, nsteps=500)
+    cg.update(conjgrad_kwargs or {})
+    theta_range = theta_range or {}
+    Cphi = _fid(ds.Cphi)
+
+    start_step = 0
+    chain = []
+    if filename and resume and os.path.exists(_ckpt_name(filename)):
+        states, start_step = _load_last_chunk(filename, proj, generator)
+        if progress:
+            print(f"Resuming chains at step {start_step}")
+    else:
+        theta = dict(theta_start or {})
+        for name, rng_ in theta_range.items():
+            if name not in theta:
+                lo, hi = float(np.min(rng_)), float(np.max(rng_))
+                theta[name] = lo + (hi - lo) * float(_uniform(generator, ()))
+        with torch.no_grad():
+            if isinstance(phi_start, str) and phi_start == "prior":
+                phi = simulate_op(generator, Cphi, batch_shape=(nchains,))
+                phi = phi.to(phi.basis.with_space("map"))
+            elif phi_start is None or (not isinstance(phi_start, Field) and phi_start == 0):
+                phi = repeat_batch(zeros_like_field(Cphi.diag).to(
+                    Cphi.diag.basis.with_space("map")), nchains)
+            else:
+                phi = phi_start if phi_start.batch_shape else repeat_batch(phi_start, nchains)
+        states = dict(generator=generator, phi=phi, theta=theta, step=0)
+    ds_b = ds if ds.d.batch_shape else ds.replace(d=repeat_batch(ds.d, nchains))
+
+    if gibbs_passes is None:
+        def passes(state):
+            with timed("gibbs/sample_f"):
+                state = gibbs_sample_f(state, ds_b, cg)
+            with timed("gibbs/mix"):
+                state = gibbs_mix(state, ds_b)
+            with timed("gibbs/sample_phi"):
+                state = gibbs_sample_phi(state, ds_b, symp_kwargs,
+                                         always_accept=state["step"] <= nburnin_always_accept)
+            with timed("gibbs/sample_theta"):
+                for name, rng_ in theta_range.items():
+                    state = gibbs_sample_slice_theta(name, rng_)(state, ds_b)
+            with timed("gibbs/unmix"):
+                state = gibbs_unmix(state, ds_b)
+            with timed("gibbs/postprocess"):
+                state = gibbs_postprocess(state, ds_b)
+            return state
+    else:
+        def passes(state):
+            for p in gibbs_passes:
+                with timed(f"gibbs/{getattr(p, '__name__', 'pass')}"):
+                    state = p(state, ds_b)
+            return state
+
+    # the native writer appends on its own thread: sampling never waits
+    # on the disk; records are CRC-protected for a crash's resume
+    writer = None
+    if filename:
+        from ..native import CheckpointWriter
+        writer = CheckpointWriter(_ckpt_name(filename), append=bool(resume))
+    chunk = []
+    try:
+        with progress_bar(nsamps_per_chain - start_step, "sample_joint",
+                          enabled=progress) as pbar:
+            for step in range(start_step + 1, nsamps_per_chain + 1):
+                states["step"] = step
+                snap = timers_snapshot() if verbose_timing else None
+                states = passes(states)
+                if verbose_timing:
+                    print(f"--- gibbs step {step} timing ---\n" + timer_report(since=snap),
+                          flush=True)
+                entry = _filter_for_saving(states, step, nsavemaps)
+                chain.append(entry)
+                chunk.append(entry)
+                if progress:
+                    sv = {k: float(torch.mean(torch.as_tensor(entry[k], dtype=torch.float64)))
+                          for k in ("logpdf", "accept") if entry.get(k) is not None}
+                    pbar.update(**sv)
+                if writer and step % nfilewrite == 0:
+                    _write_chunk(writer, chunk, states)
+                    chunk = []
+            if writer and chunk:
+                _write_chunk(writer, chunk, states)
+    finally:
+        if writer:
+            writer.flush()
+            writer.close()
+
+    from .chains import Chains
+    return Chains([chain])
+
+
+def once_every(n, gibbs_pass):
+    """Run a Gibbs pass only every n steps (src/sampling.jl:469-477)."""
+
+    def wrapped(state, ds, **kw):
+        return gibbs_pass(state, ds, **kw) if state["step"] % n == 0 else state
+
+    return wrapped
+
+
+def start_after_burnin(n, gibbs_pass):
+    """Run a Gibbs pass only after n burn-in steps (src/sampling.jl:479-487)."""
+
+    def wrapped(state, ds, **kw):
+        return gibbs_pass(state, ds, **kw) if state["step"] > n else state
+
+    return wrapped
+
+
+# =========================================================================
+# checkpoints: host copies, pickled into the native writer's records
+# =========================================================================
+
+def _host(v):
+    """v's copy on the host: a Field on its projection's CPU twin, a
+    tensor on the CPU, anything else as it is."""
+    if isinstance(v, Field):
+        p = v.proj
+        return Field(v.arr.detach().cpu(), v.basis,
+                     ProjLambert(p.Ny, p.Nx, p.thetapix, p.T, device="cpu"))
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu()
+    return v
+
+
+def _filter_for_saving(state, step, nsavemaps):
+    """What a chain keeps of a step: everything but the generator, on the
+    host, fields only every nsavemaps steps."""
+    return dict({k: _host(v) for k, v in state.items()
+                 if k != "generator" and (not isinstance(v, Field) or step % nsavemaps == 0)},
+                step=step)
+
+
+def _ckpt_name(filename):
+    return f"{filename}.ckpt"
+
+
+def _write_chunk(writer, chunk, states):
+    state = {k: _host(v) for k, v in states.items() if k != "generator"}
+    state["generator_state"] = states["generator"].get_state()
+    writer.write(pickle.dumps(dict(chunk=chunk, state=state)))
+
+
+def _load_last_chunk(filename, proj, generator):
+    """The state of the last valid record, its fields and tensors on
+    proj's device, its draws continuing in `generator`; and its step."""
+    from ..native import read_records
+    recs = read_records(_ckpt_name(filename))
+    if not recs:
+        raise FileNotFoundError(f"no valid checkpoint records in {_ckpt_name(filename)}")
+    saved = pickle.loads(recs[-1])["state"]
+    generator.set_state(saved.pop("generator_state"))
+    dev = proj.device
+    states = {k: (Field(v.arr.to(dev), v.basis, proj) if isinstance(v, Field)
+                  else v.to(dev) if isinstance(v, torch.Tensor) else v)
+              for k, v in saved.items()}
+    states["generator"] = generator
+    return states, int(states["step"])

@@ -20,7 +20,7 @@ import torch
 
 from ..core.basis import Basis
 from ..core.cov import Cl_to_Cov
-from ..core.field import Field
+from ..core.field import Field, repeat_batch
 from ..core.ops import (BlockDiagIEB, Diag, Id, LazyOp, LowPass, BandPass, OpAlgebra,
                         ParamDependentOp, Scaled, evaluate_at, logdet_rel, safe_divide,
                         safe_reciprocal)
@@ -75,7 +75,19 @@ def _ieb_map(op, fn):
     return BlockDiagIEB(*(fn(getattr(op, k)) for k in IEB_BLOCKS))
 
 
+def _bscal(s, field):
+    """A parameter value broadcastable against field's array: a scalar as
+    it is, a per-entry vector (numpy or torch, one value a batch entry)
+    as a tensor of shape (*batch, 1, 1, 1) on field's device."""
+    if isinstance(s, (np.ndarray, torch.Tensor)) and s.ndim >= 1:
+        t = torch.as_tensor(s, dtype=field.proj.torch_T, device=field.proj.device)
+        return t.reshape(tuple(t.shape) + (1, 1, 1))
+    return s
+
+
 def _op_scale(s, op):
+    if isinstance(op, (Diag, BlockDiagIEB)):
+        s = _bscal(s, op.diag if isinstance(op, Diag) else op.TT)
     if isinstance(op, Diag):
         return Diag(Field(s * op.diag.arr, op.diag.basis, op.diag.proj))
     if isinstance(op, BlockDiagIEB):
@@ -85,6 +97,8 @@ def _op_scale(s, op):
 
 def _op_lincomb(a, s, b):
     """a + s*b for two Diags or two BlockDiagIEBs."""
+    if isinstance(a, (Diag, BlockDiagIEB)):
+        s = _bscal(s, a.diag if isinstance(a, Diag) else a.TT)
     if isinstance(a, Diag) and isinstance(b, Diag):
         gb = b.diag.to(a.diag.basis)
         return Diag(Field(a.diag.arr + s * gb.arr, a.diag.basis, a.diag.proj))
@@ -172,17 +186,20 @@ class DataSet:
         mu = evaluate_at(self.M, theta) @ (evaluate_at(self.B, theta) @ ft)
         return MvNormal(mu, evaluate_at(self.Cn, theta)).logpdf(d)
 
-    def simulate(self, generator, theta=None, phi=None, f=None):
-        """Draw f, phi and the noise from `generator` (in that order) and
-        the data they give."""
+    def simulate(self, generator, theta=None, phi=None, f=None, batch_shape=None):
+        """Draw f, phi and the noise from `generator` (in that order), each
+        of batch shape `batch_shape` (d's unless given), and the data they
+        give."""
         theta = theta or {}
+        if batch_shape is None:
+            batch_shape = self.d.batch_shape if isinstance(self.d, Field) else ()
         if f is None:
-            f = MvNormal(0, evaluate_at(self.Cf, theta)).sample(generator)
+            f = MvNormal(0, evaluate_at(self.Cf, theta)).sample(generator, batch_shape)
         if phi is None:
-            phi = MvNormal(0, evaluate_at(self.Cphi, theta)).sample(generator)
+            phi = MvNormal(0, evaluate_at(self.Cphi, theta)).sample(generator, batch_shape)
         ft = self.L(phi) @ f
         mu = evaluate_at(self.M, theta) @ (evaluate_at(self.B, theta) @ ft)
-        n = MvNormal(0, evaluate_at(self.Cn, theta)).sample(generator)
+        n = MvNormal(0, evaluate_at(self.Cn, theta)).sample(generator, batch_shape)
         return dict(f=f, phi=phi, ft=ft, n=n, d=mu + n)
 
     def gradientf_logpdf(self, f, phi=None, theta=None, d=None):
@@ -237,6 +254,22 @@ def unmix(ds: DataSet, f_mix=None, phi_mix=None, theta=None):
 
 
 # =========================================================================
+# module-level functional API
+# =========================================================================
+
+def simulate(generator, ds, **kw):
+    return ds.simulate(generator, **kw)
+
+
+def logpdf(ds, **kw):
+    return ds.logpdf(**kw)
+
+
+def gradientf_logpdf(ds, **kw):
+    return ds.gradientf_logpdf(**kw)
+
+
+# =========================================================================
 # load_sim
 # =========================================================================
 
@@ -254,10 +287,13 @@ def _mask_cov(pol, proj, bandpass):
     raise ValueError(pol)
 
 
-def load_sim(thetapix, Nside, pol, T=np.float32, muKarcminT=3, beamFWHM=0,
+def load_sim(thetapix, Nside, pol, T=np.float32, Nbatch=None, muKarcminT=3, beamFWHM=0,
              pixel_mask_kwargs=None, bandpass_mask=None, seed=0, device=None):
     """Simulated-dataset factory for pol 'I', 'P' or 'IP' at the fiducial
-    cosmology (no batch; 1/f noise knee at l=100, slope 3). The mask M is
+    cosmology (1/f noise knee at l=100, slope 3). One simulation is drawn;
+    with `Nbatch`, the dataset's d is that simulation's data repeated
+    Nbatch times along a leading batch axis (Nphi comes from the unbatched
+    data, as in the JAX package). The mask M is
     `bandpass_mask` (LowPass(3000) unless given) as a Fourier-diagonal
     operator, times, with `pixel_mask_kwargs`, the pixel mask that
     utils/masking.py::make_mask draws from np.random.default_rng(seed)
@@ -311,6 +347,8 @@ def load_sim(thetapix, Nside, pol, T=np.float32, muKarcminT=3, beamFWHM=0,
     ds = ds.replace(Nphi=Nphi,
                     G=ParamDependentOp(("Aphi",), _g_recompute, (G0, Cphi, Nphi, 1.0)),
                     D=ParamDependentOp(("r",), _d_recompute, (Cf, Cn_hat, r0, sigma2len)))
+    if Nbatch is not None:
+        ds = ds.replace(d=repeat_batch(sim["d"], Nbatch))
     return dict(f=sim["f"], ft=sim["ft"], phi=sim["phi"], d=ds.d,
                 ds=ds, ds0=ds.at({}), Cl=Cl, proj=proj)
 
@@ -356,7 +394,29 @@ def dataset_from_numpy(arrays, proj_kwargs, device=None):
     "cpu"."""
     device = resolve_device(device)
     proj = ProjLambert(**proj_kwargs, device=device)
-    arr, pol, space = arrays["d"]
-    d = Field(torch.as_tensor(np.array(arr), device=device), Basis(pol, space), proj)
+    d = _field_from_numpy(arrays["d"], proj)
     kw = {name: _op_from_numpy(arrays[name], proj) for name in DIAG_OPS if name in arrays}
     return DataSet(d=d, **kw)
+
+
+def _field_from_numpy(spec, proj):
+    arr, pol, space = spec
+    return Field(torch.as_tensor(np.array(arr), device=proj.device), Basis(pol, space), proj)
+
+
+STATE_FIELDS = ("phi", "f", "f_mix", "phi_mix")
+
+
+def state_from_numpy(arrays, proj, generator=None):
+    """A sampler state (inference/sampling.py) from plain numpy arrays,
+    e.g. another implementation's: each of STATE_FIELDS present in
+    `arrays` as (array, pol, space), "theta" a dict of floats or
+    per-chain arrays, "step" an int. The fields live on proj's device;
+    `generator`, when given, is the state's source of draws."""
+    state = {k: _field_from_numpy(arrays[k], proj) for k in STATE_FIELDS if k in arrays}
+    state["theta"] = {k: (np.array(v) if np.ndim(v) else float(v))
+                      for k, v in dict(arrays.get("theta", {})).items()}
+    state["step"] = int(arrays.get("step", 0))
+    if generator is not None:
+        state["generator"] = generator
+    return state

@@ -16,8 +16,8 @@ class MvNormal:
         self.mu = mu          # field or 0
         self.Sigma = Sigma    # operator
 
-    def sample(self, generator):
-        xi = simulate_op(generator, self.Sigma)
+    def sample(self, generator, batch_shape=()):
+        xi = simulate_op(generator, self.Sigma, batch_shape=batch_shape)
         if not isinstance(self.mu, (int, float)):
             return self.mu + xi
         return xi

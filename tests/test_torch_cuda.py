@@ -1592,3 +1592,109 @@ def test_whole_flow_batch_is_the_single_flows_bits_on_card(shape):
             for i in range(3):
                 one, _ = _flow_pair(kind, ys[i], phis[i], mats, 2, 7, precision, plain_too=False)
                 assert torch.equal(out[i], one), (kind, precision, i)
+
+
+# =========================================================================
+# batched sims and the Gibbs/HMC sampler at 512^2 P (BASELINE.json
+# configs[3], scripts/torch_sample_512.py)
+# =========================================================================
+
+SAMPLE_CG = dict(tol=0.0, nsteps=25, fixed_iters=True)
+# a Gibbs pass on the kernel backend against the plain one (torch.fft
+# flows): 25 fixed CG iterations amplify the flows' float32 differences
+# (1e-5 a flow) as in chip_smoke.py's 20-iteration Wiener filter (1e-4)
+GIBBS_PLAIN_TOL = 1e-4
+# dH of the two backends, absolute: each Hamiltonian is a float32 sum of
+# ~6e6 a sim at 512^2 P (its ulp 0.5, so dH comes in steps of 0.5 on
+# either side), and the two backends' logpdfs differ by their flows'
+# float32 rounding: 8 ulps (measured 1.5)
+GIBBS_DH_ATOL = 4.0
+
+
+@pytest.mark.cuda
+def test_gibbs_pass_kernel_matches_plain_on_card(monkeypatch):
+    """One default Gibbs pass of sample_joint at 512^2 P x 2 sims (N = 3
+    leapfrog steps, eps 0.003, 25 fixed CG iterations) on the kernel
+    backend against the plain one, from one generator seed (so one prior
+    phi and the same draws). The pass is a chain's first, always accepted
+    (as BASELINE.json configs[3]'s first three are), so phi carries each
+    backend's HMC trajectory: f, phi and the logpdf within GIBBS_PLAIN_TOL,
+    dH within GIBBS_DH_ATOL, and the accept each dH gives against the same
+    uniform, log u < dH, the same wherever log u lies farther than
+    GIBBS_DH_ATOL from dH."""
+    _card()
+    from cmblensing_tpu_torch.inference import sampling as ts
+    ds = ct.load_sim(thetapix=2, Nside=512, pol="P", seed=0, Nbatch=2)["ds"]
+    draw, runs = ts._uniform, {}
+    for backend in ("kernel", "plain"):
+        us = []
+        monkeypatch.setattr(ts, "_uniform", lambda g, shape: us.append(draw(g, shape)) or us[-1])
+        g = torch.Generator(device="cuda")
+        g.manual_seed(5)
+        with ct.lenseflow_backend_ctx(backend):
+            res = ct.sample_joint(ds, 1, nchains=2, generator=g, symp_kwargs=[dict(N=3, eps=0.003)],
+                                  nburnin_always_accept=1, conjgrad_kwargs=SAMPLE_CG)
+        runs[backend] = (res[0][0], us)
+    (k, uk), (p, up) = runs["kernel"], runs["plain"]
+    assert all(torch.equal(a, b) for a, b in zip(uk, up))
+    for name in ("f", "phi"):
+        e = rel(k[name].to(ct.Basis(k[name].basis.pol, "map")).arr,
+                p[name].to(ct.Basis(k[name].basis.pol, "map")).arr)
+        print(f"Gibbs pass kernel vs plain: {name} {e:.3e}")
+        assert e < GIBBS_PLAIN_TOL, name
+    assert rel(k["logpdf"], p["logpdf"]) < GIBBS_PLAIN_TOL
+    assert torch.isfinite(k["logpdf"]).all() and bool(k["accept"].all())
+    logu = torch.log(uk[0]).cpu()
+    print(f"dH kernel {k['dH'].tolist()} plain {p['dH'].tolist()}, log u {logu.tolist()}")
+    assert float((k["dH"] - p["dH"]).abs().max()) < GIBBS_DH_ATOL
+    clear = (logu - k["dH"]).abs() > GIBBS_DH_ATOL
+    assert torch.equal((logu < k["dH"])[clear], (logu < p["dH"])[clear])
+
+
+@pytest.mark.cuda
+def test_hmc_gradient_batch_matches_single_gradients_on_card():
+    """The HMC gradient (grad phi° of the mixed logpdf) at 512^2 P for a
+    batch of 3 (three f° and phi°) against the three single gradients, bit
+    for bit: the flows' kernels give each entry its single bits, and so do
+    cuFFT's batched plans (both checked on their own)."""
+    _card()
+    sim = ct.load_sim(thetapix=2, Nside=512, pol="P", seed=0)
+    ds, f, phi = sim["ds"], sim["f"], sim["phi"]
+    ds3 = ds.replace(d=ct.repeat_batch(ds.d, 3))
+    m = ct.mix(ds3, f=ct.batch([f, 0.5 * f, -1.0 * f]), phi=ct.batch([phi, 0.8 * phi, 1.2 * phi]))
+    f_mix, phi_mix = m["f_mix"], m["phi_mix"].to(ct.MAP)
+    grad = lambda dsx, fm, pm: ct.fgrad(
+        lambda x: torch.sum(ct.Mixed(dsx).logpdf(f_mix=fm, phi_mix=x)))(pm)
+    g3 = grad(ds3, f_mix, phi_mix)
+    x = torch.randn((3, 2, 512, 512), device="cuda")
+    fft3, flow3 = torch.fft.rfft2(x), (ds3.L(phi_mix) @ ct.Field(x, ct.QU_MAP, phi_mix.proj)).arr
+    for i in range(3):
+        gi = grad(ds, ct.batch_index(f_mix, i), ct.batch_index(phi_mix, i))
+        flow_i = (ds.L(ct.batch_index(phi_mix, i)) @ ct.Field(x[i], ct.QU_MAP, phi_mix.proj)).arr
+        same = {"rfft2": torch.equal(fft3[i], torch.fft.rfft2(x[i])),
+                "flow": torch.equal(flow3[i], flow_i), "gradient": torch.equal(g3.arr[i], gi.arr)}
+        e = rel(g3.arr[i], gi.arr)
+        print(f"entry {i}: bit for bit {same}; gradient {e:.3e}")
+        assert all(same.values()), (i, same, e)
+
+
+@pytest.mark.cuda
+def test_batched_argmaxf_at_32_sims_runs_on_card():
+    """One strict argmaxf_logpdf at 32 sims x 512^2 P (3 fixed CG
+    iterations): the launchers take 32 entries x 2 components on the
+    kernels' grids (K3 for L and L^H); finite, each entry its own solve."""
+    _card()
+    sim = ct.load_sim(thetapix=2, Nside=512, pol="P", seed=0, Nbatch=32)
+    ds = sim["ds"]
+    phi = ct.repeat_batch(sim["phi"].to(ct.MAP), 32)
+    lfk.reset_launches()
+    f, info = ct.argmaxf_logpdf(ds, phi=phi, conjgrad_kwargs=dict(tol=0.0, nsteps=3,
+                                                                   fixed_iters=True,
+                                                                   hessian_precision=None))
+    assert f.batch_shape == (32,) and info["res"].shape == (32,)
+    assert torch.isfinite(f.arr).all()
+    assert lfk.LAUNCHES["fa_velocity_forward"] > 0 and lfk.LAUNCHES["fa_velocity_adjoint"] > 0
+    one, _ = ct.argmaxf_logpdf(ds.replace(d=ct.batch_index(ds.d, 0)), phi=sim["phi"].to(ct.MAP),
+                               conjgrad_kwargs=dict(tol=0.0, nsteps=3, fixed_iters=True,
+                                                    hessian_precision=None))
+    assert rel(ct.batch_index(f, 31).arr, one.arr) < 1e-5

@@ -169,8 +169,14 @@ def test_unported_batched_and_reduced_precision_paths_raise(P32):
     batched = tds.replace(d=ct.Field(torch.stack([d.arr, d.arr]), d.basis, d.proj))
     with pytest.raises(NotImplementedError):
         ct.MAP_joint(batched, nsteps=1)
-    with pytest.raises(NotImplementedError):
-        ct.argmaxf_logpdf(batched)
+    # the batched f-step runs (tests/test_torch_batch.py holds it to JAX's):
+    # both entries the unbatched solve
+    cg = dict(tol=0.0, nsteps=2, fixed_iters=True, hessian_precision=None)
+    fb, _ = ct.argmaxf_logpdf(batched, phi=P32["tphi"], conjgrad_kwargs=cg)
+    f1, _ = ct.argmaxf_logpdf(tds, phi=P32["tphi"], conjgrad_kwargs=cg)
+    assert fb.batch_shape == (2,)
+    for i in range(2):
+        assert rel(ct.batch_index(fb, i).arr.numpy(), f1.arr.numpy()) < 1e-5
     # the 'bf16' tier runs (tests/test_torch_bf16.py holds it to JAX's)
     f, info = ct.argmaxf_logpdf(tds, phi=P32["tphi"], conjgrad_kwargs=dict(
         hessian_precision="bf16", tol=0.0, nsteps=2, fixed_iters=True))
