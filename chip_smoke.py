@@ -164,6 +164,23 @@ port's two paths through the kernel backend:
               the kernel backend against the plain one from one generator
               seed (always accepted: phi carries the HMC trajectory; the
               accept each dH gives compared).
+  phase 20    BASELINE.json configs[4], the ensemble pipelines at 256^2 P on
+              the dense flow kernel: (a) bandpower MUSE as
+              scripts/muse_bandpower.py runs it at N = 256, pol P (4 bins, 8
+              sims a draw, 4 steps, MAP 5 steps, CG 20 fixed, "auto", the
+              final H: 4 data MAPs and 17 batched MAPs over 8 sims): s/run,
+              its split, per-bin estimates, sigmas and pulls (each under 4),
+              the joint chi2, H invertible, Sigma positive definite, every
+              score finite, peak memory, launches; (b) the batched EB
+              quadratic estimate of the data and 8 sims at the last theta,
+              each entry its unbatched estimate, ms, corr with each sim's
+              phi; (c) MAP_marg as scripts/map_marg_256.py runs it (16 sims,
+              10 steps, CG 25 fixed, alpha 0.2): s/step, the gradient norm
+              of each step, corr with phi; (d) K2's whole flow at every kind
+              and tier at 8 and 17 x 8 entries on the path's fields, and its
+              derivative on the path's phi, against their plain versions,
+              timed at 8; (e) one batched MAP_joint step and the MUSE
+              theta-scores at 2 sims, kernel against plain.
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
     python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
@@ -172,6 +189,7 @@ port's two paths through the kernel backend:
     python3 chip_smoke.py --phase 17    (phase 1, the build, and phase 17 alone)
     python3 chip_smoke.py --phase 18    (phase 1, the build, and phase 18 alone)
     python3 chip_smoke.py --phase 19    (phase 1, the build, and phase 19 alone)
+    python3 chip_smoke.py --phase 20    (phase 1, the build, and phase 20 alone)
 
 Phases 13, 14 (c) and 16 take one 4096^2 P simulation (load_sim is
 seeded), loaded once in a whole run. Phases 7 and 8 measure the strict
@@ -419,6 +437,40 @@ SAMPLE_KERNELS = ("fderiv", "fa_velocity_forward", "fa_velocity_adjoint", "bv_ve
 # 1.5 on an H100), and the accept each dH gives, log u < dH, the same
 # wherever log u lies farther than that from dH
 GIBBS_PLAIN_TOL, GIBBS_DH_ATOL = 1e-4, 4.0
+# phase 20: BASELINE.json configs[4], the ensemble pipelines at 256^2 P on the
+# dense flow kernel. (a) bandpower MUSE as scripts/muse_bandpower.py runs it at
+# N = 256, pol P (scripts/torch_muse_256.py): load_sim(thetapix=3, Nside=256,
+# pol="P", seed=0), Cphi banded into MUSE_BINS percentile bins of |l| (the
+# last open), the data simulated at MUSE_TRUTH (generator seed 7); muse over
+# MUSE_SIMS sims a draw, MUSE_STEPS steps, MAP 5 steps, CG 20 fixed, "auto",
+# the final H; every bin's |pull| under MUSE_PULL_MAX, the bound the script
+# asserts (a miss is reported as a miss, the seed kept)
+N_MUSE, MUSE_BINS, MUSE_SIMS, MUSE_STEPS = 256, 4, 8, 4
+MUSE_TRUTH = np.linspace(1.5, 0.8, MUSE_BINS)
+MUSE_MAP = dict(nsteps=5, conjgrad_kwargs=dict(tol=0.0, nsteps=20, fixed_iters=True))
+MUSE_PULL_MAX = 4.0
+# (b) the batched EB quadratic estimate of the data and MUSE_SIMS sims at the
+# last theta: each entry its unbatched estimate within QE_ENTRY_TOL. On the
+# CPU the two are the same bits (tests/test_torch_ensemble.py); on the card
+# the batched cuFFT plans round otherwise than the single-plane ones, and
+# the estimate's legs cancel: 6.24e-6 on an H100 80GB HBM3 at 700 W
+QE_ENTRY_TOL = 5e-5
+# (c) MAP_marg as scripts/map_marg_256.py runs it: 16 sims, 10 steps (4 with
+# the mean-field update), CG 25 fixed, alpha 0.2, "auto"
+MARG_SIMS, MARG_STEPS, MARG_MF_STEPS, MARG_ALPHA = 16, 10, 4, 0.2
+MARG_CG = dict(tol=0.0, nsteps=25, fixed_iters=True)
+# (d) K2's whole flow at every kind and tier at the path's shapes (MUSE_SIMS
+# entries, and NTRIAL x MUSE_SIMS as the batched line search runs them) and
+# its derivative on the path's phi, against the plain versions at PERF.md
+# §2's bounds (FLOW_TIER_TOL, FLOW_SPLIT_RATIO, HESS_TOL); the kernels each
+# run of (a) and (c) must launch ("auto": 'high' gradients and CG, strict
+# line search, strict CG fallback, strict theta-scores)
+ENSEMBLE_KERNELS = ("flow_forward", "flow_adjoint", "flow_forward_high", "flow_adjoint_high",
+                    "flow_backward_high", "deriv", "deriv_high")
+# (e) one batched MAP_joint step and the MUSE theta-scores at 2 sims on the
+# kernel backend against the plain one (strict; CG 20 fixed: the flows'
+# 1e-5 amplified as WF_PLAIN_TOL's 20 iterations do)
+ENSEMBLE_PLAIN_TOL = 1e-4
 
 
 def rel(a, b):
@@ -4293,6 +4345,283 @@ def phase_sample(torch, card):
                       "sample_joint_512x32_launches_per_pass": per_pass}
 
 
+def muse_dataset(torch, N=N_MUSE, nbins=MUSE_BINS):
+    """Phase 20's MUSE configuration (scripts/torch_muse_256.py's
+    muse_dataset): (ds with the banded Cphi and the data at MUSE_TRUTH in
+    the QU map basis, the load_sim dict, the data's phi)."""
+    import cmblensing_tpu_torch as ct
+    sim = ct.load_sim(thetapix=3, Nside=N, pol="P", T=np.float32, seed=SEED, device=DEVICE)
+    ds, proj = sim["ds"], sim["proj"]
+    lm = np.asarray(proj.lmag).ravel()
+    lm = lm[lm > 0]
+    edges = np.concatenate([[0.0], np.percentile(lm, np.linspace(0, 100, nbins + 1)[1:-1]), [1e9]])
+    ds = ds.replace(Cphi=ct.Cl_to_Cov("I", proj, (ct.camb()["total"]["pp"], edges, "Aphi_b")))
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(7)
+    with torch.no_grad():
+        s = ds.simulate(g, theta=dict(Aphi_b=MUSE_TRUTH))
+    return ds.replace(d=s["d"].to(ct.QU_MAP)), sim, s["phi"]
+
+
+def corr(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def ensemble_muse(torch, card, ds):
+    """Phase 20 (a): one MUSE run; returns (its result, launches, numbers)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    from cmblensing_tpu_torch.utils import timing
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    timing.reset_timers()
+    lfk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ct.muse(ds, dict(Aphi_b=np.ones(MUSE_BINS)), nsims=MUSE_SIMS, nsteps=MUSE_STEPS,
+                  generator=g, MAP_kwargs=MUSE_MAP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in lfk.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    A = np.asarray(res["theta"]["Aphi_b"])
+    H, Sigma = np.asarray(res["H"]), np.asarray(res["Sigma"])
+    sig = np.sqrt(np.abs(np.diag(Sigma)))
+    pulls = (A - MUSE_TRUTH) / sig
+    finite = all(np.isfinite(h["s_data"]).all() and np.isfinite(h["sbar"]).all()
+                 for h in res["history"]) and np.isfinite(H).all() and np.isfinite(Sigma).all()
+    chi2 = float((A - MUSE_TRUTH) @ np.linalg.solve(Sigma, A - MUSE_TRUTH)) if finite else np.nan
+    evals = np.linalg.eigvalsh(0.5 * (Sigma + Sigma.T)) if finite else np.full(MUSE_BINS, np.nan)
+    print(f"phase 20: (a) MUSE {N_MUSE}^2 P, {MUSE_BINS} bins, {MUSE_SIMS} sims, {MUSE_STEPS} "
+          f"steps (MAP 5 steps, CG 20 fixed, \"auto\", final H): {wall:.3f} s/run; peak memory "
+          f"{peak:.2f} GiB [{card}]")
+    for i, lab in enumerate(res["labels"]):
+        print(f"phase 20: (a)   {lab}: {A[i]:.4f} +/- {sig[i]:.4f} (truth {MUSE_TRUTH[i]:.3f}, "
+              f"pull {pulls[i]:+.3f} sigma)")
+    print(f"phase 20: (a) joint chi2 {chi2:.3f} / {MUSE_BINS} dof; H cond "
+          f"{np.linalg.cond(H) if finite else np.nan:.3e}; "
+          f"Sigma eigenvalues {evals.tolist()}")
+    for line in timing.timer_report().splitlines():
+        print(f"phase 20: (a) split {line}")
+    print(f"phase 20: (a) launches a run {launches}")
+    for h in res["history"]:
+        print(f"phase 20: (a) step {h['step']}: theta {np.asarray(h['theta']['Aphi_b']).tolist()}, "
+              f"s_data {np.asarray(h['s_data']).tolist()}, sbar {np.asarray(h['sbar']).tolist()}")
+    print(f"phase 20: (a) H {H.tolist()}; J {np.asarray(res['J']).tolist()}")
+    bad = {}
+    if not finite:
+        bad["finite"] = False
+    if not (finite and np.linalg.matrix_rank(H) == MUSE_BINS and np.isfinite(np.linalg.cond(H))):
+        bad["H invertible"] = np.linalg.cond(H)
+    if not (evals > 0).all():
+        bad["Sigma positive definite"] = evals.tolist()
+    if not (np.abs(pulls) < MUSE_PULL_MAX).all():
+        bad["pulls"] = pulls.tolist()
+    return res, launches, bad, dict(s_run=wall, peak_GiB=peak, pulls=pulls.tolist(), chi2=chi2,
+                                    theta=A.tolist(), sigma=sig.tolist())
+
+
+def ensemble_qe(torch, card, ds, theta, phi_data):
+    """Phase 20 (b): the data and MUSE_SIMS sims at theta (drawn as muse
+    draws an ensemble) in one batched EB quadratic estimate, A_L once; each
+    entry its unbatched estimate; corr with each entry's phi. Returns (the
+    sims, errors, ms)."""
+    import cmblensing_tpu_torch as ct
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(13)
+    with torch.no_grad():
+        sims = ds.simulate(g, theta=theta, batch_shape=(MUSE_SIMS,))
+    d = ds.d
+    batch = ct.Field(torch.cat([d.arr[None], sims["d"].to(d.basis).arr]), d.basis, d.proj)
+    dsb = ds.replace(d=batch)
+    ct.quadratic_estimate(dsb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qe = ct.quadratic_estimate(dsb)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    errs = [rel(qe["phiqe"].arr[i], ct.quadratic_estimate(ds.replace(d=ct.batch_index(batch, i)))[
+        "phiqe"].arr) for i in range(MUSE_SIMS + 1)]
+    phis = torch.cat([phi_data.to(ct.MAP).arr[None], sims["phi"].to(ct.MAP).arr])
+    q = qe["phiqe"].to(ct.MAP).arr
+    corrs = [corr(q[i], phis[i]) for i in range(MUSE_SIMS + 1)]
+    print(f"phase 20: (b) batched EB quadratic estimate of the data + {MUSE_SIMS} sims at the last "
+          f"theta ({MUSE_SIMS + 1} x {N_MUSE}^2 P): {ms:.3f} ms; each entry vs its unbatched "
+          f"estimate {max(errs):.3e} (bound {QE_ENTRY_TOL:g}); corr(phi_QE, phi_true) data "
+          f"{corrs[0]:.4f}, sims {[round(c, 4) for c in corrs[1:]]} [{card}]")
+    bad = {} if max(errs) < QE_ENTRY_TOL and np.isfinite(corrs).all() else {"qe": max(errs)}
+    return sims, bad, ms
+
+
+def ensemble_marg(torch, card):
+    """Phase 20 (c): MAP_marg at 256^2 P as scripts/map_marg_256.py runs it;
+    returns (launches, bad, s/step)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    from cmblensing_tpu_torch.utils import timing
+    sim = ct.load_sim(thetapix=3, Nside=N_MUSE, pol="P", T=np.float32, seed=SEED, device=DEVICE)
+    ds = sim["ds"].replace(d=sim["ds"].d.to(sim["ds"].d.basis.with_space("map")))
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(1)
+    timing.reset_timers()
+    lfk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phi, hist = ct.MAP_marg(ds, generator=g, nsteps=MARG_STEPS, Nsims=MARG_SIMS,
+                            nsteps_with_meanfield_update=MARG_MF_STEPS, conjgrad_kwargs=MARG_CG,
+                            alpha=MARG_ALPHA)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in lfk.LAUNCHES.items() if v}
+    gn = [h["gradnorm"] for h in hist]
+    c = corr(phi.to(ct.MAP).arr, sim["phi"].to(ct.MAP).arr)
+    print(f"phase 20: (c) MAP_marg {N_MUSE}^2 P, {MARG_SIMS} sims, {MARG_STEPS} steps "
+          f"({MARG_MF_STEPS} with the mean field), CG 25 fixed, alpha {MARG_ALPHA}: {wall:.3f} s, "
+          f"{wall / MARG_STEPS:.4f} s/step (the first step's kernel tables included); gradient "
+          f"norms {gn}; corr(phi_marg, phi_true) {c:.4f} [{card}]")
+    for line in timing.timer_report().splitlines():
+        print(f"phase 20: (c) split {line}")
+    print(f"phase 20: (c) launches {launches}")
+    bad = {} if np.isfinite(gn).all() and torch.isfinite(phi.arr).all() else {"MAP_marg": gn}
+    return launches, bad, wall / MARG_STEPS
+
+
+def ensemble_kernels(torch, card, f, phi_map):
+    """Phase 20 (d): K2's whole flow at every kind and tier on the path's
+    fields (MUSE_SIMS entries and NTRIAL x MUSE_SIMS), and its derivative's
+    planes of the path's phi at both path tiers, against their plain
+    versions. Returns ({(tier, kind): record at MUSE_SIMS}, bad)."""
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    import cmblensing_tpu_torch as ct
+    proj = ct.ProjLambert(N_MUSE, N_MUSE, thetapix=3, T=np.float32, device=DEVICE)
+    mats = deriv.deriv_mats(proj)
+    bad, found = {}, {}
+    for tier in ("f32", "high"):
+        e = rel(lfk.gradhess(phi_map, mats, tier), lfk.gradhess_plain(phi_map, mats, tier))
+        print(f"phase 20: (d) K2 deriv {tier}: phi's planes ({MUSE_SIMS} x {N_MUSE}^2) vs plain "
+              f"{e:.3e} (bound {HESS_TOL:g}) [{card}]")
+        if not e < HESS_TOL:
+            bad["deriv", tier] = e
+    dy = torch.roll(f, 11, dims=-1).contiguous()
+    each = lambda a, b: max(rel(x, y) for x, y in zip(a.reshape(-1, *a.shape[-2:]),
+                                                      b.reshape(-1, *b.shape[-2:])))
+    for nb in (MUSE_SIMS, NTRIAL * MUSE_SIMS):
+        reps = nb // MUSE_SIMS
+        ff = f.repeat(reps, 1, 1, 1)
+        ph = torch.cat([(0.5 + i / reps) * phi_map for i in range(reps)]) if reps > 1 else phi_map
+        planes = {t: lfk.gradhess(ph, mats, t) for t in lfk.PRECISIONS}
+        for tier in lfk.PRECISIONS:
+            for kind in ("forward", "adjoint", "backward"):
+                y, (t0, t1) = flow_state(torch, kind, ff, dy.repeat(reps, 1, 1, 1))
+                sched = lfk.flow_schedule(NSTEPS, t0, t1)
+
+                def run(fn, p=tier, y_=y):
+                    o = y_.clone()
+                    fn(kind, o, planes[tier], mats, 2, sched, p)
+                    return o
+
+                lfk.reset_launches()
+                out = run(lfk.flow_cuda)
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in lfk.LAUNCHES.items() if v}
+                ref = run(lfk.flow_plain)
+                d = dict(nb=nb, rel=each(out, ref), max_abs_err=float((out - ref).abs().max()),
+                         launches=launched, **flow_bound(kind, tier, 2, nb, N_MUSE, N_MUSE))
+                ok = d["rel"] < FLOW_TIER_TOL[tier]
+                if tier != "f32":
+                    d.update(split_ratio(out, ref, run(lfk.flow_cuda, "f32")))
+                    ok = ok and d["split_ratio"] < FLOW_SPLIT_RATIO
+                sfx = "" if tier == "f32" else "_" + tier
+                ok = ok and launched == {f"flow_{kind}{sfx}": 1}
+                line = (f"phase 20: (d) flow {kind:8s} {tier:4s} {nb:3d} x {N_MUSE}^2 P vs plain "
+                        f"{d['rel']:.3e} (bound {FLOW_TIER_TOL[tier]:g}, each plane)")
+                if tier != "f32":
+                    line += f", Frobenius ratio {d['split_ratio']:.4f}"
+                if nb == MUSE_SIMS:
+                    launch = lfk.flow_launcher(kind, y.clone(), planes[tier], mats, 2, sched, tier)
+                    d.update(ms=kernel_ms(launch, 5, torch),
+                             plain_ms=cuda_ms(lambda: run(lfk.flow_plain), 1, torch),
+                             library_ms=None)
+                    line += (f"; {d['ms']:.4f} ms, plain {d['plain_ms']:.3f} ms, bound "
+                             f"{d['bound_ms']:.4f} ms ({d['bound_by']}, "
+                             f"{100 * d['bound_ms'] / d['ms']:.1f} %)")
+                    found[tier, kind] = d
+                print(line + f"; launches {launched} [{card}]", flush=True)
+                if not ok:
+                    bad[kind, tier, nb] = (d["rel"], d.get("split_ratio"), launched)
+                del out, ref, y
+        del planes, ff, ph
+        torch.cuda.empty_cache()
+    return found, bad
+
+
+def ensemble_vs_plain(torch, card, ds, sims):
+    """Phase 20 (e): one batched MAP_joint step at 2 sims (strict, CG 20
+    fixed) and the MUSE theta-scores at its MAP, on "kernel" against
+    "plain"."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.inference import muse as tmuse
+    ds2 = ds.replace(d=ct.Field(sims["d"].arr[:2], sims["d"].basis, sims["d"].proj))
+    theta = dict(Aphi_b=MUSE_TRUTH)
+    spec = tmuse._theta_spec(theta)
+    out = {}
+    for backend in ("kernel", "plain"):
+        t0 = time.perf_counter()
+        with ct.lenseflow_backend_ctx(backend):
+            r = ct.MAP_joint(ds2, theta=theta, nsteps=1, precision=None,
+                             conjgrad_kwargs=dict(tol=0.0, nsteps=20, fixed_iters=True),
+                             history_keys=("logpdf", "alpha"))
+            s = tmuse._theta_score_batch(ds2, r["f"], r["phi"],
+                                         tmuse._theta_vec(theta, spec, DEVICE), spec)
+        torch.cuda.synchronize()
+        out[backend] = (r, s, time.perf_counter() - t0)
+    (k, sk, tk), (p, sp, tp_) = out["kernel"], out["plain"]
+    m = lambda x: x.to(x.basis.with_space("map")).arr
+    errs = {"f": rel(m(k["f"]), m(p["f"])), "phi": rel(m(k["phi"]), m(p["phi"])),
+            "scores": rel(sk, sp)}
+    print(f"phase 20: (e) a batched MAP_joint step at 2 sims and its MUSE scores, kernel vs "
+          f"plain: " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (bound {ENSEMBLE_PLAIN_TOL:g}); alpha {k['history'][0]['alpha'].tolist()} vs "
+          f"{p['history'][0]['alpha'].tolist()}; scores {sk.tolist()}; kernel {tk:.2f} s, plain "
+          f"{tp_:.2f} s [{card}]")
+    return {n: e for n, e in errs.items() if not e < ENSEMBLE_PLAIN_TOL}
+
+
+def phase_ensemble(torch, card):
+    """Phase 20: BASELINE.json configs[4] (see ENSEMBLE_KERNELS and the
+    constants above it). Returns (launches of (a) and (c), the flows' and
+    derivative's records at the path's shapes, timings)."""
+    import cmblensing_tpu_torch as ct
+    t_start = time.perf_counter()
+    ds, sim, phi_data = muse_dataset(torch)
+    res, muse_launches, bad, numbers = ensemble_muse(torch, card, ds)
+    theta = dict(Aphi_b=np.asarray(res["theta"]["Aphi_b"]))
+    sims, bad_qe, qe_ms = ensemble_qe(torch, card, ds, theta, phi_data)
+    bad.update(bad_qe)
+    marg_launches, bad_marg, marg_s = ensemble_marg(torch, card)
+    bad.update(bad_marg)
+    f = sims["f"].to(ct.QU_MAP).arr.contiguous()
+    phi_map = sims["phi"].to(ct.MAP).arr.contiguous()
+    found, bad_k = ensemble_kernels(torch, card, f, phi_map)
+    bad.update(bad_k)
+    bad.update(ensemble_vs_plain(torch, card, ds, sims))
+    for label, launches in (("MUSE", muse_launches), ("MAP_marg", marg_launches)):
+        never = [k for k in ENSEMBLE_KERNELS if not launches.get(k)]
+        if never:
+            bad[f"{label} never launched"] = never
+    del ds, sim, sims, res, f, phi_map
+    torch.cuda.empty_cache()
+    print(f"phase 20: wall time {time.perf_counter() - t_start:.1f} s [{card}]")
+    if bad:
+        raise AssertionError(f"phase 20 failed: {bad}")
+    return muse_launches, marg_launches, found, {
+        "muse_256x8_s_per_run": numbers["s_run"], "muse_256x8_peak_GiB": numbers["peak_GiB"],
+        "muse_256x8_pulls": numbers["pulls"], "muse_256x8_chi2": numbers["chi2"],
+        "qe_eb_256x9_ms": qe_ms, "MAP_marg_256x16_s_per_step": marg_s}
+
+
 def print_ptxas(log):
     """Phase 1: the build log's register lines and errors, and for the
     kernels on the cluster tile (fderiv_sm90.cu, fa_sm90.cu, bv_sm90.cu,
@@ -4358,6 +4687,9 @@ def main():
     if sys.argv[1:] == ["--phase", "19"]:
         phase_sample(torch, card)
         return 0
+    if sys.argv[1:] == ["--phase", "20"]:
+        phase_ensemble(torch, card)
+        return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
@@ -4384,6 +4716,7 @@ def main():
     sm90, sm90_launches = phase_sm90(torch, card, uni_large)
     flows, flows_batched = phase_whole_flow(torch, card)
     sample_launches, sample_timing = phase_sample(torch, card)
+    muse_launches, marg_launches, ens_flows, ens_timing = phase_ensemble(torch, card)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -4520,11 +4853,23 @@ def main():
     for rec in record["kernels"]:
         if rec["name"] in SAMPLE_KERNELS:
             rec["launches_sample_joint_512x32"] = sample_launches[rec["name"]]
+    # the ensemble pipelines (phase 20): K2's launches a MUSE run and a
+    # MAP_marg run, and its whole flow timed at the path's MUSE_SIMS entries
+    for rec in record["kernels"]:
+        name = rec["name"]
+        if name in ENSEMBLE_KERNELS or name == "flow_backward":
+            rec["launches_muse_256x8"] = muse_launches.get(name, 0)
+            rec["launches_MAP_marg_256x16"] = marg_launches.get(name, 0)
+        for (tier, kind), d in ens_flows.items():
+            if name == f"flow_{kind}" + ("" if tier == "f32" else "_" + tier):
+                rec["ensemble"] = {k: d[k] for k in ("nb", "max_abs_err", "rel", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by")}
     timing.update({"gradlnP_1024": (grad_ms, grad_plain_ms),
                    "MAP_joint_1024_s_per_step": (s_step, plain_s_step),
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
                    **high_timing, **dense_high_timing, **wf_timing, **large_timing,
                    **bf16_timing, **uni_tier_timing, **uni_large_timing, **sample_timing,
+                   **ens_timing,
                    **{f"flow_{kind}_{case}_{tier}_ms_warm_cold": (d["ms"], d["cold_ms"])
                       for (case, tier, kind), d in flows.items() if "ms" in d}})
     print("main path ms (kernel, plain):", json.dumps(timing))

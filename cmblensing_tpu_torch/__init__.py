@@ -8,8 +8,11 @@ pol I, P and IP (with a simulated pixel mask, and a batch of Nbatch
 copies of its data), batched Fields, Fourier-diagonal operators (the
 T/E/B block operator at pol IP), LenseFlow with its continuous-adjoint
 gradients, the quadratic estimator that sets the phi mixing, the CG
-Wiener filter (batched), MAP_joint with its grid line search, and
-sample_joint over a batch of chains with its checkpoints and chains.
+Wiener filter (batched), MAP_joint with its grid line search (batched,
+an alpha an entry), MAP_marg, sample_joint over a batch of chains with its
+checkpoints and chains, banded (bandpower) covariances, the batched and
+two-dataset quadratic estimate, and MUSE over a batched simulation
+ensemble.
 
 Strict float32: TF32 is switched off for matmuls and convolutions, the
 counterpart of the JAX package pinning every f32 matmul to
@@ -35,7 +38,7 @@ from .core.ops import (  # noqa: E402
     BlockDiagIEB, Diag, Identity, Id, LazyOp, ParamDependentOp, Scaled, BandPass, LowPass,
     evaluate_at, logdet, logdet_rel, simulate_op, nan2zero,
 )
-from .core.cov import Cl_to_Cov  # noqa: E402
+from .core.cov import Cl_to_Cov, cov_to_Cl  # noqa: E402
 from .utils.cls import Cls, camb, noise_cls, beam_cls, extrapolate_cls  # noqa: E402
 from .utils.masking import make_mask  # noqa: E402
 from .models.distributions import MvNormal  # noqa: E402
@@ -47,7 +50,8 @@ from .models.dataset import (  # noqa: E402
     DataSet, Mixed, mix, unmix, load_sim, dataset_from_numpy, state_from_numpy,
 )
 from .ops.solvers import conjugate_gradient  # noqa: E402
-from .inference.maximization import MAP_joint, argmaxf_logpdf, sample_f  # noqa: E402
+from .inference.maximization import MAP_joint, MAP_marg, argmaxf_logpdf, sample_f  # noqa: E402
+from .inference.muse import MuseProblem, muse, score  # noqa: E402
 from .inference.sampling import (  # noqa: E402
     sample_joint, hmc_step, symplectic_integrate, mass_matrix_phi, grid_and_sample,
     once_every, start_after_burnin,

@@ -26,16 +26,25 @@ and their guards:
   ("auto"). ``precision=None`` is strict everywhere, the f-step
   included.
 
-One deliberate difference from the JAX package (ROADMAP Queue 3, its
-fault 1): after a strict retry that also finds alpha = 0, no further
-retry fires until a step finds alpha > 0; the JAX package retries on
-every later step, a gradient and a line search each time.
+``MAP_joint`` on a batched dataset runs every entry at once, each with its
+own phi-step and line-search alpha; ``MAP_marg`` is the marginal MAP, its
+mean field from a batch of simulations.
+
+Two deliberate differences from the JAX package (ROADMAP Queue 3):
+- after a strict retry that also finds alpha = 0, no further retry fires
+  until a step finds alpha > 0 (every entry's, on a batched dataset); the
+  JAX package retries on every later step, a gradient and a line search
+  each time;
+- on a batched dataset the retry fires when ANY entry's alpha is 0 (the
+  JAX package: when every entry's is), for the whole batch, and a retry
+  that moves any entry keeps the run strict; where no entry stalls, or
+  every entry does, the two agree.
 
 Not ported yet, and refused with NotImplementedError (ROADMAP Queue 1
 item 3): ``linesearch="brent"`` (and so an
 ``alpha_tol`` and a ``logprior`` in MAP_joint), ``quasi_sample`` (and
-so a ``key``), ``nburnin_update_hessian``, ``MAP_joint`` on batched datasets, and
-``MAP_marg``. ``argmaxf_logpdf`` and ``sample_f`` take a batched d: CG
+so a ``key``) and ``nburnin_update_hessian``; ``mesh=`` (ROADMAP Queue
+1 item 9). ``argmaxf_logpdf`` and ``sample_f`` take a batched d: CG
 keeps a residual and a step per entry, and the strict re-check's verdict
 covers every entry. ``argmaxf_logpdf`` solves the Gaussian conditional only and
 warns when the dataset has a logprior, as the JAX package does.
@@ -51,7 +60,8 @@ import torch
 
 from ..core.field import Field, dot as field_dot, fvalue_and_grad, norm as field_norm, \
     repeat_batch, zeros_like_field
-from ..core.ops import Diag, Id, ParamDependentOp, _Identity, _diag_field_of, evaluate_at
+from ..core.ops import (Diag, Id, ParamDependentOp, _Identity, _diag_field_of, evaluate_at,
+                        nan2zero, safe_reciprocal)
 from ..models.dataset import DataSet, Mixed, mix, unmix
 from ..ops.deriv import precision_ctx
 from ..ops.solvers import conjugate_gradient, tree_dot
@@ -262,7 +272,8 @@ def _linesearch_chunk(phi_mix, ngrid, budget=None):
     (counterpart of the JAX package's `_linesearch_chunk`): ngrid (all
     ngrid + 1 trials, alpha = 0 included, in one batch) while ngrid of
     them fit in `budget` bytes at LINESEARCH_PLANES_PER_TRIAL planes each
-    (the JAX rule: one trial over rather than a second batch); else the
+    per batch entry of phi (a batched dataset's trials carry every entry);
+    the JAX rule: one trial over rather than a second batch; else the
     fewest batches of at most as many as fit (at least 1), evened out so
     that padding the last one wastes least. The budget is
     `linesearch_budget` of phi's device unless given;
@@ -275,12 +286,19 @@ def _linesearch_chunk(phi_mix, ngrid, budget=None):
     if budget is None:
         return ngrid
     per_trial = LINESEARCH_PLANES_PER_TRIAL * phi_mix.proj.Ny * phi_mix.proj.Nx \
-        * phi_mix.arr.element_size()
+        * phi_mix.arr.element_size() * phi_mix.Nbatch
     fit = max(1, int(budget // per_trial))
     if fit >= ngrid:
         return ngrid
     nchunk = -(-(ngrid + 1) // fit)
     return -(-(ngrid + 1) // nchunk)
+
+
+def _repeat_trials(f, m):
+    """A batched field's entries, all of them m times over, trial-major:
+    (m * nbatch, ...)."""
+    arr = f.arr.unsqueeze(0).expand((m,) + tuple(f.arr.shape))
+    return Field(arr.reshape((-1,) + tuple(f.arr.shape[1:])), f.basis, f.proj)
 
 
 def _grid_linesearch_dlps(dstheta, theta, f_mix, phi_mix, dphi, amax, ngrid, chunk=None):
@@ -298,36 +316,77 @@ def _grid_linesearch_dlps(dstheta, theta, f_mix, phi_mix, dphi, amax, ngrid, chu
     z_i(0) is row 0 of the first batch, computed as the others are, so
     its dlp is exactly 0 and no difference between two evaluation paths
     reaches the Sigma^-1 metric, which would amplify it (the JAX
-    package's path-consistency fix)."""
+    package's path-consistency fix).
+
+    On a batched dataset (phi° of batch shape (nbatch,)) each entry has
+    its own grid: amax is a scalar or one value an entry, alphas and dlps
+    are (ngrid + 1, nbatch), and a batch of m trials evaluates m x nbatch
+    entries, trial-major, d and f° repeated for each trial."""
     rdt, dev = phi_mix.arr.dtype, phi_mix.arr.device
     steps = (torch.arange(1, ngrid + 1, dtype=rdt, device=dev) / ngrid) ** 1.5
-    alphas = torch.cat([torch.zeros(1, dtype=rdt, device=dev),
-                        torch.as_tensor(amax, dtype=rdt, device=dev) * steps])
+    amax = torch.as_tensor(amax, dtype=rdt, device=dev)
+    nb = phi_mix.batch_shape
+    if nb:
+        amax = amax.expand(nb)
+        steps = steps[:, None]
+    alphas = amax * steps
+    alphas = torch.cat([torch.zeros_like(alphas[:1]), alphas])
     if chunk is None:
         chunk = _linesearch_chunk(phi_mix, ngrid)
     if chunk >= ngrid:
         chunk = ngrid + 1
     nchunk = -(-(ngrid + 1) // chunk)
-    padded = torch.cat([alphas, alphas.new_zeros(nchunk * chunk - (ngrid + 1))])
+    padded = torch.cat([alphas, alphas.new_zeros((nchunk * chunk - (ngrid + 1),) + nb)])
     covs = _mixed_gaussian_covs(dstheta, theta)
     z0s, dlps = None, []
     for a in padded.split(chunk):
-        step = Field(a.reshape(-1, 1, 1, 1) * dphi.arr, dphi.basis, dphi.proj)
-        zs = _mixed_gaussian_z(dstheta, theta, f_mix, phi_mix + step)
+        if nb:
+            m = a.shape[0]
+            pm = phi_mix + Field(a.reshape(a.shape + (1, 1, 1)) * dphi.arr, dphi.basis,
+                                 dphi.proj)
+            pm = Field(pm.arr.reshape((-1,) + tuple(pm.arr.shape[2:])), pm.basis, pm.proj)
+            zs = _mixed_gaussian_z(dstheta.replace(d=_repeat_trials(dstheta.d, m)), theta,
+                                   _repeat_trials(f_mix, m), pm)
+            zs = [Field(z.arr.reshape((m,) + nb + tuple(z.arr.shape[1:])), z.basis, z.proj)
+                  for z in zs]
+            del pm
+        else:
+            step = Field(a.reshape(-1, 1, 1, 1) * dphi.arr, dphi.basis, dphi.proj)
+            zs = _mixed_gaussian_z(dstheta, theta, f_mix, phi_mix + step)
+            del step
         if z0s is None:
             z0s = [Field(z.arr[:1], z.basis, z.proj) for z in zs]
         d = 0.0
         for z, z0, S in zip(zs, z0s, covs):
             d = d - 0.5 * field_dot(z - z0, S.solve(z + z0))
         dlps.append(d)
-        del zs, step
+        del zs
     dlps = torch.cat(dlps)[:ngrid + 1]
     dlps = torch.where(torch.isfinite(dlps), dlps, torch.full_like(dlps, -float("inf")))
     return alphas, dlps
 
 
+def _grid_argmax(alphas, dlps):
+    """The trial of largest dlp: a float, or on a batched dataset a tensor
+    of one alpha an entry (trial 0 is alpha = 0, the self-guard)."""
+    i = torch.argmax(dlps, dim=0)
+    if alphas.ndim == 1:
+        return float(alphas[i])
+    return torch.gather(alphas, 0, i[None])[0]
+
+
+def _stalled_moved(alpha):
+    """(whether some entry's alpha is 0, whether some entry's is > 0) of a
+    line search's alpha, a float or one value a batch entry."""
+    if isinstance(alpha, torch.Tensor):
+        return bool((alpha == 0).any()), bool((alpha > 0).any())
+    return alpha == 0.0, alpha > 0
+
+
 def _step_unmix_and_norm(dstheta, theta, f_mix, phi_mix, dphi, alpha):
-    """phi° + alpha dphi, unmixed, its mixed logpdf and |dphi|."""
+    """phi° + alpha dphi (alpha a scalar or one value a batch entry),
+    unmixed, its mixed logpdf summed over the entries, and |dphi| (one
+    value an entry)."""
     pm = phi_mix + alpha * dphi
     u = unmix(dstheta, f_mix=f_mix, phi_mix=pm, theta=theta)
     phi = u["phi"].to(u["phi"].basis.with_space("map"))
@@ -359,7 +418,15 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
     alpha_tol (brent's) and key (quasi_sample's) are taken at their
     defaults only, while those two are not ported. Iteration stops early
     once a step after minsteps moves phi° by less than gradtol (alpha
-    |dphi|). Returns dict(f, phi, history)."""
+    |dphi|, their largest over the entries).
+
+    On a batched dataset (d of batch shape (nbatch,)) phi is repeated
+    over the entries when phistart is not batched; each entry has its own
+    line-search grid (amax from its own last step) and alpha, history's
+    "alpha" and "gradnorm" are arrays of one value an entry and "logpdf"
+    is the sum over the entries. The direction retry fires when any
+    entry's alpha is 0, for the whole batch (module docstring). Returns
+    dict(f, phi, history)."""
     _check_precision(precision, "precision", (None, "auto", "f32", "high", "bf16"))
     unknown = [k for k in history_keys if k not in HISTORY_KEYS]
     if unknown:
@@ -379,8 +446,6 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
         raise NotImplementedError(f"a logprior (which needs the brent search) is {_NOT_PORTED}")
     if not isinstance(ds, DataSet):
         raise NotImplementedError(f"MAP_joint on a {type(ds).__name__} is {_NOT_PORTED}")
-    if ds.d.batch_shape:
-        raise NotImplementedError(f"MAP_joint on a batched dataset is {_NOT_PORTED}")
     theta = theta or {}
     cg = dict(tol=1e-1, nsteps=500)
     cg.update(conjgrad_kwargs or {})
@@ -389,6 +454,10 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
     dstheta = ds.at(theta).replace(G=Id)   # the MAP does not depend on G
     Cphi = _fid(dstheta.Cphi)
     phi = phistart if phistart is not None else _zero_map_like(Cphi)
+    batched = bool(dstheta.d.batch_shape)
+    if batched and not phi.batch_shape:
+        # each entry gets its own phi-step and line-search alpha
+        phi = repeat_batch(phi, dstheta.d.batch_shape[0])
     f = fstart
     Hpre = hessian_phimix_preconditioner(dstheta) if dstheta.Nphi is not None else Cphi.pinv()
     Hpre_inv = Hpre.pinv()
@@ -404,7 +473,7 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
         with _pctx(ls_prec):
             alphas, dlps = _grid_linesearch_dlps(dstheta, theta, f_mix, phi_mix, dphi, amax,
                                                  int(ngrid))
-        return float(alphas[torch.argmax(dlps)])
+        return _grid_argmax(alphas, dlps)
 
     history = []
     alpha, amax = 1.0, 2.0
@@ -420,32 +489,39 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
                 f_mix, phi_mix, g, dphi = direction(prec)
                 if alpha_max is not None:
                     amax = alpha_max
+                elif batched:
+                    # per entry: grow or shrink with its accepted step; a null
+                    # step (alpha = 0) keeps the entry's previous scale
+                    a = torch.as_tensor(alpha, dtype=phi.dtype, device=phi.device)
+                    amax = torch.where(a > 0, 2.0 * a,
+                                       torch.as_tensor(amax, dtype=phi.dtype, device=phi.device))
                 elif alpha > 0:
-                    # grow or shrink with the accepted step; a null step
-                    # (alpha = 0) keeps the previous scale
                     amax = 2.0 * alpha
                 alpha = search(f_mix, phi_mix, dphi)
                 nfev, retried = ngrid, False
-                if alpha == 0.0 and prec != ls_prec and not retry_spent:
+                stalled = _stalled_moved(alpha)[0]
+                if stalled and prec != ls_prec and not retry_spent:
                     # the strict trials rejected the reduced-precision
-                    # direction: recompute it strict and search again; an
-                    # accepted strict direction keeps the run strict
+                    # direction (of one entry at least): recompute it strict
+                    # for the whole batch and search again; an accepted
+                    # strict direction (of any entry) keeps the run strict
                     retried = True
                     f_mix, phi_mix, g, dphi = direction(ls_prec)
                     alpha = search(f_mix, phi_mix, dphi)
                     nfev += ngrid
-                    if alpha > 0:
+                    if _stalled_moved(alpha)[1]:
                         prec = ls_prec
                     else:
                         retry_spent = True
-                elif alpha > 0:
+                elif not stalled:
                     retry_spent = False
             with _pctx(prec):
                 phi_mix, phi, lp_dev, dnorm_dev = _step_unmix_and_norm(
                     dstheta, theta, f_mix, phi_mix, dphi, alpha)
-            lp, dnorm = float(lp_dev), float(dnorm_dev)
+            alpha_s = float(torch.max(torch.as_tensor(alpha))) if batched else alpha
+            lp, dnorm = float(lp_dev), float(torch.max(dnorm_dev))
             if progress:
-                pbar.update(logpdf=lp, alpha=alpha, CG=int(cg_info["iterations"]), ls=nfev)
+                pbar.update(logpdf=lp, alpha=alpha_s, CG=int(cg_info["iterations"]), ls=nfev)
             entry = {}
             if "logpdf" in history_keys:
                 entry["logpdf"] = lp
@@ -454,7 +530,7 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
             if "f" in history_keys:
                 entry["f"] = f
             if "alpha" in history_keys:
-                entry["alpha"] = alpha
+                entry["alpha"] = alpha.cpu().numpy() if batched else alpha
             if "cg_iters" in history_keys:
                 entry["cg_iters"] = int(cg_info["iterations"])
             if "cg_res" in history_keys:
@@ -462,12 +538,112 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
             if "cg_res_history" in history_keys and "res_history" in cg_info:
                 entry["cg_res_history"] = cg_info["res_history"].cpu().numpy()
             if "gradnorm" in history_keys:
-                entry["gradnorm"] = np.asarray(float(field_norm(g)))
+                gn = field_norm(g)
+                entry["gradnorm"] = gn.cpu().numpy() if batched else np.asarray(float(gn))
             if "precision_fallback" in history_keys:
                 entry["precision_fallback"] = bool(cg_info.get("precision_fallback", False))
             if "retry" in history_keys:
                 entry["retry"] = retried
             history.append(entry)
-            if step > minsteps and dnorm * alpha < gradtol:
+            if step > minsteps and dnorm * alpha_s < gradtol:
                 break
     return dict(f=f, phi=phi, history=history)
+
+
+# =========================================================================
+# MAP_marg
+# =========================================================================
+
+_MESH = "not ported yet (ROADMAP Queue 1 item 9, torch.distributed)"
+
+
+def _phi_gradient(dstheta, theta, phi, f, d):
+    """grad_phi of logpdf(f, phi, theta) with data d at fixed f, summed
+    over the batch entries (one gradient an entry), in phi's map basis."""
+    _, g = fvalue_and_grad(
+        lambda p: torch.sum(dstheta.logpdf(f=f, phi=p, theta=theta, d=d)))(phi)
+    return g
+
+
+def _marg_simulate_d(ds, theta, phi_b, generator, draw):
+    """The data of MAP_marg's mean-field simulations at the batched phi_b,
+    one an entry of phi_b, f and the noise drawn from `generator`; `draw`
+    counts the calls of a run from 0 (a test replays another
+    implementation's draws by it)."""
+    return ds.simulate(generator, theta=theta, phi=phi_b, batch_shape=phi_b.batch_shape)["d"]
+
+
+def _marg_update(ds, theta, phi, g_data, gbar, alpha):
+    """phi + alpha Hinv (g_data - gbar - Cphi^-1 phi), Hinv = (Cphi^-1 +
+    Nphi^-1)^-1, and the norm of the gradient it steps along."""
+    Cphi = evaluate_at(ds.Cphi, theta)
+    Nphi = evaluate_at(ds.Nphi, theta)
+    hinv = nan2zero(safe_reciprocal(safe_reciprocal(Cphi.diag.arr)
+                                    + safe_reciprocal(Nphi.diag.to(Cphi.diag.basis).arr)))
+    Hinv = Diag(Field(hinv, Cphi.diag.basis, Cphi.diag.proj))
+    g = g_data - gbar.to(g_data.basis) - Cphi.solve(phi).to(g_data.basis)
+    return phi + alpha * (Hinv @ g).to(phi.basis), field_norm(g)
+
+
+def MAP_marg(ds: DataSet, theta=None, generator=None, phistart=None, nsteps=10,
+             nsteps_with_meanfield_update=4, conjgrad_kwargs=None, alpha=0.2, Nsims=50,
+             progress=False, mesh=None, precision="auto"):
+    """MAP of the marginal posterior P(phi | d) by mean-field-subtracted
+    gradient steps (reference src/maximization.jl): each step Wiener-filters
+    the data at phi (CG, conjgrad_kwargs), takes the phi-gradient of the
+    logpdf at that f, and steps phi <- phi + alpha Hinv (g_data - gbar -
+    Cphi^-1 phi). The mean field gbar is the mean phi-gradient over Nsims
+    simulations at the current phi, their Wiener filters and gradients run
+    as one batch; it is updated in the first nsteps_with_meanfield_update
+    steps and kept after. Draws come from `generator` (a torch.Generator
+    on ds's device, seeded 0 when not given; the JAX package takes a key)
+    through `_marg_simulate_d`. precision: "auto" (= 'high'), 'high' or
+    'bf16' runs the phi-gradients at that precision, 'f32' strict; None is
+    strict everywhere, the f-steps included. mesh (the sims sharded over
+    several cards) is refused. Returns (phi, history), history one
+    dict(step, phi, gradnorm) a step."""
+    _check_precision(precision, "precision", (None, "auto", "f32", "high", "bf16"))
+    if mesh is not None:
+        raise NotImplementedError(f"MAP_marg(mesh=...) is {_MESH}")
+    theta = theta or {}
+    cg = dict(tol=1e-1, nsteps=500)
+    cg.update(conjgrad_kwargs or {})
+    if precision is None:
+        cg.setdefault("hessian_precision", None)
+    dstheta = ds.at(theta).replace(G=Id)
+    Cphi = _fid(dstheta.Cphi)
+    phi = phistart if phistart is not None else _zero_map_like(Cphi)
+    if generator is None:
+        generator = torch.Generator(device=phi.device)
+        generator.manual_seed(0)
+    prec = "high" if precision == "auto" else precision
+
+    def phi_gradient(phi_, f_, d_):
+        with _pctx(prec):
+            return _phi_gradient(dstheta, theta, phi_, f_, d_)
+
+    history = []
+    f_wf = f_wf_sims = gbar = None
+    for step in range(1, nsteps + 1):
+        with timed("MAP_marg/data"):
+            f_wf, _ = argmaxf_logpdf(dstheta, phi=phi, theta=theta, fstart=f_wf,
+                                     conjgrad_kwargs=cg)
+            g_data = phi_gradient(phi, f_wf, dstheta.d)
+        if step <= nsteps_with_meanfield_update:
+            with timed("MAP_marg/mean_field"):
+                phi_b = repeat_batch(phi, Nsims)
+                with torch.no_grad():
+                    d_sims = _marg_simulate_d(dstheta, theta, phi_b, generator, step - 1)
+                f_wf_sims, _ = argmaxf_logpdf(dstheta.replace(d=d_sims), phi=phi_b, theta=theta,
+                                              fstart=f_wf_sims, conjgrad_kwargs=cg)
+                g_sims = phi_gradient(phi_b, f_wf_sims, d_sims)
+                gbar = Field(torch.mean(g_sims.arr, dim=0), g_sims.basis, g_sims.proj)
+        if gbar is None:
+            # no mean-field estimate yet (nsteps_with_meanfield_update < 1)
+            gbar = zeros_like_field(g_data)
+        with torch.no_grad():
+            phi, gnorm = _marg_update(dstheta, theta, phi, g_data, gbar, alpha)
+        history.append(dict(step=step, phi=phi, gradnorm=float(gnorm)))
+        if progress:
+            print(f"MAP_marg step {step}: |g|={float(gnorm):.3g}")
+    return phi, history

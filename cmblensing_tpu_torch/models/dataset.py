@@ -78,9 +78,13 @@ def _ieb_map(op, fn):
 def _bscal(s, field):
     """A parameter value broadcastable against field's array: a scalar as
     it is, a per-entry vector (numpy or torch, one value a batch entry)
-    as a tensor of shape (*batch, 1, 1, 1) on field's device."""
+    as a tensor of shape (*batch, 1, 1, 1) on field's device, in the
+    field's precision but for a float64 tensor, which stays float64 (the
+    theta-score differentiates in float64, inference/muse.py)."""
     if isinstance(s, (np.ndarray, torch.Tensor)) and s.ndim >= 1:
-        t = torch.as_tensor(s, dtype=field.proj.torch_T, device=field.proj.device)
+        dtype = s.dtype if isinstance(s, torch.Tensor) and s.dtype == torch.float64 \
+            else field.proj.torch_T
+        t = torch.as_tensor(s, dtype=dtype, device=field.proj.device)
         return t.reshape(tuple(t.shape) + (1, 1, 1))
     return s
 

@@ -1698,3 +1698,49 @@ def test_batched_argmaxf_at_32_sims_runs_on_card():
                                conjgrad_kwargs=dict(tol=0.0, nsteps=3, fixed_iters=True,
                                                     hessian_precision=None))
     assert rel(ct.batch_index(f, 31).arr, one.arr) < 1e-5
+
+
+# =========================================================================
+# the ensemble pipelines: batched MAP_joint and the MUSE theta-score
+# =========================================================================
+
+# a batched MAP_joint step (20 fixed CG iterations, strict) on the kernel
+# backend against the plain one: CG amplifies the flows' 1e-5 as
+# chip_smoke.py's 20-iteration Wiener filter does (1e-4)
+ENSEMBLE_PLAIN_TOL = 1e-4
+
+
+@pytest.mark.cuda
+def test_batched_MAP_joint_step_and_muse_score_kernel_match_plain_on_card():
+    """At 64^2 P, Cphi banded into 2 bins, 2 sims drawn at amplitudes (1.3,
+    0.7): one batched MAP_joint step (an alpha an entry) and the per-sim
+    MUSE theta-scores at its MAP, on "kernel" against "plain": f, phi and
+    the scores within ENSEMBLE_PLAIN_TOL, the same alphas."""
+    _card()
+    from cmblensing_tpu_torch.inference import muse as tmuse
+    sim = ct.load_sim(thetapix=3, Nside=64, pol="P", seed=0)
+    ds, proj = sim["ds"], sim["proj"]
+    edges = np.array([0.0, 2000.0, 1e9])
+    ds = ds.replace(Cphi=ct.Cl_to_Cov("I", proj, (ct.camb()["total"]["pp"], edges, "Aphi_b")))
+    theta = dict(Aphi_b=np.array([1.3, 0.7]))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    with torch.no_grad():
+        ds = ds.replace(d=ds.simulate(g, theta=theta, batch_shape=(2,))["d"])
+    spec = tmuse._theta_spec(theta)
+    out = {}
+    for backend in ("kernel", "plain"):
+        with ct.lenseflow_backend_ctx(backend):
+            r = ct.MAP_joint(ds, theta=theta, nsteps=1, precision=None, history_keys=("alpha",),
+                             conjgrad_kwargs=dict(tol=0.0, nsteps=20, fixed_iters=True))
+            s = tmuse._theta_score_batch(ds, r["f"], r["phi"],
+                                         tmuse._theta_vec(theta, spec, "cuda"), spec)
+        out[backend] = (r, s)
+    (k, sk), (p, sp) = out["kernel"], out["plain"]
+    m = lambda x: x.to(x.basis.with_space("map")).arr
+    errs = {"f": rel(m(k["f"]), m(p["f"])), "phi": rel(m(k["phi"]), m(p["phi"])),
+            "scores": rel(sk, sp)}
+    print(f"batched MAP_joint step and MUSE scores, kernel vs plain: {errs}")
+    assert k["phi"].batch_shape == (2,) and sk.shape == (2, 2)
+    assert np.array_equal(k["history"][0]["alpha"], p["history"][0]["alpha"])
+    assert max(errs.values()) < ENSEMBLE_PLAIN_TOL, errs

@@ -167,8 +167,16 @@ def test_unported_batched_and_reduced_precision_paths_raise(P32):
     tds = P32["tds"]
     d = tds.d
     batched = tds.replace(d=ct.Field(torch.stack([d.arr, d.arr]), d.basis, d.proj))
-    with pytest.raises(NotImplementedError):
-        ct.MAP_joint(batched, nsteps=1)
+    # batched MAP_joint runs (tests/test_torch_ensemble.py holds it to JAX's):
+    # one step, each entry its unbatched run (the same alpha on the float32
+    # grid, phi to float32 round-off: the batched FFTs sum in other orders)
+    kw = dict(nsteps=1, precision=None, history_keys=("alpha",),
+              conjgrad_kwargs=dict(tol=0.0, nsteps=2, fixed_iters=True))
+    rb, r1 = ct.MAP_joint(batched, **kw), ct.MAP_joint(tds, **kw)
+    assert rb["phi"].batch_shape == (2,)
+    for i in range(2):
+        assert abs(float(rb["history"][0]["alpha"][i]) - r1["history"][0]["alpha"]) < 1e-6
+        assert rel(rb["phi"].arr[i].numpy(), r1["phi"].arr.numpy()) < 1e-5
     # the batched f-step runs (tests/test_torch_batch.py holds it to JAX's):
     # both entries the unbatched solve
     cg = dict(tol=0.0, nsteps=2, fixed_iters=True, hessian_precision=None)
