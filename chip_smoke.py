@@ -181,6 +181,26 @@ port's two paths through the kernel backend:
               derivative on the path's phi, against their plain versions,
               timed at 8; (e) one batched MAP_joint step and the MUSE
               theta-scores at 2 sims, kernel against plain.
+  phase 21    the rest of load_sim's and MAP_joint's options at 1024^2 P
+              (scripts/map_1024.py's simulation, phase 7's in a whole run),
+              on the factored kernels, no kernel of its own: (a) MAP_joint
+              with a weak logprior (so brent), 4 steps at "auto", CG 15
+              fixed: s/step, brent's evaluations a step, alpha > 0 first, a
+              finite non-decreasing logpdf, every kernel of the path
+              launched; one strict brent step from one f-step on the kernel
+              and the plain backends (alpha within 10 alpha_tol along one
+              direction, logpdf 1e-6); (b) nburnin_update_hessian=2 over 6
+              steps beside the grid run without it, corr(phi, phi_true) >=
+              0.9 each; (c) quasi_sample, 3 steps, finite logpdfs; (d)
+              load_nolensing_sim and its MAP_joint, f equal to
+              argmaxf_logpdf's, CG iterations and ms; (e) PowerLens(phi, 4),
+              Taylens(phi, 4) and BilinearLens(phi) against LenseFlow,
+              BilinearLens's adjoint identity and solve residual,
+              get_max_lensing_step, each on the card against the CPU on the
+              same inputs and against the CPU in float64, and the
+              phi-gradient of logpdf on load_sim(L=BilinearLens) the same
+              way; (f) load_sim with every keyword passed at its default
+              value: the default dataset's d and operators bit for bit.
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
     python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
@@ -190,6 +210,7 @@ port's two paths through the kernel backend:
     python3 chip_smoke.py --phase 18    (phase 1, the build, and phase 18 alone)
     python3 chip_smoke.py --phase 19    (phase 1, the build, and phase 19 alone)
     python3 chip_smoke.py --phase 20    (phase 1, the build, and phase 20 alone)
+    python3 chip_smoke.py --phase 21    (phase 1, the build, and phase 21 alone)
 
 Phases 13, 14 (c) and 16 take one 4096^2 P simulation (load_sim is
 seeded), loaded once in a whole run. Phases 7 and 8 measure the strict
@@ -471,6 +492,41 @@ ENSEMBLE_KERNELS = ("flow_forward", "flow_adjoint", "flow_forward_high", "flow_a
 # kernel backend against the plain one (strict; CG 20 fixed: the flows'
 # 1e-5 amplified as WF_PLAIN_TOL's 20 iterations do)
 ENSEMBLE_PLAIN_TOL = 1e-4
+# phase 21: the rest of load_sim's and MAP_joint's options at 1024^2 P
+OPT_STEPS = 4              # (a) MAP_joint steps with a logprior (brent)
+OPT_ALPHA_TOL = 1e-4       # brent's tolerance (MAP_joint's default)
+OPT_LOGPRIOR_W = 1e-2      # the weak logprior: -w/2 phi' Cphi^-1 phi
+OPT_LP_TOL = 1e-6          # (a) one brent step's logpdf, kernel against plain
+OPT_HESS_STEPS, OPT_HESS_BURNIN = 6, 2   # (b)
+OPT_QUASI_STEPS = 3        # (c)
+OPT_NOLENS_TOL = 1e-6      # (d) MAP_joint's f against argmaxf_logpdf's
+# (e) the other lensing operators against LenseFlow (bounds of JAX
+# tests/test_lensing_ops.py:35-75), and the card against the CPU
+# tests/test_lensing_ops.py:35-75; PowerLens's 0.05 holds at 64^2 thetapix 3
+# (3.2 deg; the port 0.006) and 512^2 thetapix 2 (0.021), but a 34 deg
+# 1024^2 field holds phi's modes down to l ~ 10, whose deflections the
+# series expands about the undeflected pixel: 0.101 there (on an H100
+# 80GB HBM3 at 700 W), so it is held to 0.15 (Taylens remaps to the nearest
+# pixel first)
+OPT_LENS_BOUND = {"PowerLens": 0.15, "Taylens": 0.05, "BilinearLens": 0.3}
+OPT_ADJ_TOL, OPT_SOLVE_TOL = 1e-4, 0.15
+# the card against the CPU on the same float32 inputs, in Frobenius norm:
+# grad phi by FFT lies 8.4e-6 from float64 at 512^2 (phi's steep spectrum:
+# the rounding at high l is weighted by l), and the operators inherit it,
+# 3.7e-6-5.7e-6 at 512^2 on the CPU, 2.2e-5-2.5e-5 between the card and the
+# CPU at 1024^2, BilinearLens's adjoint and solve 9.0e-5 and 7.6e-5 (an H100
+# 80GB HBM3 at 700 W): held at OPT_F32_TOL, and each no further from float64 than
+# twice the CPU. get_max_lensing_step forms its
+# Hessians in float64: OPT_CPU_TOL. The phi-gradient of logpdf with
+# BilinearLens: 6.2e-3 and 6.7e-3 from float64 on the card and the CPU at
+# 1024^2, 8.0e-3 apart (the weights' kinks at cell edges; Cphi^-1
+# amplifying high-l FFT rounding): OPT_GRAD_TOL
+OPT_F32_TOL, OPT_CPU_TOL, OPT_GRAD_TOL = 2e-4, 1e-5, 2e-2
+# the "auto" path's kernels: the strict line search and f-step CG, the
+# 'high' phi-gradient
+OPT_KERNELS = ("fderiv", "fa_velocity_forward", "fa_velocity_adjoint", "rk4_update", "p_planes",
+               "fderiv_high", "fa_velocity_forward_high", "fa_velocity_adjoint_high",
+               "bv_velocity_high")
 
 
 def rel(a, b):
@@ -3928,12 +3984,17 @@ def sm90_k2(torch, card):
             o = torch.empty_like(like)
             dd["ms"] = cold_ms(lambda o_, x_: lfk.deriv_cuda(x_, None, None, o_, m, "bf16"),
                                (o, args[0]), 20, torch)
-            if where == "IP slice":
-                dd["plain_ms"] = cuda_ms(lambda: lfk.deriv_plain(f, None, None, o, m, "bf16"), 5,
+            x = args[0]
+            if where == "IP slice" or x.shape[-1] == x.shape[-2]:
+                # the library call and the bound beside it on square planes:
+                # the slice (the record) and 600^2
+                n_ = x.shape[-1]
+                dd["plain_ms"] = cuda_ms(lambda: lfk.deriv_plain(x, None, None, o, m, "bf16"), 5,
                                          torch)
-                dd["library_ms"], dd["library_call"] = library_bf16_ms(f.reshape(-1, N), m[0],
+                dd["library_ms"], dd["library_call"] = library_bf16_ms(x.reshape(-1, n_), m[0],
                                                                        torch)
-                dd.update(bound_dense_high(N, f.shape[0], 2 * f.shape[0] + 0.5, tier="bf16"))
+                dd.update(bound_dense_high(n_, x.shape[0], 2 * x.shape[0] + 0.5, tier="bf16"))
+            if where == "IP slice":
                 rec = dd
         if not (e < BF16_DENSE_TOL and dd["same"] and dd["clean"]):
             bad[key] = (e, dd["same"], dd["clean"])
@@ -3943,7 +4004,7 @@ def sm90_k2(torch, card):
               + (f"; {dd['ms']:.4f} ms cold" if "ms" in dd else "")
               + (f", plain {dd['plain_ms']:.4f} ms, library {dd['library_ms']:.4f} ms "
                  f"({dd['library_call']}), bound {dd['bound_ms']:.4f} ms ({dd['bound_by']}, "
-                 f"{100 * dd['bound_ms'] / dd['ms']:.1f} %)" if dd is rec else "")
+                 f"{100 * dd['bound_ms'] / dd['ms']:.1f} %)" if "library_ms" in dd else "")
               + f" [{card}]")
     lfk.reset_launches()
     dphi, _ = lfk.flow_bwd(d, f, phi, mats, 0., 1., NSTEPS, "bf16")
@@ -4622,6 +4683,308 @@ def phase_ensemble(torch, card):
         "qe_eb_256x9_ms": qe_ms, "MAP_marg_256x16_s_per_step": marg_s}
 
 
+def weak_logprior(ds):
+    """A weak Gaussian logprior on phi, -w/2 phi' Cphi^-1 phi (w =
+    OPT_LOGPRIOR_W), as a dataset's logprior(theta=, f=, phi=)."""
+    import cmblensing_tpu_torch as ct
+    Cphi = ds.Cphi.fiducial
+    return lambda theta=None, f=None, phi=None: -0.5 * OPT_LOGPRIOR_W * ct.dot(phi, Cphi.solve(phi))
+
+
+def options_brent(torch, card, sim):
+    """Phase 21 (a): MAP_joint with a logprior (so brent), OPT_STEPS steps at
+    "auto", CG as MAP_CG, the launch counters set to 0 just before and read
+    just after; then one brent step from the same f-step on the kernel and
+    the plain backends. Returns (launches, s/step, bad)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.inference import maximization as tm
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    from cmblensing_tpu_torch.ops.deriv import precision_ctx
+    ds = sim["ds"].replace(logprior=weak_logprior(sim["ds"]))
+    keys = ("logpdf", "alpha", "nfev", "cg_iters", "retry")
+    bad = {}
+    lfk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ct.MAP_joint(ds, nsteps=OPT_STEPS, conjgrad_kwargs=MAP_CG, history_keys=keys,
+                       alpha_tol=OPT_ALPHA_TOL)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in lfk.LAUNCHES.items() if v}
+    hist = res["history"]
+    lps, alphas, nfev = ([h[k] for h in hist] for k in ("logpdf", "alpha", "nfev"))
+    print(f"phase 21: (a) MAP_joint {N_MAP}^2 P with a logprior (brent, alpha_tol "
+          f"{OPT_ALPHA_TOL:g}), {OPT_STEPS} steps at \"auto\", CG 15 fixed: {dt:.3f} s = "
+          f"{dt / OPT_STEPS:.4f} s/step (the first step's kernel tables included) [{card}]")
+    print(f"phase 21: (a) logpdfs {lps!r}; alphas {alphas!r}; brent evaluations a step {nfev}; "
+          f"retries {[h['retry'] for h in hist]}; CG iters {[h['cg_iters'] for h in hist]}")
+    print(f"phase 21: (a) launches {launches}; per step "
+          f"{ {k: v / OPT_STEPS for k, v in launches.items()} }")
+    if not all(np.isfinite(lps)) or any(b < a for a, b in zip(lps, lps[1:])):
+        bad["(a) logpdf"] = lps
+    if not alphas[0] > 0:
+        bad["(a) first alpha"] = alphas
+    never = [k for k in OPT_KERNELS if not launches.get(k)]
+    if never:
+        bad["(a) never launched"] = never
+    # one strict brent step on each backend from the same f-step: its own
+    # direction (the gradients lie ~1e-4 apart), and the line search alone
+    # along the kernel backend's direction
+    dstheta = ds.at({}).replace(G=ct.Id)
+    phi0 = tm._zero_map_like(tm._fid(dstheta.Cphi))
+    f, _ = ct.argmaxf_logpdf(dstheta, phi=phi0, conjgrad_kwargs=MAP_CG)
+    Hinv = tm.hessian_phimix_preconditioner(dstheta).pinv()
+    step, shared = {}, None
+    for be in ("kernel", "plain"):
+        with ct.lenseflow_backend_ctx(be), precision_ctx("f32"), torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f_mix, phi_mix, g = tm._phi_grad_and_fmix(dstheta, {}, f, phi0)
+            shared = shared or (f_mix, phi_mix, Hinv @ g)
+            for label, (fm, pm, dphi) in (("own", (f_mix, phi_mix, Hinv @ g)),
+                                          ("shared", shared)):
+                dlp = tm._brent_dlp(dstheta, {}, fm, pm, dphi)
+                a, n = tm._brent_min(lambda a: -dlp(a), 2.0, abs_tol=OPT_ALPHA_TOL)
+                lp = float(tm._step_unmix_and_norm(dstheta, {}, fm, pm, dphi, a)[2])
+                step[be, label] = (a, lp, n)
+            torch.cuda.synchronize()
+            step[be] = time.perf_counter() - t0
+    for label in ("own", "shared"):
+        (ak, lk, nk), (ap, lpp, npl) = step["kernel", label], step["plain", label]
+        print(f"phase 21: (a) one strict brent step from the same f-step, "
+              + ("each backend's own direction" if label == "own" else
+                 "the line search along the kernel backend's direction")
+              + f": kernel alpha {ak!r} logpdf {lk!r} ({nk} evaluations); plain alpha {ap!r} "
+              f"logpdf {lpp!r} ({npl}); |d alpha| {abs(ak - ap):.3e}"
+              + (f" (bound {10 * OPT_ALPHA_TOL:g})" if label == "shared" else "")
+              + f", logpdf rel {abs(lk - lpp) / abs(lpp):.3e} (bound {OPT_LP_TOL:g}) [{card}]")
+        if not abs(lk - lpp) < OPT_LP_TOL * abs(lpp):
+            bad[f"(a) brent logpdf kernel vs plain, {label}"] = (lk, lpp)
+        if label == "shared" and not abs(ak - ap) < 10 * OPT_ALPHA_TOL:
+            bad["(a) brent alpha kernel vs plain"] = (ak, ap)
+    print(f"phase 21: (a) those steps: kernel {step['kernel']:.3f} s, plain {step['plain']:.3f} s")
+    return launches, dt / OPT_STEPS, bad
+
+
+def options_hessian_quasi(torch, card, sim):
+    """Phase 21 (b) nburnin_update_hessian against the grid run without it,
+    and (c) quasi-samples. Returns (numbers, bad)."""
+    import cmblensing_tpu_torch as ct
+    ds, bad, out = sim["ds"], {}, {}
+    for label, kw in (("grid", {}), ("hessian update", dict(nburnin_update_hessian=OPT_HESS_BURNIN))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ct.MAP_joint(ds, nsteps=OPT_HESS_STEPS, conjgrad_kwargs=MAP_CG, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        lps = [h["logpdf"] for h in res["history"]]
+        c = corr(res["phi"].to(ct.MAP).arr, sim["phi"].to(ct.MAP).arr)
+        out[label] = (dt / OPT_HESS_STEPS, c)
+        print(f"phase 21: (b) MAP_joint {N_MAP}^2 P \"auto\" {OPT_HESS_STEPS} steps, {label}"
+              + (f" (from step {OPT_HESS_BURNIN + 1})" if kw else "")
+              + f": {dt / OPT_HESS_STEPS:.4f} s/step; corr(phi_MAP, phi_true) {c:.4f} (bound >= "
+              f"{CORR_MIN:g}); logpdfs {lps!r} [{card}]")
+        if not (c >= CORR_MIN and np.isfinite(lps).all()):
+            bad[f"(b) {label}"] = (c, lps)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 21)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ct.MAP_joint(ds, nsteps=OPT_QUASI_STEPS, conjgrad_kwargs=MAP_CG, quasi_sample=True,
+                       key=g)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lps = [h["logpdf"] for h in res["history"]]
+    out["quasi"] = dt / OPT_QUASI_STEPS
+    print(f"phase 21: (c) MAP_joint quasi_sample=True, {OPT_QUASI_STEPS} steps: "
+          f"{dt / OPT_QUASI_STEPS:.4f} s/step; logpdfs {lps!r} [{card}]")
+    if not np.isfinite(lps).all():
+        bad["(c) quasi_sample"] = lps
+    return out, bad
+
+
+def options_nolensing(torch, card):
+    """Phase 21 (d): load_nolensing_sim at 1024^2 P, MAP_joint against
+    argmaxf_logpdf. Returns (ms, bad)."""
+    import cmblensing_tpu_torch as ct
+    sim = ct.load_nolensing_sim(thetapix=THETAPIX_MAP, Nside=N_MAP, pol="P", seed=SEED,
+                                device=DEVICE)
+    ds = sim["ds"]
+    times = {}
+    for label, run in (("MAP_joint", lambda: ct.MAP_joint(ds)),
+                       ("argmaxf_logpdf", lambda: ct.argmaxf_logpdf(ds))):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        times[label] = (1e3 * (time.perf_counter() - t0), r)
+    (ms_map, rm), (ms_wf, (fw, info)) = times["MAP_joint"], times["argmaxf_logpdf"]
+    fm = rm["f"]
+    e = rel(fm.arr, fw.to(fm.basis).arr)
+    it = int(rm["history"][0]["iterations"])
+    print(f"phase 21: (d) load_nolensing_sim {N_MAP}^2 P: MAP_joint {ms_map:.2f} ms, "
+          f"argmaxf_logpdf {ms_wf:.2f} ms, CG iterations {it} and {int(info['iterations'])} "
+          f"(tol 0.1), f rel {e:.3e} (bound {OPT_NOLENS_TOL:g}); phi {rm['phi']} [{card}]")
+    bad = {} if (e < OPT_NOLENS_TOL and rm["phi"] is None) else {"(d) nolensing": e}
+    return ms_map, bad
+
+
+def options_lensing(torch, card, sim):
+    """Phase 21 (e): PowerLens, Taylens and BilinearLens at 1024^2 P against
+    LenseFlow, BilinearLens's adjoint identity and solve residual, and
+    get_max_lensing_step; each on the card against the same function on
+    the CPU on the same float32 inputs and on the CPU in float64
+    (`f32_agrees`); the phi-gradient of logpdf on load_sim(L=BilinearLens)
+    the same way. Returns (ms of each, bad)."""
+    import cmblensing_tpu_torch as ct
+    projs = {"card": ct.ProjLambert(N_MAP, N_MAP, thetapix=THETAPIX_MAP, T=np.float32,
+                                    device=DEVICE),
+             "cpu": ct.ProjLambert(N_MAP, N_MAP, thetapix=THETAPIX_MAP, T=np.float32,
+                                   device="cpu"),
+             "cpu64": ct.ProjLambert(N_MAP, N_MAP, thetapix=THETAPIX_MAP, T=np.float64,
+                                     device="cpu")}
+    rng = np.random.default_rng(SEED + 21)
+    Cl = ct.camb()
+    pc = projs["cpu"]
+    Cphi = ct.Cl_to_Cov("I", pc, Cl["total"]["pp"])
+    Cf = ct.Cl_to_Cov("P", pc, Cl["unlensed_scalar"]["EE"], Cl["unlensed_scalar"]["BB"])
+    w = [ct.Field(torch.as_tensor(rng.standard_normal((c, N_MAP, N_MAP)).astype(np.float32)),
+                  b, pc) for c, b in ((1, ct.MAP), (2, ct.QU_MAP), (2, ct.QU_MAP))]
+    # the inputs made once, on the CPU in float32, and the same values on the
+    # card and (cast) in float64
+    base = dict(phi=(Cphi.sqrt() @ w[0]).to(ct.MAP), f=(Cf.sqrt() @ w[1]).to(ct.QU_MAP),
+                g=(Cf.sqrt() @ w[2]).to(ct.QU_MAP))
+    x = {side: {k: ct.Field(v.arr.to(proj.device, proj.torch_T), v.basis, proj)
+                for k, v in base.items()} for side, proj in projs.items()}
+    bad, ms = {}, {}
+
+    def check(label, outs, tol=OPT_F32_TOL):
+        """outs: side -> tensor. The card's float32 result against the CPU's
+        and both against float64, in Frobenius norm: the card within tol of
+        the CPU and no further from float64 than twice the CPU is."""
+        cc = fro(outs["card"].cpu(), outs["cpu"])
+        c64, p64 = fro(outs["card"].cpu().double(), outs["cpu64"]), fro(outs["cpu"].double(),
+                                                                        outs["cpu64"])
+        ok = cc < tol and c64 <= 2 * p64 + 1e-7
+        if not ok:
+            bad[f"(e) {label} against the CPU"] = (cc, c64, p64)
+        return f"card vs CPU {cc:.3e} (bound {tol:g}), vs float64 card {c64:.3e} CPU {p64:.3e}"
+
+    phi, f, g = (x["card"][k] for k in ("phi", "f", "g"))
+    Llf = ct.LenseFlow(phi, NSTEPS) @ f
+    ops = {"PowerLens": lambda p: ct.PowerLens(p, 4), "Taylens": lambda p: ct.Taylens(p, 4),
+           "BilinearLens": ct.BilinearLens}
+    for name, op in ops.items():
+        outs = {side: (op(v["phi"]) @ v["f"]).to(ct.QU_MAP).arr for side, v in x.items()}
+        ms[name] = cuda_ms(lambda: op(phi) @ f, 5, torch)
+        e_lf = float((outs["card"] - Llf.to(ct.QU_MAP).arr).norm() / Llf.arr.norm())
+        line = check(name, outs)
+        print(f"phase 21: (e) {name} {N_MAP}^2 P: against LenseFlow {e_lf:.3e} in norm (bound "
+              f"{OPT_LENS_BOUND[name]:g}); {line}; {ms[name]:.3f} ms [{card}]")
+        if not e_lf < OPT_LENS_BOUND[name]:
+            bad[f"(e) {name} against LenseFlow"] = e_lf
+    L = ct.BilinearLens(phi)
+    lhs, rhs = float(ct.dot(g, L @ f)), float(ct.dot(L.H @ g, f))
+    e_adj = abs(lhs - rhs) / abs(lhs)
+    outs = {side: (ct.BilinearLens(v["phi"]).H @ v["g"]).arr for side, v in x.items()}
+    ms["BilinearLens.H"] = cuda_ms(lambda: L.H @ g, 5, torch)
+    line_adj = check("BilinearLens.H", outs)
+    e_solve = float(ct.norm(L.solve(L @ f) - f) / ct.norm(f))
+    outs = {side: ct.BilinearLens(v["phi"]).solve(v["f"]).to(ct.QU_MAP).arr
+            for side, v in x.items()}
+    ms["BilinearLens.solve"] = cuda_ms(lambda: L.solve(f), 3, torch)
+    line_solve = check("BilinearLens.solve", outs)
+    mls = {side: float(ct.get_max_lensing_step(v["phi"], v["phi"])) for side, v in x.items()}
+    e_mls = abs(mls["card"] - mls["cpu"]) / abs(mls["cpu"])
+    print(f"phase 21: (e) BilinearLens adjoint identity {e_adj:.3e} (bound {OPT_ADJ_TOL:g}); L^H "
+          f"{line_adj} ({ms['BilinearLens.H']:.3f} ms); solve residual {e_solve:.3e} (bound "
+          f"{OPT_SOLVE_TOL:g}), solve {line_solve} ({ms['BilinearLens.solve']:.3f} ms) [{card}]")
+    print(f"phase 21: (e) get_max_lensing_step(phi, phi): card {mls['card']!r}, CPU "
+          f"{mls['cpu']!r}, CPU float64 {mls['cpu64']!r}; card vs CPU {e_mls:.3e} (bound "
+          f"{OPT_CPU_TOL:g})")
+    if not (e_adj < OPT_ADJ_TOL and e_solve < OPT_SOLVE_TOL and e_mls < OPT_CPU_TOL):
+        bad["(e) BilinearLens / get_max_lensing_step"] = (e_adj, e_solve, e_mls)
+    # the phi-gradient of logpdf with the bilinear lensing operator at the
+    # card's simulation: load_sim's operators on each side, the card's d, f, phi
+    kw = dict(thetapix=THETAPIX_MAP, Nside=N_MAP, pol="P", seed=SEED, L=ct.BilinearLens)
+    sg = ct.load_sim(**kw, device=DEVICE)
+    grads = {}
+    for side, proj in projs.items():
+        ds = (sg["ds"] if side == "card" else
+              ct.load_sim(**kw, T=proj.T, device="cpu")["ds"])
+        to = lambda v: ct.Field(v.arr.to("cpu", torch.complex128 if v.arr.is_complex() else
+                                          torch.float64) if proj.T == np.float64
+                                else v.arr.to(proj.device), v.basis, proj)
+        ds = ds.replace(d=to(sg["ds"].d))
+        fx, px = to(sg["f"]), to(sg["phi"])
+        grads[side] = ct.fgrad(lambda p: torch.sum(ds.logpdf(f=fx, phi=p)))(px).arr
+    ms["grad logpdf BilinearLens"] = cuda_ms(
+        lambda: ct.fgrad(lambda p: torch.sum(sg["ds"].logpdf(f=sg["f"], phi=p)))(sg["phi"]), 3,
+        torch)
+    finite = bool(torch.isfinite(grads["card"]).all())
+    line = check("grad logpdf BilinearLens", grads, OPT_GRAD_TOL)
+    print(f"phase 21: (e) grad_phi logpdf on load_sim(L=BilinearLens) {N_MAP}^2 P: finite "
+          f"{finite}; {line}; {ms['grad logpdf BilinearLens']:.3f} ms [{card}]")
+    if not finite:
+        bad["(e) BilinearLens gradient finite"] = finite
+    return ms, bad
+
+
+def options_defaults(torch, card, sim):
+    """Phase 21 (f): load_sim with every keyword passed at its default value
+    gives the default dataset's d and operators, bit for bit."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.core.ops import LowPass
+    ds = sim["ds"]
+    lmax = int(np.ceil(np.sqrt(2) * float(sim["proj"].nyquist)) + 1)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED)
+    over = ct.load_sim(
+        thetapix=THETAPIX_MAP, Nside=N_MAP, pol="P", T=np.float32, Nbatch=None, muKarcminT=3,
+        lknee=100, alphaknee=3, Cln=ct.noise_cls(3, beamFWHM=0, lknee=100, alphaknee=3, lmax=lmax),
+        Cn=ds.Cn, beamFWHM=0, B=ds.B, B_hat=ds.B_hat, pixel_mask_kwargs=None,
+        bandpass_mask=LowPass(3000), M=ds.M, M_hat=ds.M_hat, Cl=sim["Cl"], fiducial_theta={},
+        seed=SEED, key=g, D=ds.D, G=ds.G, Nphi_fac=2, L=ct.LenseFlow, rotator=(0.0, 90.0, 0.0),
+        device=DEVICE)
+    a, b = sim["ds0"], over["ds0"]
+    same = {"d": torch.equal(a.d.arr, b.d.arr)}
+    for name in ("Cf", "Cf_tilde", "Cn", "Cn_hat", "Cphi", "M", "M_hat", "B", "B_hat", "D", "G",
+                 "Nphi"):
+        same[name] = torch.equal(getattr(a, name).diag.arr, getattr(b, name).diag.arr)
+    print(f"phase 21: (f) load_sim with every keyword at its default value, bit for bit: {same}")
+    return {} if all(same.values()) else {"(f) defaults": same}
+
+
+def phase_options(torch, card, sim=None):
+    """Phase 21: the rest of load_sim's and MAP_joint's options at 1024^2 P
+    (thetapix 2, scripts/map_1024.py's simulation; the one phase 7 loaded in
+    a whole run). No kernel of its own: (a) runs the factored kernels.
+    Returns (launches of (a), timings)."""
+    t_start = time.perf_counter()
+    if sim is None:
+        sim = large_sim(torch, card, N_MAP, 21)
+    launches, s_brent, bad = options_brent(torch, card, sim)
+    hq, bad_hq = options_hessian_quasi(torch, card, sim)
+    bad.update(bad_hq)
+    ms_nolens, bad_nl = options_nolensing(torch, card)
+    bad.update(bad_nl)
+    ms_lens, bad_lens = options_lensing(torch, card, sim)
+    bad.update(bad_lens)
+    bad.update(options_defaults(torch, card, sim))
+    torch.cuda.empty_cache()
+    print(f"phase 21: wall time {time.perf_counter() - t_start:.1f} s [{card}]")
+    if bad:
+        raise AssertionError(f"phase 21 failed: {bad}")
+    return launches, {"MAP_joint_1024_brent_s_per_step": s_brent,
+                      "MAP_joint_1024_hessian_update_s_per_step": hq["hessian update"][0],
+                      "MAP_joint_1024_hessian_update_corr": hq["hessian update"][1],
+                      "MAP_joint_1024_grid_corr_6": hq["grid"][1],
+                      "MAP_joint_1024_quasi_s_per_step": hq["quasi"],
+                      "MAP_joint_nolensing_1024_ms": ms_nolens,
+                      **{f"{k}_1024_ms": v for k, v in ms_lens.items()}}
+
+
 def print_ptxas(log):
     """Phase 1: the build log's register lines and errors, and for the
     kernels on the cluster tile (fderiv_sm90.cu, fa_sm90.cu, bv_sm90.cu,
@@ -4690,6 +5053,9 @@ def main():
     if sys.argv[1:] == ["--phase", "20"]:
         phase_ensemble(torch, card)
         return 0
+    if sys.argv[1:] == ["--phase", "21"]:
+        phase_options(torch, card)
+        return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
@@ -4710,6 +5076,7 @@ def main():
                    14: (gctx["map_s_bf16"], gctx["map_hist_bf16"])})
     uni_tiers, uni_tier_launches, uni_tier_timing = phase_uni_tiers(torch, card, fctx, gctx,
                                                                     beside, wctx)
+    map_sim = gctx["sim"]
     del fctx, gctx, beside, wctx
     torch.cuda.empty_cache()
     uni_large, uni_large_launches, uni_large_timing = phase_uni_large(torch, card, large_timing)
@@ -4717,6 +5084,8 @@ def main():
     flows, flows_batched = phase_whole_flow(torch, card)
     sample_launches, sample_timing = phase_sample(torch, card)
     muse_launches, marg_launches, ens_flows, ens_timing = phase_ensemble(torch, card)
+    opt_launches, opt_timing = phase_options(torch, card, map_sim)
+    del map_sim
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -4860,6 +5229,8 @@ def main():
         if name in ENSEMBLE_KERNELS or name == "flow_backward":
             rec["launches_muse_256x8"] = muse_launches.get(name, 0)
             rec["launches_MAP_marg_256x16"] = marg_launches.get(name, 0)
+        if name in opt_launches:
+            rec["launches_MAP_joint_1024_brent"] = opt_launches[name]
         for (tier, kind), d in ens_flows.items():
             if name == f"flow_{kind}" + ("" if tier == "f32" else "_" + tier):
                 rec["ensemble"] = {k: d[k] for k in ("nb", "max_abs_err", "rel", "ms", "plain_ms",
@@ -4869,7 +5240,7 @@ def main():
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
                    **high_timing, **dense_high_timing, **wf_timing, **large_timing,
                    **bf16_timing, **uni_tier_timing, **uni_large_timing, **sample_timing,
-                   **ens_timing,
+                   **ens_timing, **opt_timing,
                    **{f"flow_{kind}_{case}_{tier}_ms_warm_cold": (d["ms"], d["cold_ms"])
                       for (case, tier, kind), d in flows.items() if "ms" in d}})
     print("main path ms (kernel, plain):", json.dumps(timing))

@@ -4,12 +4,15 @@ LenseFlow flow as hand-written CUDA kernels for NVIDIA Hopper.
 A port of ``cmblensing_tpu`` (JAX), which stays the reference. This
 package imports torch and never jax. It covers the mixed-posterior
 phi-gradient, joint MAP estimation and Gibbs/HMC sampling: load_sim for
-pol I, P and IP (with a simulated pixel mask, and a batch of Nbatch
-copies of its data), batched Fields, Fourier-diagonal operators (the
+pol I, P and IP with the JAX package's keywords (its noise, beam, mask,
+spectra, mixing and lensing operator overrides, a simulated pixel mask,
+and a batch of Nbatch copies of its data), datasets without lensing, the
+forward-model sites of a dataset, batched Fields, Fourier-diagonal operators (the
 T/E/B block operator at pol IP), LenseFlow with its continuous-adjoint
-gradients, the quadratic estimator that sets the phi mixing, the CG
-Wiener filter (batched), MAP_joint with its grid line search (batched,
-an alpha an entry), MAP_marg, sample_joint over a batch of chains with its
+gradients and the other lensing operators (PowerLens, Taylens,
+BilinearLens), the quadratic estimator that sets the phi mixing, the CG
+Wiener filter (batched), MAP_joint with its grid (batched, an alpha an
+entry) or brent line search, its Hessian update and quasi-samples, MAP_marg, sample_joint over a batch of chains with its
 checkpoints and chains, banded (bandpower) covariances, the batched and
 two-dataset quadratic estimate, and MUSE over a batched simulation
 ensemble.
@@ -39,17 +42,30 @@ from .core.ops import (  # noqa: E402
     evaluate_at, logdet, logdet_rel, simulate_op, nan2zero,
 )
 from .core.cov import Cl_to_Cov, cov_to_Cl  # noqa: E402
-from .utils.cls import Cls, camb, noise_cls, beam_cls, extrapolate_cls  # noqa: E402
+from .utils.cls import (  # noqa: E402
+    Cls, FuncCls, camb, load_camb_cls, noise_cls, beam_cls, extrapolate_cls, smooth, get_rho_l,
+    shift_l, get_l4Cl, ell2, ell4, toCl, toDl,
+)
+from .utils.summation import set_sum_mode, get_sum_mode  # noqa: E402
 from .utils.masking import make_mask  # noqa: E402
 from .models.distributions import MvNormal  # noqa: E402
 from .models.lenseflow import (  # noqa: E402
-    LenseFlow, set_lenseflow_backend, get_lenseflow_backend, lenseflow_backend_ctx,
+    LenseFlow, lense, get_max_lensing_step, set_lenseflow_backend, get_lenseflow_backend,
+    lenseflow_backend_ctx,
 )
+from .models.powerlens import PowerLens, antilensing  # noqa: E402
+from .models.taylens import Taylens  # noqa: E402
+from .models.bilinearlens import BilinearLens  # noqa: E402
+from .models import fwdmodel  # noqa: E402
 from .models.quadratic_estimate import quadratic_estimate  # noqa: E402
 from .models.dataset import (  # noqa: E402
-    DataSet, Mixed, mix, unmix, load_sim, dataset_from_numpy, state_from_numpy,
+    DataSet, BaseDataSet, NoLensingDataSet, Mixed, mix, unmix, load_sim, load_nolensing_sim,
+    simulate, logpdf, gradientf_logpdf, Hessian_logpdf_preconditioner, dataset_from_numpy,
+    state_from_numpy,
 )
-from .ops.solvers import conjugate_gradient  # noqa: E402
+from .ops.solvers import (  # noqa: E402
+    rk4_integrate, conjugate_gradient, conjugate_gradient_with_history, gmres,
+)
 from .inference.maximization import MAP_joint, MAP_marg, argmaxf_logpdf, sample_f  # noqa: E402
 from .inference.muse import MuseProblem, muse, score  # noqa: E402
 from .inference.sampling import (  # noqa: E402

@@ -48,22 +48,25 @@ class ProjLambert:
 
     _cache = {}
 
-    def __new__(cls, Ny, Nx, thetapix=1.0, T=np.float32, device=None):
+    def __new__(cls, Ny, Nx, thetapix=1.0, T=np.float32, device=None,
+                rotator=(0.0, 90.0, 0.0)):
         T = np.dtype(T)
         device = resolve_device(device)
-        key = (int(Ny), int(Nx), float(thetapix), T.str, str(device))
+        rotator = tuple(map(float, rotator))
+        key = (int(Ny), int(Nx), float(thetapix), T.str, str(device), rotator)
         if key in cls._cache:
             return cls._cache[key]
         self = super().__new__(cls)
-        self._init(int(Ny), int(Nx), float(thetapix), T, device)
+        self._init(int(Ny), int(Nx), float(thetapix), T, device, rotator)
         cls._cache[key] = self
         return self
 
-    def _init(self, Ny, Nx, thetapix, T, device):
+    def _init(self, Ny, Nx, thetapix, T, device, rotator):
         self.Ny = Ny
         self.Nx = Nx
         self.thetapix = thetapix
         self.device = device
+        self.rotator = rotator   # the map center's (z, y, x) rotation in degrees; metadata
         self.T = T
         self.complex_T = (np.dtype(np.complex64) if T == np.dtype(np.float32)
                           else np.dtype(np.complex128))
@@ -115,11 +118,12 @@ class ProjLambert:
 
     def __reduce__(self):
         # pickled by its parameters: unpickling gives the memoized instance
-        return (ProjLambert, (self.Ny, self.Nx, self.thetapix, self.T, str(self.device)))
+        return (ProjLambert, (self.Ny, self.Nx, self.thetapix, self.T, str(self.device),
+                              self.rotator))
 
     def __hash__(self):
         return hash((ProjLambert, self.Ny, self.Nx, self.thetapix, self.T.str,
-                     str(self.device)))
+                     str(self.device), self.rotator))
 
     def __eq__(self, other):
         return self is other

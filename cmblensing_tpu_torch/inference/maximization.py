@@ -5,8 +5,9 @@ src/maximization.jl): the f-step is a preconditioned CG Wiener filter;
 the phi-step is preconditioned gradient ascent on the mixed posterior
 with a grid line search whose trials run as one batched evaluation.
 
-Ported: the two preconditioners, ``argmaxf_logpdf`` and ``MAP_joint``
-with ``linesearch="grid"``, with the JAX package's precision defaults
+Ported: the two preconditioners, ``argmaxf_logpdf``, ``sample_f``,
+``MAP_joint`` (grid or brent line search, every option of the JAX
+package's) and ``MAP_marg``, with the JAX package's precision defaults
 and their guards:
 
 - ``argmaxf_logpdf``: ``hessian_precision="auto"`` (= 'high') runs the
@@ -19,18 +20,22 @@ and their guards:
   product per circulant product), with the same strict check and
   fallback.
 - ``MAP_joint``: ``precision="auto"`` (= 'high') or 'bf16' for the
-  phi-gradient and ``unmix``; the grid line search always strict; when
-  its strict trials reject the reduced-precision direction (alpha = 0),
-  the gradient is recomputed strict and searched again, and an accepted
+  phi-gradient and ``unmix``; the line search always strict; when its
+  strict trials reject the reduced-precision direction (alpha = 0), the
+  gradient is recomputed strict and searched again, and an accepted
   retry keeps the run strict. The f-step keeps its own default
   ("auto"). ``precision=None`` is strict everywhere, the f-step
-  included.
+  included. A dataset with a logprior is line-searched by brent on the
+  whole mixed logpdf (the grid's cancellation-free objective has the
+  Gaussian terms only); a NoLensingDataSet's MAP is its Wiener filter.
 
 ``MAP_joint`` on a batched dataset runs every entry at once, each with its
-own phi-step and line-search alpha; ``MAP_marg`` is the marginal MAP, its
-mean field from a batch of simulations.
+own phi-step and grid line-search alpha; ``MAP_marg`` is the marginal MAP, its
+mean field from a batch of simulations. Randomness (``quasi_sample``'s,
+``MAP_marg``'s) comes from torch.Generators where the JAX package takes
+keys.
 
-Two deliberate differences from the JAX package (ROADMAP Queue 3):
+Deliberate differences from the JAX package (ROADMAP Queue 3):
 - after a strict retry that also finds alpha = 0, no further retry fires
   until a step finds alpha > 0 (every entry's, on a batched dataset); the
   JAX package retries on every later step, a gradient and a line search
@@ -38,16 +43,25 @@ Two deliberate differences from the JAX package (ROADMAP Queue 3):
 - on a batched dataset the retry fires when ANY entry's alpha is 0 (the
   JAX package: when every entry's is), for the whole batch, and a retry
   that moves any entry keeps the run strict; where no entry stalls, or
-  every entry does, the two agree.
+  every entry does, the two agree;
+- brent minimizes lp(alpha) - lp(0), its Gaussian terms cancellation-free
+  as the grid's trials are, and the logprior's change; the JAX package
+  minimizes the float32 total lp(alpha), whose rounding (an ulp of 2 at
+  1024^2 P) leaves alpha undetermined to ~1e-2; where both resolve the
+  optimum they agree;
+- brent returns alpha = 0 when no trial beats it (the grid's self-guard:
+  the difference is exactly 0 there), so the strict retry can fire on the
+  brent path; the JAX package's bounded brent never returns exactly 0, so
+  its retry never fires there;
+- the retry's line-search evaluations are added to the step's count (the
+  JAX package drops brent's).
 
-Not ported yet, and refused with NotImplementedError (ROADMAP Queue 1
-item 3): ``linesearch="brent"`` (and so an
-``alpha_tol`` and a ``logprior`` in MAP_joint), ``quasi_sample`` (and
-so a ``key``) and ``nburnin_update_hessian``; ``mesh=`` (ROADMAP Queue
-1 item 9). ``argmaxf_logpdf`` and ``sample_f`` take a batched d: CG
-keeps a residual and a step per entry, and the strict re-check's verdict
-covers every entry. ``argmaxf_logpdf`` solves the Gaussian conditional only and
-warns when the dataset has a logprior, as the JAX package does.
+``mesh=`` (the sims sharded over several cards) is refused with
+NotImplementedError (ROADMAP Queue 1 item 9). ``argmaxf_logpdf`` and
+``sample_f`` take a batched d: CG keeps a residual and a step per entry,
+and the strict re-check's verdict covers every entry. ``argmaxf_logpdf``
+solves the Gaussian conditional only and warns when the dataset has a
+logprior, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -60,18 +74,19 @@ import torch
 
 from ..core.field import Field, dot as field_dot, fvalue_and_grad, norm as field_norm, \
     repeat_batch, zeros_like_field
+from ..core.cov import Cl_to_Cov, cov_to_Cl
 from ..core.ops import (Diag, Id, ParamDependentOp, _Identity, _diag_field_of, evaluate_at,
                         nan2zero, safe_reciprocal)
-from ..models.dataset import DataSet, Mixed, mix, unmix
+from ..models.dataset import DataSet, Mixed, NoLensingDataSet, as_generator, mix, unmix
 from ..ops.deriv import precision_ctx
 from ..ops.solvers import conjugate_gradient, tree_dot
+from ..utils.cls import Cls, smooth
 from ..utils.progress import progress_bar
 from ..utils.timing import timed
 
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 3)"
 # what MAP_joint can record per step
 HISTORY_KEYS = ("logpdf", "phi", "f", "alpha", "cg_iters", "cg_res", "cg_res_history",
-                "gradnorm", "precision_fallback", "retry")
+                "gradnorm", "precision_fallback", "retry", "nfev")
 
 
 def _check_precision(precision, name, allowed):
@@ -375,6 +390,62 @@ def _grid_argmax(alphas, dlps):
     return torch.gather(alphas, 0, i[None])[0]
 
 
+def _brent_dlp(dstheta, theta, f_mix, phi_mix, dphi):
+    """alpha -> lp(alpha) - lp(0) of the mixed posterior along dphi, a
+    float (summed over batch entries): brent's objective. The Gaussian
+    terms cancellation-free, as the grid's trials (_grid_linesearch_dlps),
+    z_i(0) from the same single-trial path, plus the logprior's change; the
+    logdet terms do not depend on alpha. A float32 total of ~2.6e7 (1024^2
+    P) has an ulp of 2, flat to within it over ~1e-2 of alpha about the
+    optimum; the difference resolves alpha to brent's tolerance."""
+    covs = _mixed_gaussian_covs(dstheta, theta)
+    z0 = _mixed_gaussian_z(dstheta, theta, f_mix, phi_mix)
+    lp0 = (dstheta.logprior(theta=theta, f=z0[0], phi=z0[1])
+           if dstheta.logprior is not None else None)
+
+    def dlp(alpha):
+        zs = _mixed_gaussian_z(dstheta, theta, f_mix, phi_mix + alpha * dphi)
+        d = 0.0
+        for z, z_0, S in zip(zs, z0, covs):
+            d = d - 0.5 * field_dot(z - z_0, S.solve(z + z_0))
+        if lp0 is not None:
+            d = d + (dstheta.logprior(theta=theta, f=zs[0], phi=zs[1]) - lp0)
+        return float(torch.sum(d))
+
+    return dlp
+
+
+def _brent_min(f, b, abs_tol=1e-4, maxiter=50):
+    """(x, evaluations) minimizing the float function f on [0, b], f(0) = 0
+    (brent's objective is the change from alpha = 0): scipy's bounded Brent
+    to abs_tol, and 0 where no trial goes below f(0) (the self-guard the
+    grid has in its trial 0; the JAX package's brent has none, so its x is
+    never exactly 0)."""
+    from scipy.optimize import minimize_scalar
+    res = minimize_scalar(f, bounds=(0.0, b), method="bounded",
+                          options=dict(xatol=abs_tol, maxiter=maxiter))
+    return (float(res.x) if float(res.fun) < 0.0 else 0.0), int(res.nfev)
+
+
+def _secant_hessian_inv(phi_mix, prev_phi_mix, g, prev_g, current):
+    """The phi-step's inverse-Hessian preconditioner from the secant ratios
+    |d phi° / d g| between two steps (reference src/maximization.jl:180-186):
+    binned to a spectrum (cov_to_Cl), LOWESS-smoothed in log-log as l^4
+    C_l, back to a Fourier-diagonal operator; `current` where fewer than 4
+    bins are finite and positive."""
+    dpm = (phi_mix - prev_phi_mix).to_harmonic()
+    dgm = (g - prev_g).to(dpm.basis)
+    ratio = torch.abs(nan2zero(dpm.arr / dgm.arr)).to(dpm.arr.dtype)
+    cl = cov_to_Cl(Diag(Field(ratio, dpm.basis, dpm.proj)))
+    pos = np.isfinite(cl.Cl) & (cl.Cl > 0) & np.isfinite(cl.ell) & (cl.ell > 0)
+    if pos.sum() < 4:
+        return current
+    cl_s = smooth(Cls(cl.ell[pos], (cl.ell[pos] ** 4) * cl.Cl[pos]), xscale="log", yscale="log",
+                  smoothing=0.3)
+    cl_s = Cls(cl_s.ell, cl_s.Cl / np.maximum(cl_s.ell, 1) ** 4)
+    return Cl_to_Cov("I", phi_mix.proj, cl_s, units=1)
+
+
 def _stalled_moved(alpha):
     """(whether some entry's alpha is 0, whether some entry's is > 0) of a
     line search's alpha, a float or one value a batch entry."""
@@ -401,8 +472,21 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
     """Joint MAP estimate of (f, phi) by coordinate ascent (reference
     src/maximization.jl): an exact f-step (CG Wiener filter) alternates
     with a preconditioned-gradient phi-step along grad_phi° of the mixed
-    posterior, its length from a grid line search of ngrid trials on
-    (0, amax] (amax = twice the last accepted step, or alpha_max).
+    posterior, its length alpha from a line search on (0, amax] (amax =
+    twice the last accepted step, or alpha_max): linesearch="grid", ngrid
+    trials evaluated as one batch (cancellation-free, the Gaussian terms),
+    or "brent", scipy's bounded Brent to alpha_tol on the whole mixed
+    logpdf's change from alpha = 0, computed cancellation-free, alpha = 0
+    included (module docstring). A dataset with a
+    logprior is always searched by brent. On a NoLensingDataSet the MAP
+    is the Wiener filter: dict(f, phi=None, history=[CG info]).
+
+    quasi_sample=True takes each f-step as a posterior sample
+    (`sample_f`) instead of the maximum, drawn from `key` (a
+    torch.Generator on the dataset's device, or an int seed; seed 0 when
+    None). nburnin_update_hessian=n: from step n + 1 on, the phi-step's
+    preconditioner is rebuilt each step from the secant ratios of the last
+    two steps, smoothed (`_secant_hessian_inv`).
 
     precision: "auto" (the default, = 'high'), 'high' or 'bf16' runs the
     phi-gradient and unmix at that precision and the line search strict,
@@ -413,44 +497,37 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
     history_keys picks what each step records: "logpdf", "phi" (after
     the step, map basis), "f" (the f-step's), "alpha", "cg_iters",
     "cg_res", "cg_res_history" (when conjgrad_kwargs ask CG to record
-    it), "gradnorm", and "precision_fallback" (the f-step re-ran strict)
-    and "retry" (the direction retry fired); another key raises.
-    alpha_tol (brent's) and key (quasi_sample's) are taken at their
-    defaults only, while those two are not ported. Iteration stops early
-    once a step after minsteps moves phi° by less than gradtol (alpha
-    |dphi|, their largest over the entries).
+    it), "gradnorm", and "precision_fallback" (the f-step re-ran strict),
+    "retry" (the direction retry fired) and "nfev" (the line search's
+    evaluations, the retry's included); another key raises. Iteration
+    stops early once a step after minsteps moves phi° by less than
+    gradtol (alpha |dphi|, their largest over the entries).
 
     On a batched dataset (d of batch shape (nbatch,)) phi is repeated
-    over the entries when phistart is not batched; each entry has its own
-    line-search grid (amax from its own last step) and alpha, history's
-    "alpha" and "gradnorm" are arrays of one value an entry and "logpdf"
-    is the sum over the entries. The direction retry fires when any
-    entry's alpha is 0, for the whole batch (module docstring). Returns
-    dict(f, phi, history)."""
+    over the entries when phistart is not batched; the grid gives each
+    entry its own grid (amax from its own last step) and alpha (brent one
+    alpha for all), history's "alpha" and "gradnorm" are arrays of one
+    value an entry and "logpdf" is the sum over the entries. The
+    direction retry fires when any entry's alpha is 0, for the whole batch
+    (module docstring). Returns dict(f, phi, history)."""
     _check_precision(precision, "precision", (None, "auto", "f32", "high", "bf16"))
     unknown = [k for k in history_keys if k not in HISTORY_KEYS]
     if unknown:
         raise ValueError(f"history_keys {unknown}: MAP_joint records {HISTORY_KEYS}")
-    if linesearch != "grid":
-        raise NotImplementedError(f"linesearch={linesearch!r} is {_NOT_PORTED}")
-    if alpha_tol != 1e-4:
-        raise NotImplementedError(f"alpha_tol={alpha_tol!r}: brent's tolerance; brent is "
-                                  f"{_NOT_PORTED}")
-    if quasi_sample:
-        raise NotImplementedError(f"quasi_sample is {_NOT_PORTED}")
-    if key is not None:
-        raise NotImplementedError(f"a key (quasi_sample's) is {_NOT_PORTED}")
-    if nburnin_update_hessian is not None:
-        raise NotImplementedError(f"nburnin_update_hessian is {_NOT_PORTED}")
-    if getattr(ds, "logprior", None) is not None:
-        raise NotImplementedError(f"a logprior (which needs the brent search) is {_NOT_PORTED}")
-    if not isinstance(ds, DataSet):
-        raise NotImplementedError(f"MAP_joint on a {type(ds).__name__} is {_NOT_PORTED}")
+    if linesearch not in ("grid", "brent"):
+        raise ValueError(f"linesearch={linesearch!r}: 'grid' or 'brent'")
     theta = theta or {}
     cg = dict(tol=1e-1, nsteps=500)
     cg.update(conjgrad_kwargs or {})
     if precision is None:
         cg.setdefault("hessian_precision", None)
+    if getattr(ds, "logprior", None) is not None:
+        # the grid's cancellation-free objective has the Gaussian terms only
+        linesearch = "brent"
+    if isinstance(ds, NoLensingDataSet):
+        # no phi to optimize: the MAP is the Wiener filter
+        f, info = argmaxf_logpdf(ds.at(theta), theta=theta, conjgrad_kwargs=cg)
+        return dict(f=f, phi=None, history=[info])
     dstheta = ds.at(theta).replace(G=Id)   # the MAP does not depend on G
     Cphi = _fid(dstheta.Cphi)
     phi = phistart if phistart is not None else _zero_map_like(Cphi)
@@ -463,30 +540,44 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
     Hpre_inv = Hpre.pinv()
     prec = "high" if precision == "auto" else precision
     ls_prec = "f32" if prec in ("high", "bf16") else prec   # the line search is always strict
+    generator = as_generator(key, phi.device) if quasi_sample else None
 
     def direction(prec_):
         with _pctx(prec_):
-            f_mix, phi_mix, g = _phi_grad_and_fmix(dstheta, theta, f, phi)
-        return f_mix, phi_mix, g, Hpre_inv @ g
+            return _phi_grad_and_fmix(dstheta, theta, f, phi)
 
     def search(f_mix, phi_mix, dphi):
+        """(alpha, evaluations) of the line search along dphi."""
         with _pctx(ls_prec):
-            alphas, dlps = _grid_linesearch_dlps(dstheta, theta, f_mix, phi_mix, dphi, amax,
-                                                 int(ngrid))
-        return _grid_argmax(alphas, dlps)
+            if linesearch == "grid":
+                alphas, dlps = _grid_linesearch_dlps(dstheta, theta, f_mix, phi_mix, dphi, amax,
+                                                     int(ngrid))
+                return _grid_argmax(alphas, dlps), int(ngrid)
+            dlp = _brent_dlp(dstheta, theta, f_mix, phi_mix, dphi)
+            return _brent_min(lambda a: -dlp(a), float(torch.max(torch.as_tensor(amax))),
+                              abs_tol=alpha_tol)
 
     history = []
     alpha, amax = 1.0, 2.0
+    prev_phi_mix = prev_g = None
     # set after a strict retry that also found alpha = 0: no further retry
     # until a step finds alpha > 0 (the JAX package retries every step)
     retry_spent = False
     with torch.no_grad(), progress_bar(nsteps, "MAP_joint", enabled=progress) as pbar:
         for step in range(1, nsteps + 1):
             with timed("MAP_joint/f_step"):
-                f, cg_info = argmaxf_logpdf(dstheta, phi=phi, theta=theta, fstart=f,
-                                            conjgrad_kwargs=cg)
+                if quasi_sample:
+                    f, cg_info = sample_f(generator, dstheta, phi=phi, theta=theta, fstart=f,
+                                          conjgrad_kwargs=cg)
+                else:
+                    f, cg_info = argmaxf_logpdf(dstheta, phi=phi, theta=theta, fstart=f,
+                                                conjgrad_kwargs=cg)
             with timed("MAP_joint/phi_step"):
-                f_mix, phi_mix, g, dphi = direction(prec)
+                f_mix, phi_mix, g = direction(prec)
+                if (nburnin_update_hessian is not None and step > nburnin_update_hessian
+                        and prev_g is not None):
+                    Hpre_inv = _secant_hessian_inv(phi_mix, prev_phi_mix, g, prev_g, Hpre_inv)
+                dphi = Hpre_inv @ g
                 if alpha_max is not None:
                     amax = alpha_max
                 elif batched:
@@ -497,8 +588,8 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
                                        torch.as_tensor(amax, dtype=phi.dtype, device=phi.device))
                 elif alpha > 0:
                     amax = 2.0 * alpha
-                alpha = search(f_mix, phi_mix, dphi)
-                nfev, retried = ngrid, False
+                alpha, nfev = search(f_mix, phi_mix, dphi)
+                retried = False
                 stalled = _stalled_moved(alpha)[0]
                 if stalled and prec != ls_prec and not retry_spent:
                     # the strict trials rejected the reduced-precision
@@ -506,9 +597,10 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
                     # for the whole batch and search again; an accepted
                     # strict direction (of any entry) keeps the run strict
                     retried = True
-                    f_mix, phi_mix, g, dphi = direction(ls_prec)
-                    alpha = search(f_mix, phi_mix, dphi)
-                    nfev += ngrid
+                    f_mix, phi_mix, g = direction(ls_prec)
+                    dphi = Hpre_inv @ g
+                    alpha, n = search(f_mix, phi_mix, dphi)
+                    nfev += n
                     if _stalled_moved(alpha)[1]:
                         prec = ls_prec
                     else:
@@ -516,9 +608,9 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
                 elif not stalled:
                     retry_spent = False
             with _pctx(prec):
-                phi_mix, phi, lp_dev, dnorm_dev = _step_unmix_and_norm(
+                _, phi, lp_dev, dnorm_dev = _step_unmix_and_norm(
                     dstheta, theta, f_mix, phi_mix, dphi, alpha)
-            alpha_s = float(torch.max(torch.as_tensor(alpha))) if batched else alpha
+            alpha_s = float(torch.max(torch.as_tensor(alpha)))
             lp, dnorm = float(lp_dev), float(torch.max(dnorm_dev))
             if progress:
                 pbar.update(logpdf=lp, alpha=alpha_s, CG=int(cg_info["iterations"]), ls=nfev)
@@ -530,7 +622,7 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
             if "f" in history_keys:
                 entry["f"] = f
             if "alpha" in history_keys:
-                entry["alpha"] = alpha.cpu().numpy() if batched else alpha
+                entry["alpha"] = alpha.cpu().numpy() if isinstance(alpha, torch.Tensor) else alpha
             if "cg_iters" in history_keys:
                 entry["cg_iters"] = int(cg_info["iterations"])
             if "cg_res" in history_keys:
@@ -544,7 +636,11 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
                 entry["precision_fallback"] = bool(cg_info.get("precision_fallback", False))
             if "retry" in history_keys:
                 entry["retry"] = retried
+            if "nfev" in history_keys:
+                entry["nfev"] = nfev
             history.append(entry)
+            # the secant pair: the point where g was evaluated, before the step
+            prev_phi_mix, prev_g = phi_mix, g
             if step > minsteps and dnorm * alpha_s < gradtol:
                 break
     return dict(f=f, phi=phi, history=history)

@@ -170,6 +170,17 @@ class DataSet:
                 kw[f.name] = ev
         return self.replace(**kw) if kw else self
 
+    def model(self, theta=None, sample=None):
+        """The data model as a models/fwdmodel.py model: sites f, phi and
+        d (fwdmodel.simulate(ds.model), fwdmodel.logpdf(ds.model))."""
+        theta = theta or {}
+        f = sample("f", MvNormal(0, evaluate_at(self.Cf, theta)))
+        phi = sample("phi", MvNormal(0, evaluate_at(self.Cphi, theta)))
+        ft = self.L(phi) @ f
+        mu = evaluate_at(self.M, theta) @ (evaluate_at(self.B, theta) @ ft)
+        d = sample("d", MvNormal(mu, evaluate_at(self.Cn, theta)))
+        return dict(f=f, phi=phi, ft=ft, d=d)
+
     def logpdf(self, f=None, phi=None, theta=None, d=None):
         return (self.logpdf_term(f=f, phi=phi, theta=theta, d=d, which="prior")
                 + self.logpdf_term(f=f, phi=phi, theta=theta, d=d, which="data"))
@@ -217,6 +228,58 @@ class DataSet:
         B = evaluate_at(self.B, theta)
         r = d - M @ (B @ (Lphi @ f))
         return (Lphi.H @ (B.H @ (M.H @ evaluate_at(self.Cn, theta).solve(r)))
+                - evaluate_at(self.Cf, theta).solve(f))
+
+
+BaseDataSet = DataSet
+
+
+@dataclass
+class NoLensingDataSet:
+    """A dataset without lensing, d = M B f + n (reference
+    src/dataset.jl:37-47)."""
+    d: Any = None
+    Cf: Any = None
+    Cn: Any = None
+    Cn_hat: Any = None
+    M: Any = Id
+    M_hat: Any = Id
+    B: Any = Id
+    B_hat: Any = Id
+    logprior: Any = None       # callable logprior(theta=, f=) added to logpdf
+
+    replace = DataSet.replace
+    at = DataSet.at
+
+    def logpdf(self, f=None, theta=None, d=None):
+        theta = theta or {}
+        if d is None:
+            d = self.d
+        mu = evaluate_at(self.M, theta) @ (evaluate_at(self.B, theta) @ f)
+        lp = (MvNormal(0, evaluate_at(self.Cf, theta)).logpdf(f)
+              + MvNormal(mu, evaluate_at(self.Cn, theta)).logpdf(d))
+        if self.logprior is not None:
+            lp = lp + self.logprior(theta=theta, f=f)
+        return lp
+
+    def simulate(self, generator, theta=None, f=None, batch_shape=()):
+        """Draw f and the noise from `generator` (in that order), and the
+        data they give."""
+        theta = theta or {}
+        if f is None:
+            f = MvNormal(0, evaluate_at(self.Cf, theta)).sample(generator, batch_shape)
+        mu = evaluate_at(self.M, theta) @ (evaluate_at(self.B, theta) @ f)
+        n = MvNormal(0, evaluate_at(self.Cn, theta)).sample(generator, batch_shape)
+        return dict(f=f, n=n, d=mu + n)
+
+    def gradientf_logpdf(self, f, theta=None, d=None, **_):
+        theta = theta or {}
+        if d is None:
+            d = self.d
+        M = evaluate_at(self.M, theta)
+        B = evaluate_at(self.B, theta)
+        r = d - M @ (B @ f)
+        return (B.H @ (M.H @ evaluate_at(self.Cn, theta).solve(r))
                 - evaluate_at(self.Cf, theta).solve(f))
 
 
@@ -273,6 +336,41 @@ def gradientf_logpdf(ds, **kw):
     return ds.gradientf_logpdf(**kw)
 
 
+def Hessian_logpdf_preconditioner(which, ds):
+    """The fast approximate Hessian of logpdf with respect to `which`
+    (reference src/dataset.jl:127-137): for "f", pinv(Cf) + B_hat' M_hat'
+    pinv(Cn_hat) M_hat B_hat as a lazy operator; for "phi_mix",
+    pinv(Cphi) + pinv(Nphi), a Diag (at the fiducial parameters)."""
+    if which == "f":
+        Bh, Mh = ds.B_hat, ds.M_hat
+        term = LazyOp("*", Bh.H, LazyOp("*", Mh.H, LazyOp("*", FuncSolve(ds.Cn_hat),
+                                                          LazyOp("*", Mh, Bh))))
+        return LazyOp("+", _fiducial(ds.Cf).pinv(), term)
+    if which in ("phi_mix", ("phi_mix",)):
+        cp = _fiducial(ds.Cphi).pinv()
+        return Diag(Field(cp.diag.arr + ds.Nphi.pinv().diag.to(cp.diag.basis).arr,
+                          cp.diag.basis, cp.diag.proj))
+    raise ValueError(which)
+
+
+def _fiducial(op):
+    return op.fiducial if isinstance(op, ParamDependentOp) else op
+
+
+class FuncSolve:
+    """An operator whose `@` applies another's solve."""
+
+    def __init__(self, op):
+        self.op = op
+
+    def __matmul__(self, f):
+        return self.op.solve(f)
+
+    @property
+    def H(self):
+        return FuncSolve(self.op.H)
+
+
 # =========================================================================
 # load_sim
 # =========================================================================
@@ -291,35 +389,84 @@ def _mask_cov(pol, proj, bandpass):
     raise ValueError(pol)
 
 
-def load_sim(thetapix, Nside, pol, T=np.float32, Nbatch=None, muKarcminT=3, beamFWHM=0,
-             pixel_mask_kwargs=None, bandpass_mask=None, seed=0, device=None):
-    """Simulated-dataset factory for pol 'I', 'P' or 'IP' at the fiducial
-    cosmology (1/f noise knee at l=100, slope 3). One simulation is drawn;
-    with `Nbatch`, the dataset's d is that simulation's data repeated
-    Nbatch times along a leading batch axis (Nphi comes from the unbatched
-    data, as in the JAX package). The mask M is
-    `bandpass_mask` (LowPass(3000) unless given) as a Fourier-diagonal
-    operator, times, with `pixel_mask_kwargs`, the pixel mask that
-    utils/masking.py::make_mask draws from np.random.default_rng(seed)
-    with those arguments (M_hat stays the Fourier part). The simulation
-    draws f, phi and the noise from a torch.Generator on `device` (the
-    CUDA card unless given, e.g. "cpu") seeded with `seed`. Returns a dict
-    with f, ft, phi, d, ds, ds0 (fiducial-evaluated), Cl, proj."""
+def as_generator(key, device, seed=0):
+    """A torch.Generator on `device` for the JAX package's `key` argument:
+    `key` itself when it is a generator, else one seeded with `key` (an
+    int) or, when key is None, with `seed`."""
+    if key is not None and not isinstance(key, (int, np.integer)):
+        return key
+    g = torch.Generator(device=device)
+    g.manual_seed(seed if key is None else int(key))
+    return g
+
+
+def load_sim(thetapix, Nside, pol, T=np.float32, Nbatch=None,
+             muKarcminT=3, lknee=100, alphaknee=3, Cln=None, Cn=None,
+             beamFWHM=0, B=None, B_hat=None,
+             pixel_mask_kwargs=None, bandpass_mask=None, M=None, M_hat=None,
+             Cl=None, fiducial_theta=None, seed=0, key=None, D=None, G=None, Nphi_fac=2,
+             L=None, rotator=(0.0, 90.0, 0.0), device=None):
+    """Simulated-dataset factory for pol 'I', 'P' or 'IP', with the JAX
+    package's keywords (reference src/dataset.jl:186-338):
+
+    - noise: white at muKarcminT with a 1/f knee (lknee, alphaknee), or the
+      spectra `Cln` (a dict with TT, EE, BB, TE Cls); Cn (the noise
+      covariance of the data) is Cn_hat unless given;
+    - beam: a Gaussian of beamFWHM arcmin, or the operators B, B_hat (B_hat
+      is B unless given);
+    - mask: `bandpass_mask` (LowPass(3000) unless given) as a
+      Fourier-diagonal operator, times, with `pixel_mask_kwargs`, the pixel
+      mask that utils/masking.py::make_mask draws from
+      np.random.default_rng(seed) with those arguments (M_hat stays the
+      Fourier part); or the operators M and M_hat (M_hat is M unless
+      given);
+    - theory: the fiducial spectra, or `Cl` (camb()'s layout), which must
+      reach the grid's lmax; fiducial_theta's "Aphi" scales Cphi (any other
+      entry needs pycamb, and raises);
+    - D, G: the mixing operators, built from the dataset unless given;
+      Nphi is the quadratic estimate's noise over Nphi_fac;
+    - L: the lensing operator factory, phi -> operator (LenseFlow with
+      nsteps 7 unless given; PowerLens, Taylens, BilinearLens, ...);
+    - rotator: the projection's rotation (metadata).
+
+    One simulation is drawn, f, phi and the noise in that order, from `key`
+    (a torch.Generator on `device`, or an int seed) or, without one, from
+    a generator seeded with `seed`; with `Nbatch`, the dataset's d is that
+    simulation's data repeated Nbatch times along a leading batch axis (Nphi
+    comes from the unbatched data, as in the JAX package). The dataset
+    lives on `device`: the CUDA card unless given, e.g. "cpu". Returns a
+    dict with f, ft, phi, d, ds, ds0 (fiducial-evaluated), Cl, proj."""
     from .quadratic_estimate import quadratic_estimate
 
     pol = str(pol)
     if pol not in ("I", "P", "IP"):
         raise ValueError(f"pol should be one of 'I', 'P', or 'IP' (got {pol!r})")
     device = resolve_device(device)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+    generator = as_generator(key, device, seed)
     Ny, Nx = (Nside, Nside) if np.isscalar(Nside) else Nside
-    proj = ProjLambert(Ny, Nx, thetapix=thetapix, T=T, device=device)
+    proj = ProjLambert(Ny, Nx, thetapix=thetapix, T=T, device=device, rotator=rotator)
     lmax = int(np.ceil(np.sqrt(2) * float(proj.nyquist)) + 1)
 
-    Cl = camb_cls(lmax=lmax)
+    fiducial_theta = dict(fiducial_theta or {})
+    Aphi0 = float(fiducial_theta.pop("Aphi", 1.0))
+    if Cl is None:
+        Cl = camb_cls(lmax=lmax, **fiducial_theta)
+    else:
+        if fiducial_theta:
+            raise ValueError("pass either Cl or fiducial_theta, not both "
+                             "(the provided Cl fixes the fiducial cosmology)")
+        try:
+            cl_lmax = float(np.max(np.asarray(Cl["unlensed_scalar"]["TT"].ell)))
+        except (KeyError, TypeError, AttributeError, ValueError):
+            cl_lmax = np.inf
+        if cl_lmax < lmax:
+            raise ValueError(f"provided Cl extends only to ell={cl_lmax:.0f} but this grid needs "
+                             f"lmax={lmax} (ceil(sqrt(2)*nyquist)+1): the covariance would be "
+                             "zero at higher ell")
     r0 = float(Cl["params"].get("r", 0.2))
-    Cln = noise_cls(muKarcminT=muKarcminT, beamFWHM=0, lknee=100, alphaknee=3, lmax=lmax)
+    if Cln is None:
+        Cln = noise_cls(muKarcminT=muKarcminT, beamFWHM=0, lknee=lknee, alphaknee=alphaknee,
+                        lmax=lmax)
     ks = {"I": ("TT",), "P": ("EE", "BB"), "IP": ("TT", "EE", "BB", "TE")}[pol]
 
     Cphi0 = Cl_to_Cov("I", proj, Cl["total"]["pp"])
@@ -327,34 +474,63 @@ def load_sim(thetapix, Nside, pol, T=np.float32, Nbatch=None, muKarcminT=3, beam
     Cft = Cl_to_Cov(pol, proj, *[Cl["tensor"][k] for k in ks])
     Cf_tilde = Cl_to_Cov(pol, proj, *[Cl["total"][k] for k in ks])
     Cn_hat = Cl_to_Cov(pol, proj, *[Cln[k] for k in ks])
+    if Cn is None:
+        Cn = Cn_hat
 
     Cf = ParamDependentOp(("r",), _cf_recompute, (Cfs, Cft, r0))
-    Cphi = ParamDependentOp(("Aphi",), _cphi_recompute, (Cphi0, 1.0))
-    M_hat = M = _mask_cov(pol, proj, LowPass(3000) if bandpass_mask is None else bandpass_mask)
-    if pixel_mask_kwargs is not None:
-        from ..utils.masking import make_mask
-        mask = make_mask((Ny, Nx), thetapix, rng=np.random.default_rng(seed), **pixel_mask_kwargs)
-        b = Basis({"I": "I", "P": "QU", "IP": "IQU"}[pol], "map")
-        pix = np.broadcast_to(mask[None], (b.ncomp, Ny, Nx)).copy()
-        M = LazyOp("*", M_hat, Diag(Field(torch.as_tensor(pix, device=device), b, proj)))
-    Bl = beam_cls(beamFWHM=beamFWHM, lmax=lmax).sqrt()
-    B = _mask_cov(pol, proj, BandPass(Bl.ell, Bl.Cl))
+    Cphi = ParamDependentOp(("Aphi",), _cphi_recompute, (Cphi0, Aphi0))
+    if M is None:
+        Mfourier = _mask_cov(pol, proj, LowPass(3000) if bandpass_mask is None else bandpass_mask)
+        M = Mfourier
+        if pixel_mask_kwargs is not None:
+            from ..utils.masking import make_mask
+            mask = make_mask((Ny, Nx), thetapix, rng=np.random.default_rng(seed),
+                             **pixel_mask_kwargs)
+            b = Basis({"I": "I", "P": "QU", "IP": "IQU"}[pol], "map")
+            pix = np.broadcast_to(mask[None], (b.ncomp, Ny, Nx)).copy()
+            M = LazyOp("*", Mfourier, Diag(Field(torch.as_tensor(pix, device=device), b, proj)))
+        if M_hat is None:
+            M_hat = Mfourier
+    elif M_hat is None:
+        M_hat = M
+    if B is None:
+        Bl = beam_cls(beamFWHM=beamFWHM, lmax=lmax).sqrt()
+        B = _mask_cov(pol, proj, BandPass(Bl.ell, Bl.Cl))
+    if B_hat is None:
+        B_hat = B
 
-    ds = DataSet(Cn=Cn_hat, Cn_hat=Cn_hat, Cf=Cf, Cf_tilde=Cf_tilde, Cphi=Cphi,
-                 M=M, M_hat=M_hat, B=B, B_hat=B)
+    ds = DataSet(Cn=Cn, Cn_hat=Cn_hat, Cf=Cf, Cf_tilde=Cf_tilde, Cphi=Cphi,
+                 M=M, M_hat=M_hat, B=B, B_hat=B_hat, D=Id if D is None else D,
+                 G=Id if G is None else G, L=LenseFlow if L is None else L)
     sim = ds.simulate(generator)
     ds = ds.replace(d=sim["d"])
 
-    Nphi = _op_scale(0.5, quadratic_estimate(ds)["Nphi"])
-    G0 = _G_of(Cphi(dict(Aphi=1.0)), Nphi)
-    sigma2len = float(np.deg2rad(5 / 60) ** 2)
-    ds = ds.replace(Nphi=Nphi,
-                    G=ParamDependentOp(("Aphi",), _g_recompute, (G0, Cphi, Nphi, 1.0)),
-                    D=ParamDependentOp(("r",), _d_recompute, (Cf, Cn_hat, r0, sigma2len)))
+    Nphi = _op_scale(1.0 / Nphi_fac, quadratic_estimate(ds)["Nphi"])
+    ds = ds.replace(Nphi=Nphi)
+    if G is None:
+        G0 = _G_of(Cphi(dict(Aphi=Aphi0)), Nphi)
+        ds = ds.replace(G=ParamDependentOp(("Aphi",), _g_recompute, (G0, Cphi, Nphi, Aphi0)))
+    if D is None:
+        sigma2len = float(np.deg2rad(5 / 60) ** 2)
+        ds = ds.replace(D=ParamDependentOp(("r",), _d_recompute, (Cf, Cn_hat, r0, sigma2len)))
     if Nbatch is not None:
         ds = ds.replace(d=repeat_batch(sim["d"], Nbatch))
     return dict(f=sim["f"], ft=sim["ft"], phi=sim["phi"], d=ds.d,
                 ds=ds, ds0=ds.at({}), Cl=Cl, proj=proj)
+
+
+def load_nolensing_sim(lensed_covariance=False, **kwargs):
+    """load_sim(**kwargs) with its dataset as a NoLensingDataSet (reference
+    src/dataset.jl:341-352): the same data and operators, the field
+    covariance the unlensed Cf, or with lensed_covariance the lensed
+    Cf_tilde."""
+    out = dict(load_sim(**kwargs))
+    ds = out["ds"]
+    ds_nl = NoLensingDataSet(d=ds.d, Cf=ds.Cf_tilde if lensed_covariance else ds.Cf, Cn=ds.Cn,
+                             Cn_hat=ds.Cn_hat, M=ds.M, M_hat=ds.M_hat, B=ds.B, B_hat=ds.B_hat)
+    out["ds"] = ds_nl
+    out["ds0"] = ds_nl.at({})
+    return out
 
 
 # =========================================================================

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from ..core.basis import lense_basis
@@ -339,3 +340,43 @@ class LenseFlow:
     def __repr__(self):
         return f"LenseFlow(nsteps={self.nsteps}{', adjoint' if self._adjoint else ''})"
 
+
+
+def lense(phi: Field, f: Field, nsteps: int = 7) -> Field:
+    """f lensed by phi: LenseFlow(phi, nsteps) @ f."""
+    return LenseFlow(phi, nsteps) @ f
+
+
+def _hessian_planes(phi: Field):
+    """(phi_xx, phi_xy, phi_yy) of a spin-0 phi as float64 map tensors, by
+    Fourier derivatives on the whole lx, ly grids (Nyquist lines included,
+    as the JAX package's core/ops.py::gradhess)."""
+    proj = phi.proj
+    arr = phi.to(phi.basis.with_space("map")).arr.double()
+    F = torch.fft.rfft2(arr)
+    ilx = torch.as_tensor(1j * proj.lx.astype(np.float64), device=F.device)[None, :]
+    ily = torch.as_tensor(1j * proj.ly.astype(np.float64), device=F.device)[:, None]
+    gx, gy = F * ilx, F * ily
+    return tuple(torch.fft.irfft2(h, s=(proj.Ny, proj.Nx)) for h in (gx * ilx, gx * ily, gy * ily))
+
+
+def get_max_lensing_step(phi: Field, eta: Field):
+    """The largest alpha for which I + Hess(phi + alpha eta) keeps a
+    positive determinant everywhere (the weak-lensing guard of reference
+    src/lenseflow.jl:232-256): the least positive root, over the pixels, of
+    det(I + Hess phi + alpha Hess eta) = a alpha^2 + b alpha + c, a 0-d
+    tensor in phi's precision (inf when no root is positive). The planes
+    and roots are computed in float64: in float32 the FFTs' rounding at
+    high l, amplified by l^2 in the Hessians, moves the root by ~3e-5
+    relative, and would make the card's and the CPU's answers differ by
+    as much."""
+    pxx, pxy, pyy = _hessian_planes(phi)
+    exx, exy, eyy = _hessian_planes(eta)
+    a = exx * eyy - exy ** 2
+    b = exx * (1 + pyy) + eyy * (1 + pxx) - 2 * exy * pxy
+    c = (1 + pxx) * (1 + pyy) - pxy ** 2
+    disc = torch.sqrt(b ** 2 - 4 * a * c)
+    big = torch.tensor(float("inf"), dtype=a.dtype, device=a.device)
+    pos_min = lambda x: torch.min(torch.where(x > 0, x, big))
+    out = torch.minimum(pos_min((-b + disc) / (2 * a)), pos_min((-b - disc) / (2 * a)))
+    return out.to(phi.dtype)

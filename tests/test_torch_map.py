@@ -148,19 +148,16 @@ def test_MAP_joint_matches_jax(P32):
                                         (dict(precision="auto"), "uni"),
                                         (dict(precision="high"), "uni")])
 def test_MAP_joint_refuses_what_is_not_ported(P32, kw, backend):
-    """Brent, quasi-samples and the Hessian update are not ported, and
-    raise. 'bf16', "auto" and 'high' on the "uni" backend raised while K5
-    had no 'high' and 'bf16' tiers; now that it has, they run: one step,
-    a finite logpdf (tests/test_torch_uni_tiers.py holds them to the
-    kernel backend)."""
+    """Every one of these options runs now: one step, a finite logpdf.
+    Brent, quasi-samples and the Hessian update raised NotImplementedError
+    until they were ported (tests/test_torch_map_options.py holds them to
+    the JAX package); 'bf16', "auto" and 'high' on the "uni" backend raised
+    while K5 had no 'high' and 'bf16' tiers (tests/test_torch_uni_tiers.py
+    holds them to the kernel backend). The test keeps its name."""
     run = lambda: ct.MAP_joint(P32["tds"], nsteps=1, conjgrad_kwargs=dict(
         tol=0.0, nsteps=1, fixed_iters=True), **kw)
     with ct.lenseflow_backend_ctx(backend):
-        if backend == "uni":
-            assert np.isfinite(run()["history"][-1]["logpdf"])
-            return
-        with pytest.raises(NotImplementedError):
-            run()
+        assert np.isfinite(run()["history"][-1]["logpdf"])
 
 
 def test_unported_batched_and_reduced_precision_paths_raise(P32):

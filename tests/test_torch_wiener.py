@@ -177,10 +177,14 @@ def test_MAP_joint_refuses_unknown_keys_and_takes_the_jax_signature(P32):
         ct.MAP_joint(P32["tds"], history_keys=("logpdf", "hessian"), **kw)
     out = ct.MAP_joint(P32["tds"], alpha_tol=1e-4, key=None, **kw)
     assert len(out["history"]) == 1
-    with pytest.raises(NotImplementedError, match="brent"):
-        ct.MAP_joint(P32["tds"], alpha_tol=1e-3, **kw)
-    with pytest.raises(NotImplementedError, match="quasi_sample"):
-        ct.MAP_joint(P32["tds"], key=0, **kw)
+    # alpha_tol (brent's) and key (quasi_sample's) were refused at other
+    # values until brent and quasi-samples were ported; they run now
+    out = ct.MAP_joint(P32["tds"], alpha_tol=1e-3, linesearch="brent", **kw)
+    assert np.isfinite(out["history"][-1]["logpdf"])
+    out = ct.MAP_joint(P32["tds"], key=0, quasi_sample=True, **kw)
+    assert np.isfinite(out["history"][-1]["logpdf"])
+    with pytest.raises(ValueError, match="linesearch"):
+        ct.MAP_joint(P32["tds"], linesearch="golden", **kw)
 
 
 def _weak_lensing(Ny, Nx, seed=1):
