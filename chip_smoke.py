@@ -201,6 +201,24 @@ port's two paths through the kernel backend:
               phi-gradient of logpdf on load_sim(L=BilinearLens) the same
               way; (f) load_sim with every keyword passed at its default
               value: the default dataset's d and operators bit for bit.
+  phase 22    the curved sky and the rest of the field API, no kernel of
+              its own: (a) an EquiRect band of 256 rings x 1024 pixels, 34
+              degrees across, lmax 2000: Cl_to_Cov_EquiRect at I and P
+              (the blocks' build time, every block finite, the Legendre
+              two-point identity at three pixel pairs to 1e-4 in float64);
+              (b) sqrt (S S against C), pinv, solve(C @ f), logdet, timed;
+              (c) the Wiener filter of a NoLensingDataSet on those blocks
+              and white noise of 3 muK-arcmin (argmaxf_logpdf, CG tol 1e-4,
+              at most 500 iterations) and sample_f, peak memory; (d) the
+              band at 32 x 128, lmax 1100 (orders past the JAX package's
+              overflow at |m| = 1024), card against CPU: blocks and Wiener
+              filter within 1e-4; (e) HEALPix nside 2048 to the 1024^2
+              patch and to (a)'s band and back, bilinear and 'fft', I and
+              QU (Projector build, ms, round-trip error), card against CPU
+              (bilinear at nside 2048, 'fft' at nside 512); (f) ud_grade of
+              a 1024^2 P field to 512^2 and 2048^2 in both modes (card
+              against CPU), the magnification matrix of the 1024^2 path's
+              phi against the K1 planes, get_Dl.
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
     python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
@@ -211,6 +229,7 @@ port's two paths through the kernel backend:
     python3 chip_smoke.py --phase 19    (phase 1, the build, and phase 19 alone)
     python3 chip_smoke.py --phase 20    (phase 1, the build, and phase 20 alone)
     python3 chip_smoke.py --phase 21    (phase 1, the build, and phase 21 alone)
+    python3 chip_smoke.py --phase 22    (phase 1, the build, and phase 22 alone)
 
 Phases 13, 14 (c) and 16 take one 4096^2 P simulation (load_sim is
 seeded), loaded once in a whole run. Phases 7 and 8 measure the strict
@@ -524,6 +543,29 @@ OPT_ADJ_TOL, OPT_SOLVE_TOL = 1e-4, 0.15
 OPT_F32_TOL, OPT_CPU_TOL, OPT_GRAD_TOL = 2e-4, 1e-5, 2e-2
 # the "auto" path's kernels: the strict line search and f-step CG, the
 # 'high' phi-gradient
+# phase 22: the curved sky. The band: 256 rings x 1024 pixels, 34 degrees
+# across (the 1024^2 P patch's width), the full circle in phi, lmax 2000
+CURVED_NY, CURVED_NX, CURVED_HALF, CURVED_LMAX = 256, 1024, 0.3, 2000
+CURVED_SMALL = (32, 128, 1100)   # (d): card against CPU, orders past |m| = 1024
+CURVED_NOISE = 3.0               # muK-arcmin, white
+# the Wiener filter as a user runs it; no precision-dependent operator lies
+# on this path, so the solve runs strict (the "auto" re-check would re-run it)
+CURVED_CG = dict(tol=1e-4, nsteps=500, hessian_precision=None)
+# the blocks against the float64 harmonic sums after the float32 cast, S S
+# against C, and the card against the CPU (blocks and Wiener filter)
+CURVED_2PT_TOL, CURVED_SQRT_TOL, CURVED_CPU_TOL = 1e-4, 1e-4, 1e-4
+HPX_NSIDE = 2048
+# the card against the CPU: bilinear is gathers only; 'fft' solves 15 CG
+# iterations through the NUFFT adjoint's scatter-add, whose order the card
+# does not fix, at nside 512 <-> 256^2 at 8' (the CPU's time at nside 2048)
+HPX_BILINEAR_TOL, HPX_FFT_TOL = 1e-5, 1e-3
+HPX_FFT_SMALL = (512, 256, 8)
+# the smooth maps' largest l: on the 1024^2 patch (2' pixels), on the band
+# (8' x 21' pixels at the equator)
+HPX_WAVE_LMAX = {False: 600, True: 100}
+# the round trip sphere -> grid -> sphere of a smooth map (l <= 600), rel rms
+HPX_RT_RMS = {"bilinear": 0.05, "fft": 0.05}
+UD_TOL = 1e-5
 OPT_KERNELS = ("fderiv", "fa_velocity_forward", "fa_velocity_adjoint", "rk4_update", "p_planes",
                "fderiv_high", "fa_velocity_forward_high", "fa_velocity_adjoint_high",
                "bv_velocity_high")
@@ -4985,6 +5027,374 @@ def phase_options(torch, card, sim=None):
                       **{f"{k}_1024_ms": v for k, v in ms_lens.items()}}
 
 
+# --- phase 22: the curved sky and the rest of the field API ------------------
+
+def curved_band(ct, Ny, Nx, device=None):
+    """The band of phase 22: Ny rings of Nx pixels, theta within CURVED_HALF
+    of the equator, the full circle in phi."""
+    return ct.ProjEquiRect(Ny=Ny, Nx=Nx, theta_span=(np.pi / 2 - CURVED_HALF,
+                                                     np.pi / 2 + CURVED_HALF),
+                           phi_span=(0, 2 * np.pi), device=device or DEVICE)
+
+
+def curved_spectra(ct, pol):
+    """The fiducial unlensed spectra (scalar and tensor, r = 0.2) of pol."""
+    c = ct.camb().unlensed_total
+    return (c.TT,) if pol == "I" else (c.EE, c.BB)
+
+
+def curved_noise(ct, torch, proj, pol):
+    """White noise of CURVED_NOISE muK-arcmin: each ring's pixel variance
+    (muK-arcmin)^2 / Omega(theta) on the diagonal of every block; at P the
+    blocks are half the covariance of P = Q + iU, so Q and U each get it."""
+    var = CURVED_NOISE ** 2 / (proj.Omega * (60 * 180 / np.pi) ** 2)
+    v = torch.as_tensor(np.concatenate([var, var]) if pol == "P" else var,
+                        dtype=torch.float32, device=proj.device)
+    dt = torch.complex64 if pol == "P" else torch.float32
+    blocks = torch.diag_embed(v).to(dt).expand(proj.Nx // 2 + 1, -1, -1).contiguous()
+    return ct.BlockDiagEquiRect(blocks, "qu_az" if pol == "P" else "az", proj)
+
+
+def legendre_sum(Cl, ell, x):
+    """sum_l (2l+1)/(4 pi) C_l P_l(x), by the Legendre recurrence in float64."""
+    p0, p1 = 1.0, x
+    tot = Cl[0] / (4 * np.pi) + (3 / (4 * np.pi)) * Cl[1] * x
+    for l in range(1, int(ell[-1])):
+        p0, p1 = p1, ((2 * l + 1) * x * p1 - l * p0) / (l + 1)
+        tot += (2 * (l + 1) + 1) / (4 * np.pi) * Cl[l + 1] * p1
+    return tot
+
+
+def two_point_errors(C, pol, Cls, lmax, rings):
+    """|cov - Gamma| / |Gamma| at the pixel pairs (rings[0], r) on one
+    meridian: cov from the float32 blocks summed over m in float64, Gamma
+    the float64 harmonic sum. At I, Gamma = sum (2l+1)/4pi C_l P_l(cos b); at
+    P, <P P*> = sum (2l+1)/4pi (C_EE + C_BB) d^l_22(b), d^l_22 = ((1 +
+    cos b)/2)^2 P^(0,4)_(l-2)(cos b)."""
+    from scipy.special import eval_jacobi
+    proj = C.proj
+    nT, nP = proj.Ny, proj.Nx
+    t1, cols = rings[0], list(rings)
+    top = C.blocks[:, t1, cols].cpu().numpy().astype(np.complex128)          # (nm, pairs)
+    bot = (C.blocks[:, nT + t1, [nT + c for c in cols]].cpu().numpy().astype(np.complex128)
+           if pol == "P" else None)
+    ell = np.arange(lmax + 1)
+    w = np.full(nP // 2 + 1, 2.0)
+    w[0] = w[-1] = 1.0
+    out = []
+    for k, t2 in enumerate(rings):
+        a, b = proj.theta[t1], proj.theta[t2]
+        x = np.cos(a) * np.cos(b) + np.sin(a) * np.sin(b)
+        if pol == "I":
+            cov = np.sum(w * top[:, k].real) / nP
+            gam = legendre_sum(np.nan_to_num(Cls[0](ell)), ell, x)
+        else:
+            cov = 2 * (np.sum(top[:, k]) + np.sum(bot[1:-1, k])).real / nP
+            CP = np.nan_to_num(Cls[0](ell)) + np.nan_to_num(Cls[1](ell))
+            l2 = ell[2:]
+            d22 = ((1 + x) / 2) ** 2 * eval_jacobi(l2 - 2, 0, 4, x)
+            gam = np.sum((2 * l2 + 1) / (4 * np.pi) * CP[2:] * d22)
+        out.append(float(abs(cov - gam) / abs(gam)))
+    return out
+
+
+def sync_ms(torch, fn):
+    """(fn()'s result, its milliseconds to the end of its device work)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, 1e3 * (time.perf_counter() - t0)
+
+
+def curved_ops(torch, card, ct, proj, pol, lmax, bad, tag):
+    """(a) and (b) of phase 22 at one pol: Cf's build and its checks, then
+    sqrt, pinv, solve and logdet. Returns (Cf, timings)."""
+    Cls = curved_spectra(ct, pol)
+    C, ms_build = sync_ms(torch, lambda: ct.Cl_to_Cov_EquiRect(pol, proj, *Cls, lmax=lmax))
+    finite = bool(torch.isfinite(C.blocks).all())
+    mid = proj.Ny // 2
+    tp = two_point_errors(C, pol, Cls, lmax, (mid, mid + 1, mid + 4))
+    print(f"phase 22: {tag} Cl_to_Cov_EquiRect({pol!r}) {proj.Ny} x {proj.Nx}, lmax {lmax}: "
+          f"blocks {tuple(C.blocks.shape)} {C.blocks.dtype} "
+          f"({C.blocks.numel() * C.blocks.element_size() / 2 ** 30:.3f} GiB), built in "
+          f"{ms_build:.1f} ms, every block finite: {finite}; two-point identity at rings "
+          f"({mid}, {mid}), ({mid}, {mid + 1}), ({mid}, {mid + 4}): rel err "
+          f"{', '.join(f'{e:.2e}' for e in tp)} (bound {CURVED_2PT_TOL:g}) [{card}]")
+    if not finite or max(tp) > CURVED_2PT_TOL:
+        bad[f"{tag} {pol} blocks"] = (finite, tp)
+    t = {"build_ms": ms_build}
+    S, t["sqrt_ms"] = sync_ms(torch, C.sqrt)
+    err_sq = rel((S * S).blocks, C.blocks)
+    del S
+    _, t["pinv_ms"] = sync_ms(torch, C.pinv)
+    (ld, sign), t["logdet_ms"] = sync_ms(torch, C.logabsdet)
+    f = C.simulate(torch.Generator(device=proj.device).manual_seed(SEED))
+    Cf_ = C @ f
+    back, t["solve_ms"] = sync_ms(torch, lambda: C.solve(Cf_))
+    b = f.to(back.basis).arr
+    err_solve = rel(back.arr, b)
+    print(f"phase 22: {tag} {pol}: sqrt {t['sqrt_ms']:.1f} ms (the SVD), S S vs C rel max-abs "
+          f"{err_sq:.2e} (bound {CURVED_SQRT_TOL:g}); pinv {t['pinv_ms']:.1f} ms; logdet "
+          f"{float(ld):.6g} (sign {complex(sign)}) {t['logdet_ms']:.1f} ms; solve(C @ f) "
+          f"{t['solve_ms']:.1f} ms (the LU), against f rel max-abs {err_solve:.2e} "
+          f"[{card}]")
+    if not err_sq < CURVED_SQRT_TOL or not np.isfinite(float(ld)):
+        bad[f"{tag} {pol} sqrt/logdet"] = (err_sq, float(ld))
+    t.update(sqrt_err=err_sq, solve_err=err_solve, logdet=float(ld))
+    return C, t
+
+
+def curved_wiener(torch, card, ct, C, pol, gen, tag):
+    """(c) of phase 22: the NoLensingDataSet on C and white noise, its
+    Wiener filter and a posterior sample. Returns timings."""
+    proj = C.proj
+    Cn = curved_noise(ct, torch, proj, pol)
+    f = C.simulate(gen)
+    d = f + Cn.simulate(gen)
+    ds = ct.NoLensingDataSet(d=d, Cf=C, Cn=Cn, Cn_hat=Cn)
+    (fwf, info), ms = sync_ms(torch, lambda: ct.argmaxf_logpdf(ds, conjgrad_kwargs=CURVED_CG))
+    fm = fwf.to(f.basis)
+    corr = float(ct.er_dot(fm, f) / torch.sqrt(ct.er_dot(f, f) * ct.er_dot(fm, fm)))
+    (fs, sinfo), ms_s = sync_ms(torch, lambda: ct.sample_f(gen, ds, conjgrad_kwargs=CURVED_CG))
+    lp = float(ds.logpdf(f=fs))
+    it, res, res0 = int(info["iterations"]), float(info["res"]), float(info["res0"])
+    print(f"phase 22: {tag} {pol} Wiener filter (CG tol {CURVED_CG['tol']:g}, at most "
+          f"{CURVED_CG['nsteps']}): {ms:.1f} ms, {it} iterations, residual {res:.3e} (from "
+          f"{res0:.3e}), corr(f_WF, f) {corr:.4f}; sample_f {ms_s:.1f} ms, "
+          f"{int(sinfo['iterations'])} iterations, logpdf {lp:.6g} [{card}]")
+    return {"ms": ms, "iterations": it, "res": res, "corr": corr, "sample_ms": ms_s,
+            "logpdf": lp}
+
+
+def curved_vs_cpu(torch, card, ct, bad):
+    """(d) of phase 22: the band at CURVED_SMALL on the card and on the CPU:
+    the blocks, and the Wiener filter of one CPU-drawn d."""
+    Ny, Nx, lmax = CURVED_SMALL
+    for pol in ("I", "P"):
+        Cls = curved_spectra(ct, pol)
+        Cs = {dev: ct.Cl_to_Cov_EquiRect(pol, curved_band(ct, Ny, Nx, dev), *Cls, lmax=lmax)
+              for dev in (DEVICE, "cpu")}
+        e_blocks = rel(Cs[DEVICE].blocks.cpu(), Cs["cpu"].blocks)
+        tp = two_point_errors(Cs[DEVICE], pol, Cls, lmax, (Ny // 2, Ny // 2 + 1, Ny // 2 + 4))
+        gen = torch.Generator().manual_seed(SEED)
+        Cn_cpu = curved_noise(ct, torch, Cs["cpu"].proj, pol)
+        d_cpu = Cs["cpu"].simulate(gen) + Cn_cpu.simulate(gen)
+        fw = {}
+        for dev in (DEVICE, "cpu"):
+            proj = Cs[dev].proj
+            d = ct.EquiRectField(d_cpu.arr.to(dev), d_cpu.basis, proj)
+            Cn = curved_noise(ct, torch, proj, pol)
+            ds = ct.NoLensingDataSet(d=d, Cf=Cs[dev], Cn=Cn, Cn_hat=Cn)
+            fw[dev], info = ct.argmaxf_logpdf(ds, conjgrad_kwargs=CURVED_CG)
+            fw[dev + "_it"] = int(info["iterations"])
+        b = fw["cpu"].basis
+        e_wf = rel(fw[DEVICE].to(b).arr.cpu(), fw["cpu"].arr)
+        print(f"phase 22: (d) {pol} at {Ny} x {Nx}, lmax {lmax} (orders to |m| = {lmax} > 1024): "
+              f"card vs CPU blocks rel max-abs {e_blocks:.2e}, Wiener filter f {e_wf:.2e} (CG "
+              f"iterations {fw[DEVICE + '_it']}, {fw['cpu_it']}; bound {CURVED_CPU_TOL:g}); "
+              f"blocks finite {bool(torch.isfinite(Cs[DEVICE].blocks).all())}; two-point rel err "
+              f"{', '.join(f'{e:.2e}' for e in tp)} [{card}]")
+        if not (e_blocks < CURVED_CPU_TOL and e_wf < CURVED_CPU_TOL
+                and max(tp) < CURVED_2PT_TOL):
+            bad[f"(d) {pol}"] = (e_blocks, e_wf, tp)
+
+
+def plane_waves(torch, proj, ncomp, lmax, seed=SEED):
+    """A smooth flat map on proj's device: six plane waves of l in [lmax /
+    10, lmax] a component (on a band, x runs along phi at the equator)."""
+    g = np.random.default_rng(seed)
+    y, x = np.meshgrid(np.arange(proj.Ny), np.arange(proj.Nx), indexing="ij")
+    if hasattr(proj, "deltax"):
+        dy = dx = float(proj.deltax)
+    else:
+        dy, dx = 2 * CURVED_HALF / proj.Ny, 2 * np.pi / proj.Nx
+    comps = []
+    for _ in range(ncomp):
+        m = np.zeros((proj.Ny, proj.Nx))
+        for _ in range(6):
+            lv, ang, ph = g.uniform(lmax / 10, lmax), g.uniform(0, 2 * np.pi), g.uniform(0, 2 * np.pi)
+            m += g.normal() * np.cos(lv * (dx * x * np.cos(ang) + dy * y * np.sin(ang)) + ph)
+        comps.append(m)
+    return torch.as_tensor(np.stack(comps).astype(np.float32), device=proj.device)
+
+
+def hpx_round_trips(torch, card, ct, proj, nside, bad, tag, fft_pols=("I", "QU")):
+    """(e) of phase 22 on one flat grid: a flat map up to the sphere (its
+    in-patch pixels), then sphere -> grid -> sphere, bilinear (and 'fft' at
+    fft_pols), I and QU; times, and the round trip's rms error on the
+    patch's pixels."""
+    from cmblensing_tpu_torch.core import proj_healpix as ph
+    hpx = ct.ProjHealpix(nside)
+    t0 = time.perf_counter()
+    pr = ph.Projector(hpx, proj)
+    t_build = time.perf_counter() - t0
+    print(f"phase 22: (e) {tag}: Projector(nside {nside}) host build {t_build:.2f} s "
+          f"({pr.sel.numel()} pixels in the patch, of {hpx.npix}) [{card}]")
+    out = {"projector_s": t_build}
+    er = isinstance(proj, ct.ProjEquiRect)
+    for pol in ("I", "QU"):
+        arr = plane_waves(torch, proj, 1 if pol == "I" else 2, HPX_WAVE_LMAX[er])
+        flat = (ct.EquiRectField(arr[0] if pol == "I" else arr, "map" if pol == "I" else "qu_map",
+                                 proj) if er else ct.Field(arr, ct.Basis(pol, "map"), proj))
+        m = ct.project(flat, hpx)
+        for method in ("bilinear",) + (("fft",) if pol in fft_pols else ()):
+            # the bilinear steps timed on their second run, 'fft' (seconds
+            # at the band) on its first, after the bilinear ones warmed the card
+            for _ in range(2 if method == "bilinear" else 1):
+                down, ms_d = sync_ms(torch, lambda: ct.project(m, proj, method=method))
+                up, ms_u = sync_ms(torch, lambda: ct.project(down, hpx, method=method))
+            sel = pr.sel
+            err = float((up.arr[..., sel] - m.arr[..., sel]).abs().max()
+                        / m.arr[..., sel].abs().max())
+            rms = float((up.arr[..., sel] - m.arr[..., sel]).pow(2).mean().sqrt()
+                        / m.arr[..., sel].pow(2).mean().sqrt())
+            print(f"phase 22: (e) {tag} {pol} {method}: sphere -> grid {ms_d:.2f} ms, grid -> "
+                  f"sphere {ms_u:.2f} ms; round trip on the patch's pixels rel max-abs "
+                  f"{err:.3e}, rel rms {rms:.3e} [{card}]")
+            if not (np.isfinite(err) and rms < HPX_RT_RMS[method]):
+                bad[f"(e) {tag} {pol} {method}"] = rms
+            out[f"{pol}_{method}"] = (ms_d, ms_u, rms)
+    return out
+
+
+def hpx_vs_cpu(torch, card, ct, bad):
+    """(e) of phase 22, the card against the CPU on the same inputs:
+    bilinear at nside HPX_NSIDE to the 1024^2 patch and back, 'fft' at
+    HPX_FFT_SMALL both ways, QU."""
+    from cmblensing_tpu_torch.core import proj_healpix as ph
+    cases = (("bilinear", HPX_NSIDE, N_MAP, THETAPIX_MAP, HPX_BILINEAR_TOL),
+             ("fft", *HPX_FFT_SMALL, HPX_FFT_TOL))
+    for method, nside, n, tp, tol in cases:
+        hpx = ct.ProjHealpix(nside)
+        projs = {dev: ct.ProjLambert(n, n, thetapix=tp, T=np.float32, device=dev)
+                 for dev in (DEVICE, "cpu")}
+        arr = plane_waves(torch, projs[DEVICE], 2, HPX_WAVE_LMAX[False])
+        m = ct.project(ct.Field(arr, ct.Basis("QU", "map"), projs[DEVICE]), hpx)
+        res = {}
+        for dev, proj in projs.items():
+            mm = ct.HealpixField(m.arr.to(dev), "QU", hpx)
+            down = ct.project(mm, proj, method=method)
+            res[dev] = (down.arr.cpu(), ct.project(down, hpx, method=method).arr.cpu())
+        e_down = rel(res[DEVICE][0], res["cpu"][0])
+        e_up = rel(res[DEVICE][1], res["cpu"][1])
+        print(f"phase 22: (e) card vs CPU, {method}, nside {nside} <-> {n}^2 at {tp}': sphere -> "
+              f"grid rel max-abs {e_down:.2e}, back {e_up:.2e} (bound {tol:g}) [{card}]")
+        if not (e_down < tol and e_up < tol):
+            bad[f"(e) card vs CPU {method}"] = (e_down, e_up)
+
+
+def field_api(torch, card, ct, sim, bad):
+    """(f) of phase 22: ud_grade of the 1024^2 P path's f to 512^2 and
+    2048^2 in both modes (card against CPU), the magnification matrix of its
+    phi against the K1-derived planes, and get_Dl."""
+    from cmblensing_tpu_torch.ops import deriv, lenseflow_kernels as lfk
+    f = sim["f"].to(ct.QU_MAP)
+    proj = f.proj
+    proj_cpu = ct.ProjLambert(N_MAP, N_MAP, thetapix=THETAPIX_MAP, T=np.float32, device="cpu")
+    f_cpu = ct.Field(f.arr.cpu(), f.basis, proj_cpu)
+    out = {}
+    for mode in ("map", "fourier"):
+        for th in (2 * THETAPIX_MAP, THETAPIX_MAP / 2):
+            g, ms = sync_ms(torch, lambda: ct.ud_grade(f, th, mode=mode))
+            g, ms = sync_ms(torch, lambda: ct.ud_grade(f, th, mode=mode))
+            e = rel(g.arr.cpu(), ct.ud_grade(f_cpu, th, mode=mode).arr)
+            print(f"phase 22: (f) ud_grade {mode} {N_MAP}^2 -> {g.proj.Ny}^2: {ms:.2f} ms, card "
+                  f"vs CPU rel max-abs {e:.2e} (bound {UD_TOL:g}) [{card}]")
+            if not e < UD_TOL:
+                bad[f"(f) ud_grade {mode} {g.proj.Ny}"] = e
+            out[f"ud_grade_{mode}_{g.proj.Ny}_ms"] = ms
+    # the FFT's Hessian and K1's two first-derivative products treat phi's
+    # Nyquist row and column apart (K1's derivative zeroes the Nyquist mode,
+    # -l^2 does not): held to each other on phi with them zeroed, the raw
+    # distance reported
+    phi = sim["phi"].to(ct.FOURIER)
+    F = phi.arr.clone()
+    F[..., N_MAP // 2, :] = 0
+    F[..., :, -1] = 0
+    dist = {}
+    for label, p in (("raw", phi), ("Nyquist-free", ct.Field(F, ct.FOURIER, proj))):
+        pm = p.to(ct.MAP)
+        lfk.reset_launches()
+        planes = lfk.gradhess(pm.arr.contiguous(), deriv.deriv_ops(proj))
+        torch.cuda.synchronize()
+        k1 = {k: v for k, v in lfk.LAUNCHES.items() if v}
+        M, ms = sync_ms(torch, lambda: ct.magnification_matrix(pm))
+        dist[label] = [rel(M[0, 0].arr - 1, planes[..., 2:3, :, :]),
+                       rel(M[0, 1].arr, planes[..., 3:4, :, :]),
+                       rel(M[1, 1].arr - 1, planes[..., 4:5, :, :])]
+    det = M.det()
+    print(f"phase 22: (f) magnification_matrix(phi) {ms:.2f} ms against the K1 planes ({k1}): "
+          f"hxx, hxy, hyy rel max-abs {', '.join(f'{e:.2e}' for e in dist['Nyquist-free'])} on "
+          f"phi without its Nyquist row and column (bound {HESS_TOL_1024:g}), "
+          f"{', '.join(f'{e:.2e}' for e in dist['raw'])} with them; det M in "
+          f"[{float(det.arr.min()):.4f}, {float(det.arr.max()):.4f}] [{card}]")
+    if not max(dist["Nyquist-free"]) < HESS_TOL_1024 or "fderiv" not in k1:
+        bad["(f) magnification"] = (dist, k1)
+    dl, cl = ct.get_Dl(f["E"]), ct.get_Cl(f["E"])
+    ok = np.allclose(dl.Cl, dl.ell * (dl.ell + 1) * cl.Cl / (2 * np.pi), rtol=1e-12,
+                     equal_nan=True) and np.isfinite(dl.Cl[1:40]).all()
+    print(f"phase 22: (f) get_Dl(f['E']): {len(dl.ell)} bins, D_l at l ~ {dl.ell[10]:.0f}: "
+          f"{dl.Cl[10]:.4g} muK^2; = l(l+1)C_l/2pi of get_Cl: {ok}")
+    if not ok:
+        bad["(f) get_Dl"] = ok
+    return out
+
+
+def phase_curved(torch, card, sim=None):
+    """Phase 22: the curved sky and the rest of the field API, no kernel of
+    its own: (a) the EquiRect band's block covariances, I and P; (b) sqrt,
+    pinv, solve, logdet; (c) its Wiener filter and a posterior sample; (d)
+    a small band past the JAX package's overflow, card against CPU; (e)
+    HEALPix projection; (f) ud_grade, the magnification matrix, get_Dl.
+    Returns timings."""
+    import cmblensing_tpu_torch as ct
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    bad = {}
+    proj = curved_band(ct, CURVED_NY, CURVED_NX)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    timing = {}
+    for pol in ("I", "P"):
+        C, t = curved_ops(torch, card, ct, proj, pol, CURVED_LMAX, bad, "(a, b)")
+        w = curved_wiener(torch, card, ct, C, pol, gen, "(c)")
+        if not np.isfinite(w["logpdf"]):
+            bad[f"(c) {pol}"] = w
+        timing.update({f"curved_{pol}_{k}": v for k, v in {**t, **w}.items()})
+        del C
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 22: (a-c) peak memory {peak:.2f} GiB; {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]")
+    timing["curved_peak_GiB"] = peak
+    t0 = time.perf_counter()
+    curved_vs_cpu(torch, card, ct, bad)
+    print(f"phase 22: (d) {time.perf_counter() - t0:.1f} s")
+    if sim is None:
+        sim = large_sim(torch, card, N_MAP, 22)
+    lam = ct.ProjLambert(N_MAP, N_MAP, thetapix=THETAPIX_MAP, T=np.float32, device=DEVICE)
+    t0 = time.perf_counter()
+    rt = hpx_round_trips(torch, card, ct, lam, HPX_NSIDE, bad, f"Lambert {N_MAP}^2")
+    timing.update({f"hpx_lambert_{k}": v for k, v in rt.items()})
+    # on the band 'fft' at I only: its sphere -> grid solve visits 14.8 M
+    # pixels in 15 CG iterations (2.2 s a component)
+    rt = hpx_round_trips(torch, card, ct, proj, HPX_NSIDE, bad,
+                            f"EquiRect {CURVED_NY} x {CURVED_NX}", fft_pols=("I",))
+    timing.update({f"hpx_equirect_{k}": v for k, v in rt.items()})
+    hpx_vs_cpu(torch, card, ct, bad)
+    print(f"phase 22: (e) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    timing.update(field_api(torch, card, ct, sim, bad))
+    print(f"phase 22: (f) {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_start
+    print(f"phase 22: wall time {wall:.1f} s [{card}]")
+    timing["phase22_s"] = wall
+    if bad:
+        raise AssertionError(f"phase 22 failed: {bad}")
+    return timing
+
+
 def print_ptxas(log):
     """Phase 1: the build log's register lines and errors, and for the
     kernels on the cluster tile (fderiv_sm90.cu, fa_sm90.cu, bv_sm90.cu,
@@ -5056,6 +5466,9 @@ def main():
     if sys.argv[1:] == ["--phase", "21"]:
         phase_options(torch, card)
         return 0
+    if sys.argv[1:] == ["--phase", "22"]:
+        phase_curved(torch, card)
+        return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
@@ -5085,6 +5498,7 @@ def main():
     sample_launches, sample_timing = phase_sample(torch, card)
     muse_launches, marg_launches, ens_flows, ens_timing = phase_ensemble(torch, card)
     opt_launches, opt_timing = phase_options(torch, card, map_sim)
+    curved_timing = phase_curved(torch, card, map_sim)
     del map_sim
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
@@ -5240,7 +5654,7 @@ def main():
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
                    **high_timing, **dense_high_timing, **wf_timing, **large_timing,
                    **bf16_timing, **uni_tier_timing, **uni_large_timing, **sample_timing,
-                   **ens_timing, **opt_timing,
+                   **ens_timing, **opt_timing, **curved_timing,
                    **{f"flow_{kind}_{case}_{tier}_ms_warm_cold": (d["ms"], d["cold_ms"])
                       for (case, tier, kind), d in flows.items() if "ms" in d}})
     print("main path ms (kernel, plain):", json.dumps(timing))

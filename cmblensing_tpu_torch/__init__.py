@@ -15,7 +15,11 @@ Wiener filter (batched), MAP_joint with its grid (batched, an alpha an
 entry) or brent line search, its Hessian update and quasi-samples, MAP_marg, sample_joint over a batch of chains with its
 checkpoints and chains, banded (bandpower) covariances, the batched and
 two-dataset quadratic estimate, and MUSE over a batched simulation
-ensemble.
+ensemble; the field API (FieldTuple, FieldVector / FieldMatrix, FuncOp,
+the pass filters and gradient operators, the rfft helpers, ud_grade); and
+the curved sky: EquiRect bands with their block covariances and Wiener
+filter, HEALPix maps and their projection to and from flat grids
+(bilinear or by the NUFFT).
 
 Strict float32: TF32 is switched off for matmuls and convolutions, the
 counterpart of the JAX package pinning every f32 matmul to
@@ -30,7 +34,8 @@ __version__ = "0.1.0"
 
 from .core.proj import ProjLambert, rfft_degeneracy_fac, pixwin  # noqa: E402
 from .core.basis import (  # noqa: E402
-    Basis, MAP, FOURIER, QU_MAP, QU_FOURIER, EB_MAP, EB_FOURIER, IQU_MAP, IEB_FOURIER,
+    Basis, MAP, FOURIER, QU_MAP, QU_FOURIER, EB_MAP, EB_FOURIER, IQU_MAP, IQU_FOURIER, IEB_MAP,
+    IEB_FOURIER,
     lense_basis, deriv_basis, harmonic_basis,
 )
 from .core.field import (  # noqa: E402
@@ -38,9 +43,20 @@ from .core.field import (  # noqa: E402
     sum_field, batch, unbatch, batch_index, batch_length, repeat_batch, batch_map,
 )
 from .core.ops import (  # noqa: E402
-    BlockDiagIEB, Diag, Identity, Id, LazyOp, ParamDependentOp, Scaled, BandPass, LowPass,
-    evaluate_at, logdet, logdet_rel, simulate_op, nan2zero,
+    BlockDiagIEB, Diag, Identity, Id, LazyOp, FuncOp, SymmetricFuncOp, ParamDependentOp, Scaled,
+    BandPass, HighPass, LowPass, MidPass, MidPasses, evaluate_at, logdet, logdet_rel,
+    simulate_op, nan2zero, gradient, gradient_ops, gradhess, laplacian, tr, diag_field,
 )
+from .core.field_tuple import FieldTuple, DiagFieldTuple, ft_dot  # noqa: E402
+from .core.field_vectors import (  # noqa: E402
+    FieldVector, FieldMatrix, gradient_vector, hessian_matrix, magnification_matrix,
+)
+from .core.proj_equirect import (  # noqa: E402
+    ProjEquiRect, EquiRectField, BlockDiagEquiRect, Cl_to_Cov_EquiRect, Cl_to_Beam_EquiRect,
+    er_dot, mapblocks,
+)
+from .core.proj_healpix import ProjHealpix, HealpixField, project  # noqa: E402
+from .ops.fft import unfold, fftsyms, rfft2vec, vec2rfft  # noqa: E402
 from .core.cov import Cl_to_Cov, cov_to_Cl  # noqa: E402
 from .utils.cls import (  # noqa: E402
     Cls, FuncCls, camb, load_camb_cls, noise_cls, beam_cls, extrapolate_cls, smooth, get_rho_l,
@@ -70,9 +86,41 @@ from .inference.maximization import MAP_joint, MAP_marg, argmaxf_logpdf, sample_
 from .inference.muse import MuseProblem, muse, score  # noqa: E402
 from .inference.sampling import (  # noqa: E402
     sample_joint, hmc_step, symplectic_integrate, mass_matrix_phi, grid_and_sample,
-    once_every, start_after_burnin,
+    once_every, start_after_burnin, gibbs_sample_f, gibbs_sample_phi, gibbs_sample_slice_theta,
+    gibbs_mix, gibbs_unmix, gibbs_postprocess,
 )
 from .inference.chains import (  # noqa: E402
     Chain, Chains, load_chains, effective_sample_size, mean_std_and_errors, kde,
 )
-from .utils.spectra import bandpower_corr, get_Cl  # noqa: E402
+from .utils.spectra import bandpower_corr, get_Cl, get_Dl  # noqa: E402
+from .utils.ud_grade import ud_grade  # noqa: E402
+from .utils.timing import timed, timer_report, reset_timers, profiler_trace  # noqa: E402
+from .utils.plotting import animate  # noqa: E402
+
+
+def expnorm(x):
+    """exp(x - max(x))."""
+    x = torch.as_tensor(x)
+    return torch.exp(x - torch.max(x))
+
+
+def diag(op):
+    """The diagonal field of a diagonal-like operator."""
+    d = op.diag
+    return d() if callable(d) else d
+
+
+def fieldinfo(f):
+    """A one-line description of a field."""
+    return (f"{type(f).__name__}(basis={f.basis}, shape={tuple(f.arr.shape)}, "
+            f"dtype={f.arr.dtype}, proj={f.proj})")
+
+
+def firsthalf(x):
+    """The first half of a sequence."""
+    return x[: len(x) // 2]
+
+
+def lasthalf(x):
+    """The last half of a sequence."""
+    return x[len(x) // 2:]

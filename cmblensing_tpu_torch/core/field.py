@@ -17,7 +17,7 @@ import operator
 import numpy as np
 import torch
 
-from .basis import Basis, MAP, promote_basis, harmonic_basis
+from .basis import Basis, MAP, promote_basis, harmonic_basis, lense_basis, deriv_basis
 from .proj import ProjLambert
 from ..ops import fft as _fft
 from ..utils.summation import asum
@@ -54,6 +54,10 @@ class Field:
     def device(self):
         return self.arr.device
 
+    @property
+    def real_dtype(self):
+        return torch.float32 if self.arr.dtype in (torch.float32, torch.complex64) else torch.float64
+
     def __repr__(self):
         return (f"Field<{self.basis!r}, {tuple(self.arr.shape)}, {self.arr.dtype}, "
                 f"{self.proj.Ny}x{self.proj.Nx}@{self.proj.thetapix}', {self.arr.device}>")
@@ -67,16 +71,34 @@ class Field:
             return self
         return _convert(self, basis)
 
+    def to_lense(self):
+        return self.to(lense_basis(self.basis))
+
+    def to_deriv(self):
+        return self.to(deriv_basis(self.basis))
+
     def to_harmonic(self):
         return self.to(harmonic_basis(self.basis))
 
     # --- component access ------------------------------------------------
     def __getitem__(self, k):
-        """f['I'], f['E'] or f['B']: a spin-0 sub-field, converting to a
-        Fourier EB basis where needed."""
+        """f['I'], f['Q'], f['U'], f['E'] or f['B']: a spin-0 sub-field,
+        converting to a QU or a Fourier EB basis where needed; f['P'] the
+        spin-2 part of a spin-(0,2) field, f['IP'] the field itself."""
+        if not isinstance(k, str):
+            raise TypeError("index fields with component names like f['E']")
         pol, space = self.basis.pol, self.basis.space
+        if k == "P" and pol in ("IQU", "IEB"):
+            return Field(self.arr[..., 1:, :, :], Basis(pol[1:], space), self.proj)
+        if k == "IP":
+            return self
         if k == "I" and pol in ("I", "IQU", "IEB"):
             return Field(self.arr[..., 0:1, :, :], Basis("I", space), self.proj)
+        if k in ("Q", "U") and pol != "I":
+            target = self if pol in ("QU", "IQU") else self.to(
+                self.basis.with_pol("QU" if pol == "EB" else "IQU"))
+            i = (0 if target.basis.pol == "QU" else 1) + "QU".index(k)
+            return Field(target.arr[..., i:i + 1, :, :], Basis("I", target.basis.space), self.proj)
         if k in ("E", "B") and pol != "I":
             if pol in ("EB", "IEB"):
                 target = self
@@ -141,6 +163,10 @@ class Field:
 
     def conj(self):
         return Field(torch.conj(self.arr), self.basis, self.proj)
+
+    def flatten(self):
+        """The array with its non-batch axes flattened: (*batch, -1)."""
+        return self.arr.reshape(self.batch_shape + (-1,))
 
 
 def batch_broadcast(x, f: Field):
@@ -237,8 +263,10 @@ def white_noise_like(generator, f: Field, batch_shape=None) -> Field:
     return randn(generator, f.proj, f.basis.pol, bs)
 
 
-def zeros_like_field(f: Field) -> Field:
-    return Field(torch.zeros_like(f.arr), f.basis, f.proj)
+def zeros_like_field(f):
+    """Zeros in f's basis and shape. Duck-typed over (arr, basis, proj), so
+    that the inference stack takes an EquiRectField as it takes a Field."""
+    return type(f)(torch.zeros_like(f.arr), f.basis, f.proj)
 
 
 # --- reductions -----------------------------------------------------------

@@ -1,7 +1,9 @@
 """Linear operators on fields.
 
-Counterpart of ``cmblensing_tpu/core/ops.py`` for what pol I, P and IP
-need.
+Counterpart of ``cmblensing_tpu/core/ops.py``: the identity, diagonal
+and T/E/B block operators, scaled and lazily composed operators, operators
+of functions (FuncOp), parameter-dependent operators, the pass filters,
+the gradient operators, logdet, trace and simulation.
 Operator protocol (duck-typed):
 
     op @ f        apply
@@ -52,7 +54,75 @@ def safe_log_abs(x):
 # Identity
 # =========================================================================
 
-class _Identity:
+def _is_scalar(x):
+    """A number, or a 0- or 1-d tensor (a per-batch scalar)."""
+    return (isinstance(x, (int, float, np.floating, np.integer))
+            or (isinstance(x, torch.Tensor) and x.ndim in (0, 1)))
+
+
+def _as_op(x):
+    """x as an operator: a number becomes x times the identity."""
+    if isinstance(x, (int, float)):
+        return Scaled(x, Id)
+    return x
+
+
+class OpAlgebra:
+    """Base of the field operators: sums, differences and products with
+    other operators are lazy (LazyOp), with numbers they scale (Scaled);
+    evaluating one at parameters is a no-op unless it is a
+    ParamDependentOp."""
+
+    def __add__(self, other):
+        return LazyOp("+", self, _as_op(other))
+
+    def __radd__(self, other):
+        return LazyOp("+", _as_op(other), self)
+
+    def __sub__(self, other):
+        return LazyOp("-", self, _as_op(other))
+
+    def __rsub__(self, other):
+        return LazyOp("-", _as_op(other), self)
+
+    def __mul__(self, other):
+        if _is_scalar(other):
+            return Scaled(other, self)
+        if isinstance(other, Field):
+            raise TypeError("operators apply to Fields with '@' (op @ f); '*' composes operators")
+        return LazyOp("*", self, other)
+
+    def __rmul__(self, other):
+        if _is_scalar(other):
+            return Scaled(other, self)
+        if isinstance(other, Field):
+            raise TypeError("operators apply to Fields with '@' (op @ f); '*' composes operators")
+        return LazyOp("*", other, self)
+
+    def __truediv__(self, other):
+        if isinstance(other, (int, float)):
+            return Scaled(1.0 / other, self)
+        return NotImplemented
+
+    def __neg__(self):
+        return Scaled(-1.0, self)
+
+    def __pow__(self, n: int):
+        if not isinstance(n, int):
+            raise TypeError("an operator's power is an int")
+        if n == 0:
+            return Id
+        base = self if n > 0 else self.pinv()
+        out = base
+        for _ in range(abs(n) - 1):
+            out = LazyOp("*", out, base)
+        return out
+
+    def __call__(self, theta=None, **kw):
+        return self
+
+
+class _Identity(OpAlgebra):
     """Singleton identity operator."""
 
     def __matmul__(self, f):
@@ -71,8 +141,14 @@ class _Identity:
     def pinv(self):
         return self
 
-    def __call__(self, theta=None, **kw):
-        return self
+    inv = pinv
+
+    def __mul__(self, other):
+        if _is_scalar(other):
+            return Scaled(other, self)
+        return other
+
+    __rmul__ = __mul__
 
     def __repr__(self):
         return "Id"
@@ -81,13 +157,6 @@ class _Identity:
 Identity = _Identity
 Id = _Identity()
 
-
-class OpAlgebra:
-    """Base of the field operators: evaluating one at parameters is a
-    no-op unless it is a ParamDependentOp."""
-
-    def __call__(self, theta=None, **kw):
-        return self
 
 
 # =========================================================================
@@ -131,17 +200,30 @@ class Diag(OpAlgebra):
     def pinv(self):
         return Diag(Field(safe_reciprocal(self.diag.arr), self.basis, self.proj))
 
+    inv = pinv
+
     def __mul__(self, other):
-        """The product of two Diags in one basis."""
+        """The product of two Diags in one basis; a BlockDiagIEB forms its
+        own (its __rmul__), anything else composes lazily."""
         if isinstance(other, Diag) and other.basis == self.basis:
             return Diag(Field(self.diag.arr * other.diag.arr, self.basis, self.proj))
-        return NotImplemented
+        if isinstance(other, BlockDiagIEB):
+            return NotImplemented
+        return super().__mul__(other)
 
     def __add__(self, other):
-        """The sum of two Diags in one basis."""
+        """The sum of two Diags in one basis; a BlockDiagIEB forms its own
+        (its __radd__), anything else sums lazily."""
         if isinstance(other, Diag) and other.basis == self.basis:
             return Diag(Field(self.diag.arr + other.diag.arr, self.basis, self.proj))
-        return NotImplemented
+        if isinstance(other, BlockDiagIEB):
+            return NotImplemented
+        return super().__add__(other)
+
+    def __sub__(self, other):
+        if isinstance(other, Diag) and other.basis == self.basis:
+            return Diag(Field(self.diag.arr - other.diag.arr, self.basis, self.proj))
+        return super().__sub__(other)
 
     def __getitem__(self, k):
         return Diag(self.diag[k])
@@ -266,6 +348,8 @@ class BlockDiagIEB(OpAlgebra):
             return self
         if isinstance(other, OpAlgebra):
             return LazyOp("*", self, other)
+        if _is_scalar(other):
+            return Scaled(other, self)
         return NotImplemented
 
     def __rmul__(self, other):
@@ -276,6 +360,8 @@ class BlockDiagIEB(OpAlgebra):
             return self
         if isinstance(other, OpAlgebra):
             return LazyOp("*", other, self)
+        if _is_scalar(other):
+            return Scaled(other, self)
         return NotImplemented
 
     def __add__(self, other):
@@ -285,15 +371,15 @@ class BlockDiagIEB(OpAlgebra):
         if o is not None:
             tt, te, et, ee, bb = (a + b for a, b in zip(self._blocks(), o))
             return self._of(tt, te, ee, bb, et)
-        if isinstance(other, (OpAlgebra, _Identity)):
-            return LazyOp("+", self, other)
+        if isinstance(other, (OpAlgebra, int, float)):
+            return LazyOp("+", self, _as_op(other))
         return NotImplemented
 
     def __radd__(self, other):
         if self._ieb(other) is not None:
             return self + other
-        if isinstance(other, (OpAlgebra, _Identity)):
-            return LazyOp("+", other, self)
+        if isinstance(other, (OpAlgebra, int, float)):
+            return LazyOp("+", _as_op(other), self)
         return NotImplemented
 
     def __repr__(self):
@@ -313,11 +399,15 @@ class Scaled(OpAlgebra):
 
     def __matmul__(self, f):
         g = self.op @ f
-        return Field(batch_broadcast(self.scalar, g) * g.arr, g.basis, g.proj)
+        if isinstance(g, Field):
+            return Field(batch_broadcast(self.scalar, g) * g.arr, g.basis, g.proj)
+        return self.scalar * g
 
     def solve(self, f):
         g = self.op.solve(f)
-        return Field(g.arr / batch_broadcast(self.scalar, g), g.basis, g.proj)
+        if isinstance(g, Field):
+            return Field(g.arr / batch_broadcast(self.scalar, g), g.basis, g.proj)
+        return g / self.scalar
 
     @property
     def H(self):
@@ -331,6 +421,8 @@ class Scaled(OpAlgebra):
 
     def pinv(self):
         return Scaled(1.0 / self.scalar, self.op.pinv())
+
+    inv = pinv
 
     def __repr__(self):
         return f"({self.scalar} * {self.op!r})"
@@ -375,8 +467,49 @@ class LazyOp(OpAlgebra):
             return LazyOp("*", self.Y.pinv(), self.X.pinv())
         raise ValueError(f"can't invert lazy '{self.kind}' op")
 
+    inv = pinv
+
     def __repr__(self):
         return f"({self.X!r} {self.kind} {self.Y!r})"
+
+
+# =========================================================================
+# FuncOp
+# =========================================================================
+
+class FuncOp(OpAlgebra):
+    """An operator given by functions: op (apply), opH (the adjoint), opinv
+    (the inverse) and opinvH (the inverse's adjoint), each optional."""
+
+    def __init__(self, op=None, opH=None, opinv=None, opinvH=None):
+        self.op = op
+        self.opH = opH
+        self.opinv = opinv
+        self.opinvH = opinvH
+
+    def __matmul__(self, f):
+        if self.op is None:
+            raise ValueError("op @ f not implemented")
+        return self.op(f)
+
+    def solve(self, f):
+        if self.opinv is None:
+            raise ValueError("op.solve(f) not implemented")
+        return self.opinv(f)
+
+    @property
+    def H(self):
+        return FuncOp(self.opH, self.op, self.opinvH, self.opinv)
+
+    def inv(self):
+        return FuncOp(self.opinv, self.opinvH, self.op, self.opH)
+
+    pinv = inv
+
+
+def SymmetricFuncOp(op=None, opinv=None):
+    """A self-adjoint FuncOp."""
+    return FuncOp(op, op, opinv, opinv)
 
 
 # =========================================================================
@@ -428,6 +561,8 @@ class ParamDependentOp(OpAlgebra):
 
     def pinv(self):
         return self.fiducial.pinv()
+
+    inv = pinv
 
     def __getitem__(self, k):
         return self.fiducial[k]
@@ -485,15 +620,107 @@ class BandPass:
         arr = np.broadcast_to(W[None], (b.ncomp,) + W.shape).copy()
         return Diag(Field(torch.as_tensor(arr, device=proj.device), b, proj))
 
+    def __call__(self, ell):
+        return np.interp(np.asarray(ell, dtype=np.float64), self.ell, self.Wl, left=0.0, right=0.0)
+
 
 
 def _cos_ramp_up(n):
     return (np.cos(np.linspace(np.pi, 0, n)) + 1) / 2
 
 
+def _cos_ramp_down(n):
+    return 1 - _cos_ramp_up(n)
+
+
+def HighPass(ell, dl=50):
+    """1 above ell + dl, a cosine ramp from 0 at ell up to it."""
+    return BandPass(np.arange(ell, 20001),
+                    np.concatenate([_cos_ramp_up(dl), np.ones(20000 - ell - dl + 1)]))
+
+
 def LowPass(ell, dl=50):
+    """1 below ell - dl, a cosine ramp down to 0 at ell."""
     return BandPass(np.arange(0, ell + 1),
-                    np.concatenate([np.ones(ell - dl + 1), 1 - _cos_ramp_up(dl)]))
+                    np.concatenate([np.ones(ell - dl + 1), _cos_ramp_down(dl)]))
+
+
+def MidPass(lmin, lmax, dl=50):
+    """1 between lmin + dl and lmax - dl, cosine ramps to 0 at both ends."""
+    return BandPass(np.arange(lmin, lmax + 1),
+                    np.concatenate([_cos_ramp_up(dl), np.ones(lmax - lmin - 2 * dl + 1),
+                                    _cos_ramp_down(dl)]))
+
+
+def MidPasses(ledges, dl=10):
+    """A MidPass for each bin of `ledges`, widened by dl / 2 each side."""
+    return [MidPass(lo - dl // 2, hi + dl // 2, dl=dl) for lo, hi in zip(ledges[:-1], ledges[1:])]
+
+
+# =========================================================================
+# Derivative operators
+# =========================================================================
+
+def _ilx(proj):
+    return (1j * proj.tensor("lx"))[None, :]
+
+
+def _ily(proj):
+    return (1j * proj.tensor("ly"))[:, None]
+
+
+def grad_x(f: Field) -> Field:
+    """d/dx, in the derivative basis."""
+    g = f.to_deriv()
+    return Field(g.arr * _ilx(g.proj), g.basis, g.proj)
+
+
+def grad_y(f: Field) -> Field:
+    """d/dy, in the derivative basis."""
+    g = f.to_deriv()
+    return Field(g.arr * _ily(g.proj), g.basis, g.proj)
+
+
+def _neg_grad_x(f):
+    return -grad_x(f)
+
+
+def _neg_grad_y(f):
+    return -grad_y(f)
+
+
+_GRADIENT_OPS = (FuncOp(op=grad_x, opH=_neg_grad_x), FuncOp(op=grad_y, opH=_neg_grad_y))
+
+
+def gradient_ops(proj=None):
+    """(d/dx, d/dy) as FuncOps; the adjoint of each is its negative."""
+    return _GRADIENT_OPS
+
+
+def gradient(f: Field):
+    """(df/dx, df/dy) in the derivative basis."""
+    g = f.to_deriv()
+    return (Field(g.arr * _ilx(g.proj), g.basis, g.proj),
+            Field(g.arr * _ily(g.proj), g.basis, g.proj))
+
+
+def gradhess(f: Field):
+    """((gx, gy), ((gxx, gxy), (gxy, gyy))), Fields in the derivative
+    basis."""
+    g = f.to_deriv()
+    ilx, ily = _ilx(g.proj), _ily(g.proj)
+    gx = Field(g.arr * ilx, g.basis, g.proj)
+    gy = Field(g.arr * ily, g.basis, g.proj)
+    gxx = Field(gx.arr * ilx, g.basis, g.proj)
+    gxy = Field(gx.arr * ily, g.basis, g.proj)
+    gyy = Field(gy.arr * ily, g.basis, g.proj)
+    return (gx, gy), ((gxx, gxy), (gxy, gyy))
+
+
+def laplacian(f: Field) -> Field:
+    g = f.to_deriv()
+    l2 = g.proj.tensor("lx")[None, :] ** 2 + g.proj.tensor("ly")[:, None] ** 2
+    return Field(-g.arr * l2, g.basis, g.proj)
 
 
 # =========================================================================
@@ -561,6 +788,23 @@ def _diag_field_of(op):
         f = _diag_field_of(op.op)
         return Field(batch_broadcast(op.scalar, f) * f.arr, f.basis, f.proj)
     raise TypeError(type(op))
+
+
+def tr(op):
+    """The trace of a Diag, per batch (rfft degeneracy weights in
+    Fourier)."""
+    if isinstance(op, Diag):
+        d = op.diag
+        if d.basis.is_fourier:
+            return torch.sum(torch.real(d.arr * d.proj.tensor("lam_rfft")), dim=(-1, -2, -3))
+        return torch.sum(d.arr, dim=(-1, -2, -3))
+    raise TypeError(type(op))
+
+
+def diag_field(op):
+    """The diagonal of a Diag, BlockDiagIEB, ParamDependentOp or Scaled
+    operator, as a Field."""
+    return _diag_field_of(op)
 
 
 def simulate_op(generator, op, batch_shape=()):

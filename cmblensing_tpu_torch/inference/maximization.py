@@ -121,10 +121,15 @@ def _eager_chain_mul(*ops):
 def hessian_f_preconditioner(ds: DataSet):
     """pinv(Cf) + B' M' pinv(Cn_hat) M B from the Fourier-diagonal
     approximations (reference Hessian_logpdf_preconditioner): Diags, or
-    BlockDiagIEBs at pol IP, composed mode by mode."""
+    BlockDiagIEBs at pol IP, composed mode by mode; for curved-sky
+    BlockDiagEquiRect covariances, pinv(Cf) + pinv(Cn_hat) block by
+    block."""
     Cf = _fid(ds.Cf)
     Bh, Mh, Cnh = _fid(ds.B_hat), _fid(ds.M_hat), _fid(ds.Cn_hat)
-    return Cf.pinv() + _eager_chain_mul(Bh.H, Mh.H, Cnh.pinv(), Mh, Bh)
+    term = _eager_chain_mul(Bh.H, Mh.H, Cnh.pinv(), Mh, Bh)
+    if isinstance(term, _Identity):
+        term = Cnh.pinv()
+    return Cf.pinv() + term
 
 
 def hessian_phimix_preconditioner(ds: DataSet):
@@ -179,10 +184,16 @@ def argmaxf_logpdf(ds: DataSet, phi=None, theta=None, d=None, fstart=None,
 
 def _argmaxf_core(ds, theta, phi, d, fstart, offset, hessian_precision=None, **cg):
     precond = hessian_f_preconditioner(ds)
-    dfield = _diag_field_of(ds.Cf)
-    zero_f = zeros_like_field(dfield).to(dfield.basis.with_space("map"))
-    if d.batch_shape:
-        zero_f = repeat_batch(zero_f, d.batch_shape[0])
+    Cf = _fid(ds.Cf)
+    if hasattr(Cf, "zero_field"):
+        # an operator that knows its map-space domain (BlockDiagEquiRect):
+        # curved-sky fields run through this same solve
+        zero_f = Cf.zero_field(d.batch_shape)
+    else:
+        dfield = _diag_field_of(Cf)
+        zero_f = zeros_like_field(dfield).to(dfield.basis.with_space("map"))
+        if d.batch_shape:
+            zero_f = repeat_batch(zero_f, d.batch_shape[0])
     zero_d = zeros_like_field(d)
     # gradientf(f, d) = b - H f with H SPD: b = gradientf(0, d) and
     # H f = -(gradientf(f, 0) - a0); with a Hessian precision, b, a0 and
@@ -222,7 +233,8 @@ def sample_f(generator, ds: DataSet, phi=None, theta=None, d=None, **kwargs):
     if d is None:
         d = ds.d
     with torch.no_grad():
-        sim = ds.simulate(generator, theta=theta, phi=phi)
+        sim = (ds.simulate(generator, theta=theta) if phi is None
+               else ds.simulate(generator, theta=theta, phi=phi))
     df, info = argmaxf_logpdf(ds, phi=phi, theta=theta, d=d - sim["d"], offset=True, **kwargs)
     return sim["f"] + df.to(sim["f"].basis), info
 

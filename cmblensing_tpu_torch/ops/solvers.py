@@ -16,6 +16,7 @@ import time
 import torch
 
 from ..core.field import Field, dot as field_dot
+from ..core.proj_equirect import EquiRectField, coef_dot
 
 
 def _tmap(fn, *trees):
@@ -34,18 +35,24 @@ def _leaves(tree):
 
 def tree_dot(a, b):
     """Inner product summed over the leaves of a and b: the field dot
-    for Fields (per batch entry for batched Fields), the real part of the
-    conjugate product's sum for tensors."""
+    for Fields (per batch entry for batched Fields), the coefficient dot
+    (proj_equirect.coef_dot, per batch entry) for EquiRectFields, the real
+    part of the conjugate product's sum for tensors."""
     tot = None
     for xa, xb in zip(_leaves(a), _leaves(b)):
-        d = field_dot(xa, xb) if isinstance(xa, Field) else torch.sum(torch.real(torch.conj(xa) * xb))
+        if isinstance(xa, Field):
+            d = field_dot(xa, xb)
+        elif isinstance(xa, EquiRectField):
+            d = coef_dot(xa, xb)
+        else:
+            d = torch.sum(torch.real(torch.conj(xa) * xb))
         tot = d if tot is None else tot + d
     return tot
 
 
 def _bb(s, leaf):
     """A per-batch scalar s shaped to broadcast against the leaf's array."""
-    arr = leaf.arr if isinstance(leaf, Field) else leaf
+    arr = getattr(leaf, "arr", leaf)
     if not isinstance(s, torch.Tensor) or s.ndim == 0:
         return s
     return s.reshape(s.shape + (1,) * (arr.ndim - s.ndim))
@@ -59,16 +66,16 @@ def _axpy(a, x, y):
 def _where(cond, a, b):
     """a where cond, else b, cond per batch entry."""
     def one(ai, bi):
-        if isinstance(ai, Field):
+        if hasattr(ai, "arr"):
             bi = bi.to(ai.basis)
-            return Field(torch.where(_bb(cond, ai), ai.arr, bi.arr), ai.basis, ai.proj)
+            return type(ai)(torch.where(_bb(cond, ai), ai.arr, bi.arr), ai.basis, ai.proj)
         return torch.where(_bb(cond, ai), ai, bi)
     return _tmap(one, a, b)
 
 
 def _zeros_like(tree):
-    return _tmap(lambda t: Field(torch.zeros_like(t.arr), t.basis, t.proj)
-                 if isinstance(t, Field) else torch.zeros_like(t), tree)
+    return _tmap(lambda t: type(t)(torch.zeros_like(t.arr), t.basis, t.proj)
+                 if hasattr(t, "arr") else torch.zeros_like(t), tree)
 
 
 def rk4_integrate(F, y0, t0, t1, nsteps: int):
@@ -155,12 +162,12 @@ def conjugate_gradient(M, A, b, x0=None, nsteps=500, tol=1e-1, fixed_iters=False
 
 
 def _stack_nan(xs, n):
-    """Tensors or Fields xs stacked along a new leading axis, padded with
-    NaN to n entries (Fields in the first one's basis)."""
-    if isinstance(xs[0], Field):
+    """Tensors or fields xs stacked along a new leading axis, padded with
+    NaN to n entries (fields in the first one's basis)."""
+    if hasattr(xs[0], "arr"):
         f0 = xs[0]
         arr = _stack_nan([x.to(f0.basis).arr for x in xs], n)
-        return Field(arr, f0.basis, f0.proj)
+        return type(f0)(arr, f0.basis, f0.proj)
     pad = [torch.full_like(xs[0], float("nan"))] * (n - len(xs))
     return torch.stack(list(xs) + pad)
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``cmblensing_tpu/utils/spectra.py`` (reference get_Cℓ,
 src/proj_lambert.jl:470-513), without JAX: the field's Fourier
-coefficients are fetched from its device once, unfolded to the full
-plane and binned with numpy.
+coefficients are unfolded to the full plane on its device, fetched once
+and binned with numpy.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import numpy as np
 
 from ..core.basis import FOURIER
 from ..core.field import Field
+from ..ops.fft import unfold
 from .cls import Cls
 
 
@@ -21,25 +22,12 @@ def _full_plane_lmag(proj):
     return np.sqrt(lx[None, :] ** 2 + ly[:, None] ** 2)
 
 
-def unfold(X, Nx):
-    """The full (..., Ny, Nx) plane of a half-plane rfft2 array (..., Ny,
-    Nx//2+1) by conjugate symmetry: the entry at (ky, kx > Nx/2) is the
-    conjugate of the one at (-ky, Nx - kx)."""
-    if Nx // 2 + 1 != X.shape[-1]:
-        raise ValueError(f"a half plane of {X.shape[-1]} columns does not unfold to {Nx}")
-    rest = X[..., :, 1:-1] if Nx % 2 == 0 else X[..., :, 1:]
-    rest = np.conj(rest[..., ::-1])
-    rest = np.concatenate([rest[..., :1, :], rest[..., 1:, :][..., ::-1, :]], axis=-2)
-    return np.concatenate([X, rest], axis=-1)
-
-
 def _spin0_fourier_full(f: Field):
     """The full-plane Fourier coefficients of a spin-0 field, on the host."""
     g = f.to(FOURIER) if f.basis.pol == "I" else f
-    arr = g.arr.detach().cpu().numpy()
-    if arr.shape[-3] != 1:
+    if g.arr.shape[-3] != 1:
         raise ValueError("get_Cl takes one component: index it first, e.g. f['E']")
-    return unfold(arr[..., 0, :, :], f.proj.Nx)
+    return unfold(g.arr.detach()[..., 0, :, :], f.proj.Nx).cpu().numpy()
 
 
 def get_Cl(f1: Field, f2: Field = None, dl=50, ledges=None, Clfid=None, err_estimate=False):
@@ -90,3 +78,10 @@ def bandpower_corr(f1: Field, f2: Field, ledges):
     cx, c1, c2 = get_Cl(f1, f2, ledges=ledges), get_Cl(f1, ledges=ledges), get_Cl(f2, ledges=ledges)
     with np.errstate(invalid="ignore", divide="ignore"):
         return cx.ell, cx.Cl / np.sqrt(c1.Cl * c2.Cl)
+
+
+def get_Dl(*args, **kwargs):
+    """`get_Cl` in the Dl = ell (ell + 1) Cl / 2 pi convention (that of
+    toDl in utils/cls.py)."""
+    cl = get_Cl(*args, **kwargs)
+    return Cls(cl.ell, cl.ell * (cl.ell + 1) * cl.Cl / (2 * np.pi))

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
+import tempfile
 import time
 from collections import defaultdict
 
@@ -82,3 +84,19 @@ def timer_report(since=None):
 
 def reset_timers():
     _timers.clear()
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir=None):
+    """torch.profiler over the block (the host, and CUDA where it is in
+    use), its Chrome trace written to `logdir`/trace.json (logdir: a
+    "torch-trace" folder in the temporary directory unless given). Yields
+    the profiler; its key_averages() give the per-operator totals."""
+    logdir = logdir or os.path.join(tempfile.gettempdir(), "torch-trace")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -159,7 +159,14 @@ def test_irfft2_takes_the_hermitian_part_of_self_conjugate_columns(Ny, Nx):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, cmblensing_tpu_torch\n"
+    """Every module of the port, those its __init__ does not load (e.g.
+    utils/plotting.py) too, imports neither jax nor the JAX package."""
+    code = ("import importlib, pkgutil, sys, cmblensing_tpu_torch\n"
+            "mods = [m.name for m in pkgutil.walk_packages(cmblensing_tpu_torch.__path__,"
+            " 'cmblensing_tpu_torch.')]\n"
+            "for m in mods:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'cmblensing_tpu_torch.utils.plotting' in mods, mods\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('cmblensing_tpu.') or m == 'cmblensing_tpu']\n"
             "assert not bad, bad\n")

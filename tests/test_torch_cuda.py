@@ -1744,3 +1744,44 @@ def test_batched_MAP_joint_step_and_muse_score_kernel_match_plain_on_card():
     assert k["phi"].batch_shape == (2,) and sk.shape == (2, 2)
     assert np.array_equal(k["history"][0]["alpha"], p["history"][0]["alpha"])
     assert max(errs.values()) < ENSEMBLE_PLAIN_TOL, errs
+
+
+@pytest.mark.cuda
+def test_curved_sky_on_card_matches_cpu():
+    """The curved sky (no kernel of its own) on the card against the CPU on
+    the same inputs: EquiRect blocks past |m| = 1024 (16 x 64, lmax 1100),
+    their Wiener filter, and HEALPix projection both ways (nside 32 <-> an
+    8 x 8 patch at 4 degrees; 'fft' through the NUFFT's scatter-add, whose
+    order the card does not fix)."""
+    _card()
+    from cmblensing_tpu_torch.core import proj_healpix as TH
+    ell = np.arange(1101)
+    CE = ct.Cls(ell, np.where(ell >= 2, 1.0 / (ell + 1.0) ** 2, 0.0))
+    CB = ct.Cls(ell, np.where(ell >= 2, 0.3 / (ell + 1.0) ** 2, 0.0))
+    span = dict(theta_span=(1.2, 1.8), phi_span=(0, 2 * np.pi))
+    for pol, cls in (("I", (CE,)), ("P", (CE, CB))):
+        C = {dev: ct.Cl_to_Cov_EquiRect(pol, ct.ProjEquiRect(Ny=16, Nx=64, **span, device=dev),
+                                        *cls, lmax=1100) for dev in ("cuda", "cpu")}
+        assert bool(torch.isfinite(C["cuda"].blocks).all())
+        assert rel(C["cuda"].blocks.cpu(), C["cpu"].blocks) < 1e-6
+        d = C["cpu"].simulate(3)
+        fw = {}
+        for dev, Cd in C.items():
+            n = 1e-4 * float(Cd.blocks.abs().max())
+            Cn = ct.BlockDiagEquiRect(n * torch.eye(Cd.blocks.shape[-1], dtype=Cd.blocks.dtype,
+                                                    device=dev).expand_as(Cd.blocks).contiguous(),
+                                      Cd.basis, Cd.proj)
+            ds = ct.NoLensingDataSet(d=ct.EquiRectField(d.arr.to(dev), d.basis, Cd.proj),
+                                     Cf=Cd, Cn=Cn, Cn_hat=Cn)
+            fw[dev] = ct.argmaxf_logpdf(ds, conjgrad_kwargs=dict(tol=1e-6, nsteps=200))[0]
+        assert rel(fw["cuda"].arr.cpu(), fw["cpu"].to(fw["cuda"].basis).arr) < 1e-4
+    hpx = TH.ProjHealpix(32)
+    th, ph = TH.hp.pix2ang_ring(32, np.arange(hpx.npix))
+    m = np.stack([np.cos(th), 0.5 * np.sin(th) * np.sin(ph)]).astype(np.float32)
+    for method, tol in (("bilinear", 1e-5), ("fft", 1e-4)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            proj = ct.ProjLambert(8, 8, thetapix=240, T=np.float32, device=dev)
+            flat = ct.project(ct.HealpixField.from_map(m, pol="QU", device=dev), proj, method=method)
+            out[dev] = (flat.arr.cpu(), ct.project(flat, hpx, method=method).arr.cpu())
+        assert rel(out["cuda"][0], out["cpu"][0]) < tol and rel(out["cuda"][1], out["cpu"][1]) < tol
