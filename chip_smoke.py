@@ -566,6 +566,63 @@ HPX_WAVE_LMAX = {False: 600, True: 100}
 # the round trip sphere -> grid -> sphere of a smooth map (l <= 600), rel rms
 HPX_RT_RMS = {"bilinear": 0.05, "fft": 0.05}
 UD_TOL = 1e-5
+# phase 23: the parallel layer (cmblensing_tpu_torch/parallel/). (a) NCCL at
+# one rank in this process: the 1024^2 P sharded flows (L, L^H, delta phi)
+# and the sharded Wiener filter (CG PAR_CG) against the unsharded port,
+# each plane within FLOW_TOL (delta phi GRAD_TOL, the Wiener filter
+# PAR_ONE_WF_TOL: the same CG over flows that agree to FLOW_TOL). (b)
+# PAR_RANKS ranks sharing the card over gloo (host-staged: a check of the
+# decomposition, not a multi-card time): the 4096^2 P flows and delta phi
+# (K1 on every block) and the 256^2 P ones (K2's derivative: the blocks
+# fit no radix) against the unsharded kernel path, FLOW_TOL and GRAD_TOL
+# (PERF.md §2's bounds for the kernels against plain and the kernel-path
+# gradient); the 1024^2 P Wiener filter within PAR_WF_TOL (CG PAR_CG
+# amplifies the flows' 1e-5, as WF_PLAIN_TOL's 20 iterations do) and
+# PAR_MAP_STEPS sharded_MAP_joint steps against MAP_joint (strict): the
+# same alphas, logpdfs within STEP_TOL (phase 13's kernel-vs-plain MAP
+# step), finite and non-decreasing, phi within PAR_MAP_UN_TOL relative L2
+# of MAP_joint's: between the sound reading, 2.27e-3, and 9.7e-3, that of
+# a map-space CG that lost float32 accuracy (PERF.md §6). The JAX
+# package's bound, PAR_MAP_TOL (tests/test_sharded_fft.py, 32^2), and
+# each run's distance to MAP_joint in float64 on the plain backend are
+# printed: at 1024^2 both float32 runs lie 1.4e-2 from the float64 one.
+# (c) BASELINE.json configs[4]'s ensembles with mesh= over PAR_RANKS
+# ranks, each against two unsharded runs from the same seeds: the whole
+# ensemble in one batch (the unsharded entry point), and the ensemble in
+# PAR_RANKS batches of a rank's size in this process (par_halves_*: the
+# witness of what batch size alone does to float32 rounding). The
+# sharded run must match the batches within PAR_HALVES_TOL, relative to
+# the largest entry; its distance to the one-batch run is printed beside
+# the batches' own. MUSE at phase 20's settings: the data score and step
+# 1's mean simulation score within PAR_ENS_TOL of the one-batch run, step
+# 1's per-sim scores and H (muse's finite differences, the Newton step's
+# matrix) within PAR_HALVES_TOL of the batches'; theta and the pulls
+# after the capped Newton steps printed (H's finite differences of
+# batched MAPs, cond(H) 6.2e4, turn batch-size rounding into steps of
+# other signs, PERF.md §6), each run's pulls under MUSE_PULL_MAX. One
+# sample_joint pass at phase 19's settings, always accepted: f, phi,
+# logpdf and dH within PAR_HALVES_TOL of the batches', the same accepts
+# as both runs; PAR_ENS_TOL against the one-batch pass printed (phase 19
+# (c)'s measure: max-abs over every sim). PAR_MARG_STEPS MAP_marg steps
+# at phase 20's settings: step 1's phi within PAR_HALVES_TOL of the
+# batches', the last phi within PAR_MARG_TOL of the one-batch run's (its
+# steps move phi along g_data - gbar, two gradients of norm ~1.3e9 that
+# cancel: 1.9e-4 measured). Each part's launches are counted per rank
+# (rank 0's recorded); PAR_PATH_KERNELS lists what each path must launch.
+PAR_RANKS, PAR_FLOW_N, PAR_MAP_STEPS, PAR_MARG_STEPS = 2, 4096, 2, 2
+PAR_FLOW_SIMS = ((PAR_FLOW_N, THETAPIX_MAP), (N, 3))   # (Nside, thetapix) of (b)'s flows
+PAR_CG = dict(tol=0.0, nsteps=15, fixed_iters=True)
+PAR_ONE_WF_TOL, PAR_WF_TOL, PAR_MAP_TOL, PAR_ENS_TOL = 1e-5, 1e-4, 1e-4, 1e-4
+PAR_MAP_UN_TOL, PAR_MARG_TOL, PAR_HALVES_TOL = 5e-3, 1e-3, 1e-6
+PAR_TIMEOUT, PAR_BUDGET_S = 900, 150
+PAR_PATH_KERNELS = {
+    "one_rank_flows_1024": ("fderiv", "rk4_update", "p_planes"),
+    "sharded_flows_4096_rank0": ("fderiv", "rk4_update", "p_planes"),
+    "sharded_flows_256_rank0": ("deriv", "rk4_update", "p_planes"),
+    "sharded_MAP_joint_1024_rank0": ("fderiv", "rk4_update", "p_planes"),
+    "muse_mesh_256x8_rank0": ENSEMBLE_KERNELS,
+    "sample_joint_mesh_512x32_rank0": SAMPLE_KERNELS,
+    "MAP_marg_mesh_256x16_rank0": ENSEMBLE_KERNELS}
 OPT_KERNELS = ("fderiv", "fa_velocity_forward", "fa_velocity_adjoint", "rk4_update", "p_planes",
                "fderiv_high", "fa_velocity_forward_high", "fa_velocity_adjoint_high",
                "bv_velocity_high")
@@ -1973,6 +2030,7 @@ def large_flows(torch, card, ctx):
 # one simulation), loaded once in a whole run by phase 13 and dropped by
 # phase 16, its last user
 SIM_CACHE = {}
+MUSE_CACHE = {}   # phase 20's MUSE run (par_muse_numbers), phase 23 (c)'s reference
 
 
 def large_sim(torch, card, N, phase=13, keep=False):
@@ -4700,6 +4758,7 @@ def phase_ensemble(torch, card):
     t_start = time.perf_counter()
     ds, sim, phi_data = muse_dataset(torch)
     res, muse_launches, bad, numbers = ensemble_muse(torch, card, ds)
+    MUSE_CACHE["ref"] = par_muse_numbers(res)   # phase 23 (c)'s unsharded reference
     theta = dict(Aphi_b=np.asarray(res["theta"]["Aphi_b"]))
     sims, bad_qe, qe_ms = ensemble_qe(torch, card, ds, theta, phi_data)
     bad.update(bad_qe)
@@ -5395,6 +5454,661 @@ def phase_curved(torch, card, sim=None):
     return timing
 
 
+# =========================================================================
+# phase 23: the parallel layer (cmblensing_tpu_torch/parallel/)
+# =========================================================================
+
+def par_rel_planes(a, b):
+    """The largest rel over the (leading axes flattened) planes."""
+    a, b = a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:])
+    return max(rel(x, y) for x, y in zip(a, b))
+
+
+def par_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def par_launches():
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    return {k: v for k, v in lfk.LAUNCHES.items() if v}
+
+
+def par_reset(torch):
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    from cmblensing_tpu_torch.parallel import mesh as pm
+    torch.cuda.synchronize()
+    lfk.reset_launches()
+    pm.reset_collective_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def par_read(torch, t0):
+    """(s since t0, launches, collective bytes, peak GiB) of a path."""
+    from cmblensing_tpu_torch.parallel import mesh as pm
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, par_launches(), dict(pm.COLLECTIVE_BYTES),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def par_sim(N, thetapix=THETAPIX_MAP, **kw):
+    import cmblensing_tpu_torch as ct
+    return ct.load_sim(thetapix=thetapix, Nside=N, pol="P", T=np.float32, seed=SEED,
+                       device=DEVICE, **kw)
+
+
+def par_flows(torch, mesh, phi, f):
+    """(L f, L^H f, delta phi of <v, L f>) of a y-sharded flow (v = f rolled
+    by 11 columns), and the path's numbers (par_read)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.parallel import spatial as sp
+    t0 = par_reset(torch)
+    phi_s, f_s = sp.shard_spatial(phi, mesh), sp.shard_spatial(f, mesh)
+    v_s = sp.shard_spatial(ct.Field(torch.roll(f.arr, 11, dims=-1), f.basis, f.proj), mesh)
+    L = ct.ShardedLenseFlow(phi_s, NSTEPS, mesh)
+    Lf, LHf = (L @ f_s).arr, (L.H @ f_s).arr
+    ps = phi_s.arr.clone().requires_grad_(True)
+    with torch.enable_grad():
+        lp = torch.sum(v_s.arr * (L(ct.Field(ps, phi.basis, phi.proj)) @ f_s).arr)
+        (g,) = torch.autograd.grad(lp, ps)
+    numbers = par_read(torch, t0)
+    return tuple(sp.gather_spatial(x, mesh) for x in (Lf, LHf, g)), numbers
+
+
+def par_flows_ref(torch, phi, f):
+    """par_flows' three results through the unsharded kernel path."""
+    import cmblensing_tpu_torch as ct
+    v = torch.roll(f.arr, 11, dims=-1)
+    L = ct.LenseFlow(phi, NSTEPS)
+    Lf, LHf = (L @ f).arr, (L.H @ f).arr
+    g = ct.fgrad(lambda p: torch.sum(v * (ct.LenseFlow(p, NSTEPS) @ f).arr))(phi).arr
+    return Lf, LHf, g
+
+
+def par_line(label, numbers, card, staged):
+    s, kinds, nbytes, peak = numbers
+    how = ("gloo, host-staged on one card: a check of the decomposition, not a multi-card time"
+           if staged else "NCCL, one rank")
+    return (f"{label}: {s:.3f} s; bytes sent by this rank {nbytes}; peak memory {peak:.2f} GiB; "
+            f"launches {kinds} ({how}) [{card}]")
+
+
+def par_rank_spatial(torch, rank, world, card, save):
+    """Phase 23 (b), one rank of `world` sharing the card over gloo: gloo's
+    take on CUDA tensors; the 4096^2 P flows and delta phi, the 256^2 P
+    flows (K2's derivative: blocks that fit no radix), the 1024^2 P
+    Wiener filter and PAR_MAP_STEPS sharded_MAP_joint steps. Rank 0 saves
+    the whole results (`save`) for the parent to hold to the unsharded
+    port."""
+    import torch.distributed as dist
+    import cmblensing_tpu_torch as ct
+    out, probe = {}, {}
+    collectives = (
+        ("all_to_all_single", lambda x: dist.all_to_all_single(torch.empty_like(x), x)),
+        ("all_reduce", lambda x: dist.all_reduce(x)),
+        ("all_gather", lambda x: dist.all_gather([torch.empty_like(x) for _ in range(world)], x)))
+    for name, fn in collectives:
+        try:
+            fn(torch.ones(4 * world, device=DEVICE))
+            torch.cuda.synchronize()
+            probe[name] = "takes CUDA tensors"
+        except Exception as e:   # the answer, not a failure: gloo's CUDA support
+            first = str(e).splitlines()[0][:120]
+            probe[name] = f"refuses CUDA tensors ({type(e).__name__}: {first})"
+        dist.barrier()
+    out["probe"] = probe
+    mesh = ct.spatial_mesh(device=DEVICE, backend="gloo")
+    for Nf, thetapix in PAR_FLOW_SIMS:
+        sim = par_sim(Nf, thetapix)
+        phi, f = sim["phi"].to(ct.MAP), sim["f"].to(ct.QU_MAP)
+        del sim
+        res, numbers = par_flows(torch, mesh, phi, f)
+        save(f"flows_{Nf}", res)
+        out[f"flows_{Nf}"] = dict(launches=numbers[1], line=par_line(
+            f"phase 23: (b) rank {rank}/{world} sharded flows {Nf}^2 P (L, L^H, delta phi)",
+            numbers, card, True))
+        del phi, f, res
+        torch.cuda.empty_cache()
+    sim = par_sim(N_MAP)
+    ds, phi = sim["ds"], sim["phi"].to(ct.MAP)
+    del sim
+    t0 = par_reset(torch)
+    fw, _ = ct.sharded_wiener_filter(ds, phi, mesh, nsteps=PAR_CG["nsteps"], tol=0.0,
+                                     fixed_iters=True)
+    wf_numbers = par_read(torch, t0)
+    save("wf", ct.gather_spatial(fw, mesh).arr)
+    t0 = par_reset(torch)
+    res = ct.sharded_MAP_joint(ds, mesh, nsteps=PAR_MAP_STEPS, cg_nsteps=PAR_CG["nsteps"],
+                               cg_tol=0.0, cg_fixed_iters=True)
+    map_numbers = par_read(torch, t0)
+    save("map_phi", ct.gather_spatial(res["phi"], mesh).arr)
+    out["map"] = dict(
+        line=par_line(f"phase 23: (b) rank {rank}/{world} sharded Wiener filter {N_MAP}^2 P "
+                      f"(CG {PAR_CG['nsteps']} fixed)", wf_numbers, card, True),
+        line2=par_line(f"phase 23: (b) rank {rank}/{world} sharded_MAP_joint {N_MAP}^2 P, "
+                       f"{PAR_MAP_STEPS} steps (CG {PAR_CG['nsteps']} fixed, strict)", map_numbers,
+                       card, True),
+        launches=map_numbers[1], history=[(float(h["logpdf"]), float(h["alpha"]))
+                                          for h in res["history"]])
+    return out
+
+
+def par_rank_ensemble(torch, rank, world, card, save):
+    """Phase 23 (c), one rank of `world` sharing the card over gloo:
+    BASELINE.json configs[4]'s ensembles split over the ranks with mesh=:
+    MUSE (phase 20's settings), one sample_joint pass at 512^2 P x 32 sims
+    (phase 19's settings, the pass always accepted as phase 19 (c)'s),
+    PAR_MARG_STEPS MAP_marg steps at 256^2 P x 16 sims (phase 20's)."""
+    import cmblensing_tpu_torch as ct
+    out = {}
+    mesh = ct.make_mesh(device=DEVICE, backend="gloo")
+    ds, _, _ = muse_dataset(torch)
+    t0 = par_reset(torch)
+    res = par_muse(torch, ds, mesh)
+    numbers = par_read(torch, t0)
+    out["muse"] = dict(res, launches=numbers[1], line=par_line(
+        f"phase 23: (c) rank {rank}/{world} muse(mesh=) {N_MUSE}^2 P x {MUSE_SIMS} sims "
+        f"({MUSE_SIMS // world} a rank)", numbers, card, True))
+    del ds
+    ds = par_sim(N_SAMPLE, Nbatch=SAMPLE_SIMS)["ds"]
+    t0 = par_reset(torch)
+    e = par_sample(torch, ds, mesh)
+    numbers = par_read(torch, t0)
+    save("sample", {k: e[k] for k in ("f", "phi", "logpdf", "accept", "dH")})
+    out["sample"] = dict(launches=numbers[1], line=par_line(
+        f"phase 23: (c) rank {rank}/{world} sample_joint(mesh=) one pass {N_SAMPLE}^2 P x "
+        f"{SAMPLE_SIMS} sims (N {SAMPLE_SYMP[0]['N']}, eps {SAMPLE_SYMP[0]['eps']}, CG 25 "
+        "fixed, always accepted)", numbers, card, True))
+    del ds, e
+    torch.cuda.empty_cache()
+    ds = par_marg_ds()
+    t0 = par_reset(torch)
+    phi, gn, phi1 = par_marg(torch, ds, mesh)
+    numbers = par_read(torch, t0)
+    save("marg", (phi.arr, phi1.arr))
+    out["marg"] = dict(launches=numbers[1], gradnorm=gn, line=par_line(
+        f"phase 23: (c) rank {rank}/{world} MAP_marg(mesh=) {PAR_MARG_STEPS} steps {N_MUSE}^2 P x "
+        f"{MARG_SIMS} sims", numbers, card, True))
+    return out
+
+
+def par_muse(torch, ds, mesh=None):
+    """Phase 20's MUSE run (mesh=None: unsharded): theta, pulls, and each
+    step's theta, s_data and sbar."""
+    import cmblensing_tpu_torch as ct
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    res = ct.muse(ds, dict(Aphi_b=np.ones(MUSE_BINS)), nsims=MUSE_SIMS, nsteps=MUSE_STEPS,
+                  generator=g, MAP_kwargs=MUSE_MAP, mesh=mesh)
+    return par_muse_numbers(res)
+
+
+def par_muse_numbers(res):
+    A = np.asarray(res["theta"]["Aphi_b"])
+    sig = np.sqrt(np.abs(np.diag(np.asarray(res["Sigma"]))))
+    return dict(theta=A.tolist(), pulls=((A - MUSE_TRUTH) / sig).tolist(),
+                steps=[dict(theta=np.asarray(h["theta"]["Aphi_b"]).tolist(),
+                            s_data=np.asarray(h["s_data"]).tolist(),
+                            sbar=np.asarray(h["sbar"]).tolist(), H=np.asarray(h["H"]).tolist())
+                       for h in res["history"]])
+
+
+def par_sample(torch, ds, mesh=None):
+    """One sample_joint pass at phase 19's settings, always accepted, as
+    phase 19 (c) holds the kernel backend to the plain one: the chain's
+    entry."""
+    import cmblensing_tpu_torch as ct
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(1)
+    c = ct.sample_joint(ds, 1, nchains=SAMPLE_SIMS, generator=g, symp_kwargs=SAMPLE_SYMP,
+                        nburnin_always_accept=1, conjgrad_kwargs=SAMPLE_CG, mesh=mesh)
+    return par_sample_entry(c[0][0])
+
+
+def par_sample_entry(e):
+    m = lambda x: x.to(x.basis.with_space("map")).arr.cpu()
+    return dict(f=m(e["f"]), phi=m(e["phi"]), logpdf=e["logpdf"].cpu(), accept=e["accept"].cpu(),
+                dH=e["dH"].cpu())
+
+
+def par_marg_ds():
+    sim = par_sim(N_MUSE, 3)
+    return sim["ds"].replace(d=sim["ds"].d.to(sim["ds"].d.basis.with_space("map")))
+
+
+def par_marg(torch, ds, mesh=None):
+    import cmblensing_tpu_torch as ct
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(1)
+    phi, hist = ct.MAP_marg(ds, generator=g, nsteps=PAR_MARG_STEPS, Nsims=MARG_SIMS,
+                            nsteps_with_meanfield_update=MARG_MF_STEPS, conjgrad_kwargs=MARG_CG,
+                            alpha=MARG_ALPHA, mesh=mesh)
+    return phi, [h["gradnorm"] for h in hist], hist[0]["phi"]
+
+
+# The witness of phase 23 (c): each ensemble's first step (a whole pass
+# for sample_joint) unsharded, in this process, with the ensemble in
+# PAR_RANKS batches of a rank's size: each batch runs on its entries of
+# the whole ensemble's draws, as a rank does, and the batches' results
+# are joined as the ranks' are; only the collectives are missing.
+
+def par_batches(total):
+    k = total // PAR_RANKS
+    return [slice(lo, lo + k) for lo in range(0, total, k)]
+
+
+def par_halves_muse(torch, ds):
+    """Step 1 of par_muse's run: the per-sim scores at theta0 and H by
+    muse's forward differences, each batched MAP_joint and theta-score
+    run on one batch of the sims."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.inference import muse as tmu
+    theta = dict(Aphi_b=np.ones(MUSE_BINS))
+    spec = tmu._theta_spec(theta)
+    tflat = tmu._spec_pack(theta, spec)
+    eps = 0.1 * np.maximum(np.abs(tflat), 0.1)     # muse's default step at theta0
+    tvec = tmu._theta_vec(theta, spec, DEVICE)
+    kw = dict(MUSE_MAP)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    state = g.get_state()
+
+    def scores(theta_sim):
+        with torch.no_grad():
+            d = tmu._simulate_sims(ds, theta_sim, 0, MUSE_SIMS, g, state)
+        out = []
+        for b in par_batches(MUSE_SIMS):
+            dsd = ds.replace(d=ct.Field(d.arr[b], d.basis, d.proj))
+            res = ct.MAP_joint(dsd, theta=theta, **kw)
+            out.append(tmu._theta_score_batch(dsd, res["f"], res["phi"], tvec, spec))
+        return torch.cat(out).cpu().numpy()
+
+    s = scores(theta)
+    sbar = s.mean(axis=0)
+    H = np.zeros((len(tflat), len(tflat)))
+    for j in range(len(tflat)):
+        tp = tflat.copy()
+        tp[j] += eps[j]
+        H[:, j] = (scores(dict(Aphi_b=tp)).mean(axis=0) - sbar) / eps[j]
+    return dict(s_sims=s, sbar=sbar, H=H)
+
+
+def par_halves_sample(torch, ds):
+    """par_sample's pass: each batch of chains runs sample_joint's default
+    pass functions on a state holding its core/shard.py::BatchShard, the
+    whole batch's draws sliced to its chains. A first pass simulates at
+    the prior phi of every chain, which each batch draws whole: the
+    shard's gather hands it over; a reduction across the batches would
+    raise (a pass of chains with fixed CG iterations has none)."""
+    from cmblensing_tpu_torch.core.shard import BatchShard
+    from cmblensing_tpu_torch.inference import sampling as ts
+
+    def no_reduce(t, op):
+        raise AssertionError("a reduction across the chains in a pass of independent chains")
+
+    cg = dict(tol=1e-1, nsteps=500)
+    cg.update(SAMPLE_CG)
+    parts = []
+    for b in par_batches(SAMPLE_SIMS):
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(1)
+        with torch.no_grad():
+            phi = ts.simulate_op(g, ts._fid(ds.Cphi), batch_shape=(SAMPLE_SIMS,))
+            phi = phi.to(phi.basis.with_space("map"))
+
+        def gather(t, whole=phi.arr, b=b):
+            assert torch.equal(t, whole[b])
+            return whole
+
+        shard = BatchShard(b.start, b.stop - b.start, SAMPLE_SIMS, no_reduce, gather)
+        ds_b = ds.replace(d=shard.slice(ds.d))
+        st = dict(generator=g, phi=shard.slice(phi), theta={}, step=1, shard=shard)
+        st = ts.gibbs_sample_f(st, ds_b, cg)
+        st = ts.gibbs_mix(st, ds_b)
+        st = ts.gibbs_sample_phi(st, ds_b, SAMPLE_SYMP, always_accept=True)
+        st = ts.gibbs_unmix(st, ds_b)
+        parts.append(par_sample_entry(ts.gibbs_postprocess(st, ds_b)))
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def par_halves_marg(torch, ds):
+    """Step 1 of par_marg's run: the data's gradient as MAP_marg takes it,
+    the mean field from the whole ensemble's simulations, each batch's
+    Wiener filters and gradients on its sims, the batches' sums added
+    (a rank's sum and the all_reduce), and MAP_marg's update."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.core.field import repeat_batch
+    from cmblensing_tpu_torch.inference import maximization as tm
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(1)
+    dst = ds.at({}).replace(G=ct.Id)
+    phi = tm._zero_map_like(tm._fid(dst.Cphi))
+    cg = dict(tol=1e-1, nsteps=500)
+    cg.update(MARG_CG)
+
+    def grad(phi_, f_, d_):
+        with tm._pctx("high"):                      # MAP_marg's precision "auto"
+            return tm._phi_gradient(dst, {}, phi_, f_, d_)
+
+    f_wf, _ = ct.argmaxf_logpdf(dst, phi=phi, theta={}, conjgrad_kwargs=cg)
+    g_data = grad(phi, f_wf, dst.d)
+    with torch.no_grad():
+        d_sims = tm._marg_simulate_d(dst, {}, repeat_batch(phi, MARG_SIMS), g, 0)
+    total = None
+    for b in par_batches(MARG_SIMS):
+        d_b = ct.Field(d_sims.arr[b], d_sims.basis, d_sims.proj)
+        phi_b = repeat_batch(phi, b.stop - b.start)
+        f_b, _ = ct.argmaxf_logpdf(dst.replace(d=d_b), phi=phi_b, theta={}, conjgrad_kwargs=cg)
+        s = torch.sum(grad(phi_b, f_b, d_b).arr, dim=0)
+        total = s if total is None else total + s
+    gbar = ct.Field(total / MARG_SIMS, g_data.basis, g_data.proj)
+    with torch.no_grad():
+        phi1, _ = tm._marg_update(dst, {}, phi, g_data, gbar, MARG_ALPHA)
+    return phi1
+
+
+def par_rank_main(torch, part, rank, world, port, outdir):
+    """A rank of phase 23: `python3 chip_smoke.py --rank23 PART RANK WORLD
+    PORT DIR`, started by phase_parallel after the kernels are built: part
+    (b) ("spatial") or (c) ("ensemble"), each its own world. Writes its
+    numbers to DIR/PART_RANK.json; rank 0 its whole results to DIR/*.pt."""
+    import cmblensing_tpu_torch as ct
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    ct.distributed_initialize(f"localhost:{port}", world, rank, backend="gloo")
+    card = card_line()
+
+    def save(name, obj):
+        if rank == 0:
+            torch.save(obj, os.path.join(outdir, f"{name}.pt"))
+
+    fn = {"spatial": par_rank_spatial, "ensemble": par_rank_ensemble}[part]
+    out = fn(torch, rank, world, card, save)
+    with open(os.path.join(outdir, f"{part}_{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def par_start(part, world, outdir):
+    """Start `world` ranks of phase 23's `part` (par_rank_main), each its
+    own process on the card; returns wait(), which joins them (every rank
+    stopped at PAR_TIMEOUT or when one fails) and returns their numbers,
+    rank by rank."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank23", part,
+                               str(r), str(world), str(port), outdir],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+
+    def wait():
+        try:
+            for r, p in enumerate(procs):
+                out, _ = p.communicate(timeout=PAR_TIMEOUT)
+                if p.returncode != 0:
+                    raise AssertionError(f"phase 23: {part} rank {r} failed (rc "
+                                         f"{p.returncode}):\n" + out[-6000:])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        results = []
+        for r in range(world):
+            with open(os.path.join(outdir, f"{part}_{r}.json")) as fh:
+                results.append(json.load(fh))
+        return results
+
+    return wait
+
+
+def par_one_rank(torch, card):
+    """Phase 23 (a): NCCL at one rank in this process: the 1024^2 P sharded
+    flows and delta phi and the sharded Wiener filter against the
+    unsharded port on the card, each plane within FLOW_TOL (delta phi
+    GRAD_TOL, the Wiener filter PAR_ONE_WF_TOL)."""
+    import cmblensing_tpu_torch as ct
+    mesh = ct.make_mesh(axis_name="sp", device=DEVICE)
+    sim = par_sim(N_MAP)
+    ds, phi, f = sim["ds"], sim["phi"].to(ct.MAP), sim["f"].to(ct.QU_MAP)
+    par_flows(torch, mesh, phi, f)            # warm-up: first launches, cuFFT plans
+    (Lf, LHf, g), numbers = par_flows(torch, mesh, phi, f)
+    par_flows_ref(torch, phi, f)
+    t0 = par_reset(torch)
+    ref = par_flows_ref(torch, phi, f)
+    ref_s = par_read(torch, t0)[0]
+    errs = {"L": par_rel_planes(Lf, ref[0]), "L^H": par_rel_planes(LHf, ref[1]),
+            "dphi": rel(g, ref[2])}
+    t0 = par_reset(torch)
+    fw, _ = ct.sharded_wiener_filter(ds, phi, mesh, nsteps=PAR_CG["nsteps"], tol=0.0,
+                                     fixed_iters=True)
+    wf_numbers = par_read(torch, t0)
+    fr, _ = ct.argmaxf_logpdf(ds, phi=phi, conjgrad_kwargs=dict(PAR_CG, hessian_precision=None))
+    errs["wf"] = par_rel_planes(fw.arr, fr.to(ct.QU_MAP).arr)
+    print(par_line(f"phase 23: (a) sharded flows {N_MAP}^2 P (L, L^H, delta phi, warm; the "
+                   f"unsharded kernel path {ref_s:.3f} s)", numbers, card, False))
+    print(par_line(f"phase 23: (a) sharded Wiener filter {N_MAP}^2 P (CG {PAR_CG['nsteps']} "
+                   "fixed)", wf_numbers, card, False))
+    print(f"phase 23: (a) against the unsharded port: " + ", ".join(f"{k} {v:.3e}"
+                                                                   for k, v in errs.items())
+          + f" (bounds {FLOW_TOL:g} flows each plane, {GRAD_TOL:g} delta phi, {PAR_ONE_WF_TOL:g} "
+          f"Wiener filter each plane) [{card}]")
+    bad = {} if (errs["L"] < FLOW_TOL and errs["L^H"] < FLOW_TOL and errs["dphi"] < GRAD_TOL
+                 and errs["wf"] < PAR_ONE_WF_TOL) else {"one rank": errs}
+    return numbers[1], wf_numbers[1], bad
+
+
+def par_float64_map(torch, ds):
+    """PAR_MAP_STEPS strict MAP_joint steps of ds at float64, on the plain
+    backend (the kernels are float32): its operators at theta = {} and its
+    data carried to a float64 dataset (dataset_from_numpy)."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.models import dataset as tdsm
+    ds0 = ds.at({})
+    wide = lambda a: (a.to(torch.complex128) if a.is_complex() else a.double()).cpu().numpy()
+    arrays = {"d": (wide(ds0.d.arr), ds0.d.basis.pol, ds0.d.basis.space)}
+    for name in tdsm.DIAG_OPS:
+        op = getattr(ds0, name)
+        if isinstance(op, ct.Diag):
+            arrays[name] = (wide(op.diag.arr), op.diag.basis.pol, op.diag.basis.space)
+    p = ds0.d.proj
+    ds64 = ct.dataset_from_numpy(arrays, dict(Ny=p.Ny, Nx=p.Nx, thetapix=p.thetapix,
+                                              T=np.float64), device=DEVICE)
+    with ct.lenseflow_backend_ctx("plain"):
+        r = ct.MAP_joint(ds64, nsteps=PAR_MAP_STEPS, precision=None,
+                         conjgrad_kwargs=dict(PAR_CG, hessian_precision=None),
+                         history_keys=("logpdf", "alpha"))
+    return r["phi"].to(ct.MAP).arr, [(float(h["logpdf"]), float(h["alpha"]))
+                                     for h in r["history"]]
+
+
+def par_refs(torch, card, muse_ref):
+    """The unsharded references of parts (b) and (c), and (c)'s witness
+    (par_halves_*), computed in this process while the ranks run."""
+    import cmblensing_tpu_torch as ct
+    refs = {}
+    t0 = time.perf_counter()
+    for Nf, thetapix in PAR_FLOW_SIMS:
+        sim = par_sim(Nf, thetapix)
+        refs[f"flows_{Nf}"] = par_flows_ref(torch, sim["phi"].to(ct.MAP), sim["f"].to(ct.QU_MAP))
+        del sim
+    sim = par_sim(N_MAP)
+    ds, phi = sim["ds"], sim["phi"].to(ct.MAP)
+    cg = dict(PAR_CG, hessian_precision=None)
+    refs["wf"] = ct.argmaxf_logpdf(ds, phi=phi, conjgrad_kwargs=cg)[0].to(ct.QU_MAP).arr
+    r = ct.MAP_joint(ds, nsteps=PAR_MAP_STEPS, precision=None, conjgrad_kwargs=cg,
+                     history_keys=("logpdf", "alpha"))
+    refs["map"] = (r["phi"].to(ct.MAP).arr,
+                   [(float(h["logpdf"]), float(h["alpha"])) for h in r["history"]])
+    refs["map64"] = par_float64_map(torch, ds)
+    del sim, ds, phi, r
+    torch.cuda.empty_cache()
+    ds, _, _ = muse_dataset(torch)
+    if muse_ref is None:
+        muse_ref, refs["muse_whence"] = par_muse(torch, ds), "computed here"
+    else:
+        refs["muse_whence"] = "phase 20's run"
+    refs["muse"] = muse_ref
+    refs["halves_muse"] = par_halves_muse(torch, ds)
+    ds = par_sim(N_SAMPLE, Nbatch=SAMPLE_SIMS)["ds"]
+    refs["sample"] = par_sample(torch, ds)
+    refs["halves_sample"] = par_halves_sample(torch, ds)
+    del ds
+    ds = par_marg_ds()
+    refs["marg"] = par_marg(torch, ds)
+    refs["halves_marg"] = par_halves_marg(torch, ds)
+    torch.cuda.synchronize()
+    refs["s"] = time.perf_counter() - t0
+    return refs
+
+
+def par_check(torch, card, refs, ranks, outdir):
+    """Parts (b) and (c): the ranks' results against the references;
+    returns {what: numbers} of the checks that fail."""
+    load = lambda name: torch.load(os.path.join(outdir, f"{name}.pt"))
+    bad = {}
+    r0 = ranks[0]
+    print(f"phase 23: (b) gloo with CUDA tensors: {r0['spatial']['probe']}")
+    for r in ranks:
+        sp, en = r["spatial"], r["ensemble"]
+        for key in [f"flows_{n}" for n, _ in PAR_FLOW_SIMS]:
+            print(sp[key]["line"])
+        print(sp["map"]["line"])
+        print(sp["map"]["line2"])
+        for key in ("muse", "sample", "marg"):
+            print(en[key]["line"])
+    for Nf, _ in PAR_FLOW_SIMS:
+        (Lf, LHf, g), ref = load(f"flows_{Nf}"), refs[f"flows_{Nf}"]
+        errs = {"L": par_rel_planes(Lf, ref[0]), "L^H": par_rel_planes(LHf, ref[1]),
+                "dphi": rel(g, ref[2])}
+        print(f"phase 23: (b) {Nf}^2 P flows, {PAR_RANKS} ranks against the unsharded kernel path: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (bounds {FLOW_TOL:g} flows each plane, {GRAD_TOL:g} delta phi) [{card}]")
+        if not (errs["L"] < FLOW_TOL and errs["L^H"] < FLOW_TOL and errs["dphi"] < GRAD_TOL):
+            bad[f"flows_{Nf}"] = errs
+    e_wf = par_rel_planes(load("wf"), refs["wf"])
+    phi_sh, hist = load("map_phi"), r0["spatial"]["map"]["history"]
+    (phi_un, rhist), (phi64, hist64) = refs["map"], refs["map64"]
+    e_phi, e_sh64, e_un64 = par_l2(phi_sh, phi_un), par_l2(phi_sh, phi64), par_l2(phi_un, phi64)
+    lps = [h[0] for h in hist]
+    d_lp = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(hist, rhist))
+    same_alpha = all(a[1] == b[1] for a, b in zip(hist, rhist))
+    print(f"phase 23: (b) {N_MAP}^2 P, {PAR_RANKS} ranks against the unsharded port: Wiener filter "
+          f"{e_wf:.3e} (bound {PAR_WF_TOL:g}); sharded_MAP_joint (logpdf, alpha) {hist} vs "
+          f"MAP_joint {rhist}: logpdf {d_lp:.3e} (bound {STEP_TOL:g}), the same alphas "
+          f"{same_alpha}; phi {e_phi:.3e} relative L2 (bound {PAR_MAP_UN_TOL:g}; the JAX "
+          f"package's {PAR_MAP_TOL:g}, not held); against MAP_joint in float64 on the plain "
+          f"backend {hist64}: sharded {e_sh64:.3e}, unsharded {e_un64:.3e} (printed) [{card}]")
+    if not (e_wf < PAR_WF_TOL and d_lp < STEP_TOL and same_alpha and np.all(np.isfinite(lps))
+            and all(b >= a for a, b in zip(lps, lps[1:])) and e_phi < PAR_MAP_UN_TOL):
+        bad["map"] = (e_wf, d_lp, same_alpha, hist, rhist, e_phi, e_sh64, e_un64)
+    # (c): each ensemble against the one-batch run and the batches (the witness)
+    rl = lambda x, y: float(np.max(np.abs(np.subtract(x, y))) / np.max(np.abs(y)))
+    mu, ref, hv = r0["ensemble"]["muse"], refs["muse"], refs["halves_muse"]
+    s1, rs1 = mu["steps"][0], ref["steps"][0]
+    errs = {f"step 1 {k}": rl(s1[k], rs1[k]) for k in ("s_data", "sbar")}
+    wit = {k: (rl(s1[k], hv[k]), rl(hv[k], rs1[k]), rl(s1[k], rs1[k])) for k in ("sbar", "H")}
+    H1 = np.asarray(rs1["H"])
+    dtheta = lambda s: np.linalg.solve(np.asarray(s["H"]), np.subtract(s["s_data"], s["sbar"]))
+    pulls = np.asarray(mu["pulls"])
+    print(f"phase 23: (c) muse(mesh=) against the one-batch run ({refs['muse_whence']}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {PAR_ENS_TOL:g}); "
+          "step 1 (sharded vs batches, bound " f"{PAR_HALVES_TOL:g}; batches vs one batch; "
+          "sharded vs one batch): " + ", ".join(f"{k} {a:.3e}, {b:.3e}, {c:.3e}"
+                                                for k, (a, b, c) in wit.items())
+          + f"; cond(H) {np.linalg.cond(H1):.3e}, Newton step H^-1 (s_data - sbar) "
+          f"{dtheta(s1).tolist()} vs {dtheta(rs1).tolist()} (capped at 0.5 max(|theta|, 0.1) "
+          f"an entry); theta by step {[s['theta'] for s in mu['steps']]} vs "
+          f"{[s['theta'] for s in ref['steps']]}; pulls {mu['pulls']} vs {ref['pulls']} (each "
+          f"under {MUSE_PULL_MAX:g}) [{card}]")
+    if not (max(errs.values()) < PAR_ENS_TOL and max(w[0] for w in wit.values()) < PAR_HALVES_TOL
+            and np.all(np.isfinite(pulls)) and np.all(np.abs(pulls) < MUSE_PULL_MAX)):
+        bad["muse"] = (errs, wit, mu["pulls"])
+    e, r, hv = load("sample"), refs["sample"], refs["halves_sample"]
+    # phase 19 (c)'s measure: max-abs over every sim, relative to the largest
+    keys = ("f", "phi", "logpdf")
+    wit = {k: (rel(e[k], hv[k]), rel(hv[k], r[k]), rel(e[k], r[k])) for k in keys}
+    dh = (float((e["dH"] - hv["dH"]).abs().max()), float((hv["dH"] - r["dH"]).abs().max()),
+          float((e["dH"] - r["dH"]).abs().max()))
+    same = bool(torch.equal(e["accept"], hv["accept"]) and torch.equal(e["accept"], r["accept"]))
+    print(f"phase 23: (c) sample_joint(mesh=) one pass, seed 1 (sharded vs batches, bound "
+          f"{PAR_HALVES_TOL:g}; batches vs one batch; sharded vs one batch, the issue's "
+          f"{PAR_ENS_TOL:g} printed): " + ", ".join(f"{k} {a:.3e}, {b:.3e}, {c:.3e}"
+                                                   for k, (a, b, c) in wit.items())
+          + f"; dH {dh[0]:.3e}, {dh[1]:.3f}, {dh[2]:.3f} (absolute); the same accepts {same} "
+          f"[{card}]")
+    if not (max(w[0] for w in wit.values()) < PAR_HALVES_TOL and dh[0] < PAR_HALVES_TOL and same):
+        bad["sample"] = (wit, dh, same)
+    (phi_m, phi1_m), gn = load("marg"), r0["ensemble"]["marg"]["gradnorm"]
+    rphi_m, rgn, rphi1_m = refs["marg"]
+    hphi1 = refs["halves_marg"].arr
+    e_m = rel(phi_m, rphi_m.arr)
+    w1 = (rel(phi1_m, hphi1), rel(hphi1, rphi1_m.arr), rel(phi1_m, rphi1_m.arr))
+    print(f"phase 23: (c) MAP_marg(mesh=) against the one-batch run (seed 1): phi {e_m:.3e} "
+          f"(bound {PAR_MARG_TOL:g}); step 1's phi (sharded vs batches, bound {PAR_HALVES_TOL:g}; "
+          f"batches vs one batch; sharded vs one batch) {w1[0]:.3e}, {w1[1]:.3e}, {w1[2]:.3e}; "
+          f"gradient norms {gn} vs {rgn} [{card}]")
+    if not (e_m < PAR_MARG_TOL and w1[0] < PAR_HALVES_TOL and np.all(np.isfinite(gn))):
+        bad["marg"] = (e_m, w1)
+    return bad
+
+
+def phase_parallel(torch, card, muse_ref=None):
+    """Phase 23: the parallel layer. (a) NCCL at one rank (par_one_rank);
+    then two worlds of PAR_RANKS ranks sharing the card over gloo at once,
+    processes of this script started after the build (the build directory
+    is shared): (b) the spatial sharding at full size (par_rank_spatial),
+    (c) BASELINE.json configs[4]'s ensembles with mesh= (par_rank_ensemble);
+    this process computes the unsharded references meanwhile (par_refs;
+    MUSE's is phase 20's run in a whole run) and holds the ranks' results
+    to them (par_check). Returns ({path: launches}, timings)."""
+    import tempfile
+    t_start = time.perf_counter()
+    launches = {}
+    launches["one_rank_flows_1024"], launches["one_rank_wf_1024"], bad = par_one_rank(torch, card)
+    s_a = time.perf_counter() - t_start
+    print(f"phase 23: (a) {s_a:.1f} s [{card}]", flush=True)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as outdir:
+        t0 = time.perf_counter()
+        # (b) and (c) each its own world of PAR_RANKS ranks, at once: (b)
+        # waits on gloo's host-staged transposes, (c) on the card
+        waits = [par_start(part, PAR_RANKS, outdir) for part in ("spatial", "ensemble")]
+        refs = par_refs(torch, card, muse_ref)
+        print(f"phase 23: the unsharded references {refs['s']:.1f} s, beside the ranks [{card}]",
+              flush=True)
+        spatial, ensemble = (w() for w in waits)
+        ranks = [dict(spatial=s, ensemble=e) for s, e in zip(spatial, ensemble)]
+        s_bc = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        bad.update(par_check(torch, card, refs, ranks, outdir))
+    print(f"phase 23: (b) and (c) {s_bc:.1f} s, the ranks' start included [{card}]")
+    sp, en = ranks[0]["spatial"], ranks[0]["ensemble"]
+    launches["sharded_flows_4096_rank0"] = sp[f"flows_{PAR_FLOW_N}"]["launches"]
+    launches["sharded_flows_256_rank0"] = sp[f"flows_{N}"]["launches"]
+    launches["sharded_MAP_joint_1024_rank0"] = sp["map"]["launches"]
+    launches["muse_mesh_256x8_rank0"] = en["muse"]["launches"]
+    launches["sample_joint_mesh_512x32_rank0"] = en["sample"]["launches"]
+    launches["MAP_marg_mesh_256x16_rank0"] = en["marg"]["launches"]
+    for path, kernels in PAR_PATH_KERNELS.items():
+        never = [k for k in kernels if not launches[path].get(k)]
+        if never:
+            bad[f"{path} never launched"] = never
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()   # (a)'s world of one rank
+    wall = time.perf_counter() - t_start
+    print(f"phase 23: wall time {wall:.1f} s (budget {PAR_BUDGET_S} s alone after the build"
+          f"{', a miss' if wall > PAR_BUDGET_S else ''}) [{card}]")
+    if bad:
+        raise AssertionError(f"phase 23 failed: {bad}")
+    return launches, {"phase23_s": wall, "phase23_a_s": s_a, "phase23_bc_s": s_bc}
+
+
 def print_ptxas(log):
     """Phase 1: the build log's register lines and errors, and for the
     kernels on the cluster tile (fderiv_sm90.cu, fa_sm90.cu, bv_sm90.cu,
@@ -5428,6 +6142,9 @@ def main():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--rank23"]:
+        part, rank, world, port, outdir = sys.argv[2:7]
+        return par_rank_main(torch, part, int(rank), int(world), int(port), outdir)
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import _build
 
@@ -5469,6 +6186,9 @@ def main():
     if sys.argv[1:] == ["--phase", "22"]:
         phase_curved(torch, card)
         return 0
+    if sys.argv[1:] == ["--phase", "23"]:
+        phase_parallel(torch, card)
+        return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
@@ -5500,6 +6220,8 @@ def main():
     opt_launches, opt_timing = phase_options(torch, card, map_sim)
     curved_timing = phase_curved(torch, card, map_sim)
     del map_sim
+    torch.cuda.empty_cache()
+    par_path_launches, par_timing = phase_parallel(torch, card, MUSE_CACHE.get("ref"))
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -5645,6 +6367,9 @@ def main():
             rec["launches_MAP_marg_256x16"] = marg_launches.get(name, 0)
         if name in opt_launches:
             rec["launches_MAP_joint_1024_brent"] = opt_launches[name]
+        for path, counts in par_path_launches.items():
+            if counts.get(name):
+                rec[f"launches_parallel_{path}"] = counts[name]
         for (tier, kind), d in ens_flows.items():
             if name == f"flow_{kind}" + ("" if tier == "f32" else "_" + tier):
                 rec["ensemble"] = {k: d[k] for k in ("nb", "max_abs_err", "rel", "ms", "plain_ms",
@@ -5654,7 +6379,7 @@ def main():
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
                    **high_timing, **dense_high_timing, **wf_timing, **large_timing,
                    **bf16_timing, **uni_tier_timing, **uni_large_timing, **sample_timing,
-                   **ens_timing, **opt_timing, **curved_timing,
+                   **ens_timing, **opt_timing, **curved_timing, **par_timing,
                    **{f"flow_{kind}_{case}_{tier}_ms_warm_cold": (d["ms"], d["cold_ms"])
                       for (case, tier, kind), d in flows.items() if "ms" in d}})
     print("main path ms (kernel, plain):", json.dumps(timing))

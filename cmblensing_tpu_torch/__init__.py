@@ -15,7 +15,10 @@ Wiener filter (batched), MAP_joint with its grid (batched, an alpha an
 entry) or brent line search, its Hessian update and quasi-samples, MAP_marg, sample_joint over a batch of chains with its
 checkpoints and chains, banded (bandpower) covariances, the batched and
 two-dataset quadratic estimate, and MUSE over a batched simulation
-ensemble; the field API (FieldTuple, FieldVector / FieldMatrix, FuncOp,
+ensemble; the parallel layer on torch.distributed (ensembles split over
+ranks with ``mesh=``, and maps split over ranks by rows: the sharded
+LenseFlow, pencil FFTs, Wiener filter, joint MAP and Gibbs/HMC); the
+field API (FieldTuple, FieldVector / FieldMatrix, FuncOp,
 the pass filters and gradient operators, the rfft helpers, ud_grade); and
 the curved sky: EquiRect bands with their block covariances and Wiener
 filter, HEALPix maps and their projection to and from flat grids
@@ -91,6 +94,20 @@ from .inference.sampling import (  # noqa: E402
 )
 from .inference.chains import (  # noqa: E402
     Chain, Chains, load_chains, effective_sample_size, mean_std_and_errors, kde,
+)
+from .parallel.mesh import (  # noqa: E402
+    make_mesh, shard_batch, replicate, local_mesh, distributed_initialize, proc_info,
+    gather_batch,
+)
+from .parallel.spatial import (  # noqa: E402
+    ShardedLenseFlow, lense_sharded, spatial_mesh, shard_spatial, gather_spatial,
+)
+from .parallel.sharded_fft import (  # noqa: E402
+    rfft2_sharded, irfft2_sharded, pad_multiplier, fourier_diag_apply_sharded, get_Cl_sharded,
+)
+from .parallel.sharded_wf import (  # noqa: E402
+    sharded_wiener_filter, sharded_lensing_logpdf, sharded_MAP_joint, sharded_sample_f,
+    sharded_hmc_phi_step, sharded_gibbs_pass, sharded_sample_joint,
 )
 from .utils.spectra import bandpower_corr, get_Cl, get_Dl  # noqa: E402
 from .utils.ud_grade import ud_grade  # noqa: E402

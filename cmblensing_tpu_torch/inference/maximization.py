@@ -56,8 +56,13 @@ Deliberate differences from the JAX package (ROADMAP Queue 3):
 - the retry's line-search evaluations are added to the step's count (the
   JAX package drops brent's).
 
-``mesh=`` (the sims sharded over several cards) is refused with
-NotImplementedError (ROADMAP Queue 1 item 9). ``argmaxf_logpdf`` and
+``MAP_marg(mesh=...)`` splits the mean field's sims over the ranks of
+the mesh's "batch" dimension (parallel/mesh.py::batch_shard): each rank
+simulates the whole ensemble and keeps its entries, runs their Wiener
+filters and gradients, and the mean is one all_reduce; MAP_joint,
+argmaxf_logpdf and sample_f take that core/shard.py::BatchShard as
+`shard=`.
+``argmaxf_logpdf`` and
 ``sample_f`` take a batched d: CG keeps a residual and a step per entry,
 and the strict re-check's verdict covers every entry. ``argmaxf_logpdf``
 solves the Gaussian conditional only and warns when the dataset has a
@@ -74,6 +79,7 @@ import torch
 
 from ..core.field import Field, dot as field_dot, fvalue_and_grad, norm as field_norm, \
     repeat_batch, zeros_like_field
+from ..core import shard as _shard
 from ..core.cov import Cl_to_Cov, cov_to_Cl
 from ..core.ops import (Diag, Id, ParamDependentOp, _Identity, _diag_field_of, evaluate_at,
                         nan2zero, safe_reciprocal)
@@ -150,7 +156,7 @@ def _zero_map_like(Cphi):
 
 
 def argmaxf_logpdf(ds: DataSet, phi=None, theta=None, d=None, fstart=None,
-                   conjgrad_kwargs=None, offset=False):
+                   conjgrad_kwargs=None, offset=False, shard=None):
     """Maximize logpdf over f at fixed (phi, theta): the Gaussian system
     H f = b solved by preconditioned CG, with H applied through the
     analytic f-gradient. conjgrad_kwargs go to `conjugate_gradient` (tol,
@@ -160,7 +166,10 @@ def argmaxf_logpdf(ds: DataSet, phi=None, theta=None, d=None, fstart=None,
     re-checks the final residual with a strict Hessian (info["res_strict"],
     info["precision_ok"]) and re-runs the whole solve strict when it
     misses max(tol, 1e-10 res0) (info["precision_fallback"] = True); None
-    runs everything at the precision in force. Returns (f, info)."""
+    runs everything at the precision in force. shard (a
+    core/shard.py::BatchShard: d holds this rank's entries of a sharded
+    ensemble) makes CG's stop test and the re-check's verdict read every
+    rank's entries. Returns (f, info)."""
     theta = theta or {}
     if getattr(ds, "logprior", None) is not None:
         warnings.warn(
@@ -175,14 +184,14 @@ def argmaxf_logpdf(ds: DataSet, phi=None, theta=None, d=None, fstart=None,
     if d is None:
         d = ds.d
     with torch.no_grad():
-        x, info = _argmaxf_core(ds, theta, phi, d, fstart, offset, hp, **cg)
+        x, info = _argmaxf_core(ds, theta, phi, d, fstart, offset, hp, shard, **cg)
         if hp and not bool(info["precision_ok"]):
-            x, info = _argmaxf_core(ds, theta, phi, d, fstart, offset, None, **cg)
+            x, info = _argmaxf_core(ds, theta, phi, d, fstart, offset, None, shard, **cg)
             info["precision_fallback"] = True
     return x, info
 
 
-def _argmaxf_core(ds, theta, phi, d, fstart, offset, hessian_precision=None, **cg):
+def _argmaxf_core(ds, theta, phi, d, fstart, offset, hessian_precision=None, shard=None, **cg):
     precond = hessian_f_preconditioner(ds)
     Cf = _fid(ds.Cf)
     if hasattr(Cf, "zero_field"):
@@ -213,29 +222,46 @@ def _argmaxf_core(ds, theta, phi, d, fstart, offset, hessian_precision=None, **c
             return hess(f)
 
     x0 = fstart.to(Bb) if fstart is not None else None
-    x, info = conjugate_gradient(precond, hess_at, b, x0=x0, **cg)
+    x, info = conjugate_gradient(precond, hess_at, b, x0=x0, shard=shard, **cg)
     if hessian_precision:
         # the final residual under a strict Hessian, in the metric of tol
         with _pctx("f32"):
             r = b - hess(x)
         info["res_strict"] = tree_dot(r, precond.solve(r))
-        info["precision_ok"] = torch.all(
-            info["res_strict"] <= torch.clamp(1e-10 * info["res0"], min=float(cg.get("tol", 1e-1))))
+        ok = info["res_strict"] <= torch.clamp(1e-10 * info["res0"], min=float(cg.get("tol", 1e-1)))
+        # one verdict for every entry, every rank's with a shard
+        info["precision_ok"] = torch.tensor(_shard.all_(shard, ok), device=ok.device)
     return x, info
 
 
-def sample_f(generator, ds: DataSet, phi=None, theta=None, d=None, **kwargs):
+def simulate_entries(ds, generator, shard, theta=None, phi=None):
+    """ds.simulate(generator, theta=theta, phi=phi) (phi None: drawn too),
+    or with a shard (phi and ds.d this rank's entries) the whole ensemble's
+    simulation at every rank's phi, as the unsharded run draws it, sliced
+    to this rank's entries."""
+    kw = {} if phi is None else dict(phi=phi)
+    if shard is None:
+        return ds.simulate(generator, theta=theta, **kw)
+    if phi is not None and phi.batch_shape:
+        kw["phi"] = Field(shard.gather(phi.arr), phi.basis, phi.proj)
+    sim = ds.simulate(generator, theta=theta, batch_shape=(shard.total,), **kw)
+    return {k: shard.slice(v) for k, v in sim.items()}
+
+
+def sample_f(generator, ds: DataSet, phi=None, theta=None, d=None, shard=None, **kwargs):
     """A posterior sample of f at fixed (phi, theta) by constrained
     simulation: a simulation (f_s, d_s) drawn from `generator` at phi, and
     f_s + argmax_f of the posterior given d - d_s (argmaxf_logpdf with
-    offset=True; kwargs go to it). Returns (f, info)."""
+    offset=True; kwargs go to it). With a shard (d and phi this rank's
+    entries) the simulation is the whole ensemble's at every rank's phi,
+    sliced to this rank's entries. Returns (f, info)."""
     theta = theta or {}
     if d is None:
         d = ds.d
     with torch.no_grad():
-        sim = (ds.simulate(generator, theta=theta) if phi is None
-               else ds.simulate(generator, theta=theta, phi=phi))
-    df, info = argmaxf_logpdf(ds, phi=phi, theta=theta, d=d - sim["d"], offset=True, **kwargs)
+        sim = simulate_entries(ds, generator, shard, theta=theta, phi=phi)
+    df, info = argmaxf_logpdf(ds, phi=phi, theta=theta, d=d - sim["d"], offset=True,
+                              shard=shard, **kwargs)
     return sim["f"] + df.to(sim["f"].basis), info
 
 
@@ -243,13 +269,49 @@ def sample_f(generator, ds: DataSet, phi=None, theta=None, d=None, **kwargs):
 # MAP_joint
 # =========================================================================
 
+# The phi-gradients take the logpdf's two terms ("prior", "data") in two
+# backward passes where the map is TERM_SPLIT_MIN_N or more on a side (the
+# JAX package's _term_split_fgrad, whose threshold, 8192, the v5e's 16 GB
+# set): each term's graph and saved tensors are freed before the next one
+# is built, so that the peak holds one term's, at the cost of a second
+# unmix. TERM_SPLIT_MIN_N comes from the peak memory of the mixed
+# phi-gradient measured on an NVIDIA H100 80GB HBM3 (700 W) at 2048^2 and
+# 4096^2 P, strict (scripts/torch_term_split_mem.py; PERF.md §6):
+# 78.1 maps of the field's size whole, 71.3 split, at +40-45 % of the
+# time. Extrapolated from those two sizes (16384^2 was not run), the
+# whole gradient takes 78 GiB at 16384^2, the card's memory, and the
+# split 71 GiB: below 16384 the whole gradient fits with room and the
+# split only costs time.
+TERM_SPLIT_MIN_N = 16384
+TERMS = ("prior", "data")
+
+
+def _needs_term_split(field):
+    return max(field.proj.Ny, field.proj.Nx) >= TERM_SPLIT_MIN_N
+
+
+def _term_split_fgrad(term_fn, terms, x):
+    """The gradient of sum_w term_fn(x, w), one backward pass a term, in
+    x's map basis."""
+    g = None
+    for w in terms:
+        _, gw = fvalue_and_grad(lambda xx, _w=w: term_fn(xx, _w))(x)
+        g = gw if g is None else g + gw
+    return g
+
+
 def _phi_grad_and_fmix(dstheta, theta, f, phi):
     """(f°, phi° in its map basis, grad_phi° of the mixed logpdf)."""
     m = mix(dstheta, f=f, phi=phi, theta=theta)
     f_mix = m["f_mix"]
     phi_mix = m["phi_mix"].to(m["phi_mix"].basis.with_space("map"))
+    mixed = Mixed(dstheta)
+    if _needs_term_split(phi_mix):
+        g = _term_split_fgrad(lambda pm, w: torch.sum(mixed.logpdf_term(
+            f_mix=f_mix, phi_mix=pm, theta=theta, which=w)), TERMS, phi_mix)
+        return f_mix, phi_mix, g
     _, g = fvalue_and_grad(
-        lambda pm: torch.sum(Mixed(dstheta).logpdf(f_mix=f_mix, phi_mix=pm, theta=theta)))(phi_mix)
+        lambda pm: torch.sum(mixed.logpdf(f_mix=f_mix, phi_mix=pm, theta=theta)))(phi_mix)
     return f_mix, phi_mix, g
 
 
@@ -402,7 +464,7 @@ def _grid_argmax(alphas, dlps):
     return torch.gather(alphas, 0, i[None])[0]
 
 
-def _brent_dlp(dstheta, theta, f_mix, phi_mix, dphi):
+def _brent_dlp(dstheta, theta, f_mix, phi_mix, dphi, shard=None):
     """alpha -> lp(alpha) - lp(0) of the mixed posterior along dphi, a
     float (summed over batch entries): brent's objective. The Gaussian
     terms cancellation-free, as the grid's trials (_grid_linesearch_dlps),
@@ -422,7 +484,7 @@ def _brent_dlp(dstheta, theta, f_mix, phi_mix, dphi):
             d = d - 0.5 * field_dot(z - z_0, S.solve(z + z_0))
         if lp0 is not None:
             d = d + (dstheta.logprior(theta=theta, f=zs[0], phi=zs[1]) - lp0)
-        return float(torch.sum(d))
+        return float(_shard.sum_(shard, d))
 
     return dlp
 
@@ -458,11 +520,12 @@ def _secant_hessian_inv(phi_mix, prev_phi_mix, g, prev_g, current):
     return Cl_to_Cov("I", phi_mix.proj, cl_s, units=1)
 
 
-def _stalled_moved(alpha):
+def _stalled_moved(alpha, shard=None):
     """(whether some entry's alpha is 0, whether some entry's is > 0) of a
-    line search's alpha, a float or one value a batch entry."""
+    line search's alpha, a float or one value a batch entry (every rank's
+    entries with a shard)."""
     if isinstance(alpha, torch.Tensor):
-        return bool((alpha == 0).any()), bool((alpha > 0).any())
+        return _shard.any_(shard, alpha == 0), _shard.any_(shard, alpha > 0)
     return alpha == 0.0, alpha > 0
 
 
@@ -480,7 +543,8 @@ def _step_unmix_and_norm(dstheta, theta, f_mix, phi_mix, dphi, alpha):
 def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phistart=None,
               alpha_tol=1e-4, gradtol=0.0, alpha_max=None, conjgrad_kwargs=None,
               quasi_sample=False, key=None, progress=False, history_keys=("logpdf",),
-              nburnin_update_hessian=None, linesearch="grid", ngrid=16, precision="auto"):
+              nburnin_update_hessian=None, linesearch="grid", ngrid=16, precision="auto",
+              shard=None):
     """Joint MAP estimate of (f, phi) by coordinate ascent (reference
     src/maximization.jl): an exact f-step (CG Wiener filter) alternates
     with a preconditioned-gradient phi-step along grad_phi° of the mixed
@@ -521,7 +585,10 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
     alpha for all), history's "alpha" and "gradnorm" are arrays of one
     value an entry and "logpdf" is the sum over the entries. The
     direction retry fires when any entry's alpha is 0, for the whole batch
-    (module docstring). Returns dict(f, phi, history)."""
+    (module docstring). shard (a core/shard.py::BatchShard: d holds this
+    rank's entries of a sharded ensemble) makes those cross-entry
+    decisions, CG's stop test, the logpdf sum and the stop rule read
+    every rank's entries. Returns dict(f, phi, history)."""
     _check_precision(precision, "precision", (None, "auto", "f32", "high", "bf16"))
     unknown = [k for k in history_keys if k not in HISTORY_KEYS]
     if unknown:
@@ -538,7 +605,7 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
         linesearch = "brent"
     if isinstance(ds, NoLensingDataSet):
         # no phi to optimize: the MAP is the Wiener filter
-        f, info = argmaxf_logpdf(ds.at(theta), theta=theta, conjgrad_kwargs=cg)
+        f, info = argmaxf_logpdf(ds.at(theta), theta=theta, conjgrad_kwargs=cg, shard=shard)
         return dict(f=f, phi=None, history=[info])
     dstheta = ds.at(theta).replace(G=Id)   # the MAP does not depend on G
     Cphi = _fid(dstheta.Cphi)
@@ -565,7 +632,7 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
                 alphas, dlps = _grid_linesearch_dlps(dstheta, theta, f_mix, phi_mix, dphi, amax,
                                                      int(ngrid))
                 return _grid_argmax(alphas, dlps), int(ngrid)
-            dlp = _brent_dlp(dstheta, theta, f_mix, phi_mix, dphi)
+            dlp = _brent_dlp(dstheta, theta, f_mix, phi_mix, dphi, shard)
             return _brent_min(lambda a: -dlp(a), float(torch.max(torch.as_tensor(amax))),
                               abs_tol=alpha_tol)
 
@@ -580,10 +647,10 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
             with timed("MAP_joint/f_step"):
                 if quasi_sample:
                     f, cg_info = sample_f(generator, dstheta, phi=phi, theta=theta, fstart=f,
-                                          conjgrad_kwargs=cg)
+                                          conjgrad_kwargs=cg, shard=shard)
                 else:
                     f, cg_info = argmaxf_logpdf(dstheta, phi=phi, theta=theta, fstart=f,
-                                                conjgrad_kwargs=cg)
+                                                conjgrad_kwargs=cg, shard=shard)
             with timed("MAP_joint/phi_step"):
                 f_mix, phi_mix, g = direction(prec)
                 if (nburnin_update_hessian is not None and step > nburnin_update_hessian
@@ -602,7 +669,7 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
                     amax = 2.0 * alpha
                 alpha, nfev = search(f_mix, phi_mix, dphi)
                 retried = False
-                stalled = _stalled_moved(alpha)[0]
+                stalled = _stalled_moved(alpha, shard)[0]
                 if stalled and prec != ls_prec and not retry_spent:
                     # the strict trials rejected the reduced-precision
                     # direction (of one entry at least): recompute it strict
@@ -613,7 +680,7 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
                     dphi = Hpre_inv @ g
                     alpha, n = search(f_mix, phi_mix, dphi)
                     nfev += n
-                    if _stalled_moved(alpha)[1]:
+                    if _stalled_moved(alpha, shard)[1]:
                         prec = ls_prec
                     else:
                         retry_spent = True
@@ -622,8 +689,8 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
             with _pctx(prec):
                 _, phi, lp_dev, dnorm_dev = _step_unmix_and_norm(
                     dstheta, theta, f_mix, phi_mix, dphi, alpha)
-            alpha_s = float(torch.max(torch.as_tensor(alpha)))
-            lp, dnorm = float(lp_dev), float(torch.max(dnorm_dev))
+            alpha_s = _shard.max_(shard, alpha)
+            lp, dnorm = float(_shard.sum_(shard, lp_dev)), _shard.max_(shard, dnorm_dev)
             if progress:
                 pbar.update(logpdf=lp, alpha=alpha_s, CG=int(cg_info["iterations"]), ls=nfev)
             entry = {}
@@ -662,12 +729,12 @@ def MAP_joint(ds: DataSet, theta=None, nsteps=20, minsteps=0, fstart=None, phist
 # MAP_marg
 # =========================================================================
 
-_MESH = "not ported yet (ROADMAP Queue 1 item 9, torch.distributed)"
-
-
 def _phi_gradient(dstheta, theta, phi, f, d):
     """grad_phi of logpdf(f, phi, theta) with data d at fixed f, summed
     over the batch entries (one gradient an entry), in phi's map basis."""
+    if _needs_term_split(phi):
+        return _term_split_fgrad(lambda p, w: torch.sum(dstheta.logpdf_term(
+            f=f, phi=p, theta=theta, d=d, which=w)), TERMS, phi)
     _, g = fvalue_and_grad(
         lambda p: torch.sum(dstheta.logpdf(f=f, phi=p, theta=theta, d=d)))(phi)
     return g
@@ -707,12 +774,18 @@ def MAP_marg(ds: DataSet, theta=None, generator=None, phistart=None, nsteps=10,
     on ds's device, seeded 0 when not given; the JAX package takes a key)
     through `_marg_simulate_d`. precision: "auto" (= 'high'), 'high' or
     'bf16' runs the phi-gradients at that precision, 'f32' strict; None is
-    strict everywhere, the f-steps included. mesh (the sims sharded over
-    several cards) is refused. Returns (phi, history), history one
-    dict(step, phi, gradnorm) a step."""
+    strict everywhere, the f-steps included. mesh (a parallel/mesh.py
+    mesh with a "batch" dimension): the sims split over its ranks, each
+    simulating the whole ensemble and keeping its entries, the mean
+    field one all_reduce, every rank returning the same phi (a batch that
+    does not divide over the ranks runs whole on each). Returns (phi,
+    history), history one dict(step, phi, gradnorm) a step."""
     _check_precision(precision, "precision", (None, "auto", "f32", "high", "bf16"))
+    shard = None
     if mesh is not None:
-        raise NotImplementedError(f"MAP_marg(mesh=...) is {_MESH}")
+        from ..parallel.mesh import batch_shard
+        shard = batch_shard(mesh, Nsims)
+    nlocal = shard.n if shard is not None else Nsims
     theta = theta or {}
     cg = dict(tol=1e-1, nsteps=500)
     cg.update(conjgrad_kwargs or {})
@@ -739,13 +812,20 @@ def MAP_marg(ds: DataSet, theta=None, generator=None, phistart=None, nsteps=10,
             g_data = phi_gradient(phi, f_wf, dstheta.d)
         if step <= nsteps_with_meanfield_update:
             with timed("MAP_marg/mean_field"):
-                phi_b = repeat_batch(phi, Nsims)
                 with torch.no_grad():
-                    d_sims = _marg_simulate_d(dstheta, theta, phi_b, generator, step - 1)
+                    # every rank simulates the whole ensemble, as the
+                    # unsharded run does, and keeps its entries
+                    d_sims = _marg_simulate_d(dstheta, theta, repeat_batch(phi, Nsims),
+                                              generator, step - 1)
+                if shard is not None:
+                    d_sims = shard.slice(d_sims)
+                phi_b = repeat_batch(phi, nlocal)
                 f_wf_sims, _ = argmaxf_logpdf(dstheta.replace(d=d_sims), phi=phi_b, theta=theta,
-                                              fstart=f_wf_sims, conjgrad_kwargs=cg)
+                                              fstart=f_wf_sims, conjgrad_kwargs=cg, shard=shard)
                 g_sims = phi_gradient(phi_b, f_wf_sims, d_sims)
-                gbar = Field(torch.mean(g_sims.arr, dim=0), g_sims.basis, g_sims.proj)
+                gmean = (torch.mean(g_sims.arr, dim=0) if shard is None
+                         else shard.reduce(torch.sum(g_sims.arr, dim=0), "sum") / Nsims)
+                gbar = Field(gmean, g_sims.basis, g_sims.proj)
         if gbar is None:
             # no mean-field estimate yet (nsteps_with_meanfield_update < 1)
             gbar = zeros_like_field(g_data)

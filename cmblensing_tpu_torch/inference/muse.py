@@ -32,8 +32,12 @@ generator state the draw began with (`_simulate_sims`), so the noise,
 f and phi realisations cancel in the differences (the JAX package reuses
 the draw's key).
 
-``mesh=`` (the ensemble sharded over several cards) is refused: ROADMAP
-Queue 1 item 9.
+``mesh=`` splits each ensemble over the ranks of the mesh's "batch"
+dimension (parallel/mesh.py::batch_shard): each rank simulates the whole
+ensemble and keeps its sims, runs their batched MAP_joint (its stop tests
+and line-search verdicts read every rank's entries: `shard=`,
+core/shard.py) and their scores, and the scores are gathered, so that
+every rank holds the same sbar, J, H and theta.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ import torch
 
 from ..models.dataset import DataSet
 from ..utils.timing import timed
-from .maximization import _MESH, MAP_joint
+from .maximization import MAP_joint
 
 
 # --- theta as one flat vector ----------------------------------------------
@@ -177,10 +181,18 @@ def muse(ds: DataSet, theta0, nsims=20, nsteps=5, alpha=0.7, generator=None, MAP
     from `generator` (a torch.Generator on ds's device, seeded 0 when not
     given; the JAX package takes a key) through `_simulate_sims`.
 
+    mesh (a parallel/mesh.py mesh with a "batch" dimension) splits each
+    ensemble over its ranks (module docstring); a nsims that does not
+    divide over them runs whole on each.
+
     Returns dict(theta, history, H, J, Sigma = H^-1 J H^-T, labels), the
-    matrices (nflat, nflat) over the flat entries named by labels."""
+    matrices (nflat, nflat) over the flat entries named by labels; each
+    history entry holds the step's theta (after it), s_data, sbar and the
+    H it stepped with."""
+    shard = None
     if mesh is not None:
-        raise NotImplementedError(f"muse(mesh=...) is {_MESH}")
+        from ..parallel.mesh import batch_shard
+        shard = batch_shard(mesh, nsims)
     spec = _theta_spec(theta0)
     nflat = _spec_size(spec)
     tflat = _spec_pack(theta0, spec)
@@ -212,16 +224,17 @@ def muse(ds: DataSet, theta0, nsims=20, nsteps=5, alpha=0.7, generator=None, MAP
         """Scores s(theta_eval, d_i), (nsims, nflat), of the draw's sims
         d_i ~ P(d | theta_sim): one batched MAP_joint over the ensemble,
         its phi kept in phis[0] for the next warm start."""
-        with timed("muse/simulate"):
-            with torch.no_grad():
-                d_b = _simulate_sims(ds, theta_sim, draw, nsims, generator, states[draw])
-        dsd = ds.replace(d=d_b)
+        with timed("muse/simulate"), torch.no_grad():
+            d_b = _simulate_sims(ds, theta_sim, draw, nsims, generator, states[draw])
+        dsd = ds.replace(d=d_b if shard is None else shard.slice(d_b))
         with timed(label):
-            res = MAP_joint(dsd, theta=theta_eval, phistart=phis[0], **MAP_kw)
+            res = MAP_joint(dsd, theta=theta_eval, phistart=phis[0], shard=shard, **MAP_kw)
         phis[0] = res["phi"]
         with timed("muse/theta_score"):
             s = _theta_score_batch(dsd, res["f"], res["phi"], _theta_vec(theta_eval, spec, device),
                                    spec)
+            if shard is not None:
+                s = shard.gather(s)
         return s.cpu().numpy().reshape(nsims, nflat)
 
     def new_draw():
@@ -252,7 +265,7 @@ def muse(ds: DataSet, theta0, nsims=20, nsteps=5, alpha=0.7, generator=None, MAP
         tcur = _spec_pack(theta, spec)
         cap = 0.5 * np.maximum(np.abs(tcur), 0.1)
         theta = as_dict(tcur + np.clip(alpha * dtheta, -cap, cap))
-        history.append(dict(step=step, theta=dict(theta), s_data=s_data, sbar=sbar))
+        history.append(dict(step=step, theta=dict(theta), s_data=s_data, sbar=sbar, H=H.copy()))
         if progress:
             print(f"muse step {step}: theta={theta}")
 

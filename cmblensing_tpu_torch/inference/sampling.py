@@ -14,8 +14,15 @@ Randomness comes from one ``torch.Generator`` held in the state under
 through ``core/ops.py::simulate_op`` (white noise by
 ``core/field.py::white_noise_like``), every uniform through `_uniform`.
 
-Not ported: ``mesh=`` (the chains sharded over several cards, ROADMAP
-Queue 1 item 9).
+``sample_joint(mesh=...)`` splits the chains over the ranks of the
+mesh's "batch" dimension (parallel/mesh.py::batch_shard), whose
+core/shard.py::BatchShard the state holds under "shard": every rank
+holds the whole generator state and draws the whole batch's numbers,
+keeping its chains' (`_draw`, maximization.py::simulate_entries), so
+that each chain gets the numbers it gets unsharded; the theta pass grids
+every chain's logpdf on every rank; the records are gathered, so the
+chains come back whole on every rank, and rank 0 alone writes the
+checkpoints, from which every rank resumes.
 """
 from __future__ import annotations
 
@@ -34,12 +41,24 @@ from ..core.proj import ProjLambert
 from ..models.dataset import DataSet, Mixed, mix, unmix
 from ..utils.progress import progress_bar
 from ..utils.timing import timed, timer_report, timers_snapshot
-from .maximization import _argmaxf_core, _fid
+from .maximization import _argmaxf_core, _fid, simulate_entries
+
+# what a sampler state holds besides its chains: the source of its draws
+# and, under mesh=, which chains are this rank's; never saved or gathered
+_RUNTIME = ("generator", "shard")
 
 
 def _uniform(generator, shape):
     """Uniform [0, 1) draws of `shape` from `generator`, on its device."""
     return torch.rand(shape, generator=generator, device=generator.device)
+
+
+def _draw(shard, batch_shape, make):
+    """make(batch_shape), or with a shard (batch_shape's leading axis this
+    rank's chains) make(the whole batch's shape) sliced to them."""
+    if shard is None:
+        return make(tuple(batch_shape))
+    return shard.slice(make((shard.total,) + tuple(batch_shape)[1:]))
 
 
 # =========================================================================
@@ -76,16 +95,18 @@ def mass_matrix_phi(theta, ds: DataSet):
     return Diag(Field(ig2 * (icp + inp), Cphi.diag.basis, Cphi.diag.proj))
 
 
-def hmc_step(generator, U, x, Lambda, U_grad=None, N=25, eps=0.01, always_accept=False):
+def hmc_step(generator, U, x, Lambda, U_grad=None, N=25, eps=0.01, always_accept=False,
+             shard=None):
     """One HMC step (src/sampling.jl:405-419): a momentum p ~ N(0, Lambda)
     of x's batch shape, a leapfrog trajectory, and each batch entry
     accepted where log(u) < dH (u uniform) or always_accept. U is the
-    log-posterior, per batch entry. Returns (x, dH, accept)."""
+    log-posterior, per batch entry. With a shard (x this rank's chains)
+    the draws are the whole batch's, sliced. Returns (x, dH, accept)."""
     if U_grad is None:
         U_grad = fgrad(lambda y: torch.sum(U(y)))
-    p = simulate_op(generator, Lambda, batch_shape=x.batch_shape)
+    p = _draw(shard, x.batch_shape, lambda bs: simulate_op(generator, Lambda, batch_shape=bs))
     dH, xt, _ = symplectic_integrate(x, p.to(x.basis), Lambda, U_grad, N=N, eps=eps, U=U)
-    logu = torch.log(_uniform(generator, dH.shape))
+    logu = torch.log(_draw(shard, dH.shape, lambda bs: _uniform(generator, bs)))
     accept = torch.logical_or(torch.as_tensor(bool(always_accept), device=dH.device), logu < dH)
     x_new = Field(torch.where(batch_broadcast(accept, x), xt.to(x.basis).arr, x.arr), x.basis,
                   x.proj)
@@ -156,7 +177,8 @@ def grid_and_sample(generator, logpdf_fn, xs, nsamples=1, smooth_frac=0.1, batch
 # Gibbs passes (reference sample_joint, src/sampling.jl:180-335)
 # =========================================================================
 # Each pass takes and returns the state dict; the state's "generator" is
-# the source of every draw. Passes run under torch.no_grad(), the HMC
+# the source of every draw, its "shard" (None unless under mesh=) says
+# which chains of the whole batch's draws are this rank's. Passes run under torch.no_grad(), the HMC
 # gradient enabling autograd for itself (core/field.py::fvalue_and_grad).
 
 @torch.no_grad()
@@ -166,9 +188,9 @@ def gibbs_sample_f(state, ds, conjgrad_kwargs):
     solve given d - d_sim, from state["f"] (reference src/sampling.jl:388)."""
     cg = dict(tol=1e-1, nsteps=500)
     cg.update(conjgrad_kwargs or {})
-    theta, phi = state["theta"], state["phi"]
-    sim = ds.simulate(state["generator"], theta=theta, phi=phi)
-    df, _ = _argmaxf_core(ds, theta, phi, ds.d - sim["d"], state.get("f"), True, None,
+    theta, phi, shard = state["theta"], state["phi"], state.get("shard")
+    sim = simulate_entries(ds, state["generator"], shard, theta=theta, phi=phi)
+    df, _ = _argmaxf_core(ds, theta, phi, ds.d - sim["d"], state.get("f"), True, None, shard,
                           nsteps=int(cg["nsteps"]), tol=float(cg["tol"]),
                           fixed_iters=bool(cg.get("fixed_iters", False)))
     return dict(state, f=sim["f"] + df.to(sim["f"].basis))
@@ -189,7 +211,7 @@ def gibbs_unmix(state, ds):
     return dict(state, f=u["f"], phi=u["phi"])
 
 
-def _hmc_phi(ds, generator, f_mix, phi_mix, theta, N, eps, always_accept):
+def _hmc_phi(ds, generator, f_mix, phi_mix, theta, N, eps, always_accept, shard=None):
     """One HMC trajectory on phi° of the mixed posterior at fixed f°."""
     mixed = Mixed(ds)
 
@@ -197,7 +219,7 @@ def _hmc_phi(ds, generator, f_mix, phi_mix, theta, N, eps, always_accept):
         return mixed.logpdf(f_mix=f_mix, phi_mix=pm, theta=theta)
 
     return hmc_step(generator, U, phi_mix, mass_matrix_phi(theta, ds), N=N, eps=eps,
-                    always_accept=always_accept)
+                    always_accept=always_accept, shard=shard)
 
 
 @torch.no_grad()
@@ -207,7 +229,8 @@ def gibbs_sample_phi(state, ds, symp_kwargs, always_accept=False):
     for kw in symp_kwargs:
         phi_mix, dH, accept = _hmc_phi(ds, state["generator"], state["f_mix"], phi_mix,
                                        state["theta"], int(kw.get("N", 25)),
-                                       float(kw.get("eps", 0.01)), bool(always_accept))
+                                       float(kw.get("eps", 0.01)), bool(always_accept),
+                                       state.get("shard"))
     return dict(state, phi_mix=phi_mix, dH=dH, accept=accept)
 
 
@@ -215,20 +238,27 @@ def gibbs_sample_slice_theta(name, xs):
     """A pass that slice-samples the scalar theta[name] on the grid xs
     (reference gibbs_sample_slice_θ!, src/sampling.jl:427-437): the mixed
     logpdf at each grid value in turn, each evaluation over every chain
-    at once; one value a chain."""
+    at once; one value a chain. With the state's shard every rank grids
+    every chain's logpdf and draws for each, keeping its chains'."""
 
     @torch.no_grad()
     def pass_fn(state, ds, **_):
         theta = dict(state["theta"])
         mixed = Mixed(ds)
+        shard = state.get("shard")
 
         def lp_grid(vs):
-            return torch.stack([mixed.logpdf(f_mix=state["f_mix"], phi_mix=state["phi_mix"],
-                                             theta=dict(theta, **{name: float(v)}))
-                                for v in vs])
+            lps = torch.stack([mixed.logpdf(f_mix=state["f_mix"], phi_mix=state["phi_mix"],
+                                            theta=dict(theta, **{name: float(v)}))
+                               for v in vs])
+            return lps if shard is None or lps.ndim < 2 else shard.gather(lps.T).T
 
         val, _, _ = grid_and_sample(state["generator"], lp_grid, xs, batched=True)
-        theta[name] = float(np.asarray(val).ravel()[0]) if np.size(val) == 1 else val
+        if shard is not None and np.size(val) == shard.total > 1:
+            val = shard.slice(np.asarray(val))
+        else:
+            val = float(np.asarray(val).ravel()[0]) if np.size(val) == 1 else val
+        theta[name] = val
         return dict(state, theta=theta)
 
     return pass_fn
@@ -263,10 +293,19 @@ def sample_joint(ds: DataSet, nsamps_per_chain, nchains=1, generator=None, theta
     (fields every nsavemaps steps, on the host) are appended to
     <filename>.ckpt by the native writer; resume=True continues from the
     last record, its draws where they left off. verbose_timing prints
-    each step's split by pass. Returns Chains with one batched chain."""
+    each step's split by pass. mesh (a parallel/mesh.py mesh with a
+    "batch" dimension) splits the chains over its ranks (module
+    docstring), the passes reading this rank's core/shard.py::BatchShard
+    from the state's "shard"; nchains that do not divide over them run
+    whole on each.
+    Returns Chains with one batched chain."""
+    shard = None
     if mesh is not None:
-        raise NotImplementedError("sample_joint(mesh=...) is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
+        from ..parallel.mesh import batch_shard
+        shard = batch_shard(mesh, nchains)
+    nlocal = shard.n if shard is not None else nchains
+    whole = (lambda st: _gather_state(st, shard)) if shard is not None else (lambda st: st)
+    writes = mesh is None or torch.distributed.get_rank() == 0
     proj = ds.d.proj
     if generator is None:
         generator = torch.Generator(device=proj.device)
@@ -281,6 +320,8 @@ def sample_joint(ds: DataSet, nsamps_per_chain, nchains=1, generator=None, theta
     chain = []
     if filename and resume and os.path.exists(_ckpt_name(filename)):
         states, start_step = _load_last_chunk(filename, proj, generator)
+        if shard is not None:
+            states = _slice_state(states, shard)
         if progress:
             print(f"Resuming chains at step {start_step}")
     else:
@@ -291,15 +332,22 @@ def sample_joint(ds: DataSet, nsamps_per_chain, nchains=1, generator=None, theta
                 theta[name] = lo + (hi - lo) * float(_uniform(generator, ()))
         with torch.no_grad():
             if isinstance(phi_start, str) and phi_start == "prior":
-                phi = simulate_op(generator, Cphi, batch_shape=(nchains,))
+                phi = _draw(shard, (nlocal,),
+                            lambda bs: simulate_op(generator, Cphi, batch_shape=bs))
                 phi = phi.to(phi.basis.with_space("map"))
             elif phi_start is None or (not isinstance(phi_start, Field) and phi_start == 0):
                 phi = repeat_batch(zeros_like_field(Cphi.diag).to(
-                    Cphi.diag.basis.with_space("map")), nchains)
+                    Cphi.diag.basis.with_space("map")), nlocal)
+            elif phi_start.batch_shape:
+                phi = phi_start if shard is None else shard.slice(phi_start)
             else:
-                phi = phi_start if phi_start.batch_shape else repeat_batch(phi_start, nchains)
+                phi = repeat_batch(phi_start, nlocal)
         states = dict(generator=generator, phi=phi, theta=theta, step=0)
-    ds_b = ds if ds.d.batch_shape else ds.replace(d=repeat_batch(ds.d, nchains))
+    states["shard"] = shard
+    if ds.d.batch_shape:
+        ds_b = ds if shard is None else ds.replace(d=shard.slice(ds.d))
+    else:
+        ds_b = ds.replace(d=repeat_batch(ds.d, nlocal))
 
     if gibbs_passes is None:
         def passes(state):
@@ -328,7 +376,7 @@ def sample_joint(ds: DataSet, nsamps_per_chain, nchains=1, generator=None, theta
     # the native writer appends on its own thread: sampling never waits
     # on the disk; records are CRC-protected for a crash's resume
     writer = None
-    if filename:
+    if filename and writes:
         from ..native import CheckpointWriter
         writer = CheckpointWriter(_ckpt_name(filename), append=bool(resume))
     chunk = []
@@ -342,22 +390,31 @@ def sample_joint(ds: DataSet, nsamps_per_chain, nchains=1, generator=None, theta
                 if verbose_timing:
                     print(f"--- gibbs step {step} timing ---\n" + timer_report(since=snap),
                           flush=True)
-                entry = _filter_for_saving(states, step, nsavemaps)
+                entry = _filter_for_saving(whole(_saved(states, step, nsavemaps)), step,
+                                           nsavemaps)
                 chain.append(entry)
                 chunk.append(entry)
                 if progress:
                     sv = {k: float(torch.mean(torch.as_tensor(entry[k], dtype=torch.float64)))
                           for k in ("logpdf", "accept") if entry.get(k) is not None}
                     pbar.update(**sv)
-                if writer and step % nfilewrite == 0:
-                    _write_chunk(writer, chunk, states)
+                if filename and step % nfilewrite == 0:
+                    full = whole(states)
+                    if writer:
+                        _write_chunk(writer, chunk, full)
                     chunk = []
-            if writer and chunk:
-                _write_chunk(writer, chunk, states)
+            if filename and chunk:
+                full = whole(states)
+                if writer:
+                    _write_chunk(writer, chunk, full)
     finally:
         if writer:
             writer.flush()
             writer.close()
+    if mesh is not None:
+        # every rank returns after rank 0 has closed the checkpoint
+        from ..parallel.mesh import barrier
+        barrier(mesh)
 
     from .chains import Chains
     return Chains([chain])
@@ -398,11 +455,49 @@ def _host(v):
 
 
 def _filter_for_saving(state, step, nsavemaps):
-    """What a chain keeps of a step: everything but the generator, on the
-    host, fields only every nsavemaps steps."""
+    """What a chain keeps of a step: everything but the generator and the
+    shard, on the host, fields only every nsavemaps steps."""
     return dict({k: _host(v) for k, v in state.items()
-                 if k != "generator" and (not isinstance(v, Field) or step % nsavemaps == 0)},
+                 if k not in _RUNTIME and (not isinstance(v, Field) or step % nsavemaps == 0)},
                 step=step)
+
+
+def _saved(state, step, nsavemaps):
+    """The entries of the state a step's record keeps (`_filter_for_saving`)."""
+    return {k: v for k, v in state.items()
+            if k not in _RUNTIME and (not isinstance(v, Field) or step % nsavemaps == 0)}
+
+
+def _per_chain(v, n):
+    return ((isinstance(v, Field) and v.batch_shape[:1] == (n,))
+            or (isinstance(v, (torch.Tensor, np.ndarray)) and v.ndim >= 1 and v.shape[0] == n))
+
+
+def _gather_state(state, shard):
+    """A state whose per-chain values (fields, tensors and theta arrays
+    with this rank's chains leading) hold every chain, on every rank."""
+    def one(v):
+        if isinstance(v, dict):
+            return {k: one(w) for k, w in v.items()}
+        if not _per_chain(v, shard.n):
+            return v
+        if isinstance(v, Field):
+            return Field(shard.gather(v.arr), v.basis, v.proj)
+        if isinstance(v, np.ndarray):
+            return shard.gather(torch.as_tensor(v)).numpy()
+        if v.dtype == torch.bool:
+            return shard.gather(v.to(torch.uint8)).bool()
+        return shard.gather(v)
+    return {k: (v if k in _RUNTIME else one(v)) for k, v in state.items()}
+
+
+def _slice_state(state, shard):
+    """This rank's chains of a whole state (a resumed checkpoint's)."""
+    def one(v):
+        if isinstance(v, dict):
+            return {k: one(w) for k, w in v.items()}
+        return shard.slice(v) if _per_chain(v, shard.total) else v
+    return {k: (v if k in _RUNTIME else one(v)) for k, v in state.items()}
 
 
 def _ckpt_name(filename):
@@ -410,7 +505,7 @@ def _ckpt_name(filename):
 
 
 def _write_chunk(writer, chunk, states):
-    state = {k: _host(v) for k, v in states.items() if k != "generator"}
+    state = {k: _host(v) for k, v in states.items() if k not in _RUNTIME}
     state["generator_state"] = states["generator"].get_state()
     writer.write(pickle.dumps(dict(chunk=chunk, state=state)))
 

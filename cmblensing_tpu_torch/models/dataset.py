@@ -299,6 +299,18 @@ class Mixed:
         lp = ds.logpdf(f=u["f"], phi=u["phi"], theta=theta, d=d)
         return lp - logdet_rel(ds.D, theta) - logdet_rel(ds.G, theta)
 
+    def logpdf_term(self, f_mix=None, phi_mix=None, theta=None, d=None, which="prior"):
+        """One additive piece of the mixed logpdf (DataSet.logpdf_term):
+        the D and G logdets ride the "prior" term, so that the terms sum
+        to logpdf."""
+        ds = self.ds
+        theta = theta or {}
+        u = unmix(ds, f_mix=f_mix, phi_mix=phi_mix, theta=theta)
+        lp = ds.logpdf_term(f=u["f"], phi=u["phi"], theta=theta, d=d, which=which)
+        if which == "prior":
+            lp = lp - logdet_rel(ds.D, theta) - logdet_rel(ds.G, theta)
+        return lp
+
 
 def mix(ds: DataSet, f=None, phi=None, theta=None):
     """(f, phi) -> (f°, phi°): f° = L(phi) D(theta) f, phi° = G(theta) phi,

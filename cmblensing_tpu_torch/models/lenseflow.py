@@ -32,7 +32,8 @@ Four integration backends, chosen with `set_lenseflow_backend` or
              the reference the kernels are held to at either precision.
   'plain'  — RK4 over torch ops with FFT derivatives (ops/deriv.py), the
              backward flow with its delta-phi accumulation hoisted out of
-             the time loop.
+             the time loop, its (f, delta f) state in bfloat16 under
+             CMBL_BWD_STATE_DTYPE=bf16 (`_backward_flow_scan`).
 
 The 'kernel', 'matmul' and 'uni' flows run at the matmul precision in
 force when the operator is applied (ops/deriv.py::precision_ctx: 'f32',
@@ -45,6 +46,7 @@ The 'plain' backend's FFT derivatives ignore it.
 from __future__ import annotations
 
 import contextlib
+import os
 
 import numpy as np
 import torch
@@ -164,8 +166,18 @@ def _backward_flow_scan(f1, dy, g, h, proj, t1, t0, nsteps):
     The delta-phi accumulation is linear in the time-local integrands u
     and s_ij = t p_j u_i, so the five integrand planes (u_x, u_y, s_xx,
     s_yx + s_xy, s_yy) are accumulated with the RK4 weights and
-    `div_plus_dij5` is applied once after the loop."""
+    `div_plus_dij5` is applied once after the loop.
+
+    CMBL_BWD_STATE_DTYPE=bf16 (read at each call, as the JAX package
+    reads it at trace time; the plain backend's flow alone, as there the
+    scan's alone): the (f, delta f) state is rounded to bfloat16 wherever
+    the JAX package stores it (each RK4 stage's input and each step's
+    result), the delta-phi accumulators stay float32."""
     hstep = (t0 - t1) / nsteps
+    if os.environ.get("CMBL_BWD_STATE_DTYPE") == "bf16":
+        rnd = lambda x: x.to(torch.bfloat16).to(x.dtype)
+    else:
+        rnd = lambda x: x
 
     def integrands(t, f, df):
         px, py = _p_t(t, g, h)
@@ -182,18 +194,20 @@ def _backward_flow_scan(f1, dy, g, h, proj, t1, t0, nsteps):
         return (dfdt, ddf), acc
 
     batch = torch.broadcast_shapes(f1.shape[:-3], dy.shape[:-3], g[0].shape[:-2])
-    f = f1.expand(batch + f1.shape[-3:])
-    df = dy.expand(batch + dy.shape[-3:])
+    f = rnd(f1.expand(batch + f1.shape[-3:]))
+    df = rnd(dy.expand(batch + dy.shape[-3:]))
     zplane = torch.zeros(batch + f1.shape[-2:], dtype=f1.dtype, device=f1.device)
     acc = (zplane,) * 5
     for i in range(nsteps):
         t = t1 + i * hstep
         k1, a1 = integrands(t, f, df)
-        k2, a2 = integrands(t + hstep / 2, f + (hstep / 2) * k1[0], df + (hstep / 2) * k1[1])
-        k3, a3 = integrands(t + hstep / 2, f + (hstep / 2) * k2[0], df + (hstep / 2) * k2[1])
-        k4, a4 = integrands(t + hstep, f + hstep * k3[0], df + hstep * k3[1])
-        f = f + (hstep / 6) * (k1[0] + 2 * (k2[0] + k3[0]) + k4[0])
-        df = df + (hstep / 6) * (k1[1] + 2 * (k2[1] + k3[1]) + k4[1])
+        k2, a2 = integrands(t + hstep / 2, rnd(f + (hstep / 2) * k1[0]),
+                            rnd(df + (hstep / 2) * k1[1]))
+        k3, a3 = integrands(t + hstep / 2, rnd(f + (hstep / 2) * k2[0]),
+                            rnd(df + (hstep / 2) * k2[1]))
+        k4, a4 = integrands(t + hstep, rnd(f + hstep * k3[0]), rnd(df + hstep * k3[1]))
+        f = rnd(f + (hstep / 6) * (k1[0] + 2 * (k2[0] + k3[0]) + k4[0]))
+        df = rnd(df + (hstep / 6) * (k1[1] + 2 * (k2[1] + k3[1]) + k4[1]))
         acc = tuple(a + (hstep / 6) * (i1 + 2 * (i2 + i3) + i4)
                     for a, i1, i2, i3, i4 in zip(acc, a1, a2, a3, a4))
     dphi = _deriv.div_plus_dij5(*acc, proj)[..., None, :, :]

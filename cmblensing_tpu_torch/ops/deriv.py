@@ -130,9 +130,12 @@ def deriv_mats(proj):
 def ddx_ddy(mats, precision="f32"):
     """(d/dx, d/dy) over (..., Ny, Nx) planes through the kernels'
     operands, dense (DxT, Dy) circulants or FactoredOps, at 'f32', 'high'
-    or 'bf16'."""
+    or 'bf16'; or operands that make their own pair (`mats.ddx_ddy`: the
+    spatially sharded blocks of parallel/spatial.py::ShardedDerivs)."""
     if precision not in PRECISIONS:
         raise ValueError(f"derivative products at {precision!r}: one of {PRECISIONS}")
+    if hasattr(mats, "ddx_ddy"):
+        return mats.ddx_ddy(precision)
     if isinstance(mats, FactoredOps):
         if precision != "f32" and mats.FXS is None:
             raise ValueError(f"{precision!r} factored derivatives need the split blocks "

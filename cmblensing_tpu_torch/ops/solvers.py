@@ -15,6 +15,7 @@ import time
 
 import torch
 
+from ..core import shard as _shard
 from ..core.field import Field, dot as field_dot
 from ..core.proj_equirect import EquiRectField, coef_dot
 
@@ -102,7 +103,7 @@ def _solve(op, x):
 
 
 def conjugate_gradient(M, A, b, x0=None, nsteps=500, tol=1e-1, fixed_iters=False,
-                       record_history=False):
+                       record_history=False, dot=tree_dot, shard=None):
     """Solve A x = b (A positive definite) by preconditioned CG.
 
     M is an operator like A whose ``solve`` applies the preconditioner
@@ -116,7 +117,10 @@ def conjugate_gradient(M, A, b, x0=None, nsteps=500, tol=1e-1, fixed_iters=False
     be a tuple of keys from ("res", "x", "r"), and "x" and "r" add
     "x_history" and "r_history", the iterates and residuals stacked the
     same way along a leading axis (Fields in the first one's basis);
-    they hold nsteps + 1 states, so keep nsteps small."""
+    they hold nsteps + 1 states, so keep nsteps small. `dot` is the inner
+    product (per batch entry): a sharded solve passes one that sums over
+    the ranks. The stop test reads every entry's residual, with `shard`
+    (core/shard.py::BatchShard) every rank's."""
     keys = (("res",) if record_history is True else (record_history,)
             if isinstance(record_history, str) else tuple(record_history or ()))
     unknown = set(keys) - {"res", "x", "r"}
@@ -127,15 +131,15 @@ def conjugate_gradient(M, A, b, x0=None, nsteps=500, tol=1e-1, fixed_iters=False
     r = _tmap(lambda bi, axi: bi - axi, b, _apply(A, x0))
     z = _solve(M, r)
     p = z
-    res = res0 = tree_dot(r, z)
+    res = res0 = dot(r, z)
     x, bestx, bestres = x0, x0, res0
     hist = {"res": [res0], "x": [x0], "r": [r]}
     i = 0
     while i < nsteps:
-        if not fixed_iters and not bool(torch.any(res > tol)):
+        if not fixed_iters and not _shard.any_(shard, res > tol):
             break
         Ap = _apply(A, p)
-        pAp = tree_dot(p, Ap)
+        pAp = dot(p, Ap)
         # guarded divisions: in fixed-iteration mode the loop runs past
         # convergence, where res and pAp underflow to 0
         alpha = torch.where(pAp != 0, res / torch.where(pAp != 0, pAp, torch.ones_like(pAp)),
@@ -143,7 +147,7 @@ def conjugate_gradient(M, A, b, x0=None, nsteps=500, tol=1e-1, fixed_iters=False
         x = _axpy(alpha, p, x)
         r = _axpy(-alpha, Ap, r)
         z = _solve(M, r)
-        res_new = tree_dot(r, z)
+        res_new = dot(r, z)
         beta = torch.where(res != 0, res_new / torch.where(res != 0, res, torch.ones_like(res)),
                            torch.zeros_like(res))
         p = _axpy(beta, p, z)

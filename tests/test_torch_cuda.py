@@ -1785,3 +1785,42 @@ def test_curved_sky_on_card_matches_cpu():
             flat = ct.project(ct.HealpixField.from_map(m, pol="QU", device=dev), proj, method=method)
             out[dev] = (flat.arr.cpu(), ct.project(flat, hpx, method=method).arr.cpu())
         assert rel(out["cuda"][0], out["cpu"][0]) < tol and rel(out["cuda"][1], out["cpu"][1]) < tol
+
+
+_NCCL_TWO_RANKS = """
+import sys
+import cmblensing_tpu_torch as ct
+rank, port = int(sys.argv[1]), sys.argv[2]
+ct.distributed_initialize(f"localhost:{port}", 2, rank, backend="nccl")
+try:
+    ct.make_mesh(device="cuda")
+except ValueError as e:
+    print("REFUSED", "Duplicate GPU" in str(e))
+else:
+    print("ACCEPTED")
+"""
+
+
+@pytest.mark.cuda
+def test_nccl_mesh_refuses_two_ranks_on_one_card(tmp_path):
+    """Two ranks over NCCL on a one-card machine: make_mesh raises, naming
+    NCCL's refusal of two ranks on one device, and never falls back to
+    another backend."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    if not torch.cuda.is_available() or torch.cuda.device_count() != 1:
+        pytest.skip("needs a machine with exactly one CUDA card")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, "-c", _NCCL_TWO_RANKS, str(r), str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert "REFUSED True" in out, (out, err[-2000:])

@@ -629,10 +629,21 @@ def test_MAP_marg_with_jax_draws_matches_jax(marg_runs, what):
 
 @pytest.mark.parametrize("run", ["muse", "MAP_marg"])
 def test_mesh_is_refused_naming_the_queue_item(P16, run):
-    fn = ((lambda: tmuse.muse(P16["tds_b"], dict(Aphi_b=np.ones(NBINS)), mesh=object()))
-          if run == "muse" else (lambda: tm.MAP_marg(P16["tds"], mesh=object())))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        fn()
+    """mesh= is taken (ROADMAP Queue 1 item 9 is done): at one rank, a
+    world of one process over gloo, the run is the unsharded one, bit for
+    bit (several ranks: tests/test_torch_parallel.py)."""
+    mesh = ct.make_mesh(device="cpu")
+    if run == "muse":
+        kw = dict(nsims=2, nsteps=1, final_H=False,
+                  MAP_kwargs=dict(nsteps=1, conjgrad_kwargs=dict(tol=0.0, nsteps=3,
+                                                                 fixed_iters=True)))
+        a, b = (tmuse.muse(P16["tds_b"], dict(Aphi_b=np.ones(NBINS)), mesh=m, **kw)
+                for m in (mesh, None))
+        assert np.array_equal(a["theta"]["Aphi_b"], b["theta"]["Aphi_b"])
+    else:
+        kw = dict(nsteps=1, Nsims=2, conjgrad_kwargs=dict(tol=0.0, nsteps=3, fixed_iters=True))
+        a, b = (tm.MAP_marg(P16["tds"], mesh=m, **kw)[0] for m in (mesh, None))
+        assert torch.equal(a.arr, b.arr)
 
 
 # =========================================================================

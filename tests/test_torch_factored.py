@@ -15,10 +15,14 @@ against the JAX package on the same numpy inputs.
 
 The factored kernels take blocks of A = 128 on the card; the plain
 version takes any A, so these tests run at 32^2-64^2 with A = 2..32.
-Radix 16 and 32 (A = 4 and 2 at 64^2) are held to JAX's factored
-in-kernel derivatives built by `_factored_ops(n, delta, dtype, B)`, their
-butterfly metadata handed to the interpreted kernels through
-`_fmeta_from_key` (JAX's own operand cache is keyed without B).
+Radix 16 and 32 (A = 4 and 2 at 64^2) are held to the JAX package's
+plain XLA forms, where its interpreted Pallas kernels unroll B^2
+butterfly terms a derivative and take minutes: the apply at radix 32 to
+the in-kernel derivative body `_make_dd_any` run as XLA (the same jnp
+function; radix 16 stays interpreted), the flows to JAX's LenseFlow scan
+under its "factored" derivative mode at that radix (ops/factored_deriv.py::
+_apply_factored_batched; test_torch_high.py::_jax_xla_flow), both built
+from `_factored_ops(n, delta, dtype, B)`; radix 2 to 8 stay interpreted.
 The CUDA kernels themselves are held against this plain version on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -36,7 +40,7 @@ from cmblensing_tpu.ops.factored_deriv import _factored_ops as j_factored_ops
 
 import cmblensing_tpu_torch as ct
 from cmblensing_tpu_torch.models import lenseflow as tlf
-from test_torch_high import _jax_factored, _radix_case
+from test_torch_high import _jax_dd_xla, _jax_xla_flow, _radix_case
 from cmblensing_tpu_torch.ops import deriv as tderiv
 from cmblensing_tpu_torch.ops import factored_deriv as tfd
 from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
@@ -103,8 +107,13 @@ def test_factored_apply_matches_jax_in_kernel_and_dense(B):
         o_ref[0] = ddx(x_ref[:])
         o_ref[1] = ddy(x_ref[:])
 
-    ref = np.asarray(pl.pallas_call(kern, out_shape=jax.ShapeDtypeStruct((2, N, N), jnp.float32),
-                                    interpret=True)(jnp.asarray(x), FXt, FY))
+    if B == 32:
+        # the same body as XLA: the interpreter unrolls 32^2 butterfly terms
+        ref = _jax_dd_xla(x, (FXt, FY), fmeta, "f32")
+    else:
+        ref = np.asarray(pl.pallas_call(
+            kern, out_shape=jax.ShapeDtypeStruct((2, N, N), jnp.float32),
+            interpret=True)(jnp.asarray(x), FXt, FY))
     ops = tfd.factored_ops(tp, B, B)
     xt = torch.as_tensor(x)
     out = [tfd.apply_x(xt, ops.FX, ops.bfx).numpy(), tfd.apply_y(xt, ops.FY, ops.bfy).numpy()]
@@ -146,28 +155,25 @@ def _flow_inputs(B, N=32, ncomp=2):
 
 
 # radix 2 and 4 against JAX's dense in-kernel derivatives at 32^2 (the
-# same operator); radix 16 and 32 against its factored ones at 64^2
-# (`_radix_case`)
+# same operator); radix 16 and 32 against the JAX package's plain XLA
+# flows at that radix at 64^2 (`_radix_case`, test_torch_high.py::
+# _jax_xla_flow: its factored derivative `_apply_factored_batched`)
 FLOW_RADICES = [2, 4, 16, 32]
 _FA_KINDS = [("forward", 0.0, 1.0), ("forward", 1.0, 0.0), ("adjoint", 1.0, 0.0)]
 
 
-# every kind at radix 2, 4 and 16; L^H at radix 32 (whose interpreted
-# kernel takes a minute on a loaded CPU; its forward role is held at
-# 'high' in tests/test_torch_high.py)
+# every kind at radix 2, 4 and 16; L^H at radix 32
 @pytest.mark.parametrize("kind,t0,t1,B", [(*k, B) for B in (2, 4, 16) for k in _FA_KINDS]
                          + [(*_FA_KINDS[2], 32)])
 def test_factored_flow_matches_jax_fa_call_interpret(B, kind, t0, t1, monkeypatch):
     """L, L^-1 (forward kind run 1 -> 0) and L^H against the
-    component-gridded `_fa_call` on the same phi planes."""
+    component-gridded `_fa_call` on the same phi planes; at radix 16 and
+    32 against the JAX package's plain XLA flow at that radix."""
     N, ncomp, nsteps = _radix_case(B)
     jp, ops, planes, f, _ = _flow_inputs(B, N, ncomp)
     jplanes = tuple(jnp.asarray(p) for p in planes.numpy())
     if B > 8:
-        mats, fmeta = _jax_factored(N, B)
-        monkeypatch.setattr(plf, "_fmeta_from_key", lambda fkey: fmeta)
-        ref = plf._fa_call(jnp.asarray(f), jplanes, mats, kind, nsteps, t0, t1, "f32", True,
-                           ("f32", B))
+        ref = _jax_xla_flow(kind, f, planes, N, B, t0, t1, nsteps, monkeypatch)
     else:
         ref = plf._fa_call(jnp.asarray(f), jplanes, plf._mats_for(jp, np.float32), kind, nsteps,
                            t0, t1, "f32", True)
@@ -177,18 +183,21 @@ def test_factored_flow_matches_jax_fa_call_interpret(B, kind, t0, t1, monkeypatc
 
 @pytest.mark.parametrize("B", FLOW_RADICES)
 def test_factored_backward_flow_matches_jax_bv_flow_interpret(B, monkeypatch):
-    jderiv.set_deriv_mode("matmul")
+    """The backward flow against `_bv_flow` interpreted (radix 2 and 4),
+    or the JAX package's plain XLA backward flow at radix 16 and 32."""
     N, ncomp, nsteps = _radix_case(B)
     jp, ops, planes, f, dy = _flow_inputs(B, N, ncomp)
+    dphi, df0 = lfk.flow_bwd(torch.as_tensor(dy), torch.as_tensor(f), planes, ops, 0., 1., nsteps)
+    assert dphi.shape == (1, N, N) and df0.shape == f.shape
     if B > 8:
-        fmats, fmeta = _jax_factored(N, B)
-        monkeypatch.setattr(plf, "_fmats_for", lambda proj, dtype: (fmats, fmeta))
-        monkeypatch.setattr(plf, "_fmeta_from_key", lambda fkey: fmeta)
+        rdphi, rdf0 = _jax_xla_flow("backward", f, planes, N, B, 0.0, 1.0, nsteps, monkeypatch, dy)
+        assert rel(df0.numpy(), rdf0) < TOL
+        assert rel(dphi.numpy(), rdphi) < TOL
+        return
+    jderiv.set_deriv_mode("matmul")
     state = jnp.concatenate([jnp.asarray(f), jnp.asarray(dy), jnp.zeros((1, N, N), jnp.float32)])
     ref = plf._bv_flow(state, tuple(jnp.asarray(p) for p in planes.numpy()), jp, nsteps, 1.0, 0.0,
                        "f32", interpret=True)
-    dphi, df0 = lfk.flow_bwd(torch.as_tensor(dy), torch.as_tensor(f), planes, ops, 0., 1., nsteps)
-    assert dphi.shape == (1, N, N) and df0.shape == f.shape
     assert rel(df0.numpy(), ref[ncomp:2 * ncomp]) < TOL
     assert rel(dphi.numpy(), ref[2 * ncomp:]) < TOL
 

@@ -412,7 +412,9 @@ def test_sample_joint_verbose_timing(capsys):
 
 def test_sample_joint_theta_range_and_phi_starts(sim32):
     """A theta slice pass draws one value a chain inside its grid; phi
-    starts from zero or a given field; mesh= is refused."""
+    starts from zero or a given field; mesh= at one rank (a world of one
+    process over gloo) is the unsharded run (several ranks:
+    tests/test_torch_parallel.py)."""
     ds = sim32["ds"]
     kw = dict(nchains=2, symp_kwargs=[dict(N=2, eps=0.01)],
               conjgrad_kwargs=dict(tol=0.0, nsteps=3, fixed_iters=True))
@@ -425,8 +427,10 @@ def test_sample_joint_theta_range_and_phi_starts(sim32):
     proj = ds.d.proj
     res2 = ct.sample_joint(ds, 1, phi_start=ct.Field(phi1.arr, phi1.basis, proj), **kw)
     assert res2[0][0]["phi"].batch_shape == (2,)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ct.sample_joint(ds, 1, mesh=object())
+    res3 = ct.sample_joint(ds, 1, phi_start=ct.Field(phi1.arr, phi1.basis, proj),
+                           mesh=ct.make_mesh(device="cpu"), **kw)
+    assert torch.equal(res3[0][0]["logpdf"], res2[0][0]["logpdf"])
+    assert torch.equal(res3[0][0]["phi"].arr, res2[0][0]["phi"].arr)
 
 
 # =========================================================================
