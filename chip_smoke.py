@@ -219,6 +219,18 @@ port's two paths through the kernel backend:
               a 1024^2 P field to 512^2 and 2048^2 in both modes (card
               against CPU), the magnification matrix of the 1024^2 path's
               phi against the K1 planes, get_Dl.
+  phase 24    the port's user surface, no kernel of its own: (a) the nine
+              examples/torch/ scripts at their full sizes, each in a
+              process of its own, all started at once (06 and 09 over 2
+              gloo ranks sharing the card), each exiting 0 on its own
+              check, wall times, and the K2
+              flow and derivative launches of the five that lense (01, 02,
+              03, 05, 07); (b) the lensed-spectra anchor of
+              scripts/make_golden.py on the port's draws (256^2, 4 seeds, T,
+              E, B; scripts/torch_lensed_anchor.py) within
+              tests/test_golden.py's bounds; (c) MAP_joint at 1024^2 P,
+              strict and "auto" side by side (phases 7 and 9's runs; alone,
+              run_map's): s/step and whether each f-step re-ran strict.
 
     python3 chip_smoke.py --phase 13    (phase 1, the build, and phase 13 alone)
     python3 chip_smoke.py --phase 14    (phase 1, the build, and phase 14 alone)
@@ -230,6 +242,7 @@ port's two paths through the kernel backend:
     python3 chip_smoke.py --phase 20    (phase 1, the build, and phase 20 alone)
     python3 chip_smoke.py --phase 21    (phase 1, the build, and phase 21 alone)
     python3 chip_smoke.py --phase 22    (phase 1, the build, and phase 22 alone)
+    python3 chip_smoke.py --phase 24    (phase 1, the build, and phase 24 alone)
 
 Phases 13, 14 (c) and 16 take one 4096^2 P simulation (load_sim is
 seeded), loaded once in a whole run. Phases 7 and 8 measure the strict
@@ -615,6 +628,17 @@ PAR_CG = dict(tol=0.0, nsteps=15, fixed_iters=True)
 PAR_ONE_WF_TOL, PAR_WF_TOL, PAR_MAP_TOL, PAR_ENS_TOL = 1e-5, 1e-4, 1e-4, 1e-4
 PAR_MAP_UN_TOL, PAR_MARG_TOL, PAR_HALVES_TOL = 5e-3, 1e-3, 1e-6
 PAR_TIMEOUT, PAR_BUDGET_S = 900, 150
+# phase 24: the port's examples (examples/torch/) at full size, each in a
+# process of its own; the five that lense and differentiate at 64^2-256^2
+# run K2's dense flow and its derivative, the launches they report; 06 and
+# 09 start EXAMPLE_RANKS ranks sharing the card over gloo (NCCL refuses two
+# ranks on one card)
+EXAMPLES = ("01_lense_a_map.py", "02_posterior.py", "03_joint_MAP.py", "04_field_basics.py",
+            "05_sampling.py", "06_multichip.py", "07_muse.py", "08_equirect.py", "09_bigmap.py")
+EXAMPLES_LENSING = ("01_lense_a_map.py", "02_posterior.py", "03_joint_MAP.py",
+                    "05_sampling.py", "07_muse.py")
+EXAMPLES_RANKED = ("06_multichip.py", "09_bigmap.py")
+EXAMPLE_RANKS, EXAMPLE_TIMEOUT = 2, 600
 PAR_PATH_KERNELS = {
     "one_rank_flows_1024": ("fderiv", "rk4_update", "p_planes"),
     "sharded_flows_4096_rank0": ("fderiv", "rk4_update", "p_planes"),
@@ -6109,6 +6133,148 @@ def phase_parallel(torch, card, muse_ref=None):
     return launches, {"phase23_s": wall, "phase23_a_s": s_a, "phase23_bc_s": s_bc}
 
 
+def example_main(name):
+    """A port example run as its user runs it, in this process (the
+    subprocess of phase 24 (a)): the launch counters set to 0 just before,
+    and printed as one JSON line after, an example that passes its check."""
+    import runpy
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    where = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "torch")
+    sys.path.insert(0, where)
+    sys.argv = [os.path.join(where, name)]
+    lfk.reset_launches()
+    runpy.run_path(sys.argv[0], run_name="__main__")
+    import torch
+    torch.cuda.synchronize()
+    print("EXAMPLE_LAUNCHES " + json.dumps({k: v for k, v in lfk.LAUNCHES.items() if v}))
+    return 0
+
+
+def start_example(name):
+    """Phase 24 (a): start one example at full size on the card in a
+    process of its own (the launch-counting wrapper example_main, or for 06
+    and 09, which start their own ranks, the script itself). Returns
+    wait(card), which raises unless the example exits 0, as it does only
+    when its own check passes, and returns (s from start to exit,
+    launches)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CMBL_EXAMPLE_DEVICE=DEVICE, CMBL_EXAMPLE_BACKEND="gloo",
+               CMBL_EXAMPLE_RANKS=str(EXAMPLE_RANKS))
+    env.pop("CMBL_EXAMPLE_FAST", None)
+    cmd = ([sys.executable, os.path.join(root, "examples", "torch", name)]
+           if name in EXAMPLES_RANKED else [sys.executable, os.path.abspath(__file__), "--example", name])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+    def wait(card):
+        try:
+            stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT - (time.perf_counter() - t0))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        wall = time.perf_counter() - t0
+        checks = [ln for ln in stdout.splitlines() if ln.startswith("check:")]
+        if proc.returncode != 0 or not checks or any("FAILED" in ln for ln in checks):
+            raise AssertionError(f"phase 24: example {name} failed (rc {proc.returncode}):\n"
+                                 f"{stdout[-3000:]}\n{stderr[-4000:]}")
+        found = [ln for ln in stdout.splitlines() if ln.startswith("EXAMPLE_LAUNCHES ")]
+        launches = json.loads(found[-1].split(" ", 1)[1]) if found else {}
+        out = [ln for ln in stdout.splitlines() if ln.strip() and not ln.startswith("EXAMPLE_")]
+        for ln in out[-8:]:
+            print(f"phase 24: (a) {name}: {ln.strip()[:200]}")
+        print(f"phase 24: (a) {name}: exit 0 in {wall:.1f} s (its process's start and set-up "
+              f"included, beside the other examples); K2 launches {launches} [{card}]",
+              flush=True)
+        return wall, launches
+
+    return wait
+
+
+def north_star_ab(torch, card, beside=None):
+    """Phase 24 (c): MAP_joint at 1024^2 P as scripts/map_1024.py runs it
+    (run_map), strict (precision=None) and at "auto", side by side: s/step
+    and whether each f-step re-ran strict (the fixed-iteration re-check,
+    inference/maximization.py::AUTO_RECHECK_KAPPA); run_map prints and
+    bounds corr(phi_MAP, phi_true) and the logpdfs. In a whole run phases 7
+    and 9 made both runs (`beside`: {label: (s/step, history)}); alone
+    (--phase 24) run_map makes them here on one simulation. Returns
+    {label: (s/step, fallbacks)}."""
+    import cmblensing_tpu_torch as ct
+    from cmblensing_tpu_torch.inference.maximization import AUTO_RECHECK_KAPPA
+    if beside is None:
+        sim = ct.load_sim(thetapix=THETAPIX_MAP, Nside=N_MAP, pol="P", T=np.float32, seed=SEED,
+                          device=DEVICE)
+        beside = {label: run_map(torch, sim, 24, f"kernel, {label}", card, precision)[1:]
+                  for label, precision in (("strict", None), ("auto", "auto"))}
+        del sim
+        torch.cuda.empty_cache()
+    out = {}
+    for label, (s_step, hist) in beside.items():
+        fb = [bool(h["precision_fallback"]) for h in hist]
+        out[label] = (s_step, fb)
+        print(f"phase 24: (c) north star {N_MAP}^2 P {label}: {s_step:.4f} s/step, f-steps "
+              f"re-run strict {fb} (AUTO_RECHECK_KAPPA {AUTO_RECHECK_KAPPA:g}) [{card}]",
+              flush=True)
+    return out
+
+
+def phase_examples(torch, card, beside=None):
+    """Phase 24: the port's user surface on the card. (a) the nine
+    examples/torch/ scripts at their full sizes, each in a process of its
+    own, all started at once (start_example), each exiting 0 on its own
+    check; the K2 flow and
+    derivative launches of the five lensing examples, every one of K2's
+    flow kinds and its derivative launched by them; (b) the lensed-spectra
+    anchor on the port's draws (scripts/torch_lensed_anchor.py) within the
+    golden test's bounds, with its flow launches; (c) north_star_ab, on
+    phases 7 and 9's runs where `beside` holds them. Returns (launches of
+    the lensing examples, summed; timings)."""
+    from cmblensing_tpu_torch.ops import lenseflow_kernels as lfk
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import torch_lensed_anchor as anchor
+    t_start = time.perf_counter()
+    walls, total = {}, {}
+    # all at once: the card holds them, and each spends seconds starting
+    waits = {name: start_example(name) for name in EXAMPLES}
+    for name in EXAMPLES:
+        walls[name], launches = waits[name](card)
+        if name in EXAMPLES_LENSING:
+            if not any(k.startswith("flow_") for k in launches):
+                raise AssertionError(f"phase 24: {name} launched no K2 flow: {launches}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+    never = [k for k in DENSE_KERNELS if not any(total.get(k + sfx) for sfx in ("", "_high", "_bf16"))]
+    s_a = time.perf_counter() - t_start
+    print(f"phase 24: (a) the nine examples, run at once, {s_a:.1f} s; the five lensing "
+          f"examples' launches {total} [{card}]", flush=True)
+    if never:
+        raise AssertionError(f"phase 24: K2 kernels no lensing example launched: {never}")
+    torch.cuda.synchronize()
+    lfk.reset_launches()
+    t0 = time.perf_counter()
+    ratios = anchor.ratios(DEVICE)
+    torch.cuda.synchronize()
+    s_anchor = time.perf_counter() - t0
+    anchor_launches = {k: v for k, v in lfk.LAUNCHES.items() if v}
+    for spec, r in ratios.items():
+        print(f"phase 24: (b) lensed {spec} / CAMB over {anchor.SEEDS} seeds at {anchor.N}^2, bins "
+              f"of 100 in [300, 2000]: {np.round(r, 4).tolist()}, mean {np.mean(r):.4f} (bounds "
+              f"{anchor.BIN_TOL:g} a bin, {anchor.MEAN_TOL:g} the mean)")
+    print(f"phase 24: (b) {s_anchor:.2f} s, launches {anchor_launches} [{card}]", flush=True)
+    missed = anchor.misses(ratios)
+    if missed or not anchor_launches.get("flow_forward"):
+        raise AssertionError(f"phase 24: (b) the anchor misses its bounds: {missed}, "
+                             f"launches {anchor_launches}")
+    ab = north_star_ab(torch, card, beside)
+    wall = time.perf_counter() - t_start
+    print(f"phase 24: wall time {wall:.1f} s [{card}]")
+    return total, {"phase24_s": wall, "phase24_a_s": s_a, "phase24_examples_s": walls,
+                   "phase24_anchor": {k: r.tolist() for k, r in ratios.items()},
+                   "phase24_north_star_s_fallbacks": ab}
+
+
 def print_ptxas(log):
     """Phase 1: the build log's register lines and errors, and for the
     kernels on the cluster tile (fderiv_sm90.cu, fa_sm90.cu, bv_sm90.cu,
@@ -6145,6 +6311,8 @@ def main():
     if sys.argv[1:2] == ["--rank23"]:
         part, rank, world, port, outdir = sys.argv[2:7]
         return par_rank_main(torch, part, int(rank), int(world), int(port), outdir)
+    if sys.argv[1:2] == ["--example"]:
+        return example_main(sys.argv[2])
     import cmblensing_tpu_torch as ct
     from cmblensing_tpu_torch.ops import _build
 
@@ -6189,6 +6357,9 @@ def main():
     if sys.argv[1:] == ["--phase", "23"]:
         phase_parallel(torch, card)
         return 0
+    if sys.argv[1:] == ["--phase", "24"]:
+        phase_examples(torch, card)
+        return 0
     proj = ct.ProjLambert(N, N, thetapix=3, T=np.float32, device=DEVICE)
     kernels, _ = phase_kernels(torch, proj)
     ds, f_mix, phi_mix, launches = phase_slice(torch)
@@ -6210,6 +6381,7 @@ def main():
     uni_tiers, uni_tier_launches, uni_tier_timing = phase_uni_tiers(torch, card, fctx, gctx,
                                                                     beside, wctx)
     map_sim = gctx["sim"]
+    north = {"strict": beside[7], "auto": beside[9]}
     del fctx, gctx, beside, wctx
     torch.cuda.empty_cache()
     uni_large, uni_large_launches, uni_large_timing = phase_uni_large(torch, card, large_timing)
@@ -6222,6 +6394,8 @@ def main():
     del map_sim
     torch.cuda.empty_cache()
     par_path_launches, par_timing = phase_parallel(torch, card, MUSE_CACHE.get("ref"))
+    torch.cuda.empty_cache()
+    example_launches, example_timing = phase_examples(torch, card, north)
 
     replaces = {"deriv": "cmblensing_tpu/ops/pallas_lenseflow.py:86",
                 "p_planes": "cmblensing_tpu/ops/pallas_lenseflow.py:303",
@@ -6370,6 +6544,8 @@ def main():
         for path, counts in par_path_launches.items():
             if counts.get(name):
                 rec[f"launches_parallel_{path}"] = counts[name]
+        if example_launches.get(name):
+            rec["launches_examples_lensing"] = example_launches[name]
         for (tier, kind), d in ens_flows.items():
             if name == f"flow_{kind}" + ("" if tier == "f32" else "_" + tier):
                 rec["ensemble"] = {k: d[k] for k in ("nb", "max_abs_err", "rel", "ms", "plain_ms",
@@ -6379,7 +6555,7 @@ def main():
                    "gradlnP_1024_uni": uni_grad_ms, "MAP_joint_1024_uni_s_per_step": uni_s_step,
                    **high_timing, **dense_high_timing, **wf_timing, **large_timing,
                    **bf16_timing, **uni_tier_timing, **uni_large_timing, **sample_timing,
-                   **ens_timing, **opt_timing, **curved_timing, **par_timing,
+                   **ens_timing, **opt_timing, **curved_timing, **par_timing, **example_timing,
                    **{f"flow_{kind}_{case}_{tier}_ms_warm_cold": (d["ms"], d["cold_ms"])
                       for (case, tier, kind), d in flows.items() if "ms" in d}})
     print("main path ms (kernel, plain):", json.dumps(timing))

@@ -100,6 +100,21 @@ def fftsyms(Ny: int, Nx: int):
     return ireal, iimag, (src_y, src_x), conj_mask
 
 
+def global_cache_clear():
+    """Clear the FFT and derivative caches the package keeps: the rfft half
+    plane's symmetries (`fftsyms`), the NUFFT's per-axis constants, the
+    factored derivative matrices, and torch's cuFFT plan cache on every
+    card. Nothing else is cached here; the JAX package's matmul-DFT
+    matrices have no counterpart."""
+    from .factored_deriv import factored_op
+    from .nufft import _axis_consts
+    for cached in (fftsyms, factored_op, _axis_consts):
+        cached.cache_clear()
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            torch.backends.cuda.cufft_plan_cache[i].clear()
+
+
 def rfft2vec(X, Nx=None):
     """The degrees of freedom of an rfft2 half plane (..., Ny, Nx//2+1) as
     a real vector (..., Ny*Nx): the real parts `fftsyms` marks, then the

@@ -59,8 +59,9 @@ def _bb(s, leaf):
     return s.reshape(s.shape + (1,) * (arr.ndim - s.ndim))
 
 
-def _axpy(a, x, y):
-    """y + a x, a per batch entry."""
+def tree_axpy(a, x, y):
+    """y + a x over the leaves (Fields or tensors) of tuples and lists; a
+    a scalar, or a tensor with one value a batch entry."""
     return _tmap(lambda xi, yi: yi + xi * _bb(a, xi), x, y)
 
 
@@ -87,9 +88,9 @@ def rk4_integrate(F, y0, t0, t1, nsteps: int):
     for i in range(nsteps):
         t = t0 + i * h
         k1 = F(t, y)
-        k2 = F(t + h / 2, _axpy(h / 2, k1, y))
-        k3 = F(t + h / 2, _axpy(h / 2, k2, y))
-        k4 = F(t + h, _axpy(h, k3, y))
+        k2 = F(t + h / 2, tree_axpy(h / 2, k1, y))
+        k3 = F(t + h / 2, tree_axpy(h / 2, k2, y))
+        k4 = F(t + h, tree_axpy(h, k3, y))
         y = _tmap(lambda yi, a, b, c, d: yi + (a + 2 * (b + c) + d) * (h / 6), y, k1, k2, k3, k4)
     return y
 
@@ -144,13 +145,13 @@ def conjugate_gradient(M, A, b, x0=None, nsteps=500, tol=1e-1, fixed_iters=False
         # convergence, where res and pAp underflow to 0
         alpha = torch.where(pAp != 0, res / torch.where(pAp != 0, pAp, torch.ones_like(pAp)),
                             torch.zeros_like(pAp))
-        x = _axpy(alpha, p, x)
-        r = _axpy(-alpha, Ap, r)
+        x = tree_axpy(alpha, p, x)
+        r = tree_axpy(-alpha, Ap, r)
         z = _solve(M, r)
         res_new = dot(r, z)
         beta = torch.where(res != 0, res_new / torch.where(res != 0, res, torch.ones_like(res)),
                            torch.zeros_like(res))
-        p = _axpy(beta, p, z)
+        p = tree_axpy(beta, p, z)
         better = res_new < bestres
         bestx = _where(better, x, bestx)
         bestres = torch.where(better, res_new, bestres)
@@ -203,11 +204,11 @@ def conjugate_gradient_with_history(M, A, b, x0=None, nsteps=100, tol=1e-1,
     for i in range(1, nsteps + 1):
         Ap = _apply(A, p)
         alpha = res / tree_dot(p, Ap)
-        x = _axpy(alpha, p, x)
-        r = _axpy(-alpha, Ap, r)
+        x = tree_axpy(alpha, p, x)
+        r = tree_axpy(-alpha, Ap, r)
         z = _solve(M, r)
         res_new = tree_dot(r, z)
-        p = _axpy(res_new / res, p, z)
+        p = tree_axpy(res_new / res, p, z)
         res = res_new
         if bool(torch.all(res < bestres)):
             bestres, bestx = res, x

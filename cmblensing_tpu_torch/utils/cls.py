@@ -211,6 +211,12 @@ class SpecSet(dict):
             raise AttributeError(k) from None
 
 
+class CMBSpectra(SpecSet):
+    """The theory spectra `camb()` and `load_camb_cls` return: one
+    SpecSet a component (unlensed_scalar, lensed_scalar, tensor,
+    unlensed_total, total), each with TT/EE/BB/TE/pp Cls, and `params`."""
+
+
 _DEFAULT_PARAMS = dict(r=0.2, ombh2=0.0224567, omch2=0.118489, tau=0.055, mnu=0.06,
                        theta_s=0.0104098, H0=None, logA=3.043, ns=0.968602,
                        AL=1, k_pivot=0.002)
@@ -219,7 +225,7 @@ _DEFAULT_PARAMS = dict(r=0.2, ombh2=0.0224567, omch2=0.118489, tau=0.055, mnu=0.
 @functools.lru_cache(maxsize=None)
 def _load_default_cls():
     z = np.load(_CLS_NPZ)
-    out = SpecSet()
+    out = CMBSpectra()
     for comp in ["unlensed_scalar", "lensed_scalar", "tensor", "unlensed_total", "total"]:
         d = SpecSet()
         for spec in ["TT", "EE", "BB", "TE", "pp"]:
@@ -285,8 +291,9 @@ def load_camb_cls(path_prefix, lmax=None,
     unlensed_total = SpecSet({k: unlensed_scalar[k] + tensor[k] for k in xs},
                              pp=Clpp, phiphi=Clpp)
     total = SpecSet({k: lensed_scalar[k] + tensor[k] for k in xs}, pp=Clpp, phiphi=Clpp)
-    return SpecSet(unlensed_scalar=unlensed_scalar, tensor=tensor, lensed_scalar=lensed_scalar,
-                   unlensed_total=unlensed_total, total=total, params=SpecSet())
+    return CMBSpectra(unlensed_scalar=unlensed_scalar, tensor=tensor,
+                      lensed_scalar=lensed_scalar, unlensed_total=unlensed_total,
+                      total=total, params=SpecSet())
 
 
 def noise_cls(muKarcminT, beamFWHM=0, lmax=8000, lknee=100, alphaknee=3):

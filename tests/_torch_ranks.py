@@ -1,5 +1,5 @@
 """Rank bodies of the port's parallel CPU tests (tests/test_torch_spatial.py,
-tests/test_torch_parallel.py), run as
+tests/test_torch_parallel.py, tests/test_torch_calibration.py), run as
 
     python tests/_torch_ranks.py GROUP RANK WORLD PORT DIR
 
@@ -228,6 +228,23 @@ def marg():
           f"checksum={float(torch.sum(phi.arr.double() ** 2)):.9e}", flush=True)
 
 
+def calibration(inp):
+    """tests/test_torch_calibration.py: sharded_sample_joint on the rows of
+    a 32^2 P map (seed 7) with an Aphi slice pass, from a prior draw of
+    phi and Aphi 2.5; the chain's Aphi values. inputs["run"] = k
+    (scripts/calibration_spread.py; 0, the test's, without it) adds k to
+    the seeds of the data, the phi start and the chain."""
+    k = int(inp.get("run", 0))
+    mesh = sp.spatial_mesh(device="cpu")
+    ds = _sim(32, seed=7 + k)["ds"]
+    phi0 = ds.simulate(_gen(123 + k))["phi"].to(ct.MAP)
+    ch = ct.sharded_sample_joint(_gen(11 + k), ds, mesh, nsamps=12, cg_nsteps=40, cg_tol=1e-2,
+                                 hmc_N=10, hmc_eps=0.02, phistart=phi0,
+                                 theta_range={"Aphi": (0.2, 3.0)}, theta_grid_n=24,
+                                 theta_start={"Aphi": 2.5})
+    return dict(Aphi=[e["Aphi"] for e in ch[0]])
+
+
 # =========================================================================
 # spawning the ranks (for the test modules)
 # =========================================================================
@@ -282,7 +299,7 @@ def main():
         path = os.path.join(outdir, "inputs.npz")
         inp = dict(np.load(path)) if os.path.exists(path) else {}
         inp["tmp"] = outdir
-        out = {"spatial": spatial, "parallel": parallel}[group](inp)
+        out = {"spatial": spatial, "parallel": parallel, "calibration": calibration}[group](inp)
         if int(rank) == 0:
             with open(os.path.join(outdir, "results.pkl"), "wb") as fh:
                 pickle.dump(out, fh)

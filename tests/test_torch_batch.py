@@ -10,7 +10,9 @@ both packages. Tolerances, relative max-abs, each with its reason:
   (1e-5; CG runs the same float32 algebra per entry), each entry against
   its own unbatched solve 1e-5 (the flows batch entries on one grid, whose
   sums run in the same order; measured at float32 round-off); CG's final
-  residual 1e-4 (RES_TOL, below).
+  residual 1e-4 (RES_TOL, below). At "auto" under fixed iterations the
+  port keeps its 'high' solve where JAX re-runs strict (ROADMAP Queue 3),
+  so that case holds the 'high' solve to JAX's strict one at HIGH_TOL.
 """
 import numpy as np
 import pytest
@@ -36,6 +38,10 @@ FSTEP_TOL = 1e-5
 # by cancellation, so its float32 round-off is that much larger relative
 # (measured 1.2e-5)
 RES_TOL = 1e-4
+# the port's 'high' solve against JAX's strict one: f and CG's residual
+# within the inexact-Krylov bound of tests/test_inference.py:267 (f
+# measured 1.3e-5, the residual 1.2e-4, the 'high' split's operator error)
+HIGH_TOL = 1e-3
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -240,19 +246,24 @@ def P32b():
 @pytest.mark.parametrize("which", ["strict", "auto"])
 def test_batched_argmaxf_matches_jax(P32b, which):
     """A batch of three distinct d and phi, strict and at the default
-    "auto" under fixed iterations: at tol 0 the 'high' solve misses its
-    strict check in both packages and the whole batch re-runs strict."""
+    "auto" under fixed iterations: at tol 0 the 'high' solve misses 1e-10
+    res0 in both packages; JAX re-runs the whole batch strict, and the port
+    keeps it, every entry's strict residual within AUTO_RECHECK_KAPPA of
+    the 'high' operator's own."""
+    from cmblensing_tpu_torch.inference.maximization import AUTO_RECHECK_KAPPA
     jf, jinfo = P32b["runs"][which]
     cg = STRICT if which == "strict" else CG
     tf, tinfo = ct.argmaxf_logpdf(P32b["tds"], phi=P32b["tphi"], conjgrad_kwargs=dict(cg))
     assert tf.batch_shape == (3,)
     assert tinfo["res"].shape == (3,) and tinfo["iterations"] == int(jinfo["iterations"])
-    fallback = which == "auto"
-    assert bool(tinfo.get("precision_fallback", False)) is fallback
-    assert bool(jinfo.get("precision_fallback", False)) is fallback
-    assert rel(tf.to(ct.QU_MAP).arr.numpy(), jf) < FSTEP_TOL
+    assert bool(tinfo.get("precision_fallback", False)) is False
+    assert bool(jinfo.get("precision_fallback", False)) is (which == "auto")
     assert rel(tinfo["res0"].numpy(), np.asarray(jinfo["res0"])) < FSTEP_TOL
-    assert rel(tinfo["res"].numpy(), np.asarray(jinfo["res"])) < RES_TOL
+    tol, res_tol = (FSTEP_TOL, RES_TOL) if which == "strict" else (HIGH_TOL, HIGH_TOL)
+    assert rel(tf.to(ct.QU_MAP).arr.numpy(), jf) < tol
+    assert rel(tinfo["res"].numpy(), np.asarray(jinfo["res"])) < res_tol
+    if which == "auto":
+        assert bool(torch.all(tinfo["res_strict"] <= AUTO_RECHECK_KAPPA * tinfo["res_high"]))
 
 
 def test_batched_argmaxf_entries_match_their_solo_solves(P32b):

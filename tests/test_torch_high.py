@@ -479,29 +479,31 @@ def test_autograd_backward_runs_at_the_forward_precision(monkeypatch):
 # argmaxf_logpdf and MAP_joint at "auto"
 # =========================================================================
 
-@pytest.mark.parametrize("cg,fallback", [(dict(tol=1e-4, nsteps=200), False),
-                                         (dict(tol=0.0, nsteps=3, fixed_iters=True), True)])
-def test_argmaxf_auto_matches_jax_verdict(P32, cg, fallback):
+@pytest.mark.parametrize("cg,jax_fallback,port_fallback", [
+    (dict(tol=1e-4, nsteps=200), False, False),
+    (dict(tol=0.0, nsteps=3, fixed_iters=True), True, False)])
+def test_argmaxf_auto_matches_jax_verdict(P32, cg, jax_fallback, port_fallback):
     """hessian_precision="auto" (the default on both sides): at tol=1e-4
-    the 'high' solve passes its strict-residual check in both packages; at
-    tol=0 with fixed iterations it misses 1e-10 res0 in both and re-runs
-    strict (info["precision_fallback"]), as every f-step of
-    scripts/map_1024.py does. f within the inexact-Krylov bound of
-    tests/test_inference.py:267 (1e-3 in norm; measured 8e-6), and equal to
-    JAX's strict solve to 1e-5 after a fallback."""
+    the 'high' solve passes its strict-residual check in both packages. At
+    tol=0 with fixed iterations it misses 1e-10 res0 in both: JAX re-runs
+    strict (info["precision_fallback"]); the port, by design (ROADMAP Queue
+    3), passes it where the strict residual is within AUTO_RECHECK_KAPPA of
+    the 'high' operator's own, as the count, not the operator, sets it here.
+    f within the inexact-Krylov bound of tests/test_inference.py:267 (1e-3
+    in norm; measured 8e-6) of JAX's, its strict solve after a fallback."""
     jf, jinfo = jm.argmaxf_logpdf(P32["jds"], phi=P32["jphi"], conjgrad_kwargs=dict(cg))
     tf, tinfo = ct.argmaxf_logpdf(P32["tds"], phi=P32["tphi"], conjgrad_kwargs=dict(cg))
-    assert bool(jinfo.get("precision_fallback", False)) is fallback
-    assert bool(tinfo.get("precision_fallback", False)) is fallback
+    assert bool(jinfo.get("precision_fallback", False)) is jax_fallback
+    assert bool(tinfo.get("precision_fallback", False)) is port_fallback
     out = tf.to(ct.Basis(jf.basis.pol, jf.basis.space)).arr.numpy()
     ref = np.array(jf.arr)
-    if fallback:
-        assert "res_strict" not in tinfo and rel(out, ref) < 1e-5
-    else:
-        assert bool(tinfo["precision_ok"])
-        bound = max(cg["tol"], 1e-10 * float(tinfo["res0"]))
-        assert float(tinfo["res_strict"]) <= bound
-        assert np.linalg.norm(out - ref) / np.linalg.norm(ref) < 1e-3
+    assert bool(tinfo["precision_ok"])
+    bound = max(cg["tol"], 1e-10 * float(tinfo["res0"]))
+    if cg.get("fixed_iters"):
+        assert float(tinfo["res_strict"]) > bound
+        bound = tm.AUTO_RECHECK_KAPPA * float(tinfo["res_high"])
+    assert float(tinfo["res_strict"]) <= bound
+    assert np.linalg.norm(out - ref) / np.linalg.norm(ref) < 1e-3
 
 
 MAP_CG = dict(tol=0.0, nsteps=2, fixed_iters=True)
@@ -514,8 +516,10 @@ def test_MAP_joint_auto_matches_jax(P32):
     bound 1e-5; the alphas come from the same strict grid, 1e-4. The first
     f-step, at phi = 0, passes its check (the preconditioner is then the
     Hessian itself, and CG converges at once); the later ones, 2 fixed
-    iterations at tol 0, miss 1e-10 res0 and re-run strict. No direction
-    retry fires."""
+    iterations at tol 0, miss 1e-10 res0, where JAX re-runs them strict,
+    but the port keeps them: their strict residual is within
+    AUTO_RECHECK_KAPPA of the 'high' operator's own (ROADMAP Queue 3). No
+    direction retry fires."""
     keys = ("logpdf", "alpha", "precision_fallback", "retry")
     jr = jm.MAP_joint(P32["jds"], nsteps=3, conjgrad_kwargs=MAP_CG,
                       history_keys=("logpdf", "alpha"))
@@ -527,7 +531,7 @@ def test_MAP_joint_auto_matches_jax(P32):
     ja = np.array([h["alpha"] for h in jr["history"]], np.float64)
     ta = np.array([h["alpha"] for h in tr["history"]])
     assert ta[0] > 0 and rel(ta, ja) < 1e-4
-    assert [h["precision_fallback"] for h in tr["history"]] == [False, True, True]
+    assert [h["precision_fallback"] for h in tr["history"]] == [False] * 3
     assert [h["retry"] for h in tr["history"]] == [False] * 3
 
 
@@ -599,7 +603,8 @@ def test_failed_retry_waits_for_a_step_that_moves(P32, monkeypatch):
 def test_MAP_joint_precision_none_is_strict_everywhere(P32, monkeypatch):
     """precision=None: strict gradients and f-steps with no 'high' solve
     and no retry; precision='f32' keeps the f-step's own "auto" default,
-    as the JAX package does."""
+    as the JAX package does (a 'high' solve a step, which passes its
+    fixed-iteration re-check here)."""
     calls = _spy_gradients(monkeypatch, tm, "_phi_grad_and_fmix", bad_high=False)
     seen = []
     real = tm._argmaxf_core
@@ -613,4 +618,4 @@ def test_MAP_joint_precision_none_is_strict_everywhere(P32, monkeypatch):
     assert calls == ["f32", "f32"] and seen == [None, None]
     calls.clear(), seen.clear()
     ct.MAP_joint(P32["tds"], nsteps=2, precision="f32", conjgrad_kwargs=MAP_CG)
-    assert calls == ["f32", "f32"] and seen == ["high", "high", None]
+    assert calls == ["f32", "f32"] and seen == ["high", "high"]

@@ -215,15 +215,23 @@ def test_uni_backend_MAP_joint_at_the_tiers_matches_kernel_backend(precision):
     assert np.isfinite(lu).all() and rel(lu, lk) < 1e-6
 
 
-@pytest.mark.parametrize("cg,fallback", [(dict(tol=100.0), False),
-                                         (dict(tol=0.0, nsteps=20, fixed_iters=True), True)])
-def test_uni_backend_IP_argmaxf_auto_gives_the_kernel_backends_verdict(IP32, cg, fallback):
+@pytest.mark.parametrize("cg,wrong,fallback", [
+    (dict(tol=100.0), False, False),
+    (dict(tol=0.0, nsteps=20, fixed_iters=True), False, False),
+    (dict(tol=0.0, nsteps=60, fixed_iters=True), True, True)])
+def test_uni_backend_IP_argmaxf_auto_gives_the_kernel_backends_verdict(IP32, monkeypatch, cg,
+                                                                       wrong, fallback):
     """argmaxf_logpdf at "auto" (the default hessian_precision) on the
     masked 32^2 IP data: the uni backend's fallback verdict is the kernel
     backend's, both ways (at tol 100 the 'high' solve passes its strict
-    check; at tol 0 with 20 fixed iterations it misses 1e-10 res0 and
-    re-runs strict; tests/test_torch_wiener.py says why these two), and
-    their f agree within 1e-4 in norm."""
+    check; at tol 0 with 20 fixed iterations it misses 1e-10 res0 but
+    passes the fixed-iteration re-check; with the 'high' Hessian made wrong
+    by 1e-2 relative, at 60 fixed iterations, it misses both and re-runs
+    strict; tests/test_torch_wiener.py says why these), and their f agree
+    within 1e-4 in norm."""
+    if wrong:
+        from test_torch_wiener import _wrong_high_hessian
+        _wrong_high_hessian(monkeypatch, IP32["tds"])
     out = {}
     for be in ("kernel", "uni"):
         with ct.lenseflow_backend_ctx(be):
